@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the flagship.
+
+    python3 chip_smoke.py            # all phases; needs one CUDA card
+
+Phases (each prints one ``PHASE`` line; any failure exits non-zero):
+
+1. device  — require CUDA; print the card's name and power limit
+   (``nvidia-smi``) and the ``nvcc`` version;
+2. build   — compile ``dpdk_dc_sand_tpu_torch/csrc/*.cu`` for sm_90a;
+3. k1      — K1 (fused F kernel) through its wrapper ``fengine_fused`` vs
+   its plain PyTorch version at the flagship fft, taps and S on 8 of the
+   160 (antenna, pol) batches, with two coarse delays that clamp: bf16 DFT
+   on flat streams, f32 DFT on the rowed view; within 1 int8 code on
+   <= 1e-3 of samples;
+4. k2      — K2 (fused B kernel) through ``beamform_turned_fused`` vs its
+   plain version at the flagship C and B with A=8, bf16 and f32 weights:
+   rtol 1e-5, atol 1e-3;
+5. engine  — FBEngine vs the plain F + plain B chain at 8 antennas x 32768
+   ch x 16 beams x 16 taps, S=256: F planes within 1 code on <= 1e-3,
+   |d| > 1e-3 on <= 5e-3 of beams, and every beam within the sum of |w|
+   over its differing F codes (+1e-3);
+6. flagship — FBEngine at 80 x 32768 x 16 x 16, S=256, wire-rowed ADC made
+   on the card from a seed: set_beam_delays, 3 steps, a delay update, 2
+   steps; both kernels' launch counters must rise, the beams must be finite
+   and of the packed shape; prints ms/step and Msamples/s. Then the last
+   step's beams must equal K2(K1(adc)) through the wrappers, and each
+   kernel is held against its plain version at these flagship shapes
+   (K1: 1 code on <= 1e-3; K2: rtol 1e-5, atol 1e-3) and timed beside it.
+
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("device", "build", "k1", "k2", "engine", "flagship")
+SEED = 2021
+#: F requant gain for fft 65536 on uniform +-64 noise: 1/16 (the reference
+#: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
+#: the int8 planes at a few tens of codes rms, so the checks see real values.
+QUANT_SCALE = 1 / 128
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 3) -> float:
+    """Mean ms per call of ``fn`` on the card (CUDA events, after one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def phase_device(st: dict) -> None:
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    st["card"] = smi[0].strip()
+    log(st["card"])  # name, power limit: exactly as nvidia-smi prints them
+    from dpdk_dc_sand_tpu_torch import _build
+
+    nvcc = _build.find_nvcc()
+    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True)
+    log(f"nvcc: {ver.stdout.strip().splitlines()[-1]}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+
+def phase_build(st: dict) -> None:
+    from dpdk_dc_sand_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, both kernels, into {_build.BUILD_DIR.name}/)")
+
+
+def _k1_plain(x, starts, window, rotc, rots, out, *, chunk, **kw):
+    """The plain K1 over ``chunk`` batches at a time into ``out`` (qr, qi)."""
+    from dpdk_dc_sand_tpu_torch.ops.fengine_fused import fengine_fused_reference
+
+    for b0 in range(0, x.shape[0], chunk):
+        b = slice(b0, b0 + chunk)
+        pr, pi = fengine_fused_reference(x[b], starts[b], window, rotc[b], rots[b], **kw)
+        out[0][b], out[1][b] = pr, pi
+
+
+def _code_diff(tag, got, ref):
+    """max |d| in int8 codes over (qr, qi); raise past 1 code or 1e-3 of samples."""
+    import torch
+
+    worst = 0
+    for name, g, r in zip(("qr", "qi"), got, ref):
+        d = (g.to(torch.int16) - r.to(torch.int16)).abs()
+        dmax, frac = int(d.max()), float((d != 0).float().mean())
+        sat = float((r.abs() == 127).float().mean())
+        rms = float(r.float().pow(2).mean().sqrt())
+        log(f"{tag} {name}: max|d| {dmax} code, frac(d!=0) {frac:.3e}; plain rms "
+            f"{rms:.1f} codes, saturated {sat:.2e}")
+        if dmax > 1 or frac > 1e-3:
+            raise AssertionError(f"{tag} {name} disagrees with plain: {dmax}, {frac}")
+        worst = max(worst, dmax)
+    return worst
+
+
+def _beam_diff(tag, got, ref):
+    """max |d| of f32 beams; raise outside rtol 1e-5, atol 1e-3."""
+    d = (got - ref).abs()
+    bad = int((d > 1e-3 + 1e-5 * ref.abs()).sum())
+    dmax = float(d.max())
+    log(f"{tag}: max|d| {dmax:.3e}, out of tol {bad}, |ref| max {float(ref.abs().max()):.1f}")
+    if bad:
+        raise AssertionError(f"{tag} disagrees with plain")
+    return dmax
+
+
+def phase_k1(st: dict) -> None:
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    fft, taps, s, lead = 65536, 16, 256, (4, 2)  # 8 of the flagship's 160 batches
+    nb = lead[0] * lead[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n1, n2 = ff._split_ct(fft)
+    out_len = (s + taps - 1) * fft
+    n_in = out_len + 4096  # a multiple of N2, so the rowed view exists
+    x = torch.randint(-64, 64, (*lead, n_in), dtype=torch.int8, device=dev, generator=gen)
+    cd = torch.randint(0, 4096, lead, device=dev, generator=gen)
+    cd[0, 0], cd[-1, -1] = -100, n_in  # both clamp, as dynamic_slice would
+    fd = torch.rand(lead, device=dev, generator=gen) - 0.5
+    ph = -3.14159265 * fd / 2
+    win = default_window(taps, fft, device=dev)
+    starts = clamp_starts(cd.reshape(nb), n_in, out_len)
+    rc, rs = (r.reshape(nb, -1) for r in ff.fine_rotation_planes(
+        fd, ph, n_channels=fft // 2, quant_scale=QUANT_SCALE))
+    worst = 0
+    # bf16 through the flat streams (the engine's form), f32 through the rowed view.
+    for dt, rowed in (("bfloat16", False), ("float32", True)):
+        frames = x.reshape(*lead, -1, n2) if rowed else x
+
+        def kern():
+            return ff.fengine_fused(frames, win, fd, ph, n_channels=fft // 2,
+                                    quant_scale=QUANT_SCALE, dft_dtype=dt,
+                                    coarse_delays=cd, n_spectra=s, rowed=rowed)
+
+        ref = tuple(torch.empty((nb, s, fft // 2), dtype=torch.int8, device=dev)
+                    for _ in range(2))
+
+        def plain():
+            _k1_plain(x.reshape(nb, -1), starts, win, rc, rs, ref, chunk=nb,
+                      n_spectra=s, n1=n1, n2=n2, dft_dtype=dt)
+
+        got = kern()
+        plain()
+        torch.cuda.synchronize()
+        worst = max(worst, _code_diff(f"k1 {dt} rowed={rowed}",
+                                      [g.reshape(nb, s, -1) for g in got], ref))
+        ms, pms = cuda_ms(kern), cuda_ms(plain, iters=1)
+        log(f"k1 {dt} [{nb} batches x S={s} x fft {fft}]: kernel {ms:.3f} ms, "
+            f"plain {pms:.3f} ms ({st['card']})")
+        if dt == "bfloat16":
+            st["k1_subset"] = dict(subset_ms=ms, subset_plain_ms=pms)
+    st["k1_subset"]["subset_max_abs_err"] = float(worst)
+
+
+def _planes(torch, a, p, s, c, gen, dev):
+    return tuple(
+        torch.randint(-127, 128, (a, p, s, c), dtype=torch.int8, device=dev, generator=gen)
+        for _ in range(2)
+    )
+
+
+def _blocks(torch, n_beams, a, c, gen, dev, dtype):
+    from dpdk_dc_sand_tpu_torch.ops.coeff_gen import steering_coeff_blockcat, steering_coeffs
+
+    dv = torch.zeros((n_beams, a, 4), device=dev)
+    dv[..., 0] = torch.rand((n_beams, a), device=dev, generator=gen) * 5e-9
+    dv[..., 2] = (torch.rand((n_beams, a), device=dev, generator=gen) * 2 - 1) * 3.14159265
+    cos, sin = steering_coeffs(dv, n_channels=c, n_channels_per_stream=c,
+                               sample_period=1 / 1712e6)
+    return steering_coeff_blockcat(cos, sin).to(dtype)
+
+
+def phase_k2(st: dict) -> None:
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import bstage
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    a, p, s, c, nbeam = 8, 2, 256, 32768, 16
+    qr, qi = _planes(torch, a, p, s, c, gen, dev)
+    for prec, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        w = _blocks(torch, nbeam, a, c, gen, dev, dtype)
+        got = bstage.beamform_turned_fused(qr, qi, w, n_pols=p, precision=prec,
+                                           layout="packed")
+        ref = bstage.beamform_turned_fused_reference(qr, qi, w, prec)
+        torch.cuda.synchronize()
+        _beam_diff(f"k2 {prec} [A={a} C={c} B={nbeam} S={s}]", got, ref)
+
+
+def phase_engine(st: dict) -> None:
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FBEngine
+    from dpdk_dc_sand_tpu_torch.ops import bstage, fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(n_ants=8, n_channels=32768, n_beams=16, n_taps=16)
+    a, p, s = cfg.n_ants, cfg.n_pols, 256
+    fb = FBEngine(cfg, n_spectra=s, quant_scale=QUANT_SCALE, precision="bf16",
+                  beam_layout="natural", device=dev)
+    adc, cd, fd, ph, dv = fb.example_inputs(seed=SEED, margin=8192, rowed=True)
+    fb.set_beam_delays(dv)
+    out = fb.step(adc, cd, fd, ph)
+    # The plain chain on the same device tensors.
+    n1, n2 = ff._split_ct(cfg.fft_size)
+    flat = torch.as_tensor(adc, device=dev).reshape(a, p, -1)
+    cdt = torch.as_tensor(cd, device=dev).reshape(a, 1).expand(a, p)
+    starts = clamp_starts(cdt.reshape(-1), flat.shape[-1], fb.samples_in)
+    rot = fb._fine_rot(fd, ph)
+    rc, rs = (r.reshape(a * p, -1) for r in rot)
+    shape = (a, p, s, cfg.n_channels)
+    qr, qi = (torch.empty(shape, dtype=torch.int8, device=dev) for _ in range(2))
+    _k1_plain(flat.reshape(a * p, -1), starts, fb.window, rc, rs,
+              (qr.view(a * p, s, -1), qi.view(a * p, s, -1)), chunk=a * p,
+              n_spectra=s, n1=n1, n2=n2, dft_dtype="bfloat16")
+    ref = bstage.beamform_turned_fused_reference(qr, qi, fb.coeff_blocks, "bf16")
+    # The F planes the step fed to K2 (the same kernel on the same inputs).
+    kr, ki = ff.fengine_fused(flat, fb.window, None, None, n_channels=cfg.n_channels,
+                              quant_scale=QUANT_SCALE, coarse_delays=cdt, n_spectra=s,
+                              rot_planes=rot)
+    _code_diff("engine F plane", (kr, ki), (qr, qi))
+    # Each beam moves by at most sum |w| over the F codes that differ
+    # (by <= 1 each): the exact bound K1's tolerance allows. (The fixed
+    # max |d| <= 2 of the small CPU slice does not hold at this size: a
+    # beam sums 16 codes, and 537 M beams at a flip rate ~1e-4 expect ~1
+    # beam with three flips.)
+    dr = (kr.to(torch.int16) - qr.to(torch.int16)).abs().to(torch.int8)
+    di = (ki.to(torch.int16) - qi.to(torch.int16)).abs().to(torch.int8)
+    bound = bstage.beamform_turned_fused_reference(dr, di, fb.coeff_blocks.float().abs(), "f32")
+    torch.cuda.synchronize()
+    d = (out - ref).abs()
+    dmax, frac = float(d.max()), float((d > 1e-3).float().mean())
+    over = int((d > bound + 1e-3 + 1e-5 * ref.abs()).sum())
+    log(f"engine [A=8 C=32768 B=16 taps=16 S=256]: max|d| {dmax:.4f} (flip bound "
+        f"{float(bound.max()):.4f}), frac(|d|>1e-3) {frac:.3e}, over bound {over}, "
+        f"|ref| max {float(ref.abs().max()):.1f}")
+    if not bool(torch.isfinite(out).all()) or over or frac > 5e-3:
+        raise AssertionError("engine disagrees with the plain chain")
+
+
+def phase_flagship(st: dict) -> None:
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FBEngine
+    from dpdk_dc_sand_tpu_torch.ops import bstage, fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+    from dpdk_dc_sand_tpu_torch.ops.fengine_fused import ingest_alignment
+
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(n_ants=80, n_channels=32768, n_beams=16, n_taps=16)
+    a, p, s, c = cfg.n_ants, cfg.n_pols, 256, cfg.n_channels
+    fb = FBEngine(cfg, n_spectra=s, quant_scale=QUANT_SCALE, precision="bf16",
+                  beam_layout="natural", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rng = np.random.default_rng(SEED)
+    margin = 8192
+    cd = rng.integers(0, margin, a).astype(np.int32)
+    fd = rng.uniform(-0.5, 0.5, a).astype(np.float32)
+    ph = (-np.pi * fd / 2).astype(np.float32)
+    dv = np.zeros((cfg.n_beams, a, 4), np.float32)
+    dv[..., 0] = rng.uniform(0, 5e-9, dv.shape[:-1])
+    dv[..., 2] = rng.uniform(-np.pi, np.pi, dv.shape[:-1])
+    n2 = ingest_alignment(cfg.fft_size)
+    rows = (fb.samples_in + margin) // n2
+    adc = torch.empty((a, p, rows, n2), dtype=torch.int8, device=dev)
+    torch.cuda.synchronize()
+
+    ff.fengine_fused.launches = 0
+    bstage.beamform_turned_fused.launches = 0
+    times = []
+    out = None
+
+    def timed_step():
+        nonlocal out
+        adc.random_(-64, 64, generator=gen)  # fresh wire-rowed ADC every step
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fb.step(adc, cd, fd, ph)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+
+    fb.set_beam_delays(dv)
+    for _ in range(3):
+        timed_step()
+    dv[..., 2] += 0.25  # delay update: new steering phases and fine delays
+    fd = (fd * 0.5).astype(np.float32)
+    fb.set_beam_delays(dv, t_s=1e-3)
+    for _ in range(2):
+        timed_step()
+    launches = {"k1": ff.fengine_fused.launches, "k2": bstage.beamform_turned_fused.launches}
+    log(f"flagship launches: {launches}")
+    if launches["k1"] < 1 or launches["k2"] < 1:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    want = (c // 4, p * s, 128)
+    if tuple(out.shape) != want or out.dtype != torch.float32:
+        raise AssertionError(f"beams {tuple(out.shape)} {out.dtype}, want {want}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite beams")
+    samples = a * p * s * cfg.fft_size
+    ms = float(np.median(times[1:]))
+    log(f"flagship [80 ant x 32768 ch x 16 beams x 16 taps, S=256]: step ms "
+        f"{['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
+        f"{samples / ms / 1e3:.1f} Msamples/s ({st['card']})")
+    st["launches"] = launches
+
+    # The last step again, kernel by kernel through the wrappers (these
+    # launches come after the count was read), each held against its plain
+    # version at the flagship shapes.
+    flat = adc.reshape(a, p, -1)
+    cdt = torch.as_tensor(cd, device=dev).reshape(a, 1).expand(a, p)
+    rot = (fb.rot_cos, fb.rot_sin)
+    w = fb.coeff_blocks
+
+    def k1():
+        return ff.fengine_fused(flat, fb.window, None, None, n_channels=c,
+                                quant_scale=QUANT_SCALE, coarse_delays=cdt,
+                                n_spectra=s, rot_planes=rot)
+
+    qr, qi = k1()
+
+    def k2():
+        return bstage.beamform_turned_fused(qr, qi, w, n_pols=p, precision="bf16",
+                                            layout="packed")
+
+    beams = k2()
+    torch.cuda.synchronize()
+    if not torch.equal(beams, out):
+        raise AssertionError("the engine's beams are not K2(K1(adc)) of its last step")
+    n1, _ = ff._split_ct(cfg.fft_size)
+    x = flat.reshape(a * p, -1)
+    starts = clamp_starts(cdt.reshape(-1), x.shape[1], fb.samples_in)
+    rc, rs = (r.reshape(a * p, -1) for r in rot)
+    pq = tuple(torch.empty((a * p, s, c), dtype=torch.int8, device=dev) for _ in range(2))
+
+    def k1_plain():  # 8 batches at a time bounds its f32 temporaries
+        _k1_plain(x, starts, fb.window, rc, rs, pq, chunk=8,
+                  n_spectra=s, n1=n1, n2=n2, dft_dtype="bfloat16")
+
+    k1_plain()
+    torch.cuda.synchronize()
+    k1_err = _code_diff("flagship k1", (qr.view(a * p, s, c), qi.view(a * p, s, c)), pq)
+    ref = bstage.beamform_turned_fused_reference(qr, qi, w, "bf16")
+    k2_err = _beam_diff("flagship k2 [A=80 C=32768 B=16 S=256]", beams, ref)
+    del beams, ref
+    k1_ms, k1_plain_ms = cuda_ms(k1, iters=2), cuda_ms(k1_plain, iters=1)
+    k2_ms = cuda_ms(k2)
+    k2_plain_ms = cuda_ms(lambda: bstage.beamform_turned_fused_reference(qr, qi, w, "bf16"),
+                          iters=1)
+    log(f"flagship kernels: K1 {k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms, "
+        f"K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms ({st['card']})")
+    st["k1"] = dict(max_abs_err=float(k1_err), ms=k1_ms, plain_ms=k1_plain_ms,
+                    **st["k1_subset"])
+    st["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms)
+
+
+def main() -> int:
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        log("FAIL device: torch.cuda.is_available() is False")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    st: dict = {}
+    fns = {n: globals()[f"phase_{n}"] for n in PHASES}
+    for name in PHASES:
+        t0 = time.perf_counter()
+        try:
+            fns[name](st)
+        except Exception as e:  # report the phase, then fail the run
+            log(f"PHASE {name} FAILED after {time.perf_counter() - t0:.1f} s: "
+                f"{type(e).__name__}: {e}")
+            raise
+        log(f"PHASE {name} ok ({time.perf_counter() - t0:.1f} s)")
+    ref = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dpdk_dc_sand_tpu"))
+    if ref:
+        raise AssertionError(f"the port pulled in JAX or the reference package: {ref}")
+    kernels = [
+        dict(name="fengine_ct", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
+             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504",
+             launches=st["launches"]["k1"], **st["k1"]),
+        dict(name="bstage_fused", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
+             replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69",
+             launches=st["launches"]["k2"], **st["k2"]),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""dpdk_dc_sand_tpu_torch — the F+B signal chain on PyTorch + CUDA (Hopper).
+
+A port of :mod:`dpdk_dc_sand_tpu` (the JAX/Pallas reference, which stays
+beside it unchanged) to PyTorch on one NVIDIA H100. The layout mirrors the
+reference so each counterpart is easy to find:
+
+- :mod:`.ops`: plain tensor ops (requant, delay, steering coefficients,
+  composed PFB) and the two kernel wrappers — :mod:`.ops.fengine_fused`
+  (K1: FIR + two-stage Cooley–Tukey rDFT + fine delay + int8 requant) and
+  :mod:`.ops.bstage` (K2: corner turn + multi-beam dot).
+- :mod:`.csrc`: the hand-written CUDA C++ kernels for ``sm_90a``, built
+  with ``nvcc`` at first use by :mod:`._build` and bound with ctypes.
+- :mod:`.models`: :class:`~.models.fbengine.FBEngine`, the flagship F+B
+  step.
+- :mod:`.config`: :class:`ArrayConfig` and :class:`DelayModel`.
+- :mod:`.convert`: loads the reference engine's state into the port.
+
+The package imports ``torch`` and numpy, never ``jax`` and nothing of the
+reference package, so it runs on a machine that has neither.
+"""
+
+__version__ = "0.1.0"
+
+from dpdk_dc_sand_tpu_torch.config import ArrayConfig, DelayModel  # noqa: F401

@@ -1,0 +1,134 @@
+"""Build the CUDA kernels at first use and bind them with ctypes.
+
+Counterpart of ``dpdk_dc_sand_tpu/native/build.py``, with one deliberate
+difference: a missing ``nvcc`` or a failed build RAISES (with the
+compiler's stderr). There is no fallback — a wrapper handed a CUDA tensor
+launches its kernel or fails loudly.
+
+``csrc/*.cu`` compile into one shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o <build>/libdcsand_kernels_<hash>.so csrc/*.cu
+
+The library lands in ``_kernel_build/`` next to this file (ignored by git),
+keyed by a hash of the sources and flags, so an edited kernel rebuilds and
+an unchanged one loads in milliseconds. Every pointer and the stream are
+passed as ``ctypes.c_void_p``; each launch function returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_kernel_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+#: Where the CUDA toolkit usually puts nvcc when it is not on PATH.
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+#: C signatures of the launch functions in csrc/ (all return cudaError_t).
+_SIGNATURES = {
+    "fengine_ct_launch": [
+        _P, _L, _P,  # x, batch stride (samples), starts [B] int64
+        _P, _P, _P, _P, _P, _P,  # window, d1c, d1s, d2 stack, twc, tws
+        _P, _P,  # rotc, rots [B, C]
+        _P, _P,  # outr, outi [B, S, C]
+        _I, _I, _I, _I, _I, _I,  # batch, n_spectra, n_taps, n1, n2, bf16
+        _P, _P, _P,  # bf16 copies of d1c, d1s, d2
+        _P,  # stream
+    ],
+    "bstage_fused_launch": [
+        _P, _P, _P, _I,  # qr, qi, w, w_is_bf16
+        _P,  # out [C/pack, P·S, pack·2B]
+        _I, _I, _I, _I,  # n_ants, P·S, n_channels, 2B
+        _P,  # stream
+    ],
+}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``, or raise naming what was searched."""
+    cands = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    cands.append(DEFAULT_NVCC)
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (searched PATH, $CUDA_HOME/bin, $CUDA_PATH/bin, "
+        f"{DEFAULT_NVCC}): the CUDA kernels of dpdk_dc_sand_tpu_torch "
+        "are compiled from csrc/ at first use and need the CUDA toolkit"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(nvcc: str) -> str:
+    h = hashlib.blake2b(digest_size=8)
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + [nvcc]).encode())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` (if not cached) and return the library path."""
+    nvcc = find_nvcc()
+    lib = BUILD_DIR / f"libdcsand_kernels_{_digest(nvcc)}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp)]
+    cmd += [str(s) for s in _sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stderr}{proc.stdout}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.dcsand_error_string.argtypes = [ctypes.c_int]
+            lib.dcsand_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if err:
+        msg = lib.dcsand_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")

@@ -1,0 +1,56 @@
+"""Carry the reference engine's state into the port.
+
+:func:`from_reference_state` loads the JAX ``FBEngine``'s window, steering
+blocks and fine-rotation planes — handed over as numpy arrays
+(``np.asarray(fb.window)``, ``np.asarray(fb._coeff_blocks)``,
+``[np.asarray(r) for r in fb._rot_planes]``) — into a port engine's buffers
+and caches. Both packages then run their kernels on identical operands, so
+a comparison isolates the kernels from cos/sin ulp differences between the
+two frameworks. Nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dpdk_dc_sand_tpu_torch.models.fbengine import FBEngine, _rot_key
+from dpdk_dc_sand_tpu_torch.ops.coeff_gen import steering_key
+
+
+def from_reference_state(
+    engine: FBEngine,
+    window,
+    coeff_blocks,
+    rot_planes,
+    *,
+    delay_vals,
+    frac_delays,
+    phases,
+    ant_weights=None,
+    t_s: float = 0.0,
+) -> FBEngine:
+    """Load reference state into ``engine`` for the given delay solution.
+
+    ``window`` ``[taps, fft]`` f32; ``coeff_blocks`` ``[C, 2A, 2B]`` (stored
+    in the engine's precision dtype); ``rot_planes`` ``(cos, sin)`` each
+    ``[A, P, N2/2, N1]`` f32. The caches are keyed to ``delay_vals`` /
+    ``ant_weights`` / ``t_s`` and ``frac_delays`` / ``phases``, so steps with
+    that solution use the loaded state until the solution changes.
+    """
+    cfg = engine.cfg
+    dev = engine.device
+    win = torch.as_tensor(np.array(window, np.float32), device=dev)
+    if tuple(win.shape) != (cfg.n_taps, cfg.fft_size):
+        raise ValueError(f"window shape {tuple(win.shape)}")
+    dtype = torch.bfloat16 if engine.precision == "bf16" else torch.float32
+    blocks = torch.as_tensor(np.array(coeff_blocks, np.float32), device=dev)
+    if tuple(blocks.shape) != (cfg.n_channels, 2 * cfg.n_ants, 2 * cfg.n_beams):
+        raise ValueError(f"coeff_blocks shape {tuple(blocks.shape)}")
+    rc, rs = (torch.as_tensor(np.array(r, np.float32), device=dev) for r in rot_planes)
+    engine.window = win
+    engine.coeff_blocks = blocks.to(dtype)
+    engine.rot_cos, engine.rot_sin = rc, rs
+    engine._coeff_key = steering_key(delay_vals, ant_weights, t_s)
+    engine._rot_key = _rot_key(frac_delays, phases)
+    return engine

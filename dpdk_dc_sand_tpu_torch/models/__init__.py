@@ -1,0 +1,3 @@
+"""Signal-chain models of the port (mirrors ``dpdk_dc_sand_tpu/models``)."""
+
+from dpdk_dc_sand_tpu_torch.models.fbengine import FBEngine  # noqa: F401

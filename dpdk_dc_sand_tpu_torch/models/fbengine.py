@@ -1,0 +1,354 @@
+"""Fused F+B pipeline — the flagship single-device model (counterpart of ``dpdk_dc_sand_tpu/models/fbengine.py``).
+
+ADC streams -> coarse delay -> PFB channelise -> fine delay -> requantise
+(K1, :func:`~dpdk_dc_sand_tpu_torch.ops.fengine_fused.fengine_fused`) ->
+corner turn + multi-beam beamform (K2,
+:func:`~dpdk_dc_sand_tpu_torch.ops.bstage.beamform_turned_fused`). Two
+kernel launches per step; the steering blocks and fine-rotation planes are
+regenerated only when the delay solution's values change (the
+256-accumulation cadence).
+
+The reference's TPU schedule knobs (``fengine_s_blk``, ``_vmem_mb``,
+``_pipeline``, ``_tapouter``, ``_bfuse``, ``_skew``, ``_rolling``,
+``_native_handoff``, ``_flat_out``, ``ct_batch_a``) are Mosaic scheduling,
+not semantics, and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+from torch import nn
+
+from dpdk_dc_sand_tpu_torch.config import ArrayConfig
+from dpdk_dc_sand_tpu_torch.ops.bstage import (
+    beamform_turned_fused,
+    bstage_fused_supported,
+)
+from dpdk_dc_sand_tpu_torch.ops.coeff_gen import (
+    steering_coeff_blockcat,
+    steering_coeffs,
+    steering_key,
+    to_numpy,
+)
+from dpdk_dc_sand_tpu_torch.ops.fengine_fused import (
+    fengine_fused,
+    fine_rotation_planes,
+    ingest_alignment,
+)
+from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+from dpdk_dc_sand_tpu_torch.ops.requant import requantise
+
+_NOT_PORTED = "is not ported yet (see ROADMAP.md, queue 1)"
+
+
+def _rot_key(frac_delays, phases) -> str:
+    """Content digest of the fine-delay solution (the rotation-plane cache key)."""
+    fdn = np.ascontiguousarray(to_numpy(frac_delays), np.float32)
+    phn = np.ascontiguousarray(to_numpy(phases), np.float32)
+    return hashlib.blake2b(fdn.tobytes() + phn.tobytes(), digest_size=16).hexdigest()
+
+
+class FBEngine(nn.Module):
+    """End-to-end F+B signal chain over the full band on one device.
+
+    Parameters
+    ----------
+    cfg:
+        System configuration; all ``cfg.n_channels`` channels are
+        channelised and beamformed.
+    n_spectra:
+        Spectra per step (time samples per channel).
+    quant_scale:
+        F-engine output requantisation gain.
+    precision:
+        Beamform precision, ``"f32"`` or ``"bf16"`` (steering blocks are
+        stored in this dtype).
+    fengine:
+        ``"auto"`` / ``"fused"`` (K1, bf16 DFT operands) or ``"fused_f32"``
+        (K1 with f32 DFT operands).
+    bstage:
+        ``"auto"`` / ``"fused"`` (K2).
+    beam_quant_scale:
+        When set, beams are requantised to int8 with this gain.
+    beam_layout:
+        ``"split"``: ``[P, C, S, B, 2]`` beams. ``"natural"``: K2's packed
+        ``[C/pack, P·S, pack·2B]`` wire format, no epilogue.
+    device:
+        Where the buffers live and the step runs.
+    """
+
+    def __init__(
+        self,
+        cfg: ArrayConfig,
+        n_spectra: int = 256,
+        quant_scale: float = 1.0 / 16.0,
+        precision: str = "f32",
+        fengine: str = "auto",
+        bstage: str = "auto",
+        beam_quant_scale: float | None = None,
+        beam_layout: str = "split",
+        device: torch.device | str = "cpu",
+    ) -> None:
+        super().__init__()
+        if fengine == "auto":
+            fengine = "fused"
+        if fengine not in ("fused", "fused_f32"):
+            raise NotImplementedError(f"fengine backend {fengine!r} {_NOT_PORTED}")
+        if bstage == "auto":
+            bstage = "fused"
+        if bstage != "fused":
+            raise NotImplementedError(f"bstage backend {bstage!r} {_NOT_PORTED}")
+        if not bstage_fused_supported(
+            cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_beams, cfg.n_channels
+        ):
+            raise NotImplementedError(
+                f"the fused B stage does not cover this geometry ({cfg}, "
+                f"n_spectra={n_spectra}); the other B forms {_NOT_PORTED}"
+            )
+        if beam_layout not in ("split", "natural"):
+            raise ValueError(f"unknown beam_layout {beam_layout!r}")
+        if precision not in ("f32", "bf16"):
+            raise ValueError(f"unknown precision {precision!r}")
+        self.cfg = cfg
+        self.n_spectra = n_spectra
+        self.quant_scale = quant_scale
+        self.precision = precision
+        self.fengine = fengine
+        self.bstage = bstage
+        self.beam_quant_scale = beam_quant_scale
+        self.beam_layout = beam_layout
+        self.device = torch.device(device)
+        self.register_buffer("window", default_window(cfg.n_taps, cfg.fft_size, self.device))
+        #: Steering blocks [C, 2A, 2B] (precision dtype) and fine-rotation
+        #: planes [A, P, N2/2, N1] f32: content-keyed delay-update caches.
+        self.register_buffer("coeff_blocks", None)
+        self.register_buffer("rot_cos", None)
+        self.register_buffer("rot_sin", None)
+        self._coeff_key = None
+        self._rot_key = None
+
+    @property
+    def samples_in(self) -> int:
+        return (self.n_spectra + self.cfg.n_taps - 1) * self.cfg.fft_size
+
+    def _tensor(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def set_beam_delays(self, delay_vals, ant_weights=None, t_s: float = 0.0) -> None:
+        """(Re)generate the steering blocks from ``[B, A, 4]`` delay polynomials.
+
+        Regenerated only when the values of ``delay_vals`` / ``ant_weights``
+        / ``t_s`` change (content digest, :func:`steering_key`).
+        ``ant_weights``: optional ``[A]`` magnitude weights folded in;
+        ``t_s``: seconds past the polynomial epoch (rates extrapolate).
+        """
+        key = steering_key(delay_vals, ant_weights, t_s)
+        if self.coeff_blocks is None or key != self._coeff_key:
+            w = (
+                torch.ones(self.cfg.n_ants, dtype=torch.float32, device=self.device)
+                if ant_weights is None
+                else self._tensor(ant_weights, torch.float32)
+            )
+            self.coeff_blocks = _coeff_blocks(
+                self._tensor(delay_vals), w, t_s, cfg=self.cfg,
+                dtype=torch.bfloat16 if self.precision == "bf16" else torch.float32,
+            )
+            self._coeff_key = key
+
+    def _fine_rot(self, frac_delays, phases) -> tuple[torch.Tensor, torch.Tensor]:
+        """Cached fine-delay rotation planes, content-keyed like the blocks."""
+        key = _rot_key(frac_delays, phases)
+        if self.rot_cos is None or key != self._rot_key:
+            cfg = self.cfg
+            fd = self._tensor(frac_delays, torch.float32)[:, None]
+            ph = self._tensor(phases, torch.float32)[:, None]
+            self.rot_cos, self.rot_sin = fine_rotation_planes(
+                fd.expand(cfg.n_ants, cfg.n_pols),
+                ph.expand(cfg.n_ants, cfg.n_pols),
+                n_channels=cfg.n_channels,
+                quant_scale=self.quant_scale,
+            )
+            self._rot_key = key
+        return self.rot_cos, self.rot_sin
+
+    def step(self, adc, coarse_delays, frac_delays, phases) -> torch.Tensor:
+        """Hot-loop step using the cached steering blocks."""
+        if self.coeff_blocks is None:
+            raise RuntimeError("call set_beam_delays() first")
+        return _fb_step(
+            self._tensor(adc),
+            self._tensor(coarse_delays),
+            self.window,
+            self.coeff_blocks,
+            self._fine_rot(frac_delays, phases),
+            cfg=self.cfg,
+            n_spectra=self.n_spectra,
+            quant_scale=self.quant_scale,
+            precision=self.precision,
+            fengine=self.fengine,
+            beam_quant_scale=self.beam_quant_scale,
+            beam_layout=self.beam_layout,
+        )
+
+    def forward(self, adc, coarse_delays, frac_delays, phases, delay_vals):
+        """One pipeline step (``set_beam_delays(delay_vals)`` then :meth:`step`).
+
+        ``adc``: ``[A, P, n_in]`` or wire-rowed ``[A, P, rows, N2]`` int8 with
+        delay margin; ``coarse_delays`` / ``frac_delays`` / ``phases``:
+        ``[A]``; ``delay_vals``: ``[B, A, 4]`` f32 steering polynomials.
+        Returns ``[P, C, S, B, 2]`` beams (``beam_layout="split"``) or the
+        packed ``[C/pack, P·S, pack·2B]`` form (``"natural"``).
+        """
+        self.set_beam_delays(delay_vals)
+        return self.step(adc, coarse_delays, frac_delays, phases)
+
+    def example_inputs(
+        self, seed: int = 2021, margin: int = 64,
+        delay_budget: int | None = None, rowed: bool = False,
+    ):
+        """Random numpy inputs for one step — the same arrays as the reference.
+
+        ``margin`` is the total trailing headroom beyond ``samples_in``;
+        ``delay_budget`` bounds the drawn coarse delays (default: the whole
+        margin). ``rowed=True`` returns the ADC as ``[A, P, rows, N2]``,
+        which needs ``samples_in + margin`` to be a multiple of
+        :func:`~dpdk_dc_sand_tpu_torch.ops.fengine_fused.ingest_alignment`.
+        """
+        rng = np.random.default_rng(seed)
+        cfg = self.cfg
+        adc = rng.integers(
+            -64, 64, size=(cfg.n_ants, cfg.n_pols, self.samples_in + margin),
+            dtype=np.int8,
+        )
+        if rowed:
+            n2 = ingest_alignment(cfg.fft_size)
+            if n2 is None or adc.shape[-1] % n2:
+                raise ValueError(
+                    "rowed example inputs need an N2-aligned stream "
+                    "length (geometry must take the direct-CT kernel)"
+                )
+            adc = adc.reshape(cfg.n_ants, cfg.n_pols, -1, n2)
+        if delay_budget is None:
+            delay_budget = margin
+        cd = rng.integers(0, delay_budget, size=cfg.n_ants).astype(np.int32)
+        fd = rng.uniform(-0.5, 0.5, cfg.n_ants).astype(np.float32)
+        ph = (-np.pi * fd / 2).astype(np.float32)
+        dv = np.zeros((cfg.n_beams, cfg.n_ants, 4), np.float32)
+        dv[..., 0] = rng.uniform(0, 5e-9, dv.shape[:-1])
+        dv[..., 2] = rng.uniform(-np.pi, np.pi, dv.shape[:-1])
+        return adc, cd, fd, ph, dv
+
+
+def _coeff_blocks(
+    delay_vals: torch.Tensor,
+    ant_weights: torch.Tensor,
+    t_s: float = 0.0,
+    *,
+    cfg: ArrayConfig,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """``[B, A, 4]`` delay polynomials -> ``[C, 2A, 2B]`` block-concat weights."""
+    cos, sin = steering_coeffs(
+        delay_vals,
+        n_channels=cfg.n_channels,
+        n_channels_per_stream=cfg.n_channels,
+        sample_period=cfg.sample_period,
+        xeng_id=0,
+        t_s=t_s,
+    )
+    return steering_coeff_blockcat(cos * ant_weights, sin * ant_weights).to(dtype)
+
+
+def _f_stage(
+    adc: torch.Tensor,
+    coarse_delays: torch.Tensor,
+    window: torch.Tensor,
+    rot_planes: tuple[torch.Tensor, torch.Tensor],
+    *,
+    cfg: ArrayConfig,
+    n_spectra: int,
+    quant_scale: float,
+    fengine: str = "fused",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Coarse delay + PFB + fine delay + requantise: int8 ``(qr, qi)`` ``[A, P, S, C]``.
+
+    The ADC may be flat ``[A, P, n]`` or wire-rowed ``[A, P, rows, N2]``;
+    both are views of the same bytes.
+    """
+    flat = adc.reshape(cfg.n_ants, cfg.n_pols, -1)
+    return fengine_fused(
+        flat,
+        window,
+        None,
+        None,
+        n_channels=cfg.n_channels,
+        quant_scale=quant_scale,
+        dft_dtype="float32" if fengine == "fused_f32" else "bfloat16",
+        coarse_delays=coarse_delays.reshape(cfg.n_ants, 1).expand(
+            cfg.n_ants, cfg.n_pols
+        ),
+        n_spectra=n_spectra,
+        rot_planes=rot_planes,
+    )
+
+
+def _b_stage(
+    qr: torch.Tensor,
+    qi: torch.Tensor,
+    coeff_blocks: torch.Tensor,
+    *,
+    cfg: ArrayConfig,
+    precision: str,
+    beam_quant_scale: float | None = None,
+    beam_layout: str = "split",
+) -> torch.Tensor:
+    """Corner turn + multi-beam matmul (+ beam requant).
+
+    ``beam_layout="natural"``: packed ``[C/pack, P·S, pack·2B]``;
+    ``"split"``: ``[P, C, S, B, 2]``.
+    """
+    if beam_layout == "natural":
+        out = beamform_turned_fused(
+            qr, qi, coeff_blocks, n_pols=cfg.n_pols, precision=precision,
+            layout="packed",
+        )
+        if beam_quant_scale is not None:
+            out = requantise(out, beam_quant_scale)
+        return out
+    beam_re, beam_im = beamform_turned_fused(
+        qr, qi, coeff_blocks, n_pols=cfg.n_pols, precision=precision,
+        layout="split",
+    )
+    if beam_quant_scale is not None:
+        beam_re = requantise(beam_re, beam_quant_scale)
+        beam_im = requantise(beam_im, beam_quant_scale)
+    return torch.stack([beam_re, beam_im], dim=-1)
+
+
+def _fb_step(
+    adc: torch.Tensor,
+    coarse_delays: torch.Tensor,
+    window: torch.Tensor,
+    coeff_blocks: torch.Tensor,
+    rot_planes: tuple[torch.Tensor, torch.Tensor],
+    *,
+    cfg: ArrayConfig,
+    n_spectra: int,
+    quant_scale: float,
+    precision: str,
+    fengine: str = "fused",
+    beam_quant_scale: float | None = None,
+    beam_layout: str = "split",
+) -> torch.Tensor:
+    qr, qi = _f_stage(
+        adc, coarse_delays, window, rot_planes,
+        cfg=cfg, n_spectra=n_spectra, quant_scale=quant_scale, fengine=fengine,
+    )
+    return _b_stage(
+        qr, qi, coeff_blocks,
+        cfg=cfg, precision=precision, beam_quant_scale=beam_quant_scale,
+        beam_layout=beam_layout,
+    )

@@ -1,0 +1,137 @@
+"""Fused B stage: corner turn + multi-beam dot (counterpart of ``dpdk_dc_sand_tpu/ops/bstage_pallas.py``).
+
+For CUDA tensors :func:`beamform_turned_fused` launches the hand-written
+kernel ``csrc/bstage_fused.cu`` (K2); for CPU tensors it runs
+:func:`beamform_turned_fused_reference`, the plain PyTorch version. Both
+convert int8 samples exactly, take the weights in the precision's dtype
+(bf16 or f32) and accumulate in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dpdk_dc_sand_tpu_torch import _build
+
+#: Output row width: ``pack`` adjacent channels' ``[re beams | im beams]``.
+_LANES = 128
+#: Beam-column widths (2B) the kernel is instantiated for.
+_NB2_KERNEL = (8, 16, 32, 64)
+#: Channels per step of the plain version (bounds its f32 ``[chunk, P·S, 2A]``
+#: operand).
+_PLAIN_CHANNEL_CHUNK = 4096
+
+
+def bstage_fused_supported(
+    n_ants: int, n_pols: int, n_spectra: int, n_beams: int, n_channels: int
+) -> bool:
+    """Geometry gate of K2 (its tiling: 32-channel tiles, 64-row m tiles)."""
+    nb2 = 2 * n_beams
+    return (
+        n_ants >= 1
+        and nb2 in _NB2_KERNEL
+        and n_channels % 32 == 0
+        and (n_pols * n_spectra) % 64 == 0
+    )
+
+
+def _weights(blocks: torch.Tensor, precision: str) -> torch.Tensor:
+    if precision not in ("bf16", "f32"):
+        raise ValueError(f"unknown precision {precision!r}")
+    return blocks.to(torch.bfloat16 if precision == "bf16" else torch.float32)
+
+
+def beamform_turned_fused_reference(
+    qr: torch.Tensor, qi: torch.Tensor, blocks: torch.Tensor, precision: str = "bf16"
+) -> torch.Tensor:
+    """Plain PyTorch version of K2: packed ``[C/pack, P·S, pack·2B]`` f32."""
+    a, p, s, c = qr.shape
+    nb2 = blocks.shape[-1]
+    pack = _LANES // nb2
+    ps = p * s
+    x = torch.cat([qr, qi], 0).reshape(2 * a, ps, c)
+    w = _weights(blocks, precision).to(torch.float32)
+    out = torch.empty((c, ps, nb2), dtype=torch.float32, device=qr.device)
+    for c0 in range(0, c, _PLAIN_CHANNEL_CHUNK):
+        c1 = min(c, c0 + _PLAIN_CHANNEL_CHUNK)
+        xt = x[:, :, c0:c1].permute(2, 1, 0).to(torch.float32)  # [cb, PS, 2A]
+        out[c0:c1] = torch.bmm(xt, w[c0:c1])
+    return (
+        out.reshape(c // pack, pack, ps, nb2)
+        .permute(0, 2, 1, 3)
+        .reshape(c // pack, ps, pack * nb2)
+    )
+
+
+def _launch(qr, qi, w, nb2):
+    a, p, s, c = qr.shape
+    for name, t in (("qr", qr), ("qi", qi), ("blocks", w)):
+        if t.device != qr.device or not t.is_contiguous():
+            raise ValueError(f"beamform_turned_fused: {name} must be contiguous on {qr.device}")
+    if qr.dtype != torch.int8 or qi.dtype != torch.int8:
+        raise ValueError("beamform_turned_fused: planes must be int8")
+    if tuple(w.shape) != (c, 2 * a, nb2) or w.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"beamform_turned_fused: blocks {tuple(w.shape)} {w.dtype}")
+    if not bstage_fused_supported(a, p, s, nb2 // 2, c):
+        raise NotImplementedError(
+            f"K2 does not cover A={a} P={p} S={s} 2B={nb2} C={c} "
+            "(bstage_fused_supported)"
+        )
+    out = torch.empty(
+        (c // (_LANES // nb2), p * s, _LANES), dtype=torch.float32, device=qr.device
+    )
+    lib = _build.library()
+    err = lib.bstage_fused_launch(
+        qr.data_ptr(), qi.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16),
+        out.data_ptr(), a, p * s, c, nb2,
+        torch.cuda.current_stream(qr.device).cuda_stream,
+    )
+    _build.check(lib, err, "bstage_fused")
+    beamform_turned_fused.launches += 1
+    return out
+
+
+def beamform_turned_fused(
+    qr: torch.Tensor,
+    qi: torch.Tensor,
+    blocks: torch.Tensor,
+    n_pols: int = 2,
+    precision: str = "bf16",
+    layout: str = "split",
+):
+    """Corner turn + beamform (K2 on CUDA, plain on CPU).
+
+    ``qr``, ``qi``: ``[A, P, S, C]`` int8 F-engine planes. ``blocks``:
+    ``[C, 2A, 2B]`` block-concat steering weights
+    (:func:`~dpdk_dc_sand_tpu_torch.ops.coeff_gen.steering_coeff_blockcat`).
+
+    ``layout="packed"``: the ``[C/pack, P·S, pack·2B]`` f32 wire format
+    (pack = 128/2B; lanes hold ``pack`` adjacent channels' ``[re | im]``
+    beam groups). ``layout="split"``: ``(beam_re, beam_im)`` each
+    ``[P, C, S, B]`` f32.
+    """
+    a, p, s, c = qr.shape
+    if qi.shape != qr.shape or p != n_pols:
+        raise ValueError(f"planes {tuple(qr.shape)}/{tuple(qi.shape)}, n_pols={n_pols}")
+    if layout not in ("packed", "split"):
+        raise ValueError(f"unknown layout {layout!r}")
+    nb2 = blocks.shape[-1]
+    if _LANES % nb2 or tuple(blocks.shape) != (c, 2 * a, nb2):
+        raise ValueError(f"blocks {tuple(blocks.shape)} do not match planes")
+    if qr.device.type == "cuda":
+        packed = _launch(qr, qi, _weights(blocks, precision).contiguous(), nb2)
+    elif qr.device.type == "cpu":
+        packed = beamform_turned_fused_reference(qr, qi, blocks, precision)
+    else:
+        raise ValueError(f"beamform_turned_fused: unsupported device {qr.device}")
+    if layout == "packed":
+        return packed
+    nb = nb2 // 2
+    pack = _LANES // nb2
+    x = packed.reshape(c // pack, p, s, pack, 2, nb)
+    x = x.permute(1, 0, 3, 2, 4, 5).reshape(p, c, s, 2, nb)
+    return x[..., 0, :], x[..., 1, :]
+
+
+#: Kernel launches since the last reset (the plain CPU version never counts).
+beamform_turned_fused.launches = 0

@@ -1,0 +1,90 @@
+"""The port's fused B stage (K2's plain version) vs the JAX fused B kernel.
+
+Same int8 planes and steering blocks into both; int8 samples convert
+exactly and products with bf16 weights are exact in f32, so the two differ
+only in f32 summation order: rtol 1e-5, atol 1e-3 (beams reach ~1e4).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dpdk_dc_sand_tpu.ops.bstage_pallas import beamform_turned_fused as j_bstage
+from dpdk_dc_sand_tpu.ops.coeff_gen import steering_coeff_blockcat as j_blockcat
+from dpdk_dc_sand_tpu_torch.ops import bstage
+
+A, P, S, C, NB = 4, 2, 64, 512, 16
+
+
+def _inputs(seed, precision, a=A, nb=NB):
+    rng = np.random.default_rng(seed)
+    qr = rng.integers(-127, 128, (a, P, S, C), dtype=np.int8)
+    qi = rng.integers(-127, 128, (a, P, S, C), dtype=np.int8)
+    rot = rng.uniform(-np.pi, np.pi, (C, nb, a))
+    cos, sin = np.cos(rot).astype(np.float32), np.sin(rot).astype(np.float32)
+    blocks = j_blockcat(jnp.asarray(cos), jnp.asarray(sin))
+    if precision == "bf16":
+        blocks = blocks.astype(jnp.bfloat16)
+    return qr, qi, blocks
+
+
+def _torch_blocks(blocks):
+    t = torch.from_numpy(np.array(blocks, np.float32))
+    return t.to(torch.bfloat16) if blocks.dtype == jnp.bfloat16 else t
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+@pytest.mark.parametrize("layout", ["packed", "split"])
+def test_plain_k2_matches_jax_kernel(precision, layout):
+    qr, qi, blocks = _inputs(3 + len(layout), precision)
+    ref = j_bstage(jnp.asarray(qr), jnp.asarray(qi), blocks, n_pols=P,
+                   precision=precision, interpret=True, layout=layout)
+    got = bstage.beamform_turned_fused(
+        torch.from_numpy(qr), torch.from_numpy(qi), _torch_blocks(blocks),
+        n_pols=P, precision=precision, layout=layout,
+    )
+    if layout == "packed":
+        got, ref = (got,), (ref,)
+        assert got[0].shape == (C // 4, P * S, 128)
+    else:
+        assert got[0].shape == (P, C, S, NB)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-3)
+
+
+def test_split_layout_is_the_packed_layout_unpacked():
+    qr, qi, blocks = _inputs(11, "bf16")
+    args = (torch.from_numpy(qr), torch.from_numpy(qi), _torch_blocks(blocks))
+    packed = bstage.beamform_turned_fused(*args, layout="packed")
+    re, im = bstage.beamform_turned_fused(*args, layout="split")
+    # packed[c // 4, p*S + s, (c % 4)*32 + j]: j < 16 real beams, j >= 16 imag.
+    c, p, s, b = 37, 1, 5, 9
+    row = packed[c // 4, p * S + s, (c % 4) * 2 * NB:]
+    assert float(row[b]) == float(re[p, c, s, b])
+    assert float(row[NB + b]) == float(im[p, c, s, b])
+    full = torch.stack([re, im], -2)  # [P, C, S, 2, B]
+    np.testing.assert_array_equal(
+        full.permute(1, 0, 2, 3, 4).reshape(C // 4, 4, P * S, 2 * NB)
+        .permute(0, 2, 1, 3).reshape(C // 4, P * S, 128).numpy(),
+        packed.numpy(),
+    )
+
+
+def test_bstage_fused_supported_gate():
+    assert bstage.bstage_fused_supported(80, 2, 256, 16, 32768)
+    assert bstage.bstage_fused_supported(3, 2, 32, 4, 64)
+    assert not bstage.bstage_fused_supported(4, 2, 16, 16, 512)  # P·S % 64
+    assert not bstage.bstage_fused_supported(4, 2, 64, 12, 512)  # 2B
+    assert not bstage.bstage_fused_supported(4, 2, 64, 16, 48)  # C % 32
+
+
+def test_beamform_turned_fused_input_checks():
+    qr, qi, blocks = _inputs(13, "f32")
+    t = (torch.from_numpy(qr), torch.from_numpy(qi))
+    with pytest.raises(ValueError, match="layout"):
+        bstage.beamform_turned_fused(*t, _torch_blocks(blocks), layout="natural")
+    with pytest.raises(ValueError, match="blocks"):
+        bstage.beamform_turned_fused(*t, _torch_blocks(blocks)[:, :4])
+    with pytest.raises(ValueError, match="n_pols"):
+        bstage.beamform_turned_fused(*t, _torch_blocks(blocks), n_pols=1)

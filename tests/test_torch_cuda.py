@@ -1,0 +1,90 @@
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card.
+
+These need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker and skip
+where ``torch.cuda.is_available()`` is False. The file imports no JAX, so it
+runs on a machine without it:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
+
+It covers the small geometries the flagship run in ``chip_smoke.py`` does
+not (N1 = 8 and 16, other beam counts, the launch counters).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dpdk_dc_sand_tpu_torch import ArrayConfig
+from dpdk_dc_sand_tpu_torch.models import FBEngine
+from dpdk_dc_sand_tpu_torch.ops import bstage, fengine_fused as ff
+from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _codes_close(got, ref):
+    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+    assert float((d != 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("fft", [1024, 2048, 4096, 16384, 65536])
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rowed", [False, True], ids=["flat", "rowed"])
+def test_k1_kernel_matches_plain(dev, fft, dft_dtype, rowed):
+    taps, s, lead = 4, 8, (2, 2)
+    rng = np.random.default_rng(fft)
+    n2 = ff.ingest_alignment(fft)
+    n_in = -(-((s + taps - 1) * fft + 500) // n2) * n2
+    raw = rng.integers(-64, 64, (*lead, n_in), dtype=np.int8)
+    cd = rng.integers(0, 600, lead).astype(np.int32)  # some clamp at the end
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    x = raw.reshape(*lead, -1, n2) if rowed else raw
+    scale = 1 / 16 * (1024 / fft) ** 0.5
+    kw = dict(n_channels=fft // 2, quant_scale=scale, dft_dtype=dft_dtype,
+              coarse_delays=cd, n_spectra=s, rowed=rowed)
+    before = ff.fengine_fused.launches
+    got = ff.fengine_fused(torch.from_numpy(x).to(dev), default_window(taps, fft, dev),
+                           fd, ph, **kw)
+    assert ff.fengine_fused.launches == before + 1
+    ref = ff.fengine_fused(torch.from_numpy(x), default_window(taps, fft), fd, ph, **kw)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape
+        _codes_close(g.cpu(), r)
+
+
+@pytest.mark.parametrize("n_beams", [4, 8, 16, 32])
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_k2_kernel_matches_plain(dev, n_beams, precision):
+    a, p, s, c = 3, 2, 64, 256
+    rng = np.random.default_rng(n_beams)
+    qr = torch.from_numpy(rng.integers(-127, 128, (a, p, s, c), dtype=np.int8))
+    qi = torch.from_numpy(rng.integers(-127, 128, (a, p, s, c), dtype=np.int8))
+    w = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * a, 2 * n_beams)).astype(np.float32))
+    before = bstage.beamform_turned_fused.launches
+    got = bstage.beamform_turned_fused(qr.to(dev), qi.to(dev), w.to(dev),
+                                       precision=precision, layout="packed")
+    assert bstage.beamform_turned_fused.launches == before + 1
+    ref = bstage.beamform_turned_fused(qr, qi, w, precision=precision, layout="packed")
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-3)
+
+
+def test_engine_on_the_card_matches_the_plain_engine(dev):
+    cfg = ArrayConfig(n_ants=4, n_channels=1024, n_beams=16, n_taps=8)
+    kw = dict(n_spectra=64, precision="bf16", beam_layout="natural")
+    gpu = FBEngine(cfg, device=dev, **kw)
+    cpu = FBEngine(cfg, **kw)
+    adc, cd, fd, ph, dv = cpu.example_inputs(seed=3, margin=1024, rowed=True)
+    got = gpu(adc, cd, fd, ph, dv)
+    ref = cpu(adc, cd, fd, ph, dv)
+    d = (got.cpu() - ref).abs()
+    assert float(d.max()) <= 2.0 + 1e-3
+    assert float((d > 1e-3).float().mean()) <= 5e-3
