@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the flagship.
+"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B and FXB flagships.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
 
@@ -27,6 +27,24 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    step's beams must equal K2(K1(adc)) through the wrappers, and each
    kernel is held against its plain version at these flagship shapes
    (K1: 1 code on <= 1e-3; K2: rtol 1e-5, atol 1e-3) and timed beside it.
+7. corner_turn — K4 through ``corner_turn_planes`` at A=80, P=2, S=256,
+   C=32768 vs its plain version, bit-exact; ``corner_turn_planes_x`` (K5a)
+   must be the same bytes viewed as ``[C, 2AP, S]``; kernel and plain times;
+8. xcorr   — at the same shapes, K3 through ``correlate_planes_fused`` vs its
+   plain version, bit-exact; then the two-pass X path (K5a, then K5b
+   through ``correlate_turned_fused``) driven with its launch counts reset,
+   and K5b held bit-exact against its plain version; kernel and plain times;
+9. fxb_engine — FXBEngine at 8 antennas x 32768 ch x 16 beams x 16 taps,
+   S=256, vs the plain chain on the same device tensors: F planes within 1
+   code on <= 1e-3, visibilities exactly the plain gram of the step's own F
+   planes, beams within phase 5's per-beam flip bound;
+10. fxb_flagship — FXBEngine at 80 x 32768 x 16 x 16, S=256, bf16, int8
+   beams (beam_quant_scale 0.25), the default backends (K1, K4 + the f32
+   product, K3): set_beam_delays, 3 steps, a delay update, 2 steps on fresh
+   wire-rowed ADC; the launch counts of K1, K4 and K3 must rise and K2's
+   stay 0; outputs finite and of the right shapes; the last step's
+   visibilities must equal K3(K1(adc)); prints ms/step, Msamples/s, the
+   FXB/FB step ratio against phase 6 and the step split by stage.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -41,7 +59,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "k1", "k2", "engine", "flagship")
+PHASES = ("device", "build", "k1", "k2", "engine", "flagship", "corner_turn", "xcorr",
+          "fxb_engine", "fxb_flagship")
 SEED = 2021
 #: F requant gain for fft 65536 on uniform +-64 noise: 1/16 (the reference
 #: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
@@ -92,7 +111,8 @@ def phase_build(st: dict) -> None:
 
     t0 = time.perf_counter()
     _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, both kernels, into {_build.BUILD_DIR.name}/)")
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source, "
+        f"into {_build.BUILD_DIR.name}/)")
 
 
 def _k1_plain(x, starts, window, rotc, rots, out, *, chunk, **kw):
@@ -344,6 +364,7 @@ def phase_flagship(st: dict) -> None:
         f"{['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
         f"{samples / ms / 1e3:.1f} Msamples/s ({st['card']})")
     st["launches"] = launches
+    st["fb_ms"] = ms
 
     # The last step again, kernel by kernel through the wrappers (these
     # launches come after the count was read), each held against its plain
@@ -395,6 +416,271 @@ def phase_flagship(st: dict) -> None:
     st["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms)
 
 
+def _exact(tag, got, ref):
+    """max |got - ref| over the pairs; raise unless every pair is equal."""
+    import torch
+
+    worst = 0.0
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{tag}: {tuple(g.shape)} {g.dtype}, plain "
+                                 f"{tuple(r.shape)} {r.dtype}")
+        if not g.is_floating_point():  # int8: differences need a wider type
+            g, r = g.to(torch.int16), r.to(torch.int16)
+        worst = max(worst, float((g - r).abs().max()))
+        if not torch.equal(g, r):
+            raise AssertionError(f"{tag} is not bit-exact against plain (max |d| {worst})")
+    log(f"{tag}: bit-exact against plain (max |d| {worst})")
+    return worst
+
+
+def phase_corner_turn(st: dict) -> None:
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import corner_turn as ct
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    a, p, s, c = 80, 2, 256, 32768
+    qr, qi = _planes(torch, a, p, s, c, gen, dev)
+    got = ct.corner_turn_planes(qr, qi)
+    ref = ct.corner_turn_planes_reference(qr, qi)
+    torch.cuda.synchronize()
+    err = _exact(f"k4 [A={a} P={p} S={s} C={c}]", (got,), (ref,))
+    del ref
+    xt = ct.corner_turn_planes_x(qr, qi)
+    if tuple(xt.shape) != (c, 2 * a * p, s) or xt._base is None:
+        raise AssertionError(f"corner_turn_planes_x: {tuple(xt.shape)}, not a view")
+    if not torch.equal(xt.view(c, 2 * a, p * s), got):
+        raise AssertionError("corner_turn_planes_x is not K4's bytes")
+    del got, xt
+    ms = cuda_ms(lambda: ct.corner_turn_planes(qr, qi))
+    pms = cuda_ms(lambda: ct.corner_turn_planes_reference(qr, qi), iters=1)
+    gbytes = 4 * a * p * s * c / 1e9
+    log(f"k4 [A={a} P={p} S={s} C={c}]: kernel {ms:.3f} ms ({gbytes / ms:.2f} TB/s of "
+        f"{gbytes:.2f} GB read+written), plain {pms:.3f} ms ({st['card']})")
+    st["k4"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    st["x_planes"] = (qr, qi)
+
+
+def phase_xcorr(st: dict) -> None:
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import corner_turn as ct, xcorr as xc
+
+    qr, qi = st.pop("x_planes")
+    a, p, s, c = qr.shape
+    i = a * p
+    tag = f"[I={i} S={s} C={c}]"
+    got = xc.correlate_planes_fused(qr, qi)
+    ref = xc.correlate_planes_fused_reference(qr, qi)
+    torch.cuda.synchronize()
+    k3_err = _exact(f"k3 {tag}", got, ref)
+    del got, ref
+    k3_ms = cuda_ms(lambda: xc.correlate_planes_fused(qr, qi))
+    k3_pms = cuda_ms(lambda: xc.correlate_planes_fused_reference(qr, qi), iters=1)
+    # The two-pass X path (K5a, then K5b) as FXB runs it where K3's gate fails.
+    ct.corner_turn_planes.launches = 0
+    xc.correlate_turned_fused.launches = 0
+    xt = ct.corner_turn_planes_x(qr, qi)
+    got = xc.correlate_turned_fused(xt, i)
+    torch.cuda.synchronize()
+    two_pass = {"k5a": ct.corner_turn_planes.launches, "k5b": xc.correlate_turned_fused.launches}
+    log(f"x two-pass launches: {two_pass}")
+    if min(two_pass.values()) < 1:
+        raise AssertionError(f"a kernel of the two-pass X path never launched: {two_pass}")
+    ref = xc.correlate_turned_fused_reference(xt, i)
+    torch.cuda.synchronize()
+    k5b_err = _exact(f"k5b {tag}", got, ref)
+    del got, ref
+    k5b_ms = cuda_ms(lambda: xc.correlate_turned_fused(xt, i))
+    k5b_pms = cuda_ms(lambda: xc.correlate_turned_fused_reference(xt, i), iters=1)
+    gbytes = (2 * i * s + 2 * 4 * i * i) * c / 1e9
+    log(f"xcorr {tag}: K3 {k3_ms:.3f} ms vs plain {k3_pms:.3f} ms, K5b {k5b_ms:.3f} ms vs "
+        f"plain {k5b_pms:.3f} ms (floor: {gbytes:.2f} GB read+written) ({st['card']})")
+    st["k3"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_pms)
+    st["k5b"] = dict(max_abs_err=k5b_err, ms=k5b_ms, plain_ms=k5b_pms,
+                     launches=two_pass["k5b"])
+
+
+def _stack_beams(torch, pair):
+    return torch.stack(list(pair), dim=-1)
+
+
+def phase_fxb_engine(st: dict) -> None:
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FXBEngine
+    from dpdk_dc_sand_tpu_torch.ops import corner_turn as ct, fengine_fused as ff, xcorr as xc
+    from dpdk_dc_sand_tpu_torch.ops.beamform import beamform_turned
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(n_ants=8, n_channels=32768, n_beams=16, n_taps=16)
+    a, p, s = cfg.n_ants, cfg.n_pols, 256
+    fxb = FXBEngine(cfg, n_spectra=s, quant_scale=QUANT_SCALE, precision="bf16", device=dev)
+    if (fxb.fengine, fxb.bstage) != ("fused", "turned"):
+        raise AssertionError(f"FXB resolved to {fxb.fengine}, {fxb.bstage}")
+    adc, cd, fd, ph, dv = fxb.example_inputs(seed=SEED, margin=8192, rowed=True)
+    fxb.set_beam_delays(dv)
+    beams, vre, vim = fxb.step(adc, cd, fd, ph)
+    # The plain chain on the same device tensors.
+    n1, n2 = ff._split_ct(cfg.fft_size)
+    flat = torch.as_tensor(adc, device=dev).reshape(a, p, -1)
+    cdt = torch.as_tensor(cd, device=dev).reshape(a, 1).expand(a, p)
+    starts = clamp_starts(cdt.reshape(-1), flat.shape[-1], fxb.samples_in)
+    rot = fxb._fine_rot(fd, ph)
+    rc, rs = (r.reshape(a * p, -1) for r in rot)
+    shape = (a, p, s, cfg.n_channels)
+    qr, qi = (torch.empty(shape, dtype=torch.int8, device=dev) for _ in range(2))
+    _k1_plain(flat.reshape(a * p, -1), starts, fxb.window, rc, rs,
+              (qr.view(a * p, s, -1), qi.view(a * p, s, -1)), chunk=a * p,
+              n_spectra=s, n1=n1, n2=n2, dft_dtype="bfloat16")
+    w = fxb.coeff_blocks
+    ref = _stack_beams(torch, beamform_turned(ct.corner_turn_planes_reference(qr, qi), w,
+                                              n_pols=p, precision="bf16"))
+    # The F planes the step correlated (the same kernel on the same inputs).
+    kr, ki = ff.fengine_fused(flat, fxb.window, None, None, n_channels=cfg.n_channels,
+                              quant_scale=QUANT_SCALE, coarse_delays=cdt, n_spectra=s,
+                              rot_planes=rot)
+    _code_diff("fxb F plane", (kr, ki), (qr, qi))
+    _exact("fxb visibilities vs the plain gram of the step's F planes", (vre, vim),
+           xc.correlate_planes_fused_reference(kr, ki))
+    dr = (kr.to(torch.int16) - qr.to(torch.int16)).abs().to(torch.int8)
+    di = (ki.to(torch.int16) - qi.to(torch.int16)).abs().to(torch.int8)
+    bound = _stack_beams(torch, beamform_turned(ct.corner_turn_planes_reference(dr, di),
+                                                w.float().abs(), n_pols=p, precision="f32"))
+    torch.cuda.synchronize()
+    d = (beams - ref).abs()
+    dmax, frac = float(d.max()), float((d > 1e-3).float().mean())
+    over = int((d > bound + 1e-3 + 1e-5 * ref.abs()).sum())
+    log(f"fxb engine [A=8 C=32768 B=16 taps=16 S=256]: beams max|d| {dmax:.4f} (flip bound "
+        f"{float(bound.max()):.4f}), frac(|d|>1e-3) {frac:.3e}, over bound {over}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (beams, vre, vim))
+    if not finite or over or frac > 5e-3:
+        raise AssertionError("the FXB engine disagrees with the plain chain")
+
+
+def phase_fxb_flagship(st: dict) -> None:
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FXBEngine
+    from dpdk_dc_sand_tpu_torch.ops import bstage, corner_turn as ct, fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops import xcorr as xc
+    from dpdk_dc_sand_tpu_torch.ops.beamform import beamform_turned
+    from dpdk_dc_sand_tpu_torch.ops.fengine_fused import ingest_alignment
+    from dpdk_dc_sand_tpu_torch.ops.requant import requantise
+
+    torch.cuda.empty_cache()  # phase 6's engine and buffers are gone
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(n_ants=80, n_channels=32768, n_beams=16, n_taps=16)
+    a, p, s, c = cfg.n_ants, cfg.n_pols, 256, cfg.n_channels
+    i = a * p
+    fxb = FXBEngine(cfg, n_spectra=s, quant_scale=QUANT_SCALE, precision="bf16",
+                    beam_quant_scale=0.25, device=dev)
+    if (fxb.fengine, fxb.bstage, fxb.vis_precision) != ("fused", "turned", "int8"):
+        raise AssertionError(f"FXB resolved to {fxb.fengine}, {fxb.bstage}, {fxb.vis_precision}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rng = np.random.default_rng(SEED + 4)
+    margin = 8192
+    cd = rng.integers(0, margin, a).astype(np.int32)
+    fd = rng.uniform(-0.5, 0.5, a).astype(np.float32)
+    ph = (-np.pi * fd / 2).astype(np.float32)
+    dv = np.zeros((cfg.n_beams, a, 4), np.float32)
+    dv[..., 0] = rng.uniform(0, 5e-9, dv.shape[:-1])
+    dv[..., 2] = rng.uniform(-np.pi, np.pi, dv.shape[:-1])
+    n2 = ingest_alignment(cfg.fft_size)
+    adc = torch.empty((a, p, (fxb.samples_in + margin) // n2, n2), dtype=torch.int8, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    counters = {"k1": ff.fengine_fused, "k2": bstage.beamform_turned_fused,
+                "k4": ct.corner_turn_planes, "k3": xc.correlate_planes_fused,
+                "k5b": xc.correlate_turned_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    out = None
+
+    def timed_step():
+        nonlocal out
+        adc.random_(-64, 64, generator=gen)  # fresh wire-rowed ADC every step
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fxb.step(adc, cd, fd, ph)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+
+    fxb.set_beam_delays(dv)
+    for _ in range(3):
+        timed_step()
+    dv[..., 2] += 0.25  # delay update: new steering phases and fine delays
+    fd = (fd * 0.5).astype(np.float32)
+    fxb.set_beam_delays(dv, t_s=1e-3)
+    for _ in range(2):
+        timed_step()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"fxb flagship launches: {launches}")
+    if min(launches["k1"], launches["k4"], launches["k3"]) < 1:
+        raise AssertionError(f"a kernel of the FXB path never launched: {launches}")
+    if launches["k2"] or launches["k5b"]:
+        raise AssertionError(f"kernels off the FXB flagship path launched: {launches}")
+    beams, vre, vim = out
+    if tuple(beams.shape) != (p, c, s, cfg.n_beams, 2) or beams.dtype != torch.int8:
+        raise AssertionError(f"beams {tuple(beams.shape)} {beams.dtype}")
+    for v in (vre, vim):
+        if tuple(v.shape) != (c, i, i) or v.dtype != torch.float32:
+            raise AssertionError(f"visibilities {tuple(v.shape)} {v.dtype}")
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError("non-finite visibilities")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(times[1:]))
+    samples = a * p * s * cfg.fft_size
+    ratio = ms / st["fb_ms"]
+    log(f"fxb flagship [80 ant x 32768 ch x 16 beams x 16 taps, S=256]: step ms "
+        f"{['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
+        f"{samples / ms / 1e3:.1f} Msamples/s, FXB/FB {ratio:.3f} (FB {st['fb_ms']:.3f} ms), "
+        f"peak memory {peak_gb:.2f} GB ({st['card']})")
+
+    # The last step's stages again, each timed alone (these launches come
+    # after the count was read); the visibilities must be K3(K1(adc)).
+    flat = adc.reshape(a, p, -1)
+    cdt = torch.as_tensor(cd, device=dev).reshape(a, 1).expand(a, p)
+    rot = (fxb.rot_cos, fxb.rot_sin)
+
+    def k1():
+        return ff.fengine_fused(flat, fxb.window, None, None, n_channels=c,
+                                quant_scale=QUANT_SCALE, coarse_delays=cdt,
+                                n_spectra=s, rot_planes=rot)
+
+    qr, qi = k1()
+    del out, beams
+    _exact("fxb flagship visibilities vs K3(K1(adc))", xc.correlate_planes_fused(qr, qi),
+           (vre, vim))
+    del vre, vim
+    x_t = ct.corner_turn_planes(qr, qi)
+
+    def b_product():
+        re, im = beamform_turned(x_t, fxb.coeff_blocks, n_pols=p, precision="bf16")
+        return torch.stack([requantise(re, 0.25), requantise(im, 0.25)], dim=-1)
+
+    stages = {
+        "K1 (F)": cuda_ms(k1, iters=2),
+        "K4 (turn)": cuda_ms(lambda: ct.corner_turn_planes(qr, qi)),
+        "B product + requant (plain)": cuda_ms(b_product, iters=2),
+        "K3 (X)": cuda_ms(lambda: xc.correlate_planes_fused(qr, qi), iters=2),
+    }
+    log("fxb flagship stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; sum {sum(stages.values()):.3f} vs step {ms:.3f} ({st['card']})")
+    st["fxb_launches"] = launches
+    st["fxb"] = dict(ms=ms, ratio=ratio, stages=stages)
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -418,15 +704,29 @@ def main() -> int:
     ref = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dpdk_dc_sand_tpu"))
     if ref:
         raise AssertionError(f"the port pulled in JAX or the reference package: {ref}")
+    # launches: each kernel's count from the run of its path (phase 6 for the
+    # F+B step, phase 10 for the FXB step, phase 8 for the two-pass X path).
     kernels = [
         dict(name="fengine_ct", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
-             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504",
+             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship",
              launches=st["launches"]["k1"], **st["k1"]),
         dict(name="bstage_fused", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
-             replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69",
+             replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69", path="fb_flagship",
              launches=st["launches"]["k2"], **st["k2"]),
+        dict(name="corner_turn", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/corner_turn.cu",
+             replaces="dpdk_dc_sand_tpu/ops/corner_turn.py:77",
+             also_replaces=["dpdk_dc_sand_tpu/ops/corner_turn.py:90",
+                            "dpdk_dc_sand_tpu/ops/corner_turn.py:274"],
+             path="fxb_flagship", launches=st["fxb_launches"]["k4"], **st["k4"]),
+        dict(name="xcorr_fused", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/xcorr.cu",
+             replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:135", path="fxb_flagship",
+             launches=st["fxb_launches"]["k3"], **st["k3"]),
+        dict(name="xcorr_turned", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/xcorr.cu",
+             replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:47", path="x_two_pass",
+             **st["k5b"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

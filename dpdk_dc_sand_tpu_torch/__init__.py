@@ -1,17 +1,21 @@
-"""dpdk_dc_sand_tpu_torch — the F+B signal chain on PyTorch + CUDA (Hopper).
+"""dpdk_dc_sand_tpu_torch — the F+B and F+X+B signal chains on PyTorch + CUDA (Hopper).
 
 A port of :mod:`dpdk_dc_sand_tpu` (the JAX/Pallas reference, which stays
 beside it unchanged) to PyTorch on one NVIDIA H100. The layout mirrors the
 reference so each counterpart is easy to find:
 
 - :mod:`.ops`: plain tensor ops (requant, delay, steering coefficients,
-  composed PFB) and the two kernel wrappers — :mod:`.ops.fengine_fused`
-  (K1: FIR + two-stage Cooley–Tukey rDFT + fine delay + int8 requant) and
-  :mod:`.ops.bstage` (K2: corner turn + multi-beam dot).
+  composed PFB, correlate, beamform) and the kernel wrappers —
+  :mod:`.ops.fengine_fused` (K1: FIR + two-stage Cooley–Tukey rDFT + fine
+  delay + int8 requant), :mod:`.ops.bstage` (K2: corner turn + multi-beam
+  dot), :mod:`.ops.corner_turn` (K4 = K5a: int8 corner turn) and
+  :mod:`.ops.xcorr` (K3, K5b: int8 visibility grams).
 - :mod:`.csrc`: the hand-written CUDA C++ kernels for ``sm_90a``, built
   with ``nvcc`` at first use by :mod:`._build` and bound with ctypes.
 - :mod:`.models`: :class:`~.models.fbengine.FBEngine`, the flagship F+B
-  step.
+  step; :class:`~.models.fxbengine.FXBEngine`, F feeding both B and X;
+  :class:`~.models.xengine.XEngine` and
+  :class:`~.models.xengine.VisibilityAccumulator`.
 - :mod:`.config`: :class:`ArrayConfig` and :class:`DelayModel`.
 - :mod:`.convert`: loads the reference engine's state into the port.
 
@@ -22,3 +26,12 @@ reference package, so it runs on a machine that has neither.
 __version__ = "0.1.0"
 
 from dpdk_dc_sand_tpu_torch.config import ArrayConfig, DelayModel  # noqa: F401
+
+
+def __getattr__(name):
+    # The engines, without importing torch-heavy modules at package import.
+    if name in ("FBEngine", "FXBEngine", "XEngine", "VisibilityAccumulator"):
+        from dpdk_dc_sand_tpu_torch import models
+
+        return getattr(models, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,10 +5,14 @@ difference: a missing ``nvcc`` or a failed build RAISES (with the
 compiler's stderr). There is no fallback — a wrapper handed a CUDA tensor
 launches its kernel or fails loudly.
 
-``csrc/*.cu`` compile into one shared library with a plain C interface::
+Each ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
+interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <build>/libdcsand_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -lineinfo -c -o <build>/<hash>/<source>.o csrc/<source>.cu   # each, in parallel
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o <build>/libdcsand_kernels_<hash>.so <build>/<hash>/*.o
 
 The library lands in ``_kernel_build/`` next to this file (ignored by git),
 keyed by a hash of the sources and flags, so an edited kernel rebuilds and
@@ -31,7 +35,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernel_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 #: Where the CUDA toolkit usually puts nvcc when it is not on PATH.
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
@@ -56,6 +60,21 @@ _SIGNATURES = {
         _P, _P, _P, _I,  # qr, qi, w, w_is_bf16
         _P,  # out [C/pack, P·S, pack·2B]
         _I, _I, _I, _I,  # n_ants, P·S, n_channels, 2B
+        _P,  # stream
+    ],
+    "corner_turn_launch": [
+        _P, _P, _P,  # qr, qi [A·P·S, C], out [C, 2·A·P·S]
+        _L, _I,  # rows (A·P·S), n_channels
+        _P,  # stream
+    ],
+    "xcorr_fused_launch": [
+        _P, _P, _P, _P,  # qr, qi [A, P, S, C], vre, vim [C, I, I]
+        _I, _I, _I,  # n_inputs, n_spectra, n_channels
+        _P,  # stream
+    ],
+    "xcorr_turned_launch": [
+        _P, _P, _P,  # xt [C, 2I, S], vre, vim [C, I, I]
+        _I, _I, _I,  # n_inputs, n_spectra, n_channels
         _P,  # stream
     ],
 }
@@ -97,16 +116,35 @@ def build() -> Path:
     lib = BUILD_DIR / f"libdcsand_kernels_{_digest(nvcc)}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objdir = BUILD_DIR / f"{lib.stem}.{os.getpid()}.objs"
+    objdir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in _sources():
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(objdir / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}"
-        )
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp)]
+    link += [str(objdir / f"{src.stem}.o") for src in _sources()]
+    try:
+        for cmd, proc in jobs:  # the first failure raises; `finally` stops the rest
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}{out}"
+                )
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {res.returncode}): {' '.join(link)}\n"
+                f"{res.stderr}{res.stdout}"
+            )
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(objdir, ignore_errors=True)
     os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
     return lib
 

@@ -1,12 +1,19 @@
 """Carry the reference engine's state into the port.
 
-:func:`from_reference_state` loads the JAX ``FBEngine``'s window, steering
-blocks and fine-rotation planes — handed over as numpy arrays
-(``np.asarray(fb.window)``, ``np.asarray(fb._coeff_blocks)``,
-``[np.asarray(r) for r in fb._rot_planes]``) — into a port engine's buffers
-and caches. Both packages then run their kernels on identical operands, so
-a comparison isolates the kernels from cos/sin ulp differences between the
-two frameworks. Nothing here imports jax.
+:func:`from_reference_state` loads the JAX engine's window, steering
+blocks and fine-rotation planes — handed over as numpy arrays — into a
+port engine's buffers and caches:
+
+- from the JAX ``FBEngine``: ``np.asarray(fb.window)``,
+  ``np.asarray(fb._coeff_blocks)``, ``[np.asarray(r) for r in fb._rot_planes]``;
+- from the JAX ``FXBEngine`` (into the port's ``FXBEngine``):
+  ``np.asarray(fxb.window)``, ``np.asarray(fxb._coeffs)``, and the rotation
+  planes that engine computes inside its jit, taken from the JAX
+  ``fine_rotation_planes`` for the same fine delays and phases.
+
+Both packages then run their kernels on identical operands, so a comparison
+isolates the kernels from cos/sin ulp differences between the two
+frameworks. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ def from_reference_state(
     t_s: float = 0.0,
 ) -> FBEngine:
     """Load reference state into ``engine`` for the given delay solution.
+
+    ``engine`` is an ``FBEngine`` or an ``FXBEngine`` (a subclass).
 
     ``window`` ``[taps, fft]`` f32; ``coeff_blocks`` ``[C, 2A, 2B]`` (stored
     in the engine's precision dtype); ``rot_planes`` ``(cos, sin)`` each

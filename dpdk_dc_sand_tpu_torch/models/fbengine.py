@@ -2,11 +2,14 @@
 
 ADC streams -> coarse delay -> PFB channelise -> fine delay -> requantise
 (K1, :func:`~dpdk_dc_sand_tpu_torch.ops.fengine_fused.fengine_fused`) ->
-corner turn + multi-beam beamform (K2,
-:func:`~dpdk_dc_sand_tpu_torch.ops.bstage.beamform_turned_fused`). Two
-kernel launches per step; the steering blocks and fine-rotation planes are
-regenerated only when the delay solution's values change (the
-256-accumulation cadence).
+corner turn + multi-beam beamform: ``bstage="fused"`` in one kernel (K2,
+:func:`~dpdk_dc_sand_tpu_torch.ops.bstage.beamform_turned_fused`), or
+``bstage="turned"``, the corner-turn kernel (K4,
+:func:`~dpdk_dc_sand_tpu_torch.ops.corner_turn.corner_turn_planes`) then a
+folded f32 product
+(:func:`~dpdk_dc_sand_tpu_torch.ops.beamform.beamform_turned`). The
+steering blocks and fine-rotation planes are regenerated only when the
+delay solution's values change (the 256-accumulation cadence).
 
 The reference's TPU schedule knobs (``fengine_s_blk``, ``_vmem_mb``,
 ``_pipeline``, ``_tapouter``, ``_bfuse``, ``_skew``, ``_rolling``,
@@ -23,9 +26,15 @@ import torch
 from torch import nn
 
 from dpdk_dc_sand_tpu_torch.config import ArrayConfig
+from dpdk_dc_sand_tpu_torch.ops.beamform import beamform_turned
 from dpdk_dc_sand_tpu_torch.ops.bstage import (
     beamform_turned_fused,
     bstage_fused_supported,
+    reference_fused_gate,
+)
+from dpdk_dc_sand_tpu_torch.ops.corner_turn import (
+    corner_turn_planes,
+    corner_turn_supported,
 )
 from dpdk_dc_sand_tpu_torch.ops.coeff_gen import (
     steering_coeff_blockcat,
@@ -42,6 +51,57 @@ from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
 from dpdk_dc_sand_tpu_torch.ops.requant import requantise
 
 _NOT_PORTED = "is not ported yet (see ROADMAP.md, queue 1)"
+
+
+def resolve_backends(
+    cfg: ArrayConfig,
+    n_spectra: int,
+    fengine: str = "auto",
+    bstage: str = "auto",
+    beam_layout: str = "split",
+) -> tuple[str, str]:
+    """Resolve ``"auto"`` backends by the reference's rule (``fbengine.py:73-93``).
+
+    The hand-written kernels always run, so the reference's "Pallas
+    available" condition is always true here: ``fengine`` resolves to
+    ``"fused"``; ``bstage`` to ``"fused"`` for natural beams when the
+    reference's K2 gate takes the geometry, else ``"turned"`` when the
+    corner turn's does, else ``"fused"`` when K2's does, else ``"planar"``.
+    Explicit choices pass through unchanged.
+    """
+    if fengine == "auto":
+        fengine = "fused"
+    if bstage == "auto":
+        fused_ok = reference_fused_gate(
+            cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_beams, cfg.n_channels
+        )
+        turned_ok = corner_turn_supported(cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_channels)
+        if beam_layout == "natural" and fused_ok:
+            bstage = "fused"
+        elif turned_ok:
+            bstage = "turned"
+        elif fused_ok:
+            bstage = "fused"
+        else:
+            bstage = "planar"
+    return fengine, bstage
+
+
+def _check_bstage(cfg: ArrayConfig, n_spectra: int, bstage: str) -> None:
+    """Raise for a B form, or a geometry of one, that the port does not cover."""
+    if bstage == "fused":
+        ok = bstage_fused_supported(
+            cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_beams, cfg.n_channels
+        )
+    elif bstage == "turned":
+        ok = corner_turn_supported(cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_channels)
+    else:
+        raise NotImplementedError(f"bstage backend {bstage!r} {_NOT_PORTED}")
+    if not ok:
+        raise NotImplementedError(
+            f"the {bstage} B stage does not cover this geometry ({cfg}, "
+            f"n_spectra={n_spectra}); the other B forms {_NOT_PORTED}"
+        )
 
 
 def _rot_key(frac_delays, phases) -> str:
@@ -70,7 +130,9 @@ class FBEngine(nn.Module):
         ``"auto"`` / ``"fused"`` (K1, bf16 DFT operands) or ``"fused_f32"``
         (K1 with f32 DFT operands).
     bstage:
-        ``"auto"`` / ``"fused"`` (K2).
+        ``"auto"`` / ``"fused"`` (K2), or ``"turned"`` (K4 + the folded
+        f32 product). ``"auto"`` takes ``"fused"`` here; FXB resolves by
+        :func:`resolve_backends`.
     beam_quant_scale:
         When set, beams are requantised to int8 with this gain.
     beam_layout:
@@ -99,15 +161,7 @@ class FBEngine(nn.Module):
             raise NotImplementedError(f"fengine backend {fengine!r} {_NOT_PORTED}")
         if bstage == "auto":
             bstage = "fused"
-        if bstage != "fused":
-            raise NotImplementedError(f"bstage backend {bstage!r} {_NOT_PORTED}")
-        if not bstage_fused_supported(
-            cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_beams, cfg.n_channels
-        ):
-            raise NotImplementedError(
-                f"the fused B stage does not cover this geometry ({cfg}, "
-                f"n_spectra={n_spectra}); the other B forms {_NOT_PORTED}"
-            )
+        _check_bstage(cfg, n_spectra, bstage)
         if beam_layout not in ("split", "natural"):
             raise ValueError(f"unknown beam_layout {beam_layout!r}")
         if precision not in ("f32", "bf16"):
@@ -189,6 +243,7 @@ class FBEngine(nn.Module):
             quant_scale=self.quant_scale,
             precision=self.precision,
             fengine=self.fengine,
+            bstage=self.bstage,
             beam_quant_scale=self.beam_quant_scale,
             beam_layout=self.beam_layout,
         )
@@ -199,8 +254,10 @@ class FBEngine(nn.Module):
         ``adc``: ``[A, P, n_in]`` or wire-rowed ``[A, P, rows, N2]`` int8 with
         delay margin; ``coarse_delays`` / ``frac_delays`` / ``phases``:
         ``[A]``; ``delay_vals``: ``[B, A, 4]`` f32 steering polynomials.
-        Returns ``[P, C, S, B, 2]`` beams (``beam_layout="split"``) or the
-        packed ``[C/pack, P·S, pack·2B]`` form (``"natural"``).
+        Returns ``[P, C, S, B, 2]`` beams (``beam_layout="split"``) or, for
+        ``"natural"``, K2's packed ``[C/pack, P·S, pack·2B]`` form
+        (``bstage="fused"``) or the turned product's ``[C, P·S, 2B]``
+        (``bstage="turned"``), as in the reference.
         """
         self.set_beam_delays(delay_vals)
         return self.step(adc, coarse_delays, frac_delays, phases)
@@ -302,26 +359,31 @@ def _b_stage(
     *,
     cfg: ArrayConfig,
     precision: str,
+    bstage: str = "fused",
     beam_quant_scale: float | None = None,
     beam_layout: str = "split",
 ) -> torch.Tensor:
     """Corner turn + multi-beam matmul (+ beam requant).
 
-    ``beam_layout="natural"``: packed ``[C/pack, P·S, pack·2B]``;
+    ``beam_layout="natural"``: ``bstage="fused"`` gives K2's packed
+    ``[C/pack, P·S, pack·2B]``, ``"turned"`` the dot's ``[C, P·S, 2B]``;
     ``"split"``: ``[P, C, S, B, 2]``.
     """
-    if beam_layout == "natural":
+    if bstage == "turned":
+        out = beamform_turned(
+            corner_turn_planes(qr, qi), coeff_blocks, n_pols=cfg.n_pols,
+            precision=precision, layout=beam_layout,
+        )
+    elif bstage == "fused":
         out = beamform_turned_fused(
             qr, qi, coeff_blocks, n_pols=cfg.n_pols, precision=precision,
-            layout="packed",
+            layout="packed" if beam_layout == "natural" else "split",
         )
-        if beam_quant_scale is not None:
-            out = requantise(out, beam_quant_scale)
-        return out
-    beam_re, beam_im = beamform_turned_fused(
-        qr, qi, coeff_blocks, n_pols=cfg.n_pols, precision=precision,
-        layout="split",
-    )
+    else:
+        raise NotImplementedError(f"bstage backend {bstage!r} {_NOT_PORTED}")
+    if beam_layout == "natural":
+        return out if beam_quant_scale is None else requantise(out, beam_quant_scale)
+    beam_re, beam_im = out
     if beam_quant_scale is not None:
         beam_re = requantise(beam_re, beam_quant_scale)
         beam_im = requantise(beam_im, beam_quant_scale)
@@ -340,6 +402,7 @@ def _fb_step(
     quant_scale: float,
     precision: str,
     fengine: str = "fused",
+    bstage: str = "fused",
     beam_quant_scale: float | None = None,
     beam_layout: str = "split",
 ) -> torch.Tensor:
@@ -349,6 +412,6 @@ def _fb_step(
     )
     return _b_stage(
         qr, qi, coeff_blocks,
-        cfg=cfg, precision=precision, beam_quant_scale=beam_quant_scale,
-        beam_layout=beam_layout,
+        cfg=cfg, precision=precision, bstage=bstage,
+        beam_quant_scale=beam_quant_scale, beam_layout=beam_layout,
     )

@@ -35,6 +35,32 @@ def bstage_fused_supported(
     )
 
 
+def reference_fused_gate(
+    n_ants: int, n_pols: int, n_spectra: int, n_beams: int, n_channels: int
+) -> bool:
+    """The reference's K2 gate (``bstage_pallas.py:48-66``, its VMEM plan).
+
+    The engines' ``"auto"`` backend resolution follows it, so that they
+    pick the B form the reference picks; whether this kernel covers the
+    geometry is :func:`bstage_fused_supported`.
+    """
+    ps = n_pols * n_spectra
+    nb2 = 2 * n_beams
+    if ps % 128 or _LANES % nb2:
+        return False
+    pack = _LANES // nb2
+    c_blk = min(128, n_channels)
+    if n_channels % c_blk or c_blk % pack:
+        return False
+    vmem = (
+        2 * 2 * n_ants * ps * c_blk
+        + 2 * (c_blk // pack) * ps * _LANES * 4
+        + 2 * c_blk * n_ants * ps
+        + c_blk * 2 * n_ants * nb2 * 2
+    )
+    return vmem < 48 << 20
+
+
 def _weights(blocks: torch.Tensor, precision: str) -> torch.Tensor:
     if precision not in ("bf16", "f32"):
         raise ValueError(f"unknown precision {precision!r}")

@@ -1,0 +1,158 @@
+"""Visibility grams on the int8 tensor cores (counterpart of ``dpdk_dc_sand_tpu/ops/xcorr_pallas.py``).
+
+Two kernels in ``csrc/xcorr.cu``:
+
+- :func:`correlate_planes_fused` (K3) reads the F planes ``[A, P, S, C]``
+  directly, turns them on chip and writes ``(V_re, V_im)``; no turned
+  intermediate reaches device memory;
+- :func:`correlate_turned_fused` (K5b) reads the turned ``[C, 2I, S]``
+  layout of :func:`~dpdk_dc_sand_tpu_torch.ops.corner_turn.corner_turn_planes_x`.
+
+With ``Y = [re rows; im rows]`` of a channel's ``I = A·P`` inputs and
+``G = Y·Yᵀ``: ``V_re = G₁₁ + G₂₂`` and ``V_im = G₂₁ − G₁₂``, ``[C, I, I]``
+f32. The kernels accumulate exact s32 sums; the plain versions
+(:func:`correlate_planes_fused_reference`,
+:func:`correlate_turned_fused_reference`) take a stacked f32 gram, exact
+because every partial sum is an integer below 2²⁴ for ``S <= 1024`` (the
+gates keep that bound). The two are equal bit for bit. The reference's
+``int8_mxu`` flag has no counterpart: the kernel always computes the exact
+int8 gram.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dpdk_dc_sand_tpu_torch import _build
+
+#: The reference's channel block of K5b and turn block of K3 (gate rules).
+_C_BLK = 8
+_CT_BLK = 128
+#: Exactness bound: f32 sums of 14-bit products stay exact up to 2^24 / 2^14.
+_S_EXACT_MAX = 1024
+#: Channels per step of the plain versions (bounds the f32 operand and the
+#: [chunk, 2I, 2I] stacked gram).
+_PLAIN_CHANNEL_CHUNK = 1024
+
+
+def xcorr_supported(n_channels: int, n_spectra: int) -> bool:
+    """The reference's gate of the turned visibility kernel (K5b)."""
+    return n_channels % _C_BLK == 0 and n_spectra % 8 == 0 and n_spectra <= _S_EXACT_MAX
+
+
+def xcorr_fused_supported(n_ants: int, n_pols: int, n_spectra: int, n_channels: int) -> bool:
+    """The reference's gate of the turn + gram kernel (K3)."""
+    return (
+        n_channels % _CT_BLK == 0
+        and n_spectra % 128 == 0
+        and n_spectra <= _S_EXACT_MAX
+    )
+
+
+def _stacked_gram(y: torch.Tensor, n_inputs: int, vre: torch.Tensor, vim: torch.Tensor) -> None:
+    """``y`` ``[cb, 2I, S]`` int8 -> V_re, V_im written into ``[cb, I, I]`` f32."""
+    i = n_inputs
+    yf = y.to(torch.float32)
+    g = torch.bmm(yf, yf.transpose(1, 2))
+    torch.add(g[:, :i, :i], g[:, i:, i:], out=vre)
+    torch.sub(g[:, i:, :i], g[:, :i, i:], out=vim)
+
+
+def correlate_turned_fused_reference(
+    xt: torch.Tensor, n_inputs: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5b: stacked f32 grams, chunked over channels."""
+    c = xt.shape[0]
+    vre = torch.empty((c, n_inputs, n_inputs), dtype=torch.float32, device=xt.device)
+    vim = torch.empty_like(vre)
+    for c0 in range(0, c, _PLAIN_CHANNEL_CHUNK):
+        c1 = min(c, c0 + _PLAIN_CHANNEL_CHUNK)
+        _stacked_gram(xt[c0:c1], n_inputs, vre[c0:c1], vim[c0:c1])
+    return vre, vim
+
+
+def correlate_planes_fused_reference(
+    qr: torch.Tensor, qi: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3: the turn, then the stacked gram, per channel chunk."""
+    a, p, s, c = qr.shape
+    i = a * p
+    vre = torch.empty((c, i, i), dtype=torch.float32, device=qr.device)
+    vim = torch.empty_like(vre)
+    planes = (qr.reshape(i, s, c), qi.reshape(i, s, c))
+    for c0 in range(0, c, _PLAIN_CHANNEL_CHUNK):
+        c1 = min(c, c0 + _PLAIN_CHANNEL_CHUNK)
+        y = torch.cat([t[:, :, c0:c1] for t in planes]).permute(2, 0, 1)  # [cb, 2I, S]
+        _stacked_gram(y, i, vre[c0:c1], vim[c0:c1])
+    return vre, vim
+
+
+def _outputs(c: int, i: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    vre = torch.empty((c, i, i), dtype=torch.float32, device=device)
+    return vre, torch.empty_like(vre)
+
+
+def _check(name: str, ts, device) -> None:
+    for t in ts:
+        if t.dtype != torch.int8 or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous int8 on {device}")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name}: inputs must be 4-byte aligned")
+
+
+def correlate_turned_fused(xt: torch.Tensor, n_inputs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Visibilities from the turned ``[C, 2I, S]`` int8 planes (K5b on CUDA).
+
+    Returns ``(V_re, V_im)`` ``[C, I, I]`` f32, exact for int8 inputs.
+    """
+    c, two_i, s = xt.shape
+    if two_i != 2 * n_inputs:
+        raise ValueError(f"xt rows {two_i} != 2·n_inputs {2 * n_inputs}")
+    if not xcorr_supported(c, s):
+        raise ValueError(f"correlate_turned_fused: C={c}, S={s} outside xcorr_supported")
+    if xt.device.type == "cpu":
+        return correlate_turned_fused_reference(xt, n_inputs)
+    if xt.device.type != "cuda":
+        raise ValueError(f"correlate_turned_fused: unsupported device {xt.device}")
+    _check("correlate_turned_fused", (xt,), xt.device)
+    vre, vim = _outputs(c, n_inputs, xt.device)
+    lib = _build.library()
+    err = lib.xcorr_turned_launch(
+        xt.data_ptr(), vre.data_ptr(), vim.data_ptr(), n_inputs, s, c,
+        torch.cuda.current_stream(xt.device).cuda_stream,
+    )
+    _build.check(lib, err, "xcorr_turned")
+    correlate_turned_fused.launches += 1
+    return vre, vim
+
+
+def correlate_planes_fused(qr: torch.Tensor, qi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Visibilities straight from the F planes: on-chip turn + gram (K3 on CUDA).
+
+    ``qr``, ``qi``: ``[A, P, S, C]`` int8. Returns ``(V_re, V_im)``
+    ``[C, I, I]`` f32 with ``I = A·P`` inputs ordered ``a·P + p``.
+    """
+    if qr.ndim != 4 or qi.shape != qr.shape:
+        raise ValueError(f"planes {tuple(qr.shape)}/{tuple(qi.shape)}: want two [A, P, S, C]")
+    a, p, s, c = qr.shape
+    if not xcorr_fused_supported(a, p, s, c):
+        raise ValueError(f"correlate_planes_fused: {tuple(qr.shape)} outside xcorr_fused_supported")
+    if qr.device.type == "cpu":
+        return correlate_planes_fused_reference(qr, qi)
+    if qr.device.type != "cuda":
+        raise ValueError(f"correlate_planes_fused: unsupported device {qr.device}")
+    _check("correlate_planes_fused", (qr, qi), qr.device)
+    vre, vim = _outputs(c, a * p, qr.device)
+    lib = _build.library()
+    err = lib.xcorr_fused_launch(
+        qr.data_ptr(), qi.data_ptr(), vre.data_ptr(), vim.data_ptr(), a * p, s, c,
+        torch.cuda.current_stream(qr.device).cuda_stream,
+    )
+    _build.check(lib, err, "xcorr_fused")
+    correlate_planes_fused.launches += 1
+    return vre, vim
+
+
+#: Kernel launches since the last reset (the plain CPU versions never count).
+correlate_turned_fused.launches = 0
+correlate_planes_fused.launches = 0

@@ -7,7 +7,8 @@ runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
 It covers the small geometries the flagship run in ``chip_smoke.py`` does
-not (N1 = 8 and 16, other beam counts, the launch counters).
+not (N1 = 8 and 16, other beam counts, odd input counts, ragged tiles, the
+launch counters).
 """
 
 import numpy as np
@@ -15,8 +16,8 @@ import pytest
 import torch
 
 from dpdk_dc_sand_tpu_torch import ArrayConfig
-from dpdk_dc_sand_tpu_torch.models import FBEngine
-from dpdk_dc_sand_tpu_torch.ops import bstage, fengine_fused as ff
+from dpdk_dc_sand_tpu_torch.models import FBEngine, FXBEngine
+from dpdk_dc_sand_tpu_torch.ops import bstage, corner_turn, fengine_fused as ff, xcorr
 from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
 
 pytestmark = pytest.mark.cuda
@@ -88,3 +89,69 @@ def test_engine_on_the_card_matches_the_plain_engine(dev):
     d = (got.cpu() - ref).abs()
     assert float(d.max()) <= 2.0 + 1e-3
     assert float((d > 1e-3).float().mean()) <= 5e-3
+
+
+def _int8(rng, shape):
+    return torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8))
+
+
+@pytest.mark.parametrize("a, p, s, c", [(3, 1, 128, 128), (5, 1, 1024, 256), (3, 2, 96, 100),
+                                        (17, 1, 128, 256)])
+def test_k4_kernel_matches_plain(dev, a, p, s, c):
+    rng = np.random.default_rng(a * s + c)
+    qr, qi = _int8(rng, (a, p, s, c)), _int8(rng, (a, p, s, c))
+    before = corner_turn.corner_turn_planes.launches
+    got = corner_turn.corner_turn_planes(qr.to(dev), qi.to(dev))
+    xt = corner_turn.corner_turn_planes_x(qr.to(dev), qi.to(dev))
+    assert corner_turn.corner_turn_planes.launches == before + 2
+    ref = corner_turn.corner_turn_planes_reference(qr, qi)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(xt.cpu(), ref.view(c, 2 * a * p, s))
+
+
+@pytest.mark.parametrize("a, p, s, c", [(3, 1, 128, 128), (5, 1, 1024, 256), (17, 1, 128, 256),
+                                        (9, 2, 256, 128)])
+def test_k3_kernel_matches_plain(dev, a, p, s, c):
+    rng = np.random.default_rng(a * s + c + 1)
+    qr, qi = _int8(rng, (a, p, s, c)), _int8(rng, (a, p, s, c))
+    before = xcorr.correlate_planes_fused.launches
+    got = xcorr.correlate_planes_fused(qr.to(dev), qi.to(dev))
+    assert xcorr.correlate_planes_fused.launches == before + 1
+    for g, r in zip(got, xcorr.correlate_planes_fused_reference(qr, qi)):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("i, s, c", [(3, 128, 128), (5, 1024, 256), (17, 128, 24), (6, 8, 16)])
+def test_k5b_kernel_matches_plain(dev, i, s, c):
+    rng = np.random.default_rng(i * s + c + 2)
+    x = _int8(rng, (c, 2 * i, s))
+    before = xcorr.correlate_turned_fused.launches
+    got = xcorr.correlate_turned_fused(x.to(dev), i)
+    assert xcorr.correlate_turned_fused.launches == before + 1
+    for g, r in zip(got, xcorr.correlate_turned_fused_reference(x, i)):
+        assert torch.equal(g.cpu(), r)
+
+
+def test_fxb_engine_on_the_card_matches_the_plain_engine(dev):
+    cfg = ArrayConfig(n_ants=4, n_channels=1024, n_beams=16, n_taps=8)
+    kw = dict(n_spectra=128, precision="bf16")
+    gpu = FXBEngine(cfg, device=dev, **kw)
+    cpu = FXBEngine(cfg, **kw)
+    adc, cd, fd, ph, dv = cpu.example_inputs(seed=3, margin=1024)
+    before = (ff.fengine_fused.launches, corner_turn.corner_turn_planes.launches,
+              xcorr.correlate_planes_fused.launches)
+    gb, gr, gi = gpu(adc, cd, fd, ph, dv)
+    after = (ff.fengine_fused.launches, corner_turn.corner_turn_planes.launches,
+             xcorr.correlate_planes_fused.launches)
+    assert all(x == y + 1 for x, y in zip(after, before))
+    rb, rr, ri = cpu(adc, cd, fd, ph, dv)
+    d = (gb.cpu() - rb).abs()
+    assert float(d.max()) <= 2.0 + 1e-3
+    assert float((d > 1e-3).float().mean()) <= 5e-3
+    # Visibilities: exactly the gram of the card's own F planes.
+    qr, qi = ff.fengine_fused(torch.as_tensor(adc, device=dev).reshape(4, 2, -1), gpu.window,
+                              None, None, n_channels=cfg.n_channels, quant_scale=1 / 16,
+                              coarse_delays=torch.as_tensor(cd, device=dev)[:, None].expand(4, 2),
+                              n_spectra=128, rot_planes=gpu._fine_rot(fd, ph))
+    for g, r in zip((gr, gi), xcorr.correlate_planes_fused_reference(qr.cpu(), qi.cpu())):
+        assert torch.equal(g.cpu(), r)

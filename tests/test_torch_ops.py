@@ -183,7 +183,7 @@ def test_build_without_nvcc_raises_naming_nvcc(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "kw",
     [dict(fengine="xla"), dict(bstage="planar"), dict(bstage="folded"),
-     dict(bstage="turned"), dict(n_spectra=24)],
+     dict(bstage="turned", n_spectra=24), dict(n_spectra=24)],
     ids=["xla", "planar", "folded", "turned", "geometry"],
 )
 def test_fbengine_rejects_unported_backends(kw):
