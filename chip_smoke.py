@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B and FXB flagships.
+"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB and F flagships.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
 
@@ -45,6 +45,31 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    stay 0; outputs finite and of the right shapes; the last step's
    visibilities must equal K3(K1(adc)); prints ms/step, Msamples/s, the
    FXB/FB step ratio against phase 6 and the step split by stage.
+11. fir    — K6 through ``pfb_fir`` at the flagship shapes (160 streams x 271
+   frames x 65536, 16 taps, int8), then f32 frames on 8 streams: bit-exact
+   against ``pfb_fir_reference``; kernel and plain ms, the byte floor, and
+   one cuDNN depthwise ``conv1d`` over the same frames as the library yardstick;
+12. fengine_dit — K7 through ``fengine_fused(deint="matmul")`` at fft 65536,
+   taps 16, S=256 on 8 of the 160 streams, bf16 and f32 DFT: within 1 code
+   on <= 1e-3 of samples of ``fengine_dit_reference``; ``deint="bitcast"``
+   must give the same bytes; kernel and plain ms;
+13. f_flagship — FEngine at 80 ant x 32768 ch x 16 taps, S=256 on flat int8
+   ADC made on the card: 3 steps, a fine-delay change, 2 steps; K6 must
+   launch and K1 and K7 must not; the output [80, 2, 256, 32768, 2] int8
+   must equal the composed chain with ``pfb_fir_reference`` in K6's place
+   bit for bit; prints ms/step, Msamples/s, peak memory and the step split
+   (K6, cuFFT, the plain ops) by torch.profiler. Then the qualification's
+   CW tone through ``FEngine(quantise_output=False)`` (peak in channel 37,
+   leakage <= -62 dB), and ``FBEngine`` / ``FXBEngine(fengine="xla")`` at 8
+   antennas x 32768 ch x 16 beams x 16 taps, S=256: F planes equal to the
+   plain composed chain, beams within rtol 1e-5 / atol 1e-3 of the plain B
+   stage of those planes, visibilities exactly their gram; K6 and the
+   engine's B and X kernels each launched, K1 not.
+
+Every kernel in the ``kernels`` line carries its bound: the larger of the
+bytes it must move over 3.35 TB/s and each type of operation over the
+card's peak for it (bf16 989, f32 67 TFLOP/s, int8 1979 TOP/s), from this
+run's shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -60,12 +85,15 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k2", "engine", "flagship", "corner_turn", "xcorr",
-          "fxb_engine", "fxb_flagship")
+          "fxb_engine", "fxb_flagship", "fir", "fengine_dit", "f_flagship")
 SEED = 2021
 #: F requant gain for fft 65536 on uniform +-64 noise: 1/16 (the reference
 #: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
 #: the int8 planes at a few tens of codes rms, so the checks see real values.
 QUANT_SCALE = 1 / 128
+#: One H100 SXM's published rates (NVIDIA's data sheet, dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -86,6 +114,16 @@ def cuda_ms(fn, iters: int = 3) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def bound(nbytes: float, **ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and each operation type's count over its peak rate."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S}
+    times.update({kind: n / PEAK_OPS_PER_S[kind] for kind, n in ops.items()})
+    worst = max(times, key=times.get)
+    return dict(bound_ms=times[worst] * 1e3,
+                bound_by="bytes" if worst == "bytes" else "operations")
 
 
 def phase_device(st: dict) -> None:
@@ -411,9 +449,19 @@ def phase_flagship(st: dict) -> None:
                           iters=1)
     log(f"flagship kernels: K1 {k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms, "
         f"K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms ({st['card']})")
-    st["k1"] = dict(max_abs_err=float(k1_err), ms=k1_ms, plain_ms=k1_plain_ms,
-                    **st["k1_subset"])
-    st["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms)
+    fft, taps, n2 = cfg.fft_size, cfg.n_taps, cfg.fft_size // n1
+    nb = a * p
+    # K1 reads each stream's window of (S + taps - 1) frames, the window and
+    # the rotation planes, writes two int8 planes; its DFT is bf16 products.
+    k1_bound = bound(nb * (s + taps - 1) * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
+                     bf16=nb * s * 2 * (2 * n1 * n1 * n2 + 2 * n2 * n2 * n1),
+                     f32=nb * s * 2 * taps * fft)
+    k2_bound = bound(2 * nb * s * c + c * 2 * a * 2 * cfg.n_beams * 2 + c * p * s * 2 * cfg.n_beams * 4,
+                     bf16=2 * c * p * s * 2 * a * 2 * cfg.n_beams)
+    st["k1"] = dict(max_abs_err=float(k1_err), ms=k1_ms, plain_ms=k1_plain_ms, **k1_bound,
+                    library_ms=None, **st["k1_subset"])
+    st["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound,
+                    library_ms=None)
 
 
 def _exact(tag, got, ref):
@@ -459,7 +507,8 @@ def phase_corner_turn(st: dict) -> None:
     gbytes = 4 * a * p * s * c / 1e9
     log(f"k4 [A={a} P={p} S={s} C={c}]: kernel {ms:.3f} ms ({gbytes / ms:.2f} TB/s of "
         f"{gbytes:.2f} GB read+written), plain {pms:.3f} ms ({st['card']})")
-    st["k4"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    st["k4"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound(gbytes * 1e9),
+                    library_ms=None)
     st["x_planes"] = (qr, qi)
 
 
@@ -498,9 +547,11 @@ def phase_xcorr(st: dict) -> None:
     gbytes = (2 * i * s + 2 * 4 * i * i) * c / 1e9
     log(f"xcorr {tag}: K3 {k3_ms:.3f} ms vs plain {k3_pms:.3f} ms, K5b {k5b_ms:.3f} ms vs "
         f"plain {k5b_pms:.3f} ms (floor: {gbytes:.2f} GB read+written) ({st['card']})")
-    st["k3"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_pms)
+    # V_re and V_im: 4 int8 products per pair, the upper triangle only.
+    x_bound = bound(gbytes * 1e9, int8=2 * 4 * c * s * i * (i + 1) // 2)
+    st["k3"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_pms, **x_bound, library_ms=None)
     st["k5b"] = dict(max_abs_err=k5b_err, ms=k5b_ms, plain_ms=k5b_pms,
-                     launches=two_pass["k5b"])
+                     launches=two_pass["k5b"], **x_bound, library_ms=None)
 
 
 def _stack_beams(torch, pair):
@@ -681,6 +732,311 @@ def phase_fxb_flagship(st: dict) -> None:
     st["fxb"] = dict(ms=ms, ratio=ratio, stages=stages)
 
 
+def phase_fir(st: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from dpdk_dc_sand_tpu_torch.ops import pfb, pfb_fir
+
+    torch.cuda.empty_cache()  # phase 10's engine and buffers are gone
+    dev = torch.device("cuda")
+    nb, taps, fft, s = 160, 16, 65536, 256  # the flagship's streams and frames
+    n_frames = s + taps - 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.randint(-128, 128, (nb, n_frames * fft), dtype=torch.int8, device=dev,
+                      generator=gen)
+    win = pfb.default_window(taps, fft, device=dev)
+    tag = f"[{nb} x {n_frames} x {fft}, {taps} taps]"
+
+    def kern():
+        return pfb.pfb_fir(x, win)
+
+    def plain():
+        return pfb_fir.pfb_fir_reference(x.view(nb, n_frames, fft), win)
+
+    got = kern()
+    err = _exact(f"k6 int8 {tag}", (got.view(nb, s, fft),), (plain(),))
+    del got
+    ms, pms = cuda_ms(kern), cuda_ms(plain, iters=1)
+    # What PyTorch's own streaming kernels reach on this byte mix: an int8 ->
+    # f32 copy of the frames (2.84 GB in, 11.4 GB out) and a fill of K6's
+    # output shape (10.7 GB out, nothing in).
+    yard = torch.empty((nb, n_frames, fft), dtype=torch.float32, device=dev)
+    copy_ms = cuda_ms(lambda: yard.copy_(x.view(nb, n_frames, fft)))
+    fill_ms = cuda_ms(lambda: yard.view(-1)[: nb * s * fft].fill_(1.0))
+    del yard
+    log(f"k6 yardsticks: int8 -> f32 copy of the frames {copy_ms:.3f} ms "
+        f"({5 * x.numel() / copy_ms / 1e9:.2f} TB/s), fill of [{nb}, {s}, {fft}] f32 "
+        f"{fill_ms:.3f} ms ({4 * nb * s * fft / fill_ms / 1e9:.2f} TB/s) ({st['card']})")
+    xf = torch.randn((8, n_frames * fft), device=dev, generator=gen) * 40
+    _exact(f"k6 f32 [8 x {n_frames} x {fft}]", (pfb.pfb_fir(xf, win).view(8, s, fft),),
+           (pfb_fir.pfb_fir_reference(xf.view(8, n_frames, fft), win),))
+    f32_ms = cuda_ms(lambda: pfb.pfb_fir(xf, win))
+    del xf
+    torch.cuda.empty_cache()
+    k6_bound = bound(nb * n_frames * fft + taps * fft * 4 + nb * s * fft * 4,
+                     f32=2 * taps * nb * s * fft)
+    # The yardstick: one cuDNN depthwise conv1d computes the same sums over
+    # the frames laid out [B, F, n_frames] in f32 (layout and cast untimed).
+    lib_ms, lib_note = None, ""
+    try:
+        xt = torch.empty((nb, fft, n_frames), dtype=torch.float32, device=dev)
+        xt.copy_(x.view(nb, n_frames, fft).transpose(1, 2))
+        wt = win.t().contiguous().unsqueeze(1)  # [F, 1, taps]
+
+        def lib():
+            return F.conv1d(xt, wt, groups=fft)
+
+        ref8 = pfb_fir.pfb_fir_reference(x[:8].view(8, n_frames, fft), win)
+        d = float((lib()[:8].transpose(1, 2) - ref8).abs().max())
+        lib_note = f"max |d| vs plain on 8 streams {d:.3e}"
+        if d <= 1e-3 + 1e-5 * float(ref8.abs().max()):
+            lib_ms = cuda_ms(lib, iters=1)
+        else:
+            lib_note = f"— (conv1d does not compute the FIR here: {lib_note})"
+        del ref8
+    except RuntimeError as e:  # out of memory, or no cuDNN algorithm for it
+        lib_note = f"— (conv1d failed: {str(e).splitlines()[0]})"
+    finally:
+        xt = wt = None
+        torch.cuda.empty_cache()
+    lib_txt = f"{lib_ms:.3f} ms ({lib_note})" if lib_ms is not None else lib_note
+    log(f"k6 {tag}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {k6_bound['bound_ms']:.3f} ms "
+        f"({k6_bound['bound_by']}), library conv1d {lib_txt}; f32 frames [8 streams] "
+        f"{f32_ms:.3f} ms ({st['card']})")
+    st["k6"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **k6_bound, library_ms=lib_ms,
+                    f32_8_streams_ms=f32_ms)
+
+
+def phase_fengine_dit(st: dict) -> None:
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    fft, taps, s, lead = 65536, 16, 256, (4, 2)  # 8 of the flagship's 160 streams
+    nb, c, n_frames = lead[0] * lead[1], fft // 2, s + taps - 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    frames = torch.randint(-64, 64, (*lead, n_frames, fft), dtype=torch.int8, device=dev,
+                           generator=gen)
+    fd = torch.rand(lead, device=dev, generator=gen) - 0.5
+    ph = -3.14159265 * fd / 2
+    win = default_window(taps, fft, device=dev)
+    kw = dict(n_channels=c, quant_scale=QUANT_SCALE)
+    ff.fengine_dit.launches = 0
+    ff.fengine_fused.launches = 0
+    outs = {(dt, deint): ff.fengine_fused(frames, win, fd, ph, dft_dtype=dt, deint=deint, **kw)
+            for dt in ("bfloat16", "float32") for deint in ("matmul", "bitcast")}
+    torch.cuda.synchronize()
+    launches = {"k7": ff.fengine_dit.launches, "k1": ff.fengine_fused.launches}
+    log(f"fengine_dit launches: {launches}")
+    if launches != {"k7": 4, "k1": 0}:
+        raise AssertionError(f"the DIT path did not run through K7 alone: {launches}")
+    _, n1, n2 = ff._deint_mode(c, "matmul")
+    rc, rs = (r.reshape(nb, c) for r in ff._rotation_planes(fd, ph, c, QUANT_SCALE, (c,)))
+    x = frames.view(nb, n_frames, fft)
+    worst = 0
+    times = {}
+    for dt in ("bfloat16", "float32"):
+        got, bc = outs[(dt, "matmul")], outs[(dt, "bitcast")]
+
+        def plain():
+            return ff.fengine_dit_reference(x, win, rc, rs, n1=n1, n2=n2, dft_dtype=dt)
+
+        worst = max(worst, _code_diff(f"k7 {dt} [{nb} streams x S={s} x fft {fft}, "
+                                      f"{n1}x{n2}]", [g.view(nb, s, c) for g in got], plain()))
+        if not (torch.equal(got[0], bc[0]) and torch.equal(got[1], bc[1])):
+            raise AssertionError(f"k7 {dt}: deint='bitcast' is not the bytes of 'matmul'")
+        times[dt] = (cuda_ms(lambda: ff.fengine_fused(frames, win, fd, ph, dft_dtype=dt,
+                                                      deint="matmul", **kw)),
+                     cuda_ms(plain, iters=1))
+        log(f"k7 {dt}: bitcast == matmul bytes; kernel {times[dt][0]:.3f} ms, plain "
+            f"{times[dt][1]:.3f} ms ({st['card']})")
+    macs = 4 * n1 * n1 * n2 + 8 * n2 * n2 * n1  # per spectrum, both half-length DFTs
+    nbytes = nb * n_frames * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c
+    k7_bound = bound(nbytes, bf16=2 * macs * nb * s, f32=2 * taps * fft * nb * s)
+    f32_bound = bound(nbytes, f32=2 * macs * nb * s + 2 * taps * fft * nb * s)
+    log(f"k7 bound: bf16 DFT {k7_bound['bound_ms']:.3f} ms ({k7_bound['bound_by']}), f32 DFT "
+        f"{f32_bound['bound_ms']:.3f} ms ({f32_bound['bound_by']})")
+    st["k7"] = dict(max_abs_err=float(worst), ms=times["bfloat16"][0],
+                    plain_ms=times["bfloat16"][1], **k7_bound, library_ms=None,
+                    f32_ms=times["float32"][0], f32_plain_ms=times["float32"][1],
+                    f32_bound_ms=f32_bound["bound_ms"], launches=launches["k7"])
+
+
+def _plain_fir(samples, window):
+    """The composed chain's FIR by the plain version (K6's comparison)."""
+    from dpdk_dc_sand_tpu_torch.ops.pfb_fir import pfb_fir_reference
+
+    return pfb_fir_reference(samples.reshape(*samples.shape[:-1], -1, window.shape[1]), window)
+
+
+def _profile_split(torch, fn):
+    """Device time of one call of ``fn`` by kernel: K6, cuFFT and the plain
+    ops (the coarse-delay copy, the rotation and the requant), in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {"K6 (FIR)": 0.0, "rfft (cuFFT)": 0.0, "coarse delay, fine delay, requant": 0.0}
+    names = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        # The coarse-delay copy runs as a generic copy kernel, indistinguishable
+        # by name from the rotation's and the requant's.
+        key = ("K6 (FIR)" if "fir_" in e.key else
+               "rfft (cuFFT)" if "fft" in e.key.lower() else "coarse delay, fine delay, requant")
+        split[key] += us / 1e3
+        names.append((us / 1e3, e.key[:60]))
+    return split, sorted(names, reverse=True)[:6]
+
+
+def phase_f_flagship(st: dict) -> None:
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FBEngine, FEngine, FXBEngine
+    from dpdk_dc_sand_tpu_torch.models.fengine import composed_f
+    from dpdk_dc_sand_tpu_torch.ops import bstage, corner_turn as ct, fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops import pfb_fir, xcorr as xc
+    from dpdk_dc_sand_tpu_torch.ops.beamform import beamform_turned
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(n_ants=80, n_channels=32768, n_taps=16)
+    a, p, s, c = cfg.n_ants, cfg.n_pols, 256, cfg.n_channels
+    fe = FEngine(cfg, n_spectra=s, quant_scale=QUANT_SCALE, device=dev)
+    rng = np.random.default_rng(SEED + 7)
+    margin = 8192
+    cd = rng.integers(0, margin, a).astype(np.int32)
+    fd = rng.uniform(-0.5, 0.5, a).astype(np.float32)
+    ph = (-np.pi * fd / 2).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    adc = torch.empty((a, p, fe.samples_in + margin), dtype=torch.int8, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"k6": pfb_fir.pfb_fir_frames, "k1": ff.fengine_fused, "k7": ff.fengine_dit}
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    out = None
+
+    def timed_step():
+        nonlocal out
+        adc.random_(-64, 64, generator=gen)  # fresh flat ADC every step
+        out = None
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fe(adc, cd, fd, ph)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+
+    for _ in range(3):
+        timed_step()
+    fd = (fd * 0.5).astype(np.float32)  # a fine-delay update
+    ph = (-np.pi * fd / 2).astype(np.float32)
+    for _ in range(2):
+        timed_step()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"f flagship launches: {launches}")
+    if launches["k6"] < 1 or launches["k1"] or launches["k7"]:
+        raise AssertionError(f"the F path did not run through K6 alone: {launches}")
+    if tuple(out.shape) != (a, p, s, c, 2) or out.dtype != torch.int8:
+        raise AssertionError(f"FEngine output {tuple(out.shape)} {out.dtype}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(times[1:]))
+    samples = a * p * s * cfg.fft_size
+    log(f"f flagship [80 ant x 32768 ch x 16 taps, S=256]: step ms "
+        f"{['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
+        f"{samples / ms / 1e3:.1f} Msamples/s, peak memory {peak_gb:.2f} GB ({st['card']})")
+    # The same composed chain with the plain FIR in K6's place, on the same
+    # device tensors: bit for bit.
+    plain = torch.empty_like(out)
+    delays = [torch.as_tensor(v, device=dev) for v in (cd, fd, ph)]
+    composed_f(adc, *delays, fe.window, plain[..., 0], plain[..., 1],
+               quant_scale=QUANT_SCALE, fir=_plain_fir)
+    _exact("f flagship vs the composed chain with the plain FIR", (out,), (plain,))
+    del plain
+    split, top = _profile_split(torch, lambda: fe(adc, cd, fd, ph))
+    busy = sum(split.values())
+    log("f flagship split (ms, torch.profiler, one step): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; device busy {busy:.3f} vs step {ms:.3f}, idle share "
+        f"{max(0.0, 1 - busy / ms):.2%}; top kernels {top} ({st['card']})")
+    st["f"] = dict(ms=ms, msamples_s=samples / ms / 1e3, peak_gb=peak_gb, split=split)
+    st["f_launches"] = launches
+    del out, adc
+    torch.cuda.empty_cache()
+
+    # The qualification's CW tone on the card (test_channelisation.py:35-73).
+    tcfg = ArrayConfig(n_ants=1, n_channels=128, n_taps=16)
+    tone_fe = FEngine(tcfg, n_spectra=8, quant_scale=1.0, quantise_output=False, device=dev)
+    k = 37
+    n = np.arange(tone_fe.samples_in + 8)
+    tone = np.broadcast_to((100.0 * np.cos(2 * np.pi * k * n / tcfg.fft_size)).astype(
+        np.float32), (1, tcfg.n_pols, n.size)).copy()
+    z = np.zeros(1, np.float32)
+    spec = tone_fe(tone, np.zeros(1, np.int32), z, z).double().cpu().numpy()
+    power = (spec[..., 0] ** 2 + spec[..., 1] ** 2)[0, 0, 4]
+    rel_db = 10 * np.log10(power / power[k] + 1e-300)
+    worst = float(np.delete(rel_db, k).max())
+    log(f"CW tone at channel {k} of 128, 16 taps, on the card: peak {int(np.argmax(power))}, "
+        f"worst leakage {worst:.2f} dB (spec -62 dB)")
+    if int(np.argmax(power)) != k or worst > -62.0:
+        raise AssertionError("the CW tone fails the channelisation spec on the card")
+
+    # FB and FXB with the composed F stage, held to the plain chain.
+    ecfg = ArrayConfig(n_ants=8, n_channels=32768, n_beams=16, n_taps=16)
+    ea, es = ecfg.n_ants, 256
+    kernels = {"k6": pfb_fir.pfb_fir_frames, "k1": ff.fengine_fused, "k2": bstage.beamform_turned_fused,
+               "k4": ct.corner_turn_planes, "k3": xc.correlate_planes_fused}
+    for cls in (FBEngine, FXBEngine):
+        kw = dict(beam_layout="natural") if cls is FBEngine else {}
+        eng = cls(ecfg, n_spectra=es, quant_scale=QUANT_SCALE, precision="bf16", fengine="xla",
+                  device=dev, **kw)
+        ex_adc, ex_cd, ex_fd, ex_ph, dv = eng.example_inputs(seed=SEED, margin=8192)
+        eng.set_beam_delays(dv)
+        for fn in kernels.values():
+            fn.launches = 0
+        got = eng.step(ex_adc, ex_cd, ex_fd, ex_ph)
+        torch.cuda.synchronize()
+        ran = {k: fn.launches for k, fn in kernels.items()}
+        want = ("k6", "k2") if cls is FBEngine else ("k6", "k4", "k3")
+        name = f"{cls.__name__}(fengine='xla') [A=8 C=32768 B=16 taps=16 S=256]"
+        log(f"{name} launches: {ran}")
+        if min(ran[k] for k in want) < 1 or ran["k1"]:
+            raise AssertionError(f"{name}: a kernel of its path never launched: {ran}")
+        shape = (ea, ecfg.n_pols, es, ecfg.n_channels)
+        qr, qi = (torch.empty(shape, dtype=torch.int8, device=dev) for _ in range(2))
+        composed_f(torch.as_tensor(ex_adc, device=dev),
+                   *(torch.as_tensor(v, device=dev) for v in (ex_cd, ex_fd, ex_ph)),
+                   eng.window, qr, qi, quant_scale=QUANT_SCALE, fir=_plain_fir)
+        _exact(f"{name} F planes vs the plain composed chain",
+               eng._f(ex_adc, ex_cd, ex_fd, ex_ph), (qr, qi))
+        w = eng.coeff_blocks
+        if cls is FBEngine:
+            _beam_diff(f"{name} beams", got,
+                       bstage.beamform_turned_fused_reference(qr, qi, w, "bf16"))
+        else:
+            beams, vre, vim = got
+            ref = _stack_beams(torch, beamform_turned(ct.corner_turn_planes_reference(qr, qi),
+                                                      w, n_pols=ecfg.n_pols, precision="bf16"))
+            _beam_diff(f"{name} beams", beams, ref)
+            _exact(f"{name} visibilities vs the gram of the plain F planes", (vre, vim),
+                   xc.correlate_planes_fused_reference(qr, qi))
+        del eng, got
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -705,7 +1061,8 @@ def main() -> int:
     if ref:
         raise AssertionError(f"the port pulled in JAX or the reference package: {ref}")
     # launches: each kernel's count from the run of its path (phase 6 for the
-    # F+B step, phase 10 for the FXB step, phase 8 for the two-pass X path).
+    # F+B step, phase 10 for the FXB step, phase 8 for the two-pass X path,
+    # phase 12 for the DIT F form, phase 13 for the F-engine step).
     kernels = [
         dict(name="fengine_ct", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
@@ -727,6 +1084,13 @@ def main() -> int:
         dict(name="xcorr_turned", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/xcorr.cu",
              replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:47", path="x_two_pass",
              **st["k5b"]),
+        dict(name="pfb_fir", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/pfb_fir.cu",
+             replaces="dpdk_dc_sand_tpu/ops/pfb_pallas.py:52", path="f_flagship",
+             launches=st["f_launches"]["k6"], **st["k6"]),
+        dict(name="fengine_dit", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/fengine_dit.cu",
+             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:275", path="fengine_dit",
+             **st["k7"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -77,6 +77,21 @@ _SIGNATURES = {
         _I, _I, _I,  # n_inputs, n_spectra, n_channels
         _P,  # stream
     ],
+    "pfb_fir_launch": [
+        _P, _P, _P,  # frames [B, n_frames, F], window [taps, F], out [B, S, F]
+        _I, _I, _I, _I,  # batch, n_frames, F, n_taps
+        _I, _I,  # frames are f32, vector lane loads
+        _P,  # stream
+    ],
+    "fengine_dit_launch": [
+        _P, _P,  # frames [B, n_frames, fft] int8, window [taps, fft]
+        _P, _P, _P, _P,  # d1c, d1s [N1, N1], d2c, d2s [N2, N2]
+        _P, _P, _P, _P,  # twc, tws [N1, N2], untc, unts [N2, N1]
+        _P, _P,  # rotc, rots [B, N]
+        _P, _P,  # outr, outi [B, S, N]
+        _I, _I, _I, _I, _I, _I,  # batch, n_frames, n_taps, n1, n2, bf16
+        _P,  # stream
+    ],
 }
 
 

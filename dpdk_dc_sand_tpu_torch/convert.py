@@ -9,7 +9,12 @@ port engine's buffers and caches:
 - from the JAX ``FXBEngine`` (into the port's ``FXBEngine``):
   ``np.asarray(fxb.window)``, ``np.asarray(fxb._coeffs)``, and the rotation
   planes that engine computes inside its jit, taken from the JAX
-  ``fine_rotation_planes`` for the same fine delays and phases.
+  ``fine_rotation_planes`` for the same fine delays and phases (``None``
+  for an engine with ``fengine="xla"``, which rotates inside its chain).
+
+:func:`load_window` carries the JAX ``FEngine``'s ``window`` (its only
+state: the delay solution is an input of every step) into the port's
+``FEngine``, or any port engine's.
 
 Both packages then run their kernels on identical operands, so a comparison
 isolates the kernels from cos/sin ulp differences between the two
@@ -20,9 +25,20 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from dpdk_dc_sand_tpu_torch.models.fbengine import FBEngine, _rot_key
 from dpdk_dc_sand_tpu_torch.ops.coeff_gen import steering_key
+
+
+def load_window(engine: nn.Module, window) -> nn.Module:
+    """Load the reference engine's ``[taps, fft]`` f32 PFB window into ``engine``."""
+    cfg = engine.cfg
+    win = torch.as_tensor(np.array(window, np.float32), device=engine.device)
+    if tuple(win.shape) != (cfg.n_taps, cfg.fft_size):
+        raise ValueError(f"window shape {tuple(win.shape)}")
+    engine.window = win
+    return engine
 
 
 def from_reference_state(
@@ -43,23 +59,21 @@ def from_reference_state(
 
     ``window`` ``[taps, fft]`` f32; ``coeff_blocks`` ``[C, 2A, 2B]`` (stored
     in the engine's precision dtype); ``rot_planes`` ``(cos, sin)`` each
-    ``[A, P, N2/2, N1]`` f32. The caches are keyed to ``delay_vals`` /
+    ``[A, P, N2/2, N1]`` f32, or ``None`` to leave them to the engine. The caches are keyed to ``delay_vals`` /
     ``ant_weights`` / ``t_s`` and ``frac_delays`` / ``phases``, so steps with
     that solution use the loaded state until the solution changes.
     """
     cfg = engine.cfg
     dev = engine.device
-    win = torch.as_tensor(np.array(window, np.float32), device=dev)
-    if tuple(win.shape) != (cfg.n_taps, cfg.fft_size):
-        raise ValueError(f"window shape {tuple(win.shape)}")
     dtype = torch.bfloat16 if engine.precision == "bf16" else torch.float32
     blocks = torch.as_tensor(np.array(coeff_blocks, np.float32), device=dev)
     if tuple(blocks.shape) != (cfg.n_channels, 2 * cfg.n_ants, 2 * cfg.n_beams):
         raise ValueError(f"coeff_blocks shape {tuple(blocks.shape)}")
-    rc, rs = (torch.as_tensor(np.array(r, np.float32), device=dev) for r in rot_planes)
-    engine.window = win
+    load_window(engine, window)
     engine.coeff_blocks = blocks.to(dtype)
-    engine.rot_cos, engine.rot_sin = rc, rs
     engine._coeff_key = steering_key(delay_vals, ant_weights, t_s)
-    engine._rot_key = _rot_key(frac_delays, phases)
+    if rot_planes is not None:
+        rc, rs = (torch.as_tensor(np.array(r, np.float32), device=dev) for r in rot_planes)
+        engine.rot_cos, engine.rot_sin = rc, rs
+        engine._rot_key = _rot_key(frac_delays, phases)
     return engine

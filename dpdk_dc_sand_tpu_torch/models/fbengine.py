@@ -1,7 +1,10 @@
 """Fused F+B pipeline — the flagship single-device model (counterpart of ``dpdk_dc_sand_tpu/models/fbengine.py``).
 
 ADC streams -> coarse delay -> PFB channelise -> fine delay -> requantise
-(K1, :func:`~dpdk_dc_sand_tpu_torch.ops.fengine_fused.fengine_fused`) ->
+(K1, :func:`~dpdk_dc_sand_tpu_torch.ops.fengine_fused.fengine_fused`; or,
+with ``fengine="xla"``, the composed chain of
+:func:`~dpdk_dc_sand_tpu_torch.models.fengine.composed_f`: K6 FIR, cuFFT
+rfft, plain fine delay and requant) ->
 corner turn + multi-beam beamform: ``bstage="fused"`` in one kernel (K2,
 :func:`~dpdk_dc_sand_tpu_torch.ops.bstage.beamform_turned_fused`), or
 ``bstage="turned"``, the corner-turn kernel (K4,
@@ -26,6 +29,8 @@ import torch
 from torch import nn
 
 from dpdk_dc_sand_tpu_torch.config import ArrayConfig
+from dpdk_dc_sand_tpu_torch.models._device import resolve_device
+from dpdk_dc_sand_tpu_torch.models.fengine import composed_f
 from dpdk_dc_sand_tpu_torch.ops.beamform import beamform_turned
 from dpdk_dc_sand_tpu_torch.ops.bstage import (
     beamform_turned_fused,
@@ -64,9 +69,10 @@ def resolve_backends(
 
     The hand-written kernels always run, so the reference's "Pallas
     available" condition is always true here: ``fengine`` resolves to
-    ``"fused"``; ``bstage`` to ``"fused"`` for natural beams when the
-    reference's K2 gate takes the geometry, else ``"turned"`` when the
-    corner turn's does, else ``"fused"`` when K2's does, else ``"planar"``.
+    ``"fused"`` (``"xla"``, the composed chain, only when asked for);
+    ``bstage`` to ``"fused"`` for natural beams when the reference's K2
+    gate takes the geometry, else ``"turned"`` when the corner turn's does,
+    else ``"fused"`` when K2's does, else ``"planar"``.
     Explicit choices pass through unchanged.
     """
     if fengine == "auto":
@@ -127,8 +133,9 @@ class FBEngine(nn.Module):
         Beamform precision, ``"f32"`` or ``"bf16"`` (steering blocks are
         stored in this dtype).
     fengine:
-        ``"auto"`` / ``"fused"`` (K1, bf16 DFT operands) or ``"fused_f32"``
-        (K1 with f32 DFT operands).
+        ``"auto"`` / ``"fused"`` (K1, bf16 DFT operands), ``"fused_f32"``
+        (K1 with f32 DFT operands) or ``"xla"`` (the composed chain: K6
+        FIR, cuFFT rfft, plain fine delay and requant).
     bstage:
         ``"auto"`` / ``"fused"`` (K2), or ``"turned"`` (K4 + the folded
         f32 product). ``"auto"`` takes ``"fused"`` here; FXB resolves by
@@ -139,7 +146,8 @@ class FBEngine(nn.Module):
         ``"split"``: ``[P, C, S, B, 2]`` beams. ``"natural"``: K2's packed
         ``[C/pack, P·S, pack·2B]`` wire format, no epilogue.
     device:
-        Where the buffers live and the step runs.
+        Where the buffers live and the step runs; ``None`` is ``cuda`` (and
+        raises without one: pass ``device="cpu"`` for the CPU).
     """
 
     def __init__(
@@ -152,13 +160,13 @@ class FBEngine(nn.Module):
         bstage: str = "auto",
         beam_quant_scale: float | None = None,
         beam_layout: str = "split",
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> None:
         super().__init__()
         if fengine == "auto":
             fengine = "fused"
-        if fengine not in ("fused", "fused_f32"):
-            raise NotImplementedError(f"fengine backend {fengine!r} {_NOT_PORTED}")
+        if fengine not in ("fused", "fused_f32", "xla"):
+            raise ValueError(f"unknown fengine backend {fengine!r}")
         if bstage == "auto":
             bstage = "fused"
         _check_bstage(cfg, n_spectra, bstage)
@@ -174,7 +182,7 @@ class FBEngine(nn.Module):
         self.bstage = bstage
         self.beam_quant_scale = beam_quant_scale
         self.beam_layout = beam_layout
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.register_buffer("window", default_window(cfg.n_taps, cfg.fft_size, self.device))
         #: Steering blocks [C, 2A, 2B] (precision dtype) and fine-rotation
         #: planes [A, P, N2/2, N1] f32: content-keyed delay-update caches.
@@ -228,24 +236,28 @@ class FBEngine(nn.Module):
             self._rot_key = key
         return self.rot_cos, self.rot_sin
 
+    def _f(self, adc, coarse_delays, frac_delays, phases) -> tuple[torch.Tensor, torch.Tensor]:
+        """The step's F planes, int8 ``(qr, qi)`` ``[A, P, S, C]``."""
+        if self.fengine == "xla":
+            rot, delays = None, (self._tensor(frac_delays, torch.float32),
+                                 self._tensor(phases, torch.float32))
+        else:
+            rot, delays = self._fine_rot(frac_delays, phases), None
+        return _f_stage(
+            self._tensor(adc), self._tensor(coarse_delays), self.window, rot,
+            cfg=self.cfg, n_spectra=self.n_spectra, quant_scale=self.quant_scale,
+            fengine=self.fengine, fine_delays=delays,
+        )
+
     def step(self, adc, coarse_delays, frac_delays, phases) -> torch.Tensor:
         """Hot-loop step using the cached steering blocks."""
         if self.coeff_blocks is None:
             raise RuntimeError("call set_beam_delays() first")
-        return _fb_step(
-            self._tensor(adc),
-            self._tensor(coarse_delays),
-            self.window,
-            self.coeff_blocks,
-            self._fine_rot(frac_delays, phases),
-            cfg=self.cfg,
-            n_spectra=self.n_spectra,
-            quant_scale=self.quant_scale,
-            precision=self.precision,
-            fengine=self.fengine,
-            bstage=self.bstage,
-            beam_quant_scale=self.beam_quant_scale,
-            beam_layout=self.beam_layout,
+        qr, qi = self._f(adc, coarse_delays, frac_delays, phases)
+        return _b_stage(
+            qr, qi, self.coeff_blocks,
+            cfg=self.cfg, precision=self.precision, bstage=self.bstage,
+            beam_quant_scale=self.beam_quant_scale, beam_layout=self.beam_layout,
         )
 
     def forward(self, adc, coarse_delays, frac_delays, phases, delay_vals):
@@ -323,19 +335,27 @@ def _f_stage(
     adc: torch.Tensor,
     coarse_delays: torch.Tensor,
     window: torch.Tensor,
-    rot_planes: tuple[torch.Tensor, torch.Tensor],
+    rot_planes: tuple[torch.Tensor, torch.Tensor] | None,
     *,
     cfg: ArrayConfig,
     n_spectra: int,
     quant_scale: float,
     fengine: str = "fused",
+    fine_delays: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Coarse delay + PFB + fine delay + requantise: int8 ``(qr, qi)`` ``[A, P, S, C]``.
 
     The ADC may be flat ``[A, P, n]`` or wire-rowed ``[A, P, rows, N2]``;
-    both are views of the same bytes.
+    both are views of the same bytes. ``fengine="xla"`` runs the composed
+    chain on ``fine_delays`` = ``(frac_delays, phases)`` ``[A]``; the fused
+    forms take the cached ``rot_planes``.
     """
     flat = adc.reshape(cfg.n_ants, cfg.n_pols, -1)
+    if fengine == "xla":
+        shape = (cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_channels)
+        qr, qi = (torch.empty(shape, dtype=torch.int8, device=adc.device) for _ in range(2))
+        composed_f(flat, coarse_delays, *fine_delays, window, qr, qi, quant_scale=quant_scale)
+        return qr, qi
     return fengine_fused(
         flat,
         window,
@@ -388,30 +408,3 @@ def _b_stage(
         beam_re = requantise(beam_re, beam_quant_scale)
         beam_im = requantise(beam_im, beam_quant_scale)
     return torch.stack([beam_re, beam_im], dim=-1)
-
-
-def _fb_step(
-    adc: torch.Tensor,
-    coarse_delays: torch.Tensor,
-    window: torch.Tensor,
-    coeff_blocks: torch.Tensor,
-    rot_planes: tuple[torch.Tensor, torch.Tensor],
-    *,
-    cfg: ArrayConfig,
-    n_spectra: int,
-    quant_scale: float,
-    precision: str,
-    fengine: str = "fused",
-    bstage: str = "fused",
-    beam_quant_scale: float | None = None,
-    beam_layout: str = "split",
-) -> torch.Tensor:
-    qr, qi = _f_stage(
-        adc, coarse_delays, window, rot_planes,
-        cfg=cfg, n_spectra=n_spectra, quant_scale=quant_scale, fengine=fengine,
-    )
-    return _b_stage(
-        qr, qi, coeff_blocks,
-        cfg=cfg, precision=precision, bstage=bstage,
-        beam_quant_scale=beam_quant_scale, beam_layout=beam_layout,
-    )

@@ -1,9 +1,10 @@
 """FXB engine: one F stage feeding both the beamformer and the correlator (counterpart of ``dpdk_dc_sand_tpu/models/fxbengine.py``).
 
 The channelised, delay-corrected, requantised int8 planes are computed once
-per step (K1) and consumed twice on the device: by the B stage
-(``_b_stage``; at the flagship the turned form, K4 + the folded f32
-product) and by the X stage, whose kernel the geometry picks exactly as the
+per step (K1, or with ``fengine="xla"`` the composed chain: K6 FIR, cuFFT
+rfft, plain fine delay and requant) and consumed twice on the device: by
+the B stage (``_b_stage``; at the flagship the turned form, K4 + the folded
+f32 product) and by the X stage, whose kernel the geometry picks exactly as the
 reference picks it (:func:`_x_stage`): the turn + gram kernel K3, else the
 corner turn (K5a = K4) and the turned gram K5b, else the plain grams.
 
@@ -21,7 +22,6 @@ from dpdk_dc_sand_tpu_torch.config import ArrayConfig
 from dpdk_dc_sand_tpu_torch.models.fbengine import (
     FBEngine,
     _b_stage,
-    _f_stage,
     resolve_backends,
 )
 from dpdk_dc_sand_tpu_torch.ops.corner_turn import (
@@ -51,7 +51,8 @@ class FXBEngine(FBEngine):
     (:func:`~dpdk_dc_sand_tpu_torch.models.fbengine.resolve_backends`, split
     beams): at the flagship the fused F kernel and the turned B stage.
     ``vis_precision`` (``"auto"`` = ``"int8"``) is the precision of the
-    plain grams; the kernels are exact int8 whatever it is.
+    plain grams; the kernels are exact int8 whatever it is. ``device``:
+    ``None`` is ``cuda``; pass ``device="cpu"`` for the CPU.
     """
 
     def __init__(
@@ -64,7 +65,7 @@ class FXBEngine(FBEngine):
         bstage: str = "auto",
         beam_quant_scale: float | None = None,
         vis_precision: str = "auto",
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> None:
         if vis_precision not in ("auto", "int8", "f32", "bf16"):
             raise ValueError(f"unknown vis_precision {vis_precision!r}")
@@ -84,16 +85,7 @@ class FXBEngine(FBEngine):
         """Hot-loop step using the cached steering blocks: ``(beams, vis_re, vis_im)``."""
         if self.coeff_blocks is None:
             raise RuntimeError("call set_beam_delays() first")
-        qr, qi = _f_stage(
-            self._tensor(adc),
-            self._tensor(coarse_delays),
-            self.window,
-            self._fine_rot(frac_delays, phases),
-            cfg=self.cfg,
-            n_spectra=self.n_spectra,
-            quant_scale=self.quant_scale,
-            fengine=self.fengine,
-        )
+        qr, qi = self._f(adc, coarse_delays, frac_delays, phases)
         beams = _b_stage(
             qr, qi, self.coeff_blocks,
             cfg=self.cfg, precision=self.precision, bstage=self.bstage,

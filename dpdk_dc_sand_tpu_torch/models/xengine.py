@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from dpdk_dc_sand_tpu_torch.config import ArrayConfig
+from dpdk_dc_sand_tpu_torch.models._device import resolve_device
 from dpdk_dc_sand_tpu_torch.ops.correlate import correlate_accumulate
 
 
@@ -18,13 +19,22 @@ class XEngine:
 
     ``n_accum`` time blocks are integrated per output dump (the
     reference's 256-accumulation cadence); inputs = ``n_ants · n_pols``.
+    The samples are moved onto ``device`` (``None`` is ``cuda``; pass
+    ``device="cpu"`` for the CPU) and integrated there.
     """
 
-    def __init__(self, cfg: ArrayConfig, n_accum: int = 256, precision: str = "f32"):
+    def __init__(
+        self,
+        cfg: ArrayConfig,
+        n_accum: int = 256,
+        precision: str = "f32",
+        device: torch.device | str | None = None,
+    ):
         self.cfg = cfg
         self.n_accum = n_accum
         self.n_inputs = cfg.n_ants * cfg.n_pols
         self.precision = precision
+        self.device = resolve_device(device)
 
     def integrate(self, samples) -> tuple[torch.Tensor, torch.Tensor]:
         """Integrate one window ``[n_accum, chan, time_per_block, n_inputs, 2]``.
@@ -32,7 +42,7 @@ class XEngine:
         Returns ``(V_re, V_im)`` ``[chan, n_inputs, n_inputs]`` f32, the
         blocks' visibilities summed in block order.
         """
-        samples = torch.as_tensor(samples)
+        samples = torch.as_tensor(samples, device=self.device)
         _, n_chan, _, n_inputs, _ = samples.shape
         acc = tuple(
             torch.zeros((n_chan, n_inputs, n_inputs), dtype=torch.float32, device=samples.device)

@@ -20,6 +20,15 @@ with the same rounding points:
 
 Products of bf16 values are exact in f32, so the bf16 mode differs from the
 reference only by the order of f32 additions.
+
+Where the direct-CT split does not exist, or the caller names
+``deint="matmul"`` or ``"bitcast"``, :func:`fengine_fused` takes the
+decimation-in-time form instead (the reference's ``_fengine_kernel``):
+:func:`fengine_dit` launches ``csrc/fengine_dit.cu`` (K7) for a CUDA
+tensor and runs :func:`fengine_dit_reference` for a CPU tensor. The
+reference's two names move samples differently on the TPU but compute the
+same values; here they differ only in the N1·N2 split :func:`_deint_mode`
+gives them.
 """
 
 from __future__ import annotations
@@ -58,15 +67,42 @@ def _split_ct(fft_size: int) -> tuple[int, int] | None:
     return n1, n2
 
 
-def _ct_split_or_raise(fft_size: int) -> tuple[int, int]:
-    ct = _split_ct(fft_size)
-    if ct is None or fft_size & (fft_size - 1):
-        raise NotImplementedError(
-            f"fft_size {fft_size} has no direct-CT split; the reference's DIT "
-            "kernel (fengine_pallas._fengine_kernel, K7) that covers it is "
-            "not ported yet (see ROADMAP.md)"
-        )
-    return ct
+def _split_pow2(n: int) -> tuple[int, int]:
+    """n = n1 * n2, powers of two, near-balanced with n2 >= 64
+    (``fengine_pallas._split_pow2``)."""
+    l = n.bit_length() - 1
+    n1 = 1 << ((l + 1) // 2)
+    n2 = n // n1
+    if n2 < 64:
+        n2 = min(64, n // 8)
+        n1 = n // n2
+    return n1, n2
+
+
+def _deint_mode(n: int, deint: str = "auto") -> tuple[str, int, int]:
+    """The kernel form and its N1·N2 split, as ``fengine_pallas._deint_mode``
+    picks them (``n`` = fft_size / 2).
+
+    ``"ct"``: the direct-CT form over the whole frame (K1), the default
+    where its split exists. ``"matmul"`` and ``"bitcast"``: the DIT form
+    (K7) over the half-length streams, with the reference's splits for
+    each name (fft 2048: 16·64 and 8·128; fft 65536: 256·128 for both).
+    """
+    if deint not in ("auto", "ct", "matmul", "bitcast"):
+        raise ValueError(f"unknown deint {deint!r}")
+    if deint in ("auto", "ct"):
+        ct = _split_ct(2 * n)
+        if ct is not None:
+            return ("ct", *ct)
+        if deint == "ct":
+            raise ValueError(f"fft_size {2 * n} unsupported by the ct kernel")
+    if deint == "bitcast":
+        n1b, n2b = _split_pow2(n)
+        if n2b < 128 and n >= 8 * 128:
+            n1b, n2b = n // 128, 128
+        if n2b >= 128 and n1b % _ROW_ALIGN == 0:
+            return "bitcast", n1b, n2b
+    return ("matmul", *_split_pow2(n))
 
 
 def ingest_alignment(fft_size: int) -> int | None:
@@ -125,13 +161,25 @@ def fine_rotation_planes(
     device of ``frac_delay``; ``rot(k) = -pi*fd*(k - C/2)/C + phase``.
     Computed on the delay-update path and cached by the engine.
     """
-    n1, n2 = _ct_split_or_raise(2 * n_channels)
+    ct = _split_ct(2 * n_channels)
+    if ct is None or n_channels & (n_channels - 1):
+        raise ValueError(
+            f"fft_size {2 * n_channels}: fine_rotation_planes covers the "
+            "direct-CT kernel form only"
+        )
+    n1, n2 = ct
+    return _rotation_planes(frac_delay, phase, n_channels, quant_scale, (n2 // 2, n1))
+
+
+def _rotation_planes(frac_delay, phase, n_channels, quant_scale, plane):
+    """``(cos, sin)·quant_scale`` of the fine-delay ramp, ``[*lead, *plane]``
+    (channel ``k`` row-major over ``plane``; ``fengine_pallas._rotation_planes``)."""
     fd = torch.as_tensor(frac_delay, dtype=torch.float32)
     ph = torch.as_tensor(phase, dtype=torch.float32, device=fd.device)
     lead = tuple(fd.shape)
     fd = fd.reshape(*lead, 1, 1)
     ph = ph.expand(lead).reshape(*lead, 1, 1)
-    k = torch.arange(n_channels, dtype=torch.float32, device=fd.device).reshape(n2 // 2, n1)
+    k = torch.arange(n_channels, dtype=torch.float32, device=fd.device).reshape(plane)
     rot = -math.pi * fd * (k - n_channels / 2.0) / n_channels + ph
     return torch.cos(rot) * quant_scale, torch.sin(rot) * quant_scale
 
@@ -248,6 +296,153 @@ def _launch(
     return outr, outi
 
 
+class DitConstants(NamedTuple):
+    d1c: torch.Tensor  # [N1, N1] cos(2*pi*k1*n1/N1)
+    d1s: torch.Tensor  # [N1, N1] -sin
+    d2c: torch.Tensor  # [N2, N2] cos(2*pi*k2*n2/N2)
+    d2s: torch.Tensor  # [N2, N2] -sin
+    twc: torch.Tensor  # [N1, N2] cos(2*pi*k1*n2/N), N = N1*N2
+    tws: torch.Tensor  # [N1, N2] -sin
+    untc: torch.Tensor  # [N2, N1] cos(pi*k/N), k = k2*N1 + k1
+    unts: torch.Tensor  # [N2, N1] -sin
+
+
+@functools.lru_cache(maxsize=16)
+def dit_constants(n1: int, n2: int, device: str) -> DitConstants:
+    """The DIT form's DFT, twiddle and combine constants, float64 numpy then
+    f32, as the reference builds them (``fengine_pallas.py:1759-1778``)."""
+    n = n1 * n2
+    k1 = np.arange(n1)
+    k2 = np.arange(n2)
+    a1 = 2 * np.pi * np.outer(k1, k1) / n1
+    a2 = 2 * np.pi * np.outer(k2, k2) / n2
+    atw = 2 * np.pi * np.outer(k1, k2) / n
+    aun = np.pi * (k2[:, None] * n1 + k1[None, :]).astype(np.float64) / n
+    consts = (np.cos(a1), -np.sin(a1), np.cos(a2), -np.sin(a2),
+              np.cos(atw), -np.sin(atw), np.cos(aun), -np.sin(aun))
+    return DitConstants(
+        *(torch.as_tensor(c.astype(np.float32), device=device) for c in consts)
+    )
+
+
+def fengine_dit_reference(
+    frames: torch.Tensor,
+    window: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "bfloat16",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K7, at K7's rounding points.
+
+    ``frames`` ``[B, n_frames, fft]`` int8 aligned frames, ``window``
+    ``[taps, fft]`` f32, ``rotc``/``rots`` ``[B, N]`` (``N = fft/2``, gain
+    folded in). Returns int8 ``(qr, qi)`` ``[B, S, N]``.
+    """
+    n_taps, fft = window.shape
+    batch, n_frames, _ = frames.shape
+    n_spectra = n_frames - n_taps + 1
+    n = fft // 2
+    f = frames.to(torch.float32)
+    w = window.to(torch.float32)
+    acc = f[:, 0:n_spectra] * w[0]
+    for tap in range(1, n_taps):
+        acc = acc + f[:, tap : tap + n_spectra] * w[tap]
+    rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
+    acc = rnd(acc)
+    k = dit_constants(n1, n2, str(frames.device))
+    d1c, d1s, d2c, d2s = (rnd(t) for t in (k.d1c, k.d1s, k.d2c, k.d2s))
+
+    def dft(x):  # [B, S, N1, N2] -> (re, im) [B, S, N2, N1], bin k = k2*N1 + k1
+        ar = torch.matmul(d1c, x)
+        ai = torch.matmul(d1s, x)
+        tr = rnd(ar * k.twc - ai * k.tws).transpose(-1, -2)
+        ti = rnd(ar * k.tws + ai * k.twc).transpose(-1, -2)
+        re = torch.matmul(d2c, tr) - torch.matmul(d2s, ti)
+        im = torch.matmul(d2c, ti) + torch.matmul(d2s, tr)
+        return re, im
+
+    er, ei = dft(acc[..., 0::2].reshape(batch, n_spectra, n1, n2))
+    orr, oi = dft(acc[..., 1::2].reshape(batch, n_spectra, n1, n2))
+    xr = (er + k.untc * orr - k.unts * oi).reshape(batch, n_spectra, n)
+    xi = (ei + k.untc * oi + k.unts * orr).reshape(batch, n_spectra, n)
+    rc = rotc.reshape(batch, 1, n)
+    rs = rots.reshape(batch, 1, n)
+
+    def q(v):
+        return torch.round(v).clamp(-127.0, 127.0).to(torch.int8)
+
+    return q(xr * rc - xi * rs), q(xr * rs + xi * rc)
+
+
+def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
+    batch, n_frames, fft = x.shape
+    n_taps = window.shape[0]
+    if fft > MAX_KERNEL_FFT:
+        raise NotImplementedError(
+            f"fft_size {fft} > {MAX_KERNEL_FFT}: the K7 kernel's shared-memory "
+            "plan does not cover it yet (see ROADMAP.md)"
+        )
+    want = (
+        ("frames", x, torch.int8, None),
+        ("window", window, torch.float32, (n_taps, fft)),
+        ("rotc", rotc, torch.float32, (batch, fft // 2)),
+        ("rots", rots, torch.float32, (batch, fft // 2)),
+    )
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"fengine_dit: {name} must be contiguous {dtype} on {x.device}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"fengine_dit: {name} shape {tuple(t.shape)} != {shape}")
+    if x.data_ptr() % 2:
+        x = x.clone()  # the kernel reads sample pairs as char2
+    if window.data_ptr() % 16:
+        window = window.clone()  # and window pairs as float2
+    dev = x.device
+    k = dit_constants(n1, n2, str(dev))
+    n_spectra = n_frames - n_taps + 1
+    outr = torch.empty((batch, n_spectra, fft // 2), dtype=torch.int8, device=dev)
+    outi = torch.empty_like(outr)
+    lib = _build.library()
+    err = lib.fengine_dit_launch(
+        x.data_ptr(), window.data_ptr(), *(t.data_ptr() for t in k),
+        rotc.data_ptr(), rots.data_ptr(), outr.data_ptr(), outi.data_ptr(),
+        batch, n_frames, n_taps, n1, n2, int(dft_dtype == "bfloat16"),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, err, "fengine_dit")
+    fengine_dit.launches += 1
+    return outr, outi
+
+
+def fengine_dit(
+    frames: torch.Tensor,
+    window: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "bfloat16",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The DIT F form (K7 on CUDA, plain on CPU); arguments as
+    :func:`fengine_dit_reference`."""
+    dev = frames.device
+    kw = dict(n1=n1, n2=n2, dft_dtype=dft_dtype)
+    if dev.type == "cuda":
+        return _launch_dit(frames.contiguous(), window.contiguous(), rotc.contiguous(),
+                           rots.contiguous(), **kw)
+    if dev.type == "cpu":
+        return fengine_dit_reference(frames, window, rotc, rots, **kw)
+    raise ValueError(f"fengine_dit: unsupported device {dev}")
+
+
+#: K7 launches since the last reset (the plain CPU version never counts).
+fengine_dit.launches = 0
+
+
 def fengine_fused(
     frames: torch.Tensor,
     window: torch.Tensor,
@@ -261,8 +456,11 @@ def fengine_fused(
     n_spectra: int | None = None,
     rowed: bool = False,
     rot_planes: tuple[torch.Tensor, torch.Tensor] | None = None,
+    deint: str = "auto",
+    quantise: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """FIR + rDFT + fine delay + int8 requant (K1 on CUDA, plain on CPU).
+    """FIR + rDFT + fine delay + int8 requant: K1 (direct CT) or K7 (DIT) on
+    CUDA, their plain versions on CPU.
 
     ``frames`` is one of (leading dims ``lead``, e.g. ``[A, P]``):
 
@@ -274,14 +472,51 @@ def fengine_fused(
     The coarse delay is a per-batch window start, clamped as
     ``jax.lax.dynamic_slice`` clamps it. ``rot_planes`` are cached
     :func:`fine_rotation_planes` (else computed from ``frac_delay`` /
-    ``phase``). Returns int8 ``(qr, qi)`` ``[*lead, n_spectra, n_channels]``.
+    ``phase``). ``deint`` picks the form as the reference does
+    (:func:`_deint_mode`); the DIT form takes aligned frames only, and its
+    rotation planes from ``frac_delay`` / ``phase``. Returns int8
+    ``(qr, qi)`` ``[*lead, n_spectra, n_channels]``.
     """
     if dft_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"unknown dft_dtype {dft_dtype!r}")
     n_taps, fft_size = window.shape
     if n_channels != fft_size // 2:
         raise ValueError(f"n_channels {n_channels} != fft_size/2 {fft_size // 2}")
-    n1, n2 = _ct_split_or_raise(fft_size)
+    if fft_size < 8 or fft_size & (fft_size - 1):
+        raise ValueError(f"fft_size {fft_size} is not a power of two >= 8")
+    mode, n1, n2 = _deint_mode(fft_size // 2, deint)
+    if mode != "ct":
+        # The reference's gates for the DIT form (fengine_pallas.py:1265-1376).
+        for flag, what in ((rowed, "rowed input"), (coarse_delays is not None,
+                           "in-kernel coarse delay"), (rot_planes is not None,
+                           "rot_planes (cached fine-rotation planes)"),
+                           (not quantise, "quantise=False")):
+            if flag:
+                raise ValueError(f"{what} needs the direct-CT form (deint={mode!r})")
+        *lead, n_frames, f = frames.shape
+        if f != fft_size:
+            raise ValueError(f"frame length {f} != fft_size {fft_size}")
+        if n_frames < n_taps:
+            raise ValueError("need at least n_taps frames of input")
+        dev = frames.device
+        rotc, rots = _rotation_planes(
+            torch.as_tensor(frac_delay, dtype=torch.float32, device=dev).expand(lead),
+            phase, n_channels, quant_scale, (n_channels,),
+        )
+        batch = math.prod(lead)
+        qr, qi = fengine_dit(
+            frames.reshape(batch, n_frames, fft_size),
+            window.to(device=dev, dtype=torch.float32),
+            rotc.reshape(batch, n_channels), rots.reshape(batch, n_channels),
+            n1=n1, n2=n2, dft_dtype=dft_dtype,
+        )
+        shape = (*lead, n_frames - n_taps + 1, n_channels)
+        return qr.reshape(shape), qi.reshape(shape)
+    if not quantise:
+        raise NotImplementedError(
+            "quantise=False (the f32 qualification output of the direct-CT "
+            "kernel) is not ported yet (see ROADMAP.md)"
+        )
     if rowed:
         *lead, rows_in, n2f = frames.shape
         if n2f != n2:

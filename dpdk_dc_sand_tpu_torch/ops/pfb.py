@@ -1,14 +1,18 @@
 """Composed polyphase-filterbank channeliser (counterpart of ``dpdk_dc_sand_tpu/ops/pfb.py``).
 
-A plain version only — FIR tap sum + ``torch.fft.rfft`` — used by the tests'
-leakage and composed-path checks. The main path's channeliser is the fused
-kernel in :mod:`.fengine_fused`.
+:func:`pfb_fir` launches the FIR kernel K6 (:mod:`.pfb_fir`) for a CUDA
+tensor and runs its plain version for a CPU tensor; :func:`pfb_channelise`
+is K6 followed by ``torch.fft.rfft`` (cuFFT on the card), as the reference
+follows its FIR with XLA's real FFT. This is the composed F path of
+``FEngine`` and of ``fengine="xla"`` in the FB and FXB engines.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from dpdk_dc_sand_tpu_torch.ops.pfb_fir import pfb_fir_frames
 
 
 def pfb_window(n_taps: int, fft_size: int) -> np.ndarray:
@@ -27,25 +31,22 @@ def pfb_window(n_taps: int, fft_size: int) -> np.ndarray:
 
 
 def pfb_fir(samples: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
-    """Polyphase FIR: ``[..., n]`` real -> ``[..., n_spectra, fft_size]`` f32.
+    """Polyphase FIR: ``[..., n]`` int8 or f32 -> ``[..., n_spectra, fft_size]`` f32.
 
     ``n`` must be ``(n_spectra + n_taps - 1) * fft_size``; the first
-    ``n_taps - 1`` frames are history.
+    ``n_taps - 1`` frames are history. K6 on CUDA, plain on CPU.
     """
     n_taps, fft_size = window.shape
     n = samples.shape[-1]
     if n % fft_size:
         raise ValueError(f"sample count {n} not a multiple of fft_size {fft_size}")
     n_frames = n // fft_size
-    n_spectra = n_frames - n_taps + 1
-    if n_spectra < 1:
+    if n_frames - n_taps + 1 < 1:
         raise ValueError("need at least n_taps frames of input")
-    f = samples.reshape(*samples.shape[:-1], n_frames, fft_size).to(torch.float32)
-    w = window.to(torch.float32)
-    out = f[..., 0:n_spectra, :] * w[0]
-    for tap in range(1, n_taps):
-        out = out + f[..., tap : tap + n_spectra, :] * w[tap]
-    return out
+    if samples.dtype not in (torch.int8, torch.float32):
+        samples = samples.to(torch.float32)
+    frames = samples.reshape(*samples.shape[:-1], n_frames, fft_size)
+    return pfb_fir_frames(frames, window)
 
 
 def pfb_channelise(

@@ -7,8 +7,8 @@ runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
 It covers the small geometries the flagship run in ``chip_smoke.py`` does
-not (N1 = 8 and 16, other beam counts, odd input counts, ragged tiles, the
-launch counters).
+not (N1 = 8 and 16, other beam counts, odd input counts, ragged tiles, FIR
+shapes off every tile boundary, the launch counters).
 """
 
 import numpy as np
@@ -16,9 +16,9 @@ import pytest
 import torch
 
 from dpdk_dc_sand_tpu_torch import ArrayConfig
-from dpdk_dc_sand_tpu_torch.models import FBEngine, FXBEngine
-from dpdk_dc_sand_tpu_torch.ops import bstage, corner_turn, fengine_fused as ff, xcorr
-from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+from dpdk_dc_sand_tpu_torch.models import FBEngine, FEngine, FXBEngine
+from dpdk_dc_sand_tpu_torch.ops import bstage, corner_turn, fengine_fused as ff, pfb_fir, xcorr
+from dpdk_dc_sand_tpu_torch.ops.pfb import default_window, pfb_fir as pfb_fir_samples
 
 pytestmark = pytest.mark.cuda
 
@@ -82,7 +82,7 @@ def test_engine_on_the_card_matches_the_plain_engine(dev):
     cfg = ArrayConfig(n_ants=4, n_channels=1024, n_beams=16, n_taps=8)
     kw = dict(n_spectra=64, precision="bf16", beam_layout="natural")
     gpu = FBEngine(cfg, device=dev, **kw)
-    cpu = FBEngine(cfg, **kw)
+    cpu = FBEngine(cfg, device="cpu", **kw)
     adc, cd, fd, ph, dv = cpu.example_inputs(seed=3, margin=1024, rowed=True)
     got = gpu(adc, cd, fd, ph, dv)
     ref = cpu(adc, cd, fd, ph, dv)
@@ -136,7 +136,7 @@ def test_fxb_engine_on_the_card_matches_the_plain_engine(dev):
     cfg = ArrayConfig(n_ants=4, n_channels=1024, n_beams=16, n_taps=8)
     kw = dict(n_spectra=128, precision="bf16")
     gpu = FXBEngine(cfg, device=dev, **kw)
-    cpu = FXBEngine(cfg, **kw)
+    cpu = FXBEngine(cfg, device="cpu", **kw)
     adc, cd, fd, ph, dv = cpu.example_inputs(seed=3, margin=1024)
     before = (ff.fengine_fused.launches, corner_turn.corner_turn_planes.launches,
               xcorr.correlate_planes_fused.launches)
@@ -155,3 +155,96 @@ def test_fxb_engine_on_the_card_matches_the_plain_engine(dev):
                               n_spectra=128, rot_planes=gpu._fine_rot(fd, ph))
     for g, r in zip((gr, gi), xcorr.correlate_planes_fused_reference(qr.cpu(), qi.cpu())):
         assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize(
+    "b, taps, fft, s, dtype",
+    [(3, 16, 1000, 13, "int8"), (2, 8, 96, 129, "float32"), (1, 4, 65536, 9, "int8"),
+     (2, 1, 6, 5, "int8"), (3, 20, 384, 7, "float32"), (2, 16, 1024, 256, "float32"),
+     (4, 3, 518, 140, "int8")],
+)
+def test_k6_kernel_is_bit_exact_against_plain(dev, b, taps, fft, s, dtype):
+    """fft not a multiple of 128 (or of 4), S not a multiple of 8 or of the
+    block's run, f32 frames, taps above the register ring: bit for bit."""
+    rng = np.random.default_rng(b * fft + s + taps)
+    shape = (b, s + taps - 1, fft)
+    if dtype == "int8":
+        frames = torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8))
+    else:
+        frames = torch.from_numpy(rng.normal(0, 50, shape).astype(np.float32))
+    win = torch.from_numpy(rng.normal(0, 1, (taps, fft)).astype(np.float32))
+    before = pfb_fir.pfb_fir_frames.launches
+    got = pfb_fir.pfb_fir_frames(frames.to(dev), win.to(dev))
+    assert pfb_fir.pfb_fir_frames.launches == before + 1
+    assert torch.equal(got.cpu(), pfb_fir.pfb_fir_reference(frames, win))
+
+
+def test_k6_kernel_takes_an_unaligned_stream(dev):
+    """A stream that starts one sample into its buffer takes the scalar lane loads."""
+    rng = np.random.default_rng(11)
+    taps, fft, s = 8, 512, 20
+    raw = torch.from_numpy(rng.integers(-128, 128, 1 + (s + taps - 1) * fft, dtype=np.int8))
+    win = default_window(taps, fft)
+    got = pfb_fir_samples(raw.to(dev)[1:], win.to(dev))
+    assert torch.equal(got.cpu(), pfb_fir.pfb_fir_reference(raw[1:].reshape(-1, fft), win))
+
+
+@pytest.mark.parametrize("fft, deint", [(1024, "matmul"), (2048, "bitcast"), (2048, "matmul"),
+                                        (512, "auto"), (65536, "matmul")])
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+def test_k7_kernel_matches_plain(dev, fft, deint, dft_dtype):
+    taps, s, lead = 8, 6, (2, 2)
+    rng = np.random.default_rng(fft + len(deint))
+    frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    kw = dict(n_channels=fft // 2, quant_scale=1 / 16 * (1024 / fft) ** 0.5,
+              dft_dtype=dft_dtype, deint=deint)
+    before = ff.fengine_dit.launches
+    got = ff.fengine_fused(torch.from_numpy(frames).to(dev), default_window(taps, fft, dev),
+                           fd, ph, **kw)
+    assert ff.fengine_dit.launches == before + 1
+    ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape
+        _codes_close(g.cpu(), r)
+
+
+@pytest.mark.parametrize("quantise_output", [True, False])
+def test_fengine_on_the_card_matches_the_cpu_engine(dev, quantise_output):
+    """cuFFT and the CPU's FFT round differently: int8 within 1 code on
+    <= 1e-3 of samples, f32 at rtol 1e-4 / atol 1e-2."""
+    cfg = ArrayConfig(n_ants=3, n_channels=2048, n_taps=16)
+    kw = dict(n_spectra=40, quant_scale=1 / 32, quantise_output=quantise_output)
+    gpu = FEngine(cfg, device=dev, **kw)
+    cpu = FEngine(cfg, device="cpu", **kw)
+    adc, cd, fd, ph = cpu.example_inputs(seed=5, margin=700)
+    before = (pfb_fir.pfb_fir_frames.launches, ff.fengine_fused.launches,
+              ff.fengine_dit.launches)
+    got = gpu(adc, cd, fd, ph)
+    after = (pfb_fir.pfb_fir_frames.launches, ff.fengine_fused.launches,
+             ff.fengine_dit.launches)
+    assert after == (before[0] + 1, before[1], before[2])
+    ref = cpu(adc, cd, fd, ph)
+    assert got.is_cuda and got.shape == ref.shape and got.dtype == ref.dtype
+    if quantise_output:
+        _codes_close(got.cpu(), ref)
+    else:
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("engine", [FBEngine, FXBEngine])
+def test_xla_engines_on_the_card_match_the_cpu_engines(dev, engine):
+    cfg = ArrayConfig(n_ants=4, n_channels=1024, n_beams=16, n_taps=8)
+    kw = dict(n_spectra=128, precision="bf16", fengine="xla")
+    gpu = engine(cfg, device=dev, **kw)
+    cpu = engine(cfg, device="cpu", **kw)
+    adc, cd, fd, ph, dv = cpu.example_inputs(seed=3, margin=1024)
+    before = pfb_fir.pfb_fir_frames.launches
+    got = gpu(adc, cd, fd, ph, dv)
+    assert pfb_fir.pfb_fir_frames.launches == before + 1
+    ref = cpu(adc, cd, fd, ph, dv)
+    gb, rb = (got[0], ref[0]) if engine is FXBEngine else (got, ref)
+    d = (gb.cpu() - rb).abs()
+    assert float(d.max()) <= 2.0 + 1e-3
+    assert float((d > 1e-3).float().mean()) <= 5e-3

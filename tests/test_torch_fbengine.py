@@ -48,7 +48,7 @@ def _beams_close(got, ref):
     ids=["flat", "rowed"],
 )
 def test_example_inputs_match_reference(kw):
-    port = FBEngine(CFG, n_spectra=S)
+    port = FBEngine(CFG, n_spectra=S, device="cpu")
     ref = JFBEngine(JCFG, n_spectra=S, fengine="fused", bstage="fused",
                     fengine_interpret=True)
     for g, r in zip(port.example_inputs(**kw), ref.example_inputs(**kw)):
@@ -59,7 +59,7 @@ def test_example_inputs_match_reference(kw):
 def test_delay_update_state_matches_reference():
     """Steering blocks and rotation planes computed by each package agree
     to f32 cos/sin ulps (atol 1e-5); the window is the same array."""
-    port = FBEngine(CFG, n_spectra=S, precision="f32")
+    port = FBEngine(CFG, n_spectra=S, device="cpu", precision="f32")
     ref = JFBEngine(JCFG, n_spectra=S, precision="f32", fengine="fused",
                     bstage="fused", fengine_interpret=True)
     _, _, fd, ph, dv = ref.example_inputs(seed=3)
@@ -77,7 +77,7 @@ def test_fbengine_matches_reference_over_steps_and_a_delay_update():
     ref = JFBEngine(JCFG, n_spectra=S, precision="bf16", fengine="fused",
                     bstage="fused", beam_layout="natural", ct_batch_a=True,
                     fengine_interpret=True)
-    port = FBEngine(CFG, n_spectra=S, precision="bf16", beam_layout="natural")
+    port = FBEngine(CFG, n_spectra=S, device="cpu", precision="bf16", beam_layout="natural")
     margin = _margin()
     _, cd, fd, ph, dv = ref.example_inputs(seed=1, margin=margin, delay_budget=BUDGET,
                                            rowed=True)
@@ -107,15 +107,15 @@ def test_fbengine_matches_reference_over_steps_and_a_delay_update():
 
 def test_split_layout_and_beam_requant_follow_natural():
     margin = _margin()
-    nat = FBEngine(CFG, n_spectra=S, precision="bf16", beam_layout="natural")
+    nat = FBEngine(CFG, n_spectra=S, device="cpu", precision="bf16", beam_layout="natural")
     adc, cd, fd, ph, dv = nat.example_inputs(seed=5, margin=margin, rowed=True)
     packed = nat(adc, cd, fd, ph, dv)
-    split = FBEngine(CFG, n_spectra=S, precision="bf16")(adc, cd, fd, ph, dv)
+    split = FBEngine(CFG, n_spectra=S, device="cpu", precision="bf16")(adc, cd, fd, ph, dv)
     p, c, b = CFG.n_pols, CFG.n_channels, CFG.n_beams
     assert split.shape == (p, c, S, b, 2)
     unpacked = packed.reshape(c // 4, p, S, 4, 2, b).permute(1, 0, 3, 2, 5, 4)
     np.testing.assert_array_equal(unpacked.reshape(p, c, S, b, 2).numpy(), split.numpy())
-    q = FBEngine(CFG, n_spectra=S, precision="bf16", beam_layout="natural",
+    q = FBEngine(CFG, n_spectra=S, device="cpu", precision="bf16", beam_layout="natural",
                  beam_quant_scale=1 / 64)(adc, cd, fd, ph, dv)
     assert q.dtype == torch.int8
     np.testing.assert_array_equal(q.numpy(), requantise(packed, 1 / 64).numpy())
@@ -123,11 +123,11 @@ def test_split_layout_and_beam_requant_follow_natural():
 
 def test_rowed_and_flat_adc_give_the_same_beams():
     margin = _margin()
-    fb = FBEngine(CFG, n_spectra=S, precision="bf16", beam_layout="natural")
+    fb = FBEngine(CFG, n_spectra=S, device="cpu", precision="bf16", beam_layout="natural")
     adc, cd, fd, ph, dv = fb.example_inputs(seed=9, margin=margin, rowed=True)
     fb.set_beam_delays(dv)
     rowed = fb.step(adc, cd, fd, ph)
     flat = fb.step(adc.reshape(CFG.n_ants, CFG.n_pols, -1), cd, fd, ph)
     np.testing.assert_array_equal(rowed.numpy(), flat.numpy())
     with pytest.raises(RuntimeError, match="set_beam_delays"):
-        FBEngine(CFG, n_spectra=S).step(adc, cd, fd, ph)
+        FBEngine(CFG, n_spectra=S, device="cpu").step(adc, cd, fd, ph)

@@ -168,7 +168,10 @@ def test_fengine_fused_input_checks():
         ff.fengine_fused(torch.zeros((1, 1, 30000), dtype=torch.int8), win, zero,
                          zero, n_channels=512, quant_scale=1.0,
                          coarse_delays=np.zeros((1, 1), np.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ff.fengine_fused(torch.zeros((1, 1, 20, 512), dtype=torch.int8),
-                         default_window(TAPS, 512), zero, zero, n_channels=256,
+    with pytest.raises(ValueError, match="power of two"):
+        ff.fengine_fused(torch.zeros((1, 1, 20, 768), dtype=torch.int8),
+                         default_window(TAPS, 768), zero, zero, n_channels=384,
                          quant_scale=1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ff.fengine_fused(torch.zeros((1, 1, 20, 1024), dtype=torch.int8), win, zero,
+                         zero, n_channels=512, quant_scale=1.0, quantise=False)

@@ -182,15 +182,30 @@ def test_build_without_nvcc_raises_naming_nvcc(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(fengine="xla"), dict(bstage="planar"), dict(bstage="folded"),
+    [dict(bstage="planar"), dict(bstage="folded"),
      dict(bstage="turned", n_spectra=24), dict(n_spectra=24)],
-    ids=["xla", "planar", "folded", "turned", "geometry"],
+    ids=["planar", "folded", "turned", "geometry"],
 )
 def test_fbengine_rejects_unported_backends(kw):
     cfg = ArrayConfig(n_ants=4, n_channels=512, n_beams=16, n_taps=4)
     kw = {"n_spectra": 64, **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FBEngine(cfg, **kw)
+        FBEngine(cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("engine", ["FEngine", "FBEngine", "FXBEngine", "XEngine"])
+def test_engines_default_to_the_card_and_name_the_cpu_opt_in(engine, monkeypatch):
+    """No ``device`` means ``cuda``: without a card the engine raises and
+    names ``device="cpu"``; it never builds its buffers on the CPU unasked."""
+    from dpdk_dc_sand_tpu_torch import models
+
+    cls = getattr(models, engine)
+    cfg = ArrayConfig(n_ants=4, n_channels=512, n_beams=16, n_taps=4)
+    kw = {} if engine == "XEngine" else {"n_spectra": 128}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cls(cfg, **kw)
+    assert cls(cfg, device="cpu", **kw).device == torch.device("cpu")
 
 
 def test_wrapper_refuses_devices_without_a_kernel():
