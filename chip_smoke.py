@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB and F flagships.
+"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
 
@@ -65,6 +65,32 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    plain composed chain, beams within rtol 1e-5 / atol 1e-3 of the plain B
    stage of those planes, visibilities exactly their gram; K6 and the
    engine's B and X kernels each launched, K1 not.
+14. bforms — K8 through ``corner_turn_plane_native`` on both flagship
+   planes (the 5-d view [80, 2, 256, 128, 256] of K1's output): bit-exact
+   against its plain version and equal to K4's halves; kernel, plain and
+   ``permute(3, 0, 1, 2).contiguous()`` times. Then ``FBEngine(bstage=
+   "turned", fengine_native_handoff=True, beam_layout="natural")`` at the
+   flagship, bf16: set_beam_delays, 3 steps, a delay update, 2 steps; K1
+   must launch 5 times and K8 10 (twice a step), K4 and K2 never; the last
+   step's beams within rtol 1e-4 / atol 1e-3 of the flat turned path on the
+   same device inputs; prints the step split by torch.profiler, ms/step and
+   Msamples/s, and each B form's stage time on the step's F planes. Then
+   ``bstage="planar"`` and ``"folded"`` at 8 antennas x 32768 ch x 16 beams
+   x 16 taps, S=256, f32, each within rtol 1e-5 / atol 1e-4 of ``"turned"``;
+   and ``FXBEngine`` at S=96 (outside K2's and K4's gates: planar B, plain
+   grams), its visibilities exactly the gram of its own F planes and its
+   beams the planar B stage of them.
+15. qualification — the channelisation qualification's CW tone (channel
+   100 of 512, 16 taps, S=8, TPDF dither, seed 2021) through K1's
+   unquantised output (``fengine_fused(quantise=False)``), bf16 and f32 DFT:
+   the peak in channel 100, worst leakage <= -62 dB, bf16 within 6 dB of
+   f32. Then K1's f32 output on 8 of the 160 flagship streams against its
+   plain version: f32 DFT within rtol 1e-4 / atol 1e-2; bf16 DFT (a
+   different f32 sum order flips a few bf16 roundings in stage A) below 1
+   code unit everywhere and within that bound on all but 1e-2 of the
+   samples, its max |d| and share over the bound printed; the int8 output
+   of the same kernel equal to the requant of its f32 output; kernel and
+   plain ms.
 
 Every kernel in the ``kernels`` line carries its bound: the larger of the
 bytes it must move over 3.35 TB/s and each type of operation over the
@@ -85,7 +111,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k2", "engine", "flagship", "corner_turn", "xcorr",
-          "fxb_engine", "fxb_flagship", "fir", "fengine_dit", "f_flagship")
+          "fxb_engine", "fxb_flagship", "fir", "fengine_dit", "f_flagship", "bforms",
+          "qualification")
 SEED = 2021
 #: F requant gain for fft 65536 on uniform +-64 noise: 1/16 (the reference
 #: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
@@ -96,8 +123,28 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
+#: The channelisation qualification's tone (tests/qualification/chan_common.py):
+#: C channels, TAPS taps, S spectra, the tone in channel K.
+TONE_C, TONE_TAPS, TONE_S, TONE_K = 512, 16, 8, 100
+LEAKAGE_SPEC_DB = -62.0
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def qualification_tone():
+    """The qualification's TPDF-dithered int8 CW tone at the centre of channel
+    TONE_K, ``[1, 1, frames, fft]`` (the recipe of
+    ``tests/qualification/chan_common.py:make_tone``, seed 2021)."""
+    import numpy as np
+
+    fft, n_frames = 2 * TONE_C, TONE_S + TONE_TAPS - 1
+    n = np.arange(n_frames * fft)
+    rng = np.random.default_rng(2021)
+    dither = rng.uniform(-0.5, 0.5, n.size) + rng.uniform(-0.5, 0.5, n.size)
+    tone = np.clip(np.round(120 * np.cos(2 * np.pi * TONE_K * n / fft) + dither), -127, 127)
+    return tone.astype(np.int8).reshape(1, 1, n_frames, fft)
 
 
 def cuda_ms(fn, iters: int = 3) -> float:
@@ -181,10 +228,10 @@ def _code_diff(tag, got, ref):
     return worst
 
 
-def _beam_diff(tag, got, ref):
-    """max |d| of f32 beams; raise outside rtol 1e-5, atol 1e-3."""
+def _beam_diff(tag, got, ref, rtol=1e-5, atol=1e-3):
+    """max |d| of f32 beams; raise outside rtol, atol."""
     d = (got - ref).abs()
-    bad = int((d > 1e-3 + 1e-5 * ref.abs()).sum())
+    bad = int((d > atol + rtol * ref.abs()).sum())
     dmax = float(d.max())
     log(f"{tag}: max|d| {dmax:.3e}, out of tol {bad}, |ref| max {float(ref.abs().max()):.1f}")
     if bad:
@@ -872,15 +919,16 @@ def _plain_fir(samples, window):
     return pfb_fir_reference(samples.reshape(*samples.shape[:-1], -1, window.shape[1]), window)
 
 
-def _profile_split(torch, fn):
-    """Device time of one call of ``fn`` by kernel: K6, cuFFT and the plain
-    ops (the coarse-delay copy, the rotation and the requant), in ms."""
+def _profile_split(torch, fn, buckets):
+    """Device time of one call of ``fn`` by kernel, in ms: ``buckets`` is a
+    list of (label, name fragments); a kernel goes to the first label one of
+    whose fragments its name holds, and the last label takes the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split = {"K6 (FIR)": 0.0, "rfft (cuFFT)": 0.0, "coarse delay, fine delay, requant": 0.0}
+    split = {label: 0.0 for label, _ in buckets}
     names = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -888,10 +936,8 @@ def _profile_split(torch, fn):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        # The coarse-delay copy runs as a generic copy kernel, indistinguishable
-        # by name from the rotation's and the requant's.
-        key = ("K6 (FIR)" if "fir_" in e.key else
-               "rfft (cuFFT)" if "fft" in e.key.lower() else "coarse delay, fine delay, requant")
+        key = next((label for label, frags in buckets[:-1]
+                    if any(f in e.key.lower() for f in frags)), buckets[-1][0])
         split[key] += us / 1e3
         names.append((us / 1e3, e.key[:60]))
     return split, sorted(names, reverse=True)[:6]
@@ -966,7 +1012,11 @@ def phase_f_flagship(st: dict) -> None:
                quant_scale=QUANT_SCALE, fir=_plain_fir)
     _exact("f flagship vs the composed chain with the plain FIR", (out,), (plain,))
     del plain
-    split, top = _profile_split(torch, lambda: fe(adc, cd, fd, ph))
+    # The coarse-delay copy runs as a generic copy kernel, indistinguishable
+    # by name from the rotation's and the requant's.
+    split, top = _profile_split(torch, lambda: fe(adc, cd, fd, ph), [
+        ("K6 (FIR)", ("fir_",)), ("rfft (cuFFT)", ("fft",)),
+        ("coarse delay, fine delay, requant", ())])
     busy = sum(split.values())
     log("f flagship split (ms, torch.profiler, one step): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
@@ -1036,6 +1086,299 @@ def phase_f_flagship(st: dict) -> None:
         del eng, got
         torch.cuda.empty_cache()
 
+#: The flagship array of phases 14 and 15 (80 ant x 32768 ch x 16 beams x 16
+#: taps, S = 256), and the 8-antenna cut of it their engine checks use.
+FLAG = dict(n_ants=80, n_channels=32768, n_beams=16, n_taps=16)
+FLAG_S = 256
+SMALL_ANTS = 8
+#: Spectra per step of the FXB run outside K2's and K4's gates (P·S = 192).
+FXB_PLANAR_S = 96
+
+
+def _timed_steps(torch, step, adc, gen, times):
+    """Fresh wire-rowed ADC, then one step timed with CUDA events."""
+    adc.random_(-64, 64, generator=gen)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = step()
+    t1.record()
+    t1.synchronize()
+    times.append(t0.elapsed_time(t1))
+    return out
+
+
+def phase_bforms(st: dict) -> None:
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FBEngine, FXBEngine
+    from dpdk_dc_sand_tpu_torch.models.fbengine import _b_stage, _coeff_blocks
+    from dpdk_dc_sand_tpu_torch.ops import bstage, corner_turn as ct, fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops import xcorr as xc
+    from dpdk_dc_sand_tpu_torch.ops.fengine_fused import _deint_mode, ingest_alignment
+
+    torch.cuda.empty_cache()  # phase 13's engines and buffers are gone
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(**FLAG)
+    a, p, s, c = cfg.n_ants, cfg.n_pols, FLAG_S, cfg.n_channels
+    _, n1, n2 = _deint_mode(c)
+    rows, lanes = n2 // 2, n1
+    tag = f"[A={a} P={p} S={s} C={c}: {rows}x{lanes} rows x lanes]"
+
+    # K8 against its plain version and against K4's halves, both planes.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    qr, qi = _planes(torch, a, p, s, c, gen, dev)
+    k4 = ct.corner_turn_planes(qr, qi)
+    k8_err = 0.0
+    for half, q in enumerate((qr, qi)):
+        q5 = q.view(a, p, s, rows, lanes)
+        got = ct.corner_turn_plane_native(q5)
+        k8_err = max(k8_err, _exact(f"k8 plane {half} {tag}", (got,),
+                                    (ct.corner_turn_plane_native_reference(q5),)))
+        if not torch.equal(got, k4[:, half * a:(half + 1) * a]):
+            raise AssertionError(f"k8 plane {half} is not K4's half {half}")
+        del got
+    log("k8: both planes equal K4's halves [:, :A] and [:, A:] byte for byte")
+    del k4
+    q5 = qr.view(a, p, s, rows, lanes)
+    k8_ms = cuda_ms(lambda: ct.corner_turn_plane_native(q5))
+    k8_pms = cuda_ms(lambda: ct.corner_turn_plane_native_reference(q5), iters=1)
+    k8_lib = cuda_ms(lambda: qr.permute(3, 0, 1, 2).contiguous())
+    k8_bound = bound(2 * a * p * s * c)  # one plane read, one written
+    gbytes = 2 * a * p * s * c / 1e9
+    log(f"k8 {tag}: kernel {k8_ms:.3f} ms ({gbytes / k8_ms:.2f} TB/s of {gbytes:.2f} GB), plain "
+        f"{k8_pms:.3f} ms, permute(3, 0, 1, 2).contiguous() {k8_lib:.3f} ms, bound "
+        f"{k8_bound['bound_ms']:.3f} ms ({st['card']})")
+    st["k8"] = dict(max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_pms, **k8_bound, library_ms=k8_lib)
+    del qr, qi, q5
+    torch.cuda.empty_cache()
+
+    # The native-handoff F+B flagship.
+    common = dict(n_spectra=s, quant_scale=QUANT_SCALE, precision="bf16", bstage="turned",
+                  beam_layout="natural", device=dev)
+    fb = FBEngine(cfg, fengine_native_handoff=True, **common)
+    rng = np.random.default_rng(SEED + 8)
+    margin = 8192
+    cd = rng.integers(0, margin, a).astype(np.int32)
+    fd = rng.uniform(-0.5, 0.5, a).astype(np.float32)
+    ph = (-np.pi * fd / 2).astype(np.float32)
+    dv = np.zeros((cfg.n_beams, a, 4), np.float32)
+    dv[..., 0] = rng.uniform(0, 5e-9, dv.shape[:-1])
+    dv[..., 2] = rng.uniform(-np.pi, np.pi, dv.shape[:-1])
+    adc_n2 = ingest_alignment(cfg.fft_size)
+    adc = torch.empty((a, p, (fb.samples_in + margin) // adc_n2, adc_n2), dtype=torch.int8,
+                      device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"k1": ff.fengine_fused, "k8": ct.corner_turn_plane_native,
+                "k4": ct.corner_turn_planes, "k2": bstage.beamform_turned_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    times: list = []
+    fb.set_beam_delays(dv)
+    for _ in range(3):
+        out = _timed_steps(torch, lambda: fb.step(adc, cd, fd, ph), adc, gen, times)
+    dv[..., 2] += 0.25  # delay update: new steering phases and fine delays
+    fd = (fd * 0.5).astype(np.float32)
+    fb.set_beam_delays(dv, t_s=1e-3)
+    for _ in range(2):
+        out = _timed_steps(torch, lambda: fb.step(adc, cd, fd, ph), adc, gen, times)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"native flagship launches: {launches}")
+    if launches["k1"] != 5 or launches["k8"] != 10 or launches["k4"] or launches["k2"]:
+        raise AssertionError(f"the native path is not K1 then K8 twice a step: {launches}")
+    if tuple(out.shape) != (c, p * s, 2 * cfg.n_beams) or out.dtype != torch.float32:
+        raise AssertionError(f"beams {tuple(out.shape)} {out.dtype}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite beams")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(times[1:]))
+    samples = a * p * s * cfg.fft_size
+    split, top = _profile_split(torch, lambda: fb.step(adc, cd, fd, ph), [
+        ("K1 (F)", ("fengine_ct",)), ("K8 (native turn)", ("corner_turn",)),
+        ("bmm (cuBLAS)", ("gemm", "cutlass")), ("casts and copies (plain)", ())])
+    busy = sum(split.values())
+    log("native flagship split (ms, torch.profiler, one step): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; device busy {busy:.3f} vs step {ms:.3f}, idle share "
+        f"{max(0.0, 1 - busy / ms):.2%}; top kernels {top} ({st['card']})")
+    log(f"native flagship [{a} ant x {c} ch x {cfg.n_beams} beams x {cfg.n_taps} taps, S={s}]: "
+        f"step ms "
+        f"{['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
+        f"{samples / ms / 1e3:.1f} Msamples/s, peak memory {peak_gb:.2f} GB ({st['card']})")
+    # The flat turned path (K4 + the one product) on the same device inputs.
+    flat = FBEngine(cfg, **common)
+    flat.set_beam_delays(dv, t_s=1e-3)
+    _beam_diff("native flagship vs the flat turned path", out, flat.step(adc, cd, fd, ph),
+               rtol=1e-4, atol=1e-3)
+    st["k8_launches"] = launches["k8"]
+    st["native"] = dict(ms=ms, msamples_s=samples / ms / 1e3, peak_gb=peak_gb, split=split)
+
+    # Each B form's stage timed once on the native step's F planes.
+    q5r, q5i = fb._f(adc, cd, fd, ph)
+    q4r, q4i = q5r.view(a, p, s, c), q5i.view(a, p, s, c)
+    blocks = fb.coeff_blocks
+    planar_w = _coeff_blocks(torch.as_tensor(dv, device=dev), torch.ones(a, device=dev), 1e-3,
+                             cfg=cfg, dtype=torch.bfloat16, folded=False)
+    del out, flat
+    torch.cuda.empty_cache()
+    kw = dict(cfg=cfg, precision="bf16")
+    forms = {
+        "planar": lambda: _b_stage(q4r, q4i, planar_w, bstage="planar", **kw),
+        "folded": lambda: _b_stage(q4r, q4i, blocks, bstage="folded", **kw),
+        "turned": lambda: _b_stage(q4r, q4i, blocks, bstage="turned", **kw),
+        "turned-split": lambda: _b_stage(q5r, q5i, blocks, bstage="turned", **kw),
+        "turned (natural)": lambda: _b_stage(q4r, q4i, blocks, bstage="turned",
+                                             beam_layout="natural", **kw),
+        "turned-split (natural)": lambda: _b_stage(q5r, q5i, blocks, bstage="turned",
+                                                   beam_layout="natural", **kw),
+    }
+    b_ms = {name: cuda_ms(fn, iters=1) for name, fn in forms.items()}
+    log("b stage by form at the flagship (ms, split [P, C, S, B, 2] beams unless natural): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in b_ms.items()) + f" ({st['card']})")
+    st["native"]["b_stage_ms"] = b_ms
+    del fb, q5r, q5i, q4r, q4i, planar_w, blocks, adc
+    torch.cuda.empty_cache()
+
+    # Planar and folded against turned at 8 antennas, f32 weights.
+    ecfg = ArrayConfig(**{**FLAG, "n_ants": SMALL_ANTS})
+    engines = {b: FBEngine(ecfg, n_spectra=s, quant_scale=QUANT_SCALE, precision="f32",
+                           bstage=b, device=dev) for b in ("turned", "planar", "folded")}
+    inputs = engines["turned"].example_inputs(seed=SEED, margin=8192, rowed=True)
+    outs = {}
+    for b, eng in engines.items():
+        for fn in counters.values():
+            fn.launches = 0
+        outs[b] = eng(*inputs)
+        torch.cuda.synchronize()
+        ran = {k: fn.launches for k, fn in counters.items()}
+        want = {"k1": 1, "k8": 0, "k4": int(b == "turned"), "k2": 0}
+        if ran != want:
+            raise AssertionError(f"FBEngine(bstage={b!r}) launched {ran}, want {want}")
+    for b in ("planar", "folded"):
+        _beam_diff(f"FBEngine(bstage={b!r}) vs 'turned' [A={ecfg.n_ants} C={c} S={s}, f32]",
+                   outs[b], outs["turned"], rtol=1e-5, atol=1e-4)
+    del engines, outs
+    torch.cuda.empty_cache()
+
+    # FXB outside K2's and K4's gates: the planar B stage and the plain grams.
+    fxb = FXBEngine(ecfg, n_spectra=FXB_PLANAR_S, quant_scale=QUANT_SCALE, precision="bf16",
+                    device=dev)
+    if fxb.bstage != "planar":
+        raise AssertionError(f"FXB at S={FXB_PLANAR_S} resolved bstage={fxb.bstage!r}")
+    adc_e, cd_e, fd_e, ph_e, dv_e = fxb.example_inputs(seed=SEED, margin=8192, rowed=True)
+    fxb.set_beam_delays(dv_e)
+    x_counters = {**counters, "k3": xc.correlate_planes_fused, "k5b": xc.correlate_turned_fused}
+    for fn in x_counters.values():
+        fn.launches = 0
+    beams, vre, vim = fxb.step(adc_e, cd_e, fd_e, ph_e)
+    torch.cuda.synchronize()
+    ran = {k: fn.launches for k, fn in x_counters.items()}
+    if ran != {"k1": 1, "k8": 0, "k4": 0, "k2": 0, "k3": 0, "k5b": 0}:
+        raise AssertionError(f"FXB at S={FXB_PLANAR_S} launched {ran}")
+    qr, qi = fxb._f(adc_e, cd_e, fd_e, ph_e)  # the step's own F planes (K1 again)
+    name = f"FXBEngine(S={FXB_PLANAR_S}, planar) [A={ecfg.n_ants} C={c}]"
+    _exact(f"{name} visibilities vs the gram of its F planes", (vre, vim),
+           xc.correlate_planes_fused_reference(qr, qi))
+    _beam_diff(f"{name} beams vs the planar B stage of its F planes", beams,
+               _b_stage(qr, qi, fxb.coeff_blocks, cfg=ecfg, precision="bf16", bstage="planar"))
+    del fxb, beams, vre, vim, qr, qi
+    torch.cuda.empty_cache()
+
+
+def phase_qualification(st: dict) -> None:
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    # The CW tone through K1's unquantised output, bf16 and f32 DFT.
+    tone = torch.from_numpy(qualification_tone()).to(dev)
+    win = default_window(TONE_TAPS, 2 * TONE_C, device=dev)
+    zero = torch.zeros((1, 1), device=dev)
+    ff.fengine_fused.launches = 0
+    worst = {}
+    for dt in ("bfloat16", "float32"):
+        fr, fi = ff.fengine_fused(tone, win, zero, zero, n_channels=TONE_C, quant_scale=1.0,
+                                  dft_dtype=dt, quantise=False)
+        power = (fr.double() ** 2 + fi.double() ** 2)[0, 0].mean(0).cpu().numpy()
+        rel_db = 10 * np.log10(power / power[TONE_K] + 1e-300)
+        peak, worst[dt] = int(np.argmax(power)), float(np.delete(rel_db, TONE_K).max())
+        log(f"qualification tone through K1 (quantise=False, {dt} DFT) on the card: peak "
+            f"channel {peak} (want {TONE_K}), worst leakage {worst[dt]:.2f} dB (spec "
+            f"{LEAKAGE_SPEC_DB:.0f} dB)")
+        if peak != TONE_K or worst[dt] > LEAKAGE_SPEC_DB:
+            raise AssertionError(f"the tone through K1 ({dt}) fails the channelisation spec")
+    if ff.fengine_fused.launches != 2:
+        raise AssertionError(f"the tone did not run through K1: {ff.fengine_fused.launches}")
+    if worst["bfloat16"] > worst["float32"] + 6.0:
+        raise AssertionError("bf16 DFT operands lift the leakage floor by more than 6 dB")
+    st["qualification"] = worst
+
+    # K1's f32 output against its plain version on 8 of the 160 flagship streams.
+    fft, taps, s, lead = 2 * FLAG["n_channels"], FLAG["n_taps"], FLAG_S, (4, 2)
+    nb, c = lead[0] * lead[1], fft // 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    frames = torch.randint(-64, 64, (*lead, s + taps - 1, fft), dtype=torch.int8, device=dev,
+                           generator=gen)
+    fd = torch.rand(lead, device=dev, generator=gen) - 0.5
+    ph = -3.14159265 * fd / 2
+    win = default_window(taps, fft, device=dev)
+    _, n1, n2 = ff._deint_mode(c)
+    rc, rs = (r.reshape(nb, c) for r in ff.fine_rotation_planes(
+        fd, ph, n_channels=c, quant_scale=QUANT_SCALE))
+    starts = torch.zeros(nb, dtype=torch.int64, device=dev)
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        kw = dict(n_channels=c, quant_scale=QUANT_SCALE, dft_dtype=dt)
+
+        def kern():
+            return ff.fengine_fused(frames, win, fd, ph, quantise=False, **kw)
+
+        def plain():
+            return ff.fengine_fused_reference(frames.view(nb, -1), starts, win, rc, rs,
+                                              n_spectra=s, n1=n1, n2=n2, dft_dtype=dt,
+                                              quantise=False)
+
+        got = [g.view(nb, s, c) for g in kern()]
+        ref = plain()
+        q8 = ff.fengine_fused(frames, win, fd, ph, **kw)  # the int8 output of the same kernel
+        worst_d, share = 0.0, 0.0
+        for name, g, r, q in zip(("re", "im"), got, ref, q8):
+            d = (g - r).abs()
+            over = d > 1e-2 + 1e-4 * r.abs()
+            worst_d = max(worst_d, float(d.max()))
+            share = max(share, float(over.float().mean()))
+            log(f"k1 f32 output {dt} {name} [{nb} streams x S={s} x fft {fft}]: max|d| "
+                f"{float(d.max()):.3e}, share over rtol 1e-4 / atol 1e-2 "
+                f"{float(over.float().mean()):.3e}, |plain| max {float(r.abs().max()):.1f}")
+            if not torch.equal(torch.round(g).clamp(-127, 127).to(torch.int8), q.view(nb, s, c)):
+                raise AssertionError(f"k1 {dt}: the int8 output is not the requant of the f32 one")
+        ms, pms = cuda_ms(kern), cuda_ms(plain, iters=1)
+        log(f"k1 f32 output {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms; int8 output = requant "
+            f"of the f32 output, bit for bit ({st['card']})")
+        out[dt] = dict(ms=ms, plain_ms=pms, max_abs_err=worst_d, share_over=share)
+        # f32 DFT: rtol 1e-4 / atol 1e-2 everywhere. bf16 DFT: the kernel sums
+        # stage A in another order than the plain version, which moves a few
+        # values across a bf16 rounding boundary; each such flip moves the 128
+        # outputs of its column by up to 2^-8 of the value (PERF.md). So
+        # bf16 is held to < 1 code unit everywhere (the requant then moves no
+        # code by more than 1, K1's int8 contract) and the f32 bound on all
+        # but 1e-2 of the samples.
+        if dt == "float32" and share:
+            raise AssertionError("k1's f32 output (f32 DFT) disagrees with plain")
+        if dt == "bfloat16" and (worst_d >= 1.0 or share > 1e-2):
+            raise AssertionError("k1's f32 output (bf16 DFT) disagrees with plain")
+    st["k1"].update(f32_out_subset_ms=out["bfloat16"]["ms"],
+                    f32_out_subset_plain_ms=out["bfloat16"]["plain_ms"],
+                    f32_out_subset_max_abs_err=out["bfloat16"]["max_abs_err"],
+                    f32_out_subset_share_over_tol=out["bfloat16"]["share_over"],
+                    f32_out_subset_f32dft_ms=out["float32"]["ms"])
+
 
 def main() -> int:
     sys.path.insert(0, HERE)
@@ -1062,7 +1405,8 @@ def main() -> int:
         raise AssertionError(f"the port pulled in JAX or the reference package: {ref}")
     # launches: each kernel's count from the run of its path (phase 6 for the
     # F+B step, phase 10 for the FXB step, phase 8 for the two-pass X path,
-    # phase 12 for the DIT F form, phase 13 for the F-engine step).
+    # phase 12 for the DIT F form, phase 13 for the F-engine step, phase 14
+    # for the native-handoff F+B step).
     kernels = [
         dict(name="fengine_ct", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
@@ -1091,6 +1435,10 @@ def main() -> int:
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_dit.cu",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:275", path="fengine_dit",
              **st["k7"]),
+        dict(name="corner_turn_plane_native", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/corner_turn.cu",
+             replaces="dpdk_dc_sand_tpu/ops/corner_turn.py:123", path="fb_native_flagship",
+             launches=st["k8_launches"], **st["k8"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

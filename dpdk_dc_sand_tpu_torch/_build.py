@@ -51,8 +51,8 @@ _SIGNATURES = {
         _P, _L, _P,  # x, batch stride (samples), starts [B] int64
         _P, _P, _P, _P, _P, _P,  # window, d1c, d1s, d2 stack, twc, tws
         _P, _P,  # rotc, rots [B, C]
-        _P, _P,  # outr, outi [B, S, C]
-        _I, _I, _I, _I, _I, _I,  # batch, n_spectra, n_taps, n1, n2, bf16
+        _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
+        _I, _I, _I, _I, _I, _I, _I,  # batch, n_spectra, n_taps, n1, n2, bf16, quantise
         _P, _P, _P,  # bf16 copies of d1c, d1s, d2
         _P,  # stream
     ],
@@ -63,8 +63,8 @@ _SIGNATURES = {
         _P,  # stream
     ],
     "corner_turn_launch": [
-        _P, _P, _P,  # qr, qi [A·P·S, C], out [C, 2·A·P·S]
-        _L, _I,  # rows (A·P·S), n_channels
+        _P, _P, _P,  # qr, qi [A·P·S, C], out [C, planes·A·P·S]
+        _L, _I, _I,  # rows (A·P·S), n_channels, planes (2: qr and qi; 1: qr)
         _P,  # stream
     ],
     "xcorr_fused_launch": [

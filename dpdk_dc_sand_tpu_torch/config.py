@@ -1,8 +1,8 @@
 """Array configuration and delay-model types (counterpart of ``dpdk_dc_sand_tpu/config.py``).
 
-The same frozen dataclasses, fields, defaults and validation as the
-reference, restricted to the derived geometry the port uses. They live in the
-port so that it runs where the reference package is absent.
+The same frozen dataclasses, fields, defaults, validation and derived
+geometry as the reference. They live in the port so that it runs where the
+reference package is absent.
 """
 
 from __future__ import annotations
@@ -16,6 +16,9 @@ ADC_SAMPLE_RATE = 1712e6
 
 #: Polarisations per antenna.
 N_POLS = 2
+
+#: Components of a complex sample (re, im).
+COMPLEXITY = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +54,18 @@ class ArrayConfig:
         return 1.0 / self.adc_sample_rate
 
     @property
+    def complexity(self) -> int:
+        return COMPLEXITY
+
+    @property
     def n_samples_per_block(self) -> int:
         """Samples per time block: 128 bits / sample bitwidth."""
         return 128 // self.sample_bitwidth
+
+    @property
+    def n_blocks(self) -> int:
+        """Time blocks per batch."""
+        return self.n_samples_per_channel // self.n_samples_per_block
 
     @property
     def n_channels_per_stream(self) -> int:
@@ -61,13 +73,53 @@ class ArrayConfig:
         return self.n_channels // self.n_ants // 4
 
     @property
+    def n_engines(self) -> int:
+        """Engines needed to cover the whole band."""
+        return self.n_channels // max(self.n_channels_per_stream, 1)
+
+    @property
     def fft_size(self) -> int:
         """Real-FFT length producing ``n_channels`` channels."""
         return 2 * self.n_channels
 
+    @property
+    def window_size(self) -> int:
+        """PFB prototype filter length in samples."""
+        return self.n_taps * self.fft_size
+
     def channel_offset(self, xeng_id: int) -> int:
         """Absolute first channel owned by engine ``xeng_id``."""
         return self.n_channels_per_stream * xeng_id
+
+    # The reference-layout arrays of one engine's channel slice.
+    @property
+    def ingest_shape(self) -> tuple[int, ...]:
+        """``[batch][ant][chan_per_stream][time][pol][cplx]`` int8 ingest layout."""
+        return (self.n_batches, self.n_ants, self.n_channels_per_stream,
+                self.n_samples_per_channel, self.n_pols, self.complexity)
+
+    @property
+    def reordered_shape(self) -> tuple[int, ...]:
+        """``[batch][pol][chan][block][t_in_block][ant][cplx]`` layout."""
+        return (self.n_batches, self.n_pols, self.n_channels_per_stream, self.n_blocks,
+                self.n_samples_per_block, self.n_ants, self.complexity)
+
+    @property
+    def delay_vals_shape(self) -> tuple[int, ...]:
+        """``[chan_per_stream][beam][ant][4]`` f32 delay polynomials."""
+        return (self.n_channels_per_stream, self.n_beams, self.n_ants, 4)
+
+    @property
+    def coeff_shape(self) -> tuple[int, ...]:
+        """``[batch][pol][chan][2·ant][2·beam]`` f32 rotation blocks."""
+        return (self.n_batches, self.n_pols, self.n_channels_per_stream,
+                2 * self.n_ants, 2 * self.n_beams)
+
+    @property
+    def beam_shape(self) -> tuple[int, ...]:
+        """``[batch][pol][chan][block][t_in_block][2·beam]`` f32 beams."""
+        return (self.n_batches, self.n_pols, self.n_channels_per_stream, self.n_blocks,
+                self.n_samples_per_block, 2 * self.n_beams)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,7 +5,9 @@ blocks and fine-rotation planes — handed over as numpy arrays — into a
 port engine's buffers and caches:
 
 - from the JAX ``FBEngine``: ``np.asarray(fb.window)``,
-  ``np.asarray(fb._coeff_blocks)``, ``[np.asarray(r) for r in fb._rot_planes]``;
+  ``np.asarray(fb._coeff_blocks)`` (for ``bstage="planar"`` the pair
+  ``[np.asarray(w) for w in fb._coeff_blocks]``),
+  ``[np.asarray(r) for r in fb._rot_planes]``;
 - from the JAX ``FXBEngine`` (into the port's ``FXBEngine``):
   ``np.asarray(fxb.window)``, ``np.asarray(fxb._coeffs)``, and the rotation
   planes that engine computes inside its jit, taken from the JAX
@@ -57,18 +59,26 @@ def from_reference_state(
 
     ``engine`` is an ``FBEngine`` or an ``FXBEngine`` (a subclass).
 
-    ``window`` ``[taps, fft]`` f32; ``coeff_blocks`` ``[C, 2A, 2B]`` (stored
-    in the engine's precision dtype); ``rot_planes`` ``(cos, sin)`` each
-    ``[A, P, N2/2, N1]`` f32, or ``None`` to leave them to the engine. The caches are keyed to ``delay_vals`` /
+    ``window`` ``[taps, fft]`` f32; ``coeff_blocks`` ``[C, 2A, 2B]``, or for
+    an engine with ``bstage="planar"`` the reference's ``(cos, sin)`` pair,
+    each ``[C, B, A]`` (stored in the engine's precision dtype);
+    ``rot_planes`` ``(cos, sin)`` each ``[A, P, N2/2, N1]`` f32, or ``None``
+    to leave them to the engine. The caches are keyed to ``delay_vals`` /
     ``ant_weights`` / ``t_s`` and ``frac_delays`` / ``phases``, so steps with
     that solution use the loaded state until the solution changes.
     """
     cfg = engine.cfg
     dev = engine.device
     dtype = torch.bfloat16 if engine.precision == "bf16" else torch.float32
-    blocks = torch.as_tensor(np.array(coeff_blocks, np.float32), device=dev)
-    if tuple(blocks.shape) != (cfg.n_channels, 2 * cfg.n_ants, 2 * cfg.n_beams):
-        raise ValueError(f"coeff_blocks shape {tuple(blocks.shape)}")
+    if engine.bstage == "planar":
+        want = (2, cfg.n_channels, cfg.n_beams, cfg.n_ants)
+        blocks = torch.stack([torch.as_tensor(np.array(w, np.float32), device=dev)
+                              for w in coeff_blocks])
+    else:
+        want = (cfg.n_channels, 2 * cfg.n_ants, 2 * cfg.n_beams)
+        blocks = torch.as_tensor(np.array(coeff_blocks, np.float32), device=dev)
+    if tuple(blocks.shape) != want:
+        raise ValueError(f"coeff_blocks shape {tuple(blocks.shape)}, want {want}")
     load_window(engine, window)
     engine.coeff_blocks = blocks.to(dtype)
     engine._coeff_key = steering_key(delay_vals, ant_weights, t_s)

@@ -1,13 +1,21 @@
-// K4 = K5a: int8 corner turn for Hopper (sm_90a).
+// K4 = K5a and K8: int8 corner turn for Hopper (sm_90a).
 //
-// Replaces the TPU kernels dpdk_dc_sand_tpu/ops/corner_turn.py:_kernel_split
-// and _kernel_full (behind corner_turn_planes) and _kernel_x (behind
-// corner_turn_planes_x). Both write the same bytes: with R = A*P*S rows per
-// plane,
-//   out[c, reim*R + r] = plane_reim[r, c],   r = (a*P + p)*S + s,
-// which is [C, 2A, P*S] (rows reim*A + a, lanes p*S + s) for the B stage and
-// [C, 2*A*P, S] (rows reim*A*P + a*P + p) for the X stage. One kernel serves
-// both; the wrapper views its output either way.
+// One tile transpose of R = A*P*S rows x C channels per plane, for one or
+// two planes (the launch's `planes`, the grid's z extent):
+//   out[c, z*R + r] = plane_z[r, c],   r = (a*P + p)*S + s,
+// with output rows of planes*R bytes.
+//
+// Two planes (re, im) replace the TPU kernels
+// dpdk_dc_sand_tpu/ops/corner_turn.py:_kernel_split and _kernel_full (behind
+// corner_turn_planes, K4) and _kernel_x (behind corner_turn_planes_x, K5a).
+// Both write the same bytes: [C, 2A, P*S] (rows reim*A + a, lanes p*S + s)
+// for the B stage and [C, 2*A*P, S] (rows reim*A*P + a*P + p) for the X
+// stage; the wrapper views the output either way.
+//
+// One plane replaces _kernel_plane_native (behind corner_turn_plane_native,
+// K8): the F kernel's native plane [A, P, S, rows, lanes] (channel
+// k = row*lanes + lane, row-major) is the same bytes as its [A, P, S, C]
+// output, so the native turn [C, A, P*S] is this transpose of one plane.
 //
 // Design. Each block turns a 64-row x 64-channel tile of one plane. A thread
 // loads a 4-row x 4-channel byte block as four 4-byte words (neighbouring
@@ -18,7 +26,8 @@
 // of 4 or of the tile) take byte loads and stores with masks.
 //
 // What bounds it on the card: bytes. It reads and writes each plane byte once
-// (5.4 GB per flagship step, ~1.6 ms at 3.35 TB/s) and does no arithmetic.
+// (5.4 GB for both flagship planes, ~1.6 ms at 3.35 TB/s; 2.7 GB, ~0.8 ms,
+// for one) and does no arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,7 +52,7 @@ __device__ __forceinline__ void transpose4x4(const uint32_t in[4], uint32_t out[
 
 __global__ void __launch_bounds__(THREADS)
     corner_turn_kernel(const int8_t* __restrict__ qr, const int8_t* __restrict__ qi,
-                       int8_t* __restrict__ out, long long rows, int n_ch) {
+                       int8_t* __restrict__ out, long long rows, int n_ch, int planes) {
   __shared__ uint32_t tile[TILE * SW];  // [channel][row word]
   const int8_t* plane = blockIdx.z ? qi : qr;
   const long long r0 = static_cast<long long>(blockIdx.y) * TILE;
@@ -80,7 +89,7 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
 
   // Store: channel row ch of the tile -> 64 row bytes of out[c0 + ch].
-  const long long out_stride = 2 * rows;
+  const long long out_stride = planes * rows;
   const bool word_rows = rows % 4 == 0;
   for (int i = tid; i < TILE * (TILE / 4); i += THREADS) {
     const int w = i % (TILE / 4), ch = i / (TILE / 4);
@@ -98,14 +107,17 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
+// planes = 2 turns (qr, qi) into out [C, 2R]; planes = 1 turns qr alone
+// into out [C, R] (qi is not read).
 extern "C" int corner_turn_launch(const void* qr, const void* qi, void* out,
-                                  long long rows, int n_ch, void* stream) {
-  if (rows <= 0 || n_ch <= 0 || (rows + TILE - 1) / TILE > 65535) {
+                                  long long rows, int n_ch, int planes, void* stream) {
+  if (rows <= 0 || n_ch <= 0 || (rows + TILE - 1) / TILE > 65535 ||
+      (planes != 1 && planes != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid((n_ch + TILE - 1) / TILE, static_cast<unsigned>((rows + TILE - 1) / TILE), 2);
+  dim3 grid((n_ch + TILE - 1) / TILE, static_cast<unsigned>((rows + TILE - 1) / TILE), planes);
   corner_turn_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qr), static_cast<const int8_t*>(qi),
-      static_cast<int8_t*>(out), rows, n_ch);
+      static_cast<int8_t*>(out), rows, n_ch, planes);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // K1: fused F-engine for Hopper (sm_90a) — FIR + two-stage Cooley–Tukey real
-// DFT + fine-delay rotation + int8 requant, int8 in / int8 out.
+// DFT + fine-delay rotation + int8 requant, int8 in / int8 out (or, without
+// the requant, f32 out: the QUANT=false epilogue of both bodies).
 //
 // Replaces the TPU kernel dpdk_dc_sand_tpu/ops/fengine_pallas.py:
 // _fengine_kernel_ct (reached from fengine_fused through pl.pallas_call).
@@ -8,7 +9,9 @@
 //   or none in f32 mode) -> stage A [N1,N1]@[N1,N2] (cos, -sin; f32
 //   accumulate) -> f32 twiddle -> operand rounding -> half-output stage B
 //   against the row-stacked [cos; -sin] [N2,N2] matrix (f32 accumulate) ->
-//   re*rc - im*rs, re*rs + im*rc -> rint -> clip +-127 -> int8.
+//   re*rc - im*rs, re*rs + im*rc -> rint -> clip +-127 -> int8. The
+//   reference's quantise=False output (its channelisation qualification)
+//   stops before rint and stores the rotated f32 values.
 // Products of bf16 values are exact in f32, so in bf16 mode the result
 // differs from the plain version only in the order of f32 additions.
 //
@@ -74,8 +77,8 @@ struct Params {
   const float* tws;
   const float* rotc;
   const float* rots;
-  int8_t* outr;
-  int8_t* outi;
+  void* outr;  // [B, S, C] int8, or f32 without the requant
+  void* outi;
   int n_spectra, n_taps, n1, n2;
   // bf16 copies of d1c, d1s, d2 (round-to-nearest-even of the f32 values)
   // for the tensor-core body.
@@ -110,7 +113,23 @@ __device__ __forceinline__ int8_t requant(float v) {
   return static_cast<int8_t>(v);
 }
 
-template <bool BF16>
+// The epilogue of one output: the fine-delay rotation, then the int8 requant
+// (QUANT) or the rotated f32 values.
+template <bool QUANT>
+__device__ __forceinline__ void store_rotated(const Params& p, long long o, float re,
+                                              float im, float rc, float rs) {
+  const float vr = __fsub_rn(__fmul_rn(re, rc), __fmul_rn(im, rs));
+  const float vi = __fadd_rn(__fmul_rn(re, rs), __fmul_rn(im, rc));
+  if constexpr (QUANT) {
+    static_cast<int8_t*>(p.outr)[o] = requant(vr);
+    static_cast<int8_t*>(p.outi)[o] = requant(vi);
+  } else {
+    static_cast<float*>(p.outr)[o] = vr;
+    static_cast<float*>(p.outi)[o] = vi;
+  }
+}
+
+template <bool BF16, bool QUANT>
 __global__ void __launch_bounds__(THREADS) fengine_ct_kernel(Params p) {
   using OpT = std::conditional_t<BF16, __nv_bfloat16, float>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -272,8 +291,7 @@ __global__ void __launch_bounds__(THREADS) fengine_ct_kernel(Params p) {
             const float im = __fadd_rn(sci[i][j], ssr[i][j]);
             const float rc = __ldg(p.rotc + static_cast<long long>(b) * C + ch);
             const float rs = __ldg(p.rots + static_cast<long long>(b) * C + ch);
-            p.outr[obase + ch] = requant(__fsub_rn(__fmul_rn(re, rc), __fmul_rn(im, rs)));
-            p.outi[obase + ch] = requant(__fadd_rn(__fmul_rn(re, rs), __fmul_rn(im, rc)));
+            store_rotated<QUANT>(p, obase + ch, re, im, rc, rs);
           }
         }
       }
@@ -295,15 +313,15 @@ size_t smem_bytes(bool bf16, int n1, int n2) {
   return bytes;
 }
 
-template <bool BF16>
+template <bool BF16, bool QUANT>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   const size_t bytes = smem_bytes(BF16, p.n1, p.n2);
   cudaError_t err = cudaFuncSetAttribute(
-      fengine_ct_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fengine_ct_kernel<BF16, QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   dim3 grid(p.n_spectra, batch);
-  fengine_ct_kernel<BF16><<<grid, THREADS, bytes, stream>>>(p);
+  fengine_ct_kernel<BF16, QUANT><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -350,6 +368,7 @@ __device__ __forceinline__ void stage_out(float* wst, const FragC& f, float v[8]
   __syncwarp();
 }
 
+template <bool QUANT>
 __global__ void __launch_bounds__(TC_THREADS) fengine_ct_tc_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int s = blockIdx.x;
@@ -477,10 +496,7 @@ __global__ void __launch_bounds__(TC_THREADS) fengine_ct_tc_kernel(Params p) {
             const int ch = (mi * 16 + i / 16) * n1 + k0 + (nj0 + j) * 16 + i % 16;
             const float rc = __ldg(p.rotc + static_cast<long long>(b) * C + ch);
             const float rs = __ldg(p.rots + static_cast<long long>(b) * C + ch);
-            p.outr[obase + ch] =
-                requant(__fsub_rn(__fmul_rn(re[q], rc), __fmul_rn(im[q], rs)));
-            p.outi[obase + ch] =
-                requant(__fadd_rn(__fmul_rn(re[q], rs), __fmul_rn(im[q], rc)));
+            store_rotated<QUANT>(p, obase + ch, re[q], im[q], rc, rs);
           }
         }
       }
@@ -495,14 +511,15 @@ size_t tc_smem_bytes(int n1, int n2) {
          sizeof(float) * WARPS * 256;
 }
 
+template <bool QUANT>
 cudaError_t launch_tc(const Params& p, int batch, cudaStream_t stream) {
   const size_t bytes = tc_smem_bytes(p.n1, p.n2);
   cudaError_t err = cudaFuncSetAttribute(
-      fengine_ct_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fengine_ct_tc_kernel<QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   dim3 grid(p.n_spectra, batch);
-  fengine_ct_tc_kernel<<<grid, TC_THREADS, bytes, stream>>>(p);
+  fengine_ct_tc_kernel<QUANT><<<grid, TC_THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -513,13 +530,13 @@ extern "C" const char* dcsand_error_string(int err) {
 }
 
 // bf16 with N1 >= 16 takes the tensor-core body, everything else the SIMT
-// body.
+// body; quantise = 0 writes f32 outputs instead of int8.
 extern "C" int fengine_ct_launch(
     const void* x, long long batch_stride, const void* starts,
     const void* win, const void* d1c, const void* d1s, const void* d2,
     const void* twc, const void* tws, const void* rotc, const void* rots,
     void* outr, void* outi, int batch, int n_spectra, int n_taps, int n1,
-    int n2, int bf16, const void* d1c_bf, const void* d1s_bf,
+    int n2, int bf16, int quantise, const void* d1c_bf, const void* d1s_bf,
     const void* d2_bf, void* stream) {
   // Shapes the tiling assumes (the wrapper's _split_ct guarantees them).
   if (n1 < 8 || (n1 & (n1 - 1)) || n2 < 128 || (n2 & (n2 - 1)) ||
@@ -532,7 +549,7 @@ extern "C" int fengine_ct_launch(
            static_cast<const float*>(d1s), static_cast<const float*>(d2),
            static_cast<const float*>(twc), static_cast<const float*>(tws),
            static_cast<const float*>(rotc), static_cast<const float*>(rots),
-           static_cast<int8_t*>(outr), static_cast<int8_t*>(outi),
+           outr, outi,
            n_spectra, n_taps, n1, n2,
            static_cast<const __nv_bfloat16*>(d1c_bf),
            static_cast<const __nv_bfloat16*>(d1s_bf),
@@ -540,9 +557,11 @@ extern "C" int fengine_ct_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16 && n1 >= 16) {
-    err = launch_tc(p, batch, st);
+    err = quantise ? launch_tc<true>(p, batch, st) : launch_tc<false>(p, batch, st);
+  } else if (bf16) {
+    err = quantise ? launch<true, true>(p, batch, st) : launch<true, false>(p, batch, st);
   } else {
-    err = bf16 ? launch<true>(p, batch, st) : launch<false>(p, batch, st);
+    err = quantise ? launch<false, true>(p, batch, st) : launch<false, false>(p, batch, st);
   }
   return static_cast<int>(err);
 }

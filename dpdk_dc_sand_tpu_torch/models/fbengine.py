@@ -4,20 +4,32 @@ ADC streams -> coarse delay -> PFB channelise -> fine delay -> requantise
 (K1, :func:`~dpdk_dc_sand_tpu_torch.ops.fengine_fused.fengine_fused`; or,
 with ``fengine="xla"``, the composed chain of
 :func:`~dpdk_dc_sand_tpu_torch.models.fengine.composed_f`: K6 FIR, cuFFT
-rfft, plain fine delay and requant) ->
-corner turn + multi-beam beamform: ``bstage="fused"`` in one kernel (K2,
-:func:`~dpdk_dc_sand_tpu_torch.ops.bstage.beamform_turned_fused`), or
-``bstage="turned"``, the corner-turn kernel (K4,
-:func:`~dpdk_dc_sand_tpu_torch.ops.corner_turn.corner_turn_planes`) then a
-folded f32 product
-(:func:`~dpdk_dc_sand_tpu_torch.ops.beamform.beamform_turned`). The
-steering blocks and fine-rotation planes are regenerated only when the
+rfft, plain fine delay and requant) -> corner turn + multi-beam beamform,
+in one of the reference's B forms (``bstage``):
+
+- ``"fused"``: one kernel (K2,
+  :func:`~dpdk_dc_sand_tpu_torch.ops.bstage.beamform_turned_fused`);
+- ``"turned"``: the corner-turn kernel (K4,
+  :func:`~dpdk_dc_sand_tpu_torch.ops.corner_turn.corner_turn_planes`) then a
+  folded f32 product
+  (:func:`~dpdk_dc_sand_tpu_torch.ops.beamform.beamform_turned`); with
+  ``fengine_native_handoff=True`` the native turn of each plane instead (K8,
+  :func:`~dpdk_dc_sand_tpu_torch.ops.corner_turn.corner_turn_plane_native`)
+  and the split product
+  (:func:`~dpdk_dc_sand_tpu_torch.ops.beamform.beamform_turned_split`);
+- ``"folded"``: an int8 turn copy and one folded product per channel
+  (:func:`~dpdk_dc_sand_tpu_torch.ops.beamform.beamform_planes_folded`);
+- ``"planar"``: four real products on (cos, sin) weights
+  (:func:`~dpdk_dc_sand_tpu_torch.ops.beamform.beamform_planes`), for every
+  geometry.
+
+The steering weights and fine-rotation planes are regenerated only when the
 delay solution's values change (the 256-accumulation cadence).
 
 The reference's TPU schedule knobs (``fengine_s_blk``, ``_vmem_mb``,
 ``_pipeline``, ``_tapouter``, ``_bfuse``, ``_skew``, ``_rolling``,
-``_native_handoff``, ``_flat_out``, ``ct_batch_a``) are Mosaic scheduling,
-not semantics, and have no counterpart here.
+``_flat_out``, ``ct_batch_a``) are Mosaic scheduling, not semantics, and
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -31,13 +43,20 @@ from torch import nn
 from dpdk_dc_sand_tpu_torch.config import ArrayConfig
 from dpdk_dc_sand_tpu_torch.models._device import resolve_device
 from dpdk_dc_sand_tpu_torch.models.fengine import composed_f
-from dpdk_dc_sand_tpu_torch.ops.beamform import beamform_turned
+from dpdk_dc_sand_tpu_torch.ops.beamform import (
+    beamform_planes,
+    beamform_planes_folded,
+    beamform_turned,
+    beamform_turned_split,
+)
 from dpdk_dc_sand_tpu_torch.ops.bstage import (
     beamform_turned_fused,
     bstage_fused_supported,
     reference_fused_gate,
 )
 from dpdk_dc_sand_tpu_torch.ops.corner_turn import (
+    corner_turn_native_supported,
+    corner_turn_plane_native,
     corner_turn_planes,
     corner_turn_supported,
 )
@@ -48,15 +67,13 @@ from dpdk_dc_sand_tpu_torch.ops.coeff_gen import (
     to_numpy,
 )
 from dpdk_dc_sand_tpu_torch.ops.fengine_fused import (
+    _deint_mode,
     fengine_fused,
     fine_rotation_planes,
     ingest_alignment,
 )
 from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
 from dpdk_dc_sand_tpu_torch.ops.requant import requantise
-
-_NOT_PORTED = "is not ported yet (see ROADMAP.md, queue 1)"
-
 
 def resolve_backends(
     cfg: ArrayConfig,
@@ -94,7 +111,8 @@ def resolve_backends(
 
 
 def _check_bstage(cfg: ArrayConfig, n_spectra: int, bstage: str) -> None:
-    """Raise for a B form, or a geometry of one, that the port does not cover."""
+    """Raise for a geometry that an explicitly chosen kernel B form does not
+    cover (``"planar"`` and ``"folded"`` take every geometry)."""
     if bstage == "fused":
         ok = bstage_fused_supported(
             cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_beams, cfg.n_channels
@@ -102,11 +120,27 @@ def _check_bstage(cfg: ArrayConfig, n_spectra: int, bstage: str) -> None:
     elif bstage == "turned":
         ok = corner_turn_supported(cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_channels)
     else:
-        raise NotImplementedError(f"bstage backend {bstage!r} {_NOT_PORTED}")
+        ok = True
     if not ok:
         raise NotImplementedError(
             f"the {bstage} B stage does not cover this geometry ({cfg}, "
-            f"n_spectra={n_spectra}); the other B forms {_NOT_PORTED}"
+            f"n_spectra={n_spectra}): the reference's gate refuses it; "
+            'bstage="planar" or "folded" take every geometry'
+        )
+
+
+def _check_native_handoff(cfg: ArrayConfig, n_spectra: int, fengine: str, bstage: str) -> None:
+    """The reference's gate of the native F->B handoff (``fbengine.py:236-255``)."""
+    mode, n1, n2 = _deint_mode(cfg.n_channels)
+    if not (
+        fengine in ("fused", "fused_f32")
+        and bstage == "turned"
+        and mode == "ct"
+        and corner_turn_native_supported(cfg.n_ants, cfg.n_pols, n_spectra, n2 // 2, n1)
+    ):
+        raise ValueError(
+            "fengine_native_handoff needs the fused direct-CT F kernel with the "
+            "turned B stage on a supported geometry"
         )
 
 
@@ -137,14 +171,23 @@ class FBEngine(nn.Module):
         (K1 with f32 DFT operands) or ``"xla"`` (the composed chain: K6
         FIR, cuFFT rfft, plain fine delay and requant).
     bstage:
-        ``"auto"`` / ``"fused"`` (K2), or ``"turned"`` (K4 + the folded
-        f32 product). ``"auto"`` takes ``"fused"`` here; FXB resolves by
-        :func:`resolve_backends`.
+        ``"fused"`` (K2), ``"turned"`` (K4 + the folded f32 product),
+        ``"folded"`` or ``"planar"`` (plain products); ``"auto"`` resolves
+        by :func:`resolve_backends`, the reference's rule.
     beam_quant_scale:
         When set, beams are requantised to int8 with this gain.
     beam_layout:
-        ``"split"``: ``[P, C, S, B, 2]`` beams. ``"natural"``: K2's packed
-        ``[C/pack, P·S, pack·2B]`` wire format, no epilogue.
+        ``"split"``: ``[P, C, S, B, 2]`` beams. ``"natural"`` (``bstage``
+        ``"fused"`` or ``"turned"`` only): K2's packed ``[C/pack, P·S,
+        pack·2B]`` wire format, or the turned product's ``[C, P·S, 2B]``; no
+        epilogue.
+    fengine_native_handoff:
+        ``True``: each int8 F plane goes to the B stage as K1 wrote it,
+        viewed ``[A, P, S, N2/2, N1]``, turned on its own (K8) and
+        beamformed by the split product; it needs the fused direct-CT F and
+        ``bstage="turned"`` on a geometry the reference's native gate takes
+        (else ``ValueError``). ``"auto"`` resolves ``False``, as in the
+        reference.
     device:
         Where the buffers live and the step runs; ``None`` is ``cuda`` (and
         raises without one: pass ``device="cpu"`` for the CPU).
@@ -160,20 +203,29 @@ class FBEngine(nn.Module):
         bstage: str = "auto",
         beam_quant_scale: float | None = None,
         beam_layout: str = "split",
+        fengine_native_handoff: bool | str = "auto",
         device: torch.device | str | None = None,
     ) -> None:
         super().__init__()
-        if fengine == "auto":
-            fengine = "fused"
-        if fengine not in ("fused", "fused_f32", "xla"):
+        if fengine not in ("auto", "fused", "fused_f32", "xla"):
             raise ValueError(f"unknown fengine backend {fengine!r}")
-        if bstage == "auto":
-            bstage = "fused"
-        _check_bstage(cfg, n_spectra, bstage)
+        if bstage not in ("auto", "planar", "folded", "turned", "fused"):
+            raise ValueError(f"unknown bstage backend {bstage!r}")
         if beam_layout not in ("split", "natural"):
             raise ValueError(f"unknown beam_layout {beam_layout!r}")
         if precision not in ("f32", "bf16"):
             raise ValueError(f"unknown precision {precision!r}")
+        fengine, bstage = resolve_backends(cfg, n_spectra, fengine, bstage, beam_layout)
+        if beam_layout == "natural" and bstage not in ("turned", "fused"):
+            raise ValueError(
+                'beam_layout="natural" requires bstage "turned" or "fused" '
+                f"(resolved bstage={bstage!r} for this geometry/backend)"
+            )
+        _check_bstage(cfg, n_spectra, bstage)
+        if fengine_native_handoff == "auto":
+            fengine_native_handoff = False
+        if fengine_native_handoff:
+            _check_native_handoff(cfg, n_spectra, fengine, bstage)
         self.cfg = cfg
         self.n_spectra = n_spectra
         self.quant_scale = quant_scale
@@ -182,10 +234,13 @@ class FBEngine(nn.Module):
         self.bstage = bstage
         self.beam_quant_scale = beam_quant_scale
         self.beam_layout = beam_layout
+        self.fengine_native_handoff = bool(fengine_native_handoff)
         self.device = resolve_device(device)
         self.register_buffer("window", default_window(cfg.n_taps, cfg.fft_size, self.device))
-        #: Steering blocks [C, 2A, 2B] (precision dtype) and fine-rotation
-        #: planes [A, P, N2/2, N1] f32: content-keyed delay-update caches.
+        #: Steering weights in the precision's dtype — block-concat
+        #: [C, 2A, 2B], or for bstage="planar" the stacked (cos, sin)
+        #: [2, C, B, A] — and fine-rotation planes [A, P, N2/2, N1] f32:
+        #: content-keyed delay-update caches.
         self.register_buffer("coeff_blocks", None)
         self.register_buffer("rot_cos", None)
         self.register_buffer("rot_sin", None)
@@ -217,6 +272,7 @@ class FBEngine(nn.Module):
             self.coeff_blocks = _coeff_blocks(
                 self._tensor(delay_vals), w, t_s, cfg=self.cfg,
                 dtype=torch.bfloat16 if self.precision == "bf16" else torch.float32,
+                folded=self.bstage != "planar",
             )
             self._coeff_key = key
 
@@ -237,7 +293,8 @@ class FBEngine(nn.Module):
         return self.rot_cos, self.rot_sin
 
     def _f(self, adc, coarse_delays, frac_delays, phases) -> tuple[torch.Tensor, torch.Tensor]:
-        """The step's F planes, int8 ``(qr, qi)`` ``[A, P, S, C]``."""
+        """The step's F planes, int8 ``(qr, qi)`` ``[A, P, S, C]`` (viewed
+        ``[A, P, S, N2/2, N1]`` with the native handoff)."""
         if self.fengine == "xla":
             rot, delays = None, (self._tensor(frac_delays, torch.float32),
                                  self._tensor(phases, torch.float32))
@@ -247,6 +304,7 @@ class FBEngine(nn.Module):
             self._tensor(adc), self._tensor(coarse_delays), self.window, rot,
             cfg=self.cfg, n_spectra=self.n_spectra, quant_scale=self.quant_scale,
             fengine=self.fengine, fine_delays=delays,
+            planes_native=self.fengine_native_handoff,
         )
 
     def step(self, adc, coarse_delays, frac_delays, phases) -> torch.Tensor:
@@ -269,7 +327,8 @@ class FBEngine(nn.Module):
         Returns ``[P, C, S, B, 2]`` beams (``beam_layout="split"``) or, for
         ``"natural"``, K2's packed ``[C/pack, P·S, pack·2B]`` form
         (``bstage="fused"``) or the turned product's ``[C, P·S, 2B]``
-        (``bstage="turned"``), as in the reference.
+        (``bstage="turned"``, with or without the native handoff), as in
+        the reference.
         """
         self.set_beam_delays(delay_vals)
         return self.step(adc, coarse_delays, frac_delays, phases)
@@ -318,8 +377,14 @@ def _coeff_blocks(
     *,
     cfg: ArrayConfig,
     dtype=torch.float32,
+    folded: bool = True,
 ) -> torch.Tensor:
-    """``[B, A, 4]`` delay polynomials -> ``[C, 2A, 2B]`` block-concat weights."""
+    """``[B, A, 4]`` delay polynomials -> steering weights in ``dtype``.
+
+    ``folded=True``: ``[C, 2A, 2B]`` block-concat weights. ``folded=False``:
+    the planar form's ``(cos, sin)`` ``[C, B, A]`` planes, stacked
+    ``[2, C, B, A]`` (unpacking it gives the pair).
+    """
     cos, sin = steering_coeffs(
         delay_vals,
         n_channels=cfg.n_channels,
@@ -328,7 +393,10 @@ def _coeff_blocks(
         xeng_id=0,
         t_s=t_s,
     )
-    return steering_coeff_blockcat(cos * ant_weights, sin * ant_weights).to(dtype)
+    cos, sin = cos * ant_weights, sin * ant_weights
+    if folded:
+        return steering_coeff_blockcat(cos, sin).to(dtype)
+    return torch.stack([cos, sin]).to(dtype)
 
 
 def _f_stage(
@@ -342,13 +410,17 @@ def _f_stage(
     quant_scale: float,
     fengine: str = "fused",
     fine_delays: tuple[torch.Tensor, torch.Tensor] | None = None,
+    planes_native: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Coarse delay + PFB + fine delay + requantise: int8 ``(qr, qi)`` ``[A, P, S, C]``.
 
     The ADC may be flat ``[A, P, n]`` or wire-rowed ``[A, P, rows, N2]``;
     both are views of the same bytes. ``fengine="xla"`` runs the composed
     chain on ``fine_delays`` = ``(frac_delays, phases)`` ``[A]``; the fused
-    forms take the cached ``rot_planes``.
+    forms take the cached ``rot_planes``. ``planes_native=True`` (fused
+    direct-CT form) returns K1's planes viewed as its native
+    ``[A, P, S, N2/2, N1]`` layout (channel ``k = row·N1 + lane``): a view,
+    so a plane that is not contiguous raises instead of being copied.
     """
     flat = adc.reshape(cfg.n_ants, cfg.n_pols, -1)
     if fengine == "xla":
@@ -356,7 +428,7 @@ def _f_stage(
         qr, qi = (torch.empty(shape, dtype=torch.int8, device=adc.device) for _ in range(2))
         composed_f(flat, coarse_delays, *fine_delays, window, qr, qi, quant_scale=quant_scale)
         return qr, qi
-    return fengine_fused(
+    qr, qi = fengine_fused(
         flat,
         window,
         None,
@@ -370,6 +442,11 @@ def _f_stage(
         n_spectra=n_spectra,
         rot_planes=rot_planes,
     )
+    if planes_native:
+        _, n1, n2 = _deint_mode(cfg.n_channels)
+        shape5 = (cfg.n_ants, cfg.n_pols, n_spectra, n2 // 2, n1)
+        return qr.view(shape5), qi.view(shape5)
+    return qr, qi
 
 
 def _b_stage(
@@ -385,11 +462,23 @@ def _b_stage(
 ) -> torch.Tensor:
     """Corner turn + multi-beam matmul (+ beam requant).
 
-    ``beam_layout="natural"``: ``bstage="fused"`` gives K2's packed
-    ``[C/pack, P·S, pack·2B]``, ``"turned"`` the dot's ``[C, P·S, 2B]``;
-    ``"split"``: ``[P, C, S, B, 2]``.
+    ``coeff_blocks`` is ``[C, 2A, 2B]``, or for ``bstage="planar"`` the
+    stacked ``(cos, sin)`` ``[2, C, B, A]``. 5-d native planes
+    ``[A, P, S, rows, lanes]`` (``bstage="turned"``) take one native turn
+    per plane (K8) and the split product.
+
+    ``beam_layout="natural"`` (``"fused"`` or ``"turned"``): ``"fused"``
+    gives K2's packed ``[C/pack, P·S, pack·2B]``, ``"turned"`` the
+    product's ``[C, P·S, 2B]``; ``"split"``: ``[P, C, S, B, 2]``.
     """
-    if bstage == "turned":
+    if beam_layout == "natural" and bstage not in ("turned", "fused"):
+        raise ValueError('beam_layout="natural" requires bstage "turned" or "fused"')
+    if bstage == "turned" and qr.ndim == 5:
+        out = beamform_turned_split(
+            corner_turn_plane_native(qr), corner_turn_plane_native(qi), coeff_blocks,
+            n_pols=cfg.n_pols, precision=precision, layout=beam_layout,
+        )
+    elif bstage == "turned":
         out = beamform_turned(
             corner_turn_planes(qr, qi), coeff_blocks, n_pols=cfg.n_pols,
             precision=precision, layout=beam_layout,
@@ -399,8 +488,15 @@ def _b_stage(
             qr, qi, coeff_blocks, n_pols=cfg.n_pols, precision=precision,
             layout="packed" if beam_layout == "natural" else "split",
         )
+    elif bstage == "folded":
+        out = beamform_planes_folded(qr, qi, coeff_blocks, precision)
+    elif bstage == "planar":
+        cos, sin = coeff_blocks
+        # [A, P, S, C] -> [P, C, S, A] per plane (views; the product turns them).
+        out = beamform_planes(qr.permute(1, 3, 2, 0), qi.permute(1, 3, 2, 0), cos, sin,
+                              precision)
     else:
-        raise NotImplementedError(f"bstage backend {bstage!r} {_NOT_PORTED}")
+        raise ValueError(f"unknown bstage backend {bstage!r}")
     if beam_layout == "natural":
         return out if beam_quant_scale is None else requantise(out, beam_quant_scale)
     beam_re, beam_im = out

@@ -3,10 +3,13 @@
 The channelised, delay-corrected, requantised int8 planes are computed once
 per step (K1, or with ``fengine="xla"`` the composed chain: K6 FIR, cuFFT
 rfft, plain fine delay and requant) and consumed twice on the device: by
-the B stage (``_b_stage``; at the flagship the turned form, K4 + the folded
-f32 product) and by the X stage, whose kernel the geometry picks exactly as the
-reference picks it (:func:`_x_stage`): the turn + gram kernel K3, else the
-corner turn (K5a = K4) and the turned gram K5b, else the plain grams.
+the B stage (``_b_stage``, any of the reference's B forms; at the flagship
+the turned form, K4 + the folded f32 product, and ``"planar"`` where
+neither K2's nor K4's gate takes the geometry) and by the X stage, whose
+kernel the geometry picks exactly as the reference picks it
+(:func:`_x_stage`): the turn + gram kernel K3, else the corner turn (K5a =
+K4) and the turned gram K5b, else the plain grams. As in the reference,
+FXB has no native F->B handoff.
 
 The reference's Mosaic schedule knobs (``fengine_s_blk``, ``_vmem_mb``,
 ``_pipeline``, ``_tapouter``, ``_bfuse``, ``_skew``, ``_rolling``,
@@ -19,11 +22,7 @@ from __future__ import annotations
 import torch
 
 from dpdk_dc_sand_tpu_torch.config import ArrayConfig
-from dpdk_dc_sand_tpu_torch.models.fbengine import (
-    FBEngine,
-    _b_stage,
-    resolve_backends,
-)
+from dpdk_dc_sand_tpu_torch.models.fbengine import FBEngine, _b_stage
 from dpdk_dc_sand_tpu_torch.ops.corner_turn import (
     corner_turn_planes_x,
     corner_turn_x_supported,
@@ -49,7 +48,8 @@ class FXBEngine(FBEngine):
 
     ``fengine`` / ``bstage`` resolve as the reference's do
     (:func:`~dpdk_dc_sand_tpu_torch.models.fbengine.resolve_backends`, split
-    beams): at the flagship the fused F kernel and the turned B stage.
+    beams): at the flagship the fused F kernel and the turned B stage;
+    ``"planar"`` and ``"folded"`` pass through to the shared B stage.
     ``vis_precision`` (``"auto"`` = ``"int8"``) is the precision of the
     plain grams; the kernels are exact int8 whatever it is. ``device``:
     ``None`` is ``cuda``; pass ``device="cpu"`` for the CPU.
@@ -69,11 +69,6 @@ class FXBEngine(FBEngine):
     ) -> None:
         if vis_precision not in ("auto", "int8", "f32", "bf16"):
             raise ValueError(f"unknown vis_precision {vis_precision!r}")
-        if fengine not in ("auto", "xla", "fused", "fused_f32"):
-            raise ValueError(f"unknown fengine backend {fengine!r}")
-        if bstage not in ("auto", "planar", "folded", "turned", "fused"):
-            raise ValueError(f"unknown bstage backend {bstage!r}")
-        fengine, bstage = resolve_backends(cfg, n_spectra, fengine, bstage)
         super().__init__(
             cfg, n_spectra=n_spectra, quant_scale=quant_scale, precision=precision,
             fengine=fengine, bstage=bstage, beam_quant_scale=beam_quant_scale,

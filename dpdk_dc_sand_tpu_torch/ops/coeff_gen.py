@@ -72,6 +72,48 @@ def steering_coeffs(
     return torch.cos(rot), torch.sin(rot)
 
 
+def steering_coeff_matrix(cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """``[..., beam, ant]`` (cos, sin) -> ``[..., 2A, 2B]`` 2x2 rotation blocks.
+
+    Block ``[[c, s], [-s, c]]`` at ``(2a, 2b)``: samples interleaved as
+    ``[re_0, im_0, re_1, ...]`` on the contraction axis give beams
+    interleaved as ``[re_0, im_0, ...]``.
+    """
+    *lead, n_beams, n_ants = cos.shape
+    m = torch.stack([torch.stack([cos, sin], -1), torch.stack([-sin, cos], -1)], -2)
+    # [..., beam, ant, i, j] -> [..., ant, i, beam, j]
+    m = m.movedim((-4, -3), (-2, -4))
+    return m.reshape(*lead, 2 * n_ants, 2 * n_beams)
+
+
+def generate_coeff_matrix(
+    delay_vals: torch.Tensor,
+    *,
+    n_batches: int,
+    n_pols: int,
+    n_channels: int,
+    n_channels_per_stream: int,
+    sample_period: float = 1.0 / 1712e6,
+    xeng_id: int = 0,
+    t_s: float = 0.0,
+) -> torch.Tensor:
+    """The reference-layout ``[batch, pol, chan, 2A, 2B]`` f32 rotation blocks.
+
+    Neither batch nor pol enters the math, so the blocks are one
+    ``[chan, 2A, 2B]`` array broadcast (a view, not a copy) over both.
+    """
+    cos, sin = steering_coeffs(
+        delay_vals,
+        n_channels=n_channels,
+        n_channels_per_stream=n_channels_per_stream,
+        sample_period=sample_period,
+        xeng_id=xeng_id,
+        t_s=t_s,
+    )
+    m = steering_coeff_matrix(cos, sin)
+    return m.expand(n_batches, n_pols, *m.shape)
+
+
 def steering_coeff_blockcat(cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """``[..., beam, ant]`` (cos, sin) -> ``[..., 2A, 2B]`` block-concat weights.
 

@@ -1,18 +1,24 @@
-"""Corner turn: int8 ``[A, P, S, C]`` planes -> ``[C, 2A, P·S]`` (counterpart of ``dpdk_dc_sand_tpu/ops/corner_turn.py``).
+"""Corner turns of the int8 F planes (counterpart of ``dpdk_dc_sand_tpu/ops/corner_turn.py``).
 
-For CUDA tensors :func:`corner_turn_planes` launches the hand-written kernel
-``csrc/corner_turn.cu`` (K4); for CPU tensors it runs
-:func:`corner_turn_planes_reference`, the plain PyTorch version. The
-reference's X-layout turn (K5a) writes the same bytes, so
-:func:`corner_turn_planes_x` is a view of K4's output. Both are bit-exact
-permutes.
+Both wrappers launch the hand-written kernel ``csrc/corner_turn.cu`` for
+CUDA tensors and run their plain PyTorch versions only for CPU tensors:
 
-The gates :func:`corner_turn_supported` and :func:`corner_turn_x_supported`
+- :func:`corner_turn_planes` (K4): the two planes ``[A, P, S, C]`` ->
+  ``[C, 2A, P·S]``. The reference's X-layout turn (K5a) writes the same
+  bytes, so :func:`corner_turn_planes_x` is a view of K4's output.
+- :func:`corner_turn_plane_native` (K8): one plane of the native F->B
+  handoff, ``[A, P, S, rows, lanes]`` (or ``[A, P, S, C]``) ->
+  ``[C, A, P·S]``: the same kernel launched on one plane.
+
+All are bit-exact permutes. The gates :func:`corner_turn_supported`,
+:func:`corner_turn_x_supported` and :func:`corner_turn_native_supported`
 are the reference's, so the engines branch exactly as the reference does;
 the CUDA kernel itself takes any geometry.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -23,6 +29,8 @@ from dpdk_dc_sand_tpu_torch import _build
 _C_BLK = 128
 _S_CHUNK = 128
 _VMEM_CAP = 14 * 1024 * 1024
+#: Plane rows per channel block of the reference's native turn.
+_NATIVE_ROWS = 8
 
 
 def corner_turn_supported(n_ants: int, n_pols: int, n_spectra: int, n_channels: int) -> bool:
@@ -48,6 +56,18 @@ def corner_turn_x_supported(n_ants: int, n_pols: int, n_spectra: int, n_channels
     return n_spectra % _S_CHUNK == 0
 
 
+def corner_turn_native_supported(
+    n_ants: int, n_pols: int, n_spectra: int, out_rows: int, out_lanes: int
+) -> bool:
+    """The reference's geometry gate of the native-handoff turn (K8)."""
+    return (
+        out_lanes % 128 == 0
+        and n_spectra % _S_CHUNK == 0
+        and out_rows % _NATIVE_ROWS == 0
+        and (n_ants % 8 == 0 or n_ants < 8)
+    )
+
+
 def corner_turn_planes_reference(qr: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K4: ``[C, 2A, P·S]`` int8."""
     a, p, s, c = qr.shape
@@ -55,21 +75,28 @@ def corner_turn_planes_reference(qr: torch.Tensor, qi: torch.Tensor) -> torch.Te
     return t.contiguous().view(c, 2 * a, p * s)
 
 
-def _launch(qr: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
-    a, p, s, c = qr.shape
-    for name, t in (("qr", qr), ("qi", qi)):
-        if t.dtype != torch.int8 or t.device != qr.device or not t.is_contiguous():
-            raise ValueError(f"corner_turn_planes: {name} must be contiguous int8 on {qr.device}")
+def corner_turn_plane_native_reference(q: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K8: ``[C, A, P·S]`` int8."""
+    a, p, s = q.shape[:3]
+    c = math.prod(q.shape[3:])
+    return q.reshape(a, p, s, c).permute(3, 0, 1, 2).reshape(c, a, p * s).contiguous()
+
+
+def _launch(planes: tuple[torch.Tensor, ...], rows: int, n_ch: int, what: str) -> torch.Tensor:
+    """Turn each ``[rows, n_ch]`` plane into ``out[c, z·rows + r]`` on the card."""
+    first = planes[0]
+    for t in planes:
+        if t.dtype != torch.int8 or t.device != first.device or not t.is_contiguous():
+            raise ValueError(f"{what}: planes must be contiguous int8 on {first.device}")
         if t.data_ptr() % 4:
-            raise ValueError(f"corner_turn_planes: {name} must be 4-byte aligned")
-    out = torch.empty((c, 2 * a, p * s), dtype=torch.int8, device=qr.device)
+            raise ValueError(f"{what}: planes must be 4-byte aligned")
+    out = torch.empty((n_ch, len(planes) * rows), dtype=torch.int8, device=first.device)
     lib = _build.library()
     err = lib.corner_turn_launch(
-        qr.data_ptr(), qi.data_ptr(), out.data_ptr(), a * p * s, c,
-        torch.cuda.current_stream(qr.device).cuda_stream,
+        first.data_ptr(), planes[-1].data_ptr(), out.data_ptr(), rows, n_ch, len(planes),
+        torch.cuda.current_stream(first.device).cuda_stream,
     )
-    _build.check(lib, err, "corner_turn")
-    corner_turn_planes.launches += 1
+    _build.check(lib, err, what)
     return out
 
 
@@ -78,18 +105,21 @@ def corner_turn_planes(qr: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
 
     ``qr``, ``qi``: ``[A, P, S, C]`` int8. Returns ``[C, 2A, P·S]`` int8 with
     rows ``k = reim·A + a`` and lanes ``m = p·S + s`` — the operand of
-    :func:`~dpdk_dc_sand_tpu_torch.ops.beamform.beamform_turned`.
+    :func:`~dpdk_dc_sand_tpu_torch.ops.beamform.beamform_turned`. The native
+    5-d planes take :func:`corner_turn_plane_native`, one per plane.
     """
     if qr.ndim == 5:
-        raise NotImplementedError(
-            "5-d native F planes need the per-plane native turn "
-            "(corner_turn_plane_native, K8), which is not ported yet "
-            "(see ROADMAP.md)"
+        raise ValueError(
+            "5-d native planes: use corner_turn_plane_native per plane + "
+            "beamform_turned_split"
         )
     if qr.ndim != 4 or qi.shape != qr.shape:
         raise ValueError(f"planes {tuple(qr.shape)}/{tuple(qi.shape)}: want two [A, P, S, C]")
+    a, p, s, c = qr.shape
     if qr.device.type == "cuda":
-        return _launch(qr, qi)
+        out = _launch((qr, qi), a * p * s, c, "corner_turn_planes")
+        corner_turn_planes.launches += 1
+        return out.view(c, 2 * a, p * s)
     if qr.device.type == "cpu":
         return corner_turn_planes_reference(qr, qi)
     raise ValueError(f"corner_turn_planes: unsupported device {qr.device}")
@@ -105,5 +135,28 @@ def corner_turn_planes_x(qr: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
     return corner_turn_planes(qr, qi).view(c, 2 * a * p, s)
 
 
-#: Kernel launches since the last reset (the plain CPU version never counts).
+def corner_turn_plane_native(q: torch.Tensor) -> torch.Tensor:
+    """Turn ONE native F plane into the split beamform operand (K8 on CUDA).
+
+    ``q``: ``[A, P, S, rows, lanes]`` int8 (channel ``k = row·lanes + lane``,
+    row-major: a view of K1's ``[A, P, S, C]`` output) or ``[A, P, S, C]``.
+    Returns ``[C, A, P·S]`` int8, ``out[c, a, p·S + s] = q[a, p, s, c]`` —
+    one operand of
+    :func:`~dpdk_dc_sand_tpu_torch.ops.beamform.beamform_turned_split`.
+    """
+    if q.ndim not in (4, 5):
+        raise ValueError(f"plane {tuple(q.shape)}: want [A, P, S, rows, lanes] or [A, P, S, C]")
+    a, p, s = q.shape[:3]
+    c = math.prod(q.shape[3:])
+    if q.device.type == "cuda":
+        out = _launch((q,), a * p * s, c, "corner_turn_plane_native")
+        corner_turn_plane_native.launches += 1
+        return out.view(c, a, p * s)
+    if q.device.type == "cpu":
+        return corner_turn_plane_native_reference(q)
+    raise ValueError(f"corner_turn_plane_native: unsupported device {q.device}")
+
+
+#: Kernel launches since the last reset (the plain CPU versions never count).
 corner_turn_planes.launches = 0
+corner_turn_plane_native.launches = 0

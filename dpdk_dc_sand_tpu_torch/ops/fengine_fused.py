@@ -16,7 +16,8 @@ with the same rounding points:
 4. half-output stage B against the row-stacked ``[cos; -sin]`` ``[N2, N2]``
    matrix, f32 accumulation, keeping ``k2 < N2/2``: bin ``k = k2·N1 + k1``;
 5. the fine-delay rotation (requant gain folded into the planes),
-   ``rint``, clip to ±127, int8.
+   ``rint``, clip to ±127, int8 — or, with ``quantise=False`` (the
+   channelisation qualification's output), the rotated f32 values.
 
 Products of bf16 values are exact in f32, so the bf16 mode differs from the
 reference only by the order of f32 additions.
@@ -201,12 +202,14 @@ def fengine_fused_reference(
     n1: int,
     n2: int,
     dft_dtype: str = "bfloat16",
+    quantise: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1, at K1's rounding points.
 
     ``x`` ``[B, n_in]`` int8 streams, ``starts`` ``[B]`` window starts
     (already clamped), ``window`` ``[taps, fft]`` f32, ``rotc``/``rots``
-    ``[B, C]``. Returns int8 ``(qr, qi)`` ``[B, n_spectra, C]``.
+    ``[B, C]``. Returns int8 ``(qr, qi)`` ``[B, n_spectra, C]``, or with
+    ``quantise=False`` the rotated f32 values before the requant.
     """
     n_taps, fft = window.shape
     batch = x.shape[0]
@@ -235,6 +238,8 @@ def fengine_fused_reference(
     rs = rots.reshape(batch, 1, c)
     outr = re * rc - im * rs
     outi = re * rs + im * rc
+    if not quantise:
+        return outr, outi
 
     def q(v):
         return torch.round(v).clamp(-127.0, 127.0).to(torch.int8)
@@ -253,6 +258,7 @@ def _launch(
     n1: int,
     n2: int,
     dft_dtype: str,
+    quantise: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     n_taps, fft = window.shape
     if fft > MAX_KERNEL_FFT:
@@ -278,7 +284,8 @@ def _launch(
     dev = x.device
     k = dft_constants(n1, n2, str(dev))
     kbf = _dft_bf16(n1, n2, str(dev))
-    outr = torch.empty((batch, n_spectra, fft // 2), dtype=torch.int8, device=dev)
+    out_dtype = torch.int8 if quantise else torch.float32
+    outr = torch.empty((batch, n_spectra, fft // 2), dtype=out_dtype, device=dev)
     outi = torch.empty_like(outr)
     lib = _build.library()
     err = lib.fengine_ct_launch(
@@ -287,7 +294,7 @@ def _launch(
         k.twc.data_ptr(), k.tws.data_ptr(),
         rotc.data_ptr(), rots.data_ptr(),
         outr.data_ptr(), outi.data_ptr(),
-        batch, n_spectra, n_taps, n1, n2, int(dft_dtype == "bfloat16"),
+        batch, n_spectra, n_taps, n1, n2, int(dft_dtype == "bfloat16"), int(quantise),
         *(t.data_ptr() for t in kbf),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -475,7 +482,9 @@ def fengine_fused(
     ``phase``). ``deint`` picks the form as the reference does
     (:func:`_deint_mode`); the DIT form takes aligned frames only, and its
     rotation planes from ``frac_delay`` / ``phase``. Returns int8
-    ``(qr, qi)`` ``[*lead, n_spectra, n_channels]``.
+    ``(qr, qi)`` ``[*lead, n_spectra, n_channels]``; ``quantise=False``
+    (direct-CT form only, as in the reference) returns the rotated f32
+    values instead, the output the channelisation qualification measures.
     """
     if dft_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"unknown dft_dtype {dft_dtype!r}")
@@ -512,11 +521,6 @@ def fengine_fused(
         )
         shape = (*lead, n_frames - n_taps + 1, n_channels)
         return qr.reshape(shape), qi.reshape(shape)
-    if not quantise:
-        raise NotImplementedError(
-            "quantise=False (the f32 qualification output of the direct-CT "
-            "kernel) is not ported yet (see ROADMAP.md)"
-        )
     if rowed:
         *lead, rows_in, n2f = frames.shape
         if n2f != n2:
@@ -559,7 +563,7 @@ def fengine_fused(
         for r in rot_planes
     )
     win = window.to(device=dev, dtype=torch.float32)
-    kw = dict(n_spectra=n_spectra, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    kw = dict(n_spectra=n_spectra, n1=n1, n2=n2, dft_dtype=dft_dtype, quantise=quantise)
     if dev.type == "cuda":
         qr, qi = _launch(x, starts, win.contiguous(), rotc, rots, **kw)
     elif dev.type == "cpu":

@@ -71,8 +71,10 @@ def test_gates_match_the_reference(a, p, s, c):
 
 
 def test_native_planes_raise_naming_roadmap():
+    """5-d native planes go one at a time to ``corner_turn_plane_native``
+    (K8): the two-plane turn refuses them, as the reference's does."""
     q = torch.zeros((2, 2, 128, 8, 128), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="corner_turn_plane_native"):
         ct.corner_turn_planes(q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         m = torch.zeros((2, 2, 128, 128), dtype=torch.int8, device="meta")

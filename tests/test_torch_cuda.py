@@ -8,7 +8,8 @@ runs on a machine without it:
 
 It covers the small geometries the flagship run in ``chip_smoke.py`` does
 not (N1 = 8 and 16, other beam counts, odd input counts, ragged tiles, FIR
-shapes off every tile boundary, the launch counters).
+shapes off every tile boundary, the launch counters), K8 at ragged shapes
+and K1's unquantised (f32) output.
 """
 
 import numpy as np
@@ -93,6 +94,24 @@ def test_engine_on_the_card_matches_the_plain_engine(dev):
 
 def _int8(rng, shape):
     return torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8))
+
+
+@pytest.mark.parametrize("shape", [(4, 2, 128, 8, 128), (8, 2, 128, 64, 128), (3, 1, 5, 100),
+                                   (5, 2, 7, 64), (2, 2, 9, 3, 40)])
+def test_k8_kernel_matches_plain(dev, shape):
+    """Gated 5-d planes, and ragged ones (rows A·P·S or C not a multiple of 4
+    or of the 64 tile): bit for bit, and K4's half of the same plane."""
+    rng = np.random.default_rng(sum(shape))
+    q = _int8(rng, shape)
+    before = corner_turn.corner_turn_plane_native.launches
+    got = corner_turn.corner_turn_plane_native(q.to(dev))
+    assert corner_turn.corner_turn_plane_native.launches == before + 1
+    ref = corner_turn.corner_turn_plane_native_reference(q)
+    assert got.is_cuda and torch.equal(got.cpu(), ref)
+    a, p, s = shape[:3]
+    q4 = q.reshape(a, p, s, -1).to(dev)
+    k4 = corner_turn.corner_turn_planes(q4, torch.zeros_like(q4))
+    assert torch.equal(k4[:, :a], got)
 
 
 @pytest.mark.parametrize("a, p, s, c", [(3, 1, 128, 128), (5, 1, 1024, 256), (3, 2, 96, 100),
@@ -248,3 +267,41 @@ def test_xla_engines_on_the_card_match_the_cpu_engines(dev, engine):
     d = (gb.cpu() - rb).abs()
     assert float(d.max()) <= 2.0 + 1e-3
     assert float((d > 1e-3).float().mean()) <= 5e-3
+
+
+@pytest.mark.parametrize("fft, rowed", [(1024, False), (4096, True), (65536, False)])
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+def test_k1_unquantised_kernel_matches_plain(dev, fft, rowed, dft_dtype):
+    """quantise=False: the rotated f32 values. The f32 DFT within rtol 1e-4 /
+    atol 1e-2 of the plain version. The bf16 DFT sums stage A in another
+    order, which flips a few bf16 roundings: below 1 code unit everywhere,
+    within that bound on all but 1e-2 of the samples (measured at fft
+    65536: 0.063, 2.5e-3). The int8 output of the same kernel is the
+    requant of its f32 output, bit for bit."""
+    taps, s, lead = 4, 8, (2, 2)
+    rng = np.random.default_rng(fft + 1)
+    n2 = ff.ingest_alignment(fft)
+    n_in = -(-((s + taps - 1) * fft + 500) // n2) * n2
+    raw = rng.integers(-64, 64, (*lead, n_in), dtype=np.int8)
+    cd = rng.integers(0, 400, lead).astype(np.int32)
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    x = raw.reshape(*lead, -1, n2) if rowed else raw
+    kw = dict(n_channels=fft // 2, quant_scale=1 / 16 * (1024 / fft) ** 0.5,
+              dft_dtype=dft_dtype, coarse_delays=cd, n_spectra=s, rowed=rowed)
+    xd, win = torch.from_numpy(x).to(dev), default_window(taps, fft, dev)
+    before = ff.fengine_fused.launches
+    got = ff.fengine_fused(xd, win, fd, ph, quantise=False, **kw)
+    q8 = ff.fengine_fused(xd, win, fd, ph, **kw)
+    assert ff.fengine_fused.launches == before + 2
+    ref = ff.fengine_fused(torch.from_numpy(x), default_window(taps, fft), fd, ph,
+                           quantise=False, **kw)
+    for g, r, q in zip(got, ref, q8):
+        assert g.is_cuda and g.dtype == torch.float32 and g.shape == r.shape
+        assert torch.equal(torch.round(g).clamp(-127, 127).to(torch.int8), q)
+        d = (g.cpu() - r).abs()
+        over = float((d > 1e-2 + 1e-4 * r.abs()).float().mean())
+        if dft_dtype == "float32":
+            assert over == 0, float(d.max())
+        else:
+            assert float(d.max()) < 1.0 and over <= 1e-2, (float(d.max()), over)

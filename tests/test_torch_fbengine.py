@@ -110,7 +110,8 @@ def test_split_layout_and_beam_requant_follow_natural():
     nat = FBEngine(CFG, n_spectra=S, device="cpu", precision="bf16", beam_layout="natural")
     adc, cd, fd, ph, dv = nat.example_inputs(seed=5, margin=margin, rowed=True)
     packed = nat(adc, cd, fd, ph, dv)
-    split = FBEngine(CFG, n_spectra=S, device="cpu", precision="bf16")(adc, cd, fd, ph, dv)
+    split = FBEngine(CFG, n_spectra=S, device="cpu", precision="bf16",
+                     bstage="fused")(adc, cd, fd, ph, dv)
     p, c, b = CFG.n_pols, CFG.n_channels, CFG.n_beams
     assert split.shape == (p, c, S, b, 2)
     unpacked = packed.reshape(c // 4, p, S, 4, 2, b).permute(1, 0, 3, 2, 5, 4)

@@ -172,6 +172,12 @@ def test_fengine_fused_input_checks():
         ff.fengine_fused(torch.zeros((1, 1, 20, 768), dtype=torch.int8),
                          default_window(TAPS, 768), zero, zero, n_channels=384,
                          quant_scale=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # quantise=False: the rotated f32 values of the direct-CT form; the DIT
+    # form refuses it, as the reference's gate does.
+    fr, fi = ff.fengine_fused(torch.zeros((1, 1, 20, 1024), dtype=torch.int8), win, zero,
+                              zero, n_channels=512, quant_scale=1.0, quantise=False)
+    assert fr.dtype == fi.dtype == torch.float32 and fr.shape == (1, 1, 13, 512)
+    with pytest.raises(ValueError, match="quantise=False"):
         ff.fengine_fused(torch.zeros((1, 1, 20, 1024), dtype=torch.int8), win, zero,
-                         zero, n_channels=512, quant_scale=1.0, quantise=False)
+                         zero, n_channels=512, quant_scale=1.0, quantise=False,
+                         deint="matmul")

@@ -185,8 +185,18 @@ def test_fbengine_turned_bstage_matches_fused(layout):
 
 
 def test_fxbengine_rejects_unported_backends():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FXBEngine(CFG, n_spectra=S, device="cpu", bstage="planar")
+    """``bstage="planar"`` runs through the shared B stage: its beams agree
+    with the turned form's in f32 within rtol 1e-5 / atol 1e-4 (the same
+    products summed in another order, tests/test_models.py:309-325) and the
+    visibilities are the same. An unknown ``vis_precision`` raises."""
+    planar = FXBEngine(CFG, n_spectra=S, device="cpu", bstage="planar")
+    turned = FXBEngine(CFG, n_spectra=S, device="cpu")
+    assert (planar.bstage, turned.bstage) == ("planar", "turned")
+    inputs = planar.example_inputs(seed=6, margin=_margin())
+    (pb, pr, pi), (tb, tr, ti) = planar(*inputs), turned(*inputs)
+    np.testing.assert_allclose(pb.numpy(), tb.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(pr.numpy(), tr.numpy())
+    np.testing.assert_array_equal(pi.numpy(), ti.numpy())
     with pytest.raises(ValueError, match="vis_precision"):
         FXBEngine(CFG, n_spectra=S, device="cpu", vis_precision="f16")
 

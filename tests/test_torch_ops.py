@@ -187,10 +187,25 @@ def test_build_without_nvcc_raises_naming_nvcc(monkeypatch, tmp_path):
     ids=["planar", "folded", "turned", "geometry"],
 )
 def test_fbengine_rejects_unported_backends(kw):
+    """Every B form runs, and at S = 24 (outside K2's and K4's reference
+    gates) ``"auto"`` resolves ``"planar"``; an explicit ``"turned"`` there
+    raises. Each form agrees with the turned form (S = 64) or the folded
+    one (S = 24) in f32 within rtol 1e-5 / atol 1e-4: the same products
+    summed in another order (tests/test_models.py:251-263)."""
     cfg = ArrayConfig(n_ants=4, n_channels=512, n_beams=16, n_taps=4)
-    kw = {"n_spectra": 64, **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FBEngine(cfg, device="cpu", **kw)
+    kw = {"n_spectra": 64, "precision": "f32", **kw}
+    if kw.get("bstage") == "turned":
+        with pytest.raises(NotImplementedError, match="geometry"):
+            FBEngine(cfg, device="cpu", **kw)
+        return
+    fb = FBEngine(cfg, device="cpu", **kw)
+    assert fb.bstage == kw.get("bstage", "planar")
+    ref = FBEngine(cfg, device="cpu", **{
+        **kw, "bstage": "turned" if kw["n_spectra"] == 64 else "folded"})
+    inputs = fb.example_inputs(seed=4, margin=1024)
+    got, want = fb(*inputs), ref(*inputs)
+    assert got.shape == (cfg.n_pols, cfg.n_channels, kw["n_spectra"], cfg.n_beams, 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("engine", ["FEngine", "FBEngine", "FXBEngine", "XEngine"])
