@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships.
+"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships, E1 and the engine node.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
 
@@ -92,6 +92,33 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    of the same kernel equal to the requant of its f32 output; kernel and
    plain ms.
 
+16. e1    — the example ``dpdk_dc_sand_tpu_torch.examples.vector_add`` under
+   ``PipelineTest`` at n = 1 << 22 (its report printed; E1's launch count from
+   it), then E1 through ``vector_add`` vs its plain ``x + y`` at 1 << 22 and
+   1 << 28, bit-exact; kernel, plain and ``torch.add(out=)`` times at 1 << 28,
+   bound 12n bytes over 3.35 TB/s;
+17. node  — ``EngineNode`` at the flagship array (80 x 32768 x 16 x 16, S=256,
+   int8 beams with ``beam_quant_scale`` 0.25, 3 page-locked ring slots) with
+   ADC made on the card from a seed and copied to the host once; the delay
+   model and 16 beams' steering sent through ``Client``; 12 chunks committed
+   in place through the ring's write side (``acquire_write`` /
+   ``commit_write``, each slot filled once), 4 more under torch.profiler, 6
+   through ``submit_chunk`` (the producer copies each chunk). Fails unless
+   ``chunks-processed`` is 22, ``chunks-lost`` 0, ``device-status`` ok, no
+   error ``#log``, K1 and K4 launched once a chunk, every H2D from a pinned
+   slot on the feed's own stream, and the beams of chunks 1 and 11 equal
+   ``node.fb.step`` on the same chunk bit for bit. Prints the decomposition:
+   compute-only step, node Msamples/s both ways, H2D GB/s, the beams' D2H
+   and the device idle share;
+18. node_udp — the node at benchmarks/NODE_RATE.json's geometry (16 ant x 4096
+   ch x 8 beams x 8 taps, S=64) through loopback SPEAD-lite UDP ingest and
+   int8 UDP beam egress, 4 chunks, every sender paced to 1 Gbps, with ``?delay-model``, ``?beam-delays``
+   with a phase rate (steering re-extrapolated every chunk) and
+   ``?sensor-value`` through ``Client``; then again with
+   ``emit_visibilities=True`` and ``UdpVisEgress``. Every heap must arrive,
+   the sensors agree, the last beam heap equal ``fb.step`` and the last
+   visibility dump the sum of its two steps' visibilities.
+
 Every kernel in the ``kernels`` line carries its bound: the larger of the
 bytes it must move over 3.35 TB/s and each type of operation over the
 card's peak for it (bf16 989, f32 67 TFLOP/s, int8 1979 TOP/s), from this
@@ -112,7 +139,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k2", "engine", "flagship", "corner_turn", "xcorr",
           "fxb_engine", "fxb_flagship", "fir", "fengine_dit", "f_flagship", "bforms",
-          "qualification")
+          "qualification", "e1", "node", "node_udp")
 SEED = 2021
 #: F requant gain for fft 65536 on uniform +-64 noise: 1/16 (the reference
 #: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
@@ -1380,6 +1407,390 @@ def phase_qualification(st: dict) -> None:
                     f32_out_subset_f32dft_ms=out["float32"]["ms"])
 
 
+def phase_e1(st: dict) -> None:
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.examples.vector_add import VectorAddTest
+    from dpdk_dc_sand_tpu_torch.ops import vector_add as va
+
+    # The path: the example under the PipelineTest harness, counted from 0.
+    va.vector_add.launches = 0
+    times = VectorAddTest(1 << 22).run_test(iters=3)
+    st["e1_launches"] = va.vector_add.launches
+    for line in times.report().splitlines():
+        log(f"e1 example [n = 1 << 22, {st['card']}] {line}")
+    if not times.passed or st["e1_launches"] < 1:
+        raise AssertionError(f"the example failed or never launched E1 ({st['e1_launches']})")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for log2n in (22, 28):
+        n = 1 << log2n
+        x = torch.randn(n, device=dev, generator=gen)
+        y = torch.randn(n, device=dev, generator=gen)
+        err = _exact(f"e1 [n = 1 << {log2n}]", (va.vector_add(x, y),),
+                     (va.vector_add_reference(x, y),))
+    out = torch.empty_like(x)
+    ms = cuda_ms(lambda: va.vector_add(x, y), iters=20)
+    plain_ms = cuda_ms(lambda: va.vector_add_reference(x, y), iters=20)
+    library_ms = cuda_ms(lambda: torch.add(x, y, out=out), iters=20)
+    b = bound(12 * n, f32=n)  # read x and y, write the sum; one add each
+    log(f"e1 [n = 1 << 28]: kernel {ms:.3f} ms ({12 * n / ms / 1e9:.2f} TB/s), plain "
+        f"{plain_ms:.3f} ms, torch.add(out=) {library_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+        f"({st['card']})")
+    st["e1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+
+
+#: The node phases. ``node``: the flagship array through ``EngineNode`` with
+#: NODE_SLOTS page-locked ring slots: NODE_IN_PLACE chunks committed in place
+#: (the slots filled once, as a NIC's DMA would fill them), NODE_PROFILED more
+#: under torch.profiler, then NODE_COPIED copied into a slot by the producer.
+#: ``node_udp``: benchmarks/NODE_RATE.json's scaled geometry through loopback
+#: SPEAD-lite UDP ingest and int8 UDP egress, UDP_CHUNKS chunks a run.
+NODE_SLOTS = 3
+NODE_IN_PLACE, NODE_PROFILED, NODE_COPIED = 12, 4, 6
+UDP_CFG = dict(n_ants=16, n_channels=4096, n_beams=8, n_taps=8)
+UDP_S = 64
+UDP_CHUNKS = 4
+#: Every UDP sender of ``node_udp`` is paced to this rate: a heap (18.6 MB of
+#: ADC, 8.4 MB of beams, 33.6 MB of visibilities) is larger than a socket
+#: buffer, and an unpaced loopback burst overruns the receiver.
+UDP_GBPS = 1.0
+#: Where the node phases build their nodes and each wait's deadline (s).
+NODE_DEVICE = "cuda"
+NODE_TIMEOUT = 120.0
+
+
+async def _until(cond, what, timeout=NODE_TIMEOUT):
+    import asyncio
+
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"timed out waiting for {what}")
+        await asyncio.sleep(0.005)
+
+
+async def _node_sensors(client) -> dict:
+    vals = {}
+    for name in ("chunks-processed", "chunks-lost", "device-status"):
+        _, informs = await client.request("sensor-value", name)
+        vals[name] = informs[0].args[4]
+    return vals
+
+
+def _check_node(tag, sensors, n_submitted, logs):
+    """Fail unless every chunk was processed, none lost, the device is ok
+    and no error #log went out."""
+    want = {"chunks-processed": str(n_submitted), "chunks-lost": "0", "device-status": "ok"}
+    errors = [a for a in logs if a and a[0] in ("error", "fatal")]
+    log(f"{tag} sensors: {sensors}; #log errors: {len(errors)}")
+    if sensors != want or errors:
+        raise AssertionError(f"{tag}: sensors {sensors} (want {want}), errors {errors[:3]}")
+
+
+def _union_ms(spans) -> float:
+    """Length in ms of the union of (start, end) intervals given in us."""
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return (busy + cur_e - cur_s) / 1e3
+
+
+def _busy_share(torch, prof):
+    """(device busy ms, kernel busy ms, window ms): the union of the device's
+    kernel, copy and fill intervals, that of its kernels alone, and the span
+    from the first to the last of them."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = [(s, e) for s, e, name in spans if not name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel on the device")
+    window = (max(e for _, e, _ in spans) - spans[0][0]) / 1e3
+    return _union_ms([(s, e) for s, e, _ in spans]), _union_ms(kernels), window
+
+
+def phase_node(st: dict) -> None:
+    import asyncio
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.control import Client
+    from dpdk_dc_sand_tpu_torch.engine_node import EngineNode
+    from dpdk_dc_sand_tpu_torch.ops import corner_turn as ct, fengine_fused as ff
+
+    cfg = ArrayConfig(**FLAG)
+    node = EngineNode(cfg, n_spectra=FLAG_S, beam_quant_scale=0.25, ring_slots=NODE_SLOTS,
+                      engine_opts=dict(quant_scale=QUANT_SCALE), device=NODE_DEVICE)
+    fb, dev = node.fb, node.device
+    samples = cfg.n_ants * cfg.n_pols * FLAG_S * cfg.fft_size  # per chunk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    adc_dev = torch.empty(node.chunk_shape, dtype=torch.int8, device=dev)
+    adc_dev.random_(-64, 64, generator=gen)
+    flat = adc_dev.cpu().numpy().reshape(-1).view(np.uint8)  # to the host once
+    nbytes = flat.nbytes
+    log(f"node [80 ant x 32768 ch x 16 beams x 16 taps, S=256]: F {fb.fengine}, B "
+        f"{fb.bstage}, chunk {node.chunk_shape} = {nbytes / 1e9:.3f} GB (margin "
+        f"{node.margin}, budget {node.delay_budget}), {NODE_SLOTS} slots, pinned "
+        f"{node.ring.pinned}")
+    rng = np.random.default_rng(SEED + 6)
+    dm = np.zeros((cfg.n_ants, 4))
+    dm[:, 0] = rng.integers(0, node.delay_budget + 1, cfg.n_ants)
+    dm[:, 1] = rng.uniform(-0.5, 0.5, cfg.n_ants)
+    dm[:, 2] = -np.pi * dm[:, 1] / 2
+    dv = np.zeros((cfg.n_beams, cfg.n_ants, 4))
+    dv[..., 0] = rng.uniform(0, 5e-9, dv.shape[:-1])
+    dv[..., 2] = rng.uniform(-np.pi, np.pi, dv.shape[:-1])
+    n_a, n_p = NODE_IN_PLACE, NODE_IN_PLACE + NODE_PROFILED
+    n_all = n_p + NODE_COPIED
+    keep = (1, n_a - 1)  # the chunks whose beams are held against fb.step
+    arrivals, kept, fills = {}, {}, [0]
+
+    def on_beams(beams, seq):
+        arrivals[seq] = time.perf_counter()
+        if seq in keep:
+            kept[seq] = beams
+
+    node.on_beams = on_beams
+
+    def wait_slot(cond):
+        deadline = time.monotonic() + NODE_TIMEOUT
+        while not cond():
+            if time.monotonic() > deadline:
+                raise TimeoutError("the node's ring stayed full")
+            time.sleep(2e-4)
+
+    def commit_in_place(seqs):  # the ring's write side, as a NIC's DMA uses it
+        for seq in seqs:
+            wait_slot(lambda: len(node.ring) < node.ring.n_slots)
+            buf = node.ring.acquire_write()
+            if fills[0] < node.ring.n_slots:  # each slot is filled once
+                buf[:nbytes] = flat
+                fills[0] += 1
+            node.ring.commit_write(nbytes, seq)
+
+    def submit_copies(seqs):  # the producer copies each chunk into a slot
+        for seq in seqs:
+            wait_slot(lambda: len(node.ring) < node.ring.n_slots)
+            if not node.submit_chunk(flat, seq):
+                raise AssertionError(f"chunk {seq} dropped")
+
+    async def scenario():
+        await node.start()
+        client = await Client("127.0.0.1", node.port).connect()
+        logs = []
+        client.on_inform(lambda m: logs.append(m.args) if m.name == "log" else None)
+        try:
+            await client.request("delay-model", *dm.ravel())
+            for b in range(cfg.n_beams):
+                await client.request("beam-delays", b, *dv[b].ravel())
+            ff.fengine_fused.launches = ct.corner_turn_planes.launches = 0
+            await asyncio.to_thread(commit_in_place, range(n_a))
+            await _until(lambda: len(arrivals) >= n_a, "the in-place chunks' beams")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                await asyncio.to_thread(commit_in_place, range(n_a, n_p))
+                await _until(lambda: len(arrivals) >= n_p, "the profiled chunks' beams")
+            await asyncio.to_thread(submit_copies, range(n_p, n_all))
+            await _until(lambda: len(arrivals) >= n_all, "the copied chunks' beams")
+            launches = {"k1": ff.fengine_fused.launches, "k4": ct.corner_turn_planes.launches}
+            await _until(lambda: int(node.s_processed.value) >= n_all, "the sensors")
+            return await _node_sensors(client), logs, launches, prof
+        finally:
+            await client.close()
+            await node.stop()
+
+    sensors, logs, launches, prof = asyncio.run(scenario())
+    _check_node("node", sensors, n_all, logs)
+    log(f"node launches over {n_all} chunks: {launches}")
+    if launches != {"k1": n_all, "k4": n_all}:
+        raise AssertionError(f"the node's steps did not run K1 and K4 once each: {launches}")
+    feed = node.feed
+    if feed.pinned_copies != n_all or feed.stream is None or feed.stream == node.stream:
+        raise AssertionError(f"H2D not from pinned slots on the feed's stream: pinned "
+                             f"{feed.pinned_copies} of {n_all}, stream {feed.stream}")
+    want = fb.step(adc_dev, node._coarse, node._frac, node._phase).cpu().numpy()
+    for seq in keep:
+        if not np.array_equal(kept[seq], want):
+            raise AssertionError(f"the node's beams of chunk {seq} are not fb.step's")
+    log(f"node beams of chunks {keep}: equal to fb.step on the same chunk, bit for bit "
+        f"({want.dtype} {want.shape})")
+
+    # The decomposition.
+    def rate(a, b):  # Msamples/s from the beam arrivals of chunks a..b
+        return (b - a) * samples / (arrivals[b] - arrivals[a]) / 1e6
+
+    in_place = rate(4, n_a - 1)  # the slots are full after chunk 3
+    copied = rate(n_p + 1, n_all - 1)
+    h2d = [nb / ms / 1e6 for nb, ms in feed.h2d_log]
+    step_ms = cuda_ms(lambda: fb.step(adc_dev, node._coarse, node._frac, node._phase))
+    beams = fb.step(adc_dev, node._coarse, node._frac, node._phase)
+    # The node's copy back (a fresh pageable tensor each step), and beside
+    # it the same bytes into one page-locked buffer reused (not the node's).
+    pinned_out = torch.empty(beams.shape, dtype=beams.dtype, pin_memory=True)
+    d2h, d2h_pinned = [], []
+    for _ in range(3):
+        for out, copy in ((d2h, beams.cpu), (d2h_pinned, lambda: pinned_out.copy_(beams))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            copy()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    busy, kernel_busy, window = _busy_share(torch, prof)
+    st["node"] = dict(
+        step_ms=step_ms, compute_msps=samples / step_ms / 1e3, in_place_msps=in_place,
+        copied_msps=copied, h2d_gbps=float(np.median(h2d)), d2h_ms=float(np.median(d2h)),
+        d2h_pinned_ms=float(np.median(d2h_pinned)), idle=1 - busy / window,
+        kernel_idle=1 - kernel_busy / window, chunk_gb=nbytes / 1e9, beams_mb=beams.numel() / 1e6,
+    )
+    n = st["node"]
+    log(f"node decomposition ({st['card']}): compute-only step {step_ms:.3f} ms "
+        f"({n['compute_msps']:.1f} Msamples/s); node, slots committed in place "
+        f"{in_place:.1f} Msamples/s ({samples / in_place / 1e3:.3f} ms a chunk); node, producer copying each chunk {copied:.1f} "
+        f"Msamples/s; H2D on the copy stream median {n['h2d_gbps']:.2f} GB/s "
+        f"(min {min(h2d):.2f}, max {max(h2d):.2f}, {len(h2d)} copies of "
+        f"{n['chunk_gb']:.3f} GB); D2H of the beams ({n['beams_mb']:.1f} MB int8, "
+        f"pageable) median {n['d2h_ms']:.3f} ms (into one reused page-locked buffer "
+        f"{n['d2h_pinned_ms']:.3f} ms); device idle share over the "
+        f"{NODE_PROFILED} profiled chunks {100 * n['idle']:.2f}% with neither a kernel "
+        f"nor a copy ({busy:.1f} of {window:.1f} ms busy), {100 * n['kernel_idle']:.2f}% "
+        f"without a kernel ({kernel_busy:.1f} ms of kernels)")
+
+
+def phase_node_udp(st: dict) -> None:
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.control import Client
+    from dpdk_dc_sand_tpu_torch.engine_node import EngineNode
+    from dpdk_dc_sand_tpu_torch.ops import corner_turn as ct, fengine_fused as ff, xcorr as xc
+    from dpdk_dc_sand_tpu_torch.stream import Chunk, ChunkRing, UdpReceiver, UdpSender
+
+    cfg = ArrayConfig(**UDP_CFG)
+    n_in = cfg.n_ants * cfg.n_pols
+    rng = np.random.default_rng(SEED + 7)
+    dm = np.zeros((cfg.n_ants, 4))
+    dm[:, 0] = rng.integers(0, 65, cfg.n_ants)
+    dm[:, 1] = rng.uniform(-0.5, 0.5, cfg.n_ants)
+    dm[:, 2] = -np.pi * dm[:, 1] / 2
+    poly = np.zeros((cfg.n_ants, 4))
+    poly[:, 2], poly[:, 3] = 0.5, 0.8e3  # phase 0.5 rad, rate 800 rad/s
+
+    def one_run(emit_visibilities):
+        tag = "node_udp " + ("FXB" if emit_visibilities else "FB")
+        node = EngineNode(cfg, n_spectra=UDP_S, beam_quant_scale=0.25, ring_slots=4,
+                          coeff_update_steps=1, emit_visibilities=emit_visibilities,
+                          vis_accum_steps=2, engine_opts=dict(quant_scale=1 / 32),
+                          device=NODE_DEVICE)
+        chunks = [rng.integers(-64, 64, node.chunk_shape, dtype=np.int8)
+                  for _ in range(UDP_CHUNKS)]
+        beam_bytes = cfg.n_pols * cfg.n_channels * UDP_S * cfg.n_beams * 2  # int8
+        vis_bytes = cfg.n_channels * n_in * n_in * 2 * 4
+        rings = [ChunkRing(4, beam_bytes + 64), ChunkRing(4, vis_bytes + 64)]
+        rxs, got = [], [{}, {}]
+
+        def drain(i):
+            while (item := rings[i].acquire_read()) is not None:
+                view, seq = item
+                got[i][seq] = UdpReceiver.unpack(view).payload.copy()
+                rings[i].release_read()
+            return got[i]
+
+        async def scenario():
+            tx = client = None
+            logs = []
+            try:
+                rxs.append(UdpReceiver(("127.0.0.1", 0), rings[0]).start())
+                node.attach_udp_egress(("127.0.0.1", rxs[0].port), rate_gbps=UDP_GBPS)
+                if emit_visibilities:
+                    rxs.append(UdpReceiver(("127.0.0.1", 0), rings[1]).start())
+                    node.attach_udp_vis_egress(("127.0.0.1", rxs[1].port), rate_gbps=UDP_GBPS)
+                adc_rx = node.attach_udp_ingest()
+                await node.start()
+                tx = UdpSender(("127.0.0.1", adc_rx.port), rate_gbps=UDP_GBPS)
+                client = await Client("127.0.0.1", node.port).connect()
+                client.on_inform(lambda m: logs.append(m.args) if m.name == "log" else None)
+                await client.request("delay-model", *dm.ravel())
+                await client.request("beam-delays", 0, *poly.ravel())
+                for seq, adc in enumerate(chunks):  # one heap in flight at a time
+                    t0 = time.perf_counter()
+                    tx.send_chunk(Chunk(adc.reshape(-1).view(np.uint8), seq=seq,
+                                        timestamp=seq * node.fb.samples_in))
+                    await _until(lambda: seq in drain(0), f"{tag} beam heap {seq}")
+                    log(f"{tag} chunk {seq}: {adc.nbytes / 1e6:.1f} MB in, "
+                        f"{len(got[0][seq]) / 1e6:.1f} MB of beams back in "
+                        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+                if emit_visibilities:
+                    await _until(lambda: len(drain(1)) == UDP_CHUNKS // 2, f"{tag} dumps")
+                await _until(lambda: int(node.s_processed.value) >= UDP_CHUNKS, "the sensors")
+                sensors = await _node_sensors(client)
+                _, informs = await client.request("sensor-value", "ingest-rate-gbps")
+                log(f"{tag} ingest-rate-gbps {informs[0].args[4]}")
+                return sensors, logs
+            finally:
+                if client is not None:
+                    await client.close()
+                if tx is not None:
+                    tx.close()
+                await node.stop()
+                for rx in rxs:
+                    rx.stop()
+
+        counts = (ff.fengine_fused, ct.corner_turn_planes, xc.correlate_planes_fused)
+        for fn in counts:
+            fn.launches = 0
+        sensors, logs = asyncio.run(scenario())
+        launches = [fn.launches for fn in counts]
+        _check_node(tag, sensors, UDP_CHUNKS, logs)
+        # Heaps that never completed, at the node's ADC receiver and at each
+        # consumer; the dumps' heap ids step by the window, so only the
+        # ADC and beam streams are held to no heap-id gap as well.
+        lost = [rx.assembler.incomplete_dropped for rx in (node._udp_rx, *rxs)]
+        lost += [node._udp_rx.assembler.stats.lost, rxs[0].assembler.stats.lost]
+        dumps = list(range(0, UDP_CHUNKS, 2)) if emit_visibilities else []
+        if sorted(got[0]) != list(range(UDP_CHUNKS)) or sorted(got[1]) != dumps or any(lost):
+            raise AssertionError(f"{tag}: beam heaps {sorted(got[0])}, dumps {sorted(got[1])}, "
+                                 f"heaps lost {lost}")
+        # At S = 64 the reference's X dispatch takes the plain grams (K5a's
+        # and K3's gates need S % 128 == 0), so K3 stays at 0 here.
+        log(f"{tag} launches K1, K4, K3: {launches}")
+        if launches != [UDP_CHUNKS, UDP_CHUNKS, 0]:
+            raise AssertionError(f"{tag}: launches {launches}")
+        # The last chunk's beams (steering re-extrapolated every chunk, so
+        # the engine's cache holds the last chunk's) and the last dump.
+        last = torch.from_numpy(chunks[-1]).to(node.device)
+        out = node.fb.step(last, node._coarse, node._frac, node._phase)
+        beams = out[0] if emit_visibilities else out
+        if not np.array_equal(got[0][UDP_CHUNKS - 1].view(np.int8),
+                              beams.cpu().numpy().reshape(-1)):
+            raise AssertionError(f"{tag}: the last beam heap is not fb.step's beams")
+        if emit_visibilities:
+            vre = vim = 0
+            for adc in chunks[-2:]:
+                _, r, i = node.fb.step(torch.from_numpy(adc).to(node.device), node._coarse,
+                                       node._frac, node._phase)
+                vre, vim = vre + r, vim + i
+            vis = np.stack([vre.cpu().numpy(), vim.cpu().numpy()], axis=-1)
+            if not np.array_equal(got[1][UDP_CHUNKS - 2].view("<f4"), vis.reshape(-1)):
+                raise AssertionError(f"{tag}: the last visibility dump is not the sum of "
+                                     "its steps' visibilities")
+        log(f"{tag}: {UDP_CHUNKS} ADC heaps of {chunks[0].nbytes / 1e6:.1f} MB in, every "
+            f"beam heap{' and visibility dump' if emit_visibilities else ''} out; last "
+            "heap equal to fb.step")
+
+    log(f"node_udp [16 ant x 4096 ch x 8 beams x 8 taps, S=64] ({st['card']})")
+    one_run(False)
+    one_run(True)
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -1406,7 +1817,8 @@ def main() -> int:
     # launches: each kernel's count from the run of its path (phase 6 for the
     # F+B step, phase 10 for the FXB step, phase 8 for the two-pass X path,
     # phase 12 for the DIT F form, phase 13 for the F-engine step, phase 14
-    # for the native-handoff F+B step).
+    # for the native-handoff F+B step, phase 16 for the example under
+    # PipelineTest).
     kernels = [
         dict(name="fengine_ct", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
@@ -1439,6 +1851,9 @@ def main() -> int:
              source="dpdk_dc_sand_tpu_torch/csrc/corner_turn.cu",
              replaces="dpdk_dc_sand_tpu/ops/corner_turn.py:123", path="fb_native_flagship",
              launches=st["k8_launches"], **st["k8"]),
+        dict(name="vector_add", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/vector_add.cu",
+             replaces="examples/vector_add_pallas.py:24", path="examples/vector_add",
+             launches=st["e1_launches"], **st["e1"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

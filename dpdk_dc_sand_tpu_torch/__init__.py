@@ -41,4 +41,8 @@ def __getattr__(name):
         from dpdk_dc_sand_tpu_torch import models
 
         return getattr(models, name)
+    if name == "EngineNode":
+        from dpdk_dc_sand_tpu_torch.engine_node import EngineNode
+
+        return EngineNode
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -92,6 +92,10 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I,  # batch, n_frames, n_taps, n1, n2, bf16
         _P,  # stream
     ],
+    "vector_add_launch": [
+        _P, _P, _P, _L,  # x, y, out (f32), n
+        _P,  # stream
+    ],
 }
 
 

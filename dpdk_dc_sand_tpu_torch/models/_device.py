@@ -16,3 +16,12 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
             'device="cpu" to run on the CPU'
         )
     return torch.device("cuda")
+
+
+def indexed(device: torch.device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` is the current card. A
+    worker thread's current device is its own, so a thread that launches
+    work sets it from this."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

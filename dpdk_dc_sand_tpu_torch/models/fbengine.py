@@ -68,6 +68,7 @@ from dpdk_dc_sand_tpu_torch.ops.coeff_gen import (
 )
 from dpdk_dc_sand_tpu_torch.ops.fengine_fused import (
     _deint_mode,
+    _split_ct,
     fengine_fused,
     fine_rotation_planes,
     ingest_alignment,
@@ -86,14 +87,16 @@ def resolve_backends(
 
     The hand-written kernels always run, so the reference's "Pallas
     available" condition is always true here: ``fengine`` resolves to
-    ``"fused"`` (``"xla"``, the composed chain, only when asked for);
+    ``"fused"`` where the engine's fused F form (K1's direct-CT split)
+    takes the fft, else to ``"xla"``, the composed chain — as the
+    reference's ``fused_supported`` gate sends small ffts to it;
     ``bstage`` to ``"fused"`` for natural beams when the reference's K2
     gate takes the geometry, else ``"turned"`` when the corner turn's does,
     else ``"fused"`` when K2's does, else ``"planar"``.
     Explicit choices pass through unchanged.
     """
     if fengine == "auto":
-        fengine = "fused"
+        fengine = "fused" if _split_ct(cfg.fft_size) is not None else "xla"
     if bstage == "auto":
         fused_ok = reference_fused_gate(
             cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_beams, cfg.n_channels

@@ -305,3 +305,94 @@ def test_k1_unquantised_kernel_matches_plain(dev, fft, rowed, dft_dtype):
             assert over == 0, float(d.max())
         else:
             assert float(d.max()) < 1.0 and over <= 1e-2, (float(d.max()), over)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1023, 4097, (1 << 20) + 2])
+def test_e1_kernel_is_bit_exact_against_plain(dev, n):
+    from dpdk_dc_sand_tpu_torch.ops.vector_add import vector_add, vector_add_reference
+
+    rng = np.random.default_rng(n)
+    x, y = (torch.from_numpy(rng.normal(size=n).astype(np.float32)) for _ in range(2))
+    before = vector_add.launches
+    got = vector_add(x.to(dev), y.to(dev))
+    assert vector_add.launches == before + 1
+    assert torch.equal(got.cpu(), vector_add_reference(x, y))
+    if n > 1:
+        with pytest.raises(ValueError, match="aligned"):
+            vector_add(x.to(dev)[1:], y.to(dev)[1:])
+    assert vector_add(x.to(dev)[:0], y.to(dev)[:0]).numel() == 0
+    assert vector_add.launches == before + 1  # an empty sum launches nothing
+
+
+def test_device_feed_copies_pinned_slots_on_its_own_stream(dev):
+    """The feed copies each slot from page-locked memory on its copy stream,
+    releases the slot after the copy, and keeps its loss and malformed
+    accounting; the delivered tensors hold the slot's bytes."""
+    import queue as _queue
+    import time
+
+    from dpdk_dc_sand_tpu_torch.stream import ChunkRing, DeviceFeed
+
+    ring = ChunkRing(3, 1 << 20, pinned=True)
+    feed = DeviceFeed(ring, reshape=lambda b: b.view(np.int8).reshape(-1, 1024),
+                      device=dev).start()
+    try:
+        sent = {}
+        for seq in (0, 1, 3, 4, 6):
+            data = np.random.default_rng(seq).integers(-128, 128, 1 << 20, dtype=np.int8)
+            n = 1000 if seq == 4 else data.nbytes  # seq 4 is malformed
+            deadline = time.monotonic() + 10
+            while len(ring) == ring.n_slots and time.monotonic() < deadline:
+                time.sleep(1e-3)
+            assert ring.put(data[:n], seq)
+            sent[seq] = data
+        got = []
+        for _ in range(4):
+            try:
+                arr, seq = feed.get(timeout=10)
+            except _queue.Empty:
+                break
+            assert arr.is_cuda and arr.shape == (1024, 1024)
+            got.append(seq)
+            assert torch.equal(arr.cpu().view(-1), torch.from_numpy(sent[seq]))
+        assert got == [0, 1, 3, 6]
+        assert feed.stats.lost == 3 and feed.stats.malformed == 1
+        assert feed.pinned_copies == 4 and len(feed.h2d_log) == 4
+    finally:
+        feed.stop()
+
+
+def test_engine_node_on_the_card_matches_its_engine(dev):
+    """A node on the card: chunks through the pinned ring and the feed give
+    the beams of its engine's step on the same chunk, bit for bit."""
+    import asyncio
+
+    from dpdk_dc_sand_tpu_torch.engine_node import EngineNode
+
+    cfg = ArrayConfig(n_ants=4, n_channels=512, n_beams=4, n_taps=4)
+    out = []
+    node = EngineNode(cfg, n_spectra=128, beam_quant_scale=0.25,
+                      on_beams=lambda b, s: out.append((s, b.copy())))
+    assert node.ring.pinned and node.fb.fengine == "fused"
+    chunks = [np.random.default_rng(s).integers(-64, 64, node.chunk_shape, dtype=np.int8)
+              for s in range(3)]
+
+    async def scenario():
+        await node.start()
+        try:
+            for seq, adc in enumerate(chunks):
+                assert node.submit_chunk(adc, seq)
+            for _ in range(600):
+                if len(out) == 3:
+                    break
+                await asyncio.sleep(0.05)
+        finally:
+            await node.stop()
+
+    asyncio.run(scenario())
+    assert [s for s, _ in out] == [0, 1, 2]
+    assert node.s_processed.value == 3 and node.s_status.value == "ok"
+    z = np.zeros(cfg.n_ants, np.float32)
+    for (_, beams), adc in zip(out, chunks):
+        want = node.fb.step(torch.from_numpy(adc).to(dev), z.astype(np.int32), z, z)
+        assert np.array_equal(beams, want.cpu().numpy())

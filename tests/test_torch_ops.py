@@ -161,8 +161,16 @@ def test_config_matches_reference():
 
 
 def test_port_never_imports_jax_or_the_reference():
+    # Every module of the package, found by walking it, so that a new one
+    # cannot escape the guard.
     code = (
-        "import sys; import dpdk_dc_sand_tpu_torch.models, dpdk_dc_sand_tpu_torch.convert; "
+        "import importlib, pkgutil, sys; import dpdk_dc_sand_tpu_torch as pkg; "
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "want = {'engine_node', 'stream.feed', 'control.protocol', 'utils.timing', "
+        "'examples.full_instrument_demo', 'ops.vector_add', 'models.fbengine', 'convert'}; "
+        "missing = {'dpdk_dc_sand_tpu_torch.' + w for w in want} - set(names); "
+        "assert not missing, missing; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dpdk_dc_sand_tpu')); "
         "assert not bad, bad"
