@@ -11,8 +11,14 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
 3. k1      — K1 (fused F kernel) through its wrapper ``fengine_fused`` vs
    its plain PyTorch version at the flagship fft, taps and S on 8 of the
    160 (antenna, pol) batches, with two coarse delays that clamp: bf16 DFT
-   on flat streams, f32 DFT on the rowed view; within 1 int8 code on
-   <= 1e-3 of samples;
+   on flat streams (K1's two passes), f32 DFT on the rowed view (its SIMT
+   body); within 1 int8 code on <= 1e-3 of samples; K1's FIR pass alone
+   (``k1_fir``) bit-exact against ``k1_fir_reference`` on the same streams.
+   Then above the old 65536 cap: K1 at fft 2^17 and 2^18 (2 batches, 16
+   taps, S=8) against plain with the same bound, and ``FBEngine`` /
+   ``FXBEngine(fengine="auto")`` at 65536 channels (2 ant x 4 beams x 4
+   taps, S=128) on the card against the same engine on the CPU: beams
+   within 2 + 1e-3 and off by more than 1e-3 on <= 5e-3 of them;
 4. k2      — K2 (fused B kernel) through ``beamform_turned_fused`` vs its
    plain version at the flagship C and B with A=8, bf16 and f32 weights:
    rtol 1e-5, atol 1e-3;
@@ -26,7 +32,9 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    and of the packed shape; prints ms/step and Msamples/s. Then the last
    step's beams must equal K2(K1(adc)) through the wrappers, and each
    kernel is held against its plain version at these flagship shapes
-   (K1: 1 code on <= 1e-3; K2: rtol 1e-5, atol 1e-3) and timed beside it.
+   (K1: 1 code on <= 1e-3; K2: rtol 1e-5, atol 1e-3) and timed beside it;
+   K1's FIR pass over all 160 streams bit-exact against its plain version,
+   and each of K1's passes timed alone; the step's peak device memory.
 7. corner_turn — K4 through ``corner_turn_planes`` at A=80, P=2, S=256,
    C=32768 vs its plain version, bit-exact; ``corner_turn_planes_x`` (K5a)
    must be the same bytes viewed as ``[C, 2AP, S]``; kernel and plain times;
@@ -316,7 +324,65 @@ def phase_k1(st: dict) -> None:
             f"plain {pms:.3f} ms ({st['card']})")
         if dt == "bfloat16":
             st["k1_subset"] = dict(subset_ms=ms, subset_plain_ms=pms)
+    _exact(f"k1 FIR pass [{nb} batches x S={s} x fft {fft}]",
+           (ff.k1_fir(x.reshape(nb, -1), starts, win, n_spectra=s),),
+           (ff.k1_fir_reference(x.reshape(nb, -1), starts, win, n_spectra=s),))
+    # Above the old 65536 cap: K1's two passes at N1 x N2 = 512 x 256, 512 x 512
+    # and 1024 x 1024.
+    for big in (1 << 17, 1 << 18, 1 << 20):
+        bn1, bn2 = ff._split_ct(big)
+        bs, bnb = 8, 2
+        bx = torch.randint(-64, 64, (bnb, (bs + taps - 1) * big + 999), dtype=torch.int8,
+                           device=dev, generator=gen)
+        bcd = clamp_starts(torch.tensor([3, 999], device=dev), bx.shape[1],
+                           (bs + taps - 1) * big)  # one start unaligned, one at the end
+        bfd = torch.rand(bnb, device=dev, generator=gen) - 0.5
+        bscale = QUANT_SCALE * (fft / big) ** 0.5  # the codes' rms as at the flagship
+        got = ff.fengine_fused(bx, default_window(taps, big, device=dev), bfd, -1.5 * bfd,
+                               n_channels=big // 2, quant_scale=bscale, coarse_delays=bcd,
+                               n_spectra=bs)
+        brc, brs = (r.reshape(bnb, -1) for r in ff.fine_rotation_planes(
+            bfd, -1.5 * bfd, n_channels=big // 2, quant_scale=bscale))
+        ref = ff.fengine_fused_reference(bx, bcd, default_window(taps, big, device=dev), brc,
+                                         brs, n_spectra=bs, n1=bn1, n2=bn2)
+        torch.cuda.synchronize()
+        worst = max(worst, _code_diff(f"k1 fft {big} [{bnb} batches x S={bs}, {bn1}x{bn2}]",
+                                      got, ref))
     st["k1_subset"]["subset_max_abs_err"] = float(worst)
+    _engines_above_65536(st)
+
+
+def _engines_above_65536(st: dict) -> None:
+    """FBEngine and FXBEngine with fengine="auto" at 65536 channels (fft 2^17):
+    the fused F kernel on the card, held to the same engine on the CPU."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FBEngine, FXBEngine
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+
+    cfg = ArrayConfig(n_ants=2, n_channels=1 << 16, n_beams=4, n_taps=4)
+    for cls in (FBEngine, FXBEngine):
+        kw = dict(n_spectra=128, precision="bf16", quant_scale=1 / 64)
+        gpu = cls(cfg, device=torch.device("cuda"), **kw)
+        cpu = cls(cfg, device="cpu", **kw)
+        name = f"{cls.__name__}(fengine='auto') [A=2 C=65536 B=4 taps=4 S=128]"
+        if gpu.fengine != "fused":
+            raise AssertionError(f"{name} resolved fengine={gpu.fengine!r}")
+        adc, cd, fd, ph, dv = cpu.example_inputs(seed=SEED, margin=1024, rowed=True)
+        before = ff.fengine_fused.launches
+        got = gpu(adc, cd, fd, ph, dv)
+        torch.cuda.synchronize()
+        if ff.fengine_fused.launches != before + 1:
+            raise AssertionError(f"{name} did not run K1 on the card")
+        ref = cpu(adc, cd, fd, ph, dv)
+        gb, rb = (got[0], ref[0]) if cls is FXBEngine else (got, ref)
+        d = (gb.cpu().float() - rb.float()).abs()
+        dmax, frac = float(d.max()), float((d > 1e-3).float().mean())
+        log(f"{name} on the card vs the CPU engine: beams max|d| {dmax:.4f}, "
+            f"frac(|d|>1e-3) {frac:.3e}")
+        if dmax > 2.0 + 1e-3 or frac > 5e-3:
+            raise AssertionError(f"{name} on the card disagrees with the CPU engine")
 
 
 def _planes(torch, a, p, s, c, gen, dev):
@@ -436,8 +502,9 @@ def phase_flagship(st: dict) -> None:
     rows = (fb.samples_in + margin) // n2
     adc = torch.empty((a, p, rows, n2), dtype=torch.int8, device=dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
-    ff.fengine_fused.launches = 0
+    ff.fengine_fused.launches = ff.k1_fir.launches = ff.k1_dft.launches = 0
     bstage.beamform_turned_fused.launches = 0
     times = []
     out = None
@@ -462,7 +529,12 @@ def phase_flagship(st: dict) -> None:
     for _ in range(2):
         timed_step()
     launches = {"k1": ff.fengine_fused.launches, "k2": bstage.beamform_turned_fused.launches}
-    log(f"flagship launches: {launches}")
+    passes = {"k1 FIR pass": ff.k1_fir.launches, "k1 DFT pass": ff.k1_dft.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"flagship launches: {launches}; K1's passes (one each a group of "
+        f"{ff._plane_group(a * p, s, cfg.fft_size)} streams): {passes}")
+    if min(passes.values()) < launches["k1"]:
+        raise AssertionError(f"K1 did not run through its two passes: {passes}")
     if launches["k1"] < 1 or launches["k2"] < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     want = (c // 4, p * s, 128)
@@ -474,7 +546,7 @@ def phase_flagship(st: dict) -> None:
     ms = float(np.median(times[1:]))
     log(f"flagship [80 ant x 32768 ch x 16 beams x 16 taps, S=256]: step ms "
         f"{['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
-        f"{samples / ms / 1e3:.1f} Msamples/s ({st['card']})")
+        f"{samples / ms / 1e3:.1f} Msamples/s, peak memory {peak_gb:.2f} GB ({st['card']})")
     st["launches"] = launches
     st["fb_ms"] = ms
 
@@ -532,8 +604,43 @@ def phase_flagship(st: dict) -> None:
                      f32=nb * s * 2 * taps * fft)
     k2_bound = bound(2 * nb * s * c + c * 2 * a * 2 * cfg.n_beams * 2 + c * p * s * 2 * cfg.n_beams * 4,
                      bf16=2 * c * p * s * 2 * a * 2 * cfg.n_beams)
+    # K1's two passes alone over all 160 streams: the FIR pass bit-exact
+    # against its plain version, then each timed; the split's floor is the
+    # FIR pass's bound (its bytes) plus the DFT pass's (its bf16 operations).
+    plane = ff.k1_fir(x, starts, fb.window, n_spectra=s)
+    for b0 in range(0, nb, 8):
+        b = slice(b0, b0 + 8)
+        if not torch.equal(plane[b], ff.k1_fir_reference(x[b], starts[b], fb.window,
+                                                         n_spectra=s)):
+            raise AssertionError(f"K1's FIR pass differs from plain on streams {b0}..")
+    log(f"flagship k1 FIR pass [{nb} x S={s} x fft {fft}]: bit-exact against plain")
+    fir_ms = cuda_ms(lambda: ff.k1_fir(x, starts, fb.window, n_spectra=s), iters=2)
+    dft_ms = cuda_ms(lambda: ff.k1_dft(plane, rc, rs, n1=n1, n2=n2), iters=2)
+    del plane
+    fir_bound = bound(nb * (s + taps - 1) * fft + taps * fft * 4 + nb * s * fft * 2,
+                      f32=nb * s * 2 * taps * fft)
+    dft_bound = bound(nb * s * fft * 2 + 2 * nb * c * 4 + 2 * nb * s * c,
+                      bf16=nb * s * 2 * (2 * n1 * n1 * n2 + 2 * n2 * n2 * n1))
+    floor_ms = fir_bound["bound_ms"] + dft_bound["bound_ms"]
+    # K1's scratch: the peak of one call above what was allocated before it,
+    # less its two int8 outputs.
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = k1()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - before - sum(
+        o.numel() * o.element_size() for o in outs)
+    del outs
+    log(f"flagship k1 passes: FIR {fir_ms:.3f} ms (bound {fir_bound['bound_ms']:.3f}, "
+        f"{fir_bound['bound_by']}), DFT {dft_ms:.3f} ms (bound {dft_bound['bound_ms']:.3f}, "
+        f"{dft_bound['bound_by']}); sum {fir_ms + dft_ms:.3f} vs K1 {k1_ms:.3f} ms; the split's "
+        f"floor {floor_ms:.3f} ms (the two bounds' sum); K1's scratch {scratch / 1e9:.3f} GB a "
+        f"call (peak over its outputs) ({st['card']})")
     st["k1"] = dict(max_abs_err=float(k1_err), ms=k1_ms, plain_ms=k1_plain_ms, **k1_bound,
-                    library_ms=None, **st["k1_subset"])
+                    library_ms=None, fir_ms=fir_ms, dft_ms=dft_ms, scratch_bytes=scratch,
+                    **st["k1_subset"])
+    st["fb_peak_gb"] = peak_gb
     st["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound,
                     library_ms=None)
 
@@ -1224,7 +1331,7 @@ def phase_bforms(st: dict) -> None:
     ms = float(np.median(times[1:]))
     samples = a * p * s * cfg.fft_size
     split, top = _profile_split(torch, lambda: fb.step(adc, cd, fd, ph), [
-        ("K1 (F)", ("fengine_ct",)), ("K8 (native turn)", ("corner_turn",)),
+        ("K1 (F)", ("fengine_ct", "k1_")), ("K8 (native turn)", ("corner_turn",)),
         ("bmm (cuBLAS)", ("gemm", "cutlass")), ("casts and copies (plain)", ())])
     busy = sum(split.values())
     log("native flagship split (ms, torch.profiler, one step): "

@@ -18,7 +18,9 @@ The library lands in ``_kernel_build/`` next to this file (ignored by git),
 keyed by a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one loads in milliseconds. Every pointer and the stream are
 passed as ``ctypes.c_void_p``; each launch function returns
-``cudaGetLastError()``, which :func:`check` turns into an exception.
+``cudaGetLastError()``, which :func:`check` turns into an exception (K1's
+and K7's return -1 where no shared-memory plan fits the shape, which their
+wrappers raise as ``ValueError``).
 """
 
 from __future__ import annotations
@@ -53,7 +55,20 @@ _SIGNATURES = {
         _P, _P,  # rotc, rots [B, C]
         _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
         _I, _I, _I, _I, _I, _I, _I,  # batch, n_spectra, n_taps, n1, n2, bf16, quantise
-        _P, _P, _P,  # bf16 copies of d1c, d1s, d2
+        _P,  # stream
+    ],
+    "k1_fir_launch": [
+        _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
+        _P,  # plane [B, S, fft] bf16
+        _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft
+        _P,  # stream
+    ],
+    "k1_dft_launch": [
+        _P,  # plane [B, S, N1, N2] bf16
+        _P, _P, _P,  # bf16 d1c, d1s [N1, N1], d2 stack [N2, N2]
+        _P, _P, _P, _P,  # twc, tws [N1, N2], rotc, rots [B, C]
+        _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
+        _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, quantise
         _P,  # stream
     ],
     "bstage_fused_launch": [

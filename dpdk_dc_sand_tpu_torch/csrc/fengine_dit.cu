@@ -29,8 +29,10 @@
 // Design. One block per (spectrum s, stream b), as K1's SIMT body. The
 // four [N1, N2] planes between the stages (even and odd, re and im) do not
 // fit in shared memory at fft 65536 (512 KB in f32), so the block walks k1
-// in chunks of KC rows: stage A for those rows of both streams over all
-// n2, then stage B for those rows over all k2, combine, rotate, write.
+// in chunks of kc rows: stage A for those rows of both streams over all
+// n2, then stage B for those rows over all k2, combine, rotate, write. kc
+// is KC, halved until the chunk's planes fit (16 rows at N2 = 512, 8 at
+// 1024); the launch returns -1 where even 2 rows do not.
 // The FIR is not kept: each stage-A K tile recomputes its [KTA, NTA] slice
 // of both streams from global memory (L2 serves the N1/KC-fold re-read).
 
@@ -41,7 +43,8 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int KC = 32;   // k1 rows per chunk (capped at N1)
+constexpr int KC = 32;   // most k1 rows per chunk (capped at N1; shrinks with N2)
+constexpr size_t MAX_SMEM = 232448;  // what one block may use on sm_90
 constexpr int NTA = 64;  // n2 columns per stage-A output tile (capped at N2)
 constexpr int KTA = 32;  // n1 depth per stage-A K tile (capped at N1)
 constexpr int MTB = 64;  // k2 rows per stage-B output tile (capped at N2)
@@ -62,7 +65,7 @@ struct Params {
   const float* rots;
   int8_t* outr;  // [B, S, N]
   int8_t* outi;
-  int n_frames, n_spectra, n_taps, n1, n2;
+  int n_frames, n_spectra, n_taps, n1, n2, kc;
 };
 
 template <bool BF16>
@@ -103,22 +106,22 @@ __global__ void __launch_bounds__(THREADS) fengine_dit_kernel(Params p) {
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int n1 = p.n1, n2 = p.n2, n = n1 * n2, fft = 2 * n;
-  const int kc = min(KC, n1), kta = min(KTA, n1), nta = min(NTA, n2);
+  const int kc = p.kc, kta = min(KTA, n1), nta = min(NTA, n2);
   const int mtb = min(MTB, n2), ktb = min(KTB, n2);
   const int ts = n2 + 1;  // odd row stride of the T planes
 
   const int8_t* xs = p.x + (static_cast<long long>(b) * p.n_frames + s) * fft;
 
-  float* sAc = smem;               // [KC][KTA]
-  float* sAs = sAc + KC * KTA;     // [KC][KTA]
-  float* sBc = sAs + KC * KTA;     // [MTB][KTB]
+  float* sAc = smem;               // [kc][KTA]
+  float* sAs = sAc + kc * KTA;     // [kc][KTA]
+  float* sBc = sAs + kc * KTA;     // [MTB][KTB]
   float* sBs = sBc + MTB * KTB;    // [MTB][KTB]
   float* sXe = sBs + MTB * KTB;    // [KTA][NTA] even-stream FIR tile
   float* sXo = sXe + KTA * NTA;    // [KTA][NTA] odd
-  float* sTer = sXo + KTA * NTA;   // [KC][ts] even re, then even im, odd re, odd im
-  float* sTei = sTer + KC * ts;
-  float* sTor = sTei + KC * ts;
-  float* sToi = sTor + KC * ts;
+  float* sTer = sXo + KTA * NTA;   // [kc][ts] even re, then even im, odd re, odd im
+  float* sTei = sTer + kc * ts;
+  float* sTor = sTei + kc * ts;
+  float* sToi = sTor + kc * ts;
 
   // Stage-A micro tile: 2 k1 rows x 4 n2 columns, both streams, re and im.
   const int a_tiles = (kc / 2) * (nta / 4);
@@ -263,14 +266,13 @@ __global__ void __launch_bounds__(THREADS) fengine_dit_kernel(Params p) {
   }
 }
 
-size_t smem_bytes(int n2) {
-  return sizeof(float) * (2 * KC * KTA + 2 * MTB * KTB + 2 * KTA * NTA +
-                          4 * KC * static_cast<size_t>(n2 + 1));
+size_t smem_bytes(int n2, int kc) {
+  return sizeof(float) * (2 * kc * KTA + 2 * MTB * KTB + 2 * KTA * NTA +
+                          4 * kc * static_cast<size_t>(n2 + 1));
 }
 
 template <bool BF16>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(p.n2);
+cudaError_t launch(const Params& p, int batch, size_t bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       fengine_dit_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -290,9 +292,13 @@ extern "C" int fengine_dit_launch(
   const int n_spectra = n_frames - n_taps + 1;
   // Shapes the tiling assumes (powers of two, the wrapper's _deint_mode).
   if (n1 < 2 || (n1 & (n1 - 1)) || n2 < 4 || (n2 & (n2 - 1)) || n_taps < 1 ||
-      n_spectra < 1 || batch < 1 || batch > 65535 || smem_bytes(n2) > 232448) {
+      n_spectra < 1 || batch < 1 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int kc = n1 < KC ? n1 : KC;
+  while (kc > 2 && smem_bytes(n2, kc) > MAX_SMEM) kc /= 2;
+  const size_t bytes = smem_bytes(n2, kc);
+  if (bytes > MAX_SMEM) return -1;  // no plan: even a 2-row chunk does not fit
   Params p{static_cast<const int8_t*>(x), static_cast<const float*>(win),
            static_cast<const float*>(d1c), static_cast<const float*>(d1s),
            static_cast<const float*>(d2c), static_cast<const float*>(d2s),
@@ -300,8 +306,9 @@ extern "C" int fengine_dit_launch(
            static_cast<const float*>(untc), static_cast<const float*>(unts),
            static_cast<const float*>(rotc), static_cast<const float*>(rots),
            static_cast<int8_t*>(outr), static_cast<int8_t*>(outi),
-           n_frames, n_spectra, n_taps, n1, n2};
+           n_frames, n_spectra, n_taps, n1, n2, kc};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch<true>(p, batch, st) : launch<false>(p, batch, st);
+  const cudaError_t err =
+      bf16 ? launch<true>(p, batch, bytes, st) : launch<false>(p, batch, bytes, st);
   return static_cast<int>(err);
 }

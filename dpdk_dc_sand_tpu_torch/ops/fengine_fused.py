@@ -22,6 +22,13 @@ with the same rounding points:
 Products of bf16 values are exact in f32, so the bf16 mode differs from the
 reference only by the order of f32 additions.
 
+With bf16 operands and N1 >= 16 (every engine launch) K1 runs as two passes
+over groups of batches: :func:`k1_fir` (steps 1-2 into a bf16 plane
+``[B, S, N1, N2]``, scratch of at most :data:`K1_SCRATCH_BYTES`) and
+:func:`k1_dft` (steps 3-5); their plain versions :func:`k1_fir_reference`
+and :func:`k1_dft_reference` compose to :func:`fengine_fused_reference`.
+f32 operands and N1 = 8 take the kernel's single-pass SIMT body.
+
 Where the direct-CT split does not exist, or the caller names
 ``deint="matmul"`` or ``"bitcast"``, :func:`fengine_fused` takes the
 decimation-in-time form instead (the reference's ``_fengine_kernel``):
@@ -46,9 +53,11 @@ from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
 
 #: N1 (the row count of the frame view) must be a multiple of this.
 _ROW_ALIGN = 8
-#: Largest fft the kernel's shared-memory plan takes (a bf16 [N1, N2] plane
-#: of 128 KB plus staging fits the 227 KB a block may use).
-MAX_KERNEL_FFT = 65536
+#: Most bytes of bf16 FIR plane K1's two passes keep between them: batches
+#: go through in groups whose planes fit (32 flagship streams: 1.07 GB).
+K1_SCRATCH_BYTES = 1 << 30
+#: What a launch function returns where no shared-memory plan fits the shape.
+_NO_PLAN = -1
 
 
 def _split_ct(fft_size: int) -> tuple[int, int] | None:
@@ -143,8 +152,8 @@ def dft_constants(n1: int, n2: int, device: str) -> DftConstants:
 
 @functools.lru_cache(maxsize=16)
 def _dft_bf16(n1: int, n2: int, device: str) -> tuple[torch.Tensor, ...]:
-    """bf16 (round-to-nearest-even) copies of d1c, d1s, d2 for the kernel's
-    tensor-core body."""
+    """bf16 (round-to-nearest-even) copies of d1c, d1s, d2: the operands of
+    K1's DFT pass."""
     k = dft_constants(n1, n2, device)
     return tuple(t.to(torch.bfloat16).contiguous() for t in (k.d1c, k.d1s, k.d2))
 
@@ -191,29 +200,23 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def fengine_fused_reference(
+def k1_fir_reference(
     x: torch.Tensor,
     starts: torch.Tensor,
     window: torch.Tensor,
-    rotc: torch.Tensor,
-    rots: torch.Tensor,
     *,
     n_spectra: int,
-    n1: int,
-    n2: int,
     dft_dtype: str = "bfloat16",
-    quantise: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1, at K1's rounding points.
+) -> torch.Tensor:
+    """Plain version of K1's FIR pass: the FIR plane ``[B, n_spectra, fft]``.
 
     ``x`` ``[B, n_in]`` int8 streams, ``starts`` ``[B]`` window starts
-    (already clamped), ``window`` ``[taps, fft]`` f32, ``rotc``/``rots``
-    ``[B, C]``. Returns int8 ``(qr, qi)`` ``[B, n_spectra, C]``, or with
-    ``quantise=False`` the rotated f32 values before the requant.
+    (already clamped), ``window`` ``[taps, fft]`` f32. The f32 tap-order sum,
+    rounded to bf16 (a bf16 tensor) for ``dft_dtype="bfloat16"``; f32
+    otherwise.
     """
     n_taps, fft = window.shape
     batch = x.shape[0]
-    c = fft // 2
     length = (n_spectra + n_taps - 1) * fft
     xs = torch.stack([x[b, s : s + length] for b, s in enumerate(starts.tolist())])
     frames = xs.reshape(batch, -1, fft).to(torch.float32)
@@ -221,9 +224,28 @@ def fengine_fused_reference(
     acc = frames[:, 0:n_spectra] * w[0]
     for tap in range(1, n_taps):
         acc = acc + frames[:, tap : tap + n_spectra] * w[tap]
+    return acc.to(torch.bfloat16) if dft_dtype == "bfloat16" else acc
+
+
+def k1_dft_reference(
+    plane: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "bfloat16",
+    quantise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1's DFT pass: the FIR plane ``[B, S, fft]`` (as
+    :func:`k1_fir_reference` gives it) and ``rotc``/``rots`` ``[B, C]`` to
+    int8 ``(qr, qi)`` ``[B, S, C]``, or the rotated f32 values with
+    ``quantise=False``."""
+    batch, n_spectra, fft = plane.shape
+    c = fft // 2
     rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
-    k = dft_constants(n1, n2, str(x.device))
-    xm = rnd(acc).reshape(batch, n_spectra, n1, n2)
+    k = dft_constants(n1, n2, str(plane.device))
+    xm = plane.to(torch.float32).reshape(batch, n_spectra, n1, n2)
     ar = torch.matmul(rnd(k.d1c), xm)
     ai = torch.matmul(rnd(k.d1s), xm)
     tr = rnd(ar * k.twc - ai * k.tws)
@@ -247,6 +269,151 @@ def fengine_fused_reference(
     return q(outr), q(outi)
 
 
+def fengine_fused_reference(
+    x: torch.Tensor,
+    starts: torch.Tensor,
+    window: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n_spectra: int,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "bfloat16",
+    quantise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1, at K1's rounding points: the FIR pass's
+    plain version, then the DFT pass's.
+
+    ``x`` ``[B, n_in]`` int8 streams, ``starts`` ``[B]`` window starts
+    (already clamped), ``window`` ``[taps, fft]`` f32, ``rotc``/``rots``
+    ``[B, C]``. Returns int8 ``(qr, qi)`` ``[B, n_spectra, C]``, or with
+    ``quantise=False`` the rotated f32 values before the requant.
+    """
+    plane = k1_fir_reference(x, starts, window, n_spectra=n_spectra, dft_dtype=dft_dtype)
+    return k1_dft_reference(plane, rotc, rots, n1=n1, n2=n2, dft_dtype=dft_dtype,
+                            quantise=quantise)
+
+
+def _plane_group(batch: int, n_spectra: int, fft: int) -> int:
+    """Batches a group of K1's two passes takes: as many bf16 planes as fit
+    :data:`K1_SCRATCH_BYTES` (at least one)."""
+    return max(1, min(batch, K1_SCRATCH_BYTES // (2 * n_spectra * fft)))
+
+
+def _check(what: str, x: torch.Tensor, want) -> None:
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {dtype} on {x.device}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != {shape}")
+
+
+def _no_plan(what: str, n1: int, n2: int, detail: str) -> ValueError:
+    return ValueError(
+        f"{what}: no shared-memory plan for N1 x N2 = {n1} x {n2} within the "
+        f"232,448 bytes a block may use ({detail}; see ROADMAP.md)"
+    )
+
+
+def _fir_pass(x, starts, window, plane) -> None:
+    """K1's FIR pass into ``plane`` ``[B, S, fft]`` bf16 (CUDA tensors,
+    checked by the caller)."""
+    batch, n_spectra, fft = plane.shape
+    lib = _build.library()
+    err = lib.k1_fir_launch(
+        x.data_ptr(), x.stride(0), starts.data_ptr(), window.data_ptr(), plane.data_ptr(),
+        batch, n_spectra, window.shape[0], fft, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "k1_fir")
+    k1_fir.launches += 1
+
+
+def _dft_pass(plane, rotc, rots, outr, outi, *, n1, n2, quantise) -> None:
+    """K1's DFT pass from ``plane`` into ``outr``/``outi`` (CUDA tensors,
+    checked by the caller)."""
+    batch, n_spectra, _ = plane.shape
+    dev = plane.device
+    k = dft_constants(n1, n2, str(dev))
+    kbf = _dft_bf16(n1, n2, str(dev))
+    lib = _build.library()
+    err = lib.k1_dft_launch(
+        plane.data_ptr(), *(t.data_ptr() for t in kbf), k.twc.data_ptr(), k.tws.data_ptr(),
+        rotc.data_ptr(), rots.data_ptr(), outr.data_ptr(), outi.data_ptr(),
+        batch, n_spectra, n1, n2, int(quantise), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err == _NO_PLAN:
+        raise _no_plan("k1_dft", n1, n2, "the T planes of a 16-row chunk and the tile ring")
+    _build.check(lib, err, "k1_dft")
+    k1_dft.launches += 1
+
+
+def k1_fir(
+    x: torch.Tensor,
+    starts: torch.Tensor,
+    window: torch.Tensor,
+    *,
+    n_spectra: int,
+) -> torch.Tensor:
+    """K1's FIR pass alone: the bf16 FIR plane ``[B, n_spectra, fft]`` (the
+    kernel on CUDA, :func:`k1_fir_reference` on CPU). Arguments as the
+    reference's; ``starts`` must be clamped so every read stays in ``x``."""
+    if x.device.type == "cpu":
+        return k1_fir_reference(x, starts, window, n_spectra=n_spectra)
+    if x.device.type != "cuda":
+        raise ValueError(f"k1_fir: unsupported device {x.device}")
+    n_taps, fft = window.shape
+    batch = x.shape[0]
+    _check("k1_fir", x, (
+        ("starts", starts, torch.int64, (batch,)),
+        ("window", window, torch.float32, (n_taps, fft)),
+    ))
+    if x.dtype != torch.int8 or x.dim() != 2 or x.stride(1) != 1:
+        raise ValueError("k1_fir: x must be [B, n_in] int8 with unit sample stride")
+    if window.data_ptr() % 16:
+        window = window.clone()  # the kernel reads the window as float4
+    plane = torch.empty((batch, n_spectra, fft), dtype=torch.bfloat16, device=x.device)
+    _fir_pass(x, starts, window, plane)
+    return plane
+
+
+def k1_dft(
+    plane: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    quantise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's DFT pass alone, bf16 operands: ``plane`` ``[B, S, fft]`` bf16 to
+    ``(qr, qi)`` ``[B, S, C]`` (the kernel on CUDA, :func:`k1_dft_reference`
+    on CPU)."""
+    if plane.device.type == "cpu":
+        return k1_dft_reference(plane, rotc, rots, n1=n1, n2=n2, quantise=quantise)
+    if plane.device.type != "cuda":
+        raise ValueError(f"k1_dft: unsupported device {plane.device}")
+    batch, n_spectra, fft = plane.shape
+    if fft != n1 * n2 or n1 < 16:
+        raise ValueError(f"k1_dft: the pass takes N1 >= 16 and fft = N1*N2, got {n1}, {n2}, {fft}")
+    _check("k1_dft", plane, (
+        ("plane", plane, torch.bfloat16, None),
+        ("rotc", rotc, torch.float32, (batch, fft // 2)),
+        ("rots", rots, torch.float32, (batch, fft // 2)),
+    ))
+    out_dtype = torch.int8 if quantise else torch.float32
+    outr = torch.empty((batch, n_spectra, fft // 2), dtype=out_dtype, device=plane.device)
+    outi = torch.empty_like(outr)
+    _dft_pass(plane, rotc, rots, outr, outi, n1=n1, n2=n2, quantise=quantise)
+    return outr, outi
+
+
+#: Launches of K1's two passes since the last reset (the plain versions never
+#: count); every two-pass K1 call adds one to each per group of batches.
+k1_fir.launches = 0
+k1_dft.launches = 0
+
+
 def _launch(
     x: torch.Tensor,
     starts: torch.Tensor,
@@ -261,44 +428,44 @@ def _launch(
     quantise: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     n_taps, fft = window.shape
-    if fft > MAX_KERNEL_FFT:
-        raise NotImplementedError(
-            f"fft_size {fft} > {MAX_KERNEL_FFT}: the K1 kernel's shared-memory "
-            "plan does not cover it yet (see ROADMAP.md)"
-        )
     batch = x.shape[0]
-    want = (
+    _check("fengine_fused", x, (
         ("x", x, torch.int8, None),
         ("starts", starts, torch.int64, (batch,)),
         ("window", window, torch.float32, (n_taps, fft)),
         ("rotc", rotc, torch.float32, (batch, fft // 2)),
         ("rots", rots, torch.float32, (batch, fft // 2)),
-    )
-    for name, t, dtype, shape in want:
-        if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"fengine_fused: {name} must be contiguous {dtype} on {x.device}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"fengine_fused: {name} shape {tuple(t.shape)} != {shape}")
+    ))
     if window.data_ptr() % 16:
         window = window.clone()  # the kernel reads the window as float4
     dev = x.device
-    k = dft_constants(n1, n2, str(dev))
-    kbf = _dft_bf16(n1, n2, str(dev))
     out_dtype = torch.int8 if quantise else torch.float32
     outr = torch.empty((batch, n_spectra, fft // 2), dtype=out_dtype, device=dev)
     outi = torch.empty_like(outr)
-    lib = _build.library()
-    err = lib.fengine_ct_launch(
-        x.data_ptr(), x.stride(0), starts.data_ptr(),
-        window.data_ptr(), k.d1c.data_ptr(), k.d1s.data_ptr(), k.d2.data_ptr(),
-        k.twc.data_ptr(), k.tws.data_ptr(),
-        rotc.data_ptr(), rots.data_ptr(),
-        outr.data_ptr(), outi.data_ptr(),
-        batch, n_spectra, n_taps, n1, n2, int(dft_dtype == "bfloat16"), int(quantise),
-        *(t.data_ptr() for t in kbf),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(lib, err, "fengine_ct")
+    if dft_dtype == "bfloat16" and n1 >= 16:
+        # Two passes over groups of batches through one bf16 plane of scratch.
+        group = _plane_group(batch, n_spectra, fft)
+        plane = torch.empty((group, n_spectra, fft), dtype=torch.bfloat16, device=dev)
+        for b0 in range(0, batch, group):
+            b = slice(b0, min(batch, b0 + group))
+            p = plane[: b.stop - b0]
+            _fir_pass(x[b], starts[b], window, p)
+            _dft_pass(p, rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2, quantise=quantise)
+    else:
+        k = dft_constants(n1, n2, str(dev))
+        lib = _build.library()
+        err = lib.fengine_ct_launch(
+            x.data_ptr(), x.stride(0), starts.data_ptr(),
+            window.data_ptr(), k.d1c.data_ptr(), k.d1s.data_ptr(), k.d2.data_ptr(),
+            k.twc.data_ptr(), k.tws.data_ptr(),
+            rotc.data_ptr(), rots.data_ptr(),
+            outr.data_ptr(), outi.data_ptr(),
+            batch, n_spectra, n_taps, n1, n2, int(dft_dtype == "bfloat16"), int(quantise),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err == _NO_PLAN:
+            raise _no_plan("fengine_fused", n1, n2, "the f32 T planes of a 2-row chunk")
+        _build.check(lib, err, "fengine_ct")
     fengine_fused.launches += 1
     return outr, outi
 
@@ -387,22 +554,13 @@ def fengine_dit_reference(
 def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
     batch, n_frames, fft = x.shape
     n_taps = window.shape[0]
-    if fft > MAX_KERNEL_FFT:
-        raise NotImplementedError(
-            f"fft_size {fft} > {MAX_KERNEL_FFT}: the K7 kernel's shared-memory "
-            "plan does not cover it yet (see ROADMAP.md)"
-        )
     want = (
         ("frames", x, torch.int8, None),
         ("window", window, torch.float32, (n_taps, fft)),
         ("rotc", rotc, torch.float32, (batch, fft // 2)),
         ("rots", rots, torch.float32, (batch, fft // 2)),
     )
-    for name, t, dtype, shape in want:
-        if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"fengine_dit: {name} must be contiguous {dtype} on {x.device}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"fengine_dit: {name} shape {tuple(t.shape)} != {shape}")
+    _check("fengine_dit", x, want)
     if x.data_ptr() % 2:
         x = x.clone()  # the kernel reads sample pairs as char2
     if window.data_ptr() % 16:
@@ -419,6 +577,8 @@ def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
         batch, n_frames, n_taps, n1, n2, int(dft_dtype == "bfloat16"),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    if err == _NO_PLAN:
+        raise _no_plan("fengine_dit", n1, n2, "the four f32 T planes of a 2-row chunk")
     _build.check(lib, err, "fengine_dit")
     fengine_dit.launches += 1
     return outr, outi

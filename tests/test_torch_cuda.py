@@ -8,8 +8,9 @@ runs on a machine without it:
 
 It covers the small geometries the flagship run in ``chip_smoke.py`` does
 not (N1 = 8 and 16, other beam counts, odd input counts, ragged tiles, FIR
-shapes off every tile boundary, the launch counters), K8 at ragged shapes
-and K1's unquantised (f32) output.
+shapes off every tile boundary, the launch counters), K8 at ragged shapes,
+K1's unquantised (f32) output, K1's FIR pass alone, and K1, K7 and the
+engines above fft 65536.
 """
 
 import numpy as np
@@ -396,3 +397,137 @@ def test_engine_node_on_the_card_matches_its_engine(dev):
     for (_, beams), adc in zip(out, chunks):
         want = node.fb.step(torch.from_numpy(adc).to(dev), z.astype(np.int32), z, z)
         assert np.array_equal(beams, want.cpu().numpy())
+
+
+@pytest.mark.parametrize("fft, taps, s, batch", [(1024, 4, 9, 3), (65536, 16, 130, 2),
+                                                 (1 << 17, 20, 3, 2), (2048, 8, 300, 1)])
+def test_k1_fir_pass_is_bit_exact_against_plain(dev, fft, taps, s, batch):
+    """K1's FIR pass: flat streams and the rowed view's same bytes, coarse
+    delays that clamp at both ends and unaligned starts (byte loads), runs
+    longer than a block's, taps above the register ring: bit for bit."""
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+
+    rng = np.random.default_rng(fft + taps)
+    out_len = (s + taps - 1) * fft
+    n_in = -(-(out_len + 1000) // 512) * 512
+    raw = torch.from_numpy(rng.integers(-128, 128, (batch, n_in), dtype=np.int8))
+    cd = torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int64))
+    cd[0] = -7
+    cd[-1] = n_in
+    if batch > 2:
+        cd[1] = 3  # an unaligned start that does not clamp
+    starts = clamp_starts(cd, n_in, out_len)
+    win = default_window(taps, fft)
+    before = ff.k1_fir.launches
+    for x in (raw, raw.reshape(batch, -1, 512).reshape(batch, -1)):
+        got = ff.k1_fir(x.to(dev), starts.to(dev), win.to(dev), n_spectra=s)
+        assert got.dtype == torch.bfloat16 and got.shape == (batch, s, fft)
+        assert torch.equal(got.cpu(), ff.k1_fir_reference(x, starts, win, n_spectra=s))
+    assert ff.k1_fir.launches == before + 2
+
+
+@pytest.mark.parametrize("fft", [1 << 17, 1 << 18, 1 << 20])
+@pytest.mark.parametrize("quantise", [True, False])
+def test_k1_two_pass_kernel_above_65536_matches_plain(dev, fft, quantise):
+    """bf16 K1 beyond the old cap (N1 x N2 = 512 x 256, 512 x 512, 1024 x
+    1024): int8 within 1 code on <= 1e-3 of samples; f32 output below 1 code
+    unit everywhere and within rtol 1e-4 / atol 1e-2 on all but 1e-2.
+
+    A code flips where the kernel's and the plain version's f32 sums of
+    stage A round a T value to different bf16 neighbours; the flipped share
+    grows with the codes' magnitude and with N1, the length of those sums.
+    The gain keeps the codes near 50 rms, the flagship's level
+    (chip_smoke.py's QUANT_SCALE)."""
+    taps, s, lead = 4, 3, (1, 2)
+    rng = np.random.default_rng(fft + quantise)
+    n2 = ff.ingest_alignment(fft)
+    n_in = -(-((s + taps - 1) * fft + 500) // n2) * n2
+    raw = rng.integers(-64, 64, (*lead, n_in), dtype=np.int8)
+    cd = rng.integers(0, 500, lead).astype(np.int32)
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    kw = dict(n_channels=fft // 2, quant_scale=0.068 * (1024 / fft) ** 0.5,
+              coarse_delays=cd, n_spectra=s, quantise=quantise)
+    before = (ff.fengine_fused.launches, ff.k1_fir.launches, ff.k1_dft.launches)
+    got = ff.fengine_fused(torch.from_numpy(raw).to(dev), default_window(taps, fft, dev),
+                           fd, ph, **kw)
+    assert (ff.fengine_fused.launches, ff.k1_fir.launches, ff.k1_dft.launches) == tuple(
+        b + 1 for b in before)
+    ref = ff.fengine_fused(torch.from_numpy(raw), default_window(taps, fft), fd, ph, **kw)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape and g.dtype == r.dtype
+        if quantise:
+            _codes_close(g.cpu(), r)
+        else:
+            d = (g.cpu() - r).abs()
+            over = float((d > 1e-2 + 1e-4 * r.abs()).float().mean())
+            assert float(d.max()) < 1.0 and over <= 1e-2, (float(d.max()), over)
+
+
+@pytest.mark.parametrize("fft", [1 << 17, 1 << 18])
+def test_k1_f32_kernel_above_65536_matches_plain(dev, fft):
+    """The SIMT body (f32 DFT operands) with its chunk shrunk to fit: within
+    1 code on <= 1e-3 of samples."""
+    taps, s, lead = 4, 2, (1, 2)
+    rng = np.random.default_rng(fft + 3)
+    frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    kw = dict(n_channels=fft // 2, quant_scale=1 / 16 * (1024 / fft) ** 0.5,
+              dft_dtype="float32")
+    before = (ff.fengine_fused.launches, ff.k1_dft.launches)
+    got = ff.fengine_fused(torch.from_numpy(frames).to(dev), default_window(taps, fft, dev),
+                           fd, ph, **kw)
+    assert (ff.fengine_fused.launches, ff.k1_dft.launches) == (before[0] + 1, before[1])
+    ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
+    for g, r in zip(got, ref):
+        _codes_close(g.cpu(), r)
+
+
+def test_k7_kernel_at_fft_2_17_matches_plain(dev):
+    """K7 (deint="matmul", 256 x 256 half-length streams) above the old cap."""
+    fft, taps, s, lead = 1 << 17, 4, 2, (1, 2)
+    rng = np.random.default_rng(7)
+    frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    kw = dict(n_channels=fft // 2, quant_scale=1 / 16 * (1024 / fft) ** 0.5,
+              deint="matmul")
+    before = ff.fengine_dit.launches
+    got = ff.fengine_fused(torch.from_numpy(frames).to(dev), default_window(taps, fft, dev),
+                           fd, ph, **kw)
+    assert ff.fengine_dit.launches == before + 1
+    ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
+    for g, r in zip(got, ref):
+        _codes_close(g.cpu(), r)
+
+
+@pytest.mark.parametrize("engine", [FBEngine, FXBEngine])
+def test_auto_engines_at_fft_2_17_step_on_the_card_and_match_the_cpu_engine(dev, engine):
+    """fengine="auto" at 65536 channels resolves to the fused F kernel, as
+    the reference resolves it, and steps on the card: beams within the CPU
+    engine's flip bound (FXB: visibilities exactly the gram of the card's
+    own F planes)."""
+    cfg = ArrayConfig(n_ants=2, n_channels=1 << 16, n_beams=4, n_taps=4)
+    kw = dict(n_spectra=128, precision="bf16", quant_scale=1 / 64)
+    gpu = engine(cfg, device=dev, **kw)
+    cpu = engine(cfg, device="cpu", **kw)
+    assert gpu.fengine == cpu.fengine == "fused"
+    adc, cd, fd, ph, dv = cpu.example_inputs(seed=17, margin=1024, rowed=True)
+    before = ff.fengine_fused.launches
+    got = gpu(adc, cd, fd, ph, dv)
+    assert ff.fengine_fused.launches == before + 1
+    ref = cpu(adc, cd, fd, ph, dv)
+    gb, rb = (got[0], ref[0]) if engine is FXBEngine else (got, ref)
+    d = (gb.cpu().float() - rb.float()).abs()
+    assert float(d.max()) <= 2.0 + 1e-3
+    assert float((d > 1e-3).float().mean()) <= 5e-3
+    if engine is FXBEngine:
+        n_in = cfg.n_ants * cfg.n_pols
+        qr, qi = ff.fengine_fused(
+            torch.as_tensor(adc, device=dev).reshape(cfg.n_ants, cfg.n_pols, -1), gpu.window,
+            None, None, n_channels=cfg.n_channels, quant_scale=1 / 64,
+            coarse_delays=torch.as_tensor(cd, device=dev)[:, None].expand(cfg.n_ants, 2),
+            n_spectra=128, rot_planes=gpu._fine_rot(fd, ph))
+        for g, r in zip(got[1:], xcorr.correlate_planes_fused_reference(qr.cpu(), qi.cpu())):
+            assert g.shape == (cfg.n_channels, n_in, n_in) and torch.equal(g.cpu(), r)

@@ -181,3 +181,142 @@ def test_fengine_fused_input_checks():
         ff.fengine_fused(torch.zeros((1, 1, 20, 1024), dtype=torch.int8), win, zero,
                          zero, n_channels=512, quant_scale=1.0, quantise=False,
                          deint="matmul")
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+def test_plain_k1_matches_jax_kernel_at_fft_2_17(dft_dtype):
+    """Above the old 65536 cap (N1 x N2 = 512 x 256): one batch, two spectra,
+    four taps, a coarse delay, as the JAX kernel computes them."""
+    fft, taps, s = 1 << 17, 4, 2
+    rng = np.random.default_rng(17)
+    n2 = ff.ingest_alignment(fft)
+    margin = jfp.coarse_margin_samples(fft, taps, s, True)
+    n_in = -(-((s + taps - 1) * fft + margin + 300) // n2) * n2
+    raw = rng.integers(-64, 64, (1, 1, n_in), dtype=np.int8)
+    cd = np.array([[123]], np.int32)
+    fd = np.array([[0.3]], np.float32)
+    ph = np.array([[-0.2]], np.float32)
+    scale = 1 / 16 * (1024 / fft) ** 0.5
+    jr, ji = jfp.fengine_fused(
+        jnp.asarray(raw), j_default_window(taps, fft), jnp.asarray(fd), jnp.asarray(ph),
+        n_channels=fft // 2, quant_scale=scale, dft_dtype=dft_dtype, interpret=True,
+        ct_batch_a=True, rolling=True, coarse_delays=jnp.asarray(cd), n_spectra=s,
+    )
+    qr, qi = ff.fengine_fused(
+        torch.from_numpy(raw), default_window(taps, fft), fd, ph, n_channels=fft // 2,
+        quant_scale=scale, dft_dtype=dft_dtype, coarse_delays=torch.from_numpy(cd),
+        n_spectra=s,
+    )
+    assert qr.shape == (1, 1, s, fft // 2)
+    _codes_close(qr.numpy(), jr)
+    _codes_close(qi.numpy(), ji)
+
+
+def _k1_reference_before_the_split(x, starts, window, rotc, rots, *, n_spectra, n1, n2,
+                                   dft_dtype, quantise):
+    """The plain K1 as one function, as it stood before its two passes had
+    plain versions of their own."""
+    n_taps, fft = window.shape
+    batch = x.shape[0]
+    c = fft // 2
+    length = (n_spectra + n_taps - 1) * fft
+    xs = torch.stack([x[b, s : s + length] for b, s in enumerate(starts.tolist())])
+    frames = xs.reshape(batch, -1, fft).to(torch.float32)
+    w = window.to(torch.float32)
+    acc = frames[:, 0:n_spectra] * w[0]
+    for tap in range(1, n_taps):
+        acc = acc + frames[:, tap : tap + n_spectra] * w[tap]
+    rnd = ff._round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
+    k = ff.dft_constants(n1, n2, str(x.device))
+    xm = rnd(acc).reshape(batch, n_spectra, n1, n2)
+    ar = torch.matmul(rnd(k.d1c), xm)
+    ai = torch.matmul(rnd(k.d1s), xm)
+    tr = rnd(ar * k.twc - ai * k.tws)
+    ti = rnd(ar * k.tws + ai * k.twc)
+    d2 = rnd(k.d2)
+    yr = torch.matmul(d2, tr.transpose(-1, -2))
+    yi = torch.matmul(d2, ti.transpose(-1, -2))
+    h = n2 // 2
+    re = (yr[..., :h, :] - yi[..., h:, :]).reshape(batch, n_spectra, c)
+    im = (yi[..., :h, :] + yr[..., h:, :]).reshape(batch, n_spectra, c)
+    outr = re * rotc.reshape(batch, 1, c) - im * rots.reshape(batch, 1, c)
+    outi = re * rots.reshape(batch, 1, c) + im * rotc.reshape(batch, 1, c)
+    if not quantise:
+        return outr, outi
+    return tuple(torch.round(v).clamp(-127.0, 127.0).to(torch.int8) for v in (outr, outi))
+
+
+def _k1_operands(fft, taps, s, batch, seed):
+    rng = np.random.default_rng(seed)
+    n_in = (s + taps - 1) * fft + 777
+    x = torch.from_numpy(rng.integers(-128, 128, (batch, n_in), dtype=np.int8))
+    starts = torch.from_numpy(rng.integers(0, 778, batch).astype(np.int64))
+    rc, rs = (torch.from_numpy(rng.normal(0, 0.05, (batch, fft // 2)).astype(np.float32))
+              for _ in range(2))
+    return x, starts, default_window(taps, fft), rc, rs
+
+
+@pytest.mark.parametrize("fft", [1024, 4096, 65536])
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("quantise", [True, False])
+def test_k1_reference_is_its_two_passes_and_unchanged(fft, dft_dtype, quantise):
+    """The plain K1 is its FIR pass's plain version then its DFT pass's, and
+    gives the bytes the one-function version gave."""
+    taps, s, batch = 4, 3, 2
+    x, starts, win, rc, rs = _k1_operands(fft, taps, s, batch, fft + len(dft_dtype))
+    n1, n2 = ff._split_ct(fft)
+    kw = dict(n_spectra=s, n1=n1, n2=n2, dft_dtype=dft_dtype, quantise=quantise)
+    got = ff.fengine_fused_reference(x, starts, win, rc, rs, **kw)
+    plane = ff.k1_fir_reference(x, starts, win, n_spectra=s, dft_dtype=dft_dtype)
+    assert plane.dtype == (torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32)
+    assert plane.shape == (batch, s, fft)
+    parts = ff.k1_dft_reference(plane, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype,
+                                quantise=quantise)
+    before = _k1_reference_before_the_split(x, starts, win, rc, rs, **kw)
+    for g, p, b in zip(got, parts, before):
+        assert g.dtype == (torch.int8 if quantise else torch.float32)
+        assert torch.equal(g, p) and torch.equal(g, b)
+
+
+@pytest.mark.parametrize("taps", [1, 4, 16, 20])
+def test_k1_fir_reference_is_the_pfb_fir_of_each_window(taps):
+    """The FIR pass's plain version is K6's plain FIR over each stream's own
+    window of frames (unaligned starts), rounded to bf16 as the DFT operand."""
+    from dpdk_dc_sand_tpu_torch.ops.pfb_fir import pfb_fir_reference
+
+    fft, s, batch = 2048, 5, 3
+    x, starts, win, _, _ = _k1_operands(fft, taps, s, batch, taps)
+    f32 = ff.k1_fir_reference(x, starts, win, n_spectra=s, dft_dtype="float32")
+    bf = ff.k1_fir_reference(x, starts, win, n_spectra=s)
+    for b, st in enumerate(starts.tolist()):
+        frames = x[b, st : st + (s + taps - 1) * fft].reshape(1, -1, fft)
+        want = pfb_fir_reference(frames, win)[0]
+        assert torch.equal(f32[b], want)
+        assert torch.equal(bf[b], want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("batch, s, fft, want", [
+    (160, 256, 65536, 32),  # the flagship: 32 streams' planes, 1.07 GB
+    (5, 256, 65536, 5),
+    (4, 8, 1 << 20, 4),
+    (3, 4096, 1 << 20, 1),  # one plane is more than the scratch: one at a time
+])
+def test_k1_plane_group_bounds_the_scratch(batch, s, fft, want):
+    group = ff._plane_group(batch, s, fft)
+    assert group == want
+    assert group == 1 or group * s * fft * 2 <= ff.K1_SCRATCH_BYTES
+
+
+def test_k1_pass_wrappers_take_the_plain_versions_on_cpu():
+    fft, taps, s = 4096, 4, 3
+    x, starts, win, rc, rs = _k1_operands(fft, taps, s, 2, 5)
+    n1, n2 = ff._split_ct(fft)
+    launches = (ff.k1_fir.launches, ff.k1_dft.launches, ff.fengine_fused.launches)
+    plane = ff.k1_fir(x, starts, win, n_spectra=s)
+    assert torch.equal(plane, ff.k1_fir_reference(x, starts, win, n_spectra=s))
+    for g, r in zip(ff.k1_dft(plane, rc, rs, n1=n1, n2=n2),
+                    ff.k1_dft_reference(plane, rc, rs, n1=n1, n2=n2)):
+        assert torch.equal(g, r)
+    assert (ff.k1_fir.launches, ff.k1_dft.launches, ff.fengine_fused.launches) == launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        ff.k1_fir(x.to("meta"), starts, win, n_spectra=s)
