@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships, E1 and the engine node.
+"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships, E1, the engine node and the probes.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
 
@@ -126,6 +126,23 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    ``emit_visibilities=True`` and ``UdpVisEgress``. Every heap must arrive,
    the sensors agree, the last beam heap equal ``fb.step`` and the last
    visibility dump the sum of its two steps' visibilities.
+19. probes — the JAX package's five probe scripts, ported
+   (``dpdk_dc_sand_tpu_torch.benchmarks``), each at its own full geometry
+   and held against its plain version first: P5 (``ct_ablate``: K1 cut at
+   dma, fir, stagea, stageb and K1 itself, 160 streams x S=256, checked on 8
+   streams with the window scaled to keep each stop in int8 range, dma and
+   fir bit-exact, the rest within 1 code on <= 1e-3; dma and fir bit-exact
+   on the timed run's last 8 streams, K1's last group), P4
+   (``dma_bisect``: the dma stop from three layouts, S=128, bit-exact), P2
+   (``fused_ablate``: K7 cut at seven stops, 8 streams x S=64; bit-exact up
+   to deint, 1 code after), P3 (``fir_probe``: both loop orders, bit-exact;
+   its device time by torch.profiler, as its kernel is shorter than a Python
+   launch; its shared-memory load rate and a cuDNN depthwise ``conv1d``
+   yardstick) and P1 (``ct_kernel_probe``: the script's tilings and turns
+   whose spectra chunk divides S=128, and both minor-antenna modes; bit-exact;
+   ``permute().contiguous()`` as the yardstick). Every stop or mode is timed
+   by the chained 2-vs-6 marginal with its launch counters reset just before;
+   a counter left at 0 fails the run.
 
 Every kernel in the ``kernels`` line carries its bound: the larger of the
 bytes it must move over 3.35 TB/s and each type of operation over the
@@ -147,7 +164,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k2", "engine", "flagship", "corner_turn", "xcorr",
           "fxb_engine", "fxb_flagship", "fir", "fengine_dit", "f_flagship", "bforms",
-          "qualification", "e1", "node", "node_udp")
+          "qualification", "e1", "node", "node_udp", "probes")
 SEED = 2021
 #: F requant gain for fft 65536 on uniform +-64 noise: 1/16 (the reference
 #: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
@@ -1898,6 +1915,225 @@ def phase_node_udp(st: dict) -> None:
     one_run(True)
 
 
+#: The probes' geometries: P5 at the flagship's S (its stops split phase 6's
+#: K1), P4 and P1 at their scripts' default S, P2 at its default S on 8
+#: streams (as phase 12 runs K7).
+PROBE_S5, PROBE_S4, PROBE_S2, PROBE_STREAMS2, PROBE_S1 = 256, 128, 64, 8, 128
+#: The window's scale in the checks of P5's and P2's stops: their values a
+#: few codes at the FIR, tens at stage B (tests/test_torch_probes.py).
+PROBE_P5_SCALE = {"dma": 1 / 64, "fir": 1 / 64, "stagea": 1 / 256, "stageb": 1 / 1024,
+                  "full": 1 / 256}
+PROBE_P2_SCALE = {"dma": 1 / 64, "conv": 1 / 64, "fir": 1 / 64, "deint": 1 / 64,
+                  "stagea": 1 / 64, "stageb": 1 / 256, "full": 1 / 64}
+
+
+def _probe_path(counters, run):
+    """Drive one probe's path with its launch counters at 0 (``counters``:
+    (wrapper, attribute) pairs); return what it returned and the counts it
+    left, failing if any counter stayed at 0."""
+    import torch
+
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    out = run()
+    torch.cuda.synchronize()
+    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters}
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel of the probe's path never launched: {counts}")
+    return out, counts
+
+
+def phase_probes(st: dict) -> None:
+    """P1-P5 at their own full geometries through the port's probe modules."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.benchmarks import ct_ablate, ct_kernel_probe as ctp
+    from dpdk_dc_sand_tpu_torch.benchmarks import dma_bisect, fir_probe as fp, fused_ablate
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    card = st["card"]
+    probes = {}
+
+    # P5: K1 cut after each stage at the flagship's 160 streams, S = 256, so
+    # that its stops split phase 6's K1; held against plain on 8 streams.
+    s5, fft, taps = PROBE_S5, ct_ablate.FFT, ct_ablate.TAPS
+    # The check runs 8 streams of the probe's data with the window scaled so
+    # that each stop's values stay in int8 range (the probe's own standard-
+    # normal window puts stage B near 2^12, where one bf16 rounding of T
+    # that another f32 order flips moves a code by tens).
+    chk = ct_ablate.make_inputs(s5, dev, batch=8)
+    win = chk["wina"]
+    err = 0.0
+    for stop in ct_ablate.STOPS:
+        chk["wina"] = win * PROBE_P5_SCALE[stop]
+        got, ref = ct_ablate.call(stop, chk), ct_ablate.reference(stop, chk)
+        tag = f"p5 {stop} [8 streams x S={s5}, window x {PROBE_P5_SCALE[stop]}]"
+        err = max(err, _exact(tag, got, ref) if stop in ("dma", "fir") else
+                  _code_diff(tag, got, ref))
+    del chk, win, got, ref
+    inp = ct_ablate.make_inputs(s5, dev)
+    nb, c = inp["fr"].shape[0], fft // 2
+    last = slice(nb - 8, nb)  # the last of K1's groups of 32 streams
+    for stop in ("dma", "fir"):
+        _exact(f"p5 {stop} [streams {nb - 8}..{nb - 1} of {nb} x S={s5}]",
+               tuple(g[last] for g in ct_ablate.call(stop, inp)),
+               ct_ablate.reference(stop, inp, last))
+    ms5, counts5 = _probe_path(
+        [(ff.fengine_fused, "ablate_launches"), (ff.k1_fir, "launches"), (ff.k1_dft, "launches")],
+        lambda: {stop: ct_ablate.run_variant(stop, s5, 16, inp=inp) for stop in ct_ablate.STOPS})
+    plain5 = cuda_ms(lambda: ct_ablate.reference("full", inp, slice(0, 8)), iters=1)
+    n1 = n2 = ct_ablate.N1
+    k1_bound = bound(nb * (s5 + taps - 1) * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s5 * c,
+                     bf16=nb * s5 * 2 * (2 * n1 * n1 * n2 + 2 * n2 * n2 * n1),
+                     f32=nb * s5 * 2 * taps * fft)
+    steps = list(ms5.items())
+    split = ", ".join(f"{b} +{ms - ma:.3f}" for (_, ma), (b, ms) in zip(steps, steps[1:]))
+    log(f"p5 [{nb} streams x S={s5}, fft {fft}] ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms5.items()) + f"; steps: {split}; full vs phase 6's K1 "
+        f"{st['k1']['ms']:.3f} ms; plain (full, 8 streams) {plain5:.3f} ms; launches {counts5}; "
+        f"bound {k1_bound['bound_ms']:.3f} ms ({k1_bound['bound_by']}) ({card})")
+    probes["p5"] = dict(ms=ms5["full"], ms_by_stop=ms5, plain_ms=plain5, plain_streams=8,
+                        max_abs_err=err, launches=sum(counts5.values()), launches_by=counts5,
+                        **k1_bound, library_ms=None)
+    del inp
+    torch.cuda.empty_cache()
+
+    # P4: K1's DMA stop from three input layouts, S = 128, all 160 streams.
+    s4 = PROBE_S4
+    err = 0.0
+    for name in dma_bisect.VARIANTS:
+        call, fr = dma_bisect.make_variant(s4, name, dev)
+        got = tuple(g.reshape(nb, s4, c) for g in call())
+        err = max(err, _exact(f"p4 {name} [{nb} streams x S={s4}]", got,
+                              dma_bisect.reference(fr)))
+        del call, fr, got
+    ms4, counts4 = _probe_path([(ff.fengine_fused, "ablate_launches")],
+                               lambda: {n: dma_bisect.run(s4, n, dev) for n in dma_bisect.VARIANTS})
+    _, fr = dma_bisect.make_variant(s4, "v0", dev)
+    plain4 = cuda_ms(lambda: dma_bisect.reference(fr), iters=1)
+    del fr
+    dma_bound = bound(nb * (s4 + taps - 1) * fft + 2 * nb * s4 * c)
+    log(f"p4 [{nb} streams x S={s4}] ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms4.items())
+        + f"; plain {plain4:.3f} ms; launches {counts4}; bound {dma_bound['bound_ms']:.3f} ms "
+        f"({dma_bound['bound_by']}) ({card})")
+    probes["p4"] = dict(ms=ms4["v0"], ms_by_variant=ms4, plain_ms=plain4, max_abs_err=err,
+                        launches=sum(counts4.values()), **dma_bound, library_ms=None)
+    torch.cuda.empty_cache()
+
+    # P2: K7 cut after each stage on 8 streams, S = 64 (phase 12's K7 runs 8
+    # of the 160 streams too).
+    s2, nb2 = PROBE_S2, PROBE_STREAMS2
+    inp = fused_ablate.make_inputs(s2, dev, batch=nb2)
+    win = inp["win"]
+    err = 0.0
+    for stop in fused_ablate.STOPS:  # checked with a scaled window, as P5
+        inp["win"] = win * PROBE_P2_SCALE[stop]
+        tag = f"p2 {stop} [{nb2} streams x S={s2}, window x {PROBE_P2_SCALE[stop]}]"
+        got, ref = fused_ablate.call(stop, inp), fused_ablate.reference(stop, inp)
+        err = max(err, _exact(tag, got, ref) if stop in ("dma", "conv", "fir", "deint") else
+                  _code_diff(tag, got, ref))
+    inp["win"] = win
+    del got, ref
+    ms2, counts2 = _probe_path(
+        [(ff.fengine_dit_ablate, "launches"), (ff.fengine_dit, "launches")],
+        lambda: {stop: fused_ablate.run_variant(stop, s2, 16, inp=inp)
+                 for stop in fused_ablate.STOPS})
+    plain2 = cuda_ms(lambda: fused_ablate.reference("full", inp), iters=1)
+    d1, d2 = fused_ablate.N1, fused_ablate.N2
+    macs = 4 * d1 * d1 * d2 + 8 * d2 * d2 * d1
+    k7_bound = bound(nb2 * (s2 + taps - 1) * fft + taps * fft * 4 + 2 * nb2 * s2 * c,
+                     bf16=2 * macs * nb2 * s2, f32=2 * taps * fft * nb2 * s2)
+    steps = list(ms2.items())
+    split = ", ".join(f"{b} +{ms - ma:.3f}" for (_, ma), (b, ms) in zip(steps, steps[1:]))
+    log(f"p2 [{nb2} streams x S={s2}] ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms2.items())
+        + f"; steps: {split}; plain (full) {plain2:.3f} ms; phase 12's K7 (S=256) "
+        f"{st['k7']['ms']:.3f} ms; launches {counts2}; bound {k7_bound['bound_ms']:.3f} ms "
+        f"({k7_bound['bound_by']}) ({card})")
+    probes["p2"] = dict(ms=ms2["full"], ms_by_stop=ms2, plain_ms=plain2, max_abs_err=err,
+                        launches=sum(counts2.values()), launches_by=counts2, **k7_bound,
+                        library_ms=None)
+    del inp
+    torch.cuda.empty_cache()
+
+    # P3: the FIR loop orders on resident data, whole.
+    x, w = fp.make_inputs(dev)
+    ref = fp.fir_probe_reference(x, w)
+    err = max(_exact(f"p3 {kind}", (fp.fir_probe(x, w, kind),), (ref,)) for kind in fp.KINDS)
+    ms3, counts3 = _probe_path([(fp.fir_probe, "launches")],
+                               lambda: {kind: fp.run(kind, x, w) for kind in fp.KINDS})
+    # The kernel is shorter than a Python launch, so the chain times the host:
+    # its device time comes from torch.profiler over 20 launches.
+    dev3 = {}
+    for kind in fp.KINDS:
+        split, _ = _profile_split(torch, lambda: [fp.fir_probe(x, w, kind) for _ in range(20)],
+                                  [("probe", ["fir_probe_kernel"]), ("other", [])])
+        dev3[kind] = split["probe"] / 20
+    plain3 = cuda_ms(lambda: fp.fir_probe_reference(x, w), iters=1)
+    fma = fp.REPS * fp.J * fp.TAPS * fp.N1 * fp.N2
+    p3_bound = bound(x.numel() * 2 + w.numel() * 4 + fp.J * fp.N1 * fp.N2 * 4, f32=2 * fma)
+    # Shared-memory bytes a pass loads: persi 16 x (bf16) + 16 w (f32) an
+    # output, tapouter 16 w + 128 x per J outputs.
+    outs = fp.REPS * fp.J * fp.N1 * fp.N2
+    loads = {"persi": outs * (16 * 2 + 16 * 4), "tapouter": outs * (16 * 4 + 128 * 2) / fp.J}
+    rates = {k: loads[k] / dev3[k] / 1e9 for k in loads}  # TB/s
+    # The yardstick: one cuDNN depthwise conv1d over the REPS passes as a
+    # batch (f32, layout untimed); it computes the sums without the chain.
+    xt = x.float().reshape(fp.J + fp.TAPS - 1, -1).t().contiguous().unsqueeze(0)
+    xt = xt.expand(fp.REPS, -1, -1).contiguous()
+    wt = w.reshape(fp.TAPS, -1).t().contiguous().unsqueeze(1)
+    lib_out = torch.nn.functional.conv1d(xt[:1], wt, groups=wt.shape[0])[0]
+    lib_d = float((lib_out.t().reshape(ref.shape) - fp.fir_probe_reference(x, w, 1)).abs().max())
+    lib3 = cuda_ms(lambda: torch.nn.functional.conv1d(xt, wt, groups=wt.shape[0]), iters=3)
+    del xt, wt, lib_out
+    log(f"p3 [N1 = N2 = {fp.N1}, J = {fp.J}, {fp.REPS} passes] chained ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ms3.items()) + "; device ms (torch.profiler): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in dev3.items()) + "; shared-memory loads " + ", ".join(
+        f"{k} {v:.2f} TB/s" for k, v in rates.items()) + f"; plain {plain3:.3f} ms; conv1d "
+        f"(batch of {fp.REPS}) {lib3:.3f} ms (max |d| vs one pass {lib_d:.2e}); launches "
+        f"{counts3}; bound {p3_bound['bound_ms']:.4f} ms ({p3_bound['bound_by']}) ({card})")
+    probes["p3"] = dict(ms=dev3["tapouter"], ms_by_kind=dev3, chained_ms_by_kind=ms3,
+                        plain_ms=plain3, max_abs_err=err,
+                        launches=sum(counts3.values()), smem_load_tb_s=rates, **p3_bound,
+                        library_ms=lib3)
+    del x, w, ref
+
+    # P1: the corner-turn tilings and turns at S = 128, whole.
+    s1 = PROBE_S1
+    planes = ctp.make_inputs(s1, dev)
+    # The script's default specs and the minor-antenna modes; a spec whose
+    # spectra chunk exceeds S (i8:64:256 at S = 128: an empty grid in the
+    # original) is not run.
+    specs = [sp for sp in ctp.SPECS + ("i8m:128:128", "i8m2:128:128")
+             if s1 % int(sp.split(":")[2]) == 0]
+    skipped = sorted(set(ctp.SPECS) - set(specs))
+    if skipped:
+        log(f"p1: not run at S={s1} (its spectra chunk does not divide S): {', '.join(skipped)}")
+    res1, counts1 = _probe_path([(ctp.ct_probe, "launches")],
+                                lambda: {sp: ctp.run_variant(sp, s1, planes=planes) for sp in specs})
+    bad = [sp for sp, (_, ok) in res1.items() if not ok]
+    if bad:
+        raise AssertionError(f"p1: {bad} disagree with plain")
+    ms1 = {sp: ms for sp, (ms, _) in res1.items()}
+    plain1 = cuda_ms(lambda: ctp.ct_probe_reference(*planes, "i8"), iters=1)
+    stacked = torch.stack(planes)
+    lib1 = cuda_ms(lambda: stacked.permute(4, 0, 1, 2, 3).contiguous())
+    del stacked
+    nbytes1 = 2 * sum(q.numel() for q in planes)
+    p1_bound = bound(nbytes1)
+    log(f"p1 [A={ctp.A} P={ctp.P} S={s1} C={ctp.C}] ms: " + ", ".join(
+        f"{k} {v:.3f} ({nbytes1 / v / 1e9:.2f} TB/s)" for k, v in ms1.items())
+        + f"; each bit-exact against plain; plain {plain1:.3f} ms; permute().contiguous() "
+        f"{lib1:.3f} ms; K4 at S=256 {st['k4']['ms']:.3f} ms; launches {counts1}; bound "
+        f"{p1_bound['bound_ms']:.3f} ms ({p1_bound['bound_by']}) ({card})")
+    probes["p1"] = dict(ms=ms1["i8:128:128"], ms_by_spec=ms1, plain_ms=plain1, max_abs_err=0.0,
+                        launches=sum(counts1.values()), **p1_bound, library_ms=lib1)
+    del planes
+    torch.cuda.empty_cache()
+    st["probes"] = probes
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -1925,7 +2161,7 @@ def main() -> int:
     # F+B step, phase 10 for the FXB step, phase 8 for the two-pass X path,
     # phase 12 for the DIT F form, phase 13 for the F-engine step, phase 14
     # for the native-handoff F+B step, phase 16 for the example under
-    # PipelineTest).
+    # PipelineTest, phase 19 for each probe's timed runs).
     kernels = [
         dict(name="fengine_ct", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
@@ -1961,6 +2197,28 @@ def main() -> int:
         dict(name="vector_add", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/vector_add.cu",
              replaces="examples/vector_add_pallas.py:24", path="examples/vector_add",
              launches=st["e1_launches"], **st["e1"]),
+        dict(name="ct_ablate", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct_stops.cu",
+             kernel="K1's k1_fir_kernel / k1_dft_kernel at each STOP (csrc/fengine_ct.cu)",
+             replaces="benchmarks/ct_ablate.py:36", path="benchmarks/ct_ablate",
+             **st["probes"]["p5"]),
+        dict(name="dma_bisect", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct_stops.cu",
+             kernel="P5's kernel at its dma stop (k1_fir_kernel<0, STOP_DMA>)",
+             replaces="benchmarks/dma_bisect.py:72", path="benchmarks/dma_bisect",
+             **st["probes"]["p4"]),
+        dict(name="fused_ablate", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/fengine_dit.cu",
+             kernel="K7's fengine_dit_kernel at each STOP",
+             replaces="benchmarks/fused_ablate.py:33", path="benchmarks/fused_ablate",
+             **st["probes"]["p2"]),
+        dict(name="fir_probe", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/fir_probe.cu",
+             replaces="benchmarks/fir_probe.py:40", path="benchmarks/fir_probe",
+             **st["probes"]["p3"]),
+        dict(name="ct_kernel_probe", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/corner_turn.cu",
+             kernel="ct_probe_kernel", replaces="benchmarks/ct_kernel_probe.py:42",
+             path="benchmarks/ct_kernel_probe", **st["probes"]["p1"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,8 @@ keyed by a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one loads in milliseconds. Every pointer and the stream are
 passed as ``ctypes.c_void_p``; each launch function returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception (K1's
-and K7's return -1 where no shared-memory plan fits the shape, which their
-wrappers raise as ``ValueError``).
+and K7's, their stage stops' too, return -1 where no shared-memory plan
+fits the shape, which their wrappers raise as ``ValueError``).
 """
 
 from __future__ import annotations
@@ -71,6 +71,19 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, quantise
         _P,  # stream
     ],
+    "k1_fir_stop_launch": [
+        _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
+        _P, _P, _P,  # plane [B, S, fft] bf16 (fir), outr, outi [B, S, fft/2] int8
+        _I, _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft, stop (1 dma, 2 fir)
+        _P,  # stream
+    ],
+    "k1_dft_stop_launch": [
+        _P,  # plane [B, S, N1, N2] bf16
+        _P, _P, _P, _P, _P,  # bf16 d1c, d1s, d2 stack; twc, tws
+        _P, _P,  # outr, outi [B, S, C] int8
+        _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, stop (3 stagea, 4 stageb)
+        _P,  # stream
+    ],
     "bstage_fused_launch": [
         _P, _P, _P, _I,  # qr, qi, w, w_is_bf16
         _P,  # out [C/pack, P·S, pack·2B]
@@ -105,6 +118,24 @@ _SIGNATURES = {
         _P, _P,  # rotc, rots [B, N]
         _P, _P,  # outr, outi [B, S, N]
         _I, _I, _I, _I, _I, _I,  # batch, n_frames, n_taps, n1, n2, bf16
+        _P,  # stream
+    ],
+    "fengine_dit_stop_launch": [
+        _P, _P,  # frames [B, n_frames, fft] int8, window [taps, fft]
+        _P, _P, _P, _P, _P, _P,  # d1c, d1s, d2c, d2s, twc, tws
+        _P, _P,  # outr, outi [B, S, N] int8
+        _I, _I, _I, _I, _I, _I,  # batch, n_frames, n_taps, n1, n2, stop (1 dma .. 6 stageb)
+        _P,  # stream
+    ],
+    "ct_probe_launch": [
+        _P, _P, _P,  # qr, qi [A, P, S, C] int8, out
+        _I, _I, _I, _I,  # n_ants, n_pols, n_spectra, n_channels
+        _I, _I, _I,  # mode (0 copy, 1 i8, 2 i32, 3 i8m, 4 i8m2), c_blk, s_chunk
+        _P,  # stream
+    ],
+    "fir_probe_launch": [
+        _P, _P, _P,  # x [(J+15)*N1, N2] bf16, w [16*N1, N2] f32, out [J*N1, N2] f32
+        _I, _I, _I, _I, _I,  # n1, n2, passes, tapouter, zero (must be 0)
         _P,  # stream
     ],
     "vector_add_launch": [

@@ -85,6 +85,23 @@
 // micro-tiles, k1 walked in chunks of kc rows (kc shrinks with N2 so the
 // T planes fit); in f32 mode each stage-A K tile recomputes its [KTA, NTA]
 // slice of the FIR from global memory.
+//
+// Stage stops (the probes P5 and P4: benchmarks/ct_ablate.py and
+// benchmarks/dma_bisect.py of the JAX package, the trimmed copies of
+// _fengine_kernel_ct reached through pl.pallas_call at ct_ablate.py:147 and
+// dma_bisect.py:113). A compile-time STOP cuts the two passes after a stage,
+// so the production instantiations (STOP_NONE) are the code above unchanged:
+//   STOP_DMA    — the FIR pass's loads only, each input byte once; the
+//                 probe (frame s - s % 16's first fft/2 samples) to both
+//                 outputs;
+//   STOP_FIR    — the FIR pass, its bf16 plane written as always, and the
+//                 f32 sums' first and second fft/2 samples to outr, outi;
+//   STOP_STAGEA — the DFT pass up to the twiddle, no stage B: T re / im of
+//                 rows k1 < N1/2 to outr / outi at k1*N2 + n2;
+//   STOP_STAGEB — the DFT pass up to stage B, no rotation: re / im.
+// Every stop writes int8 by truncation with saturation (trunc_s8), as
+// XLA's f32 -> int8 conversion does in the probe. Their entry points are in
+// csrc/fengine_ct_stops.cu, which compiles in its own nvcc process.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +117,18 @@ constexpr int NO_PLAN = -1;          // returned when no shared-memory plan fits
 __device__ __forceinline__ int8_t requant(float v) {
   v = fminf(fmaxf(rintf(v), -127.f), 127.f);
   return static_cast<int8_t>(v);
+}
+
+// The stage stops (see the head of the file); the launch functions take them
+// as these numbers.
+constexpr int STOP_NONE = 0, STOP_DMA = 1, STOP_FIR = 2, STOP_STAGEA = 3, STOP_STAGEB = 4;
+// Spectra a DMA-stop probe serves: P5's s_blk.
+constexpr int ABLATE_S_BLK = 16;
+
+// int8 by truncation toward zero, saturated: the value cvt.rzi.sat.s8.f32
+// gives.
+__device__ __forceinline__ int8_t trunc_s8(float v) {
+  return static_cast<int8_t>(max(-128, min(127, __float2int_rz(v))));
 }
 
 // ---------------------------------------------------------------------------
@@ -374,6 +403,8 @@ struct FirParams {
   const float* win;       // [taps, fft]
   __nv_bfloat16* plane;   // [G, S, fft]
   int n_spectra, fft, n_taps, lane_blocks, runs;
+  int8_t* outr;  // the stops' outputs [G, S, fft/2] (unused by K1 itself)
+  int8_t* outi;
 };
 
 template <bool VEC>
@@ -407,12 +438,20 @@ __device__ __forceinline__ void store_bf16x4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// The FIR stop's int8 of 4 f32 sums, by truncation (4-byte aligned).
+__device__ __forceinline__ void store_trunc4(int8_t* p, float4 v) {
+  *reinterpret_cast<char4*>(p) = make_char4(trunc_s8(v.x), trunc_s8(v.y), trunc_s8(v.z),
+                                            trunc_s8(v.w));
+}
+
 // One thread's 4 lanes over spectra [s0, s1). MAXT > 0: the register ring
 // of the last MAXT rows (rows past the stream's last read as zero, unused);
-// MAXT = 0: every tap row from global memory (taps > 16).
-template <int MAXT, bool VEC>
+// MAXT = 0: every tap row from global memory (taps > 16). STOP_FIR also
+// writes the truncated sums to oq (the lanes' place in outr or outi).
+template <int MAXT, bool VEC, int STOP>
 __device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb,
-                                        __nv_bfloat16* ob, int lane, int s0, int s1) {
+                                        __nv_bfloat16* ob, int8_t* oq, int lane, int s0,
+                                        int s1) {
   const long long fft = a.fft;
   const int rows = a.n_spectra + a.n_taps - 1;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -425,6 +464,7 @@ __device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb,
                    __ldg(reinterpret_cast<const float4*>(a.win + t * fft + lane)));
       }
       store_bf16x4(ob + s * fft, acc);
+      if constexpr (STOP == STOP_FIR) store_trunc4(oq + s * (fft / 2), acc);
     }
   } else {
     float4 w[MAXT];
@@ -453,13 +493,52 @@ __device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb,
             if (t < a.n_taps) acc = mac4(acc, ring[(j + t) % MAXT], w[t]);
           }
           store_bf16x4(ob + (s + j) * fft, acc);
+          if constexpr (STOP == STOP_FIR) store_trunc4(oq + (s + j) * (fft / 2), acc);
         }
       }
     }
   }
 }
 
-template <int MAXT>
+// 4 raw input bytes as one word.
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    return static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p))) |
+           static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + 1))) << 8 |
+           static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + 2))) << 16 |
+           static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + 3))) << 24;
+  }
+}
+
+// The DMA stop over spectra [s0, s1): each row the ring would load, loaded
+// once, and at every 16th frame the probe: that frame's bytes in the first
+// fft/2 lanes go to both outputs of its 16 spectra (oq_r, oq_i: the lanes'
+// place, null past fft/2). The loads' XOR is stored under a condition that
+// never holds but that the compiler cannot see through (n_spectra < 0), so
+// no load is dropped.
+template <bool VEC>
+__device__ __forceinline__ void dma_run(const FirParams& a, const int8_t* xb, int8_t* oq_r,
+                                        int8_t* oq_i, int s0, int s1) {
+  const long long fft = a.fft, half = fft / 2;
+  const int last = min(a.n_spectra + a.n_taps - 1, s1 + a.n_taps - 1);
+  uint32_t seen = 0;
+  for (int r = s0; r < last; ++r) {
+    const uint32_t v = load_word<VEC>(xb + r * fft);
+    seen ^= v;
+    if (oq_r != nullptr && r < s1 && r % ABLATE_S_BLK == 0) {
+      for (int s = r; s < min(s1, r + ABLATE_S_BLK); ++s) {
+        *reinterpret_cast<uint32_t*>(oq_r + s * half) = v;
+        *reinterpret_cast<uint32_t*>(oq_i + s * half) = v;
+      }
+    }
+  }
+  if (a.n_spectra < 0) *reinterpret_cast<uint32_t*>(a.outr) = seen;
+}
+
+template <int MAXT, int STOP = STOP_NONE>
 __global__ void __launch_bounds__(FIR_THREADS) k1_fir_kernel(FirParams a) {
   long long bid = blockIdx.x;
   const int lb = static_cast<int>(bid % a.lane_blocks);
@@ -472,10 +551,27 @@ __global__ void __launch_bounds__(FIR_THREADS) k1_fir_kernel(FirParams a) {
   const int8_t* xb = a.x + b * a.batch_stride + a.starts[b] + lane;
   __nv_bfloat16* ob = a.plane + b * a.n_spectra * static_cast<long long>(a.fft) + lane;
   // lane % 4 == 0, so the stream's start decides alignment for the whole block.
-  if ((reinterpret_cast<uintptr_t>(xb) & 3) == 0) {
-    fir_run<MAXT, true>(a, xb, ob, lane, s0, s1);
+  const bool vec = (reinterpret_cast<uintptr_t>(xb) & 3) == 0;
+  int8_t* oq = nullptr;
+  if constexpr (STOP != STOP_NONE) {
+    const int half = a.fft / 2;
+    const long long o = b * a.n_spectra * static_cast<long long>(half);
+    oq = lane < half ? a.outr + o + lane : a.outi + o + lane - half;
+    if constexpr (STOP == STOP_DMA) {
+      int8_t* oi = lane < half ? a.outi + o + lane : nullptr;
+      if (lane >= half) oq = nullptr;
+      if (vec) {
+        dma_run<true>(a, xb, oq, oi, s0, s1);
+      } else {
+        dma_run<false>(a, xb, oq, oi, s0, s1);
+      }
+      return;
+    }
+  }
+  if (vec) {
+    fir_run<MAXT, true, STOP>(a, xb, ob, oq, lane, s0, s1);
   } else {
-    fir_run<MAXT, false>(a, xb, ob, lane, s0, s1);
+    fir_run<MAXT, false, STOP>(a, xb, ob, oq, lane, s0, s1);
   }
 }
 
@@ -674,7 +770,7 @@ __device__ __forceinline__ void load_tile(const DftParams& p, const Cursor& c, i
   }
 }
 
-template <int KC, bool QUANT>
+template <int KC, bool QUANT, int STOP = STOP_NONE>
 __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
   using S = Shape<KC>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -766,6 +862,17 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
       if (w.kidx == p.n_kta - 1) {
         // f32 twiddle, bf16 rounding, into the T planes. Each 16-row group's
         // twiddles are loaded together first: the L2 round trips overlap.
+        // (The STAGEA stop writes P5's rows k1 < N1/2 instead: whole chunks,
+        // since its plan's KC = 64 divides N1/2, from one base pointer.)
+        int8_t* stop_r = nullptr;
+        int8_t* stop_i = nullptr;
+        if constexpr (STOP == STOP_STAGEA) {
+          if (k0 >= n1 / 2) continue;
+          const long long o = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C +
+                              static_cast<long long>(k0) * n2;
+          stop_r = static_cast<int8_t*>(p.outr) + o;
+          stop_i = static_cast<int8_t*>(p.outi) + o;
+        }
 #pragma unroll
         for (int i = 0; i < S::MI; ++i) {
           float2 wc[4][2], ws[4][2];
@@ -792,10 +899,18 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
               const float tr1 = __fsub_rn(__fmul_rn(cr[1], c.y), __fmul_rn(ci[1], sn.y));
               const float ti0 = __fadd_rn(__fmul_rn(cr[0], sn.x), __fmul_rn(ci[0], c.x));
               const float ti1 = __fadd_rn(__fmul_rn(cr[1], sn.y), __fmul_rn(ci[1], c.y));
-              *reinterpret_cast<__nv_bfloat162*>(sTr + r * tld + n) =
-                  __floats2bfloat162_rn(tr0, tr1);
-              *reinterpret_cast<__nv_bfloat162*>(sTi + r * tld + n) =
-                  __floats2bfloat162_rn(ti0, ti1);
+              if constexpr (STOP == STOP_STAGEA) {
+                // P5's slice of T: rows k1 < N1/2, at k1*N2 + n2.
+                *reinterpret_cast<char2*>(stop_r + r * n2 + n) =
+                    make_char2(trunc_s8(tr0), trunc_s8(tr1));
+                *reinterpret_cast<char2*>(stop_i + r * n2 + n) =
+                    make_char2(trunc_s8(ti0), trunc_s8(ti1));
+              } else {
+                *reinterpret_cast<__nv_bfloat162*>(sTr + r * tld + n) =
+                    __floats2bfloat162_rn(tr0, tr1);
+                *reinterpret_cast<__nv_bfloat162*>(sTi + r * tld + n) =
+                    __floats2bfloat162_rn(ti0, ti1);
+              }
             }
           }
         }
@@ -836,7 +951,27 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
           }
         }
       }
-      if (w.kidx == p.n_ktb - 1) {
+      if (STOP == STOP_STAGEB && w.kidx == p.n_ktb - 1) {
+        // re, im without the rotation, truncated.
+        const long long obase = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float* a0 = acc + (i * 2 + j) * 4 + hh * 2;
+              const int ch = (row + i * 16 + g + hh * 8) * n1 + k0 + b_c0 + j * 8 + tig * 2;
+              *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + obase + ch) =
+                  make_char2(trunc_s8(__fsub_rn(a0[0], a0[16])),
+                             trunc_s8(__fsub_rn(a0[1], a0[17])));
+              *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + obase + ch) =
+                  make_char2(trunc_s8(__fadd_rn(a0[32], a0[48])),
+                             trunc_s8(__fadd_rn(a0[33], a0[49])));
+            }
+          }
+        }
+      } else if (w.kidx == p.n_ktb - 1) {
         // re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr); rotate; store.
         // The rotation planes' values are loaded together first.
         const long long obase = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C;
@@ -923,9 +1058,10 @@ size_t dft_plan(DftParams& p) {
   return 0;
 }
 
-template <int KC, bool QUANT>
+template <int KC, bool QUANT, int STOP = STOP_NONE>
 cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream) {
-  auto kern = k1_dft_kernel<KC, QUANT>;
+  auto kern = k1_dft_kernel<KC, QUANT, STOP>;
+  if (STOP == STOP_STAGEA) p.n_rb = 0;  // no stage-B tiles
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -950,22 +1086,32 @@ cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream
   return cudaGetLastError();
 }
 
-template <bool QUANT>
+template <bool QUANT, int STOP = STOP_NONE>
 int dft_dispatch(DftParams p, int batch, cudaStream_t st) {
   // The largest chunk whose T planes and ring fit (64 rows up to N2 = 256).
   DftParams q = p;
   size_t bytes;
-  if ((bytes = dft_plan<64>(q))) return static_cast<int>(launch_dft<64, QUANT>(q, batch, bytes, st));
+  if ((bytes = dft_plan<64>(q))) {
+    return static_cast<int>(launch_dft<64, QUANT, STOP>(q, batch, bytes, st));
+  }
   q = p;
-  if ((bytes = dft_plan<32>(q))) return static_cast<int>(launch_dft<32, QUANT>(q, batch, bytes, st));
+  if ((bytes = dft_plan<32>(q))) {
+    return static_cast<int>(launch_dft<32, QUANT, STOP>(q, batch, bytes, st));
+  }
   q = p;
-  if ((bytes = dft_plan<16>(q))) return static_cast<int>(launch_dft<16, QUANT>(q, batch, bytes, st));
+  if ((bytes = dft_plan<16>(q))) {
+    return static_cast<int>(launch_dft<16, QUANT, STOP>(q, batch, bytes, st));
+  }
   return NO_PLAN;
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 }  // namespace
+
+// K1's own entry points; csrc/fengine_ct_stops.cu includes this file for the
+// kernels above and defines K1_STAGE_STOPS, so it compiles the stops alone.
+#ifndef K1_STAGE_STOPS
 
 extern "C" const char* dcsand_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -1064,3 +1210,5 @@ extern "C" int k1_dft_launch(const void* plane, const void* d1c, const void* d1s
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return quantise ? dft_dispatch<true>(p, batch, st) : dft_dispatch<false>(p, batch, st);
 }
+
+#endif  // K1_STAGE_STOPS

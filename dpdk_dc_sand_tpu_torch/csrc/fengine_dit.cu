@@ -35,6 +35,31 @@
 // 1024); the launch returns -1 where even 2 rows do not.
 // The FIR is not kept: each stage-A K tile recomputes its [KTA, NTA] slice
 // of both streams from global memory (L2 serves the N1/KC-fold re-read).
+//
+// Stage stops (the probe P2: benchmarks/fused_ablate.py of the JAX package,
+// the trimmed copy of _fengine_kernel reached through pl.pallas_call at
+// fused_ablate.py:198). A compile-time STOP cuts the kernel after a stage,
+// so the production instantiation (DIT_FULL) is the code above unchanged.
+// Each writes int8 by truncation with saturation, as XLA's conversion does
+// in the probe, into the [B, S, N] outputs:
+//   DIT_DMA    — the block's input bytes (the taps frames its FIR reads)
+//                loaded once; outr 0, outi frame f0's first sample, f0 =
+//                s - s % 16 (P2's s_blk);
+//   DIT_CONV   — the same loads converted to f32; outi x[f0][0] + x[f0+1][0];
+//   DIT_FIR    — the FIR once per sample; its first N samples to outr, the
+//                last N to outi (P2's per-spectrum slice);
+//   DIT_DEINT  — + the DFT-type rounding and the even / odd split: e[m] to
+//                outr[m], o[m] to outi[m];
+//   DIT_STAGEA — the chunk loop with stage A only (its FIR recomputation
+//                included): the even and odd streams' rounded T re at
+//                k1*N2 + n2;
+//   DIT_STAGEB — + stage B, no combine: even re and odd re at k2*N1 + k1
+//                (the im sums are added times zero, so the compiler keeps
+//                all of stage B, which the probe's sink did not need).
+// The first four stop before the chunk loop, so they measure the FIR once
+// a sample; from DIT_STAGEA on the FIR is recomputed per chunk, as K7 does.
+// P2's deint and stagea sinks slice across the spectra of its [N1, s_blk*N2]
+// scratch; here a block holds one spectrum, so they write its own values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,7 +124,65 @@ __device__ __forceinline__ int8_t requant(float v) {
   return static_cast<int8_t>(v);
 }
 
-template <bool BF16>
+// The stage stops (see the head of the file); the launch takes these numbers.
+constexpr int DIT_FULL = 0, DIT_DMA = 1, DIT_CONV = 2, DIT_FIR = 3, DIT_DEINT = 4,
+              DIT_STAGEA = 5, DIT_STAGEB = 6;
+constexpr int ABLATE_S_BLK = 16;  // P2's s_blk: the DMA and conv probes' frame
+
+// int8 by truncation toward zero, saturated: the value cvt.rzi.sat.s8.f32
+// gives.
+__device__ __forceinline__ int8_t trunc_s8(float v) {
+  return static_cast<int8_t>(max(-128, min(127, __float2int_rz(v))));
+}
+
+// The stops before the chunk loop (DIT_DMA .. DIT_DEINT) of spectrum s of
+// stream b; xs is its first frame.
+template <bool BF16, int STOP>
+__device__ __forceinline__ void early_stop(const Params& p, const int8_t* xs, int s, int b) {
+  const int tid = threadIdx.x;
+  const int n = p.n1 * p.n2, fft = 2 * n;
+  const long long obase = (static_cast<long long>(b) * p.n_spectra + s) * n;
+  if constexpr (STOP == DIT_DMA || STOP == DIT_CONV) {
+    const long long pairs = static_cast<long long>(p.n_taps) * n;  // char2 loads, as fir_pair
+    uint32_t bits = 0;
+    float sum = 0.f;
+    for (long long i = tid; i < pairs; i += THREADS) {
+      const char2 v = *reinterpret_cast<const char2*>(xs + 2 * i);
+      if constexpr (STOP == DIT_DMA) {
+        bits ^= static_cast<uint32_t>(static_cast<uint16_t>(v.x | (v.y << 8)));
+      } else {
+        sum += static_cast<float>(v.x) + static_cast<float>(v.y);
+      }
+    }
+    // Stored under a condition that never holds but that the compiler
+    // cannot see through, so no load or conversion is dropped.
+    if (p.n_spectra < 0) p.outr[0] = static_cast<int8_t>(bits ^ __float_as_uint(sum));
+    const int8_t* x0 = p.x + (static_cast<long long>(b) * p.n_frames + s - s % ABLATE_S_BLK) * fft;
+    int8_t probe = x0[0];
+    if constexpr (STOP == DIT_CONV) {
+      probe = trunc_s8(static_cast<float>(x0[0]) + static_cast<float>(x0[fft]));
+    }
+    for (int m = tid; m < n; m += THREADS) {
+      p.outr[obase + m] = 0;
+      p.outi[obase + m] = probe;
+    }
+  } else {
+    for (int m = tid; m < n; m += THREADS) {
+      float ev, od;
+      fir_pair(xs, p.win, fft, p.n_taps, 2 * m, ev, od);
+      if constexpr (STOP == DIT_FIR) {
+        // Samples 2m, 2m+1: the first N to outr, the last N to outi.
+        int8_t* o = 2 * m < n ? p.outr + obase + 2 * m : p.outi + obase + 2 * m - n;
+        *reinterpret_cast<char2*>(o) = make_char2(trunc_s8(ev), trunc_s8(od));
+      } else {
+        p.outr[obase + m] = trunc_s8(op_round<BF16>(ev));
+        p.outi[obase + m] = trunc_s8(op_round<BF16>(od));
+      }
+    }
+  }
+}
+
+template <bool BF16, int STOP = DIT_FULL>
 __global__ void __launch_bounds__(THREADS) fengine_dit_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int s = blockIdx.x;
@@ -111,6 +194,10 @@ __global__ void __launch_bounds__(THREADS) fengine_dit_kernel(Params p) {
   const int ts = n2 + 1;  // odd row stride of the T planes
 
   const int8_t* xs = p.x + (static_cast<long long>(b) * p.n_frames + s) * fft;
+  if constexpr (STOP >= DIT_DMA && STOP <= DIT_DEINT) {
+    early_stop<BF16, STOP>(p, xs, s, b);
+    return;
+  }
 
   float* sAc = smem;               // [kc][KTA]
   float* sAs = sAc + kc * KTA;     // [kc][KTA]
@@ -186,19 +273,28 @@ __global__ void __launch_bounds__(THREADS) fengine_dit_kernel(Params p) {
             const int r = a_r + i, col = c0 + a_c + j;
             const float wc = __ldg(p.twc + (k0 + r) * n2 + col);
             const float ws = __ldg(p.tws + (k0 + r) * n2 + col);
-            sTer[r * ts + col] = op_round<BF16>(
-                __fsub_rn(__fmul_rn(er[i][j], wc), __fmul_rn(ei[i][j], ws)));
-            sTei[r * ts + col] = op_round<BF16>(
-                __fadd_rn(__fmul_rn(er[i][j], ws), __fmul_rn(ei[i][j], wc)));
-            sTor[r * ts + col] = op_round<BF16>(
-                __fsub_rn(__fmul_rn(orr[i][j], wc), __fmul_rn(oi[i][j], ws)));
-            sToi[r * ts + col] = op_round<BF16>(
-                __fadd_rn(__fmul_rn(orr[i][j], ws), __fmul_rn(oi[i][j], wc)));
+            if constexpr (STOP == DIT_STAGEA) {
+              const long long o = obase + (k0 + r) * n2 + col;
+              p.outr[o] = trunc_s8(op_round<BF16>(
+                  __fsub_rn(__fmul_rn(er[i][j], wc), __fmul_rn(ei[i][j], ws))));
+              p.outi[o] = trunc_s8(op_round<BF16>(
+                  __fsub_rn(__fmul_rn(orr[i][j], wc), __fmul_rn(oi[i][j], ws))));
+            } else {
+              sTer[r * ts + col] = op_round<BF16>(
+                  __fsub_rn(__fmul_rn(er[i][j], wc), __fmul_rn(ei[i][j], ws)));
+              sTei[r * ts + col] = op_round<BF16>(
+                  __fadd_rn(__fmul_rn(er[i][j], ws), __fmul_rn(ei[i][j], wc)));
+              sTor[r * ts + col] = op_round<BF16>(
+                  __fsub_rn(__fmul_rn(orr[i][j], wc), __fmul_rn(oi[i][j], ws)));
+              sToi[r * ts + col] = op_round<BF16>(
+                  __fadd_rn(__fmul_rn(orr[i][j], ws), __fmul_rn(oi[i][j], wc)));
+            }
           }
         }
       }
     }
 
+    if constexpr (STOP == DIT_STAGEA) continue;  // (the T planes were not written)
     // ---- stage B for k1 in [k0, k0+kc): all k2, mtb rows at a time ----
     for (int r0 = 0; r0 < n2; r0 += mtb) {
       // [stream][sum][i][j]; sums: cos·tr, -sin·ti, cos·ti, -sin·tr.
@@ -251,13 +347,19 @@ __global__ void __launch_bounds__(THREADS) fengine_dit_kernel(Params p) {
             const float xei = __fadd_rn(acc[0][2][i][j], acc[0][3][i][j]);
             const float xor_ = __fsub_rn(acc[1][0][i][j], acc[1][1][i][j]);
             const float xoi = __fadd_rn(acc[1][2][i][j], acc[1][3][i][j]);
-            const float uc = __ldg(p.untc + ch), us = __ldg(p.unts + ch);
-            const float xr = __fsub_rn(__fadd_rn(xer, __fmul_rn(uc, xor_)), __fmul_rn(us, xoi));
-            const float xi = __fadd_rn(__fadd_rn(xei, __fmul_rn(uc, xoi)), __fmul_rn(us, xor_));
-            const float rc = __ldg(p.rotc + static_cast<long long>(b) * n + ch);
-            const float rs = __ldg(p.rots + static_cast<long long>(b) * n + ch);
-            p.outr[obase + ch] = requant(__fsub_rn(__fmul_rn(xr, rc), __fmul_rn(xi, rs)));
-            p.outi[obase + ch] = requant(__fadd_rn(__fmul_rn(xr, rs), __fmul_rn(xi, rc)));
+            if constexpr (STOP == DIT_STAGEB) {
+              // The im sums, times zero, keep all of stage B computed.
+              p.outr[obase + ch] = trunc_s8(__fadd_rn(xer, __fmul_rn(0.f, xei)));
+              p.outi[obase + ch] = trunc_s8(__fadd_rn(xor_, __fmul_rn(0.f, xoi)));
+            } else {
+              const float uc = __ldg(p.untc + ch), us = __ldg(p.unts + ch);
+              const float xr = __fsub_rn(__fadd_rn(xer, __fmul_rn(uc, xor_)), __fmul_rn(us, xoi));
+              const float xi = __fadd_rn(__fadd_rn(xei, __fmul_rn(uc, xoi)), __fmul_rn(us, xor_));
+              const float rc = __ldg(p.rotc + static_cast<long long>(b) * n + ch);
+              const float rs = __ldg(p.rots + static_cast<long long>(b) * n + ch);
+              p.outr[obase + ch] = requant(__fsub_rn(__fmul_rn(xr, rc), __fmul_rn(xi, rs)));
+              p.outi[obase + ch] = requant(__fadd_rn(__fmul_rn(xr, rs), __fmul_rn(xi, rc)));
+            }
           }
         }
       }
@@ -271,18 +373,56 @@ size_t smem_bytes(int n2, int kc) {
                           4 * kc * static_cast<size_t>(n2 + 1));
 }
 
-template <bool BF16>
+template <bool BF16, int STOP = DIT_FULL>
 cudaError_t launch(const Params& p, int batch, size_t bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fengine_dit_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fengine_dit_kernel<BF16, STOP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   dim3 grid(p.n_spectra, batch);
-  fengine_dit_kernel<BF16><<<grid, THREADS, bytes, stream>>>(p);
+  fengine_dit_kernel<BF16, STOP><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// The stage stops of the bf16 kernel (the probe P2; see the head of the
+// file): stop 1..6 = dma, conv, fir, deint, stagea, stageb; outputs as
+// fengine_dit_launch's, no rotation planes (no stop reaches the rotation).
+// The stops before the chunk loop launch with no shared memory. Returns -1
+// where no plan fits.
+extern "C" int fengine_dit_stop_launch(
+    const void* x, const void* win, const void* d1c, const void* d1s, const void* d2c,
+    const void* d2s, const void* twc, const void* tws, void* outr, void* outi, int batch,
+    int n_frames, int n_taps, int n1, int n2, int stop, void* stream) {
+  const int n_spectra = n_frames - n_taps + 1;
+  if (n1 < 2 || (n1 & (n1 - 1)) || n2 < 4 || (n2 & (n2 - 1)) || n_taps < 1 ||
+      n_spectra < 1 || batch < 1 || batch > 65535 || stop < DIT_DMA || stop > DIT_STAGEB) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int kc = n1 < KC ? n1 : KC;
+  while (kc > 2 && smem_bytes(n2, kc) > MAX_SMEM) kc /= 2;
+  const size_t bytes = stop >= DIT_STAGEA ? smem_bytes(n2, kc) : 0;
+  if (bytes > MAX_SMEM) return -1;
+  Params p{static_cast<const int8_t*>(x), static_cast<const float*>(win),
+           static_cast<const float*>(d1c), static_cast<const float*>(d1s),
+           static_cast<const float*>(d2c), static_cast<const float*>(d2s),
+           static_cast<const float*>(twc), static_cast<const float*>(tws),
+           nullptr, nullptr, nullptr, nullptr,
+           static_cast<int8_t*>(outr), static_cast<int8_t*>(outi),
+           n_frames, n_spectra, n_taps, n1, n2, kc};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (stop) {
+    case DIT_DMA: err = launch<true, DIT_DMA>(p, batch, bytes, st); break;
+    case DIT_CONV: err = launch<true, DIT_CONV>(p, batch, bytes, st); break;
+    case DIT_FIR: err = launch<true, DIT_FIR>(p, batch, bytes, st); break;
+    case DIT_DEINT: err = launch<true, DIT_DEINT>(p, batch, bytes, st); break;
+    case DIT_STAGEA: err = launch<true, DIT_STAGEA>(p, batch, bytes, st); break;
+    default: err = launch<true, DIT_STAGEB>(p, batch, bytes, st); break;
+  }
+  return static_cast<int>(err);
+}
 
 extern "C" int fengine_dit_launch(
     const void* x, const void* win, const void* d1c, const void* d1s, const void* d2c,

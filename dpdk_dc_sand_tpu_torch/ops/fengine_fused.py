@@ -227,6 +227,30 @@ def k1_fir_reference(
     return acc.to(torch.bfloat16) if dft_dtype == "bfloat16" else acc
 
 
+def _ct_stage_a(plane, k, n1, n2, rnd):
+    """K1's stage A and twiddle: ``(tr, ti)`` ``[B, S, N1, N2]`` in f32,
+    before the operand rounding."""
+    batch, n_spectra, _ = plane.shape
+    xm = plane.to(torch.float32).reshape(batch, n_spectra, n1, n2)
+    ar = torch.matmul(rnd(k.d1c), xm)
+    ai = torch.matmul(rnd(k.d1s), xm)
+    return ar * k.twc - ai * k.tws, ar * k.tws + ai * k.twc
+
+
+def _ct_stage_b(tr, ti, k, n2, rnd):
+    """K1's half-output stage B of the rounded T planes: ``(re, im)``
+    ``[B, S, C]``, bin ``k2·N1 + k1``."""
+    batch, n_spectra, n1, _ = tr.shape
+    d2 = rnd(k.d2)
+    yr = torch.matmul(d2, tr.transpose(-1, -2))  # [B, S, N2, N1]
+    yi = torch.matmul(d2, ti.transpose(-1, -2))
+    h = n2 // 2
+    c = h * n1
+    re = (yr[..., :h, :] - yi[..., h:, :]).reshape(batch, n_spectra, c)
+    im = (yi[..., :h, :] + yr[..., h:, :]).reshape(batch, n_spectra, c)
+    return re, im
+
+
 def k1_dft_reference(
     plane: torch.Tensor,
     rotc: torch.Tensor,
@@ -245,17 +269,8 @@ def k1_dft_reference(
     c = fft // 2
     rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
     k = dft_constants(n1, n2, str(plane.device))
-    xm = plane.to(torch.float32).reshape(batch, n_spectra, n1, n2)
-    ar = torch.matmul(rnd(k.d1c), xm)
-    ai = torch.matmul(rnd(k.d1s), xm)
-    tr = rnd(ar * k.twc - ai * k.tws)
-    ti = rnd(ar * k.tws + ai * k.twc)
-    d2 = rnd(k.d2)
-    yr = torch.matmul(d2, tr.transpose(-1, -2))  # [B, S, N2, N1]
-    yi = torch.matmul(d2, ti.transpose(-1, -2))
-    h = n2 // 2
-    re = (yr[..., :h, :] - yi[..., h:, :]).reshape(batch, n_spectra, c)
-    im = (yi[..., :h, :] + yr[..., h:, :]).reshape(batch, n_spectra, c)
+    tr, ti = _ct_stage_a(plane, k, n1, n2, rnd)
+    re, im = _ct_stage_b(rnd(tr), rnd(ti), k, n2, rnd)
     rc = rotc.reshape(batch, 1, c)
     rs = rots.reshape(batch, 1, c)
     outr = re * rc - im * rs
@@ -293,6 +308,67 @@ def fengine_fused_reference(
     plane = k1_fir_reference(x, starts, window, n_spectra=n_spectra, dft_dtype=dft_dtype)
     return k1_dft_reference(plane, rotc, rots, n1=n1, n2=n2, dft_dtype=dft_dtype,
                             quantise=quantise)
+
+
+#: K1's stage stops (``fengine_fused(_ablate=...)``) as the kernel numbers them.
+ABLATE_STOPS = {"dma": 1, "fir": 2, "stagea": 3, "stageb": 4}
+#: Spectra one probe of a ``"dma"`` stop serves (the probes' ``s_blk``).
+ABLATE_S_BLK = 16
+
+
+def _trunc_s8(v: torch.Tensor) -> torch.Tensor:
+    """int8 by truncation toward zero, saturated: XLA's f32 -> int8
+    conversion in the probes, ``cvt.rzi.sat.s8.f32`` on the card."""
+    return v.trunc().clamp(-128, 127).to(torch.int8)
+
+
+def fengine_ablate_reference(
+    stop: str | None,
+    x: torch.Tensor,
+    starts: torch.Tensor,
+    window: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n_spectra: int,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "bfloat16",
+    quantise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1 cut after a stage (the probe P5,
+    ``benchmarks/ct_ablate.py:69-108``); arguments as
+    :func:`fengine_fused_reference`, which ``stop=None`` is.
+
+    Each stop writes int8 ``(outr, outi)`` ``[B, S, C]``, truncated
+    (:func:`_trunc_s8`): ``"dma"`` the first C input samples of frame
+    ``s - s % 16`` to both; ``"fir"`` the f32 FIR's first and second C
+    samples; ``"stagea"`` T re and im (f32, before rounding) of rows
+    ``k1 < N1/2`` at ``k1·N2 + n2``; ``"stageb"`` re and im before the
+    rotation. With N1 == N2 these are P5's slices.
+    """
+    if stop is None:
+        return fengine_fused_reference(x, starts, window, rotc, rots, n_spectra=n_spectra,
+                                       n1=n1, n2=n2, dft_dtype=dft_dtype, quantise=quantise)
+    if stop not in ABLATE_STOPS:
+        raise ValueError(f"unknown _ablate stage {stop!r}")
+    fft = window.shape[1]
+    c = fft // 2
+    if stop == "dma":
+        f0 = torch.arange(n_spectra, device=x.device) // ABLATE_S_BLK * ABLATE_S_BLK
+        probe = torch.stack([x[b, s : s + n_spectra * fft].reshape(n_spectra, fft)[f0, :c]
+                             for b, s in enumerate(starts.tolist())])
+        return probe, probe.clone()
+    plane = k1_fir_reference(x, starts, window, n_spectra=n_spectra, dft_dtype="float32")
+    if stop == "fir":
+        return _trunc_s8(plane[..., :c]), _trunc_s8(plane[..., c:])
+    rnd = _round_bf16
+    k = dft_constants(n1, n2, str(x.device))
+    tr, ti = _ct_stage_a(plane.to(torch.bfloat16), k, n1, n2, rnd)
+    if stop == "stagea":
+        return tuple(_trunc_s8(t[..., : n1 // 2, :].reshape(-1, n_spectra, c)) for t in (tr, ti))
+    re, im = _ct_stage_b(rnd(tr), rnd(ti), k, n2, rnd)
+    return _trunc_s8(re), _trunc_s8(im)
 
 
 def _plane_group(batch: int, n_spectra: int, fft: int) -> int:
@@ -414,6 +490,36 @@ k1_fir.launches = 0
 k1_dft.launches = 0
 
 
+def _stop_pass(x, starts, window, plane, outr, outi, *, n1, n2, stop) -> None:
+    """One group of K1's passes cut at ``stop`` (CUDA tensors, checked by the
+    caller): ``"dma"`` and ``"fir"`` are the FIR pass's stops (``"fir"``
+    writes ``plane`` too); ``"stagea"`` and ``"stageb"`` run the FIR pass,
+    then the DFT pass's stop."""
+    lib = _build.library()
+    batch, n_spectra, c = outr.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if stop in ("dma", "fir"):
+        err = lib.k1_fir_stop_launch(
+            x.data_ptr(), x.stride(0), starts.data_ptr(), window.data_ptr(),
+            plane.data_ptr() if plane is not None else None, outr.data_ptr(), outi.data_ptr(),
+            batch, n_spectra, window.shape[0], 2 * c, ABLATE_STOPS[stop], stream,
+        )
+        _build.check(lib, err, f"k1_fir stop {stop}")
+    else:
+        _fir_pass(x, starts, window, plane)
+        k = dft_constants(n1, n2, str(x.device))
+        kbf = _dft_bf16(n1, n2, str(x.device))
+        err = lib.k1_dft_stop_launch(
+            plane.data_ptr(), *(t.data_ptr() for t in kbf), k.twc.data_ptr(),
+            k.tws.data_ptr(), outr.data_ptr(), outi.data_ptr(), batch, n_spectra, n1, n2,
+            ABLATE_STOPS[stop], stream,
+        )
+        if err == _NO_PLAN:
+            raise _no_plan("k1_dft stop", n1, n2, "the stops take the 64-row chunk plan only")
+        _build.check(lib, err, f"k1_dft stop {stop}")
+    fengine_fused.ablate_launches += 1
+
+
 def _launch(
     x: torch.Tensor,
     starts: torch.Tensor,
@@ -426,6 +532,7 @@ def _launch(
     n2: int,
     dft_dtype: str,
     quantise: bool,
+    ablate: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     n_taps, fft = window.shape
     batch = x.shape[0]
@@ -442,6 +549,18 @@ def _launch(
     out_dtype = torch.int8 if quantise else torch.float32
     outr = torch.empty((batch, n_spectra, fft // 2), dtype=out_dtype, device=dev)
     outi = torch.empty_like(outr)
+    if ablate is not None:
+        # K1's two passes cut at a stage, over the same groups (the DMA stop
+        # writes no plane).
+        group = _plane_group(batch, n_spectra, fft)
+        plane = None
+        if ablate != "dma":
+            plane = torch.empty((group, n_spectra, fft), dtype=torch.bfloat16, device=dev)
+        for b0 in range(0, batch, group):
+            b = slice(b0, min(batch, b0 + group))
+            p = plane[: b.stop - b0] if plane is not None else None
+            _stop_pass(x[b], starts[b], window, p, outr[b], outi[b], n1=n1, n2=n2, stop=ablate)
+        return outr, outi
     if dft_dtype == "bfloat16" and n1 >= 16:
         # Two passes over groups of batches through one bf16 plane of scratch.
         group = _plane_group(batch, n_spectra, fft)
@@ -499,6 +618,35 @@ def dit_constants(n1: int, n2: int, device: str) -> DitConstants:
     )
 
 
+def _dit_fir(frames, window):
+    """K7's FIR, f32 in tap order: ``[B, S, fft]``."""
+    n_taps = window.shape[0]
+    n_spectra = frames.shape[1] - n_taps + 1
+    f = frames.to(torch.float32)
+    w = window.to(torch.float32)
+    acc = f[:, 0:n_spectra] * w[0]
+    for tap in range(1, n_taps):
+        acc = acc + f[:, tap : tap + n_spectra] * w[tap]
+    return acc
+
+
+def _dit_stage_a(x, k, rnd):
+    """K7's stage A and twiddle of one stream ``[B, S, N1, N2]``: the rounded
+    ``(tr, ti)``."""
+    ar = torch.matmul(rnd(k.d1c), x)
+    ai = torch.matmul(rnd(k.d1s), x)
+    return rnd(ar * k.twc - ai * k.tws), rnd(ar * k.tws + ai * k.twc)
+
+
+def _dit_stage_b(tr, ti, k, rnd):
+    """K7's stage B: ``(re, im)`` ``[B, S, N2, N1]``."""
+    d2c, d2s = rnd(k.d2c), rnd(k.d2s)
+    tr, ti = tr.transpose(-1, -2), ti.transpose(-1, -2)
+    re = torch.matmul(d2c, tr) - torch.matmul(d2s, ti)
+    im = torch.matmul(d2c, ti) + torch.matmul(d2s, tr)
+    return re, im
+
+
 def fengine_dit_reference(
     frames: torch.Tensor,
     window: torch.Tensor,
@@ -519,24 +667,12 @@ def fengine_dit_reference(
     batch, n_frames, _ = frames.shape
     n_spectra = n_frames - n_taps + 1
     n = fft // 2
-    f = frames.to(torch.float32)
-    w = window.to(torch.float32)
-    acc = f[:, 0:n_spectra] * w[0]
-    for tap in range(1, n_taps):
-        acc = acc + f[:, tap : tap + n_spectra] * w[tap]
     rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
-    acc = rnd(acc)
+    acc = rnd(_dit_fir(frames, window))
     k = dit_constants(n1, n2, str(frames.device))
-    d1c, d1s, d2c, d2s = (rnd(t) for t in (k.d1c, k.d1s, k.d2c, k.d2s))
 
     def dft(x):  # [B, S, N1, N2] -> (re, im) [B, S, N2, N1], bin k = k2*N1 + k1
-        ar = torch.matmul(d1c, x)
-        ai = torch.matmul(d1s, x)
-        tr = rnd(ar * k.twc - ai * k.tws).transpose(-1, -2)
-        ti = rnd(ar * k.tws + ai * k.twc).transpose(-1, -2)
-        re = torch.matmul(d2c, tr) - torch.matmul(d2s, ti)
-        im = torch.matmul(d2c, ti) + torch.matmul(d2s, tr)
-        return re, im
+        return _dit_stage_b(*_dit_stage_a(x, k, rnd), k, rnd)
 
     er, ei = dft(acc[..., 0::2].reshape(batch, n_spectra, n1, n2))
     orr, oi = dft(acc[..., 1::2].reshape(batch, n_spectra, n1, n2))
@@ -609,6 +745,115 @@ def fengine_dit(
 #: K7 launches since the last reset (the plain CPU version never counts).
 fengine_dit.launches = 0
 
+#: K7's stage stops (the probe P2) as the kernel numbers them; the probe's
+#: ``"full"`` is K7 itself.
+DIT_STOPS = {"dma": 1, "conv": 2, "fir": 3, "deint": 4, "stagea": 5, "stageb": 6}
+
+
+def fengine_dit_ablate_reference(
+    stop: str,
+    frames: torch.Tensor,
+    window: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7 (bf16 operands) cut after a stage, the probe P2
+    (``benchmarks/fused_ablate.py:67-147``); arguments as
+    :func:`fengine_dit_reference`. int8 ``(outr, outi)`` ``[B, S, N]``,
+    truncated (:func:`_trunc_s8`):
+
+    - ``"dma"``: 0 and frame ``f0 = s - s % 16``'s first sample;
+      ``"conv"``: 0 and that sample plus frame ``f0 + 1``'s;
+    - ``"fir"``: the f32 FIR's first and last N samples;
+    - ``"deint"``: the bf16 FIR's even and odd samples;
+    - ``"stagea"``: the even and odd streams' rounded T re, ``k1·N2 + n2``;
+    - ``"stageb"``: their stage-B re, ``k2·N1 + k1``.
+
+    ``"deint"`` and ``"stagea"`` are each spectrum's own values, where the
+    probe's sinks slice across the spectra of its scratch.
+    """
+    if stop not in DIT_STOPS:
+        raise ValueError(f"unknown stop {stop!r}")
+    n_taps, fft = window.shape
+    batch, n_frames, _ = frames.shape
+    n_spectra = n_frames - n_taps + 1
+    n = fft // 2
+    if stop in ("dma", "conv"):
+        f0 = torch.arange(n_spectra, device=frames.device) // ABLATE_S_BLK * ABLATE_S_BLK
+        probe = frames[:, f0, 0].to(torch.float32)
+        if stop == "conv":
+            probe = probe + frames[:, f0 + 1, 0].to(torch.float32)
+        outi = _trunc_s8(probe)[..., None].expand(batch, n_spectra, n).contiguous()
+        return torch.zeros_like(outi), outi
+    acc = _dit_fir(frames, window)
+    if stop == "fir":
+        return _trunc_s8(acc[..., :n]), _trunc_s8(acc[..., n:])
+    acc = _round_bf16(acc)
+    if stop == "deint":
+        return _trunc_s8(acc[..., 0::2]), _trunc_s8(acc[..., 1::2])
+    k = dit_constants(n1, n2, str(frames.device))
+    even, odd = (_dit_stage_a(acc[..., q::2].reshape(batch, n_spectra, n1, n2), k, _round_bf16)
+                 for q in (0, 1))
+    if stop == "stagea":
+        return _trunc_s8(even[0].reshape(batch, n_spectra, n)), _trunc_s8(
+            odd[0].reshape(batch, n_spectra, n))
+    er, _ = _dit_stage_b(*even, k, _round_bf16)
+    orr, _ = _dit_stage_b(*odd, k, _round_bf16)
+    return _trunc_s8(er.reshape(batch, n_spectra, n)), _trunc_s8(orr.reshape(batch, n_spectra, n))
+
+
+def fengine_dit_ablate(
+    frames: torch.Tensor,
+    window: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    stop: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7 (bf16 operands) cut after a stage: the kernel's stop on CUDA,
+    :func:`fengine_dit_ablate_reference` on CPU. ``frames`` ``[B, n_frames,
+    fft]`` int8, ``window`` ``[taps, fft]`` f32."""
+    if stop not in DIT_STOPS:
+        raise ValueError(f"unknown stop {stop!r}")
+    dev = frames.device
+    if dev.type == "cpu":
+        return fengine_dit_ablate_reference(stop, frames, window, n1=n1, n2=n2)
+    if dev.type != "cuda":
+        raise ValueError(f"fengine_dit_ablate: unsupported device {dev}")
+    batch, n_frames, fft = frames.shape
+    n_taps = window.shape[0]
+    if fft != 2 * n1 * n2:
+        raise ValueError(f"fengine_dit_ablate: fft {fft} != 2 * {n1} * {n2}")
+    if stop == "conv" and n_taps < 2:
+        raise ValueError("fengine_dit_ablate: the conv stop reads two frames (taps >= 2)")
+    _check("fengine_dit_ablate", frames, (
+        ("frames", frames, torch.int8, None),
+        ("window", window, torch.float32, (n_taps, fft)),
+    ))
+    if frames.data_ptr() % 2:
+        frames = frames.clone()  # sample pairs are read as char2
+    if window.data_ptr() % 16:
+        window = window.clone()
+    k = dit_constants(n1, n2, str(dev))
+    outr = torch.empty((batch, n_frames - n_taps + 1, fft // 2), dtype=torch.int8, device=dev)
+    outi = torch.empty_like(outr)
+    lib = _build.library()
+    err = lib.fengine_dit_stop_launch(
+        frames.data_ptr(), window.data_ptr(), *(t.data_ptr() for t in k[:6]),
+        outr.data_ptr(), outi.data_ptr(), batch, n_frames, n_taps, n1, n2, DIT_STOPS[stop],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err == _NO_PLAN:
+        raise _no_plan("fengine_dit_ablate", n1, n2, "the four f32 T planes of a 2-row chunk")
+    _build.check(lib, err, f"fengine_dit stop {stop}")
+    fengine_dit_ablate.launches += 1
+    return outr, outi
+
+
+#: Launches of K7's stopped kernel since the last reset.
+fengine_dit_ablate.launches = 0
+
 
 def fengine_fused(
     frames: torch.Tensor,
@@ -625,6 +870,7 @@ def fengine_fused(
     rot_planes: tuple[torch.Tensor, torch.Tensor] | None = None,
     deint: str = "auto",
     quantise: bool = True,
+    _ablate: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """FIR + rDFT + fine delay + int8 requant: K1 (direct CT) or K7 (DIT) on
     CUDA, their plain versions on CPU.
@@ -645,6 +891,13 @@ def fengine_fused(
     ``(qr, qi)`` ``[*lead, n_spectra, n_channels]``; ``quantise=False``
     (direct-CT form only, as in the reference) returns the rotated f32
     values instead, the output the channelisation qualification measures.
+
+    ``_ablate`` (the probes' diagnostic stops, ``"dma"``, ``"fir"``,
+    ``"stagea"`` or ``"stageb"``) cuts K1 after that stage and returns what
+    :func:`fengine_ablate_reference` describes; a ``"dma"`` probe serves
+    :data:`ABLATE_S_BLK` spectra. The stops exist on K1's two-pass bf16
+    body (N1 >= 16); all but ``"dma"`` need N1 == N2, as the reference's,
+    and the DFT pass's stops its 64-row chunk plan (N1 = N2 <= 256).
     """
     if dft_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"unknown dft_dtype {dft_dtype!r}")
@@ -653,13 +906,27 @@ def fengine_fused(
         raise ValueError(f"n_channels {n_channels} != fft_size/2 {fft_size // 2}")
     if fft_size < 8 or fft_size & (fft_size - 1):
         raise ValueError(f"fft_size {fft_size} is not a power of two >= 8")
+    if _ablate is not None and _ablate not in ABLATE_STOPS:
+        raise ValueError(f"unknown _ablate stage {_ablate!r}")
     mode, n1, n2 = _deint_mode(fft_size // 2, deint)
+    if mode == "ct" and _ablate is not None:
+        if dft_dtype != "bfloat16" or n1 < 16 or not quantise:
+            raise ValueError(
+                "_ablate stage stops exist on K1's two-pass bf16 body only "
+                f"(dft_dtype='bfloat16', N1 >= 16, quantise=True; got {dft_dtype!r}, "
+                f"N1 = {n1}, quantise={quantise})"
+            )
+        if _ablate != "dma" and n1 != n2:
+            raise ValueError(
+                f"_ablate stage stops other than 'dma' need n1 == n2 (got {n1} x {n2})"
+            )
     if mode != "ct":
         # The reference's gates for the DIT form (fengine_pallas.py:1265-1376).
         for flag, what in ((rowed, "rowed input"), (coarse_delays is not None,
                            "in-kernel coarse delay"), (rot_planes is not None,
                            "rot_planes (cached fine-rotation planes)"),
-                           (not quantise, "quantise=False")):
+                           (not quantise, "quantise=False"),
+                           (_ablate is not None, "_ablate stage stops")):
             if flag:
                 raise ValueError(f"{what} needs the direct-CT form (deint={mode!r})")
         *lead, n_frames, f = frames.shape
@@ -725,9 +992,9 @@ def fengine_fused(
     win = window.to(device=dev, dtype=torch.float32)
     kw = dict(n_spectra=n_spectra, n1=n1, n2=n2, dft_dtype=dft_dtype, quantise=quantise)
     if dev.type == "cuda":
-        qr, qi = _launch(x, starts, win.contiguous(), rotc, rots, **kw)
+        qr, qi = _launch(x, starts, win.contiguous(), rotc, rots, ablate=_ablate, **kw)
     elif dev.type == "cpu":
-        qr, qi = fengine_fused_reference(x, starts, win, rotc, rots, **kw)
+        qr, qi = fengine_ablate_reference(_ablate, x, starts, win, rotc, rots, **kw)
     else:
         raise ValueError(f"fengine_fused: unsupported device {dev}")
     shape = (*lead, n_spectra, n_channels)
@@ -736,3 +1003,5 @@ def fengine_fused(
 
 #: Kernel launches since the last reset (the plain CPU version never counts).
 fengine_fused.launches = 0
+#: Launches of K1's stopped passes (``_ablate``) since the last reset.
+fengine_fused.ablate_launches = 0

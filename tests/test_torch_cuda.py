@@ -9,8 +9,9 @@ runs on a machine without it:
 It covers the small geometries the flagship run in ``chip_smoke.py`` does
 not (N1 = 8 and 16, other beam counts, odd input counts, ragged tiles, FIR
 shapes off every tile boundary, the launch counters), K8 at ragged shapes,
-K1's unquantised (f32) output, K1's FIR pass alone, and K1, K7 and the
-engines above fft 65536.
+K1's unquantised (f32) output, K1's FIR pass alone, K1, K7 and the
+engines above fft 65536, and the probes' kernels (K1's and K7's stage
+stops, P1's modes, P3's loop orders) at small and ragged shapes.
 """
 
 import numpy as np
@@ -531,3 +532,88 @@ def test_auto_engines_at_fft_2_17_step_on_the_card_and_match_the_cpu_engine(dev,
             n_spectra=128, rot_planes=gpu._fine_rot(fd, ph))
         for g, r in zip(got[1:], xcorr.correlate_planes_fused_reference(qr.cpu(), qi.cpu())):
             assert g.shape == (cfg.n_channels, n_in, n_in) and torch.equal(g.cpu(), r)
+
+
+# --- The probes P1-P5 (dpdk_dc_sand_tpu_torch.benchmarks) -------------------
+
+
+@pytest.mark.parametrize("stop", ["dma", "fir", "stagea", "stageb"])
+@pytest.mark.parametrize("fft, s", [(16384, 20), (65536, 33)])
+def test_k1_stops_match_plain(dev, stop, fft, s):
+    """P5's and P4's kernels: K1's passes cut at a stage, with coarse delays
+    (one start unaligned) and S off the 16-spectrum probe blocks: dma and fir
+    bit for bit, the DFT stops within 1 code on <= 1e-3 of samples."""
+    taps, b = 16, 3
+    rng = np.random.default_rng(fft + s)
+    x = rng.integers(-16, 16, (b, (s + taps) * fft + 40), dtype=np.int8)
+    cd = np.array([0, 7, 40])
+    fd = np.zeros(b, np.float32)
+    win = default_window(taps, fft) / 8
+    kw = dict(n_channels=fft // 2, quant_scale=1 / 64, coarse_delays=cd, n_spectra=s,
+              _ablate=stop)
+    before = ff.fengine_fused.ablate_launches
+    got = ff.fengine_fused(torch.from_numpy(x).to(dev), win.to(dev), fd, fd, **kw)
+    assert ff.fengine_fused.ablate_launches == before + 1
+    ref = ff.fengine_fused(torch.from_numpy(x), win, fd, fd, **kw)
+    for g, r in zip(got, ref):
+        if stop in ("dma", "fir"):
+            assert torch.equal(g.cpu(), r)
+        else:
+            _codes_close(g.cpu(), r)
+
+
+@pytest.mark.parametrize("stop", ["dma", "conv", "fir", "deint", "stagea", "stageb"])
+@pytest.mark.parametrize("n1, n2, s", [(128, 64, 20), (256, 128, 16), (16, 8, 33)])
+def test_k7_stops_match_plain(dev, stop, n1, n2, s):
+    """P2's kernel: K7 cut at a stage, bit for bit before the chunk loop and
+    within 1 code on <= 1e-3 of samples after it."""
+    taps, b, fft = 16, 2, 2 * n1 * n2
+    rng = np.random.default_rng(n1 + s)
+    frames = torch.from_numpy(rng.integers(-64, 64, (b, s + taps - 1, fft), dtype=np.int8))
+    win = torch.from_numpy((rng.standard_normal((taps, fft)) / 64).astype(np.float32))
+    before = ff.fengine_dit_ablate.launches
+    got = ff.fengine_dit_ablate(frames.to(dev), win.to(dev), n1=n1, n2=n2, stop=stop)
+    assert ff.fengine_dit_ablate.launches == before + 1
+    for g, r in zip(got, ff.fengine_dit_ablate_reference(stop, frames, win, n1=n1, n2=n2)):
+        if stop in ("stagea", "stageb"):
+            _codes_close(g.cpu(), r)
+        else:
+            assert torch.equal(g.cpu(), r)
+
+
+_P1_SHAPES = [(8, 2, 128, 512, 128, 128), (4, 1, 48, 96, 32, 48), (3, 2, 32, 64, 32, 16),
+              (80, 2, 32, 256, 256, 32)]
+
+
+@pytest.mark.parametrize("mode, a, p, s, c, c_blk, s_chunk", [
+    (mode, *shape) for mode in ("copy", "i8", "i32", "i8m", "i8m2") for shape in _P1_SHAPES
+    if mode != "i8m2" or shape[0] % 4 == 0])
+def test_p1_modes_match_plain(dev, mode, a, p, s, c, c_blk, s_chunk):
+    """P1's kernel in every mode, on tiles that are and are not powers of
+    two, with odd antenna counts (i8m2 turns four antennas' words, so it
+    takes A % 4 == 0 only): bit for bit."""
+    from dpdk_dc_sand_tpu_torch.benchmarks import ct_kernel_probe as ctp
+
+    rng = np.random.default_rng(a * s + c)
+    qr, qi = _int8(rng, (a, p, s, c)), _int8(rng, (a, p, s, c))
+    before = ctp.ct_probe.launches
+    got = ctp.ct_probe(qr.to(dev), qi.to(dev), mode, c_blk, s_chunk)
+    assert ctp.ct_probe.launches == before + 1
+    assert torch.equal(got.cpu(), ctp.ct_probe_reference(qr, qi, mode))
+
+
+@pytest.mark.parametrize("kind", ["persi", "tapouter", "tapo2d"])
+@pytest.mark.parametrize("n1, n2, reps", [(256, 256, 40), (8, 8, 3), (5, 300, 2), (3, 7, 1)])
+def test_p3_kernel_is_bit_exact_against_plain(dev, kind, n1, n2, reps):
+    """P3's kernel in both loop orders, N2 off the 256-column block and a
+    single pass: bit for bit, the serialising chain included."""
+    from dpdk_dc_sand_tpu_torch.benchmarks import fir_probe as fp
+
+    rng = np.random.default_rng(n1 * n2 + reps)
+    x = torch.from_numpy(rng.normal(size=((fp.J + fp.TAPS - 1) * n1, n2)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(fp.TAPS * n1, n2)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    before = fp.fir_probe.launches
+    got = fp.fir_probe(x.to(dev), w.to(dev), kind, reps=reps)
+    assert fp.fir_probe.launches == before + 1
+    assert torch.equal(got.cpu(), fp.fir_probe_reference(x, w, reps))
