@@ -55,8 +55,14 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    FXB/FB step ratio against phase 6 and the step split by stage.
 11. fir    — K6 through ``pfb_fir`` at the flagship shapes (160 streams x 271
    frames x 65536, 16 taps, int8), then f32 frames on 8 streams: bit-exact
-   against ``pfb_fir_reference``; kernel and plain ms, the byte floor, and
-   one cuDNN depthwise ``conv1d`` over the same frames as the library yardstick;
+   against ``pfb_fir_reference``; kernel and plain ms, the byte floor, two
+   streaming yardsticks on K6's byte mix (an int8 -> f32 copy of the frames,
+   a fill of its output), and one cuDNN depthwise ``conv1d`` over the same
+   frames as the library yardstick. Then the ragged shape (fft 1000, 17
+   taps in two passes, S=300, 3 streams; int8 and f32, aligned and ``x[1:]``
+   bases: the async and scalar copies) bit-exact, and each K6 body's
+   registers and local (spill) bytes by ``cudaFuncGetAttributes``; a body
+   that spills fails the phase;
 12. fengine_dit — K7 through ``fengine_fused(deint="matmul")`` at fft 65536,
    taps 16, S=256 on 8 of the 160 streams, bf16 and f32 DFT: within 1 code
    on <= 1e-3 of samples of ``fengine_dit_reference``; ``deint="bitcast"``
@@ -972,6 +978,17 @@ def phase_fir(st: dict) -> None:
     f32_ms = cuda_ms(lambda: pfb.pfb_fir(xf, win))
     del xf
     torch.cuda.empty_cache()
+    copies = _k6_ragged(torch, pfb_fir, dev, gen)
+    bodies = {}
+    for depth in (4, 8, 16):
+        for f32 in (False, True):
+            for mode in pfb_fir.COPY_MODES:
+                at = pfb_fir.kernel_attributes(depth, f32, mode)
+                bodies[f"{depth}/{'f32' if f32 else 'int8'}/{mode}"] = at
+                if at["local_bytes"]:
+                    raise AssertionError(f"k6 body {depth}/{f32}/{mode} spills: {at}")
+    log("k6 bodies (register-ring depth / frames / copy: registers, local bytes): "
+        + ", ".join(f"{k} {v['regs']}, {v['local_bytes']}" for k, v in bodies.items()))
     k6_bound = bound(nb * n_frames * fft + taps * fft * 4 + nb * s * fft * 4,
                      f32=2 * taps * nb * s * fft)
     # The yardstick: one cuDNN depthwise conv1d computes the same sums over
@@ -1003,7 +1020,41 @@ def phase_fir(st: dict) -> None:
         f"({k6_bound['bound_by']}), library conv1d {lib_txt}; f32 frames [8 streams] "
         f"{f32_ms:.3f} ms ({st['card']})")
     st["k6"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **k6_bound, library_ms=lib_ms,
-                    f32_8_streams_ms=f32_ms)
+                    f32_8_streams_ms=f32_ms, copy_ms=copy_ms, fill_ms=fill_ms,
+                    ragged_copies=copies,
+                    regs={k: (v["regs"], v["local_bytes"]) for k, v in bodies.items()})
+
+
+#: K6's ragged shape: fft not a multiple of 16, more than 16 taps (two
+#: passes), S over one block's run of 256 spectra, 3 streams.
+K6_RAGGED = dict(fft=1000, taps=17, s=300, nb=3)
+
+
+def _k6_ragged(torch, pfb_fir, dev, gen) -> list:
+    """K6 bit-exact against plain at ``K6_RAGGED``, on bases that take the
+    scalar (int8 and f32 from ``x[1:]``) and async (int8 and f32, aligned)
+    copies; returns the copy modes that ran."""
+    import math
+
+    fft, taps, s, nb = (K6_RAGGED[k] for k in ("fft", "taps", "s", "nb"))
+    n = nb * (s + taps - 1) * fft
+    win = torch.randn((taps, fft), device=dev, generator=gen)
+    copies = []
+    for dtype, off in ((torch.int8, 1), (torch.int8, 0), (torch.float32, 1), (torch.float32, 0)):
+        if dtype == torch.int8:
+            raw = torch.randint(-128, 128, (n + off,), dtype=dtype, device=dev, generator=gen)
+        else:
+            raw = torch.randn((n + off,), device=dev, generator=gen) * 50
+        frames = raw[off:].view(nb, s + taps - 1, fft)
+        plan = pfb_fir._fir_plan(fft, taps, frames.element_size(),
+                                 math.gcd(frames.data_ptr(), 16), n_spectra=s)
+        _exact(f"k6 ragged {str(dtype)[6:]} [{nb} x {s + taps - 1} x {fft}, {taps} taps, "
+               f"base +{off}, {plan.copy}, {len(plan.passes)} passes]",
+               (pfb_fir.pfb_fir_frames(frames, win),), (pfb_fir.pfb_fir_reference(frames, win),))
+        copies.append(plan.copy)
+    if copies != ["scalar", "async"] * 2:
+        raise AssertionError(f"k6 ragged: the copy modes run were {copies}")
+    return copies
 
 
 def phase_fengine_dit(st: dict) -> None:

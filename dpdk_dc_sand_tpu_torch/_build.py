@@ -107,9 +107,14 @@ _SIGNATURES = {
     ],
     "pfb_fir_launch": [
         _P, _P, _P,  # frames [B, n_frames, F], window [taps, F], out [B, S, F]
-        _I, _I, _I, _I,  # batch, n_frames, F, n_taps
-        _I, _I,  # frames are f32, vector lane loads
+        _I, _I, _I, _I,  # batch, n_frames, F, n_spectra
+        _I, _I, _I,  # the pass: first tap, taps, register-ring depth (4, 8, 16)
+        _I, _I,  # frames are f32, copy mode (0 async, 1 scalar)
         _P,  # stream
+    ],
+    "pfb_fir_attributes": [
+        _I, _I, _I,  # register-ring depth (4, 8, 16), frames are f32, copy mode
+        _P, _P, _P,  # out: registers, local bytes, max threads (int*)
     ],
     "fengine_dit_launch": [
         _P, _P,  # frames [B, n_frames, fft] int8, window [taps, fft]

@@ -27,9 +27,11 @@
 // passes, launched by the wrapper over groups of batches whose bf16 FIR
 // planes fit its scratch (about 1 GB: 32 flagship streams).
 //
-// 1. k1_fir_kernel — the FIR, K6's register ring (csrc/pfb_fir.cu) on K1's
-//    inputs: a block owns 512 lanes of the frame and a run of RUN spectra of
-//    one stream; each thread keeps its 4 lanes' taps of the window in
+// 1. k1_fir_kernel — the FIR, on K1's inputs, with the register ring of
+//    K6's first body (its rows loaded straight from global memory; K6 now
+//    feeds that ring from a shared-memory ring, csrc/pfb_fir.cu): a block
+//    owns 512 lanes of the frame and a run of RUN spectra of one stream;
+//    each thread keeps its 4 lanes' taps of the window in
 //    registers and a ring of the last MAXT frame rows, so each window value
 //    is read once per run and each input byte about once. The stream starts
 //    at starts[b], which may be unaligned (byte loads then). It writes the

@@ -9,11 +9,18 @@ and in tap order with every product and sum rounded on its own,
 
 for ``s < n_frames - n_taps + 1``, so the kernel equals its plain version
 bit for bit. Frames are int8 or f32. The kernel takes every ``fft_size``,
-``n_spectra`` and ``n_taps``: the reference's ``fir_supported`` gate only
-exists for Mosaic's tiling.
+``n_spectra`` and ``n_taps`` that its grid can cover: the reference's
+``fir_supported`` gate only exists for Mosaic's tiling. :func:`_fir_plan`
+picks how the frame rows reach the kernel's shared-memory ring
+(``cp.async`` or element loads, by ``fft`` and the base's alignment) and
+splits the taps into passes of at most 16, one launch each; the kernel
+checks each pass, and a shape with no plan raises ``ValueError``.
 """
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -41,6 +48,52 @@ def pfb_fir_reference(frames: torch.Tensor, window: torch.Tensor) -> torch.Tenso
     return out
 
 
+#: The most taps a pass of K6 takes: its deepest register ring.
+PASS_TAPS = 16
+#: How each copy mode is numbered in ``pfb_fir_launch``.
+COPY_MODES = ("async", "scalar")
+_INT_MAX = 2**31 - 1
+
+
+@dataclass(frozen=True)
+class FirPlan:
+    """How K6 runs one shape: the copy mode that fills its shared-memory
+    ring, and its passes as ``(first tap, taps, register-ring depth)``, one
+    launch each."""
+
+    copy: str
+    passes: tuple[tuple[int, int, int], ...]
+
+
+def _fir_plan(fft: int, n_taps: int, elem_bytes: int, base_align: int, *,
+              n_spectra: int = 1) -> FirPlan:
+    """Plan K6 for ``[..., n_spectra + n_taps - 1, fft]`` frames of
+    ``elem_bytes`` (1: int8, 4: f32) whose base is ``base_align``-byte
+    aligned (a power of two; 16 or more counts as 16).
+
+    The copy mode: ``"async"`` (each thread's 4 lanes of a row by one
+    ``cp.async``: 4 bytes of int8, 16 of f32) where ``fft % 4 == 0`` and the
+    base is aligned to 4 elements; ``"scalar"`` element loads otherwise.
+    The passes: at most ``PASS_TAPS`` taps each, in order, a pass after the
+    first adding its taps to the sum the one before stored, each through the
+    smallest register ring (4, 8 or 16 rows) that holds its taps. The kernel
+    launches exactly these passes and refuses one that does not fit its
+    pointers. Raises ``ValueError`` where no plan exists.
+    """
+    if elem_bytes not in (1, 4):
+        raise ValueError(f"K6 takes int8 or f32 frames, not {elem_bytes}-byte elements")
+    if not (1 <= fft <= _INT_MAX and n_taps >= 1 and n_spectra >= 1):
+        raise ValueError(f"K6 has no plan for fft {fft}, {n_taps} taps, {n_spectra} spectra")
+    if n_spectra + n_taps - 1 > _INT_MAX:
+        raise ValueError(f"K6 has no plan for {n_spectra + n_taps - 1} frames")
+    copy = "async" if fft % 4 == 0 and min(16, base_align) >= 4 * elem_bytes else "scalar"
+    passes = []
+    for t0 in range(0, n_taps, PASS_TAPS):
+        taps = min(PASS_TAPS, n_taps - t0)
+        passes.append((t0, taps, next(d for d in (4, 8, 16) if taps <= d)))
+    return FirPlan(copy, tuple(passes))
+
+
 def _launch(frames: torch.Tensor, window: torch.Tensor, n_spectra: int) -> torch.Tensor:
     batch, n_frames, fft = frames.shape
     n_taps = window.shape[0]
@@ -48,20 +101,36 @@ def _launch(frames: torch.Tensor, window: torch.Tensor, n_spectra: int) -> torch
         raise ValueError(f"pfb_fir_frames: window must be float32 on {frames.device}")
     if not frames.is_contiguous() or not window.is_contiguous():
         raise ValueError("pfb_fir_frames: frames and window must be contiguous")
-    # float4 / char4 loads need 16-byte rows of window and output and
-    # aligned bases; anything else takes the kernel's scalar lane loads.
-    elem = frames.element_size()
-    vec = fft % 4 == 0 and frames.data_ptr() % (4 * elem) == 0 and window.data_ptr() % 16 == 0
+    if window.data_ptr() % 16:  # a view into a larger buffer: give it its own
+        window = window.clone()
+    plan = _fir_plan(fft, n_taps, frames.element_size(), math.gcd(frames.data_ptr(), 16),
+                     n_spectra=n_spectra)
     out = torch.empty((batch, n_spectra, fft), dtype=torch.float32, device=frames.device)
     lib = _build.library()
-    err = lib.pfb_fir_launch(
-        frames.data_ptr(), window.data_ptr(), out.data_ptr(),
-        batch, n_frames, fft, n_taps, int(frames.dtype == torch.float32), int(vec),
-        torch.cuda.current_stream(frames.device).cuda_stream,
-    )
-    _build.check(lib, err, "pfb_fir")
+    stream = torch.cuda.current_stream(frames.device).cuda_stream
+    for tap0, taps, depth in plan.passes:
+        err = lib.pfb_fir_launch(
+            frames.data_ptr(), window.data_ptr(), out.data_ptr(),
+            batch, n_frames, fft, n_spectra, tap0, taps, depth,
+            int(frames.dtype == torch.float32), COPY_MODES.index(plan.copy), stream,
+        )
+        _build.check(lib, err, "pfb_fir")
     pfb_fir_frames.launches += 1
     return out
+
+
+def kernel_attributes(ring_depth: int, in_f32: bool, copy: str) -> dict:
+    """``cudaFuncGetAttributes`` of K6's body for a pass of ``ring_depth``
+    (4, 8 or 16) register-ring rows: registers, local (spill) bytes and the
+    most threads a block. Needs the card."""
+    import ctypes
+
+    lib = _build.library()
+    regs, local, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.pfb_fir_attributes(ring_depth, int(in_f32), COPY_MODES.index(copy),
+                                 ctypes.byref(regs), ctypes.byref(local), ctypes.byref(threads))
+    _build.check(lib, err, "pfb_fir_attributes")
+    return dict(regs=regs.value, local_bytes=local.value, max_threads=threads.value)
 
 
 def pfb_fir_frames(frames: torch.Tensor, window: torch.Tensor) -> torch.Tensor:

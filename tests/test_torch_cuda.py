@@ -210,6 +210,48 @@ def test_k6_kernel_takes_an_unaligned_stream(dev):
     assert torch.equal(got.cpu(), pfb_fir.pfb_fir_reference(raw[1:].reshape(-1, fft), win))
 
 
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+@pytest.mark.parametrize("fft", [1000, 1024, 4096, 65536])
+@pytest.mark.parametrize("taps", [1, 4, 8, 16, 17, 40])
+def test_k6_every_plan_is_bit_exact_against_plain(dev, dtype, fft, taps):
+    """Every copy mode (async, scalar), register-ring depth and pass
+    count the planner picks: S below and above one block's run, an aligned
+    base, one a sample in (``x[1:]``) and one four samples in, a batch of 1
+    and of 3."""
+    import math
+
+    rng = np.random.default_rng(fft + taps + len(dtype))
+    win = torch.from_numpy(rng.normal(0, 1, (taps, fft)).astype(np.float32))
+    copies = set()
+    for s, off, b in [(5, 0, 3), (300, 0, 1), (300, 1, 3), (5, 1, 1), (300, 4, 1)]:
+        n = b * (s + taps - 1) * fft
+        if dtype == "int8":
+            raw = torch.from_numpy(rng.integers(-128, 128, n + off, dtype=np.int8))
+        else:
+            raw = torch.from_numpy(rng.normal(0, 50, n + off).astype(np.float32))
+        frames = raw.to(dev)[off:].view(b, s + taps - 1, fft)
+        plan = pfb_fir._fir_plan(fft, taps, frames.element_size(),
+                                 math.gcd(frames.data_ptr(), 16), n_spectra=s)
+        copies.add(plan.copy)
+        before = pfb_fir.pfb_fir_frames.launches
+        got = pfb_fir.pfb_fir_frames(frames, win.to(dev))
+        assert pfb_fir.pfb_fir_frames.launches == before + 1
+        ref = pfb_fir.pfb_fir_reference(raw[off:].view(b, s + taps - 1, fft), win)
+        assert torch.equal(got.cpu(), ref), (s, off, b, plan)
+    assert copies == {"async", "scalar"}
+
+
+def test_k6_kernel_attributes_show_no_spills(dev):
+    """Each body's registers leave room for three blocks of 4 warps an SM,
+    and none spills (``cudaFuncGetAttributes``)."""
+    for depth in (4, 8, 16):
+        for f32 in (False, True):
+            for copy in pfb_fir.COPY_MODES:
+                at = pfb_fir.kernel_attributes(depth, f32, copy)
+                assert at["local_bytes"] == 0, (depth, f32, copy, at)
+                assert at["regs"] * 128 * 3 <= 65536, (depth, f32, copy, at)
+
+
 @pytest.mark.parametrize("fft, deint", [(1024, "matmul"), (2048, "bitcast"), (2048, "matmul"),
                                         (512, "auto"), (65536, "matmul")])
 @pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
@@ -309,7 +351,7 @@ def test_k1_unquantised_kernel_matches_plain(dev, fft, rowed, dft_dtype):
             assert float(d.max()) < 1.0 and over <= 1e-2, (float(d.max()), over)
 
 
-@pytest.mark.parametrize("n", [1, 3, 4, 1023, 4097, (1 << 20) + 2])
+@pytest.mark.parametrize("n", [1, 3, 4, 1023, 4097, 4099, (1 << 20) + 2, (1 << 22) + 3])
 def test_e1_kernel_is_bit_exact_against_plain(dev, n):
     from dpdk_dc_sand_tpu_torch.ops.vector_add import vector_add, vector_add_reference
 

@@ -9,6 +9,7 @@ The rfft (pocketfft here, XLA's on the JAX side) adds f32 rounding:
 rtol 1e-4 / atol 2e-3 on the channelised output.
 """
 
+import math
 from unittest import mock
 
 import jax.numpy as jnp
@@ -107,3 +108,75 @@ def test_pfb_fir_input_checks():
     with pytest.raises(ValueError, match="unsupported device"):
         pfb_fir.pfb_fir_frames(torch.zeros((1, 4, 64), dtype=torch.int8, device="meta"),
                                win.to("meta"))
+
+
+# K6's planner (``pfb_fir._fir_plan``): it runs here, without the card.
+_PLAN_FFTS = [1000, 1024, 4096, 65536]
+_PLAN_TAPS = [1, 4, 8, 16, 17, 40]
+
+
+@pytest.mark.parametrize("fft", _PLAN_FFTS)
+@pytest.mark.parametrize("taps", _PLAN_TAPS)
+def test_k6_plan_passes_cover_the_taps_in_order_each_in_a_ring_that_holds_them(fft, taps):
+    """The passes take the taps in order, at most 16 each, and each pass's
+    register ring (4, 8 or 16 rows) is the smallest that holds its taps;
+    the frame type and alignment change only the copy mode."""
+    plans = {pfb_fir._fir_plan(fft, taps, elem, align, n_spectra=130)
+             for elem in (1, 4) for align in (1, 2, 4, 8, 16, 256)}
+    assert len({plan.passes for plan in plans}) == 1
+    passes = pfb_fir._fir_plan(fft, taps, 1, 16).passes
+    assert [t0 for t0, _, _ in passes] == list(range(0, taps, pfb_fir.PASS_TAPS))
+    assert sum(n for _, n, _ in passes) == taps
+    for _, n, depth in passes:
+        assert 1 <= n <= pfb_fir.PASS_TAPS and depth in (4, 8, 16) and depth >= n
+        assert depth == 4 or depth // 2 < n  # the smallest ring that holds them
+
+
+@pytest.mark.parametrize(
+    "fft, elem, align, copy",
+    [(65536, 1, 16, "async"), (1024, 4, 16, "async"), (1000, 4, 16, "async"),
+     (1000, 1, 16, "async"), (4100, 1, 4, "async"), (65536, 1, 4, "async"),
+     (65536, 1, 8, "async"), (65536, 1, 1, "scalar"), (65536, 4, 4, "scalar"),
+     (65536, 4, 8, "scalar"), (1002, 1, 16, "scalar"), (1002, 4, 16, "scalar"),
+     (6, 1, 16, "scalar")],
+)
+def test_k6_plan_copy_mode_follows_row_bytes_and_alignment(fft, elem, align, copy):
+    """async: fft % 4 == 0 on a base aligned to 4 elements (4 bytes of
+    int8, 16 of f32); scalar: the rest."""
+    assert pfb_fir._fir_plan(fft, 16, elem, align).copy == copy
+
+
+@pytest.mark.parametrize(
+    "args, kw",
+    [((1024, 16, 2, 16), {}), ((1024, 0, 1, 16), {}), ((0, 16, 1, 16), {}),
+     ((1 << 31, 16, 1, 16), {}), ((65536, 16, 1, 16), dict(n_spectra=1 << 31)),
+     ((1024, 16, 1, 16), dict(n_spectra=0))],
+)
+def test_k6_plan_refuses_a_shape_with_no_plan(args, kw):
+    with pytest.raises(ValueError):
+        pfb_fir._fir_plan(*args, **kw)
+
+
+def test_k6_wrapper_launches_each_pass_of_the_plan(monkeypatch):
+    """The wrapper hands the kernel exactly the plan's passes, in order, with
+    its copy mode, and counts one launch a call (the card is stubbed)."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def pfb_fir_launch(*args):
+            calls.append(args[3:12])
+            return 0
+
+    monkeypatch.setattr(pfb_fir._build, "library", lambda: Lib)
+    monkeypatch.setattr(pfb_fir.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    frames = torch.zeros((3, 340, 1000), dtype=torch.int8)
+    window = torch.zeros((40, 1000), dtype=torch.float32)
+    before = pfb_fir.pfb_fir_frames.launches
+    pfb_fir._launch(frames, window, 301)
+    plan = pfb_fir._fir_plan(1000, 40, 1, math.gcd(frames.data_ptr(), 16), n_spectra=301)
+    assert plan.passes == ((0, 16, 16), (16, 16, 16), (32, 8, 8))
+    mode = pfb_fir.COPY_MODES.index(plan.copy)
+    assert calls == [(3, 340, 1000, 301, t0, n, d, 0, mode) for t0, n, d in plan.passes]
+    assert pfb_fir.pfb_fir_frames.launches == before + 1
