@@ -39,9 +39,14 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    C=32768 vs its plain version, bit-exact; ``corner_turn_planes_x`` (K5a)
    must be the same bytes viewed as ``[C, 2AP, S]``; kernel and plain times;
 8. xcorr   — at the same shapes, K3 through ``correlate_planes_fused`` vs its
-   plain version, bit-exact; then the two-pass X path (K5a, then K5b
-   through ``correlate_turned_fused``) driven with its launch counts reset,
-   and K5b held bit-exact against its plain version; kernel and plain times;
+   plain version, bit-exact; its yardsticks: a fill of its two outputs, its
+   body's registers and local (spill) bytes (a body that spills fails the
+   phase) and, on the log line only, the bytes its geometry stages from L2;
+   its stage stops (the copies, the MMAs, the stores, alone and in pairs),
+   each checked for what it writes and timed; then the two-pass X path (K5a,
+   then K5b through ``correlate_turned_fused``) driven with its launch
+   counts reset, and K5b held bit-exact against its plain version; kernel
+   and plain times;
 9. fxb_engine — FXBEngine at 8 antennas x 32768 ch x 16 beams x 16 taps,
    S=256, vs the plain chain on the same device tensors: F planes within 1
    code on <= 1e-3, visibilities exactly the plain gram of the step's own F
@@ -732,6 +737,37 @@ def phase_xcorr(st: dict) -> None:
     del got, ref
     k3_ms = cuda_ms(lambda: xc.correlate_planes_fused(qr, qi))
     k3_pms = cuda_ms(lambda: xc.correlate_planes_fused_reference(qr, qi), iters=1)
+    # K3's yardsticks: a fill of its outputs (the write rate this card gives,
+    # timed as phase 11 times K6's fill), and its body's registers and local
+    # (spill) bytes as the runtime reports them.
+    vre, vim = (torch.empty((c, i, i), dtype=torch.float32, device=qr.device) for _ in range(2))
+    fill_ms = cuda_ms(lambda: (vre.fill_(1.0), vim.fill_(1.0)))
+    k3_at = xc.kernel_attributes(i, s, c)
+    # The bytes K3 stages from L2, from its geometry (a log figure, not a
+    # reading): each 16-input tile's re and im rows are staged by the n_t + 1
+    # items of the upper triangle that name that tile, over every sample.
+    staged_gb = 2 * (-(-i // 16) + 1) * i * s * c / 1e9
+    log(f"k3 yardsticks {tag}: fill of V_re and V_im {fill_ms:.3f} ms "
+        f"({8 * c * i * i / fill_ms / 1e9:.2f} TB/s); body {k3_at['regs']} registers, "
+        f"{k3_at['local_bytes']} local bytes, {k3_at['blocks']} blocks; stages "
+        f"{staged_gb:.2f} GB from L2 by its geometry ({staged_gb / k3_ms:.2f} TB/s) "
+        f"({st['card']})")
+    if k3_at["local_bytes"]:
+        raise AssertionError(f"k3 body spills: {k3_at}")
+    # K3's stage stops split its time: each is checked for what it writes
+    # (zeros with the stores, nothing without), then timed as K3 is.
+    stop_ms = {}
+    for stop in xc.K3_STOPS:
+        vre.fill_(1.0)
+        vim.fill_(1.0)
+        xc.correlate_planes_fused_stop(qr, qi, vre, vim, stop)
+        want = 0.0 if "store" in stop else 1.0
+        if not all(bool((v == want).all()) for v in (vre, vim)):
+            raise AssertionError(f"k3 stop {stop} did not leave its outputs all {want}")
+        stop_ms[stop] = cuda_ms(lambda: xc.correlate_planes_fused_stop(qr, qi, vre, vim, stop))
+    del vre, vim
+    log(f"k3 stops {tag} (ms; full {k3_ms:.3f}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stop_ms.items()) + f" ({st['card']})")
     # The two-pass X path (K5a, then K5b) as FXB runs it where K3's gate fails.
     ct.corner_turn_planes.launches = 0
     xc.correlate_turned_fused.launches = 0
@@ -753,7 +789,9 @@ def phase_xcorr(st: dict) -> None:
         f"plain {k5b_pms:.3f} ms (floor: {gbytes:.2f} GB read+written) ({st['card']})")
     # V_re and V_im: 4 int8 products per pair, the upper triangle only.
     x_bound = bound(gbytes * 1e9, int8=2 * 4 * c * s * i * (i + 1) // 2)
-    st["k3"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_pms, **x_bound, library_ms=None)
+    st["k3"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_pms, **x_bound, library_ms=None,
+                    fill_ms=fill_ms, ms_by_stop=stop_ms, regs=k3_at["regs"],
+                    local_bytes=k3_at["local_bytes"])
     st["k5b"] = dict(max_abs_err=k5b_err, ms=k5b_ms, plain_ms=k5b_pms,
                      launches=two_pass["k5b"], **x_bound, library_ms=None)
 

@@ -100,6 +100,15 @@ _SIGNATURES = {
         _I, _I, _I,  # n_inputs, n_spectra, n_channels
         _P,  # stream
     ],
+    "xcorr_fused_stop_launch": [
+        _P, _P, _P, _P,  # qr, qi [A, P, S, C], vre, vim [C, I, I]
+        _I, _I, _I, _I,  # n_inputs, n_spectra, n_channels, stages (a mask)
+        _P,  # stream
+    ],
+    "xcorr_fused_attributes": [
+        _I, _I, _I,  # n_inputs, n_spectra, n_channels
+        _P, _P, _P,  # out (int*): registers, local bytes, blocks
+    ],
     "xcorr_turned_launch": [
         _P, _P, _P,  # xt [C, 2I, S], vre, vim [C, I, I]
         _I, _I, _I,  # n_inputs, n_spectra, n_channels

@@ -8,6 +8,9 @@ Two kernels in ``csrc/xcorr.cu``:
 - :func:`correlate_turned_fused` (K5b) reads the turned ``[C, 2I, S]``
   layout of :func:`~dpdk_dc_sand_tpu_torch.ops.corner_turn.corner_turn_planes_x`.
 
+:func:`correlate_planes_fused_stop` launches K3 cut to some of its stages
+(the ring's copies, the MMAs, the stores), which splits its time on the card.
+
 With ``Y = [re rows; im rows]`` of a channel's ``I = A·P`` inputs and
 ``G = Y·Yᵀ``: ``V_re = G₁₁ + G₂₂`` and ``V_im = G₂₁ − G₁₂``, ``[C, I, I]``
 f32. The kernels accumulate exact s32 sums; the plain versions
@@ -151,6 +154,54 @@ def correlate_planes_fused(qr: torch.Tensor, qi: torch.Tensor) -> tuple[torch.Te
     _build.check(lib, err, "xcorr_fused")
     correlate_planes_fused.launches += 1
     return vre, vim
+
+
+def kernel_attributes(n_inputs: int, n_spectra: int, n_channels: int) -> dict:
+    """K3's body as the runtime reports it: registers and local (spill) bytes
+    (``cudaFuncGetAttributes``), and the blocks of its persistent grid for a
+    shape (the occupancy API). Needs the card."""
+    import ctypes
+
+    lib = _build.library()
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.xcorr_fused_attributes(n_inputs, n_spectra, n_channels, ctypes.byref(regs),
+                                     ctypes.byref(local), ctypes.byref(blocks))
+    _build.check(lib, err, "xcorr_fused_attributes")
+    return dict(regs=regs.value, local_bytes=local.value, blocks=blocks.value)
+
+
+#: K3's stage stops: the stages of its body each keeps (``csrc/xcorr.cu``,
+#: ``K3_COPY`` 1, ``K3_MMA`` 2, ``K3_STORE`` 4).
+K3_STOPS = {"copy": 1, "mma": 2, "store": 4, "copy_mma": 3, "mma_store": 6}
+
+
+def correlate_planes_fused_stop(qr: torch.Tensor, qi: torch.Tensor, vre: torch.Tensor,
+                                vim: torch.Tensor, stop: str) -> None:
+    """Launch K3 cut to some of its stages, to split its time (CUDA only).
+
+    Writes into ``vre``, ``vim`` ``[C, I, I]`` f32 what the stop leaves: the
+    stops with ``store`` write zeros everywhere, the others nothing. Does not
+    count as a K3 launch.
+    """
+    if stop not in K3_STOPS:
+        raise ValueError(f"correlate_planes_fused_stop: unknown stop {stop!r}")
+    if qr.ndim != 4 or qi.shape != qr.shape:
+        raise ValueError(f"planes {tuple(qr.shape)}/{tuple(qi.shape)}: want two [A, P, S, C]")
+    a, p, s, c = qr.shape
+    if qr.device.type != "cuda":
+        raise ValueError(f"correlate_planes_fused_stop: needs CUDA tensors, not {qr.device}")
+    _check("correlate_planes_fused_stop", (qr, qi), qr.device)
+    want = (c, a * p, a * p)
+    for v in (vre, vim):
+        if v.shape != want or v.dtype != torch.float32 or v.device != qr.device \
+                or not v.is_contiguous():
+            raise ValueError(f"correlate_planes_fused_stop: outputs must be {want} f32 on {qr.device}")
+    lib = _build.library()
+    err = lib.xcorr_fused_stop_launch(
+        qr.data_ptr(), qi.data_ptr(), vre.data_ptr(), vim.data_ptr(), a * p, s, c,
+        K3_STOPS[stop], torch.cuda.current_stream(qr.device).cuda_stream,
+    )
+    _build.check(lib, err, "xcorr_fused_stop")
 
 
 #: Kernel launches since the last reset (the plain CPU versions never count).

@@ -8,7 +8,9 @@ runs on a machine without it:
 
 It covers the small geometries the flagship run in ``chip_smoke.py`` does
 not (N1 = 8 and 16, other beam counts, odd input counts, ragged tiles, FIR
-shapes off every tile boundary, the launch counters), K8 at ragged shapes,
+shapes off every tile boundary, the launch counters), K3 over a grid of
+input counts, S and C, at the int8 extremes and from a base aligned to 4
+bytes only, with its C-side geometry and its stage stops, K8 at ragged shapes,
 K1's unquantised (f32) output, K1's FIR pass alone, K1, K7 and the
 engines above fft 65536, and the probes' kernels (K1's and K7's stage
 stops, P1's modes, P3's loop orders) at small and ragged shapes.
@@ -140,6 +142,104 @@ def test_k3_kernel_matches_plain(dev, a, p, s, c):
     assert xcorr.correlate_planes_fused.launches == before + 1
     for g, r in zip(got, xcorr.correlate_planes_fused_reference(qr, qi)):
         assert torch.equal(g.cpu(), r)
+
+
+#: (A, P) for each input count of K3's grid: one input, a ragged tile, one
+#: whole tile, a tile and one, two ragged tiles, the flagship's 160.
+K3_INPUTS = {1: (1, 1), 3: (3, 1), 16: (8, 2), 17: (17, 1), 34: (17, 2), 160: (80, 2)}
+
+
+def _k3_check(dev, qr, qi):
+    before = xcorr.correlate_planes_fused.launches
+    got = xcorr.correlate_planes_fused(qr.to(dev), qi.to(dev))
+    assert xcorr.correlate_planes_fused.launches == before + 1
+    for g, r in zip(got, xcorr.correlate_planes_fused_reference(qr, qi)):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("c", [128, 384])
+@pytest.mark.parametrize("s", [128, 256, 1024])
+@pytest.mark.parametrize("i", sorted(K3_INPUTS))
+def test_k3_ring_body_is_bit_exact(dev, i, s, c):
+    a, p = K3_INPUTS[i]
+    rng = np.random.default_rng(7 * i + s + c)
+    _k3_check(dev, _int8(rng, (a, p, s, c)), _int8(rng, (a, p, s, c)))
+
+
+def test_k3_persistent_blocks_walk_many_items(dev):
+    """C = 4096 at I = 160: 7040 work items, dozens on each block."""
+    rng = np.random.default_rng(11)
+    _k3_check(dev, _int8(rng, (80, 2, 128, 4096)), _int8(rng, (80, 2, 128, 4096)))
+
+
+def test_k3_takes_a_base_aligned_to_4_bytes_only(dev):
+    a, p, s, c = 17, 2, 256, 128
+    rng = np.random.default_rng(12)
+    n = a * p * s * c
+    raw = _int8(rng, (2, n + 16)).to(dev)
+    qr, qi = raw[0, 4:4 + n].view(a, p, s, c), raw[1, 12:12 + n].view(a, p, s, c)
+    assert qr.data_ptr() % 16 and qi.data_ptr() % 16
+    before = xcorr.correlate_planes_fused.launches
+    got = xcorr.correlate_planes_fused(qr, qi)
+    assert xcorr.correlate_planes_fused.launches == before + 1
+    for g, r in zip(got, xcorr.correlate_planes_fused_reference(qr.cpu(), qi.cpu())):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("pattern", ["all_min", "alternating"])
+def test_k3_holds_the_largest_sums(dev, pattern):
+    """S = 1024 at the int8 extremes: V_re reaches 2^25 with every code -128."""
+    a, p, s, c = 17, 2, 1024, 128
+    if pattern == "all_min":
+        qr = torch.full((a, p, s, c), -128, dtype=torch.int8)
+        qi = qr.clone()
+    else:
+        idx = torch.arange(a * p * s * c).view(a, p, s, c)
+        qr = torch.where(idx % 2 == 0, 127, -128).to(torch.int8)
+        qi = torch.where(idx % 3 == 0, -128, torch.where(idx % 3 == 1, 127, -127)).to(torch.int8)
+    _k3_check(dev, qr, qi)
+    if pattern == "all_min":
+        vre = xcorr.correlate_planes_fused(qr.to(dev), qi.to(dev))[0]
+        assert float(vre.max()) == 2.0 ** 25
+
+
+def test_k3_geometry_is_the_c_sides(dev):
+    """The body's attributes come from the runtime; the C side refuses a
+    shape it cannot take (S % 32, C % 32) before any launch."""
+    from dpdk_dc_sand_tpu_torch import _build
+
+    at = xcorr.kernel_attributes(160, 256, 32768)
+    assert at["regs"] > 0 and at["local_bytes"] == 0
+    assert 1 <= at["blocks"] <= torch.cuda.get_device_properties(dev).multi_processor_count * 2
+    # A shape of fewer items than SMs: one block an item (3 tiles x 4 channel blocks).
+    assert xcorr.kernel_attributes(17, 128, 128)["blocks"] == 12
+    lib = _build.library()
+    x = torch.zeros(4 * 48 * 128, dtype=torch.int8, device=dev)
+    out = torch.empty(128 * 16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for s, c in ((48, 128), (128, 48)):
+        err = lib.xcorr_fused_launch(x.data_ptr(), x.data_ptr(), out.data_ptr(), out.data_ptr(),
+                                     4, s, c, stream)
+        assert err != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("stop", sorted(xcorr.K3_STOPS))
+def test_k3_stops_write_what_they_keep(dev, stop):
+    """A stop with the stores writes zeros over every output; one without
+    writes nothing; neither counts as a K3 launch."""
+    a, p, s, c = 17, 2, 256, 4096
+    rng = np.random.default_rng(13)
+    qr, qi = (_int8(rng, (a, p, s, c)).to(dev) for _ in range(2))
+    vre, vim = (torch.ones((c, a * p, a * p), device=dev) for _ in range(2))
+    before = xcorr.correlate_planes_fused.launches
+    xcorr.correlate_planes_fused_stop(qr, qi, vre, vim, stop)
+    want = torch.zeros_like(vre) if "store" in stop else torch.ones_like(vre)
+    assert torch.equal(vre, want) and torch.equal(vim, want)
+    assert xcorr.correlate_planes_fused.launches == before
+    with pytest.raises(RuntimeError, match="xcorr_fused_stop"):  # the C side refuses S = 48
+        xcorr.correlate_planes_fused_stop(qr[:, :, :48].contiguous(), qi[:, :, :48].contiguous(),
+                                          vre, vim, stop)
 
 
 @pytest.mark.parametrize("i, s, c", [(3, 128, 128), (5, 1024, 256), (17, 128, 24), (6, 8, 16)])

@@ -75,6 +75,16 @@ def test_wrappers_refuse_geometries_outside_their_gates():
         xcorr.correlate_planes_fused(q, q)
 
 
+@pytest.mark.parametrize("stop", sorted(xcorr.K3_STOPS) + ["full"])
+def test_k3_stops_refuse_before_any_launch(stop):
+    """K3's stage stops run on the card only, and take only their own names."""
+    q = torch.zeros((2, 2, 128, 128), dtype=torch.int8)
+    v = torch.zeros((128, 4, 4))
+    match = "needs CUDA" if stop in xcorr.K3_STOPS else "unknown stop"
+    with pytest.raises(ValueError, match=match):
+        xcorr.correlate_planes_fused_stop(q, q, v, v, stop)
+
+
 @pytest.mark.parametrize("precision", ["int8", "f32", "bf16"])
 def test_correlate_planes_matches_reference(precision):
     c, t, i = 8, 64, 6
