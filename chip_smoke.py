@@ -21,9 +21,10 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    within 2 + 1e-3 and off by more than 1e-3 on <= 5e-3 of them;
 4. k2      — K2 (fused B kernel) through ``beamform_turned_fused`` vs its
    plain version at the flagship C and B with A=8, bf16 and f32 weights:
-   rtol 1e-5, atol 1e-3;
+   rtol 1e-5, atol 1e-3, its launch counter rising by one each;
 5. engine  — FBEngine vs the plain F + plain B chain at 8 antennas x 32768
-   ch x 16 beams x 16 taps, S=256: F planes within 1 code on <= 1e-3,
+   ch x 16 beams x 16 taps, S=256 (the step must launch K2 once): F planes
+   within 1 code on <= 1e-3,
    |d| > 1e-3 on <= 5e-3 of beams, and every beam within the sum of |w|
    over its differing F codes (+1e-3);
 6. flagship — FBEngine at 80 x 32768 x 16 x 16, S=256, wire-rowed ADC made
@@ -33,6 +34,11 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    step's beams must equal K2(K1(adc)) through the wrappers, and each
    kernel is held against its plain version at these flagship shapes
    (K1: 1 code on <= 1e-3; K2: rtol 1e-5, atol 1e-3) and timed beside it;
+   K2's yardsticks: its tensor-core body's registers, spill bytes and
+   geometry (a body that spills fails the phase; on the log line only, the
+   bytes its geometry moves from L2), a fill of its output, and its stage
+   stops (the copies, the MMAs, the stores, alone and in pairs), each
+   checked for what it writes and timed;
    K1's FIR pass over all 160 streams bit-exact against its plain version,
    and each of K1's passes timed alone; the step's peak device memory.
 7. corner_turn — K4 through ``corner_turn_planes`` at A=80, P=2, S=256,
@@ -442,8 +448,11 @@ def phase_k2(st: dict) -> None:
     qr, qi = _planes(torch, a, p, s, c, gen, dev)
     for prec, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         w = _blocks(torch, nbeam, a, c, gen, dev, dtype)
+        before = bstage.beamform_turned_fused.launches
         got = bstage.beamform_turned_fused(qr, qi, w, n_pols=p, precision=prec,
                                            layout="packed")
+        if bstage.beamform_turned_fused.launches != before + 1:
+            raise AssertionError(f"k2 {prec}: the wrapper did not launch K2")
         ref = bstage.beamform_turned_fused_reference(qr, qi, w, prec)
         torch.cuda.synchronize()
         _beam_diff(f"k2 {prec} [A={a} C={c} B={nbeam} S={s}]", got, ref)
@@ -464,7 +473,10 @@ def phase_engine(st: dict) -> None:
                   beam_layout="natural", device=dev)
     adc, cd, fd, ph, dv = fb.example_inputs(seed=SEED, margin=8192, rowed=True)
     fb.set_beam_delays(dv)
+    before = bstage.beamform_turned_fused.launches
     out = fb.step(adc, cd, fd, ph)
+    if bstage.beamform_turned_fused.launches != before + 1:
+        raise AssertionError("engine: the step did not launch K2")
     # The plain chain on the same device tensors.
     n1, n2 = ff._split_ct(cfg.fft_size)
     flat = torch.as_tensor(adc, device=dev).reshape(a, p, -1)
@@ -670,7 +682,55 @@ def phase_flagship(st: dict) -> None:
                     **st["k1_subset"])
     st["fb_peak_gb"] = peak_gb
     st["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound,
-                    library_ms=None)
+                    library_ms=None, **_k2_yardsticks(st, qr, qi, w, k2_ms))
+
+
+def _k2_yardsticks(st, qr, qi, w, k2_ms) -> dict:
+    """K2's yardsticks at the flagship: its tensor-core body's registers,
+    spill bytes and geometry (a body that spills fails the phase), a fill of
+    its output, and its stage stops, each checked for what it writes (zeros
+    with the stores, nothing without) and timed as K2 is."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import bstage
+
+    a, p, s, c = qr.shape
+    nb2 = w.shape[-1]
+    at = bstage.kernel_attributes(a, p, s, nb2 // 2, c)
+    out = torch.empty((c // (128 // nb2), p * s, 128), dtype=torch.float32, device=qr.device)
+    fill_ms = cuda_ms(lambda: out.fill_(1.0))
+    # The bytes its geometry moves from L2 to the SMs (a count, not a
+    # reading): each plane run of `channels` bytes in its own 32-byte
+    # sectors, and the weights once (resident) or once an m tile (staged).
+    runs = 2 * a * p * s * (c // at["channels"])
+    plane_gb = runs * 32 * -(-at["channels"] // 32) / 1e9
+    weight_gb = c * 2 * a * nb2 * 2 * (1 if at["resident"] else p * s // at["m_rows"]) / 1e9
+    log(f"k2 body [A={a} P*S={p * s} C={c} 2B={nb2}]: {at['regs']} registers, "
+        f"{at['local_bytes']} local bytes, {at['blocks']} blocks; work item {at['channels']} "
+        f"channels x {at['m_rows']} rows, K step {at['k_rows']} rows, weights "
+        f"{'resident' if at['resident'] else 'staged'}, {at['smem_bytes']} bytes of shared memory; "
+        f"from L2 by its geometry {plane_gb:.3f} GB of plane sectors + {weight_gb:.3f} GB of "
+        f"weights = {plane_gb + weight_gb:.3f} GB ({(plane_gb + weight_gb) / k2_ms:.2f} TB/s "
+        f"over K2's time); fill of its output {fill_ms:.3f} ms "
+        f"({out.numel() * 4 / fill_ms / 1e9:.2f} TB/s) ({st['card']})")
+    if at["local_bytes"]:
+        raise AssertionError(f"k2 body spills: {at}")
+    stop_ms = {}
+    for stop in bstage.K2_STOPS:
+        out.fill_(1.0)
+        before = bstage.beamform_turned_fused.launches
+        bstage.beamform_turned_fused_stop(qr, qi, w, out, stop)
+        want = 0.0 if "store" in stop else 1.0
+        if not bool((out == want).all()) or bstage.beamform_turned_fused.launches != before:
+            raise AssertionError(f"k2 stop {stop} did not leave its output all {want}")
+        stop_ms[stop] = cuda_ms(lambda: bstage.beamform_turned_fused_stop(qr, qi, w, out, stop))
+    del out
+    split = stop_ms["copy"] + stop_ms["mma_store"]
+    log(f"k2 stops [A={a} C={c} 2B={nb2}] (ms; full {k2_ms:.3f}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stop_ms.items())
+        + f"; copy + mma_store {split:.3f} ({split / k2_ms:.3f} of full) ({st['card']})")
+    return dict(fill_ms=fill_ms, ms_by_stop=stop_ms, regs=at["regs"],
+                local_bytes=at["local_bytes"])
 
 
 def _exact(tag, got, ref):

@@ -90,6 +90,16 @@ _SIGNATURES = {
         _I, _I, _I, _I,  # n_ants, P·S, n_channels, 2B
         _P,  # stream
     ],
+    "bstage_fused_stop_launch": [
+        _P, _P, _P, _P,  # qr, qi, w (bf16), out [C/pack, P·S, pack·2B]
+        _I, _I, _I, _I, _I,  # n_ants, P·S, n_channels, 2B, stages (a mask)
+        _P,  # stream
+    ],
+    "bstage_fused_attributes": [
+        _I, _I, _I, _I,  # n_ants, P·S, n_channels, 2B
+        _P,  # out (int[8]): registers, local bytes, blocks, channels, m rows, K rows,
+        # resident weights, shared-memory bytes
+    ],
     "corner_turn_launch": [
         _P, _P, _P,  # qr, qi [A·P·S, C], out [C, planes·A·P·S]
         _L, _I, _I,  # rows (A·P·S), n_channels, planes (2: qr and qi; 1: qr)

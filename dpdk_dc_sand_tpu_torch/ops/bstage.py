@@ -5,6 +5,11 @@ kernel ``csrc/bstage_fused.cu`` (K2); for CPU tensors it runs
 :func:`beamform_turned_fused_reference`, the plain PyTorch version. Both
 convert int8 samples exactly, take the weights in the precision's dtype
 (bf16 or f32) and accumulate in f32.
+
+:func:`beamform_turned_fused_stop` launches K2's tensor-core body cut to
+some of its stages (the ring's copies, the MMAs, the stores), which splits
+its time on the card; :func:`kernel_attributes` reports that body's
+registers, spill bytes and geometry.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ _PLAIN_CHANNEL_CHUNK = 4096
 def bstage_fused_supported(
     n_ants: int, n_pols: int, n_spectra: int, n_beams: int, n_channels: int
 ) -> bool:
-    """Geometry gate of K2 (its tiling: 32-channel tiles, 64-row m tiles)."""
+    """Geometry gate of K2 (its SIMT body's tiling: 32-channel tiles, 64-row
+    m tiles; the tensor-core body takes 16 channels and 64 or 32 rows)."""
     nb2 = 2 * n_beams
     return (
         n_ants >= 1
@@ -89,15 +95,22 @@ def beamform_turned_fused_reference(
     )
 
 
-def _launch(qr, qi, w, nb2):
+def _check_kernel_inputs(what, qr, qi, w, nb2):
+    if qr.ndim != 4 or qi.shape != qr.shape:
+        raise ValueError(f"{what}: planes {tuple(qr.shape)}/{tuple(qi.shape)}: want two [A, P, S, C]")
     a, p, s, c = qr.shape
     for name, t in (("qr", qr), ("qi", qi), ("blocks", w)):
         if t.device != qr.device or not t.is_contiguous():
-            raise ValueError(f"beamform_turned_fused: {name} must be contiguous on {qr.device}")
+            raise ValueError(f"{what}: {name} must be contiguous on {qr.device}")
     if qr.dtype != torch.int8 or qi.dtype != torch.int8:
-        raise ValueError("beamform_turned_fused: planes must be int8")
+        raise ValueError(f"{what}: planes must be int8")
     if tuple(w.shape) != (c, 2 * a, nb2) or w.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"beamform_turned_fused: blocks {tuple(w.shape)} {w.dtype}")
+        raise ValueError(f"{what}: blocks {tuple(w.shape)} {w.dtype}")
+
+
+def _launch(qr, qi, w, nb2):
+    _check_kernel_inputs("beamform_turned_fused", qr, qi, w, nb2)
+    a, p, s, c = qr.shape
     if not bstage_fused_supported(a, p, s, nb2 // 2, c):
         raise NotImplementedError(
             f"K2 does not cover A={a} P={p} S={s} 2B={nb2} C={c} "
@@ -157,6 +170,64 @@ def beamform_turned_fused(
     x = packed.reshape(c // pack, p, s, pack, 2, nb)
     x = x.permute(1, 0, 3, 2, 4, 5).reshape(p, c, s, 2, nb)
     return x[..., 0, :], x[..., 1, :]
+
+
+def kernel_attributes(
+    n_ants: int, n_pols: int, n_spectra: int, n_beams: int, n_channels: int
+) -> dict:
+    """K2's tensor-core body for a shape (bf16 weights, 2B in 16, 32, 64) as
+    the runtime reports it: registers and local (spill) bytes
+    (``cudaFuncGetAttributes``), the blocks of its persistent grid (the
+    occupancy API), and the C side's geometry: channels and m rows a work
+    item, contraction rows a K step, whether the weights are held whole in
+    shared memory, and the shared memory a block. Needs the card."""
+    import ctypes
+
+    lib = _build.library()
+    info = (ctypes.c_int * 8)()
+    err = lib.bstage_fused_attributes(n_ants, n_pols * n_spectra, n_channels, 2 * n_beams,
+                                      ctypes.addressof(info))
+    _build.check(lib, err, "bstage_fused_attributes")
+    keys = ("regs", "local_bytes", "blocks", "channels", "m_rows", "k_rows", "resident",
+            "smem_bytes")
+    return dict(zip(keys, info))
+
+
+#: K2's stage stops: the stages of its tensor-core body each keeps
+#: (``csrc/bstage_fused.cu``, ``K2_COPY`` 1, ``K2_MMA`` 2, ``K2_STORE`` 4).
+K2_STOPS = {"copy": 1, "mma": 2, "store": 4, "copy_mma": 3, "mma_store": 6}
+
+
+def beamform_turned_fused_stop(qr: torch.Tensor, qi: torch.Tensor, blocks: torch.Tensor,
+                               out: torch.Tensor, stop: str) -> None:
+    """Launch K2's tensor-core body cut to some of its stages, to split its
+    time (CUDA only; bf16 ``blocks``, 2B in 16, 32, 64).
+
+    Writes into ``out`` (the packed ``[C/pack, P·S, 128]`` f32) what the
+    stop leaves: the stops with ``store`` write zeros everywhere, the others
+    nothing. Does not count as a K2 launch.
+    """
+    what = "beamform_turned_fused_stop"
+    if stop not in K2_STOPS:
+        raise ValueError(f"{what}: unknown stop {stop!r}")
+    if qr.device.type != "cuda":
+        raise ValueError(f"{what}: needs CUDA tensors, not {qr.device}")
+    nb2 = blocks.shape[-1]
+    if blocks.dtype != torch.bfloat16 or nb2 not in (16, 32, 64):
+        raise ValueError(f"{what}: blocks {tuple(blocks.shape)} {blocks.dtype}: want bf16 "
+                         "with 2B in 16, 32, 64")
+    _check_kernel_inputs(what, qr, qi, blocks, nb2)
+    a, p, s, c = qr.shape
+    want = (c // (_LANES // nb2), p * s, _LANES)
+    if tuple(out.shape) != want or out.dtype != torch.float32 or out.device != qr.device \
+            or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be {want} f32 on {qr.device}")
+    lib = _build.library()
+    err = lib.bstage_fused_stop_launch(
+        qr.data_ptr(), qi.data_ptr(), blocks.data_ptr(), out.data_ptr(), a, p * s, c, nb2,
+        K2_STOPS[stop], torch.cuda.current_stream(qr.device).cuda_stream,
+    )
+    _build.check(lib, err, "bstage_fused_stop")
 
 
 #: Kernel launches since the last reset (the plain CPU version never counts).

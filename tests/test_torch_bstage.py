@@ -88,3 +88,14 @@ def test_beamform_turned_fused_input_checks():
         bstage.beamform_turned_fused(*t, _torch_blocks(blocks)[:, :4])
     with pytest.raises(ValueError, match="n_pols"):
         bstage.beamform_turned_fused(*t, _torch_blocks(blocks), n_pols=1)
+
+
+@pytest.mark.parametrize("stop", sorted(bstage.K2_STOPS) + ["full"])
+def test_k2_stops_refuse_before_any_launch(stop):
+    """K2's stage stops run on the card only, and take only their own names."""
+    qr, qi, blocks = _inputs(17, "bf16")
+    out = torch.zeros((C // 4, P * S, 128))
+    match = "needs CUDA" if stop in bstage.K2_STOPS else "unknown stop"
+    with pytest.raises(ValueError, match=match):
+        bstage.beamform_turned_fused_stop(torch.from_numpy(qr), torch.from_numpy(qi),
+                                          _torch_blocks(blocks), out, stop)

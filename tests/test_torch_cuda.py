@@ -11,6 +11,8 @@ not (N1 = 8 and 16, other beam counts, odd input counts, ragged tiles, FIR
 shapes off every tile boundary, the launch counters), K3 over a grid of
 input counts, S and C, at the int8 extremes and from a base aligned to 4
 bytes only, with its C-side geometry and its stage stops, K8 at ragged shapes,
+K2's tensor-core body over a grid of 2B, A, P·S and C in both layouts, at
+the int8 extremes, with its C-side geometry and its stage stops,
 K1's unquantised (f32) output, K1's FIR pass alone, K1, K7 and the
 engines above fft 65536, and the probes' kernels (K1's and K7's stage
 stops, P1's modes, P3's loop orders) at small and ragged shapes.
@@ -81,6 +83,101 @@ def test_k2_kernel_matches_plain(dev, n_beams, precision):
     assert bstage.beamform_turned_fused.launches == before + 1
     ref = bstage.beamform_turned_fused(qr, qi, w, precision=precision, layout="packed")
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-3)
+
+
+def _k2_check(dev, qr, qi, w, layout="packed"):
+    """K2 on the card against its plain version (the wrapper on CPU
+    tensors), rtol 1e-5 / atol 1e-3, the launch counter rising by one."""
+    p = qr.shape[1]
+    before = bstage.beamform_turned_fused.launches
+    got = bstage.beamform_turned_fused(qr, qi, w, n_pols=p, layout=layout)
+    assert bstage.beamform_turned_fused.launches == before + 1
+    ref = bstage.beamform_turned_fused(qr.cpu(), qi.cpu(), w.cpu(), n_pols=p, layout=layout)
+    if layout == "packed":
+        got, ref = (got,), (ref,)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-5, atol=1e-3)
+
+
+#: (P·S, C) of the ring body's grid: one m tile and two channel blocks of 16;
+#: three m tiles (2B <= 32) and six channel blocks; eight m tiles and 256
+#: channel blocks (each persistent block walks several).
+K2_SHAPES = [(64, 32), (192, 96), (512, 4096)]
+
+
+@pytest.mark.parametrize("layout", ["packed", "split"])
+@pytest.mark.parametrize("ps, c", K2_SHAPES)
+@pytest.mark.parametrize("a", [1, 7, 80])
+@pytest.mark.parametrize("nb2", [16, 32, 64])
+def test_k2_ring_body_matches_plain(dev, nb2, a, ps, c, layout):
+    """2A = 2, 14 (one partial K step) and 160; weights held whole or staged."""
+    p = 2
+    rng = np.random.default_rng(nb2 * 1000 + a * 10 + ps + c)
+    qr, qi = (_int8(rng, (a, p, ps // p, c)).to(dev) for _ in range(2))
+    w = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * a, nb2)).astype(np.float32))
+    _k2_check(dev, qr, qi, w.to(dev).to(torch.bfloat16), layout)
+
+
+@pytest.mark.parametrize("nb2", [16, 32, 64])
+def test_k2_holds_the_int8_extremes(dev, nb2):
+    """Every code -128 in qr and 127 in qi, and alternating extremes: the
+    register turn's bf16 conversion is exact at both ends."""
+    a, p, s, c = 9, 2, 128, 64
+    rng = np.random.default_rng(nb2 + 5)
+    w = torch.from_numpy(rng.uniform(-2, 2, (c, 2 * a, nb2)).astype(np.float32))
+    w = w.to(dev).to(torch.bfloat16)
+    qr = torch.full((a, p, s, c), -128, dtype=torch.int8, device=dev)
+    qi = torch.full((a, p, s, c), 127, dtype=torch.int8, device=dev)
+    _k2_check(dev, qr, qi, w)
+    idx = torch.arange(a * p * s * c, device=dev).view(a, p, s, c)
+    qr = torch.where(idx % 2 == 0, 127, -128).to(torch.int8)
+    qi = torch.where(idx % 3 == 0, -128, torch.where(idx % 3 == 1, 0, -1)).to(torch.int8)
+    _k2_check(dev, qr, qi, w)
+
+
+def test_k2_geometry_is_the_c_sides(dev):
+    """The ring body's attributes come from the runtime, its geometry from
+    the C side, which refuses a shape it cannot take before any launch."""
+    from dpdk_dc_sand_tpu_torch import _build
+
+    at = bstage.kernel_attributes(80, 2, 256, 16, 32768)
+    assert at["regs"] > 0 and at["local_bytes"] == 0
+    assert 1 <= at["blocks"] <= torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (at["channels"], at["m_rows"], at["k_rows"]) == (16, 64, 16)
+    for nb in (8, 32):
+        got = bstage.kernel_attributes(80, 2, 256, nb, 32768)
+        assert got["local_bytes"] == 0 and got["smem_bytes"] <= 232448
+    lib = _build.library()
+    x = torch.zeros(2 * 96 * 64, dtype=torch.int8, device=dev)
+    w = torch.zeros(64 * 2 * 32, dtype=torch.bfloat16, device=dev)
+    out = torch.empty(64 * 96 * 32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for ps, c in ((96, 64), (64, 40)):  # P·S % 64, C % 16
+        assert lib.bstage_fused_launch(x.data_ptr(), x.data_ptr(), w.data_ptr(), 1,
+                                       out.data_ptr(), 1, ps, c, 32, stream) != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("stop", sorted(bstage.K2_STOPS))
+def test_k2_stops_write_what_they_keep(dev, stop):
+    """A stop with the stores writes zeros over every output; one without
+    writes nothing; neither counts as a K2 launch."""
+    a, p, s, c = 17, 2, 128, 1024
+    rng = np.random.default_rng(14)
+    qr, qi = (_int8(rng, (a, p, s, c)).to(dev) for _ in range(2))
+    w = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * a, 32)).astype(np.float32))
+    w = w.to(dev).to(torch.bfloat16)
+    out = torch.ones((c // 4, p * s, 128), device=dev)
+    before = bstage.beamform_turned_fused.launches
+    bstage.beamform_turned_fused_stop(qr, qi, w, out, stop)
+    want = torch.zeros_like(out) if "store" in stop else torch.ones_like(out)
+    assert torch.equal(out, want)
+    assert bstage.beamform_turned_fused.launches == before
+    with pytest.raises(RuntimeError, match="bstage_fused_stop"):  # the C side refuses S = 16
+        bstage.beamform_turned_fused_stop(
+            qr[:, :, :16].contiguous(), qi[:, :, :16].contiguous(), w,
+            torch.ones((c // 4, p * 16, 128), device=dev), stop)
 
 
 def test_engine_on_the_card_matches_the_plain_engine(dev):
