@@ -75,9 +75,17 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    registers and local (spill) bytes by ``cudaFuncGetAttributes``; a body
    that spills fails the phase;
 12. fengine_dit — K7 through ``fengine_fused(deint="matmul")`` at fft 65536,
-   taps 16, S=256 on 8 of the 160 streams, bf16 and f32 DFT: within 1 code
-   on <= 1e-3 of samples of ``fengine_dit_reference``; ``deint="bitcast"``
-   must give the same bytes; kernel and plain ms;
+   taps 16, S=256 on 8 of the 160 streams, bf16 (K1's FIR pass, then the
+   tensor-core DFT pass) and f32 DFT (the SIMT body): within 1 code on <=
+   1e-3 of samples of ``fengine_dit_reference``; ``deint="bitcast"`` must
+   give the same bytes; bf16 must launch one FIR pass and one DFT pass a
+   call and f32 neither; kernel and plain ms; the DFT pass's registers and
+   spill bytes (a spill fails the phase); cuFFT's rfft of the same streams'
+   f32 FIR as the yardstick. Then K7 bf16 at all 160 flagship streams: its
+   last 8 streams against plain with the same bound, a FIR pass and a DFT
+   pass a group of 32, the whole call, each pass and the DFT pass's stops
+   (stage A alone: nothing written; with stage B: each stream's re,
+   checked on a scaled plane) timed, and its scratch;
 13. f_flagship — FEngine at 80 ant x 32768 ch x 16 taps, S=256 on flat int8
    ADC made on the card: 3 steps, a fine-delay change, 2 steps; K6 must
    launch and K1 and K7 must not; the output [80, 2, 256, 32768, 2] int8
@@ -151,11 +159,11 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    fir bit-exact, the rest within 1 code on <= 1e-3; dma and fir bit-exact
    on the timed run's last 8 streams, K1's last group), P4
    (``dma_bisect``: the dma stop from three layouts, S=128, bit-exact), P2
-   (``fused_ablate``: K7 cut at seven stops, 8 streams x S=64; bit-exact up
-   to deint, 1 code after), P3 (``fir_probe``: both loop orders, bit-exact;
-   its device time by torch.profiler, as its kernel is shorter than a Python
-   launch; its shared-memory load rate and a cuDNN depthwise ``conv1d``
-   yardstick) and P1 (``ct_kernel_probe``: the script's tilings and turns
+   (``fused_ablate``: K7's SIMT body cut at six stops and whole, 8 streams
+   x S=64; bit-exact up to deint, 1 code after), P3 (``fir_probe``: both
+   loop orders, bit-exact; its device time by torch.profiler, as its kernel
+   is shorter than a Python launch; its shared-memory load rate and a cuDNN
+   depthwise ``conv1d`` yardstick) and P1 (``ct_kernel_probe``: the script's tilings and turns
    whose spectra chunk divides S=128, and both minor-antenna modes; bit-exact;
    ``permute().contiguous()`` as the yardstick). Every stop or mode is timed
    by the chained 2-vs-6 marginal with its launch counters reset just before;
@@ -1162,7 +1170,8 @@ def phase_fengine_dit(st: dict) -> None:
     from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
 
     dev = torch.device("cuda")
-    fft, taps, s, lead = 65536, 16, 256, (4, 2)  # 8 of the flagship's 160 streams
+    # 8 of the flagship's 160 streams: fft 65536, 16 taps, S = 256.
+    fft, taps, s, lead = 2 * FLAG["n_channels"], FLAG["n_taps"], FLAG_S, (4, 2)
     nb, c, n_frames = lead[0] * lead[1], fft // 2, s + taps - 1
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     frames = torch.randint(-64, 64, (*lead, n_frames, fft), dtype=torch.int8, device=dev,
@@ -1171,15 +1180,26 @@ def phase_fengine_dit(st: dict) -> None:
     ph = -3.14159265 * fd / 2
     win = default_window(taps, fft, device=dev)
     kw = dict(n_channels=c, quant_scale=QUANT_SCALE)
-    ff.fengine_dit.launches = 0
-    ff.fengine_fused.launches = 0
-    outs = {(dt, deint): ff.fengine_fused(frames, win, fd, ph, dft_dtype=dt, deint=deint, **kw)
-            for dt in ("bfloat16", "float32") for deint in ("matmul", "bitcast")}
-    torch.cuda.synchronize()
+    ff.fengine_dit.launches = ff.fengine_fused.launches = 0
+    ff.k1_fir.launches = ff.dit_dft.launches = 0
+    outs, passes = {}, {}
+    for dt in ("bfloat16", "float32"):  # bf16: the two passes; f32: the SIMT body
+        before = (ff.k1_fir.launches, ff.dit_dft.launches)
+        for deint in ("matmul", "bitcast"):
+            outs[(dt, deint)] = ff.fengine_fused(frames, win, fd, ph, dft_dtype=dt, deint=deint,
+                                                 **kw)
+        torch.cuda.synchronize()
+        passes[dt] = {"k1_fir": ff.k1_fir.launches - before[0],
+                      "dit_dft": ff.dit_dft.launches - before[1]}
     launches = {"k7": ff.fengine_dit.launches, "k1": ff.fengine_fused.launches}
-    log(f"fengine_dit launches: {launches}")
+    groups = -(-nb // ff._plane_group(nb, s, fft))  # plane groups a call
+    log(f"fengine_dit launches: {launches}; its passes by DFT type ({groups} group(s) of "
+        f"streams a call): {passes}")
     if launches != {"k7": 4, "k1": 0}:
         raise AssertionError(f"the DIT path did not run through K7 alone: {launches}")
+    two = {"k1_fir": 2 * groups, "dit_dft": 2 * groups}
+    if passes != {"bfloat16": two, "float32": {"k1_fir": 0, "dit_dft": 0}}:
+        raise AssertionError(f"bf16 K7 did not run its two passes, or f32 K7 did: {passes}")
     _, n1, n2 = ff._deint_mode(c, "matmul")
     rc, rs = (r.reshape(nb, c) for r in ff._rotation_planes(fd, ph, c, QUANT_SCALE, (c,)))
     x = frames.view(nb, n_frames, fft)
@@ -1200,16 +1220,122 @@ def phase_fengine_dit(st: dict) -> None:
                      cuda_ms(plain, iters=1))
         log(f"k7 {dt}: bitcast == matmul bytes; kernel {times[dt][0]:.3f} ms, plain "
             f"{times[dt][1]:.3f} ms ({st['card']})")
+    del outs
     macs = 4 * n1 * n1 * n2 + 8 * n2 * n2 * n1  # per spectrum, both half-length DFTs
     nbytes = nb * n_frames * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c
     k7_bound = bound(nbytes, bf16=2 * macs * nb * s, f32=2 * taps * fft * nb * s)
     f32_bound = bound(nbytes, f32=2 * macs * nb * s + 2 * taps * fft * nb * s)
     log(f"k7 bound: bf16 DFT {k7_bound['bound_ms']:.3f} ms ({k7_bound['bound_by']}), f32 DFT "
         f"{f32_bound['bound_ms']:.3f} ms ({f32_bound['bound_by']})")
+    # The yardstick: cuFFT's rfft of the same 8 streams' f32 FIR (the DFT
+    # part alone, without the FIR, the rotation or the requant).
+    fir32 = ff._dit_fir(x, win)
+    rfft_ms = cuda_ms(lambda: torch.fft.rfft(fir32, dim=-1))
+    del fir32
+    at = ff.dit_dft_attributes(n1, n2)
+    log(f"k7 DFT pass body at {n1}x{n2}: {at['regs']} registers, {at['local_bytes']} local "
+        f"(spill) bytes, KC {at['kc']}, K tiles {at['kt']}, {at['stages']} ring stages, "
+        f"{at['smem_bytes']} bytes of shared memory; rfft of the {nb} streams' f32 FIR "
+        f"{rfft_ms:.3f} ms ({st['card']})")
+    if at["local_bytes"]:
+        raise AssertionError(f"K7's DFT pass spills: {at}")
     st["k7"] = dict(max_abs_err=float(worst), ms=times["bfloat16"][0],
                     plain_ms=times["bfloat16"][1], **k7_bound, library_ms=None,
                     f32_ms=times["float32"][0], f32_plain_ms=times["float32"][1],
-                    f32_bound_ms=f32_bound["bound_ms"], launches=launches["k7"])
+                    f32_bound_ms=f32_bound["bound_ms"], launches=launches["k7"],
+                    fir_launches=passes["bfloat16"]["k1_fir"],
+                    dft_launches=passes["bfloat16"]["dit_dft"], rfft_ms=rfft_ms,
+                    dft_regs=at["regs"], dft_local_bytes=at["local_bytes"])
+    del frames, x
+    torch.cuda.empty_cache()
+    _k7_flagship(st, n1, n2, gen)
+
+
+def _k7_flagship(st: dict, n1: int, n2: int, gen) -> None:
+    """K7 bf16 at the flagship's full width (160 streams, S = 256, fft 65536):
+    checked on its last 8 streams (K1's last plane group) against plain;
+    timed whole, each pass alone and the DFT pass's stops; its scratch."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    fft, taps, s = 2 * FLAG["n_channels"], FLAG["n_taps"], FLAG_S
+    nb, c, n_frames = FLAG["n_ants"] * 2, fft // 2, s + taps - 1
+    frames = torch.randint(-64, 64, (nb, n_frames, fft), dtype=torch.int8, device=dev,
+                           generator=gen)
+    fd = torch.rand(nb, device=dev, generator=gen) - 0.5
+    rc, rs = (r.reshape(nb, c) for r in ff._rotation_planes(fd, -3.14159265 * fd / 2, c,
+                                                             QUANT_SCALE, (c,)))
+    win = default_window(taps, fft, device=dev)
+
+    def k7():
+        return ff.fengine_dit(frames, win, rc, rs, n1=n1, n2=n2)
+
+    ff.fengine_dit.launches = ff.k1_fir.launches = ff.dit_dft.launches = 0
+    got = k7()
+    torch.cuda.synchronize()
+    launches = {"k7": ff.fengine_dit.launches, "k1_fir": ff.k1_fir.launches,
+                "dit_dft": ff.dit_dft.launches}
+    group = ff._plane_group(nb, s, fft)
+    if launches != {"k7": 1, "k1_fir": -(-nb // group), "dit_dft": -(-nb // group)}:
+        raise AssertionError(f"K7 at {nb} streams did not run a pair of passes a group: {launches}")
+    last = slice(nb - 8, nb)
+    err = _code_diff(f"k7 bf16 [streams {nb - 8}..{nb - 1} of {nb} x S={s} x fft {fft}]",
+                     [g[last] for g in got],
+                     ff.fengine_dit_reference(frames[last], win, rc[last], rs[last], n1=n1, n2=n2))
+    del got
+    ms = cuda_ms(k7, iters=2)
+    # Each pass alone over all 160 streams (the FIR pass into a whole plane).
+    flat = frames.view(nb, n_frames * fft)
+    zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
+    fir_ms = cuda_ms(lambda: ff.k1_fir(flat, zeros, win, n_spectra=s), iters=2)
+    plane = ff.k1_fir(flat, zeros, win, n_spectra=s)
+    dft_ms = cuda_ms(lambda: ff.dit_dft(plane, rc, rs, n1=n1, n2=n2), iters=2)
+    # The DFT pass's stops: checked on 8 streams of a plane scaled by a power
+    # of two (exact in bf16) so that stage B's re stays in int8 range, then
+    # timed on the whole plane.
+    chk = (plane[:8].to(torch.float32) * 2.0 ** -7).to(torch.bfloat16)
+    for stop in ff.DIT_DFT_STOPS:
+        g, r = ff.dit_dft_stop(chk, n1=n1, n2=n2, stop=stop), ff.dit_dft_stop_reference(
+            stop, chk, n1=n1, n2=n2)
+        if stop == "stagea":
+            _exact("k7 DFT pass stop stagea [8 streams] (writes nothing)", g, r)
+        else:
+            _code_diff(f"k7 DFT pass stop {stop} [8 streams, plane x 2^-7]", g, r)
+    del chk
+    stop_ms = {stop: cuda_ms(lambda: ff.dit_dft_stop(plane, n1=n1, n2=n2, stop=stop), iters=2)
+               for stop in ff.DIT_DFT_STOPS}
+    stop_ms["full"] = dft_ms
+    del plane
+    # The scratch: one call's peak above what was allocated before it, less
+    # its two int8 outputs.
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = k7()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - before - sum(
+        o.numel() * o.element_size() for o in outs)
+    del outs
+    macs = 4 * n1 * n1 * n2 + 8 * n2 * n2 * n1
+    k7_bound = bound(nb * n_frames * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
+                     bf16=2 * macs * nb * s, f32=2 * taps * fft * nb * s)
+    fir_bound = bound(nb * n_frames * fft + taps * fft * 4 + nb * s * fft * 2,
+                      f32=2 * taps * fft * nb * s)
+    dft_bound = bound(nb * s * fft * 2 + 2 * nb * c * 4 + 2 * nb * s * c, bf16=2 * macs * nb * s)
+    steps = list(stop_ms.items())
+    split = ", ".join(f"{b} +{t - a:.3f}" for (_, a), (b, t) in zip(steps, steps[1:]))
+    log(f"k7 bf16 [{nb} streams x S={s} x fft {fft}]: {ms:.3f} ms (bound "
+        f"{k7_bound['bound_ms']:.3f}, {k7_bound['bound_by']}); FIR pass {fir_ms:.3f} (bound "
+        f"{fir_bound['bound_ms']:.3f}), DFT pass {dft_ms:.3f} (bound {dft_bound['bound_ms']:.3f}); "
+        f"DFT pass stops " + ", ".join(f"{k} {v:.3f}" for k, v in stop_ms.items())
+        + f" (steps: {split}); K1 at the F+B flagship {st['k1']['ms']:.3f} ms; scratch "
+        f"{scratch / 1e9:.3f} GB a call (peak over its outputs); launches {launches} "
+        f"({st['card']})")
+    st["k7"].update(ms_160=ms, max_abs_err_160=float(err), fir_ms=fir_ms, dft_ms=dft_ms,
+                    dft_stop_ms=stop_ms, scratch_bytes=scratch, launches_160=launches)
 
 
 def _plain_fir(samples, window):
@@ -2186,7 +2312,7 @@ def phase_probes(st: dict) -> None:
     inp["win"] = win
     del got, ref
     ms2, counts2 = _probe_path(
-        [(ff.fengine_dit_ablate, "launches"), (ff.fengine_dit, "launches")],
+        [(ff.fengine_dit_ablate, "launches")],
         lambda: {stop: fused_ablate.run_variant(stop, s2, 16, inp=inp)
                  for stop in fused_ablate.STOPS})
     plain2 = cuda_ms(lambda: fused_ablate.reference("full", inp), iters=1)
@@ -2358,7 +2484,7 @@ def main() -> int:
              **st["probes"]["p4"]),
         dict(name="fused_ablate", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_dit.cu",
-             kernel="K7's fengine_dit_kernel at each STOP",
+             kernel="K7's SIMT body fengine_dit_kernel at each STOP and whole (full)",
              replaces="benchmarks/fused_ablate.py:33", path="benchmarks/fused_ablate",
              **st["probes"]["p2"]),
         dict(name="fir_probe", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/fir_probe.cu",

@@ -19,8 +19,9 @@ keyed by a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one loads in milliseconds. Every pointer and the stream are
 passed as ``ctypes.c_void_p``; each launch function returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception (K1's
-and K7's, their stage stops' too, return -1 where no shared-memory plan
-fits the shape, which their wrappers raise as ``ValueError``).
+and K7's, their passes' and stage stops' too, return -1 where no
+shared-memory plan fits the shape, which their wrappers raise as
+``ValueError``).
 """
 
 from __future__ import annotations
@@ -150,6 +151,26 @@ _SIGNATURES = {
         _P, _P,  # outr, outi [B, S, N] int8
         _I, _I, _I, _I, _I, _I,  # batch, n_frames, n_taps, n1, n2, stop (1 dma .. 6 stageb)
         _P,  # stream
+    ],
+    "dit_dft_launch": [
+        _P,  # plane [B, S, fft] bf16
+        _P, _P, _P, _P,  # bf16 d1c, d1s [N1, N1], d2c, d2s [N2, N2]
+        _P, _P, _P, _P,  # twc, tws [N1, N2], untc, unts [N2, N1]
+        _P, _P,  # rotc, rots [B, N]
+        _P, _P,  # outr, outi [B, S, N] int8
+        _I, _I, _I, _I,  # batch, n_spectra, n1, n2
+        _P,  # stream
+    ],
+    "dit_dft_stop_launch": [
+        _P,  # plane [B, S, fft] bf16
+        _P, _P, _P, _P, _P, _P,  # bf16 d1c, d1s, d2c, d2s; twc, tws
+        _P, _P,  # outr, outi [B, S, N] int8
+        _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, stop (1 stagea, 2 stageb)
+        _P,  # stream
+    ],
+    "dit_dft_attributes": [
+        _I, _I,  # n1, n2
+        _P,  # out (int[6]): registers, local bytes, KC, K-tile depth, stages, shared-memory bytes
     ],
     "ct_probe_launch": [
         _P, _P, _P,  # qr, qi [A, P, S, C] int8, out

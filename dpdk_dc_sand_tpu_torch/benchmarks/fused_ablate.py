@@ -2,8 +2,10 @@
 fused_ablate.py`` of the JAX package, whose trimmed copy of ``_fengine_kernel``
 reaches ``pl.pallas_call`` at its line 198).
 
-Each stop is K7 cut after a stage at compile time (``fengine_dit_ablate``,
-``csrc/fengine_dit.cu``), timed by the chained marginal (:mod:`._chain`):
+Each stop is K7's single-pass SIMT body (``fengine_dit_kernel`` in
+``csrc/fengine_dit.cu``, the form the probe's steps split) cut after a stage
+at compile time, or whole, through ``fengine_dit_ablate``; each is timed by
+the chained marginal (:mod:`._chain`):
 
 - ``dma``    : each block's input bytes loaded, a constant written;
 - ``conv``   : + their int8 -> f32 conversion;
@@ -12,8 +14,10 @@ Each stop is K7 cut after a stage at compile time (``fengine_dit_ablate``,
 - ``stagea`` : K7's chunk loop with stage A and the twiddle (its per-chunk
   FIR recomputation included);
 - ``stageb`` : + stage B;
-- ``full``   : + the DIT combine and requant: K7 itself, with rotation
-  planes 1/16 and 0 (the probe's ``* (1 / 16)`` and no fine delay).
+- ``full``   : + the DIT combine and requant: the SIMT body whole, with
+  rotation planes 1/16 and 0 (the probe's ``* (1 / 16)`` and no fine
+  delay). K7's bf16 calls take its two-pass body instead
+  (``fengine_dit``), which these steps do not split.
 
 The probe's ``deint`` and ``stagea`` slice across the spectra of its
 ``[N1, s_blk·N2]`` scratch; a block of K7 holds one spectrum, so these two
@@ -53,9 +57,8 @@ def make_inputs(S: int, device=None, seed: int = 0, batch: int = A * P) -> dict:
 
 def call(stop: str, inp: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """One call of the stop: int8 ``(outr, outi)`` ``[batch, S, 32768]``."""
-    if stop == "full":
-        return ff.fengine_dit(inp["fr"], inp["win"], *inp["rot"], n1=N1, n2=N2)
-    return ff.fengine_dit_ablate(inp["fr"], inp["win"], n1=N1, n2=N2, stop=stop)
+    rot = inp["rot"] if stop == "full" else None
+    return ff.fengine_dit_ablate(inp["fr"], inp["win"], n1=N1, n2=N2, stop=stop, rot=rot)
 
 
 def reference(stop: str, inp: dict, streams: int | None = None):

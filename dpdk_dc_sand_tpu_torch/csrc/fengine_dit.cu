@@ -19,14 +19,70 @@
 // Output bin k = k2·N1 + k1, k < N: the rfft's first N bins.
 //
 // What bounds it on the card: operations. Per spectrum the two DFTs are
-// 4·N1²·N2 + 8·N2²·N1 multiply-adds (67 M at fft 65536: 256·128), so 8 of
-// the flagship's 160 streams at S = 256 are 275 GFLOP: 0.28 ms at the bf16
-// tensor rate, 4.1 ms at the f32 SIMT rate; its bytes (0.28 GB) take
-// 0.08 ms. This body is SIMT FMA on register micro tiles (the first,
-// simple form; K1's tensor-core body is the model for a faster one), so it
-// is bound by FP32 issue and shared-memory loads.
+// 4·N1²·N2 + 8·N2²·N1 multiply-adds (67 M at fft 65536: 256·128, the same
+// count as K1's CT rDFT of the whole frame), so 8 of the flagship's 160
+// streams at S = 256 are 275 GFLOP: 0.28 ms at the bf16 tensor rate, 4.1
+// ms at the f32 SIMT rate; its bytes (0.28 GB) take 0.08 ms.
 //
-// Design. One block per (spectrum s, stream b), as K1's SIMT body. The
+// Two bodies, picked by the wrapper (ops/fengine_fused.py:_dit_body):
+//
+// A. bf16 DFT operands with N1 >= 16, where a shared-memory plan exists
+//    (every split from 16·64 to 1024·1024): two passes over groups of
+//    streams whose bf16 planes fit K1's scratch.
+//    1. K1's FIR pass (k1_fir_kernel, csrc/fengine_ct.cu, unchanged) on the
+//       frames viewed [B, n_frames·fft] with every start at 0: it writes the
+//       f32 tap-order FIR rounded to bf16, which is K7's rounded FIR, into a
+//       [B, S, fft] plane.
+//    2. dit_dft_kernel below: both DFT stages on the tensor cores. The even
+//       stream's element (n1, n2) is plane sample 2·(n1·N2 + n2) and the
+//       odd stream's the next, so the plane viewed [N1, 2·N2] holds both
+//       streams' row n1, interleaved: stage A (every column times the same
+//       [N1, N1] matrix) is one product of D1 against that natural view,
+//       no deinterleave. An m16n8k16 accumulator fragment gives a thread
+//       columns 2·n2 and 2·n2 + 1, one n2 of both streams, so the epilogue
+//       applies one f32 twiddle to the pair and writes the even and odd T
+//       planes apart into shared memory, rounded to bf16. Stage B then runs
+//       per stream against the bf16 [N2, N2] cos and -sin matrices, eight
+//       sums a (k2, k1) (four a stream), followed by the DIT combine, the
+//       rotation and the requant at the reference's rounding points.
+//    The design is K1's k1_dft_kernel: persistent blocks of 16 warps walk
+//    (stream, spectrum, chunk of KC k1 rows) units, chunks of one spectrum
+//    neighbours so the plane leaves HBM once; one cp.async ring streams
+//    every unit's tile sequence (stage-A plane and D1 tiles, then stage-B
+//    D2 tiles) so the copies of the next unit overlap this one's epilogue;
+//    KC follows N2 (64 rows up to N2 = 256, 32 at 512, 16 at 1024) so the
+//    four T planes and 3-4 ring stages fit.
+//    Against the three costs K1's DFT pass is blamed for (PERF.md §7):
+//    - The four f32 adds per stage-A MMA (mma16816_rn). Up to N1 = 256 the
+//      stage-A MMAs chain through the tensor core's accumulator (CHAIN_N1).
+//      In development runs at ~50 codes rms the chained sums flipped a few
+//      1e-4 of the int8 codes up to N1 = 256, about 2.5 times as many as
+//      the added ones, more at N1 = 512 and past the 1e-3 gate at
+//      1024·1024; so from N1 = 512 on each MMA's sum is added in f32
+//      round-to-nearest, as K1 does. Chained, the pass ran a few percent
+//      faster at 256·128.
+//    - The f32 twiddles each unit loads while every warp waits: a thread
+//      loads a row's four twiddles together in the stage-A epilogue (one n2
+//      serves both streams), as K1 loads its 16-row groups. Kept.
+//    - The plane re-read once per chunk: at 256·128 a spectrum's plane is
+//      read N1/KC = 4 times, from L2 (the chunks of one spectrum run on
+//      neighbouring blocks at once). Kept: development runs that skipped
+//      the twiddle loads or the plane copies (timing only) each saved
+//      under a tenth of the pass, so a block that keeps its spectrum's
+//      128 KB plane resident was not built; the MMA and ldmatrix issue is
+//      the suspect (wgmma is the next step).
+//    Registers: 512 threads leave 128 a thread. The 64-accumulator warp
+//    tiles fit only with the unit cursor kept as two ints (unit, tile) and
+//    the fragments loaded a stream or a matrix at a time; the 16-row chunk
+//    spilled until its stage-B warps took 8 k1 columns and its K loops ran
+//    one compile-time step. Halving stage A's warp width (16 columns) or
+//    every stage-B warp's (8 columns) spilled or ran slower, and 4 stages
+//    of 32-deep K tiles ran slower at 256·128 than 3 stages of 64.
+// B. f32 DFT operands, N1 = 8 (fft 512 and 1024 "auto", fft 2048
+//    "bitcast"), and any split without a plan: fengine_dit_kernel, SIMT FMA
+//    on register micro tiles, described next. P2's stops cut this body.
+//
+// SIMT design. One block per (spectrum s, stream b), as K1's SIMT body. The
 // four [N1, N2] planes between the stages (even and odd, re and im) do not
 // fit in shared memory at fft 65536 (512 KB in f32), so the block walks k1
 // in chunks of kc rows: stage A for those rows of both streams over all
@@ -64,6 +120,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -384,6 +442,519 @@ cudaError_t launch(const Params& p, int batch, size_t bytes, cudaStream_t stream
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The two-pass body's DFT pass on the tensor cores (see the head of the file)
+// ---------------------------------------------------------------------------
+constexpr int DFT_THREADS = 512;  // 16 warps: one block an SM
+constexpr int DFT_WARPS = DFT_THREADS / 32;
+constexpr int PAD = 8;            // row padding (elements): conflict-free ldmatrix
+constexpr int NO_PLAN = -1;
+// The DFT pass's stage stops (dit_dft_stop_launch): stage A and its twiddle
+// into the T planes alone (no stage-B tiles, nothing written), or stages A
+// and B with each stream's re written truncated (no combine, rotation or
+// requant). The production instantiation (DFT_FULL) is unchanged by them.
+constexpr int DFT_FULL = 0, DFT_STAGEA = 1, DFT_STAGEB = 2;
+
+using bf16 = __nv_bfloat16;
+
+struct DftParams {
+  const bf16* plane;  // [G, S, N1, 2·N2]: row n1 holds both streams' row n1, interleaved
+  const bf16* d1c;    // [N1, N1] cos
+  const bf16* d1s;    // [N1, N1] -sin
+  const bf16* d2c;    // [N2, N2] cos
+  const bf16* d2s;    // [N2, N2] -sin
+  const float* twc;   // [N1, N2]
+  const float* tws;
+  const float* untc;  // [N2, N1]
+  const float* unts;
+  const float* rotc;  // [G, N]
+  const float* rots;
+  int8_t* outr;       // [G, S, N]
+  int8_t* outi;
+  int n_spectra, n1, n2;
+  int kt;                        // K-tile depth of both stages
+  int n_ca, n_kta, n_rb, n_ktb;  // column tiles x K tiles, row tiles x K tiles
+  int n_chunks;
+  int n_units;                   // G * S * n_chunks
+  int slot;                      // bf16 elements per ring slot
+  int stages;                    // ring depth: 3 or 4
+};
+
+// The tile shapes of a KC-row chunk. Stage A: warps MW x NW, each WM k1 rows
+// (cos and -sin) x WN plane columns (WN / 2 n2 of both streams): NA columns
+// a tile. Stage B: warps (16 / NWB) x NWB, each 16 k2 rows x WNB k1 columns
+// (16; 8 in the 16-row chunk, whose 16 k1 columns leave the 16 warps no
+// other split, and where 16 spilled), eight sums (four a stream): MB rows a
+// tile. Both keep at most 64 f32 accumulators a thread.
+template <int KC>
+struct DitShape {
+  static constexpr int WM = KC < 32 ? KC : 32;
+  static constexpr int MI = WM / 16;
+  static constexpr int MW = KC / WM;
+  static constexpr int NW = DFT_WARPS / MW;
+  static constexpr int WN = 32;  // plane columns a warp
+  static constexpr int NJ = WN / 8;
+  static constexpr int NA = WN * NW;
+  static constexpr int WNB = KC == 16 ? 8 : 16;  // k1 columns a warp in stage B
+  static constexpr int NJB = WNB / 8;
+  static constexpr int NWB = KC / WNB;
+  static constexpr int MB = 16 * (DFT_WARPS / NWB);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until the oldest of the ring's stages - 1 groups in flight has landed.
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  if (stages == 4) {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma16816(float* d, const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b, the MMA summing its 16 products alone and the sum added to d in
+// f32 round-to-nearest (K1's stage-A form, csrc/fengine_ct.cu).
+__device__ __forceinline__ void mma16816_rn(float* d, const uint32_t a[4], uint32_t b0,
+                                            uint32_t b1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma16816(t, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], t[e]);
+}
+
+// Stage A's product: chained through the MMA's accumulator (CHAIN), or each
+// MMA's sum added in f32 round-to-nearest.
+template <bool CHAIN>
+__device__ __forceinline__ void mma_stage_a(float* d, const uint32_t a[4], uint32_t b0,
+                                            uint32_t b1) {
+  if constexpr (CHAIN) {
+    mma16816(d, a, b0, b1);
+  } else {
+    mma16816_rn(d, a, b0, b1);
+  }
+}
+
+// The longest stage-A sum (N1) that chains its MMAs; longer sums add each
+// MMA's sum in f32 round-to-nearest (see the head of the file).
+constexpr int CHAIN_N1 = 256;
+
+// log2 of a power of two.
+__device__ __forceinline__ int lg(int v) { return __ffs(v) - 1; }
+
+// A walk through this block's tile sequence: unit u (blockIdx.x, then every
+// gridDim.x-th), tile `local` of the unit. A unit is (stream b, spectrum s,
+// chunk), the chunk fastest: its spectrum's plane row is u / n_chunks =
+// b * S + s, its first k1 row (u % n_chunks) * KC. Only (u, local) are kept
+// live; the rest is decoded where it is used.
+struct Cursor {
+  int u, local;
+};
+
+__device__ __forceinline__ void advance(Cursor& c, int tpu) {
+  if (++c.local == tpu) {
+    c.local = 0;
+    c.u += gridDim.x;
+  }
+}
+
+// The unit's plane row b * S + s, and its first k1 row.
+__device__ __forceinline__ int unit_row(const DftParams& p, int u) { return u >> lg(p.n_chunks); }
+
+template <int KC>
+__device__ __forceinline__ int unit_k0(const DftParams& p, int u) {
+  return (u & (p.n_chunks - 1)) * KC;
+}
+
+// Tile `local` of a unit: stage A (column tile, K tile) for local < nA,
+// then stage B (row tile, K tile).
+struct Tile {
+  bool stage_a;
+  int outer, kidx;
+};
+
+__device__ __forceinline__ Tile place(const DftParams& p, int local, int nA) {
+  Tile w;
+  w.stage_a = local < nA;
+  if (w.stage_a) {
+    w.outer = local >> lg(p.n_kta);
+    w.kidx = local & (p.n_kta - 1);
+  } else {
+    const int l = local - nA;
+    w.outer = l >> lg(p.n_ktb);
+    w.kidx = l & (p.n_ktb - 1);
+  }
+  return w;
+}
+
+// Issue the cp.async copies of one tile into a ring slot (every thread, 16
+// bytes a copy; rows land padded).
+template <int KC>
+__device__ __forceinline__ void load_tile(const DftParams& p, const Cursor& c, int nA,
+                                          bf16* slot) {
+  using S = DitShape<KC>;
+  const int tid = threadIdx.x;
+  const int n1 = p.n1, n2 = p.n2, w2 = 2 * n2;
+  const int kt = p.kt, ktp = kt + PAD, ld = lg(kt / 8);
+  const Tile t = place(p, c.local, nA);
+  if (t.stage_a) {
+    // [kt x cols] of the plane's [N1, 2·N2] view, then the chunk's [KC x kt]
+    // cos and -sin rows of the N1-point matrix.
+    const int lx = lg(min(S::NA, w2) / 8);
+    const int nx = kt << lx, nd = KC << ld;
+    const bf16* xsrc = p.plane +
+                       (static_cast<long long>(unit_row(p, c.u)) * n1 + t.kidx * kt) * w2 +
+                       t.outer * S::NA;
+    const int k0 = unit_k0<KC>(p, c.u);
+    bf16* sd = slot + kt * (S::NA + PAD);
+    for (int i = tid; i < nx + 2 * nd; i += DFT_THREADS) {
+      if (i < nx) {
+        const int r = i >> lx, q = i & ((1 << lx) - 1);
+        cp_async16(slot + r * (S::NA + PAD) + q * 8, xsrc + static_cast<long long>(r) * w2 + q * 8);
+      } else {
+        const int j = i - nx, m = j >= nd, jj = j - m * nd;
+        const int r = jj >> ld, q = jj & ((1 << ld) - 1);
+        const bf16* src = (m ? p.d1s : p.d1c) + (k0 + r) * n1 + t.kidx * kt + q * 8;
+        cp_async16(sd + (m * KC + r) * ktp + q * 8, src);
+      }
+    }
+  } else {
+    // [rows x kt] of the N2-point matrix's cos rows, then of its -sin rows.
+    const int nd = min(S::MB, n2) << ld;
+    const int r0 = t.outer * S::MB;
+    for (int i = tid; i < 2 * nd; i += DFT_THREADS) {
+      const int m = i >= nd, j = i - m * nd;
+      const int r = j >> ld, q = j & ((1 << ld) - 1);
+      const bf16* src = (m ? p.d2s : p.d2c) + static_cast<long long>(r0 + r) * n2 + t.kidx * kt + q * 8;
+      cp_async16(slot + (m * S::MB + r) * ktp + q * 8, src);
+    }
+  }
+}
+
+template <int KC, bool CHAIN, int STOP = DFT_FULL>
+__global__ void __launch_bounds__(DFT_THREADS, 1) dit_dft_kernel(DftParams p) {
+  using S = DitShape<KC>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int n1 = p.n1, n2 = p.n2, n = n1 * n2, w2 = 2 * n2;
+  const int tld = n2 + PAD, tplane = KC * tld;
+  const int stages = p.stages;
+  bf16* sT = smem;  // [4][KC][N2 + PAD]: even re, even im, odd re, odd im
+  bf16* ring = sT + 4 * tplane;
+
+  const int nA = p.n_ca * p.n_kta, tpu = nA + p.n_rb * p.n_ktb;
+  const int my_units = (p.n_units - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+  const int n_tiles = my_units * tpu;
+
+  // Warp placement. Stage A: k1 rows a_r0.., plane columns a_c0.. of the tile.
+  const int a_r0 = (warp / S::NW) * S::WM, a_c0 = (warp % S::NW) * S::WN;
+  // Stage B: k2 rows b_r0.. of the row tile, k1 columns b_c0.. of the chunk.
+  const int b_r0 = (warp / S::NWB) * 16, b_c0 = (warp % S::NWB) * S::WNB;
+
+  // One register array for both stages' accumulators (at most 64 f32 a
+  // thread). Stage A: [cos/sin][MI][NJ n8][4]; stage B: [8 sums][NJB n8][4],
+  // sums cos.tr, -sin.ti, cos.ti, -sin.tr of the even stream, then the odd.
+  float acc[64];
+
+  Cursor ld{static_cast<int>(blockIdx.x), 0};  // the next tile to load
+  Cursor cc = ld;  // the tile to compute
+  for (int t = 0; t < stages - 1; ++t) {
+    if (t < n_tiles) {
+      load_tile<KC>(p, ld, nA, ring + t * p.slot);
+      advance(ld, tpu);
+    }
+    cp_async_commit();
+  }
+
+  int slot_i = 0;  // tile t's slot, t % stages
+  for (int t = 0; t < n_tiles; ++t, advance(cc, tpu)) {
+    cp_async_wait_ring(stages);
+    __syncthreads();  // tile t landed for every thread; tile t-1's slot is free
+    if (t + stages - 1 < n_tiles) {
+      const int s_load = slot_i == 0 ? stages - 1 : slot_i - 1;  // (t + stages - 1) % stages
+      load_tile<KC>(p, ld, nA, ring + s_load * p.slot);
+      advance(ld, tpu);
+    }
+    cp_async_commit();
+    const Tile w = place(p, cc.local, nA);
+    const bf16* slot = ring + slot_i * p.slot;
+    slot_i = slot_i + 1 == stages ? 0 : slot_i + 1;
+    const int k0 = unit_k0<KC>(p, cc.u);
+    const int kt = p.kt, ktp = kt + PAD;
+    if (w.stage_a) {
+      const int col = w.outer * S::NA + a_c0;  // first plane column of the warp
+      if (col >= w2) continue;
+      if (w.kidx == 0) {
+#pragma unroll
+        for (int i = 0; i < 8 * S::MI * S::NJ; ++i) acc[i] = 0.f;
+      }
+      const int xld = S::NA + PAD;
+      const bf16* sX = slot;
+      const bf16* sAc = slot + kt * xld;
+      const bf16* sAs = sAc + KC * ktp;
+      for (int kk = 0; kk < (KC == 16 ? 16 : kt); kk += 16) {
+        uint32_t fb[S::NJ / 2][4];
+#pragma unroll
+        for (int jj = 0; jj < S::NJ / 2; ++jj) {
+          const int r = kk + lane % 8 + ((lane / 8) % 2) * 8;
+          ldsm_x4_t(fb[jj], sX + r * xld + a_c0 + jj * 16 + (lane / 16) * 8);
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {  // cos rows, then -sin rows
+          uint32_t fa[S::MI][4];
+#pragma unroll
+          for (int i = 0; i < S::MI; ++i) {
+            const int r = a_r0 + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
+            ldsm_x4(fa[i], (m ? sAs : sAc) + r * ktp + c);
+          }
+#pragma unroll
+          for (int i = 0; i < S::MI; ++i) {
+#pragma unroll
+            for (int j = 0; j < S::NJ; ++j) {
+              mma_stage_a<CHAIN>(acc + ((m * S::MI + i) * S::NJ + j) * 4, fa[i],
+                          fb[j / 2][(j % 2) * 2], fb[j / 2][(j % 2) * 2 + 1]);
+            }
+          }
+        }
+      }
+      if (w.kidx == p.n_kta - 1) {
+        // The f32 twiddle of n2 = (column) / 2 on both streams' columns,
+        // bf16 rounding, into the T planes. A row's four twiddles are loaded
+        // together first: the L2 round trips overlap.
+#pragma unroll
+        for (int i = 0; i < S::MI; ++i) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = a_r0 + i * 16 + g + hh * 8;
+            float wc[S::NJ], ws[S::NJ];
+#pragma unroll
+            for (int j = 0; j < S::NJ; ++j) {
+              const int o = (k0 + r) * n2 + (col + j * 8) / 2 + tig;
+              wc[j] = __ldg(p.twc + o);
+              ws[j] = __ldg(p.tws + o);
+            }
+#pragma unroll
+            for (int j = 0; j < S::NJ; ++j) {
+              const int m2 = (col + j * 8) / 2 + tig;
+              const float* cr = acc + ((0 * S::MI + i) * S::NJ + j) * 4 + hh * 2;
+              const float* ci = acc + ((1 * S::MI + i) * S::NJ + j) * 4 + hh * 2;
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {  // column 2·m2 + q: stream q
+                const float tr = __fsub_rn(__fmul_rn(cr[q], wc[j]), __fmul_rn(ci[q], ws[j]));
+                const float ti = __fadd_rn(__fmul_rn(cr[q], ws[j]), __fmul_rn(ci[q], wc[j]));
+                sT[(2 * q) * tplane + r * tld + m2] = __float2bfloat16_rn(tr);
+                sT[(2 * q + 1) * tplane + r * tld + m2] = __float2bfloat16_rn(ti);
+              }
+            }
+          }
+        }
+      }
+    } else {
+      const int row = w.outer * S::MB + b_r0;  // first k2 row of the warp
+      if (row >= n2) continue;
+      if (w.kidx == 0) {
+#pragma unroll
+        for (int i = 0; i < 32 * S::NJB; ++i) acc[i] = 0.f;
+      }
+      const bf16* sC = slot;
+      const bf16* sS = slot + S::MB * ktp;
+      for (int kk = 0; kk < (KC == 16 ? 16 : kt); kk += 16) {
+        uint32_t fc[4], fs[4];
+        {
+          const int r = b_r0 + lane % 16, c = kk + (lane / 16) * 8;
+          ldsm_x4(fc, sC + r * ktp + c);
+          ldsm_x4(fs, sS + r * ktp + c);
+        }
+        const int tc0 = w.kidx * kt + kk + ((lane / 8) % 2) * 8;
+        constexpr int SS = 4 * S::NJB;  // accumulator stride of the sums
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {  // the even stream, then the odd
+          // b0, b1 of each n8 tile: T re in ftr, T im in fti.
+          uint32_t ftr[2 * S::NJB], fti[2 * S::NJB];
+          if constexpr (S::NJB == 2) {
+            const int tr0 = b_c0 + lane % 8 + (lane / 16) * 8;
+            ldsm_x4(ftr, sT + (2 * q) * tplane + tr0 * tld + tc0);
+            ldsm_x4(fti, sT + (2 * q + 1) * tplane + tr0 * tld + tc0);
+          } else {
+            uint32_t f4[4];  // re, then im, of one n8 tile
+            ldsm_x4(f4, sT + (2 * q + lane / 16) * tplane + (b_c0 + lane % 8) * tld + tc0);
+            ftr[0] = f4[0];
+            ftr[1] = f4[1];
+            fti[0] = f4[2];
+            fti[1] = f4[3];
+          }
+#pragma unroll
+          for (int j = 0; j < S::NJB; ++j) {
+            float* a0 = acc + (q * 4 * S::NJB + j) * 4;  // sum s of stream q at a0 + s * SS
+            mma16816(a0 + 0 * SS, fc, ftr[2 * j], ftr[2 * j + 1]);
+            mma16816(a0 + 1 * SS, fs, fti[2 * j], fti[2 * j + 1]);
+            mma16816(a0 + 2 * SS, fc, fti[2 * j], fti[2 * j + 1]);
+            mma16816(a0 + 3 * SS, fs, ftr[2 * j], ftr[2 * j + 1]);
+          }
+        }
+      }
+      if (w.kidx == p.n_ktb - 1) {
+        // Each stream's re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr);
+        // X = E + exp(-iπk/N)·O; rotate; requant; store. A row's combine and
+        // rotation values are loaded together first.
+        const int prow = unit_row(p, cc.u);  // b * S + s
+        const long long obase = static_cast<long long>(prow) * n;
+        const long long rbase = static_cast<long long>(prow / p.n_spectra) * n;
+        constexpr int SS = 4 * S::NJB;  // accumulator stride of the sums
+#pragma unroll
+        for (int j = 0; j < S::NJB; ++j) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int ch = (row + g + hh * 8) * n1 + k0 + b_c0 + j * 8 + tig * 2;
+            float2 uc, us, rc, rs;
+            if constexpr (STOP == DFT_FULL) {
+              uc = __ldg(reinterpret_cast<const float2*>(p.untc + ch));
+              us = __ldg(reinterpret_cast<const float2*>(p.unts + ch));
+              rc = __ldg(reinterpret_cast<const float2*>(p.rotc + rbase + ch));
+              rs = __ldg(reinterpret_cast<const float2*>(p.rots + rbase + ch));
+            }
+            int8_t v[2][2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float* a = acc + j * 4 + hh * 2 + e;  // sum s at a[s * SS]
+              const float er = __fsub_rn(a[0 * SS], a[1 * SS]);
+              const float ei = __fadd_rn(a[2 * SS], a[3 * SS]);
+              const float orr = __fsub_rn(a[4 * SS], a[5 * SS]);
+              const float oi = __fadd_rn(a[6 * SS], a[7 * SS]);
+              if constexpr (STOP == DFT_STAGEB) {
+                // Each stream's re, truncated; the im sums, times zero, keep
+                // all of stage B computed.
+                v[0][e] = trunc_s8(__fadd_rn(er, __fmul_rn(0.f, ei)));
+                v[1][e] = trunc_s8(__fadd_rn(orr, __fmul_rn(0.f, oi)));
+              } else {
+                const float u_c = e ? uc.y : uc.x, u_s = e ? us.y : us.x;
+                const float r_c = e ? rc.y : rc.x, r_s = e ? rs.y : rs.x;
+                const float xr = __fsub_rn(__fadd_rn(er, __fmul_rn(u_c, orr)), __fmul_rn(u_s, oi));
+                const float xi = __fadd_rn(__fadd_rn(ei, __fmul_rn(u_c, oi)), __fmul_rn(u_s, orr));
+                v[0][e] = requant(__fsub_rn(__fmul_rn(xr, r_c), __fmul_rn(xi, r_s)));
+                v[1][e] = requant(__fadd_rn(__fmul_rn(xr, r_s), __fmul_rn(xi, r_c)));
+              }
+            }
+            *reinterpret_cast<char2*>(p.outr + obase + ch) = make_char2(v[0][0], v[0][1]);
+            *reinterpret_cast<char2*>(p.outi + obase + ch) = make_char2(v[1][0], v[1][1]);
+          }
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The tile depth, ring depth and bytes of a chunk of KC rows, 0 if it cannot
+// fit: the deepest K tiles (64, 32, 16) with 4 stages, else 3, that fit.
+// (ops/fengine_fused.py:_dit_body asks dit_dft_attributes whether one does.)
+template <int KC>
+size_t dit_plan(DftParams& p) {
+  using S = DitShape<KC>;
+  if (KC > p.n1) return 0;
+  const size_t t_bytes = sizeof(bf16) * 4 * static_cast<size_t>(KC) * (p.n2 + PAD);
+  // The 16-row chunk takes 16-deep K tiles only, so its K loops run one
+  // step each (unrolled at compile time: a loop of run-time length spilled).
+  for (int kt = KC == 16 ? 16 : 64; kt >= 16; kt /= 2) {
+    if (kt > p.n1 || kt > p.n2) continue;
+    const int a_slot = kt * (S::NA + PAD) + 2 * KC * (kt + PAD);
+    const int b_slot = 2 * S::MB * (kt + PAD);
+    for (int stages = 4; stages >= 3; --stages) {
+      const size_t bytes = t_bytes + sizeof(bf16) * static_cast<size_t>(stages) *
+                                         static_cast<size_t>(max(a_slot, b_slot));
+      if (bytes > MAX_SMEM) continue;
+      p.kt = kt;
+      p.slot = max(a_slot, b_slot);
+      p.stages = stages;
+      p.n_ca = (2 * p.n2 + S::NA - 1) / S::NA;
+      p.n_kta = p.n1 / kt;
+      p.n_rb = (p.n2 + S::MB - 1) / S::MB;
+      p.n_ktb = p.n2 / kt;
+      p.n_chunks = p.n1 / KC;
+      return bytes;
+    }
+  }
+  return 0;
+}
+
+template <int KC, bool CHAIN, int STOP = DFT_FULL>
+cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream) {
+  auto kern = dit_dft_kernel<KC, CHAIN, STOP>;
+  if (STOP == DFT_STAGEA) p.n_rb = 0;  // no stage-B tiles
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, DFT_THREADS, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long units = static_cast<long long>(batch) * p.n_spectra * p.n_chunks;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  const int grid = static_cast<int>(units < resident ? units : resident);
+  // Unit indices and a block's tile count must fit an int.
+  const long long tpu = p.n_ca * p.n_kta + p.n_rb * p.n_ktb;
+  if (units > 0x7fffffffLL - grid || ((units + grid - 1) / grid) * tpu > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  p.n_units = static_cast<int>(units);
+  kern<<<grid, DFT_THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Calls fn(std::integral_constant<int, KC>, params, bytes) with the largest
+// chunk whose T planes and ring fit, or returns NO_PLAN.
+template <typename Fn>
+int with_plan(const DftParams& p, Fn fn) {
+  DftParams q = p;
+  size_t bytes;
+  if ((bytes = dit_plan<64>(q))) return fn(std::integral_constant<int, 64>{}, q, bytes);
+  q = p;
+  if ((bytes = dit_plan<32>(q))) return fn(std::integral_constant<int, 32>{}, q, bytes);
+  q = p;
+  if ((bytes = dit_plan<16>(q))) return fn(std::integral_constant<int, 16>{}, q, bytes);
+  return NO_PLAN;
+}
+
+bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
 }  // namespace
 
 // The stage stops of the bf16 kernel (the probe P2; see the head of the
@@ -451,4 +1022,111 @@ extern "C" int fengine_dit_launch(
   const cudaError_t err =
       bf16 ? launch<true>(p, batch, bytes, st) : launch<false>(p, batch, bytes, st);
   return static_cast<int>(err);
+}
+
+// The two-pass body's DFT pass: plane [batch, n_spectra, fft] bf16 (K1's FIR
+// pass output, fft = 2·N1·N2) -> outputs [batch, n_spectra, N] int8. d1c,
+// d1s, d2c, d2s are the bf16 DFT matrices, twc/tws the f32 twiddles
+// [N1, N2], untc/unts the f32 combine factors [N2, N1], rotc/rots [batch, N].
+// Returns -1 where no chunk's plan fits shared memory.
+extern "C" int dit_dft_launch(const void* plane, const void* d1c, const void* d1s,
+                              const void* d2c, const void* d2s, const void* twc, const void* tws,
+                              const void* untc, const void* unts, const void* rotc,
+                              const void* rots, void* outr, void* outi, int batch,
+                              int n_spectra, int n1, int n2, void* stream) {
+  if (n1 < 16 || !pow2(n1) || n2 < 16 || !pow2(n2) || batch < 1 || n_spectra < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DftParams p{};
+  p.plane = static_cast<const bf16*>(plane);
+  p.d1c = static_cast<const bf16*>(d1c);
+  p.d1s = static_cast<const bf16*>(d1s);
+  p.d2c = static_cast<const bf16*>(d2c);
+  p.d2s = static_cast<const bf16*>(d2s);
+  p.twc = static_cast<const float*>(twc);
+  p.tws = static_cast<const float*>(tws);
+  p.untc = static_cast<const float*>(untc);
+  p.unts = static_cast<const float*>(unts);
+  p.rotc = static_cast<const float*>(rotc);
+  p.rots = static_cast<const float*>(rots);
+  p.outr = static_cast<int8_t*>(outr);
+  p.outi = static_cast<int8_t*>(outi);
+  p.n_spectra = n_spectra;
+  p.n1 = n1;
+  p.n2 = n2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
+    constexpr int K = decltype(kc)::value;
+    const cudaError_t err = n1 <= CHAIN_N1 ? launch_dft<K, true>(q, batch, bytes, st)
+                                           : launch_dft<K, false>(q, batch, bytes, st);
+    return static_cast<int>(err);
+  });
+}
+
+// What the DFT pass's body at N1 x N2 is: out[0] registers a thread, out[1]
+// local (spill) bytes a thread, out[2] KC, out[3] the K-tile depth, out[4]
+// ring stages, out[5] dynamic shared-memory bytes. Returns -1 where no plan
+// fits.
+extern "C" int dit_dft_attributes(int n1, int n2, void* out) {
+  if (n1 < 16 || !pow2(n1) || n2 < 16 || !pow2(n2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DftParams p{};
+  p.n1 = n1;
+  p.n2 = n2;
+  int* o = static_cast<int*>(out);
+  return with_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
+    cudaFuncAttributes a{};
+    constexpr int K = decltype(kc)::value;
+    const cudaError_t err = n1 <= CHAIN_N1 ? cudaFuncGetAttributes(&a, dit_dft_kernel<K, true>)
+                                           : cudaFuncGetAttributes(&a, dit_dft_kernel<K, false>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    o[0] = a.numRegs;
+    o[1] = static_cast<int>(a.localSizeBytes);
+    o[2] = decltype(kc)::value;
+    o[3] = q.kt;
+    o[4] = q.stages;
+    o[5] = static_cast<int>(bytes);
+    return 0;
+  });
+}
+
+// The DFT pass cut at a stage (stop 1 stagea, 2 stageb; see DFT_STAGEA): the
+// arguments of dit_dft_launch without the combine factors and rotation
+// planes, int8 outputs [batch, n_spectra, N]. The stops take the 64-row
+// chunk plan with chained stage-A sums only (64 <= N1 <= 256, N2 <= 256);
+// -1 elsewhere.
+extern "C" int dit_dft_stop_launch(const void* plane, const void* d1c, const void* d1s,
+                                   const void* d2c, const void* d2s, const void* twc,
+                                   const void* tws, void* outr, void* outi, int batch,
+                                   int n_spectra, int n1, int n2, int stop, void* stream) {
+  if (n1 < 16 || !pow2(n1) || n2 < 16 || !pow2(n2) || batch < 1 || n_spectra < 1 ||
+      (stop != DFT_STAGEA && stop != DFT_STAGEB)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DftParams p{};
+  p.plane = static_cast<const bf16*>(plane);
+  p.d1c = static_cast<const bf16*>(d1c);
+  p.d1s = static_cast<const bf16*>(d1s);
+  p.d2c = static_cast<const bf16*>(d2c);
+  p.d2s = static_cast<const bf16*>(d2s);
+  p.twc = static_cast<const float*>(twc);
+  p.tws = static_cast<const float*>(tws);
+  p.outr = static_cast<int8_t*>(outr);
+  p.outi = static_cast<int8_t*>(outi);
+  p.n_spectra = n_spectra;
+  p.n1 = n1;
+  p.n2 = n2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
+    if constexpr (decltype(kc)::value != 64) {
+      return NO_PLAN;
+    } else {
+      if (n1 > CHAIN_N1) return NO_PLAN;
+      const cudaError_t err = stop == DFT_STAGEA
+                                  ? launch_dft<64, true, DFT_STAGEA>(q, batch, bytes, st)
+                                  : launch_dft<64, true, DFT_STAGEB>(q, batch, bytes, st);
+      return static_cast<int>(err);
+    }
+  });
 }

@@ -36,11 +36,17 @@ decimation-in-time form instead (the reference's ``_fengine_kernel``):
 tensor and runs :func:`fengine_dit_reference` for a CPU tensor. The
 reference's two names move samples differently on the TPU but compute the
 same values; here they differ only in the N1·N2 split :func:`_deint_mode`
-gives them.
+gives them. :func:`_dit_body` picks K7's body up front: bf16 operands with
+N1 >= 16, where the DFT pass has a shared-memory plan, run K1's FIR pass
+(:func:`k1_fir`) and then :func:`dit_dft` over groups of streams (their
+plain versions :func:`k1_fir_reference` and :func:`dit_dft_reference`
+compose to :func:`fengine_dit_reference`); f32 operands, N1 = 8 and a
+split without a plan take the single-pass SIMT body.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -156,6 +162,23 @@ def _dft_bf16(n1: int, n2: int, device: str) -> tuple[torch.Tensor, ...]:
     K1's DFT pass."""
     k = dft_constants(n1, n2, device)
     return tuple(t.to(torch.bfloat16).contiguous() for t in (k.d1c, k.d1s, k.d2))
+
+
+@functools.lru_cache(maxsize=64)
+def _dit_body(n1: int, n2: int, dft_dtype: str) -> str:
+    """K7's body for a split, decided before any launch: ``"two_pass"`` (K1's
+    FIR pass, then the tensor-core DFT pass) for bf16 operands with N1 >= 16
+    where the DFT pass has a shared-memory plan (``dit_dft_attributes`` in
+    ``csrc/fengine_dit.cu`` decides); ``"simt"`` (the single-pass SIMT body)
+    for f32 operands, N1 = 8 and a split without a plan."""
+    if dft_dtype != "bfloat16" or n1 < 16:
+        return "simt"
+    lib = _build.library()
+    err = lib.dit_dft_attributes(n1, n2, (ctypes.c_int * 6)())
+    if err == _NO_PLAN:
+        return "simt"
+    _build.check(lib, err, "dit_dft_attributes")
+    return "two_pass"
 
 
 def fine_rotation_planes(
@@ -647,29 +670,12 @@ def _dit_stage_b(tr, ti, k, rnd):
     return re, im
 
 
-def fengine_dit_reference(
-    frames: torch.Tensor,
-    window: torch.Tensor,
-    rotc: torch.Tensor,
-    rots: torch.Tensor,
-    *,
-    n1: int,
-    n2: int,
-    dft_dtype: str = "bfloat16",
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K7, at K7's rounding points.
-
-    ``frames`` ``[B, n_frames, fft]`` int8 aligned frames, ``window``
-    ``[taps, fft]`` f32, ``rotc``/``rots`` ``[B, N]`` (``N = fft/2``, gain
-    folded in). Returns int8 ``(qr, qi)`` ``[B, S, N]``.
-    """
-    n_taps, fft = window.shape
-    batch, n_frames, _ = frames.shape
-    n_spectra = n_frames - n_taps + 1
+def _dit_dft(acc, rotc, rots, n1, n2, rnd):
+    """K7 after its rounded FIR ``acc`` ``[B, S, fft]`` (f32): the even / odd
+    split, both half-length DFTs, the combine, the rotation and the requant."""
+    batch, n_spectra, fft = acc.shape
     n = fft // 2
-    rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
-    acc = rnd(_dit_fir(frames, window))
-    k = dit_constants(n1, n2, str(frames.device))
+    k = dit_constants(n1, n2, str(acc.device))
 
     def dft(x):  # [B, S, N1, N2] -> (re, im) [B, S, N2, N1], bin k = k2*N1 + k1
         return _dit_stage_b(*_dit_stage_a(x, k, rnd), k, rnd)
@@ -687,6 +693,204 @@ def fengine_dit_reference(
     return q(xr * rc - xi * rs), q(xr * rs + xi * rc)
 
 
+def fengine_dit_reference(
+    frames: torch.Tensor,
+    window: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "bfloat16",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K7, at K7's rounding points.
+
+    ``frames`` ``[B, n_frames, fft]`` int8 aligned frames, ``window``
+    ``[taps, fft]`` f32, ``rotc``/``rots`` ``[B, N]`` (``N = fft/2``, gain
+    folded in). Returns int8 ``(qr, qi)`` ``[B, S, N]``.
+    """
+    rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
+    return _dit_dft(rnd(_dit_fir(frames, window)), rotc, rots, n1, n2, rnd)
+
+
+def dit_dft_reference(
+    plane: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7's DFT pass (bf16 operands): the bf16 FIR plane
+    ``[B, S, fft]`` (:func:`k1_fir_reference` of the frames viewed ``[B,
+    n_frames·fft]`` with zero starts) and ``rotc``/``rots`` ``[B, N]`` to
+    int8 ``(qr, qi)`` ``[B, S, N]``. Composed with that FIR it is
+    :func:`fengine_dit_reference` with bf16 operands, bit for bit."""
+    return _dit_dft(plane.to(torch.float32), rotc, rots, n1, n2, _round_bf16)
+
+
+@functools.lru_cache(maxsize=16)
+def _dit_bf16(n1: int, n2: int, device: str) -> tuple[torch.Tensor, ...]:
+    """bf16 (round-to-nearest-even) copies of d1c, d1s, d2c, d2s: the
+    operands of K7's DFT pass."""
+    k = dit_constants(n1, n2, device)
+    return tuple(t.to(torch.bfloat16).contiguous() for t in (k.d1c, k.d1s, k.d2c, k.d2s))
+
+
+def _dit_dft_pass(plane, rotc, rots, outr, outi, *, n1, n2) -> None:
+    """K7's DFT pass from ``plane`` into ``outr``/``outi`` (CUDA tensors,
+    checked by the caller)."""
+    if plane.data_ptr() % 16:
+        plane = plane.clone()  # the kernel copies plane rows in 16-byte pieces
+    rotc, rots = (r.clone() if r.data_ptr() % 8 else r for r in (rotc, rots))  # read as float2
+    batch, n_spectra, _ = plane.shape
+    dev = plane.device
+    k = dit_constants(n1, n2, str(dev))
+    lib = _build.library()
+    err = lib.dit_dft_launch(
+        plane.data_ptr(), *(t.data_ptr() for t in _dit_bf16(n1, n2, str(dev))),
+        k.twc.data_ptr(), k.tws.data_ptr(), k.untc.data_ptr(), k.unts.data_ptr(),
+        rotc.data_ptr(), rots.data_ptr(), outr.data_ptr(), outi.data_ptr(),
+        batch, n_spectra, n1, n2, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err == _NO_PLAN:
+        raise _no_plan("dit_dft", n1, n2, "the four bf16 T planes of a 16-row chunk and the ring")
+    _build.check(lib, err, "dit_dft")
+    dit_dft.launches += 1
+
+
+def dit_dft(
+    plane: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's DFT pass alone, bf16 operands: ``plane`` ``[B, S, fft]`` bf16 to
+    int8 ``(qr, qi)`` ``[B, S, N]`` (the kernel on CUDA,
+    :func:`dit_dft_reference` on CPU)."""
+    if plane.device.type == "cpu":
+        return dit_dft_reference(plane, rotc, rots, n1=n1, n2=n2)
+    if plane.device.type != "cuda":
+        raise ValueError(f"dit_dft: unsupported device {plane.device}")
+    batch, n_spectra, fft = plane.shape
+    if fft != 2 * n1 * n2 or _dit_body(n1, n2, "bfloat16") != "two_pass":
+        raise ValueError(f"dit_dft: the pass takes fft = 2*N1*N2 with a two-pass plan "
+                         f"(N1 >= 16), got {n1}, {n2}, {fft}")
+    _check("dit_dft", plane, (
+        ("plane", plane, torch.bfloat16, None),
+        ("rotc", rotc, torch.float32, (batch, fft // 2)),
+        ("rots", rots, torch.float32, (batch, fft // 2)),
+    ))
+    outr = torch.empty((batch, n_spectra, fft // 2), dtype=torch.int8, device=plane.device)
+    outi = torch.empty_like(outr)
+    _dit_dft_pass(plane, rotc, rots, outr, outi, n1=n1, n2=n2)
+    return outr, outi
+
+
+#: Launches of K7's DFT pass since the last reset (the plain version never
+#: counts); a two-pass K7 call adds one per group of streams.
+dit_dft.launches = 0
+
+
+#: K7's DFT-pass stage stops as the kernel numbers them (:func:`dit_dft_stop`).
+DIT_DFT_STOPS = {"stagea": 1, "stageb": 2}
+
+
+def dit_dft_stop_reference(
+    stop: str, plane: torch.Tensor, *, n1: int, n2: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7's DFT pass cut at a stage: ``"stagea"`` writes
+    nothing (zeros); ``"stageb"`` each stream's stage-B re, truncated
+    (:func:`_trunc_s8`), at ``k2·N1 + k1``: even to ``outr``, odd to
+    ``outi``."""
+    if stop not in DIT_DFT_STOPS:
+        raise ValueError(f"unknown stop {stop!r}")
+    batch, n_spectra, fft = plane.shape
+    if stop == "stagea":
+        zero = torch.zeros((batch, n_spectra, fft // 2), dtype=torch.int8, device=plane.device)
+        return zero, zero.clone()
+    k = dit_constants(n1, n2, str(plane.device))
+    acc = plane.to(torch.float32)
+    out = []
+    for q in (0, 1):
+        t = _dit_stage_a(acc[..., q::2].reshape(batch, n_spectra, n1, n2), k, _round_bf16)
+        out.append(_trunc_s8(_dit_stage_b(*t, k, _round_bf16)[0].reshape(batch, n_spectra, -1)))
+    return out[0], out[1]
+
+
+def dit_dft_stop(
+    plane: torch.Tensor, *, n1: int, n2: int, stop: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's DFT pass cut at a stage (:data:`DIT_DFT_STOPS`): the kernel's stop
+    on CUDA, :func:`dit_dft_stop_reference` on CPU; outputs start as zeros.
+    The kernel's stops take the 64-row chunk plan with chained stage-A sums
+    only (64 <= N1 <= 256, N2 <= 256)."""
+    if stop not in DIT_DFT_STOPS:
+        raise ValueError(f"unknown stop {stop!r}")
+    if plane.device.type == "cpu":
+        return dit_dft_stop_reference(stop, plane, n1=n1, n2=n2)
+    if plane.device.type != "cuda":
+        raise ValueError(f"dit_dft_stop: unsupported device {plane.device}")
+    batch, n_spectra, fft = plane.shape
+    if fft != 2 * n1 * n2:
+        raise ValueError(f"dit_dft_stop: fft {fft} != 2 * {n1} * {n2}")
+    _check("dit_dft_stop", plane, (("plane", plane, torch.bfloat16, None),))
+    if plane.data_ptr() % 16:
+        plane = plane.clone()
+    dev = plane.device
+    outr = torch.zeros((batch, n_spectra, fft // 2), dtype=torch.int8, device=dev)
+    outi = torch.zeros_like(outr)
+    k = dit_constants(n1, n2, str(dev))
+    lib = _build.library()
+    err = lib.dit_dft_stop_launch(
+        plane.data_ptr(), *(t.data_ptr() for t in _dit_bf16(n1, n2, str(dev))),
+        k.twc.data_ptr(), k.tws.data_ptr(), outr.data_ptr(), outi.data_ptr(),
+        batch, n_spectra, n1, n2, DIT_DFT_STOPS[stop], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err == _NO_PLAN:
+        raise _no_plan("dit_dft_stop", n1, n2, "the stops take the 64-row chunk plan only")
+    _build.check(lib, err, f"dit_dft stop {stop}")
+    dit_dft_stop.launches += 1
+    return outr, outi
+
+
+#: Launches of K7's stopped DFT pass since the last reset.
+dit_dft_stop.launches = 0
+
+
+def dit_dft_attributes(n1: int, n2: int) -> dict:
+    """The card's view of K7's DFT-pass body at N1 x N2 (``cudaFuncGetAttributes``
+    and the plan): registers a thread, local (spill) bytes a thread, KC, the
+    K-tile depth, ring stages and shared-memory bytes."""
+    out = (ctypes.c_int * 6)()
+    lib = _build.library()
+    err = lib.dit_dft_attributes(n1, n2, out)
+    if err == _NO_PLAN:
+        raise _no_plan("dit_dft", n1, n2, "the four bf16 T planes of a 16-row chunk and the ring")
+    _build.check(lib, err, "dit_dft_attributes")
+    return dict(zip(("regs", "local_bytes", "kc", "kt", "stages", "smem_bytes"), out))
+
+
+def _simt_launch(x, window, rotc, rots, outr, outi, *, n1, n2, bf16) -> None:
+    """K7's single-pass SIMT body, whole (CUDA tensors, checked by the caller)."""
+    batch, n_frames, _ = x.shape
+    if x.data_ptr() % 2:
+        x = x.clone()  # the kernel reads sample pairs as char2
+    k = dit_constants(n1, n2, str(x.device))
+    lib = _build.library()
+    err = lib.fengine_dit_launch(
+        x.data_ptr(), window.data_ptr(), *(t.data_ptr() for t in k),
+        rotc.data_ptr(), rots.data_ptr(), outr.data_ptr(), outi.data_ptr(),
+        batch, n_frames, window.shape[0], n1, n2, int(bf16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err == _NO_PLAN:
+        raise _no_plan("fengine_dit", n1, n2, "the four f32 T planes of a 2-row chunk")
+    _build.check(lib, err, "fengine_dit")
+
+
 def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
     batch, n_frames, fft = x.shape
     n_taps = window.shape[0]
@@ -697,25 +901,27 @@ def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
         ("rots", rots, torch.float32, (batch, fft // 2)),
     )
     _check("fengine_dit", x, want)
-    if x.data_ptr() % 2:
-        x = x.clone()  # the kernel reads sample pairs as char2
     if window.data_ptr() % 16:
-        window = window.clone()  # and window pairs as float2
+        window = window.clone()  # both bodies read window runs as float2 or float4
     dev = x.device
-    k = dit_constants(n1, n2, str(dev))
     n_spectra = n_frames - n_taps + 1
     outr = torch.empty((batch, n_spectra, fft // 2), dtype=torch.int8, device=dev)
     outi = torch.empty_like(outr)
-    lib = _build.library()
-    err = lib.fengine_dit_launch(
-        x.data_ptr(), window.data_ptr(), *(t.data_ptr() for t in k),
-        rotc.data_ptr(), rots.data_ptr(), outr.data_ptr(), outi.data_ptr(),
-        batch, n_frames, n_taps, n1, n2, int(dft_dtype == "bfloat16"),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err == _NO_PLAN:
-        raise _no_plan("fengine_dit", n1, n2, "the four f32 T planes of a 2-row chunk")
-    _build.check(lib, err, "fengine_dit")
+    if _dit_body(n1, n2, dft_dtype) == "two_pass":
+        # K1's FIR pass on the frames as streams starting at 0, then the DFT
+        # pass, over groups of streams through one bf16 plane of scratch.
+        group = _plane_group(batch, n_spectra, fft)
+        plane = torch.empty((group, n_spectra, fft), dtype=torch.bfloat16, device=dev)
+        flat = x.view(batch, n_frames * fft)
+        starts = torch.zeros(batch, dtype=torch.int64, device=dev)
+        for b0 in range(0, batch, group):
+            b = slice(b0, min(batch, b0 + group))
+            p = plane[: b.stop - b0]
+            _fir_pass(flat[b], starts[b], window, p)
+            _dit_dft_pass(p, rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2)
+    else:
+        _simt_launch(x, window, rotc, rots, outr, outi, n1=n1, n2=n2,
+                     bf16=dft_dtype == "bfloat16")
     fengine_dit.launches += 1
     return outr, outi
 
@@ -742,12 +948,14 @@ def fengine_dit(
     raise ValueError(f"fengine_dit: unsupported device {dev}")
 
 
-#: K7 launches since the last reset (the plain CPU version never counts).
+#: K7 calls on the card since the last reset, one a call whichever body ran
+#: (the plain CPU version never counts); the two-pass body's passes count on
+#: :func:`k1_fir` and :func:`dit_dft`.
 fengine_dit.launches = 0
 
-#: K7's stage stops (the probe P2) as the kernel numbers them; the probe's
-#: ``"full"`` is K7 itself.
-DIT_STOPS = {"dma": 1, "conv": 2, "fir": 3, "deint": 4, "stagea": 5, "stageb": 6}
+#: K7's SIMT body cut after a stage (the probe P2), as the kernel numbers the
+#: stops; the probe's ``"full"`` (0) is that body whole.
+DIT_STOPS = {"dma": 1, "conv": 2, "fir": 3, "deint": 4, "stagea": 5, "stageb": 6, "full": 0}
 
 
 def fengine_dit_ablate_reference(
@@ -757,6 +965,7 @@ def fengine_dit_ablate_reference(
     *,
     n1: int,
     n2: int,
+    rot: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K7 (bf16 operands) cut after a stage, the probe P2
     (``benchmarks/fused_ablate.py:67-147``); arguments as
@@ -768,13 +977,19 @@ def fengine_dit_ablate_reference(
     - ``"fir"``: the f32 FIR's first and last N samples;
     - ``"deint"``: the bf16 FIR's even and odd samples;
     - ``"stagea"``: the even and odd streams' rounded T re, ``k1·N2 + n2``;
-    - ``"stageb"``: their stage-B re, ``k2·N1 + k1``.
+    - ``"stageb"``: their stage-B re, ``k2·N1 + k1``;
+    - ``"full"``: :func:`fengine_dit_reference` with ``rot`` = ``(rotc,
+      rots)``.
 
     ``"deint"`` and ``"stagea"`` are each spectrum's own values, where the
     probe's sinks slice across the spectra of its scratch.
     """
     if stop not in DIT_STOPS:
         raise ValueError(f"unknown stop {stop!r}")
+    if stop == "full":
+        if rot is None:
+            raise ValueError("the 'full' stop needs rot=(rotc, rots)")
+        return fengine_dit_reference(frames, window, *rot, n1=n1, n2=n2)
     n_taps, fft = window.shape
     batch, n_frames, _ = frames.shape
     n_spectra = n_frames - n_taps + 1
@@ -810,15 +1025,19 @@ def fengine_dit_ablate(
     n1: int,
     n2: int,
     stop: str,
+    rot: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7 (bf16 operands) cut after a stage: the kernel's stop on CUDA,
-    :func:`fengine_dit_ablate_reference` on CPU. ``frames`` ``[B, n_frames,
-    fft]`` int8, ``window`` ``[taps, fft]`` f32."""
+    """K7's single-pass SIMT body (bf16 operands) cut after a stage, or whole
+    (``stop="full"``, rotated by ``rot`` = ``(rotc, rots)`` ``[B, N]``): the
+    kernel on CUDA, :func:`fengine_dit_ablate_reference` on CPU. ``frames``
+    ``[B, n_frames, fft]`` int8, ``window`` ``[taps, fft]`` f32."""
     if stop not in DIT_STOPS:
         raise ValueError(f"unknown stop {stop!r}")
+    if (stop == "full") != (rot is not None):
+        raise ValueError("rot=(rotc, rots) goes with the 'full' stop and no other")
     dev = frames.device
     if dev.type == "cpu":
-        return fengine_dit_ablate_reference(stop, frames, window, n1=n1, n2=n2)
+        return fengine_dit_ablate_reference(stop, frames, window, n1=n1, n2=n2, rot=rot)
     if dev.type != "cuda":
         raise ValueError(f"fengine_dit_ablate: unsupported device {dev}")
     batch, n_frames, fft = frames.shape
@@ -830,23 +1049,27 @@ def fengine_dit_ablate(
     _check("fengine_dit_ablate", frames, (
         ("frames", frames, torch.int8, None),
         ("window", window, torch.float32, (n_taps, fft)),
+        *((name, r, torch.float32, (batch, fft // 2)) for name, r in zip(("rotc", "rots"), rot or ())),
     ))
     if frames.data_ptr() % 2:
         frames = frames.clone()  # sample pairs are read as char2
     if window.data_ptr() % 16:
         window = window.clone()
-    k = dit_constants(n1, n2, str(dev))
     outr = torch.empty((batch, n_frames - n_taps + 1, fft // 2), dtype=torch.int8, device=dev)
     outi = torch.empty_like(outr)
-    lib = _build.library()
-    err = lib.fengine_dit_stop_launch(
-        frames.data_ptr(), window.data_ptr(), *(t.data_ptr() for t in k[:6]),
-        outr.data_ptr(), outi.data_ptr(), batch, n_frames, n_taps, n1, n2, DIT_STOPS[stop],
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err == _NO_PLAN:
-        raise _no_plan("fengine_dit_ablate", n1, n2, "the four f32 T planes of a 2-row chunk")
-    _build.check(lib, err, f"fengine_dit stop {stop}")
+    if stop == "full":
+        _simt_launch(frames, window, *rot, outr, outi, n1=n1, n2=n2, bf16=True)
+    else:
+        k = dit_constants(n1, n2, str(dev))
+        lib = _build.library()
+        err = lib.fengine_dit_stop_launch(
+            frames.data_ptr(), window.data_ptr(), *(t.data_ptr() for t in k[:6]),
+            outr.data_ptr(), outi.data_ptr(), batch, n_frames, n_taps, n1, n2, DIT_STOPS[stop],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err == _NO_PLAN:
+            raise _no_plan("fengine_dit_ablate", n1, n2, "the four f32 T planes of a 2-row chunk")
+        _build.check(lib, err, f"fengine_dit stop {stop}")
     fengine_dit_ablate.launches += 1
     return outr, outi
 

@@ -14,8 +14,11 @@ bytes only, with its C-side geometry and its stage stops, K8 at ragged shapes,
 K2's tensor-core body over a grid of 2B, A, P·S and C in both layouts, at
 the int8 extremes, with its C-side geometry and its stage stops,
 K1's unquantised (f32) output, K1's FIR pass alone, K1, K7 and the
-engines above fft 65536, and the probes' kernels (K1's and K7's stage
-stops, P1's modes, P3's loop orders) at small and ragged shapes.
+engines above fft 65536, K7's two-pass body (its DFT pass alone at every
+chunk plan, both passes at fft 2048 to 2^17 and over several plane groups,
+its launch counters, its registers and spill bytes), and the probes'
+kernels (K1's and K7's stage stops, P1's modes, P3's loop orders) at small
+and ragged shapes.
 """
 
 import numpy as np
@@ -739,6 +742,174 @@ def test_k7_kernel_at_fft_2_17_matches_plain(dev):
     assert ff.fengine_dit.launches == before + 1
     ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
     for g, r in zip(got, ref):
+        _codes_close(g.cpu(), r)
+
+
+def _k7_streams(fft, batch, s, taps, seed):
+    """Frames ``[batch, s + taps - 1, fft]``, the default window and rotation
+    planes whose gain keeps the int8 codes near 50 rms (the flagship's level,
+    chip_smoke.py's QUANT_SCALE), all on the CPU."""
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(-64, 64, (batch, s + taps - 1, fft), dtype=np.int8))
+    fd = torch.from_numpy(rng.uniform(-0.5, 0.5, batch).astype(np.float32))
+    rc, rs = (r.reshape(batch, fft // 2) for r in ff._rotation_planes(
+        fd, -1.5 * fd, fft // 2, 0.068 * (1024 / fft) ** 0.5, (fft // 2,)))
+    return frames, default_window(taps, fft), rc, rs
+
+
+@pytest.mark.parametrize("n1, n2", [(16, 64), (32, 64), (64, 64), (16, 128), (256, 128),
+                                    (256, 256), (512, 512), (1024, 1024)])
+def test_k7_dft_pass_matches_plain(dev, n1, n2):
+    """K7's DFT pass alone on K1's FIR plane, every chunk plan (KC 64, 32,
+    16): within 1 code on <= 1e-3 of samples of ``dit_dft_reference``."""
+    fft = 2 * n1 * n2
+    b, s = 2, (3 if fft <= 1 << 17 else 1)
+    frames, win, rc, rs = _k7_streams(fft, b, s, 4, seed=n1 + n2)
+    plane = ff.k1_fir_reference(frames.reshape(b, -1), torch.zeros(b, dtype=torch.int64), win,
+                                n_spectra=s)
+    before = ff.dit_dft.launches
+    got = ff.dit_dft(plane.to(dev), rc.to(dev), rs.to(dev), n1=n1, n2=n2)
+    assert ff.dit_dft.launches == before + 1
+    for g, r in zip(got, ff.dit_dft_reference(plane, rc, rs, n1=n1, n2=n2)):
+        assert g.is_cuda and g.shape == r.shape and g.dtype == torch.int8
+        _codes_close(g.cpu(), r)
+
+
+@pytest.mark.parametrize("fft", [2048, 4096, 65536, 1 << 17])
+def test_k7_two_pass_kernel_matches_plain(dev, fft):
+    """bf16 K7 (deint="matmul": 16 x 64, 32 x 64, 256 x 128, 256 x 256)
+    through K1's FIR pass and the DFT pass, at ~50 codes rms as
+    test_k1_two_pass_kernel_above_65536_matches_plain: within 1 code on
+    <= 1e-3 of samples; one K7 call, one FIR pass, one DFT pass."""
+    taps, s, lead = 4, 3, (1, 2)
+    rng = np.random.default_rng(fft + 11)
+    frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    kw = dict(n_channels=fft // 2, quant_scale=0.068 * (1024 / fft) ** 0.5, deint="matmul")
+    before = (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches)
+    got = ff.fengine_fused(torch.from_numpy(frames).to(dev), default_window(taps, fft, dev),
+                           fd, ph, **kw)
+    assert (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches) == tuple(
+        b + 1 for b in before)
+    ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape
+        _codes_close(g.cpu(), r)
+
+
+def test_k7_two_pass_spans_plane_groups(dev, monkeypatch):
+    """Five streams through a scratch of two planes: three groups, each a FIR
+    pass and a DFT pass, the outputs those of the plain K7."""
+    fft, s, taps, b = 4096, 5, 4, 5
+    monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", 2 * s * fft * 2)
+    frames, win, rc, rs = _k7_streams(fft, b, s, taps, seed=5)
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    before = (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches)
+    got = ff.fengine_dit(frames.to(dev), win.to(dev), rc.to(dev), rs.to(dev), n1=n1, n2=n2)
+    assert (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches) == (
+        before[0] + 1, before[1] + 3, before[2] + 3)
+    for g, r in zip(got, ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2)):
+        _codes_close(g.cpu(), r)
+
+
+@pytest.mark.parametrize("fft, deint, dft_dtype", [(2048, "bitcast", "bfloat16"),
+                                                   (1024, "matmul", "bfloat16"),
+                                                   (65536, "matmul", "float32")])
+def test_k7_simt_shapes_launch_neither_pass(dev, fft, deint, dft_dtype):
+    """N1 = 8 and f32 operands run the SIMT body: one K7 call, no FIR or DFT
+    pass."""
+    _, n1, n2 = ff._deint_mode(fft // 2, deint)
+    frames, win, rc, rs = _k7_streams(fft, 2, 3, 4, seed=fft)
+    before = (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches)
+    got = ff.fengine_dit(frames.to(dev), win.to(dev), rc.to(dev), rs.to(dev), n1=n1, n2=n2,
+                         dft_dtype=dft_dtype)
+    assert (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches) == (
+        before[0] + 1, before[1], before[2])
+    ref = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    for g, r in zip(got, ref):
+        _codes_close(g.cpu(), r)
+
+
+@pytest.mark.parametrize("n1, n2, kc", [(16, 64, 16), (32, 64, 32), (256, 128, 64),
+                                        (256, 256, 64), (512, 512, 32), (1024, 1024, 16)])
+def test_k7_dft_pass_attributes_show_no_spills(dev, n1, n2, kc):
+    """The DFT pass's body at each chunk plan keeps its 512 threads within
+    128 registers and spills nothing; KC follows N2 (64 rows up to N2 = 256,
+    32 at 512, 16 at 1024), the ring has 3 or 4 stages, the plan fits the
+    232,448 bytes a block may use, and the wrapper routes the split to the
+    two passes."""
+    at = ff.dit_dft_attributes(n1, n2)
+    assert at["local_bytes"] == 0, at
+    assert at["regs"] <= 128, at
+    assert at["kc"] == kc and at["stages"] in (3, 4) and at["smem_bytes"] <= 232448, at
+    assert ff._dit_body(n1, n2, "bfloat16") == "two_pass"
+
+
+def test_k7_split_without_a_plan_takes_the_simt_body(dev):
+    """At 2048 x 2048 (fft 2^23) a 16-row chunk's T planes alone overflow
+    shared memory: the DFT pass has no plan and the split runs the SIMT body."""
+    with pytest.raises(ValueError):
+        ff.dit_dft_attributes(2048, 2048)
+    assert ff._dit_body(2048, 2048, "bfloat16") == "simt"
+
+
+def test_k7_two_pass_takes_unaligned_rotation_planes(dev):
+    """Rotation planes that start 4 bytes past an 8-byte boundary (the DFT
+    pass reads them as float2) go through two-pass K7 as the plain version
+    takes them."""
+    fft, b, s = 2048, 2, 3
+    frames, win, rc, rs = _k7_streams(fft, b, s, 4, seed=17)
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    odd = []
+    for r in (rc, rs):
+        buf = torch.empty(b * fft // 2 + 1, dtype=torch.float32, device=dev)
+        view = buf.view(-1)[1:1 + b * fft // 2].view(b, fft // 2)
+        view.copy_(r)
+        assert view.data_ptr() % 8 == 4
+        odd.append(view)
+    before = ff.dit_dft.launches
+    got = ff.fengine_dit(frames.to(dev), win.to(dev), *odd, n1=n1, n2=n2)
+    assert ff.dit_dft.launches == before + 1
+    for g, r in zip(got, ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2)):
+        _codes_close(g.cpu(), r)
+
+
+@pytest.mark.parametrize("stop", sorted(ff.DIT_DFT_STOPS))
+@pytest.mark.parametrize("n1, n2, s", [(64, 64, 5), (256, 128, 3), (256, 256, 2)])
+def test_k7_dft_stops_match_plain(dev, stop, n1, n2, s):
+    """The DFT pass cut at a stage (the 64-row chunk plan): stagea writes
+    nothing; stageb each stream's re, truncated, within 1 code on <= 1e-3
+    of samples, on a plane scaled by a power of two (exact in bf16) that
+    keeps those values near 30 rms."""
+    fft, b = 2 * n1 * n2, 2
+    frames, win, _, _ = _k7_streams(fft, b, s, 4, seed=n1 + s)
+    plane = ff.k1_fir_reference(frames.reshape(b, -1), torch.zeros(b, dtype=torch.int64), win,
+                                n_spectra=s).to(torch.float32)
+    shift = round(np.log2(30 / (float(plane.pow(2).mean().sqrt()) * (fft / 2) ** 0.5)))
+    plane = (plane * 2.0 ** shift).to(torch.bfloat16)
+    before = ff.dit_dft_stop.launches
+    got = ff.dit_dft_stop(plane.to(dev), n1=n1, n2=n2, stop=stop)
+    assert ff.dit_dft_stop.launches == before + 1
+    for g, r in zip(got, ff.dit_dft_stop_reference(stop, plane, n1=n1, n2=n2)):
+        if stop == "stagea":
+            assert torch.equal(g.cpu(), r)
+        else:
+            _codes_close(g.cpu(), r)
+
+
+def test_p2_full_is_the_simt_body_whole(dev):
+    """P2's "full": K7's SIMT body whole (bf16), the stops' own kernel,
+    within 1 code on <= 1e-3 of samples of plain K7."""
+    n1, n2, s, taps, b = 128, 64, 16, 16, 2
+    fft = 2 * n1 * n2
+    frames, win, rc, rs = _k7_streams(fft, b, s, taps, seed=29)
+    before = (ff.fengine_dit_ablate.launches, ff.fengine_dit.launches, ff.dit_dft.launches)
+    got = ff.fengine_dit_ablate(frames.to(dev), win.to(dev), n1=n1, n2=n2, stop="full",
+                                rot=(rc.to(dev), rs.to(dev)))
+    assert (ff.fengine_dit_ablate.launches, ff.fengine_dit.launches, ff.dit_dft.launches) == (
+        before[0] + 1, before[1], before[2])
+    for g, r in zip(got, ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2)):
         _codes_close(g.cpu(), r)
 
 

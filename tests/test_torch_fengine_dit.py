@@ -9,6 +9,8 @@ f32 twiddle, combine and rotation), so they differ only in the order of f32
 additions: within 1 int8 code on <= 1e-3 of samples.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,3 +125,287 @@ def test_plain_k7_reference_is_the_wrapper_on_cpu():
                            quant_scale=SCALE, deint="matmul")
     for g, w in zip(got, want):
         assert torch.equal(g.reshape(w.shape), w)
+
+
+# --- K7's two-pass body: K1's FIR pass, then the tensor-core DFT pass --------
+
+
+def _frames(fft, batch, seed, s=S, taps=TAPS):
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(-64, 64, (batch, s + taps - 1, fft), dtype=np.int8))
+    rc, rs = (torch.from_numpy(rng.standard_normal((batch, fft // 2)).astype(np.float32)) / 16
+              for _ in "cs")
+    return frames, default_window(taps, fft), rc, rs
+
+
+@pytest.mark.parametrize("fft", [2048, 4096])
+def test_k1_fir_pass_on_zero_starts_is_the_dit_fir(fft):
+    """K1's FIR pass of the frames viewed as streams starting at 0 is K7's
+    f32 tap-order FIR rounded to bf16, bit for bit."""
+    frames, win, _, _ = _frames(fft, 3, seed=fft)
+    b, n_frames, _ = frames.shape
+    plane = ff.k1_fir_reference(frames.reshape(b, n_frames * fft), torch.zeros(b, dtype=torch.int64),
+                                win, n_spectra=n_frames - TAPS + 1)
+    assert plane.dtype == torch.bfloat16 and plane.shape == (b, S, fft)
+    assert torch.equal(plane.to(torch.float32), ff._round_bf16(ff._dit_fir(frames, win)))
+
+
+@pytest.mark.parametrize("n1, n2", [(16, 64), (32, 64), (64, 64)])
+def test_dit_dft_reference_after_k1_fir_is_the_plain_k7(n1, n2):
+    """The two-pass body's plain versions compose to K7's, bit for bit."""
+    fft = 2 * n1 * n2
+    assert ff._deint_mode(fft // 2, "matmul") == ("matmul", n1, n2)
+    frames, win, rc, rs = _frames(fft, 2, seed=n1)
+    b, n_frames, _ = frames.shape
+    plane = ff.k1_fir_reference(frames.reshape(b, -1), torch.zeros(b, dtype=torch.int64), win,
+                                n_spectra=n_frames - TAPS + 1)
+    got = ff.dit_dft_reference(plane, rc, rs, n1=n1, n2=n2)
+    want = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int8 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("deint", ["matmul", "bitcast"])
+def test_two_pass_plain_matches_jax_dit_kernel(deint):
+    """k1_fir_reference then dit_dft_reference against the JAX DIT kernel
+    (interpret mode) at fft 2048, through each name's split: within 1 code
+    on <= 1e-3 of samples."""
+    fft = 2048
+    frames, fd, ph = _inputs(fft, seed=21 + len(deint))
+    kw = dict(n_channels=fft // 2, quant_scale=SCALE, deint=deint)
+    jr, ji = jfp.fengine_fused(jnp.asarray(frames), j_default_window(TAPS, fft),
+                               jnp.asarray(fd), jnp.asarray(ph), interpret=True, **kw)
+    _, n1, n2 = ff._deint_mode(fft // 2, deint)
+    rc, rs = (r.reshape(A * P, fft // 2) for r in ff._rotation_planes(
+        torch.from_numpy(fd), torch.from_numpy(ph), fft // 2, SCALE, (fft // 2,)))
+    x = torch.from_numpy(frames).reshape(A * P, -1)
+    plane = ff.k1_fir_reference(x, torch.zeros(A * P, dtype=torch.int64),
+                                default_window(TAPS, fft), n_spectra=S)
+    qr, qi = ff.dit_dft_reference(plane, rc, rs, n1=n1, n2=n2)
+    _codes_close(qr.reshape(A, P, S, -1).numpy(), jr)
+    _codes_close(qi.reshape(A, P, S, -1).numpy(), ji)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_routing():
+    """Each test decides K7's routing anew: some stub the library it asks."""
+    ff._dit_body.cache_clear()
+    yield
+    ff._dit_body.cache_clear()
+
+
+def _stub_plan(monkeypatch, answer):
+    """Stubs the library's plan query with ``answer`` (0: a plan fits);
+    returns the list of splits it is asked for."""
+    asked = []
+
+    class Lib:
+        @staticmethod
+        def dit_dft_attributes(n1, n2, out):
+            asked.append((n1, n2))
+            return answer
+
+        @staticmethod
+        def dcsand_error_string(err):
+            return b"stubbed"
+
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    return asked
+
+
+@pytest.mark.parametrize("fft, deint, dft_dtype, fits, body", [
+    (2048, "matmul", "bfloat16", True, "two_pass"),     # 16 x 64
+    (4096, "matmul", "bfloat16", True, "two_pass"),     # 32 x 64
+    (4096, "bitcast", "bfloat16", True, "two_pass"),    # 16 x 128
+    (65536, "matmul", "bfloat16", True, "two_pass"),    # 256 x 128
+    (1 << 17, "matmul", "bfloat16", True, "two_pass"),  # 256 x 256
+    (1 << 21, "matmul", "bfloat16", True, "two_pass"),  # 1024 x 1024
+    (1 << 23, "matmul", "bfloat16", False, "simt"),     # 2048 x 2048: no shared-memory plan
+    (2048, "bitcast", "bfloat16", True, "simt"),        # 8 x 128
+    (1024, "matmul", "bfloat16", True, "simt"),         # 8 x 64
+    (1024, "bitcast", "bfloat16", True, "simt"),        # 8 x 64 (falls back to "matmul")
+    (512, "auto", "bfloat16", True, "simt"),            # 8 x 32
+    (2048, "matmul", "float32", True, "simt"),
+    (65536, "matmul", "float32", True, "simt"),
+])
+def test_dit_body_routes_each_split(monkeypatch, fft, deint, dft_dtype, fits, body):
+    """bf16 with N1 >= 16 asks the library whether the DFT pass has a plan
+    and takes the two passes where it does; f32 and N1 = 8 take the SIMT
+    body without asking (stubbed library)."""
+    asked = _stub_plan(monkeypatch, 0 if fits else ff._NO_PLAN)
+    mode, n1, n2 = ff._deint_mode(fft // 2, deint)
+    assert mode in ("matmul", "bitcast") and n1 * n2 == fft // 2
+    assert ff._dit_body(n1, n2, dft_dtype) == body
+    assert asked == ([(n1, n2)] if dft_dtype == "bfloat16" and n1 >= 16 else [])
+    assert ff._dit_body(n1, n2, dft_dtype) == body
+    assert len(asked) <= 1  # decided once a split
+
+
+def test_dit_body_raises_on_a_failed_plan_query(monkeypatch):
+    """A CUDA error from the plan query raises; only NO_PLAN means the SIMT
+    body."""
+    _stub_plan(monkeypatch, 1)
+    with pytest.raises(RuntimeError, match="dit_dft_attributes"):
+        ff._dit_body(16, 64, "bfloat16")
+
+
+@pytest.mark.parametrize("batch, scratch, groups", [(3, None, 1), (5, 2, 3), (4, 1, 4)])
+def test_two_pass_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, batch, scratch,
+                                                              groups):
+    """With the card stubbed, a two-pass K7 call runs K1's FIR pass and the
+    DFT pass once per group of streams whose planes fit the scratch, in
+    order, each on its own streams with zero starts, and counts one K7 call."""
+    fft, taps, s = 2048, 4, 3
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def k1_fir_launch(x, stride, starts, win, plane, b, n_spectra, n_taps, f, stream):
+            calls.append(("fir", x, stride, starts, plane, b, n_spectra, n_taps, f))
+            return 0
+
+        @staticmethod
+        def dit_dft_launch(plane, *args):
+            b, n_spectra, a1, a2 = args[12:16]
+            calls.append(("dft", plane, args[10], b, n_spectra, a1, a2))
+            return 0
+
+        @staticmethod
+        def dit_dft_attributes(n1, n2, out):
+            return 0
+
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    monkeypatch.setattr(ff.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    plane_bytes = s * fft * 2
+    if scratch is not None:
+        monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", scratch * plane_bytes)
+    frames = torch.zeros((batch, s + taps - 1, fft), dtype=torch.int8)
+    rc = torch.zeros((batch, fft // 2))
+    before = (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches)
+    outr, _ = ff._launch_dit(frames, default_window(taps, fft), rc, rc.clone(), n1=n1, n2=n2,
+                             dft_dtype="bfloat16")
+    assert (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches) == (
+        before[0] + 1, before[1] + groups, before[2] + groups)
+    assert [c[0] for c in calls] == ["fir", "dft"] * groups
+    group = ff._plane_group(batch, s, fft)
+    stream_bytes = (s + taps - 1) * fft
+    for i in range(groups):
+        fir, dft = calls[2 * i], calls[2 * i + 1]
+        nb = min(group, batch - i * group)
+        assert fir[1] == frames.data_ptr() + i * group * stream_bytes and fir[2] == stream_bytes
+        assert fir[4] == dft[1] and fir[5:] == (nb, s, taps, fft)
+        assert dft[2] == outr.data_ptr() + i * group * s * fft // 2
+        assert dft[3:] == (nb, s, n1, n2)
+
+
+def test_simt_shapes_launch_neither_pass(monkeypatch):
+    """f32 operands and N1 = 8 take the single-pass SIMT body (stubbed card)."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def fengine_dit_launch(*args):
+            calls.append(args[-7:-1])
+            return 0
+
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    monkeypatch.setattr(ff.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    for fft, deint, dt in ((2048, "matmul", "float32"), (2048, "bitcast", "bfloat16")):
+        _, n1, n2 = ff._deint_mode(fft // 2, deint)
+        frames = torch.zeros((2, 5, fft), dtype=torch.int8)
+        rc = torch.zeros((2, fft // 2))
+        before = (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches)
+        ff._launch_dit(frames, default_window(4, fft), rc, rc.clone(), n1=n1, n2=n2,
+                       dft_dtype=dt)
+        assert (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches) == (
+            before[0] + 1, before[1], before[2])
+        assert calls[-1] == (2, 5, 4, n1, n2, int(dt == "bfloat16"))
+
+
+def test_dft_pass_gets_aligned_rotation_planes(monkeypatch):
+    """Rotation planes 4 bytes past an 8-byte boundary reach the DFT pass
+    (which reads them as float2) as aligned copies of the same values, from
+    both the K7 call and the pass's own wrapper (stubbed card)."""
+    fft, b, taps = 2048, 2, 4
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    n = fft // 2
+    seen = []
+
+    class Lib:
+        @staticmethod
+        def k1_fir_launch(*args):
+            return 0
+
+        @staticmethod
+        def dit_dft_launch(plane, *args):
+            for ptr in args[8:10]:
+                vals = (ctypes.c_float * (b * n)).from_address(ptr)
+                seen.append((ptr % 8, np.ctypeslib.as_array(vals).copy()))
+            return 0
+
+        @staticmethod
+        def dit_dft_attributes(n1, n2, out):
+            return 0
+
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    monkeypatch.setattr(ff.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    rng = np.random.default_rng(23)
+    want = [torch.from_numpy(rng.standard_normal((b, n), dtype=np.float32)) for _ in range(2)]
+    odd = []
+    for w in want:
+        view = torch.empty(b * n + 1)[1:].view(b, n)
+        view.copy_(w)
+        assert view.data_ptr() % 8 == 4
+        odd.append(view)
+    frames = torch.zeros((b, S + taps - 1, fft), dtype=torch.int8)
+    ff._launch_dit(frames, default_window(taps, fft), *odd, n1=n1, n2=n2, dft_dtype="bfloat16")
+    plane = torch.zeros((b, S, fft), dtype=torch.bfloat16)
+    outr, outi = (torch.empty((b, S, n), dtype=torch.int8) for _ in range(2))
+    ff._dit_dft_pass(plane, *odd, outr, outi, n1=n1, n2=n2)
+    assert len(seen) == 4
+    for i, (rem, vals) in enumerate(seen):
+        assert rem == 0
+        np.testing.assert_array_equal(vals, want[i % 2].numpy().ravel())
+
+
+def test_dit_dft_on_cpu_is_its_plain_version():
+    frames, win, rc, rs = _frames(2048, 2, seed=3)
+    plane = ff.k1_fir(frames.reshape(2, -1), torch.zeros(2, dtype=torch.int64), win, n_spectra=S)
+    before = ff.dit_dft.launches
+    got = ff.dit_dft(plane, rc, rs, n1=16, n2=64)
+    assert ff.dit_dft.launches == before
+    for g, w in zip(got, ff.dit_dft_reference(plane, rc, rs, n1=16, n2=64)):
+        assert torch.equal(g, w)
+
+
+def test_dit_dft_stops_on_cpu_are_their_plain_versions():
+    """stagea writes nothing; stageb is each stream's stage-B re, as P2's
+    stageb stop on the same frames."""
+    frames, win, _, _ = _frames(2048, 2, seed=7)
+    plane = ff.k1_fir_reference(frames.reshape(2, -1), torch.zeros(2, dtype=torch.int64), win,
+                                n_spectra=S)
+    zr, zi = ff.dit_dft_stop(plane, n1=16, n2=64, stop="stagea")
+    assert not zr.any() and not zi.any() and zr.shape == (2, S, 1024)
+    got = ff.dit_dft_stop(plane, n1=16, n2=64, stop="stageb")
+    for g, w in zip(got, ff.fengine_dit_ablate_reference("stageb", frames, win, n1=16, n2=64)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="unknown stop"):
+        ff.dit_dft_stop(plane, n1=16, n2=64, stop="full")
+
+
+def test_fengine_dit_ablate_full_takes_rotation_planes_alone():
+    """P2's "full" is the SIMT body whole and needs ``rot``; no other stop
+    takes it."""
+    frames, win, rc, rs = _frames(2048, 2, seed=9)
+    _, n1, n2 = ff._deint_mode(1024, "matmul")
+    got = ff.fengine_dit_ablate(frames, win, n1=n1, n2=n2, stop="full", rot=(rc, rs))
+    for g, w in zip(got, ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="rot="):
+        ff.fengine_dit_ablate(frames, win, n1=n1, n2=n2, stop="full")
+    with pytest.raises(ValueError, match="rot="):
+        ff.fengine_dit_ablate(frames, win, n1=n1, n2=n2, stop="fir", rot=(rc, rs))

@@ -212,12 +212,9 @@ def test_p2_plain_matches_the_jax_probe(stop, interpret):
     want = call(jnp.asarray(fr), jnp.asarray(win), *map(jnp.asarray, consts))
     frames = torch.from_numpy(fr).reshape(1, s + taps - 1, 2 * n)
     rc = torch.full((1, n), 1 / 16)
-    if stop == "full":
-        got = ff.fengine_dit(frames, torch.from_numpy(win).reshape(taps, 2 * n), rc,
-                             torch.zeros_like(rc), n1=n1, n2=n2)
-    else:
-        got = ff.fengine_dit_ablate(frames, torch.from_numpy(win).reshape(taps, 2 * n),
-                                    n1=n1, n2=n2, stop=stop)
+    rot = (rc, torch.zeros_like(rc)) if stop == "full" else None
+    got = ff.fengine_dit_ablate(frames, torch.from_numpy(win).reshape(taps, 2 * n), n1=n1, n2=n2,
+                                stop=stop, rot=rot)
     for g, w in zip(got, want):
         _codes_close(g.numpy(), np.asarray(w).reshape(g.shape), stop in ("dma", "conv", "fir"))
 
