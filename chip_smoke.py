@@ -51,12 +51,21 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    its stage stops (the copies, the MMAs, the stores, alone and in pairs),
    each checked for what it writes and timed; then the two-pass X path (K5a,
    then K5b through ``correlate_turned_fused``) driven with its launch
-   counts reset, and K5b held bit-exact against its plain version; kernel
-   and plain times;
+   counts reset, and K5b held bit-exact against its plain version; K5b's
+   yardsticks: the same fill, its body's registers, local (spill) bytes
+   and the plan its C side takes (a body that spills fails the phase), its
+   stage stops, each checked for what it writes and timed, and K5a + K5b
+   beside K3 on the log line; then K5b where a channel's rows are streamed
+   in stages (I=160, S=1024, C=4096), bit-exact and timed; kernel and plain
+   times;
 9. fxb_engine — FXBEngine at 8 antennas x 32768 ch x 16 beams x 16 taps,
    S=256, vs the plain chain on the same device tensors: F planes within 1
    code on <= 1e-3, visibilities exactly the plain gram of the step's own F
-   planes, beams within phase 5's per-beam flip bound;
+   planes, beams within phase 5's per-beam flip bound; then FXBEngine at 80
+   antennas x 64 ch (fft 128) x 16 beams x 16 taps, S=256, with the
+   backends it resolves (the composed F), 3 steps: each must launch K5b
+   once and K3 never, and its visibilities must equal the plain gram of
+   its own turned F planes;
 10. fxb_flagship — FXBEngine at 80 x 32768 x 16 x 16, S=256, bf16, int8
    beams (beam_quant_scale 0.25), the default backends (K1, K4 + the f32
    product, K3): set_beam_delays, 3 steps, a delay update, 2 steps on fresh
@@ -833,10 +842,11 @@ def phase_xcorr(st: dict) -> None:
         if not all(bool((v == want).all()) for v in (vre, vim)):
             raise AssertionError(f"k3 stop {stop} did not leave its outputs all {want}")
         stop_ms[stop] = cuda_ms(lambda: xc.correlate_planes_fused_stop(qr, qi, vre, vim, stop))
-    del vre, vim
     log(f"k3 stops {tag} (ms; full {k3_ms:.3f}): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stop_ms.items()) + f" ({st['card']})")
-    # The two-pass X path (K5a, then K5b) as FXB runs it where K3's gate fails.
+    # The two-pass X path (K5a, then K5b) at the flagship shape. FXB takes it
+    # only where C < 128 (phase 9 steps such an engine); here it is driven
+    # directly, with its launch counts reset.
     ct.corner_turn_planes.launches = 0
     xc.correlate_turned_fused.launches = 0
     xt = ct.corner_turn_planes_x(qr, qi)
@@ -852,6 +862,48 @@ def phase_xcorr(st: dict) -> None:
     del got, ref
     k5b_ms = cuda_ms(lambda: xc.correlate_turned_fused(xt, i))
     k5b_pms = cuda_ms(lambda: xc.correlate_turned_fused_reference(xt, i), iters=1)
+    k5a_ms = cuda_ms(lambda: ct.corner_turn_planes_x(qr, qi))
+    # K5b's yardsticks: the fill above, and its body's registers, local
+    # (spill) bytes and the plan its C side takes for this shape.
+    k5b_at = xc.turned_kernel_attributes(i, s, c)
+    log(f"k5b yardsticks {tag}: fill of V_re and V_im {fill_ms:.3f} ms; body "
+        f"{k5b_at['regs']} registers, {k5b_at['local_bytes']} local bytes, {k5b_at['blocks']} "
+        f"blocks; plan {k5b_at['plan']} ({k5b_at['stage_samples']} samples a stage, "
+        f"{k5b_at['items_per_channel']} items a channel, {k5b_at['smem_bytes']} bytes of shared "
+        f"memory, rows by {'TMA' if k5b_at['tma'] else 'cp.async'}) ({st['card']})")
+    if k5b_at["local_bytes"]:
+        raise AssertionError(f"k5b body spills: {k5b_at}")
+    k5b_stop_ms = {}
+    for stop in xc.K5B_STOPS:
+        vre.fill_(1.0)
+        vim.fill_(1.0)
+        xc.correlate_turned_fused_stop(xt, i, vre, vim, stop)
+        want = 0.0 if "store" in stop else 1.0
+        if not all(bool((v == want).all()) for v in (vre, vim)):
+            raise AssertionError(f"k5b stop {stop} did not leave its outputs all {want}")
+        k5b_stop_ms[stop] = cuda_ms(
+            lambda: xc.correlate_turned_fused_stop(xt, i, vre, vim, stop))
+    del vre, vim, xt
+    log(f"k5b stops {tag} (ms; full {k5b_ms:.3f}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in k5b_stop_ms.items()) + f" ({st['card']})")
+    log(f"x {tag}: K5a {k5a_ms:.3f} + K5b {k5b_ms:.3f} = {k5a_ms + k5b_ms:.3f} ms vs K3 "
+        f"{k3_ms:.3f} ms ({st['card']})")
+    # K5b where a channel's rows do not stay resident (streamed in stages).
+    ws, wc = 1024, 4096
+    gen = torch.Generator(device=qr.device).manual_seed(SEED + 5)
+    xw = torch.randint(-128, 128, (wc, 2 * i, ws), dtype=torch.int8, device=qr.device,
+                       generator=gen)
+    wtag = f"[I={i} S={ws} C={wc}]"
+    _exact(f"k5b {wtag}", xc.correlate_turned_fused(xw, i),
+           xc.correlate_turned_fused_reference(xw, i))
+    w_at = xc.turned_kernel_attributes(i, ws, wc)
+    w_ms = cuda_ms(lambda: xc.correlate_turned_fused(xw, i))
+    log(f"k5b {wtag}: {w_ms:.3f} ms, plan {w_at['plan']} ({w_at['stage_samples']} samples a "
+        f"stage, {w_at['items_per_channel']} items a channel), {w_at['regs']} registers, "
+        f"{w_at['local_bytes']} local bytes ({st['card']})")
+    if w_at["local_bytes"] or w_at["plan"] != "stream":
+        raise AssertionError(f"k5b {wtag}: {w_at}")
+    del xw
     gbytes = (2 * i * s + 2 * 4 * i * i) * c / 1e9
     log(f"xcorr {tag}: K3 {k3_ms:.3f} ms vs plain {k3_pms:.3f} ms, K5b {k5b_ms:.3f} ms vs "
         f"plain {k5b_pms:.3f} ms (floor: {gbytes:.2f} GB read+written) ({st['card']})")
@@ -860,8 +912,9 @@ def phase_xcorr(st: dict) -> None:
     st["k3"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_pms, **x_bound, library_ms=None,
                     fill_ms=fill_ms, ms_by_stop=stop_ms, regs=k3_at["regs"],
                     local_bytes=k3_at["local_bytes"])
-    st["k5b"] = dict(max_abs_err=k5b_err, ms=k5b_ms, plain_ms=k5b_pms,
-                     launches=two_pass["k5b"], **x_bound, library_ms=None)
+    st["k5b"] = dict(max_abs_err=k5b_err, ms=k5b_ms, plain_ms=k5b_pms, **x_bound,
+                     library_ms=None, fill_ms=fill_ms, ms_by_stop=k5b_stop_ms,
+                     regs=k5b_at["regs"], local_bytes=k5b_at["local_bytes"])
 
 
 def _stack_beams(torch, pair):
@@ -921,6 +974,54 @@ def phase_fxb_engine(st: dict) -> None:
     finite = all(bool(torch.isfinite(t).all()) for t in (beams, vre, vim))
     if not finite or over or frac > 5e-3:
         raise AssertionError("the FXB engine disagrees with the plain chain")
+    _fxb_64ch(st)
+
+
+#: FXB at 64 channels (fft 128): the reference's dispatch sends its X stage
+#: to the corner turn (K5a) and K5b, as at any C < 128.
+FXB64 = dict(n_ants=80, n_channels=64, n_beams=16, n_taps=16)
+FXB64_STEPS = 3
+
+
+def _fxb_64ch(st: dict) -> None:
+    """FXBEngine at 80 ant x 64 ch x 16 beams x 16 taps, S=256, with the
+    backends it resolves: each step launches K5b once and K3 never, and its
+    visibilities are exactly the plain gram of its own turned F planes."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FXBEngine
+    from dpdk_dc_sand_tpu_torch.ops import corner_turn as ct, xcorr as xc
+
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(**FXB64)
+    a, p, s, c = cfg.n_ants, cfg.n_pols, FLAG_S, cfg.n_channels
+    fxb = FXBEngine(cfg, n_spectra=s, precision="bf16", device=dev)
+    counters = {"k3": xc.correlate_planes_fused, "k5a": ct.corner_turn_planes,
+                "k5b": xc.correlate_turned_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    _, cd, fd, ph, dv = fxb.example_inputs(seed=SEED + 6, margin=1024)
+    fxb.set_beam_delays(dv)
+    for step in range(FXB64_STEPS):
+        adc = fxb.example_inputs(seed=SEED + 10 + step, margin=1024)[0]
+        before = {k: fn.launches for k, fn in counters.items()}
+        beams, vre, vim = fxb.step(adc, cd, fd, ph)
+        torch.cuda.synchronize()
+        d = {k: fn.launches - before[k] for k, fn in counters.items()}
+        if d["k5b"] != 1 or d["k3"]:
+            raise AssertionError(f"fxb 64 ch step {step}: launches {d}, want K5b once, K3 never")
+        if not all(bool(torch.isfinite(t).all()) for t in (beams, vre, vim)):
+            raise AssertionError(f"fxb 64 ch step {step}: non-finite outputs")
+        qr, qi = fxb._f(adc, cd, fd, ph)  # the step's F planes, again
+        xt = ct.corner_turn_planes_reference(qr, qi).view(c, 2 * a * p, s)
+        _exact(f"fxb 64 ch step {step} visibilities vs the plain gram of its turned planes "
+               f"(F codes rms {float(qr.float().pow(2).mean().sqrt()):.1f})", (vre, vim),
+               xc.correlate_turned_fused_reference(xt, a * p))
+    st["fxb64_launches"] = {k: fn.launches for k, fn in counters.items()}
+    log(f"fxb 64 ch [A={a} C={c} B={cfg.n_beams} taps={cfg.n_taps} S={s}] backends "
+        f"{fxb.fengine}, {fxb.bstage}: launches over {FXB64_STEPS} steps "
+        f"{st['fxb64_launches']}")
 
 
 def phase_fxb_flagship(st: dict) -> None:
@@ -2433,7 +2534,7 @@ def main() -> int:
     if ref:
         raise AssertionError(f"the port pulled in JAX or the reference package: {ref}")
     # launches: each kernel's count from the run of its path (phase 6 for the
-    # F+B step, phase 10 for the FXB step, phase 8 for the two-pass X path,
+    # F+B step, phase 10 for the FXB step, phase 9 for the 64-channel FXB step,
     # phase 12 for the DIT F form, phase 13 for the F-engine step, phase 14
     # for the native-handoff F+B step, phase 16 for the example under
     # PipelineTest, phase 19 for each probe's timed runs).
@@ -2456,8 +2557,8 @@ def main() -> int:
              replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:135", path="fxb_flagship",
              launches=st["fxb_launches"]["k3"], **st["k3"]),
         dict(name="xcorr_turned", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/xcorr.cu",
-             replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:47", path="x_two_pass",
-             **st["k5b"]),
+             replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:47", path="fxb_64ch",
+             launches=st["fxb64_launches"]["k5b"], **st["k5b"]),
         dict(name="pfb_fir", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/pfb_fir.cu",
              replaces="dpdk_dc_sand_tpu/ops/pfb_pallas.py:52", path="f_flagship",
              launches=st["f_launches"]["k6"], **st["k6"]),

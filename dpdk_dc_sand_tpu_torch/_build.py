@@ -125,6 +125,16 @@ _SIGNATURES = {
         _I, _I, _I,  # n_inputs, n_spectra, n_channels
         _P,  # stream
     ],
+    "xcorr_turned_stop_launch": [
+        _P, _P, _P,  # xt [C, 2I, S], vre, vim [C, I, I]
+        _I, _I, _I, _I,  # n_inputs, n_spectra, n_channels, stages (a mask)
+        _P,  # stream
+    ],
+    "xcorr_turned_attributes": [
+        _I, _I, _I,  # n_inputs, n_spectra, n_channels
+        _P,  # out (int[8]): registers, local bytes, blocks, plan, stage samples,
+        # items a channel, shared-memory bytes, copies by TMA
+    ],
     "pfb_fir_launch": [
         _P, _P, _P,  # frames [B, n_frames, F], window [taps, F], out [B, S, F]
         _I, _I, _I, _I,  # batch, n_frames, F, n_spectra

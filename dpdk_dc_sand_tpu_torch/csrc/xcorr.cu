@@ -4,18 +4,19 @@
 // inputs (ordered a*P + p) over S samples and G = Y*Y^T:
 //   V_re = G11 + G22,   V_im = G21 - G12,   each [C, I, I] f32.
 //
-// Exactness. Products are s8*s8 on the tensor cores (mma.sync m16n8k32) with
-// s32 accumulation, so every gram block is the exact integer sum. V_re is
-// accumulated as one s32 sum (G11 + G22, exact) and V_im as the s32
-// difference of two exact sums, G21 and G12 kept apart (negating an int8
-// operand to merge them would overflow at -128); each is converted to f32
-// once. IEEE conversion and addition are correctly rounded, so this equals
-// the plain version's f32 G11 + G22 (each term an exact integer below 2^24
-// for S <= 1024) bit for bit. Nothing here depends on the summation order.
-// Both kernels own 16 x 16 tiles (ti, tj) of the I x I output with ti <= tj:
-// V_re is symmetric and V_im antisymmetric, so an off-diagonal tile also
-// writes its mirror (V_im mirrored as the s32 difference the other way
-// round, so a zero stays +0).
+// Exactness. Products are s8*s8 on the tensor cores (mma.sync m16n8k32 in
+// K3, wgmma m64n80k32 in K5b) with s32 accumulation, so every gram block is
+// the exact integer sum. V_re is accumulated as one s32 sum (G11 + G22,
+// exact) and V_im as the s32 difference of two exact sums, G21 and G12 kept
+// apart (negating an int8 operand to merge them would overflow at -128); each
+// is converted to f32 once. IEEE conversion and addition are correctly
+// rounded, so this equals the plain version's f32 G11 + G22 (each term an
+// exact integer below 2^24 for S <= 1024) bit for bit. Nothing here depends
+// on the summation order. K3 owns 16 x 16 tiles (ti, tj) of the I x I output
+// with ti <= tj: V_re is symmetric and V_im antisymmetric, so an
+// off-diagonal tile also writes its mirror (V_im mirrored as the s32
+// difference the other way round, so a zero stays +0). K5b computes every
+// tile directly.
 //
 // K3 replaces the TPU kernel dpdk_dc_sand_tpu/ops/xcorr_pallas.py:
 // _kernel_fused (behind correlate_planes_fused). It reads the F planes
@@ -78,17 +79,60 @@
 //
 // K5b replaces dpdk_dc_sand_tpu/ops/xcorr_pallas.py: _kernel (behind
 // correlate_turned_fused). It reads the turned [C, 2I, S] int8 layout that
-// the corner turn (K5a) writes. A block owns 32 consecutive channels and one
-// 16 x 16 tile; per 32-sample K step it stages, for each of its channels,
-// the 64 rows it needs as [row][32 samples] int8 in shared memory, the
-// row-major A operand and the column-major B operand of the mma, loading
-// each row word directly. Each thread issues all 32 of its word loads of a K
-// step at once, so a K step waits on one L2 round trip rather than eight.
-// (Holding the next step's words in registers across the mma spilled at the
-// 128-register cap and made K5b 2.6x slower on the card.) Each of the 16
-// warps keeps the s32 accumulators of two channels.
+// the corner turn (K5a) writes, in which channel c's operand Y_c = [re rows;
+// im rows] is one contiguous block of 2I x S bytes, each row K-contiguous:
+// the K-major layout that wgmma wants for both operands.
+//
+// What bounds K5b on this card. At phase 8's shape (I = 160, S = 256,
+// C = 32768) it must read 2.68 GB and write 6.71 GB: 2.805 ms at 3.35
+// TB/s. The full square of products is 1.72 int8 TOP, 0.87 ms at 1979 TOP/s.
+// The first body (37.7 ms) staged each 16 x 16 tile's 64 rows for 32
+// channels, so every row passed through L2 once for each of the n_t + 1
+// tiles that named it (29.5 GB), with no copy in flight and stores a float a
+// lane.
+//
+// Design.
+//   A channel is the work item of one persistent 256-thread block an SM
+//   (two warpgroups). Its rows are read from device memory once, into a
+//   shared-memory slot, in wgmma's K-major layout with the 128-byte swizzle;
+//   with two slots the next channel's rows land while this channel's tiles
+//   are computed and stored.
+//   The copies: TMA boxes of 128 samples x I rows (a tensor map over xt
+//   viewed [C * 2I, S]; samples past S read as zeros), one thread issuing a
+//   channel's boxes against the slot's mbarrier, where rows start 16-byte
+//   aligned and I <= 256; else cp.async of 16, 8 or 4 bytes by every thread,
+//   each row's chunks on consecutive lanes, samples past S zero-filled.
+//   A unit is a 64 x 80 tile of V[c], the full square (the lower tiles are
+//   computed again rather than mirrored): one warpgroup runs wgmma
+//   m64n80k32 s8 from shared memory, V_re as one s32 accumulator (re.re +
+//   im.im) and V_im in a second (G21, negated in registers, plus G12,
+//   negated back).
+//   The tiles leave straight from the accumulators as row segments (two
+//   quad shuffles give a lane 4 consecutive columns: one float4, 8 rows x
+//   64 bytes a warp instruction), V_re while the G12 products run.
+//   Plans (k5b_plan, on the C side): two slots where two channels fit (at
+//   I = 160: S <= 256), one slot where one does (S <= 512), else streaming
+//   stages of 256 samples through two slots, with an item of (channel,
+//   64-row tile, pair of 80-column tiles): the tile's 64 re and im rows and
+//   the pair's 160, so a row is read ceil(n_nt / 2) times as an A row and
+//   n_mt times as a B row (at I = 160: once and three times).
+// Phase 8 of chip_smoke.py times this body at its shape beside its stage
+// stops (K5B_COPY, K5B_MMA, K5B_STORE below): the copies hide behind the
+// MMAs, and the MMAs behind the stores, which take about what a fill of the
+// same outputs takes. Forms tried in development runs on an H100 and gone,
+// each slower at phase 8's shape: mma.sync m16n8k32 fed by ldmatrix from
+// rows padded by 16 bytes (its MMAs alone took most of the body's time, with
+// the tiles staged in shared memory and sent by cp.async.bulk or by float4
+// thread stores); wgmma on unswizzled core matrices (its copies write 8 rows
+// x 16 bytes a quarter warp); the swizzled layout fed by cp.async (its copies
+// did not overlap the MMAs); the next stage's copies spread over a channel's
+// rounds, or issued behind its first products. A branch around a
+// warpgroup's wgmma (a unit past the end) made ptxas serialize every wgmma
+// of the kernel (C7520): a warpgroup without a unit repeats the last one.
 
 #include <climits>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -484,132 +528,528 @@ int k3_launch(const void* qr, const void* qi, void* vre, void* vim, int n_inputs
 
 // ---------------------------------------------------------------- K5b ---
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int CPW = CB / WARPS;     // channels per warp
-constexpr int RW = SK / 4 + 4;      // words per staged row (padded: 12)
-constexpr int CS = ROWS * RW + 1;   // words per staged channel (odd)
+constexpr int K5B_THREADS = 256;  // two warpgroups
+constexpr int WG_M = 64, WG_N = 80;  // a unit: a 64 x 80 tile of V[c], one warpgroup's wgmma
+constexpr int ATOM = 128;            // bytes of K in a swizzle atom's row
+constexpr int K5B_TWO_SLOTS = 1, K5B_ONE_SLOT = 2, K5B_STREAM = 3;  // the plans
 
-// Staged row slot -> (which plane: 0 re / 1 im, input index).
-__device__ __forceinline__ void slot_row(int slot, int i0, int j0, int& reim, int& inp) {
-  const int g = slot / T, rr = slot % T;
-  reim = g & 1;
-  inp = (g < 2 ? i0 : j0) + rr;
-}
+// K5b's stage stops, as K3's: without K5B_COPY the MMAs read zeroed slots
+// (the waits and barriers stay); without K5B_MMA the stores write the zero
+// sums; without K5B_STORE the sums reach one store that no exact sum
+// triggers, so the MMAs stay and nothing is written.
+constexpr int K5B_COPY = 1, K5B_MMA = 2, K5B_STORE = 4, K5B_ALL = 7;
 
-constexpr int WORDS = CB * ROWS * (SK / 4) / THREADS;  // staged words a thread: 32
-constexpr size_t K5B_SMEM = sizeof(uint32_t) * CB * CS;
-
-// K5b staging: turned [C][2I][S], rows contiguous in samples; one word a unit.
-struct TurnedUnit {
-  int sg, slot, ch;
-  __device__ __forceinline__ explicit TurnedUnit(int u)
-      : sg(u % (SK / 4)), slot((u / (SK / 4)) % ROWS), ch(u / (SK / 4 * ROWS)) {}
+struct K5bPlan {
+  int n_in, n_s, n_ch;
+  int kind, slots;         // the plan; stages held at once (1 or 2)
+  int kc, n_kc, last_ks;   // samples a stage (a multiple of ATOM), stages an item, K steps
+                           // of its last stage
+  int rows;                // staged rows a stage (a multiple of 8)
+  int r_im;                // resident: first staged row of the im rows
+  int n_mt, n_nt, units;   // 64-row and 80-column tiles of V[c]; units a channel
+  int items_per_ch, n_items;
+  int stage_bytes, smem;
+  int tma, tma_bytes;      // copies by TMA (resident, aligned rows); bytes a stage
+  int w;                   // copy width of the cp.async copies: 16, 8 or 4 bytes
+  int vec4;                // output stores as float4
 };
 
-__device__ __forceinline__ void load_turned(uint32_t (&buf)[WORDS], const int8_t* xt, int n_in,
-                                            int n_s, int n_ch, int c0, int s0, int i0,
-                                            int j0) {
-#pragma unroll
-  for (int k = 0; k < WORDS; ++k) {
-    const TurnedUnit u(threadIdx.x + k * THREADS);
-    int reim, inp;
-    slot_row(u.slot, i0, j0, reim, inp);
-    const int c = c0 + u.ch, s = s0 + 4 * u.sg;
-    uint32_t v = 0u;
-    if (c < n_ch && inp < n_in && s < n_s) {
-      const long long row = static_cast<long long>(c) * 2 * n_in + reim * n_in + inp;
-      v = __ldg(reinterpret_cast<const uint32_t*>(xt + row * n_s + s));
-    }
-    buf[k] = v;
+// W bytes from src to shared dst, or W zero bytes where !ok.
+template <int W>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, bool ok) {
+  if constexpr (W == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(W),
+                 "r"(ok ? W : 0)
+                 : "memory");
   }
 }
 
-__device__ __forceinline__ void store_turned(uint32_t* sm, const uint32_t (&buf)[WORDS]) {
+// Staged layout: wgmma's K-major layout with the 128-byte swizzle. A stage
+// holds `rows` rows of kc bytes as kc / ATOM blocks of rows x 128 bytes;
+// row r's 16-byte chunk j of a block sits at (r / 8) * 1024 + (r % 8) * 128
+// + (j ^ (r % 8)) * 16, so the 8 rows of a core matrix, and each copy's
+// quarter warp, fill all 32 banks.
+__device__ __forceinline__ uint32_t staged(uint32_t stage, int rows, int r, int b) {
+  return stage + (b / ATOM) * rows * ATOM + (r / 8) * 1024 + (r % 8) * ATOM +
+         ((((b % ATOM) >> 4) ^ (r % 8)) << 4) + (b & 15);
+}
+
+// A wgmma operand: 8-row groups of a block 1024 bytes apart, 128-byte swizzle.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The address of K step ks of a block whose first staged row is r0.
+__device__ __forceinline__ uint32_t k_step(uint32_t stage, int rows, int r0, int ks) {
+  return stage + (ks / 4) * rows * ATOM + (r0 / 8) * 1024 + (ks % 4) * 32;
+}
+
+// Shared-memory writes of this thread (st.shared, cp.async), seen by the
+// async proxy that wgmma reads through.
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of d across a wgmma.
+__device__ __forceinline__ void wg_hold(int (&d)[40]) {
 #pragma unroll
-  for (int k = 0; k < WORDS; ++k) {
-    const TurnedUnit u(threadIdx.x + k * THREADS);
-    sm[u.ch * CS + u.slot * RW + u.sg] = buf[k];
+  for (int i = 0; i < 40; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d = A (64 x 32 int8) * B (80 x 32 int8)^T (+ d where add), both K-major in
+// shared memory.
+__device__ __forceinline__ void wg_mma(int (&d)[40], uint32_t a, uint32_t b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "l"(wg_desc(a)), "l"(wg_desc(b)), "r"(add));
+}
+
+__device__ __forceinline__ void negate(int (&d)[40]) {
+#pragma unroll
+  for (int i = 0; i < 40; ++i) d[i] = -d[i];
+}
+
+// An item: a channel (the resident plans), or a channel's (64-row tile mt,
+// pair of 80-column tiles np) (streaming).
+struct K5bItem {
+  int c, mt, np;
+};
+
+__device__ __forceinline__ K5bItem k5b_item(int item, const K5bPlan& p) {
+  const int q = item % p.items_per_ch, np = (p.n_nt + 1) / 2;
+  return K5bItem{item / p.items_per_ch, q / np, q % np};
+}
+
+// One stage's copies: samples [kc * p.kc, ...) of the item's rows up to S
+// rounded to 32 (those past S zero-filled), W bytes a cp.async, each row's
+// chunks on consecutive lanes. Resident: the re rows to staged rows
+// [0, I), the im rows to [r_im, r_im + I). Streaming: the 64 re and im rows
+// of tile mt to [0, 64) and [64, 128), the 160 re and im rows of tile pair
+// np to [128, 288) and [288, 448).
+template <int W>
+__device__ __forceinline__ void k5b_copy(uint32_t stage, const int8_t* __restrict__ xt,
+                                         const K5bItem& it, int kc, const K5bPlan& p) {
+  constexpr int SUB = 16 / W;
+  const int n = p.n_in;
+  int src0 = 0, n0 = n, d1 = p.r_im, src2 = 0, n2 = 0;
+  if (p.kind == K5B_STREAM) {
+    src0 = WG_M * it.mt;
+    n0 = min(WG_M, n - src0);
+    d1 = WG_M;
+    src2 = 2 * WG_N * it.np;
+    n2 = min(2 * WG_N, n - src2);
+  }
+  const int s0 = kc * p.kc;
+  const int cpr = min(p.kc, (p.n_s - s0 + SK - 1) / SK * SK) / 16;  // 16-byte chunks a row
+  const int total = (2 * n0 + 2 * n2) * cpr * SUB;
+  const int8_t* chan = xt + static_cast<long long>(it.c) * 2 * n * p.n_s;
+  for (int q = threadIdx.x; q < total; q += K5B_THREADS) {
+    const int t = q / SUB, ch = t % cpr;
+    int row = t / cpr, src, dst;
+    if (row < n0) {
+      src = src0 + row;
+      dst = row;
+    } else if ((row -= n0) < n0) {
+      src = n + src0 + row;
+      dst = d1 + row;
+    } else if ((row -= n0) < n2) {
+      src = src2 + row;
+      dst = 2 * WG_M + row;
+    } else {
+      row -= n2;
+      src = n + src2 + row;
+      dst = 2 * WG_M + 2 * WG_N + row;
+    }
+    const int b = 16 * ch + W * (q % SUB);
+    const bool ok = s0 + b < p.n_s;
+    const int8_t* g = chan + static_cast<long long>(src) * p.n_s + s0 + b;
+    cp_async_zfill<W>(staged(stage, p.rows, dst, b), ok ? g : xt, ok);
   }
 }
 
-// The K step's mma for one warp: its CPW channels of the turned buffer.
-__device__ __forceinline__ void mma_step(const uint32_t* sm, int warp, int gid, int tig,
-                                         int (&acc_re)[CPW][2][4], int (&acc_ir)[CPW][2][4],
-                                         int (&acc_ri)[CPW][2][4]) {
+// A warp's 16 rows of a 64 x 80 tile, straight from the accumulator: per 16
+// columns, two shuffles in each quad give lane tig the columns 4 tig ..
+// 4 tig + 3 of its row (K3's store), one float4 a lane where vec4.
+__device__ __forceinline__ void wg_store(float* __restrict__ out, const int (&d)[40], int row0,
+                                         int col0, int n, bool vec4, int gid, int tig) {
+  const int s1 = 4 * gid + ((tig >> 1) | ((tig & 1) << 1));
+  const bool odd = tig & 1, lo = tig < 2;
 #pragma unroll
-  for (int k = 0; k < CPW; ++k) {
-    const uint32_t* ch = sm + (warp * CPW + k) * CS;
-    uint32_t a[2][4];  // re_i, im_i
+  for (int pr = 0; pr < WG_N / 16; ++pr) {
 #pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      const uint32_t* r = ch + (g * T + gid) * RW + tig;
-      a[g][0] = r[0];
-      a[g][1] = r[8 * RW];
-      a[g][2] = r[4];
-      a[g][3] = r[8 * RW + 4];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const uint32_t* rj = ch + (2 * T + nt * 8 + gid) * RW + tig;  // re_j
-      const uint32_t* ij = rj + T * RW;                             // im_j
-      const uint32_t br0 = rj[0], br1 = rj[4], bi0 = ij[0], bi1 = ij[4];
-      mma_s8(acc_re[k][nt], a[0], br0, br1);
-      mma_s8(acc_re[k][nt], a[1], bi0, bi1);
-      mma_s8(acc_ir[k][nt], a[1], br0, br1);
-      mma_s8(acc_ri[k][nt], a[0], bi0, bi1);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-    xcorr_turned_kernel(const int8_t* __restrict__ xt, float* __restrict__ vre,
-                        float* __restrict__ vim, int n_in, int n_s, int n_ch) {
-  extern __shared__ __align__(16) uint32_t sm[];
-  const int n_t = (n_in + T - 1) / T;
-  int ti, tj;
-  tile_of(blockIdx.x, n_t, ti, tj);
-  const int i0 = ti * T, j0 = tj * T;
-  const int c0 = blockIdx.y * CB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane / 4, tig = lane % 4;
-
-  // [channel][n tile][fragment]: V_re (G11 + G22), G21, G12.
-  int acc_re[CPW][2][4] = {}, acc_ir[CPW][2][4] = {}, acc_ri[CPW][2][4] = {};
-
-  for (int s0 = 0; s0 < n_s; s0 += SK) {
-    // Issued before the barrier: they overlap the slower warps' mma.
-    uint32_t buf[WORDS];
-    load_turned(buf, xt, n_in, n_s, n_ch, c0, s0, i0, j0);
-    __syncthreads();  // the previous step's mma reads are done
-    store_turned(sm, buf);
-    __syncthreads();
-    mma_step(sm, warp, gid, tig, acc_re, acc_ir, acc_ri);
-  }
-
-  const bool mirror = ti != tj;
-#pragma unroll
-  for (int k = 0; k < CPW; ++k) {
-    const int c = c0 + warp * CPW + k;
-    if (c >= n_ch) continue;
-    const long long base = static_cast<long long>(c) * n_in * n_in;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + gid + (e >= 2 ? 8 : 0);
-        const int j = j0 + nt * 8 + 2 * tig + (e & 1);
-        if (i >= n_in || j >= n_in) continue;
-        const int re = acc_re[k][nt][e], ir = acc_ir[k][nt][e], ri = acc_ri[k][nt][e];
-        vre[base + static_cast<long long>(i) * n_in + j] = static_cast<float>(re);
-        vim[base + static_cast<long long>(i) * n_in + j] = static_cast<float>(ir - ri);
-        if (mirror) {
-          vre[base + static_cast<long long>(j) * n_in + i] = static_cast<float>(re);
-          vim[base + static_cast<long long>(j) * n_in + i] = static_cast<float>(ri - ir);
-        }
+    for (int hf = 0; hf < 2; ++hf) {
+      const int f = 8 * pr + 2 * hf;  // n8 tile 2 pr: columns 2 tig, 2 tig + 1; then tile 2 pr + 1
+      const int a0 = odd ? d[f + 4] : d[f], a1 = odd ? d[f + 5] : d[f + 1];
+      const int b0 = odd ? d[f] : d[f + 4], b1 = odd ? d[f + 1] : d[f + 5];
+      const int r10 = __shfl_sync(~0u, a0, s1), r11 = __shfl_sync(~0u, a1, s1);
+      const int r20 = __shfl_sync(~0u, b0, s1 ^ 1), r21 = __shfl_sync(~0u, b1, s1 ^ 1);
+      const float x[4] = {static_cast<float>(lo ? r10 : r20), static_cast<float>(lo ? r11 : r21),
+                          static_cast<float>(lo ? r20 : r10), static_cast<float>(lo ? r21 : r11)};
+      const int row = row0 + gid + 8 * hf, col = col0 + 16 * pr + 4 * tig;
+      if (row < n && col < n) {
+        store_run<4>(out + static_cast<long long>(row) * n + col, x, n - col, vec4);
       }
     }
   }
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// A box of the tensor map (128 bytes x I rows at sample x, row y of xt
+// viewed [C * 2I, S]) into shared dst, swizzled as the staged layout.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+template <int STAGES>
+__global__ void __launch_bounds__(K5B_THREADS, 1)
+    xcorr_turned_kernel(const int8_t* __restrict__ xt, float* __restrict__ vre,
+                        float* __restrict__ vim, K5bPlan p,
+                        const __grid_constant__ CUtensorMap tmap) {
+  extern __shared__ __align__(1024) uint8_t k5b_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = warp / 4, wg = warp % 4, gid = lane / 4, tig = lane % 4;
+  const uint32_t slots = smem_u32(k5b_smem);
+  const uint32_t bars = slots + p.slots * p.stage_bytes;  // an mbarrier a slot (TMA)
+  // Rows past I and samples past S stay zero; without K5B_COPY every slot
+  // stays zero.
+  for (int q = threadIdx.x; q < p.slots * p.stage_bytes / 16; q += K5B_THREADS) {
+    reinterpret_cast<uint4*>(k5b_smem)[q] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (p.tma && threadIdx.x == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  proxy_fence();
+  __syncthreads();
+
+  const int mine = (p.n_items - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  // The copy cursor: this block's stages in order, (item, stage of the item).
+  int cp_m = 0, cp_k = 0;
+  auto issue = [&](int slot) {
+    if ((STAGES & K5B_COPY) && cp_m < mine) {
+      const K5bItem it = k5b_item(blockIdx.x + cp_m * gridDim.x, p);
+      const uint32_t stage = slots + slot * p.stage_bytes;
+      if (p.tma) {  // resident: the re and im rows, a box for each 128 samples
+        if (threadIdx.x == 0) {
+          const uint32_t bar = bars + 8 * slot;
+          mbar_expect(bar, p.tma_bytes);
+          for (int a = 0; a * ATOM < p.n_s; ++a) {
+            const uint32_t blk = stage + a * p.rows * ATOM;
+            tma_load(blk, &tmap, a * ATOM, 2 * p.n_in * it.c, bar);
+            tma_load(blk + p.r_im * ATOM, &tmap, a * ATOM, 2 * p.n_in * it.c + p.n_in, bar);
+          }
+        }
+      } else if (p.w == 16) {
+        k5b_copy<16>(stage, xt, it, cp_k, p);
+      } else if (p.w == 8) {
+        k5b_copy<8>(stage, xt, it, cp_k, p);
+      } else {
+        k5b_copy<4>(stage, xt, it, cp_k, p);
+      }
+      if (++cp_k == p.n_kc) {
+        cp_k = 0;
+        ++cp_m;
+      }
+    }
+    cp_async_commit();
+  };
+  if (p.slots == 2) issue(0);
+
+  const long long nn = static_cast<long long>(p.n_in) * p.n_in;
+  const int rounds = p.kind == K5B_STREAM ? 1 : (p.units + 1) / 2;
+  int k = 0;  // stages begun
+  uint32_t cur = slots;
+  for (int m = 0; m < mine; ++m) {
+    const K5bItem it = k5b_item(blockIdx.x + m * gridDim.x, p);
+    for (int r = 0; r < rounds; ++r) {
+      // This warpgroup's unit (tile mt, nt) and its blocks' first staged
+      // rows. Where the units run out, a warpgroup repeats the last unit and
+      // writes the same values again: no branch divides a warpgroup's wgmma
+      // path (ptxas serializes every wgmma of a kernel that has one).
+      int mt, nt, a_re, a_im, b_re, b_im;
+      if (p.kind == K5B_STREAM) {
+        mt = it.mt;
+        nt = min(2 * it.np + group, p.n_nt - 1);
+        a_re = 0;
+        a_im = WG_M;
+        b_re = 2 * WG_M + WG_N * (nt - 2 * it.np);
+        b_im = b_re + 2 * WG_N;
+      } else {
+        const int u = min(2 * r + group, p.units - 1);
+        mt = u / p.n_nt;
+        nt = u - mt * p.n_nt;
+        a_re = WG_M * mt;
+        a_im = p.r_im + a_re;
+        b_re = WG_N * nt;
+        b_im = p.r_im + b_re;
+      }
+      const int row0 = WG_M * mt + 16 * wg, col0 = WG_N * nt;
+      int acc_re[40], acc_im[40];  // V_re; V_im = G21 - G12
+#pragma unroll
+      for (int i = 0; i < 40; ++i) acc_re[i] = acc_im[i] = 0;
+      for (int kc = 0; kc < p.n_kc; ++kc) {
+        if (r == 0) {  // a new stage
+          // The stage has landed: TMA's bytes at the slot's mbarrier (by
+          // the parity of its use), or this thread's cp.async copies, seen
+          // by wgmma after the fence and everyone's after the barrier.
+          const int slot = p.slots == 2 ? (k & 1) : 0;
+          const uint32_t parity = (p.slots == 2 ? k >> 1 : k) & 1;
+          if (p.slots == 2) {
+            if (!p.tma) cp_async_wait<0>();
+            if (p.tma && (STAGES & K5B_COPY)) mbar_wait(bars + 8 * slot, parity);
+            proxy_fence();
+            __syncthreads();  // and the other slot's stage is done
+            issue((k + 1) & 1);
+            cur = slots + slot * p.stage_bytes;
+          } else {
+            __syncthreads();  // the last stage is done
+            issue(0);
+            if (!p.tma) cp_async_wait<0>();
+            if (p.tma && (STAGES & K5B_COPY)) mbar_wait(bars, parity);
+            proxy_fence();
+            __syncthreads();
+          }
+          ++k;
+        }
+        if (!(STAGES & K5B_MMA)) continue;
+        const int n_ks = kc == p.n_kc - 1 ? p.last_ks : p.kc / SK;
+        // V_re += re.re + im.im and V_im += G21; then -V_im += G12, negated
+        // back: exact s32 sums, so a zero stays +0.
+        wg_hold(acc_re);
+        wg_hold(acc_im);
+        wg_fence();
+        for (int ks = 0; ks < n_ks; ++ks) {
+          const int add = kc > 0 || ks > 0;  // the first product of a unit overwrites
+          wg_mma(acc_re, k_step(cur, p.rows, a_re, ks), k_step(cur, p.rows, b_re, ks), add);
+          wg_mma(acc_re, k_step(cur, p.rows, a_im, ks), k_step(cur, p.rows, b_im, ks), 1);
+          wg_mma(acc_im, k_step(cur, p.rows, a_im, ks), k_step(cur, p.rows, b_re, ks), add);
+        }
+        wg_commit();
+        wg_wait();
+        wg_hold(acc_im);
+        negate(acc_im);
+        wg_hold(acc_im);
+        wg_fence();
+        for (int ks = 0; ks < n_ks; ++ks) {
+          wg_mma(acc_im, k_step(cur, p.rows, a_re, ks), k_step(cur, p.rows, b_im, ks), 1);
+        }
+        wg_commit();
+        if ((STAGES & K5B_STORE) && kc == p.n_kc - 1) {  // V_re leaves while G12 runs
+          wg_hold(acc_re);
+          wg_store(vre + it.c * nn, acc_re, row0, col0, p.n_in, p.vec4, gid, tig);
+        }
+        wg_wait();
+        wg_hold(acc_im);
+        negate(acc_im);
+      }
+      if constexpr (STAGES & K5B_STORE) {
+        if (!(STAGES & K5B_MMA)) {
+          wg_store(vre + it.c * nn, acc_re, row0, col0, p.n_in, p.vec4, gid, tig);
+        }
+        wg_store(vim + it.c * nn, acc_im, row0, col0, p.n_in, p.vec4, gid, tig);
+      } else {
+        bool hit = false;
+#pragma unroll
+        for (int i = 0; i < 40; ++i) hit |= acc_re[i] == INT_MIN || acc_im[i] == INT_MIN;
+        if (hit) vre[it.c * nn] = 0.0f;
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block (those past the end are empty)
+}
+
+int smem_optin() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) {
+    return 0;
+  }
+  return v;
+}
+
+int round_up(int x, int to) { return (x + to - 1) / to * to; }
+
+// K5b's plan for a shape, or false for a shape outside the gate (I >= 1,
+// S % 8 == 0, S <= 1024, C % 8 == 0). Resident where a channel's rows fit
+// (two slots where two do), else streaming stages of kc samples.
+bool k5b_plan(int n_in, int n_s, int n_ch, int smem_max, K5bPlan& p) {
+  if (n_in <= 0 || n_s <= 0 || n_s % 8 || n_s > 1024 || n_ch <= 0 || n_ch % 8) return false;
+  p = K5bPlan{};
+  p.n_in = n_in;
+  p.n_s = n_s;
+  p.n_ch = n_ch;
+  p.n_mt = (n_in + WG_M - 1) / WG_M;
+  p.n_nt = (n_in + WG_N - 1) / WG_N;
+  const int k32 = round_up(n_s, SK);
+  // Resident: the re rows, then the im rows from the next multiple of 8,
+  // then the rows past 2R that the last tiles read.
+  const int r8 = round_up(n_in, 8);
+  const int rows = r8 + max(r8, max(WG_M * p.n_mt, WG_N * p.n_nt));
+  const long long stage = static_cast<long long>(rows) * round_up(n_s, ATOM);
+  if (stage + 16 <= smem_max) {
+    p.slots = 2 * stage + 16 <= smem_max ? 2 : 1;
+    p.kind = p.slots == 2 ? K5B_TWO_SLOTS : K5B_ONE_SLOT;
+    p.kc = round_up(n_s, ATOM);
+    p.rows = rows;
+    p.r_im = r8;
+    p.units = p.n_mt * p.n_nt;
+    p.items_per_ch = 1;
+  } else {
+    p.kind = K5B_STREAM;
+    p.slots = 2;
+    p.rows = 2 * WG_M + 4 * WG_N;
+    for (int kc = 512; kc >= ATOM; kc /= 2) {
+      if (kc <= round_up(k32, ATOM) && 2LL * p.rows * kc + 16 <= smem_max) {
+        p.kc = kc;
+        break;
+      }
+    }
+    if (!p.kc) return false;
+    p.units = 2;
+    p.items_per_ch = p.n_mt * ((p.n_nt + 1) / 2);
+  }
+  p.n_kc = (k32 + p.kc - 1) / p.kc;
+  p.last_ks = (k32 - (p.n_kc - 1) * p.kc) / SK;
+  p.stage_bytes = p.rows * p.kc;
+  p.smem = p.slots * p.stage_bytes + 16;  // and an mbarrier a slot
+  const long long items = static_cast<long long>(n_ch) * p.items_per_ch;
+  if (items > (1LL << 30)) return false;
+  p.n_items = static_cast<int>(items);
+  return true;
+}
+
+template <int STAGES>
+cudaError_t k5b_grid(const K5bPlan& p, int& grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(xcorr_turned_kernel<STAGES>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, xcorr_turned_kernel<STAGES>,
+                                                        K5B_THREADS, p.smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  grid = p.n_items < sms * per_sm ? p.n_items : sms * per_sm;
+  return cudaSuccess;
+}
+
+// K5b (STAGES = K5B_ALL) or one of its stops: refuses a shape or base it
+// does not take with cudaErrorInvalidValue, before any launch.
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda).
+PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(f);
+    }
+  }
+  return fn;
+}
+
+// The resident plans copy by TMA where rows start 16-byte aligned (S % 16 ==
+// 0, a 16-byte aligned base) and a box of I rows fits (I <= 256).
+bool k5b_tma_fits(const K5bPlan& p) {
+  return p.kind != K5B_STREAM && p.n_s % 16 == 0 && p.n_in <= 256;
+}
+
+// xt viewed [C * 2I rows, S bytes]; boxes of 128 bytes x I rows, 128-byte
+// swizzle; samples past S read as zeros.
+bool k5b_tensor_map(const void* xt, const K5bPlan& p, CUtensorMap& map) {
+  const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.n_s),
+                              static_cast<cuuint64_t>(p.n_ch) * 2 * p.n_in};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.n_s)};
+  const cuuint32_t box[2] = {ATOM, static_cast<cuuint32_t>(p.n_in)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(xt), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int STAGES>
+int k5b_launch(const void* xt, void* vre, void* vim, int n_inputs, int n_spectra, int n_ch,
+               void* stream) {
+  K5bPlan p;
+  if (!k5b_plan(n_inputs, n_spectra, n_ch, smem_optin(), p) || !aligned(xt, 4) ||
+      !aligned(vre, 4) || !aligned(vim, 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.w = aligned(xt, 16) && n_spectra % 16 == 0 ? 16 : aligned(xt, 8) ? 8 : 4;
+  p.vec4 = n_inputs % 4 == 0 && aligned(vre, 16) && aligned(vim, 16);
+  CUtensorMap map{};
+  p.tma = k5b_tma_fits(p) && aligned(xt, 16);
+  if (p.tma && !k5b_tensor_map(xt, p, map)) return static_cast<int>(cudaErrorNotSupported);
+  p.tma_bytes = 2 * ((n_spectra + ATOM - 1) / ATOM) * ATOM * n_inputs;
+  int grid = 0;
+  cudaError_t err = k5b_grid<STAGES>(p, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  xcorr_turned_kernel<STAGES><<<grid, K5B_THREADS, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(xt), static_cast<float*>(vre), static_cast<float*>(vim), p, map);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -659,20 +1099,51 @@ extern "C" int xcorr_fused_attributes(int n_inputs, int n_spectra, int n_ch, int
   return 0;
 }
 
-// K5b: turned xt [C, 2I, S] int8 (S % 4 == 0) -> vre, vim [C, I, I] f32.
+// K5b: turned xt [C, 2I, S] int8 (4-byte aligned) -> vre, vim [C, I, I]
+// f32. Takes any I >= 1, S % 8 == 0 with S <= 1024, and C % 8 == 0; refuses
+// any other shape with cudaErrorInvalidValue, before any launch.
 extern "C" int xcorr_turned_launch(const void* xt, void* vre, void* vim, int n_inputs,
                                    int n_spectra, int n_ch, void* stream) {
-  if (n_spectra % 4) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_inputs <= 0 || n_spectra <= 0 || n_ch <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(xcorr_turned_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(K5B_SMEM));
+  return k5b_launch<K5B_ALL>(xt, vre, vim, n_inputs, n_spectra, n_ch, stream);
+}
+
+// One of K5b's stage stops, `stages` a mask of K5B_COPY (1), K5B_MMA (2)
+// and K5B_STORE (4) other than K5B_ALL: as xcorr_turned_launch, into vre,
+// vim as the stop leaves them (see K5B_ALL).
+extern "C" int xcorr_turned_stop_launch(const void* xt, void* vre, void* vim, int n_inputs,
+                                        int n_spectra, int n_ch, int stages, void* stream) {
+  switch (stages) {
+    case K5B_COPY:
+      return k5b_launch<K5B_COPY>(xt, vre, vim, n_inputs, n_spectra, n_ch, stream);
+    case K5B_MMA:
+      return k5b_launch<K5B_MMA>(xt, vre, vim, n_inputs, n_spectra, n_ch, stream);
+    case K5B_STORE:
+      return k5b_launch<K5B_STORE>(xt, vre, vim, n_inputs, n_spectra, n_ch, stream);
+    case K5B_COPY | K5B_MMA:
+      return k5b_launch<K5B_COPY | K5B_MMA>(xt, vre, vim, n_inputs, n_spectra, n_ch, stream);
+    case K5B_MMA | K5B_STORE:
+      return k5b_launch<K5B_MMA | K5B_STORE>(xt, vre, vim, n_inputs, n_spectra, n_ch, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K5b's body and the plan a shape takes: out[0..7] = registers, local
+// (spill) bytes, blocks of the persistent grid, plan (1 two slots, 2 one
+// slot, 3 streaming), samples a stage, items a channel, shared-memory bytes,
+// and 1 where a channel's rows arrive by TMA (from a 16-byte aligned base).
+extern "C" int xcorr_turned_attributes(int n_inputs, int n_spectra, int n_ch, int* out) {
+  K5bPlan p;
+  if (!k5b_plan(n_inputs, n_spectra, n_ch, smem_optin(), p)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes at{};
+  int blocks = 0;
+  cudaError_t err = cudaFuncGetAttributes(&at, xcorr_turned_kernel<K5B_ALL>);
+  if (err == cudaSuccess) err = k5b_grid<K5B_ALL>(p, blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_t = (n_inputs + T - 1) / T;
-  dim3 grid(n_t * (n_t + 1) / 2, (n_ch + CB - 1) / CB);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  xcorr_turned_kernel<<<grid, THREADS, K5B_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xt), static_cast<float*>(vre), static_cast<float*>(vim),
-      n_inputs, n_spectra, n_ch);
-  return static_cast<int>(cudaGetLastError());
+  const int v[8] = {at.numRegs, static_cast<int>(at.localSizeBytes), blocks, p.kind, p.kc,
+                    p.items_per_ch, p.smem, k5b_tma_fits(p)};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }

@@ -8,8 +8,10 @@ Two kernels in ``csrc/xcorr.cu``:
 - :func:`correlate_turned_fused` (K5b) reads the turned ``[C, 2I, S]``
   layout of :func:`~dpdk_dc_sand_tpu_torch.ops.corner_turn.corner_turn_planes_x`.
 
-:func:`correlate_planes_fused_stop` launches K3 cut to some of its stages
-(the ring's copies, the MMAs, the stores), which splits its time on the card.
+:func:`correlate_planes_fused_stop` and :func:`correlate_turned_fused_stop`
+launch K3 and K5b cut to some of their stages (the copies, the MMAs, the
+stores), which splits their time on the card; :func:`kernel_attributes` and
+:func:`turned_kernel_attributes` read their bodies' registers and spills.
 
 With ``Y = [re rows; im rows]`` of a channel's ``I = A·P`` inputs and
 ``G = Y·Yᵀ``: ``V_re = G₁₁ + G₂₂`` and ``V_im = G₂₁ − G₁₂``, ``[C, I, I]``
@@ -170,9 +172,13 @@ def kernel_attributes(n_inputs: int, n_spectra: int, n_channels: int) -> dict:
     return dict(regs=regs.value, local_bytes=local.value, blocks=blocks.value)
 
 
-#: K3's stage stops: the stages of its body each keeps (``csrc/xcorr.cu``,
-#: ``K3_COPY`` 1, ``K3_MMA`` 2, ``K3_STORE`` 4).
-K3_STOPS = {"copy": 1, "mma": 2, "store": 4, "copy_mma": 3, "mma_store": 6}
+#: K3's and K5b's stage stops: the stages of the body each keeps
+#: (``csrc/xcorr.cu``: ``K3_COPY`` / ``K5B_COPY`` 1, ``_MMA`` 2, ``_STORE`` 4).
+K3_STOPS = K5B_STOPS = {"copy": 1, "mma": 2, "store": 4, "copy_mma": 3, "mma_store": 6}
+
+#: K5b's plans (``csrc/xcorr.cu:k5b_plan``): a channel's rows resident in
+#: shared memory, two channels at once or one; or streamed in stages.
+K5B_PLANS = {1: "two_slots", 2: "one_slot", 3: "stream"}
 
 
 def correlate_planes_fused_stop(qr: torch.Tensor, qi: torch.Tensor, vre: torch.Tensor,
@@ -202,6 +208,53 @@ def correlate_planes_fused_stop(qr: torch.Tensor, qi: torch.Tensor, vre: torch.T
         K3_STOPS[stop], torch.cuda.current_stream(qr.device).cuda_stream,
     )
     _build.check(lib, err, "xcorr_fused_stop")
+
+
+def turned_kernel_attributes(n_inputs: int, n_spectra: int, n_channels: int) -> dict:
+    """K5b's body as the runtime reports it (registers and local (spill)
+    bytes by ``cudaFuncGetAttributes``, the blocks of its persistent grid by
+    the occupancy API) and the plan the C side takes for a shape: ``plan``
+    (:data:`K5B_PLANS`), ``stage_samples``, ``items_per_channel``,
+    ``smem_bytes`` and ``tma`` (a channel's rows arrive by TMA from a
+    16-byte aligned base). Needs the card."""
+    import ctypes
+
+    lib = _build.library()
+    out = (ctypes.c_int * 8)()
+    err = lib.xcorr_turned_attributes(n_inputs, n_spectra, n_channels, out)
+    _build.check(lib, err, "xcorr_turned_attributes")
+    regs, local, blocks, plan, kc, items, smem, tma = out
+    return dict(regs=regs, local_bytes=local, blocks=blocks, plan=K5B_PLANS[plan],
+                stage_samples=kc, items_per_channel=items, smem_bytes=smem, tma=bool(tma))
+
+
+def correlate_turned_fused_stop(xt: torch.Tensor, n_inputs: int, vre: torch.Tensor,
+                                vim: torch.Tensor, stop: str) -> None:
+    """Launch K5b cut to some of its stages, to split its time (CUDA only).
+
+    Writes into ``vre``, ``vim`` ``[C, I, I]`` f32 what the stop leaves: the
+    stops with ``store`` write zeros everywhere, the others nothing. Does not
+    count as a K5b launch.
+    """
+    if stop not in K5B_STOPS:
+        raise ValueError(f"correlate_turned_fused_stop: unknown stop {stop!r}")
+    if xt.ndim != 3 or xt.shape[1] != 2 * n_inputs:
+        raise ValueError(f"xt {tuple(xt.shape)}: want [C, 2·{n_inputs}, S]")
+    c, _, s = xt.shape
+    want = (c, n_inputs, n_inputs)
+    for v in (vre, vim):
+        if v.shape != want or v.dtype != torch.float32 or v.device != xt.device \
+                or not v.is_contiguous():
+            raise ValueError(f"correlate_turned_fused_stop: outputs must be {want} f32 on {xt.device}")
+    if xt.device.type != "cuda":
+        raise ValueError(f"correlate_turned_fused_stop: needs CUDA tensors, not {xt.device}")
+    _check("correlate_turned_fused_stop", (xt,), xt.device)
+    lib = _build.library()
+    err = lib.xcorr_turned_stop_launch(
+        xt.data_ptr(), vre.data_ptr(), vim.data_ptr(), n_inputs, s, c, K5B_STOPS[stop],
+        torch.cuda.current_stream(xt.device).cuda_stream,
+    )
+    _build.check(lib, err, "xcorr_turned_stop")
 
 
 #: Kernel launches since the last reset (the plain CPU versions never count).

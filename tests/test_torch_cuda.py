@@ -10,7 +10,10 @@ It covers the small geometries the flagship run in ``chip_smoke.py`` does
 not (N1 = 8 and 16, other beam counts, odd input counts, ragged tiles, FIR
 shapes off every tile boundary, the launch counters), K3 over a grid of
 input counts, S and C, at the int8 extremes and from a base aligned to 4
-bytes only, with its C-side geometry and its stage stops, K8 at ragged shapes,
+bytes only, with its C-side geometry and its stage stops, K5b over the same
+input counts at every S its gate takes and at each plan its C side chooses,
+at the extremes, from a 4-byte-aligned base, with its registers, spills,
+refusals and stage stops, K8 at ragged shapes,
 K2's tensor-core body over a grid of 2B, A, P·S and C in both layouts, at
 the int8 extremes, with its C-side geometry and its stage stops,
 K1's unquantised (f32) output, K1's FIR pass alone, K1, K7 and the
@@ -351,6 +354,123 @@ def test_k5b_kernel_matches_plain(dev, i, s, c):
     assert xcorr.correlate_turned_fused.launches == before + 1
     for g, r in zip(got, xcorr.correlate_turned_fused_reference(x, i)):
         assert torch.equal(g.cpu(), r)
+
+
+def _k5b_check(dev, x, i):
+    before = xcorr.correlate_turned_fused.launches
+    got = xcorr.correlate_turned_fused(x.to(dev), i)
+    assert xcorr.correlate_turned_fused.launches == before + 1
+    for g, r in zip(got, xcorr.correlate_turned_fused_reference(x.cpu(), i)):
+        assert torch.equal(g.cpu(), r)
+    return got
+
+
+#: K5b's grid: the input counts of K3's grid (one input, a ragged tile, one
+#: tile, a tile and one, two ragged tiles, the flagship's 160), every S from
+#: one 8-sample step to 1024, C cycling through 8, 24 and 264 (C % 8 == 0).
+K5B_S = [8, 24, 128, 256, 512, 1024]
+
+
+@pytest.mark.parametrize("s", K5B_S)
+@pytest.mark.parametrize("i", sorted(K3_INPUTS))
+def test_k5b_every_gated_shape_is_bit_exact(dev, i, s):
+    c = (8, 24, 264)[(sorted(K3_INPUTS).index(i) + K5B_S.index(s)) % 3]
+    rng = np.random.default_rng(5 * i + s + c)
+    _k5b_check(dev, _int8(rng, (c, 2 * i, s)), i)
+
+
+#: A shape of each plan the C side takes (csrc/xcorr.cu:k5b_plan) and
+#: whether its rows arrive by TMA or by cp.async: two channels resident, one,
+#: or rows streamed in stages (I = 500: tiles of 64 rows and pairs of 80
+#: columns of a 500 x 500 V; S = 1000: a short last stage); TMA where
+#: S % 16 == 0 and I <= 256; C = 1056 and 272 put several channels on a
+#: block, so a slot's mbarrier and copies are reused.
+K5B_PLAN_SHAPES = {(160, 256, 64): ("two_slots", True), (160, 512, 24): ("one_slot", True),
+                   (160, 1024, 24): ("stream", False), (200, 256, 8): ("one_slot", True),
+                   (500, 1024, 8): ("stream", False), (3, 1024, 8): ("two_slots", True),
+                   (160, 24, 8): ("two_slots", False), (300, 128, 8): ("two_slots", False),
+                   (160, 512, 1056): ("one_slot", True), (200, 264, 272): ("one_slot", False),
+                   (160, 1000, 24): ("stream", False)}
+
+
+@pytest.mark.parametrize("i, s, c", sorted(K5B_PLAN_SHAPES))
+def test_k5b_every_plan_is_bit_exact_without_spills(dev, i, s, c):
+    at = xcorr.turned_kernel_attributes(i, s, c)
+    assert (at["plan"], at["tma"]) == K5B_PLAN_SHAPES[(i, s, c)]
+    assert at["regs"] > 0 and at["local_bytes"] == 0
+    assert at["smem_bytes"] > 0 and at["blocks"] >= 1
+    rng = np.random.default_rng(i + s + c)
+    _k5b_check(dev, _int8(rng, (c, 2 * i, s)), i)
+
+
+def test_k5b_persistent_blocks_walk_many_channels(dev):
+    """C = 4096 at I = 160, S = 256: dozens of channels on each block."""
+    at = xcorr.turned_kernel_attributes(160, 256, 4096)
+    assert at["blocks"] <= torch.cuda.get_device_properties(dev).multi_processor_count
+    _k5b_check(dev, _int8(np.random.default_rng(14), (4096, 320, 256)), 160)
+
+
+@pytest.mark.parametrize("pattern", ["all_min", "alternating"])
+def test_k5b_holds_the_largest_sums(dev, pattern):
+    """S = 1024 at the int8 extremes: V_re reaches 2^25 with every code -128."""
+    i, s, c = 34, 1024, 24
+    if pattern == "all_min":
+        x = torch.full((c, 2 * i, s), -128, dtype=torch.int8)
+    else:
+        idx = torch.arange(c * 2 * i * s).view(c, 2 * i, s)
+        x = torch.where(idx % 2 == 0, 127, -128).to(torch.int8)
+        x[:, i:] = torch.where(idx[:, i:] % 3 == 0, -128,
+                               torch.where(idx[:, i:] % 3 == 1, 127, -127)).to(torch.int8)
+    vre, _ = _k5b_check(dev, x, i)
+    if pattern == "all_min":
+        assert float(vre.max()) == 2.0 ** 25
+
+
+@pytest.mark.parametrize("i, s", [(17, 256), (160, 1024), (3, 24)])
+def test_k5b_takes_a_base_aligned_to_4_bytes_only(dev, i, s):
+    c = 24
+    n = c * 2 * i * s
+    raw = _int8(np.random.default_rng(15), (n + 16,)).to(dev)
+    x = raw[4:4 + n].view(c, 2 * i, s)
+    assert x.data_ptr() % 8
+    _k5b_check(dev, x, i)
+
+
+@pytest.mark.parametrize("i, s, c, off", [(4, 42, 8, 0), (4, 44, 8, 0), (4, 1032, 8, 0),
+                                          (4, 128, 12, 0), (0, 128, 8, 0), (4, 128, 8, 2)])
+def test_k5b_c_side_refuses_other_shapes(dev, i, s, c, off):
+    """The C side refuses, before any launch, every shape outside the gate
+    (S % 4, S % 8, S > 1024, C % 8, I < 1) and a base that is not 4-byte
+    aligned; its attributes refuse the same shapes."""
+    from dpdk_dc_sand_tpu_torch import _build
+
+    lib = _build.library()
+    x = torch.zeros(2 * 4 * 1032 * 8 + 16, dtype=torch.int8, device=dev)
+    out = torch.zeros(8 * 16, device=dev)
+    err = lib.xcorr_turned_launch(x.data_ptr() + off, out.data_ptr(), out.data_ptr(), i, s, c,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
+    torch.cuda.synchronize()
+    assert bool((out == 0).all())
+    if not off:
+        with pytest.raises(RuntimeError, match="xcorr_turned_attributes"):
+            xcorr.turned_kernel_attributes(i, s, c)
+
+
+@pytest.mark.parametrize("stop", sorted(xcorr.K5B_STOPS))
+@pytest.mark.parametrize("i, s, c", [(17, 256, 264), (160, 1024, 24)])
+def test_k5b_stops_write_what_they_keep(dev, stop, i, s, c):
+    """A stop with the stores writes zeros over every output; one without
+    writes nothing; neither counts as a K5b launch."""
+    x = _int8(np.random.default_rng(16), (c, 2 * i, s)).to(dev)
+    vre, vim = (torch.ones((c, i, i), device=dev) for _ in range(2))
+    before = xcorr.correlate_turned_fused.launches
+    xcorr.correlate_turned_fused_stop(x, i, vre, vim, stop)
+    want = torch.zeros_like(vre) if "store" in stop else torch.ones_like(vre)
+    assert torch.equal(vre, want) and torch.equal(vim, want)
+    assert xcorr.correlate_turned_fused.launches == before
+    with pytest.raises(RuntimeError, match="xcorr_turned_stop"):  # the C side refuses S = 44
+        xcorr.correlate_turned_fused_stop(x[:, :, :44].contiguous(), i, vre, vim, stop)
 
 
 def test_fxb_engine_on_the_card_matches_the_plain_engine(dev):

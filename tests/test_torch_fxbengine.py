@@ -37,6 +37,8 @@ from dpdk_dc_sand_tpu_torch import ArrayConfig
 from dpdk_dc_sand_tpu_torch.convert import from_reference_state
 from dpdk_dc_sand_tpu_torch.models import FBEngine, FXBEngine, VisibilityAccumulator, XEngine
 from dpdk_dc_sand_tpu_torch.models.fbengine import _f_stage, resolve_backends
+from dpdk_dc_sand_tpu_torch.ops.corner_turn import corner_turn_x_supported
+from dpdk_dc_sand_tpu_torch.ops.xcorr import xcorr_fused_supported, xcorr_supported
 
 CFG = ArrayConfig(n_ants=4, n_channels=1024, n_beams=16, n_taps=8)
 JCFG = JArrayConfig(**dataclasses.asdict(CFG))
@@ -140,6 +142,39 @@ def test_fxbengine_matches_reference_over_steps_and_a_delay_update():
             fengine="fused", fengine_interpret=True, ct_batch_a=True, fengine_rolling=True,
         )
         _vis_close(port_planes, ref_planes, (gr, gi), (wr, wi))
+
+
+CFG64 = ArrayConfig(n_ants=4, n_channels=64, n_beams=16, n_taps=8)
+
+
+def test_fxbengine_at_64_channels_takes_k5b_and_matches_reference():
+    """fft 128: the engine resolves the composed F and the turned B, and its X
+    stage is the turn (K5a) and the turned gram (K5b), as the reference's at
+    any C < 128. The JAX engine runs the same resolved backends."""
+    port = FXBEngine(CFG64, n_spectra=S, device="cpu", quant_scale=QUANT, precision="bf16")
+    ref = JFXBEngine(JArrayConfig(**dataclasses.asdict(CFG64)), n_spectra=S, quant_scale=QUANT,
+                     precision="bf16", fengine=port.fengine, bstage=port.bstage,
+                     fengine_interpret=True)
+    assert (port.fengine, port.bstage) == ("xla", "turned") == (ref.fengine, ref.bstage)
+    a, p, c = CFG64.n_ants, CFG64.n_pols, CFG64.n_channels
+    assert corner_turn_x_supported(a, p, S, c) and xcorr_supported(c, S)
+    assert not xcorr_fused_supported(a, p, S, c)
+    _, cd, fd, ph, dv = ref.example_inputs(seed=5, margin=512)
+    ref.set_beam_delays(dv)
+    from_reference_state(port, np.asarray(ref.window), np.asarray(ref._coeffs), None,
+                         delay_vals=dv, frac_delays=fd, phases=ph)
+    for step in range(2):
+        adc = ref.example_inputs(seed=20 + step, margin=512)[0]
+        wb, wr, wi = (np.asarray(x) for x in ref.step(jnp.asarray(adc), cd, fd, ph))
+        gb, gr, gi = port.step(adc, cd, fd, ph)
+        assert gr.shape == gi.shape == (64, 8, 8)
+        _close(gb.numpy(), wb, 2.0, 5e-3)
+        ref_planes = j_f_stage(
+            jnp.asarray(adc), jnp.asarray(cd), jnp.asarray(fd), jnp.asarray(ph),
+            window=ref.window, cfg=ref.cfg, n_spectra=S, quant_scale=QUANT, use_pallas=False,
+            fengine="xla",
+        )
+        _vis_close(port._f(adc, cd, fd, ph), ref_planes, (gr, gi), (wr, wi))
 
 
 @pytest.mark.parametrize(

@@ -85,6 +85,24 @@ def test_k3_stops_refuse_before_any_launch(stop):
         xcorr.correlate_planes_fused_stop(q, q, v, v, stop)
 
 
+@pytest.mark.parametrize("case", sorted(xcorr.K5B_STOPS) + ["unknown", "outputs", "rows"])
+def test_k5b_stops_refuse_before_any_launch(case):
+    """K5b's stage stops run on the card only, take only their own names and
+    refuse outputs or planes of the wrong shape, all before any launch."""
+    i, s, c = 3, 128, 16
+    xt = torch.zeros((c, 2 * i, s), dtype=torch.int8)
+    v = torch.zeros((c, i, i))
+    stop, match = case, "needs CUDA"
+    if case == "unknown":
+        stop, match = "full", "unknown stop"
+    elif case == "outputs":
+        stop, match, v = "copy", "outputs must be", torch.zeros((c, i, i + 1))
+    elif case == "rows":
+        stop, match, xt = "copy", r"want \[C, 2", xt[:, :-1]
+    with pytest.raises(ValueError, match=match):
+        xcorr.correlate_turned_fused_stop(xt, i, v, v, stop)
+
+
 @pytest.mark.parametrize("precision", ["int8", "f32", "bf16"])
 def test_correlate_planes_matches_reference(precision):
     c, t, i = 8, 64, 6
