@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships, E1, the engine node and the probes.
+"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships, E1, the engine node, the probes, the sharded engine and the characterisation probes.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
 
@@ -177,6 +177,26 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    ``permute().contiguous()`` as the yardstick). Every stop or mode is timed
    by the chained 2-vs-6 marginal with its launch counters reset just before;
    a counter left at 0 fails the run.
+20. sharded — ``parallel.ShardedFBEngine`` on a one-rank NCCL group in this
+   process (a (1, 1) ``DeviceMesh``; the backend logged) at the flagship, 80
+   ant x 32768 ch x 16 beams x 16 taps, S=256, bf16, nothing cut: (a)
+   ``"auto"`` must resolve fused F and turned B (K1, K4 and the product),
+   5 steps on fresh ADC, the last held to ``FBEngine`` with the same
+   backends on the tail-prepended stream (zero coarse delays) at rtol 1e-4 /
+   atol 1e-3, max |d| logged; (c) ``ici_chunks=2`` on the same ADC equal to
+   (a) bit for bit; (d) ``emit_visibilities=True``: its visibilities equal
+   to ``correlate_planes_fused`` (K3) of ``FBEngine``'s planes bit for bit;
+   (b) ``bstage="fused"`` (K1 then K2), 5 steps, held as (a). The launch
+   counts of K1, K4, K2 and K3 are reset before each sharded run and read
+   after it; one left at 0 fails the phase. Logs the step medians (steps
+   2-5) and Msamples/s beside ``FBEngine``'s, one step of (a) split by
+   torch.profiler (NCCL, K1, K4, cuBLAS, copies) and the peak memory.
+21. characterize — ``mxu_dynamic_range`` in bf16 and f32 on the tensor
+   cores (equal to its plain version, the f32 product of the rounded
+   inputs), ``matmul_roofline`` for bf16 at n = 8192 and f32 at n = 4096
+   (TFLOP/s), ``TransferRateTest`` h2d, d2h and both (in series) at 100 x 5
+   MiB pageable frames (Gbps), and the host RAM ``mem_rate`` for 1-4 threads; a
+   non-finite or non-positive rate fails the phase, no rate is gated.
 
 Every kernel in the ``kernels`` line carries its bound: the larger of the
 bytes it must move over 3.35 TB/s and each type of operation over the
@@ -198,7 +218,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k2", "engine", "flagship", "corner_turn", "xcorr",
           "fxb_engine", "fxb_flagship", "fir", "fengine_dit", "f_flagship", "bforms",
-          "qualification", "e1", "node", "node_udp", "probes")
+          "qualification", "e1", "node", "node_udp", "probes", "sharded", "characterize")
 SEED = 2021
 #: F requant gain for fft 65536 on uniform +-64 noise: 1/16 (the reference
 #: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
@@ -2510,6 +2530,210 @@ def phase_probes(st: dict) -> None:
     st["probes"] = probes
 
 
+def _event_ms(torch, fn):
+    """``(ms, out)`` of one call of ``fn`` by CUDA events."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1), out
+
+
+def phase_sharded(st: dict) -> None:
+    """The sharded engine on a one-rank NCCL group at the flagship width."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FBEngine
+    from dpdk_dc_sand_tpu_torch.ops import bstage, corner_turn as ct, fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops import xcorr as xc
+    from dpdk_dc_sand_tpu_torch.parallel import ShardedFBEngine, make_mesh
+
+    card = st["card"]
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = ArrayConfig(n_ants=80, n_channels=32768, n_beams=16, n_taps=16)
+    a, p, s, c = cfg.n_ants, cfg.n_pols, 256, cfg.n_channels
+    rng = np.random.default_rng(SEED + 20)
+    fd = rng.uniform(-0.5, 0.5, a).astype(np.float32)
+    ph = (-np.pi * fd / 2).astype(np.float32)
+    dv = np.zeros((cfg.n_beams, a, 4), np.float32)
+    dv[..., 0] = rng.uniform(0, 5e-9, dv.shape[:-1])
+    dv[..., 2] = rng.uniform(-np.pi, np.pi, dv.shape[:-1])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    # One rank holds the whole array: its shard is the global stream.
+    adc = torch.empty((a, p, s * cfg.fft_size), dtype=torch.int8, device=dev)
+    halo = (cfg.n_taps - 1) * cfg.fft_size
+    zeros = torch.zeros(a, dtype=torch.int32, device=dev)
+    samples = a * p * s * cfg.fft_size
+    common = dict(n_spectra=s, quant_scale=QUANT_SCALE, precision="bf16")
+    counters = {"k1": ff.fengine_fused, "k4": ct.corner_turn_planes,
+                "k2": bstage.beamform_turned_fused, "k3": xc.correlate_planes_fused}
+    launches = dict.fromkeys(counters, 0)
+
+    def driven(run):
+        """``run()`` with every count at 0 just before; add what it launched."""
+        for fn in counters.values():
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        for k, fn in counters.items():
+            launches[k] += fn.launches
+        return out
+
+    def steps(eng):
+        """set_beam_delays, then 5 steps on fresh ADC: (step ms, last beams)."""
+        times: list = []
+        eng.set_beam_delays(dv)
+        for _ in range(5):
+            out = _timed_steps(torch, lambda: eng(adc, fd, ph, dv), adc, gen, times)
+        return times, out
+
+    def reference(bstage_name):
+        """FBEngine with the same backends on the tail-prepended stream of the
+        current ADC: (its step ms, its beams)."""
+        fb = FBEngine(cfg, fengine="fused", bstage=bstage_name, device=dev, **common)
+        fb.set_beam_delays(dv)
+        ext = torch.cat([adc[..., -halo:], adc], dim=-1)
+        times = [_event_ms(torch, lambda: fb.step(ext, zeros, fd, ph))[0] for _ in range(4)]
+        want = fb.step(ext, zeros, fd, ph)
+        planes = fb._f(ext, zeros, fd, ph) if bstage_name == "turned" else None
+        return float(np.median(times)), want, planes
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    shape = f"[{a} ant x {c} ch x {cfg.n_beams} beams x {cfg.n_taps} taps, S={s}]"
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="nccl-") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh(shape=(1, 1))
+            backend = dist.get_backend()
+            log(f"sharded: process group {backend}, mesh {tuple(mesh.mesh_dim_names)} "
+                f"{tuple(mesh.shape)}, rank {dist.get_rank()} of {dist.get_world_size()} ({card})")
+            if backend != "nccl":
+                raise AssertionError(f"backend {backend}, want nccl")
+            # (a) "auto": fused F and turned B, so K1, then K4 and the product.
+            eng = ShardedFBEngine(cfg, mesh, **common)
+            plan = (eng.fengine, eng.bstage, eng.ici_chunks, eng.rowed_ingest)
+            log(f"sharded (a) auto resolved fengine={plan[0]} bstage={plan[1]} "
+                f"ici_chunks={plan[2]} rowed_ingest={plan[3]}")
+            if plan[:3] != ("fused", "turned", 1):
+                raise AssertionError(f"auto resolved {plan}")
+            times_a, out_a = driven(lambda: steps(eng))
+            split, top = _profile_split(torch, lambda: eng(adc, fd, ph, dv), [
+                ("NCCL", ("nccl",)), ("K1 (F)", ("k1_",)), ("K4 (turn)", ("corner_turn",)),
+                ("bmm (cuBLAS)", ("gemm", "cutlass")), ("copies and the rest", ())])
+            fb_ms, want, planes = reference("turned")
+            err_a = _beam_diff("sharded (a) vs FBEngine (turned)", out_a, want, rtol=1e-4,
+                               atol=1e-3)
+            del want
+            # (c) ici_chunks=2 on the same ADC: equal to (a) bit for bit.
+            chunked = ShardedFBEngine(cfg, mesh, ici_chunks=2, **common)
+            chunked.set_beam_delays(dv)
+            out_c = driven(lambda: chunked(adc, fd, ph, dv))
+            d_c = float((out_c - out_a).abs().max())
+            log(f"sharded (c) ici_chunks=2 vs 1: max|d| {d_c:.3e}, equal "
+                f"{torch.equal(out_c, out_a)}")
+            if not torch.equal(out_c, out_a):
+                raise AssertionError("ici_chunks=2 differs from the monolithic step")
+            del chunked, out_c
+            # (d) emit_visibilities: the gram of the single-device planes.
+            vis_eng = ShardedFBEngine(cfg, mesh, emit_visibilities=True, **common)
+            beams_d, vre, vim = driven(lambda: vis_eng(adc, fd, ph, dv))
+            if not torch.equal(beams_d, out_a):
+                raise AssertionError("emit_visibilities changed the beams")
+            del beams_d, vis_eng, out_a
+            wre, wim = xc.correlate_planes_fused(*planes)
+            eq = torch.equal(vre, wre) and torch.equal(vim, wim)
+            log(f"sharded (d) visibilities {tuple(vre.shape)} vs correlate_planes_fused of "
+                f"FBEngine's planes: max|d| {float((vre - wre).abs().max()):.3e} / "
+                f"{float((vim - wim).abs().max()):.3e}, equal {eq}")
+            if not eq:
+                raise AssertionError("the sharded visibilities differ from K3 on the planes")
+            del vre, vim, wre, wim, planes, eng
+            torch.cuda.empty_cache()
+            # (b) bstage="fused": K1 then K2.
+            fused = ShardedFBEngine(cfg, mesh, bstage="fused", **common)
+            times_b, out_b = driven(lambda: steps(fused))
+            fb_ms_b, want_b, _ = reference("fused")
+            err_b = _beam_diff("sharded (b) vs FBEngine (fused)", out_b, want_b, rtol=1e-4,
+                               atol=1e-3)
+            del fused, out_b, want_b
+        finally:
+            dist.destroy_process_group()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"sharded launches (the sharded runs only, counts at 0 before each): {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the sharded path never launched: {launches}")
+    for tag, times, ref_ms, err in (("(a) turned", times_a, fb_ms, err_a),
+                                    ("(b) fused", times_b, fb_ms_b, err_b)):
+        ms = float(np.median(times[1:]))
+        report[tag] = dict(ms=ms, msamples_s=samples / ms / 1e3, fb_ms=ref_ms,
+                           fb_msamples_s=samples / ref_ms / 1e3, max_abs_err=err)
+        log(f"sharded {tag} {shape}: step ms {['%.3f' % t for t in times]}, median(2-5) "
+            f"{ms:.3f} ms, {samples / ms / 1e3:.1f} Msamples/s; FBEngine same backends "
+            f"{ref_ms:.3f} ms, {samples / ref_ms / 1e3:.1f} Msamples/s; max|d| {err:.3e} ({card})")
+    busy = sum(split.values())
+    log("sharded (a) split (ms, torch.profiler, one step): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; device busy {busy:.3f}; top kernels {top} ({card})")
+    log(f"sharded peak memory {peak_gb:.2f} GB ({card})")
+    torch.cuda.empty_cache()
+    st["sharded"] = dict(report, split=split, peak_gb=peak_gb, backend=backend)
+    st["sharded_launches"] = launches
+
+
+def phase_characterize(st: dict) -> None:
+    """The characterisation probes on the card: numbers, not gates."""
+    import math
+
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.characterize import (
+        TransferRateTest,
+        matmul_roofline,
+        mem_rate_sweep,
+        mxu_dynamic_range,
+    )
+
+    card = st["card"]
+    for dtype in ("bfloat16", "float32"):
+        got = mxu_dynamic_range(dtype=dtype)
+        plain = mxu_dynamic_range(dtype=dtype, device="cpu")
+        log(f"characterize mxu_dynamic_range {dtype}: expected {got['expected']!r} got "
+            f"{got['got']!r} rel_err {got['rel_err']:.6e} survives {bool(got['survives'])}; "
+            f"plain (f32 product of the rounded inputs) {plain['got']!r} ({card})")
+        if got != plain:
+            raise AssertionError(f"the tensor-core product differs from plain: {got} {plain}")
+    rates = {}
+    for dtype, n in (("bfloat16", 8192), ("float32", 4096)):
+        r = matmul_roofline(n=n, dtype=dtype)
+        rates[f"matmul {dtype} n={n} TFLOP/s"] = r["tflops"]
+    for direction in ("h2d", "d2h", "both"):
+        test = TransferRateTest(direction=direction)  # 100 frames x 5 MiB, pageable
+        test.transfer(10)
+        rates[f"{direction} Gbps (100 x 5 MiB)"] = test.transfer(test.n_frames)
+        del test
+    for threads, w, r in mem_rate_sweep(thread_range=(1, 2, 3, 4)):
+        rates[f"host RAM write {threads} threads GB/s"] = w
+        rates[f"host RAM read {threads} threads GB/s"] = r
+    for k, v in rates.items():
+        log(f"characterize {k}: {v:.3f} ({card})")
+    bad = {k: v for k, v in rates.items() if not (math.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"non-finite or non-positive rates: {bad}")
+    torch.cuda.empty_cache()
+    st["characterize"] = rates
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -2537,25 +2761,30 @@ def main() -> int:
     # F+B step, phase 10 for the FXB step, phase 9 for the 64-channel FXB step,
     # phase 12 for the DIT F form, phase 13 for the F-engine step, phase 14
     # for the native-handoff F+B step, phase 16 for the example under
-    # PipelineTest, phase 19 for each probe's timed runs).
+    # PipelineTest, phase 19 for each probe's timed runs); sharded_launches:
+    # K1's, K2's, K4's and K3's counts from phase 20's sharded runs.
     kernels = [
         dict(name="fengine_ct", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship",
-             launches=st["launches"]["k1"], **st["k1"]),
+             launches=st["launches"]["k1"], sharded_launches=st["sharded_launches"]["k1"],
+             **st["k1"]),
         dict(name="bstage_fused", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
              replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69", path="fb_flagship",
-             launches=st["launches"]["k2"], **st["k2"]),
+             launches=st["launches"]["k2"], sharded_launches=st["sharded_launches"]["k2"],
+             **st["k2"]),
         dict(name="corner_turn", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/corner_turn.cu",
              replaces="dpdk_dc_sand_tpu/ops/corner_turn.py:77",
              also_replaces=["dpdk_dc_sand_tpu/ops/corner_turn.py:90",
                             "dpdk_dc_sand_tpu/ops/corner_turn.py:274"],
-             path="fxb_flagship", launches=st["fxb_launches"]["k4"], **st["k4"]),
+             path="fxb_flagship", launches=st["fxb_launches"]["k4"],
+             sharded_launches=st["sharded_launches"]["k4"], **st["k4"]),
         dict(name="xcorr_fused", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/xcorr.cu",
              replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:135", path="fxb_flagship",
-             launches=st["fxb_launches"]["k3"], **st["k3"]),
+             launches=st["fxb_launches"]["k3"], sharded_launches=st["sharded_launches"]["k3"],
+             **st["k3"]),
         dict(name="xcorr_turned", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/xcorr.cu",
              replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:47", path="fxb_64ch",
              launches=st["fxb64_launches"]["k5b"], **st["k5b"]),

@@ -18,6 +18,10 @@ port engine's buffers and caches:
 state: the delay solution is an input of every step) into the port's
 ``FEngine``, or any port engine's.
 
+:func:`load_sharded_state` carries the JAX ``ShardedFBEngine``'s window and
+its global steering planes (``np.asarray(eng.window)``, ``[np.asarray(x)
+for x in eng._coeffs]``) into one rank's port ``ShardedFBEngine``.
+
 Both packages then run their kernels on identical operands, so a comparison
 isolates the kernels from cos/sin ulp differences between the two
 frameworks. Nothing here imports jax.
@@ -86,4 +90,26 @@ def from_reference_state(
         rc, rs = (torch.as_tensor(np.array(r, np.float32), device=dev) for r in rot_planes)
         engine.rot_cos, engine.rot_sin = rc, rs
         engine._rot_key = _rot_key(frac_delays, phases)
+    return engine
+
+
+def load_sharded_state(engine, window, cos, sin, *, delay_vals, ant_weights=None,
+                       t_s: float = 0.0):
+    """Load the reference sharded engine's state into this rank's ``engine``.
+
+    ``window`` ``[taps, fft]`` f32; ``cos``, ``sin`` the global ``[C, B, A]``
+    steering planes with the antenna weights folded in. The engine keeps
+    its own ``[C_loc, B, A_loc]`` block (block-concatenated for a folded B
+    form), in its precision's dtype, keyed to ``delay_vals`` /
+    ``ant_weights`` / ``t_s``, so steps with that solution use it until the
+    solution changes.
+    """
+    cfg = engine.cfg
+    want = (cfg.n_channels, cfg.n_beams, cfg.n_ants)
+    pair = torch.stack([torch.as_tensor(np.array(w, np.float32), device=engine.device)
+                        for w in (cos, sin)])
+    if tuple(pair.shape[1:]) != want:
+        raise ValueError(f"steering planes {tuple(pair.shape[1:])}, want {want}")
+    load_window(engine, window)
+    engine._load_planes(pair, steering_key(delay_vals, ant_weights, t_s))
     return engine

@@ -21,7 +21,8 @@ engines above fft 65536, K7's two-pass body (its DFT pass alone at every
 chunk plan, both passes at fft 2048 to 2^17 and over several plane groups,
 its launch counters, its registers and spill bytes), and the probes'
 kernels (K1's and K7's stage stops, P1's modes, P3's loop orders) at small
-and ragged shapes.
+and ragged shapes, a one-rank NCCL step of the sharded engine against
+``FBEngine`` and the tensor-core dynamic-range probe.
 """
 
 import numpy as np
@@ -1147,3 +1148,43 @@ def test_p3_kernel_is_bit_exact_against_plain(dev, kind, n1, n2, reps):
     got = fp.fir_probe(x.to(dev), w.to(dev), kind, reps=reps)
     assert fp.fir_probe.launches == before + 1
     assert torch.equal(got.cpu(), fp.fir_probe_reference(x, w, reps))
+
+
+@pytest.mark.parametrize("bstage_name", ["turned", "fused"])
+def test_one_rank_nccl_sharded_step_equals_fbengine(dev, bstage_name, tmp_path):
+    """A one-rank NCCL group: the sharded step (fused F; K4 + the product,
+    or K2) equals ``FBEngine`` with the same backends on the tail-prepended
+    stream, the same kernels on the same bytes."""
+    import torch.distributed as dist
+
+    from dpdk_dc_sand_tpu_torch.parallel import ShardedFBEngine, make_mesh
+
+    cfg = ArrayConfig(n_ants=8, n_channels=1024, n_beams=16, n_taps=4)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(shape=(1, 1))
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        eng = ShardedFBEngine(cfg, mesh, n_spectra=128, fengine="fused", bstage=bstage_name)
+        adc, fd, ph, dv = eng.example_inputs()
+        k1 = ff.fengine_fused.launches
+        got = eng(torch.from_numpy(adc).to(dev), fd, ph, dv)
+        assert got.is_cuda and ff.fengine_fused.launches == k1 + 1
+    finally:
+        dist.destroy_process_group()
+    halo = (cfg.n_taps - 1) * cfg.fft_size
+    fb = FBEngine(cfg, n_spectra=128, fengine="fused", bstage=bstage_name, device=dev)
+    want = fb(np.concatenate([adc[..., -halo:], adc], axis=-1), np.zeros(8, np.int32), fd, ph, dv)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,got", [("bfloat16", 0.9766845703125),
+                                       ("float32", 0.9749999642372131)])
+def test_dynamic_range_probe_on_the_tensor_cores(dev, dtype, got):
+    """65000 x 1.5e-5 through one product with f32 output: bf16 rounds both
+    inputs (65024 x bf16(1.5e-5)), f32 keeps them; the JAX package's numbers."""
+    from dpdk_dc_sand_tpu_torch.characterize import matmul_roofline, mxu_dynamic_range
+
+    r = mxu_dynamic_range(dtype=dtype)
+    assert r["expected"] == 0.975 and r["got"] == got and r["survives"] == 1.0
+    assert matmul_roofline(n=1024, dtype=dtype, iters=2)["tflops"] > 0

@@ -168,7 +168,9 @@ def test_port_never_imports_jax_or_the_reference():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]; "
         "[importlib.import_module(n) for n in names]; "
         "want = {'engine_node', 'stream.feed', 'control.protocol', 'utils.timing', "
-        "'examples.full_instrument_demo', 'ops.vector_add', 'models.fbengine', 'convert'}; "
+        "'examples.full_instrument_demo', 'ops.vector_add', 'models.fbengine', 'convert', "
+        "'parallel.fbengine_sharded', 'parallel.mesh', 'parallel.ingest', 'parallel.launch', "
+        "'parallel.__main__', 'characterize.mxu', 'characterize.__main__'}; "
         "missing = {'dpdk_dc_sand_tpu_torch.' + w for w in want} - set(names); "
         "assert not missing, missing; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

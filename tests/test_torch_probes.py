@@ -21,7 +21,7 @@ sums in another order).
 import functools
 import importlib.util
 import pathlib
-import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -301,19 +301,24 @@ def test_fengine_fused_ablate_raises_where_the_reference_does():
         ff.fengine_fused(frames, win, z, z, quantise=False, _ablate="dma", **kw)
 
 
-def test_chain_marginal_times_a_chained_call_on_the_cpu():
-    """Two and six fed calls: the marginal is per call, the feed adds zero."""
+def test_chain_marginal_times_a_chained_call_on_the_cpu(monkeypatch):
+    """Two and six fed calls: the marginal is per call, the feed adds zero.
+
+    The clock ``_chain`` reads is a stub that each call advances by 2 ms, so
+    the marginal is exact whatever else the machine is running."""
     x = torch.arange(8, dtype=torch.float32)
     calls = []
+    clock = [0.0]
 
     def call():
         calls.append(x.clone())
-        time.sleep(0.002)
+        clock[0] += 0.002
         return x * 2
 
+    monkeypatch.setattr(_chain, "time", types.SimpleNamespace(perf_counter=lambda: clock[0]))
     per, warm = _chain.marginal_ms(call, x)
     assert len(calls) == 2 + 2 * (2 + 6)
-    assert 1.5 <= per <= 50 and warm > 0
+    assert per == pytest.approx(2.0, abs=1e-9) and warm > 0
     assert torch.equal(x, torch.arange(8, dtype=torch.float32))
     with pytest.raises(ValueError, match="contiguous"):
         _chain.marginal_ms(call, torch.zeros((4, 4))[:, 0])
