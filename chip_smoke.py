@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships, E1, the engine node, the probes, the sharded engine and the characterisation probes.
+"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships, E1, the engine node, the probes, the sharded engine, the characterisation probes and a servlet fronting two engine nodes.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
 
@@ -132,7 +132,19 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    code unit everywhere and within that bound on all but 1e-2 of the
    samples, its max |d| and share over the bound printed; the int8 output
    of the same kernel equal to the requant of its f32 output; kernel and
-   plain ms.
+   plain ms. Then two qualification scenarios at the flagship width, their
+   tone's channel scaled with the fft (K = 40 * fft / 256 = 10240, a 32-sample
+   period): beam steering through ``FBEngine``'s default path (K1 + K2,
+   natural packed beams, bf16) at 80 ant x 32768 ch x 16 beams x 16 taps,
+   S=256, the tone with a uniform phase gradient over one full turn, beam 0
+   steered at it and beam 1 boresight, the F requant gain 2/fft so that the
+   tone's int8 codes stay unsaturated (their peak logged): the steered beam
+   at least 0.95 x 80^2 of one antenna's power (the same engine with one-hot
+   ``ant_weights``) and boresight at least 20 dB down; delay tracking through
+   ``FEngine`` (K6, f32 output) at 2 ant x 32768 ch x 16 taps, S=256, the
+   second antenna 3.25 samples late, corrected through ``delay_solution``:
+   phase error < 0.02 rad and coherence > 0.999, uncorrected coherence < 0.5.
+   K1's, K2's and K6's launch counts must rise.
 
 16. e1    — the example ``dpdk_dc_sand_tpu_torch.examples.vector_add`` under
    ``PipelineTest`` at n = 1 << 22 (its report printed; E1's launch count from
@@ -197,6 +209,23 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    (TFLOP/s), ``TransferRateTest`` h2d, d2h and both (in series) at 100 x 5
    MiB pageable frames (Gbps), and the host RAM ``mem_rate`` for 1-4 threads; a
    non-finite or non-positive rate fails the phase, no rate is gated.
+22. instrument — a port ``CorrServlet`` fronting two port ``EngineNode``s on
+   the card at the flagship array (80 x 32768 x 16 x 16, S=256; fused F and
+   turned B: K1, K4 and the product; int8 split beams, ``beam_quant_scale``
+   0.25; two page-locked slots each), one shared ``auth_secret``, an explicit
+   ``request_timeout``, the servlet, the nodes and the ``Client`` on one
+   asyncio loop: (a) each node takes a chunk; (b) ``?delay-model`` (4 x 80
+   values, coarse within the budget) and ``?beam-weights`` (80 values, not
+   all 1) through the servlet alone; (c) each node takes the same chunk
+   again: its beams must equal ``node.fb.step`` with the node's new state bit
+   for bit and differ from (a)'s; (d) a ``?delay-model`` with one coarse value
+   past the budget must fail naming both nodes and degrade the servlet's
+   ``device-status`` (WARN), and the next chunk's beams on each node still
+   equal (c)'s; (e) ``?sensor-value`` on the servlet shows ``node0.*`` and
+   ``node1.*`` equal to each node's own sensors. K1's and K4's counts, reset
+   before (a) and read after (d), must be 6 each. Logs each node's chunk ms
+   (commit to beams) with both nodes sharing the card, the fan-out round
+   trips of (b) and the peak device memory.
 
 Every kernel in the ``kernels`` line carries its bound: the larger of the
 bytes it must move over 3.35 TB/s and each type of operation over the
@@ -218,7 +247,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k2", "engine", "flagship", "corner_turn", "xcorr",
           "fxb_engine", "fxb_flagship", "fir", "fengine_dit", "f_flagship", "bforms",
-          "qualification", "e1", "node", "node_udp", "probes", "sharded", "characterize")
+          "qualification", "e1", "node", "node_udp", "probes", "sharded", "characterize",
+          "instrument")
 SEED = 2021
 #: F requant gain for fft 65536 on uniform +-64 noise: 1/16 (the reference
 #: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
@@ -1925,6 +1955,129 @@ def phase_qualification(st: dict) -> None:
                     f32_out_subset_max_abs_err=out["bfloat16"]["max_abs_err"],
                     f32_out_subset_share_over_tol=out["bfloat16"]["share_over"],
                     f32_out_subset_f32dft_ms=out["float32"]["ms"])
+    _qual_flagship_scenarios(st)
+
+
+#: The beam-steering and delay-tracking scenarios' tone (tests/qualification/
+#: test_*_qual.py: channel 40 of fft 256, amplitude 80) with its channel scaled
+#: with the fft, K = 40 * fft / 256: the tone's period is 32 samples at every
+#: fft, and the delay's phase error 2*pi*K*d/fft stays the scenario's own.
+SCEN_PERIOD, SCEN_AMP, SCEN_SPECTRUM, SCEN_DELAY = 32, 80.0, 4, 3.25
+
+
+def _periodic(torch, period, n, dev):
+    """``period`` ``[..., SCEN_PERIOD]`` tiled along its last axis to ``n`` samples on
+    the card."""
+    reps = -(-n // SCEN_PERIOD)
+    return torch.from_numpy(period).to(dev).repeat(*(1,) * (period.ndim - 1), reps)[..., :n]
+
+
+def _qual_flagship_scenarios(st: dict) -> None:
+    """Beam steering through FBEngine's default path (K1 + K2, natural packed
+    beams) and delay tracking through FEngine (K6, f32 output) at the
+    flagship width, with the JAX scenarios' signals and asserts."""
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig, delay_solution
+    from dpdk_dc_sand_tpu_torch.models import FBEngine, FEngine
+    from dpdk_dc_sand_tpu_torch.ops import bstage, fengine_fused as ff, pfb_fir
+
+    card = st["card"]
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    counters = {"k1": ff.fengine_fused, "k2": bstage.beamform_turned_fused,
+                "k6": pfb_fir.pfb_fir_frames}
+    for fn in counters.values():
+        fn.launches = 0
+
+    # Beam steering: 80 antennas see the tone with a uniform phase gradient
+    # over one full turn; beam 0 is steered at the source, beam 1 is boresight.
+    cfg = ArrayConfig(**FLAG)
+    a, p, s, c, fft = cfg.n_ants, cfg.n_pols, FLAG_S, cfg.n_channels, cfg.fft_size
+    k = 40 * fft // 256
+    gain = 2.0 / fft  # the tone's bin holds about SCEN_AMP * fft / 2: codes near SCEN_AMP
+    fb = FBEngine(cfg, n_spectra=s, quant_scale=gain, precision="bf16", beam_layout="natural",
+                  device=dev)
+    if (fb.fengine, fb.bstage) != ("fused", "fused"):
+        raise AssertionError(f"the default path resolved {fb.fengine}, {fb.bstage}")
+    phases = np.arange(a) * (2 * np.pi / a)
+    t = np.arange(SCEN_PERIOD)
+    codes = np.clip(np.round(SCEN_AMP * np.cos(2 * np.pi * k * t / fft + phases[:, None])),
+                    -127, 127).astype(np.int8)
+    adc = _periodic(torch, codes, fb.samples_in + 64, dev)[:, None].expand(a, p, -1).contiguous()
+    zi, zf = np.zeros(a, np.int32), np.zeros(a, np.float32)
+    dv = np.zeros((cfg.n_beams, a, 4), np.float32)
+    dv[0, :, 2] = -phases
+    nb, pack = cfg.n_beams, 128 // (2 * cfg.n_beams)
+
+    def tone_power(out, beam):
+        x = out.reshape(c // pack, p, s, pack, 2, nb)[k // pack, 0, SCEN_SPECTRUM, k % pack, :, beam]
+        return float((x.double() ** 2).sum())
+
+    fb.set_beam_delays(dv)
+    out = fb.step(adc, zi, zf, zf)
+    p_on, p_off = tone_power(out, 0), tone_power(out, 1)
+    onehot = np.zeros(a, np.float32)
+    onehot[0] = 1.0  # one antenna's power from the same engine: K2 need not take A = 1
+    fb.set_beam_delays(dv, ant_weights=onehot)
+    p_single = tone_power(fb.step(adc, zi, zf, zf), 0)
+    qr, qi = fb._f(adc, zi, zf, zf)
+    peak = int(max(qr[..., k].abs().max(), qi[..., k].abs().max()))
+    array_gain = p_on / p_single
+    off_db = 10 * np.log10(max(p_off, 1e-12 * p_on) / p_on)
+    log(f"qualification beam steering [{a} ant x {c} ch x {nb} beams x {cfg.n_taps} taps, "
+        f"S={s}; K1 + K2, natural packed beams, bf16]: tone in channel {k}, F requant gain {gain:.6e}, the "
+        f"tone's int8 codes peak at {peak}; steered/single-antenna power {array_gain:.3f} "
+        f"(want >= {0.95 * a * a:.0f} = 0.95 x {a}^2), boresight {off_db:.2f} dB (want <= "
+        f"-20) ({card})")
+    if peak >= 127 or peak < 16:
+        raise AssertionError(f"the tone's codes are saturated or too small: peak {peak}")
+    if array_gain < 0.95 * a * a or off_db > -20.0:
+        raise AssertionError("the steered flagship beam fails the beam-steering scenario")
+    del fb, adc, out, qr, qi
+    torch.cuda.empty_cache()
+
+    # Delay tracking: antenna 1 sees the wavefront SCEN_DELAY samples late.
+    cfg = ArrayConfig(n_ants=2, n_channels=FLAG["n_channels"], n_taps=FLAG["n_taps"])
+    fe = FEngine(cfg, n_spectra=s, quant_scale=1.0, quantise_output=False, device=dev)
+    wave = np.stack([SCEN_AMP * np.cos(2 * np.pi * k * (t - d) / fft) for d in (0.0, SCEN_DELAY)])
+    adc = _periodic(torch, wave.astype(np.float32), fe.samples_in + 64, dev)
+    adc = adc[:, None].expand(2, cfg.n_pols, -1).contiguous()
+    rate = cfg.adc_sample_rate
+    coarse, frac, _ = delay_solution.delay_solution(
+        np.array([0.0, SCEN_DELAY / rate]), np.zeros(2), np.zeros(2), np.zeros(2), t_s=0.0,
+        adc_sample_rate=rate)
+    ph = (-np.pi * frac / 2).astype(np.float32)
+
+    def tone(out):
+        z = out[:, 0, SCEN_SPECTRUM, k].double().cpu().numpy()
+        return z[:, 0] + 1j * z[:, 1]
+
+    a0, a1 = tone(fe(adc, coarse, frac, ph))
+    phase_err = float(np.angle(a1 / a0))
+    coherence = float(abs(a0 + a1) / (abs(a0) + abs(a1)))
+    u0, u1 = tone(fe(adc, np.zeros(2, np.int32), np.zeros(2, np.float32),
+                     np.zeros(2, np.float32)))
+    uncorrected = float(abs(u0 + u1) / (abs(u0) + abs(u1)))
+    log(f"qualification delay tracking [2 ant x {cfg.n_channels} ch x {cfg.n_taps} taps, "
+        f"S={s}; FEngine, K6, f32 output]: delay {SCEN_DELAY} samples, tone in channel {k} (uncorrected phase error "
+        f"{2 * np.pi * k * SCEN_DELAY / fft:.3f} rad), coarse {coarse.tolist()}, frac "
+        f"{frac.tolist()}; corrected phase error {phase_err:.3e} rad (want < 0.02), coherence "
+        f"{coherence:.6f} (want > 0.999); uncorrected coherence {uncorrected:.4f} (want < 0.5) "
+        f"({card})")
+    if abs(phase_err) >= 0.02 or coherence <= 0.999 or uncorrected >= 0.5:
+        raise AssertionError("the flagship-width delay chain fails the delay-tracking scenario")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"qualification scenarios' launches: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the scenarios never launched: {launches}")
+    del fe, adc
+    torch.cuda.empty_cache()
+    st["qualification"].update(array_gain=array_gain, boresight_db=float(off_db),
+                               tone_code_peak=peak,
+                               f_gain=gain, phase_error_rad=phase_err, coherence=coherence,
+                               uncorrected_coherence=uncorrected)
 
 
 def phase_e1(st: dict) -> None:
@@ -2734,6 +2887,169 @@ def phase_characterize(st: dict) -> None:
     st["characterize"] = rates
 
 
+#: ``instrument``: the servlet's per-node request deadline (s; a request
+#: only sets a node's state, but the nodes' steps share the host with it),
+#: the secret the servlet, both nodes and the client share, and each node's
+#: page-locked ring slots.
+INSTRUMENT_TIMEOUT = 60.0
+INSTRUMENT_SECRET = "flagship-instrument"
+INSTRUMENT_SLOTS = 2
+INSTRUMENT_SENSORS = ("chunks-processed", "chunks-lost", "device-status", "ingest-rate-gbps")
+
+
+def phase_instrument(st: dict) -> None:
+    """A port CorrServlet fronting two port EngineNodes on the card."""
+    import asyncio
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.control import Client, CorrServlet, FailReply, Status
+    from dpdk_dc_sand_tpu_torch.engine_node import EngineNode
+    from dpdk_dc_sand_tpu_torch.ops import corner_turn as ct, fengine_fused as ff
+
+    card = st["card"]
+    gc.collect()  # phase 17's node, ring and buffers are gone before two nodes start
+    torch.cuda.empty_cache()
+    cfg = ArrayConfig(**FLAG)
+    arrivals, beams = [{}, {}], [{}, {}]
+
+    def on_beams(i):
+        def take(b, seq):
+            arrivals[i][seq] = time.perf_counter()
+            beams[i][seq] = b
+        return take
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nodes = [EngineNode(cfg, n_spectra=FLAG_S, beam_quant_scale=0.25, ring_slots=INSTRUMENT_SLOTS,
+                        auth_secret=INSTRUMENT_SECRET, on_beams=on_beams(i),
+                        engine_opts=dict(quant_scale=QUANT_SCALE), device=NODE_DEVICE)
+             for i in range(2)]
+    dev, budget = nodes[0].device, nodes[0].delay_budget
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    adc_dev = torch.empty(nodes[0].chunk_shape, dtype=torch.int8, device=dev)
+    adc_dev.random_(-64, 64, generator=gen)
+    flat = adc_dev.cpu().numpy().reshape(-1).view(np.uint8)  # to the host once
+    rng = np.random.default_rng(SEED + 22)
+    dm = np.zeros((cfg.n_ants, 4))
+    dm[:, 0] = rng.integers(0, budget + 1, cfg.n_ants)
+    dm[:, 1] = rng.uniform(-0.5, 0.5, cfg.n_ants)
+    dm[:, 2] = -np.pi * dm[:, 1] / 2
+    weights = rng.uniform(0.25, 1.5, cfg.n_ants)
+    bad = dm.copy()
+    bad[int(rng.integers(cfg.n_ants)), 0] = budget + 1
+    log(f"instrument [2 nodes x ({cfg.n_ants} ant x {cfg.n_channels} ch x {cfg.n_beams} beams "
+        f"x {cfg.n_taps} taps, S={FLAG_S})]: F "
+        f"{nodes[0].fb.fengine}, B {nodes[0].fb.bstage}, int8 split beams (beam_quant_scale "
+        f"0.25), {INSTRUMENT_SLOTS} page-locked slots a node (pinned {nodes[0].ring.pinned}), "
+        f"chunk {nodes[0].chunk_shape}, budget {budget}; servlet request_timeout "
+        f"{INSTRUMENT_TIMEOUT} s, one auth_secret shared by the servlet, both nodes and the "
+        f"client; the servlet, the nodes and the client on one asyncio loop")
+
+    async def chunk(seq):
+        """Both nodes take the same chunk at once; each node's ms from its
+        commit to its beams at on_beams."""
+        async def one(node):
+            await _until(lambda: len(node.ring) < node.ring.n_slots, "a free slot")
+            if not await asyncio.to_thread(node.submit_chunk, flat, seq):
+                raise AssertionError(f"chunk {seq} dropped")
+            return time.perf_counter()
+
+        committed = await asyncio.gather(*(one(n) for n in nodes))
+        await _until(lambda: all(seq in a for a in arrivals), f"chunk {seq}'s beams")
+        return [(arrivals[i][seq] - t0) * 1e3 for i, t0 in enumerate(committed)]
+
+    async def scenario():
+        servlet = client = None
+        try:
+            for node in nodes:
+                await node.start()
+            servlet = CorrServlet("corr3", cfg.n_ants, request_timeout=INSTRUMENT_TIMEOUT,
+                                  auth_secret=INSTRUMENT_SECRET,
+                                  engine_endpoints=[("127.0.0.1", n.port) for n in nodes])
+            await servlet.start()
+            client = await Client("127.0.0.1", servlet.port,
+                                  auth_secret=INSTRUMENT_SECRET).connect()
+            ff.fengine_fused.launches = ct.corner_turn_planes.launches = 0
+            ms = {"a": await chunk(0)}  # (a)
+            rtt = []
+            for req in (("delay-model", *dm.ravel()), ("beam-weights", *weights)):  # (b)
+                t0 = time.perf_counter()
+                await client.request(*req)
+                rtt.append((time.perf_counter() - t0) * 1e3)
+            ms["c"] = await chunk(1)  # (c)
+            try:  # (d)
+                await client.request("delay-model", *bad.ravel())
+                raise AssertionError("the out-of-budget delay model was accepted")
+            except FailReply as e:
+                failure = str(e)
+            status = servlet.sensors["device-status"]
+            degraded = (status.value, status.status)
+            ms["d"] = await chunk(2)
+            launches = {"k1": ff.fengine_fused.launches, "k4": ct.corner_turn_planes.launches}
+            # (e): the mirrored node sensors against each node's own.
+            pairs = [(servlet.sensors[f"node{i}.{name}"], node.sensors[name])
+                     for i, node in enumerate(nodes) for name in INSTRUMENT_SENSORS]
+            await _until(lambda: all(int(n.s_processed.value) == 3 for n in nodes)
+                         and all(m.format_value() == o.format_value() and m.status == o.status
+                                 for m, o in pairs), "the mirrored sensors")
+            mirrored = {}
+            for i, node in enumerate(nodes):
+                for name in INSTRUMENT_SENSORS:
+                    _, informs = await client.request("sensor-value", f"node{i}.{name}")
+                    own = node.sensors[name]
+                    mirrored[f"node{i}.{name}"] = informs[0].args[3:5]
+                    if informs[0].args[3:5] != [own.status.value, own.format_value()]:
+                        raise AssertionError(f"node{i}.{name}: {informs[0].args} vs "
+                                             f"{own.status.value} {own.format_value()}")
+            return ms, rtt, failure, degraded, launches, mirrored
+        finally:
+            if client is not None:
+                await client.close()
+            if servlet is not None:
+                await servlet.stop()
+            for node in nodes:
+                await node.stop()
+
+    ms, rtt, failure, degraded, launches, mirrored = asyncio.run(scenario())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"instrument launches (a)-(d), 3 chunks on 2 nodes: {launches}")
+    if launches != {"k1": 6, "k4": 6}:
+        raise AssertionError(f"the nodes' steps did not run K1 and K4 once a chunk: {launches}")
+    log(f"instrument (d): {failure!r}; servlet device-status {degraded[0]} / "
+        f"{degraded[1].value}")
+    if not ("node0" in failure and "node1" in failure) or degraded != ("degraded", Status.WARN):
+        raise AssertionError("the out-of-budget fan-out did not fail on both nodes and degrade")
+    for i, node in enumerate(nodes):
+        if not (np.array_equal(node._coarse, dm[:, 0].astype(np.int32))
+                and np.array_equal(node._weights_scale, weights.astype(np.float32))):
+            raise AssertionError(f"node {i} does not hold (b)'s state")
+        if node.feed.pinned_copies != 3 or node.feed.stream is None:
+            raise AssertionError(f"node {i}: H2D not from pinned slots on its own stream")
+        want = node.fb.step(adc_dev, node._coarse, node._frac, node._phase).cpu().numpy()
+        if not (np.array_equal(beams[i][1], want) and np.array_equal(beams[i][2], want)):
+            raise AssertionError(f"node {i}: beams after the update are not fb.step's")
+        if np.array_equal(beams[i][0], beams[i][1]):
+            raise AssertionError(f"node {i}: the update did not change the beams")
+    if nodes[0].feed.stream == nodes[1].feed.stream:
+        raise AssertionError("the two nodes' feeds share a copy stream")
+    log(f"instrument beams of chunks 1 and 2 on both nodes: equal to fb.step with (b)'s state, "
+        f"bit for bit ({beams[0][1].dtype} {beams[0][1].shape}), and unlike chunk 0's; "
+        f"mirrored sensors {mirrored}")
+    log(f"instrument ({card}): chunk ms, commit to beams, both nodes sharing the card: (a) "
+        f"{['%.3f' % t for t in ms['a']]} (first steps), (c) {['%.3f' % t for t in ms['c']]}, "
+        f"(d) {['%.3f' % t for t in ms['d']]}; fan-out round trip ?delay-model {rtt[0]:.3f} ms, "
+        f"?beam-weights {rtt[1]:.3f} ms; peak device memory {peak_gb:.2f} GB")
+    st["instrument"] = dict(chunk_ms=ms, rtt_ms=rtt, peak_gb=peak_gb)
+    st["instrument_launches"] = launches
+    del nodes, adc_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -2762,13 +3078,14 @@ def main() -> int:
     # phase 12 for the DIT F form, phase 13 for the F-engine step, phase 14
     # for the native-handoff F+B step, phase 16 for the example under
     # PipelineTest, phase 19 for each probe's timed runs); sharded_launches:
-    # K1's, K2's, K4's and K3's counts from phase 20's sharded runs.
+    # K1's, K2's, K4's and K3's counts from phase 20's sharded runs;
+    # instrument_launches: K1's and K4's from phase 22's two nodes.
     kernels = [
         dict(name="fengine_ct", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship",
              launches=st["launches"]["k1"], sharded_launches=st["sharded_launches"]["k1"],
-             **st["k1"]),
+             instrument_launches=st["instrument_launches"]["k1"], **st["k1"]),
         dict(name="bstage_fused", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
              replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69", path="fb_flagship",
@@ -2780,7 +3097,8 @@ def main() -> int:
              also_replaces=["dpdk_dc_sand_tpu/ops/corner_turn.py:90",
                             "dpdk_dc_sand_tpu/ops/corner_turn.py:274"],
              path="fxb_flagship", launches=st["fxb_launches"]["k4"],
-             sharded_launches=st["sharded_launches"]["k4"], **st["k4"]),
+             sharded_launches=st["sharded_launches"]["k4"],
+             instrument_launches=st["instrument_launches"]["k4"], **st["k4"]),
         dict(name="xcorr_fused", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/xcorr.cu",
              replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:135", path="fxb_flagship",
              launches=st["fxb_launches"]["k3"], sharded_launches=st["sharded_launches"]["k3"],

@@ -24,6 +24,11 @@ reference so each counterpart is easy to find:
   :class:`~.models.xengine.VisibilityAccumulator`.
 - :mod:`.config`: :class:`ArrayConfig` and :class:`DelayModel`.
 - :mod:`.convert`: loads the reference engine's state into the port.
+- :mod:`.golden`: the numpy oracles; :mod:`.delay_solution` and
+  :mod:`.delay_tracking`: the delay models.
+- :mod:`.engine_node`, :mod:`.stream`, :mod:`.control`: the node that serves
+  the engines, its transport, and the KATCP-style control plane with the
+  aggregating servlet (:class:`~.control.servlet.CorrServlet`).
 
 The package imports ``torch`` and numpy, never ``jax`` and nothing of the
 reference package, so it runs on a machine that has neither.

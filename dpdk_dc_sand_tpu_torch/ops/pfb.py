@@ -9,25 +9,10 @@ follows its FIR with XLA's real FFT. This is the composed F path of
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from dpdk_dc_sand_tpu_torch.golden.pfb import pfb_window  # re-export  # noqa: F401
 from dpdk_dc_sand_tpu_torch.ops.pfb_fir import pfb_fir_frames
-
-
-def pfb_window(n_taps: int, fft_size: int) -> np.ndarray:
-    """Hann-windowed sinc prototype ``[n_taps, fft_size]`` f32, as the reference builds it.
-
-    ``sinc(x/N)·hann`` over ``n_taps·N`` points in float64, normalised to
-    unit DC gain per polyphase branch, then rounded once to f32
-    (``dpdk_dc_sand_tpu/golden/pfb.py:pfb_window``).
-    """
-    length = n_taps * fft_size
-    n = np.arange(length, dtype=np.float64)
-    x = (n - (length - 1) / 2.0) / fft_size
-    proto = np.sinc(x) * np.hanning(length)
-    proto /= proto.sum() / fft_size
-    return proto.reshape(n_taps, fft_size).astype(np.float32)
 
 
 def pfb_fir(samples: torch.Tensor, window: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from dpdk_dc_sand_tpu_torch.golden.requant import requantise
 from dpdk_dc_sand_tpu_torch.models._device import indexed, resolve_device
 from dpdk_dc_sand_tpu_torch.stream.chunk import Chunk, StreamStats
 from dpdk_dc_sand_tpu_torch.stream.ring import ChunkRing
@@ -194,17 +195,6 @@ class DeviceFeed:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=2.0)
-
-
-def requantise(x: np.ndarray, scale: float) -> np.ndarray:
-    """Host requant (copy of ``dpdk_dc_sand_tpu/golden/requant.py:requantise``):
-    scale, round-half-even, saturate to int8 ``[-127, 127]``; complex input
-    splits to interleaved (re, im) int8 pairs on a trailing axis."""
-    if np.iscomplexobj(x):
-        planar = np.stack([x.real, x.imag], axis=-1)
-        return requantise(planar, scale)
-    v = np.rint(np.asarray(x, np.float64) * scale)
-    return np.clip(v, -127, 127).astype(np.int8)
 
 
 class UdpBeamEgress:

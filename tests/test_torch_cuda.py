@@ -22,7 +22,8 @@ chunk plan, both passes at fft 2048 to 2^17 and over several plane groups,
 its launch counters, its registers and spill bytes), and the probes'
 kernels (K1's and K7's stage stops, P1's modes, P3's loop orders) at small
 and ragged shapes, a one-rank NCCL step of the sharded engine against
-``FBEngine`` and the tensor-core dynamic-range probe.
+``FBEngine``, the tensor-core dynamic-range probe and the port's servlet
+fronting two engine nodes on the card.
 """
 
 import numpy as np
@@ -1188,3 +1189,80 @@ def test_dynamic_range_probe_on_the_tensor_cores(dev, dtype, got):
     r = mxu_dynamic_range(dtype=dtype)
     assert r["expected"] == 0.975 and r["got"] == got and r["survives"] == 1.0
     assert matmul_roofline(n=1024, dtype=dtype, iters=2)["tflops"] > 0
+
+
+@pytest.mark.parametrize("n_channels", [128, 512], ids=["composed-f", "k1"])
+def test_servlet_fronting_two_engine_nodes_on_the_card(dev, n_channels):
+    """The port's servlet in front of two port engine nodes on the card
+    (pinned slots, their own copy streams): a ``?delay-model`` and a
+    ``?beam-weights`` fanned out through the servlet change each node's
+    beams, which equal ``fb.step`` with the new state bit for bit; one past
+    the budget fails on both nodes, degrades the servlet and changes nothing."""
+    import asyncio
+    import time
+
+    from dpdk_dc_sand_tpu_torch.control import Client, CorrServlet, FailReply
+    from dpdk_dc_sand_tpu_torch.engine_node import EngineNode
+
+    cfg = ArrayConfig(n_ants=2, n_channels=n_channels, n_beams=2, n_taps=4)
+
+    async def until(cond, what):
+        deadline = time.monotonic() + 60.0
+        while not cond():
+            assert time.monotonic() < deadline, f"timed out waiting for {what}"
+            await asyncio.sleep(0.01)
+
+    async def scenario():
+        beams = [{}, {}]
+        nodes = [EngineNode(cfg, n_spectra=8, beam_quant_scale=0.25, ring_slots=2, device=dev,
+                            auth_secret="k",
+                            on_beams=lambda b, s, i=i: beams[i].__setitem__(s, b))
+                 for i in range(2)]
+        servlet = client = None
+        try:
+            for node in nodes:
+                await node.start()
+            assert all(n.ring.pinned for n in nodes)
+            servlet = CorrServlet("corr3", cfg.n_ants, request_timeout=60.0, auth_secret="k",
+                                  engine_endpoints=[("127.0.0.1", n.port) for n in nodes])
+            await servlet.start()
+            client = await Client("127.0.0.1", servlet.port, auth_secret="k").connect()
+            chunk = np.random.default_rng(5).integers(-64, 64, nodes[0].chunk_shape,
+                                                      dtype=np.int8)
+            adc = torch.from_numpy(chunk).to(dev)
+
+            async def step(seq):
+                for node in nodes:
+                    assert node.submit_chunk(chunk, seq)
+                await until(lambda: all(seq in b for b in beams), f"chunk {seq}")
+                return [b[seq] for b in beams]
+
+            before = await step(0)
+            dm = np.array([[3, 0.25, -0.3, 0.0], [17, -0.4, 0.6, 0.0]])
+            await client.request("delay-model", *dm.ravel())
+            await client.request("beam-weights", 0.5, 1.25)
+            after = await step(1)
+            for node, b0, b1 in zip(nodes, before, after):
+                want = node.fb.step(adc, node._coarse, node._frac, node._phase).cpu().numpy()
+                np.testing.assert_array_equal(b1, want)
+                assert not np.array_equal(b1, b0)
+            bad = dm.copy()
+            bad[0, 0] = nodes[0].delay_budget + 1
+            with pytest.raises(FailReply, match="node0: .*node1: "):
+                await client.request("delay-model", *bad.ravel())
+            assert servlet.sensors["device-status"].value == "degraded"
+            for b1, b2 in zip(after, await step(2)):
+                np.testing.assert_array_equal(b2, b1)
+        finally:
+            if client is not None:
+                await client.close()
+            if servlet is not None:
+                await servlet.stop()
+            for node in nodes:
+                await node.stop()
+
+    loop = asyncio.new_event_loop()
+    try:
+        loop.run_until_complete(asyncio.wait_for(scenario(), 300.0))
+    finally:
+        loop.close()
