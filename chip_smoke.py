@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships, E1, the engine node, the probes, the sharded engine, the characterisation probes and a servlet fronting two engine nodes.
+"""Smoke run of the PyTorch + CUDA port on one GPU: build, check, drive the F+B, FXB, F and native F+B flagships, E1, the engine node, the probes, the sharded engine, the characterisation probes, a servlet fronting two engine nodes and a node fed over the native transport.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
 
@@ -7,7 +7,8 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
 
 1. device  — require CUDA; print the card's name and power limit
    (``nvidia-smi``) and the ``nvcc`` version;
-2. build   — compile ``dpdk_dc_sand_tpu_torch/csrc/*.cu`` for sm_90a;
+2. build   — compile ``dpdk_dc_sand_tpu_torch/csrc/*.cu`` for sm_90a, and the
+   host library ``dpdk_dc_sand_tpu_torch/native/*.cpp`` with g++ (required);
 3. k1      — K1 (fused F kernel) through its wrapper ``fengine_fused`` vs
    its plain PyTorch version at the flagship fft, taps and S on 8 of the
    160 (antenna, pol) batches, with two coarse delays that clamp: bf16 DFT
@@ -207,8 +208,9 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    cores (equal to its plain version, the f32 product of the rounded
    inputs), ``matmul_roofline`` for bf16 at n = 8192 and f32 at n = 4096
    (TFLOP/s), ``TransferRateTest`` h2d, d2h and both (in series) at 100 x 5
-   MiB pageable frames (Gbps), and the host RAM ``mem_rate`` for 1-4 threads; a
-   non-finite or non-positive rate fails the phase, no rate is gated.
+   MiB pageable frames (Gbps), and the host RAM ``mem_rate`` for 1-4 threads,
+   by the numpy scan and by the host library's ``membw_scan``; a non-finite or
+   non-positive rate fails the phase, no rate is gated.
 22. instrument — a port ``CorrServlet`` fronting two port ``EngineNode``s on
    the card at the flagship array (80 x 32768 x 16 x 16, S=256; fused F and
    turned B: K1, K4 and the product; int8 split beams, ``beam_quant_scale``
@@ -226,6 +228,32 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    before (a) and read after (d), must be 6 each. Logs each node's chunk ms
    (commit to beams) with both nodes sharing the card, the fan-out round
    trips of (b) and the peak device memory.
+
+23. node_native — ``EngineNode`` at the flagship channeliser (32768 ch x 16
+   beams x 16 taps, bf16) on 4 antennas x 2 pol, S=64 (fused F, turned B: K1,
+   then K4 and the product; int8 split beams, ``beam_quant_scale`` 0.25; 4
+   slots), its ring native and page-locked (a slot view ``is_pinned()``), fed
+   by the native burst-UDP engine (a ``BurstUdpReceiver`` on the node's ring,
+   through ``attach_ingest``) straight into the ring: (a) for each socket engine mode that opens (burst, gso,
+   uring; one that does not is logged with its ``OSError``) and each wire
+   format (lite, spead64), a fresh node, the delay model and 16 beams'
+   steering through ``Client``, 4 chunks of 41,420,800 B each sent once, one
+   heap in flight, each heap complete within 10 s: the receiver's stats 4
+   heaps, 4 x 10,113 packets, 0 ``ring_drops``, 0 ``evicted``; K1
+   and K4 launched 4 times each (counts reset before the chunks); the
+   sensors; every H2D from a pinned slot; each chunk's beams equal to
+   ``node.fb.step`` on it with the node's state, bit for bit. (b) gso with
+   lite frames paced a chunk at a time: 5 trials of 2 s bisecting to the
+   highest rate at which every chunk is stepped (no heap lost) and the sender
+   kept within 3% of its pace; logs the rate sent (chunks x bits / elapsed),
+   and from it node Msamples/s, the realtime multiple (/ 13,696) and the chunk split
+   (wire, H2D, step, the pageable D2H of 134.2 MB of beams). (c) each mode
+   that opens blasts 4 MiB heaps for 2 s with no node: tx / rx Gbps and the
+   loss. (d) AF_XDP over a veth pair (an ``XdpReceiver`` on the node's ring,
+   3584-B payloads, each chunk sent once): (a)'s checks; where the
+   veth or the XSK cannot be made, the reason is logged and recorded as
+   ``"not run: ..."``, and once open any failure fails the phase. Rates are
+   logged, not gated.
 
 Every kernel in the ``kernels`` line carries its bound: the larger of the
 bytes it must move over 3.35 TB/s and each type of operation over the
@@ -248,7 +276,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k2", "engine", "flagship", "corner_turn", "xcorr",
           "fxb_engine", "fxb_flagship", "fir", "fengine_dit", "f_flagship", "bforms",
           "qualification", "e1", "node", "node_udp", "probes", "sharded", "characterize",
-          "instrument")
+          "instrument", "node_native")
 SEED = 2021
 #: F requant gain for fft 65536 on uniform +-64 noise: 1/16 (the reference
 #: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
@@ -329,11 +357,18 @@ def phase_device(st: dict) -> None:
 
 def phase_build(st: dict) -> None:
     from dpdk_dc_sand_tpu_torch import _build
+    from dpdk_dc_sand_tpu_torch.native import load_native
 
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source, "
         f"into {_build.BUILD_DIR.name}/)")
+    t0 = time.perf_counter()
+    host = load_native()
+    if host is None:
+        raise RuntimeError("no g++ on PATH: the host library (native/*.cpp) cannot be built")
+    log(f"build: host library {os.path.basename(host._name)} in {time.perf_counter() - t0:.1f} "
+        f"s (g++ {' '.join(_build.GXX_FLAGS)}, {len(_build.HOST_SOURCES)} sources)")
 
 
 def _k1_plain(x, starts, window, rotc, rots, out, *, chunk, **kw):
@@ -2856,6 +2891,7 @@ def phase_characterize(st: dict) -> None:
         mem_rate_sweep,
         mxu_dynamic_range,
     )
+    from dpdk_dc_sand_tpu_torch.characterize.membw import _numpy_rate
 
     card = st["card"]
     for dtype in ("bfloat16", "float32"):
@@ -2875,9 +2911,13 @@ def phase_characterize(st: dict) -> None:
         test.transfer(10)
         rates[f"{direction} Gbps (100 x 5 MiB)"] = test.transfer(test.n_frames)
         del test
+    for threads in (1, 2, 3, 4):  # the numpy scan, then the native one
+        for mode, name in ((0, "write"), (1, "read")):
+            rates[f"host RAM {name} {threads} threads GB/s, numpy"] = _numpy_rate(
+                threads, 128 << 20, 0.3, mode) / 1e9
     for threads, w, r in mem_rate_sweep(thread_range=(1, 2, 3, 4)):
-        rates[f"host RAM write {threads} threads GB/s"] = w
-        rates[f"host RAM read {threads} threads GB/s"] = r
+        rates[f"host RAM write {threads} threads GB/s, native membw_scan"] = w
+        rates[f"host RAM read {threads} threads GB/s, native membw_scan"] = r
     for k, v in rates.items():
         log(f"characterize {k}: {v:.3f} ({card})")
     bad = {k: v for k, v in rates.items() if not (math.isfinite(v) and v > 0)}
@@ -3050,6 +3090,425 @@ def phase_instrument(st: dict) -> None:
     torch.cuda.empty_cache()
 
 
+#: ``node_native``: the flagship channeliser (32768 ch x 16 taps x 16 beams,
+#: bf16) at NATIVE_ANTS antennas x 2 pol, S = NATIVE_S, through ``EngineNode``
+#: (fused F, turned B: K1, then K4 and the product; int8 split beams) fed by
+#: the native burst-UDP engine straight into its page-locked native ring.
+#: NATIVE_CHUNKS heaps a correctness run, one in flight; each rate trial and
+#: each transport blast lasts NATIVE_TRIAL_S; the blast's heaps are 4 MiB
+#: (benchmarks/UDP_RATE.json's rows); AF_XDP on a veth pair of its own.
+NATIVE_CFG = dict(n_ants=4, n_channels=32768, n_beams=16, n_taps=16)
+NATIVE_S = 64
+NATIVE_SLOTS = 4
+NATIVE_CHUNKS = 4
+NATIVE_MTU, NATIVE_XDP_MTU = 4096, 3584
+NATIVE_MODES, NATIVE_WIRES = ("burst", "gso", "uring"), ("lite", "spead64")
+NATIVE_TRIAL_S, NATIVE_TRIALS = 2.0, 5
+NATIVE_BLAST_BYTES = 4 << 20
+NATIVE_VETH = ("dcsnxdp0", "dcsnxdp1")
+NATIVE_XDP_PORT = 5012
+#: A correctness run sends each chunk once; its heap must complete within
+#: NATIVE_HEAP_S.
+NATIVE_HEAP_S = 10.0
+#: A rate trial counts as lossless only where the rate it sent at is within
+#: NATIVE_PACE_TOL of its target (a sender that cannot keep up is not a
+#: lossless trial at the target).
+NATIVE_PACE_TOL = 0.03
+#: Realtime at 4 antennas x 2 pol: 8 x 1712 Msamples/s (MeerKAT L-band).
+NATIVE_REALTIME_MSPS = 8 * 1712.0
+
+
+def _native_modes() -> dict:
+    """Each socket engine mode: None where a receiver and a sender open on
+    loopback, else the OSError that refused it."""
+    from dpdk_dc_sand_tpu_torch.stream import ChunkRing
+    from dpdk_dc_sand_tpu_torch.stream.udp_native import BurstUdpReceiver, BurstUdpSender
+
+    out = {}
+    for mode in NATIVE_MODES:
+        ring = ChunkRing(2, 1 << 16, native=True)
+        rx = tx = None
+        try:
+            rx = BurstUdpReceiver(("127.0.0.1", 0), ring, mode=mode)
+            tx = BurstUdpSender(("127.0.0.1", rx.port), mode=mode)
+            out[mode] = None
+        except OSError as e:
+            out[mode] = f"{type(e).__name__}: {e}"
+        finally:
+            if tx is not None:
+                tx.close()
+            if rx is not None:
+                rx.stop()
+            ring.close()
+    return out
+
+
+def _native_node(st, dm, dv, got):
+    """A fresh node at NATIVE_CFG whose beams land in ``got``; its ring must
+    be native and a slot view page-locked. Returns (node, delay requests)."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.engine_node import EngineNode
+
+    node = EngineNode(ArrayConfig(**NATIVE_CFG), n_spectra=NATIVE_S, beam_quant_scale=0.25,
+                      ring_slots=NATIVE_SLOTS, engine_opts=dict(quant_scale=QUANT_SCALE),
+                      on_beams=lambda b, seq: got.setdefault(seq, b), device=NODE_DEVICE)
+    slot = node.ring.acquire_write()  # a slot view; nothing is committed
+    if not (node.ring.native and node.ring.pinned and torch.from_numpy(slot).is_pinned()):
+        raise AssertionError(f"the node's ring: native {node.ring.native}, pinned "
+                             f"{node.ring.pinned}, slot view page-locked "
+                             f"{torch.from_numpy(slot).is_pinned()}")
+    reqs = [("delay-model", *dm.ravel())]
+    reqs += [("beam-delays", b, *dv[b].ravel()) for b in range(len(dv))]
+    return node, reqs
+
+
+def _native_run(st, tag, node, reqs, attach, send_chunk, mtu, chunks, got):
+    """Drive ``node``: attach its ingest (``attach(node)`` -> receiver), send
+    the delay requests through ``Client``, then ``send_chunk(chunk)`` each
+    chunk once, wait NATIVE_HEAP_S for its heap and then for its beams.
+    Holds the run to one heap a chunk, every packet of ``mtu`` payload bytes
+    received once, no drop, no eviction, K1 and K4 once a chunk, the
+    sensors, and each chunk's beams equal to ``node.fb.step`` on it bit for
+    bit. Returns the run's numbers."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.control import Client
+    from dpdk_dc_sand_tpu_torch.ops import corner_turn as ct, fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.stream import Chunk
+
+    counts = (ff.fengine_fused, ct.corner_turn_planes)
+    wire_ms, chunk_ms = [], []
+
+    async def scenario():
+        client = None
+        rx = attach(node)
+        try:
+            await node.start()
+            client = await Client("127.0.0.1", node.port).connect()
+            logs = []
+            client.on_inform(lambda m: logs.append(m.args) if m.name == "log" else None)
+            for req in reqs:
+                await client.request(*req)
+            for fn in counts:
+                fn.launches = 0
+            for seq, adc in enumerate(chunks):  # one heap in flight at a time
+                chunk = Chunk(adc.reshape(-1).view(np.uint8), seq=seq,
+                              timestamp=seq * node.fb.samples_in)
+                t0 = time.perf_counter()
+                await asyncio.to_thread(send_chunk, chunk)
+                wire_ms.append((time.perf_counter() - t0) * 1e3)
+                try:
+                    await _until(lambda: rx.stats()["heaps"] > seq, f"{tag} heap {seq}",
+                                 NATIVE_HEAP_S)
+                except TimeoutError as e:
+                    raise TimeoutError(f"{e} (sent once; receiver {rx.stats()})") from None
+                await _until(lambda: seq in got, f"{tag} chunk {seq}'s beams")
+                chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = [fn.launches for fn in counts]
+            await _until(lambda: int(node.s_processed.value) >= len(chunks), "the sensors")
+            return rx.stats(), launches, await _node_sensors(client), logs
+        finally:
+            if client is not None:
+                await client.close()
+            await node.stop()
+
+    stats, launches, sensors, logs = asyncio.run(scenario())
+    _check_node(tag, sensors, len(chunks), logs)
+    n = len(chunks)
+    pkts = n * -(-chunks[0].nbytes // mtu)
+    if ((stats["heaps"], stats["packets"], stats["ring_drops"], stats["evicted"]) != (n, pkts, 0, 0)
+            or launches != [n, n]):
+        raise AssertionError(f"{tag}: receiver {stats}, K1 and K4 launches {launches} (want {n} "
+                             f"heaps of {pkts} packets, no drop or eviction, {n} launches each)")
+    for seq, adc in enumerate(chunks):
+        want = node.fb.step(torch.from_numpy(adc).to(node.device), node._coarse, node._frac,
+                            node._phase).cpu().numpy()
+        if not np.array_equal(got[seq], want):
+            raise AssertionError(f"{tag}: chunk {seq}'s beams are not fb.step's")
+    h2d = [ms for _, ms in node.feed.h2d_log]
+    log(f"{tag}: {n} heaps, receiver {stats}, K1/K4 launches {launches}, beams equal fb.step "
+        f"bit for bit; wire ms {['%.1f' % t for t in wire_ms]}, send to beams ms "
+        f"{['%.1f' % t for t in chunk_ms]}, H2D ms {['%.2f' % t for t in h2d]} "
+        f"(pinned copies {node.feed.pinned_copies}) ({st['card']})")
+    if node.feed.pinned_copies != n:
+        raise AssertionError(f"{tag}: {node.feed.pinned_copies} of {n} H2D copies pinned")
+    return dict(wire_ms=wire_ms, chunk_ms=chunk_ms, h2d_ms=h2d, launches=launches)
+
+
+def phase_node_native(st: dict) -> None:
+    import asyncio
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.stream import Chunk, ChunkRing
+    from dpdk_dc_sand_tpu_torch.stream import udp_xdp
+    from dpdk_dc_sand_tpu_torch.stream.udp_native import BurstUdpReceiver, BurstUdpSender
+
+    card = st["card"]
+    cfg = ArrayConfig(**NATIVE_CFG)
+    rng = np.random.default_rng(SEED + 23)
+    dm = np.zeros((cfg.n_ants, 4))
+    dm[:, 0] = rng.integers(0, 65, cfg.n_ants)
+    dm[:, 1] = rng.uniform(-0.5, 0.5, cfg.n_ants)
+    dm[:, 2] = -np.pi * dm[:, 1] / 2
+    dv = np.zeros((cfg.n_beams, cfg.n_ants, 4))
+    dv[..., 0] = rng.uniform(0, 5e-9, dv.shape[:-1])
+    dv[..., 2] = rng.uniform(-np.pi, np.pi, dv.shape[:-1])
+    got: dict = {}
+    node, reqs = _native_node(st, dm, dv, got)
+    shape, samples_in = node.chunk_shape, node.fb.samples_in
+    gen = torch.Generator(device=node.device).manual_seed(SEED + 23)
+    chunks = [torch.randint(-64, 64, shape, dtype=torch.int8, generator=gen,
+                            device=node.device).cpu().numpy() for _ in range(NATIVE_CHUNKS)]
+    nbytes = chunks[0].nbytes
+    samples = cfg.n_ants * cfg.n_pols * NATIVE_S * cfg.fft_size  # a chunk's
+    pkts = -(-nbytes // NATIVE_MTU)
+    log(f"node_native [{cfg.n_ants} ant x {cfg.n_channels} ch x {cfg.n_beams} beams x "
+        f"{cfg.n_taps} taps, S={NATIVE_S}]: F {node.fb.fengine}, B {node.fb.bstage}, chunk "
+        f"{shape} = {nbytes} B ({pkts} packets of {NATIVE_MTU} B), {NATIVE_SLOTS} slots, ring "
+        f"native {node.ring.native} and page-locked ({card})")
+
+    # (a) every mode that opens, both wire formats, one heap in flight.
+    opened = _native_modes()
+    for mode, err in opened.items():
+        if err is not None:
+            log(f"node_native mode {mode} does not open here: {err}")
+    runs, native_launches = {}, [0, 0]
+    for mode in [m for m, err in opened.items() if err is None]:
+        for wire in NATIVE_WIRES:
+            got.clear()
+            if node is None:
+                node, reqs = _native_node(st, dm, dv, got)
+            txs = []
+
+            def attach(n, mode=mode, wire=wire):
+                rx = n.attach_ingest(BurstUdpReceiver(("127.0.0.1", 0), n.ring,
+                                                      mtu_payload=NATIVE_MTU, mode=mode))
+                txs.append(BurstUdpSender(("127.0.0.1", rx.port), mtu_payload=NATIVE_MTU,
+                                          mode=mode, wire_format=wire))
+                return rx
+
+            try:
+                runs[(mode, wire)] = r = _native_run(
+                    st, f"node_native (a) {mode}/{wire}", node, reqs, attach,
+                    lambda chunk: txs[0].send_chunk(chunk), NATIVE_MTU, chunks, got)
+            finally:
+                for tx in txs:
+                    tx.close()
+            native_launches = [a + b for a, b in zip(native_launches, r["launches"])]
+            node = None
+    if not runs:
+        raise AssertionError(f"no socket engine mode opens: {opened}")
+
+    # (b) the lossless rate: gso, lite frames, paced a chunk at a time; the
+    # node steps each chunk.
+    mode = "gso" if opened.get("gso") is None else next(iter(r[0] for r in runs))
+    got.clear()
+    node, reqs = _native_node(st, dm, dv, got)
+    chunk_bits = nbytes * 8
+
+    def trial(tx, rx, gbps, first_seq):
+        """Send chunks paced at ``gbps`` for NATIVE_TRIAL_S; wait for the node;
+        (chunks sent, chunks whose beams arrived, receiver stats delta)."""
+        st0 = rx.stats()
+        period = chunk_bits / (gbps * 1e9)
+        sent, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < NATIVE_TRIAL_S:
+            seq = first_seq + sent
+            tx.send_chunk(Chunk(chunks[seq % NATIVE_CHUNKS].reshape(-1).view(np.uint8),
+                                seq=seq, timestamp=seq * samples_in))
+            sent += 1
+            lag = t0 + sent * period - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+        elapsed = time.perf_counter() - t0
+        seqs = range(first_seq, first_seq + sent)
+        # Wait until every chunk is stepped, or nothing has moved for a
+        # second with the ring empty (the heaps lost will not come).
+        deadline, last, since = time.monotonic() + 10, None, time.monotonic()
+        while not all(s in got for s in seqs) and time.monotonic() < deadline:
+            now = (rx.stats()["heaps"], len(got))
+            if now != last:
+                last, since = now, time.monotonic()
+            elif time.monotonic() - since > 1.0 and len(node.ring) == 0:
+                break
+            time.sleep(0.01)
+        done = sum(s in got for s in seqs)
+        delta = {k: v - st0[k] for k, v in rx.stats().items()}
+        return sent, done, elapsed, delta
+
+    async def rate_scenario():
+        tx = None
+        rx = node.attach_ingest(BurstUdpReceiver(("127.0.0.1", 0), node.ring,
+                                                 mtu_payload=NATIVE_MTU, mode=mode))
+        try:
+            await node.start()
+            tx = BurstUdpSender(("127.0.0.1", rx.port), mtu_payload=NATIVE_MTU, mode=mode)
+            seq = 0
+            # The chunk split, one heap in flight: the wire, then the node.
+            wire = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                tx.send_chunk(Chunk(chunks[seq % NATIVE_CHUNKS].reshape(-1).view(np.uint8),
+                                    seq=seq))
+                wire.append((time.perf_counter() - t0) * 1e3)
+                await _until(lambda: seq in got, f"rate warm-up chunk {seq}")
+                seq += 1
+            adc = torch.from_numpy(chunks[0]).to(node.device)  # the step alone, no H2D
+            step_ms = cuda_ms(lambda: node.fb.step(adc, node._coarse, node._frac, node._phase))
+            beams = node.fb.step(adc, node._coarse, node._frac, node._phase)
+            d2h = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                beams.cpu()
+                d2h.append((time.perf_counter() - t0) * 1e3)
+            split = dict(wire_ms=float(np.median(wire)), step_ms=step_ms,
+                         d2h_ms=float(np.median(d2h)), beams_mb=beams.numel() / 1e6)
+            node_ms = split["step_ms"] + split["d2h_ms"]  # the processing thread's share
+            gbps = 0.9 * chunk_bits / (node_ms * 1e6)
+            lo, hi, best, tried = 0.0, None, None, []
+            for _ in range(NATIVE_TRIALS):
+                sent, done, elapsed, delta = await asyncio.to_thread(trial, tx, rx, gbps, seq)
+                seq += sent
+                achieved = sent * chunk_bits / elapsed / 1e9
+                kept_pace = achieved >= (1 - NATIVE_PACE_TOL) * gbps
+                ok = done == sent and delta["ring_drops"] == 0 and kept_pace
+                tried.append(dict(target_gbps=gbps, gbps=achieved, sent=sent, done=done,
+                                  elapsed_s=elapsed, heaps=delta["heaps"],
+                                  ring_drops=delta["ring_drops"], evicted=delta["evicted"],
+                                  kept_pace=kept_pace, lossless=ok))
+                log(f"node_native (b) {mode}/lite paced at {gbps:.3f} Gbps for {elapsed:.2f} s: "
+                    f"sent at {achieved:.3f} Gbps (kept pace {kept_pace}), {sent} chunks sent, "
+                    f"{done} stepped, receiver {delta} ({card})")
+                if ok:
+                    best, lo = tried[-1], gbps
+                    gbps = gbps * 1.3 if hi is None else (lo + hi) / 2
+                else:
+                    hi = gbps
+                    gbps = (lo + gbps) / 2
+            # The H2D of every chunk of the run (the trials' too), timed on
+            # the feed's copy stream while the node steps and copies back.
+            split["h2d_ms"] = float(np.median([ms for _, ms in node.feed.h2d_log]))
+            return split, tried, best
+        finally:
+            if tx is not None:
+                tx.close()
+            await node.stop()
+
+    split, tried, best = asyncio.run(rate_scenario())
+    node = None
+    if best is None:  # a finding, not a failure: the rates are not gated
+        rate = dict(mode=mode, lossless_gbps=None, trials=tried, split=split)
+        log(f"node_native (b) no paced rate was lossless ({mode}, lite), down to "
+            f"{min(t['target_gbps'] for t in tried):.3f} Gbps ({card})")
+    else:
+        period_ms = chunk_bits / (best["gbps"] * 1e6)
+        rate = dict(mode=mode, lossless_gbps=best["gbps"], node_msps=samples / period_ms / 1e3,
+                    realtime=samples / period_ms / 1e3 / NATIVE_REALTIME_MSPS, trials=tried,
+                    split=split)
+        log(f"node_native (b) lossless {best['gbps']:.3f} Gbps sent ({mode}, lite; paced at "
+            f"{best['target_gbps']:.3f}): node "
+            f"{rate['node_msps']:.1f} Msamples/s, {rate['realtime']:.4f} x realtime "
+            f"({NATIVE_REALTIME_MSPS:.0f} Msamples/s) ({card})")
+    log(f"node_native (b) chunk split: wire {split['wire_ms']:.3f} ms "
+        f"(unpaced send), H2D {split['h2d_ms']:.3f} ms (median, page-locked slot, copy stream), step "
+        f"{split['step_ms']:.3f} ms, D2H {split['d2h_ms']:.3f} ms ({split['beams_mb']:.1f} MB "
+        f"of int8 beams, pageable) ({card})")
+
+    # (c) the transport alone: 4 MiB heaps as fast as each mode sends them.
+    blast = {}
+    payload = np.random.default_rng(SEED).integers(0, 256, NATIVE_BLAST_BYTES, dtype=np.uint8)
+    for mode in [m for m, err in opened.items() if err is None]:
+        ring = ChunkRing(8, NATIVE_BLAST_BYTES + 16, native=True)
+        rx = BurstUdpReceiver(("127.0.0.1", 0), ring, mtu_payload=NATIVE_MTU, mode=mode)
+        tx = BurstUdpSender(("127.0.0.1", rx.port), mtu_payload=NATIVE_MTU, mode=mode)
+        stop = threading.Event()
+
+        def consume():
+            while not stop.is_set():
+                if ring.acquire_read() is None:
+                    time.sleep(0.0005)
+                    continue
+                ring.release_read()
+
+        t = threading.Thread(target=consume)
+        t.start()
+        try:
+            tx.send_chunk(Chunk(payload, seq=1 << 40))  # warm-up, outside the window
+            time.sleep(0.25)
+            st0, (_, b0) = rx.stats(), tx.stats()
+            sent, t0 = 0, time.perf_counter()
+            while time.perf_counter() - t0 < NATIVE_TRIAL_S:
+                tx.send_chunk(Chunk(payload, seq=sent))
+                sent += 1
+            elapsed = time.perf_counter() - t0
+            time.sleep(0.3)
+            delta = {k: v - st0[k] for k, v in rx.stats().items()}
+            tx_bytes = tx.stats()[1] - b0
+        finally:
+            stop.set()
+            t.join()
+            tx.close()
+            rx.stop()
+            ring.close()
+        blast[mode] = dict(tx_gbps=tx_bytes * 8 / elapsed / 1e9,
+                           rx_gbps=delta["bytes"] * 8 / elapsed / 1e9, sent=sent,
+                           heaps=delta["heaps"], loss=1 - delta["heaps"] / sent,
+                           evicted=delta["evicted"], ring_drops=delta["ring_drops"])
+        b = blast[mode]
+        log(f"node_native (c) {mode} blast, 4 MiB heaps for {elapsed:.2f} s: tx "
+            f"{b['tx_gbps']:.3f} Gbps, rx {b['rx_gbps']:.3f} Gbps, {sent} sent, {b['heaps']} "
+            f"delivered, loss {100 * b['loss']:.3f}% ({card})")
+
+    # (d) AF_XDP over a veth pair: the node's heaps steered off the veth into
+    # its ring, each sent once.
+    pair = udp_xdp.veth_pair(*NATIVE_VETH)
+    xdp = None
+    if pair is None:
+        xdp = ("not run: veth_pair() returned None: " + (
+            "no `ip` command (iproute2) on PATH" if shutil.which("ip") is None
+            else "`ip link add` / `ip link set` refused"))
+    else:
+        try:
+            got.clear()
+            node, reqs = _native_node(st, dm, dv, got)
+            senders = []
+            try:
+                rx = node.attach_ingest(udp_xdp.XdpReceiver(pair[1], NATIVE_XDP_PORT, node.ring,
+                                                            mtu_payload=NATIVE_XDP_MTU))
+                senders.append(udp_xdp.XdpSender(pair[0], "10.99.1.1", "10.99.1.2",
+                                                 NATIVE_XDP_PORT, mtu_payload=NATIVE_XDP_MTU))
+            except OSError as e:
+                xdp = f"not run: {e}"
+                if getattr(node, "_udp_rx", None) is not None:
+                    node._udp_rx.stop()
+            if xdp is None:
+                xdp = _native_run(st, "node_native (d) afxdp/lite", node, reqs, lambda n: rx,
+                                  senders[0].send_chunk, NATIVE_XDP_MTU, chunks, got)
+                native_launches = [a + b for a, b in zip(native_launches, xdp["launches"])]
+        finally:
+            for tx in senders:
+                tx.close()
+            udp_xdp.veth_destroy(pair[0])
+    if isinstance(xdp, str):
+        log(f"node_native (d) AF_XDP {xdp}")
+    st["node_native"] = dict(modes=opened, runs={f"{m}/{w}": r for (m, w), r in runs.items()},
+                             rate=rate, blast=blast, xdp=xdp)
+    st["native_launches"] = dict(k1=native_launches[0], k4=native_launches[1])
+    del node
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -3079,13 +3538,15 @@ def main() -> int:
     # for the native-handoff F+B step, phase 16 for the example under
     # PipelineTest, phase 19 for each probe's timed runs); sharded_launches:
     # K1's, K2's, K4's and K3's counts from phase 20's sharded runs;
-    # instrument_launches: K1's and K4's from phase 22's two nodes.
+    # instrument_launches: K1's and K4's from phase 22's two nodes;
+    # native_launches: K1's and K4's from phase 23's checked node runs.
     kernels = [
         dict(name="fengine_ct", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship",
              launches=st["launches"]["k1"], sharded_launches=st["sharded_launches"]["k1"],
-             instrument_launches=st["instrument_launches"]["k1"], **st["k1"]),
+             instrument_launches=st["instrument_launches"]["k1"],
+             native_launches=st["native_launches"]["k1"], **st["k1"]),
         dict(name="bstage_fused", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
              replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69", path="fb_flagship",
@@ -3098,7 +3559,8 @@ def main() -> int:
                             "dpdk_dc_sand_tpu/ops/corner_turn.py:274"],
              path="fxb_flagship", launches=st["fxb_launches"]["k4"],
              sharded_launches=st["sharded_launches"]["k4"],
-             instrument_launches=st["instrument_launches"]["k4"], **st["k4"]),
+             instrument_launches=st["instrument_launches"]["k4"],
+             native_launches=st["native_launches"]["k4"], **st["k4"]),
         dict(name="xcorr_fused", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/xcorr.cu",
              replaces="dpdk_dc_sand_tpu/ops/xcorr_pallas.py:135", path="fxb_flagship",
              launches=st["fxb_launches"]["k3"], sharded_launches=st["sharded_launches"]["k3"],

@@ -1,4 +1,4 @@
-"""Build the CUDA kernels at first use and bind them with ctypes.
+"""Build the CUDA kernels and the host library at first use and bind them with ctypes.
 
 Counterpart of ``dpdk_dc_sand_tpu/native/build.py``, with one deliberate
 difference: a missing ``nvcc`` or a failed build RAISES (with the
@@ -22,6 +22,19 @@ passed as ``ctypes.c_void_p``; each launch function returns
 and K7's, their passes' and stage stops' too, return -1 where no
 shared-memory plan fits the shape, which their wrappers raise as
 ``ValueError``).
+
+:func:`build_host` builds the host library the same way: the five
+``native/*.cpp`` (the ring, the SPEAD codecs, the RAM scan, the burst-UDP
+and AF_XDP engines) in one ``g++`` call, with the JAX package's flags and
+``-Wl,-Bsymbolic``, so that the library's own calls between its sources
+(the receivers call ``rb_acquire_write``, ``sp_packetize`` ...) bind to its
+own code even where another library exporting the same names is loaded::
+
+    g++ -O3 -march=native -shared -fPIC -std=c++17 -pthread -Wl,-Bsymbolic \
+        native/*.cpp -o <build>/libdcsand_host_<hash>.so
+
+Its hash covers the sources, the flags, the g++ path and what
+``-march=native`` means on the building machine.
 """
 
 from __future__ import annotations
@@ -44,6 +57,11 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+
+NATIVE = _PKG / "native"
+HOST_SOURCES = ["ringbuffer.cpp", "spead_codec.cpp", "membw.cpp", "udp_burst.cpp", "xdp_burst.cpp"]
+GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread",
+             "-Wl,-Bsymbolic"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -265,6 +283,37 @@ def build() -> Path:
                 proc.kill()
                 proc.communicate()
         shutil.rmtree(objdir, ignore_errors=True)
+    os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
+    return lib
+
+
+def build_host() -> Path | None:
+    """Compile ``native/*.cpp`` with g++ (if not cached) and return the
+    library path: ``None`` where no ``g++`` is on ``PATH``; a failed build
+    raises with g++'s stderr."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    target = subprocess.run([gxx, "-march=native", "-Q", "--help=target"],
+                            capture_output=True, text=True, check=True).stdout
+    h = hashlib.blake2b(digest_size=8)
+    for name in HOST_SOURCES:
+        h.update(name.encode())
+        h.update((NATIVE / name).read_bytes())
+    h.update(" ".join(GXX_FLAGS + [gxx]).encode())
+    h.update(target.encode())
+    lib = BUILD_DIR / f"libdcsand_host_{h.hexdigest()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [gxx, *GXX_FLAGS, *(str(NATIVE / name) for name in HOST_SOURCES), "-o", str(tmp)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"g++ failed (exit {res.returncode}): {' '.join(cmd)}\n{res.stderr}{res.stdout}"
+        )
     os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
     return lib
 

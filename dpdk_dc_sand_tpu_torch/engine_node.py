@@ -11,9 +11,10 @@ Data path:  producer → ChunkRing → DeviceFeed → FBEngine step → on_beams
 Control:    ?delay-model / ?beam-delays / ?beam-weights / ?capture-start / ?capture-stop
 Sensors:    device-status, chunks-processed, chunks-lost, ingest-rate-gbps
 
-On the card the ring's slots are page-locked, the feed copies each chunk
-to the card on its own stream, and the processing thread runs the step on
-a compute stream of its own; ``on_beams`` receives a host ndarray (a
+The ring is the native one wherever the host library builds, its slots
+page-locked on the card, so the native receivers reassemble heaps straight
+into the memory that the feed copies to the card on its own stream, and
+the processing thread runs the step on a compute stream of its own; ``on_beams`` receives a host ndarray (a
 blocking copy back of each step's beams).
 """
 
@@ -159,7 +160,8 @@ class EngineNode(DeviceServer):
         chunk_bytes = int(np.prod(self.chunk_shape))
         # +16 headroom for the UDP receiver's timestamp/channel metadata
         # prefix (UdpReceiver._deliver) when ingest is attached over UDP.
-        # Page-locked slots on the card, so the feed copies them directly.
+        # The native ring (where the host library builds), its slots
+        # page-locked on the card, so the feed copies them directly.
         self.ring = ChunkRing(
             ring_slots, chunk_bytes + 16, pinned=self.device.type == "cuda"
         )
@@ -265,14 +267,24 @@ class EngineNode(DeviceServer):
         """
         from dpdk_dc_sand_tpu_torch.stream.udp import UdpReceiver
 
+        return self.attach_ingest(UdpReceiver(bind, self.ring, group=group).start())
+
+    def attach_ingest(self, rx):
+        """Take ``rx``, a receiver already writing heaps into ``self.ring``,
+        as the node's ingest: a native
+        :class:`~dpdk_dc_sand_tpu_torch.stream.udp_native.BurstUdpReceiver`
+        or :class:`~dpdk_dc_sand_tpu_torch.stream.udp_xdp.XdpReceiver`
+        reassembles each heap straight into the native ring (page-locked on
+        the card). Heaps as for :meth:`attach_udp_ingest`; returns ``rx``,
+        which the node stops with itself."""
         payload_bytes = int(np.prod(self.chunk_shape))
         self.feed.reshape = (
             lambda b: b[16 : 16 + payload_bytes]
             .view(np.int8)
             .reshape(self.chunk_shape)
         )
-        self._udp_rx = UdpReceiver(bind, self.ring, group=group).start()
-        return self._udp_rx
+        self._udp_rx = rx
+        return rx
 
     def attach_udp_egress(
         self,

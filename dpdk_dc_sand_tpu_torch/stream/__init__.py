@@ -13,7 +13,14 @@ card, but the *contract* carries over unchanged:
 - a double-buffered device feed on its own copy stream, egress and
   per-second rate reporting (:mod:`~dpdk_dc_sand_tpu_torch.stream.feed`),
 - a real UDP transport for host↔host streams
-  (:mod:`~dpdk_dc_sand_tpu_torch.stream.udp`).
+  (:mod:`~dpdk_dc_sand_tpu_torch.stream.udp`), the native burst-UDP
+  (sendmmsg / GSO / io_uring) and AF_XDP engines of the host library
+  (:mod:`~dpdk_dc_sand_tpu_torch.stream.udp_native`,
+  :mod:`~dpdk_dc_sand_tpu_torch.stream.udp_xdp`), and the capture
+  latency/jitter tool (:mod:`~dpdk_dc_sand_tpu_torch.stream.latency`).
+
+The package exports what the reference's does; the transport engines and
+the latency tool are imported from their modules, as there.
 """
 
 from dpdk_dc_sand_tpu_torch.stream.chunk import Chunk, StreamStats  # noqa: F401

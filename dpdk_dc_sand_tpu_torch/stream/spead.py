@@ -7,19 +7,23 @@ keeps that shape: fixed 40-byte headers, heap = chunk payload split into
 MTU packets, reassembly with per-heap completion tracking and loss
 accounting via heap-id gaps.
 
-The reference package packetizes with its native library where it can and
-falls back to byte-identical Python; the port keeps the Python codec only
-(the native host library waits, ROADMAP.md).
+Packetizing and the pattern helpers run in the port's host library
+(``native/spead_codec.cpp``) wherever it loads, as the reference's do, and
+in byte-identical Python where there is no g++; parsing and reassembly are
+Python here, as in the reference (the native receivers parse and scatter in
+C++, :mod:`~dpdk_dc_sand_tpu_torch.stream.udp_native`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import struct
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from dpdk_dc_sand_tpu_torch.native import load_native
 from dpdk_dc_sand_tpu_torch.stream.chunk import Chunk, StreamStats
 
 _MAGIC = 0x4B415430
@@ -49,6 +53,22 @@ def packetize(
     """Split one heap payload into header-prefixed packets."""
     flat = np.ascontiguousarray(payload).view(np.uint8).ravel()
     n = -(-max(flat.nbytes, 1) // mtu_payload)
+    lib = load_native()
+    if lib is not None:
+        stride = HEADER_BYTES + mtu_payload
+        out = np.empty(n * stride, np.uint8)
+        p8 = ctypes.POINTER(ctypes.c_uint8)
+        wrote = lib.sp_packetize(
+            flat.ctypes.data_as(p8), flat.nbytes, heap_id, timestamp, channel_offset,
+            mtu_payload, out.ctypes.data_as(p8), stride,
+        )
+        if wrote != n:
+            raise ValueError(f"sp_packetize wrote {wrote} of {n} packets")
+        return [
+            out[i * stride : i * stride + HEADER_BYTES + min(mtu_payload, flat.nbytes - i * mtu_payload)]
+            .tobytes()
+            for i in range(n)
+        ]
     pkts = []
     for i in range(n):
         chunk = flat[i * mtu_payload : (i + 1) * mtu_payload]
@@ -146,6 +166,13 @@ class HeapAssembler:
 # ----------------------------------------------------------------------
 def fill_pattern(n_words: int, chunk_id: int, counter: int = 0) -> np.ndarray:
     """``word[i] = (chunk_id << 32) + i`` with a counter in word 0."""
+    lib = load_native()
+    if lib is not None:
+        out = np.empty(n_words, np.uint64)
+        lib.sp_fill_pattern(
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), n_words, chunk_id, counter
+        )
+        return out
     out = (np.uint64(chunk_id) << np.uint64(32)) + np.arange(
         n_words, dtype=np.uint64
     )
@@ -157,6 +184,11 @@ def fill_pattern(n_words: int, chunk_id: int, counter: int = 0) -> np.ndarray:
 def check_pattern(words: np.ndarray, chunk_id: int) -> int:
     """Count mismatching words (word 0 excluded)."""
     words = np.ascontiguousarray(words, np.uint64)
+    lib = load_native()
+    if lib is not None:
+        return int(lib.sp_check_pattern(
+            words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), words.size, chunk_id
+        ))
     want = (np.uint64(chunk_id) << np.uint64(32)) + np.arange(
         words.size, dtype=np.uint64
     )

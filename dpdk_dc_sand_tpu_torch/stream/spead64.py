@@ -14,7 +14,7 @@ payload item 0x4300 (fgpu_send_prototype.py:20-42).
 Every packet repeats all item pointers (spead2's ``repeat_pointers``
 behaviour), which is what lets passive capture tools read the timestamp
 off ANY packet of a heap (packet_latency/extract_timestamps.py:17-35) —
-the reference's ``stream/latency.py`` relies on the same property.
+:mod:`dpdk_dc_sand_tpu_torch.stream.latency` relies on the same property.
 
 Byte-level layout (SPEAD protocol, 64-48 flavour)::
 
@@ -31,12 +31,14 @@ Byte-level layout (SPEAD protocol, 64-48 flavour)::
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import struct
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from dpdk_dc_sand_tpu_torch.native import load_native
 from dpdk_dc_sand_tpu_torch.stream.chunk import Chunk, StreamStats
 
 MAGIC = 0x53
@@ -85,12 +87,29 @@ def packetize64(
     packet's payload offset/length, the immediate timestamp and
     frequency, and the addressed raw-data item — so any single packet
     identifies its heap and instant (extract_timestamps.py:21-31).
-    The reference's pure-Python codec (its native ``sp64_packetize``
-    writes the same bytes).
+    The host library's ``sp64_packetize`` where it loads, else the
+    byte-identical Python codec.
     """
     flat = np.ascontiguousarray(payload).view(np.uint8).ravel()
     total = flat.nbytes
     n = max(1, -(-total // mtu_payload))
+    lib = load_native()
+    if lib is not None:
+        hdr = int(lib.sp64_header_bytes())
+        stride = hdr + mtu_payload
+        out = np.empty(n * stride, np.uint8)
+        p8 = ctypes.POINTER(ctypes.c_uint8)
+        wrote = lib.sp64_packetize(
+            flat.ctypes.data_as(p8), total, heap_cnt, timestamp, channel_offset,
+            mtu_payload, out.ctypes.data_as(p8), stride,
+        )
+        if wrote != n:
+            raise ValueError(f"sp64_packetize wrote {wrote} of {n} packets")
+        return [
+            out[i * stride : i * stride + hdr + min(mtu_payload, total - i * mtu_payload)]
+            .tobytes()
+            for i in range(n)
+        ]
 
     pkts = []
     for i in range(n):

@@ -22,8 +22,10 @@ chunk plan, both passes at fft 2048 to 2^17 and over several plane groups,
 its launch counters, its registers and spill bytes), and the probes'
 kernels (K1's and K7's stage stops, P1's modes, P3's loop orders) at small
 and ragged shapes, a one-rank NCCL step of the sharded engine against
-``FBEngine``, the tensor-core dynamic-range probe and the port's servlet
-fronting two engine nodes on the card.
+``FBEngine``, the tensor-core dynamic-range probe, the port's servlet
+fronting two engine nodes on the card, the page-locked native ring (its
+slot views pinned, a burst-UDP heap through it to the card) and the
+``ctypes_callback`` example's native hot path.
 """
 
 import numpy as np
@@ -1266,3 +1268,62 @@ def test_servlet_fronting_two_engine_nodes_on_the_card(dev, n_channels):
         loop.run_until_complete(asyncio.wait_for(scenario(), 300.0))
     finally:
         loop.close()
+
+
+def test_pinned_native_ring_slots_are_page_locked(dev):
+    """The native ring over the page-locked arena: every slot view it hands
+    out, on either side, is page-locked memory (a slot that lost its pinning
+    would only show as a slower, staged H2D)."""
+    from dpdk_dc_sand_tpu_torch.stream import ChunkRing
+
+    ring = ChunkRing(3, 1 << 20, pinned=True)
+    try:
+        assert ring.native and ring.pinned
+        for seq in range(3):
+            buf = ring.acquire_write()
+            assert torch.from_numpy(buf).is_pinned()
+            buf[:8] = seq
+            ring.commit_write(1 << 19, seq)
+        assert ring.acquire_write() is None
+        for seq in range(3):
+            view, got = ring.acquire_read()
+            assert got == seq and view.nbytes == 1 << 19
+            assert torch.from_numpy(view).is_pinned()
+            ring.release_read()
+    finally:
+        ring.close()
+
+
+@pytest.mark.parametrize("wire", ["lite", "spead64"])
+def test_burst_udp_heap_reaches_the_card_through_the_pinned_native_ring(dev, wire):
+    """A heap over loopback burst UDP, reassembled by the native receiver
+    straight into the page-locked ring, copied to the card by DeviceFeed on
+    its copy stream from the slot itself, byte for byte."""
+    from dpdk_dc_sand_tpu_torch.stream import Chunk, ChunkRing, DeviceFeed
+    from dpdk_dc_sand_tpu_torch.stream.udp_native import BurstUdpReceiver, BurstUdpSender
+
+    nbytes = 3 << 20
+    ring = ChunkRing(4, nbytes + 16, pinned=True)
+    rx = BurstUdpReceiver(("127.0.0.1", 0), ring, mode="burst")
+    tx = BurstUdpSender(("127.0.0.1", rx.port), mode="burst", wire_format=wire)
+    feed = DeviceFeed(ring, reshape=lambda b: b[16:], device=dev).start()
+    try:
+        data = np.random.default_rng(18).integers(0, 256, nbytes, dtype=np.uint8)
+        tx.send_chunk(Chunk(data, seq=0, timestamp=7))
+        arr, seq = feed.get(timeout=30)
+        assert seq == 0 and arr.is_cuda and arr.dtype == torch.uint8
+        assert torch.equal(arr.cpu(), torch.from_numpy(data))
+        assert feed.pinned_copies == 1 and feed.stream is not None
+        assert rx.stats()["heaps"] == 1 and rx.stats()["evicted"] == 0
+    finally:
+        feed.stop()
+        tx.close()
+        rx.stop()
+        ring.close()
+
+
+def test_ctypes_callback_native_hot_path_has_no_mismatch(dev):
+    from dpdk_dc_sand_tpu_torch.examples import ctypes_callback
+
+    assert ctypes_callback.native_hot_path() == 0
+    assert ctypes_callback.python_callback_from_native() == [1, 2, 3, 4, 5, 7, 8, 9]
