@@ -12,11 +12,15 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
 3. k1      — K1 (fused F kernel) through its wrapper ``fengine_fused`` vs
    its plain PyTorch version at the flagship fft, taps and S on 8 of the
    160 (antenna, pol) batches, with two coarse delays that clamp: bf16 DFT
-   on flat streams (K1's two passes), f32 DFT on the rowed view (its SIMT
-   body); within 1 int8 code on <= 1e-3 of samples; K1's FIR pass alone
-   (``k1_fir``) bit-exact against ``k1_fir_reference`` on the same streams.
-   Then above the old 65536 cap: K1 at fft 2^17 and 2^18 (2 batches, 16
-   taps, S=8) against plain with the same bound, and ``FBEngine`` /
+   on flat streams (K1's two bf16 passes), f32 DFT on the rowed view (its
+   f32 FIR pass and FFMA DFT pass), each call's launches counted (no SIMT
+   body); within 1 int8 code on <= 1e-3 of samples; the SIMT body on the
+   same streams through ``fengine_ct_simt``, held to the same bound and
+   timed beside the f32 passes; K1's FIR passes alone (``k1_fir``,
+   ``k1_fir_f32``) bit-exact against ``k1_fir_reference`` on the same
+   streams. Then above the old 65536 cap: K1 at fft 2^17, 2^18 and 2^20 (2
+   batches, 16 taps, S=8), bf16 and f32, against plain with the same bound,
+   and ``FBEngine`` /
    ``FXBEngine(fengine="auto")`` at 65536 channels (2 ant x 4 beams x 4
    taps, S=128) on the card against the same engine on the CPU: beams
    within 2 + 1e-3 and off by more than 1e-3 on <= 5e-3 of them;
@@ -42,6 +46,15 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    checked for what it writes and timed;
    K1's FIR pass over all 160 streams bit-exact against its plain version,
    and each of K1's passes timed alone; the step's peak device memory.
+   Then the same flagship with ``fengine="fused_f32"`` (K1's f32 FIR pass
+   and FFMA DFT pass, 16 streams a group, then K2): the same steps, the
+   median of steps 2-5 beside the bf16 step's and its peak memory; the f32
+   passes must launch and the SIMT body and the bf16 passes must not; the
+   last step's beams equal K2 of K1 f32; K1 f32 over all 160 streams within
+   1 code on <= 1e-3 of plain, its f32 FIR pass bit-exact, its DFT pass
+   alone equal to it; K1 f32, each f32 pass (beside its plain version and
+   its f32 bound) and the SIMT body timed; the DFT pass's registers and
+   spill bytes (a spill fails the phase).
 7. corner_turn — K4 through ``corner_turn_planes`` at A=80, P=2, S=256,
    C=32768 vs its plain version, bit-exact; ``corner_turn_planes_x`` (K5a)
    must be the same bytes viewed as ``[C, 2AP, S]``; kernel and plain times;
@@ -127,14 +140,18 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    100 of 512, 16 taps, S=8, TPDF dither, seed 2021) through K1's
    unquantised output (``fengine_fused(quantise=False)``), bf16 and f32 DFT:
    the peak in channel 100, worst leakage <= -62 dB, bf16 within 6 dB of
-   f32. Then K1's f32 output on 8 of the 160 flagship streams against its
+   f32 (fft 1024: N1 = 8, K1's SIMT body); the same recipe at 1024
+   channels (tone in channel 200, fft 2048, N1 = 16) through K1's f32 two
+   passes and through its SIMT body, each meeting the spec and the two
+   within 1 dB. Then K1's f32 output on 8 of the 160 flagship streams against its
    plain version: f32 DFT within rtol 1e-4 / atol 1e-2; bf16 DFT (a
    different f32 sum order flips a few bf16 roundings in stage A) below 1
    code unit everywhere and within that bound on all but 1e-2 of the
    samples, its max |d| and share over the bound printed; the int8 output
    of the same kernel equal to the requant of its f32 output; kernel and
-   plain ms. Then two qualification scenarios at the flagship width, their
-   tone's channel scaled with the fft (K = 40 * fft / 256 = 10240, a 32-sample
+   plain ms; the SIMT body's f32 output on the same streams held to the f32
+   bound and timed beside the two passes. Then two qualification scenarios
+   at the flagship width, their tone's channel scaled with the fft (K = 40 * fft / 256 = 10240, a 32-sample
    period): beam steering through ``FBEngine``'s default path (K1 + K2,
    natural packed beams, bf16) at 80 ant x 32768 ch x 16 beams x 16 taps,
    S=256, the tone with a uniform phase gradient over one full turn, beam 0
@@ -297,17 +314,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def qualification_tone():
+def qualification_tone(c: int = TONE_C, k: int = TONE_K):
     """The qualification's TPDF-dithered int8 CW tone at the centre of channel
-    TONE_K, ``[1, 1, frames, fft]`` (the recipe of
+    ``k`` of ``c``, ``[1, 1, frames, fft]`` (the recipe of
     ``tests/qualification/chan_common.py:make_tone``, seed 2021)."""
     import numpy as np
 
-    fft, n_frames = 2 * TONE_C, TONE_S + TONE_TAPS - 1
+    fft, n_frames = 2 * c, TONE_S + TONE_TAPS - 1
     n = np.arange(n_frames * fft)
     rng = np.random.default_rng(2021)
     dither = rng.uniform(-0.5, 0.5, n.size) + rng.uniform(-0.5, 0.5, n.size)
-    tone = np.clip(np.round(120 * np.cos(2 * np.pi * TONE_K * n / fft) + dither), -127, 127)
+    tone = np.clip(np.round(120 * np.cos(2 * np.pi * k * n / fft) + dither), -127, 127)
     return tone.astype(np.int8).reshape(1, 1, n_frames, fft)
 
 
@@ -381,6 +398,14 @@ def _k1_plain(x, starts, window, rotc, rots, out, *, chunk, **kw):
         out[0][b], out[1][b] = pr, pi
 
 
+#: K1's launch counters: its bf16 passes, its f32 passes and its SIMT body.
+K1_COUNTERS = ("k1_fir", "k1_dft", "k1_fir_f32", "k1_dft_f32", "fengine_ct_simt")
+
+
+def _k1_counts(ff) -> dict:
+    return {k: getattr(ff, k).launches for k in K1_COUNTERS}
+
+
 def _code_diff(tag, got, ref):
     """max |d| in int8 codes over (qr, qi); raise past 1 code or 1e-3 of samples."""
     import torch
@@ -450,9 +475,16 @@ def phase_k1(st: dict) -> None:
             _k1_plain(x.reshape(nb, -1), starts, win, rc, rs, ref, chunk=nb,
                       n_spectra=s, n1=n1, n2=n2, dft_dtype=dt)
 
+        counts = _k1_counts(ff)
         got = kern()
         plain()
         torch.cuda.synchronize()
+        # bf16 runs the two bf16 passes; f32 the f32 FIR pass and the FFMA DFT
+        # pass; neither the SIMT body.
+        want_passes = (("k1_fir", "k1_dft") if dt == "bfloat16" else ("k1_fir_f32", "k1_dft_f32"))
+        ran = {k: v - counts[k] for k, v in _k1_counts(ff).items()}
+        if ran != {k: int(k in want_passes) for k in ran}:
+            raise AssertionError(f"k1 {dt}: the call ran {ran}, want one each of {want_passes}")
         worst = max(worst, _code_diff(f"k1 {dt} rowed={rowed}",
                                       [g.reshape(nb, s, -1) for g in got], ref))
         ms, pms = cuda_ms(kern), cuda_ms(plain, iters=1)
@@ -460,11 +492,29 @@ def phase_k1(st: dict) -> None:
             f"plain {pms:.3f} ms ({st['card']})")
         if dt == "bfloat16":
             st["k1_subset"] = dict(subset_ms=ms, subset_plain_ms=pms)
-    _exact(f"k1 FIR pass [{nb} batches x S={s} x fft {fft}]",
-           (ff.k1_fir(x.reshape(nb, -1), starts, win, n_spectra=s),),
-           (ff.k1_fir_reference(x.reshape(nb, -1), starts, win, n_spectra=s),))
+        else:
+            st["k1_f32_subset"] = dict(ms=ms, plain_ms=pms)
+    # The SIMT body (the f32 form's single-pass body; N1 = 8 and f32 splits
+    # the FFMA pass cannot hold take it) on the same 8 streams, through its own
+    # launch function: held to the same plain version and timed beside them.
+    def simt():
+        return ff.fengine_ct_simt(x.reshape(nb, -1), starts, win, rc, rs, n_spectra=s, n1=n1,
+                                  n2=n2, dft_dtype="float32")
+
+    _code_diff("k1 f32 SIMT body", simt(), ref)
+    simt_ms = cuda_ms(simt)
+    f32 = st["k1_f32_subset"]
+    f32["simt_ms"] = simt_ms
+    log(f"k1 f32 [{nb} batches x S={s} x fft {fft}]: two passes {f32['ms']:.3f} ms, the SIMT "
+        f"body {simt_ms:.3f} ms ({simt_ms / f32['ms']:.2f}x), plain {f32['plain_ms']:.3f} ms "
+        f"({st['card']})")
+    for name, fir, kw in (("k1 FIR pass", ff.k1_fir, {}),
+                          ("k1 f32 FIR pass", ff.k1_fir_f32, dict(dft_dtype="float32"))):
+        _exact(f"{name} [{nb} batches x S={s} x fft {fft}]",
+               (fir(x.reshape(nb, -1), starts, win, n_spectra=s),),
+               (ff.k1_fir_reference(x.reshape(nb, -1), starts, win, n_spectra=s, **kw),))
     # Above the old 65536 cap: K1's two passes at N1 x N2 = 512 x 256, 512 x 512
-    # and 1024 x 1024.
+    # and 1024 x 1024, bf16 and f32 operands.
     for big in (1 << 17, 1 << 18, 1 << 20):
         bn1, bn2 = ff._split_ct(big)
         bs, bnb = 8, 2
@@ -474,16 +524,22 @@ def phase_k1(st: dict) -> None:
                            (bs + taps - 1) * big)  # one start unaligned, one at the end
         bfd = torch.rand(bnb, device=dev, generator=gen) - 0.5
         bscale = QUANT_SCALE * (fft / big) ** 0.5  # the codes' rms as at the flagship
-        got = ff.fengine_fused(bx, default_window(taps, big, device=dev), bfd, -1.5 * bfd,
-                               n_channels=big // 2, quant_scale=bscale, coarse_delays=bcd,
-                               n_spectra=bs)
         brc, brs = (r.reshape(bnb, -1) for r in ff.fine_rotation_planes(
             bfd, -1.5 * bfd, n_channels=big // 2, quant_scale=bscale))
-        ref = ff.fengine_fused_reference(bx, bcd, default_window(taps, big, device=dev), brc,
-                                         brs, n_spectra=bs, n1=bn1, n2=bn2)
-        torch.cuda.synchronize()
-        worst = max(worst, _code_diff(f"k1 fft {big} [{bnb} batches x S={bs}, {bn1}x{bn2}]",
-                                      got, ref))
+        for dt in ("bfloat16", "float32"):
+            got = ff.fengine_fused(bx, default_window(taps, big, device=dev), bfd, -1.5 * bfd,
+                                   n_channels=big // 2, quant_scale=bscale, coarse_delays=bcd,
+                                   n_spectra=bs, dft_dtype=dt)
+            ref = ff.fengine_fused_reference(bx, bcd, default_window(taps, big, device=dev),
+                                             brc, brs, n_spectra=bs, n1=bn1, n2=bn2,
+                                             dft_dtype=dt)
+            torch.cuda.synchronize()
+            err = _code_diff(f"k1 {dt} fft {big} [{bnb} batches x S={bs}, {bn1}x{bn2}]",
+                             got, ref)
+            if dt == "bfloat16":
+                worst = max(worst, err)
+            else:
+                f32["max_abs_err"] = max(f32.get("max_abs_err", 0), err)
     st["k1_subset"]["subset_max_abs_err"] = float(worst)
     _engines_above_65536(st)
 
@@ -785,6 +841,196 @@ def phase_flagship(st: dict) -> None:
     st["fb_peak_gb"] = peak_gb
     st["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound,
                     library_ms=None, **_k2_yardsticks(st, qr, qi, w, k2_ms))
+    del fb, adc, out, qr, qi, pq, flat, x
+    _flagship_f32(st)
+
+
+def _fused_f32_steps() -> dict:
+    """The F+B flagship step with ``fengine="fused_f32"`` (natural packed
+    beams from K2), as the bf16 flagship steps: wire-rowed ADC made on the
+    card afresh each step, set_beam_delays, 3 steps, a delay update, 2 steps.
+    Returns the engine, its ADC, coarse delays, last beams, step ms and the
+    peak device memory (GB) over the run."""
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.models import FBEngine
+    from dpdk_dc_sand_tpu_torch.ops.fengine_fused import ingest_alignment
+
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(**FLAG)
+    a, p = cfg.n_ants, cfg.n_pols
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fb = FBEngine(cfg, n_spectra=FLAG_S, quant_scale=QUANT_SCALE, precision="bf16",
+                  fengine="fused_f32", bstage="fused", beam_layout="natural", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED)
+    margin = 8192
+    cd = rng.integers(0, margin, a).astype(np.int32)
+    fd = rng.uniform(-0.5, 0.5, a).astype(np.float32)
+    ph = (-np.pi * fd / 2).astype(np.float32)
+    dv = np.zeros((cfg.n_beams, a, 4), np.float32)
+    dv[..., 0] = rng.uniform(0, 5e-9, dv.shape[:-1])
+    dv[..., 2] = rng.uniform(-np.pi, np.pi, dv.shape[:-1])
+    n2 = ingest_alignment(cfg.fft_size)
+    adc = torch.empty((a, p, (fb.samples_in + margin) // n2, n2), dtype=torch.int8, device=dev)
+    times = []
+    out = None
+
+    def timed_step():
+        nonlocal out
+        adc.random_(-64, 64, generator=gen)  # fresh wire-rowed ADC every step
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fb.step(adc, cd, fd, ph)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+
+    fb.set_beam_delays(dv)
+    for _ in range(3):
+        timed_step()
+    dv[..., 2] += 0.25  # delay update: new steering phases and fine delays
+    fd = (fd * 0.5).astype(np.float32)
+    fb.set_beam_delays(dv, t_s=1e-3)
+    for _ in range(2):
+        timed_step()
+    return dict(fb=fb, adc=adc, cd=cd, out=out, times=times,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _flagship_f32(st: dict) -> None:
+    """The F+B flagship with ``fengine="fused_f32"``: K1's f32 FIR pass and
+    FFMA DFT pass (16 streams a group), then K2. Steps as the bf16 flagship;
+    the f32 passes must launch and the SIMT body and the bf16 passes must not.
+    Then the last step's K1 against plain over all 160 streams, each f32 pass
+    alone timed beside its plain version, and the SIMT body on the same
+    streams (through its launch function, after the count was read)."""
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.ops import bstage, fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(**FLAG)
+    a, p, s, c = cfg.n_ants, cfg.n_pols, FLAG_S, cfg.n_channels
+    fft, taps, nb = cfg.fft_size, cfg.n_taps, a * p
+    n1, n2 = ff._split_ct(fft)
+    for k in K1_COUNTERS:
+        getattr(ff, k).launches = 0
+    ff.fengine_fused.launches = bstage.beamform_turned_fused.launches = 0
+    run = _fused_f32_steps()
+    launches = {"k1": ff.fengine_fused.launches, "k2": bstage.beamform_turned_fused.launches,
+                **_k1_counts(ff)}
+    fb, adc, cd, out, times, peak_gb = (run.pop(k) for k in ("fb", "adc", "cd", "out", "times",
+                                                             "peak_gb"))
+    group = ff._plane_group(nb, s, fft, 4)
+    log(f"flagship fused_f32 launches (K1's f32 passes one each a group of {group} streams): "
+        f"{launches}")
+    if launches["k1"] < 1 or launches["k2"] < 1:
+        raise AssertionError(f"a kernel of the fused_f32 path never launched: {launches}")
+    if min(launches["k1_fir_f32"], launches["k1_dft_f32"]) < launches["k1"]:
+        raise AssertionError(f"K1 f32 did not run through its two passes: {launches}")
+    if launches["fengine_ct_simt"] or launches["k1_fir"] or launches["k1_dft"]:
+        raise AssertionError(f"the fused_f32 step ran the SIMT body or a bf16 pass: {launches}")
+    want = (c // 4, p * s, 128)
+    if tuple(out.shape) != want or out.dtype != torch.float32:
+        raise AssertionError(f"fused_f32 beams {tuple(out.shape)} {out.dtype}, want {want}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite fused_f32 beams")
+    ms = float(np.median(times[1:]))
+    log(f"flagship fused_f32 [80 ant x 32768 ch x 16 beams x 16 taps, S=256]: step ms "
+        f"{['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
+        f"{nb * s * fft / ms / 1e3:.1f} Msamples/s, peak memory {peak_gb:.2f} GB; the bf16 "
+        f"step {st['fb_ms']:.3f} ms ({ms / st['fb_ms']:.2f}x) ({st['card']})")
+    st["f32_launches"] = launches
+    st["fb_f32"] = dict(ms=ms, peak_gb=peak_gb)
+
+    # The last step's F planes through the wrapper, K2 on them equal to the
+    # step's beams; K1 f32 against plain over all 160 streams (8 at a time),
+    # the f32 FIR pass bit for bit.
+    flat = adc.reshape(a, p, -1)
+    cdt = torch.as_tensor(cd, device=dev).reshape(a, 1).expand(a, p)
+    rot = (fb.rot_cos, fb.rot_sin)
+    x = flat.reshape(nb, -1)
+    starts = clamp_starts(cdt.reshape(-1), x.shape[1], fb.samples_in)
+    rc, rs = (r.reshape(nb, -1) for r in rot)
+
+    def k1():
+        return ff.fengine_fused(flat, fb.window, None, None, n_channels=c,
+                                quant_scale=QUANT_SCALE, dft_dtype="float32",
+                                coarse_delays=cdt, n_spectra=s, rot_planes=rot)
+
+    qr, qi = k1()
+    beams = bstage.beamform_turned_fused(qr, qi, fb.coeff_blocks, n_pols=p, precision="bf16",
+                                         layout="packed")
+    torch.cuda.synchronize()
+    if not torch.equal(beams, out):
+        raise AssertionError("the fused_f32 engine's beams are not K2(K1 f32(adc))")
+    del beams, out
+    plane = ff.k1_fir_f32(x, starts, fb.window, n_spectra=s)
+    pq = tuple(torch.empty((nb, s, c), dtype=torch.int8, device=dev) for _ in range(2))
+    for b0 in range(0, nb, 8):
+        b = slice(b0, b0 + 8)
+        pf = ff.k1_fir_reference(x[b], starts[b], fb.window, n_spectra=s, dft_dtype="float32")
+        if not torch.equal(plane[b], pf):
+            raise AssertionError(f"K1's f32 FIR pass differs from plain on streams {b0}..")
+        pq[0][b], pq[1][b] = ff.k1_dft_reference(pf, rc[b], rs[b], n1=n1, n2=n2,
+                                                 dft_dtype="float32")
+    del pf
+    k1_err = _code_diff("flagship k1 f32", (qr.view(nb, s, c), qi.view(nb, s, c)), pq)
+    dr, di = ff.k1_dft_f32(plane, rc, rs, n1=n1, n2=n2)
+    if not (torch.equal(dr, qr.view(nb, s, c)) and torch.equal(di, qi.view(nb, s, c))):
+        raise AssertionError("K1 f32's DFT pass alone differs from K1 f32 on the same streams")
+    del dr, di, pq, qr, qi
+    log(f"flagship k1 f32 FIR pass [{nb} x S={s} x fft {fft}]: bit-exact against plain; the "
+        f"DFT pass alone equals K1 f32")
+
+    def chunks(fn):
+        def run():
+            for b0 in range(0, nb, 8):
+                fn(slice(b0, b0 + 8))
+        return run
+
+    k1_ms = cuda_ms(k1, iters=2)
+    fir_ms = cuda_ms(lambda: ff.k1_fir_f32(x, starts, fb.window, n_spectra=s), iters=2)
+    dft_ms = cuda_ms(lambda: ff.k1_dft_f32(plane, rc, rs, n1=n1, n2=n2), iters=2)
+    fir_plain_ms = cuda_ms(chunks(lambda b: ff.k1_fir_reference(
+        x[b], starts[b], fb.window, n_spectra=s, dft_dtype="float32")), iters=1)
+    dft_plain_ms = cuda_ms(chunks(lambda b: ff.k1_dft_reference(
+        plane[b], rc[b], rs[b], n1=n1, n2=n2, dft_dtype="float32")), iters=1)
+    del plane
+    simt_ms = cuda_ms(lambda: ff.fengine_ct_simt(x, starts, fb.window, rc, rs, n_spectra=s,
+                                                 n1=n1, n2=n2), iters=1)
+    fir_bound = bound(nb * (s + taps - 1) * fft + taps * fft * 4 + nb * s * fft * 4,
+                      f32=nb * s * 2 * taps * fft)
+    dft_bound = bound(nb * s * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
+                      f32=nb * s * 2 * (2 * n1 * n1 * n2 + 2 * n2 * n2 * n1))
+    at = ff.k1_dft_f32_attributes(n1, n2)
+    if at["local_bytes"]:
+        raise AssertionError(f"K1's f32 DFT pass spills: {at}")
+    log(f"flagship k1 f32 [{nb} x S={s} x fft {fft}]: K1 {k1_ms:.3f} ms (the SIMT body "
+        f"{simt_ms:.3f} ms, {simt_ms / k1_ms:.2f}x); FIR pass {fir_ms:.3f} ms (bound "
+        f"{fir_bound['bound_ms']:.3f}, {fir_bound['bound_by']}; plain {fir_plain_ms:.3f}), DFT "
+        f"pass {dft_ms:.3f} ms (bound {dft_bound['bound_ms']:.3f}, {dft_bound['bound_by']}, "
+        f"{dft_bound['bound_ms'] / dft_ms:.1%} of it; plain {dft_plain_ms:.3f}); the DFT "
+        f"pass's body {at} ({st['card']})")
+    st["k1_fir_f32"] = dict(max_abs_err=0.0, ms=fir_ms, plain_ms=fir_plain_ms, **fir_bound,
+                            library_ms=None)
+    st["k1_dft_f32"] = dict(max_abs_err=float(k1_err), ms=dft_ms, plain_ms=dft_plain_ms,
+                            **dft_bound, library_ms=None, k1_f32_ms=k1_ms, simt_ms=simt_ms,
+                            regs=at["regs"], local_bytes=at["local_bytes"],
+                            subset_ms=st["k1_f32_subset"]["ms"],
+                            subset_simt_ms=st["k1_f32_subset"]["simt_ms"],
+                            subset_max_abs_err=float(st["k1_f32_subset"]["max_abs_err"]))
+    del fb, adc, x, flat
+    torch.cuda.empty_cache()
 
 
 def _k2_yardsticks(st, qr, qi, w, k2_ms) -> dict:
@@ -1929,6 +2175,34 @@ def phase_qualification(st: dict) -> None:
         raise AssertionError(f"the tone did not run through K1: {ff.fengine_fused.launches}")
     if worst["bfloat16"] > worst["float32"] + 6.0:
         raise AssertionError("bf16 DFT operands lift the leakage floor by more than 6 dB")
+    # The tone above has N1 = 8 (fft 1024), which both K1 forms run on the
+    # SIMT body. The same recipe at twice the channels (fft 2048, N1 = 16,
+    # the tone in channel 2 * TONE_K) takes the f32 two passes: its leakage
+    # meets the spec and lies within 1 dB of the SIMT body's on that tone.
+    c2, k2 = 2 * TONE_C, 2 * TONE_K
+    tone2 = torch.from_numpy(qualification_tone(c2, k2)).to(dev).view(1, -1)
+    win2 = default_window(TONE_TAPS, 2 * c2, device=dev)
+    n1t, n2t = ff._split_ct(2 * c2)
+    kw2 = dict(n_spectra=TONE_S, n1=n1t, n2=n2t, dft_dtype="float32", quantise=False)
+    args2 = (tone2, torch.zeros(1, dtype=torch.int64, device=dev), win2,
+             torch.ones((1, c2), device=dev), torch.zeros((1, c2), device=dev))
+    before = _k1_counts(ff)
+    for body, planes in (("two passes", ff._launch(*args2, **kw2)),
+                         ("SIMT body", ff.fengine_ct_simt(*args2, **kw2))):
+        power = (planes[0].double() ** 2 + planes[1].double() ** 2)[0].mean(0).cpu().numpy()
+        rel_db = 10 * np.log10(power / power[k2] + 1e-300)
+        peak, worst[f"float32_{c2}ch_{body}"] = int(np.argmax(power)), float(
+            np.delete(rel_db, k2).max())
+        log(f"qualification tone at {c2} channels (fft {2 * c2}, {n1t}x{n2t}) through K1's f32 "
+            f"{body}: peak channel {peak} (want {k2}), worst leakage "
+            f"{worst[f'float32_{c2}ch_{body}']:.2f} dB (spec {LEAKAGE_SPEC_DB:.0f} dB)")
+        if peak != k2 or worst[f"float32_{c2}ch_{body}"] > LEAKAGE_SPEC_DB:
+            raise AssertionError(f"the tone through K1's f32 {body} fails the channelisation spec")
+    ran = {k: v - before[k] for k, v in _k1_counts(ff).items()}
+    if ran != dict(k1_fir=0, k1_dft=0, k1_fir_f32=1, k1_dft_f32=1, fengine_ct_simt=1):
+        raise AssertionError(f"the f32 tone at fft {2 * c2} ran {ran}")
+    if abs(worst[f"float32_{c2}ch_two passes"] - worst[f"float32_{c2}ch_SIMT body"]) > 1.0:
+        raise AssertionError("the f32 two passes' leakage is not within 1 dB of the SIMT body's")
     st["qualification"] = worst
 
     # K1's f32 output against its plain version on 8 of the 160 flagship streams.
@@ -1974,6 +2248,19 @@ def phase_qualification(st: dict) -> None:
         log(f"k1 f32 output {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms; int8 output = requant "
             f"of the f32 output, bit for bit ({st['card']})")
         out[dt] = dict(ms=ms, plain_ms=pms, max_abs_err=worst_d, share_over=share)
+        if dt == "float32":
+            # The SIMT body's f32 output on the same streams, through its launch
+            # function: held to the same bound and timed beside the two passes.
+            def simt():
+                return ff.fengine_ct_simt(frames.view(nb, -1), starts, win, rc, rs,
+                                          n_spectra=s, n1=n1, n2=n2, quantise=False)
+
+            for g, r in zip(simt(), ref):
+                if bool(((g - r).abs() > 1e-2 + 1e-4 * r.abs()).any()):
+                    raise AssertionError("the SIMT body's f32 output disagrees with plain")
+            out[dt]["simt_ms"] = simt_ms = cuda_ms(simt)
+            log(f"k1 f32 output float32: the two passes {ms:.3f} ms, the SIMT body "
+                f"{simt_ms:.3f} ms ({simt_ms / ms:.2f}x) ({st['card']})")
         # f32 DFT: rtol 1e-4 / atol 1e-2 everywhere. bf16 DFT: the kernel sums
         # stage A in another order than the plain version, which moves a few
         # values across a bf16 rounding boundary; each such flip moves the 128
@@ -1989,7 +2276,8 @@ def phase_qualification(st: dict) -> None:
                     f32_out_subset_plain_ms=out["bfloat16"]["plain_ms"],
                     f32_out_subset_max_abs_err=out["bfloat16"]["max_abs_err"],
                     f32_out_subset_share_over_tol=out["bfloat16"]["share_over"],
-                    f32_out_subset_f32dft_ms=out["float32"]["ms"])
+                    f32_out_subset_f32dft_ms=out["float32"]["ms"],
+                    f32_out_subset_f32dft_simt_ms=out["float32"]["simt_ms"])
     _qual_flagship_scenarios(st)
 
 
@@ -3533,7 +3821,8 @@ def main() -> int:
     if ref:
         raise AssertionError(f"the port pulled in JAX or the reference package: {ref}")
     # launches: each kernel's count from the run of its path (phase 6 for the
-    # F+B step, phase 10 for the FXB step, phase 9 for the 64-channel FXB step,
+    # F+B step and, for K1's f32 passes, the fused_f32 F+B step; phase 10 for
+    # the FXB step, phase 9 for the 64-channel FXB step,
     # phase 12 for the DIT F form, phase 13 for the F-engine step, phase 14
     # for the native-handoff F+B step, phase 16 for the example under
     # PipelineTest, phase 19 for each probe's timed runs); sharded_launches:
@@ -3547,6 +3836,16 @@ def main() -> int:
              launches=st["launches"]["k1"], sharded_launches=st["sharded_launches"]["k1"],
              instrument_launches=st["instrument_launches"]["k1"],
              native_launches=st["native_launches"]["k1"], **st["k1"]),
+        dict(name="k1_fir_f32", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
+             kernel="k1_fir_kernel<..., float>: K1's FIR pass into the f32 plane",
+             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship_fused_f32",
+             launches=st["f32_launches"]["k1_fir_f32"], **st["k1_fir_f32"]),
+        dict(name="k1_dft_f32", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
+             kernel="k1_dft_f32_kernel: K1's DFT pass with f32 operands (FFMA)",
+             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship_fused_f32",
+             launches=st["f32_launches"]["k1_dft_f32"], **st["k1_dft_f32"]),
         dict(name="bstage_fused", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
              replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69", path="fb_flagship",

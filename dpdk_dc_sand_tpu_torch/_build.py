@@ -82,6 +82,12 @@ _SIGNATURES = {
         _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft
         _P,  # stream
     ],
+    "k1_fir_f32_launch": [
+        _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
+        _P,  # plane [B, S, fft] f32
+        _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft
+        _P,  # stream
+    ],
     "k1_dft_launch": [
         _P,  # plane [B, S, N1, N2] bf16
         _P, _P, _P,  # bf16 d1c, d1s [N1, N1], d2 stack [N2, N2]
@@ -89,6 +95,19 @@ _SIGNATURES = {
         _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
         _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, quantise
         _P,  # stream
+    ],
+    "k1_dft_f32_launch": [
+        _P,  # plane [B, S, N1, N2] f32
+        _P, _P, _P,  # f32 d1c, d1s [N1, N1], d2 stack transposed [N2, N2]
+        _P, _P, _P, _P,  # twc, tws [N1, N2], rotc, rots [B, C]
+        _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
+        _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, quantise
+        _P,  # stream
+    ],
+    "k1_dft_f32_attributes": [
+        _I, _I,  # n1, n2
+        _P,  # out (int[8]): registers, local bytes, KC, SB, stage-B K-tile depth, stages,
+        # shared-memory bytes, threads
     ],
     "k1_fir_stop_launch": [
         _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window

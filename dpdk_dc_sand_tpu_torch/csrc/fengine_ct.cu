@@ -82,11 +82,20 @@
 // cluster that multicasts the plane and the N2-point matrix to the chunks
 // of one spectrum are the next steps.
 //
-// f32 DFT operands, and N1 = 8 where a 16-row MMA tile does not fit, take
-// fengine_ct_kernel: one block per (spectrum, batch), SIMT FMA on register
-// micro-tiles, k1 walked in chunks of kc rows (kc shrinks with N2 so the
-// T planes fit); in f32 mode each stage-A K tile recomputes its [KTA, NTA]
-// slice of the FIR from global memory.
+// f32 DFT operands (the engines' fengine="fused_f32", "exact f32 MACs")
+// with N1 >= 16 and N2 <= 1024 run as two passes as well: k1_fir_kernel
+// writes the exact f32 sums into an f32 plane (16 flagship streams a group
+// of the same scratch), then k1_dft_f32_kernel computes both stages in f32
+// FFMA, register-blocked, with the N1-point matrix's tiles shared by the
+// spectra of a unit (its design is at the kernel). f32 FFMA is this card's
+// slowest arithmetic: 67 TFLOP/s, so the 5.5 TFLOP of a flagship step bound
+// the pass at 82.1 ms (4.10 ms on 8 streams).
+//
+// N1 = 8, where a 16-row tile does not fit, and f32 splits the f32 pass has
+// no plan for (N2 > 1024) take fengine_ct_kernel: one block per (spectrum,
+// batch), SIMT FMA on register micro-tiles, k1 walked in chunks of kc rows
+// (kc shrinks with N2 so the T planes fit); in f32 mode each stage-A K tile
+// recomputes its [KTA, NTA] slice of the FIR from global memory.
 //
 // Stage stops (the probes P5 and P4: benchmarks/ct_ablate.py and
 // benchmarks/dma_bisect.py of the JAX package, the trimmed copies of
@@ -402,8 +411,8 @@ struct FirParams {
   const int8_t* x;  // [G, batch_stride]; stream b starts at starts[b]
   long long batch_stride;
   const long long* starts;
-  const float* win;       // [taps, fft]
-  __nv_bfloat16* plane;   // [G, S, fft]
+  const float* win;  // [taps, fft]
+  void* plane;       // [G, S, fft]: bf16, or f32 for f32 DFT operands
   int n_spectra, fft, n_taps, lane_blocks, runs;
   int8_t* outr;  // the stops' outputs [G, S, fft/2] (unused by K1 itself)
   int8_t* outi;
@@ -440,6 +449,12 @@ __device__ __forceinline__ void store_bf16x4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// 4 FIR sums into the plane: rounded to bf16, or the f32 sums themselves.
+__device__ __forceinline__ void store_plane4(__nv_bfloat16* p, float4 v) { store_bf16x4(p, v); }
+__device__ __forceinline__ void store_plane4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
 // The FIR stop's int8 of 4 f32 sums, by truncation (4-byte aligned).
 __device__ __forceinline__ void store_trunc4(int8_t* p, float4 v) {
   *reinterpret_cast<char4*>(p) = make_char4(trunc_s8(v.x), trunc_s8(v.y), trunc_s8(v.z),
@@ -450,10 +465,9 @@ __device__ __forceinline__ void store_trunc4(int8_t* p, float4 v) {
 // of the last MAXT rows (rows past the stream's last read as zero, unused);
 // MAXT = 0: every tap row from global memory (taps > 16). STOP_FIR also
 // writes the truncated sums to oq (the lanes' place in outr or outi).
-template <int MAXT, bool VEC, int STOP>
-__device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb,
-                                        __nv_bfloat16* ob, int8_t* oq, int lane, int s0,
-                                        int s1) {
+template <int MAXT, bool VEC, int STOP, typename PT>
+__device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb, PT* ob,
+                                        int8_t* oq, int lane, int s0, int s1) {
   const long long fft = a.fft;
   const int rows = a.n_spectra + a.n_taps - 1;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -465,7 +479,7 @@ __device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb,
         acc = mac4(acc, load4<VEC>(xb + (s + t) * fft),
                    __ldg(reinterpret_cast<const float4*>(a.win + t * fft + lane)));
       }
-      store_bf16x4(ob + s * fft, acc);
+      store_plane4(ob + s * fft, acc);
       if constexpr (STOP == STOP_FIR) store_trunc4(oq + s * (fft / 2), acc);
     }
   } else {
@@ -494,7 +508,7 @@ __device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb,
           for (int t = 1; t < MAXT; ++t) {
             if (t < a.n_taps) acc = mac4(acc, ring[(j + t) % MAXT], w[t]);
           }
-          store_bf16x4(ob + (s + j) * fft, acc);
+          store_plane4(ob + (s + j) * fft, acc);
           if constexpr (STOP == STOP_FIR) store_trunc4(oq + (s + j) * (fft / 2), acc);
         }
       }
@@ -540,7 +554,9 @@ __device__ __forceinline__ void dma_run(const FirParams& a, const int8_t* xb, in
   if (a.n_spectra < 0) *reinterpret_cast<uint32_t*>(a.outr) = seen;
 }
 
-template <int MAXT, int STOP = STOP_NONE>
+// PT: the plane's element, bf16 (STOP_NONE or a stop) or float (f32 DFT
+// operands: the exact f32 sums, STOP_NONE only).
+template <int MAXT, int STOP = STOP_NONE, typename PT = __nv_bfloat16>
 __global__ void __launch_bounds__(FIR_THREADS) k1_fir_kernel(FirParams a) {
   long long bid = blockIdx.x;
   const int lb = static_cast<int>(bid % a.lane_blocks);
@@ -551,7 +567,7 @@ __global__ void __launch_bounds__(FIR_THREADS) k1_fir_kernel(FirParams a) {
   if (lane >= a.fft) return;
   const int s0 = run * RUN, s1 = min(a.n_spectra, s0 + RUN);
   const int8_t* xb = a.x + b * a.batch_stride + a.starts[b] + lane;
-  __nv_bfloat16* ob = a.plane + b * a.n_spectra * static_cast<long long>(a.fft) + lane;
+  PT* ob = static_cast<PT*>(a.plane) + b * a.n_spectra * static_cast<long long>(a.fft) + lane;
   // lane % 4 == 0, so the stream's start decides alignment for the whole block.
   const bool vec = (reinterpret_cast<uintptr_t>(xb) & 3) == 0;
   int8_t* oq = nullptr;
@@ -1107,6 +1123,427 @@ int dft_dispatch(DftParams p, int batch, cudaStream_t st) {
   return NO_PLAN;
 }
 
+// ---------------------------------------------------------------------------
+// Pass 2, f32 DFT operands: register-blocked FFMA (exact f32 products and
+// sums; no tensor core, no TF32)
+// ---------------------------------------------------------------------------
+// A unit is (batch, block of SB spectra, chunk of KC k1 rows); persistent
+// blocks of 256 threads (one an SM) walk the units chunk fastest, so the
+// chunks of one block of spectra run side by side and its plane rows stay in
+// L2. A cp.async ring of 4 slots streams one tile sequence through every
+// unit, kept 3 tiles ahead of the compute across units:
+//   stage A tiles: [KTA x SB*N2] of the plane (KTA n1 rows of each spectrum)
+//     and [KTA x 2KC] of the N1-point matrix (its cos and -sin, symmetric,
+//     read as [n1][k1]). Each D1 tile is read once a unit and meets every
+//     spectrum of the unit. A thread owns 4 k1 rows (cos and -sin) x 8
+//     columns: 64 FFMA for 4 shared loads a step. After the last K tile the
+//     f32 twiddle (the reference's rounding point) lands in shared memory as
+//     the unit's T planes [SB*KC][N2] (re, im);
+//   stage B tiles: [KTB x N2] of the N2-point matrix transposed ([n2][k2],
+//     cos columns then -sin). A thread owns 4 k2 x (cos, -sin) against 4
+//     (spectrum, k1) x (T re, T im): the four products cos.tr, -sin.ti,
+//     cos.ti, -sin.tr; then k1_dft_kernel's epilogue (re, im, rotation,
+//     requant or the f32 store).
+// Both stages hold 64 f32 accumulators a thread (one register array), so a
+// unit covers KC * SB * N2 = 32 * 256 outputs a stage: KC = 16 and SB =
+// 512 / N2 up to N2 = 512 (two spectra a unit at the flagship), KC = 8 at
+// N2 = 1024. T planes take 64 KB; a ring slot 32 KB. N2 > 1024 and N1 = 8
+// have no plan: they stay on the SIMT body (k1_dft_f32_attributes decides).
+// Each T row is XOR-swizzled by 16-byte groups ((row / 4) % 8), so stage A's
+// row-wise stores and stage B's reads of four rows at a time are both free of
+// bank conflicts.
+// What bounds it: the f32 FFMA rate (4.10 ms on 8 flagship streams); its
+// time on the card is in PERF.md. Beside the FFMA loops it copies the plane
+// from L2 once a chunk (N1 / KC = 16 times a spectrum at the flagship, 6 MB
+// a spectrum with the N2-point matrix). In trial builds (not kept), cutting
+// each stage's FFMA loop in turn left much of the time outside both loops,
+// and chunks of 32 rows with one spectrum a unit, which read the plane half
+// as often, ran faster; 512 threads for two spectra of 32 rows spilled at
+// their 128 registers.
+constexpr int F32_THREADS = 256;
+constexpr int F32_OUT = 32 * F32_THREADS;  // KC * SB * N2: outputs a stage / 2
+constexpr int F32_SLOT = 8192;             // floats a stage-B tile takes
+constexpr int F32_STAGES = 4;              // ring slots
+
+// Floats a ring slot of a KC-row chunk: a stage-A tile ([KTA x NCOL] of the
+// plane and [KTA x 2KC] of the N1-point matrix, KTA = KC) or a stage-B tile.
+template <int KC>
+__host__ __device__ constexpr int f32_slot() {
+  return KC * (F32_OUT / KC) + KC * 2 * KC > F32_SLOT ? KC * (F32_OUT / KC) + KC * 2 * KC
+                                                      : F32_SLOT;
+}
+
+// Shared-memory bytes of a KC-row chunk: the T planes and the ring.
+template <int KC>
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * (2 * static_cast<size_t>(F32_OUT) +
+                          static_cast<size_t>(F32_STAGES) * f32_slot<KC>());
+}
+static_assert(f32_smem_bytes<16>() <= MAX_SMEM && f32_smem_bytes<8>() <= MAX_SMEM,
+              "the f32 DFT pass's 4-slot ring must fit beside its T planes");
+
+struct F32Params {
+  const float* plane;  // [G, S, N1, N2] f32
+  const float* d1c;    // [N1, N1] cos (symmetric)
+  const float* d1s;    // [N1, N1] -sin (symmetric)
+  const float* d2t;    // [N2, N2]: [n2][k2], cos columns k2 < N2/2, then -sin
+  const float* twc;    // [N1, N2]
+  const float* tws;
+  const float* rotc;   // [G, C]
+  const float* rots;
+  void* outr;          // [G, S, C] int8, or f32 without the requant
+  void* outi;
+  int n_spectra, n1, n2;
+  int sb, ktb;             // spectra a unit; stage-B K-tile depth
+  int n_kta, n_ktb;        // K tiles a unit: stage A, stage B
+  int n_chunks, n_sblk;    // k1 chunks; blocks of SB spectra a batch
+  int n_units;             // G * n_sblk * n_chunks
+};
+
+// The swizzled float index of T row `row`, 4-aligned column `col`.
+__device__ __forceinline__ int t_at(int row, int col, int n2) {
+  return row * n2 + (col ^ (((row >> 2) & 7) << 2));
+}
+
+// A block's walk: unit i of the block (unit blockIdx.x + i * gridDim.x),
+// tile `local` of the unit.
+struct F32Cursor {
+  int i, local;
+  int b, s0, k0;  // batch, first spectrum, first k1 row
+};
+
+template <int KC>
+__device__ __forceinline__ void f32_set_unit(const F32Params& p, F32Cursor& c) {
+  const int u = blockIdx.x + c.i * gridDim.x;
+  c.k0 = (u & (p.n_chunks - 1)) * KC;
+  const int rest = u >> lg(p.n_chunks);
+  c.s0 = (rest % p.n_sblk) * p.sb;
+  c.b = rest / p.n_sblk;
+}
+
+template <int KC>
+__device__ __forceinline__ void f32_advance(const F32Params& p, F32Cursor& c, int tpu) {
+  if (++c.local == tpu) {
+    c.local = 0;
+    ++c.i;
+    f32_set_unit<KC>(p, c);
+  }
+}
+
+// Issue the cp.async copies of one tile into a ring slot (16 bytes a copy).
+template <int KC>
+__device__ __forceinline__ void f32_load_tile(const F32Params& p, const F32Cursor& c,
+                                              float* slot) {
+  constexpr int KTA = KC, NCOL = F32_OUT / KC, NT = F32_THREADS;
+  const int tid = threadIdx.x;
+  const int n1 = p.n1, n2 = p.n2;
+  if (c.local < p.n_kta) {
+    // [KTA x NCOL] of the plane: row r is n1 = kt0 + r of each spectrum;
+    // column s * N2 + n2. Spectra past the stream's last are not loaded
+    // (their columns are computed and never stored).
+    const int kt0 = c.local * KTA, ln2 = lg(n2);
+    constexpr int PX = KTA * NCOL / 4, PD = KTA * 2 * KC / 4;
+#pragma unroll 4
+    for (int i = tid; i < PX; i += NT) {
+      const int r = i / (NCOL / 4), col = (i % (NCOL / 4)) * 4;
+      const int s = c.s0 + (col >> ln2);
+      if (s < p.n_spectra) {
+        const float* src = p.plane +
+                           ((static_cast<long long>(c.b) * p.n_spectra + s) * n1 + kt0 + r) * n2 +
+                           (col & (n2 - 1));
+        cp_async16(slot + r * NCOL + col, src);
+      }
+    }
+    // [KTA x 2KC]: cos of k1 rows k0.. at columns 0..KC-1, -sin at KC..
+    float* sd = slot + KTA * NCOL;
+    for (int i = tid; i < PD; i += NT) {
+      const int r = i / (2 * KC / 4), q = (i % (2 * KC / 4)) * 4;
+      const float* src = (q < KC ? p.d1c : p.d1s) + (kt0 + r) * n1 + c.k0 + (q & (KC - 1));
+      cp_async16(sd + r * 2 * KC + q, src);
+    }
+  } else {
+    // [KTB x N2] of the transposed N2-point matrix: one contiguous run.
+    const float* src = p.d2t + static_cast<long long>(c.local - p.n_kta) * p.ktb * n2;
+    for (int i = tid * 4; i < F32_SLOT; i += NT * 4) cp_async16(slot + i, src + i);
+  }
+}
+
+template <int KC, bool QUANT>
+__global__ void __launch_bounds__(F32_THREADS, 1) k1_dft_f32_kernel(F32Params p) {
+  constexpr int KTA = KC, NCOL = F32_OUT / KC;
+  constexpr int GA = F32_THREADS * 4 / KC;  // stage-A column groups
+  constexpr int SLOT = f32_slot<KC>();
+  extern __shared__ __align__(128) float fsmem[];
+  const int tid = threadIdx.x;
+  const int n1 = p.n1, n2 = p.n2, h = n2 / 2, C = n1 * n2 / 2;
+  float* sTr = fsmem;              // [SB*KC][N2], swizzled (t_at)
+  float* sTi = sTr + F32_OUT;
+  float* ring = sTi + F32_OUT;
+
+  const int nA = p.n_kta, tpu = nA + p.n_ktb;
+  const int my_units = (p.n_units - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+  const int n_tiles = my_units * tpu;
+
+  // Stage A: k1 rows 4*rg.. of the chunk; columns 4*j.. and NCOL/2 + 4*j..
+  const int rg = tid / GA, ja = (tid % GA) * 4;
+  // Stage B: k2 rows 4*rb.. (cos) and h + 4*rb.. (-sin); T rows 4*qb.. of
+  // (spectrum, k1). Q = SB*KC/4 groups of T rows.
+  const int lq = lg(p.sb * KC / 4);
+  const int qb = tid & ((1 << lq) - 1), rb = tid >> lq;
+
+  // Stage A: [cos/-sin][4 k1][8 columns]; stage B: [4 sums][4 k2][4 T rows],
+  // sums cos.tr, -sin.ti, cos.ti, -sin.tr.
+  float acc[64];
+
+  F32Cursor ld{0, 0, 0, 0, 0};  // the next tile to load
+  f32_set_unit<KC>(p, ld);
+  F32Cursor cc = ld;  // the tile to compute
+  for (int t = 0; t < F32_STAGES - 1; ++t) {
+    if (t < n_tiles) {
+      f32_load_tile<KC>(p, ld, ring + t * SLOT);
+      f32_advance<KC>(p, ld, tpu);
+    }
+    cp_async_commit();
+  }
+
+  int slot_i = 0;  // tile t's slot, t % F32_STAGES
+  for (int t = 0; t < n_tiles; ++t, f32_advance<KC>(p, cc, tpu)) {
+    // Tile t is the oldest of the F32_STAGES - 1 groups in flight.
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(F32_STAGES - 2) : "memory");
+    __syncthreads();  // tile t landed for every thread; tile t-1's slot is free
+    if (t + F32_STAGES - 1 < n_tiles) {
+      const int s_load = (slot_i + F32_STAGES - 1) % F32_STAGES;  // (t + 3) % 4
+      f32_load_tile<KC>(p, ld, ring + s_load * SLOT);
+      f32_advance<KC>(p, ld, tpu);
+    }
+    cp_async_commit();
+    const float* slot = ring + slot_i * SLOT;
+    slot_i = (slot_i + 1) % F32_STAGES;
+    const int k0 = cc.k0;
+    if (cc.local < nA) {
+      if (cc.local == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      }
+      const float* sX = slot;
+      const float* sD = slot + KTA * NCOL;
+#pragma unroll
+      for (int kk = 0; kk < KTA; ++kk) {
+        const float4 x0 = *reinterpret_cast<const float4*>(sX + kk * NCOL + ja);
+        const float4 x1 = *reinterpret_cast<const float4*>(sX + kk * NCOL + NCOL / 2 + ja);
+        const float4 dc = *reinterpret_cast<const float4*>(sD + kk * 2 * KC + 4 * rg);
+        const float4 ds = *reinterpret_cast<const float4*>(sD + kk * 2 * KC + KC + 4 * rg);
+        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float cv[4] = {dc.x, dc.y, dc.z, dc.w}, sv[4] = {ds.x, ds.y, ds.z, ds.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            acc[i * 8 + e] = fmaf(cv[i], xv[e], acc[i * 8 + e]);
+            acc[32 + i * 8 + e] = fmaf(sv[i], xv[e], acc[32 + i * 8 + e]);
+          }
+        }
+      }
+      if (cc.local == nA - 1) {
+        // The f32 twiddle into the T planes: tr = ar*wc - ai*ws, ti = ar*ws +
+        // ai*wc, each product rounded. Row (spectrum s, k1) of T, column n2.
+        const int ln2 = lg(n2);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int col = half * (NCOL / 2) + ja;
+          const int s = col >> ln2, n = col & (n2 - 1);
+          float4 wc[4], ws[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const long long o = static_cast<long long>(k0 + 4 * rg + i) * n2 + n;
+            wc[i] = __ldg(reinterpret_cast<const float4*>(p.twc + o));
+            ws[i] = __ldg(reinterpret_cast<const float4*>(p.tws + o));
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float* ar = acc + i * 8 + half * 4;
+            const float* ai = acc + 32 + i * 8 + half * 4;
+            const float c[4] = {wc[i].x, wc[i].y, wc[i].z, wc[i].w};
+            const float sn[4] = {ws[i].x, ws[i].y, ws[i].z, ws[i].w};
+            float tr[4], ti[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              tr[e] = __fsub_rn(__fmul_rn(ar[e], c[e]), __fmul_rn(ai[e], sn[e]));
+              ti[e] = __fadd_rn(__fmul_rn(ar[e], sn[e]), __fmul_rn(ai[e], c[e]));
+            }
+            const int o = t_at(s * KC + 4 * rg + i, n, n2);
+            *reinterpret_cast<float4*>(sTr + o) = make_float4(tr[0], tr[1], tr[2], tr[3]);
+            *reinterpret_cast<float4*>(sTi + o) = make_float4(ti[0], ti[1], ti[2], ti[3]);
+          }
+        }
+      }
+    } else {
+      const int kidx = cc.local - nA;
+      if (kidx == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      }
+      const int ktb = p.ktb;
+      for (int k4 = 0; k4 < ktb; k4 += 4) {
+        // Four T rows x four n2 of each plane, then four n2 steps.
+        const int n = kidx * ktb + k4;
+        float4 tr4[4], ti4[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int o = t_at(4 * qb + c, n, n2);
+          tr4[c] = *reinterpret_cast<const float4*>(sTr + o);
+          ti4[c] = *reinterpret_cast<const float4*>(sTi + o);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float* row = slot + (k4 + u) * n2;
+          const float4 dc = *reinterpret_cast<const float4*>(row + 4 * rb);
+          const float4 ds = *reinterpret_cast<const float4*>(row + h + 4 * rb);
+          const float cv[4] = {dc.x, dc.y, dc.z, dc.w}, sv[4] = {ds.x, ds.y, ds.z, ds.w};
+          float trv[4], tiv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            trv[c] = u == 0 ? tr4[c].x : u == 1 ? tr4[c].y : u == 2 ? tr4[c].z : tr4[c].w;
+            tiv[c] = u == 0 ? ti4[c].x : u == 1 ? ti4[c].y : u == 2 ? ti4[c].z : ti4[c].w;
+          }
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[0 * 16 + a * 4 + c] = fmaf(cv[a], trv[c], acc[0 * 16 + a * 4 + c]);
+              acc[1 * 16 + a * 4 + c] = fmaf(sv[a], tiv[c], acc[1 * 16 + a * 4 + c]);
+              acc[2 * 16 + a * 4 + c] = fmaf(cv[a], tiv[c], acc[2 * 16 + a * 4 + c]);
+              acc[3 * 16 + a * 4 + c] = fmaf(sv[a], trv[c], acc[3 * 16 + a * 4 + c]);
+            }
+          }
+        }
+      }
+      if (kidx == p.n_ktb - 1) {
+        // re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr); rotate; store
+        // four consecutive channels k2*N1 + k1.. of spectrum s.
+        const int row = 4 * qb, s = cc.s0 + row / KC, k1 = k0 + (row & (KC - 1));
+        if (s < p.n_spectra) {
+          const long long obase =
+              (static_cast<long long>(cc.b) * p.n_spectra + s) * C;
+          const float* rc_b = p.rotc + static_cast<long long>(cc.b) * C;
+          const float* rs_b = p.rots + static_cast<long long>(cc.b) * C;
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int ch = (4 * rb + a) * n1 + k1;
+            const float4 rc4 = __ldg(reinterpret_cast<const float4*>(rc_b + ch));
+            const float4 rs4 = __ldg(reinterpret_cast<const float4*>(rs_b + ch));
+            const float rc[4] = {rc4.x, rc4.y, rc4.z, rc4.w};
+            const float rs[4] = {rs4.x, rs4.y, rs4.z, rs4.w};
+            float v[2][4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float re = __fsub_rn(acc[a * 4 + c], acc[16 + a * 4 + c]);
+              const float im = __fadd_rn(acc[32 + a * 4 + c], acc[48 + a * 4 + c]);
+              v[0][c] = __fsub_rn(__fmul_rn(re, rc[c]), __fmul_rn(im, rs[c]));
+              v[1][c] = __fadd_rn(__fmul_rn(re, rs[c]), __fmul_rn(im, rc[c]));
+            }
+            if constexpr (QUANT) {
+              *reinterpret_cast<char4*>(static_cast<int8_t*>(p.outr) + obase + ch) =
+                  make_char4(requant(v[0][0]), requant(v[0][1]), requant(v[0][2]),
+                             requant(v[0][3]));
+              *reinterpret_cast<char4*>(static_cast<int8_t*>(p.outi) + obase + ch) =
+                  make_char4(requant(v[1][0]), requant(v[1][1]), requant(v[1][2]),
+                             requant(v[1][3]));
+            } else {
+              *reinterpret_cast<float4*>(static_cast<float*>(p.outr) + obase + ch) =
+                  make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
+              *reinterpret_cast<float4*>(static_cast<float*>(p.outi) + obase + ch) =
+                  make_float4(v[1][0], v[1][1], v[1][2], v[1][3]);
+            }
+          }
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The plan of a chunk of KC rows, 0 if it has none: SB = NCOL / N2 spectra a
+// unit, stage-B tiles of one slot's 8192 floats, the 4-slot ring beside the
+// T planes.
+template <int KC>
+size_t f32_plan(F32Params& p) {
+  constexpr int KTA = KC, NCOL = F32_OUT / KC;
+  if (p.n1 < 16 || KC > p.n1 || p.n2 > NCOL || p.n2 < 128) return 0;
+  p.sb = NCOL / p.n2;
+  p.ktb = F32_SLOT / p.n2;
+  p.n_kta = p.n1 / KTA;
+  p.n_ktb = p.n2 / p.ktb;
+  p.n_chunks = p.n1 / KC;
+  p.n_sblk = (p.n_spectra + p.sb - 1) / p.sb;
+  return f32_smem_bytes<KC>();
+}
+
+template <int KC, bool QUANT>
+cudaError_t launch_dft_f32(F32Params p, int batch, size_t bytes, cudaStream_t stream) {
+  auto kern = k1_dft_f32_kernel<KC, QUANT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, F32_THREADS, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long units = static_cast<long long>(batch) * p.n_sblk * p.n_chunks;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  const int grid = static_cast<int>(units < resident ? units : resident);
+  const long long tpu = p.n_kta + p.n_ktb;
+  if (units > 0x7fffffffLL - grid || ((units + grid - 1) / grid) * tpu > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  p.n_units = static_cast<int>(units);
+  kern<<<grid, F32_THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Run f(kc, plan, bytes) with the chunk the f32 pass takes for this split
+// (16 rows up to N2 = 512, 8 at N2 = 1024), or return NO_PLAN.
+template <typename F>
+int with_f32_plan(F32Params p, F&& f) {
+  F32Params q = p;
+  size_t bytes;
+  if ((bytes = f32_plan<16>(q))) return f(std::integral_constant<int, 16>{}, q, bytes);
+  q = p;
+  if ((bytes = f32_plan<8>(q))) return f(std::integral_constant<int, 8>{}, q, bytes);
+  return NO_PLAN;
+}
+
+// K1's FIR pass into a plane of PT (bf16, or float for f32 DFT operands).
+template <typename PT>
+int fir_pass(const void* x, long long batch_stride, const void* starts, const void* win,
+             void* plane, int batch, int n_spectra, int n_taps, int fft, void* stream) {
+  if (batch < 1 || n_spectra < 1 || n_taps < 1 || fft < 4 || fft % 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  FirParams a{static_cast<const int8_t*>(x), batch_stride,
+              static_cast<const long long*>(starts), static_cast<const float*>(win),
+              plane, n_spectra, fft, n_taps,
+              (fft + 4 * FIR_THREADS - 1) / (4 * FIR_THREADS), (n_spectra + RUN - 1) / RUN};
+  const long long blocks = static_cast<long long>(a.lane_blocks) * a.runs * batch;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (n_taps <= 4) {
+    k1_fir_kernel<4, STOP_NONE, PT><<<grid, FIR_THREADS, 0, st>>>(a);
+  } else if (n_taps <= 8) {
+    k1_fir_kernel<8, STOP_NONE, PT><<<grid, FIR_THREADS, 0, st>>>(a);
+  } else if (n_taps <= 16) {
+    k1_fir_kernel<16, STOP_NONE, PT><<<grid, FIR_THREADS, 0, st>>>(a);
+  } else {
+    k1_fir_kernel<0, STOP_NONE, PT><<<grid, FIR_THREADS, 0, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 }  // namespace
@@ -1160,27 +1597,17 @@ extern "C" int fengine_ct_launch(
 extern "C" int k1_fir_launch(const void* x, long long batch_stride, const void* starts,
                              const void* win, void* plane, int batch, int n_spectra,
                              int n_taps, int fft, void* stream) {
-  if (batch < 1 || n_spectra < 1 || n_taps < 1 || fft < 4 || fft % 4) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  FirParams a{static_cast<const int8_t*>(x), batch_stride,
-              static_cast<const long long*>(starts), static_cast<const float*>(win),
-              static_cast<bf16*>(plane), n_spectra, fft, n_taps,
-              (fft + 4 * FIR_THREADS - 1) / (4 * FIR_THREADS), (n_spectra + RUN - 1) / RUN};
-  const long long blocks = static_cast<long long>(a.lane_blocks) * a.runs * batch;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(blocks);
-  if (n_taps <= 4) {
-    k1_fir_kernel<4><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else if (n_taps <= 8) {
-    k1_fir_kernel<8><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else if (n_taps <= 16) {
-    k1_fir_kernel<16><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else {
-    k1_fir_kernel<0><<<grid, FIR_THREADS, 0, st>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return fir_pass<bf16>(x, batch_stride, starts, win, plane, batch, n_spectra, n_taps, fft,
+                        stream);
+}
+
+// Pass 1 for f32 DFT operands: the same, into an f32 plane (16-byte
+// aligned) of the exact f32 tap-order sums.
+extern "C" int k1_fir_f32_launch(const void* x, long long batch_stride, const void* starts,
+                                 const void* win, void* plane, int batch, int n_spectra,
+                                 int n_taps, int fft, void* stream) {
+  return fir_pass<float>(x, batch_stride, starts, win, plane, batch, n_spectra, n_taps, fft,
+                         stream);
 }
 
 // Pass 2: plane [batch, n_spectra, N1, N2] bf16 -> outputs [batch,
@@ -1211,6 +1638,72 @@ extern "C" int k1_dft_launch(const void* plane, const void* d1c, const void* d1s
   p.n2 = n2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return quantise ? dft_dispatch<true>(p, batch, st) : dft_dispatch<false>(p, batch, st);
+}
+
+// Pass 2 with f32 DFT operands: plane [batch, n_spectra, N1, N2] f32 (16-byte
+// aligned) -> outputs [batch, n_spectra, C] (int8, or f32 without
+// quantise); d1c/d1s the f32 N1-point matrices, d2t the f32 N2-point matrix
+// transposed ([n2][k2]: cos columns, then -sin), twc/tws the f32 twiddles,
+// rotc/rots [batch, C]. Returns -1 where the pass has no plan (N1 < 16, N2 >
+// 1024): those shapes take fengine_ct_launch.
+extern "C" int k1_dft_f32_launch(const void* plane, const void* d1c, const void* d1s,
+                                 const void* d2t, const void* twc, const void* tws,
+                                 const void* rotc, const void* rots, void* outr, void* outi,
+                                 int batch, int n_spectra, int n1, int n2, int quantise,
+                                 void* stream) {
+  if (n1 < 8 || !pow2(n1) || n2 < 128 || !pow2(n2) || batch < 1 || n_spectra < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  F32Params p{};
+  p.plane = static_cast<const float*>(plane);
+  p.d1c = static_cast<const float*>(d1c);
+  p.d1s = static_cast<const float*>(d1s);
+  p.d2t = static_cast<const float*>(d2t);
+  p.twc = static_cast<const float*>(twc);
+  p.tws = static_cast<const float*>(tws);
+  p.rotc = static_cast<const float*>(rotc);
+  p.rots = static_cast<const float*>(rots);
+  p.outr = outr;
+  p.outi = outi;
+  p.n_spectra = n_spectra;
+  p.n1 = n1;
+  p.n2 = n2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_f32_plan(p, [&](auto kc, const F32Params& q, size_t bytes) {
+    constexpr int K = decltype(kc)::value;
+    return static_cast<int>(quantise ? launch_dft_f32<K, true>(q, batch, bytes, st)
+                                     : launch_dft_f32<K, false>(q, batch, bytes, st));
+  });
+}
+
+// The f32 DFT pass's plan and body at N1 x N2, -1 where it has none (the
+// shape then takes the SIMT body): out int[8] = registers a thread, local
+// (spill) bytes a thread, KC, SB, stage-B K-tile depth, ring stages,
+// shared-memory bytes, threads a block.
+extern "C" int k1_dft_f32_attributes(int n1, int n2, void* out) {
+  if (n1 < 8 || !pow2(n1) || n2 < 128 || !pow2(n2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  F32Params p{};
+  p.n_spectra = 1;
+  p.n1 = n1;
+  p.n2 = n2;
+  int* o = static_cast<int*>(out);
+  return with_f32_plan(p, [&](auto kc, const F32Params& q, size_t bytes) {
+    constexpr int K = decltype(kc)::value;
+    cudaFuncAttributes a{};
+    const cudaError_t err = cudaFuncGetAttributes(&a, k1_dft_f32_kernel<K, true>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    o[0] = a.numRegs;
+    o[1] = static_cast<int>(a.localSizeBytes);
+    o[2] = K;
+    o[3] = q.sb;
+    o[4] = q.ktb;
+    o[5] = F32_STAGES;
+    o[6] = static_cast<int>(bytes);
+    o[7] = F32_THREADS;
+    return 0;
+  });
 }
 
 #endif  // K1_STAGE_STOPS

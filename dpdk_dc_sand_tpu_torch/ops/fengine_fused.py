@@ -22,12 +22,17 @@ with the same rounding points:
 Products of bf16 values are exact in f32, so the bf16 mode differs from the
 reference only by the order of f32 additions.
 
-With bf16 operands and N1 >= 16 (every engine launch) K1 runs as two passes
-over groups of batches: :func:`k1_fir` (steps 1-2 into a bf16 plane
-``[B, S, N1, N2]``, scratch of at most :data:`K1_SCRATCH_BYTES`) and
-:func:`k1_dft` (steps 3-5); their plain versions :func:`k1_fir_reference`
-and :func:`k1_dft_reference` compose to :func:`fengine_fused_reference`.
-f32 operands and N1 = 8 take the kernel's single-pass SIMT body.
+With N1 >= 16 K1 runs as two passes over groups of batches whose FIR
+planes fit :data:`K1_SCRATCH_BYTES`: with bf16 operands (every default
+engine launch) :func:`k1_fir` (steps 1-2 into a bf16 plane ``[B, S, N1,
+N2]``) and :func:`k1_dft` (steps 3-5, tensor cores); with f32 operands
+(``fengine="fused_f32"``) :func:`k1_fir_f32` (the f32 plane) and
+:func:`k1_dft_f32` (register-blocked FFMA, exact f32), wherever that pass
+has a plan (:func:`_k1_body` asks the library before any launch). Their
+plain versions :func:`k1_fir_reference` and :func:`k1_dft_reference`
+compose to :func:`fengine_fused_reference`. N1 = 8, and f32 splits the f32
+pass cannot hold (N2 > 1024), take the single-pass SIMT body
+(:func:`fengine_ct_simt`).
 
 Where the direct-CT split does not exist, or the caller names
 ``deint="matmul"`` or ``"bitcast"``, :func:`fengine_fused` takes the
@@ -59,8 +64,9 @@ from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
 
 #: N1 (the row count of the frame view) must be a multiple of this.
 _ROW_ALIGN = 8
-#: Most bytes of bf16 FIR plane K1's two passes keep between them: batches
-#: go through in groups whose planes fit (32 flagship streams: 1.07 GB).
+#: Most bytes of FIR plane K1's two passes keep between them: batches go
+#: through in groups whose planes fit (32 flagship streams in bf16, 16 in
+#: f32: 1.07 GB).
 K1_SCRATCH_BYTES = 1 << 30
 #: What a launch function returns where no shared-memory plan fits the shape.
 _NO_PLAN = -1
@@ -162,6 +168,34 @@ def _dft_bf16(n1: int, n2: int, device: str) -> tuple[torch.Tensor, ...]:
     K1's DFT pass."""
     k = dft_constants(n1, n2, device)
     return tuple(t.to(torch.bfloat16).contiguous() for t in (k.d1c, k.d1s, k.d2))
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_f32t(n1: int, n2: int, device: str) -> torch.Tensor:
+    """The f32 N2-point matrix transposed, ``[n2][k2]`` (cos columns, then
+    -sin): the stage-B operand of K1's f32 DFT pass. The N1-point matrices
+    are symmetric and go as they are."""
+    return dft_constants(n1, n2, device).d2.t().contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _k1_body(n1: int, n2: int, dft_dtype: str) -> str:
+    """K1's body for a split, decided before any launch: ``"two_pass"`` (the
+    FIR pass, then the tensor-core DFT pass) for bf16 operands with N1 >= 16;
+    ``"two_pass_f32"`` (the f32 FIR pass, then the FFMA DFT pass) for f32
+    operands where that pass has a plan (``k1_dft_f32_attributes`` in
+    ``csrc/fengine_ct.cu`` decides); ``"simt"`` (the single-pass SIMT body)
+    for N1 = 8 and f32 splits without a plan."""
+    if n1 < 16:
+        return "simt"
+    if dft_dtype == "bfloat16":
+        return "two_pass"
+    lib = _build.library()
+    err = lib.k1_dft_f32_attributes(n1, n2, (ctypes.c_int * 8)())
+    if err == _NO_PLAN:
+        return "simt"
+    _build.check(lib, err, "k1_dft_f32_attributes")
+    return "two_pass_f32"
 
 
 @functools.lru_cache(maxsize=64)
@@ -394,10 +428,11 @@ def fengine_ablate_reference(
     return _trunc_s8(re), _trunc_s8(im)
 
 
-def _plane_group(batch: int, n_spectra: int, fft: int) -> int:
-    """Batches a group of K1's two passes takes: as many bf16 planes as fit
+def _plane_group(batch: int, n_spectra: int, fft: int, elem_bytes: int = 2) -> int:
+    """Batches a group of K1's two passes takes: as many FIR planes of
+    ``elem_bytes`` an element (2 bf16, 4 f32) as fit
     :data:`K1_SCRATCH_BYTES` (at least one)."""
-    return max(1, min(batch, K1_SCRATCH_BYTES // (2 * n_spectra * fft)))
+    return max(1, min(batch, K1_SCRATCH_BYTES // (elem_bytes * n_spectra * fft)))
 
 
 def _check(what: str, x: torch.Tensor, want) -> None:
@@ -416,16 +451,21 @@ def _no_plan(what: str, n1: int, n2: int, detail: str) -> ValueError:
 
 
 def _fir_pass(x, starts, window, plane) -> None:
-    """K1's FIR pass into ``plane`` ``[B, S, fft]`` bf16 (CUDA tensors,
-    checked by the caller)."""
+    """K1's FIR pass into ``plane`` ``[B, S, fft]``, bf16 or f32 (CUDA
+    tensors, checked by the caller); counted on :func:`k1_fir` or
+    :func:`k1_fir_f32`."""
     batch, n_spectra, fft = plane.shape
+    f32 = plane.dtype == torch.float32
     lib = _build.library()
-    err = lib.k1_fir_launch(
+    err = (lib.k1_fir_f32_launch if f32 else lib.k1_fir_launch)(
         x.data_ptr(), x.stride(0), starts.data_ptr(), window.data_ptr(), plane.data_ptr(),
         batch, n_spectra, window.shape[0], fft, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(lib, err, "k1_fir")
-    k1_fir.launches += 1
+    _build.check(lib, err, "k1_fir_f32" if f32 else "k1_fir")
+    if f32:
+        k1_fir_f32.launches += 1
+    else:
+        k1_fir.launches += 1
 
 
 def _dft_pass(plane, rotc, rots, outr, outi, *, n1, n2, quantise) -> None:
@@ -447,6 +487,27 @@ def _dft_pass(plane, rotc, rots, outr, outi, *, n1, n2, quantise) -> None:
     k1_dft.launches += 1
 
 
+def _fir_plane(what, x, starts, window, n_spectra, dft_dtype) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return k1_fir_reference(x, starts, window, n_spectra=n_spectra, dft_dtype=dft_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    n_taps, fft = window.shape
+    batch = x.shape[0]
+    _check(what, x, (
+        ("starts", starts, torch.int64, (batch,)),
+        ("window", window, torch.float32, (n_taps, fft)),
+    ))
+    if x.dtype != torch.int8 or x.dim() != 2 or x.stride(1) != 1:
+        raise ValueError(f"{what}: x must be [B, n_in] int8 with unit sample stride")
+    if window.data_ptr() % 16:
+        window = window.clone()  # the kernel reads the window as float4
+    dtype = torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32
+    plane = torch.empty((batch, n_spectra, fft), dtype=dtype, device=x.device)
+    _fir_pass(x, starts, window, plane)
+    return plane
+
+
 def k1_fir(
     x: torch.Tensor,
     starts: torch.Tensor,
@@ -457,23 +518,20 @@ def k1_fir(
     """K1's FIR pass alone: the bf16 FIR plane ``[B, n_spectra, fft]`` (the
     kernel on CUDA, :func:`k1_fir_reference` on CPU). Arguments as the
     reference's; ``starts`` must be clamped so every read stays in ``x``."""
-    if x.device.type == "cpu":
-        return k1_fir_reference(x, starts, window, n_spectra=n_spectra)
-    if x.device.type != "cuda":
-        raise ValueError(f"k1_fir: unsupported device {x.device}")
-    n_taps, fft = window.shape
-    batch = x.shape[0]
-    _check("k1_fir", x, (
-        ("starts", starts, torch.int64, (batch,)),
-        ("window", window, torch.float32, (n_taps, fft)),
-    ))
-    if x.dtype != torch.int8 or x.dim() != 2 or x.stride(1) != 1:
-        raise ValueError("k1_fir: x must be [B, n_in] int8 with unit sample stride")
-    if window.data_ptr() % 16:
-        window = window.clone()  # the kernel reads the window as float4
-    plane = torch.empty((batch, n_spectra, fft), dtype=torch.bfloat16, device=x.device)
-    _fir_pass(x, starts, window, plane)
-    return plane
+    return _fir_plane("k1_fir", x, starts, window, n_spectra, "bfloat16")
+
+
+def k1_fir_f32(
+    x: torch.Tensor,
+    starts: torch.Tensor,
+    window: torch.Tensor,
+    *,
+    n_spectra: int,
+) -> torch.Tensor:
+    """K1's FIR pass for f32 DFT operands: the f32 tap-order sums ``[B,
+    n_spectra, fft]`` (the kernel on CUDA, :func:`k1_fir_reference` with
+    ``dft_dtype="float32"`` on CPU); arguments as :func:`k1_fir`."""
+    return _fir_plane("k1_fir_f32", x, starts, window, n_spectra, "float32")
 
 
 def k1_dft(
@@ -507,10 +565,149 @@ def k1_dft(
     return outr, outi
 
 
-#: Launches of K1's two passes since the last reset (the plain versions never
-#: count); every two-pass K1 call adds one to each per group of batches.
+def _dft_f32_pass(plane, rotc, rots, outr, outi, *, n1, n2, quantise) -> None:
+    """K1's f32 DFT pass from ``plane`` into ``outr``/``outi`` (CUDA tensors,
+    checked by the caller, on a split :func:`_k1_body` gives
+    ``"two_pass_f32"``)."""
+    if plane.data_ptr() % 16:
+        plane = plane.clone()  # the kernel copies plane rows in 16-byte pieces
+    rotc, rots = (r.clone() if r.data_ptr() % 16 else r for r in (rotc, rots))  # float4 reads
+    batch, n_spectra, _ = plane.shape
+    dev = plane.device
+    k = dft_constants(n1, n2, str(dev))
+    lib = _build.library()
+    d2t = _dft_f32t(n1, n2, str(dev))
+    err = lib.k1_dft_f32_launch(
+        plane.data_ptr(), k.d1c.data_ptr(), k.d1s.data_ptr(), d2t.data_ptr(), k.twc.data_ptr(),
+        k.tws.data_ptr(), rotc.data_ptr(), rots.data_ptr(), outr.data_ptr(), outi.data_ptr(),
+        batch, n_spectra, n1, n2, int(quantise), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err == _NO_PLAN:
+        raise _no_plan("k1_dft_f32", n1, n2, "the f32 T planes of an 8-row chunk and the ring")
+    _build.check(lib, err, "k1_dft_f32")
+    k1_dft_f32.launches += 1
+
+
+def k1_dft_f32(
+    plane: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    quantise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's DFT pass alone, f32 operands: ``plane`` ``[B, S, fft]`` f32 to
+    ``(qr, qi)`` ``[B, S, C]`` (the kernel on CUDA, :func:`k1_dft_reference`
+    with ``dft_dtype="float32"`` on CPU)."""
+    if plane.device.type == "cpu":
+        return k1_dft_reference(plane, rotc, rots, n1=n1, n2=n2, dft_dtype="float32",
+                                quantise=quantise)
+    if plane.device.type != "cuda":
+        raise ValueError(f"k1_dft_f32: unsupported device {plane.device}")
+    batch, n_spectra, fft = plane.shape
+    if fft != n1 * n2 or _k1_body(n1, n2, "float32") != "two_pass_f32":
+        raise ValueError(f"k1_dft_f32: the pass takes fft = N1*N2 with a plan (N1 >= 16, "
+                         f"N2 <= 1024), got {n1}, {n2}, {fft}")
+    _check("k1_dft_f32", plane, (
+        ("plane", plane, torch.float32, None),
+        ("rotc", rotc, torch.float32, (batch, fft // 2)),
+        ("rots", rots, torch.float32, (batch, fft // 2)),
+    ))
+    out_dtype = torch.int8 if quantise else torch.float32
+    outr = torch.empty((batch, n_spectra, fft // 2), dtype=out_dtype, device=plane.device)
+    outi = torch.empty_like(outr)
+    _dft_f32_pass(plane, rotc, rots, outr, outi, n1=n1, n2=n2, quantise=quantise)
+    return outr, outi
+
+
+def k1_dft_f32_attributes(n1: int, n2: int) -> dict:
+    """The card's view of K1's f32 DFT-pass body at N1 x N2
+    (``cudaFuncGetAttributes`` and the plan): registers and local (spill)
+    bytes a thread, KC, SB (spectra a unit), the stage-B K-tile depth, ring
+    stages, shared-memory bytes and threads a block."""
+    out = (ctypes.c_int * 8)()
+    lib = _build.library()
+    err = lib.k1_dft_f32_attributes(n1, n2, out)
+    if err == _NO_PLAN:
+        raise _no_plan("k1_dft_f32", n1, n2, "the f32 T planes of an 8-row chunk and the ring")
+    _build.check(lib, err, "k1_dft_f32_attributes")
+    return dict(zip(("regs", "local_bytes", "kc", "sb", "ktb", "stages", "smem_bytes",
+                     "threads"), out))
+
+
+def _simt_pass(x, starts, window, rotc, rots, outr, outi, *, n1, n2, dft_dtype,
+               quantise) -> None:
+    """K1's single-pass SIMT body (CUDA tensors, checked by the caller)."""
+    batch, n_spectra = outr.shape[:2]
+    dev = x.device
+    k = dft_constants(n1, n2, str(dev))
+    lib = _build.library()
+    err = lib.fengine_ct_launch(
+        x.data_ptr(), x.stride(0), starts.data_ptr(),
+        window.data_ptr(), k.d1c.data_ptr(), k.d1s.data_ptr(), k.d2.data_ptr(),
+        k.twc.data_ptr(), k.tws.data_ptr(),
+        rotc.data_ptr(), rots.data_ptr(),
+        outr.data_ptr(), outi.data_ptr(),
+        batch, n_spectra, window.shape[0], n1, n2, int(dft_dtype == "bfloat16"), int(quantise),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err == _NO_PLAN:
+        raise _no_plan("fengine_ct_simt", n1, n2, "the f32 T planes of a 2-row chunk")
+    _build.check(lib, err, "fengine_ct")
+    fengine_ct_simt.launches += 1
+
+
+def fengine_ct_simt(
+    x: torch.Tensor,
+    starts: torch.Tensor,
+    window: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n_spectra: int,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "float32",
+    quantise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's single-pass SIMT body alone (the kernel on CUDA,
+    :func:`fengine_fused_reference` on CPU); arguments as that reference's.
+    :func:`fengine_fused` takes it for N1 = 8 and f32 splits the f32 DFT
+    pass cannot hold; with bf16 operands it takes N1 = 8 only."""
+    if x.device.type == "cpu":
+        return fengine_fused_reference(x, starts, window, rotc, rots, n_spectra=n_spectra,
+                                       n1=n1, n2=n2, dft_dtype=dft_dtype, quantise=quantise)
+    if x.device.type != "cuda":
+        raise ValueError(f"fengine_ct_simt: unsupported device {x.device}")
+    n_taps, fft = window.shape
+    batch = x.shape[0]
+    if fft != n1 * n2 or (dft_dtype == "bfloat16" and n1 >= 16):
+        raise ValueError(f"fengine_ct_simt: fft = N1*N2, bf16 with N1 = 8 only; got {n1}, {n2}, "
+                         f"{fft}, {dft_dtype}")
+    _check("fengine_ct_simt", x, (
+        ("x", x, torch.int8, None),
+        ("starts", starts, torch.int64, (batch,)),
+        ("window", window, torch.float32, (n_taps, fft)),
+        ("rotc", rotc, torch.float32, (batch, fft // 2)),
+        ("rots", rots, torch.float32, (batch, fft // 2)),
+    ))
+    out_dtype = torch.int8 if quantise else torch.float32
+    outr = torch.empty((batch, n_spectra, fft // 2), dtype=out_dtype, device=x.device)
+    outi = torch.empty_like(outr)
+    _simt_pass(x, starts, window, rotc, rots, outr, outi, n1=n1, n2=n2, dft_dtype=dft_dtype,
+               quantise=quantise)
+    return outr, outi
+
+
+#: Launches of K1's passes and of its SIMT body since the last reset (the
+#: plain versions never count); every two-pass K1 call adds one to each of its
+#: form's passes per group of batches, a SIMT call one to ``fengine_ct_simt``.
 k1_fir.launches = 0
 k1_dft.launches = 0
+k1_fir_f32.launches = 0
+k1_dft_f32.launches = 0
+fengine_ct_simt.launches = 0
 
 
 def _stop_pass(x, starts, window, plane, outr, outi, *, n1, n2, stop) -> None:
@@ -584,30 +781,22 @@ def _launch(
             p = plane[: b.stop - b0] if plane is not None else None
             _stop_pass(x[b], starts[b], window, p, outr[b], outi[b], n1=n1, n2=n2, stop=ablate)
         return outr, outi
-    if dft_dtype == "bfloat16" and n1 >= 16:
-        # Two passes over groups of batches through one bf16 plane of scratch.
-        group = _plane_group(batch, n_spectra, fft)
-        plane = torch.empty((group, n_spectra, fft), dtype=torch.bfloat16, device=dev)
+    body = _k1_body(n1, n2, dft_dtype)
+    if body == "simt":
+        _simt_pass(x, starts, window, rotc, rots, outr, outi, n1=n1, n2=n2,
+                   dft_dtype=dft_dtype, quantise=quantise)
+    else:
+        # Two passes over groups of batches through one plane of scratch.
+        f32 = body == "two_pass_f32"
+        dtype = torch.float32 if f32 else torch.bfloat16
+        group = _plane_group(batch, n_spectra, fft, dtype.itemsize)
+        plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
+        dft = _dft_f32_pass if f32 else _dft_pass
         for b0 in range(0, batch, group):
             b = slice(b0, min(batch, b0 + group))
             p = plane[: b.stop - b0]
             _fir_pass(x[b], starts[b], window, p)
-            _dft_pass(p, rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2, quantise=quantise)
-    else:
-        k = dft_constants(n1, n2, str(dev))
-        lib = _build.library()
-        err = lib.fengine_ct_launch(
-            x.data_ptr(), x.stride(0), starts.data_ptr(),
-            window.data_ptr(), k.d1c.data_ptr(), k.d1s.data_ptr(), k.d2.data_ptr(),
-            k.twc.data_ptr(), k.tws.data_ptr(),
-            rotc.data_ptr(), rots.data_ptr(),
-            outr.data_ptr(), outi.data_ptr(),
-            batch, n_spectra, n_taps, n1, n2, int(dft_dtype == "bfloat16"), int(quantise),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if err == _NO_PLAN:
-            raise _no_plan("fengine_fused", n1, n2, "the f32 T planes of a 2-row chunk")
-        _build.check(lib, err, "fengine_ct")
+            dft(p, rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2, quantise=quantise)
     fengine_fused.launches += 1
     return outr, outi
 

@@ -17,7 +17,9 @@ refusals and stage stops, K8 at ragged shapes,
 K2's tensor-core body over a grid of 2B, A, P·S and C in both layouts, at
 the int8 extremes, with its C-side geometry and its stage stops,
 K1's unquantised (f32) output, K1's FIR pass alone, K1, K7 and the
-engines above fft 65536, K7's two-pass body (its DFT pass alone at every
+engines above fft 65536, K1's f32 form (its f32 FIR pass bit for bit, its
+FFMA DFT pass at every plan, which split takes which body), K7's two-pass
+body (its DFT pass alone at every
 chunk plan, both passes at fft 2048 to 2^17 and over several plane groups,
 its launch counters, its registers and spill bytes), and the probes'
 kernels (K1's and K7's stage stops, P1's modes, P3's loop orders) at small
@@ -833,22 +835,174 @@ def test_k1_two_pass_kernel_above_65536_matches_plain(dev, fft, quantise):
 
 @pytest.mark.parametrize("fft", [1 << 17, 1 << 18])
 def test_k1_f32_kernel_above_65536_matches_plain(dev, fft):
-    """The SIMT body (f32 DFT operands) with its chunk shrunk to fit: within
-    1 code on <= 1e-3 of samples."""
+    """The SIMT body (f32 DFT operands) through its own wrapper above the old
+    cap (N1 x N2 = 512 x 256, 512 x 512), its chunk shrunk to fit: within 1
+    code on <= 1e-3 of samples."""
     taps, s, lead = 4, 2, (1, 2)
     rng = np.random.default_rng(fft + 3)
     frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
     fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
     ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    n1, n2 = ff._split_ct(fft)
+    rc, rs = (r.reshape(2, fft // 2) for r in ff.fine_rotation_planes(
+        torch.from_numpy(fd), torch.from_numpy(ph), n_channels=fft // 2,
+        quant_scale=1 / 16 * (1024 / fft) ** 0.5))
+    x = torch.from_numpy(frames).reshape(2, -1)
+    starts = torch.zeros(2, dtype=torch.int64)
+    win = default_window(taps, fft)
+    kw = dict(n_spectra=s, n1=n1, n2=n2, dft_dtype="float32")
+    counters = (ff.fengine_ct_simt, ff.k1_fir_f32, ff.k1_dft_f32)
+    before = [f.launches for f in counters]
+    got = ff.fengine_ct_simt(*(t.to(dev) for t in (x, starts, win, rc, rs)), **kw)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0]
+    ref = ff.fengine_ct_simt(x, starts, win, rc, rs, **kw)
+    for g, r in zip(got, ref):
+        _codes_close(g.cpu(), r)
+
+
+@pytest.mark.parametrize("fft, taps, s, batch", [(2048, 4, 9, 3), (65536, 16, 130, 2),
+                                                 (1 << 17, 20, 3, 2), (1 << 20, 4, 2, 2)])
+def test_k1_fir_f32_pass_is_bit_exact_against_plain(dev, fft, taps, s, batch):
+    """K1's FIR pass into the f32 plane: the exact f32 tap-order sums, bit for
+    bit, over flat streams and the rowed view's bytes, starts that clamp at
+    both ends and an unaligned one, runs longer than a block's and taps above
+    the register ring."""
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+
+    rng = np.random.default_rng(fft + taps + 1)
+    out_len = (s + taps - 1) * fft
+    n_in = -(-(out_len + 1000) // 512) * 512
+    raw = torch.from_numpy(rng.integers(-128, 128, (batch, n_in), dtype=np.int8))
+    cd = torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int64))
+    cd[0] = -7
+    cd[-1] = n_in
+    if batch > 2:
+        cd[1] = 3
+    starts = clamp_starts(cd, n_in, out_len)
+    win = default_window(taps, fft)
+    want = ff.k1_fir_reference(raw, starts, win, n_spectra=s, dft_dtype="float32")
+    before = (ff.k1_fir_f32.launches, ff.k1_fir.launches)
+    for x in (raw, raw.reshape(batch, -1, 512).reshape(batch, -1)):
+        got = ff.k1_fir_f32(x.to(dev), starts.to(dev), win.to(dev), n_spectra=s)
+        assert got.dtype == torch.float32 and got.shape == (batch, s, fft)
+        assert torch.equal(got.cpu(), want)
+    assert (ff.k1_fir_f32.launches, ff.k1_fir.launches) == (before[0] + 2, before[1])
+
+
+@pytest.mark.parametrize("fft", [2048, 65536, 1 << 17, 1 << 18, 1 << 20])
+@pytest.mark.parametrize("quantise", [True, False])
+def test_k1_f32_two_passes_match_plain(dev, fft, quantise):
+    """K1 with f32 DFT operands (N1 x N2 = 16 x 128, 256 x 256, 512 x 256,
+    512 x 512, 1024 x 1024: every plan of the FFMA DFT pass), one start
+    unaligned and one clamped at the stream's end: one f32 FIR pass and one
+    f32 DFT pass, no SIMT body. int8 within 1 code on <= 1e-3 of samples;
+    the f32 output within rtol 1e-4 / atol 1e-2 on every sample, and the
+    int8 output the requant of the f32 output bit for bit."""
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+
+    taps, s, batch = 4, (5 if fft <= 65536 else 2), 2
+    rng = np.random.default_rng(fft + 7 * quantise)
+    out_len = (s + taps - 1) * fft
+    n_in = out_len + 999
+    x = torch.from_numpy(rng.integers(-64, 64, (batch, n_in), dtype=np.int8))
+    starts = clamp_starts(torch.tensor([3, n_in]), n_in, out_len)
+    assert starts.tolist() == [3, n_in - out_len]
+    fd = torch.from_numpy(rng.uniform(-0.5, 0.5, batch).astype(np.float32))
+    rc, rs = (r.reshape(batch, fft // 2) for r in ff._rotation_planes(
+        fd, -1.5 * fd, fft // 2, 0.068 * (1024 / fft) ** 0.5, (fft // 2,)))
+    win = default_window(taps, fft)
+    n1, n2 = ff._split_ct(fft)
+    kw = dict(n_spectra=s, n1=n1, n2=n2, dft_dtype="float32", quantise=quantise)
+    counters = (ff.k1_fir_f32, ff.k1_dft_f32, ff.fengine_ct_simt, ff.k1_fir, ff.k1_dft)
+    before = [f.launches for f in counters]
+    got = ff._launch(x.to(dev), starts.to(dev), win.to(dev), rc.to(dev), rs.to(dev), **kw)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0, 0]
+    ref = ff.fengine_fused_reference(x, starts, win, rc, rs, **kw)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape and g.dtype == r.dtype
+        if quantise:
+            _codes_close(g.cpu(), r)
+        else:
+            d = (g.cpu() - r).abs()
+            assert bool((d <= 1e-2 + 1e-4 * r.abs()).all()), float(d.max())
+    if not quantise:
+        q8 = ff._launch(x.to(dev), starts.to(dev), win.to(dev), rc.to(dev), rs.to(dev),
+                        **dict(kw, quantise=True))
+        for g, q in zip(got, q8):
+            assert torch.equal(torch.round(g).clamp(-127, 127).to(torch.int8), q)
+
+
+@pytest.mark.parametrize("n1, n2, kc, sb", [(16, 128, 16, 4), (256, 256, 16, 2),
+                                            (512, 256, 16, 2), (512, 512, 16, 1),
+                                            (1024, 1024, 8, 1)])
+def test_k1_f32_dft_pass_attributes_show_no_spills(dev, n1, n2, kc, sb):
+    """The FFMA DFT pass's body at each plan spills nothing; KC and SB follow
+    N2 (KC * SB * N2 = 8192), the plan fits the 232,448 bytes a block may
+    use, and the split goes to the two f32 passes."""
+    at = ff.k1_dft_f32_attributes(n1, n2)
+    assert at["local_bytes"] == 0, at
+    assert (at["kc"], at["sb"], at["threads"]) == (kc, sb, 256), at
+    assert at["kc"] * at["sb"] * n2 == 8192 and at["ktb"] * n2 == 8192, at
+    assert at["stages"] == 4 and at["smem_bytes"] <= 232448, at
+    assert ff._k1_body(n1, n2, "float32") == "two_pass_f32"
+
+
+@pytest.mark.parametrize("fft, body", [(1024, "simt"), (65536, "two_pass_f32"),
+                                       (1 << 22, "simt")])
+def test_k1_f32_body_follows_the_split(dev, fft, body):
+    """N1 = 8 (fft 1024) runs the SIMT body; the flagship split (256 x 256)
+    the two f32 passes; 2048 x 2048 (fft 2^22), where the f32 pass has no
+    plan, the SIMT body again (decided before any launch, no fallback). The
+    first two are launched and held to plain."""
+    n1, n2 = ff._split_ct(fft)
+    assert ff._k1_body(n1, n2, "float32") == body
+    if fft > 65536:
+        with pytest.raises(ValueError):
+            ff.k1_dft_f32_attributes(n1, n2)
+        return
+    taps, s, lead = 4, 3, (1, 2)
+    rng = np.random.default_rng(fft + 1)
+    frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
     kw = dict(n_channels=fft // 2, quant_scale=1 / 16 * (1024 / fft) ** 0.5,
               dft_dtype="float32")
-    before = (ff.fengine_fused.launches, ff.k1_dft.launches)
+    counters = (ff.fengine_ct_simt, ff.k1_fir_f32, ff.k1_dft_f32)
+    before = [f.launches for f in counters]
     got = ff.fengine_fused(torch.from_numpy(frames).to(dev), default_window(taps, fft, dev),
                            fd, ph, **kw)
-    assert (ff.fengine_fused.launches, ff.k1_dft.launches) == (before[0] + 1, before[1])
+    passes = 0 if body == "simt" else 1
+    assert [f.launches - b for f, b in zip(counters, before)] == [1 - passes, passes, passes]
     ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
     for g, r in zip(got, ref):
         _codes_close(g.cpu(), r)
+
+
+def test_k1_f32_two_passes_span_plane_groups(dev, monkeypatch):
+    """Five streams through a scratch of two f32 planes: three groups, each an
+    f32 FIR pass and an f32 DFT pass; the SIMT body through its own wrapper on
+    the same streams gives the same codes within the int8 contract."""
+    fft, s, taps, b = 4096, 5, 4, 5
+    monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", 2 * s * fft * 4)
+    rng = np.random.default_rng(9)
+    n_in = (s + taps - 1) * fft + 64
+    x = torch.from_numpy(rng.integers(-64, 64, (b, n_in), dtype=np.int8))
+    starts = torch.from_numpy(rng.integers(0, 64, b).astype(np.int64))
+    rc, rs = (torch.from_numpy(rng.uniform(-0.05, 0.05, (b, fft // 2)).astype(np.float32))
+              for _ in range(2))
+    win = default_window(taps, fft)
+    n1, n2 = ff._split_ct(fft)
+    kw = dict(n_spectra=s, n1=n1, n2=n2, dft_dtype="float32", quantise=True)
+    args = [t.to(dev) for t in (x, starts, win, rc, rs)]
+    before = (ff.k1_fir_f32.launches, ff.k1_dft_f32.launches, ff.fengine_ct_simt.launches)
+    got = ff._launch(*args, **kw)
+    simt = ff.fengine_ct_simt(*args, **kw)
+    assert (ff.k1_fir_f32.launches, ff.k1_dft_f32.launches, ff.fengine_ct_simt.launches) == (
+        before[0] + 3, before[1] + 3, before[2] + 1)
+    ref = ff.fengine_fused_reference(x, starts, win, rc, rs, **kw)
+    for g, m, r in zip(got, simt, ref):
+        _codes_close(g.cpu(), r)
+        _codes_close(m.cpu(), r)
 
 
 def test_k7_kernel_at_fft_2_17_matches_plain(dev):

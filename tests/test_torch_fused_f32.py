@@ -1,0 +1,208 @@
+"""K1's f32 form (``fengine="fused_f32"``) on the CPU: the port's engines vs the JAX engines.
+
+The JAX FB and FXB engines run ``fengine="fused_f32", fengine_interpret=True``
+(the Pallas K1 in interpret mode, f32 DFT operands) at the sizes of
+``tests/test_models.py:293`` (3 antennas, 1024 channels, 2 beams, 4 taps,
+S = 8, f32 planar B stage). Their window, steering planes and fine-rotation
+planes are carried into the port by :mod:`dpdk_dc_sand_tpu_torch.convert`,
+so both packages feed K1 identical operands. Both sum the same f32 products
+in their own order, so the F planes agree within 1 int8 code on <= 1e-3 of
+samples (a code flips only where a value lies within an f32 ulp of a
+rounding tie); a flipped code moves a beam by at most |w| <= 1 per antenna
+term, hence max |d| <= 2 + 1e-3 with |d| > 1e-3 on <= 5e-3 of the beams, the
+bound of ``tests/test_torch_fbengine.py``. The FXB engine's visibilities are
+held as ``tests/test_torch_fxbengine.py`` holds them: each package's the
+exact gram of its own F planes.
+
+The CUDA side of the f32 form (the FIR pass's f32 plane, the FFMA DFT pass,
+the SIMT body) is held against the plain versions in
+``tests/test_torch_cuda.py``; here its wrappers and its scratch are checked
+on the CPU.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dpdk_dc_sand_tpu.config import ArrayConfig as JArrayConfig
+from dpdk_dc_sand_tpu.models import FXBEngine as JFXBEngine
+from dpdk_dc_sand_tpu.models.fbengine import FBEngine as JFBEngine
+from dpdk_dc_sand_tpu.models.fbengine import _f_stage as j_f_stage
+from dpdk_dc_sand_tpu.ops.fengine_pallas import fine_rotation_planes as j_fine_rotation_planes
+from dpdk_dc_sand_tpu_torch import ArrayConfig
+from dpdk_dc_sand_tpu_torch.convert import from_reference_state
+from dpdk_dc_sand_tpu_torch.models import FBEngine, FXBEngine
+from dpdk_dc_sand_tpu_torch.models.fbengine import _f_stage
+from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+CFG = ArrayConfig(n_ants=3, n_channels=1024, n_beams=2, n_taps=4)
+JCFG = JArrayConfig(**dataclasses.asdict(CFG))
+KW = dict(n_spectra=8, fengine="fused_f32", bstage="planar", precision="f32")
+QUANT = 1.0 / 16.0  # the engines' default gain
+MARGIN = 8192  # as test_models.py:293: the in-kernel coarse delay's padding and budget
+
+
+def _codes_close(got, want):
+    d = np.abs(np.asarray(got).astype(np.int16) - np.asarray(want).astype(np.int16))
+    assert d.max() <= 1 and (d != 0).mean() <= 1e-3, (d.max(), (d != 0).mean())
+
+
+def _beams_close(got, want):
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert d.max() <= 2.0 + 1e-3, d.max()
+    assert (d > 1e-3).mean() <= 5e-3, (d > 1e-3).mean()
+
+
+def _gram(qr, qi):
+    """int64 gram of ``[A, P, S, C]`` planes -> (V_re, V_im) ``[C, I, I]`` f32."""
+    a, p, s, c = qr.shape
+    r, m = (np.asarray(q).astype(np.int64).reshape(a * p, s, c) for q in (qr, qi))
+    g = lambda x, y: np.einsum("isc,jsc->cij", x, y)  # noqa: E731
+    return (g(r, r) + g(m, m)).astype(np.float32), (g(m, r) - g(r, m)).astype(np.float32)
+
+
+def _f_planes(port, ref, adc, cd, fd, ph):
+    """The F planes each engine's step computed: the same F stage calls again."""
+    port_planes = _f_stage(
+        torch.as_tensor(adc), torch.as_tensor(cd), port.window, port._fine_rot(fd, ph),
+        cfg=CFG, n_spectra=KW["n_spectra"], quant_scale=QUANT, fengine="fused_f32",
+    )
+    ref_planes = j_f_stage(
+        jnp.asarray(adc), jnp.asarray(cd), jnp.asarray(fd), jnp.asarray(ph),
+        window=ref.window, cfg=JCFG, n_spectra=KW["n_spectra"], quant_scale=QUANT,
+        use_pallas=None, fengine="fused_f32", fengine_interpret=True,
+        ct_batch_a=ref.ct_batch_a, fengine_rolling=ref.fengine_rolling,
+    )
+    return port_planes, ref_planes
+
+
+@pytest.mark.parametrize("engine", ["fb-flat", "fb-rowed", "fxb-flat"])
+def test_engine_fused_f32_matches_reference(engine):
+    """One step of each engine with ``fengine="fused_f32"`` and a second after
+    a delay update: F planes within 1 code on <= 1e-3, beams within the flip
+    bound, FXB visibilities the exact gram of each package's own planes."""
+    kind, layout = engine.split("-")
+    rowed = layout == "rowed"
+    if kind == "fb":
+        ref = JFBEngine(JCFG, fengine_interpret=True, **KW)
+        port = FBEngine(CFG, device="cpu", **KW)
+    else:
+        ref = JFXBEngine(JCFG, fengine_interpret=True, **KW)
+        port = FXBEngine(CFG, device="cpu", **KW)
+    assert port.fengine == ref.fengine == "fused_f32"
+    assert port.bstage == ref.bstage == "planar"
+    layout_kw = dict(rowed=True) if rowed else {}
+    _, cd, fd, ph, dv = ref.example_inputs(margin=MARGIN, **layout_kw)
+    cd = (cd % 1800).astype(np.int32)  # test_models.py:293's delays
+    t_s = 0.0
+    for step in range(2):
+        if step == 1:  # delay update: new steering phases, fine delays, epoch
+            dv = dv.copy()
+            dv[..., 2] += 0.3
+            fd = (0.5 * fd).astype(np.float32)
+            ph = (-np.pi * fd / 2).astype(np.float32)
+            t_s = 1e-3
+        ref.set_beam_delays(dv, t_s=t_s)
+        adc = ref.example_inputs(seed=10 + step, margin=MARGIN, **layout_kw)[0]
+        want = ref.step(jnp.asarray(adc), cd, fd, ph)
+        if kind == "fb":
+            rot = [np.asarray(r) for r in ref._rot_planes]
+            coeffs = [np.asarray(w) for w in ref._coeff_blocks]
+        else:
+            lead = (CFG.n_ants, CFG.n_pols)
+            rot = [np.asarray(r) for r in j_fine_rotation_planes(
+                jnp.broadcast_to(jnp.asarray(fd)[:, None], lead),
+                jnp.broadcast_to(jnp.asarray(ph)[:, None], lead),
+                n_channels=CFG.n_channels, quant_scale=QUANT,
+            )]
+            coeffs = [np.asarray(w) for w in ref._coeffs]
+        from_reference_state(port, np.asarray(ref.window), coeffs, rot, delay_vals=dv,
+                             frac_delays=fd, phases=ph, t_s=t_s)
+        got = port.step(adc, cd, fd, ph)
+        port_planes, ref_planes = _f_planes(port, ref, adc, cd, fd, ph)
+        for g, w in zip(port_planes, ref_planes):
+            assert g.shape == w.shape == (CFG.n_ants, CFG.n_pols, KW["n_spectra"],
+                                          CFG.n_channels)
+            _codes_close(g.numpy(), w)
+        if kind == "fb":
+            assert got.shape == want.shape
+            _beams_close(got.numpy(), np.asarray(want))
+        else:
+            (gb, gr, gi), (wb, wr, wi) = got, want
+            assert gb.shape == wb.shape
+            _beams_close(gb.numpy(), np.asarray(wb))
+            for gv, wv, gp, rp in zip((gr, gi), (wr, wi), _gram(*port_planes),
+                                      _gram(*ref_planes)):
+                np.testing.assert_array_equal(gv.numpy(), gp)
+                np.testing.assert_array_equal(np.asarray(wv), rp)
+
+
+@pytest.mark.parametrize("batch, s, fft, want", [
+    (160, 256, 65536, 16),  # the flagship: 16 streams' f32 planes, 1.07 GB
+    (5, 256, 65536, 5),
+    (4, 8, 1 << 20, 4),
+    (3, 2048, 1 << 20, 1),  # one f32 plane is more than the scratch: one at a time
+])
+def test_k1_f32_plane_group_bounds_the_scratch(batch, s, fft, want):
+    """An f32 plane takes 4 bytes a sample: half the bf16 group fits."""
+    group = ff._plane_group(batch, s, fft, torch.float32.itemsize)
+    assert group == want
+    assert group == 1 or group * s * fft * 4 <= ff.K1_SCRATCH_BYTES
+    assert ff._plane_group(batch, s, fft) == ff._plane_group(batch, s, fft, 2)
+    assert group <= ff._plane_group(batch, s, fft) <= max(1, 2 * group)
+
+
+def _operands(fft, taps, s, batch, seed):
+    rng = np.random.default_rng(seed)
+    n_in = (s + taps - 1) * fft + 777
+    x = torch.from_numpy(rng.integers(-64, 64, (batch, n_in), dtype=np.int8))
+    starts = torch.from_numpy(rng.integers(0, 777, batch).astype(np.int64))
+    rc, rs = (torch.from_numpy(rng.uniform(-0.1, 0.1, (batch, fft // 2)).astype(np.float32))
+              for _ in range(2))
+    return x, starts, default_window(taps, fft), rc, rs
+
+
+@pytest.mark.parametrize("quantise", [True, False])
+def test_k1_f32_wrappers_take_the_plain_versions_on_cpu(quantise):
+    """``k1_fir_f32``, ``k1_dft_f32`` and ``fengine_ct_simt`` on CPU tensors
+    are the plain versions (f32 DFT operands) and count no launch."""
+    fft, taps, s = 4096, 4, 3
+    x, starts, win, rc, rs = _operands(fft, taps, s, 2, 5 + quantise)
+    n1, n2 = ff._split_ct(fft)
+    counters = (ff.k1_fir_f32, ff.k1_dft_f32, ff.fengine_ct_simt, ff.k1_fir, ff.k1_dft,
+                ff.fengine_fused)
+    launches = [f.launches for f in counters]
+    plane = ff.k1_fir_f32(x, starts, win, n_spectra=s)
+    assert plane.dtype == torch.float32 and plane.shape == (2, s, fft)
+    assert torch.equal(plane, ff.k1_fir_reference(x, starts, win, n_spectra=s,
+                                                  dft_dtype="float32"))
+    kw = dict(n1=n1, n2=n2, quantise=quantise)
+    want = ff.fengine_fused_reference(x, starts, win, rc, rs, n_spectra=s, dft_dtype="float32",
+                                      **kw)
+    for got in (ff.k1_dft_f32(plane, rc, rs, **kw),
+                ff.fengine_ct_simt(x, starts, win, rc, rs, n_spectra=s, **kw)):
+        for g, w in zip(got, want):
+            assert g.dtype == (torch.int8 if quantise else torch.float32)
+            assert torch.equal(g, w)
+    assert [f.launches for f in counters] == launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        ff.k1_fir_f32(x.to("meta"), starts, win, n_spectra=s)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ff.k1_dft_f32(plane.to("meta"), rc, rs, **kw)
+
+
+@pytest.mark.parametrize("n1, n2, dft_dtype, body", [
+    (8, 128, "float32", "simt"),  # N1 = 8: the SIMT body in both types
+    (8, 128, "bfloat16", "simt"),
+    (16, 128, "bfloat16", "two_pass"),
+    (256, 256, "bfloat16", "two_pass"),
+])
+def test_k1_body_is_decided_without_the_library_where_it_can_be(n1, n2, dft_dtype, body):
+    """N1 = 8 and bf16 operands need no kernel library to pick K1's body (f32
+    with N1 >= 16 asks the library for the f32 pass's plan: card tests)."""
+    ff._k1_body.cache_clear()
+    assert ff._k1_body(n1, n2, dft_dtype) == body
