@@ -19,8 +19,10 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    timed beside the f32 passes; K1's FIR passes alone (``k1_fir``,
    ``k1_fir_f32``) bit-exact against ``k1_fir_reference`` on the same
    streams. Then above the old 65536 cap: K1 at fft 2^17, 2^18 and 2^20 (2
-   batches, 16 taps, S=8), bf16 and f32, against plain with the same bound,
-   and ``FBEngine`` /
+   batches, 16 taps, S=8), bf16 and f32, against plain with the same bound;
+   K1 bf16 at fft 2^22 (2048 x 2048, 2 batches, 4 taps, S=2), where the
+   bf16 DFT pass has no plan: it must launch the SIMT body and neither
+   pass, within the bf16 bound of plain, timed; and ``FBEngine`` /
    ``FXBEngine(fengine="auto")`` at 65536 channels (2 ant x 4 beams x 4
    taps, S=128) on the card against the same engine on the CPU: beams
    within 2 + 1e-3 and off by more than 1e-3 on <= 5e-3 of them;
@@ -99,16 +101,25 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    that spills fails the phase;
 12. fengine_dit — K7 through ``fengine_fused(deint="matmul")`` at fft 65536,
    taps 16, S=256 on 8 of the 160 streams, bf16 (K1's FIR pass, then the
-   tensor-core DFT pass) and f32 DFT (the SIMT body): within 1 code on <=
-   1e-3 of samples of ``fengine_dit_reference``; ``deint="bitcast"`` must
-   give the same bytes; bf16 must launch one FIR pass and one DFT pass a
-   call and f32 neither; kernel and plain ms; the DFT pass's registers and
-   spill bytes (a spill fails the phase); cuFFT's rfft of the same streams'
-   f32 FIR as the yardstick. Then K7 bf16 at all 160 flagship streams: its
+   tensor-core DFT pass) and f32 DFT (K1's f32 FIR pass, then the FFMA DFT
+   pass): bf16 within 1 code on <= 1e-3 of samples of
+   ``fengine_dit_reference``, f32 within 1 code on <= 1e-4 (the reference's
+   f32 contract); ``deint="bitcast"`` must give the same bytes; each type
+   must launch its own FIR pass and DFT pass once a group a call and no
+   other pass or the SIMT body; kernel and plain ms; the DFT passes'
+   registers and spill bytes (a spill fails the phase); cuFFT's rfft of the
+   same streams' f32 FIR as the yardstick; f32: the SIMT body through
+   ``fengine_dit_simt`` held to the same plain version and timed, the f32
+   FIR pass on zero starts equal to K7's FIR, the f32 DFT pass alone equal
+   to K7 f32 and timed beside its plain version and bound. Then K7 bf16 at
+   all 160 flagship streams: its
    last 8 streams against plain with the same bound, a FIR pass and a DFT
    pass a group of 32, the whole call, each pass and the DFT pass's stops
    (stage A alone: nothing written; with stage B: each stream's re,
-   checked on a scaled plane) timed, and its scratch;
+   checked on a scaled plane) timed, and its scratch; then K7 f32 on the
+   same 160 streams: its last 8 against plain at the f32 contract, a pair
+   of f32 passes a group of 16, the whole call, each pass alone, the SIMT
+   body and the plain version timed, its bound and scratch;
 13. f_flagship — FEngine at 80 ant x 32768 ch x 16 taps, S=256 on flat int8
    ADC made on the card: 3 steps, a fine-delay change, 2 steps; K6 must
    launch and K1 and K7 must not; the output [80, 2, 256, 32768, 2] int8
@@ -406,8 +417,10 @@ def _k1_counts(ff) -> dict:
     return {k: getattr(ff, k).launches for k in K1_COUNTERS}
 
 
-def _code_diff(tag, got, ref):
-    """max |d| in int8 codes over (qr, qi); raise past 1 code or 1e-3 of samples."""
+def _code_diff(tag, got, ref, max_frac=1e-3):
+    """max |d| in int8 codes over (qr, qi); raise past 1 code or ``max_frac``
+    of samples (1e-3: the bf16 contract; 1e-4: the reference's f32 contract,
+    ``tests/test_fengine_fused.py:84-99``)."""
     import torch
 
     worst = 0
@@ -418,7 +431,7 @@ def _code_diff(tag, got, ref):
         rms = float(r.float().pow(2).mean().sqrt())
         log(f"{tag} {name}: max|d| {dmax} code, frac(d!=0) {frac:.3e}; plain rms "
             f"{rms:.1f} codes, saturated {sat:.2e}")
-        if dmax > 1 or frac > 1e-3:
+        if dmax > 1 or frac > max_frac:
             raise AssertionError(f"{tag} {name} disagrees with plain: {dmax}, {frac}")
         worst = max(worst, dmax)
     return worst
@@ -541,7 +554,59 @@ def phase_k1(st: dict) -> None:
             else:
                 f32["max_abs_err"] = max(f32.get("max_abs_err", 0), err)
     st["k1_subset"]["subset_max_abs_err"] = float(worst)
+    _k1_bf16_simt_2_22(st, gen)
     _engines_above_65536(st)
+
+
+#: K1 bf16's first fft without a two-pass plan (2048 x 2048).
+K1_SIMT_FFT = 1 << 22
+
+
+def _k1_bf16_simt_2_22(st: dict, gen) -> None:
+    """K1 bf16 at fft 2^22 (2048 x 2048), where the two-pass DFT pass has no
+    shared-memory plan: ``fengine_fused`` must take the SIMT body (its FIR
+    streamed in tiles) and neither pass; held to the plain version within
+    the bf16 contract and timed."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    fft, taps, s, nb = K1_SIMT_FFT, 4, 2, 2
+    n1, n2 = ff._split_ct(fft)
+    if ff._k1_body(n1, n2, "bfloat16") != "simt":
+        raise AssertionError(f"K1 bf16 at {n1}x{n2} did not route to the SIMT body")
+    x = torch.randint(-64, 64, (nb, (s + taps - 1) * fft), dtype=torch.int8, device=dev,
+                      generator=gen)
+    fd = torch.rand(nb, device=dev, generator=gen) - 0.5
+    scale = QUANT_SCALE * (65536 / fft) ** 0.5  # the codes' rms as at the flagship
+    win = default_window(taps, fft, device=dev)
+    starts = torch.zeros(nb, dtype=torch.int64, device=dev)
+    rc, rs = (r.reshape(nb, -1) for r in ff.fine_rotation_planes(
+        fd, -1.5 * fd, n_channels=fft // 2, quant_scale=scale))
+
+    def k1():
+        return ff.fengine_fused(x, win, fd, -1.5 * fd, n_channels=fft // 2, quant_scale=scale,
+                                coarse_delays=torch.zeros(nb, device=dev), n_spectra=s)
+
+    counts = _k1_counts(ff)
+    got = k1()
+    torch.cuda.synchronize()
+    ran = {k: v - counts[k] for k, v in _k1_counts(ff).items()}
+    if ran != {k: int(k == "fengine_ct_simt") for k in ran}:
+        raise AssertionError(f"k1 bf16 at fft 2^22 ran {ran}, want the SIMT body alone")
+
+    def plain():
+        return ff.fengine_fused_reference(x, starts, win, rc, rs, n_spectra=s, n1=n1, n2=n2)
+
+    err = _code_diff(f"k1 bfloat16 fft {fft} [{nb} batches x S={s}, {n1}x{n2}, SIMT body]",
+                     got, plain())
+    ms, pms = cuda_ms(k1, iters=1), cuda_ms(plain, iters=1)
+    log(f"k1 bfloat16 fft {fft} [{nb} batches x S={s} x {taps} taps]: the SIMT body {ms:.3f} ms, "
+        f"plain {pms:.3f} ms; launches {ran} ({st['card']})")
+    st["k1_subset"].update(simt_2_22_ms=ms, simt_2_22_plain_ms=pms,
+                           simt_2_22_max_abs_err=float(err))
 
 
 def _engines_above_65536(st: dict) -> None:
@@ -1612,26 +1677,30 @@ def phase_fengine_dit(st: dict) -> None:
     ph = -3.14159265 * fd / 2
     win = default_window(taps, fft, device=dev)
     kw = dict(n_channels=c, quant_scale=QUANT_SCALE)
-    ff.fengine_dit.launches = ff.fengine_fused.launches = 0
-    ff.k1_fir.launches = ff.dit_dft.launches = 0
+    pass_counters = (ff.k1_fir, ff.dit_dft, ff.k1_fir_f32, ff.dit_dft_f32, ff.fengine_dit_simt)
+    for f in (ff.fengine_dit, ff.fengine_fused, *pass_counters):
+        f.launches = 0
     outs, passes = {}, {}
-    for dt in ("bfloat16", "float32"):  # bf16: the two passes; f32: the SIMT body
-        before = (ff.k1_fir.launches, ff.dit_dft.launches)
+    for dt in ("bfloat16", "float32"):  # each type's FIR pass, then its DFT pass
+        before = [f.launches for f in pass_counters]
         for deint in ("matmul", "bitcast"):
             outs[(dt, deint)] = ff.fengine_fused(frames, win, fd, ph, dft_dtype=dt, deint=deint,
                                                  **kw)
         torch.cuda.synchronize()
-        passes[dt] = {"k1_fir": ff.k1_fir.launches - before[0],
-                      "dit_dft": ff.dit_dft.launches - before[1]}
+        passes[dt] = {f.__name__: f.launches - b for f, b in zip(pass_counters, before)}
     launches = {"k7": ff.fengine_dit.launches, "k1": ff.fengine_fused.launches}
-    groups = -(-nb // ff._plane_group(nb, s, fft))  # plane groups a call
+    groups = {dt: -(-nb // ff._plane_group(nb, s, fft, size))  # plane groups a call
+              for dt, size in (("bfloat16", 2), ("float32", 4))}
     log(f"fengine_dit launches: {launches}; its passes by DFT type ({groups} group(s) of "
         f"streams a call): {passes}")
     if launches != {"k7": 4, "k1": 0}:
         raise AssertionError(f"the DIT path did not run through K7 alone: {launches}")
-    two = {"k1_fir": 2 * groups, "dit_dft": 2 * groups}
-    if passes != {"bfloat16": two, "float32": {"k1_fir": 0, "dit_dft": 0}}:
-        raise AssertionError(f"bf16 K7 did not run its two passes, or f32 K7 did: {passes}")
+    want = {dt: {f.__name__: 2 * groups[dt] * (f.__name__ in names) for f in pass_counters}
+            for dt, names in (("bfloat16", ("k1_fir", "dit_dft")),
+                              ("float32", ("k1_fir_f32", "dit_dft_f32")))}
+    if passes != want:
+        raise AssertionError(f"K7 did not run each type's two passes alone: {passes}, want "
+                             f"{want}")
     _, n1, n2 = ff._deint_mode(c, "matmul")
     rc, rs = (r.reshape(nb, c) for r in ff._rotation_planes(fd, ph, c, QUANT_SCALE, (c,)))
     x = frames.view(nb, n_frames, fft)
@@ -1643,8 +1712,13 @@ def phase_fengine_dit(st: dict) -> None:
         def plain():
             return ff.fengine_dit_reference(x, win, rc, rs, n1=n1, n2=n2, dft_dtype=dt)
 
-        worst = max(worst, _code_diff(f"k7 {dt} [{nb} streams x S={s} x fft {fft}, "
-                                      f"{n1}x{n2}]", [g.view(nb, s, c) for g in got], plain()))
+        err = _code_diff(f"k7 {dt} [{nb} streams x S={s} x fft {fft}, {n1}x{n2}]",
+                         [g.view(nb, s, c) for g in got], plain(),
+                         max_frac=1e-3 if dt == "bfloat16" else 1e-4)
+        if dt == "bfloat16":
+            worst = max(worst, err)
+        else:
+            f32_err = err
         if not (torch.equal(got[0], bc[0]) and torch.equal(got[1], bc[1])):
             raise AssertionError(f"k7 {dt}: deint='bitcast' is not the bytes of 'matmul'")
         times[dt] = (cuda_ms(lambda: ff.fengine_fused(frames, win, fd, ph, dft_dtype=dt,
@@ -1671,14 +1745,55 @@ def phase_fengine_dit(st: dict) -> None:
         f"{rfft_ms:.3f} ms ({st['card']})")
     if at["local_bytes"]:
         raise AssertionError(f"K7's DFT pass spills: {at}")
+    # f32 K7 on the same streams: the SIMT body through its own entry (held to
+    # the same plain version), each f32 pass alone, the f32 pass's body.
+    ff.fengine_dit_simt.launches = 0
+    simt = ff.fengine_dit_simt(x, win, rc, rs, n1=n1, n2=n2)
+    _code_diff(f"k7 f32 SIMT body [{nb} streams]", simt,
+               ff.fengine_dit_reference(x, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32"),
+               max_frac=1e-4)
+    del simt
+    simt_ms = cuda_ms(lambda: ff.fengine_dit_simt(x, win, rc, rs, n1=n1, n2=n2))
+    flat, zeros = x.view(nb, n_frames * fft), torch.zeros(nb, dtype=torch.int64, device=dev)
+    plane = ff.k1_fir_f32(flat, zeros, win, n_spectra=s)
+    if not torch.equal(plane, ff._dit_fir(x, win)):
+        raise AssertionError("K1's f32 FIR pass on zero starts is not K7's f32 FIR")
+    pr, pi = ff.dit_dft_f32(plane, rc, rs, n1=n1, n2=n2)
+    got = ff.fengine_fused(frames, win, fd, ph, dft_dtype="float32", deint="matmul", **kw)
+    if not (torch.equal(pr, got[0].view(nb, s, c)) and torch.equal(pi, got[1].view(nb, s, c))):
+        raise AssertionError("K7 f32's DFT pass alone differs from K7 f32 on the same streams")
+    del pr, pi, got
+    fir_ms = cuda_ms(lambda: ff.k1_fir_f32(flat, zeros, win, n_spectra=s))
+    dft_ms = cuda_ms(lambda: ff.dit_dft_f32(plane, rc, rs, n1=n1, n2=n2))
+    dft_plain_ms = cuda_ms(lambda: ff.dit_dft_f32_reference(plane, rc, rs, n1=n1, n2=n2),
+                           iters=1)
+    del plane
+    a32 = ff.dit_dft_f32_attributes(n1, n2)
+    if a32["local_bytes"]:
+        raise AssertionError(f"K7's f32 DFT pass spills: {a32}")
+    dft32_bound = bound(nb * s * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c, f32=2 * macs * nb * s)
+    log(f"k7 f32 [{nb} streams x S={s} x fft {fft}]: two passes {times['float32'][0]:.3f} ms "
+        f"(bound {f32_bound['bound_ms']:.3f}), the SIMT body {simt_ms:.3f} ms "
+        f"({simt_ms / times['float32'][0]:.2f}x), plain {times['float32'][1]:.3f} ms; f32 FIR "
+        f"pass {fir_ms:.3f} ms, f32 DFT pass {dft_ms:.3f} ms (bound "
+        f"{dft32_bound['bound_ms']:.3f}, {dft32_bound['bound_ms'] / dft_ms:.1%} of it; plain "
+        f"{dft_plain_ms:.3f}); the f32 DFT pass's body {a32} ({st['card']})")
     st["k7"] = dict(max_abs_err=float(worst), ms=times["bfloat16"][0],
                     plain_ms=times["bfloat16"][1], **k7_bound, library_ms=None,
                     f32_ms=times["float32"][0], f32_plain_ms=times["float32"][1],
-                    f32_bound_ms=f32_bound["bound_ms"], launches=launches["k7"],
+                    f32_bound_ms=f32_bound["bound_ms"], f32_simt_ms=simt_ms,
+                    f32_max_abs_err=float(f32_err), launches=launches["k7"],
                     fir_launches=passes["bfloat16"]["k1_fir"],
                     dft_launches=passes["bfloat16"]["dit_dft"], rfft_ms=rfft_ms,
                     dft_regs=at["regs"], dft_local_bytes=at["local_bytes"])
-    del frames, x
+    st["dit_dft_f32"] = dict(max_abs_err=float(f32_err), subset_ms=dft_ms,
+                             subset_plain_ms=dft_plain_ms, subset_fir_ms=fir_ms,
+                             subset_bound_ms=dft32_bound["bound_ms"],
+                             launches=passes["float32"]["dit_dft_f32"],
+                             fir_launches=passes["float32"]["k1_fir_f32"],
+                             regs=a32["regs"], local_bytes=a32["local_bytes"],
+                             kc=a32["kc"], sb=a32["sb"])
+    del frames, x, flat
     torch.cuda.empty_cache()
     _k7_flagship(st, n1, n2, gen)
 
@@ -1768,6 +1883,92 @@ def _k7_flagship(st: dict, n1: int, n2: int, gen) -> None:
         f"({st['card']})")
     st["k7"].update(ms_160=ms, max_abs_err_160=float(err), fir_ms=fir_ms, dft_ms=dft_ms,
                     dft_stop_ms=stop_ms, scratch_bytes=scratch, launches_160=launches)
+    _k7_f32_flagship(st, n1, n2, frames, win, rc, rs)
+
+
+def _k7_f32_flagship(st: dict, n1: int, n2: int, frames, win, rc, rs) -> None:
+    """K7 f32 at the flagship's full width (the same 160 streams): K1's f32
+    FIR pass and the FFMA DFT pass a group of 16; checked on its last 8
+    streams against plain at the f32 contract; timed whole, each pass alone
+    over all 160 streams (into a whole f32 plane), the SIMT body and the
+    plain version; its bound, scratch and launches."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+
+    dev = torch.device("cuda")
+    nb, n_frames, fft = frames.shape
+    taps, c = win.shape[0], fft // 2
+    s = n_frames - taps + 1
+
+    def k7():
+        return ff.fengine_dit(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32")
+
+    counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.fengine_dit_simt, ff.k1_fir,
+                ff.dit_dft)
+    for f in counters:
+        f.launches = 0
+    got = k7()
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counters}
+    groups = -(-nb // ff._plane_group(nb, s, fft, 4))
+    if launches != dict(fengine_dit=1, k1_fir_f32=groups, dit_dft_f32=groups,
+                        fengine_dit_simt=0, k1_fir=0, dit_dft=0):
+        raise AssertionError(f"K7 f32 at {nb} streams did not run a pair of f32 passes a "
+                             f"group alone: {launches}")
+    last = slice(nb - 8, nb)
+    err = _code_diff(f"k7 f32 [streams {nb - 8}..{nb - 1} of {nb} x S={s} x fft {fft}]",
+                     [g[last] for g in got],
+                     ff.fengine_dit_reference(frames[last], win, rc[last], rs[last], n1=n1,
+                                              n2=n2, dft_dtype="float32"), max_frac=1e-4)
+    del got
+    ms = cuda_ms(k7, iters=2)
+    simt_ms = cuda_ms(lambda: ff.fengine_dit_simt(frames, win, rc, rs, n1=n1, n2=n2), iters=1)
+
+    def chunks(fn):
+        def run():
+            for b0 in range(0, nb, 8):
+                fn(slice(b0, b0 + 8))
+        return run
+
+    plain_ms = cuda_ms(chunks(lambda b: ff.fengine_dit_reference(
+        frames[b], win, rc[b], rs[b], n1=n1, n2=n2, dft_dtype="float32")), iters=1)
+    flat = frames.view(nb, n_frames * fft)
+    zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
+    fir_ms = cuda_ms(lambda: ff.k1_fir_f32(flat, zeros, win, n_spectra=s), iters=2)
+    plane = ff.k1_fir_f32(flat, zeros, win, n_spectra=s)
+    dft_ms = cuda_ms(lambda: ff.dit_dft_f32(plane, rc, rs, n1=n1, n2=n2), iters=2)
+    dft_plain_ms = cuda_ms(chunks(lambda b: ff.dit_dft_f32_reference(
+        plane[b], rc[b], rs[b], n1=n1, n2=n2)), iters=1)
+    del plane
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = k7()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - before - sum(
+        o.numel() * o.element_size() for o in outs)
+    del outs
+    macs = 4 * n1 * n1 * n2 + 8 * n2 * n2 * n1
+    k7_bound = bound(nb * n_frames * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
+                     f32=2 * macs * nb * s + 2 * taps * fft * nb * s)
+    fir_bound = bound(nb * n_frames * fft + taps * fft * 4 + nb * s * fft * 4,
+                      f32=2 * taps * fft * nb * s)
+    dft_bound = bound(nb * s * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c, f32=2 * macs * nb * s)
+    log(f"k7 f32 [{nb} streams x S={s} x fft {fft}]: {ms:.3f} ms (bound "
+        f"{k7_bound['bound_ms']:.3f}, {k7_bound['bound_by']}), the SIMT body {simt_ms:.3f} ms "
+        f"({simt_ms / ms:.2f}x), plain {plain_ms:.3f}; f32 FIR pass {fir_ms:.3f} (bound "
+        f"{fir_bound['bound_ms']:.3f}, {fir_bound['bound_by']}), f32 DFT pass {dft_ms:.3f} "
+        f"(bound {dft_bound['bound_ms']:.3f}, {dft_bound['bound_by']}, "
+        f"{dft_bound['bound_ms'] / dft_ms:.1%} of it; plain {dft_plain_ms:.3f}); scratch "
+        f"{scratch / 1e9:.3f} GB a call (peak over its outputs); launches {launches} "
+        f"({st['card']})")
+    st["k7"].update(f32_ms_160=ms, f32_simt_ms_160=simt_ms, f32_plain_ms_160=plain_ms,
+                    f32_bound_ms_160=k7_bound["bound_ms"], f32_max_abs_err_160=float(err),
+                    f32_fir_ms=fir_ms, f32_dft_ms=dft_ms, f32_scratch_bytes=scratch,
+                    f32_launches_160=launches)
+    st["dit_dft_f32"].update(ms=dft_ms, plain_ms=dft_plain_ms, **dft_bound, library_ms=None,
+                             max_abs_err_160=float(err), launches_160=launches["dit_dft_f32"])
 
 
 def _plain_fir(samples, window):
@@ -3874,6 +4075,12 @@ def main() -> int:
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_dit.cu",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:275", path="fengine_dit",
              **st["k7"]),
+        dict(name="dit_dft_f32", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/fengine_dit.cu",
+             kernel="dit_dft_f32_kernel: K7's DFT pass with f32 operands (FFMA), after "
+                    "k1_fir_kernel<..., float>",
+             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:275", path="fengine_dit",
+             **st["dit_dft_f32"]),
         dict(name="corner_turn_plane_native", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/corner_turn.cu",
              replaces="dpdk_dc_sand_tpu/ops/corner_turn.py:123", path="fb_native_flagship",

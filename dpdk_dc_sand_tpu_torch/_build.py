@@ -96,6 +96,10 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, quantise
         _P,  # stream
     ],
+    "k1_dft_attributes": [
+        _I, _I,  # n1, n2
+        _P,  # out (int[6]): registers, local bytes, KC, K-tile depth, stages, shared-memory bytes
+    ],
     "k1_dft_f32_launch": [
         _P,  # plane [B, S, N1, N2] f32
         _P, _P, _P,  # f32 d1c, d1s [N1, N1], d2 stack transposed [N2, N2]
@@ -218,6 +222,20 @@ _SIGNATURES = {
     "dit_dft_attributes": [
         _I, _I,  # n1, n2
         _P,  # out (int[6]): registers, local bytes, KC, K-tile depth, stages, shared-memory bytes
+    ],
+    "dit_dft_f32_launch": [
+        _P,  # plane [B, S, fft] f32
+        _P, _P, _P,  # f32 d1c, d1s [N1, N1], d2h [2, N2, N2] (each half of k2 transposed)
+        _P, _P, _P, _P,  # twc, tws [N1, N2], untc, unts [N2, N1]
+        _P, _P,  # rotc, rots [B, N]
+        _P, _P,  # outr, outi [B, S, N] int8
+        _I, _I, _I, _I,  # batch, n_spectra, n1, n2
+        _P,  # stream
+    ],
+    "dit_dft_f32_attributes": [
+        _I, _I,  # n1, n2
+        _P,  # out (int[8]): registers, local bytes, KC, SB, stage-B K-tile depth, stages,
+        # shared-memory bytes, threads
     ],
     "ct_probe_launch": [
         _P, _P, _P,  # qr, qi [A, P, S, C] int8, out

@@ -91,11 +91,14 @@
 // slowest arithmetic: 67 TFLOP/s, so the 5.5 TFLOP of a flagship step bound
 // the pass at 82.1 ms (4.10 ms on 8 streams).
 //
-// N1 = 8, where a 16-row tile does not fit, and f32 splits the f32 pass has
-// no plan for (N2 > 1024) take fengine_ct_kernel: one block per (spectrum,
-// batch), SIMT FMA on register micro-tiles, k1 walked in chunks of kc rows
-// (kc shrinks with N2 so the T planes fit); in f32 mode each stage-A K tile
-// recomputes its [KTA, NTA] slice of the FIR from global memory.
+// N1 = 8, where a 16-row tile does not fit, and the splits the DFT passes
+// have no plan for (f32: N2 > 1024; bf16: N2 >= 2048, fft >= 2^22) take
+// fengine_ct_kernel: one block per (spectrum, batch), SIMT FMA on register
+// micro-tiles, k1 walked in chunks of kc rows (kc shrinks with N2 so the T
+// planes fit); in f32 mode, and in bf16 where the whole bf16 FIR plane does
+// not fit in shared memory, each stage-A K tile recomputes its [KTA, NTA]
+// slice of the FIR from global memory. The wrapper (_k1_body) asks
+// k1_dft_attributes / k1_dft_f32_attributes for a plan before any launch.
 //
 // Stage stops (the probes P5 and P4: benchmarks/ct_ablate.py and
 // benchmarks/dma_bisect.py of the JAX package, the trimmed copies of
@@ -143,7 +146,7 @@ __device__ __forceinline__ int8_t trunc_s8(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// SIMT body (f32 DFT operands, or bf16 with N1 = 8)
+// SIMT body (f32 DFT operands, or bf16 where the two passes have no plan)
 // ---------------------------------------------------------------------------
 constexpr int THREADS = 256;
 constexpr int KC = 32;   // most k1 rows per chunk (capped at N1; shrinks with N2)
@@ -206,7 +209,11 @@ __device__ __forceinline__ void store_rotated(void* outr, void* outi, long long 
   }
 }
 
-template <bool BF16, bool QUANT>
+// WHOLE: the bf16 FIR plane is computed once into shared memory (the N1 = 8
+// splits); otherwise each stage-A K tile recomputes its [KTA, NTA] slice of
+// the FIR from global memory, rounded to the operand type (f32 mode, and
+// bf16 at fft >= 2^22, where neither the plane nor a two-pass plan fits).
+template <bool BF16, bool QUANT, bool WHOLE = BF16>
 __global__ void __launch_bounds__(THREADS) fengine_ct_kernel(Params p) {
   using OpT = std::conditional_t<BF16, __nv_bfloat16, float>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -226,15 +233,15 @@ __global__ void __launch_bounds__(THREADS) fengine_ct_kernel(Params p) {
   float* sAs = sAc + kc * KTA;                  // [kc][KTA]
   float* sBc = sAs + kc * KTA;                  // [MTB][KTB]
   float* sBs = sBc + MTB * KTB;                 // [MTB][KTB]
-  float* sXt = sBs + MTB * KTB;                 // f32 mode: [KTA][NTA]
-  OpT* sTr = reinterpret_cast<OpT*>(sXt + (BF16 ? 0 : KTA * NTA));  // [kc][ts]
+  float* sXt = sBs + MTB * KTB;                 // !WHOLE: [KTA][NTA]
+  OpT* sTr = reinterpret_cast<OpT*>(sXt + (WHOLE ? 0 : KTA * NTA));  // [kc][ts]
   OpT* sTi = sTr + kc * ts;
-  // bf16 mode: the whole FIR plane [N1][N2], 16-byte aligned after sT.
+  // WHOLE: the whole bf16 FIR plane [N1][N2], 16-byte aligned after sT.
   const size_t t_bytes = 2 * kc * ts * sizeof(OpT);
   __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(
       reinterpret_cast<unsigned char*>(sTr) + ((t_bytes + 15) & ~size_t(15)));
 
-  if constexpr (BF16) {
+  if constexpr (WHOLE) {
     for (int e = tid; e < fft; e += THREADS) {
       sX[e] = __float2bfloat16_rn(fir_at(xs, p.win, fft, p.n_taps, e));
     }
@@ -264,11 +271,11 @@ __global__ void __launch_bounds__(THREADS) fengine_ct_kernel(Params p) {
           sAc[r * KTA + c] = op_round<BF16>(__ldg(p.d1c + g));
           sAs[r * KTA + c] = op_round<BF16>(__ldg(p.d1s + g));
         }
-        if constexpr (!BF16) {
+        if constexpr (!WHOLE) {
           for (int i = tid; i < kta * NTA; i += THREADS) {
             const int r = i / NTA, c = i % NTA;
             sXt[r * NTA + c] =
-                fir_at(xs, p.win, fft, p.n_taps, (kt + r) * n2 + c0 + c);
+                op_round<BF16>(fir_at(xs, p.win, fft, p.n_taps, (kt + r) * n2 + c0 + c));
           }
         }
         __syncthreads();
@@ -277,7 +284,7 @@ __global__ void __launch_bounds__(THREADS) fengine_ct_kernel(Params p) {
             float xv[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              if constexpr (BF16) {
+              if constexpr (WHOLE) {
                 xv[j] = __bfloat162float(sX[(kt + kk) * n2 + c0 + a_c + j]);
               } else {
                 xv[j] = sXt[kk * NTA + a_c + j];
@@ -377,27 +384,28 @@ __global__ void __launch_bounds__(THREADS) fengine_ct_kernel(Params p) {
   }
 }
 
-size_t smem_bytes(bool bf16, int n1, int n2, int kc) {
+size_t smem_bytes(bool bf16, bool whole, int n1, int n2, int kc) {
   const size_t ts = n2 + 1;
   size_t bytes = sizeof(float) * (2 * kc * KTA + 2 * MTB * KTB);
-  if (bf16) {
-    bytes += (2 * kc * ts * sizeof(__nv_bfloat16) + 15) & ~size_t(15);
+  const size_t op = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  if (whole) {
+    bytes += (2 * kc * ts * op + 15) & ~size_t(15);
     bytes += static_cast<size_t>(n1) * n2 * sizeof(__nv_bfloat16);
   } else {
     bytes += sizeof(float) * KTA * NTA;
-    bytes += 2 * kc * ts * sizeof(float);
+    bytes += 2 * kc * ts * op;
   }
   return bytes;
 }
 
-template <bool BF16, bool QUANT>
+template <bool BF16, bool QUANT, bool WHOLE = BF16>
 cudaError_t launch(const Params& p, int batch, size_t bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fengine_ct_kernel<BF16, QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  auto kern = fengine_ct_kernel<BF16, QUANT, WHOLE>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   dim3 grid(p.n_spectra, batch);
-  fengine_ct_kernel<BF16, QUANT><<<grid, THREADS, bytes, stream>>>(p);
+  kern<<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1104,23 +1112,26 @@ cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream
   return cudaGetLastError();
 }
 
-template <bool QUANT, int STOP = STOP_NONE>
-int dft_dispatch(DftParams p, int batch, cudaStream_t st) {
-  // The largest chunk whose T planes and ring fit (64 rows up to N2 = 256).
+// Calls fn(std::integral_constant<int, KC>, plan, bytes) with the largest
+// chunk whose T planes and ring fit (64 rows up to N2 = 256), or returns
+// NO_PLAN (N2 >= 2048).
+template <typename Fn>
+int with_dft_plan(const DftParams& p, Fn fn) {
   DftParams q = p;
   size_t bytes;
-  if ((bytes = dft_plan<64>(q))) {
-    return static_cast<int>(launch_dft<64, QUANT, STOP>(q, batch, bytes, st));
-  }
+  if ((bytes = dft_plan<64>(q))) return fn(std::integral_constant<int, 64>{}, q, bytes);
   q = p;
-  if ((bytes = dft_plan<32>(q))) {
-    return static_cast<int>(launch_dft<32, QUANT, STOP>(q, batch, bytes, st));
-  }
+  if ((bytes = dft_plan<32>(q))) return fn(std::integral_constant<int, 32>{}, q, bytes);
   q = p;
-  if ((bytes = dft_plan<16>(q))) {
-    return static_cast<int>(launch_dft<16, QUANT, STOP>(q, batch, bytes, st));
-  }
+  if ((bytes = dft_plan<16>(q))) return fn(std::integral_constant<int, 16>{}, q, bytes);
   return NO_PLAN;
+}
+
+template <bool QUANT>
+int dft_dispatch(const DftParams& p, int batch, cudaStream_t st) {
+  return with_dft_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
+    return static_cast<int>(launch_dft<decltype(kc)::value, QUANT>(q, batch, bytes, st));
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -1556,9 +1567,18 @@ extern "C" const char* dcsand_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The single-pass SIMT body: f32 DFT operands, or bf16 with N1 = 8 (bf16
-// with N1 >= 16 is the two-pass form's). quantise = 0 writes f32 outputs
-// instead of int8. Returns -1 where no chunk's plan fits shared memory.
+// The two-pass bf16 DFT pass's plan (-1: none).
+static int dft_plan_kc(int n1, int n2) {
+  DftParams p{};
+  p.n1 = n1;
+  p.n2 = n2;
+  return with_dft_plan(p, [](auto kc, const DftParams&, size_t) { return decltype(kc)::value; });
+}
+
+// The single-pass SIMT body: f32 DFT operands, or bf16 where the two-pass
+// form's DFT pass has no plan (N1 = 8, or N2 >= 2048: fft >= 2^22).
+// quantise = 0 writes f32 outputs instead of int8. Returns -1 where no
+// chunk's plan fits shared memory.
 extern "C" int fengine_ct_launch(
     const void* x, long long batch_stride, const void* starts,
     const void* win, const void* d1c, const void* d1s, const void* d2,
@@ -1566,12 +1586,15 @@ extern "C" int fengine_ct_launch(
     void* outr, void* outi, int batch, int n_spectra, int n_taps, int n1,
     int n2, int bf16_ops, int quantise, void* stream) {
   if (n1 < 8 || !pow2(n1) || n2 < 128 || !pow2(n2) || n_spectra < 1 || batch < 1 ||
-      batch > 65535 || n_taps < 1 || (bf16_ops && n1 >= 16)) {
+      batch > 65535 || n_taps < 1 || (bf16_ops && n1 >= 16 && dft_plan_kc(n1, n2) != NO_PLAN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // bf16 keeps its whole FIR plane in shared memory where that fits at 2-row
+  // chunks (N1 = 8); otherwise it recomputes FIR tiles, as f32 does.
+  const bool whole = bf16_ops && smem_bytes(true, true, n1, n2, 2) <= MAX_SMEM;
   int kc = n1 < KC ? n1 : KC;
-  while (kc > 2 && smem_bytes(bf16_ops, n1, n2, kc) > MAX_SMEM) kc /= 2;
-  const size_t bytes = smem_bytes(bf16_ops, n1, n2, kc);
+  while (kc > 2 && smem_bytes(bf16_ops, whole, n1, n2, kc) > MAX_SMEM) kc /= 2;
+  const size_t bytes = smem_bytes(bf16_ops, whole, n1, n2, kc);
   if (bytes > MAX_SMEM) return NO_PLAN;
   Params p{static_cast<const int8_t*>(x), batch_stride,
            static_cast<const long long*>(starts),
@@ -1582,8 +1605,11 @@ extern "C" int fengine_ct_launch(
            outr, outi, n_spectra, n_taps, n1, n2, kc};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (bf16_ops) {
+  if (bf16_ops && whole) {
     err = quantise ? launch<true, true>(p, batch, bytes, st) : launch<true, false>(p, batch, bytes, st);
+  } else if (bf16_ops) {
+    err = quantise ? launch<true, true, false>(p, batch, bytes, st)
+                   : launch<true, false, false>(p, batch, bytes, st);
   } else {
     err = quantise ? launch<false, true>(p, batch, bytes, st)
                    : launch<false, false>(p, batch, bytes, st);
@@ -1638,6 +1664,32 @@ extern "C" int k1_dft_launch(const void* plane, const void* d1c, const void* d1s
   p.n2 = n2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return quantise ? dft_dispatch<true>(p, batch, st) : dft_dispatch<false>(p, batch, st);
+}
+
+// The bf16 DFT pass's plan and body at N1 x N2, -1 where it has none (the
+// shape then takes the SIMT body): out int[6] = registers a thread, local
+// (spill) bytes a thread, KC, K-tile depth, ring stages, shared-memory bytes.
+extern "C" int k1_dft_attributes(int n1, int n2, void* out) {
+  if (n1 < 16 || !pow2(n1) || n2 < 128 || !pow2(n2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DftParams p{};
+  p.n1 = n1;
+  p.n2 = n2;
+  int* o = static_cast<int*>(out);
+  return with_dft_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
+    constexpr int K = decltype(kc)::value;
+    cudaFuncAttributes a{};
+    const cudaError_t err = cudaFuncGetAttributes(&a, k1_dft_kernel<K, true>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    o[0] = a.numRegs;
+    o[1] = static_cast<int>(a.localSizeBytes);
+    o[2] = K;
+    o[3] = q.kt;
+    o[4] = q.stages;
+    o[5] = static_cast<int>(bytes);
+    return 0;
+  });
 }
 
 // Pass 2 with f32 DFT operands: plane [batch, n_spectra, N1, N2] f32 (16-byte

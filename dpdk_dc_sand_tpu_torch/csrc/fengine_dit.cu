@@ -24,7 +24,7 @@
 // streams at S = 256 are 275 GFLOP: 0.28 ms at the bf16 tensor rate, 4.1
 // ms at the f32 SIMT rate; its bytes (0.28 GB) take 0.08 ms.
 //
-// Two bodies, picked by the wrapper (ops/fengine_fused.py:_dit_body):
+// Three bodies, picked by the wrapper (ops/fengine_fused.py:_dit_body):
 //
 // A. bf16 DFT operands with N1 >= 16, where a shared-memory plan exists
 //    (every split from 16·64 to 1024·1024): two passes over groups of
@@ -78,9 +78,13 @@
 //    one compile-time step. Halving stage A's warp width (16 columns) or
 //    every stage-B warp's (8 columns) spilled or ran slower, and 4 stages
 //    of 32-deep K tiles ran slower at 256·128 than 3 stages of 64.
-// B. f32 DFT operands, N1 = 8 (fft 512 and 1024 "auto", fft 2048
-//    "bitcast"), and any split without a plan: fengine_dit_kernel, SIMT FMA
-//    on register micro tiles, described next. P2's stops cut this body.
+// A'. f32 DFT operands with N1 >= 16 and 64 <= N2 <= 512: two passes as
+//    well, K1's FIR pass into an f32 plane (the exact f32 sums, K7's f32
+//    FIR), then dit_dft_f32_kernel: K1's f32 FFMA DFT pass on this form's
+//    operand (its design is at the kernel).
+// B. N1 = 8 (fft 512 and 1024 "auto", fft 2048 "bitcast") and any split
+//    without a plan: fengine_dit_kernel, SIMT FMA on register micro tiles,
+//    described next. P2's stops cut this body.
 //
 // SIMT design. One block per (spectrum s, stream b), as K1's SIMT body. The
 // four [N1, N2] planes between the stages (even and odd, re and im) do not
@@ -953,6 +957,416 @@ int with_plan(const DftParams& p, Fn fn) {
   return NO_PLAN;
 }
 
+// ---------------------------------------------------------------------------
+// The f32 two-pass body's DFT pass: register-blocked FFMA (exact f32
+// products and sums; no tensor core, no TF32)
+// ---------------------------------------------------------------------------
+// K1's f32 DFT pass (k1_dft_f32_kernel, csrc/fengine_ct.cu) on the DIT
+// form's operand. A unit is (stream, block of SB spectra, chunk of KC k1
+// rows); persistent blocks of 256 threads (one an SM) walk the units chunk
+// fastest, so the chunks of one block of spectra run side by side and its
+// plane rows stay in L2. A cp.async ring of 4 slots streams one tile
+// sequence through every unit, kept 3 tiles ahead of the compute:
+//   stage A tiles: [KTA x SB·2N2] of the plane viewed [N1, 2·N2] (row n1
+//     holds both streams' row n1, interleaved: column 2·n2 + q is stream
+//     q's element (n1, n2)) and [KTA x 2KC] of the N1-point matrix (cos,
+//     -sin; symmetric, read as [n1][k1]). A thread owns 4 k1 rows x 8
+//     columns (64 FFMA for 4 shared loads a step), so one real-input
+//     product covers both streams with no deinterleave. After the last K
+//     tile one f32 twiddle exp(-2πi k1 n2 / N) serves both streams'
+//     columns of an n2, and the four T planes (even re, even im, odd re,
+//     odd im) [SB·KC][N2] land in shared memory;
+//   stage B tiles, in two halves of the k2 range (all N2 values of k2, not
+//     K1's half): [KTB x N2] of the half's N2-point matrix, transposed
+//     ([n2][cos of the half's k2, then -sin]). A thread owns 4 k2 x 2 T
+//     rows x both streams x the four sums cos.tr, -sin.ti, cos.ti, -sin.tr
+//     (64 accumulators; 4 shared loads feed 64 FFMA, as in K1); then the
+//     plain version's epilogue: each stream's re and im, X = E +
+//     (untc + i·unts)·O in f32, the rotation, rint, clip, int8.
+// Against K1's f32 pass a T row holds 4·N2 floats, not 2·N2, so with the
+// same 64 KB of T planes and the same stage-A tile (KC · SB · 2N2 = 8192)
+// SB halves: KC = 16 with SB = 256 / N2 up to N2 = 256 (two spectra a unit
+// at the flagship's 256·128), KC = 8 at N2 = 512. N2 = 1024 (fft 2^21) and
+// N1 = 8 have no plan: they stay on the SIMT body (dit_dft_f32_attributes
+// decides). T rows are XOR-swizzled by 16-byte groups ((row / 2) % 8), so
+// stage A's row-wise float2 stores and stage B's reads of two rows at a
+// time are both free of bank conflicts.
+// What bounds it: the f32 FFMA rate, the same operation count as K1's f32
+// pass at the same fft (4.10 ms on 8 flagship streams).
+constexpr int F32_THREADS = 256;
+constexpr int F32_OUT = 32 * F32_THREADS;  // KC * SB * 2·N2: stage-A outputs / 2
+constexpr int F32_SLOT = 8192;             // most floats a stage-B tile takes
+constexpr int F32_STAGES = 4;              // ring slots
+constexpr int F32_TP = F32_OUT / 2;        // floats a T plane: SB·KC rows of N2
+
+// Floats a ring slot of a KC-row chunk: a stage-A tile ([KTA x NCOL] of the
+// plane and [KTA x 2KC] of the N1-point matrix, KTA = KC) or a stage-B tile.
+template <int KC>
+__host__ __device__ constexpr int f32_slot() {
+  return KC * (F32_OUT / KC) + KC * 2 * KC > F32_SLOT ? KC * (F32_OUT / KC) + KC * 2 * KC
+                                                      : F32_SLOT;
+}
+
+// Shared-memory bytes of a KC-row chunk: the four T planes and the ring.
+template <int KC>
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * (4 * static_cast<size_t>(F32_TP) +
+                          static_cast<size_t>(F32_STAGES) * f32_slot<KC>());
+}
+static_assert(f32_smem_bytes<16>() <= MAX_SMEM && f32_smem_bytes<8>() <= MAX_SMEM,
+              "the f32 DFT pass's 4-slot ring must fit beside its T planes");
+
+struct F32Params {
+  const float* plane;  // [G, S, N1, 2·N2] f32
+  const float* d1c;    // [N1, N1] cos (symmetric)
+  const float* d1s;    // [N1, N1] -sin (symmetric)
+  const float* d2h;    // [2][N2][N2]: half h, row n2: cos(2π k2 n2 / N2) for
+                       // k2 = h·N2/2 + j (j < N2/2), then -sin
+  const float* twc;    // [N1, N2]
+  const float* tws;
+  const float* untc;   // [N2, N1]
+  const float* unts;
+  const float* rotc;   // [G, N]
+  const float* rots;
+  int8_t* outr;        // [G, S, N]
+  int8_t* outi;
+  int n_spectra, n1, n2;
+  int sb, ktb;             // spectra a unit; stage-B K-tile depth
+  int n_kta, n_ktb;        // K tiles: stage A; each half of stage B
+  int n_chunks, n_sblk;    // k1 chunks; blocks of SB spectra a stream
+  int n_units;             // G * n_sblk * n_chunks
+};
+
+// The swizzled float index of T row `row`, even column `col` (a float2 or a
+// 4-aligned float4 stays whole).
+__device__ __forceinline__ int t_at(int row, int col, int n2) {
+  return row * n2 + (col ^ (((row >> 1) & 7) << 2));
+}
+
+// A block's walk: unit i of the block (unit blockIdx.x + i * gridDim.x),
+// tile `local` of the unit.
+struct F32Cursor {
+  int i, local;
+  int b, s0, k0;  // stream, first spectrum, first k1 row
+};
+
+template <int KC>
+__device__ __forceinline__ void f32_set_unit(const F32Params& p, F32Cursor& c) {
+  const int u = blockIdx.x + c.i * gridDim.x;
+  c.k0 = (u & (p.n_chunks - 1)) * KC;
+  const int rest = u >> lg(p.n_chunks);
+  c.s0 = (rest % p.n_sblk) * p.sb;
+  c.b = rest / p.n_sblk;
+}
+
+template <int KC>
+__device__ __forceinline__ void f32_advance(const F32Params& p, F32Cursor& c, int tpu) {
+  if (++c.local == tpu) {
+    c.local = 0;
+    ++c.i;
+    f32_set_unit<KC>(p, c);
+  }
+}
+
+// Issue the cp.async copies of one tile into a ring slot (16 bytes a copy).
+template <int KC>
+__device__ __forceinline__ void f32_load_tile(const F32Params& p, const F32Cursor& c,
+                                              float* slot) {
+  constexpr int KTA = KC, NCOL = F32_OUT / KC, NT = F32_THREADS;
+  const int tid = threadIdx.x;
+  const int n1 = p.n1, w2 = 2 * p.n2;
+  if (c.local < p.n_kta) {
+    // [KTA x NCOL] of the plane: row r is n1 = kt0 + r of each spectrum;
+    // column s * 2N2 + 2·n2 + q. Spectra past the stream's last are not
+    // loaded (their columns are computed and never stored).
+    const int kt0 = c.local * KTA, lw = lg(w2);
+    constexpr int PX = KTA * NCOL / 4, PD = KTA * 2 * KC / 4;
+#pragma unroll 4
+    for (int i = tid; i < PX; i += NT) {
+      const int r = i / (NCOL / 4), col = (i % (NCOL / 4)) * 4;
+      const int s = c.s0 + (col >> lw);
+      if (s < p.n_spectra) {
+        const float* src = p.plane +
+                           ((static_cast<long long>(c.b) * p.n_spectra + s) * n1 + kt0 + r) * w2 +
+                           (col & (w2 - 1));
+        cp_async16(slot + r * NCOL + col, src);
+      }
+    }
+    // [KTA x 2KC]: cos of k1 rows k0.. at columns 0..KC-1, -sin at KC..
+    float* sd = slot + KTA * NCOL;
+    for (int i = tid; i < PD; i += NT) {
+      const int r = i / (2 * KC / 4), q = (i % (2 * KC / 4)) * 4;
+      const float* src = (q < KC ? p.d1c : p.d1s) + (kt0 + r) * n1 + c.k0 + (q & (KC - 1));
+      cp_async16(sd + r * 2 * KC + q, src);
+    }
+  } else {
+    // [KTB x N2] of the half's transposed N2-point matrix: one contiguous run.
+    const int l = c.local - p.n_kta, half = l >= p.n_ktb, kidx = l - half * p.n_ktb;
+    const float* src = p.d2h + (static_cast<long long>(half) * p.n2 + kidx * p.ktb) * p.n2;
+    const int nf = p.ktb * p.n2;
+    for (int i = tid * 4; i < nf; i += NT * 4) cp_async16(slot + i, src + i);
+  }
+}
+
+// Stage B's accumulator of stream q, sum m (cos.tr, -sin.ti, cos.ti,
+// -sin.tr), k2 a, T row c.
+__host__ __device__ constexpr int b_acc(int q, int m, int a, int c) {
+  return ((q * 4 + m) * 4 + a) * 2 + c;
+}
+
+template <int KC>
+__global__ void __launch_bounds__(F32_THREADS, 1) dit_dft_f32_kernel(F32Params p) {
+  constexpr int KTA = KC, NCOL = F32_OUT / KC;
+  constexpr int GA = F32_THREADS * 4 / KC;  // stage-A column groups
+  constexpr int SLOT = f32_slot<KC>();
+  extern __shared__ __align__(128) float fsmem[];
+  const int tid = threadIdx.x;
+  const int n1 = p.n1, n2 = p.n2, h = n2 / 2, n = n1 * n2, w2 = 2 * n2;
+  float* sT = fsmem;  // [4][SB*KC][N2]: even re, even im, odd re, odd im (t_at)
+  float* ring = sT + 4 * F32_TP;
+
+  const int nA = p.n_kta, tpu = nA + 2 * p.n_ktb;
+  const int my_units = (p.n_units - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+  const int n_tiles = my_units * tpu;
+
+  // Stage A: k1 rows 4*rg.. of the chunk; columns 4*j.. and NCOL/2 + 4*j..
+  const int rg = tid / GA, ja = (tid % GA) * 4;
+  // Stage B: T rows 2*qb, 2*qb + 1 of (spectrum, k1); k2 = half*h + 4*rb..
+  // Q = SB*KC/2 pairs of T rows.
+  const int lq = lg(p.sb * KC / 2);
+  const int qb = tid & ((1 << lq) - 1), rb = tid >> lq;
+
+  // Stage A: [cos/-sin][4 k1][8 columns]; stage B: b_acc(q, m, a, c).
+  float acc[64];
+
+  F32Cursor ld{0, 0, 0, 0, 0};  // the next tile to load
+  f32_set_unit<KC>(p, ld);
+  F32Cursor cc = ld;  // the tile to compute
+  for (int t = 0; t < F32_STAGES - 1; ++t) {
+    if (t < n_tiles) {
+      f32_load_tile<KC>(p, ld, ring + t * SLOT);
+      f32_advance<KC>(p, ld, tpu);
+    }
+    cp_async_commit();
+  }
+
+  int slot_i = 0;  // tile t's slot, t % F32_STAGES
+  for (int t = 0; t < n_tiles; ++t, f32_advance<KC>(p, cc, tpu)) {
+    // Tile t is the oldest of the F32_STAGES - 1 groups in flight.
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(F32_STAGES - 2) : "memory");
+    __syncthreads();  // tile t landed for every thread; tile t-1's slot is free
+    if (t + F32_STAGES - 1 < n_tiles) {
+      const int s_load = (slot_i + F32_STAGES - 1) % F32_STAGES;  // (t + 3) % 4
+      f32_load_tile<KC>(p, ld, ring + s_load * SLOT);
+      f32_advance<KC>(p, ld, tpu);
+    }
+    cp_async_commit();
+    const float* slot = ring + slot_i * SLOT;
+    slot_i = (slot_i + 1) % F32_STAGES;
+    const int k0 = cc.k0;
+    if (cc.local < nA) {
+      if (cc.local == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      }
+      const float* sX = slot;
+      const float* sD = slot + KTA * NCOL;
+#pragma unroll
+      for (int kk = 0; kk < KTA; ++kk) {
+        const float4 x0 = *reinterpret_cast<const float4*>(sX + kk * NCOL + ja);
+        const float4 x1 = *reinterpret_cast<const float4*>(sX + kk * NCOL + NCOL / 2 + ja);
+        const float4 dc = *reinterpret_cast<const float4*>(sD + kk * 2 * KC + 4 * rg);
+        const float4 ds = *reinterpret_cast<const float4*>(sD + kk * 2 * KC + KC + 4 * rg);
+        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float cv[4] = {dc.x, dc.y, dc.z, dc.w}, sv[4] = {ds.x, ds.y, ds.z, ds.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            acc[i * 8 + e] = fmaf(cv[i], xv[e], acc[i * 8 + e]);
+            acc[32 + i * 8 + e] = fmaf(sv[i], xv[e], acc[32 + i * 8 + e]);
+          }
+        }
+      }
+      if (cc.local == nA - 1) {
+        // The f32 twiddle into the T planes: tr = ar*wc - ai*ws, ti = ar*ws +
+        // ai*wc, each product rounded. Columns col.. are E(m), O(m), E(m+1),
+        // O(m+1) of spectrum s: one twiddle pair serves both streams.
+        const int lw = lg(w2);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int col = half * (NCOL / 2) + ja;
+          const int s = col >> lw, m = (col & (w2 - 1)) >> 1;
+          float2 wc[4], ws[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const long long o = static_cast<long long>(k0 + 4 * rg + i) * n2 + m;
+            wc[i] = __ldg(reinterpret_cast<const float2*>(p.twc + o));
+            ws[i] = __ldg(reinterpret_cast<const float2*>(p.tws + o));
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float* ar = acc + i * 8 + half * 4;
+            const float* ai = acc + 32 + i * 8 + half * 4;
+            float tr[4], ti[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float c = e < 2 ? wc[i].x : wc[i].y, sn = e < 2 ? ws[i].x : ws[i].y;
+              tr[e] = __fsub_rn(__fmul_rn(ar[e], c), __fmul_rn(ai[e], sn));
+              ti[e] = __fadd_rn(__fmul_rn(ar[e], sn), __fmul_rn(ai[e], c));
+            }
+            const int o = t_at(s * KC + 4 * rg + i, m, n2);
+            *reinterpret_cast<float2*>(sT + 0 * F32_TP + o) = make_float2(tr[0], tr[2]);
+            *reinterpret_cast<float2*>(sT + 1 * F32_TP + o) = make_float2(ti[0], ti[2]);
+            *reinterpret_cast<float2*>(sT + 2 * F32_TP + o) = make_float2(tr[1], tr[3]);
+            *reinterpret_cast<float2*>(sT + 3 * F32_TP + o) = make_float2(ti[1], ti[3]);
+          }
+        }
+      }
+    } else {
+      const int l = cc.local - nA, half = l >= p.n_ktb, kidx = l - half * p.n_ktb;
+      if (kidx == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      }
+      const int ktb = p.ktb;
+      for (int k4 = 0; k4 < ktb; k4 += 4) {
+        // Two T rows x four n2 of each plane, then four n2 steps.
+        const int nn = kidx * ktb + k4;
+        float4 t4[4][2];  // [plane][row]
+#pragma unroll
+        for (int pl = 0; pl < 4; ++pl) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            t4[pl][c] = *reinterpret_cast<const float4*>(sT + pl * F32_TP +
+                                                         t_at(2 * qb + c, nn, n2));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float* row = slot + (k4 + u) * n2;
+          const float4 dc = *reinterpret_cast<const float4*>(row + 4 * rb);
+          const float4 ds = *reinterpret_cast<const float4*>(row + h + 4 * rb);
+          const float cv[4] = {dc.x, dc.y, dc.z, dc.w}, sv[4] = {ds.x, ds.y, ds.z, ds.w};
+          float tv[4][2];  // [plane][row] at n2 = nn + u
+#pragma unroll
+          for (int pl = 0; pl < 4; ++pl) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float4 v = t4[pl][c];
+              tv[pl][c] = u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const float tr = tv[2 * q][c], ti = tv[2 * q + 1][c];
+                acc[b_acc(q, 0, a, c)] = fmaf(cv[a], tr, acc[b_acc(q, 0, a, c)]);
+                acc[b_acc(q, 1, a, c)] = fmaf(sv[a], ti, acc[b_acc(q, 1, a, c)]);
+                acc[b_acc(q, 2, a, c)] = fmaf(cv[a], ti, acc[b_acc(q, 2, a, c)]);
+                acc[b_acc(q, 3, a, c)] = fmaf(sv[a], tr, acc[b_acc(q, 3, a, c)]);
+              }
+            }
+          }
+        }
+      }
+      if (kidx == p.n_ktb - 1) {
+        // Each stream's re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr); X =
+        // E + exp(-iπk/N)·O; rotate; requant; two consecutive channels
+        // k2*N1 + k1.. of spectrum s.
+        const int row = 2 * qb, s = cc.s0 + row / KC, k1 = k0 + (row & (KC - 1));
+        if (s < p.n_spectra) {
+          const long long obase = (static_cast<long long>(cc.b) * p.n_spectra + s) * n;
+          const float* rc_b = p.rotc + static_cast<long long>(cc.b) * n;
+          const float* rs_b = p.rots + static_cast<long long>(cc.b) * n;
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int ch = (half * h + 4 * rb + a) * n1 + k1;
+            const float2 uc = __ldg(reinterpret_cast<const float2*>(p.untc + ch));
+            const float2 us = __ldg(reinterpret_cast<const float2*>(p.unts + ch));
+            const float2 rc = __ldg(reinterpret_cast<const float2*>(rc_b + ch));
+            const float2 rs = __ldg(reinterpret_cast<const float2*>(rs_b + ch));
+            int8_t v[2][2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float er = __fsub_rn(acc[b_acc(0, 0, a, c)], acc[b_acc(0, 1, a, c)]);
+              const float ei = __fadd_rn(acc[b_acc(0, 2, a, c)], acc[b_acc(0, 3, a, c)]);
+              const float orr = __fsub_rn(acc[b_acc(1, 0, a, c)], acc[b_acc(1, 1, a, c)]);
+              const float oi = __fadd_rn(acc[b_acc(1, 2, a, c)], acc[b_acc(1, 3, a, c)]);
+              const float u_c = c ? uc.y : uc.x, u_s = c ? us.y : us.x;
+              const float r_c = c ? rc.y : rc.x, r_s = c ? rs.y : rs.x;
+              const float xr = __fsub_rn(__fadd_rn(er, __fmul_rn(u_c, orr)), __fmul_rn(u_s, oi));
+              const float xi = __fadd_rn(__fadd_rn(ei, __fmul_rn(u_c, oi)), __fmul_rn(u_s, orr));
+              v[0][c] = requant(__fsub_rn(__fmul_rn(xr, r_c), __fmul_rn(xi, r_s)));
+              v[1][c] = requant(__fadd_rn(__fmul_rn(xr, r_s), __fmul_rn(xi, r_c)));
+            }
+            *reinterpret_cast<char2*>(p.outr + obase + ch) = make_char2(v[0][0], v[0][1]);
+            *reinterpret_cast<char2*>(p.outi + obase + ch) = make_char2(v[1][0], v[1][1]);
+          }
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The plan of a chunk of KC rows, 0 if it has none: SB = NCOL / 2N2 spectra
+// a unit, stage-B tiles of at most one slot's 8192 floats, the 4-slot ring
+// beside the T planes.
+template <int KC>
+size_t f32_plan(F32Params& p) {
+  constexpr int NCOL = F32_OUT / KC;
+  if (p.n1 < 16 || KC > p.n1 || 2 * p.n2 > NCOL || p.n2 < 64) return 0;
+  p.sb = NCOL / (2 * p.n2);
+  p.ktb = min(p.n2, F32_SLOT / p.n2);
+  p.n_kta = p.n1 / KC;
+  p.n_ktb = p.n2 / p.ktb;
+  p.n_chunks = p.n1 / KC;
+  p.n_sblk = (p.n_spectra + p.sb - 1) / p.sb;
+  return f32_smem_bytes<KC>();
+}
+
+template <int KC>
+cudaError_t launch_dft_f32(F32Params p, int batch, size_t bytes, cudaStream_t stream) {
+  auto kern = dit_dft_f32_kernel<KC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, F32_THREADS, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long units = static_cast<long long>(batch) * p.n_sblk * p.n_chunks;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  const int grid = static_cast<int>(units < resident ? units : resident);
+  const long long tpu = p.n_kta + 2LL * p.n_ktb;
+  if (units > 0x7fffffffLL - grid || ((units + grid - 1) / grid) * tpu > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  p.n_units = static_cast<int>(units);
+  kern<<<grid, F32_THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Run f(kc, plan, bytes) with the chunk the f32 pass takes for this split
+// (16 rows up to N2 = 256, 8 at N2 = 512), or return NO_PLAN.
+template <typename F>
+int with_f32_plan(const F32Params& p, F&& f) {
+  F32Params q = p;
+  size_t bytes;
+  if ((bytes = f32_plan<16>(q))) return f(std::integral_constant<int, 16>{}, q, bytes);
+  q = p;
+  if ((bytes = f32_plan<8>(q))) return f(std::integral_constant<int, 8>{}, q, bytes);
+  return NO_PLAN;
+}
+
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 }  // namespace
@@ -1128,5 +1542,73 @@ extern "C" int dit_dft_stop_launch(const void* plane, const void* d1c, const voi
                                   : launch_dft<64, true, DFT_STAGEB>(q, batch, bytes, st);
       return static_cast<int>(err);
     }
+  });
+}
+
+// The f32 two-pass body's DFT pass: plane [batch, n_spectra, fft] f32 (K1's
+// f32 FIR pass output, fft = 2·N1·N2; 16-byte aligned) -> outputs [batch,
+// n_spectra, N] int8. d1c, d1s are the f32 N1-point matrices, d2h the f32
+// N2-point matrix in two halves of k2, each transposed ([2][n2][cos, then
+// -sin]), twc/tws the f32 twiddles [N1, N2], untc/unts the f32 combine
+// factors [N2, N1], rotc/rots [batch, N] (8-byte aligned). Returns -1 where
+// the pass has no plan (N1 < 16, N2 < 64 or N2 > 512): those shapes take
+// fengine_dit_launch.
+extern "C" int dit_dft_f32_launch(const void* plane, const void* d1c, const void* d1s,
+                                  const void* d2h, const void* twc, const void* tws,
+                                  const void* untc, const void* unts, const void* rotc,
+                                  const void* rots, void* outr, void* outi, int batch,
+                                  int n_spectra, int n1, int n2, void* stream) {
+  if (n1 < 2 || !pow2(n1) || n2 < 4 || !pow2(n2) || batch < 1 || n_spectra < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  F32Params p{};
+  p.plane = static_cast<const float*>(plane);
+  p.d1c = static_cast<const float*>(d1c);
+  p.d1s = static_cast<const float*>(d1s);
+  p.d2h = static_cast<const float*>(d2h);
+  p.twc = static_cast<const float*>(twc);
+  p.tws = static_cast<const float*>(tws);
+  p.untc = static_cast<const float*>(untc);
+  p.unts = static_cast<const float*>(unts);
+  p.rotc = static_cast<const float*>(rotc);
+  p.rots = static_cast<const float*>(rots);
+  p.outr = static_cast<int8_t*>(outr);
+  p.outi = static_cast<int8_t*>(outi);
+  p.n_spectra = n_spectra;
+  p.n1 = n1;
+  p.n2 = n2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_f32_plan(p, [&](auto kc, const F32Params& q, size_t bytes) {
+    return static_cast<int>(launch_dft_f32<decltype(kc)::value>(q, batch, bytes, st));
+  });
+}
+
+// The f32 DFT pass's plan and body at N1 x N2, -1 where it has none (the
+// shape then takes the SIMT body): out int[8] = registers a thread, local
+// (spill) bytes a thread, KC, SB, stage-B K-tile depth, ring stages,
+// shared-memory bytes, threads a block.
+extern "C" int dit_dft_f32_attributes(int n1, int n2, void* out) {
+  if (n1 < 2 || !pow2(n1) || n2 < 4 || !pow2(n2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  F32Params p{};
+  p.n_spectra = 1;
+  p.n1 = n1;
+  p.n2 = n2;
+  int* o = static_cast<int*>(out);
+  return with_f32_plan(p, [&](auto kc, const F32Params& q, size_t bytes) {
+    constexpr int K = decltype(kc)::value;
+    cudaFuncAttributes a{};
+    const cudaError_t err = cudaFuncGetAttributes(&a, dit_dft_f32_kernel<K>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    o[0] = a.numRegs;
+    o[1] = static_cast<int>(a.localSizeBytes);
+    o[2] = K;
+    o[3] = q.sb;
+    o[4] = q.ktb;
+    o[5] = F32_STAGES;
+    o[6] = static_cast<int>(bytes);
+    o[7] = F32_THREADS;
+    return 0;
   });
 }

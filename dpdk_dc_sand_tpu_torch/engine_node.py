@@ -198,6 +198,12 @@ class EngineNode(DeviceServer):
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._bytes_window = 0
         self._t_window = time.monotonic()
+        # The processing thread's own counts. The sensors take them as
+        # absolute values: a sensor set from this thread lands later, on the
+        # loop, so counting up from the sensor's value would lose a chunk
+        # whenever two steps finish before the loop runs the first set.
+        self._n_processed = 0
+        self._n_lost = 0
 
         self.s_status = self.add_sensor(
             Sensor("device-status", "engine health", "", "discrete", "ok",
@@ -411,9 +417,11 @@ class EngineNode(DeviceServer):
 
     def _account(self, seq: int) -> None:
         """Sensors after a completed step: processed, lost, ingest rate."""
-        self._set_sensor(self.s_processed, int(self.s_processed.value) + 1)
-        if self.feed.stats.lost != int(self.s_lost.value):
-            lost = self.feed.stats.lost
+        self._n_processed += 1
+        self._set_sensor(self.s_processed, self._n_processed)
+        lost = self.feed.stats.lost
+        if lost != self._n_lost:
+            self._n_lost = lost
             self._set_sensor(self.s_lost, lost, Status.WARN)
             self._log("warn", f"input sequence gap: {lost} chunks lost")
         self._bytes_window += int(np.prod(self.chunk_shape))

@@ -30,9 +30,9 @@ N2]``) and :func:`k1_dft` (steps 3-5, tensor cores); with f32 operands
 :func:`k1_dft_f32` (register-blocked FFMA, exact f32), wherever that pass
 has a plan (:func:`_k1_body` asks the library before any launch). Their
 plain versions :func:`k1_fir_reference` and :func:`k1_dft_reference`
-compose to :func:`fengine_fused_reference`. N1 = 8, and f32 splits the f32
-pass cannot hold (N2 > 1024), take the single-pass SIMT body
-(:func:`fengine_ct_simt`).
+compose to :func:`fengine_fused_reference`. N1 = 8, and the splits the DFT
+passes cannot hold (bf16: N2 >= 2048, fft >= 2^22; f32: N2 > 1024), take
+the single-pass SIMT body (:func:`fengine_ct_simt`).
 
 Where the direct-CT split does not exist, or the caller names
 ``deint="matmul"`` or ``"bitcast"``, :func:`fengine_fused` takes the
@@ -41,12 +41,15 @@ decimation-in-time form instead (the reference's ``_fengine_kernel``):
 tensor and runs :func:`fengine_dit_reference` for a CPU tensor. The
 reference's two names move samples differently on the TPU but compute the
 same values; here they differ only in the N1·N2 split :func:`_deint_mode`
-gives them. :func:`_dit_body` picks K7's body up front: bf16 operands with
-N1 >= 16, where the DFT pass has a shared-memory plan, run K1's FIR pass
-(:func:`k1_fir`) and then :func:`dit_dft` over groups of streams (their
-plain versions :func:`k1_fir_reference` and :func:`dit_dft_reference`
-compose to :func:`fengine_dit_reference`); f32 operands, N1 = 8 and a
-split without a plan take the single-pass SIMT body.
+gives them. :func:`_dit_body` picks K7's body up front: operands with N1 >=
+16, where the DFT pass of their type has a shared-memory plan, run K1's FIR
+pass and then K7's DFT pass over groups of streams: bf16 :func:`k1_fir` and
+:func:`dit_dft` (tensor cores), f32 :func:`k1_fir_f32` and
+:func:`dit_dft_f32` (register-blocked FFMA, exact f32). Their plain versions
+(:func:`k1_fir_reference`, :func:`dit_dft_reference`,
+:func:`dit_dft_f32_reference`) compose to :func:`fengine_dit_reference`.
+N1 = 8 and a split without a plan take the single-pass SIMT body
+(:func:`fengine_dit_simt`).
 """
 
 from __future__ import annotations
@@ -178,41 +181,46 @@ def _dft_f32t(n1: int, n2: int, device: str) -> torch.Tensor:
     return dft_constants(n1, n2, device).d2.t().contiguous()
 
 
+def _has_plan(query: str, n1: int, n2: int) -> bool:
+    """Whether the library's plan query ``query`` (a DFT pass's
+    ``*_attributes``) finds a shared-memory plan for N1 x N2; a CUDA error
+    raises."""
+    lib = _build.library()
+    err = getattr(lib, query)(n1, n2, (ctypes.c_int * 8)())
+    if err == _NO_PLAN:
+        return False
+    _build.check(lib, err, query)
+    return True
+
+
 @functools.lru_cache(maxsize=64)
 def _k1_body(n1: int, n2: int, dft_dtype: str) -> str:
     """K1's body for a split, decided before any launch: ``"two_pass"`` (the
-    FIR pass, then the tensor-core DFT pass) for bf16 operands with N1 >= 16;
+    FIR pass, then the tensor-core DFT pass) for bf16 operands and
     ``"two_pass_f32"`` (the f32 FIR pass, then the FFMA DFT pass) for f32
-    operands where that pass has a plan (``k1_dft_f32_attributes`` in
-    ``csrc/fengine_ct.cu`` decides); ``"simt"`` (the single-pass SIMT body)
-    for N1 = 8 and f32 splits without a plan."""
-    if n1 < 16:
+    operands, each where N1 >= 16 and its DFT pass has a plan
+    (``k1_dft_attributes`` / ``k1_dft_f32_attributes`` in
+    ``csrc/fengine_ct.cu`` decide); ``"simt"`` (the single-pass SIMT body)
+    for N1 = 8 and splits without a plan."""
+    bf16 = dft_dtype == "bfloat16"
+    if n1 < 16 or not _has_plan("k1_dft_attributes" if bf16 else "k1_dft_f32_attributes", n1, n2):
         return "simt"
-    if dft_dtype == "bfloat16":
-        return "two_pass"
-    lib = _build.library()
-    err = lib.k1_dft_f32_attributes(n1, n2, (ctypes.c_int * 8)())
-    if err == _NO_PLAN:
-        return "simt"
-    _build.check(lib, err, "k1_dft_f32_attributes")
-    return "two_pass_f32"
+    return "two_pass" if bf16 else "two_pass_f32"
 
 
 @functools.lru_cache(maxsize=64)
 def _dit_body(n1: int, n2: int, dft_dtype: str) -> str:
     """K7's body for a split, decided before any launch: ``"two_pass"`` (K1's
-    FIR pass, then the tensor-core DFT pass) for bf16 operands with N1 >= 16
-    where the DFT pass has a shared-memory plan (``dit_dft_attributes`` in
-    ``csrc/fengine_dit.cu`` decides); ``"simt"`` (the single-pass SIMT body)
-    for f32 operands, N1 = 8 and a split without a plan."""
-    if dft_dtype != "bfloat16" or n1 < 16:
+    FIR pass, then the tensor-core DFT pass) for bf16 operands and
+    ``"two_pass_f32"`` (K1's f32 FIR pass, then the FFMA DFT pass) for f32
+    operands, each where N1 >= 16 and its DFT pass has a shared-memory plan
+    (``dit_dft_attributes`` / ``dit_dft_f32_attributes`` in
+    ``csrc/fengine_dit.cu`` decide); ``"simt"`` (the single-pass SIMT body)
+    for N1 = 8 and a split without a plan."""
+    bf16 = dft_dtype == "bfloat16"
+    if n1 < 16 or not _has_plan("dit_dft_attributes" if bf16 else "dit_dft_f32_attributes", n1, n2):
         return "simt"
-    lib = _build.library()
-    err = lib.dit_dft_attributes(n1, n2, (ctypes.c_int * 6)())
-    if err == _NO_PLAN:
-        return "simt"
-    _build.check(lib, err, "dit_dft_attributes")
-    return "two_pass"
+    return "two_pass" if bf16 else "two_pass_f32"
 
 
 def fine_rotation_planes(
@@ -673,8 +681,8 @@ def fengine_ct_simt(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's single-pass SIMT body alone (the kernel on CUDA,
     :func:`fengine_fused_reference` on CPU); arguments as that reference's.
-    :func:`fengine_fused` takes it for N1 = 8 and f32 splits the f32 DFT
-    pass cannot hold; with bf16 operands it takes N1 = 8 only."""
+    :func:`fengine_fused` takes it for N1 = 8 and the splits the DFT passes
+    cannot hold; with bf16 operands it takes those splits only."""
     if x.device.type == "cpu":
         return fengine_fused_reference(x, starts, window, rotc, rots, n_spectra=n_spectra,
                                        n1=n1, n2=n2, dft_dtype=dft_dtype, quantise=quantise)
@@ -682,9 +690,9 @@ def fengine_ct_simt(
         raise ValueError(f"fengine_ct_simt: unsupported device {x.device}")
     n_taps, fft = window.shape
     batch = x.shape[0]
-    if fft != n1 * n2 or (dft_dtype == "bfloat16" and n1 >= 16):
-        raise ValueError(f"fengine_ct_simt: fft = N1*N2, bf16 with N1 = 8 only; got {n1}, {n2}, "
-                         f"{fft}, {dft_dtype}")
+    if fft != n1 * n2 or (dft_dtype == "bfloat16" and _k1_body(n1, n2, dft_dtype) != "simt"):
+        raise ValueError(f"fengine_ct_simt: fft = N1*N2, bf16 only where the two passes have no "
+                         f"plan (N1 = 8, N2 >= 2048); got {n1}, {n2}, {fft}, {dft_dtype}")
     _check("fengine_ct_simt", x, (
         ("x", x, torch.int8, None),
         ("starts", starts, torch.int64, (batch,)),
@@ -1062,6 +1070,106 @@ def dit_dft_attributes(n1: int, n2: int) -> dict:
     return dict(zip(("regs", "local_bytes", "kc", "kt", "stages", "smem_bytes"), out))
 
 
+def dit_dft_f32_reference(
+    plane: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7's f32 DFT pass: the f32 FIR plane ``[B, S, fft]``
+    (:func:`k1_fir_reference` with ``dft_dtype="float32"`` of the frames
+    viewed ``[B, n_frames·fft]`` with zero starts) and ``rotc``/``rots``
+    ``[B, N]`` to int8 ``(qr, qi)`` ``[B, S, N]``. Composed with that FIR it
+    is :func:`fengine_dit_reference` with f32 operands, bit for bit."""
+    return _dit_dft(plane, rotc, rots, n1, n2, lambda t: t)
+
+
+@functools.lru_cache(maxsize=16)
+def _dit_d2h(n1: int, n2: int, device: str) -> torch.Tensor:
+    """The f32 N2-point matrix in two halves of k2, each transposed: ``[2,
+    N2, N2]``, half ``h`` row ``n2`` the cos of the half's k2, then the -sin
+    (the stage-B operand of K7's f32 DFT pass; the matrices are symmetric)."""
+    k = dit_constants(n1, n2, device)
+    h = n2 // 2
+    return torch.stack([torch.cat([k.d2c[:, i * h:(i + 1) * h], k.d2s[:, i * h:(i + 1) * h]],
+                                  dim=1) for i in (0, 1)]).contiguous()
+
+
+def _dit_dft_f32_pass(plane, rotc, rots, outr, outi, *, n1, n2) -> None:
+    """K7's f32 DFT pass from ``plane`` into ``outr``/``outi`` (CUDA tensors,
+    checked by the caller, on a split :func:`_dit_body` gives
+    ``"two_pass_f32"``)."""
+    if plane.data_ptr() % 16:
+        plane = plane.clone()  # the kernel copies plane rows in 16-byte pieces
+    rotc, rots = (r.clone() if r.data_ptr() % 8 else r for r in (rotc, rots))  # read as float2
+    batch, n_spectra, _ = plane.shape
+    dev = plane.device
+    k = dit_constants(n1, n2, str(dev))
+    lib = _build.library()
+    err = lib.dit_dft_f32_launch(
+        plane.data_ptr(), k.d1c.data_ptr(), k.d1s.data_ptr(), _dit_d2h(n1, n2, str(dev)).data_ptr(),
+        k.twc.data_ptr(), k.tws.data_ptr(), k.untc.data_ptr(), k.unts.data_ptr(),
+        rotc.data_ptr(), rots.data_ptr(), outr.data_ptr(), outi.data_ptr(),
+        batch, n_spectra, n1, n2, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err == _NO_PLAN:
+        raise _no_plan("dit_dft_f32", n1, n2, "an 8-row stage-A tile of 2·N2 f32 columns")
+    _build.check(lib, err, "dit_dft_f32")
+    dit_dft_f32.launches += 1
+
+
+def dit_dft_f32(
+    plane: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's DFT pass alone, f32 operands: ``plane`` ``[B, S, fft]`` f32 to
+    int8 ``(qr, qi)`` ``[B, S, N]`` (the kernel on CUDA,
+    :func:`dit_dft_f32_reference` on CPU)."""
+    if plane.device.type == "cpu":
+        return dit_dft_f32_reference(plane, rotc, rots, n1=n1, n2=n2)
+    if plane.device.type != "cuda":
+        raise ValueError(f"dit_dft_f32: unsupported device {plane.device}")
+    batch, n_spectra, fft = plane.shape
+    if fft != 2 * n1 * n2 or _dit_body(n1, n2, "float32") != "two_pass_f32":
+        raise ValueError(f"dit_dft_f32: the pass takes fft = 2*N1*N2 with a plan (N1 >= 16, "
+                         f"64 <= N2 <= 512), got {n1}, {n2}, {fft}")
+    _check("dit_dft_f32", plane, (
+        ("plane", plane, torch.float32, None),
+        ("rotc", rotc, torch.float32, (batch, fft // 2)),
+        ("rots", rots, torch.float32, (batch, fft // 2)),
+    ))
+    outr = torch.empty((batch, n_spectra, fft // 2), dtype=torch.int8, device=plane.device)
+    outi = torch.empty_like(outr)
+    _dit_dft_f32_pass(plane, rotc, rots, outr, outi, n1=n1, n2=n2)
+    return outr, outi
+
+
+#: Launches of K7's f32 DFT pass since the last reset (the plain version never
+#: counts); a two-pass f32 K7 call adds one per group of streams.
+dit_dft_f32.launches = 0
+
+
+def dit_dft_f32_attributes(n1: int, n2: int) -> dict:
+    """The card's view of K7's f32 DFT-pass body at N1 x N2
+    (``cudaFuncGetAttributes`` and the plan): registers and local (spill)
+    bytes a thread, KC, SB (spectra a unit), the stage-B K-tile depth, ring
+    stages, shared-memory bytes and threads a block."""
+    out = (ctypes.c_int * 8)()
+    lib = _build.library()
+    err = lib.dit_dft_f32_attributes(n1, n2, out)
+    if err == _NO_PLAN:
+        raise _no_plan("dit_dft_f32", n1, n2, "an 8-row stage-A tile of 2·N2 f32 columns")
+    _build.check(lib, err, "dit_dft_f32_attributes")
+    return dict(zip(("regs", "local_bytes", "kc", "sb", "ktb", "stages", "smem_bytes",
+                     "threads"), out))
+
+
 def _simt_launch(x, window, rotc, rots, outr, outi, *, n1, n2, bf16) -> None:
     """K7's single-pass SIMT body, whole (CUDA tensors, checked by the caller)."""
     batch, n_frames, _ = x.shape
@@ -1096,21 +1204,27 @@ def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
     n_spectra = n_frames - n_taps + 1
     outr = torch.empty((batch, n_spectra, fft // 2), dtype=torch.int8, device=dev)
     outi = torch.empty_like(outr)
-    if _dit_body(n1, n2, dft_dtype) == "two_pass":
+    body = _dit_body(n1, n2, dft_dtype)
+    if body == "simt":
+        _simt_launch(x, window, rotc, rots, outr, outi, n1=n1, n2=n2,
+                     bf16=dft_dtype == "bfloat16")
+        fengine_dit_simt.launches += 1
+    else:
         # K1's FIR pass on the frames as streams starting at 0, then the DFT
-        # pass, over groups of streams through one bf16 plane of scratch.
-        group = _plane_group(batch, n_spectra, fft)
-        plane = torch.empty((group, n_spectra, fft), dtype=torch.bfloat16, device=dev)
+        # pass, over groups of streams through one plane of scratch (bf16, or
+        # f32 for f32 operands).
+        f32 = body == "two_pass_f32"
+        dtype = torch.float32 if f32 else torch.bfloat16
+        group = _plane_group(batch, n_spectra, fft, dtype.itemsize)
+        plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
         flat = x.view(batch, n_frames * fft)
         starts = torch.zeros(batch, dtype=torch.int64, device=dev)
+        dft = _dit_dft_f32_pass if f32 else _dit_dft_pass
         for b0 in range(0, batch, group):
             b = slice(b0, min(batch, b0 + group))
             p = plane[: b.stop - b0]
             _fir_pass(flat[b], starts[b], window, p)
-            _dit_dft_pass(p, rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2)
-    else:
-        _simt_launch(x, window, rotc, rots, outr, outi, n1=n1, n2=n2,
-                     bf16=dft_dtype == "bfloat16")
+            dft(p, rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2)
     fengine_dit.launches += 1
     return outr, outi
 
@@ -1138,9 +1252,57 @@ def fengine_dit(
 
 
 #: K7 calls on the card since the last reset, one a call whichever body ran
-#: (the plain CPU version never counts); the two-pass body's passes count on
-#: :func:`k1_fir` and :func:`dit_dft`.
+#: (the plain CPU version never counts); the two-pass bodies' passes count on
+#: :func:`k1_fir` and :func:`dit_dft` (bf16) or :func:`k1_fir_f32` and
+#: :func:`dit_dft_f32` (f32), the SIMT body on :func:`fengine_dit_simt`.
 fengine_dit.launches = 0
+
+
+def fengine_dit_simt(
+    frames: torch.Tensor,
+    window: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "float32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's single-pass SIMT body alone, at any split it has a plan for (the
+    kernel on CUDA, :func:`fengine_dit_reference` on CPU); arguments as that
+    reference's. :func:`fengine_fused` takes it for N1 = 8 and the splits
+    the DFT passes cannot hold."""
+    dev = frames.device
+    if dev.type == "cpu":
+        return fengine_dit_reference(frames, window, rotc, rots, n1=n1, n2=n2,
+                                     dft_dtype=dft_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"fengine_dit_simt: unsupported device {dev}")
+    batch, n_frames, fft = frames.shape
+    n_taps = window.shape[0]
+    if fft != 2 * n1 * n2 or n_frames < n_taps:
+        raise ValueError(f"fengine_dit_simt: fft = 2*N1*N2 and n_taps frames at least; got "
+                         f"{n1}, {n2}, {fft}, {n_frames} frames")
+    _check("fengine_dit_simt", frames, (
+        ("frames", frames, torch.int8, None),
+        ("window", window, torch.float32, (n_taps, fft)),
+        ("rotc", rotc, torch.float32, (batch, fft // 2)),
+        ("rots", rots, torch.float32, (batch, fft // 2)),
+    ))
+    if window.data_ptr() % 16:
+        window = window.clone()
+    outr = torch.empty((batch, n_frames - n_taps + 1, fft // 2), dtype=torch.int8, device=dev)
+    outi = torch.empty_like(outr)
+    _simt_launch(frames, window, rotc, rots, outr, outi, n1=n1, n2=n2,
+                 bf16=dft_dtype == "bfloat16")
+    fengine_dit_simt.launches += 1
+    return outr, outi
+
+
+#: Launches of K7's SIMT body, whole, since the last reset: from
+#: :func:`fengine_dit` where :func:`_dit_body` picks it, and from
+#: :func:`fengine_dit_simt` (P2's ``"full"`` counts on its own wrapper).
+fengine_dit_simt.launches = 0
 
 #: K7's SIMT body cut after a stage (the probe P2), as the kernel numbers the
 #: stops; the probe's ``"full"`` (0) is that body whole.

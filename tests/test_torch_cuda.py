@@ -1093,17 +1093,19 @@ def test_k7_two_pass_spans_plane_groups(dev, monkeypatch):
 
 @pytest.mark.parametrize("fft, deint, dft_dtype", [(2048, "bitcast", "bfloat16"),
                                                    (1024, "matmul", "bfloat16"),
-                                                   (65536, "matmul", "float32")])
+                                                   (2048, "bitcast", "float32")])
 def test_k7_simt_shapes_launch_neither_pass(dev, fft, deint, dft_dtype):
-    """N1 = 8 and f32 operands run the SIMT body: one K7 call, no FIR or DFT
-    pass."""
+    """N1 = 8 runs the SIMT body in both operand types: one K7 call, one SIMT
+    launch, no FIR or DFT pass."""
     _, n1, n2 = ff._deint_mode(fft // 2, deint)
+    assert n1 == 8
     frames, win, rc, rs = _k7_streams(fft, 2, 3, 4, seed=fft)
-    before = (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches)
+    counters = (ff.fengine_dit, ff.fengine_dit_simt, ff.k1_fir, ff.dit_dft, ff.k1_fir_f32,
+                ff.dit_dft_f32)
+    before = [c.launches for c in counters]
     got = ff.fengine_dit(frames.to(dev), win.to(dev), rc.to(dev), rs.to(dev), n1=n1, n2=n2,
                          dft_dtype=dft_dtype)
-    assert (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches) == (
-        before[0] + 1, before[1], before[2])
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0, 0]
     ref = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
     for g, r in zip(got, ref):
         _codes_close(g.cpu(), r)
@@ -1151,6 +1153,164 @@ def test_k7_two_pass_takes_unaligned_rotation_planes(dev):
     assert ff.dit_dft.launches == before + 1
     for g, r in zip(got, ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2)):
         _codes_close(g.cpu(), r)
+
+
+# --- K7's f32 form: K1's f32 FIR pass, then the FFMA DIT DFT pass -----------
+
+
+def _codes_close_f32(got, ref):
+    """The reference's f32 contract (tests/test_fengine_fused.py:84-99):
+    within 1 code on <= 1e-4 of samples."""
+    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+    assert float((d != 0).float().mean()) <= 1e-4
+
+
+@pytest.mark.parametrize("n1, n2", [(16, 64), (32, 64), (64, 64), (16, 128), (256, 128),
+                                    (256, 256), (512, 512)])
+def test_k7_f32_dft_pass_matches_plain(dev, n1, n2):
+    """K7's f32 DFT pass alone on K1's f32 FIR plane, at every plan (KC 16
+    with SB 4, 2, 1; KC 8): within the f32 contract of
+    ``dit_dft_f32_reference`` on the same card, one launch, no spill."""
+    fft = 2 * n1 * n2
+    b, s = 2, (8 if fft <= 1 << 17 else 2)
+    frames, win, rc, rs = _k7_streams(fft, b, s, 4, seed=n1 + 3 * n2)
+    plane = ff.k1_fir_reference(frames.reshape(b, -1), torch.zeros(b, dtype=torch.int64), win,
+                                n_spectra=s, dft_dtype="float32").to(dev)
+    rc, rs = rc.to(dev), rs.to(dev)
+    assert ff.dit_dft_f32_attributes(n1, n2)["local_bytes"] == 0
+    before = ff.dit_dft_f32.launches
+    got = ff.dit_dft_f32(plane, rc, rs, n1=n1, n2=n2)
+    assert ff.dit_dft_f32.launches == before + 1
+    for g, r in zip(got, ff.dit_dft_f32_reference(plane, rc, rs, n1=n1, n2=n2)):
+        assert g.is_cuda and g.shape == r.shape and g.dtype == torch.int8
+        _codes_close_f32(g, r)
+
+
+@pytest.mark.parametrize("n1, n2, kc, sb", [(16, 64, 16, 4), (16, 128, 16, 2),
+                                            (256, 128, 16, 2), (256, 256, 16, 1),
+                                            (512, 512, 8, 1)])
+def test_k7_f32_dft_pass_attributes_show_no_spills(dev, n1, n2, kc, sb):
+    """The f32 DFT pass's body at each plan spills nothing; KC and SB follow
+    N2 (KC * SB * 2 * N2 = 8192), the plan fits the 232,448 bytes a block may
+    use, and the split goes to the two f32 passes."""
+    at = ff.dit_dft_f32_attributes(n1, n2)
+    assert at["local_bytes"] == 0, at
+    assert (at["kc"], at["sb"], at["threads"], at["stages"]) == (kc, sb, 256, 4), at
+    assert at["kc"] * at["sb"] * 2 * n2 == 8192 and at["ktb"] * n2 <= 8192, at
+    assert at["smem_bytes"] <= 232448, at
+    assert ff._dit_body(n1, n2, "float32") == "two_pass_f32"
+
+
+def test_k7_f32_split_without_a_plan_takes_the_simt_body(dev):
+    """At 1024 x 1024 (fft 2^21) the f32 pass's stage-A tile cannot hold one
+    spectrum's 2 * N2 columns: no plan, and the split takes the SIMT body."""
+    with pytest.raises(ValueError):
+        ff.dit_dft_f32_attributes(1024, 1024)
+    assert ff._dit_body(1024, 1024, "float32") == "simt"
+
+
+@pytest.mark.parametrize("fft, deint", [(2048, "matmul"), (4096, "bitcast"), (65536, "matmul"),
+                                        (65536, "bitcast"), (1 << 17, "matmul"),
+                                        (1 << 19, "matmul")])
+def test_k7_f32_two_passes_match_plain(dev, fft, deint):
+    """f32 K7 (16 x 64, 16 x 128, 256 x 128, 256 x 256, 512 x 512) through
+    K1's f32 FIR pass and the f32 DFT pass at ~50 codes rms: within the f32
+    contract of the plain version on the same card; one K7 call, one pass of
+    each, no SIMT body and no bf16 pass."""
+    taps, s, lead = 4, (4 if fft <= 1 << 17 else 2), (1, 2)
+    rng = np.random.default_rng(fft + len(deint))
+    frames = torch.from_numpy(rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8))
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    kw = dict(n_channels=fft // 2, quant_scale=0.068 * (1024 / fft) ** 0.5, deint=deint,
+              dft_dtype="float32")
+    counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.fengine_dit_simt, ff.k1_fir,
+                ff.dit_dft)
+    before = [c.launches for c in counters]
+    win = default_window(taps, fft, dev)
+    got = ff.fengine_fused(frames.to(dev), win, fd, ph, **kw)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0, 0]
+    _, n1, n2 = ff._deint_mode(fft // 2, deint)
+    rc, rs = (r.reshape(2, fft // 2) for r in ff._rotation_planes(
+        torch.from_numpy(fd).to(dev), torch.from_numpy(ph).to(dev), fft // 2,
+        kw["quant_scale"], (fft // 2,)))
+    ref = ff.fengine_dit_reference(frames.to(dev).view(2, s + taps - 1, fft), win, rc, rs,
+                                   n1=n1, n2=n2, dft_dtype="float32")
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape[-2:] == r.shape[-2:]
+        _codes_close_f32(g.view(r.shape), r)
+
+
+def test_k7_f32_two_passes_span_plane_groups(dev, monkeypatch):
+    """Five streams through a scratch of two f32 planes: three groups, each an
+    f32 FIR pass and an f32 DFT pass; the SIMT body through its own entry on
+    the same streams within the same contract."""
+    fft, s, taps, b = 4096, 5, 4, 5
+    monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", 2 * s * fft * 4)
+    frames, win, rc, rs = (t.to(dev) for t in _k7_streams(fft, b, s, taps, seed=41))
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.fengine_dit_simt)
+    before = [c.launches for c in counters]
+    got = ff.fengine_dit(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32")
+    simt = ff.fengine_dit_simt(frames, win, rc, rs, n1=n1, n2=n2)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 3, 3, 1]
+    ref = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32")
+    for g, m, r in zip(got, simt, ref):
+        _codes_close_f32(g, r)
+        _codes_close_f32(m, r)
+
+
+def test_k7_f32_two_pass_takes_unaligned_rotation_planes(dev):
+    """Rotation planes that start 4 bytes past an 8-byte boundary (the f32
+    DFT pass reads them as float2) go through f32 K7 as the plain version
+    takes them."""
+    fft, b, s = 2048, 2, 3
+    frames, win, rc, rs = _k7_streams(fft, b, s, 4, seed=43)
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    odd = []
+    for r in (rc, rs):
+        buf = torch.empty(b * fft // 2 + 1, dtype=torch.float32, device=dev)
+        view = buf[1:].view(b, fft // 2)
+        view.copy_(r)
+        assert view.data_ptr() % 8 == 4
+        odd.append(view)
+    before = ff.dit_dft_f32.launches
+    got = ff.fengine_dit(frames.to(dev), win.to(dev), *odd, n1=n1, n2=n2, dft_dtype="float32")
+    assert ff.dit_dft_f32.launches == before + 1
+    ref = ff.fengine_dit_reference(frames.to(dev), win.to(dev), rc.to(dev), rs.to(dev), n1=n1,
+                                   n2=n2, dft_dtype="float32")
+    for g, r in zip(got, ref):
+        _codes_close_f32(g, r)
+
+
+def test_k1_bf16_at_fft_2_22_runs_the_simt_body(dev):
+    """bf16 K1 at 2048 x 2048 (fft 2^22), where the DFT pass has no plan,
+    runs the SIMT body (its FIR streamed in tiles) instead of raising: one
+    SIMT launch, no pass, within the bf16 contract of the plain version on
+    the CPU."""
+    fft, taps, s, lead = 1 << 22, 2, 2, (1, 2)
+    n1, n2 = ff._split_ct(fft)
+    assert (n1, n2) == (2048, 2048)
+    assert ff._k1_body(n1, n2, "bfloat16") == "simt"
+    rng = np.random.default_rng(22)
+    frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
+    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
+    ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    kw = dict(n_channels=fft // 2, quant_scale=0.068 * (1024 / fft) ** 0.5)
+    counters = (ff.fengine_ct_simt, ff.k1_fir, ff.k1_dft, ff.fengine_fused)
+    before = [c.launches for c in counters]
+    got = ff.fengine_fused(torch.from_numpy(frames).to(dev), default_window(taps, fft, dev),
+                           fd, ph, **kw)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 0, 1]
+    ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape
+        _codes_close(g.cpu(), r)
+    with pytest.raises(ValueError, match="shared-memory plan"):
+        ff.k1_dft(torch.zeros((1, 1, fft), dtype=torch.bfloat16, device=dev),
+                  torch.zeros((1, fft // 2), device=dev), torch.zeros((1, fft // 2), device=dev),
+                  n1=n1, n2=n2)
 
 
 @pytest.mark.parametrize("stop", sorted(ff.DIT_DFT_STOPS))

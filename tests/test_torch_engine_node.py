@@ -18,6 +18,7 @@ stopped in a ``finally``.
 
 import asyncio
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -82,15 +83,26 @@ async def drive(node, script, timeout=TIMEOUT):
     Script steps: ``("chunk", seq, adc)`` submits a chunk, ``("req",
     name, *args)`` sends a control request, ``("wait", n)`` waits for n
     beams, ``("sleep", s)`` sleeps.
+
+    A chunk is submitted once every chunk before it has been counted in
+    ``chunks-processed``. The JAX node counts up from the sensor's value in
+    its processing thread while the sensor is set later on the loop, so two
+    of its steps that finish before the loop runs (under load) count once;
+    the port's node counts in its own thread
+    (``test_chunks_processed_counts_every_step_of_a_burst``).
     """
     out = []
     node.on_beams = lambda b, s: out.append((s, np.array(b)))
     await node.start()
     client = await Client("127.0.0.1", node.port).connect()
+    submitted = 0
     try:
         for step in script:
             if step[0] == "chunk":
+                ok = await wait_for(lambda: int(node.s_processed.value) >= submitted, timeout)
+                assert ok, f"chunks-processed {node.s_processed.value} of {submitted} submitted"
                 assert node.submit_chunk(step[2], step[1])
+                submitted += 1
             elif step[0] == "req":
                 await client.request(step[1], *step[2:])
             elif step[0] == "wait":
@@ -138,6 +150,37 @@ def test_chunks_become_beams_and_sensors_update():
                                    "device-status": "ok"}
     for (_, g), (_, w) in zip(got, want):
         beams_close(g, w)
+
+
+def test_chunks_processed_counts_every_step_of_a_burst():
+    """Four chunks stepped while the loop is held (no sensor set can land
+    until the last step is done) count as four: the node counts in its
+    processing thread and the sensors take absolute values."""
+    async def scenario():
+        node = port_node()
+        done = threading.Event()
+        out = []
+
+        def on_beams(beams, seq):
+            out.append(seq)
+            if len(out) == 4:
+                done.set()
+
+        node.on_beams = on_beams
+        await node.start()
+        try:
+            for s in (0, 1, 2, 4):
+                assert node.submit_chunk(make_chunk(s, node.chunk_shape), s)
+            assert done.wait(TIMEOUT)  # blocks the loop until every step has run
+            assert await wait_for(lambda: int(node.s_processed.value) == 4)
+            assert await wait_for(lambda: int(node.s_lost.value) == 1)
+            await asyncio.sleep(0.1)
+            assert (int(node.s_processed.value), int(node.s_lost.value)) == (4, 1)
+            assert out == [0, 1, 2, 4]
+        finally:
+            await node.stop()
+
+    run(scenario())
 
 
 def test_delay_model_update_changes_output():

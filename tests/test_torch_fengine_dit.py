@@ -195,14 +195,20 @@ def _fresh_routing():
 
 
 def _stub_plan(monkeypatch, answer):
-    """Stubs the library's plan query with ``answer`` (0: a plan fits);
-    returns the list of splits it is asked for."""
+    """Stubs the library's plan queries (bf16 and f32 DFT passes) with
+    ``answer`` (0: a plan fits); returns the list of splits they are asked
+    for."""
     asked = []
 
     class Lib:
         @staticmethod
         def dit_dft_attributes(n1, n2, out):
             asked.append((n1, n2))
+            return answer
+
+        @staticmethod
+        def dit_dft_f32_attributes(n1, n2, out):
+            asked.append((n1, n2, "f32"))
             return answer
 
         @staticmethod
@@ -225,28 +231,34 @@ def _stub_plan(monkeypatch, answer):
     (1024, "matmul", "bfloat16", True, "simt"),         # 8 x 64
     (1024, "bitcast", "bfloat16", True, "simt"),        # 8 x 64 (falls back to "matmul")
     (512, "auto", "bfloat16", True, "simt"),            # 8 x 32
-    (2048, "matmul", "float32", True, "simt"),
-    (65536, "matmul", "float32", True, "simt"),
+    (2048, "matmul", "float32", True, "two_pass_f32"),  # 16 x 64
+    (65536, "matmul", "float32", True, "two_pass_f32"),  # 256 x 128
+    (1 << 19, "matmul", "float32", True, "two_pass_f32"),  # 512 x 512
+    (1 << 21, "matmul", "float32", False, "simt"),      # 1024 x 1024: no f32 plan
+    (2048, "bitcast", "float32", True, "simt"),         # 8 x 128
 ])
 def test_dit_body_routes_each_split(monkeypatch, fft, deint, dft_dtype, fits, body):
-    """bf16 with N1 >= 16 asks the library whether the DFT pass has a plan
-    and takes the two passes where it does; f32 and N1 = 8 take the SIMT
-    body without asking (stubbed library)."""
+    """N1 >= 16 asks the library whether the DFT pass of its operand type has
+    a plan and takes that type's two passes where it does; N1 = 8 takes the
+    SIMT body without asking (stubbed library)."""
     asked = _stub_plan(monkeypatch, 0 if fits else ff._NO_PLAN)
     mode, n1, n2 = ff._deint_mode(fft // 2, deint)
     assert mode in ("matmul", "bitcast") and n1 * n2 == fft // 2
     assert ff._dit_body(n1, n2, dft_dtype) == body
-    assert asked == ([(n1, n2)] if dft_dtype == "bfloat16" and n1 >= 16 else [])
+    query = (n1, n2) if dft_dtype == "bfloat16" else (n1, n2, "f32")
+    assert asked == ([query] if n1 >= 16 else [])
     assert ff._dit_body(n1, n2, dft_dtype) == body
     assert len(asked) <= 1  # decided once a split
 
 
 def test_dit_body_raises_on_a_failed_plan_query(monkeypatch):
-    """A CUDA error from the plan query raises; only NO_PLAN means the SIMT
-    body."""
+    """A CUDA error from either plan query raises; only NO_PLAN means the
+    SIMT body."""
     _stub_plan(monkeypatch, 1)
     with pytest.raises(RuntimeError, match="dit_dft_attributes"):
         ff._dit_body(16, 64, "bfloat16")
+    with pytest.raises(RuntimeError, match="dit_dft_f32_attributes"):
+        ff._dit_body(16, 64, "float32")
 
 
 @pytest.mark.parametrize("batch, scratch, groups", [(3, None, 1), (5, 2, 3), (4, 1, 4)])
@@ -301,7 +313,8 @@ def test_two_pass_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, batch
 
 
 def test_simt_shapes_launch_neither_pass(monkeypatch):
-    """f32 operands and N1 = 8 take the single-pass SIMT body (stubbed card)."""
+    """f32 operands where the f32 DFT pass has no plan, and N1 = 8, take the
+    single-pass SIMT body (stubbed card)."""
     calls = []
 
     class Lib:
@@ -310,6 +323,10 @@ def test_simt_shapes_launch_neither_pass(monkeypatch):
             calls.append(args[-7:-1])
             return 0
 
+        @staticmethod
+        def dit_dft_f32_attributes(n1, n2, out):
+            return ff._NO_PLAN
+
     monkeypatch.setattr(ff._build, "library", lambda: Lib)
     monkeypatch.setattr(ff.torch.cuda, "current_stream",
                         lambda dev: type("S", (), {"cuda_stream": 0})())
@@ -317,11 +334,12 @@ def test_simt_shapes_launch_neither_pass(monkeypatch):
         _, n1, n2 = ff._deint_mode(fft // 2, deint)
         frames = torch.zeros((2, 5, fft), dtype=torch.int8)
         rc = torch.zeros((2, fft // 2))
-        before = (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches)
+        counters = (ff.fengine_dit, ff.fengine_dit_simt, ff.k1_fir, ff.dit_dft, ff.k1_fir_f32,
+                    ff.dit_dft_f32)
+        before = [c.launches for c in counters]
         ff._launch_dit(frames, default_window(4, fft), rc, rc.clone(), n1=n1, n2=n2,
                        dft_dtype=dt)
-        assert (ff.fengine_dit.launches, ff.k1_fir.launches, ff.dit_dft.launches) == (
-            before[0] + 1, before[1], before[2])
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0, 0]
         assert calls[-1] == (2, 5, 4, n1, n2, int(dt == "bfloat16"))
 
 
@@ -409,3 +427,185 @@ def test_fengine_dit_ablate_full_takes_rotation_planes_alone():
         ff.fengine_dit_ablate(frames, win, n1=n1, n2=n2, stop="full")
     with pytest.raises(ValueError, match="rot="):
         ff.fengine_dit_ablate(frames, win, n1=n1, n2=n2, stop="fir", rot=(rc, rs))
+
+
+# --- K7's f32 two-pass body: K1's f32 FIR pass, then the FFMA DFT pass -------
+
+
+@pytest.mark.parametrize("fft", [2048, 4096])
+def test_k1_fir_f32_pass_on_zero_starts_is_the_dit_fir(fft):
+    """K1's f32 FIR pass of the frames viewed as streams starting at 0 is
+    K7's f32 tap-order FIR bit for bit (no rounding point in f32)."""
+    frames, win, _, _ = _frames(fft, 3, seed=fft + 1)
+    b, n_frames, _ = frames.shape
+    plane = ff.k1_fir_f32(frames.reshape(b, n_frames * fft), torch.zeros(b, dtype=torch.int64),
+                          win, n_spectra=n_frames - TAPS + 1)
+    assert plane.dtype == torch.float32 and plane.shape == (b, S, fft)
+    assert torch.equal(plane, ff._dit_fir(frames, win))
+
+
+@pytest.mark.parametrize("n1, n2, deint", [(16, 64, "matmul"), (32, 64, "matmul"),
+                                           (64, 64, "matmul"), (16, 128, "bitcast")])
+def test_dit_dft_f32_reference_after_k1_fir_f32_is_the_plain_k7(n1, n2, deint):
+    """The f32 two-pass body's plain versions compose to K7's f32 plain
+    version, bit for bit."""
+    fft = 2 * n1 * n2
+    assert ff._deint_mode(fft // 2, deint) == (deint, n1, n2)
+    frames, win, rc, rs = _frames(fft, 2, seed=n1 + n2)
+    b, n_frames, _ = frames.shape
+    plane = ff.k1_fir_reference(frames.reshape(b, -1), torch.zeros(b, dtype=torch.int64), win,
+                                n_spectra=n_frames - TAPS + 1, dft_dtype="float32")
+    got = ff.dit_dft_f32_reference(plane, rc, rs, n1=n1, n2=n2)
+    want = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32")
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int8 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("deint", ["matmul", "bitcast"])
+def test_f32_two_pass_plain_matches_jax_dit_kernel(deint):
+    """k1_fir_reference (f32) then dit_dft_f32_reference against the JAX DIT
+    kernel with f32 operands (interpret mode) at fft 4096, through each
+    name's split (32 x 64, 16 x 128): within the reference's f32 contract,
+    1 code on <= 1e-4 of samples."""
+    fft = 4096
+    frames, fd, ph = _inputs(fft, seed=31 + len(deint))
+    kw = dict(n_channels=fft // 2, quant_scale=SCALE, deint=deint, dft_dtype="float32")
+    jr, ji = jfp.fengine_fused(jnp.asarray(frames), j_default_window(TAPS, fft),
+                               jnp.asarray(fd), jnp.asarray(ph), interpret=True, **kw)
+    _, n1, n2 = ff._deint_mode(fft // 2, deint)
+    assert n1 >= 16
+    rc, rs = (r.reshape(A * P, fft // 2) for r in ff._rotation_planes(
+        torch.from_numpy(fd), torch.from_numpy(ph), fft // 2, SCALE, (fft // 2,)))
+    x = torch.from_numpy(frames).reshape(A * P, -1)
+    plane = ff.k1_fir_reference(x, torch.zeros(A * P, dtype=torch.int64),
+                                default_window(TAPS, fft), n_spectra=S, dft_dtype="float32")
+    qr, qi = ff.dit_dft_f32_reference(plane, rc, rs, n1=n1, n2=n2)
+    _codes_close(qr.reshape(A, P, S, -1).numpy(), jr, max_frac=1e-4)
+    _codes_close(qi.reshape(A, P, S, -1).numpy(), ji, max_frac=1e-4)
+
+
+def test_dit_d2h_holds_each_half_of_k2_transposed():
+    """The f32 pass's stage-B operand: half h, row n2 is the cos, then the
+    -sin, of 2*pi*k2*n2/N2 for the half's k2."""
+    n1, n2 = 16, 64
+    k = ff.dit_constants(n1, n2, "cpu")
+    d2h = ff._dit_d2h(n1, n2, "cpu")
+    assert d2h.shape == (2, n2, n2) and d2h.is_contiguous()
+    h = n2 // 2
+    for half in (0, 1):
+        k2 = slice(half * h, (half + 1) * h)
+        assert torch.equal(d2h[half, :, :h], k.d2c[k2, :].t())
+        assert torch.equal(d2h[half, :, h:], k.d2s[k2, :].t())
+
+
+@pytest.mark.parametrize("batch, scratch, groups", [(3, None, 1), (5, 2, 3)])
+def test_f32_two_pass_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, batch, scratch,
+                                                                  groups):
+    """With the card stubbed, an f32 K7 call with a plan runs K1's f32 FIR
+    pass and the f32 DFT pass once per group of streams whose 4-byte planes
+    fit the scratch, with zero starts, and counts one K7 call; the bf16
+    passes and the SIMT body do not run."""
+    fft, taps, s = 2048, 4, 3
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def k1_fir_f32_launch(x, stride, starts, win, plane, b, n_spectra, n_taps, f, stream):
+            calls.append(("fir", x, stride, plane, b, n_spectra, n_taps, f))
+            return 0
+
+        @staticmethod
+        def dit_dft_f32_launch(plane, *args):
+            calls.append(("dft", plane, args[9], *args[11:15]))
+            return 0
+
+        @staticmethod
+        def dit_dft_f32_attributes(n1, n2, out):
+            return 0
+
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    monkeypatch.setattr(ff.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    if scratch is not None:
+        monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", scratch * s * fft * 4)
+    frames = torch.zeros((batch, s + taps - 1, fft), dtype=torch.int8)
+    rc = torch.zeros((batch, fft // 2))
+    counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.k1_fir, ff.dit_dft,
+                ff.fengine_dit_simt)
+    before = [c.launches for c in counters]
+    outr, _ = ff._launch_dit(frames, default_window(taps, fft), rc, rc.clone(), n1=n1, n2=n2,
+                             dft_dtype="float32")
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, groups, groups, 0, 0, 0]
+    assert [c[0] for c in calls] == ["fir", "dft"] * groups
+    group = ff._plane_group(batch, s, fft, 4)
+    assert group == (batch if scratch is None else scratch)
+    stream_bytes = (s + taps - 1) * fft
+    for i in range(groups):
+        fir, dft = calls[2 * i], calls[2 * i + 1]
+        nb = min(group, batch - i * group)
+        assert fir[1] == frames.data_ptr() + i * group * stream_bytes and fir[2] == stream_bytes
+        assert fir[3] == dft[1] and fir[4:] == (nb, s, taps, fft)
+        assert dft[2] == outr.data_ptr() + i * group * s * fft // 2
+        assert dft[3:] == (nb, s, n1, n2)
+
+
+def test_f32_dft_pass_gets_aligned_operands(monkeypatch):
+    """A plane 4 bytes past a 16-byte boundary and rotation planes 4 bytes
+    past an 8-byte boundary reach the f32 DFT pass (which reads them as
+    float4 and float2) as aligned copies of the same values (stubbed card)."""
+    fft, b, s = 2048, 2, 3
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    n = fft // 2
+    seen = []
+
+    class Lib:
+        @staticmethod
+        def dit_dft_f32_launch(plane, *args):
+            vals = (ctypes.c_float * (b * s * fft)).from_address(plane)
+            seen.append((plane % 16, np.ctypeslib.as_array(vals).copy()))
+            for ptr in args[7:9]:
+                vals = (ctypes.c_float * (b * n)).from_address(ptr)
+                seen.append((ptr % 8, np.ctypeslib.as_array(vals).copy()))
+            return 0
+
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    monkeypatch.setattr(ff.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    rng = np.random.default_rng(29)
+    want = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for shape in ((b, s, fft), (b, n), (b, n))]
+    odd = []
+    for w in want:
+        view = torch.empty(w.numel() + 1)[1:].view(w.shape)
+        view.copy_(w)
+        assert view.data_ptr() % 8 == 4
+        odd.append(view)
+    outr, outi = (torch.empty((b, s, n), dtype=torch.int8) for _ in range(2))
+    ff._dit_dft_f32_pass(*odd, outr, outi, n1=n1, n2=n2)
+    assert [rem for rem, _ in seen] == [0, 0, 0]
+    for (_, vals), w in zip(seen, want):
+        np.testing.assert_array_equal(vals, w.numpy().ravel())
+
+
+def test_dit_dft_f32_and_the_simt_entry_on_cpu_are_their_plain_versions():
+    """``dit_dft_f32`` and ``fengine_dit_simt`` on CPU tensors are the plain
+    versions and count no launch."""
+    frames, win, rc, rs = _frames(2048, 2, seed=11)
+    plane = ff.k1_fir_f32(frames.reshape(2, -1), torch.zeros(2, dtype=torch.int64), win,
+                          n_spectra=S)
+    counters = (ff.dit_dft_f32, ff.fengine_dit_simt, ff.fengine_dit)
+    before = [c.launches for c in counters]
+    got = ff.dit_dft_f32(plane, rc, rs, n1=16, n2=64)
+    for g, w in zip(got, ff.dit_dft_f32_reference(plane, rc, rs, n1=16, n2=64)):
+        assert torch.equal(g, w)
+    for dt in ("float32", "bfloat16"):
+        got = ff.fengine_dit_simt(frames, win, rc, rs, n1=16, n2=64, dft_dtype=dt)
+        for g, w in zip(got, ff.fengine_dit_reference(frames, win, rc, rs, n1=16, n2=64,
+                                                      dft_dtype=dt)):
+            assert torch.equal(g, w)
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        ff.dit_dft_f32(plane.to("meta"), rc, rs, n1=16, n2=64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ff.fengine_dit_simt(frames.to("meta"), win, rc, rs, n1=16, n2=64)

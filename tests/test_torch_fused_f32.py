@@ -201,8 +201,83 @@ def test_k1_f32_wrappers_take_the_plain_versions_on_cpu(quantise):
     (16, 128, "bfloat16", "two_pass"),
     (256, 256, "bfloat16", "two_pass"),
 ])
-def test_k1_body_is_decided_without_the_library_where_it_can_be(n1, n2, dft_dtype, body):
-    """N1 = 8 and bf16 operands need no kernel library to pick K1's body (f32
-    with N1 >= 16 asks the library for the f32 pass's plan: card tests)."""
-    ff._k1_body.cache_clear()
+def test_k1_body_is_decided_without_the_library_where_it_can_be(monkeypatch, _fresh_k1_body, n1,
+                                                                n2, dft_dtype, body):
+    """N1 = 8 needs no kernel library to pick K1's body; N1 >= 16 asks the
+    library for its DFT pass's plan once a split (here a stub that has one;
+    the real plans: card tests)."""
+    asked = _stub_k1_plans(monkeypatch, 0)
     assert ff._k1_body(n1, n2, dft_dtype) == body
+    assert ff._k1_body(n1, n2, dft_dtype) == body
+    name = "k1_dft_attributes" if dft_dtype == "bfloat16" else "k1_dft_f32_attributes"
+    assert asked == ([] if n1 < 16 else [(name, n1, n2)])
+
+
+@pytest.fixture
+def _fresh_k1_body():
+    """Each routing test decides K1's body anew, and leaves no stubbed answer
+    in the cache."""
+    ff._k1_body.cache_clear()
+    yield
+    ff._k1_body.cache_clear()
+
+
+def _stub_k1_plans(monkeypatch, answer):
+    """Stubs the library's two K1 plan queries with ``answer`` (0: a plan
+    fits); returns the list of (query, n1, n2) it is asked."""
+    asked = []
+
+    class Lib:
+        @staticmethod
+        def k1_dft_attributes(n1, n2, out):
+            asked.append(("k1_dft_attributes", n1, n2))
+            return answer
+
+        @staticmethod
+        def k1_dft_f32_attributes(n1, n2, out):
+            asked.append(("k1_dft_f32_attributes", n1, n2))
+            return answer
+
+        @staticmethod
+        def dcsand_error_string(err):
+            return b"stubbed"
+
+    ff._k1_body.cache_clear()
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    return asked
+
+
+@pytest.mark.parametrize("fits, body", [(True, "two_pass"), (False, "simt")])
+def test_k1_bf16_at_fft_2_22_follows_the_dft_pass_plan(monkeypatch, _fresh_k1_body, fits, body):
+    """bf16 K1 at 2048 x 2048 (fft 2^22) takes its two passes where the DFT
+    pass reports a plan and the SIMT body where it reports none (stubbed
+    library; on the card it has none), decided before any launch; a CUDA
+    error from the query raises."""
+    asked = _stub_k1_plans(monkeypatch, 0 if fits else ff._NO_PLAN)
+    assert ff._split_ct(1 << 22) == (2048, 2048)
+    assert ff._k1_body(2048, 2048, "bfloat16") == body
+    assert asked == [("k1_dft_attributes", 2048, 2048)]
+    _stub_k1_plans(monkeypatch, 1)
+    with pytest.raises(RuntimeError, match="k1_dft_attributes"):
+        ff._k1_body(2048, 2048, "bfloat16")
+
+
+def test_k1_bf16_split_without_a_plan_launches_the_simt_body(monkeypatch, _fresh_k1_body):
+    """With the card stubbed and the bf16 DFT pass reporting no plan, a bf16
+    K1 call launches the SIMT body once, in bf16 mode, and neither pass."""
+    fft, taps, s = 4096, 4, 3
+    x, starts, win, rc, rs = _operands(fft, taps, s, 2, 17)
+    n1, n2 = ff._split_ct(fft)
+    _stub_k1_plans(monkeypatch, ff._NO_PLAN)
+    lib = ff._build.library()
+    calls = []
+    lib.fengine_ct_launch = staticmethod(lambda *args: calls.append(args[13:20]) or 0)
+    monkeypatch.setattr(ff.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    counters = (ff.fengine_ct_simt, ff.k1_fir, ff.k1_dft, ff.fengine_fused)
+    before = [f.launches for f in counters]
+    outr, outi = ff._launch(x, starts, win, rc, rs, n_spectra=s, n1=n1, n2=n2,
+                            dft_dtype="bfloat16", quantise=True)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0, 1]
+    assert calls == [(2, s, taps, n1, n2, 1, 1)]  # batch, S, taps, N1, N2, bf16, quantise
+    assert outr.shape == outi.shape == (2, s, fft // 2)
