@@ -13,19 +13,30 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    its plain PyTorch version at the flagship fft, taps and S on 8 of the
    160 (antenna, pol) batches, with two coarse delays that clamp: bf16 DFT
    on flat streams (K1's two bf16 passes), f32 DFT on the rowed view (its
-   f32 FIR pass and FFMA DFT pass), each call's launches counted (no SIMT
-   body); within 1 int8 code on <= 1e-3 of samples; the SIMT body on the
-   same streams through ``fengine_ct_simt``, held to the same bound and
-   timed beside the f32 passes; K1's FIR passes alone (``k1_fir``,
-   ``k1_fir_f32``) bit-exact against ``k1_fir_reference`` on the same
-   streams. Then above the old 65536 cap: K1 at fft 2^17, 2^18 and 2^20 (2
-   batches, 16 taps, S=8), bf16 and f32, against plain with the same bound;
-   K1 bf16 at fft 2^22 (2048 x 2048, 2 batches, 4 taps, S=2), where the
-   bf16 DFT pass has no plan: it must launch the SIMT body and neither
-   pass, within the bf16 bound of plain, timed; and ``FBEngine`` /
-   ``FXBEngine(fengine="auto")`` at 65536 channels (2 ant x 4 beams x 4
-   taps, S=128) on the card against the same engine on the CPU: beams
-   within 2 + 1e-3 and off by more than 1e-3 on <= 5e-3 of them;
+   f32 FIR pass and FFMA DFT pass), each call's launches counted (no stage
+   of the three-pass route); within 1 int8 code on <= 1e-3 of samples;
+   K1's FIR passes alone (``k1_fir``, ``k1_fir_f32``) bit-exact against
+   ``k1_fir_reference`` on the same streams. Then above the old 65536 cap:
+   K1 at fft 2^17, 2^18 and 2^20 (2 batches, 16 taps, S=8), bf16 and f32,
+   against plain with the same bound; K1 at fft 2^22 (2048 x 2048, 2
+   batches, 4 taps, S=2), both forms, where neither DFT pass has a plan:
+   it must launch the form's FIR pass, stage A and stage B once each and
+   nothing else, within 1 code on <= 1e-3 (bf16) or 1e-4 (f32) of plain,
+   timed. Then K1 at full width, 160 streams x 16 taps with coarse delays,
+   both forms, at fft 1024 (N1 = 8, S = 16384: the two passes' N1 = 8
+   plans) and fft 2^22 (S = 4: the three-pass route): its route's passes
+   launched once a group each and nothing else (the counts set to 0 just
+   before and read just after), the last 8 streams against plain with the
+   form's bound, stage A's T and stage B on it against plain, K1 whole and
+   each pass alone over the 160 streams beside its plain version (8
+   streams at a time) and its bound, and the scratch. Then ``FBEngine`` /
+   ``FXBEngine(fengine="auto")`` at 65536 channels and ``FBEngine`` at 512
+   (2 ant x 4 beams x 4 taps, S=128) on the card against the same engine on
+   the CPU: beams within 2 + 1e-3 and off by more than 1e-3 on <= 5e-3 of
+   them; and ``FBEngine(fengine="auto")`` at 512 channels at the flagship
+   array (80 ant x 16 beams x 16 taps, S = 16384; K1's two bf16 passes at
+   N1 = 8 must launch and no other K1 pass): 3 steps, a delay update, 2
+   steps, the median of steps 2-5;
 4. k2      — K2 (fused B kernel) through ``beamform_turned_fused`` vs its
    plain version at the flagship C and B with A=8, bf16 and f32 weights:
    rtol 1e-5, atol 1e-3, its launch counter rising by one each;
@@ -51,12 +62,12 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    Then the same flagship with ``fengine="fused_f32"`` (K1's f32 FIR pass
    and FFMA DFT pass, 16 streams a group, then K2): the same steps, the
    median of steps 2-5 beside the bf16 step's and its peak memory; the f32
-   passes must launch and the SIMT body and the bf16 passes must not; the
-   last step's beams equal K2 of K1 f32; K1 f32 over all 160 streams within
-   1 code on <= 1e-3 of plain, its f32 FIR pass bit-exact, its DFT pass
-   alone equal to it; K1 f32, each f32 pass (beside its plain version and
-   its f32 bound) and the SIMT body timed; the DFT pass's registers and
-   spill bytes (a spill fails the phase).
+   passes must launch and no other K1 pass; the last step's beams equal K2
+   of K1 f32; K1 f32 over all 160 streams within 1 code on <= 1e-3 of
+   plain, its f32 FIR pass bit-exact, its DFT pass alone equal to it; K1
+   f32 and each f32 pass (beside its plain version and its f32 bound)
+   timed; the DFT pass's registers and spill bytes (a spill fails the
+   phase).
 7. corner_turn — K4 through ``corner_turn_planes`` at A=80, P=2, S=256,
    C=32768 vs its plain version, bit-exact; ``corner_turn_planes_x`` (K5a)
    must be the same bytes viewed as ``[C, 2AP, S]``; kernel and plain times;
@@ -151,17 +162,16 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    100 of 512, 16 taps, S=8, TPDF dither, seed 2021) through K1's
    unquantised output (``fengine_fused(quantise=False)``), bf16 and f32 DFT:
    the peak in channel 100, worst leakage <= -62 dB, bf16 within 6 dB of
-   f32 (fft 1024: N1 = 8, K1's SIMT body); the same recipe at 1024
-   channels (tone in channel 200, fft 2048, N1 = 16) through K1's f32 two
-   passes and through its SIMT body, each meeting the spec and the two
-   within 1 dB. Then K1's f32 output on 8 of the 160 flagship streams against its
+   f32 (fft 1024: N1 = 8, K1's two passes' N1 = 8 plans); the same recipe
+   at 1024 channels (tone in channel 200, fft 2048, N1 = 16) through K1's
+   f32 two passes and through its plain version, each meeting the spec and
+   the two within 1 dB. Then K1's f32 output on 8 of the 160 flagship streams against its
    plain version: f32 DFT within rtol 1e-4 / atol 1e-2; bf16 DFT (a
    different f32 sum order flips a few bf16 roundings in stage A) below 1
    code unit everywhere and within that bound on all but 1e-2 of the
    samples, its max |d| and share over the bound printed; the int8 output
    of the same kernel equal to the requant of its f32 output; kernel and
-   plain ms; the SIMT body's f32 output on the same streams held to the f32
-   bound and timed beside the two passes. Then two qualification scenarios
+   plain ms. Then two qualification scenarios
    at the flagship width, their tone's channel scaled with the fft (K = 40 * fft / 256 = 10240, a 32-sample
    period): beam steering through ``FBEngine``'s default path (K1 + K2,
    natural packed beams, bf16) at 80 ant x 32768 ch x 16 beams x 16 taps,
@@ -310,6 +320,9 @@ SEED = 2021
 #: default, sized for fft 1024) saturates most codes at +-127; 1/128 keeps
 #: the int8 planes at a few tens of codes rms, so the checks see real values.
 QUANT_SCALE = 1 / 128
+#: The flagship array and its spectra a step (bench.py:171-176).
+FLAG = dict(n_ants=80, n_channels=32768, n_beams=16, n_taps=16)
+FLAG_S = 256
 #: One H100 SXM's published rates (NVIDIA's data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
@@ -409,8 +422,10 @@ def _k1_plain(x, starts, window, rotc, rots, out, *, chunk, **kw):
         out[0][b], out[1][b] = pr, pi
 
 
-#: K1's launch counters: its bf16 passes, its f32 passes and its SIMT body.
-K1_COUNTERS = ("k1_fir", "k1_dft", "k1_fir_f32", "k1_dft_f32", "fengine_ct_simt")
+#: K1's launch counters: its bf16 and f32 passes on the two-pass and
+#: three-pass routes.
+K1_COUNTERS = ("k1_fir", "k1_dft", "k1_fir_f32", "k1_dft_f32", "k1_stage_a", "k1_stage_b",
+               "k1_stage_a_f32", "k1_stage_b_f32")
 
 
 def _k1_counts(ff) -> dict:
@@ -493,7 +508,7 @@ def phase_k1(st: dict) -> None:
         plain()
         torch.cuda.synchronize()
         # bf16 runs the two bf16 passes; f32 the f32 FIR pass and the FFMA DFT
-        # pass; neither the SIMT body.
+        # pass; neither a stage of the three-pass route.
         want_passes = (("k1_fir", "k1_dft") if dt == "bfloat16" else ("k1_fir_f32", "k1_dft_f32"))
         ran = {k: v - counts[k] for k, v in _k1_counts(ff).items()}
         if ran != {k: int(k in want_passes) for k in ran}:
@@ -507,20 +522,7 @@ def phase_k1(st: dict) -> None:
             st["k1_subset"] = dict(subset_ms=ms, subset_plain_ms=pms)
         else:
             st["k1_f32_subset"] = dict(ms=ms, plain_ms=pms)
-    # The SIMT body (the f32 form's single-pass body; N1 = 8 and f32 splits
-    # the FFMA pass cannot hold take it) on the same 8 streams, through its own
-    # launch function: held to the same plain version and timed beside them.
-    def simt():
-        return ff.fengine_ct_simt(x.reshape(nb, -1), starts, win, rc, rs, n_spectra=s, n1=n1,
-                                  n2=n2, dft_dtype="float32")
-
-    _code_diff("k1 f32 SIMT body", simt(), ref)
-    simt_ms = cuda_ms(simt)
     f32 = st["k1_f32_subset"]
-    f32["simt_ms"] = simt_ms
-    log(f"k1 f32 [{nb} batches x S={s} x fft {fft}]: two passes {f32['ms']:.3f} ms, the SIMT "
-        f"body {simt_ms:.3f} ms ({simt_ms / f32['ms']:.2f}x), plain {f32['plain_ms']:.3f} ms "
-        f"({st['card']})")
     for name, fir, kw in (("k1 FIR pass", ff.k1_fir, {}),
                           ("k1 f32 FIR pass", ff.k1_fir_f32, dict(dft_dtype="float32"))):
         _exact(f"{name} [{nb} batches x S={s} x fft {fft}]",
@@ -554,29 +556,67 @@ def phase_k1(st: dict) -> None:
             else:
                 f32["max_abs_err"] = max(f32.get("max_abs_err", 0), err)
     st["k1_subset"]["subset_max_abs_err"] = float(worst)
-    _k1_bf16_simt_2_22(st, gen)
-    _engines_above_65536(st)
+    _k1_three_pass_2_22(st, gen)
+    for fft_w, s_w in K1_FULL_WIDTH:
+        _k1_full_width(st, gen, fft_w, s_w)
+    _engines_on_the_card(st, 1 << 16, ("FBEngine", "FXBEngine"))
+    _engines_on_the_card(st, FB512_C, ("FBEngine",))
+    _fb_512(st)
 
 
-#: K1 bf16's first fft without a two-pass plan (2048 x 2048).
-K1_SIMT_FFT = 1 << 22
+#: K1's first fft whose DFT pass has no shared-memory plan in either form
+#: (2048 x 2048): the three-pass route's.
+K1_THREE_PASS_FFT = 1 << 22
+#: K1 at full width (160 streams, 16 taps): (fft, S) — fft 1024 (N1 = 8) at
+#: 2^24 samples a stream, and fft 2^22 at S = 4 (2^24 samples a stream, as
+#: the flagship's step).
+K1_FULL_WIDTH = ((1024, 16384), (1 << 22, 4))
+#: The FBEngine(fengine="auto") step at 512 channels (fft 1024, N1 = 8):
+#: channels and spectra a step (2^24 samples a stream).
+FB512_C, FB512_S = 512, 16384
 
 
-def _k1_bf16_simt_2_22(st: dict, gen) -> None:
-    """K1 bf16 at fft 2^22 (2048 x 2048), where the two-pass DFT pass has no
-    shared-memory plan: ``fengine_fused`` must take the SIMT body (its FIR
-    streamed in tiles) and neither pass; held to the plain version within
-    the bf16 contract and timed."""
+def _k1_case(n1, n2, nb, s, taps, dft_dtype, three):
+    """K1's bound at a case (``chip_smoke.py:bound``) and its passes' own:
+    each input byte read once (the streams' windows, the window, the
+    rotation planes), each output written once; the FIR's f32 operations and
+    the DFT's in the operand type. Per pass: the FIR pass writes its plane;
+    stage A reads it and writes T re and im; stage B (or the DFT pass) reads
+    those and writes the outputs."""
+    fft, c = n1 * n2, n1 * n2 // 2
+    item = 2 if dft_dtype == "bfloat16" else 4
+    kind = "bf16" if dft_dtype == "bfloat16" else "f32"
+    x_bytes = nb * (s + taps - 1) * fft + taps * fft * 4
+    rot, out = 2 * nb * c * 4, 2 * nb * s * c
+    plane = nb * s * fft * item
+    fir_ops = nb * s * 2 * taps * fft
+    a_ops, b_ops = nb * s * 4 * n1 * n1 * n2, nb * s * 4 * n1 * n2 * n2
+    ops = {"f32": fir_ops}
+    ops[kind] = ops.get(kind, 0) + a_ops + b_ops
+    k1 = bound(x_bytes + rot + out, **ops)
+    passes = {"fir": bound(x_bytes + plane, f32=fir_ops)}
+    if three:
+        passes["stage_a"] = bound(plane + 2 * plane, **{kind: a_ops})
+        passes["stage_b"] = bound(2 * plane + rot + out, **{kind: b_ops})
+    else:
+        passes["dft"] = bound(plane + rot + out, **{kind: a_ops + b_ops})
+    return k1, passes
+
+
+def _k1_three_pass_2_22(st: dict, gen) -> None:
+    """K1 at fft 2^22 (2048 x 2048), 2 streams x S=2 x 4 taps, both forms,
+    where neither DFT pass has a shared-memory plan: ``fengine_fused`` must
+    take the three-pass route (the form's FIR pass, stage A and stage B,
+    once each) and nothing else; held to the plain version within the form's
+    code contract and timed."""
     import torch
 
     from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
     from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
 
     dev = torch.device("cuda")
-    fft, taps, s, nb = K1_SIMT_FFT, 4, 2, 2
+    fft, taps, s, nb = K1_THREE_PASS_FFT, 4, 2, 2
     n1, n2 = ff._split_ct(fft)
-    if ff._k1_body(n1, n2, "bfloat16") != "simt":
-        raise AssertionError(f"K1 bf16 at {n1}x{n2} did not route to the SIMT body")
     x = torch.randint(-64, 64, (nb, (s + taps - 1) * fft), dtype=torch.int8, device=dev,
                       generator=gen)
     fd = torch.rand(nb, device=dev, generator=gen) - 0.5
@@ -585,45 +625,269 @@ def _k1_bf16_simt_2_22(st: dict, gen) -> None:
     starts = torch.zeros(nb, dtype=torch.int64, device=dev)
     rc, rs = (r.reshape(nb, -1) for r in ff.fine_rotation_planes(
         fd, -1.5 * fd, n_channels=fft // 2, quant_scale=scale))
+    st["k1_2_22_small"] = {}
+    for dt in ("bfloat16", "float32"):
+        sfx = "" if dt == "bfloat16" else "_f32"
+        want = {f"k1_fir{sfx}", f"k1_stage_a{sfx}", f"k1_stage_b{sfx}"}
+        if ff._k1_body(n1, n2, dt) != "three_pass" + sfx:
+            raise AssertionError(f"K1 {dt} at {n1}x{n2} did not route to the three-pass route")
 
-    def k1():
-        return ff.fengine_fused(x, win, fd, -1.5 * fd, n_channels=fft // 2, quant_scale=scale,
-                                coarse_delays=torch.zeros(nb, device=dev), n_spectra=s)
+        def k1():
+            return ff.fengine_fused(x, win, fd, -1.5 * fd, n_channels=fft // 2,
+                                    quant_scale=scale, dft_dtype=dt,
+                                    coarse_delays=torch.zeros(nb, device=dev), n_spectra=s)
 
-    counts = _k1_counts(ff)
-    got = k1()
-    torch.cuda.synchronize()
-    ran = {k: v - counts[k] for k, v in _k1_counts(ff).items()}
-    if ran != {k: int(k == "fengine_ct_simt") for k in ran}:
-        raise AssertionError(f"k1 bf16 at fft 2^22 ran {ran}, want the SIMT body alone")
+        def plain():
+            return ff.fengine_fused_reference(x, starts, win, rc, rs, n_spectra=s, n1=n1,
+                                              n2=n2, dft_dtype=dt)
 
-    def plain():
-        return ff.fengine_fused_reference(x, starts, win, rc, rs, n_spectra=s, n1=n1, n2=n2)
+        counts = _k1_counts(ff)
+        got = k1()
+        torch.cuda.synchronize()
+        ran = {k: v - counts[k] for k, v in _k1_counts(ff).items()}
+        if ran != {k: int(k in want) for k in ran}:
+            raise AssertionError(f"k1 {dt} at fft 2^22 ran {ran}, want one each of {want}")
+        err = _code_diff(f"k1 {dt} fft {fft} [{nb} batches x S={s}, {n1}x{n2}, three passes]",
+                         got, plain(), max_frac=1e-3 if dt == "bfloat16" else 1e-4)
+        del got
+        ms, pms = cuda_ms(k1, iters=2), cuda_ms(plain, iters=1)
+        k1_bound, _ = _k1_case(n1, n2, nb, s, taps, dt, True)
+        log(f"k1 {dt} fft {fft} [{nb} batches x S={s} x {taps} taps]: three passes {ms:.3f} ms "
+            f"(bound {k1_bound['bound_ms']:.3f}, {k1_bound['bound_by']}), plain {pms:.3f} ms; "
+            f"launches {ran} ({st['card']})")
+        st["k1_2_22_small"][dt] = dict(ms=ms, plain_ms=pms, max_abs_err=float(err),
+                                       bound_ms=k1_bound["bound_ms"])
 
-    err = _code_diff(f"k1 bfloat16 fft {fft} [{nb} batches x S={s}, {n1}x{n2}, SIMT body]",
-                     got, plain())
-    ms, pms = cuda_ms(k1, iters=1), cuda_ms(plain, iters=1)
-    log(f"k1 bfloat16 fft {fft} [{nb} batches x S={s} x {taps} taps]: the SIMT body {ms:.3f} ms, "
-        f"plain {pms:.3f} ms; launches {ran} ({st['card']})")
-    st["k1_subset"].update(simt_2_22_ms=ms, simt_2_22_plain_ms=pms,
-                           simt_2_22_max_abs_err=float(err))
+
+def _chunked(fn, nb, step=8):
+    """``fn(slice)`` over ``nb`` streams, ``step`` at a time (the plain
+    versions' f32 temporaries stay small)."""
+    def run():
+        for b0 in range(0, nb, step):
+            fn(slice(b0, b0 + step))
+    return run
 
 
-def _engines_above_65536(st: dict) -> None:
-    """FBEngine and FXBEngine with fengine="auto" at 65536 channels (fft 2^17):
-    the fused F kernel on the card, held to the same engine on the CPU."""
+def _k1_full_width_case(gen, fft: int, s: int) -> dict:
+    """The full-width K1 case's inputs, made on the card from ``gen``: 160
+    streams (80 ant x 2 pol) of int8 with S spectra of 16 taps and coarse
+    delays up to 4096 samples, fine delays, the window, and the gain that
+    keeps the codes near 50 rms, as at the flagship."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    taps, lead = FLAG["n_taps"], (FLAG["n_ants"], 2)
+    n_in = (s + taps - 1) * fft + 4096
+    return dict(
+        x=torch.randint(-64, 64, (*lead, n_in), dtype=torch.int8, device=dev, generator=gen),
+        cd=torch.randint(0, 4096, lead, device=dev, generator=gen),
+        fd=torch.rand(lead, device=dev, generator=gen) - 0.5,
+        win=default_window(taps, fft, device=dev),
+        scale=QUANT_SCALE * (65536 / fft) ** 0.5)
+
+
+def _k1_full_width_call(ff, case: dict, s: int, dft_dtype: str):
+    """K1 on the full-width case through ``fengine_fused`` of the module
+    ``ff`` (it needs nothing newer than that entry point)."""
+    c = case["win"].shape[1] // 2
+    return ff.fengine_fused(case["x"], case["win"], case["fd"], -1.5 * case["fd"], n_channels=c,
+                            quant_scale=case["scale"], dft_dtype=dft_dtype,
+                            coarse_delays=case["cd"], n_spectra=s)
+
+
+def _k1_full_width(st: dict, gen, fft: int, s: int) -> None:
+    """K1 at full width, 160 streams (80 ant x 2 pol) x S spectra x 16 taps
+    with coarse delays, both forms, through ``fengine_fused``: the route's
+    passes, each once a group of its scratch, and nothing else (the counts
+    set to 0 just before, read just after); the last 8 streams against plain
+    within the form's code contract; K1 whole, each pass alone over all 160
+    streams beside its plain version (8 streams at a time) and its bound,
+    the scratch, and the DFT bodies' registers and spill bytes (a spill
+    fails the phase, but for the bf16 DFT pass's, which is logged)."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+
+    taps = FLAG["n_taps"]
+    case = _k1_full_width_case(gen, fft, s)
+    x, cd, fd, win = case["x"], case["cd"], case["fd"], case["win"]
+    nb, n_in = x.shape[0] * x.shape[1], x.shape[2]
+    c = fft // 2
+    n1, n2 = ff._split_ct(fft)
+    out_len = (s + taps - 1) * fft
+    xs = x.view(nb, n_in)
+    starts = clamp_starts(cd.reshape(nb), n_in, out_len)
+    rc, rs = (r.reshape(nb, c) for r in ff.fine_rotation_planes(
+        fd, -1.5 * fd, n_channels=c, quant_scale=case["scale"]))
+    tail = slice(nb - 8, nb)
+    for dt in ("bfloat16", "float32"):
+        f32 = dt == "float32"
+        sfx = "_f32" if f32 else ""
+        body = ff._k1_body(n1, n2, dt)
+        three = body.startswith("three_pass")
+        names = [f"fir{sfx}"] + ([f"stage_a{sfx}", f"stage_b{sfx}"] if three else [f"dft{sfx}"])
+        item = 4 if f32 else 2
+        group = ff._plane_group(nb, s, fft, (3 if three else 1) * item)
+        n_groups = -(-nb // group)
+        tag = f"k1 {dt} fft {fft} [{nb} streams x S={s} x {taps} taps, {n1}x{n2}, {body}]"
+
+        def k1():
+            return _k1_full_width_call(ff, case, s, dt)
+
+        for k in K1_COUNTERS:
+            getattr(ff, k).launches = 0
+        got = k1()
+        torch.cuda.synchronize()
+        launches = _k1_counts(ff)
+        if launches != {k: n_groups * (k[3:] in names) for k in K1_COUNTERS}:
+            raise AssertionError(f"{tag} ran {launches}, want {names} {n_groups} times each")
+        ref = ff.fengine_fused_reference(xs[tail], starts[tail], win, rc[tail], rs[tail],
+                                         n_spectra=s, n1=n1, n2=n2, dft_dtype=dt)
+        err = _code_diff(f"{tag} streams {nb - 8}..{nb - 1}",
+                         [g.view(nb, s, c)[tail] for g in got], ref,
+                         max_frac=1e-4 if f32 else 1e-3)
+        del got, ref
+        k1_ms = cuda_ms(k1, iters=1)
+        k1_bound, pass_bounds = _k1_case(n1, n2, nb, s, taps, dt, three)
+        # Each pass alone over all 160 streams, and its plain version.
+        fir = ff.k1_fir_f32 if f32 else ff.k1_fir
+        res = {"fir": dict(ms=cuda_ms(lambda: fir(xs, starts, win, n_spectra=s), iters=1),
+                           plain_ms=cuda_ms(_chunked(lambda b: ff.k1_fir_reference(
+                               xs[b], starts[b], win, n_spectra=s, dft_dtype=dt), nb), iters=1),
+                           max_abs_err=0.0)}
+        plane = fir(xs, starts, win, n_spectra=s)
+        if not torch.equal(plane[tail], ff.k1_fir_reference(xs[tail], starts[tail], win,
+                                                            n_spectra=s, dft_dtype=dt)):
+            raise AssertionError(f"{tag}: the FIR pass differs from plain")
+        if three:
+            stage_a = ff.k1_stage_a_f32 if f32 else ff.k1_stage_a
+            stage_b = ff.k1_stage_b_f32 if f32 else ff.k1_stage_b
+            a_ms = cuda_ms(lambda: stage_a(plane, n1=n1, n2=n2), iters=1)
+            a_plain_ms = cuda_ms(_chunked(lambda b: ff.k1_stage_a_reference(
+                plane[b], n1=n1, n2=n2, dft_dtype=dt), nb), iters=1)
+            tr, ti = stage_a(plane, n1=n1, n2=n2)
+            ref_t = ff.k1_stage_a_reference(plane[tail], n1=n1, n2=n2, dft_dtype=dt)
+            t_err, t_share = 0.0, 0.0
+            for g, r in zip((tr[tail], ti[tail]), ref_t):
+                d = (g.float() - r.float()).abs()
+                t_err = max(t_err, float(d.max()))
+                t_share = max(t_share, float((d > 1e-5 * r.float().abs()).float().mean()))
+            log(f"{tag}: stage A's T against plain on streams {nb - 8}..: max|d| {t_err:.3e}, "
+                f"share off by more than 1e-5 relative {t_share:.3e}, T rms "
+                f"{float(ref_t[0].float().pow(2).mean().sqrt()):.1f}")
+            if t_share > (1e-4 if f32 else 1e-3):
+                raise AssertionError(f"{tag}: stage A's T disagrees with plain")
+            del plane, ref_t
+            b_ms = cuda_ms(lambda: stage_b(tr, ti, rc, rs, n1=n1, n2=n2), iters=1)
+            b_plain_ms = cuda_ms(_chunked(lambda b: ff.k1_stage_b_reference(
+                tr[b], ti[b], rc[b], rs[b], n1=n1, n2=n2, dft_dtype=dt), nb), iters=1)
+            b_err = _code_diff(f"{tag}: stage B on its own T, streams {nb - 8}..",
+                               stage_b(tr[tail], ti[tail], rc[tail], rs[tail], n1=n1, n2=n2),
+                               ff.k1_stage_b_reference(tr[tail], ti[tail], rc[tail], rs[tail],
+                                                       n1=n1, n2=n2, dft_dtype=dt),
+                               max_frac=1e-4 if f32 else 1e-3)
+            del tr, ti
+            res["stage_a"] = dict(ms=a_ms, plain_ms=a_plain_ms, max_abs_err=t_err)
+            res["stage_b"] = dict(ms=b_ms, plain_ms=b_plain_ms, max_abs_err=float(b_err))
+        else:
+            dft = ff.k1_dft_f32 if f32 else ff.k1_dft
+            res["dft"] = dict(ms=cuda_ms(lambda: dft(plane, rc, rs, n1=n1, n2=n2), iters=1),
+                              plain_ms=cuda_ms(_chunked(lambda b: ff.k1_dft_reference(
+                                  plane[b], rc[b], rs[b], n1=n1, n2=n2, dft_dtype=dt), nb),
+                                  iters=1),
+                              max_abs_err=float(err))
+            del plane
+        torch.cuda.empty_cache()
+        if three:
+            bodies = ff.k1_stage_attributes(n1, n2, dt)
+        else:
+            bodies = {"dft": (ff.k1_dft_f32_attributes if f32 else ff.k1_dft_attributes)(n1, n2)}
+        # The stage bodies and the f32 DFT pass spill nothing; the bf16 DFT
+        # pass's body spills a few bytes at every plan (PERF.md §7), logged.
+        if any(at["local_bytes"] for name, at in bodies.items() if f32 or name != "dft"):
+            raise AssertionError(f"{tag}: a body spills: {bodies}")
+        for name, r in res.items():
+            r.update(pass_bounds[name], library_ms=None)
+        for stage, at in bodies.items():
+            res["dft" if stage == "dft" else f"stage_{stage}"].update(
+                regs=at["regs"], local_bytes=at["local_bytes"])
+        k1_plain = sum(r["plain_ms"] for r in res.values())
+        split = ", ".join(f"{n} {r['ms']:.3f} (bound {r['bound_ms']:.3f}, {r['bound_by']}; "
+                          f"plain {r['plain_ms']:.3f})" for n, r in res.items())
+        log(f"{tag}: K1 {k1_ms:.3f} ms (bound {k1_bound['bound_ms']:.3f}, "
+            f"{k1_bound['bound_by']}, {k1_bound['bound_ms'] / k1_ms:.2%} of it; its passes' "
+            f"plain versions {k1_plain:.3f}); alone: {split}; launches {launches}; scratch "
+            f"{group} streams a group, {n_groups} groups, "
+            f"{group * s * fft * item * (3 if three else 1) / 1e9:.3f} GB; bodies {bodies} "
+            f"({st['card']})")
+        st.setdefault("k1_full", {})[(fft, dt)] = dict(
+            ms=k1_ms, plain_ms=k1_plain, max_abs_err=float(err), launches=launches,
+            passes=res, group=group, **k1_bound)
+    del x, xs, case
+    torch.cuda.empty_cache()
+
+
+def _fb_512(st: dict) -> None:
+    """``FBEngine(fengine="auto")`` at 512 channels (fft 1024, N1 = 8) at the
+    flagship array, 80 ant x 16 beams x 16 taps, S = 16384 (natural beams:
+    the B stage resolves to the turn and the product there): the steps of
+    :func:`_fb_steps`; K1 must run its two bf16 passes, once each a group,
+    and no other K1 pass; beams finite; the median of steps 2-5."""
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import bstage, corner_turn, fengine_fused as ff
+
+    for k in K1_COUNTERS:
+        getattr(ff, k).launches = 0
+    ff.fengine_fused.launches = bstage.beamform_turned_fused.launches = 0
+    corner_turn.corner_turn_planes.launches = 0
+    run = _fb_steps(fengine="auto", n_channels=FB512_C, n_spectra=FB512_S, seed=SEED + 5)
+    fb, out, times = run["fb"], run["out"], run["times"]
+    launches = {"k1": ff.fengine_fused.launches, "k2": bstage.beamform_turned_fused.launches,
+                "k4": corner_turn.corner_turn_planes.launches, **_k1_counts(ff)}
+    nb = 2 * FLAG["n_ants"]
+    tag = (f"FBEngine(fengine='auto') [{FLAG['n_ants']} ant x {FB512_C} ch x "
+           f"{FLAG['n_beams']} beams x {FLAG['n_taps']} taps, S={FB512_S}; "
+           f"fengine={fb.fengine!r}, bstage={fb.bstage!r}]")
+    if fb.fengine != "fused" or launches["k1"] != len(times):
+        raise AssertionError(f"{tag} did not run K1 each step: {launches}")
+    group = ff._plane_group(nb, FB512_S, 2 * FB512_C)
+    want = {k: launches["k1"] * -(-nb // group) * (k in ("k1_fir", "k1_dft"))
+            for k in K1_COUNTERS}
+    if {k: launches[k] for k in K1_COUNTERS} != want:
+        raise AssertionError(f"{tag}: K1 ran {launches}, want its two bf16 passes alone")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{tag}: non-finite beams")
+    ms = float(np.median(times[1:]))
+    log(f"{tag}: step ms {['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
+        f"{nb * FB512_S * 2 * FB512_C / ms / 1e3:.1f} Msamples/s, beams {tuple(out.shape)}, "
+        f"peak memory {run['peak_gb']:.2f} GB; launches {launches} ({st['card']})")
+    st["fb512"] = dict(ms=ms, launches=launches, peak_gb=run["peak_gb"])
+    del fb, out, run
+    torch.cuda.empty_cache()
+
+
+def _engines_on_the_card(st: dict, n_channels: int, classes) -> None:
+    """FBEngine (and FXBEngine) with fengine="auto" at ``n_channels`` on the
+    card, K1 launched once, held to the same engine on the CPU (2 ant x 4
+    beams x 4 taps, S=128): beams within 2 + 1e-3 and off by more than 1e-3
+    on <= 5e-3 of them."""
     import torch
 
     from dpdk_dc_sand_tpu_torch import ArrayConfig
-    from dpdk_dc_sand_tpu_torch.models import FBEngine, FXBEngine
+    from dpdk_dc_sand_tpu_torch import models
     from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
 
-    cfg = ArrayConfig(n_ants=2, n_channels=1 << 16, n_beams=4, n_taps=4)
-    for cls in (FBEngine, FXBEngine):
+    cfg = ArrayConfig(n_ants=2, n_channels=n_channels, n_beams=4, n_taps=4)
+    for cls in (getattr(models, name) for name in classes):
         kw = dict(n_spectra=128, precision="bf16", quant_scale=1 / 64)
         gpu = cls(cfg, device=torch.device("cuda"), **kw)
         cpu = cls(cfg, device="cpu", **kw)
-        name = f"{cls.__name__}(fengine='auto') [A=2 C=65536 B=4 taps=4 S=128]"
+        name = f"{cls.__name__}(fengine='auto') [A=2 C={n_channels} B=4 taps=4 S=128]"
         if gpu.fengine != "fused":
             raise AssertionError(f"{name} resolved fengine={gpu.fengine!r}")
         adc, cd, fd, ph, dv = cpu.example_inputs(seed=SEED, margin=1024, rowed=True)
@@ -633,7 +897,7 @@ def _engines_above_65536(st: dict) -> None:
         if ff.fengine_fused.launches != before + 1:
             raise AssertionError(f"{name} did not run K1 on the card")
         ref = cpu(adc, cd, fd, ph, dv)
-        gb, rb = (got[0], ref[0]) if cls is FXBEngine else (got, ref)
+        gb, rb = (got[0], ref[0]) if cls.__name__ == "FXBEngine" else (got, ref)
         d = (gb.cpu().float() - rb.float()).abs()
         dmax, frac = float(d.max()), float((d > 1e-3).float().mean())
         log(f"{name} on the card vs the CPU engine: beams max|d| {dmax:.4f}, "
@@ -910,9 +1174,11 @@ def phase_flagship(st: dict) -> None:
     _flagship_f32(st)
 
 
-def _fused_f32_steps() -> dict:
-    """The F+B flagship step with ``fengine="fused_f32"`` (natural packed
-    beams from K2), as the bf16 flagship steps: wire-rowed ADC made on the
+def _fb_steps(fengine: str = "fused_f32", n_channels: int = FLAG["n_channels"],
+              n_spectra: int = FLAG_S, seed: int = SEED + 3) -> dict:
+    """F+B steps at the flagship array (80 ant x 16 beams x 16 taps) with
+    ``n_channels`` and ``fengine`` (natural packed beams; the B stage the
+    engine resolves), as the bf16 flagship steps: wire-rowed ADC made on the
     card afresh each step, set_beam_delays, 3 steps, a delay update, 2 steps.
     Returns the engine, its ADC, coarse delays, last beams, step ms and the
     peak device memory (GB) over the run."""
@@ -924,14 +1190,15 @@ def _fused_f32_steps() -> dict:
     from dpdk_dc_sand_tpu_torch.ops.fengine_fused import ingest_alignment
 
     dev = torch.device("cuda")
-    cfg = ArrayConfig(**FLAG)
+    cfg = ArrayConfig(**dict(FLAG, n_channels=n_channels))
     a, p = cfg.n_ants, cfg.n_pols
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fb = FBEngine(cfg, n_spectra=FLAG_S, quant_scale=QUANT_SCALE, precision="bf16",
-                  fengine="fused_f32", bstage="fused", beam_layout="natural", device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    fb = FBEngine(cfg, n_spectra=n_spectra, quant_scale=QUANT_SCALE, precision="bf16",
+                  fengine=fengine, bstage="fused" if fengine == "fused_f32" else "auto",
+                  beam_layout="natural", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(SEED)
     margin = 8192
     cd = rng.integers(0, margin, a).astype(np.int32)
@@ -971,10 +1238,9 @@ def _fused_f32_steps() -> dict:
 def _flagship_f32(st: dict) -> None:
     """The F+B flagship with ``fengine="fused_f32"``: K1's f32 FIR pass and
     FFMA DFT pass (16 streams a group), then K2. Steps as the bf16 flagship;
-    the f32 passes must launch and the SIMT body and the bf16 passes must not.
-    Then the last step's K1 against plain over all 160 streams, each f32 pass
-    alone timed beside its plain version, and the SIMT body on the same
-    streams (through its launch function, after the count was read)."""
+    the f32 passes must launch and no other K1 pass. Then the last step's K1
+    against plain over all 160 streams, and each f32 pass alone timed beside
+    its plain version."""
     import numpy as np
     import torch
 
@@ -990,7 +1256,7 @@ def _flagship_f32(st: dict) -> None:
     for k in K1_COUNTERS:
         getattr(ff, k).launches = 0
     ff.fengine_fused.launches = bstage.beamform_turned_fused.launches = 0
-    run = _fused_f32_steps()
+    run = _fb_steps()
     launches = {"k1": ff.fengine_fused.launches, "k2": bstage.beamform_turned_fused.launches,
                 **_k1_counts(ff)}
     fb, adc, cd, out, times, peak_gb = (run.pop(k) for k in ("fb", "adc", "cd", "out", "times",
@@ -1002,8 +1268,9 @@ def _flagship_f32(st: dict) -> None:
         raise AssertionError(f"a kernel of the fused_f32 path never launched: {launches}")
     if min(launches["k1_fir_f32"], launches["k1_dft_f32"]) < launches["k1"]:
         raise AssertionError(f"K1 f32 did not run through its two passes: {launches}")
-    if launches["fengine_ct_simt"] or launches["k1_fir"] or launches["k1_dft"]:
-        raise AssertionError(f"the fused_f32 step ran the SIMT body or a bf16 pass: {launches}")
+    others = [k for k in K1_COUNTERS if k not in ("k1_fir_f32", "k1_dft_f32") and launches[k]]
+    if others:
+        raise AssertionError(f"the fused_f32 step ran another K1 pass: {launches}")
     want = (c // 4, p * s, 128)
     if tuple(out.shape) != want or out.dtype != torch.float32:
         raise AssertionError(f"fused_f32 beams {tuple(out.shape)} {out.dtype}, want {want}")
@@ -1057,22 +1324,14 @@ def _flagship_f32(st: dict) -> None:
     log(f"flagship k1 f32 FIR pass [{nb} x S={s} x fft {fft}]: bit-exact against plain; the "
         f"DFT pass alone equals K1 f32")
 
-    def chunks(fn):
-        def run():
-            for b0 in range(0, nb, 8):
-                fn(slice(b0, b0 + 8))
-        return run
-
     k1_ms = cuda_ms(k1, iters=2)
     fir_ms = cuda_ms(lambda: ff.k1_fir_f32(x, starts, fb.window, n_spectra=s), iters=2)
     dft_ms = cuda_ms(lambda: ff.k1_dft_f32(plane, rc, rs, n1=n1, n2=n2), iters=2)
-    fir_plain_ms = cuda_ms(chunks(lambda b: ff.k1_fir_reference(
-        x[b], starts[b], fb.window, n_spectra=s, dft_dtype="float32")), iters=1)
-    dft_plain_ms = cuda_ms(chunks(lambda b: ff.k1_dft_reference(
-        plane[b], rc[b], rs[b], n1=n1, n2=n2, dft_dtype="float32")), iters=1)
+    fir_plain_ms = cuda_ms(_chunked(lambda b: ff.k1_fir_reference(
+        x[b], starts[b], fb.window, n_spectra=s, dft_dtype="float32"), nb), iters=1)
+    dft_plain_ms = cuda_ms(_chunked(lambda b: ff.k1_dft_reference(
+        plane[b], rc[b], rs[b], n1=n1, n2=n2, dft_dtype="float32"), nb), iters=1)
     del plane
-    simt_ms = cuda_ms(lambda: ff.fengine_ct_simt(x, starts, fb.window, rc, rs, n_spectra=s,
-                                                 n1=n1, n2=n2), iters=1)
     fir_bound = bound(nb * (s + taps - 1) * fft + taps * fft * 4 + nb * s * fft * 4,
                       f32=nb * s * 2 * taps * fft)
     dft_bound = bound(nb * s * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
@@ -1080,19 +1339,17 @@ def _flagship_f32(st: dict) -> None:
     at = ff.k1_dft_f32_attributes(n1, n2)
     if at["local_bytes"]:
         raise AssertionError(f"K1's f32 DFT pass spills: {at}")
-    log(f"flagship k1 f32 [{nb} x S={s} x fft {fft}]: K1 {k1_ms:.3f} ms (the SIMT body "
-        f"{simt_ms:.3f} ms, {simt_ms / k1_ms:.2f}x); FIR pass {fir_ms:.3f} ms (bound "
-        f"{fir_bound['bound_ms']:.3f}, {fir_bound['bound_by']}; plain {fir_plain_ms:.3f}), DFT "
+    log(f"flagship k1 f32 [{nb} x S={s} x fft {fft}]: K1 {k1_ms:.3f} ms; FIR pass "
+        f"{fir_ms:.3f} ms (bound {fir_bound['bound_ms']:.3f}, {fir_bound['bound_by']}; plain {fir_plain_ms:.3f}), DFT "
         f"pass {dft_ms:.3f} ms (bound {dft_bound['bound_ms']:.3f}, {dft_bound['bound_by']}, "
         f"{dft_bound['bound_ms'] / dft_ms:.1%} of it; plain {dft_plain_ms:.3f}); the DFT "
         f"pass's body {at} ({st['card']})")
     st["k1_fir_f32"] = dict(max_abs_err=0.0, ms=fir_ms, plain_ms=fir_plain_ms, **fir_bound,
                             library_ms=None)
     st["k1_dft_f32"] = dict(max_abs_err=float(k1_err), ms=dft_ms, plain_ms=dft_plain_ms,
-                            **dft_bound, library_ms=None, k1_f32_ms=k1_ms, simt_ms=simt_ms,
+                            **dft_bound, library_ms=None, k1_f32_ms=k1_ms,
                             regs=at["regs"], local_bytes=at["local_bytes"],
                             subset_ms=st["k1_f32_subset"]["ms"],
-                            subset_simt_ms=st["k1_f32_subset"]["simt_ms"],
                             subset_max_abs_err=float(st["k1_f32_subset"]["max_abs_err"]))
     del fb, adc, x, flat
     torch.cuda.empty_cache()
@@ -1925,21 +2182,15 @@ def _k7_f32_flagship(st: dict, n1: int, n2: int, frames, win, rc, rs) -> None:
     ms = cuda_ms(k7, iters=2)
     simt_ms = cuda_ms(lambda: ff.fengine_dit_simt(frames, win, rc, rs, n1=n1, n2=n2), iters=1)
 
-    def chunks(fn):
-        def run():
-            for b0 in range(0, nb, 8):
-                fn(slice(b0, b0 + 8))
-        return run
-
-    plain_ms = cuda_ms(chunks(lambda b: ff.fengine_dit_reference(
-        frames[b], win, rc[b], rs[b], n1=n1, n2=n2, dft_dtype="float32")), iters=1)
+    plain_ms = cuda_ms(_chunked(lambda b: ff.fengine_dit_reference(
+        frames[b], win, rc[b], rs[b], n1=n1, n2=n2, dft_dtype="float32"), nb), iters=1)
     flat = frames.view(nb, n_frames * fft)
     zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
     fir_ms = cuda_ms(lambda: ff.k1_fir_f32(flat, zeros, win, n_spectra=s), iters=2)
     plane = ff.k1_fir_f32(flat, zeros, win, n_spectra=s)
     dft_ms = cuda_ms(lambda: ff.dit_dft_f32(plane, rc, rs, n1=n1, n2=n2), iters=2)
-    dft_plain_ms = cuda_ms(chunks(lambda b: ff.dit_dft_f32_reference(
-        plane[b], rc[b], rs[b], n1=n1, n2=n2)), iters=1)
+    dft_plain_ms = cuda_ms(_chunked(lambda b: ff.dit_dft_f32_reference(
+        plane[b], rc[b], rs[b], n1=n1, n2=n2), nb), iters=1)
     del plane
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -2145,10 +2396,8 @@ def phase_f_flagship(st: dict) -> None:
         del eng, got
         torch.cuda.empty_cache()
 
-#: The flagship array of phases 14 and 15 (80 ant x 32768 ch x 16 beams x 16
-#: taps, S = 256), and the 8-antenna cut of it their engine checks use.
-FLAG = dict(n_ants=80, n_channels=32768, n_beams=16, n_taps=16)
-FLAG_S = 256
+#: The 8-antenna cut of the flagship array that phases 14 and 15's engine
+#: checks use.
 SMALL_ANTS = 8
 #: Spectra per step of the FXB run outside K2's and K4's gates (P·S = 192).
 FXB_PLANAR_S = 96
@@ -2376,10 +2625,11 @@ def phase_qualification(st: dict) -> None:
         raise AssertionError(f"the tone did not run through K1: {ff.fengine_fused.launches}")
     if worst["bfloat16"] > worst["float32"] + 6.0:
         raise AssertionError("bf16 DFT operands lift the leakage floor by more than 6 dB")
-    # The tone above has N1 = 8 (fft 1024), which both K1 forms run on the
-    # SIMT body. The same recipe at twice the channels (fft 2048, N1 = 16,
-    # the tone in channel 2 * TONE_K) takes the f32 two passes: its leakage
-    # meets the spec and lies within 1 dB of the SIMT body's on that tone.
+    # The tone above has N1 = 8 (fft 1024), which both K1 forms run on their
+    # two passes' N1 = 8 plans. The same recipe at twice the channels (fft
+    # 2048, N1 = 16, the tone in channel 2 * TONE_K) takes the f32 two passes
+    # at their 16-row plan: its leakage meets the spec and lies within 1 dB
+    # of the plain version's on that tone.
     c2, k2 = 2 * TONE_C, 2 * TONE_K
     tone2 = torch.from_numpy(qualification_tone(c2, k2)).to(dev).view(1, -1)
     win2 = default_window(TONE_TAPS, 2 * c2, device=dev)
@@ -2389,7 +2639,7 @@ def phase_qualification(st: dict) -> None:
              torch.ones((1, c2), device=dev), torch.zeros((1, c2), device=dev))
     before = _k1_counts(ff)
     for body, planes in (("two passes", ff._launch(*args2, **kw2)),
-                         ("SIMT body", ff.fengine_ct_simt(*args2, **kw2))):
+                         ("plain version", ff.fengine_fused_reference(*args2, **kw2))):
         power = (planes[0].double() ** 2 + planes[1].double() ** 2)[0].mean(0).cpu().numpy()
         rel_db = 10 * np.log10(power / power[k2] + 1e-300)
         peak, worst[f"float32_{c2}ch_{body}"] = int(np.argmax(power)), float(
@@ -2400,10 +2650,11 @@ def phase_qualification(st: dict) -> None:
         if peak != k2 or worst[f"float32_{c2}ch_{body}"] > LEAKAGE_SPEC_DB:
             raise AssertionError(f"the tone through K1's f32 {body} fails the channelisation spec")
     ran = {k: v - before[k] for k, v in _k1_counts(ff).items()}
-    if ran != dict(k1_fir=0, k1_dft=0, k1_fir_f32=1, k1_dft_f32=1, fengine_ct_simt=1):
+    if ran != {k: int(k in ("k1_fir_f32", "k1_dft_f32")) for k in ran}:
         raise AssertionError(f"the f32 tone at fft {2 * c2} ran {ran}")
-    if abs(worst[f"float32_{c2}ch_two passes"] - worst[f"float32_{c2}ch_SIMT body"]) > 1.0:
-        raise AssertionError("the f32 two passes' leakage is not within 1 dB of the SIMT body's")
+    if abs(worst[f"float32_{c2}ch_two passes"] - worst[f"float32_{c2}ch_plain version"]) > 1.0:
+        raise AssertionError("the f32 two passes' leakage is not within 1 dB of the plain "
+                             "version's")
     st["qualification"] = worst
 
     # K1's f32 output against its plain version on 8 of the 160 flagship streams.
@@ -2449,19 +2700,6 @@ def phase_qualification(st: dict) -> None:
         log(f"k1 f32 output {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms; int8 output = requant "
             f"of the f32 output, bit for bit ({st['card']})")
         out[dt] = dict(ms=ms, plain_ms=pms, max_abs_err=worst_d, share_over=share)
-        if dt == "float32":
-            # The SIMT body's f32 output on the same streams, through its launch
-            # function: held to the same bound and timed beside the two passes.
-            def simt():
-                return ff.fengine_ct_simt(frames.view(nb, -1), starts, win, rc, rs,
-                                          n_spectra=s, n1=n1, n2=n2, quantise=False)
-
-            for g, r in zip(simt(), ref):
-                if bool(((g - r).abs() > 1e-2 + 1e-4 * r.abs()).any()):
-                    raise AssertionError("the SIMT body's f32 output disagrees with plain")
-            out[dt]["simt_ms"] = simt_ms = cuda_ms(simt)
-            log(f"k1 f32 output float32: the two passes {ms:.3f} ms, the SIMT body "
-                f"{simt_ms:.3f} ms ({simt_ms / ms:.2f}x) ({st['card']})")
         # f32 DFT: rtol 1e-4 / atol 1e-2 everywhere. bf16 DFT: the kernel sums
         # stage A in another order than the plain version, which moves a few
         # values across a bf16 rounding boundary; each such flip moves the 128
@@ -2477,8 +2715,7 @@ def phase_qualification(st: dict) -> None:
                     f32_out_subset_plain_ms=out["bfloat16"]["plain_ms"],
                     f32_out_subset_max_abs_err=out["bfloat16"]["max_abs_err"],
                     f32_out_subset_share_over_tol=out["bfloat16"]["share_over"],
-                    f32_out_subset_f32dft_ms=out["float32"]["ms"],
-                    f32_out_subset_f32dft_simt_ms=out["float32"]["simt_ms"])
+                    f32_out_subset_f32dft_ms=out["float32"]["ms"])
     _qual_flagship_scenarios(st)
 
 
@@ -4022,7 +4259,8 @@ def main() -> int:
     if ref:
         raise AssertionError(f"the port pulled in JAX or the reference package: {ref}")
     # launches: each kernel's count from the run of its path (phase 6 for the
-    # F+B step and, for K1's f32 passes, the fused_f32 F+B step; phase 10 for
+    # F+B step and, for K1's f32 passes, the fused_f32 F+B step; phase 3's
+    # full-width K1 at fft 2^22 for the three-pass stages; phase 10 for
     # the FXB step, phase 9 for the 64-channel FXB step,
     # phase 12 for the DIT F form, phase 13 for the F-engine step, phase 14
     # for the native-handoff F+B step, phase 16 for the example under
@@ -4030,13 +4268,27 @@ def main() -> int:
     # K1's, K2's, K4's and K3's counts from phase 20's sharded runs;
     # instrument_launches: K1's and K4's from phase 22's two nodes;
     # native_launches: K1's and K4's from phase 23's checked node runs.
+    full = st["k1_full"]
     kernels = [
         dict(name="fengine_ct", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship",
              launches=st["launches"]["k1"], sharded_launches=st["sharded_launches"]["k1"],
              instrument_launches=st["instrument_launches"]["k1"],
-             native_launches=st["native_launches"]["k1"], **st["k1"]),
+             native_launches=st["native_launches"]["k1"], fft_1024=full[(1024, "bfloat16")],
+             fb_512ch=st["fb512"], **st["k1"]),
+        *(dict(name=f"k1_stage_{stage}{sfx}", route="cuda",
+               source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
+               kernel=f"k1_stage_{stage}{sfx}_kernel: K1's three-pass route ({dt}), stage "
+                      f"{stage.upper()}",
+               replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504",
+               path="k1_fft_2_22_full_width",
+               launches=full[(K1_THREE_PASS_FFT, dt)]["launches"][f"k1_stage_{stage}{sfx}"],
+               k1_fft_2_22_full_width={k: v for k, v in full[(K1_THREE_PASS_FFT, dt)].items()
+                                       if k != "passes"},
+               k1_fft_2_22_2x2x4=st["k1_2_22_small"][dt],
+               **full[(K1_THREE_PASS_FFT, dt)]["passes"][f"stage_{stage}"])
+          for dt, sfx in (("bfloat16", ""), ("float32", "_f32")) for stage in "ab"),
         dict(name="k1_fir_f32", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
              kernel="k1_fir_kernel<..., float>: K1's FIR pass into the f32 plane",
@@ -4046,7 +4298,8 @@ def main() -> int:
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
              kernel="k1_dft_f32_kernel: K1's DFT pass with f32 operands (FFMA)",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship_fused_f32",
-             launches=st["f32_launches"]["k1_dft_f32"], **st["k1_dft_f32"]),
+             launches=st["f32_launches"]["k1_dft_f32"], fft_1024=full[(1024, "float32")],
+             **st["k1_dft_f32"]),
         dict(name="bstage_fused", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
              replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69", path="fb_flagship",

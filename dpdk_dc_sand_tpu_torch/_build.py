@@ -68,14 +68,6 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 #: C signatures of the launch functions in csrc/ (all return cudaError_t).
 _SIGNATURES = {
-    "fengine_ct_launch": [
-        _P, _L, _P,  # x, batch stride (samples), starts [B] int64
-        _P, _P, _P, _P, _P, _P,  # window, d1c, d1s, d2 stack, twc, tws
-        _P, _P,  # rotc, rots [B, C]
-        _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
-        _I, _I, _I, _I, _I, _I, _I,  # batch, n_spectra, n_taps, n1, n2, bf16, quantise
-        _P,  # stream
-    ],
     "k1_fir_launch": [
         _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
         _P,  # plane [B, S, fft] bf16
@@ -113,6 +105,40 @@ _SIGNATURES = {
         _P,  # out (int[8]): registers, local bytes, KC, SB, stage-B K-tile depth, stages,
         # shared-memory bytes, threads
     ],
+    "k1_stage_a_launch": [
+        _P, _P, _P,  # plane [M, N1, N2] bf16, bf16 d1c, d1s [N1, N1]
+        _P, _P,  # twc, tws [N1, N2]
+        _P, _P,  # T re, im [M, N1, N2] bf16
+        _I, _I, _I,  # M (batch * n_spectra), n1, n2
+        _P,  # stream
+    ],
+    "k1_stage_a_f32_launch": [
+        _P, _P, _P,  # plane [M, N1, N2] f32, f32 d1c, d1s [N1, N1]
+        _P, _P,  # twc, tws [N1, N2]
+        _P, _P,  # T re, im [M, N1, N2] f32
+        _I, _I, _I,  # M (batch * n_spectra), n1, n2
+        _P,  # stream
+    ],
+    "k1_stage_b_launch": [
+        _P, _P, _P,  # T re, im [B, S, N1, N2] bf16, bf16 d2 stack [N2, N2]
+        _P, _P,  # rotc, rots [B, C]
+        _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
+        _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, quantise
+        _P,  # stream
+    ],
+    "k1_stage_b_f32_launch": [
+        _P, _P, _P,  # T re, im [B, S, N1, N2] f32, f32 d2 stack transposed [N2, N2]
+        _P, _P,  # rotc, rots [B, C]
+        _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
+        _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, quantise
+        _P,  # stream
+    ],
+    **{name: [
+        _I, _I,  # n1, n2
+        _P,  # out (int[9]): registers, local bytes, threads, shared-memory bytes, tile rows,
+        # tile columns, K-tile depth, stages, blocks an SM
+    ] for name in ("k1_stage_a_attributes", "k1_stage_b_attributes",
+                   "k1_stage_a_f32_attributes", "k1_stage_b_f32_attributes")},
     "k1_fir_stop_launch": [
         _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
         _P, _P, _P,  # plane [B, S, fft] bf16 (fir), outr, outi [B, S, fft/2] int8

@@ -23,9 +23,15 @@
 // frame once (its rolling FIR ring), and the DFT matrices amortised over
 // many spectra (its batch_a stage A).
 //
-// Design: bf16 DFT operands with N1 >= 16 (every engine launch) run as two
-// passes, launched by the wrapper over groups of batches whose bf16 FIR
-// planes fit its scratch (about 1 GB: 32 flagship streams).
+// Design. Every split K1 takes runs as passes launched by the wrapper over
+// groups of batches whose scratch fits (about 1 GB): the FIR pass into a
+// plane of the DFT operand type, then the DFT as one pass where its T planes
+// fit shared memory beside a tile ring (the two-pass route, N2 <= 1024), or
+// as two GEMM-shaped passes through T in device memory where they do not
+// (the three-pass route, N2 >= 2048: fft >= 2^22). The wrapper (_k1_body)
+// asks the plan queries (k1_dft_attributes, k1_dft_f32_attributes, then
+// k1_stage_*_attributes) before any launch; a split none of them takes is
+// refused. Nothing falls back.
 //
 // 1. k1_fir_kernel — the FIR, on K1's inputs, with the register ring of
 //    K6's first body (its rows loaded straight from global memory; K6 now
@@ -37,7 +43,8 @@
 //    at starts[b], which may be unaligned (byte loads then). It writes the
 //    FIR rounded to bf16 straight into the [B, S, N1, N2] plane (the in-frame
 //    index is the plane index), bit for bit __float2bfloat16_rn of the f32
-//    tap-order sum. Bound by bytes: 2.84 GB in, 5.37 GB out at the flagship.
+//    tap-order sum, or the f32 sums themselves for f32 operands. Bound by
+//    bytes: 2.84 GB in, 5.37 GB out at the flagship.
 // 2. k1_dft_kernel — both DFT stages on the tensor cores (mma.sync
 //    m16n8k16 bf16, f32 accumulate) fed from shared memory by a cp.async
 //    ring of 4 stages (3 where 4 do not fit). A unit of work is (batch,
@@ -53,11 +60,18 @@
 //        re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr), the rotation and
 //        the requant straight to the outputs.
 //    The T planes are the only per-unit state, so KC follows N2 (64 rows up
-//    to N2 = 256, 32 at 512 and 1024, 16 beyond): no plan needs a whole plane
-//    in shared memory, which lifts the old cap at fft 65536. Both stages keep
-//    64 f32 accumulators a thread (one register array, reused), so the
-//    block's tile is KC x 256..512 in stage A and 128..512 x KC in stage B.
-//    KT is the deepest of 64, 32, 16 that fits: fewer barriers a unit.
+//    to N2 = 256, 32 at 512 and 1024): no plan needs a whole plane in
+//    shared memory. Both stages keep 64 f32 accumulators a thread (one
+//    register array, reused), so the block's tile is KC x 256..512 in stage
+//    A and 128..512 x KC in stage B. KT is the deepest of 64, 32, 16 that
+//    fits: fewer barriers a unit.
+//    N1 = 8 (fft 1024), where a chunk of one spectrum is 8 rows, makes a
+//    unit of 16 spectra instead (KC_N8 = 128 T rows, (spectrum, k1)): stage
+//    A is one 8-deep K tile, the unit's 16 planes whole ([128 x N2], 8 rows
+//    of each spectrum), each warp's 4 spectra against the [cos; -sin]
+//    [16 x 8] matrix held in registers, one mma.sync m16n8k8 per spectrum
+//    and 8 columns (one MMA a sum, so nothing chains); stage B is the
+//    16-row design's, 16 spectra's k1 columns side by side.
 //    Stage A adds each MMA's 16-product sum to its accumulator in f32
 //    round-to-nearest (mma16816_rn) rather than chaining the MMAs: chained,
 //    the tensor core's rounding of the running sum drifts with N1 and flips
@@ -80,25 +94,44 @@
 // fragments, so shared-memory reads compete with the MMAs. wgmma, which
 // reads its operands from shared memory once a warpgroup, TMA tiles, and a
 // cluster that multicasts the plane and the N2-point matrix to the chunks
-// of one spectrum are the next steps.
+// of one spectrum are the next steps. At N1 = 8 the work is 0.5 MFLOP a
+// spectrum against 3 KB in and out, so the FIR pass's bytes bound it.
 //
 // f32 DFT operands (the engines' fengine="fused_f32", "exact f32 MACs")
-// with N1 >= 16 and N2 <= 1024 run as two passes as well: k1_fir_kernel
-// writes the exact f32 sums into an f32 plane (16 flagship streams a group
-// of the same scratch), then k1_dft_f32_kernel computes both stages in f32
-// FFMA, register-blocked, with the N1-point matrix's tiles shared by the
-// spectra of a unit (its design is at the kernel). f32 FFMA is this card's
-// slowest arithmetic: 67 TFLOP/s, so the 5.5 TFLOP of a flagship step bound
-// the pass at 82.1 ms (4.10 ms on 8 streams).
+// with N2 <= 1024 run as two passes as well: k1_fir_kernel writes the exact
+// f32 sums into an f32 plane (16 flagship streams a group of the same
+// scratch), then k1_dft_f32_kernel computes both stages in f32 FFMA,
+// register-blocked, with the N1-point matrix's tiles shared by the spectra
+// of a unit (its design is at the kernel; N1 = 8 is its KC = 8 plan with 8
+// spectra a unit). f32 FFMA is this card's slowest arithmetic: 67 TFLOP/s,
+// so the 5.5 TFLOP of a flagship step bound the pass at 82.1 ms (4.10 ms on
+// 8 streams).
 //
-// N1 = 8, where a 16-row tile does not fit, and the splits the DFT passes
-// have no plan for (f32: N2 > 1024; bf16: N2 >= 2048, fft >= 2^22) take
-// fengine_ct_kernel: one block per (spectrum, batch), SIMT FMA on register
-// micro-tiles, k1 walked in chunks of kc rows (kc shrinks with N2 so the T
-// planes fit); in f32 mode, and in bf16 where the whole bf16 FIR plane does
-// not fit in shared memory, each stage-A K tile recomputes its [KTA, NTA]
-// slice of the FIR from global memory. The wrapper (_k1_body) asks
-// k1_dft_attributes / k1_dft_f32_attributes for a plan before any launch.
+// 3. The three-pass route (N2 >= 2048, both operand types). At N2 = 2048 a
+//    chunk's T planes ([KC, N2] complex) do not fit beside the tile ring,
+//    and shrinking the chunk would read each plane row from L2 N1 / KC times
+//    a spectrum. So T goes to device memory between two GEMM-shaped passes,
+//    one block a tile, each tile's K loop through a cp.async ring:
+//      k1_stage_a_kernel (bf16: mma.sync m16n8k16 from the ring, each MMA's
+//        sum added in f32 round-to-nearest, as the DFT pass's stage A: at K
+//        = N1 = 2048 chained sums would flip more bf16 roundings of T than
+//        at 1024) and k1_stage_a_f32_kernel (FFMA, 4 k1 x (cos, -sin) x 8
+//        columns a thread): [2·N1 x N1] (the cos and -sin rows paired, so one
+//        thread holds both sums of a (k1, n2)) x the plane [N1 x N2] of each
+//        spectrum, the f32 twiddle in the epilogue, T re and im stored
+//        rounded to the operand type, K1's rounding point (f32 T
+//        transposed, [n2][k1], so f32 stage B reads 4 k1 as one float4);
+//      k1_stage_b_kernel (bf16, its MMAs chained as the DFT pass's stage B)
+//        and k1_stage_b_f32_kernel (FFMA, 4 k2 x (cos, -sin) x 4 k1 x (T re,
+//        T im) a thread): the row-stacked N2-point matrix x T^T, the four
+//        products combined as the DFT pass's stage B does, then the
+//        rotation and the requant (or the f32 store), bin k2·N1 + k1.
+//    These passes replace nothing in the TPU kernel: they are K1's work
+//    split where an SM's 227 KB cannot hold what the TPU's VMEM held. The
+//    bf16 or f32 operations bound each pass (68.7 GFLOP a spectrum at fft
+//    2^22, both passes together: 69 us of bf16, 1.03 ms of f32), far above
+//    T's bytes (16.8 MB a spectrum in bf16, 33.6 in f32, each written once
+//    and read once: 10 and 20 us at the HBM rate).
 //
 // Stage stops (the probes P5 and P4: benchmarks/ct_ablate.py and
 // benchmarks/dma_bisect.py of the JAX package, the trimmed copies of
@@ -143,270 +176,6 @@ constexpr int ABLATE_S_BLK = 16;
 // gives.
 __device__ __forceinline__ int8_t trunc_s8(float v) {
   return static_cast<int8_t>(max(-128, min(127, __float2int_rz(v))));
-}
-
-// ---------------------------------------------------------------------------
-// SIMT body (f32 DFT operands, or bf16 where the two passes have no plan)
-// ---------------------------------------------------------------------------
-constexpr int THREADS = 256;
-constexpr int KC = 32;   // most k1 rows per chunk (capped at N1; shrinks with N2)
-constexpr int NTA = 64;  // n2 columns per stage-A output tile
-constexpr int KTA = 32;  // n1 depth per stage-A K tile (capped at N1)
-constexpr int MTB = 64;  // k2 rows per stage-B output tile
-constexpr int KTB = 32;  // n2 depth per stage-B K tile
-
-struct Params {
-  const int8_t* x;
-  long long batch_stride;
-  const long long* starts;
-  const float* win;
-  const float* d1c;
-  const float* d1s;
-  const float* d2;
-  const float* twc;
-  const float* tws;
-  const float* rotc;
-  const float* rots;
-  void* outr;  // [B, S, C] int8, or f32 without the requant
-  void* outi;
-  int n_spectra, n_taps, n1, n2, kc;
-};
-
-template <bool BF16>
-__device__ __forceinline__ float op_round(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-// FIR at in-frame index e: f32, tap order, every product and sum rounded
-// separately (as the reference computes it; no FMA contraction).
-__device__ __forceinline__ float fir_at(const int8_t* xs, const float* win,
-                                        int fft, int taps, int e) {
-  float acc = __fmul_rn(static_cast<float>(xs[e]), __ldg(win + e));
-  for (int t = 1; t < taps; ++t) {
-    const long long o = static_cast<long long>(t) * fft + e;
-    acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(xs[o]), __ldg(win + o)));
-  }
-  return acc;
-}
-
-// The epilogue of one output: the fine-delay rotation, then the int8 requant
-// (QUANT) or the rotated f32 values.
-template <bool QUANT>
-__device__ __forceinline__ void store_rotated(void* outr, void* outi, long long o, float re,
-                                              float im, float rc, float rs) {
-  const float vr = __fsub_rn(__fmul_rn(re, rc), __fmul_rn(im, rs));
-  const float vi = __fadd_rn(__fmul_rn(re, rs), __fmul_rn(im, rc));
-  if constexpr (QUANT) {
-    static_cast<int8_t*>(outr)[o] = requant(vr);
-    static_cast<int8_t*>(outi)[o] = requant(vi);
-  } else {
-    static_cast<float*>(outr)[o] = vr;
-    static_cast<float*>(outi)[o] = vi;
-  }
-}
-
-// WHOLE: the bf16 FIR plane is computed once into shared memory (the N1 = 8
-// splits); otherwise each stage-A K tile recomputes its [KTA, NTA] slice of
-// the FIR from global memory, rounded to the operand type (f32 mode, and
-// bf16 at fft >= 2^22, where neither the plane nor a two-pass plan fits).
-template <bool BF16, bool QUANT, bool WHOLE = BF16>
-__global__ void __launch_bounds__(THREADS) fengine_ct_kernel(Params p) {
-  using OpT = std::conditional_t<BF16, __nv_bfloat16, float>;
-  extern __shared__ __align__(128) unsigned char smem[];
-
-  const int s = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int n1 = p.n1, n2 = p.n2, fft = n1 * n2, h = n2 / 2, C = fft / 2;
-  const int kc = p.kc;
-  const int kta = min(KTA, n1);
-  const int ts = n2 + 1;  // odd row stride of sT: conflict-free column reads
-
-  const int8_t* xs = p.x + static_cast<long long>(b) * p.batch_stride +
-                     p.starts[b] + static_cast<long long>(s) * fft;
-
-  float* sAc = reinterpret_cast<float*>(smem);  // [kc][KTA]
-  float* sAs = sAc + kc * KTA;                  // [kc][KTA]
-  float* sBc = sAs + kc * KTA;                  // [MTB][KTB]
-  float* sBs = sBc + MTB * KTB;                 // [MTB][KTB]
-  float* sXt = sBs + MTB * KTB;                 // !WHOLE: [KTA][NTA]
-  OpT* sTr = reinterpret_cast<OpT*>(sXt + (WHOLE ? 0 : KTA * NTA));  // [kc][ts]
-  OpT* sTi = sTr + kc * ts;
-  // WHOLE: the whole bf16 FIR plane [N1][N2], 16-byte aligned after sT.
-  const size_t t_bytes = 2 * kc * ts * sizeof(OpT);
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(
-      reinterpret_cast<unsigned char*>(sTr) + ((t_bytes + 15) & ~size_t(15)));
-
-  if constexpr (WHOLE) {
-    for (int e = tid; e < fft; e += THREADS) {
-      sX[e] = __float2bfloat16_rn(fir_at(xs, p.win, fft, p.n_taps, e));
-    }
-    __syncthreads();
-  }
-
-  // Stage-A micro tile: 2 k1 rows x 4 n2 columns, re and im.
-  const int a_tiles = (kc / 2) * (NTA / 4);
-  const bool a_on = tid < a_tiles;
-  const int a_r = (tid / (NTA / 4)) * 2;
-  const int a_c = (tid % (NTA / 4)) * 4;
-  // Stage-B micro tile: 4 k2 rows x 2 k1 columns, four partial sums.
-  const int b_tiles = (MTB / 4) * (kc / 2);
-  const bool b_on = tid < b_tiles;
-  const int b_r = (tid / (kc / 2)) * 4;
-  const int b_c = (tid % (kc / 2)) * 2;
-
-  for (int k0 = 0; k0 < n1; k0 += kc) {
-    // ---- stage A for k1 in [k0, k0+kc): all n2, NTA columns at a time ----
-    for (int c0 = 0; c0 < n2; c0 += NTA) {
-      float ar[2][4] = {}, ai[2][4] = {};
-      for (int kt = 0; kt < n1; kt += kta) {
-        __syncthreads();  // previous tile's readers are done
-        for (int i = tid; i < kc * kta; i += THREADS) {
-          const int r = i / kta, c = i % kta;
-          const int g = (k0 + r) * n1 + kt + c;
-          sAc[r * KTA + c] = op_round<BF16>(__ldg(p.d1c + g));
-          sAs[r * KTA + c] = op_round<BF16>(__ldg(p.d1s + g));
-        }
-        if constexpr (!WHOLE) {
-          for (int i = tid; i < kta * NTA; i += THREADS) {
-            const int r = i / NTA, c = i % NTA;
-            sXt[r * NTA + c] =
-                op_round<BF16>(fir_at(xs, p.win, fft, p.n_taps, (kt + r) * n2 + c0 + c));
-          }
-        }
-        __syncthreads();
-        if (a_on) {
-          for (int kk = 0; kk < kta; ++kk) {
-            float xv[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if constexpr (WHOLE) {
-                xv[j] = __bfloat162float(sX[(kt + kk) * n2 + c0 + a_c + j]);
-              } else {
-                xv[j] = sXt[kk * NTA + a_c + j];
-              }
-            }
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const float wc = sAc[(a_r + i) * KTA + kk];
-              const float ws = sAs[(a_r + i) * KTA + kk];
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                ar[i][j] = fmaf(wc, xv[j], ar[i][j]);
-                ai[i][j] = fmaf(ws, xv[j], ai[i][j]);
-              }
-            }
-          }
-        }
-      }
-      if (a_on) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int k1 = k0 + a_r + i, n = c0 + a_c + j;
-            const float wc = __ldg(p.twc + k1 * n2 + n);
-            const float ws = __ldg(p.tws + k1 * n2 + n);
-            const float tr = __fsub_rn(__fmul_rn(ar[i][j], wc), __fmul_rn(ai[i][j], ws));
-            const float ti = __fadd_rn(__fmul_rn(ar[i][j], ws), __fmul_rn(ai[i][j], wc));
-            if constexpr (BF16) {
-              sTr[(a_r + i) * ts + n] = __float2bfloat16_rn(tr);
-              sTi[(a_r + i) * ts + n] = __float2bfloat16_rn(ti);
-            } else {
-              sTr[(a_r + i) * ts + n] = tr;
-              sTi[(a_r + i) * ts + n] = ti;
-            }
-          }
-        }
-      }
-    }
-
-    // ---- stage B for k1 in [k0, k0+kc): k2 < N2/2, MTB rows at a time ----
-    for (int r0 = 0; r0 < h; r0 += MTB) {
-      float scr[4][2] = {}, ssi[4][2] = {}, sci[4][2] = {}, ssr[4][2] = {};
-      for (int kt = 0; kt < n2; kt += KTB) {
-        __syncthreads();  // sT complete (first pass) / previous tile read
-        for (int i = tid; i < MTB * KTB; i += THREADS) {
-          const int r = i / KTB, c = i % KTB;
-          sBc[i] = op_round<BF16>(__ldg(p.d2 + (r0 + r) * n2 + kt + c));
-          sBs[i] = op_round<BF16>(__ldg(p.d2 + (h + r0 + r) * n2 + kt + c));
-        }
-        __syncthreads();
-        if (b_on) {
-          for (int kk = 0; kk < KTB; ++kk) {
-            float tr[2], ti[2];
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              if constexpr (BF16) {
-                tr[j] = __bfloat162float(sTr[(b_c + j) * ts + kt + kk]);
-                ti[j] = __bfloat162float(sTi[(b_c + j) * ts + kt + kk]);
-              } else {
-                tr[j] = sTr[(b_c + j) * ts + kt + kk];
-                ti[j] = sTi[(b_c + j) * ts + kt + kk];
-              }
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float c = sBc[(b_r + i) * KTB + kk];
-              const float sn = sBs[(b_r + i) * KTB + kk];
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                scr[i][j] = fmaf(c, tr[j], scr[i][j]);
-                ssi[i][j] = fmaf(sn, ti[j], ssi[i][j]);
-                sci[i][j] = fmaf(c, ti[j], sci[i][j]);
-                ssr[i][j] = fmaf(sn, tr[j], ssr[i][j]);
-              }
-            }
-          }
-        }
-      }
-      if (b_on) {
-        const long long obase = (static_cast<long long>(b) * p.n_spectra + s) * C;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int ch = (r0 + b_r + i) * n1 + k0 + b_c + j;
-            const float re = __fsub_rn(scr[i][j], ssi[i][j]);
-            const float im = __fadd_rn(sci[i][j], ssr[i][j]);
-            const float rc = __ldg(p.rotc + static_cast<long long>(b) * C + ch);
-            const float rs = __ldg(p.rots + static_cast<long long>(b) * C + ch);
-            store_rotated<QUANT>(p.outr, p.outi, obase + ch, re, im, rc, rs);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next chunk overwrites sT
-  }
-}
-
-size_t smem_bytes(bool bf16, bool whole, int n1, int n2, int kc) {
-  const size_t ts = n2 + 1;
-  size_t bytes = sizeof(float) * (2 * kc * KTA + 2 * MTB * KTB);
-  const size_t op = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  if (whole) {
-    bytes += (2 * kc * ts * op + 15) & ~size_t(15);
-    bytes += static_cast<size_t>(n1) * n2 * sizeof(__nv_bfloat16);
-  } else {
-    bytes += sizeof(float) * KTA * NTA;
-    bytes += 2 * kc * ts * op;
-  }
-  return bytes;
-}
-
-template <bool BF16, bool QUANT, bool WHOLE = BF16>
-cudaError_t launch(const Params& p, int batch, size_t bytes, cudaStream_t stream) {
-  auto kern = fengine_ct_kernel<BF16, QUANT, WHOLE>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid(p.n_spectra, batch);
-  kern<<<grid, THREADS, bytes, stream>>>(p);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -625,14 +394,19 @@ struct DftParams {
   int kt, ktb;                  // stage-A / stage-B K-tile depths
   int n_ca, n_kta, n_rb, n_ktb;  // column tiles x K tiles, row tiles x K tiles
   int n_chunks;
-  int n_units;                  // G * S * n_chunks
+  int sb, n_sblk;               // spectra a unit (1, or 16 at N1 = 8); blocks of them a batch
+  int n_units;                  // G * n_sblk * n_chunks
   int slot;                     // bf16 elements per ring slot
   int stages;                   // ring depth: 3 or 4
 };
 
+// T rows of a unit at N1 = 8: 16 spectra of 8 k1 rows, side by side.
+constexpr int KC_N8 = 128;
+
 // The tile shapes of a KC-row chunk. Stage A: warps MW x NW, each WM k1 rows
-// (cos and -sin) x 32 n2 columns: NA columns a tile. Stage B: warps
-// (16 / NWB) x NWB, each 32 k2 rows x 16 k1 columns: MB rows a tile.
+// (cos and -sin) x 32 n2 columns: NA columns a tile (at N1 = 8: WM rows are
+// 4 spectra's 8 k1 rows). Stage B: warps (16 / NWB) x NWB, each 32 k2 rows
+// x 16 k1 columns: MB rows a tile.
 template <int KC>
 struct Shape {
   static constexpr int WM = KC < 32 ? KC : 32;
@@ -702,15 +476,25 @@ __device__ __forceinline__ void mma16816_rn(float* d, const uint32_t a[4], uint3
   for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], t[e]);
 }
 
+// d = a (16x8, row) * b (8x8, col), bf16 in, f32 out: the MMA's 8-product
+// sums alone (N1 = 8's stage A: one MMA a sum).
+__device__ __forceinline__ void mma1688(float* d, uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b), "f"(0.f));
+}
+
 // log2 of a power of two.
 __device__ __forceinline__ int lg(int v) { return __ffs(v) - 1; }
 
 // A walk through this block's tile sequence: unit i of the block (unit
 // blockIdx.x + i * gridDim.x), tile `local` of the unit; the unit's
-// (batch, spectrum, chunk) only changes every tpu tiles.
+// (batch, spectra, chunk) only changes every tpu tiles.
 struct Cursor {
   int i, local;
-  int b, s, k0;  // k0: the chunk's first k1 row
+  int b, s, k0;  // s: the unit's first spectrum; k0: the chunk's first k1 row
 };
 
 template <int KC>
@@ -718,8 +502,8 @@ __device__ __forceinline__ void set_unit(const DftParams& p, Cursor& c) {
   const int u = blockIdx.x + c.i * gridDim.x;
   c.k0 = (u & (p.n_chunks - 1)) * KC;
   const int rest = u >> lg(p.n_chunks);
-  c.s = rest % p.n_spectra;
-  c.b = rest / p.n_spectra;
+  c.s = (rest % p.n_sblk) * p.sb;
+  c.b = rest / p.n_sblk;
 }
 
 template <int KC>
@@ -761,7 +545,21 @@ __device__ __forceinline__ void load_tile(const DftParams& p, const Cursor& c, i
   const int tid = threadIdx.x;
   const int n1 = p.n1, n2 = p.n2;
   const Tile w = place(p, c.local, nA);
-  if (w.stage_a) {
+  if (KC == KC_N8 && w.stage_a) {
+    // [KC x cols] of the plane: the unit's spectra, 8 rows each (their
+    // N1-point matrix is in registers). Spectra past the stream's last are
+    // not loaded (their T columns are never stored).
+    const int lx = lg(min(S::NA, n2) / 8), nx = KC << lx;
+    const int rows = min(KC, (p.n_spectra - c.s) * 8);
+    const bf16* xsrc = p.plane + (static_cast<long long>(c.b) * p.n_spectra + c.s) * 8 * n2 +
+                       w.outer * S::NA;
+    for (int i = tid; i < nx; i += DFT_THREADS) {
+      const int r = i >> lx, q = i & ((1 << lx) - 1);
+      if (r < rows) {
+        cp_async16(slot + r * (S::NA + PAD) + q * 8, xsrc + static_cast<long long>(r) * n2 + q * 8);
+      }
+    }
+  } else if (w.stage_a) {
     // [kt x cols] of the plane (cols/8 pieces a row), then the chunk's
     // [KC x kt] cos and -sin rows of the N1-point matrix.
     const int kt = p.kt, ktp = kt + PAD;
@@ -799,6 +597,8 @@ __device__ __forceinline__ void load_tile(const DftParams& p, const Cursor& c, i
 template <int KC, bool QUANT, int STOP = STOP_NONE>
 __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
   using S = Shape<KC>;
+  constexpr bool N8 = KC == KC_N8;  // N1 = 8: T rows are (spectrum, k1)
+  static_assert(!N8 || STOP == STOP_NONE, "the stops take the 64-row chunk plan only");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -820,8 +620,9 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
   const int b_r0 = (warp / S::NWB) * 32, b_c0 = (warp % S::NWB) * 16;
 
   // One register array for both stages' accumulators (64 f32 a thread).
-  // Stage A: [cos/sin][MI][4 n8][4]; stage B: [4 sums][2 m16][2 n8][4],
-  // sums cos.tr, -sin.ti, cos.ti, -sin.tr.
+  // Stage A: [cos/sin][MI][4 n8][4] (N1 = 8: [4 spectra][4 n8][4], the
+  // m16n8k8 tile's rows g the cos sums and g + 8 the -sin sums of k1 = g);
+  // stage B: [4 sums][2 m16][2 n8][4], sums cos.tr, -sin.ti, cos.ti, -sin.tr.
   float acc[64];
 
   Cursor ld{0, 0, 0, 0, 0};  // the next tile to load
@@ -860,7 +661,21 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
       const bf16* sX = slot;
       const bf16* sAc = slot + kt * xld;
       const bf16* sAs = sAc + KC * ktp;
-      for (int kk = 0; kk < kt; kk += 16) {
+      if constexpr (N8) {
+        // The [cos; -sin] [16 x 8] A fragment of m16n8k8 (row g of each,
+        // from L1), against the warp's 4 spectra, 8 rows each, x 4 column
+        // tiles of 8.
+        const uint32_t a0 = __ldg(reinterpret_cast<const unsigned int*>(p.d1c + g * 8 + tig * 2));
+        const uint32_t a1 = __ldg(reinterpret_cast<const unsigned int*>(p.d1s + g * 8 + tig * 2));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t fb[4];
+          ldsm_x4_t(fb, sX + (a_r0 + j * 8 + lane % 8) * xld + a_c0 + (lane / 8) * 8);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) mma1688(acc + (j * 4 + m) * 4, a0, a1, fb[m]);
+        }
+      }
+      for (int kk = 0; !N8 && kk < kt; kk += 16) {
         uint32_t fa[2][S::MI][4], fb[2][4];
 #pragma unroll
         for (int i = 0; i < S::MI; ++i) {
@@ -890,6 +705,26 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
         // twiddles are loaded together first: the L2 round trips overlap.
         // (The STAGEA stop writes P5's rows k1 < N1/2 instead: whole chunks,
         // since its plan's KC = 64 divides N1/2, from one base pointer.)
+        if constexpr (N8) {
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int n = col + m * 8 + tig * 2;
+            const float2 c = __ldg(reinterpret_cast<const float2*>(p.twc + g * n2 + n));
+            const float2 sn = __ldg(reinterpret_cast<const float2*>(p.tws + g * n2 + n));
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float* a = acc + (j * 4 + m) * 4;  // ar, ar, ai, ai of k1 = g
+              const int r = a_r0 + j * 8 + g;
+              *reinterpret_cast<__nv_bfloat162*>(sTr + r * tld + n) = __floats2bfloat162_rn(
+                  __fsub_rn(__fmul_rn(a[0], c.x), __fmul_rn(a[2], sn.x)),
+                  __fsub_rn(__fmul_rn(a[1], c.y), __fmul_rn(a[3], sn.y)));
+              *reinterpret_cast<__nv_bfloat162*>(sTi + r * tld + n) = __floats2bfloat162_rn(
+                  __fadd_rn(__fmul_rn(a[0], sn.x), __fmul_rn(a[2], c.x)),
+                  __fadd_rn(__fmul_rn(a[1], sn.y), __fmul_rn(a[3], c.y)));
+            }
+          }
+          continue;
+        }
         int8_t* stop_r = nullptr;
         int8_t* stop_i = nullptr;
         if constexpr (STOP == STOP_STAGEA) {
@@ -999,8 +834,13 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
         }
       } else if (w.kidx == p.n_ktb - 1) {
         // re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr); rotate; store.
-        // The rotation planes' values are loaded together first.
+        // The rotation planes' values are loaded together first. T column
+        // b_c0 + j * 8 + e is k1 row k0 + that of spectrum cc.s, or (N1 = 8)
+        // k1 = tig * 2 + e of spectrum cc.s + b_c0 / 8 + j.
         const long long obase = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C;
+        int kcol[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) kcol[j] = N8 ? tig * 2 : k0 + b_c0 + j * 8 + tig * 2;
         const float* rc_b = p.rotc + static_cast<long long>(cc.b) * C;
         const float* rs_b = p.rots + static_cast<long long>(cc.b) * C;
         float2 rc[2][2][2], rs[2][2][2];
@@ -1010,7 +850,7 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
           for (int j = 0; j < 2; ++j) {
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
-              const int ch = (row + i * 16 + g + hh * 8) * n1 + k0 + b_c0 + j * 8 + tig * 2;
+              const int ch = (row + i * 16 + g + hh * 8) * n1 + kcol[j];
               rc[i][j][hh] = __ldg(reinterpret_cast<const float2*>(rc_b + ch));
               rs[i][j][hh] = __ldg(reinterpret_cast<const float2*>(rs_b + ch));
             }
@@ -1020,10 +860,13 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
         for (int i = 0; i < 2; ++i) {
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
+            const int sp = N8 ? b_c0 / 8 + j : 0;  // the column's spectrum in the unit
+            if (N8 && cc.s + sp >= p.n_spectra) continue;
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const float* a0 = acc + (i * 2 + j) * 4 + hh * 2;
-              const int ch = (row + i * 16 + g + hh * 8) * n1 + k0 + b_c0 + j * 8 + tig * 2;
+              const long long o = obase + static_cast<long long>(sp) * C +
+                                  (row + i * 16 + g + hh * 8) * n1 + kcol[j];
               float v[2][2];
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
@@ -1035,14 +878,14 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
                 v[1][e] = __fadd_rn(__fmul_rn(re, sn), __fmul_rn(im, c));
               }
               if constexpr (QUANT) {
-                *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + obase + ch) =
+                *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + o) =
                     make_char2(requant(v[0][0]), requant(v[0][1]));
-                *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + obase + ch) =
+                *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + o) =
                     make_char2(requant(v[1][0]), requant(v[1][1]));
               } else {
-                *reinterpret_cast<float2*>(static_cast<float*>(p.outr) + obase + ch) =
+                *reinterpret_cast<float2*>(static_cast<float*>(p.outr) + o) =
                     make_float2(v[0][0], v[0][1]);
-                *reinterpret_cast<float2*>(static_cast<float*>(p.outi) + obase + ch) =
+                *reinterpret_cast<float2*>(static_cast<float*>(p.outi) + o) =
                     make_float2(v[1][0], v[1][1]);
               }
             }
@@ -1056,28 +899,34 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
 
 // The tile depth, ring depth and bytes of a chunk of KC rows, 0 if it cannot
 // fit: the deepest K tiles (64, 32, 16) with 4 stages, else 3, that fit.
-// Deeper tiles mean fewer barriers a unit.
+// Deeper tiles mean fewer barriers a unit. KC_N8 is N1 = 8's plan: 16
+// spectra a unit, stage A one 8-deep tile of their whole planes.
 template <int KC>
 size_t dft_plan(DftParams& p) {
   using S = Shape<KC>;
-  if (KC > p.n1) return 0;
+  constexpr bool N8 = KC == KC_N8;
+  if (N8 ? p.n1 != 8 : KC > p.n1) return 0;
   const size_t t_bytes = sizeof(bf16) * 2 * static_cast<size_t>(KC) * (p.n2 + PAD);
   for (int kt = 64; kt >= 16; kt /= 2) {
-    if (kt > p.n1) continue;
-    const int a_slot = kt * (S::NA + PAD) + 2 * KC * (kt + PAD);
+    if (kt > (N8 ? p.n2 : p.n1)) continue;
+    const int kta = N8 ? 8 : kt;
+    const int a_slot = N8 ? KC * (S::NA + PAD) : kt * (S::NA + PAD) + 2 * KC * (kt + PAD);
     const int b_slot = 2 * S::MB * (kt + PAD);
     for (int stages = 4; stages >= 3; --stages) {
       const size_t bytes = t_bytes + sizeof(bf16) * static_cast<size_t>(stages) *
                                          static_cast<size_t>(max(a_slot, b_slot));
       if (bytes > MAX_SMEM) continue;
-      p.kt = p.ktb = kt;
+      p.kt = kta;
+      p.ktb = kt;
       p.slot = max(a_slot, b_slot);
       p.stages = stages;
       p.n_ca = (p.n2 + S::NA - 1) / S::NA;
-      p.n_kta = p.n1 / kt;
+      p.n_kta = p.n1 / kta;
       p.n_rb = (p.n2 / 2 + S::MB - 1) / S::MB;
       p.n_ktb = p.n2 / kt;
-      p.n_chunks = p.n1 / KC;
+      p.n_chunks = N8 ? 1 : p.n1 / KC;
+      p.sb = N8 ? KC / 8 : 1;
+      p.n_sblk = (p.n_spectra + p.sb - 1) / p.sb;
       return bytes;
     }
   }
@@ -1099,7 +948,7 @@ cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, DFT_THREADS, bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long units = static_cast<long long>(batch) * p.n_spectra * p.n_chunks;
+  const long long units = static_cast<long long>(batch) * p.n_sblk * p.n_chunks;
   const long long resident = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(units < resident ? units : resident);
   // Unit indices and a block's tile count must fit an int.
@@ -1113,12 +962,16 @@ cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream
 }
 
 // Calls fn(std::integral_constant<int, KC>, plan, bytes) with the largest
-// chunk whose T planes and ring fit (64 rows up to N2 = 256), or returns
-// NO_PLAN (N2 >= 2048).
+// chunk whose T planes and ring fit (64 rows up to N2 = 256; KC_N8 at N1 =
+// 8), or returns NO_PLAN (N2 >= 2048: the three-pass route's splits).
 template <typename Fn>
 int with_dft_plan(const DftParams& p, Fn fn) {
   DftParams q = p;
   size_t bytes;
+  if (p.n1 == 8) {
+    if ((bytes = dft_plan<KC_N8>(q))) return fn(std::integral_constant<int, KC_N8>{}, q, bytes);
+    return NO_PLAN;
+  }
   if ((bytes = dft_plan<64>(q))) return fn(std::integral_constant<int, 64>{}, q, bytes);
   q = p;
   if ((bytes = dft_plan<32>(q))) return fn(std::integral_constant<int, 32>{}, q, bytes);
@@ -1158,8 +1011,9 @@ int dft_dispatch(const DftParams& p, int batch, cudaStream_t st) {
 // Both stages hold 64 f32 accumulators a thread (one register array), so a
 // unit covers KC * SB * N2 = 32 * 256 outputs a stage: KC = 16 and SB =
 // 512 / N2 up to N2 = 512 (two spectra a unit at the flagship), KC = 8 at
-// N2 = 1024. T planes take 64 KB; a ring slot 32 KB. N2 > 1024 and N1 = 8
-// have no plan: they stay on the SIMT body (k1_dft_f32_attributes decides).
+// N2 = 1024 and at N1 = 8 (KTA = 8, the whole of a spectrum's stage A; SB =
+// 8 at fft 1024). T planes take 64 KB; a ring slot 32 KB. N2 > 1024 has no
+// plan: the three-pass route takes it (k1_dft_f32_attributes decides).
 // Each T row is XOR-swizzled by 16-byte groups ((row / 4) % 8), so stage A's
 // row-wise stores and stage B's reads of four rows at a time are both free of
 // bank conflicts.
@@ -1480,7 +1334,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1) k1_dft_f32_kernel(F32Params p)
 template <int KC>
 size_t f32_plan(F32Params& p) {
   constexpr int KTA = KC, NCOL = F32_OUT / KC;
-  if (p.n1 < 16 || KC > p.n1 || p.n2 > NCOL || p.n2 < 128) return 0;
+  if (KC > p.n1 || p.n2 > NCOL || p.n2 < 128) return 0;
   p.sb = NCOL / p.n2;
   p.ktb = F32_SLOT / p.n2;
   p.n_kta = p.n1 / KTA;
@@ -1517,7 +1371,7 @@ cudaError_t launch_dft_f32(F32Params p, int batch, size_t bytes, cudaStream_t st
 }
 
 // Run f(kc, plan, bytes) with the chunk the f32 pass takes for this split
-// (16 rows up to N2 = 512, 8 at N2 = 1024), or return NO_PLAN.
+// (16 rows up to N2 = 512, 8 at N2 = 1024 or N1 = 8), or return NO_PLAN.
 template <typename F>
 int with_f32_plan(F32Params p, F&& f) {
   F32Params q = p;
@@ -1527,6 +1381,527 @@ int with_f32_plan(F32Params p, F&& f) {
   if ((bytes = f32_plan<8>(q))) return f(std::integral_constant<int, 8>{}, q, bytes);
   return NO_PLAN;
 }
+
+// ---------------------------------------------------------------------------
+// The three-pass route (N2 >= 2048): stage A, then stage B, through T in
+// device memory (see the head of the file). One block a tile, each tile's K
+// loop through a cp.async ring. Each body spills nothing: the bf16 ones and
+// f32 stage B fit 128 registers (two blocks an SM) with their tile copies
+// in rolled loops (unrolled, their hoisted addresses spilled); f32 stage A
+// takes 150 registers, one block an SM (at two it spilled 8 bytes).
+// ---------------------------------------------------------------------------
+// (Not in the stops' build: csrc/fengine_ct_stops.cu takes the two passes only.)
+#ifndef K1_STAGE_STOPS
+constexpr int TP_THREADS = 256;  // 8 warps
+// bf16 stage A: 64 k1 rows (their cos and -sin rows) x 128 n2 columns of one
+// spectrum a tile, K tiles of 64 n1; warps 2 x 4, each 32 k1 rows x 32
+// columns. bf16 stage B: 64 k2 rows (their cos and -sin rows) x 64 k1
+// columns, K tiles of 64 n2; warps 2 x 4, each 32 k2 rows x 16 k1 columns.
+constexpr int SA_M = 64, SA_N = 128, SA_K = 64;
+constexpr int SB_M = 64, SB_N = 64, SB_K = 64;
+constexpr int TP_STAGES = 3;
+constexpr int SA_SLOT = SA_K * (SA_N + PAD) + 2 * SA_M * (SA_K + PAD);  // bf16 elements
+constexpr int SB_SLOT = (2 * SB_M + 2 * SB_N) * (SB_K + PAD);
+constexpr size_t SA_SMEM = sizeof(bf16) * TP_STAGES * SA_SLOT;
+constexpr size_t SB_SMEM = sizeof(bf16) * TP_STAGES * SB_SLOT;
+// f32 stage A: 64 k1 rows x 128 n2 columns, K tiles of 16 n1, 4 k1 rows x
+// (cos, -sin) x 8 columns a thread. f32 stage B: 64 k2 rows x 64 k1
+// columns, K tiles of 16 n2, 4 k2 x (cos, -sin) x 4 k1 x (T re, T im) a
+// thread. 64 accumulators a thread, 4 shared loads per 64 FFMA, as K1's f32
+// DFT pass.
+constexpr int FA_M = 64, FA_N = 128, FA_K = 16;
+constexpr int FB_M = 64, FB_N = 64, FB_K = 16;
+constexpr int F3_STAGES = 4;
+constexpr int FA_SLOT = FA_K * (FA_N + 2 * FA_M);  // floats
+constexpr int FB_SLOT = FB_K * 2 * FB_M + 2 * FB_K * FB_N;
+constexpr size_t FA_SMEM = sizeof(float) * F3_STAGES * FA_SLOT;
+constexpr size_t FB_SMEM = sizeof(float) * F3_STAGES * FB_SLOT;
+static_assert(2 * (SA_SMEM + 1024) <= 233472 && 2 * (SB_SMEM + 1024) <= 233472,
+              "two bf16 stage blocks must share an SM's 228 KB");
+
+struct StageParams {
+  const void* plane;  // stage A: [M, N1, N2], M = batch * n_spectra (bf16 or f32)
+  const void* d1c;    // stage A: [N1, N1] cos (symmetric)
+  const void* d1s;    // stage A: [N1, N1] -sin (symmetric)
+  const void* d2;     // stage B: bf16 [N2, N2] cos rows then -sin rows; f32 transposed [n2][k2]
+  const float* twc;   // stage A: [N1, N2]
+  const float* tws;
+  void* tr;           // [M, N1, N2] T re, im (the operand type): stage A writes, B reads
+  void* ti;
+  const float* rotc;  // stage B: [batch, C]
+  const float* rots;
+  void* outr;         // stage B: [M, C] int8, or f32 without the requant
+  void* outi;
+  int n_spectra, n1, n2;
+  int n_ct, n_rt;  // a spectrum's column tiles and row tiles
+};
+
+// The tile of this block: spectrum m, first row r0, first column c0
+// (columns fastest, then rows, then spectra).
+struct StageTile {
+  long long m;
+  int r0, c0;
+};
+
+__device__ __forceinline__ StageTile stage_tile(const StageParams& p, int rows, int cols) {
+  long long t = blockIdx.x;
+  StageTile w;
+  w.c0 = static_cast<int>(t % p.n_ct) * cols;
+  t /= p.n_ct;
+  w.r0 = static_cast<int>(t % p.n_rt) * rows;
+  w.m = t / p.n_rt;
+  return w;
+}
+
+// A tile's K loop over n_k tiles through a ring of STAGES slots of `slot`
+// elements: load(kt, slot) issues tile kt's cp.async copies, compute(slot)
+// consumes a landed tile. Tile kt + STAGES - 1 loads while kt computes.
+template <int STAGES, typename T, typename Load, typename Compute>
+__device__ __forceinline__ void ring_loop(T* ring, int slot, int n_k, Load load,
+                                          Compute compute) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_k) load(s, ring + s * slot);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();  // tile kt landed for every thread; tile kt-1's slot is free
+    if (kt + STAGES - 1 < n_k) load(kt + STAGES - 1, ring + ((kt + STAGES - 1) % STAGES) * slot);
+    cp_async_commit();
+    compute(ring + (kt % STAGES) * slot);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The epilogue of stage B for two adjacent k1 of one k2: re = cos.tr -
+// (-sin.ti), im = cos.ti + (-sin.tr) from the four sums s[0..3][e], then
+// the rotation and the requant (or the f32 values) at out + o.
+template <bool QUANT, int E>
+__device__ __forceinline__ void stage_b_store(const StageParams& p, long long o,
+                                              const float (&s)[4][E], const float* rc,
+                                              const float* rs) {
+  float v[2][E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const float re = __fsub_rn(s[0][e], s[1][e]);
+    const float im = __fadd_rn(s[2][e], s[3][e]);
+    v[0][e] = __fsub_rn(__fmul_rn(re, rc[e]), __fmul_rn(im, rs[e]));
+    v[1][e] = __fadd_rn(__fmul_rn(re, rs[e]), __fmul_rn(im, rc[e]));
+  }
+  if constexpr (E == 2) {
+    if constexpr (QUANT) {
+      *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + o) =
+          make_char2(requant(v[0][0]), requant(v[0][1]));
+      *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + o) =
+          make_char2(requant(v[1][0]), requant(v[1][1]));
+    } else {
+      *reinterpret_cast<float2*>(static_cast<float*>(p.outr) + o) = make_float2(v[0][0], v[0][1]);
+      *reinterpret_cast<float2*>(static_cast<float*>(p.outi) + o) = make_float2(v[1][0], v[1][1]);
+    }
+  } else {
+    static_assert(E == 4, "two or four outputs a store");
+    if constexpr (QUANT) {
+      *reinterpret_cast<char4*>(static_cast<int8_t*>(p.outr) + o) =
+          make_char4(requant(v[0][0]), requant(v[0][1]), requant(v[0][2]), requant(v[0][3]));
+      *reinterpret_cast<char4*>(static_cast<int8_t*>(p.outi) + o) =
+          make_char4(requant(v[1][0]), requant(v[1][1]), requant(v[1][2]), requant(v[1][3]));
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(p.outr) + o) =
+          make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
+      *reinterpret_cast<float4*>(static_cast<float*>(p.outi) + o) =
+          make_float4(v[1][0], v[1][1], v[1][2], v[1][3]);
+    }
+  }
+}
+
+// Stage A, bf16: T = twiddle(D1 @ plane) of a [64 x 128] tile, rounded to bf16.
+__global__ void __launch_bounds__(TP_THREADS, 2) k1_stage_a_kernel(StageParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  constexpr int XLD = SA_N + PAD, DLD = SA_K + PAD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int n1 = p.n1, n2 = p.n2;
+  const StageTile w = stage_tile(p, SA_M, SA_N);
+  const long long mat = w.m * n1 * static_cast<long long>(n2);
+  const bf16* xsrc = static_cast<const bf16*>(p.plane) + mat + w.c0;
+  const bf16* d1c = static_cast<const bf16*>(p.d1c) + static_cast<long long>(w.r0) * n1;
+  const bf16* d1s = static_cast<const bf16*>(p.d1s) + static_cast<long long>(w.r0) * n1;
+  const int wr = (warp / 4) * 32, wc = (warp % 4) * 32;  // the warp's k1 rows, columns
+  float acc[64];  // [cos/-sin][2 m16][4 n8][4]
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  auto load = [&](int kt, bf16* slot) {
+    // [SA_K x SA_N] of the plane, then the tile's [SA_M x SA_K] cos and -sin.
+#pragma unroll 1
+    for (int i = threadIdx.x; i < SA_K * SA_N / 8; i += TP_THREADS) {
+      const int r = i / (SA_N / 8), q = i % (SA_N / 8);
+      cp_async16(slot + r * XLD + q * 8, xsrc + ((kt * SA_K + r) * n2 + q * 8));
+    }
+    bf16* sd = slot + SA_K * XLD;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * SA_M * SA_K / 8; i += TP_THREADS) {
+      const int mm = i / (SA_M * SA_K / 8), j = i % (SA_M * SA_K / 8);
+      const int r = j / (SA_K / 8), q = j % (SA_K / 8);
+      cp_async16(sd + (mm * SA_M + r) * DLD + q * 8, (mm ? d1s : d1c) + (r * n1 + kt * SA_K + q * 8));
+    }
+  };
+  auto compute = [&](const bf16* slot) {
+    const bf16* sX = slot;
+    const bf16* sAc = slot + SA_K * XLD;
+    const bf16* sAs = sAc + SA_M * DLD;
+#pragma unroll
+    for (int kk = 0; kk < SA_K; kk += 16) {
+      uint32_t fa[2][2][4], fb[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = wr + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
+        ldsm_x4(fa[0][i], sAc + r * DLD + c);
+        ldsm_x4(fa[1][i], sAs + r * DLD + c);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int r = kk + lane % 8 + ((lane / 8) % 2) * 8;
+        ldsm_x4_t(fb[jj], sX + r * XLD + wc + jj * 16 + (lane / 16) * 8);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            mma16816_rn(acc + ((m * 2 + i) * 4 + j) * 4, fa[m][i], fb[j / 2][(j % 2) * 2],
+                        fb[j / 2][(j % 2) * 2 + 1]);
+          }
+        }
+      }
+    }
+  };
+  ring_loop<TP_STAGES>(ring, SA_SLOT, n1 / SA_K, load, compute);
+
+  // The f32 twiddle, rounded to bf16, into T.
+  bf16* tr = static_cast<bf16*>(p.tr) + mat;
+  bf16* ti = static_cast<bf16*>(p.ti) + mat;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long o = static_cast<long long>(w.r0 + wr + i * 16 + g + hh * 8) * n2 + w.c0 +
+                            wc + j * 8 + tig * 2;
+        const float2 c = __ldg(reinterpret_cast<const float2*>(p.twc + o));
+        const float2 sn = __ldg(reinterpret_cast<const float2*>(p.tws + o));
+        const float* cr = acc + ((0 * 2 + i) * 4 + j) * 4 + hh * 2;
+        const float* ci = acc + ((1 * 2 + i) * 4 + j) * 4 + hh * 2;
+        *reinterpret_cast<__nv_bfloat162*>(tr + o) = __floats2bfloat162_rn(
+            __fsub_rn(__fmul_rn(cr[0], c.x), __fmul_rn(ci[0], sn.x)),
+            __fsub_rn(__fmul_rn(cr[1], c.y), __fmul_rn(ci[1], sn.y)));
+        *reinterpret_cast<__nv_bfloat162*>(ti + o) = __floats2bfloat162_rn(
+            __fadd_rn(__fmul_rn(cr[0], sn.x), __fmul_rn(ci[0], c.x)),
+            __fadd_rn(__fmul_rn(cr[1], sn.y), __fmul_rn(ci[1], c.y)));
+      }
+    }
+  }
+}
+
+// Stage B, bf16: the four products of a [64 k2 x 64 k1] tile over n2, then
+// the epilogue. The MMAs chain through their accumulators: at fft 2^22 on
+// the card that flipped 6.5e-5 of the int8 codes against the plain version
+// on the same T (1.4e-5 with each MMA's sum added in f32), far inside the
+// gate of 1e-3.
+template <bool QUANT>
+__global__ void __launch_bounds__(TP_THREADS, 2) k1_stage_b_kernel(StageParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  constexpr int LD = SB_K + PAD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int n1 = p.n1, n2 = p.n2, h = n2 / 2, C = n1 * (n2 / 2);
+  const StageTile w = stage_tile(p, SB_M, SB_N);  // rows: k2; columns: k1
+  const long long mat = w.m * n1 * static_cast<long long>(n2);
+  const bf16* d2 = static_cast<const bf16*>(p.d2);
+  const bf16* tr = static_cast<const bf16*>(p.tr) + mat + static_cast<long long>(w.c0) * n2;
+  const bf16* ti = static_cast<const bf16*>(p.ti) + mat + static_cast<long long>(w.c0) * n2;
+  const int wr = (warp / 4) * 32, wc = (warp % 4) * 16;  // the warp's k2 rows, k1 columns
+  float acc[64];  // [4 sums][2 m16][2 n8][4]: cos.tr, -sin.ti, cos.ti, -sin.tr
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  auto load = [&](int kt, bf16* slot) {
+    // Rows of [cos k2 | -sin k2 | T re | T im], SB_K n2 each.
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 4 * 64 * (SB_K / 8); i += TP_THREADS) {
+      const int mm = i / (64 * (SB_K / 8)), j = i % (64 * (SB_K / 8));
+      const int r = j / (SB_K / 8), q = j % (SB_K / 8);
+      const bf16* src = mm < 2 ? d2 + (mm * h + w.r0 + r) * n2 : (mm == 2 ? tr : ti) + r * n2;
+      cp_async16(slot + (mm * 64 + r) * LD + q * 8, src + (kt * SB_K + q * 8));
+    }
+  };
+  auto compute = [&](const bf16* slot) {
+    const bf16* sC = slot;
+    const bf16* sS = slot + SB_M * LD;
+    const bf16* sTr = sS + SB_M * LD;
+    const bf16* sTi = sTr + SB_N * LD;
+#pragma unroll
+    for (int kk = 0; kk < SB_K; kk += 16) {
+      uint32_t fc[2][4], fs[2][4], ftr[4], fti[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = wr + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
+        ldsm_x4(fc[i], sC + r * LD + c);
+        ldsm_x4(fs[i], sS + r * LD + c);
+      }
+      {
+        const int r = wc + lane % 8 + (lane / 16) * 8, c = kk + ((lane / 8) % 2) * 8;
+        ldsm_x4(ftr, sTr + r * LD + c);
+        ldsm_x4(fti, sTi + r * LD + c);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float* a0 = acc + (i * 2 + j) * 4;
+          mma16816(a0 + 0 * 16, fc[i], ftr[2 * j], ftr[2 * j + 1]);
+          mma16816(a0 + 1 * 16, fs[i], fti[2 * j], fti[2 * j + 1]);
+          mma16816(a0 + 2 * 16, fc[i], fti[2 * j], fti[2 * j + 1]);
+          mma16816(a0 + 3 * 16, fs[i], ftr[2 * j], ftr[2 * j + 1]);
+        }
+      }
+    }
+  };
+  ring_loop<TP_STAGES>(ring, SB_SLOT, n2 / SB_K, load, compute);
+
+  const float* rc_b = p.rotc + (w.m / p.n_spectra) * C;
+  const float* rs_b = p.rots + (w.m / p.n_spectra) * C;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float* a0 = acc + (i * 2 + j) * 4 + hh * 2;
+        const int ch = (w.r0 + wr + i * 16 + g + hh * 8) * n1 + w.c0 + wc + j * 8 + tig * 2;
+        const float2 rc = __ldg(reinterpret_cast<const float2*>(rc_b + ch));
+        const float2 rs = __ldg(reinterpret_cast<const float2*>(rs_b + ch));
+        const float s[4][2] = {{a0[0], a0[1]}, {a0[16], a0[17]}, {a0[32], a0[33]},
+                               {a0[48], a0[49]}};
+        const float c2[2] = {rc.x, rc.y}, s2[2] = {rs.x, rs.y};
+        stage_b_store<QUANT, 2>(p, w.m * C + ch, s, c2, s2);
+      }
+    }
+  }
+}
+
+// Stage A, f32 (exact f32 products and sums, FFMA): T = twiddle(D1 @ plane)
+// of a [64 x 128] tile. D1 is symmetric, so its tile is read as [n1][k1].
+__global__ void __launch_bounds__(TP_THREADS, 1) k1_stage_a_f32_kernel(StageParams p) {
+  extern __shared__ __align__(128) float f3_smem[];
+  const int tid = threadIdx.x;
+  const int n1 = p.n1, n2 = p.n2;
+  const StageTile w = stage_tile(p, FA_M, FA_N);
+  const long long mat = w.m * n1 * static_cast<long long>(n2);
+  const float* xsrc = static_cast<const float*>(p.plane) + mat + w.c0;
+  const float* d1c = static_cast<const float*>(p.d1c) + w.r0;
+  const float* d1s = static_cast<const float*>(p.d1s) + w.r0;
+  // k1 rows 4*rg.. of the tile; columns cg.. and FA_N/2 + cg..
+  const int rg = tid / 16, cg = (tid % 16) * 4;
+  float acc[64];  // [cos/-sin][4 k1][8 columns]
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  auto load = [&](int kt, float* slot) {
+    // [FA_K x FA_N] of the plane, then [FA_K x 2*FA_M]: cos of the tile's k1
+    // at columns 0.., -sin at FA_M.. of row n1.
+#pragma unroll 1
+    for (int i = threadIdx.x; i < FA_K * FA_N / 4; i += TP_THREADS) {
+      const int r = i / (FA_N / 4), q = (i % (FA_N / 4)) * 4;
+      cp_async16(slot + r * FA_N + q, xsrc + ((kt * FA_K + r) * n2 + q));
+    }
+    float* sd = slot + FA_K * FA_N;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < FA_K * 2 * FA_M / 4; i += TP_THREADS) {
+      const int r = i / (2 * FA_M / 4), q = (i % (2 * FA_M / 4)) * 4;
+      cp_async16(sd + r * 2 * FA_M + q,
+                 (q < FA_M ? d1c : d1s) + ((kt * FA_K + r) * n1 + (q & (FA_M - 1))));
+    }
+  };
+  auto compute = [&](const float* slot) {
+    const float* sX = slot;
+    const float* sD = slot + FA_K * FA_N;
+#pragma unroll
+    for (int kk = 0; kk < FA_K; ++kk) {
+      const float4 x0 = *reinterpret_cast<const float4*>(sX + kk * FA_N + cg);
+      const float4 x1 = *reinterpret_cast<const float4*>(sX + kk * FA_N + FA_N / 2 + cg);
+      const float4 dc = *reinterpret_cast<const float4*>(sD + kk * 2 * FA_M + 4 * rg);
+      const float4 ds = *reinterpret_cast<const float4*>(sD + kk * 2 * FA_M + FA_M + 4 * rg);
+      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      const float cv[4] = {dc.x, dc.y, dc.z, dc.w}, sv[4] = {ds.x, ds.y, ds.z, ds.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          acc[i * 8 + e] = fmaf(cv[i], xv[e], acc[i * 8 + e]);
+          acc[32 + i * 8 + e] = fmaf(sv[i], xv[e], acc[32 + i * 8 + e]);
+        }
+      }
+    }
+  };
+  ring_loop<F3_STAGES>(f3_smem, FA_SLOT, n1 / FA_K, load, compute);
+
+  // The f32 twiddle (tr = ar*wc - ai*ws, ti = ar*ws + ai*wc) into T
+  // transposed, [n2][k1]: the thread's 4 k1 of a column are one float4.
+  float* tr = static_cast<float*>(p.tr) + mat;
+  float* ti = static_cast<float*>(p.ti) + mat;
+  const int k1 = w.r0 + 4 * rg;
+#pragma unroll
+  for (int col = 0; col < 8; ++col) {  // a column's 4 k1 at a time
+    const int n = w.c0 + (col / 4) * (FA_N / 2) + cg + col % 4;
+    float vr[4], vi[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float c = __ldg(p.twc + (k1 + i) * n2 + n), sn = __ldg(p.tws + (k1 + i) * n2 + n);
+      const float ar = acc[i * 8 + col], ai = acc[32 + i * 8 + col];
+      vr[i] = __fsub_rn(__fmul_rn(ar, c), __fmul_rn(ai, sn));
+      vi[i] = __fadd_rn(__fmul_rn(ar, sn), __fmul_rn(ai, c));
+    }
+    const int o = n * n1 + k1;
+    *reinterpret_cast<float4*>(tr + o) = make_float4(vr[0], vr[1], vr[2], vr[3]);
+    *reinterpret_cast<float4*>(ti + o) = make_float4(vi[0], vi[1], vi[2], vi[3]);
+  }
+}
+
+// Stage B, f32 (FFMA): the four products of a [64 k2 x 64 k1] tile over
+// n2, the transposed N2-point matrix against T transposed ([n2][k1], as
+// stage A f32 writes it), then the epilogue. A quarter warp shares its 4 k1
+// (a broadcast) and reads 8 runs of 4 k2.
+template <bool QUANT>
+__global__ void __launch_bounds__(TP_THREADS, 1) k1_stage_b_f32_kernel(StageParams p) {
+  extern __shared__ __align__(128) float f3_smem[];
+  const int tid = threadIdx.x;
+  const int n1 = p.n1, n2 = p.n2, h = n2 / 2, C = n1 * (n2 / 2);
+  const StageTile w = stage_tile(p, FB_M, FB_N);  // rows: k2; columns: k1
+  const long long mat = w.m * n1 * static_cast<long long>(n2);
+  const float* d2t = static_cast<const float*>(p.d2);
+  const float* tr = static_cast<const float*>(p.tr) + mat + w.c0;  // [N2][N1]
+  const float* ti = static_cast<const float*>(p.ti) + mat + w.c0;
+  const int rb = (tid % 16) * 4, qb = (tid / 16) * 4;  // k2 rows rb.., k1 columns qb..
+  float acc[64];  // [4 sums][4 k2][4 k1]: cos.tr, -sin.ti, cos.ti, -sin.tr
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  auto load = [&](int kt, float* slot) {
+    // [FB_K x 2*FB_M] of the transposed matrix (cos of the tile's k2, then
+    // their -sin), then T re and im transposed, [FB_K x FB_N] each.
+#pragma unroll 1
+    for (int i = threadIdx.x; i < FB_K * 2 * FB_M / 4; i += TP_THREADS) {
+      const int r = i / (2 * FB_M / 4), q = (i % (2 * FB_M / 4)) * 4;
+      cp_async16(slot + r * 2 * FB_M + q,
+                 d2t + ((kt * FB_K + r) * n2 + (q < FB_M ? w.r0 + q : h + w.r0 + q - FB_M)));
+    }
+    float* st = slot + FB_K * 2 * FB_M;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * FB_K * FB_N / 4; i += TP_THREADS) {
+      const int mm = i / (FB_K * FB_N / 4), j = i % (FB_K * FB_N / 4);
+      const int r = j / (FB_N / 4), q = (j % (FB_N / 4)) * 4;
+      cp_async16(st + mm * FB_K * FB_N + r * FB_N + q, (mm ? ti : tr) + ((kt * FB_K + r) * n1 + q));
+    }
+  };
+  auto compute = [&](const float* slot) {
+    const float* sD = slot;
+    const float* sTr = slot + FB_K * 2 * FB_M;
+    const float* sTi = sTr + FB_K * FB_N;
+#pragma unroll
+    for (int kk = 0; kk < FB_K; ++kk) {
+      const float4 dc = *reinterpret_cast<const float4*>(sD + kk * 2 * FB_M + rb);
+      const float4 ds = *reinterpret_cast<const float4*>(sD + kk * 2 * FB_M + FB_M + rb);
+      const float4 t_r = *reinterpret_cast<const float4*>(sTr + kk * FB_N + qb);
+      const float4 t_i = *reinterpret_cast<const float4*>(sTi + kk * FB_N + qb);
+      const float cv[4] = {dc.x, dc.y, dc.z, dc.w}, sv[4] = {ds.x, ds.y, ds.z, ds.w};
+      const float trv[4] = {t_r.x, t_r.y, t_r.z, t_r.w}, tiv[4] = {t_i.x, t_i.y, t_i.z, t_i.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[0 * 16 + a * 4 + c] = fmaf(cv[a], trv[c], acc[0 * 16 + a * 4 + c]);
+          acc[1 * 16 + a * 4 + c] = fmaf(sv[a], tiv[c], acc[1 * 16 + a * 4 + c]);
+          acc[2 * 16 + a * 4 + c] = fmaf(cv[a], tiv[c], acc[2 * 16 + a * 4 + c]);
+          acc[3 * 16 + a * 4 + c] = fmaf(sv[a], trv[c], acc[3 * 16 + a * 4 + c]);
+        }
+      }
+    }
+  };
+  ring_loop<F3_STAGES>(f3_smem, FB_SLOT, n2 / FB_K, load, compute);
+
+  // Four consecutive channels k2*N1 + k1.. of each of the thread's k2.
+  const float* rc_b = p.rotc + (w.m / p.n_spectra) * C;
+  const float* rs_b = p.rots + (w.m / p.n_spectra) * C;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int ch = (w.r0 + rb + a) * n1 + w.c0 + qb;
+    const float4 rc4 = __ldg(reinterpret_cast<const float4*>(rc_b + ch));
+    const float4 rs4 = __ldg(reinterpret_cast<const float4*>(rs_b + ch));
+    const float rc[4] = {rc4.x, rc4.y, rc4.z, rc4.w}, rs[4] = {rs4.x, rs4.y, rs4.z, rs4.w};
+    float s[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[k][c] = acc[k * 16 + a * 4 + c];
+    }
+    stage_b_store<QUANT, 4>(p, w.m * C + ch, s, rc, rs);
+  }
+}
+
+// Whether the three-pass route's tiles cover N1 x N2: powers of two, N1 and
+// N2 / 2 multiples of 64, N2 of 128, and a spectrum's planes and the DFT
+// matrices indexed in 32 bits (N1, N2 <= 2^15).
+bool three_pass_split(int n1, int n2) {
+  return n1 >= 64 && n1 <= (1 << 15) && (n1 & (n1 - 1)) == 0 && n2 >= 128 && n2 <= (1 << 15) &&
+         (n2 & (n2 - 1)) == 0;
+}
+
+// Launches a stage kernel, one block a tile.
+template <typename K>
+cudaError_t launch_stage(K kern, const StageParams& p, long long tiles, size_t smem,
+                         cudaStream_t stream) {
+  if (tiles < 1 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<static_cast<unsigned>(tiles), TP_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// A stage kernel's body: out int[9] = registers a thread, local (spill)
+// bytes a thread, threads a block, shared-memory bytes, tile rows, tile
+// columns, K-tile depth, ring stages, blocks an SM.
+template <typename K>
+int stage_attributes(K kern, size_t smem, int rows, int cols, int depth, int stages, void* out) {
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TP_THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* o = static_cast<int*>(out);
+  o[0] = a.numRegs;
+  o[1] = static_cast<int>(a.localSizeBytes);
+  o[2] = TP_THREADS;
+  o[3] = static_cast<int>(smem);
+  o[4] = rows;
+  o[5] = cols;
+  o[6] = depth;
+  o[7] = stages;
+  o[8] = per_sm;
+  return 0;
+}
+
+#endif  // K1_STAGE_STOPS
 
 // K1's FIR pass into a plane of PT (bf16, or float for f32 DFT operands).
 template <typename PT>
@@ -1567,56 +1942,6 @@ extern "C" const char* dcsand_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The two-pass bf16 DFT pass's plan (-1: none).
-static int dft_plan_kc(int n1, int n2) {
-  DftParams p{};
-  p.n1 = n1;
-  p.n2 = n2;
-  return with_dft_plan(p, [](auto kc, const DftParams&, size_t) { return decltype(kc)::value; });
-}
-
-// The single-pass SIMT body: f32 DFT operands, or bf16 where the two-pass
-// form's DFT pass has no plan (N1 = 8, or N2 >= 2048: fft >= 2^22).
-// quantise = 0 writes f32 outputs instead of int8. Returns -1 where no
-// chunk's plan fits shared memory.
-extern "C" int fengine_ct_launch(
-    const void* x, long long batch_stride, const void* starts,
-    const void* win, const void* d1c, const void* d1s, const void* d2,
-    const void* twc, const void* tws, const void* rotc, const void* rots,
-    void* outr, void* outi, int batch, int n_spectra, int n_taps, int n1,
-    int n2, int bf16_ops, int quantise, void* stream) {
-  if (n1 < 8 || !pow2(n1) || n2 < 128 || !pow2(n2) || n_spectra < 1 || batch < 1 ||
-      batch > 65535 || n_taps < 1 || (bf16_ops && n1 >= 16 && dft_plan_kc(n1, n2) != NO_PLAN)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // bf16 keeps its whole FIR plane in shared memory where that fits at 2-row
-  // chunks (N1 = 8); otherwise it recomputes FIR tiles, as f32 does.
-  const bool whole = bf16_ops && smem_bytes(true, true, n1, n2, 2) <= MAX_SMEM;
-  int kc = n1 < KC ? n1 : KC;
-  while (kc > 2 && smem_bytes(bf16_ops, whole, n1, n2, kc) > MAX_SMEM) kc /= 2;
-  const size_t bytes = smem_bytes(bf16_ops, whole, n1, n2, kc);
-  if (bytes > MAX_SMEM) return NO_PLAN;
-  Params p{static_cast<const int8_t*>(x), batch_stride,
-           static_cast<const long long*>(starts),
-           static_cast<const float*>(win), static_cast<const float*>(d1c),
-           static_cast<const float*>(d1s), static_cast<const float*>(d2),
-           static_cast<const float*>(twc), static_cast<const float*>(tws),
-           static_cast<const float*>(rotc), static_cast<const float*>(rots),
-           outr, outi, n_spectra, n_taps, n1, n2, kc};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bf16_ops && whole) {
-    err = quantise ? launch<true, true>(p, batch, bytes, st) : launch<true, false>(p, batch, bytes, st);
-  } else if (bf16_ops) {
-    err = quantise ? launch<true, true, false>(p, batch, bytes, st)
-                   : launch<true, false, false>(p, batch, bytes, st);
-  } else {
-    err = quantise ? launch<false, true>(p, batch, bytes, st)
-                   : launch<false, false>(p, batch, bytes, st);
-  }
-  return static_cast<int>(err);
-}
-
 // Pass 1: x [batch, batch_stride] int8 streams (stream b's window starts at
 // starts[b]), win [n_taps, fft] f32 (16-byte aligned) -> plane
 // [batch, n_spectra, fft] bf16.
@@ -1639,13 +1964,14 @@ extern "C" int k1_fir_f32_launch(const void* x, long long batch_stride, const vo
 // Pass 2: plane [batch, n_spectra, N1, N2] bf16 -> outputs [batch,
 // n_spectra, C] (int8, or f32 without quantise); d1c/d1s/d2 are the bf16
 // DFT matrices, twc/tws the f32 twiddles, rotc/rots [batch, C]. Returns -1
-// where no chunk's plan fits shared memory.
+// where no chunk's plan fits shared memory (N2 >= 2048: the three-pass
+// route's splits).
 extern "C" int k1_dft_launch(const void* plane, const void* d1c, const void* d1s,
                              const void* d2, const void* twc, const void* tws,
                              const void* rotc, const void* rots, void* outr, void* outi,
                              int batch, int n_spectra, int n1, int n2, int quantise,
                              void* stream) {
-  if (n1 < 16 || !pow2(n1) || n2 < 128 || !pow2(n2) || batch < 1 || n_spectra < 1) {
+  if (n1 < 8 || !pow2(n1) || n2 < 128 || !pow2(n2) || batch < 1 || n_spectra < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DftParams p{};
@@ -1667,10 +1993,11 @@ extern "C" int k1_dft_launch(const void* plane, const void* d1c, const void* d1s
 }
 
 // The bf16 DFT pass's plan and body at N1 x N2, -1 where it has none (the
-// shape then takes the SIMT body): out int[6] = registers a thread, local
-// (spill) bytes a thread, KC, K-tile depth, ring stages, shared-memory bytes.
+// split then takes the three-pass route): out int[6] = registers a thread,
+// local (spill) bytes a thread, KC (KC_N8 at N1 = 8), stage-B K-tile depth,
+// ring stages, shared-memory bytes.
 extern "C" int k1_dft_attributes(int n1, int n2, void* out) {
-  if (n1 < 16 || !pow2(n1) || n2 < 128 || !pow2(n2)) {
+  if (n1 < 8 || !pow2(n1) || n2 < 128 || !pow2(n2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DftParams p{};
@@ -1685,7 +2012,7 @@ extern "C" int k1_dft_attributes(int n1, int n2, void* out) {
     o[0] = a.numRegs;
     o[1] = static_cast<int>(a.localSizeBytes);
     o[2] = K;
-    o[3] = q.kt;
+    o[3] = q.ktb;
     o[4] = q.stages;
     o[5] = static_cast<int>(bytes);
     return 0;
@@ -1696,8 +2023,8 @@ extern "C" int k1_dft_attributes(int n1, int n2, void* out) {
 // aligned) -> outputs [batch, n_spectra, C] (int8, or f32 without
 // quantise); d1c/d1s the f32 N1-point matrices, d2t the f32 N2-point matrix
 // transposed ([n2][k2]: cos columns, then -sin), twc/tws the f32 twiddles,
-// rotc/rots [batch, C]. Returns -1 where the pass has no plan (N1 < 16, N2 >
-// 1024): those shapes take fengine_ct_launch.
+// rotc/rots [batch, C]. Returns -1 where the pass has no plan (N2 > 1024):
+// those splits take the three-pass route.
 extern "C" int k1_dft_f32_launch(const void* plane, const void* d1c, const void* d1s,
                                  const void* d2t, const void* twc, const void* tws,
                                  const void* rotc, const void* rots, void* outr, void* outi,
@@ -1729,7 +2056,7 @@ extern "C" int k1_dft_f32_launch(const void* plane, const void* d1c, const void*
 }
 
 // The f32 DFT pass's plan and body at N1 x N2, -1 where it has none (the
-// shape then takes the SIMT body): out int[8] = registers a thread, local
+// split then takes the three-pass route): out int[8] = registers a thread, local
 // (spill) bytes a thread, KC, SB, stage-B K-tile depth, ring stages,
 // shared-memory bytes, threads a block.
 extern "C" int k1_dft_f32_attributes(int n1, int n2, void* out) {
@@ -1756,6 +2083,101 @@ extern "C" int k1_dft_f32_attributes(int n1, int n2, void* out) {
     o[7] = F32_THREADS;
     return 0;
   });
+}
+
+// The three-pass route's stage A: plane [m, N1, N2] (m = batch * n_spectra
+// spectra; bf16, 16-byte aligned) -> T re, im [m, N1, N2] bf16; d1c/d1s the
+// bf16 N1-point matrices, twc/tws the f32 twiddles. Returns -1 where the
+// route's tiles do not cover the split.
+extern "C" int k1_stage_a_launch(const void* plane, const void* d1c, const void* d1s,
+                                 const void* twc, const void* tws, void* tr, void* ti, int m,
+                                 int n1, int n2, void* stream) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  StageParams p{plane, d1c, d1s, nullptr, static_cast<const float*>(twc),
+                static_cast<const float*>(tws), tr, ti, nullptr, nullptr, nullptr, nullptr,
+                1, n1, n2, n2 / SA_N, n1 / SA_M};
+  return static_cast<int>(launch_stage(k1_stage_a_kernel, p,
+                                       static_cast<long long>(m) * p.n_ct * p.n_rt, SA_SMEM,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// Stage A with f32 operands: the same, all f32 (the plane 16-byte aligned),
+// T re and im written transposed, [m, N2, N1].
+extern "C" int k1_stage_a_f32_launch(const void* plane, const void* d1c, const void* d1s,
+                                     const void* twc, const void* tws, void* tr, void* ti, int m,
+                                     int n1, int n2, void* stream) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  StageParams p{plane, d1c, d1s, nullptr, static_cast<const float*>(twc),
+                static_cast<const float*>(tws), tr, ti, nullptr, nullptr, nullptr, nullptr,
+                1, n1, n2, n2 / FA_N, n1 / FA_M};
+  return static_cast<int>(launch_stage(k1_stage_a_f32_kernel, p,
+                                       static_cast<long long>(m) * p.n_ct * p.n_rt, FA_SMEM,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// The three-pass route's stage B: T re, im [batch, n_spectra, N1, N2] bf16
+// -> outputs [batch, n_spectra, C] (int8, or f32 without quantise); d2 the
+// bf16 row-stacked N2-point matrix, rotc/rots [batch, C]. Returns -1 where
+// the route's tiles do not cover the split.
+extern "C" int k1_stage_b_launch(const void* tr, const void* ti, const void* d2,
+                                 const void* rotc, const void* rots, void* outr, void* outi,
+                                 int batch, int n_spectra, int n1, int n2, int quantise,
+                                 void* stream) {
+  if (batch < 1 || n_spectra < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  StageParams p{nullptr, nullptr, nullptr, d2, nullptr, nullptr,
+                const_cast<void*>(tr), const_cast<void*>(ti),
+                static_cast<const float*>(rotc), static_cast<const float*>(rots), outr, outi,
+                n_spectra, n1, n2, n1 / SB_N, n2 / 2 / SB_M};
+  const long long tiles = static_cast<long long>(batch) * n_spectra * p.n_ct * p.n_rt;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(quantise ? launch_stage(k1_stage_b_kernel<true>, p, tiles, SB_SMEM, st)
+                                   : launch_stage(k1_stage_b_kernel<false>, p, tiles, SB_SMEM, st));
+}
+
+// Stage B with f32 operands: T re, im f32 transposed [batch, n_spectra, N2,
+// N1] (as stage A f32 writes them), d2t the f32 N2-point matrix transposed
+// ([n2][k2]: cos columns, then -sin), rotc/rots 16-byte aligned.
+extern "C" int k1_stage_b_f32_launch(const void* tr, const void* ti, const void* d2t,
+                                     const void* rotc, const void* rots, void* outr, void* outi,
+                                     int batch, int n_spectra, int n1, int n2, int quantise,
+                                     void* stream) {
+  if (batch < 1 || n_spectra < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  StageParams p{nullptr, nullptr, nullptr, d2t, nullptr, nullptr,
+                const_cast<void*>(tr), const_cast<void*>(ti),
+                static_cast<const float*>(rotc), static_cast<const float*>(rots), outr, outi,
+                n_spectra, n1, n2, n1 / FB_N, n2 / 2 / FB_M};
+  const long long tiles = static_cast<long long>(batch) * n_spectra * p.n_ct * p.n_rt;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      quantise ? launch_stage(k1_stage_b_f32_kernel<true>, p, tiles, FB_SMEM, st)
+               : launch_stage(k1_stage_b_f32_kernel<false>, p, tiles, FB_SMEM, st));
+}
+
+// Each three-pass stage's body at N1 x N2, -1 where the route's tiles do not
+// cover the split: out int[9] as stage_attributes gives it.
+extern "C" int k1_stage_a_attributes(int n1, int n2, void* out) {
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  return stage_attributes(k1_stage_a_kernel, SA_SMEM, SA_M, SA_N, SA_K, TP_STAGES, out);
+}
+
+extern "C" int k1_stage_b_attributes(int n1, int n2, void* out) {
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  return stage_attributes(k1_stage_b_kernel<true>, SB_SMEM, SB_M, SB_N, SB_K, TP_STAGES, out);
+}
+
+extern "C" int k1_stage_a_f32_attributes(int n1, int n2, void* out) {
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  return stage_attributes(k1_stage_a_f32_kernel, FA_SMEM, FA_M, FA_N, FA_K, F3_STAGES, out);
+}
+
+extern "C" int k1_stage_b_f32_attributes(int n1, int n2, void* out) {
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  return stage_attributes(k1_stage_b_f32_kernel<true>, FB_SMEM, FB_M, FB_N, FB_K, F3_STAGES,
+                          out);
 }
 
 #endif  // K1_STAGE_STOPS

@@ -22,17 +22,22 @@ with the same rounding points:
 Products of bf16 values are exact in f32, so the bf16 mode differs from the
 reference only by the order of f32 additions.
 
-With N1 >= 16 K1 runs as two passes over groups of batches whose FIR
-planes fit :data:`K1_SCRATCH_BYTES`: with bf16 operands (every default
+K1 runs as passes over groups of batches whose scratch fits
+:data:`K1_SCRATCH_BYTES`, on the route :func:`_k1_body` asks the library for
+before any launch. Where the DFT pass's T planes fit shared memory (N2 <=
+1024, N1 = 8 included) it is two passes: with bf16 operands (every default
 engine launch) :func:`k1_fir` (steps 1-2 into a bf16 plane ``[B, S, N1,
 N2]``) and :func:`k1_dft` (steps 3-5, tensor cores); with f32 operands
 (``fengine="fused_f32"``) :func:`k1_fir_f32` (the f32 plane) and
-:func:`k1_dft_f32` (register-blocked FFMA, exact f32), wherever that pass
-has a plan (:func:`_k1_body` asks the library before any launch). Their
-plain versions :func:`k1_fir_reference` and :func:`k1_dft_reference`
-compose to :func:`fengine_fused_reference`. N1 = 8, and the splits the DFT
-passes cannot hold (bf16: N2 >= 2048, fft >= 2^22; f32: N2 > 1024), take
-the single-pass SIMT body (:func:`fengine_ct_simt`).
+:func:`k1_dft_f32` (register-blocked FFMA, exact f32). Their plain versions
+:func:`k1_fir_reference` and :func:`k1_dft_reference` compose to
+:func:`fengine_fused_reference`. Where they do not (N2 >= 2048, fft >=
+2^22) it is three: the FIR pass, then stage A (:func:`k1_stage_a`,
+:func:`k1_stage_a_f32`: steps 3 to the rounded T planes, into device
+memory) and stage B (:func:`k1_stage_b`, :func:`k1_stage_b_f32`: steps 4-5),
+whose plain versions :func:`k1_stage_a_reference` and
+:func:`k1_stage_b_reference` compose to :func:`k1_dft_reference`. A split
+no route takes raises; nothing falls back.
 
 Where the direct-CT split does not exist, or the caller names
 ``deint="matmul"`` or ``"bitcast"``, :func:`fengine_fused` takes the
@@ -67,9 +72,9 @@ from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
 
 #: N1 (the row count of the frame view) must be a multiple of this.
 _ROW_ALIGN = 8
-#: Most bytes of FIR plane K1's two passes keep between them: batches go
-#: through in groups whose planes fit (32 flagship streams in bf16, 16 in
-#: f32: 1.07 GB).
+#: Most bytes of scratch K1's passes keep between them: batches go through
+#: in groups whose FIR planes (and, on the three-pass route, T planes) fit
+#: (32 flagship streams in bf16, 16 in f32: 1.07 GB).
 K1_SCRATCH_BYTES = 1 << 30
 #: What a launch function returns where no shared-memory plan fits the shape.
 _NO_PLAN = -1
@@ -182,11 +187,10 @@ def _dft_f32t(n1: int, n2: int, device: str) -> torch.Tensor:
 
 
 def _has_plan(query: str, n1: int, n2: int) -> bool:
-    """Whether the library's plan query ``query`` (a DFT pass's
-    ``*_attributes``) finds a shared-memory plan for N1 x N2; a CUDA error
-    raises."""
+    """Whether the library's plan query ``query`` (a pass's ``*_attributes``)
+    finds a plan for N1 x N2; a CUDA error raises."""
     lib = _build.library()
-    err = getattr(lib, query)(n1, n2, (ctypes.c_int * 8)())
+    err = getattr(lib, query)(n1, n2, (ctypes.c_int * 16)())
     if err == _NO_PLAN:
         return False
     _build.check(lib, err, query)
@@ -195,17 +199,23 @@ def _has_plan(query: str, n1: int, n2: int) -> bool:
 
 @functools.lru_cache(maxsize=64)
 def _k1_body(n1: int, n2: int, dft_dtype: str) -> str:
-    """K1's body for a split, decided before any launch: ``"two_pass"`` (the
-    FIR pass, then the tensor-core DFT pass) for bf16 operands and
+    """K1's route for a split, decided before any launch: ``"two_pass"``
+    (the FIR pass, then the tensor-core DFT pass) for bf16 operands and
     ``"two_pass_f32"`` (the f32 FIR pass, then the FFMA DFT pass) for f32
-    operands, each where N1 >= 16 and its DFT pass has a plan
+    operands, where that DFT pass has a shared-memory plan
     (``k1_dft_attributes`` / ``k1_dft_f32_attributes`` in
-    ``csrc/fengine_ct.cu`` decide); ``"simt"`` (the single-pass SIMT body)
-    for N1 = 8 and splits without a plan."""
-    bf16 = dft_dtype == "bfloat16"
-    if n1 < 16 or not _has_plan("k1_dft_attributes" if bf16 else "k1_dft_f32_attributes", n1, n2):
-        return "simt"
-    return "two_pass" if bf16 else "two_pass_f32"
+    ``csrc/fengine_ct.cu`` decide; N2 <= 1024); else ``"three_pass"`` /
+    ``"three_pass_f32"`` (the FIR pass, stage A, stage B through T in device
+    memory) where both stages' tiles cover the split
+    (``k1_stage_{a,b}[_f32]_attributes``). A split no route takes raises
+    ``ValueError``."""
+    sfx = "" if dft_dtype == "bfloat16" else "_f32"
+    if _has_plan(f"k1_dft{sfx}_attributes", n1, n2):
+        return "two_pass" + sfx
+    if all(_has_plan(f"k1_stage_{stage}{sfx}_attributes", n1, n2) for stage in "ab"):
+        return "three_pass" + sfx
+    raise ValueError(f"K1 has no route for the split N1 x N2 = {n1} x {n2} ({dft_dtype} "
+                     "operands): neither the DFT pass's plan nor the three-pass tiles cover it")
 
 
 @functools.lru_cache(maxsize=64)
@@ -316,6 +326,24 @@ def _ct_stage_b(tr, ti, k, n2, rnd):
     return re, im
 
 
+def _rotate_requant(re, im, rotc, rots, quantise):
+    """K1's epilogue: the fine-delay rotation of ``(re, im)`` ``[B, S, C]``
+    by ``rotc``/``rots`` ``[B, C]``, then ``rint``, clip to ±127 and int8, or
+    the rotated f32 values with ``quantise=False``."""
+    batch, _, c = re.shape
+    rc = rotc.reshape(batch, 1, c)
+    rs = rots.reshape(batch, 1, c)
+    outr = re * rc - im * rs
+    outi = re * rs + im * rc
+    if not quantise:
+        return outr, outi
+
+    def q(v):
+        return torch.round(v).clamp(-127.0, 127.0).to(torch.int8)
+
+    return q(outr), q(outi)
+
+
 def k1_dft_reference(
     plane: torch.Tensor,
     rotc: torch.Tensor,
@@ -330,23 +358,47 @@ def k1_dft_reference(
     :func:`k1_fir_reference` gives it) and ``rotc``/``rots`` ``[B, C]`` to
     int8 ``(qr, qi)`` ``[B, S, C]``, or the rotated f32 values with
     ``quantise=False``."""
-    batch, n_spectra, fft = plane.shape
-    c = fft // 2
     rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
     k = dft_constants(n1, n2, str(plane.device))
     tr, ti = _ct_stage_a(plane, k, n1, n2, rnd)
     re, im = _ct_stage_b(rnd(tr), rnd(ti), k, n2, rnd)
-    rc = rotc.reshape(batch, 1, c)
-    rs = rots.reshape(batch, 1, c)
-    outr = re * rc - im * rs
-    outi = re * rs + im * rc
-    if not quantise:
-        return outr, outi
+    return _rotate_requant(re, im, rotc, rots, quantise)
 
-    def q(v):
-        return torch.round(v).clamp(-127.0, 127.0).to(torch.int8)
 
-    return q(outr), q(outi)
+def k1_stage_a_reference(
+    plane: torch.Tensor, *, n1: int, n2: int, dft_dtype: str = "bfloat16"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the three-pass route's stage A: the FIR plane ``[B,
+    S, fft]`` (as :func:`k1_fir_reference` gives it) to T re and im ``[B, S,
+    N1, N2]``, stage A and the twiddle rounded to the operand type (bf16
+    tensors, or f32): K1's ``rnd(T)``."""
+    rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
+    tr, ti = _ct_stage_a(plane, dft_constants(n1, n2, str(plane.device)), n1, n2, rnd)
+    if dft_dtype == "bfloat16":
+        return tr.to(torch.bfloat16), ti.to(torch.bfloat16)
+    return tr, ti
+
+
+def k1_stage_b_reference(
+    tr: torch.Tensor,
+    ti: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "bfloat16",
+    quantise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the three-pass route's stage B: T re and im ``[B, S,
+    N1, N2]`` (as :func:`k1_stage_a_reference` gives them) and
+    ``rotc``/``rots`` ``[B, C]`` to int8 ``(qr, qi)`` ``[B, S, C]``, or the
+    rotated f32 values with ``quantise=False``. Composed with that stage A
+    it is :func:`k1_dft_reference`, bit for bit."""
+    rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
+    k = dft_constants(n1, n2, str(tr.device))
+    re, im = _ct_stage_b(tr.to(torch.float32), ti.to(torch.float32), k, n2, rnd)
+    return _rotate_requant(re, im, rotc, rots, quantise)
 
 
 def fengine_fused_reference(
@@ -437,9 +489,11 @@ def fengine_ablate_reference(
 
 
 def _plane_group(batch: int, n_spectra: int, fft: int, elem_bytes: int = 2) -> int:
-    """Batches a group of K1's two passes takes: as many FIR planes of
-    ``elem_bytes`` an element (2 bf16, 4 f32) as fit
-    :data:`K1_SCRATCH_BYTES` (at least one)."""
+    """Batches a group of K1's passes takes: as many batches' scratch of
+    ``elem_bytes`` a sample as fit :data:`K1_SCRATCH_BYTES` (at least one).
+    The two-pass routes keep a FIR plane, 2 bytes a sample in bf16 and 4 in
+    f32; the three-pass routes the plane and T re and im beside it, 3 times
+    that."""
     return max(1, min(batch, K1_SCRATCH_BYTES // (elem_bytes * n_spectra * fft)))
 
 
@@ -559,8 +613,8 @@ def k1_dft(
     if plane.device.type != "cuda":
         raise ValueError(f"k1_dft: unsupported device {plane.device}")
     batch, n_spectra, fft = plane.shape
-    if fft != n1 * n2 or n1 < 16:
-        raise ValueError(f"k1_dft: the pass takes N1 >= 16 and fft = N1*N2, got {n1}, {n2}, {fft}")
+    if fft != n1 * n2 or n1 < 8:
+        raise ValueError(f"k1_dft: the pass takes N1 >= 8 and fft = N1*N2, got {n1}, {n2}, {fft}")
     _check("k1_dft", plane, (
         ("plane", plane, torch.bfloat16, None),
         ("rotc", rotc, torch.float32, (batch, fft // 2)),
@@ -571,6 +625,20 @@ def k1_dft(
     outi = torch.empty_like(outr)
     _dft_pass(plane, rotc, rots, outr, outi, n1=n1, n2=n2, quantise=quantise)
     return outr, outi
+
+
+def k1_dft_attributes(n1: int, n2: int) -> dict:
+    """The card's view of K1's bf16 DFT-pass body at N1 x N2
+    (``cudaFuncGetAttributes`` and the plan): registers and local (spill)
+    bytes a thread, KC (128 at N1 = 8: 16 spectra of 8 rows), the stage-B
+    K-tile depth, ring stages and shared-memory bytes."""
+    out = (ctypes.c_int * 6)()
+    lib = _build.library()
+    err = lib.k1_dft_attributes(n1, n2, out)
+    if err == _NO_PLAN:
+        raise _no_plan("k1_dft", n1, n2, "the T planes of a 16-row chunk and the tile ring")
+    _build.check(lib, err, "k1_dft_attributes")
+    return dict(zip(("regs", "local_bytes", "kc", "ktb", "stages", "smem_bytes"), out))
 
 
 def _dft_f32_pass(plane, rotc, rots, outr, outi, *, n1, n2, quantise) -> None:
@@ -615,8 +683,8 @@ def k1_dft_f32(
         raise ValueError(f"k1_dft_f32: unsupported device {plane.device}")
     batch, n_spectra, fft = plane.shape
     if fft != n1 * n2 or _k1_body(n1, n2, "float32") != "two_pass_f32":
-        raise ValueError(f"k1_dft_f32: the pass takes fft = N1*N2 with a plan (N1 >= 16, "
-                         f"N2 <= 1024), got {n1}, {n2}, {fft}")
+        raise ValueError(f"k1_dft_f32: the pass takes fft = N1*N2 with a plan (N2 <= 1024), "
+                         f"got {n1}, {n2}, {fft}")
     _check("k1_dft_f32", plane, (
         ("plane", plane, torch.float32, None),
         ("rotc", rotc, torch.float32, (batch, fft // 2)),
@@ -644,78 +712,174 @@ def k1_dft_f32_attributes(n1: int, n2: int) -> dict:
                      "threads"), out))
 
 
-def _simt_pass(x, starts, window, rotc, rots, outr, outi, *, n1, n2, dft_dtype,
-               quantise) -> None:
-    """K1's single-pass SIMT body (CUDA tensors, checked by the caller)."""
-    batch, n_spectra = outr.shape[:2]
-    dev = x.device
-    k = dft_constants(n1, n2, str(dev))
+def _stage_call(what, n1, n2, *args) -> None:
+    """Calls the library's ``what`` with ``args``; where the three-pass tiles
+    do not cover N1 x N2 it raises ``ValueError``, on a CUDA error
+    ``RuntimeError``."""
     lib = _build.library()
-    err = lib.fengine_ct_launch(
-        x.data_ptr(), x.stride(0), starts.data_ptr(),
-        window.data_ptr(), k.d1c.data_ptr(), k.d1s.data_ptr(), k.d2.data_ptr(),
-        k.twc.data_ptr(), k.tws.data_ptr(),
-        rotc.data_ptr(), rots.data_ptr(),
-        outr.data_ptr(), outi.data_ptr(),
-        batch, n_spectra, window.shape[0], n1, n2, int(dft_dtype == "bfloat16"), int(quantise),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    err = getattr(lib, what)(*args)
     if err == _NO_PLAN:
-        raise _no_plan("fengine_ct_simt", n1, n2, "the f32 T planes of a 2-row chunk")
-    _build.check(lib, err, "fengine_ct")
-    fengine_ct_simt.launches += 1
+        raise ValueError(f"{what}: the three-pass tiles do not cover N1 x N2 = {n1} x {n2} "
+                         "(powers of two, N1 >= 64, N2 >= 128)")
+    _build.check(lib, err, what)
 
 
-def fengine_ct_simt(
-    x: torch.Tensor,
-    starts: torch.Tensor,
-    window: torch.Tensor,
-    rotc: torch.Tensor,
-    rots: torch.Tensor,
-    *,
-    n_spectra: int,
-    n1: int,
-    n2: int,
-    dft_dtype: str = "float32",
-    quantise: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1's single-pass SIMT body alone (the kernel on CUDA,
-    :func:`fengine_fused_reference` on CPU); arguments as that reference's.
-    :func:`fengine_fused` takes it for N1 = 8 and the splits the DFT passes
-    cannot hold; with bf16 operands it takes those splits only."""
-    if x.device.type == "cpu":
-        return fengine_fused_reference(x, starts, window, rotc, rots, n_spectra=n_spectra,
-                                       n1=n1, n2=n2, dft_dtype=dft_dtype, quantise=quantise)
-    if x.device.type != "cuda":
-        raise ValueError(f"fengine_ct_simt: unsupported device {x.device}")
-    n_taps, fft = window.shape
-    batch = x.shape[0]
-    if fft != n1 * n2 or (dft_dtype == "bfloat16" and _k1_body(n1, n2, dft_dtype) != "simt"):
-        raise ValueError(f"fengine_ct_simt: fft = N1*N2, bf16 only where the two passes have no "
-                         f"plan (N1 = 8, N2 >= 2048); got {n1}, {n2}, {fft}, {dft_dtype}")
-    _check("fengine_ct_simt", x, (
-        ("x", x, torch.int8, None),
-        ("starts", starts, torch.int64, (batch,)),
-        ("window", window, torch.float32, (n_taps, fft)),
-        ("rotc", rotc, torch.float32, (batch, fft // 2)),
-        ("rots", rots, torch.float32, (batch, fft // 2)),
+def _stage_a_pass(plane, tr, ti, *, n1, n2) -> None:
+    """The three-pass route's stage A from ``plane`` ``[G, S, fft]`` into
+    ``tr``/``ti`` (CUDA tensors of the operand type, 16-byte aligned, checked
+    by the caller): ``[G, S, N1, N2]`` in bf16, transposed ``[G, S, N2, N1]``
+    in f32; counted on :func:`k1_stage_a` or :func:`k1_stage_a_f32`."""
+    f32 = plane.dtype == torch.float32
+    dev = plane.device
+    k = dft_constants(n1, n2, str(dev))
+    d1c, d1s = (k.d1c, k.d1s) if f32 else _dft_bf16(n1, n2, str(dev))[:2]
+    what = "k1_stage_a_f32" if f32 else "k1_stage_a"
+    _stage_call(what + "_launch", n1, n2,
+                plane.data_ptr(), d1c.data_ptr(), d1s.data_ptr(), k.twc.data_ptr(),
+                k.tws.data_ptr(), tr.data_ptr(), ti.data_ptr(), plane.shape[0] * plane.shape[1],
+                n1, n2, torch.cuda.current_stream(dev).cuda_stream)
+    (k1_stage_a_f32 if f32 else k1_stage_a).launches += 1
+
+
+def _stage_b_pass(tr, ti, rotc, rots, outr, outi, *, n1, n2, quantise) -> None:
+    """The three-pass route's stage B from ``tr``/``ti`` (as
+    :func:`_stage_a_pass` writes them) into ``outr``/``outi`` ``[G, S, C]``
+    (CUDA tensors, 16-byte aligned, checked by the caller); counted on
+    :func:`k1_stage_b` or :func:`k1_stage_b_f32`."""
+    f32 = tr.dtype == torch.float32
+    dev = tr.device
+    d2 = _dft_f32t(n1, n2, str(dev)) if f32 else _dft_bf16(n1, n2, str(dev))[2]
+    what = "k1_stage_b_f32" if f32 else "k1_stage_b"
+    _stage_call(what + "_launch", n1, n2,
+                tr.data_ptr(), ti.data_ptr(), d2.data_ptr(), rotc.data_ptr(), rots.data_ptr(),
+                outr.data_ptr(), outi.data_ptr(), tr.shape[0], tr.shape[1], n1, n2,
+                int(quantise), torch.cuda.current_stream(dev).cuda_stream)
+    (k1_stage_b_f32 if f32 else k1_stage_b).launches += 1
+
+
+def _t_layout(n1: int, n2: int, dtype: torch.dtype) -> tuple[int, int]:
+    """A spectrum's T planes as the three-pass kernels keep them: ``(N1,
+    N2)`` in bf16 (the MMAs read rows of k1), ``(N2, N1)`` in f32 (the FFMA
+    stage B reads 4 k1 of an n2 at once)."""
+    return (n1, n2) if dtype == torch.bfloat16 else (n2, n1)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its base is not 16-byte aligned (the stages
+    copy rows and read rotation values 16 bytes at a time)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _stage_a(what, plane, n1, n2, dft_dtype):
+    if plane.device.type == "cpu":
+        return k1_stage_a_reference(plane, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    if plane.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {plane.device}")
+    batch, n_spectra, fft = plane.shape
+    if fft != n1 * n2:
+        raise ValueError(f"{what}: fft {fft} != N1*N2 = {n1}*{n2}")
+    dtype = torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32
+    _check(what, plane, (("plane", plane, dtype, None),))
+    tr, ti = (torch.empty((batch, n_spectra, *_t_layout(n1, n2, dtype)), dtype=dtype,
+                          device=plane.device) for _ in range(2))
+    _stage_a_pass(_aligned(plane), tr, ti, n1=n1, n2=n2)
+    if dtype == torch.float32:
+        return tr.transpose(-1, -2), ti.transpose(-1, -2)  # views [B, S, N1, N2]
+    return tr, ti
+
+
+def _stage_b(what, tr, ti, rotc, rots, n1, n2, quantise, dft_dtype):
+    if tr.device.type == "cpu":
+        return k1_stage_b_reference(tr, ti, rotc, rots, n1=n1, n2=n2, dft_dtype=dft_dtype,
+                                    quantise=quantise)
+    if tr.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {tr.device}")
+    batch, n_spectra = tr.shape[:2]
+    c = n1 * n2 // 2
+    dtype = torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32
+    for name, t in (("tr", tr), ("ti", ti)):
+        if tuple(t.shape) != (batch, n_spectra, n1, n2):
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != "
+                             f"{(batch, n_spectra, n1, n2)}")
+    if dtype == torch.float32:  # the kernel reads T transposed
+        tr, ti = (t.transpose(-1, -2).contiguous() for t in (tr, ti))
+    layout = (batch, n_spectra, *_t_layout(n1, n2, dtype))
+    _check(what, tr, (
+        ("tr", tr, dtype, layout),
+        ("ti", ti, dtype, layout),
+        ("rotc", rotc, torch.float32, (batch, c)),
+        ("rots", rots, torch.float32, (batch, c)),
     ))
     out_dtype = torch.int8 if quantise else torch.float32
-    outr = torch.empty((batch, n_spectra, fft // 2), dtype=out_dtype, device=x.device)
+    outr = torch.empty((batch, n_spectra, c), dtype=out_dtype, device=tr.device)
     outi = torch.empty_like(outr)
-    _simt_pass(x, starts, window, rotc, rots, outr, outi, n1=n1, n2=n2, dft_dtype=dft_dtype,
-               quantise=quantise)
+    _stage_b_pass(*(_aligned(t) for t in (tr, ti, rotc, rots)), outr, outi, n1=n1, n2=n2,
+                  quantise=quantise)
     return outr, outi
 
 
-#: Launches of K1's passes and of its SIMT body since the last reset (the
-#: plain versions never count); every two-pass K1 call adds one to each of its
-#: form's passes per group of batches, a SIMT call one to ``fengine_ct_simt``.
+def k1_stage_a(plane: torch.Tensor, *, n1: int, n2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The three-pass route's stage A alone, bf16 operands: the bf16 FIR
+    plane ``[B, S, fft]`` to bf16 T re and im ``[B, S, N1, N2]`` (the kernel
+    on CUDA, :func:`k1_stage_a_reference` on CPU)."""
+    return _stage_a("k1_stage_a", plane, n1, n2, "bfloat16")
+
+
+def k1_stage_a_f32(plane: torch.Tensor, *, n1: int, n2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The three-pass route's stage A alone, f32 operands (FFMA, exact f32):
+    the f32 plane to f32 T re and im ``[B, S, N1, N2]`` (the kernel on CUDA,
+    views of its transposed T; :func:`k1_stage_a_reference` with
+    ``dft_dtype="float32"`` on CPU)."""
+    return _stage_a("k1_stage_a_f32", plane, n1, n2, "float32")
+
+
+def k1_stage_b(
+    tr: torch.Tensor, ti: torch.Tensor, rotc: torch.Tensor, rots: torch.Tensor, *, n1: int,
+    n2: int, quantise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The three-pass route's stage B alone, bf16 operands: bf16 T re and im
+    ``[B, S, N1, N2]`` and ``rotc``/``rots`` ``[B, C]`` to ``(qr, qi)`` ``[B,
+    S, C]`` (the kernel on CUDA, :func:`k1_stage_b_reference` on CPU)."""
+    return _stage_b("k1_stage_b", tr, ti, rotc, rots, n1, n2, quantise, "bfloat16")
+
+
+def k1_stage_b_f32(
+    tr: torch.Tensor, ti: torch.Tensor, rotc: torch.Tensor, rots: torch.Tensor, *, n1: int,
+    n2: int, quantise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The three-pass route's stage B alone, f32 operands (FFMA): f32 T re
+    and im to ``(qr, qi)`` (the kernel on CUDA, :func:`k1_stage_b_reference`
+    with ``dft_dtype="float32"`` on CPU)."""
+    return _stage_b("k1_stage_b_f32", tr, ti, rotc, rots, n1, n2, quantise, "float32")
+
+
+def k1_stage_attributes(n1: int, n2: int, dft_dtype: str = "bfloat16") -> dict:
+    """The card's view of the three-pass route's two stage bodies at N1 x N2
+    (``cudaFuncGetAttributes`` and the tiling): ``{"a": ..., "b": ...}``,
+    each with registers and local (spill) bytes a thread, threads a block,
+    shared-memory bytes, tile rows and columns, K-tile depth, ring stages
+    and blocks an SM."""
+    sfx = "" if dft_dtype == "bfloat16" else "_f32"
+    out = {}
+    for stage in "ab":
+        buf = (ctypes.c_int * 9)()
+        _stage_call(f"k1_stage_{stage}{sfx}_attributes", n1, n2, n1, n2, buf)
+        out[stage] = dict(zip(("regs", "local_bytes", "threads", "smem_bytes", "tile_rows",
+                               "tile_cols", "k_depth", "stages", "blocks_per_sm"), buf))
+    return out
+
+
+#: Launches of K1's passes since the last reset (the plain versions never
+#: count); every K1 call adds one to each pass of its route per group of
+#: batches.
 k1_fir.launches = 0
 k1_dft.launches = 0
 k1_fir_f32.launches = 0
 k1_dft_f32.launches = 0
-fengine_ct_simt.launches = 0
+k1_stage_a.launches = 0
+k1_stage_b.launches = 0
+k1_stage_a_f32.launches = 0
+k1_stage_b_f32.launches = 0
 
 
 def _stop_pass(x, starts, window, plane, outr, outi, *, n1, n2, stop) -> None:
@@ -790,21 +954,27 @@ def _launch(
             _stop_pass(x[b], starts[b], window, p, outr[b], outi[b], n1=n1, n2=n2, stop=ablate)
         return outr, outi
     body = _k1_body(n1, n2, dft_dtype)
-    if body == "simt":
-        _simt_pass(x, starts, window, rotc, rots, outr, outi, n1=n1, n2=n2,
-                   dft_dtype=dft_dtype, quantise=quantise)
-    else:
-        # Two passes over groups of batches through one plane of scratch.
-        f32 = body == "two_pass_f32"
-        dtype = torch.float32 if f32 else torch.bfloat16
-        group = _plane_group(batch, n_spectra, fft, dtype.itemsize)
-        plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
-        dft = _dft_f32_pass if f32 else _dft_pass
-        for b0 in range(0, batch, group):
-            b = slice(b0, min(batch, b0 + group))
-            p = plane[: b.stop - b0]
-            _fir_pass(x[b], starts[b], window, p)
-            dft(p, rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2, quantise=quantise)
+    f32 = body.endswith("_f32")
+    three = body.startswith("three_pass")
+    dtype = torch.float32 if f32 else torch.bfloat16
+    # The route's passes over groups of batches through one scratch: the FIR
+    # plane, and on the three-pass route T re and im beside it.
+    group = _plane_group(batch, n_spectra, fft, (3 if three else 1) * dtype.itemsize)
+    plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
+    if three:
+        tr, ti = (torch.empty((group, n_spectra, *_t_layout(n1, n2, dtype)), dtype=dtype,
+                              device=dev) for _ in range(2))
+    dft = _dft_f32_pass if f32 else _dft_pass
+    for b0 in range(0, batch, group):
+        b = slice(b0, min(batch, b0 + group))
+        g = b.stop - b0
+        _fir_pass(x[b], starts[b], window, plane[:g])
+        if three:
+            _stage_a_pass(plane[:g], tr[:g], ti[:g], n1=n1, n2=n2)
+            _stage_b_pass(tr[:g], ti[:g], rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2,
+                          quantise=quantise)
+        else:
+            dft(plane[:g], rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2, quantise=quantise)
     fengine_fused.launches += 1
     return outr, outi
 

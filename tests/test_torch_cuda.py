@@ -18,7 +18,9 @@ K2's tensor-core body over a grid of 2B, A, P·S and C in both layouts, at
 the int8 extremes, with its C-side geometry and its stage stops,
 K1's unquantised (f32) output, K1's FIR pass alone, K1, K7 and the
 engines above fft 65536, K1's f32 form (its f32 FIR pass bit for bit, its
-FFMA DFT pass at every plan, which split takes which body), K7's two-pass
+FFMA DFT pass at every plan, which split takes which route), K1 at N1 = 8
+and on its three-pass route (each stage alone and whole, both forms, the
+stage bodies' registers and spill bytes), K7's two-pass
 body (its DFT pass alone at every
 chunk plan, both passes at fft 2048 to 2^17 and over several plane groups,
 its launch counters, its registers and spill bytes), and the probes'
@@ -49,10 +51,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _codes_close(got, ref):
+def _codes_close(got, ref, max_frac=1e-3):
+    """Within 1 int8 code on <= ``max_frac`` of samples: 1e-3, the bf16
+    contract; 1e-4, the reference's f32 contract."""
     d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
     assert int(d.max()) <= 1
-    assert float((d != 0).float().mean()) <= 1e-3
+    assert float((d != 0).float().mean()) <= max_frac
 
 
 @pytest.mark.parametrize("fft", [1024, 2048, 4096, 16384, 65536])
@@ -833,31 +837,60 @@ def test_k1_two_pass_kernel_above_65536_matches_plain(dev, fft, quantise):
             assert float(d.max()) < 1.0 and over <= 1e-2, (float(d.max()), over)
 
 
+def _stage_operands(fft, batch, s, taps, seed, dft_dtype):
+    """A FIR plane of the operand type and rotation planes that keep the
+    codes near 50 rms, on the CPU."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-64, 64, (batch, (s + taps - 1) * fft), dtype=np.int8))
+    plane = ff.k1_fir_reference(x, torch.zeros(batch, dtype=torch.int64),
+                                default_window(taps, fft), n_spectra=s, dft_dtype=dft_dtype)
+    fd = torch.from_numpy(rng.uniform(-0.5, 0.5, batch).astype(np.float32))
+    rc, rs = (r.reshape(batch, fft // 2) for r in ff.fine_rotation_planes(
+        fd, -1.5 * fd, n_channels=fft // 2, quant_scale=0.068 * (1024 / fft) ** 0.5))
+    return plane, rc, rs
+
+
+def _stages_match_plain(dev, fft, dft_dtype):
+    """The three-pass stages through their wrappers at a split their tiles
+    cover but K1 gives the two-pass route: stage A then stage B against the
+    plain stages, and stage B alone on the kernel's own T against the plain
+    stage B on that T, each within the type's code contract."""
+    n1, n2 = ff._split_ct(fft)
+    f32 = dft_dtype == "float32"
+    stage_a, stage_b = ((ff.k1_stage_a_f32, ff.k1_stage_b_f32) if f32 else
+                        (ff.k1_stage_a, ff.k1_stage_b))
+    plane, rc, rs = _stage_operands(fft, 2, 2, 4, fft + f32, dft_dtype)
+    before = (stage_a.launches, stage_b.launches)
+    tr, ti = stage_a(plane.to(dev), n1=n1, n2=n2)
+    got = stage_b(tr, ti, rc.to(dev), rs.to(dev), n1=n1, n2=n2)
+    assert (stage_a.launches, stage_b.launches) == (before[0] + 1, before[1] + 1)
+    assert tr.shape == ti.shape == (2, 2, n1, n2) and tr.dtype == plane.dtype
+    frac = 1e-4 if f32 else 1e-3
+    ref = ff.k1_stage_b_reference(*ff.k1_stage_a_reference(plane, n1=n1, n2=n2,
+                                                           dft_dtype=dft_dtype),
+                                  rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    for g, r in zip(got, ref):
+        _codes_close(g.cpu(), r, frac)
+    own = ff.k1_stage_b_reference(tr.cpu(), ti.cpu(), rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    for g, r in zip(got, own):
+        _codes_close(g.cpu(), r, frac)
+
+
 @pytest.mark.parametrize("fft", [1 << 17, 1 << 18])
 def test_k1_f32_kernel_above_65536_matches_plain(dev, fft):
-    """The SIMT body (f32 DFT operands) through its own wrapper above the old
-    cap (N1 x N2 = 512 x 256, 512 x 512), its chunk shrunk to fit: within 1
-    code on <= 1e-3 of samples."""
-    taps, s, lead = 4, 2, (1, 2)
-    rng = np.random.default_rng(fft + 3)
-    frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
-    fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
-    ph = rng.uniform(-1, 1, lead).astype(np.float32)
-    n1, n2 = ff._split_ct(fft)
-    rc, rs = (r.reshape(2, fft // 2) for r in ff.fine_rotation_planes(
-        torch.from_numpy(fd), torch.from_numpy(ph), n_channels=fft // 2,
-        quant_scale=1 / 16 * (1024 / fft) ** 0.5))
-    x = torch.from_numpy(frames).reshape(2, -1)
-    starts = torch.zeros(2, dtype=torch.int64)
-    win = default_window(taps, fft)
-    kw = dict(n_spectra=s, n1=n1, n2=n2, dft_dtype="float32")
-    counters = (ff.fengine_ct_simt, ff.k1_fir_f32, ff.k1_dft_f32)
-    before = [f.launches for f in counters]
-    got = ff.fengine_ct_simt(*(t.to(dev) for t in (x, starts, win, rc, rs)), **kw)
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0]
-    ref = ff.fengine_ct_simt(x, starts, win, rc, rs, **kw)
-    for g, r in zip(got, ref):
-        _codes_close(g.cpu(), r)
+    """The three-pass route's f32 stages (FFMA) through their own wrappers
+    above the old cap (N1 x N2 = 512 x 256, 512 x 512), off the engines'
+    route there: within 1 code on <= 1e-4 of samples, whole and stage B
+    alone."""
+    _stages_match_plain(dev, fft, "float32")
+
+
+@pytest.mark.parametrize("fft", [1 << 17, 1 << 18])
+def test_k1_bf16_stages_above_65536_match_plain(dev, fft):
+    """The three-pass route's bf16 stages (tensor cores) through their own
+    wrappers at 512 x 256 and 512 x 512: within 1 code on <= 1e-3 of
+    samples, whole and stage B alone."""
+    _stages_match_plain(dev, fft, "bfloat16")
 
 
 @pytest.mark.parametrize("fft, taps, s, batch", [(2048, 4, 9, 3), (65536, 16, 130, 2),
@@ -893,9 +926,9 @@ def test_k1_fir_f32_pass_is_bit_exact_against_plain(dev, fft, taps, s, batch):
 @pytest.mark.parametrize("quantise", [True, False])
 def test_k1_f32_two_passes_match_plain(dev, fft, quantise):
     """K1 with f32 DFT operands (N1 x N2 = 16 x 128, 256 x 256, 512 x 256,
-    512 x 512, 1024 x 1024: every plan of the FFMA DFT pass), one start
-    unaligned and one clamped at the stream's end: one f32 FIR pass and one
-    f32 DFT pass, no SIMT body. int8 within 1 code on <= 1e-3 of samples;
+    512 x 512, 1024 x 1024: the KC = 16 and 8 plans of the FFMA DFT pass),
+    one start unaligned and one clamped at the stream's end: one f32 FIR
+    pass and one f32 DFT pass, no stage of the three-pass route. int8 within 1 code on <= 1e-3 of samples;
     the f32 output within rtol 1e-4 / atol 1e-2 on every sample, and the
     int8 output the requant of the f32 output bit for bit."""
     from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
@@ -913,10 +946,11 @@ def test_k1_f32_two_passes_match_plain(dev, fft, quantise):
     win = default_window(taps, fft)
     n1, n2 = ff._split_ct(fft)
     kw = dict(n_spectra=s, n1=n1, n2=n2, dft_dtype="float32", quantise=quantise)
-    counters = (ff.k1_fir_f32, ff.k1_dft_f32, ff.fengine_ct_simt, ff.k1_fir, ff.k1_dft)
+    counters = (ff.k1_fir_f32, ff.k1_dft_f32, ff.k1_stage_a_f32, ff.k1_stage_b_f32, ff.k1_fir,
+                ff.k1_dft)
     before = [f.launches for f in counters]
     got = ff._launch(x.to(dev), starts.to(dev), win.to(dev), rc.to(dev), rs.to(dev), **kw)
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0, 0]
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0, 0, 0]
     ref = ff.fengine_fused_reference(x, starts, win, rc, rs, **kw)
     for g, r in zip(got, ref):
         assert g.is_cuda and g.shape == r.shape and g.dtype == r.dtype
@@ -934,7 +968,7 @@ def test_k1_f32_two_passes_match_plain(dev, fft, quantise):
 
 @pytest.mark.parametrize("n1, n2, kc, sb", [(16, 128, 16, 4), (256, 256, 16, 2),
                                             (512, 256, 16, 2), (512, 512, 16, 1),
-                                            (1024, 1024, 8, 1)])
+                                            (1024, 1024, 8, 1), (8, 128, 8, 8)])
 def test_k1_f32_dft_pass_attributes_show_no_spills(dev, n1, n2, kc, sb):
     """The FFMA DFT pass's body at each plan spills nothing; KC and SB follow
     N2 (KC * SB * N2 = 8192), the plan fits the 232,448 bytes a block may
@@ -947,41 +981,111 @@ def test_k1_f32_dft_pass_attributes_show_no_spills(dev, n1, n2, kc, sb):
     assert ff._k1_body(n1, n2, "float32") == "two_pass_f32"
 
 
-@pytest.mark.parametrize("fft, body", [(1024, "simt"), (65536, "two_pass_f32"),
-                                       (1 << 22, "simt")])
+@pytest.mark.parametrize("fft, body", [(1024, "two_pass_f32"), (65536, "two_pass_f32"),
+                                       (1 << 22, "three_pass_f32")])
 def test_k1_f32_body_follows_the_split(dev, fft, body):
-    """N1 = 8 (fft 1024) runs the SIMT body; the flagship split (256 x 256)
-    the two f32 passes; 2048 x 2048 (fft 2^22), where the f32 pass has no
-    plan, the SIMT body again (decided before any launch, no fallback). The
-    first two are launched and held to plain."""
+    """N1 = 8 (fft 1024) and the flagship split (256 x 256) run the two f32
+    passes; 2048 x 2048 (fft 2^22), where the f32 DFT pass has no plan, the
+    three-pass route: the f32 FIR pass, then the FFMA stages A and B
+    (decided before any launch, no fallback). Each is launched and held to
+    plain within 1 code on <= 1e-4 of samples (plain on the card at 2^22)."""
     n1, n2 = ff._split_ct(fft)
     assert ff._k1_body(n1, n2, "float32") == body
     if fft > 65536:
         with pytest.raises(ValueError):
             ff.k1_dft_f32_attributes(n1, n2)
-        return
-    taps, s, lead = 4, 3, (1, 2)
+    taps, s, lead = 4, (2 if fft > 65536 else 3), (1, 2)
     rng = np.random.default_rng(fft + 1)
     frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
     fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
     ph = rng.uniform(-1, 1, lead).astype(np.float32)
     kw = dict(n_channels=fft // 2, quant_scale=1 / 16 * (1024 / fft) ** 0.5,
               dft_dtype="float32")
-    counters = (ff.fengine_ct_simt, ff.k1_fir_f32, ff.k1_dft_f32)
+    counters = (ff.k1_fir_f32, ff.k1_dft_f32, ff.k1_stage_a_f32, ff.k1_stage_b_f32)
     before = [f.launches for f in counters]
     got = ff.fengine_fused(torch.from_numpy(frames).to(dev), default_window(taps, fft, dev),
                            fd, ph, **kw)
-    passes = 0 if body == "simt" else 1
-    assert [f.launches - b for f, b in zip(counters, before)] == [1 - passes, passes, passes]
-    ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
+    three = int(body == "three_pass_f32")
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1 - three, three, three]
+    if three:  # the plain version on the card: on the CPU fft 2^22 in f32 takes minutes
+        rc, rs = (r.reshape(2, -1) for r in ff.fine_rotation_planes(
+            torch.from_numpy(fd).to(dev), torch.from_numpy(ph).to(dev), n_channels=fft // 2,
+            quant_scale=kw["quant_scale"]))
+        ref = ff.fengine_fused_reference(
+            torch.from_numpy(frames).to(dev).reshape(2, -1), torch.zeros(2, dtype=torch.int64,
+                                                                         device=dev),
+            default_window(taps, fft, dev), rc, rs, n_spectra=s, n1=n1, n2=n2,
+            dft_dtype="float32")
+        got = [g.reshape(2, s, -1) for g in got]
+    else:
+        ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
     for g, r in zip(got, ref):
-        _codes_close(g.cpu(), r)
+        _codes_close(g.cpu(), r.cpu(), 1e-4)
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("quantise", [True, False])
+def test_k1_n1_8_two_passes_match_plain(dev, dft_dtype, quantise):
+    """fft 1024 (N1 = 8) on its two passes in both forms: the bf16 DFT pass
+    takes 16 spectra a unit (the last unit of each stream partial at S =
+    37), the f32 pass 8. int8 within 1 code on <= 1e-3 of samples (bf16) or
+    <= 1e-4 (f32); without the requant the f32 form within rtol 1e-4 / atol
+    1e-2 everywhere and the bf16 form below 1 code unit everywhere and
+    within that bound on all but 1e-2."""
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+
+    fft, taps, s, batch = 1024, 16, 37, 3
+    f32 = dft_dtype == "float32"
+    rng = np.random.default_rng(8 + f32 + 2 * quantise)
+    out_len = (s + taps - 1) * fft
+    n_in = out_len + 999
+    x = torch.from_numpy(rng.integers(-64, 64, (batch, n_in), dtype=np.int8))
+    starts = clamp_starts(torch.tensor([3, 500, n_in]), n_in, out_len)
+    fd = torch.from_numpy(rng.uniform(-0.5, 0.5, batch).astype(np.float32))
+    rc, rs = (r.reshape(batch, fft // 2) for r in ff._rotation_planes(
+        fd, -1.5 * fd, fft // 2, 1 / 16, (fft // 2,)))
+    win = default_window(taps, fft)
+    assert ff._split_ct(fft) == (8, 128)
+    kw = dict(n_spectra=s, n1=8, n2=128, dft_dtype=dft_dtype, quantise=quantise)
+    passes = (ff.k1_fir_f32, ff.k1_dft_f32) if f32 else (ff.k1_fir, ff.k1_dft)
+    others = (ff.k1_stage_a, ff.k1_stage_b, ff.k1_stage_a_f32, ff.k1_stage_b_f32,
+              *((ff.k1_fir, ff.k1_dft) if f32 else (ff.k1_fir_f32, ff.k1_dft_f32)))
+    before = [f.launches for f in passes + others]
+    got = ff._launch(x.to(dev), starts.to(dev), win.to(dev), rc.to(dev), rs.to(dev), **kw)
+    assert [f.launches - b for f, b in zip(passes + others, before)] == [1, 1] + [0] * 6
+    ref = ff.fengine_fused_reference(x, starts, win, rc, rs, **kw)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape == (batch, s, fft // 2) and g.dtype == r.dtype
+        if quantise:
+            _codes_close(g.cpu(), r, 1e-4 if f32 else 1e-3)
+        else:
+            d = (g.cpu() - r).abs()
+            over = d > 1e-2 + 1e-4 * r.abs()
+            if f32:
+                assert not bool(over.any()), float(d.max())
+            else:
+                assert float(d.max()) < 1.0 and float(over.float().mean()) <= 1e-2
+
+
+def test_k1_stage_bodies_show_no_spills_and_n1_8_has_a_plan(dev):
+    """The three-pass stages in both forms at 2048 x 2048 spill nothing,
+    each within the 232,448 bytes a block may use and resident on an SM.
+    The bf16 DFT pass has its N1 = 8 plan (16 spectra of 8 rows, KC 128)
+    within the same bytes and its 128-register cap; that body spills a few
+    bytes at every plan, as it did before N1 = 8 had one (PERF.md)."""
+    at = ff.k1_dft_attributes(8, 128)
+    assert at["kc"] == 128 and at["regs"] <= 128 and at["smem_bytes"] <= 232448, at
+    for dt in ("bfloat16", "float32"):
+        for stage, at in ff.k1_stage_attributes(2048, 2048, dt).items():
+            assert at["local_bytes"] == 0, (dt, stage, at)
+            assert at["threads"] == 256 and at["smem_bytes"] <= 232448, (dt, stage, at)
+            assert at["blocks_per_sm"] >= 1, (dt, stage, at)
 
 
 def test_k1_f32_two_passes_span_plane_groups(dev, monkeypatch):
     """Five streams through a scratch of two f32 planes: three groups, each an
-    f32 FIR pass and an f32 DFT pass; the SIMT body through its own wrapper on
-    the same streams gives the same codes within the int8 contract."""
+    f32 FIR pass and an f32 DFT pass; the two passes through their own
+    wrappers on all five streams at once give the same bytes."""
     fft, s, taps, b = 4096, 5, 4, 5
     monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", 2 * s * fft * 4)
     rng = np.random.default_rng(9)
@@ -994,15 +1098,14 @@ def test_k1_f32_two_passes_span_plane_groups(dev, monkeypatch):
     n1, n2 = ff._split_ct(fft)
     kw = dict(n_spectra=s, n1=n1, n2=n2, dft_dtype="float32", quantise=True)
     args = [t.to(dev) for t in (x, starts, win, rc, rs)]
-    before = (ff.k1_fir_f32.launches, ff.k1_dft_f32.launches, ff.fengine_ct_simt.launches)
+    before = (ff.k1_fir_f32.launches, ff.k1_dft_f32.launches)
     got = ff._launch(*args, **kw)
-    simt = ff.fengine_ct_simt(*args, **kw)
-    assert (ff.k1_fir_f32.launches, ff.k1_dft_f32.launches, ff.fengine_ct_simt.launches) == (
-        before[0] + 3, before[1] + 3, before[2] + 1)
+    assert (ff.k1_fir_f32.launches, ff.k1_dft_f32.launches) == (before[0] + 3, before[1] + 3)
+    whole = ff.k1_dft_f32(ff.k1_fir_f32(*args[:3], n_spectra=s), *args[3:], n1=n1, n2=n2)
     ref = ff.fengine_fused_reference(x, starts, win, rc, rs, **kw)
-    for g, m, r in zip(got, simt, ref):
+    for g, m, r in zip(got, whole, ref):
         _codes_close(g.cpu(), r)
-        _codes_close(m.cpu(), r)
+        assert torch.equal(g, m)
 
 
 def test_k7_kernel_at_fft_2_17_matches_plain(dev):
@@ -1284,29 +1387,37 @@ def test_k7_f32_two_pass_takes_unaligned_rotation_planes(dev):
         _codes_close_f32(g, r)
 
 
-def test_k1_bf16_at_fft_2_22_runs_the_simt_body(dev):
+@pytest.mark.parametrize("quantise", [True, False])
+def test_k1_bf16_at_fft_2_22_runs_the_three_pass_route(dev, quantise):
     """bf16 K1 at 2048 x 2048 (fft 2^22), where the DFT pass has no plan,
-    runs the SIMT body (its FIR streamed in tiles) instead of raising: one
-    SIMT launch, no pass, within the bf16 contract of the plain version on
-    the CPU."""
+    runs the three-pass route instead of raising: one FIR pass, one stage A
+    and one stage B, no DFT pass; int8 within 1 code on <= 1e-3 of samples
+    of the plain version on the CPU (the codes near 50 rms), the f32 output
+    below 1 code unit everywhere and within rtol 1e-4 / atol 1e-2 on all but
+    1e-2; the DFT pass alone refuses the split."""
     fft, taps, s, lead = 1 << 22, 2, 2, (1, 2)
     n1, n2 = ff._split_ct(fft)
     assert (n1, n2) == (2048, 2048)
-    assert ff._k1_body(n1, n2, "bfloat16") == "simt"
-    rng = np.random.default_rng(22)
+    assert ff._k1_body(n1, n2, "bfloat16") == "three_pass"
+    rng = np.random.default_rng(22 + quantise)
     frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
     fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
     ph = rng.uniform(-1, 1, lead).astype(np.float32)
-    kw = dict(n_channels=fft // 2, quant_scale=0.068 * (1024 / fft) ** 0.5)
-    counters = (ff.fengine_ct_simt, ff.k1_fir, ff.k1_dft, ff.fengine_fused)
+    kw = dict(n_channels=fft // 2, quant_scale=0.068 * (1024 / fft) ** 0.5, quantise=quantise)
+    counters = (ff.k1_fir, ff.k1_stage_a, ff.k1_stage_b, ff.k1_dft, ff.fengine_fused)
     before = [c.launches for c in counters]
     got = ff.fengine_fused(torch.from_numpy(frames).to(dev), default_window(taps, fft, dev),
                            fd, ph, **kw)
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 0, 1]
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 1]
     ref = ff.fengine_fused(torch.from_numpy(frames), default_window(taps, fft), fd, ph, **kw)
     for g, r in zip(got, ref):
-        assert g.is_cuda and g.shape == r.shape
-        _codes_close(g.cpu(), r)
+        assert g.is_cuda and g.shape == r.shape and g.dtype == r.dtype
+        if quantise:
+            _codes_close(g.cpu(), r)
+        else:
+            d = (g.cpu() - r).abs()
+            over = float((d > 1e-2 + 1e-4 * r.abs()).float().mean())
+            assert float(d.max()) < 1.0 and over <= 1e-2, (float(d.max()), over)
     with pytest.raises(ValueError, match="shared-memory plan"):
         ff.k1_dft(torch.zeros((1, 1, fft), dtype=torch.bfloat16, device=dev),
                   torch.zeros((1, fft // 2), device=dev), torch.zeros((1, fft // 2), device=dev),

@@ -320,3 +320,71 @@ def test_k1_pass_wrappers_take_the_plain_versions_on_cpu():
     assert (ff.k1_fir.launches, ff.k1_dft.launches, ff.fengine_fused.launches) == launches
     with pytest.raises(ValueError, match="unsupported device"):
         ff.k1_fir(x.to("meta"), starts, win, n_spectra=s)
+
+
+@pytest.mark.parametrize("n1, n2", [(8, 128), (16, 2048)])
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("quantise", [True, False])
+def test_k1_stage_references_compose_to_the_dft_reference(n1, n2, dft_dtype, quantise):
+    """The three-pass route's plain stages, stage A (T rounded to the operand
+    type) then stage B, are the DFT pass's plain version bit for bit, at N1 =
+    8 and at a cheap N2 = 2048 split."""
+    fft, taps, s, batch = n1 * n2, 4, 3, 2
+    x, starts, win, rc, rs = _k1_operands(fft, taps, s, batch, n1 + n2 + quantise)
+    plane = ff.k1_fir_reference(x, starts, win, n_spectra=s, dft_dtype=dft_dtype)
+    tr, ti = ff.k1_stage_a_reference(plane, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    dtype = torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32
+    assert tr.dtype == ti.dtype == dtype and tr.shape == ti.shape == (batch, s, n1, n2)
+    got = ff.k1_stage_b_reference(tr, ti, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype,
+                                  quantise=quantise)
+    want = ff.k1_dft_reference(plane, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype,
+                               quantise=quantise)
+    for g, w in zip(got, want):
+        assert g.dtype == (torch.int8 if quantise else torch.float32)
+        assert g.shape == (batch, s, fft // 2)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("batch, s, fft, dft_dtype, want", [
+    (160, 4, 1 << 22, "bfloat16", 10),  # 80 ant x 2 pol, 2^24 samples a stream: 1.01 GB
+    (160, 4, 1 << 22, "float32", 5),
+    (2, 2, 1 << 22, "bfloat16", 2),
+    (3, 64, 1 << 22, "float32", 1),  # one stream's scratch is more than the budget
+])
+def test_k1_three_pass_group_bounds_the_scratch(batch, s, fft, dft_dtype, want):
+    """The three-pass route keeps the FIR plane and T re and im, three planes
+    of the operand type, under K1_SCRATCH_BYTES; the two-pass grouping of
+    the same streams is unchanged."""
+    item = 2 if dft_dtype == "bfloat16" else 4
+    group = ff._plane_group(batch, s, fft, 3 * item)
+    assert group == want
+    assert group == 1 or group * s * fft * 3 * item <= ff.K1_SCRATCH_BYTES
+    assert ff._plane_group(batch, s, fft, item) == min(batch, max(1, ff.K1_SCRATCH_BYTES //
+                                                                  (item * s * fft)))
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+def test_k1_stage_wrappers_take_the_plain_versions_on_cpu(dft_dtype):
+    """``k1_stage_a`` / ``k1_stage_b`` (and their f32 twins) on CPU tensors
+    are the plain stages, count no launch and refuse another device."""
+    fft, taps, s = 4096, 4, 2
+    x, starts, win, rc, rs = _k1_operands(fft, taps, s, 2, 31)
+    n1, n2 = ff._split_ct(fft)
+    f32 = dft_dtype == "float32"
+    stage_a, stage_b = ((ff.k1_stage_a_f32, ff.k1_stage_b_f32) if f32 else
+                        (ff.k1_stage_a, ff.k1_stage_b))
+    launches = (stage_a.launches, stage_b.launches)
+    plane = ff.k1_fir_reference(x, starts, win, n_spectra=s, dft_dtype=dft_dtype)
+    tr, ti = stage_a(plane, n1=n1, n2=n2)
+    for g, w in zip((tr, ti), ff.k1_stage_a_reference(plane, n1=n1, n2=n2,
+                                                      dft_dtype=dft_dtype)):
+        assert torch.equal(g, w)
+    got = stage_b(tr, ti, rc, rs, n1=n1, n2=n2)
+    want = ff.k1_stage_b_reference(tr, ti, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (stage_a.launches, stage_b.launches) == launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        stage_a(plane.to("meta"), n1=n1, n2=n2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        stage_b(tr.to("meta"), ti.to("meta"), rc, rs, n1=n1, n2=n2)

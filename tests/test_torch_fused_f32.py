@@ -15,9 +15,9 @@ held as ``tests/test_torch_fxbengine.py`` holds them: each package's the
 exact gram of its own F planes.
 
 The CUDA side of the f32 form (the FIR pass's f32 plane, the FFMA DFT pass,
-the SIMT body) is held against the plain versions in
-``tests/test_torch_cuda.py``; here its wrappers and its scratch are checked
-on the CPU.
+the three-pass route's FFMA stages) is held against the plain versions in
+``tests/test_torch_cuda.py``; here its wrappers, its routing and its
+scratch are checked on the CPU.
 """
 
 import dataclasses
@@ -166,15 +166,19 @@ def _operands(fft, taps, s, batch, seed):
     return x, starts, default_window(taps, fft), rc, rs
 
 
+_K1_COUNTERS = ("k1_fir", "k1_dft", "k1_fir_f32", "k1_dft_f32", "k1_stage_a", "k1_stage_b",
+                "k1_stage_a_f32", "k1_stage_b_f32", "fengine_fused")
+
+
 @pytest.mark.parametrize("quantise", [True, False])
 def test_k1_f32_wrappers_take_the_plain_versions_on_cpu(quantise):
-    """``k1_fir_f32``, ``k1_dft_f32`` and ``fengine_ct_simt`` on CPU tensors
-    are the plain versions (f32 DFT operands) and count no launch."""
+    """``k1_fir_f32``, ``k1_dft_f32`` and the three-pass stages
+    ``k1_stage_a_f32`` then ``k1_stage_b_f32`` on CPU tensors are the plain
+    versions (f32 DFT operands) and count no launch."""
     fft, taps, s = 4096, 4, 3
     x, starts, win, rc, rs = _operands(fft, taps, s, 2, 5 + quantise)
     n1, n2 = ff._split_ct(fft)
-    counters = (ff.k1_fir_f32, ff.k1_dft_f32, ff.fengine_ct_simt, ff.k1_fir, ff.k1_dft,
-                ff.fengine_fused)
+    counters = [getattr(ff, k) for k in _K1_COUNTERS]
     launches = [f.launches for f in counters]
     plane = ff.k1_fir_f32(x, starts, win, n_spectra=s)
     assert plane.dtype == torch.float32 and plane.shape == (2, s, fft)
@@ -183,8 +187,9 @@ def test_k1_f32_wrappers_take_the_plain_versions_on_cpu(quantise):
     kw = dict(n1=n1, n2=n2, quantise=quantise)
     want = ff.fengine_fused_reference(x, starts, win, rc, rs, n_spectra=s, dft_dtype="float32",
                                       **kw)
-    for got in (ff.k1_dft_f32(plane, rc, rs, **kw),
-                ff.fengine_ct_simt(x, starts, win, rc, rs, n_spectra=s, **kw)):
+    tr, ti = ff.k1_stage_a_f32(plane, n1=n1, n2=n2)
+    assert tr.dtype == ti.dtype == torch.float32 and tr.shape == (2, s, n1, n2)
+    for got in (ff.k1_dft_f32(plane, rc, rs, **kw), ff.k1_stage_b_f32(tr, ti, rc, rs, **kw)):
         for g, w in zip(got, want):
             assert g.dtype == (torch.int8 if quantise else torch.float32)
             assert torch.equal(g, w)
@@ -193,24 +198,28 @@ def test_k1_f32_wrappers_take_the_plain_versions_on_cpu(quantise):
         ff.k1_fir_f32(x.to("meta"), starts, win, n_spectra=s)
     with pytest.raises(ValueError, match="unsupported device"):
         ff.k1_dft_f32(plane.to("meta"), rc, rs, **kw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ff.k1_stage_a_f32(plane.to("meta"), n1=n1, n2=n2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ff.k1_stage_b_f32(tr.to("meta"), ti.to("meta"), rc, rs, **kw)
 
 
 @pytest.mark.parametrize("n1, n2, dft_dtype, body", [
-    (8, 128, "float32", "simt"),  # N1 = 8: the SIMT body in both types
-    (8, 128, "bfloat16", "simt"),
+    (8, 128, "float32", "two_pass_f32"),  # N1 = 8 (fft 1024): the two passes in both types
+    (8, 128, "bfloat16", "two_pass"),
     (16, 128, "bfloat16", "two_pass"),
     (256, 256, "bfloat16", "two_pass"),
 ])
 def test_k1_body_is_decided_without_the_library_where_it_can_be(monkeypatch, _fresh_k1_body, n1,
                                                                 n2, dft_dtype, body):
-    """N1 = 8 needs no kernel library to pick K1's body; N1 >= 16 asks the
-    library for its DFT pass's plan once a split (here a stub that has one;
-    the real plans: card tests)."""
+    """Every split, N1 = 8 included, asks the library for its DFT pass's
+    plan once (here a stub that has one; the real plans: card tests) and
+    takes that type's two passes; the answer is cached."""
     asked = _stub_k1_plans(monkeypatch, 0)
     assert ff._k1_body(n1, n2, dft_dtype) == body
     assert ff._k1_body(n1, n2, dft_dtype) == body
     name = "k1_dft_attributes" if dft_dtype == "bfloat16" else "k1_dft_f32_attributes"
-    assert asked == ([] if n1 < 16 else [(name, n1, n2)])
+    assert asked == [(name, n1, n2)]
 
 
 @pytest.fixture
@@ -222,62 +231,129 @@ def _fresh_k1_body():
     ff._k1_body.cache_clear()
 
 
-def _stub_k1_plans(monkeypatch, answer):
-    """Stubs the library's two K1 plan queries with ``answer`` (0: a plan
-    fits); returns the list of (query, n1, n2) it is asked."""
+def _stub_k1_plans(monkeypatch, answer, stages=0):
+    """Stubs the library's K1 plan queries: the two DFT passes' with
+    ``answer``, the three-pass stages' with ``stages`` (0: a plan fits);
+    returns the list of (query, n1, n2) it is asked."""
     asked = []
 
-    class Lib:
-        @staticmethod
-        def k1_dft_attributes(n1, n2, out):
-            asked.append(("k1_dft_attributes", n1, n2))
-            return answer
+    def query(name, result):
+        def ask(n1, n2, out):
+            asked.append((name, n1, n2))
+            return result
+        return staticmethod(ask)
 
-        @staticmethod
-        def k1_dft_f32_attributes(n1, n2, out):
-            asked.append(("k1_dft_f32_attributes", n1, n2))
-            return answer
-
-        @staticmethod
-        def dcsand_error_string(err):
-            return b"stubbed"
-
+    Lib = type("Lib", (), {
+        **{name: query(name, answer) for name in ("k1_dft_attributes", "k1_dft_f32_attributes")},
+        **{f"k1_stage_{st}{sfx}_attributes": query(f"k1_stage_{st}{sfx}_attributes", stages)
+           for st in "ab" for sfx in ("", "_f32")},
+        "dcsand_error_string": staticmethod(lambda err: b"stubbed"),
+    })
     ff._k1_body.cache_clear()
     monkeypatch.setattr(ff._build, "library", lambda: Lib)
     return asked
 
 
-@pytest.mark.parametrize("fits, body", [(True, "two_pass"), (False, "simt")])
+@pytest.mark.parametrize("fits, body", [(True, "two_pass"), (False, "three_pass")])
 def test_k1_bf16_at_fft_2_22_follows_the_dft_pass_plan(monkeypatch, _fresh_k1_body, fits, body):
     """bf16 K1 at 2048 x 2048 (fft 2^22) takes its two passes where the DFT
-    pass reports a plan and the SIMT body where it reports none (stubbed
-    library; on the card it has none), decided before any launch; a CUDA
-    error from the query raises."""
+    pass reports a plan and the three-pass route where it reports none and
+    both stages' tiles cover the split (stubbed library; on the card it has
+    none), decided before any launch; a CUDA error from the query raises."""
     asked = _stub_k1_plans(monkeypatch, 0 if fits else ff._NO_PLAN)
     assert ff._split_ct(1 << 22) == (2048, 2048)
     assert ff._k1_body(2048, 2048, "bfloat16") == body
-    assert asked == [("k1_dft_attributes", 2048, 2048)]
+    stages = [] if fits else [("k1_stage_a_attributes", 2048, 2048),
+                              ("k1_stage_b_attributes", 2048, 2048)]
+    assert asked == [("k1_dft_attributes", 2048, 2048), *stages]
     _stub_k1_plans(monkeypatch, 1)
     with pytest.raises(RuntimeError, match="k1_dft_attributes"):
         ff._k1_body(2048, 2048, "bfloat16")
 
 
-def test_k1_bf16_split_without_a_plan_launches_the_simt_body(monkeypatch, _fresh_k1_body):
-    """With the card stubbed and the bf16 DFT pass reporting no plan, a bf16
-    K1 call launches the SIMT body once, in bf16 mode, and neither pass."""
-    fft, taps, s = 4096, 4, 3
-    x, starts, win, rc, rs = _operands(fft, taps, s, 2, 17)
-    n1, n2 = ff._split_ct(fft)
+def _stub_three_pass_launches(monkeypatch, scratch_streams=None, s=3, fft=4096):
+    """The stubbed library of :func:`_stub_k1_plans` with the DFT passes
+    reporting no plan, plus recording launch functions for the FIR pass and
+    the two stages: returns the list of (name, args) they are called with.
+    ``scratch_streams`` sets K1_SCRATCH_BYTES to that many streams of the
+    bf16 three-pass scratch."""
     _stub_k1_plans(monkeypatch, ff._NO_PLAN)
     lib = ff._build.library()
     calls = []
-    lib.fengine_ct_launch = staticmethod(lambda *args: calls.append(args[13:20]) or 0)
+    for name in ("k1_fir_launch", "k1_fir_f32_launch", "k1_stage_a_launch",
+                 "k1_stage_a_f32_launch", "k1_stage_b_launch", "k1_stage_b_f32_launch"):
+        setattr(lib, name, staticmethod(lambda *args, name=name: calls.append((name, args)) or 0))
     monkeypatch.setattr(ff.torch.cuda, "current_stream",
                         lambda dev: type("S", (), {"cuda_stream": 0})())
-    counters = (ff.fengine_ct_simt, ff.k1_fir, ff.k1_dft, ff.fengine_fused)
+    if scratch_streams is not None:
+        monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", scratch_streams * 3 * 2 * s * fft)
+    return calls
+
+
+def test_k1_bf16_split_without_a_plan_launches_the_simt_body(monkeypatch, _fresh_k1_body):
+    """With the card stubbed and the bf16 DFT pass reporting no plan, a bf16
+    K1 call takes the three-pass route: the FIR pass, stage A and stage B
+    once each, in that order, on one group (the FIR plane, then T re and im
+    ``[B, S, N1, N2]`` bf16 beside it), and the two-pass DFT pass never."""
+    fft, taps, s = 4096, 4, 3
+    x, starts, win, rc, rs = _operands(fft, taps, s, 2, 17)
+    n1, n2 = ff._split_ct(fft)
+    calls = _stub_three_pass_launches(monkeypatch)
+    counters = [getattr(ff, k) for k in _K1_COUNTERS]
     before = [f.launches for f in counters]
     outr, outi = ff._launch(x, starts, win, rc, rs, n_spectra=s, n1=n1, n2=n2,
                             dft_dtype="bfloat16", quantise=True)
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0, 1]
-    assert calls == [(2, s, taps, n1, n2, 1, 1)]  # batch, S, taps, N1, N2, bf16, quantise
+    ran = {k: f.launches - b for k, f, b in zip(_K1_COUNTERS, counters, before)}
+    assert ran == dict(k1_fir=1, k1_dft=0, k1_fir_f32=0, k1_dft_f32=0, k1_stage_a=1,
+                       k1_stage_b=1, k1_stage_a_f32=0, k1_stage_b_f32=0, fengine_fused=1)
+    assert [c[0] for c in calls] == ["k1_fir_launch", "k1_stage_a_launch", "k1_stage_b_launch"]
+    assert calls[1][1][-4:-1] == (2 * s, n1, n2)  # spectra, N1, N2
+    assert calls[2][1][-6:-1] == (2, s, n1, n2, 1)  # batch, S, N1, N2, quantise
     assert outr.shape == outi.shape == (2, s, fft // 2)
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+def test_k1_three_pass_launches_each_pass_once_a_group_in_order(monkeypatch, _fresh_k1_body,
+                                                                dft_dtype):
+    """Five streams through a scratch of two streams' three-pass scratch (the
+    plane and T re, im: 3 planes of the operand type) make three groups in
+    bf16 (two streams, two, one) and five in f32 (twice the bytes); each
+    group launches the FIR pass, stage A, stage B in that order, on its own
+    streams' outputs and rotation planes."""
+    fft, taps, s, b = 4096, 4, 3, 5
+    x, starts, win, rc, rs = _operands(fft, taps, s, b, 23)
+    n1, n2 = ff._split_ct(fft)
+    calls = _stub_three_pass_launches(monkeypatch, scratch_streams=2, s=s, fft=fft)
+    f32 = dft_dtype == "float32"
+    outr, outi = ff._launch(x, starts, win, rc, rs, n_spectra=s, n1=n1, n2=n2,
+                            dft_dtype=dft_dtype, quantise=False)
+    sfx = "_f32" if f32 else ""
+    groups = [1] * 5 if f32 else [2, 2, 1]
+    names = [c[0] for c in calls]
+    assert names == [f"k1_{n}{sfx}_launch" for _ in groups for n in ("fir", "stage_a", "stage_b")]
+    b0 = 0
+    for g, (fir, a, bb) in zip(groups, zip(*[iter(calls)] * 3)):
+        assert fir[1][5] == g and a[1][-4] == g * s and bb[1][7:9] == (g, s)
+        assert bb[1][3] == rc[b0:].data_ptr() and bb[1][5] == outr[b0:].data_ptr()
+        assert a[1][5] == bb[1][0] and a[1][6] == bb[1][1]  # stage B reads stage A's T
+        b0 += g
+    assert outr.dtype == torch.float32 and outr.shape == (b, s, fft // 2)
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+def test_k1_split_without_a_route_raises(monkeypatch, _fresh_k1_body, dft_dtype):
+    """A split that neither the DFT pass's plan nor the three-pass tiles
+    cover (stubbed library) raises ``ValueError`` naming the split, before
+    any launch, and K1 refuses it: nothing falls back."""
+    asked = _stub_k1_plans(monkeypatch, ff._NO_PLAN, stages=ff._NO_PLAN)
+    with pytest.raises(ValueError, match="no route for the split N1 x N2 = 32 x 128"):
+        ff._k1_body(32, 128, dft_dtype)
+    sfx = "" if dft_dtype == "bfloat16" else "_f32"
+    assert asked == [(f"k1_dft{sfx}_attributes", 32, 128), (f"k1_stage_a{sfx}_attributes", 32, 128)]
+    fft, taps, s = 4096, 4, 3
+    x, starts, win, rc, rs = _operands(fft, taps, s, 2, 29)
+    before = ff.fengine_fused.launches
+    with pytest.raises(ValueError, match="no route for the split"):
+        ff._launch(x, starts, win, rc, rs, n_spectra=s, n1=32, n2=128, dft_dtype=dft_dtype,
+                   quantise=True)
+    assert ff.fengine_fused.launches == before
