@@ -117,20 +117,27 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    ``fengine_dit_reference``, f32 within 1 code on <= 1e-4 (the reference's
    f32 contract); ``deint="bitcast"`` must give the same bytes; each type
    must launch its own FIR pass and DFT pass once a group a call and no
-   other pass or the SIMT body; kernel and plain ms; the DFT passes'
-   registers and spill bytes (a spill fails the phase); cuFFT's rfft of the
-   same streams' f32 FIR as the yardstick; f32: the SIMT body through
-   ``fengine_dit_simt`` held to the same plain version and timed, the f32
-   FIR pass on zero starts equal to K7's FIR, the f32 DFT pass alone equal
-   to K7 f32 and timed beside its plain version and bound. Then K7 bf16 at
-   all 160 flagship streams: its
+   other pass; kernel and plain ms; the DFT passes' registers and spill
+   bytes (a spill fails the phase); cuFFT's rfft of the same streams' f32
+   FIR as the yardstick; f32: the f32 FIR pass on zero starts equal to
+   K7's FIR, the f32 DFT pass alone equal to K7 f32 and timed beside its
+   plain version and bound. Then K7 bf16 at all 160 flagship streams: its
    last 8 streams against plain with the same bound, a FIR pass and a DFT
    pass a group of 32, the whole call, each pass and the DFT pass's stops
    (stage A alone: nothing written; with stage B: each stream's re,
    checked on a scaled plane) timed, and its scratch; then K7 f32 on the
    same 160 streams: its last 8 against plain at the f32 contract, a pair
-   of f32 passes a group of 16, the whole call, each pass alone, the SIMT
-   body and the plain version timed, its bound and scratch;
+   of f32 passes a group of 16, the whole call, each pass alone and the
+   plain version timed, its bound and scratch. Then K7 on its routes off
+   the flagship's split at the flagship's 2.7 G samples
+   (``K7_ROUTE_CASES``: N1 = 8 at fft 1024 in both forms on two passes;
+   f32 fft 2^21 and bf16 and f32 fft 2^23 on three): each route's passes,
+   once a group and nothing else; its last streams against plain at its
+   form's contract; the call, each pass over all the streams, the plain
+   version, the bounds and the scratch; each three-pass stage alone against
+   its plain version; K7 at the geometries its parent's SIMT body was
+   timed at (``K7_TIMED_CASES``); every route body's registers and spill
+   bytes (a spill fails the phase);
 13. f_flagship — FEngine at 80 ant x 32768 ch x 16 taps, S=256 on flat int8
    ADC made on the card: 3 steps, a fine-delay change, 2 steps; K6 must
    launch and K1 and K7 must not; the output [80, 2, 256, 32768, 2] int8
@@ -219,8 +226,10 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    fir bit-exact, the rest within 1 code on <= 1e-3; dma and fir bit-exact
    on the timed run's last 8 streams, K1's last group), P4
    (``dma_bisect``: the dma stop from three layouts, S=128, bit-exact), P2
-   (``fused_ablate``: K7's SIMT body cut at six stops and whole, 8 streams
-   x S=64; bit-exact up to deint, 1 code after), P3 (``fir_probe``: both
+   (``fused_ablate``: K7's route cut at six stops and whole, 8 streams x
+   S=64: K1's FIR pass cut at dma, conv, fir and deint, then K7's DFT pass
+   cut at stagea and stageb, and K7's two passes; bit-exact up to deint, 1
+   code after), P3 (``fir_probe``: both
    loop orders, bit-exact; its device time by torch.profiler, as its kernel
    is shorter than a Python launch; its shared-memory load rate and a cuDNN
    depthwise ``conv1d`` yardstick) and P1 (``ct_kernel_probe``: the script's tilings and turns
@@ -1934,7 +1943,7 @@ def phase_fengine_dit(st: dict) -> None:
     ph = -3.14159265 * fd / 2
     win = default_window(taps, fft, device=dev)
     kw = dict(n_channels=c, quant_scale=QUANT_SCALE)
-    pass_counters = (ff.k1_fir, ff.dit_dft, ff.k1_fir_f32, ff.dit_dft_f32, ff.fengine_dit_simt)
+    pass_counters = (ff.k1_fir, ff.dit_dft, ff.k1_fir_f32, ff.dit_dft_f32, *_k7_stage_fns(ff))
     for f in (ff.fengine_dit, ff.fengine_fused, *pass_counters):
         f.launches = 0
     outs, passes = {}, {}
@@ -1997,20 +2006,12 @@ def phase_fengine_dit(st: dict) -> None:
     del fir32
     at = ff.dit_dft_attributes(n1, n2)
     log(f"k7 DFT pass body at {n1}x{n2}: {at['regs']} registers, {at['local_bytes']} local "
-        f"(spill) bytes, KC {at['kc']}, K tiles {at['kt']}, {at['stages']} ring stages, "
+        f"(spill) bytes, KC {at['kc']}, K tiles {at['ktb']}, {at['stages']} ring stages, "
         f"{at['smem_bytes']} bytes of shared memory; rfft of the {nb} streams' f32 FIR "
         f"{rfft_ms:.3f} ms ({st['card']})")
     if at["local_bytes"]:
         raise AssertionError(f"K7's DFT pass spills: {at}")
-    # f32 K7 on the same streams: the SIMT body through its own entry (held to
-    # the same plain version), each f32 pass alone, the f32 pass's body.
-    ff.fengine_dit_simt.launches = 0
-    simt = ff.fengine_dit_simt(x, win, rc, rs, n1=n1, n2=n2)
-    _code_diff(f"k7 f32 SIMT body [{nb} streams]", simt,
-               ff.fengine_dit_reference(x, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32"),
-               max_frac=1e-4)
-    del simt
-    simt_ms = cuda_ms(lambda: ff.fengine_dit_simt(x, win, rc, rs, n1=n1, n2=n2))
+    # f32 K7 on the same streams: each f32 pass alone, the f32 pass's body.
     flat, zeros = x.view(nb, n_frames * fft), torch.zeros(nb, dtype=torch.int64, device=dev)
     plane = ff.k1_fir_f32(flat, zeros, win, n_spectra=s)
     if not torch.equal(plane, ff._dit_fir(x, win)):
@@ -2030,15 +2031,14 @@ def phase_fengine_dit(st: dict) -> None:
         raise AssertionError(f"K7's f32 DFT pass spills: {a32}")
     dft32_bound = bound(nb * s * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c, f32=2 * macs * nb * s)
     log(f"k7 f32 [{nb} streams x S={s} x fft {fft}]: two passes {times['float32'][0]:.3f} ms "
-        f"(bound {f32_bound['bound_ms']:.3f}), the SIMT body {simt_ms:.3f} ms "
-        f"({simt_ms / times['float32'][0]:.2f}x), plain {times['float32'][1]:.3f} ms; f32 FIR "
+        f"(bound {f32_bound['bound_ms']:.3f}), plain {times['float32'][1]:.3f} ms; f32 FIR "
         f"pass {fir_ms:.3f} ms, f32 DFT pass {dft_ms:.3f} ms (bound "
         f"{dft32_bound['bound_ms']:.3f}, {dft32_bound['bound_ms'] / dft_ms:.1%} of it; plain "
         f"{dft_plain_ms:.3f}); the f32 DFT pass's body {a32} ({st['card']})")
     st["k7"] = dict(max_abs_err=float(worst), ms=times["bfloat16"][0],
                     plain_ms=times["bfloat16"][1], **k7_bound, library_ms=None,
                     f32_ms=times["float32"][0], f32_plain_ms=times["float32"][1],
-                    f32_bound_ms=f32_bound["bound_ms"], f32_simt_ms=simt_ms,
+                    f32_bound_ms=f32_bound["bound_ms"],
                     f32_max_abs_err=float(f32_err), launches=launches["k7"],
                     fir_launches=passes["bfloat16"]["k1_fir"],
                     dft_launches=passes["bfloat16"]["dit_dft"], rfft_ms=rfft_ms,
@@ -2053,6 +2053,8 @@ def phase_fengine_dit(st: dict) -> None:
     del frames, x, flat
     torch.cuda.empty_cache()
     _k7_flagship(st, n1, n2, gen)
+    torch.cuda.empty_cache()  # the flagship streams are gone
+    _k7_routes(st, gen)
 
 
 def _k7_flagship(st: dict, n1: int, n2: int, gen) -> None:
@@ -2147,8 +2149,8 @@ def _k7_f32_flagship(st: dict, n1: int, n2: int, frames, win, rc, rs) -> None:
     """K7 f32 at the flagship's full width (the same 160 streams): K1's f32
     FIR pass and the FFMA DFT pass a group of 16; checked on its last 8
     streams against plain at the f32 contract; timed whole, each pass alone
-    over all 160 streams (into a whole f32 plane), the SIMT body and the
-    plain version; its bound, scratch and launches."""
+    over all 160 streams (into a whole f32 plane) and the plain version; its
+    bound, scratch and launches."""
     import torch
 
     from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
@@ -2161,16 +2163,16 @@ def _k7_f32_flagship(st: dict, n1: int, n2: int, frames, win, rc, rs) -> None:
     def k7():
         return ff.fengine_dit(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32")
 
-    counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.fengine_dit_simt, ff.k1_fir,
-                ff.dit_dft)
+    counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.k1_fir, ff.dit_dft,
+                *_k7_stage_fns(ff))
     for f in counters:
         f.launches = 0
     got = k7()
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in counters}
     groups = -(-nb // ff._plane_group(nb, s, fft, 4))
-    if launches != dict(fengine_dit=1, k1_fir_f32=groups, dit_dft_f32=groups,
-                        fengine_dit_simt=0, k1_fir=0, dit_dft=0):
+    if launches != {f.__name__: {"fengine_dit": 1, "k1_fir_f32": groups,
+                                 "dit_dft_f32": groups}.get(f.__name__, 0) for f in counters}:
         raise AssertionError(f"K7 f32 at {nb} streams did not run a pair of f32 passes a "
                              f"group alone: {launches}")
     last = slice(nb - 8, nb)
@@ -2180,8 +2182,6 @@ def _k7_f32_flagship(st: dict, n1: int, n2: int, frames, win, rc, rs) -> None:
                                               n2=n2, dft_dtype="float32"), max_frac=1e-4)
     del got
     ms = cuda_ms(k7, iters=2)
-    simt_ms = cuda_ms(lambda: ff.fengine_dit_simt(frames, win, rc, rs, n1=n1, n2=n2), iters=1)
-
     plain_ms = cuda_ms(_chunked(lambda b: ff.fengine_dit_reference(
         frames[b], win, rc[b], rs[b], n1=n1, n2=n2, dft_dtype="float32"), nb), iters=1)
     flat = frames.view(nb, n_frames * fft)
@@ -2207,19 +2207,270 @@ def _k7_f32_flagship(st: dict, n1: int, n2: int, frames, win, rc, rs) -> None:
                       f32=2 * taps * fft * nb * s)
     dft_bound = bound(nb * s * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c, f32=2 * macs * nb * s)
     log(f"k7 f32 [{nb} streams x S={s} x fft {fft}]: {ms:.3f} ms (bound "
-        f"{k7_bound['bound_ms']:.3f}, {k7_bound['bound_by']}), the SIMT body {simt_ms:.3f} ms "
-        f"({simt_ms / ms:.2f}x), plain {plain_ms:.3f}; f32 FIR pass {fir_ms:.3f} (bound "
+        f"{k7_bound['bound_ms']:.3f}, {k7_bound['bound_by']}), plain {plain_ms:.3f}; f32 FIR "
+        f"pass {fir_ms:.3f} (bound "
         f"{fir_bound['bound_ms']:.3f}, {fir_bound['bound_by']}), f32 DFT pass {dft_ms:.3f} "
         f"(bound {dft_bound['bound_ms']:.3f}, {dft_bound['bound_by']}, "
         f"{dft_bound['bound_ms'] / dft_ms:.1%} of it; plain {dft_plain_ms:.3f}); scratch "
         f"{scratch / 1e9:.3f} GB a call (peak over its outputs); launches {launches} "
         f"({st['card']})")
-    st["k7"].update(f32_ms_160=ms, f32_simt_ms_160=simt_ms, f32_plain_ms_160=plain_ms,
+    st["k7"].update(f32_ms_160=ms, f32_plain_ms_160=plain_ms,
                     f32_bound_ms_160=k7_bound["bound_ms"], f32_max_abs_err_160=float(err),
                     f32_fir_ms=fir_ms, f32_dft_ms=dft_ms, f32_scratch_bytes=scratch,
                     f32_launches_160=launches)
     st["dit_dft_f32"].update(ms=dft_ms, plain_ms=dft_plain_ms, **dft_bound, library_ms=None,
                              max_abs_err_160=float(err), launches_160=launches["dit_dft_f32"])
+
+
+#: K7's routes off the flagship's split at full width (phase 12): (fft,
+#: operand type, streams, S), each 160 x 256 x 65536 samples, as the F+B
+#: flagship: N1 = 8 (fft 1024, 8 x 64) in both forms on the two passes, f32
+#: 1024 x 1024 (fft 2^21) and bf16 and f32 2048 x 2048 (fft 2^23) on the
+#: three passes.
+K7_ROUTE_CASES = ((1024, "bfloat16", 160, 16384), (1024, "float32", 160, 16384),
+                  (1 << 21, "float32", 160, 8), (1 << 23, "bfloat16", 160, 2),
+                  (1 << 23, "float32", 160, 2))
+
+
+#: K7 at its routes' geometries as the parent's SIMT body is timed there
+#: (``_k7_timed``, on this checkout in phase 12 and on a checkout of the
+#: parent beside it): (fft, operand type, streams, S, taps). fft 1024 at
+#: full width; f32 fft 2^21 on 16 streams x S = 8 (one wave of the SIMT
+#: body's blocks); fft 2^23 on 2 streams x S = 2 x 4 taps (the SIMT body
+#: took ~21 s there).
+K7_TIMED_CASES = ((1024, "bfloat16", 160, 16384, 16), (1024, "float32", 160, 16384, 16),
+                  (1 << 21, "float32", 16, 8, 16), (1 << 23, "bfloat16", 2, 2, 4),
+                  (1 << 23, "float32", 2, 2, 4))
+
+
+def _k7_timed(ff, fft: int, dft_dtype: str, nb: int, s: int, taps: int) -> float:
+    """ms of one K7 call through ``ff.fengine_fused(deint="matmul")`` of the
+    module ``ff`` (it needs nothing newer than that entry point) on streams
+    made on the card from ``SEED``: one call at the same size first (the
+    buffers' first allocation), then the mean of 3 calls (1 where a call
+    takes over a second) by CUDA events."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames = torch.randint(-64, 64, (nb, s + taps - 1, fft), dtype=torch.int8, device=dev,
+                           generator=gen)
+    fd = torch.rand(nb, device=dev, generator=gen) - 0.5
+    win = default_window(taps, fft, device=dev)
+    kw = dict(n_channels=fft // 2, quant_scale=QUANT_SCALE * (65536 / fft) ** 0.5,
+              dft_dtype=dft_dtype, deint="matmul")
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ff.fengine_fused(frames, win, fd, -1.5 * fd, **kw)
+    e1.record()
+    e1.synchronize()
+    iters = 1 if e0.elapsed_time(e1) > 1000 else 3
+    e0.record()
+    for _ in range(iters):
+        ff.fengine_fused(frames, win, fd, -1.5 * fd, **kw)
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def _k7_stage_fns(ff) -> tuple:
+    """K7's three-pass stage wrappers (their launch counters)."""
+    return (ff.dit_stage_a, ff.dit_stage_b, ff.dit_stage_a_f32, ff.dit_stage_b_f32)
+
+
+def _k7_case(n1, n2, nb, s, taps, dft_dtype, three):
+    """K7's bound at a case (``chip_smoke.py:bound``) and its passes' own,
+    as ``_k1_case``: each input byte read once (the frames, the window, the
+    combine factors, the rotation planes), each output written once; the
+    FIR's f32 operations and both half-length DFTs' (4·N1²·N2 + 8·N2²·N1
+    multiply-adds a spectrum) in the operand type. Per pass: the FIR pass
+    writes its plane; stage A reads it and writes T re and im; stage B (or
+    the DFT pass) reads those and writes the outputs."""
+    fft, n = 2 * n1 * n2, n1 * n2
+    item = 2 if dft_dtype == "bfloat16" else 4
+    kind = "bf16" if dft_dtype == "bfloat16" else "f32"
+    x_bytes = nb * (s + taps - 1) * fft + taps * fft * 4
+    rest = 2 * nb * n * 4 + 2 * n * 4 + 2 * nb * s * n  # rotation, combine, outputs
+    plane = nb * s * fft * item
+    fir_ops = nb * s * 2 * taps * fft
+    a_ops, b_ops = nb * s * 2 * 4 * n1 * n1 * n2, nb * s * 2 * 8 * n2 * n2 * n1
+    ops = {"f32": fir_ops}
+    ops[kind] = ops.get(kind, 0) + a_ops + b_ops
+    k7 = bound(x_bytes + rest, **ops)
+    passes = {"fir": bound(x_bytes + plane, f32=fir_ops)}
+    if three:
+        passes["stage_a"] = bound(3 * plane, **{kind: a_ops})
+        passes["stage_b"] = bound(2 * plane + rest, **{kind: b_ops})
+    else:
+        passes["dft"] = bound(plane + rest, **{kind: a_ops + b_ops})
+    return k7, passes
+
+
+def _k7_routes(st: dict, gen) -> None:
+    """K7 on its routes off the flagship's split at full width
+    (``K7_ROUTE_CASES``): the route's passes, each once a group of its
+    scratch, and nothing else (the counts set to 0 just before, read just
+    after); the last streams against plain within the form's code contract;
+    the call, each pass over all the streams (the call's own groups and
+    buffers), the plain version on the checked streams, the bounds and the
+    scratch; on the three-pass route each stage alone against its plain
+    version on the last stream; every body's registers and spill bytes (a
+    spill fails the phase)."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    taps = FLAG["n_taps"]
+    bodies = {"dit_dft n1=8": ff.dit_dft_attributes(8, 64),
+              "dit_dft_f32 n1=8": ff.dit_dft_f32_attributes(8, 64)}
+    for n1, n2, dt in ((1024, 1024, "float32"), (2048, 2048, "bfloat16"),
+                       (2048, 2048, "float32")):
+        for stage, at in ff.dit_stage_attributes(n1, n2, dt).items():
+            bodies[f"stage {stage} {dt} {n1}x{n2}"] = at
+    log("k7 route bodies: " + "; ".join(f"{k} {v['regs']} registers, {v['local_bytes']} local "
+                                        f"bytes" for k, v in bodies.items()) + f" ({st['card']})")
+    st["k7_routes"] = {}
+    for fft, dt, nb, s in K7_ROUTE_CASES:
+        _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+        f32 = dt == "float32"
+        body = ff._dit_body(n1, n2, dt)
+        three = body.startswith("three_pass")
+        c, n_frames = fft // 2, s + taps - 1
+        frames = torch.randint(-64, 64, (nb, n_frames, fft), dtype=torch.int8, device=dev,
+                               generator=gen)
+        fd = torch.rand(nb, device=dev, generator=gen) - 0.5
+        scale = QUANT_SCALE * (65536 / fft) ** 0.5  # the codes' rms as at the flagship
+        rc, rs = (r.reshape(nb, c) for r in ff._rotation_planes(fd, -1.5 * fd, c, scale, (c,)))
+        win = default_window(taps, fft, device=dev)
+        fir_fn = ff.k1_fir_f32 if f32 else ff.k1_fir
+        if three:
+            passes = (fir_fn, *(_k7_stage_fns(ff)[2:] if f32 else _k7_stage_fns(ff)[:2]))
+        else:
+            passes = (fir_fn, ff.dit_dft_f32 if f32 else ff.dit_dft)
+        counters = (ff.fengine_dit, ff.k1_fir, ff.k1_fir_f32, ff.dit_dft, ff.dit_dft_f32,
+                    *_k7_stage_fns(ff))
+
+        def k7():
+            return ff.fengine_dit(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype=dt)
+
+        tag = f"k7 {dt} fft {fft} [{nb} streams x S={s} x {taps} taps, {n1}x{n2}, {body}]"
+        for f in counters:
+            f.launches = 0
+        got = k7()
+        torch.cuda.synchronize()
+        launches = {f.__name__: f.launches for f in counters}
+        group = ff._plane_group(nb, s, fft, (3 if three else 1) * (4 if f32 else 2))
+        groups = -(-nb // group)
+        want = {f.__name__: groups if f in passes else int(f is ff.fengine_dit) for f in counters}
+        if launches != want:
+            raise AssertionError(f"{tag} ran {launches}, want {want}")
+        k = 8 if fft <= 65536 else (2 if fft <= 1 << 21 else 1)  # streams held to plain
+        last = slice(nb - k, nb)
+
+        def plain():
+            return ff.fengine_dit_reference(frames[last], win, rc[last], rs[last], n1=n1, n2=n2,
+                                            dft_dtype=dt)
+
+        err = _code_diff(tag + f" [last {k} streams]", [g[last] for g in got], plain(),
+                         max_frac=1e-4 if f32 else 1e-3)
+        del got
+        ms = cuda_ms(k7, iters=1 if fft > 65536 else 2)
+        plain_ms = cuda_ms(plain, iters=1)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs = k7()
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - before - sum(
+            o.numel() * o.element_size() for o in outs)
+        # Each pass over all the streams, in the call's groups and buffers.
+        outr, outi = outs
+        dtype = torch.float32 if f32 else torch.bfloat16
+        plane = torch.empty((group, s, fft), dtype=dtype, device=dev)
+        flat = frames.view(nb, n_frames * fft)
+        zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
+        spans = [slice(b0, min(nb, b0 + group)) for b0 in range(0, nb, group)]
+        pass_ms = {"fir": cuda_ms(lambda: [ff._fir_pass(flat[b], zeros[b], win,
+                                                        plane[:b.stop - b.start])
+                                           for b in spans], iters=1)}
+        if three:
+            tr, ti = (torch.empty((group, s, *ff._t_layout(n1, 2 * n2, dtype)), dtype=dtype,
+                                  device=dev) for _ in range(2))
+            pass_ms["stage_a"] = cuda_ms(lambda: [ff._dit_stage_a_pass(
+                plane[:b.stop - b.start], tr[:b.stop - b.start], ti[:b.stop - b.start], n1=n1,
+                n2=n2) for b in spans], iters=1)
+            pass_ms["stage_b"] = cuda_ms(lambda: [ff._dit_stage_b_pass(
+                tr[:b.stop - b.start], ti[:b.stop - b.start], rc[b], rs[b], outr[b], outi[b],
+                n1=n1, n2=n2) for b in spans], iters=1)
+            del tr, ti
+        else:
+            dft = ff._dit_dft_f32_pass if f32 else ff._dit_dft_pass
+            pass_ms["dft"] = cuda_ms(lambda: [dft(plane[:b.stop - b.start], rc[b], rs[b],
+                                                  outr[b], outi[b], n1=n1, n2=n2)
+                                              for b in spans], iters=1)
+        del outs, outr, outi, plane
+        k7_bound, pass_bounds = _k7_case(n1, n2, nb, s, taps, dt, three)
+        rec = dict(fft=fft, n1=n1, n2=n2, streams=nb, s=s, route=body, ms=ms, plain_ms=plain_ms,
+                   plain_streams=k, max_abs_err=float(err), **k7_bound, launches=launches,
+                   groups=groups, pass_ms=pass_ms,
+                   pass_bound_ms={p: b["bound_ms"] for p, b in pass_bounds.items()},
+                   pass_bound_by={p: b["bound_by"] for p, b in pass_bounds.items()},
+                   scratch_bytes=scratch)
+        if three:
+            # Each stage alone on the last stream, against its plain version.
+            one = slice(nb - 1, nb)
+            p1 = fir_fn(flat[one], zeros[one], win, n_spectra=s)
+            stage_a, stage_b = (ff.dit_stage_a_f32, ff.dit_stage_b_f32) if f32 else (
+                ff.dit_stage_a, ff.dit_stage_b)
+            tr, ti = stage_a(p1, n1=n1, n2=n2)
+            wr, wi = ff.dit_stage_a_reference(p1, n1=n1, n2=n2, dft_dtype=dt)
+            t_err = max(float((g.float() - w.float()).abs().max()) for g, w in ((tr, wr), (ti, wi)))
+            t_share = max(float((g != w).float().mean()) for g, w in ((tr, wr), (ti, wi)))
+            del tr, ti
+            sb = stage_b(wr.contiguous(), wi.contiguous(), rc[one], rs[one], n1=n1, n2=n2)
+            b_err = _code_diff(tag + " stage B alone on plain T [last stream]", sb,
+                               ff.dit_stage_b_reference(wr, wi, rc[one], rs[one], n1=n1, n2=n2,
+                                                        dft_dtype=dt),
+                               max_frac=1e-4 if f32 else 1e-3)
+            a_plain = cuda_ms(lambda: ff.dit_stage_a_reference(p1, n1=n1, n2=n2, dft_dtype=dt),
+                              iters=1)
+            b_plain = cuda_ms(lambda: ff.dit_stage_b_reference(wr, wi, rc[one], rs[one], n1=n1,
+                                                               n2=n2, dft_dtype=dt), iters=1)
+            rec.update(stage_a_t_max_abs_err=t_err, stage_a_t_differ=t_share,
+                       stage_b_max_abs_err=float(b_err), stage_a_plain_ms_1=a_plain,
+                       stage_b_plain_ms_1=b_plain)
+            del p1, wr, wi, sb
+        else:
+            pk = fir_fn(flat[last], zeros[last], win, n_spectra=s)
+            ref_fn = ff.dit_dft_f32_reference if f32 else ff.dit_dft_reference
+            rec["dft_plain_ms"] = cuda_ms(lambda: ref_fn(pk, rc[last], rs[last], n1=n1, n2=n2),
+                                          iters=1)
+            del pk
+        st["k7_routes"][(fft, dt)] = rec
+        log(f"{tag}: {ms:.3f} ms (bound {k7_bound['bound_ms']:.3f}, {k7_bound['bound_by']}); "
+            + ", ".join(f"{p} {t:.3f} (bound {pass_bounds[p]['bound_ms']:.3f}, "
+                        f"{pass_bounds[p]['bound_by']})" for p, t in pass_ms.items())
+            + f"; plain {plain_ms:.3f} ms on {k} streams"
+            + (f" (its DFT pass {rec['dft_plain_ms']:.3f})" if not three else "")
+            + f"; scratch {scratch / 1e9:.3f} GB a call; "
+            f"{groups} group(s) of {group}; launches {launches}"
+            + (f"; stage A alone: T differs on {rec['stage_a_t_differ']:.2e} of values (max "
+               f"{rec['stage_a_t_max_abs_err']:.3g}), plain {rec['stage_a_plain_ms_1']:.3f} ms a "
+               f"stream; stage B plain {rec['stage_b_plain_ms_1']:.3f} ms a stream" if three else
+               "") + f" ({st['card']})")
+        del frames, flat, zeros, rc, rs, fd
+        torch.cuda.empty_cache()
+    timed = {case: _k7_timed(ff, *case) for case in K7_TIMED_CASES}
+    st["k7_timed"] = timed
+    log("k7 at the SIMT comparison's geometries (fft, type, streams, S, taps): "
+        + "; ".join(f"{c} {ms:.3f} ms" for c, ms in timed.items()) + f" ({st['card']})")
+    spills = {k: v["local_bytes"] for k, v in bodies.items() if v["local_bytes"]}
+    if spills:
+        raise AssertionError(f"a K7 route body spills: {spills}")
 
 
 def _plain_fir(samples, window):
@@ -4235,6 +4486,52 @@ def phase_node_native(st: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def _k7_route_kernels(st: dict) -> list:
+    """The kernels line's entries of K7's routes off the flagship's split
+    (phase 12's full-width cases): the DFT passes' N1 = 8 plans, the
+    three-pass stages (stage A K1's kernel on K7's [N1, 2·N2] view). ms:
+    the pass over all the case's streams; plain_ms: its plain version on
+    ``plain_streams`` of them."""
+    routes = st["k7_routes"]
+    out = []
+    for fft, dt, name, kern, pas, src in (
+            (1024, "bfloat16", "dit_dft_n1_8", "dit_dft_kernel<128, true, DFT_FULL, true>: "
+             "K7's DFT pass at N1 = 8 (16 spectra a unit), after k1_fir_kernel", "dft",
+             "fengine_dit.cu"),
+            (1024, "float32", "dit_dft_f32_n1_8", "dit_dft_f32_kernel<8>: K7's f32 DFT pass at "
+             "N1 = 8, after k1_fir_kernel<..., float>", "dft", "fengine_dit.cu"),
+            (1 << 23, "bfloat16", "dit_stage_a", "k1_stage_a_kernel on K7's [N1, 2·N2] view "
+             "(the column-doubled twiddles): K7's three-pass stage A", "stage_a",
+             "fengine_ct.cu"),
+            (1 << 23, "bfloat16", "dit_stage_b", "dit_stage_b_kernel: K7's three-pass stage B",
+             "stage_b", "fengine_dit.cu"),
+            (1 << 21, "float32", "dit_stage_a_f32", "k1_stage_a_f32_kernel on K7's [N1, 2·N2] "
+             "view: K7's f32 three-pass stage A", "stage_a", "fengine_ct.cu"),
+            (1 << 21, "float32", "dit_stage_b_f32", "dit_stage_b_f32_kernel: K7's f32 "
+             "three-pass stage B", "stage_b", "fengine_dit.cu")):
+        rec = routes[(fft, dt)]
+        counter = {"dft": "dit_dft" if dt == "bfloat16" else "dit_dft_f32",
+                   "stage_a": name, "stage_b": name}[pas]
+        plain = {"dft": rec.get("dft_plain_ms"), "stage_a": rec.get("stage_a_plain_ms_1"),
+                 "stage_b": rec.get("stage_b_plain_ms_1")}[pas]
+        err = {"dft": rec["max_abs_err"], "stage_a": rec.get("stage_a_t_max_abs_err"),
+               "stage_b": rec.get("stage_b_max_abs_err")}[pas]
+        entry = dict(name=name, route="cuda", source=f"dpdk_dc_sand_tpu_torch/csrc/{src}",
+                     kernel=kern, replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:275",
+                     path="fengine_dit_routes", launches=rec["launches"][counter],
+                     max_abs_err=err, ms=rec["pass_ms"][pas], plain_ms=plain,
+                     plain_streams=rec["plain_streams"] if pas == "dft" else 1,
+                     bound_ms=rec["pass_bound_ms"][pas], bound_by=rec["pass_bound_by"][pas],
+                     library_ms=None,
+                     case={k: v for k, v in rec.items() if k not in ("launches", "pass_ms")})
+        if dt == "float32" and pas != "dft":
+            big = routes[(1 << 23, dt)]
+            entry["fft_2_23"] = dict(ms=big["pass_ms"][pas], bound_ms=big["pass_bound_ms"][pas],
+                                     launches=big["launches"][counter], k7_ms=big["ms"])
+        out.append(entry)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -4334,6 +4631,7 @@ def main() -> int:
                     "k1_fir_kernel<..., float>",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:275", path="fengine_dit",
              **st["dit_dft_f32"]),
+        *_k7_route_kernels(st),
         dict(name="corner_turn_plane_native", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/corner_turn.cu",
              replaces="dpdk_dc_sand_tpu/ops/corner_turn.py:123", path="fb_native_flagship",
@@ -4353,7 +4651,10 @@ def main() -> int:
              **st["probes"]["p4"]),
         dict(name="fused_ablate", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_dit.cu",
-             kernel="K7's SIMT body fengine_dit_kernel at each STOP and whole (full)",
+             also_source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct_stops.cu",
+             kernel="K7's route at each STOP: k1_fir_kernel<..., STOP_DIT_*> (dma, conv, fir, "
+                    "deint), k1_fir_kernel then dit_dft_kernel<64, true, DFT_STAGEA_T | "
+                    "DFT_STAGEB> (stagea, stageb), K7's two passes (full)",
              replaces="benchmarks/fused_ablate.py:33", path="benchmarks/fused_ablate",
              **st["probes"]["p2"]),
         dict(name="fir_probe", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/fir_probe.cu",

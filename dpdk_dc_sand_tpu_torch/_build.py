@@ -142,7 +142,8 @@ _SIGNATURES = {
     "k1_fir_stop_launch": [
         _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
         _P, _P, _P,  # plane [B, S, fft] bf16 (fir), outr, outi [B, S, fft/2] int8
-        _I, _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft, stop (1 dma, 2 fir)
+        _I, _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft, stop (P5: 1 dma, 2 fir;
+        # P2: 5 dma, 6 conv, 7 fir, 8 deint)
         _P,  # stream
     ],
     "k1_dft_stop_launch": [
@@ -213,25 +214,9 @@ _SIGNATURES = {
         _I, _I, _I,  # register-ring depth (4, 8, 16), frames are f32, copy mode
         _P, _P, _P,  # out: registers, local bytes, max threads (int*)
     ],
-    "fengine_dit_launch": [
-        _P, _P,  # frames [B, n_frames, fft] int8, window [taps, fft]
-        _P, _P, _P, _P,  # d1c, d1s [N1, N1], d2c, d2s [N2, N2]
-        _P, _P, _P, _P,  # twc, tws [N1, N2], untc, unts [N2, N1]
-        _P, _P,  # rotc, rots [B, N]
-        _P, _P,  # outr, outi [B, S, N]
-        _I, _I, _I, _I, _I, _I,  # batch, n_frames, n_taps, n1, n2, bf16
-        _P,  # stream
-    ],
-    "fengine_dit_stop_launch": [
-        _P, _P,  # frames [B, n_frames, fft] int8, window [taps, fft]
-        _P, _P, _P, _P, _P, _P,  # d1c, d1s, d2c, d2s, twc, tws
-        _P, _P,  # outr, outi [B, S, N] int8
-        _I, _I, _I, _I, _I, _I,  # batch, n_frames, n_taps, n1, n2, stop (1 dma .. 6 stageb)
-        _P,  # stream
-    ],
     "dit_dft_launch": [
         _P,  # plane [B, S, fft] bf16
-        _P, _P, _P, _P,  # bf16 d1c, d1s [N1, N1], d2c, d2s [N2, N2]
+        _P, _P, _P, _P,  # bf16 d1c, d1s [N1, N1], d2c, d2s [N2P, N2P] (N2P = max(N2, 16))
         _P, _P, _P, _P,  # twc, tws [N1, N2], untc, unts [N2, N1]
         _P, _P,  # rotc, rots [B, N]
         _P, _P,  # outr, outi [B, S, N] int8
@@ -242,16 +227,17 @@ _SIGNATURES = {
         _P,  # plane [B, S, fft] bf16
         _P, _P, _P, _P, _P, _P,  # bf16 d1c, d1s, d2c, d2s; twc, tws
         _P, _P,  # outr, outi [B, S, N] int8
-        _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, stop (1 stagea, 2 stageb)
+        _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, stop (1 stagea, 2 stageb, 3 stagea T)
         _P,  # stream
     ],
     "dit_dft_attributes": [
         _I, _I,  # n1, n2
-        _P,  # out (int[6]): registers, local bytes, KC, K-tile depth, stages, shared-memory bytes
+        _P,  # out (int[7]): registers, local bytes, KC, stage-B K-tile depth, stages,
+        # shared-memory bytes, spectra a unit
     ],
     "dit_dft_f32_launch": [
         _P,  # plane [B, S, fft] f32
-        _P, _P, _P,  # f32 d1c, d1s [N1, N1], d2h [2, N2, N2] (each half of k2 transposed)
+        _P, _P, _P,  # f32 d1c, d1s [N1, N1], d2h [NH, N2, 2*N2/NH] (each half of k2 transposed)
         _P, _P, _P, _P,  # twc, tws [N1, N2], untc, unts [N2, N1]
         _P, _P,  # rotc, rots [B, N]
         _P, _P,  # outr, outi [B, S, N] int8
@@ -263,6 +249,27 @@ _SIGNATURES = {
         _P,  # out (int[8]): registers, local bytes, KC, SB, stage-B K-tile depth, stages,
         # shared-memory bytes, threads
     ],
+    "dit_stage_b_launch": [
+        _P, _P,  # T re, im [B, S, N1, 2*N2] bf16 (K1's stage A on the [N1, 2*N2] view)
+        _P, _P,  # bf16 d2c, d2s [N2, N2]
+        _P, _P, _P, _P,  # untc, unts [N2, N1], rotc, rots [B, N]
+        _P, _P,  # outr, outi [B, S, N] int8
+        _I, _I, _I, _I,  # batch, n_spectra, n1, n2
+        _P,  # stream
+    ],
+    "dit_stage_b_f32_launch": [
+        _P, _P,  # T re, im [B, S, 2*N2, N1] f32 (K1's f32 stage A on the [N1, 2*N2] view)
+        _P,  # f32 d2h [2, N2, N2]
+        _P, _P, _P, _P,  # untc, unts [N2, N1], rotc, rots [B, N]
+        _P, _P,  # outr, outi [B, S, N] int8
+        _I, _I, _I, _I,  # batch, n_spectra, n1, n2
+        _P,  # stream
+    ],
+    **{name: [
+        _I, _I,  # n1, n2
+        _P,  # out (int[9]): registers, local bytes, threads, shared-memory bytes, tile rows,
+        # tile columns, K-tile depth, stages, blocks an SM
+    ] for name in ("dit_stage_b_attributes", "dit_stage_b_f32_attributes")},
     "ct_probe_launch": [
         _P, _P, _P,  # qr, qi [A, P, S, C] int8, out
         _I, _I, _I, _I,  # n_ants, n_pols, n_spectra, n_channels

@@ -2,25 +2,28 @@
 fused_ablate.py`` of the JAX package, whose trimmed copy of ``_fengine_kernel``
 reaches ``pl.pallas_call`` at its line 198).
 
-Each stop is K7's single-pass SIMT body (``fengine_dit_kernel`` in
-``csrc/fengine_dit.cu``, the form the probe's steps split) cut after a stage
-at compile time, or whole, through ``fengine_dit_ablate``; each is timed by
-the chained marginal (:mod:`._chain`):
+Each stop cuts the route K7 runs at this geometry (N = 32768 = 256·128:
+K1's FIR pass, then K7's tensor-core DFT pass, ``csrc/fengine_dit.cu``) at
+compile time, through ``fengine_dit_ablate``; each is timed by the chained
+marginal (:mod:`._chain`):
 
-- ``dma``    : each block's input bytes loaded, a constant written;
-- ``conv``   : + their int8 -> f32 conversion;
-- ``fir``    : + the 16-tap FIR, once a sample;
-- ``deint``  : + the bf16 rounding and the even / odd split;
-- ``stagea`` : K7's chunk loop with stage A and the twiddle (its per-chunk
-  FIR recomputation included);
-- ``stageb`` : + stage B;
-- ``full``   : + the DIT combine and requant: the SIMT body whole, with
+- ``dma``    : K1's FIR pass with its loads alone (each input byte once), a
+  probe written (``csrc/fengine_ct.cu``, ``STOP_DIT_DMA``);
+- ``conv``   : + their int8 -> f32 conversion (``STOP_DIT_CONV``);
+- ``fir``    : the FIR pass whole, its f32 sums' halves written
+  (``STOP_DIT_FIR``, no plane);
+- ``deint``  : + the bf16 rounding and the even / odd split
+  (``STOP_DIT_DEINT``);
+- ``stagea`` : the FIR pass into its bf16 plane, then the DFT pass with
+  stage A and the twiddle alone, each stream's rounded T re written
+  (``DFT_STAGEA_T``);
+- ``stageb`` : + stage B, each stream's re written (``DFT_STAGEB``);
+- ``full``   : + the DIT combine and requant: K7's two passes whole, with
   rotation planes 1/16 and 0 (the probe's ``* (1 / 16)`` and no fine
-  delay). K7's bf16 calls take its two-pass body instead
-  (``fengine_dit``), which these steps do not split.
+  delay).
 
 The probe's ``deint`` and ``stagea`` slice across the spectra of its
-``[N1, s_blk·N2]`` scratch; a block of K7 holds one spectrum, so these two
+``[N1, s_blk·N2]`` scratch; K7 keeps each spectrum apart, so these two
 stops write that spectrum's own ``[N1, N2]`` values, row-major, into its
 ``[N2, N1]``-shaped output, and are held against the port's plain version
 only. The geometry is the probe's: N = 32768 = 256·128, 16 taps, int8 frames

@@ -149,6 +149,16 @@
 // Every stop writes int8 by truncation with saturation (trunc_s8), as
 // XLA's f32 -> int8 conversion does in the probe. Their entry points are in
 // csrc/fengine_ct_stops.cu, which compiles in its own nvcc process.
+// The FIR pass also carries the probe P2's first four stops, for K7's route
+// (csrc/fengine_dit.cu: K7's first pass is this FIR pass on its frames with
+// every start at 0), each into outputs [B, S, fft/2] and no plane:
+//   STOP_DIT_DMA   — the loads of STOP_DMA; outr 0, outi the first sample
+//                    of frame f0 = s - s % 16 (P2's s_blk);
+//   STOP_DIT_CONV  — the same loads converted to f32 and summed; outi the
+//                    first samples of frames f0 and f0 + 1, added;
+//   STOP_DIT_FIR   — STOP_FIR's outputs without the plane;
+//   STOP_DIT_DEINT — the FIR rounded to bf16, split: sample 2m to outr[m],
+//                    2m + 1 to outi[m].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,6 +179,7 @@ __device__ __forceinline__ int8_t requant(float v) {
 // The stage stops (see the head of the file); the launch functions take them
 // as these numbers.
 constexpr int STOP_NONE = 0, STOP_DMA = 1, STOP_FIR = 2, STOP_STAGEA = 3, STOP_STAGEB = 4;
+constexpr int STOP_DIT_DMA = 5, STOP_DIT_CONV = 6, STOP_DIT_FIR = 7, STOP_DIT_DEINT = 8;
 // Spectra a DMA-stop probe serves: P5's s_blk.
 constexpr int ABLATE_S_BLK = 16;
 
@@ -238,13 +249,32 @@ __device__ __forceinline__ void store_trunc4(int8_t* p, float4 v) {
                                             trunc_s8(v.w));
 }
 
+// P2's deint stop: 4 f32 sums of samples 2m .. 2m + 3 rounded to bf16 and
+// truncated, the even ones to e[0..1], the odd ones to o[0..1].
+__device__ __forceinline__ void store_deint4(int8_t* e, int8_t* o, float4 v) {
+  auto r = [](float x) { return trunc_s8(__bfloat162float(__float2bfloat16_rn(x))); };
+  *reinterpret_cast<char2*>(e) = make_char2(r(v.x), r(v.z));
+  *reinterpret_cast<char2*>(o) = make_char2(r(v.y), r(v.w));
+}
+
+// What the FIR pass stores for spectrum s at a STOP: the plane (K1, P5's
+// fir), the f32 sums' halves (P5's and P2's fir), P2's even / odd split.
+template <int STOP, typename PT>
+__device__ __forceinline__ void fir_store(const FirParams& a, PT* ob, int8_t* oq, int8_t* oq2,
+                                          long long s, float4 acc) {
+  const long long fft = a.fft;
+  if constexpr (STOP == STOP_NONE || STOP == STOP_FIR) store_plane4(ob + s * fft, acc);
+  if constexpr (STOP == STOP_FIR || STOP == STOP_DIT_FIR) store_trunc4(oq + s * (fft / 2), acc);
+  if constexpr (STOP == STOP_DIT_DEINT) store_deint4(oq + s * (fft / 2), oq2 + s * (fft / 2), acc);
+}
+
 // One thread's 4 lanes over spectra [s0, s1). MAXT > 0: the register ring
 // of the last MAXT rows (rows past the stream's last read as zero, unused);
-// MAXT = 0: every tap row from global memory (taps > 16). STOP_FIR also
-// writes the truncated sums to oq (the lanes' place in outr or outi).
+// MAXT = 0: every tap row from global memory (taps > 16). The stops write
+// their outputs at oq (the lanes' place in outr or outi) and oq2 (fir_store).
 template <int MAXT, bool VEC, int STOP, typename PT>
 __device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb, PT* ob,
-                                        int8_t* oq, int lane, int s0, int s1) {
+                                        int8_t* oq, int8_t* oq2, int lane, int s0, int s1) {
   const long long fft = a.fft;
   const int rows = a.n_spectra + a.n_taps - 1;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -256,8 +286,7 @@ __device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb, PT
         acc = mac4(acc, load4<VEC>(xb + (s + t) * fft),
                    __ldg(reinterpret_cast<const float4*>(a.win + t * fft + lane)));
       }
-      store_plane4(ob + s * fft, acc);
-      if constexpr (STOP == STOP_FIR) store_trunc4(oq + s * (fft / 2), acc);
+      fir_store<STOP>(a, ob, oq, oq2, s, acc);
     }
   } else {
     float4 w[MAXT];
@@ -285,8 +314,7 @@ __device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb, PT
           for (int t = 1; t < MAXT; ++t) {
             if (t < a.n_taps) acc = mac4(acc, ring[(j + t) % MAXT], w[t]);
           }
-          store_plane4(ob + (s + j) * fft, acc);
-          if constexpr (STOP == STOP_FIR) store_trunc4(oq + (s + j) * (fft / 2), acc);
+          fir_store<STOP>(a, ob, oq, oq2, s + j, acc);
         }
       }
     }
@@ -331,6 +359,43 @@ __device__ __forceinline__ void dma_run(const FirParams& a, const int8_t* xb, in
   if (a.n_spectra < 0) *reinterpret_cast<uint32_t*>(a.outr) = seen;
 }
 
+// P2's dma and conv stops over spectra [s0, s1): each row the ring would
+// load, loaded once (CONV: converted to f32 and summed), then for each
+// spectrum s its probe: outr 0 and outi the first sample of frame f0 = s -
+// s % 16 (CONV: plus frame f0 + 1's), 4 lanes a store (o_r, o_i: the lanes'
+// place, null past fft/2); xs is the stream's first sample. The loads' XOR
+// or sum is stored under a condition that never holds but that the
+// compiler cannot see through (n_spectra < 0), so no load is dropped.
+template <bool VEC, bool CONV>
+__device__ __forceinline__ void dit_probe_run(const FirParams& a, const int8_t* xb,
+                                              const int8_t* xs, int8_t* o_r, int8_t* o_i,
+                                              int s0, int s1) {
+  const long long fft = a.fft, half = fft / 2;
+  const int last = min(a.n_spectra + a.n_taps - 1, s1 + a.n_taps - 1);
+  uint32_t seen = 0;
+  float sum = 0.f;
+  for (int r = s0; r < last; ++r) {
+    const uint32_t v = load_word<VEC>(xb + r * fft);
+    if constexpr (CONV) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sum += static_cast<float>(static_cast<int8_t>(v >> (8 * k)));
+    } else {
+      seen ^= v;
+    }
+  }
+  if (a.n_spectra < 0) *reinterpret_cast<uint32_t*>(a.outr) = seen ^ __float_as_uint(sum);
+  if (o_r == nullptr) return;
+  for (int s = s0; s < s1; ++s) {
+    const long long f0 = s - s % ABLATE_S_BLK;
+    int8_t probe = __ldg(xs + f0 * fft);
+    if constexpr (CONV) {
+      probe = trunc_s8(static_cast<float>(probe) + static_cast<float>(__ldg(xs + (f0 + 1) * fft)));
+    }
+    *reinterpret_cast<uint32_t*>(o_r + s * half) = 0u;
+    *reinterpret_cast<uint32_t*>(o_i + s * half) = static_cast<uint8_t>(probe) * 0x01010101u;
+  }
+}
+
 // PT: the plane's element, bf16 (STOP_NONE or a stop) or float (f32 DFT
 // operands: the exact f32 sums, STOP_NONE only).
 template <int MAXT, int STOP = STOP_NONE, typename PT = __nv_bfloat16>
@@ -348,10 +413,26 @@ __global__ void __launch_bounds__(FIR_THREADS) k1_fir_kernel(FirParams a) {
   // lane % 4 == 0, so the stream's start decides alignment for the whole block.
   const bool vec = (reinterpret_cast<uintptr_t>(xb) & 3) == 0;
   int8_t* oq = nullptr;
+  int8_t* oq2 = nullptr;
   if constexpr (STOP != STOP_NONE) {
     const int half = a.fft / 2;
     const long long o = b * a.n_spectra * static_cast<long long>(half);
     oq = lane < half ? a.outr + o + lane : a.outi + o + lane - half;
+    if constexpr (STOP == STOP_DIT_DEINT) {
+      oq = a.outr + o + lane / 2;
+      oq2 = a.outi + o + lane / 2;
+    }
+    if constexpr (STOP == STOP_DIT_DMA || STOP == STOP_DIT_CONV) {
+      int8_t* o_r = lane < half ? a.outr + o + lane : nullptr;
+      int8_t* o_i = lane < half ? a.outi + o + lane : nullptr;
+      const int8_t* xs = a.x + b * a.batch_stride + a.starts[b];
+      if (vec) {
+        dit_probe_run<true, STOP == STOP_DIT_CONV>(a, xb, xs, o_r, o_i, s0, s1);
+      } else {
+        dit_probe_run<false, STOP == STOP_DIT_CONV>(a, xb, xs, o_r, o_i, s0, s1);
+      }
+      return;
+    }
     if constexpr (STOP == STOP_DMA) {
       int8_t* oi = lane < half ? a.outi + o + lane : nullptr;
       if (lane >= half) oq = nullptr;
@@ -364,9 +445,9 @@ __global__ void __launch_bounds__(FIR_THREADS) k1_fir_kernel(FirParams a) {
     }
   }
   if (vec) {
-    fir_run<MAXT, true, STOP>(a, xb, ob, oq, lane, s0, s1);
+    fir_run<MAXT, true, STOP>(a, xb, ob, oq, oq2, lane, s0, s1);
   } else {
-    fir_run<MAXT, false, STOP>(a, xb, ob, oq, lane, s0, s1);
+    fir_run<MAXT, false, STOP>(a, xb, ob, oq, oq2, lane, s0, s1);
   }
 }
 

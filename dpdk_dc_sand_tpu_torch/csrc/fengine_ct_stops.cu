@@ -1,20 +1,36 @@
-// K1's stage stops (the probes P5 and P4), built in an nvcc process of their
-// own: this file takes K1's kernels from csrc/fengine_ct.cu (whose head
-// describes the stops) and instantiates only their STOP variants, so the
-// library's build time stays that of its slowest source.
+// K1's stage stops (the probes P5 and P4) and the FIR pass's cuts of the
+// probe P2 (K7's first pass), built in an nvcc process of their own: this
+// file takes K1's kernels from csrc/fengine_ct.cu (whose head describes the
+// stops) and instantiates only their STOP variants, so the library's build
+// time stays that of its slowest source.
 
 #define K1_STAGE_STOPS
 #include "fengine_ct.cu"
 
-// The stage stops of the two passes: stop 1 (dma) or 2 (fir) runs the FIR pass's stop, writing
-// outr, outi [batch, n_spectra, fft/2] int8 (and, for fir, the plane as
-// k1_fir_launch does; dma does not touch it); fft % 8 == 0.
+// Launches k1_fir_kernel<MAXT, STOP> with the ring depth fir_pass picks for n_taps.
+template <int STOP>
+void fir_stop(const FirParams& a, unsigned grid, cudaStream_t st) {
+  if (a.n_taps <= 4) {
+    k1_fir_kernel<4, STOP><<<grid, FIR_THREADS, 0, st>>>(a);
+  } else if (a.n_taps <= 8) {
+    k1_fir_kernel<8, STOP><<<grid, FIR_THREADS, 0, st>>>(a);
+  } else if (a.n_taps <= 16) {
+    k1_fir_kernel<16, STOP><<<grid, FIR_THREADS, 0, st>>>(a);
+  } else {
+    k1_fir_kernel<0, STOP><<<grid, FIR_THREADS, 0, st>>>(a);
+  }
+}
+
+// The stage stops of the FIR pass, writing outr, outi [batch, n_spectra,
+// fft/2] int8: stop 1 (dma) or 2 (fir), P5's (fir also writes the plane as
+// k1_fir_launch does; dma does not touch it), or 5 (dma), 6 (conv), 7 (fir)
+// or 8 (deint), P2's (no plane: pass null); fft % 8 == 0.
 extern "C" int k1_fir_stop_launch(const void* x, long long batch_stride, const void* starts,
                                   const void* win, void* plane, void* outr, void* outi,
                                   int batch, int n_spectra, int n_taps, int fft, int stop,
                                   void* stream) {
   if (batch < 1 || n_spectra < 1 || n_taps < 1 || fft < 8 || fft % 8 ||
-      (stop != STOP_DMA && stop != STOP_FIR)) {
+      (stop != STOP_DMA && stop != STOP_FIR && (stop < STOP_DIT_DMA || stop > STOP_DIT_DEINT))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FirParams a{static_cast<const int8_t*>(x), batch_stride,
@@ -26,16 +42,13 @@ extern "C" int k1_fir_stop_launch(const void* x, long long batch_stride, const v
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(blocks);
-  if (stop == STOP_DMA) {
-    k1_fir_kernel<0, STOP_DMA><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else if (n_taps <= 4) {
-    k1_fir_kernel<4, STOP_FIR><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else if (n_taps <= 8) {
-    k1_fir_kernel<8, STOP_FIR><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else if (n_taps <= 16) {
-    k1_fir_kernel<16, STOP_FIR><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else {
-    k1_fir_kernel<0, STOP_FIR><<<grid, FIR_THREADS, 0, st>>>(a);
+  switch (stop) {
+    case STOP_DMA: k1_fir_kernel<0, STOP_DMA><<<grid, FIR_THREADS, 0, st>>>(a); break;
+    case STOP_DIT_DMA: k1_fir_kernel<0, STOP_DIT_DMA><<<grid, FIR_THREADS, 0, st>>>(a); break;
+    case STOP_DIT_CONV: k1_fir_kernel<0, STOP_DIT_CONV><<<grid, FIR_THREADS, 0, st>>>(a); break;
+    case STOP_FIR: fir_stop<STOP_FIR>(a, grid, st); break;
+    case STOP_DIT_FIR: fir_stop<STOP_DIT_FIR>(a, grid, st); break;
+    default: fir_stop<STOP_DIT_DEINT>(a, grid, st); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,29 +22,30 @@
 // 4·N1²·N2 + 8·N2²·N1 multiply-adds (67 M at fft 65536: 256·128, the same
 // count as K1's CT rDFT of the whole frame), so 8 of the flagship's 160
 // streams at S = 256 are 275 GFLOP: 0.28 ms at the bf16 tensor rate, 4.1
-// ms at the f32 SIMT rate; its bytes (0.28 GB) take 0.08 ms.
+// ms at the f32 FFMA rate; its bytes (0.28 GB) take 0.08 ms.
 //
-// Three bodies, picked by the wrapper (ops/fengine_fused.py:_dit_body):
+// Every split runs as passes over groups of streams whose scratch fits K1's
+// (about 1 GB), on the route ops/fengine_fused.py:_dit_body asks the plan
+// queries for before any launch; a split no route takes is refused. The
+// first pass is always K1's FIR pass (k1_fir_kernel, csrc/fengine_ct.cu,
+// unchanged) on the frames viewed [B, n_frames·fft] with every start at 0:
+// it writes the f32 tap-order FIR, rounded to bf16 or kept in f32, which is
+// K7's rounded FIR, into a [B, S, fft] plane. The even stream's element
+// (n1, n2) is plane sample 2·(n1·N2 + n2) and the odd stream's the next, so
+// the plane viewed [N1, 2·N2] holds both streams' row n1, interleaved: stage
+// A (every column times the same [N1, N1] matrix) is one product of D1
+// against that natural view, no deinterleave, and one twiddle serves the
+// two columns of an n2.
 //
-// A. bf16 DFT operands with N1 >= 16, where a shared-memory plan exists
-//    (every split from 16·64 to 1024·1024): two passes over groups of
-//    streams whose bf16 planes fit K1's scratch.
-//    1. K1's FIR pass (k1_fir_kernel, csrc/fengine_ct.cu, unchanged) on the
-//       frames viewed [B, n_frames·fft] with every start at 0: it writes the
-//       f32 tap-order FIR rounded to bf16, which is K7's rounded FIR, into a
-//       [B, S, fft] plane.
-//    2. dit_dft_kernel below: both DFT stages on the tensor cores. The even
-//       stream's element (n1, n2) is plane sample 2·(n1·N2 + n2) and the
-//       odd stream's the next, so the plane viewed [N1, 2·N2] holds both
-//       streams' row n1, interleaved: stage A (every column times the same
-//       [N1, N1] matrix) is one product of D1 against that natural view,
-//       no deinterleave. An m16n8k16 accumulator fragment gives a thread
-//       columns 2·n2 and 2·n2 + 1, one n2 of both streams, so the epilogue
-//       applies one f32 twiddle to the pair and writes the even and odd T
-//       planes apart into shared memory, rounded to bf16. Stage B then runs
-//       per stream against the bf16 [N2, N2] cos and -sin matrices, eight
-//       sums a (k2, k1) (four a stream), followed by the DIT combine, the
-//       rotation and the requant at the reference's rounding points.
+// A. bf16 operands where T fits shared memory (N2 <= 1024): two passes,
+//    the FIR pass and dit_dft_kernel below, both DFT stages on the tensor
+//    cores. An m16n8k16 accumulator fragment gives a thread columns 2·n2
+//    and 2·n2 + 1, one n2 of both streams, so the epilogue applies one f32
+//    twiddle to the pair and writes the even and odd T planes apart into
+//    shared memory, rounded to bf16. Stage B then runs per stream against
+//    the bf16 [N2, N2] cos and -sin matrices, eight sums a (k2, k1) (four a
+//    stream), followed by the DIT combine, the rotation and the requant at
+//    the reference's rounding points.
 //    The design is K1's k1_dft_kernel: persistent blocks of 16 warps walk
 //    (stream, spectrum, chunk of KC k1 rows) units, chunks of one spectrum
 //    neighbours so the plane leaves HBM once; one cp.async ring streams
@@ -52,6 +53,18 @@
 //    D2 tiles) so the copies of the next unit overlap this one's epilogue;
 //    KC follows N2 (64 rows up to N2 = 256, 32 at 512, 16 at 1024) so the
 //    four T planes and 3-4 ring stages fit.
+//    N1 = 8 (fft 64 to 1024 under "matmul", 2048 under "bitcast"; N2 from
+//    4 to 128) takes K1's N1 = 8 plan: a unit is SB spectra (a run of the
+//    group's [G·S] spectra, which may span two streams) whose (spectrum, k1)
+//    rows form T (KC_N8 = 128 rows, 16 spectra; 64
+//    rows, 8 spectra, at N2 = 128, where 128 rows of four T planes do not
+//    fit beside the ring). Stage A is one 8-deep tile of the unit's planes
+//    whole, each warp's 4 spectra against the [cos; -sin] [16 x 8] matrix
+//    held in registers, one mma.sync m16n8k8 a spectrum and 8 plane
+//    columns (one MMA a sum: nothing chains); stage B is the design's
+//    above, the unit's spectra side by side as T's columns. Below N2 = 16
+//    (an MMA's depth) the N2-point matrices come zero-padded to 16 and the
+//    T planes' extra columns stay zero, which add exactly in f32.
 //    Against the three costs K1's DFT pass is blamed for (PERF.md §7):
 //    - The four f32 adds per stage-A MMA (mma16816_rn). Up to N1 = 256 the
 //      stage-A MMAs chain through the tensor core's accumulator (CHAIN_N1).
@@ -78,48 +91,49 @@
 //    one compile-time step. Halving stage A's warp width (16 columns) or
 //    every stage-B warp's (8 columns) spilled or ran slower, and 4 stages
 //    of 32-deep K tiles ran slower at 256·128 than 3 stages of 64.
-// A'. f32 DFT operands with N1 >= 16 and 64 <= N2 <= 512: two passes as
-//    well, K1's FIR pass into an f32 plane (the exact f32 sums, K7's f32
-//    FIR), then dit_dft_f32_kernel: K1's f32 FFMA DFT pass on this form's
-//    operand (its design is at the kernel).
-// B. N1 = 8 (fft 512 and 1024 "auto", fft 2048 "bitcast") and any split
-//    without a plan: fengine_dit_kernel, SIMT FMA on register micro tiles,
-//    described next. P2's stops cut this body.
+// A'. f32 operands where T fits (N2 <= 512): two passes as well, K1's FIR
+//    pass into an f32 plane (the exact f32 sums, K7's f32 FIR), then
+//    dit_dft_f32_kernel: K1's f32 FFMA DFT pass on this form's operand (its
+//    design is at the kernel), N1 = 8 on its KC = 8 plan.
+// B. Where T does not fit (bf16 N2 >= 2048: fft >= 2^23; f32 N2 >= 1024:
+//    fft >= 2^21): three passes through T in device memory, as K1's route
+//    for N2 >= 2048 (csrc/fengine_ct.cu): the FIR pass; K1's stage-A kernel
+//    (k1_stage_a_kernel, k1_stage_a_f32_kernel, unchanged) on the [N1, 2·N2]
+//    view with a twiddle table whose columns 2·n2 and 2·n2 + 1 both hold
+//    exp(-2πi k1 n2 / N): the product, the twiddle and the rounding are
+//    _dit_stage_a's for both streams, T re and im stored [N1][2·N2] in bf16
+//    (an n2's two streams side by side) and transposed, [2·N2][N1], in f32;
+//    then dit_stage_b_kernel / dit_stage_b_f32_kernel below: per stream,
+//    all N2 values of k2 against the full [N2, N2] cos and -sin matrices,
+//    the four sums a stream, the combine, the rotation and the requant. One
+//    block a tile of 64 k2 x 32 k1, each tile's K loop (n2) through a
+//    cp.async ring. bf16: mma.sync m16n8k16 chained, as the DFT pass's
+//    stage B; a T row's 32-bit word holds one n2 of both streams, so a
+//    thread reads the two n2 of its B fragment as one 8-byte word pair and
+//    byte-permutes them into each stream's fragment (T rows padded to 288
+//    bytes: the half-warps' reads are free of bank conflicts). f32: FFMA, 4
+//    k2 x 2 k1 x both streams x 4 sums a thread against the N2-point
+//    matrix in halves of k2 (_dit_d2h). These passes replace nothing in the
+//    TPU kernel: they are its work split where an SM's 227 KB cannot hold
+//    what the TPU's VMEM held. The bf16 or f32 operations bound them (at
+//    2048 x 2048 about 206 GFLOP a spectrum, stage B two thirds of it).
 //
-// SIMT design. One block per (spectrum s, stream b), as K1's SIMT body. The
-// four [N1, N2] planes between the stages (even and odd, re and im) do not
-// fit in shared memory at fft 65536 (512 KB in f32), so the block walks k1
-// in chunks of kc rows: stage A for those rows of both streams over all
-// n2, then stage B for those rows over all k2, combine, rotate, write. kc
-// is KC, halved until the chunk's planes fit (16 rows at N2 = 512, 8 at
-// 1024); the launch returns -1 where even 2 rows do not.
-// The FIR is not kept: each stage-A K tile recomputes its [KTA, NTA] slice
-// of both streams from global memory (L2 serves the N1/KC-fold re-read).
-//
-// Stage stops (the probe P2: benchmarks/fused_ablate.py of the JAX package,
+// Stage stops. The probe P2 (benchmarks/fused_ablate.py of the JAX package,
 // the trimmed copy of _fengine_kernel reached through pl.pallas_call at
-// fused_ablate.py:198). A compile-time STOP cuts the kernel after a stage,
-// so the production instantiation (DIT_FULL) is the code above unchanged.
-// Each writes int8 by truncation with saturation, as XLA's conversion does
-// in the probe, into the [B, S, N] outputs:
-//   DIT_DMA    — the block's input bytes (the taps frames its FIR reads)
-//                loaded once; outr 0, outi frame f0's first sample, f0 =
-//                s - s % 16 (P2's s_blk);
-//   DIT_CONV   — the same loads converted to f32; outi x[f0][0] + x[f0+1][0];
-//   DIT_FIR    — the FIR once per sample; its first N samples to outr, the
-//                last N to outi (P2's per-spectrum slice);
-//   DIT_DEINT  — + the DFT-type rounding and the even / odd split: e[m] to
-//                outr[m], o[m] to outi[m];
-//   DIT_STAGEA — the chunk loop with stage A only (its FIR recomputation
-//                included): the even and odd streams' rounded T re at
-//                k1*N2 + n2;
-//   DIT_STAGEB — + stage B, no combine: even re and odd re at k2*N1 + k1
-//                (the im sums are added times zero, so the compiler keeps
-//                all of stage B, which the probe's sink did not need).
-// The first four stop before the chunk loop, so they measure the FIR once
-// a sample; from DIT_STAGEA on the FIR is recomputed per chunk, as K7 does.
-// P2's deint and stagea sinks slice across the spectra of its [N1, s_blk*N2]
-// scratch; here a block holds one spectrum, so they write its own values.
+// fused_ablate.py:198) cuts the route K7 runs at its geometry (fft 65536,
+// 256 x 128: route A): its dma, conv, fir and deint stops are cuts of K1's
+// FIR pass (csrc/fengine_ct.cu), its stagea and stageb stops the FIR pass
+// and then dit_dft_kernel cut at a compile-time STOP, so the production
+// instantiation (DFT_FULL) is the code above unchanged:
+//   DFT_STAGEA   — stage A and its twiddle into the T planes alone (no
+//                  stage-B tiles, nothing written);
+//   DFT_STAGEA_T — the same, each stream's rounded T re written truncated
+//                  at k1·N2 + n2 instead (P2's stagea);
+//   DFT_STAGEB   — stages A and B, each stream's re written truncated at
+//                  k2·N1 + k1 (no combine, rotation or requant; the im sums
+//                  are added times zero, so the compiler keeps all of stage
+//                  B).
+// The stops take the 64-row chunk plan with chained stage-A sums only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,321 +143,17 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int KC = 32;   // most k1 rows per chunk (capped at N1; shrinks with N2)
 constexpr size_t MAX_SMEM = 232448;  // what one block may use on sm_90
-constexpr int NTA = 64;  // n2 columns per stage-A output tile (capped at N2)
-constexpr int KTA = 32;  // n1 depth per stage-A K tile (capped at N1)
-constexpr int MTB = 64;  // k2 rows per stage-B output tile (capped at N2)
-constexpr int KTB = 32;  // n2 depth per stage-B K tile (capped at N2)
-
-struct Params {
-  const int8_t* x;  // [B, n_frames * fft]
-  const float* win;  // [taps, fft]
-  const float* d1c;  // [N1, N1] cos(2π k1 n1 / N1)
-  const float* d1s;  // -sin
-  const float* d2c;  // [N2, N2] cos(2π k2 n2 / N2)
-  const float* d2s;  // -sin
-  const float* twc;  // [N1, N2] cos(2π k1 n2 / N)
-  const float* tws;  // -sin
-  const float* untc;  // [N2, N1] cos(π k / N), k = k2·N1 + k1
-  const float* unts;  // -sin
-  const float* rotc;  // [B, N]
-  const float* rots;
-  int8_t* outr;  // [B, S, N]
-  int8_t* outi;
-  int n_frames, n_spectra, n_taps, n1, n2, kc;
-};
-
-template <bool BF16>
-__device__ __forceinline__ float op_round(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-// FIR at in-frame samples 2m and 2m+1 (the even and odd stream's element m):
-// f32, tap order, every product and sum rounded separately.
-__device__ __forceinline__ void fir_pair(const int8_t* xs, const float* win, int fft,
-                                         int taps, int e, float& ev, float& od) {
-  char2 v = *reinterpret_cast<const char2*>(xs + e);
-  float2 w = __ldg(reinterpret_cast<const float2*>(win + e));
-  ev = __fmul_rn(static_cast<float>(v.x), w.x);
-  od = __fmul_rn(static_cast<float>(v.y), w.y);
-  for (int t = 1; t < taps; ++t) {
-    const long long o = static_cast<long long>(t) * fft + e;
-    v = *reinterpret_cast<const char2*>(xs + o);
-    w = __ldg(reinterpret_cast<const float2*>(win + o));
-    ev = __fadd_rn(ev, __fmul_rn(static_cast<float>(v.x), w.x));
-    od = __fadd_rn(od, __fmul_rn(static_cast<float>(v.y), w.y));
-  }
-}
 
 __device__ __forceinline__ int8_t requant(float v) {
   v = fminf(fmaxf(rintf(v), -127.f), 127.f);
   return static_cast<int8_t>(v);
 }
 
-// The stage stops (see the head of the file); the launch takes these numbers.
-constexpr int DIT_FULL = 0, DIT_DMA = 1, DIT_CONV = 2, DIT_FIR = 3, DIT_DEINT = 4,
-              DIT_STAGEA = 5, DIT_STAGEB = 6;
-constexpr int ABLATE_S_BLK = 16;  // P2's s_blk: the DMA and conv probes' frame
-
 // int8 by truncation toward zero, saturated: the value cvt.rzi.sat.s8.f32
-// gives.
+// gives (the probe's stops, as XLA's f32 -> int8 conversion).
 __device__ __forceinline__ int8_t trunc_s8(float v) {
   return static_cast<int8_t>(max(-128, min(127, __float2int_rz(v))));
-}
-
-// The stops before the chunk loop (DIT_DMA .. DIT_DEINT) of spectrum s of
-// stream b; xs is its first frame.
-template <bool BF16, int STOP>
-__device__ __forceinline__ void early_stop(const Params& p, const int8_t* xs, int s, int b) {
-  const int tid = threadIdx.x;
-  const int n = p.n1 * p.n2, fft = 2 * n;
-  const long long obase = (static_cast<long long>(b) * p.n_spectra + s) * n;
-  if constexpr (STOP == DIT_DMA || STOP == DIT_CONV) {
-    const long long pairs = static_cast<long long>(p.n_taps) * n;  // char2 loads, as fir_pair
-    uint32_t bits = 0;
-    float sum = 0.f;
-    for (long long i = tid; i < pairs; i += THREADS) {
-      const char2 v = *reinterpret_cast<const char2*>(xs + 2 * i);
-      if constexpr (STOP == DIT_DMA) {
-        bits ^= static_cast<uint32_t>(static_cast<uint16_t>(v.x | (v.y << 8)));
-      } else {
-        sum += static_cast<float>(v.x) + static_cast<float>(v.y);
-      }
-    }
-    // Stored under a condition that never holds but that the compiler
-    // cannot see through, so no load or conversion is dropped.
-    if (p.n_spectra < 0) p.outr[0] = static_cast<int8_t>(bits ^ __float_as_uint(sum));
-    const int8_t* x0 = p.x + (static_cast<long long>(b) * p.n_frames + s - s % ABLATE_S_BLK) * fft;
-    int8_t probe = x0[0];
-    if constexpr (STOP == DIT_CONV) {
-      probe = trunc_s8(static_cast<float>(x0[0]) + static_cast<float>(x0[fft]));
-    }
-    for (int m = tid; m < n; m += THREADS) {
-      p.outr[obase + m] = 0;
-      p.outi[obase + m] = probe;
-    }
-  } else {
-    for (int m = tid; m < n; m += THREADS) {
-      float ev, od;
-      fir_pair(xs, p.win, fft, p.n_taps, 2 * m, ev, od);
-      if constexpr (STOP == DIT_FIR) {
-        // Samples 2m, 2m+1: the first N to outr, the last N to outi.
-        int8_t* o = 2 * m < n ? p.outr + obase + 2 * m : p.outi + obase + 2 * m - n;
-        *reinterpret_cast<char2*>(o) = make_char2(trunc_s8(ev), trunc_s8(od));
-      } else {
-        p.outr[obase + m] = trunc_s8(op_round<BF16>(ev));
-        p.outi[obase + m] = trunc_s8(op_round<BF16>(od));
-      }
-    }
-  }
-}
-
-template <bool BF16, int STOP = DIT_FULL>
-__global__ void __launch_bounds__(THREADS) fengine_dit_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int s = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int n1 = p.n1, n2 = p.n2, n = n1 * n2, fft = 2 * n;
-  const int kc = p.kc, kta = min(KTA, n1), nta = min(NTA, n2);
-  const int mtb = min(MTB, n2), ktb = min(KTB, n2);
-  const int ts = n2 + 1;  // odd row stride of the T planes
-
-  const int8_t* xs = p.x + (static_cast<long long>(b) * p.n_frames + s) * fft;
-  if constexpr (STOP >= DIT_DMA && STOP <= DIT_DEINT) {
-    early_stop<BF16, STOP>(p, xs, s, b);
-    return;
-  }
-
-  float* sAc = smem;               // [kc][KTA]
-  float* sAs = sAc + kc * KTA;     // [kc][KTA]
-  float* sBc = sAs + kc * KTA;     // [MTB][KTB]
-  float* sBs = sBc + MTB * KTB;    // [MTB][KTB]
-  float* sXe = sBs + MTB * KTB;    // [KTA][NTA] even-stream FIR tile
-  float* sXo = sXe + KTA * NTA;    // [KTA][NTA] odd
-  float* sTer = sXo + KTA * NTA;   // [kc][ts] even re, then even im, odd re, odd im
-  float* sTei = sTer + kc * ts;
-  float* sTor = sTei + kc * ts;
-  float* sToi = sTor + kc * ts;
-
-  // Stage-A micro tile: 2 k1 rows x 4 n2 columns, both streams, re and im.
-  const int a_tiles = (kc / 2) * (nta / 4);
-  const bool a_on = tid < a_tiles;
-  const int a_r = (tid / (nta / 4)) * 2;
-  const int a_c = (tid % (nta / 4)) * 4;
-  // Stage-B micro tile: 4 k2 rows x 2 k1 columns, four sums per stream.
-  const int b_tiles = (mtb / 4) * (kc / 2);
-  const bool b_on = tid < b_tiles;
-  const int b_r = (tid / (kc / 2)) * 4;
-  const int b_c = (tid % (kc / 2)) * 2;
-  const long long obase = (static_cast<long long>(b) * p.n_spectra + s) * n;
-
-  for (int k0 = 0; k0 < n1; k0 += kc) {
-    // ---- stage A for k1 in [k0, k0+kc): all n2, nta columns at a time ----
-    for (int c0 = 0; c0 < n2; c0 += nta) {
-      float er[2][4] = {}, ei[2][4] = {}, orr[2][4] = {}, oi[2][4] = {};
-      for (int kt = 0; kt < n1; kt += kta) {
-        __syncthreads();  // previous tile's readers are done
-        for (int i = tid; i < kc * kta; i += THREADS) {
-          const int r = i / kta, c = i % kta;
-          const int g = (k0 + r) * n1 + kt + c;
-          sAc[r * KTA + c] = op_round<BF16>(__ldg(p.d1c + g));
-          sAs[r * KTA + c] = op_round<BF16>(__ldg(p.d1s + g));
-        }
-        for (int i = tid; i < kta * nta; i += THREADS) {
-          const int r = i / nta, c = i % nta;
-          float ev, od;
-          fir_pair(xs, p.win, fft, p.n_taps, 2 * ((kt + r) * n2 + c0 + c), ev, od);
-          sXe[r * NTA + c] = op_round<BF16>(ev);
-          sXo[r * NTA + c] = op_round<BF16>(od);
-        }
-        __syncthreads();
-        if (a_on) {
-          for (int kk = 0; kk < kta; ++kk) {
-            float xe[4], xo[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              xe[j] = sXe[kk * NTA + a_c + j];
-              xo[j] = sXo[kk * NTA + a_c + j];
-            }
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const float wc = sAc[(a_r + i) * KTA + kk];
-              const float ws = sAs[(a_r + i) * KTA + kk];
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                er[i][j] = fmaf(wc, xe[j], er[i][j]);
-                ei[i][j] = fmaf(ws, xe[j], ei[i][j]);
-                orr[i][j] = fmaf(wc, xo[j], orr[i][j]);
-                oi[i][j] = fmaf(ws, xo[j], oi[i][j]);
-              }
-            }
-          }
-        }
-      }
-      if (a_on) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int r = a_r + i, col = c0 + a_c + j;
-            const float wc = __ldg(p.twc + (k0 + r) * n2 + col);
-            const float ws = __ldg(p.tws + (k0 + r) * n2 + col);
-            if constexpr (STOP == DIT_STAGEA) {
-              const long long o = obase + (k0 + r) * n2 + col;
-              p.outr[o] = trunc_s8(op_round<BF16>(
-                  __fsub_rn(__fmul_rn(er[i][j], wc), __fmul_rn(ei[i][j], ws))));
-              p.outi[o] = trunc_s8(op_round<BF16>(
-                  __fsub_rn(__fmul_rn(orr[i][j], wc), __fmul_rn(oi[i][j], ws))));
-            } else {
-              sTer[r * ts + col] = op_round<BF16>(
-                  __fsub_rn(__fmul_rn(er[i][j], wc), __fmul_rn(ei[i][j], ws)));
-              sTei[r * ts + col] = op_round<BF16>(
-                  __fadd_rn(__fmul_rn(er[i][j], ws), __fmul_rn(ei[i][j], wc)));
-              sTor[r * ts + col] = op_round<BF16>(
-                  __fsub_rn(__fmul_rn(orr[i][j], wc), __fmul_rn(oi[i][j], ws)));
-              sToi[r * ts + col] = op_round<BF16>(
-                  __fadd_rn(__fmul_rn(orr[i][j], ws), __fmul_rn(oi[i][j], wc)));
-            }
-          }
-        }
-      }
-    }
-
-    if constexpr (STOP == DIT_STAGEA) continue;  // (the T planes were not written)
-    // ---- stage B for k1 in [k0, k0+kc): all k2, mtb rows at a time ----
-    for (int r0 = 0; r0 < n2; r0 += mtb) {
-      // [stream][sum][i][j]; sums: cos·tr, -sin·ti, cos·ti, -sin·tr.
-      float acc[2][4][4][2] = {};
-      for (int kt = 0; kt < n2; kt += ktb) {
-        __syncthreads();  // T planes complete (first pass) / previous tile read
-        for (int i = tid; i < mtb * ktb; i += THREADS) {
-          const int r = i / ktb, c = i % ktb;
-          const int g = (r0 + r) * n2 + kt + c;
-          sBc[r * KTB + c] = op_round<BF16>(__ldg(p.d2c + g));
-          sBs[r * KTB + c] = op_round<BF16>(__ldg(p.d2s + g));
-        }
-        __syncthreads();
-        if (b_on) {
-          for (int kk = 0; kk < ktb; ++kk) {
-            float t[2][2][2];  // [stream][re, im][j]
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int o = (b_c + j) * ts + kt + kk;
-              t[0][0][j] = sTer[o];
-              t[0][1][j] = sTei[o];
-              t[1][0][j] = sTor[o];
-              t[1][1][j] = sToi[o];
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float c = sBc[(b_r + i) * KTB + kk];
-              const float sn = sBs[(b_r + i) * KTB + kk];
-#pragma unroll
-              for (int q = 0; q < 2; ++q) {
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                  acc[q][0][i][j] = fmaf(c, t[q][0][j], acc[q][0][i][j]);
-                  acc[q][1][i][j] = fmaf(sn, t[q][1][j], acc[q][1][i][j]);
-                  acc[q][2][i][j] = fmaf(c, t[q][1][j], acc[q][2][i][j]);
-                  acc[q][3][i][j] = fmaf(sn, t[q][0][j], acc[q][3][i][j]);
-                }
-              }
-            }
-          }
-        }
-      }
-      if (b_on) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int ch = (r0 + b_r + i) * n1 + k0 + b_c + j;
-            const float xer = __fsub_rn(acc[0][0][i][j], acc[0][1][i][j]);
-            const float xei = __fadd_rn(acc[0][2][i][j], acc[0][3][i][j]);
-            const float xor_ = __fsub_rn(acc[1][0][i][j], acc[1][1][i][j]);
-            const float xoi = __fadd_rn(acc[1][2][i][j], acc[1][3][i][j]);
-            if constexpr (STOP == DIT_STAGEB) {
-              // The im sums, times zero, keep all of stage B computed.
-              p.outr[obase + ch] = trunc_s8(__fadd_rn(xer, __fmul_rn(0.f, xei)));
-              p.outi[obase + ch] = trunc_s8(__fadd_rn(xor_, __fmul_rn(0.f, xoi)));
-            } else {
-              const float uc = __ldg(p.untc + ch), us = __ldg(p.unts + ch);
-              const float xr = __fsub_rn(__fadd_rn(xer, __fmul_rn(uc, xor_)), __fmul_rn(us, xoi));
-              const float xi = __fadd_rn(__fadd_rn(xei, __fmul_rn(uc, xoi)), __fmul_rn(us, xor_));
-              const float rc = __ldg(p.rotc + static_cast<long long>(b) * n + ch);
-              const float rs = __ldg(p.rots + static_cast<long long>(b) * n + ch);
-              p.outr[obase + ch] = requant(__fsub_rn(__fmul_rn(xr, rc), __fmul_rn(xi, rs)));
-              p.outi[obase + ch] = requant(__fadd_rn(__fmul_rn(xr, rs), __fmul_rn(xi, rc)));
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next chunk overwrites the T planes
-  }
-}
-
-size_t smem_bytes(int n2, int kc) {
-  return sizeof(float) * (2 * kc * KTA + 2 * MTB * KTB + 2 * KTA * NTA +
-                          4 * kc * static_cast<size_t>(n2 + 1));
-}
-
-template <bool BF16, int STOP = DIT_FULL>
-cudaError_t launch(const Params& p, int batch, size_t bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fengine_dit_kernel<BF16, STOP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid(p.n_spectra, batch);
-  fengine_dit_kernel<BF16, STOP><<<grid, THREADS, bytes, stream>>>(p);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -453,11 +163,14 @@ constexpr int DFT_THREADS = 512;  // 16 warps: one block an SM
 constexpr int DFT_WARPS = DFT_THREADS / 32;
 constexpr int PAD = 8;            // row padding (elements): conflict-free ldmatrix
 constexpr int NO_PLAN = -1;
-// The DFT pass's stage stops (dit_dft_stop_launch): stage A and its twiddle
-// into the T planes alone (no stage-B tiles, nothing written), or stages A
-// and B with each stream's re written truncated (no combine, rotation or
-// requant). The production instantiation (DFT_FULL) is unchanged by them.
-constexpr int DFT_FULL = 0, DFT_STAGEA = 1, DFT_STAGEB = 2;
+// The DFT pass's stage stops (dit_dft_stop_launch; see the head of the
+// file). The production instantiation (DFT_FULL) is unchanged by them.
+constexpr int DFT_FULL = 0, DFT_STAGEA = 1, DFT_STAGEB = 2, DFT_STAGEA_T = 3;
+// T rows of an N1 = 8 unit: 16 spectra of 8 k1 rows, or 8 where 16 do not
+// fit (N2 = 128).
+constexpr int KC_N8 = 128, KC_N8_HALF = 64;
+// The least N2 stage B takes: an MMA's K depth (smaller N2 come padded).
+constexpr int MIN_N2P = 16;
 
 using bf16 = __nv_bfloat16;
 
@@ -465,8 +178,8 @@ struct DftParams {
   const bf16* plane;  // [G, S, N1, 2·N2]: row n1 holds both streams' row n1, interleaved
   const bf16* d1c;    // [N1, N1] cos
   const bf16* d1s;    // [N1, N1] -sin
-  const bf16* d2c;    // [N2, N2] cos
-  const bf16* d2s;    // [N2, N2] -sin
+  const bf16* d2c;    // [N2P, N2P] cos (zero-padded past N2)
+  const bf16* d2s;    // [N2P, N2P] -sin
   const float* twc;   // [N1, N2]
   const float* tws;
   const float* untc;  // [N2, N1]
@@ -476,17 +189,25 @@ struct DftParams {
   int8_t* outr;       // [G, S, N]
   int8_t* outi;
   int n_spectra, n1, n2;
-  int kt;                        // K-tile depth of both stages
+  int kt;                        // K-tile depth of both stages (8 at N1 = 8: stage A's)
   int n_ca, n_kta, n_rb, n_ktb;  // column tiles x K tiles, row tiles x K tiles
   int n_chunks;
-  int n_units;                   // G * S * n_chunks
+  int sb;                        // spectra a unit (1; KC / 8 at N1 = 8)
+  int n_rows;                    // G * S: the group's spectra
+  int n_units;                   // G * S * n_chunks; at N1 = 8 n_rows / SB, rounded up
   int slot;                      // bf16 elements per ring slot
   int stages;                    // ring depth: 3 or 4
+  // At N1 = 8: N2, or MIN_N2P below it (stage B's depth, T's columns), and
+  // stage B's K-tile depth. (Every body here sits at the 128-register edge:
+  // in development builds the order of these fields moved a few spilled
+  // bytes between the N1 = 8 bodies and the others; in this order none
+  // spills.)
+  int n2p, ktb;
 };
 
 // The tile shapes of a KC-row chunk. Stage A: warps MW x NW, each WM k1 rows
 // (cos and -sin) x WN plane columns (WN / 2 n2 of both streams): NA columns
-// a tile. Stage B: warps (16 / NWB) x NWB, each 16 k2 rows x WNB k1 columns
+// a tile (at N1 = 8: WM rows are 4 spectra's 8 k1 rows). Stage B: warps (16 / NWB) x NWB, each 16 k2 rows x WNB k1 columns
 // (16; 8 in the 16-row chunk, whose 16 k1 columns leave the 16 warps no
 // other split, and where 16 spilled), eight sums (four a stream): MB rows a
 // tile. Both keep at most 64 f32 accumulators a thread.
@@ -559,6 +280,16 @@ __device__ __forceinline__ void mma16816_rn(float* d, const uint32_t a[4], uint3
   for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], t[e]);
 }
 
+// d = a (16x8, row) * b (8x8, col), bf16 in, f32 out: the MMA's 8-product
+// sums alone (N1 = 8's stage A: one MMA a sum; as csrc/fengine_ct.cu).
+__device__ __forceinline__ void mma1688(float* d, uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b), "f"(0.f));
+}
+
 // Stage A's product: chained through the MMA's accumulator (CHAIN), or each
 // MMA's sum added in f32 round-to-nearest.
 template <bool CHAIN>
@@ -581,8 +312,9 @@ __device__ __forceinline__ int lg(int v) { return __ffs(v) - 1; }
 // A walk through this block's tile sequence: unit u (blockIdx.x, then every
 // gridDim.x-th), tile `local` of the unit. A unit is (stream b, spectrum s,
 // chunk), the chunk fastest: its spectrum's plane row is u / n_chunks =
-// b * S + s, its first k1 row (u % n_chunks) * KC. Only (u, local) are kept
-// live; the rest is decoded where it is used.
+// b * S + s, its first k1 row (u % n_chunks) * KC; at N1 = 8 it is the SB
+// spectra from plane row u * SB of the group's G * S, one chunk. Only (u,
+// local) are kept live; the rest is decoded where it is used.
 struct Cursor {
   int u, local;
 };
@@ -594,8 +326,11 @@ __device__ __forceinline__ void advance(Cursor& c, int tpu) {
   }
 }
 
-// The unit's plane row b * S + s, and its first k1 row.
-__device__ __forceinline__ int unit_row(const DftParams& p, int u) { return u >> lg(p.n_chunks); }
+// The unit's (first) plane row b * S + s, and its first k1 row.
+template <bool N8>
+__device__ __forceinline__ int unit_row(const DftParams& p, int u) {
+  return N8 ? u * p.sb : u >> lg(p.n_chunks);
+}
 
 template <int KC>
 __device__ __forceinline__ int unit_k0(const DftParams& p, int u) {
@@ -625,21 +360,35 @@ __device__ __forceinline__ Tile place(const DftParams& p, int local, int nA) {
 
 // Issue the cp.async copies of one tile into a ring slot (every thread, 16
 // bytes a copy; rows land padded).
-template <int KC>
+template <int KC, bool N8>
 __device__ __forceinline__ void load_tile(const DftParams& p, const Cursor& c, int nA,
                                           bf16* slot) {
   using S = DitShape<KC>;
   const int tid = threadIdx.x;
   const int n1 = p.n1, n2 = p.n2, w2 = 2 * n2;
-  const int kt = p.kt, ktp = kt + PAD, ld = lg(kt / 8);
+  const int kt = N8 ? 0 : p.kt, ktp = kt + PAD, ld = lg(kt / 8);  // (N1 = 8: ktb, in stage B)
   const Tile t = place(p, c.local, nA);
-  if (t.stage_a) {
+  if (N8 && t.stage_a) {
+    // [KC x cols] of the plane: the unit's spectra, 8 rows each, whole (their
+    // N1-point matrix is in registers). Spectra past the group's last are
+    // not loaded (their T columns are never stored).
+    const int lx = lg(min(S::NA, w2) / 8), nx = KC << lx;
+    const int row = unit_row<true>(p, c.u);
+    const int rows = min(KC, (p.n_rows - row) * 8);
+    const bf16* xsrc = p.plane + static_cast<long long>(row) * 8 * w2 + t.outer * S::NA;
+    for (int i = tid; i < nx; i += DFT_THREADS) {
+      const int r = i >> lx, q = i & ((1 << lx) - 1);
+      if (r < rows) {
+        cp_async16(slot + r * (S::NA + PAD) + q * 8, xsrc + static_cast<long long>(r) * w2 + q * 8);
+      }
+    }
+  } else if (t.stage_a) {
     // [kt x cols] of the plane's [N1, 2·N2] view, then the chunk's [KC x kt]
     // cos and -sin rows of the N1-point matrix.
     const int lx = lg(min(S::NA, w2) / 8);
     const int nx = kt << lx, nd = KC << ld;
     const bf16* xsrc = p.plane +
-                       (static_cast<long long>(unit_row(p, c.u)) * n1 + t.kidx * kt) * w2 +
+                       (static_cast<long long>(unit_row<false>(p, c.u)) * n1 + t.kidx * kt) * w2 +
                        t.outer * S::NA;
     const int k0 = unit_k0<KC>(p, c.u);
     bf16* sd = slot + kt * (S::NA + PAD);
@@ -656,29 +405,40 @@ __device__ __forceinline__ void load_tile(const DftParams& p, const Cursor& c, i
     }
   } else {
     // [rows x kt] of the N2-point matrix's cos rows, then of its -sin rows.
-    const int nd = min(S::MB, n2) << ld;
+    const int n2p = N8 ? p.n2p : n2;
+    const int ktb = N8 ? p.ktb : kt, ktpb = ktb + PAD, ldb = lg(ktb / 8);
+    const int nd = min(S::MB, n2p) << ldb;
     const int r0 = t.outer * S::MB;
     for (int i = tid; i < 2 * nd; i += DFT_THREADS) {
       const int m = i >= nd, j = i - m * nd;
-      const int r = j >> ld, q = j & ((1 << ld) - 1);
-      const bf16* src = (m ? p.d2s : p.d2c) + static_cast<long long>(r0 + r) * n2 + t.kidx * kt + q * 8;
-      cp_async16(slot + (m * S::MB + r) * ktp + q * 8, src);
+      const int r = j >> ldb, q = j & ((1 << ldb) - 1);
+      const bf16* src = (m ? p.d2s : p.d2c) + static_cast<long long>(r0 + r) * n2p + t.kidx * ktb + q * 8;
+      cp_async16(slot + (m * S::MB + r) * ktpb + q * 8, src);
     }
   }
 }
 
-template <int KC, bool CHAIN, int STOP = DFT_FULL>
+template <int KC, bool CHAIN, int STOP = DFT_FULL, bool N8 = false>
 __global__ void __launch_bounds__(DFT_THREADS, 1) dit_dft_kernel(DftParams p) {
   using S = DitShape<KC>;
+  static_assert(!N8 || STOP == DFT_FULL, "the stops take the 64-row chunk plan only");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
   const int n1 = p.n1, n2 = p.n2, n = n1 * n2, w2 = 2 * n2;
-  const int tld = n2 + PAD, tplane = KC * tld;
+  const int tld = (N8 ? p.n2p : n2) + PAD, tplane = KC * tld;
   const int stages = p.stages;
-  bf16* sT = smem;  // [4][KC][N2 + PAD]: even re, even im, odd re, odd im
+  bf16* sT = smem;  // [4][KC][N2P + PAD]: even re, even im, odd re, odd im
   bf16* ring = sT + 4 * tplane;
+  if constexpr (N8) {
+    // T's columns N2 .. N2P - 1 stay zero: stage B's K tiles read them
+    // against the zero-padded N2-point matrix. (The loop's first barrier
+    // orders these stores before any read.)
+    for (int i = tid * 8; i < 4 * tplane; i += DFT_THREADS * 8) {
+      *reinterpret_cast<uint4*>(sT + i) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   const int nA = p.n_ca * p.n_kta, tpu = nA + p.n_rb * p.n_ktb;
   const int my_units = (p.n_units - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
@@ -690,15 +450,17 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) dit_dft_kernel(DftParams p) {
   const int b_r0 = (warp / S::NWB) * 16, b_c0 = (warp % S::NWB) * S::WNB;
 
   // One register array for both stages' accumulators (at most 64 f32 a
-  // thread). Stage A: [cos/sin][MI][NJ n8][4]; stage B: [8 sums][NJB n8][4],
-  // sums cos.tr, -sin.ti, cos.ti, -sin.tr of the even stream, then the odd.
+  // thread). Stage A: [cos/sin][MI][NJ n8][4] (N1 = 8: [4 spectra][4 n8][4],
+  // the m16n8k8 tile's d0, d1 the cos sums and d2, d3 the -sin sums of k1 =
+  // g, columns 2·n2 and 2·n2 + 1); stage B: [8 sums][NJB n8][4], sums cos.tr,
+  // -sin.ti, cos.ti, -sin.tr of the even stream, then the odd.
   float acc[64];
 
   Cursor ld{static_cast<int>(blockIdx.x), 0};  // the next tile to load
   Cursor cc = ld;  // the tile to compute
   for (int t = 0; t < stages - 1; ++t) {
     if (t < n_tiles) {
-      load_tile<KC>(p, ld, nA, ring + t * p.slot);
+      load_tile<KC, N8>(p, ld, nA, ring + t * p.slot);
       advance(ld, tpu);
     }
     cp_async_commit();
@@ -710,18 +472,52 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) dit_dft_kernel(DftParams p) {
     __syncthreads();  // tile t landed for every thread; tile t-1's slot is free
     if (t + stages - 1 < n_tiles) {
       const int s_load = slot_i == 0 ? stages - 1 : slot_i - 1;  // (t + stages - 1) % stages
-      load_tile<KC>(p, ld, nA, ring + s_load * p.slot);
+      load_tile<KC, N8>(p, ld, nA, ring + s_load * p.slot);
       advance(ld, tpu);
     }
     cp_async_commit();
     const Tile w = place(p, cc.local, nA);
     const bf16* slot = ring + slot_i * p.slot;
     slot_i = slot_i + 1 == stages ? 0 : slot_i + 1;
-    const int k0 = unit_k0<KC>(p, cc.u);
-    const int kt = p.kt, ktp = kt + PAD;
+    const int k0 = N8 ? 0 : unit_k0<KC>(p, cc.u);
+    const int kt = N8 ? 0 : p.kt, ktp = kt + PAD;  // (N1 = 8: ktb, in stage B)
     if (w.stage_a) {
       const int col = w.outer * S::NA + a_c0;  // first plane column of the warp
       if (col >= w2) continue;
+      if constexpr (N8) {
+        // The [cos; -sin] [16 x 8] A fragment of m16n8k8 (row g of each, from
+        // L1) against the warp's 4 spectra, 8 rows each, x 4 column tiles of
+        // 8; then the f32 twiddle of n2 = column / 2 on both streams'
+        // columns, bf16 rounding, into the T planes (row: spectrum, k1 = g).
+        const uint32_t a0 = __ldg(reinterpret_cast<const unsigned int*>(p.d1c + g * 8 + tig * 2));
+        const uint32_t a1 = __ldg(reinterpret_cast<const unsigned int*>(p.d1s + g * 8 + tig * 2));
+#pragma unroll
+        for (int j = 0; j < S::WM / 8; ++j) {
+          uint32_t fb[4];
+          ldsm_x4_t(fb, slot + (a_r0 + j * 8 + lane % 8) * (S::NA + PAD) + a_c0 + (lane / 8) * 8);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) mma1688(acc + (j * 4 + m) * 4, a0, a1, fb[m]);
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          if (col + m * 8 >= w2) break;  // (w2 is a multiple of 8)
+          const int m2 = (col + m * 8) / 2 + tig;
+          const float wc = __ldg(p.twc + g * n2 + m2), ws = __ldg(p.tws + g * n2 + m2);
+#pragma unroll
+          for (int j = 0; j < S::WM / 8; ++j) {
+            const float* a = acc + (j * 4 + m) * 4;
+            const int r = a_r0 + j * 8 + g;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {  // column 2·m2 + q: stream q
+              const float tr = __fsub_rn(__fmul_rn(a[q], wc), __fmul_rn(a[2 + q], ws));
+              const float ti = __fadd_rn(__fmul_rn(a[q], ws), __fmul_rn(a[2 + q], wc));
+              sT[(2 * q) * tplane + r * tld + m2] = __float2bfloat16_rn(tr);
+              sT[(2 * q + 1) * tplane + r * tld + m2] = __float2bfloat16_rn(ti);
+            }
+          }
+        }
+        continue;
+      }
       if (w.kidx == 0) {
 #pragma unroll
         for (int i = 0; i < 8 * S::MI * S::NJ; ++i) acc[i] = 0.f;
@@ -750,15 +546,20 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) dit_dft_kernel(DftParams p) {
 #pragma unroll
             for (int j = 0; j < S::NJ; ++j) {
               mma_stage_a<CHAIN>(acc + ((m * S::MI + i) * S::NJ + j) * 4, fa[i],
-                          fb[j / 2][(j % 2) * 2], fb[j / 2][(j % 2) * 2 + 1]);
+                                 fb[j / 2][(j % 2) * 2], fb[j / 2][(j % 2) * 2 + 1]);
             }
           }
         }
       }
       if (w.kidx == p.n_kta - 1) {
         // The f32 twiddle of n2 = (column) / 2 on both streams' columns,
-        // bf16 rounding, into the T planes. A row's four twiddles are loaded
-        // together first: the L2 round trips overlap.
+        // bf16 rounding, into the T planes (DFT_STAGEA_T: each stream's T
+        // re, truncated, to its output instead). A row's four twiddles are
+        // loaded together first: the L2 round trips overlap.
+        long long tbase = 0;
+        if constexpr (STOP == DFT_STAGEA_T) {
+          tbase = static_cast<long long>(unit_row<false>(p, cc.u)) * n + static_cast<long long>(k0) * n2;
+        }
 #pragma unroll
         for (int i = 0; i < S::MI; ++i) {
 #pragma unroll
@@ -780,8 +581,13 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) dit_dft_kernel(DftParams p) {
               for (int q = 0; q < 2; ++q) {  // column 2·m2 + q: stream q
                 const float tr = __fsub_rn(__fmul_rn(cr[q], wc[j]), __fmul_rn(ci[q], ws[j]));
                 const float ti = __fadd_rn(__fmul_rn(cr[q], ws[j]), __fmul_rn(ci[q], wc[j]));
-                sT[(2 * q) * tplane + r * tld + m2] = __float2bfloat16_rn(tr);
-                sT[(2 * q + 1) * tplane + r * tld + m2] = __float2bfloat16_rn(ti);
+                if constexpr (STOP == DFT_STAGEA_T) {
+                  (q ? p.outi : p.outr)[tbase + r * n2 + m2] =
+                      trunc_s8(__bfloat162float(__float2bfloat16_rn(tr)));
+                } else {
+                  sT[(2 * q) * tplane + r * tld + m2] = __float2bfloat16_rn(tr);
+                  sT[(2 * q + 1) * tplane + r * tld + m2] = __float2bfloat16_rn(ti);
+                }
               }
             }
           }
@@ -794,16 +600,17 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) dit_dft_kernel(DftParams p) {
 #pragma unroll
         for (int i = 0; i < 32 * S::NJB; ++i) acc[i] = 0.f;
       }
+      const int ktb = N8 ? p.ktb : kt, ktpb = ktb + PAD;
       const bf16* sC = slot;
-      const bf16* sS = slot + S::MB * ktp;
-      for (int kk = 0; kk < (KC == 16 ? 16 : kt); kk += 16) {
+      const bf16* sS = slot + S::MB * ktpb;
+      for (int kk = 0; kk < (KC == 16 && !N8 ? 16 : ktb); kk += 16) {
         uint32_t fc[4], fs[4];
         {
           const int r = b_r0 + lane % 16, c = kk + (lane / 16) * 8;
-          ldsm_x4(fc, sC + r * ktp + c);
-          ldsm_x4(fs, sS + r * ktp + c);
+          ldsm_x4(fc, sC + r * ktpb + c);
+          ldsm_x4(fs, sS + r * ktpb + c);
         }
-        const int tc0 = w.kidx * kt + kk + ((lane / 8) % 2) * 8;
+        const int tc0 = w.kidx * ktb + kk + ((lane / 8) % 2) * 8;
         constexpr int SS = 4 * S::NJB;  // accumulator stride of the sums
 #pragma unroll
         for (int q = 0; q < 2; ++q) {  // the even stream, then the odd
@@ -834,16 +641,31 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) dit_dft_kernel(DftParams p) {
       if (w.kidx == p.n_ktb - 1) {
         // Each stream's re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr);
         // X = E + exp(-iπk/N)·O; rotate; requant; store. A row's combine and
-        // rotation values are loaded together first.
-        const int prow = unit_row(p, cc.u);  // b * S + s
-        const long long obase = static_cast<long long>(prow) * n;
-        const long long rbase = static_cast<long long>(prow / p.n_spectra) * n;
+        // rotation values are loaded together first. T column b_c0 + j * 8 +
+        // e is k1 row k0 + that of the unit's spectrum, or (N1 = 8) k1 = tig
+        // * 2 + e of plane row unit_row + (b_c0 + j * 8) / 8.
+        long long obase = 0, rbase = 0;
+        if constexpr (!N8) {
+          const int prow = unit_row<false>(p, cc.u);  // b * S + s
+          obase = static_cast<long long>(prow) * n;
+          rbase = static_cast<long long>(prow / p.n_spectra) * n;
+        }
         constexpr int SS = 4 * S::NJB;  // accumulator stride of the sums
 #pragma unroll
         for (int j = 0; j < S::NJB; ++j) {
+          if constexpr (N8) {
+            // This n8 tile's spectrum (decoded here: a row kept live across
+            // the loop spilled).
+            const int prow = unit_row<true>(p, cc.u) + (b_c0 + j * 8) / 8;
+            if (prow >= p.n_rows) continue;
+            obase = static_cast<long long>(prow) * n;
+            rbase = static_cast<long long>(prow / p.n_spectra) * n;
+          }
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            const int ch = (row + g + hh * 8) * n1 + k0 + b_c0 + j * 8 + tig * 2;
+            const int k2 = row + g + hh * 8;
+            if (N8 && k2 >= n2) continue;  // (N2 < 16: the padded rows)
+            const int ch = k2 * n1 + (N8 ? tig * 2 : k0 + b_c0 + j * 8 + tig * 2);
             float2 uc, us, rc, rs;
             if constexpr (STOP == DFT_FULL) {
               uc = __ldg(reinterpret_cast<const float2*>(p.untc + ch));
@@ -883,42 +705,47 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) dit_dft_kernel(DftParams p) {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The tile depth, ring depth and bytes of a chunk of KC rows, 0 if it cannot
-// fit: the deepest K tiles (64, 32, 16) with 4 stages, else 3, that fit.
-// (ops/fengine_fused.py:_dit_body asks dit_dft_attributes whether one does.)
-template <int KC>
+// The tile depths, ring depth and bytes of a chunk of KC rows, 0 if it
+// cannot fit: the deepest K tiles (64, 32, 16) with 4 stages, else 3, that
+// fit. (ops/fengine_fused.py:_dit_body asks dit_dft_attributes whether one
+// does.) N8: N1 = 8's plan, KC / 8 spectra a unit, stage A one 8-deep tile
+// of their whole planes, N2 padded to MIN_N2P for stage B.
+template <int KC, bool N8>
 size_t dit_plan(DftParams& p) {
   using S = DitShape<KC>;
-  if (KC > p.n1) return 0;
-  const size_t t_bytes = sizeof(bf16) * 4 * static_cast<size_t>(KC) * (p.n2 + PAD);
+  if (N8 ? (p.n1 != 8 || p.n2 < 4) : (p.n1 < 16 || KC > p.n1 || p.n2 < MIN_N2P)) return 0;
+  p.n2p = max(p.n2, MIN_N2P);
+  const size_t t_bytes = sizeof(bf16) * 4 * static_cast<size_t>(KC) * (p.n2p + PAD);
   // The 16-row chunk takes 16-deep K tiles only, so its K loops run one
   // step each (unrolled at compile time: a loop of run-time length spilled).
-  for (int kt = KC == 16 ? 16 : 64; kt >= 16; kt /= 2) {
-    if (kt > p.n1 || kt > p.n2) continue;
-    const int a_slot = kt * (S::NA + PAD) + 2 * KC * (kt + PAD);
+  for (int kt = KC == 16 && !N8 ? 16 : 64; kt >= 16; kt /= 2) {
+    if ((!N8 && kt > p.n1) || kt > p.n2p) continue;
+    const int a_slot = N8 ? KC * (S::NA + PAD) : kt * (S::NA + PAD) + 2 * KC * (kt + PAD);
     const int b_slot = 2 * S::MB * (kt + PAD);
     for (int stages = 4; stages >= 3; --stages) {
       const size_t bytes = t_bytes + sizeof(bf16) * static_cast<size_t>(stages) *
                                          static_cast<size_t>(max(a_slot, b_slot));
       if (bytes > MAX_SMEM) continue;
-      p.kt = kt;
+      p.kt = N8 ? 8 : kt;
+      p.ktb = kt;
       p.slot = max(a_slot, b_slot);
       p.stages = stages;
       p.n_ca = (2 * p.n2 + S::NA - 1) / S::NA;
-      p.n_kta = p.n1 / kt;
+      p.n_kta = p.n1 / p.kt;
       p.n_rb = (p.n2 + S::MB - 1) / S::MB;
-      p.n_ktb = p.n2 / kt;
-      p.n_chunks = p.n1 / KC;
+      p.n_ktb = p.n2p / kt;
+      p.n_chunks = N8 ? 1 : p.n1 / KC;
+      p.sb = N8 ? KC / 8 : 1;
       return bytes;
     }
   }
   return 0;
 }
 
-template <int KC, bool CHAIN, int STOP = DFT_FULL>
+template <int KC, bool CHAIN, int STOP = DFT_FULL, bool N8 = false>
 cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream) {
-  auto kern = dit_dft_kernel<KC, CHAIN, STOP>;
-  if (STOP == DFT_STAGEA) p.n_rb = 0;  // no stage-B tiles
+  auto kern = dit_dft_kernel<KC, CHAIN, STOP, N8>;
+  if (STOP == DFT_STAGEA || STOP == DFT_STAGEA_T) p.n_rb = 0;  // no stage-B tiles
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -930,11 +757,14 @@ cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, DFT_THREADS, bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long units = static_cast<long long>(batch) * p.n_spectra * p.n_chunks;
+  const long long rows = static_cast<long long>(batch) * p.n_spectra;
+  const long long units = N8 ? (rows + p.sb - 1) / p.sb : rows * p.n_chunks;
   const long long resident = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(units < resident ? units : resident);
-  // Unit indices and a block's tile count must fit an int.
+  // Unit indices, plane rows and a block's tile count must fit an int.
   const long long tpu = p.n_ca * p.n_kta + p.n_rb * p.n_ktb;
+  if (rows > 0x7fffffffLL - KC) return cudaErrorInvalidValue;
+  p.n_rows = static_cast<int>(rows);
   if (units > 0x7fffffffLL - grid || ((units + grid - 1) / grid) * tpu > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
@@ -943,17 +773,34 @@ cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream
   return cudaGetLastError();
 }
 
-// Calls fn(std::integral_constant<int, KC>, params, bytes) with the largest
-// chunk whose T planes and ring fit, or returns NO_PLAN.
+// Calls fn(std::integral_constant<int, KC>, std::bool_constant<N8>, params,
+// bytes) with the largest chunk whose T planes and ring fit (N1 = 8: 16
+// spectra a unit, else 8), or returns NO_PLAN.
 template <typename Fn>
 int with_plan(const DftParams& p, Fn fn) {
   DftParams q = p;
   size_t bytes;
-  if ((bytes = dit_plan<64>(q))) return fn(std::integral_constant<int, 64>{}, q, bytes);
+  if (p.n1 == 8) {
+    if ((bytes = dit_plan<KC_N8, true>(q))) {
+      return fn(std::integral_constant<int, KC_N8>{}, std::true_type{}, q, bytes);
+    }
+    q = p;
+    if ((bytes = dit_plan<KC_N8_HALF, true>(q))) {
+      return fn(std::integral_constant<int, KC_N8_HALF>{}, std::true_type{}, q, bytes);
+    }
+    return NO_PLAN;
+  }
+  if ((bytes = dit_plan<64, false>(q))) {
+    return fn(std::integral_constant<int, 64>{}, std::false_type{}, q, bytes);
+  }
   q = p;
-  if ((bytes = dit_plan<32>(q))) return fn(std::integral_constant<int, 32>{}, q, bytes);
+  if ((bytes = dit_plan<32, false>(q))) {
+    return fn(std::integral_constant<int, 32>{}, std::false_type{}, q, bytes);
+  }
   q = p;
-  if ((bytes = dit_plan<16>(q))) return fn(std::integral_constant<int, 16>{}, q, bytes);
+  if ((bytes = dit_plan<16, false>(q))) {
+    return fn(std::integral_constant<int, 16>{}, std::false_type{}, q, bytes);
+  }
   return NO_PLAN;
 }
 
@@ -976,21 +823,25 @@ int with_plan(const DftParams& p, Fn fn) {
 //     tile one f32 twiddle exp(-2πi k1 n2 / N) serves both streams'
 //     columns of an n2, and the four T planes (even re, even im, odd re,
 //     odd im) [SB·KC][N2] land in shared memory;
-//   stage B tiles, in two halves of the k2 range (all N2 values of k2, not
-//     K1's half): [KTB x N2] of the half's N2-point matrix, transposed
-//     ([n2][cos of the half's k2, then -sin]). A thread owns 4 k2 x 2 T
-//     rows x both streams x the four sums cos.tr, -sin.ti, cos.ti, -sin.tr
-//     (64 accumulators; 4 shared loads feed 64 FFMA, as in K1); then the
-//     plain version's epilogue: each stream's re and im, X = E +
-//     (untc + i·unts)·O in f32, the rotation, rint, clip, int8.
+//   stage B tiles, in NH = 2 halves of the k2 range (all N2 values of k2,
+//     not K1's half; one at N2 = 4): [KTB x 2·H] of the half's N2-point
+//     matrix, transposed ([n2][cos of the half's H = N2 / NH k2, then
+//     -sin]). A thread owns 4 k2 x 2 T rows x both streams x the four sums
+//     cos.tr, -sin.ti, cos.ti, -sin.tr (64 accumulators; 4 shared loads
+//     feed 64 FFMA, as in K1); then the plain version's epilogue: each
+//     stream's re and im, X = E + (untc + i·unts)·O in f32, the rotation,
+//     rint, clip, int8.
 // Against K1's f32 pass a T row holds 4·N2 floats, not 2·N2, so with the
 // same 64 KB of T planes and the same stage-A tile (KC · SB · 2N2 = 8192)
 // SB halves: KC = 16 with SB = 256 / N2 up to N2 = 256 (two spectra a unit
-// at the flagship's 256·128), KC = 8 at N2 = 512. N2 = 1024 (fft 2^21) and
-// N1 = 8 have no plan: they stay on the SIMT body (dit_dft_f32_attributes
-// decides). T rows are XOR-swizzled by 16-byte groups ((row / 2) % 8), so
-// stage A's row-wise float2 stores and stage B's reads of two rows at a
-// time are both free of bank conflicts.
+// at the flagship's 256·128), KC = 8 at N2 = 512. N1 = 8 takes KC = 8 with
+// SB = 2048 / (8·H) spectra a unit (the 256 threads' stage-B rows: 512 / N2
+// from N2 = 8, 64 at N2 = 4, where the unit fills half the stage-A tile).
+// N2 >= 1024 (fft >= 2^21) has no plan: the three-pass route takes it
+// (dit_dft_f32_attributes decides). T rows are XOR-swizzled by 16-byte
+// groups ((row / 2) % 8, fewer groups in rows under 32 floats), so stage A's
+// row-wise float2 stores and stage B's reads of two rows at a time are both
+// free of bank conflicts.
 // What bounds it: the f32 FFMA rate, the same operation count as K1's f32
 // pass at the same fft (4.10 ms on 8 flagship streams).
 constexpr int F32_THREADS = 256;
@@ -1031,6 +882,7 @@ struct F32Params {
   int8_t* outr;        // [G, S, N]
   int8_t* outi;
   int n_spectra, n1, n2;
+  int nh;                  // halves of k2 in stage B: 2, or 1 at N2 = 4
   int sb, ktb;             // spectra a unit; stage-B K-tile depth
   int n_kta, n_ktb;        // K tiles: stage A; each half of stage B
   int n_chunks, n_sblk;    // k1 chunks; blocks of SB spectra a stream
@@ -1038,9 +890,10 @@ struct F32Params {
 };
 
 // The swizzled float index of T row `row`, even column `col` (a float2 or a
-// 4-aligned float4 stays whole).
-__device__ __forceinline__ int t_at(int row, int col, int n2) {
-  return row * n2 + (col ^ (((row >> 1) & 7) << 2));
+// 4-aligned float4 stays whole); sw = the 16-byte groups a row's swizzle
+// spans, less one (7, or N2 / 4 - 1 in rows under 32 floats).
+__device__ __forceinline__ int t_at(int row, int col, int n2, int sw) {
+  return row * n2 + (col ^ (((row >> 1) & sw) << 2));
 }
 
 // A block's walk: unit i of the block (unit blockIdx.x + i * gridDim.x),
@@ -1085,7 +938,7 @@ __device__ __forceinline__ void f32_load_tile(const F32Params& p, const F32Curso
     for (int i = tid; i < PX; i += NT) {
       const int r = i / (NCOL / 4), col = (i % (NCOL / 4)) * 4;
       const int s = c.s0 + (col >> lw);
-      if (s < p.n_spectra) {
+      if ((col >> lw) < p.sb && s < p.n_spectra) {
         const float* src = p.plane +
                            ((static_cast<long long>(c.b) * p.n_spectra + s) * n1 + kt0 + r) * w2 +
                            (col & (w2 - 1));
@@ -1100,10 +953,11 @@ __device__ __forceinline__ void f32_load_tile(const F32Params& p, const F32Curso
       cp_async16(sd + r * 2 * KC + q, src);
     }
   } else {
-    // [KTB x N2] of the half's transposed N2-point matrix: one contiguous run.
+    // [KTB x 2H] of the half's transposed N2-point matrix: one contiguous run.
     const int l = c.local - p.n_kta, half = l >= p.n_ktb, kidx = l - half * p.n_ktb;
-    const float* src = p.d2h + (static_cast<long long>(half) * p.n2 + kidx * p.ktb) * p.n2;
-    const int nf = p.ktb * p.n2;
+    const int w = 2 * p.n2 / p.nh;  // 2H floats a row
+    const float* src = p.d2h + (static_cast<long long>(half) * p.n2 + kidx * p.ktb) * w;
+    const int nf = p.ktb * w;
     for (int i = tid * 4; i < nf; i += NT * 4) cp_async16(slot + i, src + i);
   }
 }
@@ -1121,11 +975,12 @@ __global__ void __launch_bounds__(F32_THREADS, 1) dit_dft_f32_kernel(F32Params p
   constexpr int SLOT = f32_slot<KC>();
   extern __shared__ __align__(128) float fsmem[];
   const int tid = threadIdx.x;
-  const int n1 = p.n1, n2 = p.n2, h = n2 / 2, n = n1 * n2, w2 = 2 * n2;
+  const int n1 = p.n1, n2 = p.n2, h = n2 / p.nh, n = n1 * n2, w2 = 2 * n2;
+  const int sw = min(7, n2 / 4 - 1);  // T's swizzle (t_at)
   float* sT = fsmem;  // [4][SB*KC][N2]: even re, even im, odd re, odd im (t_at)
   float* ring = sT + 4 * F32_TP;
 
-  const int nA = p.n_kta, tpu = nA + 2 * p.n_ktb;
+  const int nA = p.n_kta, tpu = nA + p.nh * p.n_ktb;
   const int my_units = (p.n_units - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
   const int n_tiles = my_units * tpu;
 
@@ -1197,6 +1052,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1) dit_dft_f32_kernel(F32Params p
         for (int half = 0; half < 2; ++half) {
           const int col = half * (NCOL / 2) + ja;
           const int s = col >> lw, m = (col & (w2 - 1)) >> 1;
+          if (s >= p.sb) continue;  // (N2 = 4: the unit fills half the tile)
           float2 wc[4], ws[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -1215,7 +1071,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1) dit_dft_f32_kernel(F32Params p
               tr[e] = __fsub_rn(__fmul_rn(ar[e], c), __fmul_rn(ai[e], sn));
               ti[e] = __fadd_rn(__fmul_rn(ar[e], sn), __fmul_rn(ai[e], c));
             }
-            const int o = t_at(s * KC + 4 * rg + i, m, n2);
+            const int o = t_at(s * KC + 4 * rg + i, m, n2, sw);
             *reinterpret_cast<float2*>(sT + 0 * F32_TP + o) = make_float2(tr[0], tr[2]);
             *reinterpret_cast<float2*>(sT + 1 * F32_TP + o) = make_float2(ti[0], ti[2]);
             *reinterpret_cast<float2*>(sT + 2 * F32_TP + o) = make_float2(tr[1], tr[3]);
@@ -1239,12 +1095,12 @@ __global__ void __launch_bounds__(F32_THREADS, 1) dit_dft_f32_kernel(F32Params p
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             t4[pl][c] = *reinterpret_cast<const float4*>(sT + pl * F32_TP +
-                                                         t_at(2 * qb + c, nn, n2));
+                                                         t_at(2 * qb + c, nn, n2, sw));
           }
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          const float* row = slot + (k4 + u) * n2;
+          const float* row = slot + (k4 + u) * 2 * h;
           const float4 dc = *reinterpret_cast<const float4*>(row + 4 * rb);
           const float4 ds = *reinterpret_cast<const float4*>(row + h + 4 * rb);
           const float cv[4] = {dc.x, dc.y, dc.z, dc.w}, sv[4] = {ds.x, ds.y, ds.z, ds.w};
@@ -1313,15 +1169,22 @@ __global__ void __launch_bounds__(F32_THREADS, 1) dit_dft_f32_kernel(F32Params p
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The plan of a chunk of KC rows, 0 if it has none: SB = NCOL / 2N2 spectra
-// a unit, stage-B tiles of at most one slot's 8192 floats, the 4-slot ring
-// beside the T planes.
+// The plan of a chunk of KC rows, 0 if it has none: SB = 2048 / (KC·H)
+// spectra a unit (NCOL / 2N2 where NH = 2), so that the 256 threads' 4 k2 x
+// 2 T rows cover H x SB·KC; stage-B tiles of at most one slot's 8192
+// floats, the 4-slot ring beside the T planes. N1 = 8 takes KC = 8 at N2
+// from 4 to 128; N1 >= 16 takes N2 from 64 to NCOL / 2.
 template <int KC>
 size_t f32_plan(F32Params& p) {
   constexpr int NCOL = F32_OUT / KC;
-  if (p.n1 < 16 || KC > p.n1 || 2 * p.n2 > NCOL || p.n2 < 64) return 0;
-  p.sb = NCOL / (2 * p.n2);
-  p.ktb = min(p.n2, F32_SLOT / p.n2);
+  if (KC > p.n1) return 0;
+  if (p.n1 == 8 ? (KC != 8 || p.n2 < 4 || p.n2 > 128) : (p.n1 < 16 || 2 * p.n2 > NCOL || p.n2 < 64)) {
+    return 0;
+  }
+  p.nh = p.n2 < 8 ? 1 : 2;
+  const int h = p.n2 / p.nh;
+  p.sb = 2048 / (KC * h);
+  p.ktb = min(p.n2, F32_SLOT / (2 * h));
   p.n_kta = p.n1 / KC;
   p.n_ktb = p.n2 / p.ktb;
   p.n_chunks = p.n1 / KC;
@@ -1346,7 +1209,7 @@ cudaError_t launch_dft_f32(F32Params p, int batch, size_t bytes, cudaStream_t st
   const long long units = static_cast<long long>(batch) * p.n_sblk * p.n_chunks;
   const long long resident = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(units < resident ? units : resident);
-  const long long tpu = p.n_kta + 2LL * p.n_ktb;
+  const long long tpu = p.n_kta + static_cast<long long>(p.nh) * p.n_ktb;
   if (units > 0x7fffffffLL - grid || ((units + grid - 1) / grid) * tpu > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
@@ -1356,7 +1219,7 @@ cudaError_t launch_dft_f32(F32Params p, int batch, size_t bytes, cudaStream_t st
 }
 
 // Run f(kc, plan, bytes) with the chunk the f32 pass takes for this split
-// (16 rows up to N2 = 256, 8 at N2 = 512), or return NO_PLAN.
+// (16 rows up to N2 = 256, 8 at N2 = 512 and at N1 = 8), or return NO_PLAN.
 template <typename F>
 int with_f32_plan(const F32Params& p, F&& f) {
   F32Params q = p;
@@ -1367,198 +1230,482 @@ int with_f32_plan(const F32Params& p, F&& f) {
   return NO_PLAN;
 }
 
+// ---------------------------------------------------------------------------
+// The three-pass route's stage B (see the head of the file): T re, im in
+// device memory, as K1's stage-A kernels write them on the [N1, 2·N2] view,
+// to the outputs. One block a tile of SB_M k2 x SB_N k1 of one spectrum,
+// its K loop over n2 through a cp.async ring.
+// ---------------------------------------------------------------------------
+constexpr int TP_THREADS = 256;  // 8 warps
+// bf16: 64 k2 rows (their cos and -sin rows) x 32 k1 a tile, K tiles of 64
+// n2; warps 4 x 2, each 16 k2 x 16 k1 x both streams x the four sums (64
+// accumulators). A T row of the tile holds 2·SB_K interleaved columns,
+// padded to 288 bytes (32 mod 128): a half-warp's 8-byte reads of rows g
+// .. g + 3 fall in distinct banks.
+constexpr int SB_M = 64, SB_N = 32, SB_K = 64, SB_STAGES = 3;
+constexpr int SB_DLD = SB_K + PAD, SB_TLD = 2 * SB_K + 2 * PAD;
+constexpr int SB_SLOT = 2 * SB_M * SB_DLD + 2 * SB_N * SB_TLD;  // bf16 elements
+constexpr size_t SB_SMEM = sizeof(bf16) * SB_STAGES * SB_SLOT;
+// f32: 64 k2 x 32 k1 a tile, K tiles of 16 n2; a thread 4 k2 x 2 k1 x both
+// streams x the four sums (64 accumulators; 6 shared loads per 64 FFMA).
+constexpr int FB_M = 64, FB_N = 32, FB_K = 16, FB_STAGES = 4;
+constexpr int FB_SLOT = FB_K * 2 * FB_M + 2 * (2 * FB_K) * FB_N;  // floats
+constexpr size_t FB_SMEM = sizeof(float) * FB_STAGES * FB_SLOT;
+static_assert(2 * (SB_SMEM + 1024) <= 233472, "two bf16 stage-B blocks must share an SM");
+
+struct StageBParams {
+  const void* tr;     // T re, im: bf16 [M, N1, 2·N2]; f32 transposed [M, 2·N2, N1]
+  const void* ti;     //   (column / row 2·n2 + q: stream q's n2), M = batch * n_spectra
+  const void* d2c;    // bf16: [N2, N2] cos; f32: _dit_d2h [2][N2][N2] (each half of k2
+  const void* d2s;    //   transposed: cos, then -sin); bf16: [N2, N2] -sin
+  const float* untc;  // [N2, N1] cos(π k / N), k = k2·N1 + k1
+  const float* unts;  // -sin
+  const float* rotc;  // [batch, N]
+  const float* rots;
+  int8_t* outr;       // [M, N]
+  int8_t* outi;
+  int n_spectra, n1, n2;
+  int n_ct, n_rt;     // a spectrum's k1 tiles and k2 tiles
+};
+
+// This block's tile: spectrum m, first k2 row r0, first k1 column c0 (k1
+// tiles fastest, then k2 tiles, then spectra).
+struct StageTile {
+  long long m;
+  int r0, c0;
+};
+
+__device__ __forceinline__ StageTile stage_tile(const StageBParams& p, int rows, int cols) {
+  long long t = blockIdx.x;
+  StageTile w;
+  w.c0 = static_cast<int>(t % p.n_ct) * cols;
+  t /= p.n_ct;
+  w.r0 = static_cast<int>(t % p.n_rt) * rows;
+  w.m = t / p.n_rt;
+  return w;
+}
+
+// A tile's K loop over n_k tiles through a ring of STAGES slots of `slot`
+// elements: load(kt, slot) issues tile kt's cp.async copies, compute(slot)
+// consumes a landed tile. Tile kt + STAGES - 1 loads while kt computes.
+template <int STAGES, typename T, typename Load, typename Compute>
+__device__ __forceinline__ void ring_loop(T* ring, int slot, int n_k, Load load,
+                                          Compute compute) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_k) load(s, ring + s * slot);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();  // tile kt landed for every thread; tile kt-1's slot is free
+    if (kt + STAGES - 1 < n_k) load(kt + STAGES - 1, ring + ((kt + STAGES - 1) % STAGES) * slot);
+    cp_async_commit();
+    compute(ring + (kt % STAGES) * slot);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The epilogue of two adjacent k1 of one k2 (ch, ch + 1): each stream's re =
+// cos.tr - (-sin.ti), im = cos.ti + (-sin.tr) from its four sums s[q][0..3];
+// X = E + exp(-iπk/N)·O; the rotation; the requant; the int8 pair at o.
+__device__ __forceinline__ void stage_b_store(const StageBParams& p, long long o, int ch,
+                                              long long rbase, const float (&s)[2][2][4]) {
+  const float2 uc = __ldg(reinterpret_cast<const float2*>(p.untc + ch));
+  const float2 us = __ldg(reinterpret_cast<const float2*>(p.unts + ch));
+  const float2 rc = __ldg(reinterpret_cast<const float2*>(p.rotc + rbase + ch));
+  const float2 rs = __ldg(reinterpret_cast<const float2*>(p.rots + rbase + ch));
+  int8_t v[2][2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float er = __fsub_rn(s[e][0][0], s[e][0][1]);
+    const float ei = __fadd_rn(s[e][0][2], s[e][0][3]);
+    const float orr = __fsub_rn(s[e][1][0], s[e][1][1]);
+    const float oi = __fadd_rn(s[e][1][2], s[e][1][3]);
+    const float u_c = e ? uc.y : uc.x, u_s = e ? us.y : us.x;
+    const float r_c = e ? rc.y : rc.x, r_s = e ? rs.y : rs.x;
+    const float xr = __fsub_rn(__fadd_rn(er, __fmul_rn(u_c, orr)), __fmul_rn(u_s, oi));
+    const float xi = __fadd_rn(__fadd_rn(ei, __fmul_rn(u_c, oi)), __fmul_rn(u_s, orr));
+    v[0][e] = requant(__fsub_rn(__fmul_rn(xr, r_c), __fmul_rn(xi, r_s)));
+    v[1][e] = requant(__fadd_rn(__fmul_rn(xr, r_s), __fmul_rn(xi, r_c)));
+  }
+  *reinterpret_cast<char2*>(p.outr + o) = make_char2(v[0][0], v[0][1]);
+  *reinterpret_cast<char2*>(p.outi + o) = make_char2(v[1][0], v[1][1]);
+}
+
+// Stage B, bf16: per stream the four products of a [64 k2 x 32 k1] tile over
+// n2, chained through the MMAs' accumulators (as the DFT pass's stage B),
+// then the epilogue.
+__global__ void __launch_bounds__(TP_THREADS, 2) dit_stage_b_kernel(StageBParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int n1 = p.n1, n2 = p.n2, w2 = 2 * n2, n = n1 * n2;
+  const StageTile w = stage_tile(p, SB_M, SB_N);  // rows: k2; columns: k1
+  const long long mat = w.m * n1 * static_cast<long long>(w2);
+  const bf16* d2c = static_cast<const bf16*>(p.d2c) + static_cast<long long>(w.r0) * n2;
+  const bf16* d2s = static_cast<const bf16*>(p.d2s) + static_cast<long long>(w.r0) * n2;
+  const bf16* tr = static_cast<const bf16*>(p.tr) + mat + static_cast<long long>(w.c0) * w2;
+  const bf16* ti = static_cast<const bf16*>(p.ti) + mat + static_cast<long long>(w.c0) * w2;
+  const int wr = (warp / 2) * 16, wc = (warp % 2) * 16;  // the warp's k2 rows, k1 columns
+  float acc[64];  // [stream q][sum s][n8 j][4] at q * 32 + s * 8 + j * 4
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  auto load = [&](int kt, bf16* slot) {
+    // [SB_M x SB_K] of the cos rows, then of the -sin rows; then [SB_N x
+    // 2·SB_K] of T re, then of T im (both streams' SB_K n2, interleaved).
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * SB_M * (SB_K / 8); i += TP_THREADS) {
+      const int mm = i / (SB_M * (SB_K / 8)), j = i % (SB_M * (SB_K / 8));
+      const int r = j / (SB_K / 8), q = j % (SB_K / 8);
+      cp_async16(slot + (mm * SB_M + r) * SB_DLD + q * 8,
+                 (mm ? d2s : d2c) + (static_cast<long long>(r) * n2 + kt * SB_K + q * 8));
+    }
+    bf16* st = slot + 2 * SB_M * SB_DLD;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * SB_N * (2 * SB_K / 8); i += TP_THREADS) {
+      const int mm = i / (SB_N * (2 * SB_K / 8)), j = i % (SB_N * (2 * SB_K / 8));
+      const int r = j / (2 * SB_K / 8), q = j % (2 * SB_K / 8);
+      cp_async16(st + (mm * SB_N + r) * SB_TLD + q * 8,
+                 (mm ? ti : tr) + (static_cast<long long>(r) * w2 + 2 * kt * SB_K + q * 8));
+    }
+  };
+  auto compute = [&](const bf16* slot) {
+    const bf16* sC = slot;
+    const bf16* sS = slot + SB_M * SB_DLD;
+    const bf16* sTr = slot + 2 * SB_M * SB_DLD;
+    const bf16* sTi = sTr + SB_N * SB_TLD;
+#pragma unroll
+    for (int kk = 0; kk < SB_K; kk += 16) {
+      uint32_t fc[4], fs[4];
+      {
+        const int r = wr + lane % 16, c = kk + (lane / 16) * 8;
+        ldsm_x4(fc, sC + r * SB_DLD + c);
+        ldsm_x4(fs, sS + r * SB_DLD + c);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        // T row k1 = wc + j * 8 + g: n2 = kk + 2·tig and + 1 (b0), + 8 and
+        // + 9 (b1). A 32-bit word holds one n2 of both streams; the even
+        // stream's halves of two words make its fragment register, the odd
+        // stream's the other.
+        const int o = (wc + j * 8 + g) * SB_TLD + 2 * kk + 4 * tig;
+        const uint2 rl = *reinterpret_cast<const uint2*>(sTr + o);
+        const uint2 rh = *reinterpret_cast<const uint2*>(sTr + o + 16);
+        const uint2 il = *reinterpret_cast<const uint2*>(sTi + o);
+        const uint2 ih = *reinterpret_cast<const uint2*>(sTi + o + 16);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const unsigned sel = q ? 0x7632u : 0x5410u;
+          const uint32_t r0 = __byte_perm(rl.x, rl.y, sel), r1 = __byte_perm(rh.x, rh.y, sel);
+          const uint32_t i0 = __byte_perm(il.x, il.y, sel), i1 = __byte_perm(ih.x, ih.y, sel);
+          float* a = acc + q * 32 + j * 4;  // sum s at a + s * 8
+          mma16816(a + 0 * 8, fc, r0, r1);
+          mma16816(a + 1 * 8, fs, i0, i1);
+          mma16816(a + 2 * 8, fc, i0, i1);
+          mma16816(a + 3 * 8, fs, r0, r1);
+        }
+      }
+    }
+  };
+  ring_loop<SB_STAGES>(ring, SB_SLOT, n2 / SB_K, load, compute);
+
+  const long long rbase = (w.m / p.n_spectra) * n;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ch = (w.r0 + wr + g + hh * 8) * n1 + w.c0 + wc + j * 8 + tig * 2;
+      float s[2][2][4];  // [k1 e][stream q][sum]
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) s[e][q][k] = acc[q * 32 + k * 8 + j * 4 + hh * 2 + e];
+        }
+      }
+      stage_b_store(p, w.m * n + ch, ch, rbase, s);
+    }
+  }
+}
+
+// Stage B, f32 (exact f32 FFMA): per stream the four products of a [64 k2 x
+// 32 k1] tile over n2, the half of the N2-point matrix that holds the tile's
+// k2 ([n2][cos, then -sin]) against T transposed ([2·n2 + q][k1], as K1's f32
+// stage A writes it on the [N1, 2·N2] view), then the epilogue. A half-warp
+// reads 16 runs of 4 k2; the two k1 pairs of a warp are broadcasts.
+__global__ void __launch_bounds__(TP_THREADS, 1) dit_stage_b_f32_kernel(StageBParams p) {
+  extern __shared__ __align__(128) float f3_smem[];
+  const int tid = threadIdx.x;
+  const int n1 = p.n1, n2 = p.n2, h = n2 / 2, n = n1 * n2;
+  const StageTile w = stage_tile(p, FB_M, FB_N);  // rows: k2; columns: k1
+  const long long mat = w.m * 2 * n2 * static_cast<long long>(n1);
+  const int half = w.r0 / h;
+  const float* d2 = static_cast<const float*>(p.d2c) + static_cast<long long>(half) * n2 * n2 +
+                    (w.r0 - half * h);
+  const float* tr = static_cast<const float*>(p.tr) + mat + w.c0;  // [2·N2][N1]
+  const float* ti = static_cast<const float*>(p.ti) + mat + w.c0;
+  const int rb = (tid % 16) * 4, qb = (tid / 16) * 2;  // k2 rows rb.., k1 columns qb..
+  float acc[64];  // [stream q][sum s][k2 a][k1 c] at ((q * 4 + s) * 4 + a) * 2 + c
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  auto load = [&](int kt, float* slot) {
+    // [FB_K x 2·FB_M]: row n2, the tile's k2 cos at 0.., -sin at FB_M..;
+    // then T re and T im, [2·FB_K rows (n2, q) x FB_N k1] each.
+#pragma unroll 1
+    for (int i = threadIdx.x; i < FB_K * 2 * FB_M / 4; i += TP_THREADS) {
+      const int r = i / (2 * FB_M / 4), q = (i % (2 * FB_M / 4)) * 4;
+      cp_async16(slot + r * 2 * FB_M + q,
+                 d2 + (static_cast<long long>(kt * FB_K + r) * n2 + (q < FB_M ? q : h + q - FB_M)));
+    }
+    float* st = slot + FB_K * 2 * FB_M;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * 2 * FB_K * FB_N / 4; i += TP_THREADS) {
+      const int mm = i / (2 * FB_K * FB_N / 4), j = i % (2 * FB_K * FB_N / 4);
+      const int r = j / (FB_N / 4), q = (j % (FB_N / 4)) * 4;
+      cp_async16(st + (mm * 2 * FB_K + r) * FB_N + q,
+                 (mm ? ti : tr) + (static_cast<long long>(2 * kt * FB_K + r) * n1 + q));
+    }
+  };
+  auto compute = [&](const float* slot) {
+    const float* sD = slot;
+    const float* sTr = slot + FB_K * 2 * FB_M;
+    const float* sTi = sTr + 2 * FB_K * FB_N;
+#pragma unroll
+    for (int kk = 0; kk < FB_K; ++kk) {
+      const float4 dc = *reinterpret_cast<const float4*>(sD + kk * 2 * FB_M + rb);
+      const float4 ds = *reinterpret_cast<const float4*>(sD + kk * 2 * FB_M + FB_M + rb);
+      const float cv[4] = {dc.x, dc.y, dc.z, dc.w}, sv[4] = {ds.x, ds.y, ds.z, ds.w};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float2 t_r = *reinterpret_cast<const float2*>(sTr + (2 * kk + q) * FB_N + qb);
+        const float2 t_i = *reinterpret_cast<const float2*>(sTi + (2 * kk + q) * FB_N + qb);
+        const float trv[2] = {t_r.x, t_r.y}, tiv[2] = {t_i.x, t_i.y};
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float* s = acc + (q * 16 + a) * 2 + c;  // sum k at s[k * 8]
+            s[0] = fmaf(cv[a], trv[c], s[0]);
+            s[8] = fmaf(sv[a], tiv[c], s[8]);
+            s[16] = fmaf(cv[a], tiv[c], s[16]);
+            s[24] = fmaf(sv[a], trv[c], s[24]);
+          }
+        }
+      }
+    }
+  };
+  ring_loop<FB_STAGES>(f3_smem, FB_SLOT, n2 / FB_K, load, compute);
+
+  const long long rbase = (w.m / p.n_spectra) * n;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int ch = (w.r0 + rb + a) * n1 + w.c0 + qb;
+    float s[2][2][4];  // [k1 c][stream q][sum]
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s[c][q][k] = acc[((q * 4 + k) * 4 + a) * 2 + c];
+      }
+    }
+    stage_b_store(p, w.m * n + ch, ch, rbase, s);
+  }
+}
+
+// Whether the three-pass tiles cover N1 x N2 (both stage Bs; K1's stage A
+// checks its own at N1 x 2·N2): powers of two, N1 a multiple of the 32-k1
+// tiles and at least K1's 64-row stage-A tile, N2 / 2 a multiple of the
+// 64-k2 tiles, and the indices in 32 bits (N1 <= 2^15, 2·N2 <= 2^15).
+bool three_pass_split(int n1, int n2) {
+  return n1 >= 64 && n1 <= (1 << 15) && (n1 & (n1 - 1)) == 0 && n2 >= 128 && n2 <= (1 << 14) &&
+         (n2 & (n2 - 1)) == 0;
+}
+
+// Launches a stage-B kernel, one block a tile.
+template <typename K>
+cudaError_t launch_stage_b(K kern, const StageBParams& p, long long tiles, size_t smem,
+                           cudaStream_t stream) {
+  if (tiles < 1 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<static_cast<unsigned>(tiles), TP_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// A stage-B kernel's body: out int[9] = registers a thread, local (spill)
+// bytes a thread, threads a block, shared-memory bytes, tile rows (k2), tile
+// columns (k1), K-tile depth, ring stages, blocks an SM (as K1's
+// k1_stage_*_attributes give theirs).
+template <typename K>
+int stage_b_attributes(K kern, size_t smem, int rows, int cols, int depth, int stages,
+                       void* out) {
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TP_THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* o = static_cast<int*>(out);
+  o[0] = a.numRegs;
+  o[1] = static_cast<int>(a.localSizeBytes);
+  o[2] = TP_THREADS;
+  o[3] = static_cast<int>(smem);
+  o[4] = rows;
+  o[5] = cols;
+  o[6] = depth;
+  o[7] = stages;
+  o[8] = per_sm;
+  return 0;
+}
+
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+// The DFT pass's parameters with the operands every entry passes.
+DftParams dft_params(const void* plane, const void* d1c, const void* d1s, const void* d2c,
+                     const void* d2s, const void* twc, const void* tws, void* outr, void* outi,
+                     int n_spectra, int n1, int n2) {
+  DftParams p{};
+  p.plane = static_cast<const bf16*>(plane);
+  p.d1c = static_cast<const bf16*>(d1c);
+  p.d1s = static_cast<const bf16*>(d1s);
+  p.d2c = static_cast<const bf16*>(d2c);
+  p.d2s = static_cast<const bf16*>(d2s);
+  p.twc = static_cast<const float*>(twc);
+  p.tws = static_cast<const float*>(tws);
+  p.outr = static_cast<int8_t*>(outr);
+  p.outi = static_cast<int8_t*>(outi);
+  p.n_spectra = n_spectra;
+  p.n1 = n1;
+  p.n2 = n2;
+  return p;
+}
 
 }  // namespace
 
-// The stage stops of the bf16 kernel (the probe P2; see the head of the
-// file): stop 1..6 = dma, conv, fir, deint, stagea, stageb; outputs as
-// fengine_dit_launch's, no rotation planes (no stop reaches the rotation).
-// The stops before the chunk loop launch with no shared memory. Returns -1
-// where no plan fits.
-extern "C" int fengine_dit_stop_launch(
-    const void* x, const void* win, const void* d1c, const void* d1s, const void* d2c,
-    const void* d2s, const void* twc, const void* tws, void* outr, void* outi, int batch,
-    int n_frames, int n_taps, int n1, int n2, int stop, void* stream) {
-  const int n_spectra = n_frames - n_taps + 1;
-  if (n1 < 2 || (n1 & (n1 - 1)) || n2 < 4 || (n2 & (n2 - 1)) || n_taps < 1 ||
-      n_spectra < 1 || batch < 1 || batch > 65535 || stop < DIT_DMA || stop > DIT_STAGEB) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int kc = n1 < KC ? n1 : KC;
-  while (kc > 2 && smem_bytes(n2, kc) > MAX_SMEM) kc /= 2;
-  const size_t bytes = stop >= DIT_STAGEA ? smem_bytes(n2, kc) : 0;
-  if (bytes > MAX_SMEM) return -1;
-  Params p{static_cast<const int8_t*>(x), static_cast<const float*>(win),
-           static_cast<const float*>(d1c), static_cast<const float*>(d1s),
-           static_cast<const float*>(d2c), static_cast<const float*>(d2s),
-           static_cast<const float*>(twc), static_cast<const float*>(tws),
-           nullptr, nullptr, nullptr, nullptr,
-           static_cast<int8_t*>(outr), static_cast<int8_t*>(outi),
-           n_frames, n_spectra, n_taps, n1, n2, kc};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (stop) {
-    case DIT_DMA: err = launch<true, DIT_DMA>(p, batch, bytes, st); break;
-    case DIT_CONV: err = launch<true, DIT_CONV>(p, batch, bytes, st); break;
-    case DIT_FIR: err = launch<true, DIT_FIR>(p, batch, bytes, st); break;
-    case DIT_DEINT: err = launch<true, DIT_DEINT>(p, batch, bytes, st); break;
-    case DIT_STAGEA: err = launch<true, DIT_STAGEA>(p, batch, bytes, st); break;
-    default: err = launch<true, DIT_STAGEB>(p, batch, bytes, st); break;
-  }
-  return static_cast<int>(err);
-}
-
-extern "C" int fengine_dit_launch(
-    const void* x, const void* win, const void* d1c, const void* d1s, const void* d2c,
-    const void* d2s, const void* twc, const void* tws, const void* untc, const void* unts,
-    const void* rotc, const void* rots, void* outr, void* outi, int batch, int n_frames,
-    int n_taps, int n1, int n2, int bf16, void* stream) {
-  const int n_spectra = n_frames - n_taps + 1;
-  // Shapes the tiling assumes (powers of two, the wrapper's _deint_mode).
-  if (n1 < 2 || (n1 & (n1 - 1)) || n2 < 4 || (n2 & (n2 - 1)) || n_taps < 1 ||
-      n_spectra < 1 || batch < 1 || batch > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int kc = n1 < KC ? n1 : KC;
-  while (kc > 2 && smem_bytes(n2, kc) > MAX_SMEM) kc /= 2;
-  const size_t bytes = smem_bytes(n2, kc);
-  if (bytes > MAX_SMEM) return -1;  // no plan: even a 2-row chunk does not fit
-  Params p{static_cast<const int8_t*>(x), static_cast<const float*>(win),
-           static_cast<const float*>(d1c), static_cast<const float*>(d1s),
-           static_cast<const float*>(d2c), static_cast<const float*>(d2s),
-           static_cast<const float*>(twc), static_cast<const float*>(tws),
-           static_cast<const float*>(untc), static_cast<const float*>(unts),
-           static_cast<const float*>(rotc), static_cast<const float*>(rots),
-           static_cast<int8_t*>(outr), static_cast<int8_t*>(outi),
-           n_frames, n_spectra, n_taps, n1, n2, kc};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch<true>(p, batch, bytes, st) : launch<false>(p, batch, bytes, st);
-  return static_cast<int>(err);
-}
-
-// The two-pass body's DFT pass: plane [batch, n_spectra, fft] bf16 (K1's FIR
+// The two-pass route's DFT pass: plane [batch, n_spectra, fft] bf16 (K1's FIR
 // pass output, fft = 2·N1·N2) -> outputs [batch, n_spectra, N] int8. d1c,
-// d1s, d2c, d2s are the bf16 DFT matrices, twc/tws the f32 twiddles
-// [N1, N2], untc/unts the f32 combine factors [N2, N1], rotc/rots [batch, N].
-// Returns -1 where no chunk's plan fits shared memory.
+// d1s are the bf16 N1-point matrices, d2c, d2s the bf16 N2-point matrices
+// [N2P, N2P] (N2P = max(N2, 16), zero-padded), twc/tws the f32 twiddles
+// [N1, N2], untc/unts the f32 combine factors [N2, N1], rotc/rots [batch,
+// N]. Returns -1 where no chunk's plan fits shared memory (N2 >= 2048: the
+// three-pass route's splits).
 extern "C" int dit_dft_launch(const void* plane, const void* d1c, const void* d1s,
                               const void* d2c, const void* d2s, const void* twc, const void* tws,
                               const void* untc, const void* unts, const void* rotc,
                               const void* rots, void* outr, void* outi, int batch,
                               int n_spectra, int n1, int n2, void* stream) {
-  if (n1 < 16 || !pow2(n1) || n2 < 16 || !pow2(n2) || batch < 1 || n_spectra < 1) {
+  if (!pow2(n1) || !pow2(n2) || batch < 1 || n_spectra < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  DftParams p{};
-  p.plane = static_cast<const bf16*>(plane);
-  p.d1c = static_cast<const bf16*>(d1c);
-  p.d1s = static_cast<const bf16*>(d1s);
-  p.d2c = static_cast<const bf16*>(d2c);
-  p.d2s = static_cast<const bf16*>(d2s);
-  p.twc = static_cast<const float*>(twc);
-  p.tws = static_cast<const float*>(tws);
+  DftParams p = dft_params(plane, d1c, d1s, d2c, d2s, twc, tws, outr, outi, n_spectra, n1, n2);
   p.untc = static_cast<const float*>(untc);
   p.unts = static_cast<const float*>(unts);
   p.rotc = static_cast<const float*>(rotc);
   p.rots = static_cast<const float*>(rots);
-  p.outr = static_cast<int8_t*>(outr);
-  p.outi = static_cast<int8_t*>(outi);
-  p.n_spectra = n_spectra;
-  p.n1 = n1;
-  p.n2 = n2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
+  return with_plan(p, [&](auto kc, auto n8, const DftParams& q, size_t bytes) {
     constexpr int K = decltype(kc)::value;
-    const cudaError_t err = n1 <= CHAIN_N1 ? launch_dft<K, true>(q, batch, bytes, st)
-                                           : launch_dft<K, false>(q, batch, bytes, st);
+    cudaError_t err;
+    if constexpr (decltype(n8)::value) {
+      err = launch_dft<K, true, DFT_FULL, true>(q, batch, bytes, st);
+    } else {
+      err = n1 <= CHAIN_N1 ? launch_dft<K, true>(q, batch, bytes, st)
+                           : launch_dft<K, false>(q, batch, bytes, st);
+    }
     return static_cast<int>(err);
   });
 }
 
 // What the DFT pass's body at N1 x N2 is: out[0] registers a thread, out[1]
-// local (spill) bytes a thread, out[2] KC, out[3] the K-tile depth, out[4]
-// ring stages, out[5] dynamic shared-memory bytes. Returns -1 where no plan
-// fits.
+// local (spill) bytes a thread, out[2] KC (T rows a unit: 128 or 64 at N1 =
+// 8), out[3] the stage-B K-tile depth, out[4] ring stages, out[5] dynamic
+// shared-memory bytes, out[6] spectra a unit. Returns -1 where no plan fits
+// (the split then takes the three-pass route, or none).
 extern "C" int dit_dft_attributes(int n1, int n2, void* out) {
-  if (n1 < 16 || !pow2(n1) || n2 < 16 || !pow2(n2)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!pow2(n1) || !pow2(n2)) return static_cast<int>(cudaErrorInvalidValue);
   DftParams p{};
+  p.n_spectra = 1;
   p.n1 = n1;
   p.n2 = n2;
   int* o = static_cast<int*>(out);
-  return with_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
+  return with_plan(p, [&](auto kc, auto n8, const DftParams& q, size_t bytes) {
     cudaFuncAttributes a{};
     constexpr int K = decltype(kc)::value;
-    const cudaError_t err = n1 <= CHAIN_N1 ? cudaFuncGetAttributes(&a, dit_dft_kernel<K, true>)
-                                           : cudaFuncGetAttributes(&a, dit_dft_kernel<K, false>);
+    cudaError_t err;
+    if constexpr (decltype(n8)::value) {
+      err = cudaFuncGetAttributes(&a, dit_dft_kernel<K, true, DFT_FULL, true>);
+    } else {
+      err = n1 <= CHAIN_N1 ? cudaFuncGetAttributes(&a, dit_dft_kernel<K, true>)
+                           : cudaFuncGetAttributes(&a, dit_dft_kernel<K, false>);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     o[0] = a.numRegs;
     o[1] = static_cast<int>(a.localSizeBytes);
-    o[2] = decltype(kc)::value;
-    o[3] = q.kt;
+    o[2] = K;
+    o[3] = q.ktb;
     o[4] = q.stages;
     o[5] = static_cast<int>(bytes);
+    o[6] = q.sb;
     return 0;
   });
 }
 
-// The DFT pass cut at a stage (stop 1 stagea, 2 stageb; see DFT_STAGEA): the
-// arguments of dit_dft_launch without the combine factors and rotation
-// planes, int8 outputs [batch, n_spectra, N]. The stops take the 64-row
-// chunk plan with chained stage-A sums only (64 <= N1 <= 256, N2 <= 256);
-// -1 elsewhere.
+// The DFT pass cut at a stage (stop 1 stagea, 2 stageb, 3 stagea writing T
+// re; see the head of the file): the arguments of dit_dft_launch without the
+// combine factors and rotation planes, int8 outputs [batch, n_spectra, N].
+// The stops take the 64-row chunk plan with chained stage-A sums only (64 <=
+// N1 <= 256, N2 <= 256); -1 elsewhere.
 extern "C" int dit_dft_stop_launch(const void* plane, const void* d1c, const void* d1s,
                                    const void* d2c, const void* d2s, const void* twc,
                                    const void* tws, void* outr, void* outi, int batch,
                                    int n_spectra, int n1, int n2, int stop, void* stream) {
-  if (n1 < 16 || !pow2(n1) || n2 < 16 || !pow2(n2) || batch < 1 || n_spectra < 1 ||
-      (stop != DFT_STAGEA && stop != DFT_STAGEB)) {
+  if (!pow2(n1) || !pow2(n2) || batch < 1 || n_spectra < 1 ||
+      (stop != DFT_STAGEA && stop != DFT_STAGEB && stop != DFT_STAGEA_T)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  DftParams p{};
-  p.plane = static_cast<const bf16*>(plane);
-  p.d1c = static_cast<const bf16*>(d1c);
-  p.d1s = static_cast<const bf16*>(d1s);
-  p.d2c = static_cast<const bf16*>(d2c);
-  p.d2s = static_cast<const bf16*>(d2s);
-  p.twc = static_cast<const float*>(twc);
-  p.tws = static_cast<const float*>(tws);
-  p.outr = static_cast<int8_t*>(outr);
-  p.outi = static_cast<int8_t*>(outi);
-  p.n_spectra = n_spectra;
-  p.n1 = n1;
-  p.n2 = n2;
+  const DftParams p =
+      dft_params(plane, d1c, d1s, d2c, d2s, twc, tws, outr, outi, n_spectra, n1, n2);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
-    if constexpr (decltype(kc)::value != 64) {
+  return with_plan(p, [&](auto kc, auto n8, const DftParams& q, size_t bytes) {
+    if constexpr (decltype(kc)::value != 64 || decltype(n8)::value) {
       return NO_PLAN;
     } else {
       if (n1 > CHAIN_N1) return NO_PLAN;
-      const cudaError_t err = stop == DFT_STAGEA
-                                  ? launch_dft<64, true, DFT_STAGEA>(q, batch, bytes, st)
-                                  : launch_dft<64, true, DFT_STAGEB>(q, batch, bytes, st);
+      cudaError_t err;
+      switch (stop) {
+        case DFT_STAGEA: err = launch_dft<64, true, DFT_STAGEA>(q, batch, bytes, st); break;
+        case DFT_STAGEA_T: err = launch_dft<64, true, DFT_STAGEA_T>(q, batch, bytes, st); break;
+        default: err = launch_dft<64, true, DFT_STAGEB>(q, batch, bytes, st); break;
+      }
       return static_cast<int>(err);
     }
   });
 }
 
-// The f32 two-pass body's DFT pass: plane [batch, n_spectra, fft] f32 (K1's
-// f32 FIR pass output, fft = 2·N1·N2; 16-byte aligned) -> outputs [batch,
-// n_spectra, N] int8. d1c, d1s are the f32 N1-point matrices, d2h the f32
-// N2-point matrix in two halves of k2, each transposed ([2][n2][cos, then
-// -sin]), twc/tws the f32 twiddles [N1, N2], untc/unts the f32 combine
-// factors [N2, N1], rotc/rots [batch, N] (8-byte aligned). Returns -1 where
-// the pass has no plan (N1 < 16, N2 < 64 or N2 > 512): those shapes take
-// fengine_dit_launch.
+// The f32 two-pass route's DFT pass: plane [batch, n_spectra, fft] f32
+// (K1's f32 FIR pass output, fft = 2·N1·N2; 16-byte aligned) -> outputs
+// [batch, n_spectra, N] int8. d1c, d1s are the f32 N1-point matrices, d2h
+// the f32 N2-point matrix in NH halves of k2 (2; 1 at N2 = 4), each
+// transposed ([NH][n2][cos, then -sin]), twc/tws the f32 twiddles [N1, N2],
+// untc/unts the f32 combine factors [N2, N1], rotc/rots [batch, N] (8-byte
+// aligned). Returns -1 where the pass has no plan (N2 >= 1024: the
+// three-pass route's splits).
 extern "C" int dit_dft_f32_launch(const void* plane, const void* d1c, const void* d1s,
                                   const void* d2h, const void* twc, const void* tws,
                                   const void* untc, const void* unts, const void* rotc,
                                   const void* rots, void* outr, void* outi, int batch,
                                   int n_spectra, int n1, int n2, void* stream) {
-  if (n1 < 2 || !pow2(n1) || n2 < 4 || !pow2(n2) || batch < 1 || n_spectra < 1) {
+  if (!pow2(n1) || !pow2(n2) || batch < 1 || n_spectra < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   F32Params p{};
@@ -1584,13 +1731,11 @@ extern "C" int dit_dft_f32_launch(const void* plane, const void* d1c, const void
 }
 
 // The f32 DFT pass's plan and body at N1 x N2, -1 where it has none (the
-// shape then takes the SIMT body): out int[8] = registers a thread, local
-// (spill) bytes a thread, KC, SB, stage-B K-tile depth, ring stages,
-// shared-memory bytes, threads a block.
+// split then takes the three-pass route, or none): out int[8] = registers a
+// thread, local (spill) bytes a thread, KC, SB, stage-B K-tile depth, ring
+// stages, shared-memory bytes, threads a block.
 extern "C" int dit_dft_f32_attributes(int n1, int n2, void* out) {
-  if (n1 < 2 || !pow2(n1) || n2 < 4 || !pow2(n2)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!pow2(n1) || !pow2(n2)) return static_cast<int>(cudaErrorInvalidValue);
   F32Params p{};
   p.n_spectra = 1;
   p.n1 = n1;
@@ -1611,4 +1756,58 @@ extern "C" int dit_dft_f32_attributes(int n1, int n2, void* out) {
     o[7] = F32_THREADS;
     return 0;
   });
+}
+
+// The three-pass route's stage B: T re, im as K1's stage A writes them on
+// the [N1, 2·N2] view (bf16 [batch, n_spectra, N1, 2·N2], 16-byte aligned)
+// -> outputs [batch, n_spectra, N] int8; d2c/d2s the bf16 [N2, N2] cos and
+// -sin, untc/unts the f32 combine factors [N2, N1], rotc/rots [batch, N]
+// (8-byte aligned). Returns -1 where the route's tiles do not cover the
+// split.
+extern "C" int dit_stage_b_launch(const void* tr, const void* ti, const void* d2c,
+                                  const void* d2s, const void* untc, const void* unts,
+                                  const void* rotc, const void* rots, void* outr, void* outi,
+                                  int batch, int n_spectra, int n1, int n2, void* stream) {
+  if (batch < 1 || n_spectra < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  const StageBParams p{tr, ti, d2c, d2s,
+                       static_cast<const float*>(untc), static_cast<const float*>(unts),
+                       static_cast<const float*>(rotc), static_cast<const float*>(rots),
+                       static_cast<int8_t*>(outr), static_cast<int8_t*>(outi),
+                       n_spectra, n1, n2, n1 / SB_N, n2 / SB_M};
+  const long long tiles = static_cast<long long>(batch) * n_spectra * p.n_ct * p.n_rt;
+  return static_cast<int>(
+      launch_stage_b(dit_stage_b_kernel, p, tiles, SB_SMEM, static_cast<cudaStream_t>(stream)));
+}
+
+// Stage B with f32 operands: T re, im transposed as K1's f32 stage A writes
+// them ([batch, n_spectra, 2·N2, N1] f32, 16-byte aligned), d2h the f32
+// N2-point matrix in two halves of k2, each transposed ([2][n2][cos, then
+// -sin], as dit_dft_f32_launch takes it); the rest as dit_stage_b_launch.
+extern "C" int dit_stage_b_f32_launch(const void* tr, const void* ti, const void* d2h,
+                                      const void* untc, const void* unts, const void* rotc,
+                                      const void* rots, void* outr, void* outi, int batch,
+                                      int n_spectra, int n1, int n2, void* stream) {
+  if (batch < 1 || n_spectra < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  const StageBParams p{tr, ti, d2h, nullptr,
+                       static_cast<const float*>(untc), static_cast<const float*>(unts),
+                       static_cast<const float*>(rotc), static_cast<const float*>(rots),
+                       static_cast<int8_t*>(outr), static_cast<int8_t*>(outi),
+                       n_spectra, n1, n2, n1 / FB_N, n2 / FB_M};
+  const long long tiles = static_cast<long long>(batch) * n_spectra * p.n_ct * p.n_rt;
+  return static_cast<int>(launch_stage_b(dit_stage_b_f32_kernel, p, tiles, FB_SMEM,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+// Each stage-B body at N1 x N2, -1 where the route's tiles do not cover the
+// split: out int[9] as K1's k1_stage_*_attributes give theirs.
+extern "C" int dit_stage_b_attributes(int n1, int n2, void* out) {
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  return stage_b_attributes(dit_stage_b_kernel, SB_SMEM, SB_M, SB_N, SB_K, SB_STAGES, out);
+}
+
+extern "C" int dit_stage_b_f32_attributes(int n1, int n2, void* out) {
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  return stage_b_attributes(dit_stage_b_f32_kernel, FB_SMEM, FB_M, FB_N, FB_K, FB_STAGES, out);
 }

@@ -46,15 +46,20 @@ decimation-in-time form instead (the reference's ``_fengine_kernel``):
 tensor and runs :func:`fengine_dit_reference` for a CPU tensor. The
 reference's two names move samples differently on the TPU but compute the
 same values; here they differ only in the N1·N2 split :func:`_deint_mode`
-gives them. :func:`_dit_body` picks K7's body up front: operands with N1 >=
-16, where the DFT pass of their type has a shared-memory plan, run K1's FIR
-pass and then K7's DFT pass over groups of streams: bf16 :func:`k1_fir` and
-:func:`dit_dft` (tensor cores), f32 :func:`k1_fir_f32` and
-:func:`dit_dft_f32` (register-blocked FFMA, exact f32). Their plain versions
+gives them. :func:`_dit_body` picks K7's route up front, and K7 runs it
+over groups of streams, K1's FIR pass first (:func:`k1_fir`, or
+:func:`k1_fir_f32` for f32 operands). Where the DFT pass of the operand type
+has a shared-memory plan (bf16 N2 <= 1024, f32 N2 <= 512, N1 = 8 included)
+it is two passes: the FIR pass, then :func:`dit_dft` (tensor cores) or
+:func:`dit_dft_f32` (register-blocked FFMA, exact f32). Where it has none
+(bf16 N2 >= 2048, f32 N2 >= 1024) it is three: the FIR pass, stage A
+(:func:`dit_stage_a`, :func:`dit_stage_a_f32`: K1's stage-A kernels on the
+plane's ``[N1, 2·N2]`` view, T into device memory) and stage B
+(:func:`dit_stage_b`, :func:`dit_stage_b_f32`). The plain versions
 (:func:`k1_fir_reference`, :func:`dit_dft_reference`,
-:func:`dit_dft_f32_reference`) compose to :func:`fengine_dit_reference`.
-N1 = 8 and a split without a plan take the single-pass SIMT body
-(:func:`fengine_dit_simt`).
+:func:`dit_dft_f32_reference`; :func:`dit_stage_a_reference` and
+:func:`dit_stage_b_reference`, which compose to those two) compose to
+:func:`fengine_dit_reference`. A split no route takes raises.
 """
 
 from __future__ import annotations
@@ -220,17 +225,25 @@ def _k1_body(n1: int, n2: int, dft_dtype: str) -> str:
 
 @functools.lru_cache(maxsize=64)
 def _dit_body(n1: int, n2: int, dft_dtype: str) -> str:
-    """K7's body for a split, decided before any launch: ``"two_pass"`` (K1's
-    FIR pass, then the tensor-core DFT pass) for bf16 operands and
+    """K7's route for a split, decided before any launch: ``"two_pass"``
+    (K1's FIR pass, then the tensor-core DFT pass) for bf16 operands and
     ``"two_pass_f32"`` (K1's f32 FIR pass, then the FFMA DFT pass) for f32
-    operands, each where N1 >= 16 and its DFT pass has a shared-memory plan
+    operands, where that DFT pass has a shared-memory plan
     (``dit_dft_attributes`` / ``dit_dft_f32_attributes`` in
-    ``csrc/fengine_dit.cu`` decide); ``"simt"`` (the single-pass SIMT body)
-    for N1 = 8 and a split without a plan."""
-    bf16 = dft_dtype == "bfloat16"
-    if n1 < 16 or not _has_plan("dit_dft_attributes" if bf16 else "dit_dft_f32_attributes", n1, n2):
-        return "simt"
-    return "two_pass" if bf16 else "two_pass_f32"
+    ``csrc/fengine_dit.cu`` decide; N1 = 8 included); else ``"three_pass"``
+    / ``"three_pass_f32"`` (the FIR pass, K1's stage A on the ``[N1,
+    2·N2]`` view, K7's stage B, through T in device memory) where both
+    stages' tiles cover the split (``k1_stage_a[_f32]_attributes`` at N1 x
+    2·N2, ``dit_stage_b[_f32]_attributes``). A split no route takes raises
+    ``ValueError``."""
+    sfx = "" if dft_dtype == "bfloat16" else "_f32"
+    if _has_plan(f"dit_dft{sfx}_attributes", n1, n2):
+        return "two_pass" + sfx
+    if (_has_plan(f"k1_stage_a{sfx}_attributes", n1, 2 * n2)
+            and _has_plan(f"dit_stage_b{sfx}_attributes", n1, n2)):
+        return "three_pass" + sfx
+    raise ValueError(f"K7 has no route for the split N1 x N2 = {n1} x {n2} ({dft_dtype} "
+                     "operands): neither the DFT pass's plan nor the three-pass tiles cover it")
 
 
 def fine_rotation_planes(
@@ -1037,18 +1050,23 @@ def _dit_stage_b(tr, ti, k, rnd):
     return re, im
 
 
-def _dit_dft(acc, rotc, rots, n1, n2, rnd):
-    """K7 after its rounded FIR ``acc`` ``[B, S, fft]`` (f32): the even / odd
-    split, both half-length DFTs, the combine, the rotation and the requant."""
-    batch, n_spectra, fft = acc.shape
-    n = fft // 2
+def _dit_streams_a(acc, n1, n2, rnd):
+    """K7's stage A of its rounded FIR ``acc`` ``[B, S, fft]`` (f32): the even
+    and the odd stream's rounded ``(tr, ti)`` ``[B, S, N1, N2]``."""
+    batch, n_spectra, _ = acc.shape
     k = dit_constants(n1, n2, str(acc.device))
+    return tuple(_dit_stage_a(acc[..., q::2].reshape(batch, n_spectra, n1, n2), k, rnd)
+                 for q in (0, 1))
 
-    def dft(x):  # [B, S, N1, N2] -> (re, im) [B, S, N2, N1], bin k = k2*N1 + k1
-        return _dit_stage_b(*_dit_stage_a(x, k, rnd), k, rnd)
 
-    er, ei = dft(acc[..., 0::2].reshape(batch, n_spectra, n1, n2))
-    orr, oi = dft(acc[..., 1::2].reshape(batch, n_spectra, n1, n2))
+def _dit_streams_b(even, odd, rotc, rots, n1, n2, rnd):
+    """K7 after stage A: both streams' stage B from their rounded ``(tr,
+    ti)``, the combine, the rotation and the requant."""
+    batch, n_spectra = even[0].shape[:2]
+    n = n1 * n2
+    k = dit_constants(n1, n2, str(even[0].device))
+    er, ei = _dit_stage_b(*even, k, rnd)  # [B, S, N2, N1], bin k = k2*N1 + k1
+    orr, oi = _dit_stage_b(*odd, k, rnd)
     xr = (er + k.untc * orr - k.unts * oi).reshape(batch, n_spectra, n)
     xi = (ei + k.untc * oi + k.unts * orr).reshape(batch, n_spectra, n)
     rc = rotc.reshape(batch, 1, n)
@@ -1058,6 +1076,12 @@ def _dit_dft(acc, rotc, rots, n1, n2, rnd):
         return torch.round(v).clamp(-127.0, 127.0).to(torch.int8)
 
     return q(xr * rc - xi * rs), q(xr * rs + xi * rc)
+
+
+def _dit_dft(acc, rotc, rots, n1, n2, rnd):
+    """K7 after its rounded FIR ``acc`` ``[B, S, fft]`` (f32): the even / odd
+    split, both half-length DFTs, the combine, the rotation and the requant."""
+    return _dit_streams_b(*_dit_streams_a(acc, n1, n2, rnd), rotc, rots, n1, n2, rnd)
 
 
 def fengine_dit_reference(
@@ -1096,12 +1120,20 @@ def dit_dft_reference(
     return _dit_dft(plane.to(torch.float32), rotc, rots, n1, n2, _round_bf16)
 
 
+#: The least N2 the DFT pass's stage B takes (an MMA's depth): the N2-point
+#: matrices of smaller N2 (N1 = 8, fft <= 256) go to it zero-padded.
+_MIN_N2P = 16
+
+
 @functools.lru_cache(maxsize=16)
 def _dit_bf16(n1: int, n2: int, device: str) -> tuple[torch.Tensor, ...]:
     """bf16 (round-to-nearest-even) copies of d1c, d1s, d2c, d2s: the
-    operands of K7's DFT pass."""
+    operands of K7's DFT pass, d2c and d2s zero-padded to ``[N2P, N2P]``
+    (N2P = max(N2, 16); their extra rows and columns add exact zeros)."""
     k = dit_constants(n1, n2, device)
-    return tuple(t.to(torch.bfloat16).contiguous() for t in (k.d1c, k.d1s, k.d2c, k.d2s))
+    pad = max(n2, _MIN_N2P) - n2
+    d2 = (torch.nn.functional.pad(t, (0, pad, 0, pad)) for t in (k.d2c, k.d2s))
+    return tuple(t.to(torch.bfloat16).contiguous() for t in (k.d1c, k.d1s, *d2))
 
 
 def _dit_dft_pass(plane, rotc, rots, outr, outi, *, n1, n2) -> None:
@@ -1144,7 +1176,7 @@ def dit_dft(
     batch, n_spectra, fft = plane.shape
     if fft != 2 * n1 * n2 or _dit_body(n1, n2, "bfloat16") != "two_pass":
         raise ValueError(f"dit_dft: the pass takes fft = 2*N1*N2 with a two-pass plan "
-                         f"(N1 >= 16), got {n1}, {n2}, {fft}")
+                         f"(N2 <= 1024), got {n1}, {n2}, {fft}")
     _check("dit_dft", plane, (
         ("plane", plane, torch.bfloat16, None),
         ("rotc", rotc, torch.float32, (batch, fft // 2)),
@@ -1229,15 +1261,17 @@ dit_dft_stop.launches = 0
 
 def dit_dft_attributes(n1: int, n2: int) -> dict:
     """The card's view of K7's DFT-pass body at N1 x N2 (``cudaFuncGetAttributes``
-    and the plan): registers a thread, local (spill) bytes a thread, KC, the
-    K-tile depth, ring stages and shared-memory bytes."""
-    out = (ctypes.c_int * 6)()
+    and the plan): registers a thread, local (spill) bytes a thread, KC (T
+    rows a unit: at N1 = 8 those of 16 spectra, or 8 at N2 = 128), the
+    stage-B K-tile depth, ring stages, shared-memory bytes and spectra a
+    unit."""
+    out = (ctypes.c_int * 7)()
     lib = _build.library()
     err = lib.dit_dft_attributes(n1, n2, out)
     if err == _NO_PLAN:
         raise _no_plan("dit_dft", n1, n2, "the four bf16 T planes of a 16-row chunk and the ring")
     _build.check(lib, err, "dit_dft_attributes")
-    return dict(zip(("regs", "local_bytes", "kc", "kt", "stages", "smem_bytes"), out))
+    return dict(zip(("regs", "local_bytes", "kc", "ktb", "stages", "smem_bytes", "sb"), out))
 
 
 def dit_dft_f32_reference(
@@ -1258,13 +1292,16 @@ def dit_dft_f32_reference(
 
 @functools.lru_cache(maxsize=16)
 def _dit_d2h(n1: int, n2: int, device: str) -> torch.Tensor:
-    """The f32 N2-point matrix in two halves of k2, each transposed: ``[2,
-    N2, N2]``, half ``h`` row ``n2`` the cos of the half's k2, then the -sin
-    (the stage-B operand of K7's f32 DFT pass; the matrices are symmetric)."""
+    """The f32 N2-point matrix in NH halves of k2, each transposed: ``[NH,
+    N2, 2·N2/NH]``, half ``h`` row ``n2`` the cos of the half's k2, then the
+    -sin (the stage-B operand of K7's f32 DFT pass and of its f32 stage B;
+    the matrices are symmetric). NH = 2, or 1 at N2 = 4, where a thread's 4
+    k2 are all of them."""
     k = dit_constants(n1, n2, device)
-    h = n2 // 2
+    nh = 1 if n2 < 8 else 2
+    h = n2 // nh
     return torch.stack([torch.cat([k.d2c[:, i * h:(i + 1) * h], k.d2s[:, i * h:(i + 1) * h]],
-                                  dim=1) for i in (0, 1)]).contiguous()
+                                  dim=1) for i in range(nh)]).contiguous()
 
 
 def _dit_dft_f32_pass(plane, rotc, rots, outr, outi, *, n1, n2) -> None:
@@ -1307,8 +1344,8 @@ def dit_dft_f32(
         raise ValueError(f"dit_dft_f32: unsupported device {plane.device}")
     batch, n_spectra, fft = plane.shape
     if fft != 2 * n1 * n2 or _dit_body(n1, n2, "float32") != "two_pass_f32":
-        raise ValueError(f"dit_dft_f32: the pass takes fft = 2*N1*N2 with a plan (N1 >= 16, "
-                         f"64 <= N2 <= 512), got {n1}, {n2}, {fft}")
+        raise ValueError(f"dit_dft_f32: the pass takes fft = 2*N1*N2 with a plan (N2 <= 512), "
+                         f"got {n1}, {n2}, {fft}")
     _check("dit_dft_f32", plane, (
         ("plane", plane, torch.float32, None),
         ("rotc", rotc, torch.float32, (batch, fft // 2)),
@@ -1340,22 +1377,203 @@ def dit_dft_f32_attributes(n1: int, n2: int) -> dict:
                      "threads"), out))
 
 
-def _simt_launch(x, window, rotc, rots, outr, outi, *, n1, n2, bf16) -> None:
-    """K7's single-pass SIMT body, whole (CUDA tensors, checked by the caller)."""
-    batch, n_frames, _ = x.shape
-    if x.data_ptr() % 2:
-        x = x.clone()  # the kernel reads sample pairs as char2
-    k = dit_constants(n1, n2, str(x.device))
-    lib = _build.library()
-    err = lib.fengine_dit_launch(
-        x.data_ptr(), window.data_ptr(), *(t.data_ptr() for t in k),
-        rotc.data_ptr(), rots.data_ptr(), outr.data_ptr(), outi.data_ptr(),
-        batch, n_frames, window.shape[0], n1, n2, int(bf16),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err == _NO_PLAN:
-        raise _no_plan("fengine_dit", n1, n2, "the four f32 T planes of a 2-row chunk")
-    _build.check(lib, err, "fengine_dit")
+@functools.lru_cache(maxsize=16)
+def _dit_tw2(n1: int, n2: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's f32 twiddles with each column doubled, ``[N1, 2·N2]``: columns
+    2·n2 and 2·n2 + 1 both hold exp(-2πi·k1·n2/N), so K1's stage A on the
+    plane's ``[N1, 2·N2]`` view applies one twiddle to both streams of an
+    n2."""
+    k = dit_constants(n1, n2, device)
+    return tuple(t.repeat_interleave(2, dim=1).contiguous() for t in (k.twc, k.tws))
+
+
+def dit_stage_a_reference(
+    plane: torch.Tensor, *, n1: int, n2: int, dft_dtype: str = "bfloat16"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7's three-pass stage A: the FIR plane ``[B, S,
+    fft]`` (:func:`k1_fir_reference` of the frames viewed ``[B,
+    n_frames·fft]`` with zero starts) to T re and im ``[B, S, N1, 2·N2]``,
+    column ``2·n2 + q`` stream q's (q = 0 even, 1 odd): each stream's stage
+    A and twiddle rounded to the operand type (bf16 tensors, or f32), as
+    :func:`dit_dft_reference` rounds them."""
+    rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
+    batch, n_spectra, _ = plane.shape
+    even, odd = _dit_streams_a(plane.to(torch.float32), n1, n2, rnd)
+    dtype = torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32
+    return tuple(torch.stack([e, o], dim=-1).reshape(batch, n_spectra, n1, 2 * n2).to(dtype)
+                 for e, o in zip(even, odd))
+
+
+def dit_stage_b_reference(
+    tr: torch.Tensor,
+    ti: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    dft_dtype: str = "bfloat16",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7's three-pass stage B: T re and im ``[B, S, N1,
+    2·N2]`` (as :func:`dit_stage_a_reference` gives them) and
+    ``rotc``/``rots`` ``[B, N]`` to int8 ``(qr, qi)`` ``[B, S, N]``: each
+    stream's stage B, the combine, the rotation and the requant. Composed
+    with that stage A it is :func:`dit_dft_reference` (bf16) or
+    :func:`dit_dft_f32_reference` (f32), bit for bit."""
+    rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
+    tr, ti = (t.to(torch.float32) for t in (tr, ti))
+    even, odd = (tuple(t[..., q::2].contiguous() for t in (tr, ti)) for q in (0, 1))
+    return _dit_streams_b(even, odd, rotc, rots, n1, n2, rnd)
+
+
+def _dit_stage_a_pass(plane, tr, ti, *, n1, n2) -> None:
+    """K7's stage A from ``plane`` ``[G, S, fft]`` into ``tr``/``ti`` (CUDA
+    tensors of the operand type, 16-byte aligned, checked by the caller):
+    K1's stage-A kernel on the ``[N1, 2·N2]`` view with the column-doubled
+    twiddles (:func:`_dit_tw2`); counted on :func:`dit_stage_a` or
+    :func:`dit_stage_a_f32`."""
+    f32 = plane.dtype == torch.float32
+    dev = str(plane.device)
+    if f32:
+        k = dit_constants(n1, n2, dev)
+        d1c, d1s = k.d1c, k.d1s
+    else:
+        d1c, d1s = _dit_bf16(n1, n2, dev)[:2]
+    twc, tws = _dit_tw2(n1, n2, dev)
+    what = "k1_stage_a_f32_launch" if f32 else "k1_stage_a_launch"
+    _stage_call(what, n1, 2 * n2, plane.data_ptr(), d1c.data_ptr(), d1s.data_ptr(),
+                twc.data_ptr(), tws.data_ptr(), tr.data_ptr(), ti.data_ptr(),
+                plane.shape[0] * plane.shape[1], n1, 2 * n2,
+                torch.cuda.current_stream(plane.device).cuda_stream)
+    (dit_stage_a_f32 if f32 else dit_stage_a).launches += 1
+
+
+def _dit_stage_b_pass(tr, ti, rotc, rots, outr, outi, *, n1, n2) -> None:
+    """K7's stage B from ``tr``/``ti`` (as :func:`_dit_stage_a_pass` writes
+    them) into ``outr``/``outi`` ``[G, S, N]`` (CUDA tensors, 16-byte
+    aligned T, checked by the caller); counted on :func:`dit_stage_b` or
+    :func:`dit_stage_b_f32`."""
+    f32 = tr.dtype == torch.float32
+    rotc, rots = (r.clone() if r.data_ptr() % 8 else r for r in (rotc, rots))  # read as float2
+    dev = str(tr.device)
+    k = dit_constants(n1, n2, dev)
+    d2 = (_dit_d2h(n1, n2, dev),) if f32 else _dit_bf16(n1, n2, dev)[2:]
+    what = "dit_stage_b_f32_launch" if f32 else "dit_stage_b_launch"
+    _stage_call(what, n1, n2, tr.data_ptr(), ti.data_ptr(), *(t.data_ptr() for t in d2),
+                k.untc.data_ptr(), k.unts.data_ptr(), rotc.data_ptr(), rots.data_ptr(),
+                outr.data_ptr(), outi.data_ptr(), tr.shape[0], tr.shape[1], n1, n2,
+                torch.cuda.current_stream(tr.device).cuda_stream)
+    (dit_stage_b_f32 if f32 else dit_stage_b).launches += 1
+
+
+def _dit_stage_a_call(what, plane, n1, n2, dft_dtype):
+    if plane.device.type == "cpu":
+        return dit_stage_a_reference(plane, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    if plane.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {plane.device}")
+    batch, n_spectra, fft = plane.shape
+    if fft != 2 * n1 * n2 or _dit_body(n1, n2, dft_dtype) != "three_pass" + (
+            "" if dft_dtype == "bfloat16" else "_f32"):
+        raise ValueError(f"{what}: the stage takes fft = 2*N1*N2 on the three-pass route, got "
+                         f"{n1}, {n2}, {fft}")
+    dtype = torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32
+    _check(what, plane, (("plane", plane, dtype, None),))
+    tr, ti = (torch.empty((batch, n_spectra, *_t_layout(n1, 2 * n2, dtype)), dtype=dtype,
+                          device=plane.device) for _ in range(2))
+    _dit_stage_a_pass(_aligned(plane), tr, ti, n1=n1, n2=n2)
+    if dtype == torch.float32:
+        return tr.transpose(-1, -2), ti.transpose(-1, -2)  # views [B, S, N1, 2·N2]
+    return tr, ti
+
+
+def _dit_stage_b_call(what, tr, ti, rotc, rots, n1, n2, dft_dtype):
+    if tr.device.type == "cpu":
+        return dit_stage_b_reference(tr, ti, rotc, rots, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    if tr.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {tr.device}")
+    batch, n_spectra = tr.shape[:2]
+    n = n1 * n2
+    dtype = torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32
+    for name, t in (("tr", tr), ("ti", ti)):
+        if tuple(t.shape) != (batch, n_spectra, n1, 2 * n2):
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != "
+                             f"{(batch, n_spectra, n1, 2 * n2)}")
+    if dtype == torch.float32:  # the kernel reads T transposed
+        tr, ti = (t.transpose(-1, -2).contiguous() for t in (tr, ti))
+    layout = (batch, n_spectra, *_t_layout(n1, 2 * n2, dtype))
+    _check(what, tr, (
+        ("tr", tr, dtype, layout),
+        ("ti", ti, dtype, layout),
+        ("rotc", rotc, torch.float32, (batch, n)),
+        ("rots", rots, torch.float32, (batch, n)),
+    ))
+    outr = torch.empty((batch, n_spectra, n), dtype=torch.int8, device=tr.device)
+    outi = torch.empty_like(outr)
+    _dit_stage_b_pass(_aligned(tr), _aligned(ti), rotc, rots, outr, outi, n1=n1, n2=n2)
+    return outr, outi
+
+
+def dit_stage_a(plane: torch.Tensor, *, n1: int, n2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's three-pass stage A alone, bf16 operands: the bf16 FIR plane
+    ``[B, S, fft]`` to bf16 T re and im ``[B, S, N1, 2·N2]`` (K1's
+    ``k1_stage_a_kernel`` on the ``[N1, 2·N2]`` view on CUDA,
+    :func:`dit_stage_a_reference` on CPU)."""
+    return _dit_stage_a_call("dit_stage_a", plane, n1, n2, "bfloat16")
+
+
+def dit_stage_a_f32(plane: torch.Tensor, *, n1: int, n2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's three-pass stage A alone, f32 operands (FFMA, exact f32): the f32
+    plane to f32 T re and im ``[B, S, N1, 2·N2]`` (``k1_stage_a_f32_kernel``
+    on CUDA, views of its transposed T; :func:`dit_stage_a_reference` with
+    ``dft_dtype="float32"`` on CPU)."""
+    return _dit_stage_a_call("dit_stage_a_f32", plane, n1, n2, "float32")
+
+
+def dit_stage_b(
+    tr: torch.Tensor, ti: torch.Tensor, rotc: torch.Tensor, rots: torch.Tensor, *, n1: int,
+    n2: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's three-pass stage B alone, bf16 operands: bf16 T re and im ``[B,
+    S, N1, 2·N2]`` and ``rotc``/``rots`` ``[B, N]`` to int8 ``(qr, qi)``
+    ``[B, S, N]`` (the kernel on CUDA, :func:`dit_stage_b_reference` on
+    CPU)."""
+    return _dit_stage_b_call("dit_stage_b", tr, ti, rotc, rots, n1, n2, "bfloat16")
+
+
+def dit_stage_b_f32(
+    tr: torch.Tensor, ti: torch.Tensor, rotc: torch.Tensor, rots: torch.Tensor, *, n1: int,
+    n2: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's three-pass stage B alone, f32 operands (FFMA): f32 T re and im to
+    int8 ``(qr, qi)`` (the kernel on CUDA, :func:`dit_stage_b_reference` with
+    ``dft_dtype="float32"`` on CPU)."""
+    return _dit_stage_b_call("dit_stage_b_f32", tr, ti, rotc, rots, n1, n2, "float32")
+
+
+def dit_stage_attributes(n1: int, n2: int, dft_dtype: str = "bfloat16") -> dict:
+    """The card's view of K7's three-pass stage bodies at N1 x N2
+    (``cudaFuncGetAttributes`` and the tiling): ``{"a": ..., "b": ...}``,
+    stage A K1's body at N1 x 2·N2, each with registers and local (spill)
+    bytes a thread, threads a block, shared-memory bytes, tile rows and
+    columns, K-tile depth, ring stages and blocks an SM."""
+    sfx = "" if dft_dtype == "bfloat16" else "_f32"
+    out = {}
+    for stage, query, split in (("a", f"k1_stage_a{sfx}_attributes", (n1, 2 * n2)),
+                                ("b", f"dit_stage_b{sfx}_attributes", (n1, n2))):
+        buf = (ctypes.c_int * 9)()
+        _stage_call(query, *split, *split, buf)
+        out[stage] = dict(zip(("regs", "local_bytes", "threads", "smem_bytes", "tile_rows",
+                               "tile_cols", "k_depth", "stages", "blocks_per_sm"), buf))
+    return out
+
+
+#: Launches of K7's three-pass stages since the last reset (the plain
+#: versions never count); a three-pass K7 call adds one to each per group
+#: of streams.
+dit_stage_a.launches = 0
+dit_stage_b.launches = 0
+dit_stage_a_f32.launches = 0
+dit_stage_b_f32.launches = 0
 
 
 def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
@@ -1368,33 +1586,37 @@ def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
         ("rots", rots, torch.float32, (batch, fft // 2)),
     )
     _check("fengine_dit", x, want)
+    body = _dit_body(n1, n2, dft_dtype)
     if window.data_ptr() % 16:
-        window = window.clone()  # both bodies read window runs as float2 or float4
+        window = window.clone()  # the FIR pass reads the window as float4
     dev = x.device
     n_spectra = n_frames - n_taps + 1
     outr = torch.empty((batch, n_spectra, fft // 2), dtype=torch.int8, device=dev)
     outi = torch.empty_like(outr)
-    body = _dit_body(n1, n2, dft_dtype)
-    if body == "simt":
-        _simt_launch(x, window, rotc, rots, outr, outi, n1=n1, n2=n2,
-                     bf16=dft_dtype == "bfloat16")
-        fengine_dit_simt.launches += 1
-    else:
-        # K1's FIR pass on the frames as streams starting at 0, then the DFT
-        # pass, over groups of streams through one plane of scratch (bf16, or
-        # f32 for f32 operands).
-        f32 = body == "two_pass_f32"
-        dtype = torch.float32 if f32 else torch.bfloat16
-        group = _plane_group(batch, n_spectra, fft, dtype.itemsize)
-        plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
-        flat = x.view(batch, n_frames * fft)
-        starts = torch.zeros(batch, dtype=torch.int64, device=dev)
-        dft = _dit_dft_f32_pass if f32 else _dit_dft_pass
-        for b0 in range(0, batch, group):
-            b = slice(b0, min(batch, b0 + group))
-            p = plane[: b.stop - b0]
-            _fir_pass(flat[b], starts[b], window, p)
-            dft(p, rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2)
+    # K1's FIR pass on the frames as streams starting at 0, then the DFT pass
+    # (or stage A and stage B through T) over groups of streams through one
+    # scratch: the plane (bf16, or f32 for f32 operands), and on the
+    # three-pass route T re and im beside it.
+    f32 = body.endswith("_f32")
+    three = body.startswith("three_pass")
+    dtype = torch.float32 if f32 else torch.bfloat16
+    group = _plane_group(batch, n_spectra, fft, (3 if three else 1) * dtype.itemsize)
+    plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
+    if three:
+        tr, ti = (torch.empty((group, n_spectra, *_t_layout(n1, 2 * n2, dtype)), dtype=dtype,
+                              device=dev) for _ in range(2))
+    flat = x.view(batch, n_frames * fft)
+    starts = torch.zeros(batch, dtype=torch.int64, device=dev)
+    dft = _dit_dft_f32_pass if f32 else _dit_dft_pass
+    for b0 in range(0, batch, group):
+        b = slice(b0, min(batch, b0 + group))
+        g = b.stop - b0
+        _fir_pass(flat[b], starts[b], window, plane[:g])
+        if three:
+            _dit_stage_a_pass(plane[:g], tr[:g], ti[:g], n1=n1, n2=n2)
+            _dit_stage_b_pass(tr[:g], ti[:g], rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2)
+        else:
+            dft(plane[:g], rotc[b], rots[b], outr[b], outi[b], n1=n1, n2=n2)
     fengine_dit.launches += 1
     return outr, outi
 
@@ -1421,62 +1643,19 @@ def fengine_dit(
     raise ValueError(f"fengine_dit: unsupported device {dev}")
 
 
-#: K7 calls on the card since the last reset, one a call whichever body ran
-#: (the plain CPU version never counts); the two-pass bodies' passes count on
-#: :func:`k1_fir` and :func:`dit_dft` (bf16) or :func:`k1_fir_f32` and
-#: :func:`dit_dft_f32` (f32), the SIMT body on :func:`fengine_dit_simt`.
+#: K7 calls on the card since the last reset, one a call whichever route ran
+#: (the plain CPU version never counts); the passes count on :func:`k1_fir`
+#: or :func:`k1_fir_f32`, then :func:`dit_dft` or :func:`dit_dft_f32` (two
+#: passes), or :func:`dit_stage_a` and :func:`dit_stage_b` (three; their
+#: ``_f32`` forms for f32 operands).
 fengine_dit.launches = 0
 
-
-def fengine_dit_simt(
-    frames: torch.Tensor,
-    window: torch.Tensor,
-    rotc: torch.Tensor,
-    rots: torch.Tensor,
-    *,
-    n1: int,
-    n2: int,
-    dft_dtype: str = "float32",
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7's single-pass SIMT body alone, at any split it has a plan for (the
-    kernel on CUDA, :func:`fengine_dit_reference` on CPU); arguments as that
-    reference's. :func:`fengine_fused` takes it for N1 = 8 and the splits
-    the DFT passes cannot hold."""
-    dev = frames.device
-    if dev.type == "cpu":
-        return fengine_dit_reference(frames, window, rotc, rots, n1=n1, n2=n2,
-                                     dft_dtype=dft_dtype)
-    if dev.type != "cuda":
-        raise ValueError(f"fengine_dit_simt: unsupported device {dev}")
-    batch, n_frames, fft = frames.shape
-    n_taps = window.shape[0]
-    if fft != 2 * n1 * n2 or n_frames < n_taps:
-        raise ValueError(f"fengine_dit_simt: fft = 2*N1*N2 and n_taps frames at least; got "
-                         f"{n1}, {n2}, {fft}, {n_frames} frames")
-    _check("fengine_dit_simt", frames, (
-        ("frames", frames, torch.int8, None),
-        ("window", window, torch.float32, (n_taps, fft)),
-        ("rotc", rotc, torch.float32, (batch, fft // 2)),
-        ("rots", rots, torch.float32, (batch, fft // 2)),
-    ))
-    if window.data_ptr() % 16:
-        window = window.clone()
-    outr = torch.empty((batch, n_frames - n_taps + 1, fft // 2), dtype=torch.int8, device=dev)
-    outi = torch.empty_like(outr)
-    _simt_launch(frames, window, rotc, rots, outr, outi, n1=n1, n2=n2,
-                 bf16=dft_dtype == "bfloat16")
-    fengine_dit_simt.launches += 1
-    return outr, outi
-
-
-#: Launches of K7's SIMT body, whole, since the last reset: from
-#: :func:`fengine_dit` where :func:`_dit_body` picks it, and from
-#: :func:`fengine_dit_simt` (P2's ``"full"`` counts on its own wrapper).
-fengine_dit_simt.launches = 0
-
-#: K7's SIMT body cut after a stage (the probe P2), as the kernel numbers the
-#: stops; the probe's ``"full"`` (0) is that body whole.
-DIT_STOPS = {"dma": 1, "conv": 2, "fir": 3, "deint": 4, "stagea": 5, "stageb": 6, "full": 0}
+#: The probe P2's stops of K7 (bf16 operands), ``"full"`` K7 whole. The
+#: first four are cuts of K1's FIR pass (its STOP numbers), ``"stagea"``
+#: and ``"stageb"`` the FIR pass then K7's DFT pass cut at a stage (its STOP
+#: numbers).
+DIT_STOPS = {"dma": 5, "conv": 6, "fir": 7, "deint": 8, "stagea": 3, "stageb": 2, "full": 0}
+_DIT_FIR_STOPS = ("dma", "conv", "fir", "deint")
 
 
 def fengine_dit_ablate_reference(
@@ -1548,10 +1727,16 @@ def fengine_dit_ablate(
     stop: str,
     rot: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7's single-pass SIMT body (bf16 operands) cut after a stage, or whole
+    """K7 (bf16 operands) cut after a stage on the route it runs, or whole
     (``stop="full"``, rotated by ``rot`` = ``(rotc, rots)`` ``[B, N]``): the
-    kernel on CUDA, :func:`fengine_dit_ablate_reference` on CPU. ``frames``
-    ``[B, n_frames, fft]`` int8, ``window`` ``[taps, fft]`` f32."""
+    kernels on CUDA, :func:`fengine_dit_ablate_reference` on CPU. ``frames``
+    ``[B, n_frames, fft]`` int8, ``window`` ``[taps, fft]`` f32. ``"dma"``,
+    ``"conv"``, ``"fir"`` and ``"deint"`` are cuts of K1's FIR pass on the
+    frames viewed ``[B, n_frames·fft]`` with zero starts; ``"stagea"`` and
+    ``"stageb"`` that FIR pass (into bf16 planes, over K7's groups of
+    streams), then K7's DFT pass cut after the stage (its 64-row chunk plan:
+    64 <= N1 <= 256, N2 <= 256); ``"full"`` K7's route whole
+    (:func:`fengine_dit`)."""
     if stop not in DIT_STOPS:
         raise ValueError(f"unknown stop {stop!r}")
     if (stop == "full") != (rot is not None):
@@ -1567,35 +1752,64 @@ def fengine_dit_ablate(
         raise ValueError(f"fengine_dit_ablate: fft {fft} != 2 * {n1} * {n2}")
     if stop == "conv" and n_taps < 2:
         raise ValueError("fengine_dit_ablate: the conv stop reads two frames (taps >= 2)")
+    return _launch_dit_ablate(frames.contiguous(), window.contiguous(), n1=n1, n2=n2, stop=stop,
+                              rot=rot)
+
+
+def _launch_dit_ablate(frames, window, *, n1, n2, stop, rot):
+    """P2's stop on the card (arguments checked by :func:`fengine_dit_ablate`)."""
+    if stop == "full":
+        outs = _launch_dit(frames, window, *(r.contiguous() for r in rot), n1=n1, n2=n2,
+                           dft_dtype="bfloat16")
+        fengine_dit_ablate.launches += 1
+        return outs
+    batch, n_frames, fft = frames.shape
+    n_taps = window.shape[0]
+    dev = frames.device
     _check("fengine_dit_ablate", frames, (
         ("frames", frames, torch.int8, None),
         ("window", window, torch.float32, (n_taps, fft)),
-        *((name, r, torch.float32, (batch, fft // 2)) for name, r in zip(("rotc", "rots"), rot or ())),
     ))
-    if frames.data_ptr() % 2:
-        frames = frames.clone()  # sample pairs are read as char2
     if window.data_ptr() % 16:
-        window = window.clone()
-    outr = torch.empty((batch, n_frames - n_taps + 1, fft // 2), dtype=torch.int8, device=dev)
+        window = window.clone()  # the FIR pass reads the window as float4
+    n_spectra = n_frames - n_taps + 1
+    outr = torch.empty((batch, n_spectra, fft // 2), dtype=torch.int8, device=dev)
     outi = torch.empty_like(outr)
-    if stop == "full":
-        _simt_launch(frames, window, *rot, outr, outi, n1=n1, n2=n2, bf16=True)
-    else:
-        k = dit_constants(n1, n2, str(dev))
-        lib = _build.library()
-        err = lib.fengine_dit_stop_launch(
-            frames.data_ptr(), window.data_ptr(), *(t.data_ptr() for t in k[:6]),
-            outr.data_ptr(), outi.data_ptr(), batch, n_frames, n_taps, n1, n2, DIT_STOPS[stop],
-            torch.cuda.current_stream(dev).cuda_stream,
+    flat = frames.view(batch, n_frames * fft)
+    starts = torch.zeros(batch, dtype=torch.int64, device=dev)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if stop in _DIT_FIR_STOPS:
+        err = lib.k1_fir_stop_launch(
+            flat.data_ptr(), flat.stride(0), starts.data_ptr(), window.data_ptr(), None,
+            outr.data_ptr(), outi.data_ptr(), batch, n_spectra, n_taps, fft, DIT_STOPS[stop],
+            stream,
         )
-        if err == _NO_PLAN:
-            raise _no_plan("fengine_dit_ablate", n1, n2, "the four f32 T planes of a 2-row chunk")
-        _build.check(lib, err, f"fengine_dit stop {stop}")
+        _build.check(lib, err, f"k1_fir stop {stop} (P2)")
+    else:
+        group = _plane_group(batch, n_spectra, fft)
+        plane = torch.empty((group, n_spectra, fft), dtype=torch.bfloat16, device=dev)
+        k = dit_constants(n1, n2, str(dev))
+        kbf = _dit_bf16(n1, n2, str(dev))
+        for b0 in range(0, batch, group):
+            b = slice(b0, min(batch, b0 + group))
+            g = b.stop - b0
+            _fir_pass(flat[b], starts[b], window, plane[:g])
+            err = lib.dit_dft_stop_launch(
+                plane.data_ptr(), *(t.data_ptr() for t in kbf), k.twc.data_ptr(),
+                k.tws.data_ptr(), outr[b].data_ptr(), outi[b].data_ptr(), g, n_spectra, n1, n2,
+                DIT_STOPS[stop], stream,
+            )
+            if err == _NO_PLAN:
+                raise _no_plan("fengine_dit_ablate", n1, n2,
+                               "the stops take the 64-row chunk plan only")
+            _build.check(lib, err, f"dit_dft stop {stop} (P2)")
     fengine_dit_ablate.launches += 1
     return outr, outi
 
 
-#: Launches of K7's stopped kernel since the last reset.
+#: Calls of P2's stops on the card since the last reset, one a call (their
+#: passes also count on :func:`k1_fir`, and ``"full"``'s on K7's own).
 fengine_dit_ablate.launches = 0
 
 

@@ -20,11 +20,13 @@ K1's unquantised (f32) output, K1's FIR pass alone, K1, K7 and the
 engines above fft 65536, K1's f32 form (its f32 FIR pass bit for bit, its
 FFMA DFT pass at every plan, which split takes which route), K1 at N1 = 8
 and on its three-pass route (each stage alone and whole, both forms, the
-stage bodies' registers and spill bytes), K7's two-pass
-body (its DFT pass alone at every
-chunk plan, both passes at fft 2048 to 2^17 and over several plane groups,
-its launch counters, its registers and spill bytes), and the probes'
-kernels (K1's and K7's stage stops, P1's modes, P3's loop orders) at small
+stage bodies' registers and spill bytes), K7 on each route (its DFT pass
+alone at every chunk plan, both passes at fft 2048 to 2^17 and over several
+plane groups, every N1 = 8 split from fft 64 to 2048 in both forms, the
+three passes at 2048 x 2048 bf16 and 1024 x 1024 and 2048 x 1024 f32 and
+each stage alone, its launch counters, its registers and spill bytes), and
+the probes' kernels (K1's and K7's stage stops, P2 on K7's route, P1's
+modes, P3's loop orders) at small
 and ragged shapes, a one-rank NCCL step of the sharded engine against
 ``FBEngine``, the tensor-core dynamic-range probe, the port's servlet
 fronting two engine nodes on the card, the page-locked native ring (its
@@ -1194,24 +1196,50 @@ def test_k7_two_pass_spans_plane_groups(dev, monkeypatch):
         _codes_close(g.cpu(), r)
 
 
-@pytest.mark.parametrize("fft, deint, dft_dtype", [(2048, "bitcast", "bfloat16"),
-                                                   (1024, "matmul", "bfloat16"),
-                                                   (2048, "bitcast", "float32")])
-def test_k7_simt_shapes_launch_neither_pass(dev, fft, deint, dft_dtype):
-    """N1 = 8 runs the SIMT body in both operand types: one K7 call, one SIMT
-    launch, no FIR or DFT pass."""
+_K7_N8 = [(64, "matmul"), (128, "matmul"), (256, "matmul"), (512, "auto"), (1024, "matmul"),
+          (2048, "bitcast")]
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("fft, deint", _K7_N8)
+def test_k7_n1_8_splits_run_two_passes_and_match_plain(dev, fft, deint, dft_dtype):
+    """Every N1 = 8 split (N2 from 4 to 128) runs its operand type's two
+    passes: one K7 call, one FIR pass and one DFT pass (the N1 = 8 plan),
+    no other pass; within 1 code on <= 1e-3 (bf16) or 1e-4 (f32) of samples
+    of the plain version, at ~50 codes rms, over streams whose spectra do
+    not fill the last unit."""
     _, n1, n2 = ff._deint_mode(fft // 2, deint)
     assert n1 == 8
-    frames, win, rc, rs = _k7_streams(fft, 2, 3, 4, seed=fft)
-    counters = (ff.fengine_dit, ff.fengine_dit_simt, ff.k1_fir, ff.dit_dft, ff.k1_fir_f32,
-                ff.dit_dft_f32)
+    f32 = dft_dtype == "float32"
+    frames, win, rc, rs = _k7_streams(fft, 3, 37, 4, seed=fft + f32)
+    counters = (ff.fengine_dit, ff.k1_fir, ff.dit_dft, ff.k1_fir_f32, ff.dit_dft_f32,
+                ff.dit_stage_a, ff.dit_stage_b, ff.dit_stage_a_f32, ff.dit_stage_b_f32)
     before = [c.launches for c in counters]
     got = ff.fengine_dit(frames.to(dev), win.to(dev), rc.to(dev), rs.to(dev), n1=n1, n2=n2,
                          dft_dtype=dft_dtype)
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0, 0]
+    want = [1, 0, 0, 0, 0, 0, 0, 0, 0]
+    want[3 if f32 else 1] = want[4 if f32 else 2] = 1
+    assert [c.launches - b for c, b in zip(counters, before)] == want
     ref = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
     for g, r in zip(got, ref):
-        _codes_close(g.cpu(), r)
+        _codes_close(g.cpu(), r, max_frac=1e-4 if f32 else 1e-3)
+
+
+@pytest.mark.parametrize("n2", [4, 8, 16, 32, 64, 128])
+def test_k7_n1_8_plans_show_no_spills(dev, n2):
+    """N1 = 8's DFT-pass plans: bf16 16 spectra a unit (128 T rows), 8 at N2
+    = 128, within 128 registers; f32 KC = 8 with SB = 2048 / (8·H) spectra;
+    both fit a block's 232,448 bytes and spill nothing."""
+    at = ff.dit_dft_attributes(8, n2)
+    assert at["local_bytes"] == 0 and at["regs"] <= 128, at
+    assert (at["kc"], at["sb"]) == ((64, 8) if n2 == 128 else (128, 16)), at
+    assert at["smem_bytes"] <= 232448, at
+    a32 = ff.dit_dft_f32_attributes(8, n2)
+    assert a32["local_bytes"] == 0, a32
+    h = n2 // (1 if n2 < 8 else 2)
+    assert (a32["kc"], a32["sb"], a32["threads"]) == (8, 2048 // (8 * h), 256), a32
+    assert ff._dit_body(8, n2, "bfloat16") == "two_pass"
+    assert ff._dit_body(8, n2, "float32") == "two_pass_f32"
 
 
 @pytest.mark.parametrize("n1, n2, kc", [(16, 64, 16), (32, 64, 32), (256, 128, 64),
@@ -1229,12 +1257,122 @@ def test_k7_dft_pass_attributes_show_no_spills(dev, n1, n2, kc):
     assert ff._dit_body(n1, n2, "bfloat16") == "two_pass"
 
 
-def test_k7_split_without_a_plan_takes_the_simt_body(dev):
-    """At 2048 x 2048 (fft 2^23) a 16-row chunk's T planes alone overflow
-    shared memory: the DFT pass has no plan and the split runs the SIMT body."""
-    with pytest.raises(ValueError):
+def _k7_three_pass_case(dev, fft, dft_dtype, nb, s, seed):
+    """K7 at fft on the three-pass route through ``fengine_dit``: one call,
+    one FIR pass, one stage A and one stage B of the operand type, no other
+    pass; within the form's code contract of the plain version on the card
+    (~50 codes rms)."""
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    f32 = dft_dtype == "float32"
+    sfx = "_f32" if f32 else ""
+    assert ff._dit_body(n1, n2, dft_dtype) == "three_pass" + sfx
+    frames, win, rc, rs = (t.to(dev) for t in _k7_streams(fft, nb, s, 2, seed=seed))
+    counters = (ff.fengine_dit, ff.k1_fir, ff.dit_stage_a, ff.dit_stage_b, ff.k1_fir_f32,
+                ff.dit_stage_a_f32, ff.dit_stage_b_f32, ff.dit_dft, ff.dit_dft_f32, ff.k1_stage_a)
+    before = [c.launches for c in counters]
+    got = ff.fengine_dit(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    want = [1, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    for i in ((4, 5, 6) if f32 else (1, 2, 3)):
+        want[i] = 1
+    assert [c.launches - b for c, b in zip(counters, before)] == want
+    ref = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape and g.dtype == torch.int8
+        _codes_close(g, r, max_frac=1e-4 if f32 else 1e-3)
+
+
+def test_k7_bf16_at_fft_2_23_runs_the_three_pass_route(dev):
+    """At 2048 x 2048 (fft 2^23) a 16-row chunk's four bf16 T planes alone
+    overflow shared memory: the DFT pass has no plan and the split runs the
+    three passes, T through device memory."""
+    with pytest.raises(ValueError, match="shared-memory plan"):
         ff.dit_dft_attributes(2048, 2048)
-    assert ff._dit_body(2048, 2048, "bfloat16") == "simt"
+    _k7_three_pass_case(dev, 1 << 23, "bfloat16", 1, 2, seed=23)
+
+
+@pytest.mark.parametrize("fft", [1 << 21, 1 << 22])
+def test_k7_f32_at_n2_1024_runs_the_three_pass_route(dev, fft):
+    """f32 at 1024 x 1024 (fft 2^21) and 2048 x 1024 (fft 2^22): the f32
+    pass's stage-A tile cannot hold a spectrum's 2·N2 columns, so the split
+    runs the three f32 passes (FFMA, exact f32)."""
+    with pytest.raises(ValueError, match="shared-memory plan"):
+        ff.dit_dft_f32_attributes(*ff._deint_mode(fft // 2, "matmul")[1:])
+    _k7_three_pass_case(dev, fft, "float32", 2, 2, seed=fft)
+
+
+@pytest.mark.parametrize("dft_dtype, fft", [("bfloat16", 1 << 23), ("float32", 1 << 21)])
+def test_k7_three_pass_stages_alone_match_plain(dev, dft_dtype, fft):
+    """Each three-pass stage alone: stage A (K1's kernel on the [N1, 2·N2]
+    view) against ``dit_stage_a_reference`` on the card (f32 bit for bit at
+    1024 x 1024; bf16 T within one bf16 rounding on <= 1e-3 of values, as
+    K1's stage A), and stage B on the plain T against
+    ``dit_stage_b_reference``, each once on its wrapper's counter."""
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    f32 = dft_dtype == "float32"
+    frames, win, rc, rs = (t.to(dev) for t in _k7_streams(fft, 1, 2, 2, seed=fft + 1))
+    fir = ff.k1_fir_f32 if f32 else ff.k1_fir
+    plane = fir(frames.view(1, -1), torch.zeros(1, dtype=torch.int64, device=dev), win,
+                n_spectra=2)
+    stage_a, stage_b = ((ff.dit_stage_a_f32, ff.dit_stage_b_f32) if f32 else
+                        (ff.dit_stage_a, ff.dit_stage_b))
+    before = (stage_a.launches, stage_b.launches)
+    tr, ti = stage_a(plane, n1=n1, n2=n2)
+    wr, wi = ff.dit_stage_a_reference(plane, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    for g, w in zip((tr, ti), (wr, wi)):
+        assert g.shape == w.shape == (1, 2, n1, 2 * n2) and g.dtype == w.dtype
+        if f32:
+            assert torch.equal(g, w)
+        else:
+            assert float((g != w).float().mean()) <= 1e-3
+    got = stage_b(wr.contiguous(), wi.contiguous(), rc, rs, n1=n1, n2=n2)
+    assert (stage_a.launches, stage_b.launches) == (before[0] + 1, before[1] + 1)
+    for g, r in zip(got, ff.dit_stage_b_reference(wr, wi, rc, rs, n1=n1, n2=n2,
+                                                  dft_dtype=dft_dtype)):
+        _codes_close(g, r, max_frac=1e-4 if f32 else 1e-3)
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+def test_k7_three_passes_span_plane_groups(dev, monkeypatch, dft_dtype):
+    """Three streams through a scratch of one plane and its T: three groups,
+    each a FIR pass, a stage A and a stage B, the outputs those of the
+    plain K7 (f32 at 1024 x 1024; bf16 forced onto the three passes at 128 x
+    128 by a stubbed plan query)."""
+    f32 = dft_dtype == "float32"
+    fft, s, b = (1 << 21, 1, 3) if f32 else (1 << 15, 4, 3)
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    if not f32:
+        real = ff._has_plan
+        monkeypatch.setattr(ff, "_has_plan",
+                            lambda q, a1, a2: False if q == "dit_dft_attributes" else real(q, a1, a2))
+        ff._dit_body.cache_clear()
+    try:
+        assert ff._dit_body(n1, n2, dft_dtype) == "three_pass" + ("_f32" if f32 else "")
+        monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", 3 * s * fft * (4 if f32 else 2))
+        frames, win, rc, rs = (t.to(dev) for t in _k7_streams(fft, b, s, 2, seed=b + f32))
+        stages = (ff.dit_stage_a_f32, ff.dit_stage_b_f32) if f32 else (ff.dit_stage_a,
+                                                                       ff.dit_stage_b)
+        before = [c.launches for c in (ff.fengine_dit, *stages)]
+        got = ff.fengine_dit(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
+        assert [c.launches - x for c, x in zip((ff.fengine_dit, *stages), before)] == [1, 3, 3]
+        for g, r in zip(got, ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2,
+                                                      dft_dtype=dft_dtype)):
+            _codes_close(g, r, max_frac=1e-4 if f32 else 1e-3)
+    finally:
+        ff._dit_body.cache_clear()
+
+
+@pytest.mark.parametrize("n1, n2, dft_dtype", [(2048, 2048, "bfloat16"), (4096, 2048, "bfloat16"),
+                                              (1024, 1024, "float32"), (2048, 1024, "float32"),
+                                              (2048, 2048, "float32")])
+def test_k7_three_pass_bodies_show_no_spills(dev, n1, n2, dft_dtype):
+    """The three-pass stage bodies (K1's stage A at N1 x 2·N2, K7's stage B)
+    spill nothing; bf16 stage B runs two blocks an SM within 128 registers."""
+    at = ff.dit_stage_attributes(n1, n2, dft_dtype)
+    for stage in "ab":
+        assert at[stage]["local_bytes"] == 0, at
+    assert (at["b"]["tile_rows"], at["b"]["tile_cols"]) == (64, 32), at
+    if dft_dtype == "bfloat16":
+        assert at["b"]["regs"] <= 128 and at["b"]["blocks_per_sm"] == 2, at
 
 
 def test_k7_two_pass_takes_unaligned_rotation_planes(dev):
@@ -1305,14 +1443,6 @@ def test_k7_f32_dft_pass_attributes_show_no_spills(dev, n1, n2, kc, sb):
     assert ff._dit_body(n1, n2, "float32") == "two_pass_f32"
 
 
-def test_k7_f32_split_without_a_plan_takes_the_simt_body(dev):
-    """At 1024 x 1024 (fft 2^21) the f32 pass's stage-A tile cannot hold one
-    spectrum's 2 * N2 columns: no plan, and the split takes the SIMT body."""
-    with pytest.raises(ValueError):
-        ff.dit_dft_f32_attributes(1024, 1024)
-    assert ff._dit_body(1024, 1024, "float32") == "simt"
-
-
 @pytest.mark.parametrize("fft, deint", [(2048, "matmul"), (4096, "bitcast"), (65536, "matmul"),
                                         (65536, "bitcast"), (1 << 17, "matmul"),
                                         (1 << 19, "matmul")])
@@ -1320,7 +1450,7 @@ def test_k7_f32_two_passes_match_plain(dev, fft, deint):
     """f32 K7 (16 x 64, 16 x 128, 256 x 128, 256 x 256, 512 x 512) through
     K1's f32 FIR pass and the f32 DFT pass at ~50 codes rms: within the f32
     contract of the plain version on the same card; one K7 call, one pass of
-    each, no SIMT body and no bf16 pass."""
+    each, no other pass."""
     taps, s, lead = 4, (4 if fft <= 1 << 17 else 2), (1, 2)
     rng = np.random.default_rng(fft + len(deint))
     frames = torch.from_numpy(rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8))
@@ -1328,7 +1458,7 @@ def test_k7_f32_two_passes_match_plain(dev, fft, deint):
     ph = rng.uniform(-1, 1, lead).astype(np.float32)
     kw = dict(n_channels=fft // 2, quant_scale=0.068 * (1024 / fft) ** 0.5, deint=deint,
               dft_dtype="float32")
-    counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.fengine_dit_simt, ff.k1_fir,
+    counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.dit_stage_a_f32, ff.k1_fir,
                 ff.dit_dft)
     before = [c.launches for c in counters]
     win = default_window(taps, fft, dev)
@@ -1347,21 +1477,20 @@ def test_k7_f32_two_passes_match_plain(dev, fft, deint):
 
 def test_k7_f32_two_passes_span_plane_groups(dev, monkeypatch):
     """Five streams through a scratch of two f32 planes: three groups, each an
-    f32 FIR pass and an f32 DFT pass; the SIMT body through its own entry on
-    the same streams within the same contract."""
-    fft, s, taps, b = 4096, 5, 4, 5
-    monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", 2 * s * fft * 4)
-    frames, win, rc, rs = (t.to(dev) for t in _k7_streams(fft, b, s, taps, seed=41))
-    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
-    counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.fengine_dit_simt)
-    before = [c.launches for c in counters]
-    got = ff.fengine_dit(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32")
-    simt = ff.fengine_dit_simt(frames, win, rc, rs, n1=n1, n2=n2)
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 3, 3, 1]
-    ref = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32")
-    for g, m, r in zip(got, simt, ref):
-        _codes_close_f32(g, r)
-        _codes_close_f32(m, r)
+    f32 FIR pass and an f32 DFT pass, within the f32 contract of plain K7;
+    the same streams at N1 = 8 (fft 1024) through the same groups."""
+    for fft, seed in ((4096, 41), (1024, 42)):
+        s, taps, b = 5, 4, 5
+        monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", 2 * s * fft * 4)
+        frames, win, rc, rs = (t.to(dev) for t in _k7_streams(fft, b, s, taps, seed=seed))
+        _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+        counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32)
+        before = [c.launches for c in counters]
+        got = ff.fengine_dit(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32")
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 3, 3]
+        ref = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype="float32")
+        for g, r in zip(got, ref):
+            _codes_close_f32(g, r)
 
 
 def test_k7_f32_two_pass_takes_unaligned_rotation_planes(dev):
@@ -1447,17 +1576,17 @@ def test_k7_dft_stops_match_plain(dev, stop, n1, n2, s):
             _codes_close(g.cpu(), r)
 
 
-def test_p2_full_is_the_simt_body_whole(dev):
-    """P2's "full": K7's SIMT body whole (bf16), the stops' own kernel,
-    within 1 code on <= 1e-3 of samples of plain K7."""
+def test_p2_full_is_k7_whole(dev):
+    """P2's "full": K7 whole (bf16) on the route it runs, its FIR pass and
+    DFT pass, within 1 code on <= 1e-3 of samples of plain K7."""
     n1, n2, s, taps, b = 128, 64, 16, 16, 2
     fft = 2 * n1 * n2
     frames, win, rc, rs = _k7_streams(fft, b, s, taps, seed=29)
-    before = (ff.fengine_dit_ablate.launches, ff.fengine_dit.launches, ff.dit_dft.launches)
+    counters = (ff.fengine_dit_ablate, ff.fengine_dit, ff.k1_fir, ff.dit_dft)
+    before = [c.launches for c in counters]
     got = ff.fengine_dit_ablate(frames.to(dev), win.to(dev), n1=n1, n2=n2, stop="full",
                                 rot=(rc.to(dev), rs.to(dev)))
-    assert (ff.fengine_dit_ablate.launches, ff.fengine_dit.launches, ff.dit_dft.launches) == (
-        before[0] + 1, before[1], before[2])
+    assert [c.launches - x for c, x in zip(counters, before)] == [1, 1, 1, 1]
     for g, r in zip(got, ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2)):
         _codes_close(g.cpu(), r)
 
@@ -1522,10 +1651,12 @@ def test_k1_stops_match_plain(dev, stop, fft, s):
 
 
 @pytest.mark.parametrize("stop", ["dma", "conv", "fir", "deint", "stagea", "stageb"])
-@pytest.mark.parametrize("n1, n2, s", [(128, 64, 20), (256, 128, 16), (16, 8, 33)])
+@pytest.mark.parametrize("n1, n2, s", [(128, 64, 20), (256, 128, 16), (64, 32, 33)])
 def test_k7_stops_match_plain(dev, stop, n1, n2, s):
-    """P2's kernel: K7 cut at a stage, bit for bit before the chunk loop and
-    within 1 code on <= 1e-3 of samples after it."""
+    """P2's kernels: K7's route cut at a stage (K1's FIR pass for dma, conv,
+    fir and deint; the FIR pass and the DFT pass cut at stage A or B), bit
+    for bit up to deint and within 1 code on <= 1e-3 of samples after it;
+    S off P2's 16-spectrum blocks (33)."""
     taps, b, fft = 16, 2, 2 * n1 * n2
     rng = np.random.default_rng(n1 + s)
     frames = torch.from_numpy(rng.integers(-64, 64, (b, s + taps - 1, fft), dtype=np.int8))

@@ -194,22 +194,25 @@ def _fresh_routing():
     ff._dit_body.cache_clear()
 
 
-def _stub_plan(monkeypatch, answer):
-    """Stubs the library's plan queries (bf16 and f32 DFT passes) with
-    ``answer`` (0: a plan fits); returns the list of splits they are asked
-    for."""
+def _stub_plan(monkeypatch, dft, stages=ff._NO_PLAN):
+    """Stubs the library's plan queries: the DFT passes' (bf16 and f32)
+    answer ``dft``, the three-pass stages' (K1's stage A, K7's stage B)
+    ``stages`` (0: a plan fits); returns the list of queries asked."""
     asked = []
 
-    class Lib:
-        @staticmethod
-        def dit_dft_attributes(n1, n2, out):
-            asked.append((n1, n2))
+    def query(name, answer):
+        def ask(n1, n2, out):
+            asked.append((name, n1, n2))
             return answer
+        return staticmethod(ask)
 
-        @staticmethod
-        def dit_dft_f32_attributes(n1, n2, out):
-            asked.append((n1, n2, "f32"))
-            return answer
+    class Lib:
+        dit_dft_attributes = query("dit_dft", dft)
+        dit_dft_f32_attributes = query("dit_dft_f32", dft)
+        k1_stage_a_attributes = query("k1_stage_a", stages)
+        k1_stage_a_f32_attributes = query("k1_stage_a_f32", stages)
+        dit_stage_b_attributes = query("dit_stage_b", stages)
+        dit_stage_b_f32_attributes = query("dit_stage_b_f32", stages)
 
         @staticmethod
         def dcsand_error_string(err):
@@ -219,46 +222,74 @@ def _stub_plan(monkeypatch, answer):
     return asked
 
 
-@pytest.mark.parametrize("fft, deint, dft_dtype, fits, body", [
-    (2048, "matmul", "bfloat16", True, "two_pass"),     # 16 x 64
-    (4096, "matmul", "bfloat16", True, "two_pass"),     # 32 x 64
-    (4096, "bitcast", "bfloat16", True, "two_pass"),    # 16 x 128
-    (65536, "matmul", "bfloat16", True, "two_pass"),    # 256 x 128
-    (1 << 17, "matmul", "bfloat16", True, "two_pass"),  # 256 x 256
-    (1 << 21, "matmul", "bfloat16", True, "two_pass"),  # 1024 x 1024
-    (1 << 23, "matmul", "bfloat16", False, "simt"),     # 2048 x 2048: no shared-memory plan
-    (2048, "bitcast", "bfloat16", True, "simt"),        # 8 x 128
-    (1024, "matmul", "bfloat16", True, "simt"),         # 8 x 64
-    (1024, "bitcast", "bfloat16", True, "simt"),        # 8 x 64 (falls back to "matmul")
-    (512, "auto", "bfloat16", True, "simt"),            # 8 x 32
-    (2048, "matmul", "float32", True, "two_pass_f32"),  # 16 x 64
-    (65536, "matmul", "float32", True, "two_pass_f32"),  # 256 x 128
-    (1 << 19, "matmul", "float32", True, "two_pass_f32"),  # 512 x 512
-    (1 << 21, "matmul", "float32", False, "simt"),      # 1024 x 1024: no f32 plan
-    (2048, "bitcast", "float32", True, "simt"),         # 8 x 128
+@pytest.mark.parametrize("fft, deint, dft_dtype, route", [
+    (2048, "matmul", "bfloat16", "two_pass"),      # 16 x 64
+    (4096, "matmul", "bfloat16", "two_pass"),      # 32 x 64
+    (4096, "bitcast", "bfloat16", "two_pass"),     # 16 x 128
+    (65536, "matmul", "bfloat16", "two_pass"),     # 256 x 128
+    (1 << 17, "matmul", "bfloat16", "two_pass"),   # 256 x 256
+    (1 << 21, "matmul", "bfloat16", "two_pass"),   # 1024 x 1024
+    (1 << 22, "matmul", "bfloat16", "two_pass"),   # 2048 x 1024
+    (1 << 23, "matmul", "bfloat16", "three_pass"),  # 2048 x 2048: T does not fit
+    (1 << 24, "matmul", "bfloat16", "three_pass"),  # 4096 x 2048
+    (2048, "bitcast", "bfloat16", "two_pass"),     # 8 x 128
+    (1024, "matmul", "bfloat16", "two_pass"),      # 8 x 64
+    (1024, "bitcast", "bfloat16", "two_pass"),     # 8 x 64 (falls back to "matmul")
+    (512, "auto", "bfloat16", "two_pass"),         # 8 x 32
+    (256, "matmul", "bfloat16", "two_pass"),       # 8 x 16
+    (128, "matmul", "bfloat16", "two_pass"),       # 8 x 8
+    (64, "matmul", "bfloat16", "two_pass"),        # 8 x 4
+    (32, "matmul", "bfloat16", None),              # 8 x 2: no route
+    (2048, "matmul", "float32", "two_pass_f32"),   # 16 x 64
+    (65536, "matmul", "float32", "two_pass_f32"),  # 256 x 128
+    (1 << 19, "matmul", "float32", "two_pass_f32"),  # 512 x 512
+    (1 << 21, "matmul", "float32", "three_pass_f32"),  # 1024 x 1024: T does not fit
+    (1 << 22, "matmul", "float32", "three_pass_f32"),  # 2048 x 1024
+    (1 << 23, "matmul", "float32", "three_pass_f32"),  # 2048 x 2048
+    (2048, "bitcast", "float32", "two_pass_f32"),  # 8 x 128
+    (1024, "matmul", "float32", "two_pass_f32"),   # 8 x 64
+    (256, "matmul", "float32", "two_pass_f32"),    # 8 x 16
+    (128, "matmul", "float32", "two_pass_f32"),    # 8 x 8
+    (64, "matmul", "float32", "two_pass_f32"),     # 8 x 4
+    (32, "matmul", "float32", None),               # 8 x 2: no route
 ])
-def test_dit_body_routes_each_split(monkeypatch, fft, deint, dft_dtype, fits, body):
-    """N1 >= 16 asks the library whether the DFT pass of its operand type has
-    a plan and takes that type's two passes where it does; N1 = 8 takes the
-    SIMT body without asking (stubbed library)."""
-    asked = _stub_plan(monkeypatch, 0 if fits else ff._NO_PLAN)
+def test_dit_body_routes_each_split(monkeypatch, fft, deint, dft_dtype, route):
+    """Every split asks whether the DFT pass of its operand type has a plan
+    and takes that type's two passes where it does; else whether K1's stage
+    A (at N1 x 2·N2) and K7's stage B cover it, and takes the three passes;
+    else it raises (stubbed library, answering as the card does)."""
+    two, three = route is not None and not route.startswith("three"), route is not None
+    asked = _stub_plan(monkeypatch, 0 if two else ff._NO_PLAN, 0 if three else ff._NO_PLAN)
     mode, n1, n2 = ff._deint_mode(fft // 2, deint)
     assert mode in ("matmul", "bitcast") and n1 * n2 == fft // 2
-    assert ff._dit_body(n1, n2, dft_dtype) == body
-    query = (n1, n2) if dft_dtype == "bfloat16" else (n1, n2, "f32")
-    assert asked == ([query] if n1 >= 16 else [])
-    assert ff._dit_body(n1, n2, dft_dtype) == body
-    assert len(asked) <= 1  # decided once a split
+    sfx = "" if dft_dtype == "bfloat16" else "_f32"
+    want = [(f"dit_dft{sfx}", n1, n2)]
+    if route is None:
+        with pytest.raises(ValueError, match=f"no route for the split N1 x N2 = {n1} x {n2}"):
+            ff._dit_body(n1, n2, dft_dtype)
+        assert asked == want + [(f"k1_stage_a{sfx}", n1, 2 * n2)]
+        return
+    assert ff._dit_body(n1, n2, dft_dtype) == route
+    if not two:
+        want += [(f"k1_stage_a{sfx}", n1, 2 * n2), (f"dit_stage_b{sfx}", n1, n2)]
+    assert asked == want
+    assert ff._dit_body(n1, n2, dft_dtype) == route
+    assert len(asked) == len(want)  # decided once a split
 
 
 def test_dit_body_raises_on_a_failed_plan_query(monkeypatch):
-    """A CUDA error from either plan query raises; only NO_PLAN means the
-    SIMT body."""
+    """A CUDA error from any plan query raises; only NO_PLAN sends a split on
+    to the next route."""
     _stub_plan(monkeypatch, 1)
     with pytest.raises(RuntimeError, match="dit_dft_attributes"):
         ff._dit_body(16, 64, "bfloat16")
     with pytest.raises(RuntimeError, match="dit_dft_f32_attributes"):
         ff._dit_body(16, 64, "float32")
+    _stub_plan(monkeypatch, ff._NO_PLAN, 1)
+    with pytest.raises(RuntimeError, match="k1_stage_a_attributes"):
+        ff._dit_body(2048, 2048, "bfloat16")
+    with pytest.raises(RuntimeError, match="k1_stage_a_f32_attributes"):
+        ff._dit_body(1024, 1024, "float32")
 
 
 @pytest.mark.parametrize("batch, scratch, groups", [(3, None, 1), (5, 2, 3), (4, 1, 4)])
@@ -312,35 +343,162 @@ def test_two_pass_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, batch
         assert dft[3:] == (nb, s, n1, n2)
 
 
-def test_simt_shapes_launch_neither_pass(monkeypatch):
-    """f32 operands where the f32 DFT pass has no plan, and N1 = 8, take the
-    single-pass SIMT body (stubbed card)."""
+def _stream0(monkeypatch):
+    monkeypatch.setattr(ff.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+
+
+@pytest.mark.parametrize("fft, deint, dft_dtype", [(1024, "matmul", "bfloat16"),
+                                                   (64, "matmul", "bfloat16"),
+                                                   (2048, "bitcast", "float32"),
+                                                   (128, "matmul", "float32")])
+def test_n1_8_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, fft, deint, dft_dtype):
+    """N1 = 8 runs the two passes of its operand type: with the plan queries
+    stubbed, five streams through a scratch of two planes take three groups,
+    each K1's FIR pass then K7's DFT pass on the same plane, and one K7 call;
+    no other pass runs."""
+    _, n1, n2 = ff._deint_mode(fft // 2, deint)
+    assert n1 == 8
+    f32 = dft_dtype == "float32"
+    sfx = "_f32" if f32 else ""
     calls = []
 
     class Lib:
         @staticmethod
-        def fengine_dit_launch(*args):
-            calls.append(args[-7:-1])
+        def _fir(x, stride, starts, win, plane, b, n_spectra, n_taps, f, stream):
+            calls.append(("fir", plane, b, n_spectra, n_taps, f))
             return 0
 
         @staticmethod
-        def dit_dft_f32_attributes(n1, n2, out):
+        def _dft(plane, *args):
+            calls.append(("dft", plane, *args[-5:-1]))
+            return 0
+
+        @staticmethod
+        def _plan(n1, n2, out):
+            return 0
+
+    for name, fn in ((f"k1_fir{sfx}_launch", Lib._fir), (f"dit_dft{sfx}_launch", Lib._dft),
+                     (f"dit_dft{sfx}_attributes", Lib._plan)):
+        setattr(Lib, name, fn)
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    _stream0(monkeypatch)
+    batch, s, taps = 5, 3, 4
+    elem = 4 if f32 else 2
+    monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", 2 * s * fft * elem)
+    frames = torch.zeros((batch, s + taps - 1, fft), dtype=torch.int8)
+    rc = torch.zeros((batch, fft // 2))
+    counters = (ff.fengine_dit, ff.k1_fir, ff.dit_dft, ff.k1_fir_f32, ff.dit_dft_f32,
+                ff.dit_stage_a, ff.dit_stage_b, ff.dit_stage_a_f32, ff.dit_stage_b_f32)
+    before = [c.launches for c in counters]
+    ff._launch_dit(frames, default_window(taps, fft), rc, rc.clone(), n1=n1, n2=n2,
+                   dft_dtype=dft_dtype)
+    groups = 3
+    want = [1, 0, 0, 0, 0, 0, 0, 0, 0]
+    want[3 if f32 else 1] = want[4 if f32 else 2] = groups
+    assert [c.launches - b for c, b in zip(counters, before)] == want
+    assert [c[0] for c in calls] == ["fir", "dft"] * groups
+    for i in range(groups):
+        fir, dft = calls[2 * i], calls[2 * i + 1]
+        nb = min(2, batch - 2 * i)
+        assert fir[1] == dft[1] and fir[2:] == (nb, s, taps, fft)
+        assert dft[2:] == (nb, s, n1, n2)
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("batch, scratch, groups", [(3, None, 1), (5, 2, 3)])
+def test_three_pass_launches_fir_stage_a_and_stage_b_per_group(monkeypatch, dft_dtype, batch,
+                                                               scratch, groups):
+    """Where the DFT pass has no plan and the stages' tiles cover the split
+    (stubbed), a K7 call runs, per group of streams whose plane and T re and
+    im fit the scratch, K1's FIR pass, K1's stage-A kernel on the [N1, 2·N2]
+    view (M = group x S spectra, the column-doubled twiddles) and K7's stage
+    B on the T that stage A wrote; it counts one K7 call and one of each of
+    its stages a group (K1's own stage counters stay)."""
+    fft, taps, s = 2048, 4, 3
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    f32 = dft_dtype == "float32"
+    sfx = "_f32" if f32 else ""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def _fir(x, stride, starts, win, plane, b, n_spectra, n_taps, f, stream):
+            calls.append(("fir", x, plane, b, n_spectra, n_taps, f))
+            return 0
+
+        @staticmethod
+        def _stage_a(plane, d1c, d1s, twc, tws, tr, ti, m, a1, a2, stream):
+            tw = (ctypes.c_float * (n1 * 2 * n2)).from_address(twc)
+            calls.append(("a", plane, tr, ti, m, a1, a2, np.ctypeslib.as_array(tw).copy()))
+            return 0
+
+        @staticmethod
+        def _stage_b(tr, ti, *args):
+            calls.append(("b", tr, ti, args[-7], *args[-5:-1]))
+            return 0
+
+        @staticmethod
+        def _plan(n1, n2, out):
+            return 0
+
+        @staticmethod
+        def _no_plan(n1, n2, out):
             return ff._NO_PLAN
 
+    for name, fn in ((f"k1_fir{sfx}_launch", Lib._fir), (f"k1_stage_a{sfx}_launch", Lib._stage_a),
+                     (f"dit_stage_b{sfx}_launch", Lib._stage_b),
+                     (f"dit_dft{sfx}_attributes", Lib._no_plan),
+                     (f"k1_stage_a{sfx}_attributes", Lib._plan),
+                     (f"dit_stage_b{sfx}_attributes", Lib._plan)):
+        setattr(Lib, name, fn)
     monkeypatch.setattr(ff._build, "library", lambda: Lib)
-    monkeypatch.setattr(ff.torch.cuda, "current_stream",
-                        lambda dev: type("S", (), {"cuda_stream": 0})())
-    for fft, deint, dt in ((2048, "matmul", "float32"), (2048, "bitcast", "bfloat16")):
-        _, n1, n2 = ff._deint_mode(fft // 2, deint)
-        frames = torch.zeros((2, 5, fft), dtype=torch.int8)
-        rc = torch.zeros((2, fft // 2))
-        counters = (ff.fengine_dit, ff.fengine_dit_simt, ff.k1_fir, ff.dit_dft, ff.k1_fir_f32,
-                    ff.dit_dft_f32)
-        before = [c.launches for c in counters]
-        ff._launch_dit(frames, default_window(4, fft), rc, rc.clone(), n1=n1, n2=n2,
-                       dft_dtype=dt)
-        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0, 0]
-        assert calls[-1] == (2, 5, 4, n1, n2, int(dt == "bfloat16"))
+    _stream0(monkeypatch)
+    elem = 4 if f32 else 2
+    if scratch is not None:
+        monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", scratch * 3 * s * fft * elem)
+    frames = torch.zeros((batch, s + taps - 1, fft), dtype=torch.int8)
+    rc = torch.zeros((batch, fft // 2))
+    counters = (ff.fengine_dit, ff.k1_fir, ff.k1_fir_f32, ff.dit_stage_a, ff.dit_stage_b,
+                ff.dit_stage_a_f32, ff.dit_stage_b_f32, ff.dit_dft, ff.dit_dft_f32, ff.k1_stage_a,
+                ff.k1_stage_b)
+    before = [c.launches for c in counters]
+    outr, _ = ff._launch_dit(frames, default_window(taps, fft), rc, rc.clone(), n1=n1, n2=n2,
+                             dft_dtype=dft_dtype)
+    want = [1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    for i in ((2, 5, 6) if f32 else (1, 3, 4)):
+        want[i] = groups
+    assert [c.launches - b for c, b in zip(counters, before)] == want
+    assert [c[0] for c in calls] == ["fir", "a", "b"] * groups
+    group = ff._plane_group(batch, s, fft, 3 * elem)
+    assert group == (batch if scratch is None else scratch)
+    stream_bytes = (s + taps - 1) * fft
+    k = ff.dit_constants(n1, n2, "cpu")
+    for i in range(groups):
+        fir, sa, sb = calls[3 * i: 3 * i + 3]
+        nb = min(group, batch - i * group)
+        assert fir[1] == frames.data_ptr() + i * group * stream_bytes
+        assert fir[2] == sa[1] and fir[3:] == (nb, s, taps, fft)
+        assert sa[2:7] == (sb[1], sb[2], nb * s, n1, 2 * n2)
+        np.testing.assert_array_equal(sa[7], k.twc.repeat_interleave(2, dim=1).numpy().ravel())
+        assert sb[3] == outr.data_ptr() + i * group * s * fft // 2
+        assert sb[4:] == (nb, s, n1, n2)
+
+
+def test_n1_8_dft_pass_gets_zero_padded_n2_point_matrices():
+    """Below N2 = 16 (fft <= 256 at N1 = 8) the DFT pass's bf16 N2-point
+    matrices are the N2 x N2 ones zero-padded to 16 x 16; from 16 on they
+    are the matrices themselves."""
+    for n2 in (4, 8, 16, 64):
+        k = ff.dit_constants(8, n2, "cpu")
+        d1c, d1s, d2c, d2s = ff._dit_bf16(8, n2, "cpu")
+        n2p = max(n2, 16)
+        assert torch.equal(d1c, k.d1c.to(torch.bfloat16))
+        assert torch.equal(d1s, k.d1s.to(torch.bfloat16))
+        for got, want in ((d2c, k.d2c), (d2s, k.d2s)):
+            assert got.shape == (n2p, n2p) and got.is_contiguous()
+            assert torch.equal(got[:n2, :n2], want.to(torch.bfloat16))
+            assert not got[n2:].any() and not got[:, n2:].any()
 
 
 def test_dft_pass_gets_aligned_rotation_planes(monkeypatch):
@@ -416,8 +574,7 @@ def test_dit_dft_stops_on_cpu_are_their_plain_versions():
 
 
 def test_fengine_dit_ablate_full_takes_rotation_planes_alone():
-    """P2's "full" is the SIMT body whole and needs ``rot``; no other stop
-    takes it."""
+    """P2's "full" is K7 whole and needs ``rot``; no other stop takes it."""
     frames, win, rc, rs = _frames(2048, 2, seed=9)
     _, n1, n2 = ff._deint_mode(1024, "matmul")
     got = ff.fengine_dit_ablate(frames, win, n1=n1, n2=n2, stop="full", rot=(rc, rs))
@@ -484,15 +641,16 @@ def test_f32_two_pass_plain_matches_jax_dit_kernel(deint):
     _codes_close(qi.reshape(A, P, S, -1).numpy(), ji, max_frac=1e-4)
 
 
-def test_dit_d2h_holds_each_half_of_k2_transposed():
-    """The f32 pass's stage-B operand: half h, row n2 is the cos, then the
-    -sin, of 2*pi*k2*n2/N2 for the half's k2."""
-    n1, n2 = 16, 64
+@pytest.mark.parametrize("n1, n2, nh", [(16, 64, 2), (8, 8, 2), (8, 4, 1), (1024, 1024, 2)])
+def test_dit_d2h_holds_each_half_of_k2_transposed(n1, n2, nh):
+    """The f32 stage-B operand (the DFT pass's and the three-pass stage B's):
+    half h, row n2 is the cos, then the -sin, of 2*pi*k2*n2/N2 for the
+    half's k2; two halves, or one at N2 = 4."""
     k = ff.dit_constants(n1, n2, "cpu")
     d2h = ff._dit_d2h(n1, n2, "cpu")
-    assert d2h.shape == (2, n2, n2) and d2h.is_contiguous()
-    h = n2 // 2
-    for half in (0, 1):
+    h = n2 // nh
+    assert d2h.shape == (nh, n2, 2 * h) and d2h.is_contiguous()
+    for half in range(nh):
         k2 = slice(half * h, (half + 1) * h)
         assert torch.equal(d2h[half, :, :h], k.d2c[k2, :].t())
         assert torch.equal(d2h[half, :, h:], k.d2s[k2, :].t())
@@ -504,7 +662,7 @@ def test_f32_two_pass_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, b
     """With the card stubbed, an f32 K7 call with a plan runs K1's f32 FIR
     pass and the f32 DFT pass once per group of streams whose 4-byte planes
     fit the scratch, with zero starts, and counts one K7 call; the bf16
-    passes and the SIMT body do not run."""
+    passes and the three-pass stages do not run."""
     fft, taps, s = 2048, 4, 3
     _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
     calls = []
@@ -532,11 +690,11 @@ def test_f32_two_pass_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, b
     frames = torch.zeros((batch, s + taps - 1, fft), dtype=torch.int8)
     rc = torch.zeros((batch, fft // 2))
     counters = (ff.fengine_dit, ff.k1_fir_f32, ff.dit_dft_f32, ff.k1_fir, ff.dit_dft,
-                ff.fengine_dit_simt)
+                ff.dit_stage_a_f32, ff.dit_stage_b_f32)
     before = [c.launches for c in counters]
     outr, _ = ff._launch_dit(frames, default_window(taps, fft), rc, rc.clone(), n1=n1, n2=n2,
                              dft_dtype="float32")
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, groups, groups, 0, 0, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, groups, groups, 0, 0, 0, 0]
     assert [c[0] for c in calls] == ["fir", "dft"] * groups
     group = ff._plane_group(batch, s, fft, 4)
     assert group == (batch if scratch is None else scratch)
@@ -588,24 +746,154 @@ def test_f32_dft_pass_gets_aligned_operands(monkeypatch):
         np.testing.assert_array_equal(vals, w.numpy().ravel())
 
 
-def test_dit_dft_f32_and_the_simt_entry_on_cpu_are_their_plain_versions():
-    """``dit_dft_f32`` and ``fengine_dit_simt`` on CPU tensors are the plain
-    versions and count no launch."""
+def test_dit_dft_f32_and_the_stage_wrappers_on_cpu_are_their_plain_versions():
+    """``dit_dft_f32`` and the three-pass stage wrappers on CPU tensors are
+    the plain versions and count no launch; another device raises."""
     frames, win, rc, rs = _frames(2048, 2, seed=11)
-    plane = ff.k1_fir_f32(frames.reshape(2, -1), torch.zeros(2, dtype=torch.int64), win,
-                          n_spectra=S)
-    counters = (ff.dit_dft_f32, ff.fengine_dit_simt, ff.fengine_dit)
+    counters = (ff.dit_dft_f32, ff.dit_stage_a, ff.dit_stage_b, ff.dit_stage_a_f32,
+                ff.dit_stage_b_f32, ff.fengine_dit)
     before = [c.launches for c in counters]
-    got = ff.dit_dft_f32(plane, rc, rs, n1=16, n2=64)
-    for g, w in zip(got, ff.dit_dft_f32_reference(plane, rc, rs, n1=16, n2=64)):
-        assert torch.equal(g, w)
-    for dt in ("float32", "bfloat16"):
-        got = ff.fengine_dit_simt(frames, win, rc, rs, n1=16, n2=64, dft_dtype=dt)
-        for g, w in zip(got, ff.fengine_dit_reference(frames, win, rc, rs, n1=16, n2=64,
+    for dt, fir, stage_a, stage_b in (("float32", ff.k1_fir_f32, ff.dit_stage_a_f32,
+                                       ff.dit_stage_b_f32),
+                                      ("bfloat16", ff.k1_fir, ff.dit_stage_a, ff.dit_stage_b)):
+        plane = fir(frames.reshape(2, -1), torch.zeros(2, dtype=torch.int64), win, n_spectra=S)
+        if dt == "float32":
+            got = ff.dit_dft_f32(plane, rc, rs, n1=16, n2=64)
+            for g, w in zip(got, ff.dit_dft_f32_reference(plane, rc, rs, n1=16, n2=64)):
+                assert torch.equal(g, w)
+        tr, ti = stage_a(plane, n1=16, n2=64)
+        for g, w in zip((tr, ti), ff.dit_stage_a_reference(plane, n1=16, n2=64, dft_dtype=dt)):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        got = stage_b(tr, ti, rc, rs, n1=16, n2=64)
+        for g, w in zip(got, ff.dit_stage_b_reference(tr, ti, rc, rs, n1=16, n2=64,
                                                       dft_dtype=dt)):
             assert torch.equal(g, w)
+        with pytest.raises(ValueError, match="unsupported device"):
+            stage_a(plane.to("meta"), n1=16, n2=64)
+        with pytest.raises(ValueError, match="unsupported device"):
+            stage_b(tr.to("meta"), ti.to("meta"), rc, rs, n1=16, n2=64)
     assert [c.launches for c in counters] == before
     with pytest.raises(ValueError, match="unsupported device"):
-        ff.dit_dft_f32(plane.to("meta"), rc, rs, n1=16, n2=64)
-    with pytest.raises(ValueError, match="unsupported device"):
-        ff.fengine_dit_simt(frames.to("meta"), win, rc, rs, n1=16, n2=64)
+        ff.dit_dft_f32(plane.to("meta").float(), rc, rs, n1=16, n2=64)
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("fft, deint", [(64, "matmul"), (128, "matmul"), (512, "auto"),
+                                        (2048, "bitcast"), (2048, "matmul"), (8192, "matmul")])
+def test_plain_stages_compose_to_the_dft_pass(fft, deint, dft_dtype):
+    """The three-pass route's plain stages, composed, are the two-pass
+    route's plain DFT pass bit for bit (and, after K1's FIR, plain K7), at
+    N1 = 8 and above, in both operand types; T comes interleaved, [N1, 2·N2],
+    column 2·n2 + q stream q's, in the operand type."""
+    _, n1, n2 = ff._deint_mode(fft // 2, deint)
+    frames, win, rc, rs = _frames(fft, 2, seed=fft + len(dft_dtype), s=3, taps=4)
+    plane = ff.k1_fir_reference(frames.reshape(2, -1), torch.zeros(2, dtype=torch.int64), win,
+                                n_spectra=3, dft_dtype=dft_dtype)
+    tr, ti = ff.dit_stage_a_reference(plane, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    dtype = torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32
+    assert tr.shape == ti.shape == (2, 3, n1, 2 * n2) and tr.dtype == ti.dtype == dtype
+    got = ff.dit_stage_b_reference(tr, ti, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    dft = ff.dit_dft_reference if dft_dtype == "bfloat16" else ff.dit_dft_f32_reference
+    want = dft(plane, rc, rs, n1=n1, n2=n2)
+    full = ff.fengine_dit_reference(frames, win, rc, rs, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    for g, w, f in zip(got, want, full):
+        assert g.dtype == torch.int8 and torch.equal(g, w) and torch.equal(g, f)
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n1, n2", [(8, 4), (8, 64), (16, 64), (64, 128)])
+def test_k1_stage_a_with_doubled_twiddles_is_k7_stage_a(n1, n2, dft_dtype):
+    """What the three-pass route reuses: K1's stage A (its plain version,
+    ``_ct_stage_a``, at K1's rounding point) on the plane viewed [N1, 2·N2]
+    with the twiddle table whose columns 2·n2 and 2·n2 + 1 both hold
+    exp(-2πi·k1·n2/N) is each stream's ``_dit_stage_a``, the streams
+    interleaved as ``dit_stage_a_reference`` gives them: the same products,
+    twiddle and rounding per value. bf16 T bit for bit; f32 T within 16 ulp
+    of the largest |T|, as the CPU BLAS may pick another kernel (another
+    order of additions) for the product twice as wide."""
+    fft = 2 * n1 * n2
+    frames, win, _, _ = _frames(fft, 2, seed=n1 * n2, s=3, taps=4)
+    plane = ff.k1_fir_reference(frames.reshape(2, -1), torch.zeros(2, dtype=torch.int64), win,
+                                n_spectra=3, dft_dtype=dft_dtype)
+    rnd = ff._round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
+
+    def same(g, w):
+        if dft_dtype == "bfloat16":
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=0, atol=2.0 ** -20 * float(w.abs().max()))
+
+    k = ff.dit_constants(n1, n2, "cpu")
+    twc2, tws2 = ff._dit_tw2(n1, n2, "cpu")
+    assert torch.equal(twc2[:, 0::2], k.twc) and torch.equal(twc2[:, 1::2], k.twc)
+    assert torch.equal(tws2[:, 0::2], k.tws) and torch.equal(tws2[:, 1::2], k.tws)
+    k1 = ff.DftConstants(k.d1c, k.d1s, None, twc2, tws2)
+    got = [rnd(t) for t in ff._ct_stage_a(plane, k1, n1, 2 * n2, rnd)]
+    acc = plane.to(torch.float32)
+    for q in (0, 1):
+        want = ff._dit_stage_a(acc[..., q::2].reshape(2, 3, n1, n2), k, rnd)
+        for g, w in zip(got, want):
+            same(g[..., q::2], w)
+    for g, w in zip(got, ff.dit_stage_a_reference(plane, n1=n1, n2=n2, dft_dtype=dft_dtype)):
+        same(g, w.to(torch.float32))
+
+
+@pytest.mark.parametrize("stop", ["dma", "conv", "fir", "deint", "stagea", "stageb", "full"])
+def test_p2_stops_run_on_k7s_route(monkeypatch, stop):
+    """With the card stubbed, P2's first four stops are one cut of K1's FIR
+    pass on the frames as zero-start streams (its STOP numbers 5-8, no
+    plane); stagea and stageb the FIR pass into a bf16 plane, then K7's DFT
+    pass cut at a stage (3: T re; 2: stage B's re) a group of streams; full
+    K7's two passes. One P2 call each."""
+    fft, taps, s, batch = 2048, 4, 3, 5
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def k1_fir_stop_launch(x, stride, starts, win, plane, outr, outi, b, ns, nt, f, st, _):
+            calls.append(("fir_stop", x, stride, plane, outr, b, ns, nt, f, st))
+            return 0
+
+        @staticmethod
+        def k1_fir_launch(x, stride, starts, win, plane, b, ns, nt, f, _):
+            calls.append(("fir", x, plane, b, ns))
+            return 0
+
+        @staticmethod
+        def dit_dft_stop_launch(plane, *args):
+            calls.append(("dft_stop", plane, args[6], *args[8:13]))
+            return 0
+
+        @staticmethod
+        def dit_dft_launch(plane, *args):
+            calls.append(("dft", plane))
+            return 0
+
+        @staticmethod
+        def dit_dft_attributes(n1, n2, out):
+            return 0
+
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    _stream0(monkeypatch)
+    monkeypatch.setattr(ff, "K1_SCRATCH_BYTES", 2 * s * fft * 2)  # 2 streams a group
+    frames = torch.zeros((batch, s + taps - 1, fft), dtype=torch.int8)
+    rot = (torch.zeros((batch, fft // 2)), torch.zeros((batch, fft // 2))) if stop == "full" else None
+    before = ff.fengine_dit_ablate.launches
+    outr, _ = ff._launch_dit_ablate(frames, default_window(taps, fft), n1=n1, n2=n2, stop=stop,
+                                    rot=rot)
+    assert ff.fengine_dit_ablate.launches == before + 1
+    stream_bytes = (s + taps - 1) * fft
+    if stop in ("dma", "conv", "fir", "deint"):
+        assert calls == [("fir_stop", frames.data_ptr(), stream_bytes, None, outr.data_ptr(),
+                          batch, s, taps, fft, ff.DIT_STOPS[stop])]
+    elif stop == "full":
+        assert [c[0] for c in calls] == ["fir", "dft"] * 3
+    else:
+        assert [c[0] for c in calls] == ["fir", "dft_stop"] * 3
+        for i in range(3):
+            fir, dft = calls[2 * i], calls[2 * i + 1]
+            nb = min(2, batch - 2 * i)
+            assert fir[1] == frames.data_ptr() + 2 * i * stream_bytes and fir[3:] == (nb, s)
+            assert dft[1] == fir[2] and dft[2] == outr.data_ptr() + 2 * i * s * fft // 2
+            assert dft[3:] == (nb, s, n1, n2, ff.DIT_STOPS[stop])
