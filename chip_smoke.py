@@ -38,8 +38,10 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    N1 = 8 must launch and no other K1 pass): 3 steps, a delay update, 2
    steps, the median of steps 2-5;
 4. k2      — K2 (fused B kernel) through ``beamform_turned_fused`` vs its
-   plain version at the flagship C and B with A=8, bf16 and f32 weights:
-   rtol 1e-5, atol 1e-3, its launch counter rising by one each;
+   plain version at the flagship C with A=8, S=256, at every 2B its gate
+   takes (2, 4, 8, 16, 32, 64, 128), then at C = 24 (2B = 32) and C = 48
+   (2B = 8), bf16 and f32 weights each: rtol 1e-5, atol 1e-3, its launch
+   counter rising by one each;
 5. engine  — FBEngine vs the plain F + plain B chain at 8 antennas x 32768
    ch x 16 beams x 16 taps, S=256 (the step must launch K2 once): F planes
    within 1 code on <= 1e-3,
@@ -67,7 +69,15 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    plain, its f32 FIR pass bit-exact, its DFT pass alone equal to it; K1
    f32 and each f32 pass (beside its plain version and its f32 bound)
    timed; the DFT pass's registers and spill bytes (a spill fails the
-   phase).
+   phase). Then the flagship at every engine default (``FBEngine(cfg,
+   n_spectra=256, quant_scale=QUANT_SCALE, beam_layout="natural")``:
+   precision f32, K1 bf16 then K2's f32-weight form): the same steps, the
+   median of steps 2-5 beside the bf16 step's and its peak memory; K1 and
+   K2 must launch once a step; the last step's beams equal K2 f32 of K1;
+   K2 f32 against plain over all 80 antennas (rtol 1e-5, atol 1e-3), timed
+   beside its plain version, its bound (bytes; the three bf16 products a
+   weight) and its products' f32 FFMA floor; its yardsticks as the bf16
+   form's (registers, spill bytes, the bytes from L2, the fill, the stops).
 7. corner_turn — K4 through ``corner_turn_planes`` at A=80, P=2, S=256,
    C=32768 vs its plain version, bit-exact; ``corner_turn_planes_x`` (K5a)
    must be the same bytes viewed as ``[C, 2AP, S]``; kernel and plain times;
@@ -933,6 +943,12 @@ def _blocks(torch, n_beams, a, c, gen, dev, dtype):
     return steering_coeff_blockcat(cos, sin).to(dtype)
 
 
+#: K2's geometries in phase 4 beside the flagship C: every 2B its gate takes
+#: (the reference's), then (C, 2B) off a multiple of 16 channels.
+K2_WIDTHS = (2, 4, 8, 16, 32, 64, 128)
+K2_NARROW = ((24, 32), (48, 8))
+
+
 def phase_k2(st: dict) -> None:
     import torch
 
@@ -940,18 +956,22 @@ def phase_k2(st: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    a, p, s, c, nbeam = 8, 2, 256, 32768, 16
+    a, p, s, c = 8, 2, 256, 32768
     qr, qi = _planes(torch, a, p, s, c, gen, dev)
-    for prec, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        w = _blocks(torch, nbeam, a, c, gen, dev, dtype)
-        before = bstage.beamform_turned_fused.launches
-        got = bstage.beamform_turned_fused(qr, qi, w, n_pols=p, precision=prec,
-                                           layout="packed")
-        if bstage.beamform_turned_fused.launches != before + 1:
-            raise AssertionError(f"k2 {prec}: the wrapper did not launch K2")
-        ref = bstage.beamform_turned_fused_reference(qr, qi, w, prec)
-        torch.cuda.synchronize()
-        _beam_diff(f"k2 {prec} [A={a} C={c} B={nbeam} S={s}]", got, ref)
+    cases = [(c, nb2) for nb2 in K2_WIDTHS] + list(K2_NARROW)
+    for cc, nb2 in cases:
+        x = (qr, qi) if cc == c else (qr[..., :cc].contiguous(), qi[..., :cc].contiguous())
+        for prec, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            w = _blocks(torch, nb2 // 2, a, cc, gen, dev, dtype)
+            before = bstage.beamform_turned_fused.launches
+            got = bstage.beamform_turned_fused(*x, w, n_pols=p, precision=prec,
+                                               layout="packed")
+            if bstage.beamform_turned_fused.launches != before + 1:
+                raise AssertionError(f"k2 {prec} 2B={nb2} C={cc}: the wrapper did not launch K2")
+            ref = bstage.beamform_turned_fused_reference(*x, w, prec)
+            torch.cuda.synchronize()
+            _beam_diff(f"k2 {prec} [A={a} C={cc} 2B={nb2} S={s}]", got, ref)
+            del got, ref
 
 
 def phase_engine(st: dict) -> None:
@@ -1189,8 +1209,9 @@ def _fb_steps(fengine: str = "fused_f32", n_channels: int = FLAG["n_channels"],
     ``n_channels`` and ``fengine`` (natural packed beams; the B stage the
     engine resolves), as the bf16 flagship steps: wire-rowed ADC made on the
     card afresh each step, set_beam_delays, 3 steps, a delay update, 2 steps.
-    Returns the engine, its ADC, coarse delays, last beams, step ms and the
-    peak device memory (GB) over the run."""
+    ``fengine=None`` takes every engine default (precision f32), else the
+    precision is bf16. Returns the engine, its ADC, coarse delays, last
+    beams, step ms and the peak device memory (GB) over the run."""
     import numpy as np
     import torch
 
@@ -1204,9 +1225,10 @@ def _fb_steps(fengine: str = "fused_f32", n_channels: int = FLAG["n_channels"],
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fb = FBEngine(cfg, n_spectra=n_spectra, quant_scale=QUANT_SCALE, precision="bf16",
-                  fengine=fengine, bstage="fused" if fengine == "fused_f32" else "auto",
-                  beam_layout="natural", device=dev)
+    kw = {} if fengine is None else dict(
+        precision="bf16", fengine=fengine, bstage="fused" if fengine == "fused_f32" else "auto")
+    fb = FBEngine(cfg, n_spectra=n_spectra, quant_scale=QUANT_SCALE, beam_layout="natural",
+                  device=dev, **kw)
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(SEED)
     margin = 8192
@@ -1362,6 +1384,93 @@ def _flagship_f32(st: dict) -> None:
                             subset_max_abs_err=float(st["k1_f32_subset"]["max_abs_err"]))
     del fb, adc, x, flat
     torch.cuda.empty_cache()
+    _flagship_default(st)
+
+
+def _flagship_default(st: dict) -> None:
+    """The F+B flagship at every engine default: ``FBEngine(cfg, n_spectra=256,
+    quant_scale=QUANT_SCALE, beam_layout="natural")``, precision f32, so K1
+    (bf16) then K2's f32-weight form. Steps as the bf16 flagship; K2 must
+    launch once a step. Then the last step's beams equal K2 f32 of K1, K2 f32
+    alone against plain over all 80 antennas, timed beside its plain
+    version and its bound, with its yardsticks (registers, spills, stops)."""
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch import ArrayConfig
+    from dpdk_dc_sand_tpu_torch.ops import bstage, fengine_fused as ff
+
+    dev = torch.device("cuda")
+    cfg = ArrayConfig(**FLAG)
+    a, p, s, c, nb2 = cfg.n_ants, cfg.n_pols, FLAG_S, cfg.n_channels, 2 * cfg.n_beams
+    nb = a * p
+    for k in K1_COUNTERS:
+        getattr(ff, k).launches = 0
+    ff.fengine_fused.launches = bstage.beamform_turned_fused.launches = 0
+    run = _fb_steps(fengine=None, seed=SEED + 4)
+    launches = {"k1": ff.fengine_fused.launches, "k2": bstage.beamform_turned_fused.launches,
+                **_k1_counts(ff)}
+    fb, adc, cd, out, times, peak_gb = (run.pop(k) for k in ("fb", "adc", "cd", "out", "times",
+                                                             "peak_gb"))
+    log(f"flagship default precision: FBEngine resolved precision {fb.precision}, fengine "
+        f"{fb.fengine}, bstage {fb.bstage}; launches {launches}")
+    if (fb.precision, fb.fengine, fb.bstage) != ("f32", "fused", "fused"):
+        raise AssertionError("the default F+B flagship is not K1 then K2 with f32 weights")
+    if launches["k2"] != len(times) or launches["k1"] != len(times):
+        raise AssertionError(f"the default-precision step did not launch K1 and K2 a step: "
+                             f"{launches}")
+    if min(launches["k1_fir"], launches["k1_dft"]) < launches["k1"]:
+        raise AssertionError(f"K1 did not run through its two bf16 passes: {launches}")
+    want = (c // 4, p * s, 128)
+    if tuple(out.shape) != want or out.dtype != torch.float32 or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"default-precision beams {tuple(out.shape)} {out.dtype}, want {want}")
+    ms = float(np.median(times[1:]))
+    log(f"flagship default precision (K1 bf16 + K2 f32) [{a} ant x {c} ch x {cfg.n_beams} "
+        f"beams x {cfg.n_taps} taps, S={s}]: step ms {['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
+        f"{nb * s * cfg.fft_size / ms / 1e3:.1f} Msamples/s, peak memory {peak_gb:.2f} GB; the "
+        f"bf16 step {st['fb_ms']:.3f} ms ({ms / st['fb_ms']:.3f}x) ({st['card']})")
+    st["f32w_launches"] = launches
+    st["fb_default"] = dict(ms=ms, peak_gb=peak_gb)
+
+    flat = adc.reshape(a, p, -1)
+    cdt = torch.as_tensor(cd, device=dev).reshape(a, 1).expand(a, p)
+    qr, qi = ff.fengine_fused(flat, fb.window, None, None, n_channels=c,
+                              quant_scale=QUANT_SCALE, coarse_delays=cdt, n_spectra=s,
+                              rot_planes=(fb.rot_cos, fb.rot_sin))
+    w = fb.coeff_blocks
+    if w.dtype != torch.float32:
+        raise AssertionError(f"the default engine's steering blocks are {w.dtype}, not f32")
+
+    def k2():
+        return bstage.beamform_turned_fused(qr, qi, w, n_pols=p, precision="f32",
+                                            layout="packed")
+
+    beams = k2()
+    torch.cuda.synchronize()
+    if not torch.equal(beams, out):
+        raise AssertionError("the default engine's beams are not K2 f32(K1(adc))")
+    del out, adc, flat
+    ref = bstage.beamform_turned_fused_reference(qr, qi, w, "f32")
+    k2_err = _beam_diff(f"flagship k2 f32 [A={a} C={c} B={cfg.n_beams} S={s}]", beams, ref)
+    del beams, ref
+    k2_ms = cuda_ms(k2)
+    k2_plain_ms = cuda_ms(lambda: bstage.beamform_turned_fused_reference(qr, qi, w, "f32"),
+                          iters=1)
+    # Bytes: the planes, the f32 weights and the beams once each; operations:
+    # the three bf16 products a weight on the tensor cores (the plain f32
+    # products' FFMA floor is logged beside it).
+    macs = c * p * s * 2 * a * nb2
+    k2_bound = bound(2 * nb * s * c + c * 2 * a * nb2 * 4 + c * p * s * nb2 * 4, bf16=3 * 2 * macs)
+    ffma_ms = 2 * macs / PEAK_OPS_PER_S["f32"] * 1e3
+    log(f"flagship K2 f32: {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms; bound "
+        f"{k2_bound['bound_ms']:.3f} ms ({k2_bound['bound_by']}; the f32 FFMA floor of its "
+        f"products {ffma_ms:.3f} ms); the bf16 form {st['k2']['ms']:.3f} ms ({st['card']})")
+    st["k2_f32"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound,
+                        library_ms=None, ffma_bound_ms=ffma_ms,
+                        **_k2_yardsticks(st, qr, qi, w, k2_ms))
+    del fb, qr, qi, w
+    torch.cuda.empty_cache()
 
 
 def _k2_yardsticks(st, qr, qi, w, k2_ms) -> dict:
@@ -1375,16 +1484,19 @@ def _k2_yardsticks(st, qr, qi, w, k2_ms) -> dict:
 
     a, p, s, c = qr.shape
     nb2 = w.shape[-1]
-    at = bstage.kernel_attributes(a, p, s, nb2 // 2, c)
+    prec = "f32" if w.dtype == torch.float32 else "bf16"
+    at = bstage.kernel_attributes(a, p, s, nb2 // 2, c, precision=prec)
     out = torch.empty((c // (128 // nb2), p * s, 128), dtype=torch.float32, device=qr.device)
     fill_ms = cuda_ms(lambda: out.fill_(1.0))
     # The bytes its geometry moves from L2 to the SMs (a count, not a
     # reading): each plane run of `channels` bytes in its own 32-byte
-    # sectors, and the weights once (resident) or once an m tile (staged).
-    runs = 2 * a * p * s * (c // at["channels"])
+    # sectors (once for each item's share of the columns), and the weights
+    # once (resident) or once an m tile (staged).
+    runs = 2 * a * p * s * (c // at["channels"]) * (nb2 // min(nb2, at["item_cols"]))
     plane_gb = runs * 32 * -(-at["channels"] // 32) / 1e9
-    weight_gb = c * 2 * a * nb2 * 2 * (1 if at["resident"] else p * s // at["m_rows"]) / 1e9
-    log(f"k2 body [A={a} P*S={p * s} C={c} 2B={nb2}]: {at['regs']} registers, "
+    weight_gb = c * 2 * a * nb2 * w.element_size() * (
+        1 if at["resident"] else p * s // at["m_rows"]) / 1e9
+    log(f"k2 body {prec} [A={a} P*S={p * s} C={c} 2B={nb2}]: {at['regs']} registers, "
         f"{at['local_bytes']} local bytes, {at['blocks']} blocks; work item {at['channels']} "
         f"channels x {at['m_rows']} rows, K step {at['k_rows']} rows, weights "
         f"{'resident' if at['resident'] else 'staged'}, {at['smem_bytes']} bytes of shared memory; "
@@ -1405,7 +1517,7 @@ def _k2_yardsticks(st, qr, qi, w, k2_ms) -> dict:
         stop_ms[stop] = cuda_ms(lambda: bstage.beamform_turned_fused_stop(qr, qi, w, out, stop))
     del out
     split = stop_ms["copy"] + stop_ms["mma_store"]
-    log(f"k2 stops [A={a} C={c} 2B={nb2}] (ms; full {k2_ms:.3f}): "
+    log(f"k2 stops {prec} [A={a} C={c} 2B={nb2}] (ms; full {k2_ms:.3f}): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stop_ms.items())
         + f"; copy + mma_store {split:.3f} ({split / k2_ms:.3f} of full) ({st['card']})")
     return dict(fill_ms=fill_ms, ms_by_stop=stop_ms, regs=at["regs"],
@@ -4599,9 +4711,18 @@ def main() -> int:
              **st["k1_dft_f32"]),
         dict(name="bstage_fused", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
+             also_source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused_stops.cu",
              replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69", path="fb_flagship",
              launches=st["launches"]["k2"], sharded_launches=st["sharded_launches"]["k2"],
              **st["k2"]),
+        dict(name="bstage_fused_f32", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
+             also_source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused_stops.cu",
+             kernel="bstage_ring_kernel<..., float>: K2's f32-weight form (each weight three "
+                    "exact bf16 terms on the tensor cores)",
+             replaces="dpdk_dc_sand_tpu/ops/bstage_pallas.py:69",
+             path="fb_flagship_default_precision", launches=st["f32w_launches"]["k2"],
+             fb_default=st["fb_default"], **st["k2_f32"]),
         dict(name="corner_turn", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/corner_turn.cu",
              replaces="dpdk_dc_sand_tpu/ops/corner_turn.py:77",

@@ -160,14 +160,15 @@ _SIGNATURES = {
         _P,  # stream
     ],
     "bstage_fused_stop_launch": [
-        _P, _P, _P, _P,  # qr, qi, w (bf16), out [C/pack, P·S, pack·2B]
+        _P, _P, _P, _I,  # qr, qi, w, w_is_bf16
+        _P,  # out [C/pack, P·S, pack·2B]
         _I, _I, _I, _I, _I,  # n_ants, P·S, n_channels, 2B, stages (a mask)
         _P,  # stream
     ],
     "bstage_fused_attributes": [
-        _I, _I, _I, _I,  # n_ants, P·S, n_channels, 2B
-        _P,  # out (int[8]): registers, local bytes, blocks, channels, m rows, K rows,
-        # resident weights, shared-memory bytes
+        _I, _I, _I, _I, _I,  # n_ants, P·S, n_channels, 2B, w_is_bf16
+        _P,  # out (int[10]): registers, local bytes, blocks, channels, m rows, K rows,
+        # resident weights, shared-memory bytes, columns an item, wide plane copies
     ],
     "corner_turn_launch": [
         _P, _P, _P,  # qr, qi [A·P·S, C], out [C, planes·A·P·S]

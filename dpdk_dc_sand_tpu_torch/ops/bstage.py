@@ -4,12 +4,15 @@ For CUDA tensors :func:`beamform_turned_fused` launches the hand-written
 kernel ``csrc/bstage_fused.cu`` (K2); for CPU tensors it runs
 :func:`beamform_turned_fused_reference`, the plain PyTorch version. Both
 convert int8 samples exactly, take the weights in the precision's dtype
-(bf16 or f32) and accumulate in f32.
+(bf16 or f32) and accumulate in f32. K2 has one body, on the tensor cores,
+for both weight types (f32 weights as three exact bf16 terms) and every
+geometry its gate :func:`bstage_fused_supported` admits, which holds every
+geometry the reference's gate admits.
 
-:func:`beamform_turned_fused_stop` launches K2's tensor-core body cut to
-some of its stages (the ring's copies, the MMAs, the stores), which splits
-its time on the card; :func:`kernel_attributes` reports that body's
-registers, spill bytes and geometry.
+:func:`beamform_turned_fused_stop` launches K2's body cut to some of its
+stages (the ring's copies, the MMAs, the stores), which splits its time on
+the card; :func:`kernel_attributes` reports that body's registers, spill
+bytes and geometry.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from dpdk_dc_sand_tpu_torch import _build
 
 #: Output row width: ``pack`` adjacent channels' ``[re beams | im beams]``.
 _LANES = 128
-#: Beam-column widths (2B) the kernel is instantiated for.
-_NB2_KERNEL = (8, 16, 32, 64)
+#: Beam-column widths (2B) K2 takes: every width that divides the 128 lanes
+#: of a packed row (the reference's gate, ``bstage_pallas.py:58``).
+_NB2_KERNEL = (2, 4, 8, 16, 32, 64, 128)
 #: Channels per step of the plain version (bounds its f32 ``[chunk, P·S, 2A]``
 #: operand).
 _PLAIN_CHANNEL_CHUNK = 4096
@@ -30,13 +34,17 @@ _PLAIN_CHANNEL_CHUNK = 4096
 def bstage_fused_supported(
     n_ants: int, n_pols: int, n_spectra: int, n_beams: int, n_channels: int
 ) -> bool:
-    """Geometry gate of K2 (its SIMT body's tiling: 32-channel tiles, 64-row
-    m tiles; the tensor-core body takes 16 channels and 64 or 32 rows)."""
+    """Geometry gate of K2: 2B dividing 128, whole packed rows (``C % pack
+    == 0``, the last 16-channel block masked), and ``P·S`` a multiple of the
+    64-row m tile (32 rows at 2B >= 64). It admits every geometry
+    :func:`reference_fused_gate` admits (whose ``P·S % 128`` and
+    ``C % min(128, C) == 0`` are stricter) and more."""
     nb2 = 2 * n_beams
     return (
         n_ants >= 1
         and nb2 in _NB2_KERNEL
-        and n_channels % 32 == 0
+        and n_channels >= 1
+        and n_channels % (_LANES // nb2) == 0
         and (n_pols * n_spectra) % 64 == 0
     )
 
@@ -116,6 +124,8 @@ def _launch(qr, qi, w, nb2):
             f"K2 does not cover A={a} P={p} S={s} 2B={nb2} C={c} "
             "(bstage_fused_supported)"
         )
+    if w.data_ptr() % 16:  # the weight rows' 16-byte copies need an aligned base
+        w = w.clone()
     out = torch.empty(
         (c // (_LANES // nb2), p * s, _LANES), dtype=torch.float32, device=qr.device
     )
@@ -173,35 +183,40 @@ def beamform_turned_fused(
 
 
 def kernel_attributes(
-    n_ants: int, n_pols: int, n_spectra: int, n_beams: int, n_channels: int
+    n_ants: int, n_pols: int, n_spectra: int, n_beams: int, n_channels: int,
+    precision: str = "bf16",
 ) -> dict:
-    """K2's tensor-core body for a shape (bf16 weights, 2B in 16, 32, 64) as
-    the runtime reports it: registers and local (spill) bytes
-    (``cudaFuncGetAttributes``), the blocks of its persistent grid (the
-    occupancy API), and the C side's geometry: channels and m rows a work
-    item, contraction rows a K step, whether the weights are held whole in
-    shared memory, and the shared memory a block. Needs the card."""
+    """K2's body for a shape and weight precision as the runtime reports it:
+    registers and local (spill) bytes (``cudaFuncGetAttributes``), the
+    blocks of its persistent grid (the occupancy API), and the C side's
+    geometry: channels and m rows a work item, contraction rows a K step,
+    whether the weights are held whole in shared memory, the shared memory a
+    block, the columns a work item computes (2B, 8 below 2B = 8, 64 at 2B =
+    128) and whether 16-byte-aligned planes of this C take the wide copies.
+    Needs the card."""
     import ctypes
 
+    if precision not in ("bf16", "f32"):
+        raise ValueError(f"unknown precision {precision!r}")
     lib = _build.library()
-    info = (ctypes.c_int * 8)()
+    info = (ctypes.c_int * 10)()
     err = lib.bstage_fused_attributes(n_ants, n_pols * n_spectra, n_channels, 2 * n_beams,
-                                      ctypes.addressof(info))
+                                      int(precision == "bf16"), ctypes.addressof(info))
     _build.check(lib, err, "bstage_fused_attributes")
     keys = ("regs", "local_bytes", "blocks", "channels", "m_rows", "k_rows", "resident",
-            "smem_bytes")
+            "smem_bytes", "item_cols", "wide")
     return dict(zip(keys, info))
 
 
-#: K2's stage stops: the stages of its tensor-core body each keeps
+#: K2's stage stops: the stages of its body each keeps
 #: (``csrc/bstage_fused.cu``, ``K2_COPY`` 1, ``K2_MMA`` 2, ``K2_STORE`` 4).
 K2_STOPS = {"copy": 1, "mma": 2, "store": 4, "copy_mma": 3, "mma_store": 6}
 
 
 def beamform_turned_fused_stop(qr: torch.Tensor, qi: torch.Tensor, blocks: torch.Tensor,
                                out: torch.Tensor, stop: str) -> None:
-    """Launch K2's tensor-core body cut to some of its stages, to split its
-    time (CUDA only; bf16 ``blocks``, 2B in 16, 32, 64).
+    """Launch K2's body cut to some of its stages, to split its time (CUDA
+    only; ``blocks`` bf16 or f32, the weight type of the form it cuts).
 
     Writes into ``out`` (the packed ``[C/pack, P·S, 128]`` f32) what the
     stop leaves: the stops with ``store`` write zeros everywhere, the others
@@ -213,9 +228,6 @@ def beamform_turned_fused_stop(qr: torch.Tensor, qi: torch.Tensor, blocks: torch
     if qr.device.type != "cuda":
         raise ValueError(f"{what}: needs CUDA tensors, not {qr.device}")
     nb2 = blocks.shape[-1]
-    if blocks.dtype != torch.bfloat16 or nb2 not in (16, 32, 64):
-        raise ValueError(f"{what}: blocks {tuple(blocks.shape)} {blocks.dtype}: want bf16 "
-                         "with 2B in 16, 32, 64")
     _check_kernel_inputs(what, qr, qi, blocks, nb2)
     a, p, s, c = qr.shape
     want = (c // (_LANES // nb2), p * s, _LANES)
@@ -224,8 +236,9 @@ def beamform_turned_fused_stop(qr: torch.Tensor, qi: torch.Tensor, blocks: torch
         raise ValueError(f"{what}: out must be {want} f32 on {qr.device}")
     lib = _build.library()
     err = lib.bstage_fused_stop_launch(
-        qr.data_ptr(), qi.data_ptr(), blocks.data_ptr(), out.data_ptr(), a, p * s, c, nb2,
-        K2_STOPS[stop], torch.cuda.current_stream(qr.device).cuda_stream,
+        qr.data_ptr(), qi.data_ptr(), blocks.data_ptr(), int(blocks.dtype == torch.bfloat16),
+        out.data_ptr(), a, p * s, c, nb2, K2_STOPS[stop],
+        torch.cuda.current_stream(qr.device).cuda_stream,
     )
     _build.check(lib, err, "bstage_fused_stop")
 

@@ -17,11 +17,11 @@ from dpdk_dc_sand_tpu_torch.ops import bstage
 A, P, S, C, NB = 4, 2, 64, 512, 16
 
 
-def _inputs(seed, precision, a=A, nb=NB):
+def _inputs(seed, precision, a=A, nb=NB, c=C):
     rng = np.random.default_rng(seed)
-    qr = rng.integers(-127, 128, (a, P, S, C), dtype=np.int8)
-    qi = rng.integers(-127, 128, (a, P, S, C), dtype=np.int8)
-    rot = rng.uniform(-np.pi, np.pi, (C, nb, a))
+    qr = rng.integers(-127, 128, (a, P, S, c), dtype=np.int8)
+    qi = rng.integers(-127, 128, (a, P, S, c), dtype=np.int8)
+    rot = rng.uniform(-np.pi, np.pi, (c, nb, a))
     cos, sin = np.cos(rot).astype(np.float32), np.sin(rot).astype(np.float32)
     blocks = j_blockcat(jnp.asarray(cos), jnp.asarray(sin))
     if precision == "bf16":
@@ -34,10 +34,14 @@ def _torch_blocks(blocks):
     return t.to(torch.bfloat16) if blocks.dtype == jnp.bfloat16 else t
 
 
+@pytest.mark.parametrize("nb", [NB, 1, 2, 64])
 @pytest.mark.parametrize("precision", ["bf16", "f32"])
 @pytest.mark.parametrize("layout", ["packed", "split"])
-def test_plain_k2_matches_jax_kernel(precision, layout):
-    qr, qi, blocks = _inputs(3 + len(layout), precision)
+def test_plain_k2_matches_jax_kernel(precision, layout, nb):
+    """At 2B = 32 (C = 512) and at 2B = 2, 4 and 128 (C = 128), every width
+    the reference's gate adds to the port's old one."""
+    c = C if nb == NB else 128
+    qr, qi, blocks = _inputs(3 + len(layout) + nb, precision, nb=nb, c=c)
     ref = j_bstage(jnp.asarray(qr), jnp.asarray(qi), blocks, n_pols=P,
                    precision=precision, interpret=True, layout=layout)
     got = bstage.beamform_turned_fused(
@@ -46,9 +50,9 @@ def test_plain_k2_matches_jax_kernel(precision, layout):
     )
     if layout == "packed":
         got, ref = (got,), (ref,)
-        assert got[0].shape == (C // 4, P * S, 128)
+        assert got[0].shape == (c // (64 // nb), P * S, 128)
     else:
-        assert got[0].shape == (P, C, S, NB)
+        assert got[0].shape == (P, c, S, nb)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-3)
 
@@ -76,7 +80,23 @@ def test_bstage_fused_supported_gate():
     assert bstage.bstage_fused_supported(3, 2, 32, 4, 64)
     assert not bstage.bstage_fused_supported(4, 2, 16, 16, 512)  # P·S % 64
     assert not bstage.bstage_fused_supported(4, 2, 64, 12, 512)  # 2B
-    assert not bstage.bstage_fused_supported(4, 2, 64, 16, 48)  # C % 32
+    assert bstage.bstage_fused_supported(4, 2, 64, 16, 48)  # C % pack (4), as the reference
+    assert not bstage.bstage_fused_supported(4, 2, 64, 16, 42)  # C % pack
+    assert not bstage.bstage_fused_supported(4, 2, 64, 128, 512)  # 2B > 128
+
+
+@pytest.mark.parametrize("n_beams", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("n_ants", [1, 3, 80])
+def test_reference_gate_implies_the_ports(n_ants, n_beams):
+    """Every geometry the reference's K2 takes, K2 takes: S in {64, 128,
+    256}, C in {8 .. 32768} (the reference admits C < 128 at C % pack)."""
+    admitted = 0
+    for s in (64, 128, 256):
+        for c in (8, 16, 24, 48, 64, 128, 256, 32768):
+            if bstage.reference_fused_gate(n_ants, P, s, n_beams, c):
+                admitted += 1
+                assert bstage.bstage_fused_supported(n_ants, P, s, n_beams, c), (s, c)
+    assert admitted
 
 
 def test_beamform_turned_fused_input_checks():

@@ -14,8 +14,11 @@ bytes only, with its C-side geometry and its stage stops, K5b over the same
 input counts at every S its gate takes and at each plan its C side chooses,
 at the extremes, from a 4-byte-aligned base, with its registers, spills,
 refusals and stage stops, K8 at ragged shapes,
-K2's tensor-core body over a grid of 2B, A, P·S and C in both layouts, at
-the int8 extremes, with its C-side geometry and its stage stops,
+K2's body at every 2B its gate takes (2 to 128) and at narrow channel
+counts (C = 8, 24, 48), over a grid of 2B, A, P·S and C in both layouts
+and both weight types, at the int8 extremes, with f32 weights that only a
+three-term split carries, with its C-side geometry, every instantiation's
+spill bytes and its stage stops in both weight types,
 K1's unquantised (f32) output, K1's FIR pass alone, K1, K7 and the
 engines above fft 65536, K1's f32 form (its f32 FIR pass bit for bit, its
 FFMA DFT pass at every plan, which split takes which route), K1 at N1 = 8
@@ -87,7 +90,7 @@ def test_k1_kernel_matches_plain(dev, fft, dft_dtype, rowed):
         _codes_close(g.cpu(), r)
 
 
-@pytest.mark.parametrize("n_beams", [4, 8, 16, 32])
+@pytest.mark.parametrize("n_beams", [1, 2, 4, 8, 16, 32, 64])
 @pytest.mark.parametrize("precision", ["bf16", "f32"])
 def test_k2_kernel_matches_plain(dev, n_beams, precision):
     a, p, s, c = 3, 2, 64, 256
@@ -124,27 +127,74 @@ def _k2_check(dev, qr, qi, w, layout="packed"):
 K2_SHAPES = [(64, 32), (192, 96), (512, 4096)]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("layout", ["packed", "split"])
 @pytest.mark.parametrize("ps, c", K2_SHAPES)
 @pytest.mark.parametrize("a", [1, 7, 80])
 @pytest.mark.parametrize("nb2", [16, 32, 64])
-def test_k2_ring_body_matches_plain(dev, nb2, a, ps, c, layout):
+def test_k2_ring_body_matches_plain(dev, nb2, a, ps, c, layout, dtype):
     """2A = 2, 14 (one partial K step) and 160; weights held whole or staged."""
     p = 2
     rng = np.random.default_rng(nb2 * 1000 + a * 10 + ps + c)
     qr, qi = (_int8(rng, (a, p, ps // p, c)).to(dev) for _ in range(2))
     w = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * a, nb2)).astype(np.float32))
-    _k2_check(dev, qr, qi, w.to(dev).to(torch.bfloat16), layout)
+    _k2_check(dev, qr, qi, w.to(dev).to(dtype), layout)
 
 
+#: (C, 2B) below 16 channels or off a multiple of 16, each 2B whose pack
+#: (128 / 2B channels a packed row) divides C.
+K2_NARROW = [(c, nb2) for c in (8, 24, 48) for nb2 in (2, 4, 8, 16, 32, 64, 128)
+             if c % (128 // nb2) == 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c, nb2", K2_NARROW)
+def test_k2_takes_narrow_channel_counts(dev, c, nb2, dtype):
+    """C below 16 or not a multiple of it (the planes' byte-load copies and
+    the masked last channel block); and planes from a base one byte on, off
+    16-byte alignment (byte loads at C = 48 too)."""
+    a, p, s = 5, 2, 64
+    rng = np.random.default_rng(c * 1000 + nb2)
+    w = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * a, nb2)).astype(np.float32))
+    w = w.to(dev).to(dtype)
+    qr, qi = (_int8(rng, (a, p, s, c)).to(dev) for _ in range(2))
+    _k2_check(dev, qr, qi, w)
+    qr, qi = (_int8(rng, (a * p * s * c + 1,)).to(dev)[1:].view(a, p, s, c) for _ in range(2))
+    _k2_check(dev, qr, qi, w)
+
+
+def test_k2_f32_weights_need_all_three_terms(dev):
+    """Weights 1 + 2^-9 + 2^-18 against 1 on alternate contraction rows, with
+    samples +64 and -64 (every product exact in f32): each pair of rows
+    cancels to 64 (2^-9 + 2^-18), so the partial sums stay small while a
+    split that drops the third term (2^-18) errs by 2A/2 x 64 x 2^-18 =
+    0.0195 at A = 80, far past atol 1e-3; K2 must be within it."""
+    a, p, s, c, nb2 = 80, 2, 64, 32, 32
+    w1 = 1 + 2.0 ** -9 + 2.0 ** -18
+    k = torch.arange(2 * a) % 2
+    w = torch.where(k == 0, torch.tensor(w1), torch.tensor(1.0)).float()
+    w = w.view(1, 2 * a, 1).expand(c, 2 * a, nb2).contiguous().to(dev)
+    x = torch.where(torch.arange(a) % 2 == 0, 64, -64).to(torch.int8)
+    qr = x.view(a, 1, 1, 1).expand(a, p, s, c).contiguous().to(dev)
+    qi = qr.clone()
+    got = bstage.beamform_turned_fused(qr, qi, w, precision="f32", layout="packed")
+    exact = 2 * (a // 2) * 64 * (2.0 ** -9 + 2.0 ** -18)
+    two_terms = 2 * (a // 2) * 64 * 2.0 ** -9
+    assert abs(exact - two_terms) > 0.01
+    torch.testing.assert_close(got.cpu(), torch.full_like(got.cpu(), exact), rtol=1e-5,
+                               atol=1e-3)
+    _k2_check(dev, qr, qi, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("nb2", [16, 32, 64])
-def test_k2_holds_the_int8_extremes(dev, nb2):
+def test_k2_holds_the_int8_extremes(dev, nb2, dtype):
     """Every code -128 in qr and 127 in qi, and alternating extremes: the
     register turn's bf16 conversion is exact at both ends."""
     a, p, s, c = 9, 2, 128, 64
     rng = np.random.default_rng(nb2 + 5)
     w = torch.from_numpy(rng.uniform(-2, 2, (c, 2 * a, nb2)).astype(np.float32))
-    w = w.to(dev).to(torch.bfloat16)
+    w = w.to(dev).to(dtype)
     qr = torch.full((a, p, s, c), -128, dtype=torch.int8, device=dev)
     qi = torch.full((a, p, s, c), 127, dtype=torch.int8, device=dev)
     _k2_check(dev, qr, qi, w)
@@ -163,29 +213,46 @@ def test_k2_geometry_is_the_c_sides(dev):
     assert at["regs"] > 0 and at["local_bytes"] == 0
     assert 1 <= at["blocks"] <= torch.cuda.get_device_properties(dev).multi_processor_count
     assert (at["channels"], at["m_rows"], at["k_rows"]) == (16, 64, 16)
-    for nb in (8, 32):
+    assert (at["resident"], at["item_cols"], at["wide"]) == (1, 32, 1)
+    f32 = bstage.kernel_attributes(80, 2, 256, 16, 32768, precision="f32")
+    assert (f32["resident"], f32["m_rows"], f32["local_bytes"]) == (0, 64, 0)
+    assert f32["smem_bytes"] <= 232448
+    for nb, cols, rows in ((1, 8, 64), (4, 8, 64), (8, 16, 64), (32, 64, 32), (64, 64, 32)):
         got = bstage.kernel_attributes(80, 2, 256, nb, 32768)
         assert got["local_bytes"] == 0 and got["smem_bytes"] <= 232448
+        assert (got["item_cols"], got["m_rows"]) == (cols, rows)
+    assert bstage.kernel_attributes(3, 2, 64, 16, 24)["wide"] == 0
     lib = _build.library()
     x = torch.zeros(2 * 96 * 64, dtype=torch.int8, device=dev)
     w = torch.zeros(64 * 2 * 32, dtype=torch.bfloat16, device=dev)
     out = torch.empty(64 * 96 * 32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for ps, c in ((96, 64), (64, 40)):  # P·S % 64, C % 16
+    for ps, c, nb2 in ((96, 64, 32), (64, 42, 32), (64, 64, 12), (64, 64, 256)):
+        # P·S % 64, C % pack, 2B not dividing 128
         assert lib.bstage_fused_launch(x.data_ptr(), x.data_ptr(), w.data_ptr(), 1,
-                                       out.data_ptr(), 1, ps, c, 32, stream) != 0
+                                       out.data_ptr(), 1, ps, c, nb2, stream) != 0
     torch.cuda.synchronize()
 
 
+def test_k2_bodies_do_not_spill(dev):
+    """Every instantiation of the ring body (the columns an item computes:
+    8, 16, 32, 64; bf16 and f32 weights) at 0 local bytes."""
+    for nb in (1, 8, 16, 32):
+        for precision in ("bf16", "f32"):
+            at = bstage.kernel_attributes(80, 2, 256, nb, 32768, precision=precision)
+            assert at["local_bytes"] == 0, (nb, precision, at)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("stop", sorted(bstage.K2_STOPS))
-def test_k2_stops_write_what_they_keep(dev, stop):
+def test_k2_stops_write_what_they_keep(dev, stop, dtype):
     """A stop with the stores writes zeros over every output; one without
     writes nothing; neither counts as a K2 launch."""
     a, p, s, c = 17, 2, 128, 1024
     rng = np.random.default_rng(14)
     qr, qi = (_int8(rng, (a, p, s, c)).to(dev) for _ in range(2))
     w = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * a, 32)).astype(np.float32))
-    w = w.to(dev).to(torch.bfloat16)
+    w = w.to(dev).to(dtype)
     out = torch.ones((c // 4, p * s, 128), device=dev)
     before = bstage.beamform_turned_fused.launches
     bstage.beamform_turned_fused_stop(qr, qi, w, out, stop)

@@ -19,10 +19,13 @@ import torch
 
 from dpdk_dc_sand_tpu.config import ArrayConfig as JArrayConfig
 from dpdk_dc_sand_tpu.models.fbengine import FBEngine as JFBEngine
+from dpdk_dc_sand_tpu.models.fbengine import _f_stage as j_f_stage
 from dpdk_dc_sand_tpu.ops.fengine_pallas import coarse_margin_samples
 from dpdk_dc_sand_tpu_torch import ArrayConfig
 from dpdk_dc_sand_tpu_torch.convert import from_reference_state
 from dpdk_dc_sand_tpu_torch.models import FBEngine
+from dpdk_dc_sand_tpu_torch.models.fbengine import _f_stage
+from dpdk_dc_sand_tpu_torch.ops.bstage import beamform_turned_fused_reference
 from dpdk_dc_sand_tpu_torch.ops.requant import requantise
 
 CFG = ArrayConfig(n_ants=4, n_channels=1024, n_beams=16, n_taps=8)
@@ -132,3 +135,59 @@ def test_rowed_and_flat_adc_give_the_same_beams():
     np.testing.assert_array_equal(rowed.numpy(), flat.numpy())
     with pytest.raises(RuntimeError, match="set_beam_delays"):
         FBEngine(CFG, n_spectra=S, device="cpu").step(adc, cd, fd, ph)
+
+
+def _f_planes_xla(port, ref, cfg, jcfg, adc, cd, fd, ph):
+    """Each package's composed F planes for one step (``fengine="xla"``)."""
+    port_planes = _f_stage(
+        torch.as_tensor(adc), torch.as_tensor(cd), port.window, None, cfg=cfg,
+        n_spectra=S, quant_scale=port.quant_scale, fengine="xla",
+        fine_delays=(torch.as_tensor(fd), torch.as_tensor(ph)),
+    )
+    ref_planes = j_f_stage(
+        jnp.asarray(adc), jnp.asarray(cd), jnp.asarray(fd), jnp.asarray(ph),
+        window=ref.window, cfg=jcfg, n_spectra=S, quant_scale=port.quant_scale,
+        use_pallas=None, fengine="xla",
+    )
+    return port_planes, [torch.from_numpy(np.array(q)) for q in ref_planes]
+
+
+@pytest.mark.parametrize("n_beams, n_channels", [(1, 256), (2, 256), (64, 256), (4, 16)])
+def test_natural_fused_b_at_every_reference_width(n_beams, n_channels):
+    """One tied-array beam, two, 64, and 16 channels (an ArrayConfig takes
+    powers of two only, so not 48) at 4 beams: geometries the
+    reference's K2 takes. The port's ``FBEngine(beam_layout="natural")`` at
+    the default f32 precision resolves K2 there and steps (the composed F
+    on both sides), and its beams match the JAX engine's over a delay
+    update within the per-beam flip bound: each beam within sum |w| over the
+    F codes where the packages' planes differ, + 1e-3."""
+    cfg = ArrayConfig(n_ants=4, n_channels=n_channels, n_beams=n_beams, n_taps=4)
+    jcfg = JArrayConfig(**dataclasses.asdict(cfg))
+    ref = JFBEngine(jcfg, n_spectra=S, fengine="xla", bstage="fused", beam_layout="natural",
+                    fengine_interpret=True)
+    port = FBEngine(cfg, n_spectra=S, fengine="xla", beam_layout="natural", device="cpu")
+    assert (port.precision, port.bstage, ref.bstage) == ("f32", "fused", "fused")
+    _, cd, fd, ph, dv = ref.example_inputs(seed=2, margin=BUDGET, delay_budget=BUDGET)
+    t_s = 0.0
+    for step in range(2):
+        if step == 1:  # delay update: new steering phases, fine delays, epoch
+            dv = dv.copy()
+            dv[..., 2] += 0.3
+            fd = (0.5 * fd).astype(np.float32)
+            ph = (-np.pi * fd / 2).astype(np.float32)
+            t_s = 1e-3
+        ref.set_beam_delays(dv, t_s=t_s)
+        adc = ref.example_inputs(seed=20 + step, margin=BUDGET)[0]
+        want = torch.from_numpy(np.array(ref.step(jnp.asarray(adc), cd, fd, ph)))
+        from_reference_state(port, np.asarray(ref.window), np.asarray(ref._coeff_blocks), None,
+                             delay_vals=dv, frac_delays=fd, phases=ph, t_s=t_s)
+        got = port.step(adc, cd, fd, ph)
+        pack = 64 // n_beams
+        assert got.shape == want.shape == (n_channels // pack, cfg.n_pols * S, 128)
+        (pr, pi), (rr, ri) = _f_planes_xla(port, ref, cfg, jcfg, adc, cd, fd, ph)
+        dr, di = ((g.to(torch.int16) - r.to(torch.int16)).abs().to(torch.int8)
+                  for g, r in ((pr, rr), (pi, ri)))
+        assert int(max(dr.max(), di.max())) <= 1
+        bound = beamform_turned_fused_reference(dr, di, port.coeff_blocks.abs(), "f32")
+        d = (got - want).abs()
+        assert bool((d <= bound + 1e-3 + 1e-5 * want.abs()).all()), float((d - bound).max())
