@@ -78,6 +78,18 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    beside its plain version, its bound (bytes; the three bf16 products a
    weight) and its products' f32 FFMA floor; its yardsticks as the bf16
    form's (registers, spill bytes, the bytes from L2, the fill, the stops).
+   Then the FIR pass of K1 and K7 on each route that runs it
+   (``FIR_ROUTES``: the flagship's coarse delays and every start 0, K7 at
+   160 streams, fft 1024 and 2^22, K7 at 2^23), both planes: its last
+   streams bit-exact against plain, timed over the route's plane groups
+   (``fir_route_ms``, which a tree's ``ops/fengine_fused.py`` can be
+   handed) beside its bound, with the share of starts off 4 bytes; every
+   FIR body's registers and spill bytes (a spill fails the phase; phases 3
+   and 12 log them too); its library yardstick, one cuDNN depthwise
+   ``conv1d`` over the flagship streams' frames gathered at their starts.
+   The FIR's f32 operations are ``fir_ops``: an FMUL for the first tap of
+   an output, an FMUL and an FADD for each later one, two of the 67
+   TFLOP/s rate's operations each.
 7. corner_turn — K4 through ``corner_turn_planes`` at A=80, P=2, S=256,
    C=32768 vs its plain version, bit-exact; ``corner_turn_planes_x`` (K5a)
    must be the same bytes viewed as ``[C, 2AP, S]``; kernel and plain times;
@@ -397,6 +409,50 @@ def bound(nbytes: float, **ops: float) -> dict:
                 bound_by="bytes" if worst == "bytes" else "operations")
 
 
+def fir_ops(outputs: float, taps: int) -> float:
+    """The FIR's f32 operations as ``PEAK_OPS_PER_S["f32"]`` counts them:
+    an output's first tap is an FMUL, each later tap an FMUL and an FADD
+    (the product rounded before the sum, as the plain version rounds it: no
+    FMA), and each takes one FP32 issue slot, which the 67 TFLOP/s rate
+    counts as two operations (one FFMA). So 2·(2·taps - 1) an output: 2.48
+    ms at the flagship's 16 taps, not 1.28."""
+    return 2 * (2 * taps - 1) * outputs
+
+
+def _conv1d_fir(fill, shape, win, ref) -> tuple:
+    """The FIR's library yardstick: one cuDNN depthwise ``conv1d`` computes
+    its sums over frames laid out ``shape`` = ``[B, fft, n_frames]`` in f32,
+    which ``fill(xt)`` writes (untimed), against ``win`` ``[taps, fft]``.
+    Held to ``ref``, the plain f32 sums ``[k, S, fft]`` of the first k
+    streams, within 1e-3 + 1e-5·max|ref|, then timed. Returns its ms (None
+    where it disagrees, or cuDNN has no memory or no algorithm for it) and a
+    note."""
+    import torch
+    import torch.nn.functional as F
+
+    lib_ms, note, xt, wt = None, "", None, None
+    try:
+        xt = torch.empty(shape, dtype=torch.float32, device=win.device)
+        fill(xt)
+        wt = win.t().contiguous().unsqueeze(1)  # [F, 1, taps]
+
+        def lib():
+            return F.conv1d(xt, wt, groups=shape[1])
+
+        d = float((lib()[: ref.shape[0]].transpose(1, 2) - ref).abs().max())
+        note = f"max |d| vs plain on {ref.shape[0]} streams {d:.3e}"
+        if d <= 1e-3 + 1e-5 * float(ref.abs().max()):
+            lib_ms = cuda_ms(lib, iters=1)
+        else:
+            note = f"— (conv1d does not compute the FIR here: {note})"
+    except RuntimeError as e:  # out of memory, or no cuDNN algorithm for it
+        note = f"— (conv1d failed: {str(e).splitlines()[0]})"
+    finally:
+        xt = wt = None
+        torch.cuda.empty_cache()
+    return lib_ms, note
+
+
 def phase_device(st: dict) -> None:
     import torch
 
@@ -490,6 +546,7 @@ def phase_k1(st: dict) -> None:
     from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
 
     dev = torch.device("cuda")
+    _fir_bodies(st, "k1")
     fft, taps, s, lead = 65536, 16, 256, (4, 2)  # 8 of the flagship's 160 batches
     nb = lead[0] * lead[1]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -608,12 +665,12 @@ def _k1_case(n1, n2, nb, s, taps, dft_dtype, three):
     x_bytes = nb * (s + taps - 1) * fft + taps * fft * 4
     rot, out = 2 * nb * c * 4, 2 * nb * s * c
     plane = nb * s * fft * item
-    fir_ops = nb * s * 2 * taps * fft
+    f_ops = fir_ops(nb * s * fft, taps)
     a_ops, b_ops = nb * s * 4 * n1 * n1 * n2, nb * s * 4 * n1 * n2 * n2
-    ops = {"f32": fir_ops}
+    ops = {"f32": f_ops}
     ops[kind] = ops.get(kind, 0) + a_ops + b_ops
     k1 = bound(x_bytes + rot + out, **ops)
-    passes = {"fir": bound(x_bytes + plane, f32=fir_ops)}
+    passes = {"fir": bound(x_bytes + plane, f32=f_ops)}
     if three:
         passes["stage_a"] = bound(plane + 2 * plane, **{kind: a_ops})
         passes["stage_b"] = bound(2 * plane + rot + out, **{kind: b_ops})
@@ -1157,12 +1214,13 @@ def phase_flagship(st: dict) -> None:
     # the rotation planes, writes two int8 planes; its DFT is bf16 products.
     k1_bound = bound(nb * (s + taps - 1) * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
                      bf16=nb * s * 2 * (2 * n1 * n1 * n2 + 2 * n2 * n2 * n1),
-                     f32=nb * s * 2 * taps * fft)
+                     f32=fir_ops(nb * s * fft, taps))
     k2_bound = bound(2 * nb * s * c + c * 2 * a * 2 * cfg.n_beams * 2 + c * p * s * 2 * cfg.n_beams * 4,
                      bf16=2 * c * p * s * 2 * a * 2 * cfg.n_beams)
     # K1's two passes alone over all 160 streams: the FIR pass bit-exact
     # against its plain version, then each timed; the split's floor is the
-    # FIR pass's bound (its bytes) plus the DFT pass's (its bf16 operations).
+    # FIR pass's bound (its f32 operations, counted as fir_ops counts them;
+    # its bytes come close) plus the DFT pass's (its bf16 operations).
     plane = ff.k1_fir(x, starts, fb.window, n_spectra=s)
     for b0 in range(0, nb, 8):
         b = slice(b0, b0 + 8)
@@ -1173,8 +1231,22 @@ def phase_flagship(st: dict) -> None:
     fir_ms = cuda_ms(lambda: ff.k1_fir(x, starts, fb.window, n_spectra=s), iters=2)
     dft_ms = cuda_ms(lambda: ff.k1_dft(plane, rc, rs, n1=n1, n2=n2), iters=2)
     del plane
+    fir_plain_ms = cuda_ms(_chunked(lambda b: ff.k1_fir_reference(
+        x[b], starts[b], fb.window, n_spectra=s), nb), iters=1)
+    # The FIR pass's library yardstick (for both planes): one cuDNN depthwise
+    # conv1d over the streams' frames gathered at their starts and laid out
+    # [B, F, S + taps - 1] in f32 (untimed), as phase 11 times it for K6.
+    n_frames = s + taps - 1
+
+    def gather(xt):
+        for b, st0 in enumerate(starts.tolist()):
+            xt[b].copy_(x[b, st0: st0 + n_frames * fft].view(n_frames, fft).t())
+
+    lib_ms, lib_note = _conv1d_fir(gather, (nb, fft, n_frames), fb.window, ff.k1_fir_reference(
+        x[:8], starts[:8], fb.window, n_spectra=s, dft_dtype="float32"))
+    st["k1_fir_library"] = dict(library_ms=lib_ms, library_note=lib_note)
     fir_bound = bound(nb * (s + taps - 1) * fft + taps * fft * 4 + nb * s * fft * 2,
-                      f32=nb * s * 2 * taps * fft)
+                      f32=fir_ops(nb * s * fft, taps))
     dft_bound = bound(nb * s * fft * 2 + 2 * nb * c * 4 + 2 * nb * s * c,
                       bf16=nb * s * 2 * (2 * n1 * n1 * n2 + 2 * n2 * n2 * n1))
     floor_ms = fir_bound["bound_ms"] + dft_bound["bound_ms"]
@@ -1189,18 +1261,143 @@ def phase_flagship(st: dict) -> None:
         o.numel() * o.element_size() for o in outs)
     del outs
     log(f"flagship k1 passes: FIR {fir_ms:.3f} ms (bound {fir_bound['bound_ms']:.3f}, "
-        f"{fir_bound['bound_by']}), DFT {dft_ms:.3f} ms (bound {dft_bound['bound_ms']:.3f}, "
+        f"{fir_bound['bound_by']}; plain {fir_plain_ms:.3f}; library conv1d "
+        f"{'' if lib_ms is None else f'{lib_ms:.3f} ms '}({lib_note})), DFT {dft_ms:.3f} ms (bound {dft_bound['bound_ms']:.3f}, "
         f"{dft_bound['bound_by']}); sum {fir_ms + dft_ms:.3f} vs K1 {k1_ms:.3f} ms; the split's "
         f"floor {floor_ms:.3f} ms (the two bounds' sum); K1's scratch {scratch / 1e9:.3f} GB a "
         f"call (peak over its outputs) ({st['card']})")
     st["k1"] = dict(max_abs_err=float(k1_err), ms=k1_ms, plain_ms=k1_plain_ms, **k1_bound,
                     library_ms=None, fir_ms=fir_ms, dft_ms=dft_ms, scratch_bytes=scratch,
                     **st["k1_subset"])
+    st["k1_fir"] = dict(max_abs_err=0.0, ms=fir_ms, plain_ms=fir_plain_ms, **fir_bound,
+                        **st["k1_fir_library"], launches=passes["k1 FIR pass"],
+                        bytes_ms=(nb * (s + taps - 1) * fft + taps * fft * 4
+                                  + nb * s * fft * 2) / HBM_BYTES_PER_S * 1e3)
     st["fb_peak_gb"] = peak_gb
     st["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound,
                     library_ms=None, **_k2_yardsticks(st, qr, qi, w, k2_ms))
     del fb, adc, out, qr, qi, pq, flat, x
     _flagship_f32(st)
+    _fir_routes(st)
+
+
+#: The FIR pass of K1 and K7 on the routes that run it, at full width (160
+#: streams, 16 taps): (name, fft, S, coarse delays below (0: every start
+#: 0), K7's frames). The flagship's (phase 6's coarse delays, about 3/4 of
+#: the starts off 4 bytes) and the same bytes with every start 0; K7's at
+#: 160 streams (phase 12); K1's at fft 1024 and 2^22 (phase 3); K7's at
+#: fft 2^23 (phase 12).
+FIR_ROUTES = (("flagship", 65536, 256, 8192, False), ("flagship_aligned", 65536, 256, 0, False),
+              ("k7_160", 65536, 256, 0, True), ("fft_1024", 1024, 16384, 4096, False),
+              ("fft_2_22", 1 << 22, 4, 4096, False), ("k7_2_23", 1 << 23, 2, 0, True))
+
+
+def fir_route_inputs(route):
+    """A FIR route's inputs, made on the card from ``SEED``: the 160 streams
+    ``[160, n_in]`` int8 (K7's: its frames ``[160, S + 15, fft]`` viewed
+    flat), their starts (the flagship's coarse delays, one an antenna, below
+    the route's bound; 0 without one) and the window."""
+    import numpy as np
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    _, fft, s, delay, _ = route
+    dev = torch.device("cuda")
+    taps, a = FLAG["n_taps"], FLAG["n_ants"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randint(-64, 64, (2 * a, (s + taps - 1) * fft + delay), dtype=torch.int8,
+                      device=dev, generator=gen)
+    cd = np.random.default_rng(SEED).integers(0, delay, a) if delay else np.zeros(a, np.int64)
+    starts = torch.as_tensor(np.repeat(cd, 2), dtype=torch.int64, device=dev)
+    return x, starts, default_window(taps, fft, device=dev)
+
+
+def fir_route_ms(ff, route, dft_dtype: str, inputs=None) -> tuple[float, int]:
+    """ms of the FIR pass of the module ``ff`` (a tree's
+    ``ops/fengine_fused.py``: it needs ``_fir_pass``, the route queries and
+    ``_route_group``, the grouping ``_launch`` and ``_launch_dit`` use) over
+    a route's 160 streams, as K1 or K7 runs it: over the route's plane groups
+    into one group's plane, the mean of 2 calls after one. Returns the ms and
+    the streams a group."""
+    import torch
+
+    _, fft, s, _, k7 = route
+    x, starts, win = inputs or fir_route_inputs(route)
+    nb, f32 = x.shape[0], dft_dtype == "float32"
+    if k7:
+        _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+        body = ff._dit_body(n1, n2, dft_dtype)
+    else:
+        n1, n2 = ff._split_ct(fft)
+        body = ff._k1_body(n1, n2, dft_dtype)
+    group = ff._route_group(body, nb, s, fft)
+    plane = torch.empty((group, s, fft), dtype=torch.float32 if f32 else torch.bfloat16,
+                        device=x.device)
+    spans = [slice(b0, min(nb, b0 + group)) for b0 in range(0, nb, group)]
+    ms = cuda_ms(lambda: [ff._fir_pass(x[b], starts[b], win, plane[: b.stop - b.start])
+                          for b in spans], iters=2)
+    return ms, group
+
+
+def _fir_bodies(st: dict, tag: str) -> dict:
+    """Every body of K1's FIR pass (both planes, each register-ring depth
+    and the long body, each stop's): registers, spill bytes, shared bytes
+    and blocks an SM, logged; a body that spills fails the phase."""
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+
+    bodies = ff.k1_fir_attributes()
+    log(f"{tag} k1 FIR bodies (registers, local bytes, shared bytes, blocks an SM): "
+        + "; ".join(f"{k} {v['regs']}, {v['local_bytes']}, {v['smem_bytes']}, "
+                    f"{v['blocks_per_sm']}" for k, v in bodies.items()) + f" ({st['card']})")
+    spills = {k: v["local_bytes"] for k, v in bodies.items() if v["local_bytes"]}
+    if spills:
+        raise AssertionError(f"{tag}: a K1 FIR body spills: {spills}")
+    st["k1_fir_bodies"] = bodies
+    return bodies
+
+
+def _fir_routes(st: dict) -> None:
+    """The FIR pass on each of ``FIR_ROUTES`` in both planes: bit for bit
+    against its plain version on the route's last streams, then timed by
+    ``fir_route_ms`` beside its bound (the streams' bytes once, the window,
+    the plane; ``fir_ops``), with the share of streams whose start is off 4
+    bytes (two words a row); the bodies' registers and spills."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+
+    _fir_bodies(st, "flagship")
+    taps, rec = FLAG["n_taps"], {}
+    for route in FIR_ROUTES:
+        name, fft, s, _, _ = route
+        x, starts, win = inputs = fir_route_inputs(route)
+        nb = x.shape[0]
+        two = int((ff.fir_copy_words(x, starts) == 2).sum())
+        k = 8 if fft <= 65536 else 1  # streams held to plain
+        last = slice(nb - k, nb)
+        for dt in ("bfloat16", "float32"):
+            fir = ff.k1_fir_f32 if dt == "float32" else ff.k1_fir
+            if not torch.equal(fir(x[last], starts[last], win, n_spectra=s),
+                               ff.k1_fir_reference(x[last], starts[last], win, n_spectra=s,
+                                                   dft_dtype=dt)):
+                raise AssertionError(f"the FIR pass on route {name} ({dt}) differs from plain")
+            ms, group = fir_route_ms(ff, route, dt, inputs)
+            item = 4 if dt == "float32" else 2
+            b = bound(nb * (s + taps - 1) * fft + taps * fft * 4 + nb * s * fft * item,
+                      f32=fir_ops(nb * s * fft, taps))
+            rec[f"{name}/{dt}"] = dict(ms=ms, group=group, two_word_streams=two, streams=nb,
+                                       fft=fft, s=s, **b)
+            torch.cuda.empty_cache()
+        log(f"k1 FIR pass, route {name} [{nb} streams x S={s} x fft {fft}; {two} of {nb} "
+            f"starts off 4 bytes; last {k} bit-exact against plain]: " + ", ".join(
+                f"{dt} {rec[f'{name}/{dt}']['ms']:.3f} ms (groups of "
+                f"{rec[f'{name}/{dt}']['group']}; bound {rec[f'{name}/{dt}']['bound_ms']:.3f}, "
+                f"{rec[f'{name}/{dt}']['bound_by']})" for dt in ("bfloat16", "float32"))
+            + f" ({st['card']})")
+        del x, starts, win, inputs
+        torch.cuda.empty_cache()
+    st["k1_fir_routes"] = rec
 
 
 def _fb_steps(fengine: str = "fused_f32", n_channels: int = FLAG["n_channels"],
@@ -1364,7 +1561,7 @@ def _flagship_f32(st: dict) -> None:
         plane[b], rc[b], rs[b], n1=n1, n2=n2, dft_dtype="float32"), nb), iters=1)
     del plane
     fir_bound = bound(nb * (s + taps - 1) * fft + taps * fft * 4 + nb * s * fft * 4,
-                      f32=nb * s * 2 * taps * fft)
+                      f32=fir_ops(nb * s * fft, taps))
     dft_bound = bound(nb * s * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
                       f32=nb * s * 2 * (2 * n1 * n1 * n2 + 2 * n2 * n2 * n1))
     at = ff.k1_dft_f32_attributes(n1, n2)
@@ -1376,7 +1573,7 @@ def _flagship_f32(st: dict) -> None:
         f"{dft_bound['bound_ms'] / dft_ms:.1%} of it; plain {dft_plain_ms:.3f}); the DFT "
         f"pass's body {at} ({st['card']})")
     st["k1_fir_f32"] = dict(max_abs_err=0.0, ms=fir_ms, plain_ms=fir_plain_ms, **fir_bound,
-                            library_ms=None)
+                            **st["k1_fir_library"])
     st["k1_dft_f32"] = dict(max_abs_err=float(k1_err), ms=dft_ms, plain_ms=dft_plain_ms,
                             **dft_bound, library_ms=None, k1_f32_ms=k1_ms,
                             regs=at["regs"], local_bytes=at["local_bytes"],
@@ -1919,7 +2116,6 @@ def phase_fxb_flagship(st: dict) -> None:
 
 def phase_fir(st: dict) -> None:
     import torch
-    import torch.nn.functional as F
 
     from dpdk_dc_sand_tpu_torch.ops import pfb, pfb_fir
 
@@ -1971,31 +2167,12 @@ def phase_fir(st: dict) -> None:
     log("k6 bodies (register-ring depth / frames / copy: registers, local bytes): "
         + ", ".join(f"{k} {v['regs']}, {v['local_bytes']}" for k, v in bodies.items()))
     k6_bound = bound(nb * n_frames * fft + taps * fft * 4 + nb * s * fft * 4,
-                     f32=2 * taps * nb * s * fft)
+                     f32=fir_ops(nb * s * fft, taps))
     # The yardstick: one cuDNN depthwise conv1d computes the same sums over
     # the frames laid out [B, F, n_frames] in f32 (layout and cast untimed).
-    lib_ms, lib_note = None, ""
-    try:
-        xt = torch.empty((nb, fft, n_frames), dtype=torch.float32, device=dev)
-        xt.copy_(x.view(nb, n_frames, fft).transpose(1, 2))
-        wt = win.t().contiguous().unsqueeze(1)  # [F, 1, taps]
-
-        def lib():
-            return F.conv1d(xt, wt, groups=fft)
-
-        ref8 = pfb_fir.pfb_fir_reference(x[:8].view(8, n_frames, fft), win)
-        d = float((lib()[:8].transpose(1, 2) - ref8).abs().max())
-        lib_note = f"max |d| vs plain on 8 streams {d:.3e}"
-        if d <= 1e-3 + 1e-5 * float(ref8.abs().max()):
-            lib_ms = cuda_ms(lib, iters=1)
-        else:
-            lib_note = f"— (conv1d does not compute the FIR here: {lib_note})"
-        del ref8
-    except RuntimeError as e:  # out of memory, or no cuDNN algorithm for it
-        lib_note = f"— (conv1d failed: {str(e).splitlines()[0]})"
-    finally:
-        xt = wt = None
-        torch.cuda.empty_cache()
+    lib_ms, lib_note = _conv1d_fir(
+        lambda xt: xt.copy_(x.view(nb, n_frames, fft).transpose(1, 2)), (nb, fft, n_frames),
+        win, pfb_fir.pfb_fir_reference(x[:8].view(8, n_frames, fft), win))
     lib_txt = f"{lib_ms:.3f} ms ({lib_note})" if lib_ms is not None else lib_note
     log(f"k6 {tag}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {k6_bound['bound_ms']:.3f} ms "
         f"({k6_bound['bound_by']}), library conv1d {lib_txt}; f32 frames [8 streams] "
@@ -2045,6 +2222,7 @@ def phase_fengine_dit(st: dict) -> None:
     from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
 
     dev = torch.device("cuda")
+    _fir_bodies(st, "k7")
     # 8 of the flagship's 160 streams: fft 65536, 16 taps, S = 256.
     fft, taps, s, lead = 2 * FLAG["n_channels"], FLAG["n_taps"], FLAG_S, (4, 2)
     nb, c, n_frames = lead[0] * lead[1], fft // 2, s + taps - 1
@@ -2107,8 +2285,8 @@ def phase_fengine_dit(st: dict) -> None:
     del outs
     macs = 4 * n1 * n1 * n2 + 8 * n2 * n2 * n1  # per spectrum, both half-length DFTs
     nbytes = nb * n_frames * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c
-    k7_bound = bound(nbytes, bf16=2 * macs * nb * s, f32=2 * taps * fft * nb * s)
-    f32_bound = bound(nbytes, f32=2 * macs * nb * s + 2 * taps * fft * nb * s)
+    k7_bound = bound(nbytes, bf16=2 * macs * nb * s, f32=fir_ops(nb * s * fft, taps))
+    f32_bound = bound(nbytes, f32=2 * macs * nb * s + fir_ops(nb * s * fft, taps))
     log(f"k7 bound: bf16 DFT {k7_bound['bound_ms']:.3f} ms ({k7_bound['bound_by']}), f32 DFT "
         f"{f32_bound['bound_ms']:.3f} ms ({f32_bound['bound_by']})")
     # The yardstick: cuFFT's rfft of the same 8 streams' f32 FIR (the DFT
@@ -2239,9 +2417,9 @@ def _k7_flagship(st: dict, n1: int, n2: int, gen) -> None:
     del outs
     macs = 4 * n1 * n1 * n2 + 8 * n2 * n2 * n1
     k7_bound = bound(nb * n_frames * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
-                     bf16=2 * macs * nb * s, f32=2 * taps * fft * nb * s)
+                     bf16=2 * macs * nb * s, f32=fir_ops(nb * s * fft, taps))
     fir_bound = bound(nb * n_frames * fft + taps * fft * 4 + nb * s * fft * 2,
-                      f32=2 * taps * fft * nb * s)
+                      f32=fir_ops(nb * s * fft, taps))
     dft_bound = bound(nb * s * fft * 2 + 2 * nb * c * 4 + 2 * nb * s * c, bf16=2 * macs * nb * s)
     steps = list(stop_ms.items())
     split = ", ".join(f"{b} +{t - a:.3f}" for (_, a), (b, t) in zip(steps, steps[1:]))
@@ -2314,9 +2492,9 @@ def _k7_f32_flagship(st: dict, n1: int, n2: int, frames, win, rc, rs) -> None:
     del outs
     macs = 4 * n1 * n1 * n2 + 8 * n2 * n2 * n1
     k7_bound = bound(nb * n_frames * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
-                     f32=2 * macs * nb * s + 2 * taps * fft * nb * s)
+                     f32=2 * macs * nb * s + fir_ops(nb * s * fft, taps))
     fir_bound = bound(nb * n_frames * fft + taps * fft * 4 + nb * s * fft * 4,
-                      f32=2 * taps * fft * nb * s)
+                      f32=fir_ops(nb * s * fft, taps))
     dft_bound = bound(nb * s * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c, f32=2 * macs * nb * s)
     log(f"k7 f32 [{nb} streams x S={s} x fft {fft}]: {ms:.3f} ms (bound "
         f"{k7_bound['bound_ms']:.3f}, {k7_bound['bound_by']}), plain {plain_ms:.3f}; f32 FIR "
@@ -2406,12 +2584,12 @@ def _k7_case(n1, n2, nb, s, taps, dft_dtype, three):
     x_bytes = nb * (s + taps - 1) * fft + taps * fft * 4
     rest = 2 * nb * n * 4 + 2 * n * 4 + 2 * nb * s * n  # rotation, combine, outputs
     plane = nb * s * fft * item
-    fir_ops = nb * s * 2 * taps * fft
+    f_ops = fir_ops(nb * s * fft, taps)
     a_ops, b_ops = nb * s * 2 * 4 * n1 * n1 * n2, nb * s * 2 * 8 * n2 * n2 * n1
-    ops = {"f32": fir_ops}
+    ops = {"f32": f_ops}
     ops[kind] = ops.get(kind, 0) + a_ops + b_ops
     k7 = bound(x_bytes + rest, **ops)
-    passes = {"fir": bound(x_bytes + plane, f32=fir_ops)}
+    passes = {"fir": bound(x_bytes + plane, f32=f_ops)}
     if three:
         passes["stage_a"] = bound(3 * plane, **{kind: a_ops})
         passes["stage_b"] = bound(2 * plane + rest, **{kind: b_ops})
@@ -2536,6 +2714,9 @@ def _k7_routes(st: dict, gen) -> None:
             # Each stage alone on the last stream, against its plain version.
             one = slice(nb - 1, nb)
             p1 = fir_fn(flat[one], zeros[one], win, n_spectra=s)
+            if not torch.equal(p1, ff.k1_fir_reference(flat[one], zeros[one], win, n_spectra=s,
+                                                       dft_dtype=dt)):
+                raise AssertionError(f"{tag}: the FIR pass differs from plain [last stream]")
             stage_a, stage_b = (ff.dit_stage_a_f32, ff.dit_stage_b_f32) if f32 else (
                 ff.dit_stage_a, ff.dit_stage_b)
             tr, ti = stage_a(p1, n1=n1, n2=n2)
@@ -2558,6 +2739,9 @@ def _k7_routes(st: dict, gen) -> None:
             del p1, wr, wi, sb
         else:
             pk = fir_fn(flat[last], zeros[last], win, n_spectra=s)
+            if not torch.equal(pk, ff.k1_fir_reference(flat[last], zeros[last], win,
+                                                       n_spectra=s, dft_dtype=dt)):
+                raise AssertionError(f"{tag}: the FIR pass differs from plain [last {k} streams]")
             ref_fn = ff.dit_dft_f32_reference if f32 else ff.dit_dft_reference
             rec["dft_plain_ms"] = cuda_ms(lambda: ref_fn(pk, rc[last], rs[last], n1=n1, n2=n2),
                                           iters=1)
@@ -3660,7 +3844,7 @@ def phase_probes(st: dict) -> None:
     n1 = n2 = ct_ablate.N1
     k1_bound = bound(nb * (s5 + taps - 1) * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s5 * c,
                      bf16=nb * s5 * 2 * (2 * n1 * n1 * n2 + 2 * n2 * n2 * n1),
-                     f32=nb * s5 * 2 * taps * fft)
+                     f32=fir_ops(nb * s5 * fft, taps))
     steps = list(ms5.items())
     split = ", ".join(f"{b} +{ms - ma:.3f}" for (_, ma), (b, ms) in zip(steps, steps[1:]))
     log(f"p5 [{nb} streams x S={s5}, fft {fft}] ms: " + ", ".join(
@@ -3717,7 +3901,7 @@ def phase_probes(st: dict) -> None:
     d1, d2 = fused_ablate.N1, fused_ablate.N2
     macs = 4 * d1 * d1 * d2 + 8 * d2 * d2 * d1
     k7_bound = bound(nb2 * (s2 + taps - 1) * fft + taps * fft * 4 + 2 * nb2 * s2 * c,
-                     bf16=2 * macs * nb2 * s2, f32=2 * taps * fft * nb2 * s2)
+                     bf16=2 * macs * nb2 * s2, f32=fir_ops(nb2 * s2 * fft, taps))
     steps = list(ms2.items())
     split = ", ".join(f"{b} +{ms - ma:.3f}" for (_, ma), (b, ms) in zip(steps, steps[1:]))
     log(f"p2 [{nb2} streams x S={s2}] ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms2.items())
@@ -4698,11 +4882,20 @@ def main() -> int:
                k1_fft_2_22_2x2x4=st["k1_2_22_small"][dt],
                **full[(K1_THREE_PASS_FFT, dt)]["passes"][f"stage_{stage}"])
           for dt, sfx in (("bfloat16", ""), ("float32", "_f32")) for stage in "ab"),
+        dict(name="k1_fir", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
+             kernel="k1_fir_kernel: the FIR pass of K1 and K7 into the bf16 plane (cp.async "
+                    "ring, two-word copies where a start is off 4 bytes)",
+             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504",
+             also_replaces=["dpdk_dc_sand_tpu/ops/fengine_pallas.py:275"], path="fb_flagship",
+             routes={k: v for k, v in st["k1_fir_routes"].items() if k.endswith("bfloat16")},
+             bodies=st["k1_fir_bodies"], **st["k1_fir"]),
         dict(name="k1_fir_f32", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
              kernel="k1_fir_kernel<..., float>: K1's FIR pass into the f32 plane",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship_fused_f32",
-             launches=st["f32_launches"]["k1_fir_f32"], **st["k1_fir_f32"]),
+             launches=st["f32_launches"]["k1_fir_f32"],
+             routes={k: v for k, v in st["k1_fir_routes"].items() if k.endswith("float32")},
+             **st["k1_fir_f32"]),
         dict(name="k1_dft_f32", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
              kernel="k1_dft_f32_kernel: K1's DFT pass with f32 operands (FFMA)",
@@ -4767,7 +4960,8 @@ def main() -> int:
              **st["probes"]["p5"]),
         dict(name="dma_bisect", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct_stops.cu",
-             kernel="P5's kernel at its dma stop (k1_fir_kernel<0, STOP_DMA>)",
+             kernel="P5's kernel at its dma stop (k1_fir_kernel<0, STOP_DMA>: the FIR "
+                    "pass's ring copies alone)",
              replaces="benchmarks/dma_bisect.py:72", path="benchmarks/dma_bisect",
              **st["probes"]["p4"]),
         dict(name="fused_ablate", route="cuda",

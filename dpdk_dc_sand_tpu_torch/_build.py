@@ -72,12 +72,16 @@ _SIGNATURES = {
         _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
         _P,  # plane [B, S, fft] bf16
         _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft
+        _I, _I, _I, _I,  # the plan: register-ring depth (0: the long body), run, streams a
+        # block, short-run body
         _P,  # stream
     ],
     "k1_fir_f32_launch": [
         _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
         _P,  # plane [B, S, fft] f32
         _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft
+        _I, _I, _I, _I,  # the plan: register-ring depth (0: the long body), run, streams a
+        # block, short-run body
         _P,  # stream
     ],
     "k1_dft_launch": [
@@ -139,12 +143,21 @@ _SIGNATURES = {
         # tile columns, K-tile depth, stages, blocks an SM
     ] for name in ("k1_stage_a_attributes", "k1_stage_b_attributes",
                    "k1_stage_a_f32_attributes", "k1_stage_b_f32_attributes")},
+    "k1_fir_attributes": [
+        _I, _I, _I,  # register-ring depth (0: the long body), short-run body, plane_f32
+        _P,  # out (int[5]): registers, local bytes, shared bytes, threads, blocks an SM
+    ],
     "k1_fir_stop_launch": [
         _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
         _P, _P, _P,  # plane [B, S, fft] bf16 (fir), outr, outi [B, S, fft/2] int8
-        _I, _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft, stop (P5: 1 dma, 2 fir;
-        # P2: 5 dma, 6 conv, 7 fir, 8 deint)
+        _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft
+        _I, _I, _I, _I,  # the plan: register-ring depth, run, streams a block, short-run
+        _I,  # stop (P5: 1 dma, 2 fir; P2: 5 dma, 6 conv, 7 fir, 8 deint)
         _P,  # stream
+    ],
+    "k1_fir_stop_attributes": [
+        _I, _I, _I,  # register-ring depth, short-run body, stop
+        _P,  # out (int[5]), as k1_fir_attributes
     ],
     "k1_dft_stop_launch": [
         _P,  # plane [B, S, N1, N2] bf16

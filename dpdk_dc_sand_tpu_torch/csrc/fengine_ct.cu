@@ -33,18 +33,40 @@
 // k1_stage_*_attributes) before any launch; a split none of them takes is
 // refused. Nothing falls back.
 //
-// 1. k1_fir_kernel — the FIR, on K1's inputs, with the register ring of
-//    K6's first body (its rows loaded straight from global memory; K6 now
-//    feeds that ring from a shared-memory ring, csrc/pfb_fir.cu): a block
-//    owns 512 lanes of the frame and a run of RUN spectra of one stream;
-//    each thread keeps its 4 lanes' taps of the window in
-//    registers and a ring of the last MAXT frame rows, so each window value
-//    is read once per run and each input byte about once. The stream starts
-//    at starts[b], which may be unaligned (byte loads then). It writes the
-//    FIR rounded to bf16 straight into the [B, S, N1, N2] plane (the in-frame
-//    index is the plane index), bit for bit __float2bfloat16_rn of the f32
-//    tap-order sum, or the f32 sums themselves for f32 operands. Bound by
-//    bytes: 2.84 GB in, 5.37 GB out at the flagship.
+// 1. k1_fir_kernel — the FIR, on K1's inputs, on K6's design (csrc/pfb_fir.cu):
+//    a block owns 512 lanes of the frame (128 threads, 4 lanes each) and a
+//    run of up to 256 spectra of one stream, or where S is smaller the same
+//    run of several streams one after another (the wrapper's plan,
+//    ops/fengine_fused.py:_fir_plan), so each window value is read once a
+//    block: at fft 2^22 and S = 4 the window (268 MB) would otherwise come
+//    from device memory once a stream. Frame rows reach the block through a
+//    shared-memory ring of 16 stages of 4 rows (64 KB) that cp.async keeps
+//    15 stages ahead; each thread copies and reads only its own 8 bytes of a
+//    row, so the ring needs no barrier. A stream may start at any byte (the
+//    coarse delay, starts[b]): each thread copies the aligned 4-byte word
+//    under its 4 samples and, where the start is off 4 bytes, the word after
+//    it (one more 4-byte copy a row, no byte loads; neighbouring threads
+//    share the DRAM sectors), and joins them on read with a funnel shift by
+//    8·(start % 4). Each row goes from the ring into a register ring of the
+//    last MAXT rows (4, 8 or 16) once, converted to f32 once; a chunk of
+//    MAXT outputs of a MAXT-tap pass (its tail too) runs with no row or tap
+//    guard. Runs of at most 4 spectra (fft >= 2^22 at the flagship's sample
+//    count) take the short-run body instead: each row, once read, adds its
+//    product to every output of the run it feeds, so a stream's rows need
+//    no priming; its ring has 6 stages (24 KB), which hold a stream's rows
+//    (at most 19) and leave room for four blocks an SM. It writes the FIR
+//    rounded to bf16 straight into the [B, S, N1, N2] plane (the in-frame
+//    index is the plane index) by streaming stores, bit for bit
+//    __float2bfloat16_rn of the f32 tap-order sum, or the f32 sums
+//    themselves for f32 operands. More than 16 taps take the long body
+//    (every tap's row and window from global memory, the same sums). Bound
+//    at the flagship by its f32 operations (an FMUL for an output's first
+//    tap, an FMUL and an FADD for each later one, each an FP32 issue slot:
+//    2.48 ms), its bytes close behind (2.84 GB in, 5.37 GB out: 2.45 ms);
+//    the f32 plane by its bytes (10.74 GB out: 4.06 ms). The 16-row ring
+//    body issues about 151 instructions an output and thread, 124 of them
+//    the FMULs and FADDs, so its arithmetic alone runs near the issue rate;
+//    its time is in PERF.md.
 // 2. k1_dft_kernel — both DFT stages on the tensor cores (mma.sync
 //    m16n8k16 bf16, f32 accumulate) fed from shared memory by a cp.async
 //    ring of 4 stages (3 where 4 do not fit). A unit of work is (batch,
@@ -82,9 +104,8 @@
 //    codes, and adding them the same way moved no share.
 //
 // What bounds it on the card. The split's floor is 8.0 ms at the flagship:
-// the FIR pass's bytes (2.84 GB in, 5.37 GB out: 2.45 ms) and the DFT's 5.5
-// TFLOP of bf16 (5.56 ms). The FIR pass runs at about a fifth of its floor,
-// as K6 does; what holds it back is open (PERF.md). The DFT pass runs at
+// the FIR pass's operations (2.48 ms) and the DFT's 5.5 TFLOP of bf16
+// (5.56 ms). The FIR pass's time is in PERF.md. The DFT pass runs at
 // about a sixth of its floor, far from the HBM rate and the bf16 peak
 // alike. By its design's count each unit pulls ~0.5 MB through L2 (the
 // plane's rows once per chunk, so 4 times a spectrum at the flagship; the
@@ -138,9 +159,9 @@
 // _fengine_kernel_ct reached through pl.pallas_call at ct_ablate.py:147 and
 // dma_bisect.py:113). A compile-time STOP cuts the two passes after a stage,
 // so the production instantiations (STOP_NONE) are the code above unchanged:
-//   STOP_DMA    — the FIR pass's loads only, each input byte once; the
-//                 probe (frame s - s % 16's first fft/2 samples) to both
-//                 outputs;
+//   STOP_DMA    — the FIR pass's ring copies only, each input byte once
+//                 into the ring and read from it once; the probe (frame
+//                 s - s % 16's first fft/2 samples) to both outputs;
 //   STOP_FIR    — the FIR pass, its bf16 plane written as always, and the
 //                 f32 sums' first and second fft/2 samples to outr, outi;
 //   STOP_STAGEA — the DFT pass up to the twiddle, no stage B: T re / im of
@@ -152,9 +173,9 @@
 // The FIR pass also carries the probe P2's first four stops, for K7's route
 // (csrc/fengine_dit.cu: K7's first pass is this FIR pass on its frames with
 // every start at 0), each into outputs [B, S, fft/2] and no plane:
-//   STOP_DIT_DMA   — the loads of STOP_DMA; outr 0, outi the first sample
+//   STOP_DIT_DMA   — the copies of STOP_DMA; outr 0, outi the first sample
 //                    of frame f0 = s - s % 16 (P2's s_blk);
-//   STOP_DIT_CONV  — the same loads converted to f32 and summed; outi the
+//   STOP_DIT_CONV  — the same copies converted to f32 and summed; outi the
 //                    first samples of frames f0 and f0 + 1, added;
 //   STOP_DIT_FIR   — STOP_FIR's outputs without the plane;
 //   STOP_DIT_DEINT — the FIR rounded to bf16, split: sample 2m to outr[m],
@@ -164,6 +185,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -190,30 +212,72 @@ __device__ __forceinline__ int8_t trunc_s8(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Pass 1: the FIR into the bf16 plane
+// Pass 1: the FIR into the plane
 // ---------------------------------------------------------------------------
-constexpr int FIR_THREADS = 128;  // 4 lanes each: 512 lanes per block
-constexpr int RUN = 128;          // spectra per block
+constexpr int FIR_THREADS = 128;                       // 4 lanes each
+constexpr int FIR_TILE = 4 * FIR_THREADS;              // lanes a block
+constexpr int FIR_ROWS = 4;                            // frame rows a stage of the ring
+constexpr int FIR_STAGES = 16;                         // stages of the ring (64 KB)
+constexpr int FIR_SHORT_STAGES = 6;                    // the short-run body's (24 KB)
+constexpr int FIR_SLOT = 8 * FIR_THREADS;              // bytes a row: two words a thread
+constexpr int FIR_MAX_STREAMS = 256;                   // streams a block, at most
+constexpr int FIR_SHORT = 4;                           // the short-run body's most spectra a run
+// Blocks an SM: the 16-row register ring and the window take about 200
+// registers a thread, so two; the smaller ring bodies fit three (64 KB
+// each), the short-run bodies four or five (24 KB each).
+constexpr int FIR_BLOCKS = 2;
 
-struct FirParams {
-  const int8_t* x;  // [G, batch_stride]; stream b starts at starts[b]
-  long long batch_stride;
-  const long long* starts;
-  const float* win;  // [taps, fft]
-  void* plane;       // [G, S, fft]: bf16, or f32 for f32 DFT operands
-  int n_spectra, fft, n_taps, lane_blocks, runs;
-  int8_t* outr;  // the stops' outputs [G, S, fft/2] (unused by K1 itself)
-  int8_t* outi;
+// A FIR launch: the shape and the wrapper's plan (ops/fengine_fused.py:
+// _fir_plan): a block takes FIR_TILE lanes of `run` spectra of each of
+// `streams` streams.
+struct FirShape {
+  long long batch_stride;  // samples between streams
+  int batch, n_spectra, fft, n_taps;
+  int run, streams;
+  int lane_blocks, runs;
 };
 
-template <bool VEC>
-__device__ __forceinline__ float4 load4(const int8_t* p) {
-  if constexpr (VEC) {
-    const char4 v = __ldg(reinterpret_cast<const char4*>(p));
-    return make_float4(v.x, v.y, v.z, v.w);
-  } else {
-    return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
-  }
+// The stops that run the body's copies and nothing of its arithmetic.
+__host__ __device__ constexpr bool fir_copies_only(int stop) {
+  return stop == STOP_DMA || stop == STOP_DIT_DMA || stop == STOP_DIT_CONV;
+}
+
+// The ring's stages for a body: the short-run body reads at most FIR_SHORT
+// + 15 rows a stream, so a ring of 6 stages copies a stream's rows ahead
+// and leaves room for more blocks an SM (faster at fft 2^22 and 2^23 than
+// 9, 12 or 16 stages on the card).
+__host__ __device__ constexpr int fir_stages(bool short_run) {
+  return short_run ? FIR_SHORT_STAGES : FIR_STAGES;
+}
+
+// Dynamic shared memory of a body: the ring, or none for the long body.
+__host__ __device__ constexpr int fir_smem_bytes(int maxt, int stop, bool short_run) {
+  return maxt > 0 || fir_copies_only(stop) ? fir_stages(short_run) * FIR_ROWS * FIR_SLOT : 0;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 int8 samples of a word, as f32.
+__device__ __forceinline__ float4 bytes4(uint32_t v) {
+  return make_float4(static_cast<float>(static_cast<int8_t>(v)),
+                     static_cast<float>(static_cast<int8_t>(v >> 8)),
+                     static_cast<float>(static_cast<int8_t>(v >> 16)),
+                     static_cast<float>(static_cast<int8_t>(v >> 24)));
 }
 
 __device__ __forceinline__ float4 mul4(float4 x, float4 w) {
@@ -228,19 +292,16 @@ __device__ __forceinline__ float4 mac4(float4 acc, float4 x, float4 w) {
                      __fadd_rn(acc.w, q.w));
 }
 
-__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* p, float4 v) {
+// 4 FIR sums into the plane by a streaming store: rounded to bf16 (8
+// bytes), or the f32 sums themselves (16 bytes).
+__device__ __forceinline__ void store_plane4(__nv_bfloat16* p, float4 v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
+  __stcs(reinterpret_cast<uint2*>(p), make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                 *reinterpret_cast<const uint32_t*>(&hi)));
 }
-
-// 4 FIR sums into the plane: rounded to bf16, or the f32 sums themselves.
-__device__ __forceinline__ void store_plane4(__nv_bfloat16* p, float4 v) { store_bf16x4(p, v); }
 __device__ __forceinline__ void store_plane4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+  __stcs(reinterpret_cast<float4*>(p), v);
 }
 
 // The FIR stop's int8 of 4 f32 sums, by truncation (4-byte aligned).
@@ -257,197 +318,373 @@ __device__ __forceinline__ void store_deint4(int8_t* e, int8_t* o, float4 v) {
   *reinterpret_cast<char2*>(o) = make_char2(r(v.y), r(v.w));
 }
 
-// What the FIR pass stores for spectrum s at a STOP: the plane (K1, P5's
-// fir), the f32 sums' halves (P5's and P2's fir), P2's even / odd split.
+// Where one stream's output goes: its plane rows at this thread's lanes, and
+// for a stop its place in outr and outi.
 template <int STOP, typename PT>
-__device__ __forceinline__ void fir_store(const FirParams& a, PT* ob, int8_t* oq, int8_t* oq2,
-                                          long long s, float4 acc) {
-  const long long fft = a.fft;
-  if constexpr (STOP == STOP_NONE || STOP == STOP_FIR) store_plane4(ob + s * fft, acc);
-  if constexpr (STOP == STOP_FIR || STOP == STOP_DIT_FIR) store_trunc4(oq + s * (fft / 2), acc);
-  if constexpr (STOP == STOP_DIT_DEINT) store_deint4(oq + s * (fft / 2), oq2 + s * (fft / 2), acc);
+struct FirOut {
+  PT* ob;      // spectrum s at ob + s * fft
+  int8_t* oq;  // the stops': spectrum s at oq + s * (fft / 2)
+  int8_t* oq2;
+
+  __device__ __forceinline__ FirOut(PT* plane, int8_t* outr, int8_t* outi, const FirShape& sh,
+                                    long long b, int lane)
+      : ob(plane + b * sh.n_spectra * static_cast<long long>(sh.fft) + lane),
+        oq(nullptr), oq2(nullptr) {
+    const int half = sh.fft / 2;
+    const long long o = b * sh.n_spectra * static_cast<long long>(half);
+    if constexpr (STOP == STOP_FIR || STOP == STOP_DIT_FIR) {
+      oq = lane < half ? outr + o + lane : outi + o + lane - half;
+    }
+    if constexpr (STOP == STOP_DIT_DEINT) {
+      oq = outr + o + lane / 2;
+      oq2 = outi + o + lane / 2;
+    }
+  }
+
+  // What the pass stores for spectrum s at its STOP: the plane (K1, P5's
+  // fir), the f32 sums' halves (P5's and P2's fir), P2's even / odd split.
+  __device__ __forceinline__ void store(long long s, long long fft, float4 acc) const {
+    if constexpr (STOP == STOP_NONE || STOP == STOP_FIR) store_plane4(ob + s * fft, acc);
+    if constexpr (STOP == STOP_FIR || STOP == STOP_DIT_FIR) store_trunc4(oq + s * (fft / 2), acc);
+    if constexpr (STOP == STOP_DIT_DEINT) {
+      store_deint4(oq + s * (fft / 2), oq2 + s * (fft / 2), acc);
+    }
+  }
+};
+
+// A thread's 4 samples of a row from its aligned words: w0 alone where the
+// stream is aligned, else the word after it joined on (the funnel shift).
+__device__ __forceinline__ uint32_t join(uint32_t w0, uint32_t w1, int shift) {
+  return __funnelshift_r(w0, w1, 8 * shift);
 }
 
-// One thread's 4 lanes over spectra [s0, s1). MAXT > 0: the register ring
-// of the last MAXT rows (rows past the stream's last read as zero, unused);
-// MAXT = 0: every tap row from global memory (taps > 16). The stops write
-// their outputs at oq (the lanes' place in outr or outi) and oq2 (fir_store).
-template <int MAXT, bool VEC, int STOP, typename PT>
-__device__ __forceinline__ void fir_run(const FirParams& a, const int8_t* xb, PT* ob,
-                                        int8_t* oq, int8_t* oq2, int lane, int s0, int s1) {
-  const long long fft = a.fft;
-  const int rows = a.n_spectra + a.n_taps - 1;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  if constexpr (MAXT == 0) {
-    for (int s = s0; s < s1; ++s) {
-      float4 acc = mul4(load4<VEC>(xb + s * fft),
-                        __ldg(reinterpret_cast<const float4*>(a.win + lane)));
-      for (int t = 1; t < a.n_taps; ++t) {
-        acc = mac4(acc, load4<VEC>(xb + (s + t) * fft),
-                   __ldg(reinterpret_cast<const float4*>(a.win + t * fft + lane)));
+// The block's frame rows in shared memory. For each of its streams in turn
+// the block reads rows s0 .. s0 + R - 1; stream j's row s0 + q is virtual
+// row v = j·RV + q (RV: R rounded up to whole stages, so no stage spans two
+// streams), and lives in slot v % (STAGES·FIR_ROWS) while it is in the
+// ring. Stage k holds virtual rows k·FIR_ROWS ..; it is copied STAGES - 1 stages
+// before it is read, by a cursor that walks the streams' rows in order.
+// Each thread copies its own 8 bytes of a slot with cp.async (the aligned
+// word under its 4 samples, and the word after it where the stream's start
+// is not 4-byte aligned: one more 4-byte copy a row, and no byte loads) and
+// reads only what it copied, so the ring needs no barrier.
+template <int STAGES>
+struct FirRing {
+  const int8_t* x;
+  const long long* first;  // shared: stream j's first sample at x + first[j]
+  int fft, lane, s0, r, rv, stages;
+  unsigned char* slot0;  // this thread's 8 bytes of slot 0
+  // The copy cursor: stream cj's row s0 + cq is the next to copy, from
+  // crow + cq·fft (its aligned word), two words a row where ctwo.
+  int cj, cq;
+  const int8_t* crow;
+  bool ctwo;
+  int rshift;  // the reader's stream: its start % 4
+
+  // Stream j's first sample at this thread's lanes: the aligned word at or
+  // below it, and its byte offset in that word (0 .. 3).
+  __device__ __forceinline__ int shift_of(int j) const {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(x + first[j] + lane) & 3);
+  }
+
+  __device__ __forceinline__ void seek(int j) {
+    cj = j;
+    cq = 0;
+    const int sh = shift_of(j);
+    crow = x + first[j] + lane - sh + static_cast<long long>(s0) * fft;
+    ctwo = sh != 0;
+  }
+
+  __device__ __forceinline__ void issue(int k) {
+    if (k < stages) {
+      if (cq == rv) seek(cj + 1);
+      const uint32_t dst = smem_u32(slot0 + (k % STAGES) * FIR_ROWS * FIR_SLOT);
+#pragma unroll
+      for (int i = 0; i < FIR_ROWS; ++i) {
+        if (cq + i < r) {
+          const int8_t* src = crow + static_cast<long long>(cq + i) * fft;
+          cp_async4(dst + i * FIR_SLOT, src);
+          if (ctwo) cp_async4(dst + i * FIR_SLOT + 4, src + 4);
+        }
       }
-      fir_store<STOP>(a, ob, oq, oq2, s, acc);
+      cq += FIR_ROWS;
     }
-  } else {
-    float4 w[MAXT];
+    cp_async_commit();  // one group a stage, even an empty one
+  }
+
+  __device__ __forceinline__ void prologue() {
+    seek(0);
+    for (int k = 0; k < STAGES - 1; ++k) issue(k);
+  }
+
+  // The reader turns to stream j.
+  __device__ __forceinline__ void begin(int j) { rshift = shift_of(j); }
+
+  // Virtual row v's 4 samples (v read in order, each once). At a stage's
+  // first row (`first_row`, v % FIR_ROWS == 0): copy the stage STAGES - 1
+  // ahead into the slots of the stage before (read), then wait for this one.
+  __device__ __forceinline__ uint32_t word(int v, bool first_row) {
+    if (first_row) {
+      issue(v / FIR_ROWS + STAGES - 1);
+      cp_async_wait<STAGES - 1>();
+    }
+    const uint2 u =
+        *reinterpret_cast<const uint2*>(slot0 + (v % (STAGES * FIR_ROWS)) * FIR_SLOT);
+    return join(u.x, u.y, rshift);
+  }
+};
+
+// The ring body: MAXT = 4, 8 or 16 rows of register ring, the block's
+// streams one after another. Each row goes from the ring into the register
+// ring once, converted to f32 once; at output s the register ring holds rows
+// s .. s + MAXT - 1 (row s0 + q in register slot q % MAXT). A whole chunk of
+// MAXT outputs of a MAXT-tap pass runs with no row, tap or output guard, its
+// ragged tail with the output guard alone; fewer taps take the guarded step.
+template <int MAXT, int STOP, typename PT, typename Ring>
+__device__ __forceinline__ void fir_ring_body(Ring& ring, const float* __restrict__ win,
+                                              PT* __restrict__ plane, int8_t* __restrict__ outr,
+                                              int8_t* __restrict__ outi, const FirShape& sh,
+                                              int b0, int s1, int nb) {
+  const long long fft = sh.fft;
+  const int lane = ring.lane, s0 = ring.s0, r = ring.r;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 wr[MAXT];
 #pragma unroll
-    for (int t = 0; t < MAXT; ++t) {
-      w[t] = t < a.n_taps ? __ldg(reinterpret_cast<const float4*>(a.win + t * fft + lane))
-                          : zero;
-    }
-    // Row s0 + j lives in slot j % MAXT; at output s the ring holds rows
-    // s .. s + MAXT - 1.
-    float4 ring[MAXT];
+  for (int t = 0; t < MAXT; ++t) {
+    wr[t] = t < sh.n_taps ? __ldg(reinterpret_cast<const float4*>(win + t * fft + lane)) : zero;
+  }
+  ring.prologue();
+  const bool full_taps = sh.n_taps == MAXT;
+  for (int j = 0; j < nb; ++j) {
+    const int vb = j * ring.rv;
+    ring.begin(j);
+    const FirOut<STOP, PT> out(plane, outr, outi, sh, b0 + j, lane);
+    float4 xr[MAXT];
 #pragma unroll
-    for (int j = 0; j < MAXT - 1; ++j) {
-      const int r = s0 + j;
-      ring[j] = r < rows ? load4<VEC>(xb + r * fft) : zero;
+    for (int q = 0; q < MAXT - 1; ++q) {
+      xr[q] = q < r ? bytes4(ring.word(vb + q, q % FIR_ROWS == 0)) : zero;
     }
+    // Output s + i: row s + i + MAXT - 1 into the register ring, then the
+    // taps in order. s - s0 is a multiple of MAXT, so the row's place in its
+    // stage is a constant.
+    auto step = [&](int s, int i, auto full) {
+      constexpr bool FULL = decltype(full)::value;
+      const int q = s - s0 + i + MAXT - 1;
+      const bool first = (i + MAXT - 1) % FIR_ROWS == 0;
+      xr[(i + MAXT - 1) % MAXT] = FULL || q < r ? bytes4(ring.word(vb + q, first)) : zero;
+      float4 acc = mul4(xr[i], wr[0]);
+#pragma unroll
+      for (int t = 1; t < MAXT; ++t) {
+        if (FULL || t < sh.n_taps) acc = mac4(acc, xr[(i + t) % MAXT], wr[t]);
+      }
+      out.store(s + i, fft, acc);
+    };
     for (int s = s0; s < s1; s += MAXT) {
+      if (full_taps && s + MAXT <= s1) {
 #pragma unroll
-      for (int j = 0; j < MAXT; ++j) {
-        if (s + j < s1) {
-          const int r = s + j + MAXT - 1;
-          ring[(j + MAXT - 1) % MAXT] = r < rows ? load4<VEC>(xb + r * fft) : zero;
-          float4 acc = mul4(ring[j], w[0]);
+        for (int i = 0; i < MAXT; ++i) step(s, i, std::true_type{});
+      } else if (full_taps) {  // the tail of a MAXT-tap pass: every row it reads exists
 #pragma unroll
-          for (int t = 1; t < MAXT; ++t) {
-            if (t < a.n_taps) acc = mac4(acc, ring[(j + t) % MAXT], w[t]);
-          }
-          fir_store<STOP>(a, ob, oq, oq2, s + j, acc);
+        for (int i = 0; i < MAXT; ++i) {
+          if (s + i < s1) step(s, i, std::true_type{});
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < MAXT; ++i) {
+          if (s + i < s1) step(s, i, std::false_type{});
         }
       }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block
 }
 
-// 4 raw input bytes as one word.
-template <bool VEC>
-__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
-  if constexpr (VEC) {
-    return __ldg(reinterpret_cast<const unsigned int*>(p));
-  } else {
-    return static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p))) |
-           static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + 1))) << 8 |
-           static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + 2))) << 16 |
-           static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + 3))) << 24;
+// The short-run body (runs of at most FIR_SHORT spectra: fft 2^22 and up at
+// the flagship's sample count, S = 2 to 4), the block's streams one after
+// another. Each row, once read and converted, adds its product to each
+// output of the run it feeds (output o takes row q as tap q - o, so each
+// sum's taps still come in order), so a stream's rows need no register
+// ring and no priming, and the run's outputs give independent sums.
+template <int MAXT, int STOP, typename PT, typename Ring>
+__device__ __forceinline__ void fir_short_body(Ring& ring, const float* __restrict__ win,
+                                               PT* __restrict__ plane,
+                                               int8_t* __restrict__ outr,
+                                               int8_t* __restrict__ outi, const FirShape& sh,
+                                               int b0, int s1, int nb) {
+  const long long fft = sh.fft;
+  const int lane = ring.lane, s0 = ring.s0, r = ring.r, run = s1 - s0;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 wr[MAXT];
+#pragma unroll
+  for (int t = 0; t < MAXT; ++t) {
+    wr[t] = t < sh.n_taps ? __ldg(reinterpret_cast<const float4*>(win + t * fft + lane)) : zero;
   }
-}
-
-// The DMA stop over spectra [s0, s1): each row the ring would load, loaded
-// once, and at every 16th frame the probe: that frame's bytes in the first
-// fft/2 lanes go to both outputs of its 16 spectra (oq_r, oq_i: the lanes'
-// place, null past fft/2). The loads' XOR is stored under a condition that
-// never holds but that the compiler cannot see through (n_spectra < 0), so
-// no load is dropped.
-template <bool VEC>
-__device__ __forceinline__ void dma_run(const FirParams& a, const int8_t* xb, int8_t* oq_r,
-                                        int8_t* oq_i, int s0, int s1) {
-  const long long fft = a.fft, half = fft / 2;
-  const int last = min(a.n_spectra + a.n_taps - 1, s1 + a.n_taps - 1);
-  uint32_t seen = 0;
-  for (int r = s0; r < last; ++r) {
-    const uint32_t v = load_word<VEC>(xb + r * fft);
-    seen ^= v;
-    if (oq_r != nullptr && r < s1 && r % ABLATE_S_BLK == 0) {
-      for (int s = r; s < min(s1, r + ABLATE_S_BLK); ++s) {
-        *reinterpret_cast<uint32_t*>(oq_r + s * half) = v;
-        *reinterpret_cast<uint32_t*>(oq_i + s * half) = v;
+  ring.prologue();
+  // One stream's run; FULL: MAXT taps, so no tap guard.
+  auto stream = [&](int j, auto full) {
+    constexpr bool FULL = decltype(full)::value;
+    const int vb = j * ring.rv;
+    ring.begin(j);
+    float4 acc[FIR_SHORT];
+#pragma unroll
+    for (int q = 0; q < FIR_SHORT + MAXT - 1; ++q) {
+      if (q < r) {
+        const float4 xq = bytes4(ring.word(vb + q, q % FIR_ROWS == 0));
+#pragma unroll
+        for (int o = 0; o < FIR_SHORT; ++o) {
+          const int t = q - o;
+          if (t >= 0 && t < MAXT && o < run && (FULL || t < sh.n_taps)) {
+            acc[o] = t == 0 ? mul4(xq, wr[0]) : mac4(acc[o], xq, wr[t]);
+          }
+        }
       }
     }
+    const FirOut<STOP, PT> out(plane, outr, outi, sh, b0 + j, lane);
+#pragma unroll
+    for (int o = 0; o < FIR_SHORT; ++o) {
+      if (o < run) out.store(s0 + o, fft, acc[o]);
+    }
+  };
+  if (sh.n_taps == MAXT) {
+    for (int j = 0; j < nb; ++j) stream(j, std::true_type{});
+  } else {
+    for (int j = 0; j < nb; ++j) stream(j, std::false_type{});
   }
-  if (a.n_spectra < 0) *reinterpret_cast<uint32_t*>(a.outr) = seen;
+  cp_async_wait<0>();  // no copy outlives the block
 }
 
-// P2's dma and conv stops over spectra [s0, s1): each row the ring would
-// load, loaded once (CONV: converted to f32 and summed), then for each
-// spectrum s its probe: outr 0 and outi the first sample of frame f0 = s -
-// s % 16 (CONV: plus frame f0 + 1's), 4 lanes a store (o_r, o_i: the lanes'
-// place, null past fft/2); xs is the stream's first sample. The loads' XOR
-// or sum is stored under a condition that never holds but that the
-// compiler cannot see through (n_spectra < 0), so no load is dropped.
-template <bool VEC, bool CONV>
-__device__ __forceinline__ void dit_probe_run(const FirParams& a, const int8_t* xb,
-                                              const int8_t* xs, int8_t* o_r, int8_t* o_i,
-                                              int s0, int s1) {
-  const long long fft = a.fft, half = fft / 2;
-  const int last = min(a.n_spectra + a.n_taps - 1, s1 + a.n_taps - 1);
+// The long body (more than 16 taps): every tap's row from global memory
+// through the same aligned words, the window from global memory; the same
+// sums in the same order. Not on any timed path.
+template <int STOP, typename PT>
+__device__ __forceinline__ void fir_long_body(const int8_t* __restrict__ x,
+                                              const long long* first,
+                                              const float* __restrict__ win,
+                                              PT* __restrict__ plane, int8_t* __restrict__ outr,
+                                              int8_t* __restrict__ outi, const FirShape& sh,
+                                              int lane, int b0, int s0, int s1, int nb) {
+  const long long fft = sh.fft, words = sh.fft / 4;
+  for (int j = 0; j < nb; ++j) {
+    const int8_t* p = x + first[j] + lane;
+    const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+    const uint32_t* w0 = reinterpret_cast<const uint32_t*>(p - shift);
+    const FirOut<STOP, PT> out(plane, outr, outi, sh, b0 + j, lane);
+    auto row = [&](long long q) {
+      const uint32_t* w = w0 + q * words;
+      return bytes4(shift ? join(__ldg(w), __ldg(w + 1), shift) : __ldg(w));
+    };
+    for (int s = s0; s < s1; ++s) {
+      float4 acc = mul4(row(s), __ldg(reinterpret_cast<const float4*>(win + lane)));
+      for (int t = 1; t < sh.n_taps; ++t) {
+        acc = mac4(acc, row(s + t), __ldg(reinterpret_cast<const float4*>(win + t * fft + lane)));
+      }
+      out.store(s, fft, acc);
+    }
+  }
+}
+
+// The copies-only stops over the block's streams: each row the ring body
+// reads, copied into the ring and read from it once. STOP_DMA (P5, P4) at
+// every 16th frame stores that frame's samples in the first fft/2 lanes to
+// both outputs of its 16 spectra; STOP_DIT_DMA (P2) XORs the words,
+// STOP_DIT_CONV converts them to f32 and sums, then both store for each
+// spectrum s outr 0 and outi the first sample of frame f0 = s - s % 16
+// (CONV: plus frame f0 + 1's, truncated). The words' XOR or sum is stored
+// under a condition that never holds but that the compiler cannot see
+// through (n_spectra < 0), so no copy is dropped.
+template <int STOP, typename Ring>
+__device__ __forceinline__ void fir_copies(Ring& ring, int8_t* __restrict__ outr,
+                                           int8_t* __restrict__ outi, const FirShape& sh,
+                                           int b0, int s1, int nb) {
+  const long long fft = sh.fft, half = sh.fft / 2;
+  const int lane = ring.lane, s0 = ring.s0;
   uint32_t seen = 0;
   float sum = 0.f;
-  for (int r = s0; r < last; ++r) {
-    const uint32_t v = load_word<VEC>(xb + r * fft);
-    if constexpr (CONV) {
+  ring.prologue();
+  for (int j = 0; j < nb; ++j) {
+    const long long b = b0 + j;
+    const int vb = j * ring.rv;
+    ring.begin(j);
+    const long long o = b * sh.n_spectra * half + lane;
+    for (int q = 0; q < ring.r; ++q) {
+      const uint32_t v = ring.word(vb + q, q % FIR_ROWS == 0);
+      if constexpr (STOP == STOP_DIT_CONV) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) sum += static_cast<float>(static_cast<int8_t>(v >> (8 * k)));
-    } else {
-      seen ^= v;
+        for (int k = 0; k < 4; ++k) sum += static_cast<float>(static_cast<int8_t>(v >> (8 * k)));
+      } else {
+        seen ^= v;
+      }
+      if constexpr (STOP == STOP_DMA) {
+        const int row = s0 + q;
+        if (lane < half && row < s1 && row % ABLATE_S_BLK == 0) {
+          for (long long s = row; s < min(s1, row + ABLATE_S_BLK); ++s) {
+            *reinterpret_cast<uint32_t*>(outr + o + s * half) = v;
+            *reinterpret_cast<uint32_t*>(outi + o + s * half) = v;
+          }
+        }
+      }
+    }
+    if constexpr (STOP != STOP_DMA) {
+      if (lane < half) {
+        const int8_t* xs = ring.x + ring.first[j];
+        for (long long s = s0; s < s1; ++s) {
+          const long long f0 = s - s % ABLATE_S_BLK;
+          int8_t probe = __ldg(xs + f0 * fft);
+          if constexpr (STOP == STOP_DIT_CONV) {
+            probe = trunc_s8(static_cast<float>(probe) +
+                             static_cast<float>(__ldg(xs + (f0 + 1) * fft)));
+          }
+          *reinterpret_cast<uint32_t*>(outr + o + s * half) = 0u;
+          *reinterpret_cast<uint32_t*>(outi + o + s * half) =
+              static_cast<uint8_t>(probe) * 0x01010101u;
+        }
+      }
     }
   }
-  if (a.n_spectra < 0) *reinterpret_cast<uint32_t*>(a.outr) = seen ^ __float_as_uint(sum);
-  if (o_r == nullptr) return;
-  for (int s = s0; s < s1; ++s) {
-    const long long f0 = s - s % ABLATE_S_BLK;
-    int8_t probe = __ldg(xs + f0 * fft);
-    if constexpr (CONV) {
-      probe = trunc_s8(static_cast<float>(probe) + static_cast<float>(__ldg(xs + (f0 + 1) * fft)));
-    }
-    *reinterpret_cast<uint32_t*>(o_r + s * half) = 0u;
-    *reinterpret_cast<uint32_t*>(o_i + s * half) = static_cast<uint8_t>(probe) * 0x01010101u;
-  }
+  if (sh.n_spectra < 0) *reinterpret_cast<uint32_t*>(outr) = seen ^ __float_as_uint(sum);
+  cp_async_wait<0>();
 }
 
-// PT: the plane's element, bf16 (STOP_NONE or a stop) or float (f32 DFT
-// operands: the exact f32 sums, STOP_NONE only).
-template <int MAXT, int STOP = STOP_NONE, typename PT = __nv_bfloat16>
-__global__ void __launch_bounds__(FIR_THREADS) k1_fir_kernel(FirParams a) {
+// K1's FIR pass (and K7's first pass): a block takes FIR_TILE lanes of a
+// run of spectra of each of its streams. MAXT: the register ring's rows (4,
+// 8, 16), or 0 for the long body; SHORT: the short-run body for the same
+// taps. PT: the plane's element, bf16 (STOP_NONE or a stop) or float (f32
+// DFT operands: the exact f32 sums, STOP_NONE only). The stops write outr,
+// outi; K1 itself passes them null.
+template <int MAXT, int STOP = STOP_NONE, typename PT = __nv_bfloat16, bool SHORT = false>
+__global__ void __launch_bounds__(FIR_THREADS, FIR_BLOCKS)
+    k1_fir_kernel(const int8_t* __restrict__ x, const long long* __restrict__ starts,
+                  const float* __restrict__ win, PT* __restrict__ plane,
+                  int8_t* __restrict__ outr, int8_t* __restrict__ outi, FirShape sh) {
+  extern __shared__ __align__(16) unsigned char fir_smem[];
+  __shared__ long long first[FIR_MAX_STREAMS];  // stream j's first sample at x + first[j]
   long long bid = blockIdx.x;
-  const int lb = static_cast<int>(bid % a.lane_blocks);
-  bid /= a.lane_blocks;
-  const int run = static_cast<int>(bid % a.runs);
-  const long long b = bid / a.runs;
-  const int lane = (lb * FIR_THREADS + static_cast<int>(threadIdx.x)) * 4;
-  if (lane >= a.fft) return;
-  const int s0 = run * RUN, s1 = min(a.n_spectra, s0 + RUN);
-  const int8_t* xb = a.x + b * a.batch_stride + a.starts[b] + lane;
-  PT* ob = static_cast<PT*>(a.plane) + b * a.n_spectra * static_cast<long long>(a.fft) + lane;
-  // lane % 4 == 0, so the stream's start decides alignment for the whole block.
-  const bool vec = (reinterpret_cast<uintptr_t>(xb) & 3) == 0;
-  int8_t* oq = nullptr;
-  int8_t* oq2 = nullptr;
-  if constexpr (STOP != STOP_NONE) {
-    const int half = a.fft / 2;
-    const long long o = b * a.n_spectra * static_cast<long long>(half);
-    oq = lane < half ? a.outr + o + lane : a.outi + o + lane - half;
-    if constexpr (STOP == STOP_DIT_DEINT) {
-      oq = a.outr + o + lane / 2;
-      oq2 = a.outi + o + lane / 2;
-    }
-    if constexpr (STOP == STOP_DIT_DMA || STOP == STOP_DIT_CONV) {
-      int8_t* o_r = lane < half ? a.outr + o + lane : nullptr;
-      int8_t* o_i = lane < half ? a.outi + o + lane : nullptr;
-      const int8_t* xs = a.x + b * a.batch_stride + a.starts[b];
-      if (vec) {
-        dit_probe_run<true, STOP == STOP_DIT_CONV>(a, xb, xs, o_r, o_i, s0, s1);
-      } else {
-        dit_probe_run<false, STOP == STOP_DIT_CONV>(a, xb, xs, o_r, o_i, s0, s1);
-      }
-      return;
-    }
-    if constexpr (STOP == STOP_DMA) {
-      int8_t* oi = lane < half ? a.outi + o + lane : nullptr;
-      if (lane >= half) oq = nullptr;
-      if (vec) {
-        dma_run<true>(a, xb, oq, oi, s0, s1);
-      } else {
-        dma_run<false>(a, xb, oq, oi, s0, s1);
-      }
-      return;
-    }
+  const int lb = static_cast<int>(bid % sh.lane_blocks);
+  bid /= sh.lane_blocks;
+  const int run = static_cast<int>(bid % sh.runs);
+  const int b0 = static_cast<int>(bid / sh.runs) * sh.streams;
+  const int nb = min(sh.streams, sh.batch - b0);
+  for (int j = threadIdx.x; j < nb; j += FIR_THREADS) {
+    first[j] = (b0 + j) * sh.batch_stride + __ldg(starts + b0 + j);
   }
-  if (vec) {
-    fir_run<MAXT, true, STOP>(a, xb, ob, oq, oq2, lane, s0, s1);
+  __syncthreads();
+  const int lane = lb * FIR_TILE + 4 * static_cast<int>(threadIdx.x);
+  if (lane >= sh.fft) return;  // no barrier waits for this thread from here on
+  const int s0 = run * sh.run, s1 = min(sh.n_spectra, s0 + sh.run);
+  if constexpr (MAXT == 0 && !fir_copies_only(STOP)) {
+    fir_long_body<STOP>(x, first, win, plane, outr, outi, sh, lane, b0, s0, s1, nb);
   } else {
-    fir_run<MAXT, false, STOP>(a, xb, ob, oq, oq2, lane, s0, s1);
+    const int r = s1 - s0 + sh.n_taps - 1;  // rows a stream's run reads
+    const int rv = (r + FIR_ROWS - 1) / FIR_ROWS * FIR_ROWS;
+    FirRing<fir_stages(SHORT)> ring{x, first, sh.fft, lane, s0, r, rv, nb * rv / FIR_ROWS,
+                 fir_smem + 8 * threadIdx.x, 0, 0, nullptr, false, 0};
+    if constexpr (fir_copies_only(STOP)) {
+      fir_copies<STOP>(ring, outr, outi, sh, b0, s1, nb);
+    } else if constexpr (SHORT) {
+      fir_short_body<MAXT, STOP>(ring, win, plane, outr, outi, sh, b0, s1, nb);
+    } else {
+      fir_ring_body<MAXT, STOP>(ring, win, plane, outr, outi, sh, b0, s1, nb);
+    }
   }
 }
 
@@ -499,17 +736,9 @@ struct Shape {
   static constexpr int MB = 32 * (DFT_WARPS / NWB);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // Wait until the oldest of the ring's stages - 1 groups in flight has landed.
@@ -1984,31 +2213,126 @@ int stage_attributes(K kern, size_t smem, int rows, int cols, int depth, int sta
 
 #endif  // K1_STAGE_STOPS
 
+// The shape of a FIR launch with the plan (depth, run, streams, short_run)
+// that ops/fengine_fused.py:_fir_plan picks; false where a body could not
+// run it: a register ring of depth 4, 8 or 16 rows that does not hold the
+// taps (depth 0, the long body, takes any), an empty run, a short run past
+// FIR_SHORT spectra or off the ring's depths, more than FIR_MAX_STREAMS
+// streams a block, or counts past int.
+bool fir_shape(FirShape& sh, long long batch_stride, int batch, int n_spectra, int n_taps,
+               int fft, int depth, int run, int streams, int short_run) {
+  const bool ring = (depth == 4 || depth == 8 || depth == 16) && n_taps <= depth;
+  if ((short_run && !(ring && run <= FIR_SHORT)) || short_run < 0 || short_run > 1 ||
+      batch < 1 || n_spectra < 1 || n_taps < 1 || fft < 4 || fft % 4 || run < 1 ||
+      streams < 1 || streams > FIR_MAX_STREAMS || !(ring || depth == 0) ||
+      static_cast<long long>(streams) * (std::min(run, n_spectra) + n_taps + FIR_ROWS) >
+          0x7fffffffLL) {
+    return false;
+  }
+  sh = FirShape{batch_stride, batch, n_spectra, fft, n_taps, run, streams,
+                (fft + FIR_TILE - 1) / FIR_TILE, (n_spectra + run - 1) / run};
+  return static_cast<long long>(sh.lane_blocks) * sh.runs * ((batch + streams - 1) / streams) <=
+         0x7fffffffLL;
+}
+
+bool aligned_to(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
+
+template <int MAXT, int STOP, typename PT, bool SHORT = false>
+int fir_launch(const void* x, const void* starts, const void* win, void* plane, void* outr,
+               void* outi, const FirShape& sh, cudaStream_t st) {
+  const auto kern = k1_fir_kernel<MAXT, STOP, PT, SHORT>;
+  constexpr int smem = fir_smem_bytes(MAXT, STOP, SHORT);
+  if (smem > 0) {  // above 48 KB with the static starts: the ring's size, asked for
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long blocks = static_cast<long long>(sh.lane_blocks) * sh.runs *
+                           ((sh.batch + sh.streams - 1) / sh.streams);
+  k1_fir_kernel<MAXT, STOP, PT, SHORT><<<static_cast<unsigned>(blocks), FIR_THREADS, smem, st>>>(
+      static_cast<const int8_t*>(x), static_cast<const long long*>(starts),
+      static_cast<const float*>(win), static_cast<PT*>(plane), static_cast<int8_t*>(outr),
+      static_cast<int8_t*>(outi), sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The body for the plan's depth and run (fir_shape has checked them).
+template <int STOP, typename PT>
+int fir_dispatch(int depth, int short_run, const void* x, const void* starts, const void* win,
+                 void* plane, void* outr, void* outi, const FirShape& sh, cudaStream_t st) {
+  if (short_run) {
+    switch (depth) {
+      case 4: return fir_launch<4, STOP, PT, true>(x, starts, win, plane, outr, outi, sh, st);
+      case 8: return fir_launch<8, STOP, PT, true>(x, starts, win, plane, outr, outi, sh, st);
+      default: return fir_launch<16, STOP, PT, true>(x, starts, win, plane, outr, outi, sh, st);
+    }
+  }
+  switch (depth) {
+    case 4: return fir_launch<4, STOP, PT>(x, starts, win, plane, outr, outi, sh, st);
+    case 8: return fir_launch<8, STOP, PT>(x, starts, win, plane, outr, outi, sh, st);
+    case 16: return fir_launch<16, STOP, PT>(x, starts, win, plane, outr, outi, sh, st);
+    default: return fir_launch<0, STOP, PT>(x, starts, win, plane, outr, outi, sh, st);
+  }
+}
+
+// out int[5]: registers a thread, local (spill) bytes a thread, shared
+// bytes a block (static and the launch's dynamic), the most threads a
+// block, blocks an SM at FIR_THREADS threads and that shared memory.
+template <int MAXT, int STOP, typename PT, bool SHORT = false>
+int fir_attributes_of(void* out) {
+  const auto kern = k1_fir_kernel<MAXT, STOP, PT, SHORT>;
+  constexpr int smem = fir_smem_bytes(MAXT, STOP, SHORT);
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err == cudaSuccess && smem > 0) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, FIR_THREADS, smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* o = static_cast<int*>(out);
+  o[0] = a.numRegs;
+  o[1] = static_cast<int>(a.localSizeBytes);
+  o[2] = static_cast<int>(a.sharedSizeBytes) + smem;
+  o[3] = a.maxThreadsPerBlock;
+  o[4] = per_sm;
+  return 0;
+}
+
+template <int STOP, typename PT>
+int fir_attributes(int depth, int short_run, void* out) {
+  if (short_run) {
+    switch (depth) {
+      case 4: return fir_attributes_of<4, STOP, PT, true>(out);
+      case 8: return fir_attributes_of<8, STOP, PT, true>(out);
+      case 16: return fir_attributes_of<16, STOP, PT, true>(out);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (depth) {
+    case 4: return fir_attributes_of<4, STOP, PT>(out);
+    case 8: return fir_attributes_of<8, STOP, PT>(out);
+    case 16: return fir_attributes_of<16, STOP, PT>(out);
+    case 0: return fir_attributes_of<0, STOP, PT>(out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // K1's FIR pass into a plane of PT (bf16, or float for f32 DFT operands).
 template <typename PT>
 int fir_pass(const void* x, long long batch_stride, const void* starts, const void* win,
-             void* plane, int batch, int n_spectra, int n_taps, int fft, void* stream) {
-  if (batch < 1 || n_spectra < 1 || n_taps < 1 || fft < 4 || fft % 4) {
+             void* plane, int batch, int n_spectra, int n_taps, int fft, int depth, int run,
+             int streams, int short_run, void* stream) {
+  FirShape sh;
+  if (!fir_shape(sh, batch_stride, batch, n_spectra, n_taps, fft, depth, run, streams,
+                 short_run) ||
+      !aligned_to(win, 16) || !aligned_to(plane, 4 * sizeof(PT))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  FirParams a{static_cast<const int8_t*>(x), batch_stride,
-              static_cast<const long long*>(starts), static_cast<const float*>(win),
-              plane, n_spectra, fft, n_taps,
-              (fft + 4 * FIR_THREADS - 1) / (4 * FIR_THREADS), (n_spectra + RUN - 1) / RUN};
-  const long long blocks = static_cast<long long>(a.lane_blocks) * a.runs * batch;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(blocks);
-  if (n_taps <= 4) {
-    k1_fir_kernel<4, STOP_NONE, PT><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else if (n_taps <= 8) {
-    k1_fir_kernel<8, STOP_NONE, PT><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else if (n_taps <= 16) {
-    k1_fir_kernel<16, STOP_NONE, PT><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else {
-    k1_fir_kernel<0, STOP_NONE, PT><<<grid, FIR_THREADS, 0, st>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return fir_dispatch<STOP_NONE, PT>(depth, short_run, x, starts, win, plane, nullptr, nullptr,
+                                     sh, static_cast<cudaStream_t>(stream));
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -2024,22 +2348,34 @@ extern "C" const char* dcsand_error_string(int err) {
 }
 
 // Pass 1: x [batch, batch_stride] int8 streams (stream b's window starts at
-// starts[b]), win [n_taps, fft] f32 (16-byte aligned) -> plane
-// [batch, n_spectra, fft] bf16.
+// starts[b], at any byte), win [n_taps, fft] f32 (16-byte aligned) -> plane
+// [batch, n_spectra, fft] bf16 (8-byte aligned), with the plan (depth, run,
+// streams, short_run) of ops/fengine_fused.py:_fir_plan. A plan or pointer
+// that does not fit is refused with cudaErrorInvalidValue, before any launch.
 extern "C" int k1_fir_launch(const void* x, long long batch_stride, const void* starts,
                              const void* win, void* plane, int batch, int n_spectra,
-                             int n_taps, int fft, void* stream) {
+                             int n_taps, int fft, int depth, int run, int streams,
+                             int short_run, void* stream) {
   return fir_pass<bf16>(x, batch_stride, starts, win, plane, batch, n_spectra, n_taps, fft,
-                        stream);
+                        depth, run, streams, short_run, stream);
 }
 
 // Pass 1 for f32 DFT operands: the same, into an f32 plane (16-byte
 // aligned) of the exact f32 tap-order sums.
 extern "C" int k1_fir_f32_launch(const void* x, long long batch_stride, const void* starts,
                                  const void* win, void* plane, int batch, int n_spectra,
-                                 int n_taps, int fft, void* stream) {
+                                 int n_taps, int fft, int depth, int run, int streams,
+                                 int short_run, void* stream) {
   return fir_pass<float>(x, batch_stride, starts, win, plane, batch, n_spectra, n_taps, fft,
-                         stream);
+                         depth, run, streams, short_run, stream);
+}
+
+// The FIR pass's body for a register ring of `depth` rows (4, 8, 16; 0: the
+// long body), the short-run body for that depth (short_run = 1), into a
+// bf16 (plane_f32 = 0) or f32 plane: out int[5] as fir_attributes_of gives it.
+extern "C" int k1_fir_attributes(int depth, int short_run, int plane_f32, void* out) {
+  return plane_f32 ? fir_attributes<STOP_NONE, float>(depth, short_run, out)
+                   : fir_attributes<STOP_NONE, bf16>(depth, short_run, out);
 }
 
 // Pass 2: plane [batch, n_spectra, N1, N2] bf16 -> outputs [batch,

@@ -7,50 +7,58 @@
 #define K1_STAGE_STOPS
 #include "fengine_ct.cu"
 
-// Launches k1_fir_kernel<MAXT, STOP> with the ring depth fir_pass picks for n_taps.
-template <int STOP>
-void fir_stop(const FirParams& a, unsigned grid, cudaStream_t st) {
-  if (a.n_taps <= 4) {
-    k1_fir_kernel<4, STOP><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else if (a.n_taps <= 8) {
-    k1_fir_kernel<8, STOP><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else if (a.n_taps <= 16) {
-    k1_fir_kernel<16, STOP><<<grid, FIR_THREADS, 0, st>>>(a);
-  } else {
-    k1_fir_kernel<0, STOP><<<grid, FIR_THREADS, 0, st>>>(a);
-  }
-}
-
 // The stage stops of the FIR pass, writing outr, outi [batch, n_spectra,
 // fft/2] int8: stop 1 (dma) or 2 (fir), P5's (fir also writes the plane as
 // k1_fir_launch does; dma does not touch it), or 5 (dma), 6 (conv), 7 (fir)
-// or 8 (deint), P2's (no plane: pass null); fft % 8 == 0.
+// or 8 (deint), P2's (no plane: pass null); fft % 8 == 0. The plan (depth,
+// run, streams, short_run) is k1_fir_launch's; the copies-only stops (1, 5,
+// 6) run the ring's copies alone, whatever the body.
 extern "C" int k1_fir_stop_launch(const void* x, long long batch_stride, const void* starts,
                                   const void* win, void* plane, void* outr, void* outi,
-                                  int batch, int n_spectra, int n_taps, int fft, int stop,
+                                  int batch, int n_spectra, int n_taps, int fft, int depth,
+                                  int run, int streams, int short_run, int stop,
                                   void* stream) {
-  if (batch < 1 || n_spectra < 1 || n_taps < 1 || fft < 8 || fft % 8 ||
+  FirShape sh;
+  if (!fir_shape(sh, batch_stride, batch, n_spectra, n_taps, fft, depth, run, streams,
+                 short_run) ||
+      fft % 8 || !aligned_to(win, 16) || (stop == STOP_FIR && !aligned_to(plane, 8)) ||
       (stop != STOP_DMA && stop != STOP_FIR && (stop < STOP_DIT_DMA || stop > STOP_DIT_DEINT))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  FirParams a{static_cast<const int8_t*>(x), batch_stride,
-              static_cast<const long long*>(starts), static_cast<const float*>(win),
-              static_cast<bf16*>(plane), n_spectra, fft, n_taps,
-              (fft + 4 * FIR_THREADS - 1) / (4 * FIR_THREADS), (n_spectra + RUN - 1) / RUN,
-              static_cast<int8_t*>(outr), static_cast<int8_t*>(outi)};
-  const long long blocks = static_cast<long long>(a.lane_blocks) * a.runs * batch;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(blocks);
   switch (stop) {
-    case STOP_DMA: k1_fir_kernel<0, STOP_DMA><<<grid, FIR_THREADS, 0, st>>>(a); break;
-    case STOP_DIT_DMA: k1_fir_kernel<0, STOP_DIT_DMA><<<grid, FIR_THREADS, 0, st>>>(a); break;
-    case STOP_DIT_CONV: k1_fir_kernel<0, STOP_DIT_CONV><<<grid, FIR_THREADS, 0, st>>>(a); break;
-    case STOP_FIR: fir_stop<STOP_FIR>(a, grid, st); break;
-    case STOP_DIT_FIR: fir_stop<STOP_DIT_FIR>(a, grid, st); break;
-    default: fir_stop<STOP_DIT_DEINT>(a, grid, st); break;
+    case STOP_DMA:
+      return fir_launch<0, STOP_DMA, bf16>(x, starts, win, plane, outr, outi, sh, st);
+    case STOP_DIT_DMA:
+      return fir_launch<0, STOP_DIT_DMA, bf16>(x, starts, win, plane, outr, outi, sh, st);
+    case STOP_DIT_CONV:
+      return fir_launch<0, STOP_DIT_CONV, bf16>(x, starts, win, plane, outr, outi, sh, st);
+    case STOP_FIR:
+      return fir_dispatch<STOP_FIR, bf16>(depth, short_run, x, starts, win, plane, outr, outi,
+                                          sh, st);
+    case STOP_DIT_FIR:
+      return fir_dispatch<STOP_DIT_FIR, bf16>(depth, short_run, x, starts, win, plane, outr,
+                                              outi, sh, st);
+    default:
+      return fir_dispatch<STOP_DIT_DEINT, bf16>(depth, short_run, x, starts, win, plane, outr,
+                                                outi, sh, st);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// The FIR pass's body at a stop (numbered as k1_fir_stop_launch takes them)
+// for a register ring of `depth` rows (4, 8, 16; 0: the long body), or the
+// short-run body for that depth (short_run = 1; the copies-only stops have
+// one body, whatever the depth): out int[5] as k1_fir_attributes gives it.
+extern "C" int k1_fir_stop_attributes(int depth, int short_run, int stop, void* out) {
+  switch (stop) {
+    case STOP_DMA: return fir_attributes_of<0, STOP_DMA, bf16>(out);
+    case STOP_DIT_DMA: return fir_attributes_of<0, STOP_DIT_DMA, bf16>(out);
+    case STOP_DIT_CONV: return fir_attributes_of<0, STOP_DIT_CONV, bf16>(out);
+    case STOP_FIR: return fir_attributes<STOP_FIR, bf16>(depth, short_run, out);
+    case STOP_DIT_FIR: return fir_attributes<STOP_DIT_FIR, bf16>(depth, short_run, out);
+    case STOP_DIT_DEINT: return fir_attributes<STOP_DIT_DEINT, bf16>(depth, short_run, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Stop 3 (stagea) or 4 (stageb) of the DFT pass: plane [batch, n_spectra,

@@ -24,7 +24,8 @@ reference only by the order of f32 additions.
 
 K1 runs as passes over groups of batches whose scratch fits
 :data:`K1_SCRATCH_BYTES`, on the route :func:`_k1_body` asks the library for
-before any launch. Where the DFT pass's T planes fit shared memory (N2 <=
+before any launch. Its FIR pass (K7's first pass too) runs the body and
+blocks :func:`_fir_plan` picks from the taps and S. Where the DFT pass's T planes fit shared memory (N2 <=
 1024, N1 = 8 included) it is two passes: with bf16 operands (every default
 engine launch) :func:`k1_fir` (steps 1-2 into a bf16 plane ``[B, S, N1,
 N2]``) and :func:`k1_dft` (steps 3-5, tensor cores); with f32 operands
@@ -510,6 +511,14 @@ def _plane_group(batch: int, n_spectra: int, fft: int, elem_bytes: int = 2) -> i
     return max(1, min(batch, K1_SCRATCH_BYTES // (elem_bytes * n_spectra * fft)))
 
 
+def _route_group(body: str, batch: int, n_spectra: int, fft: int) -> int:
+    """Batches a group of the K1 or K7 route ``body`` (:func:`_k1_body`,
+    :func:`_dit_body`) takes: :func:`_plane_group` of the route's plane in
+    its operand type, with T re and im beside it on the three-pass routes."""
+    elem = 4 if body.endswith("_f32") else 2
+    return _plane_group(batch, n_spectra, fft, (3 if body.startswith("three_pass") else 1) * elem)
+
+
 def _check(what: str, x: torch.Tensor, want) -> None:
     for name, t, dtype, shape in want:
         if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
@@ -525,16 +534,72 @@ def _no_plan(what: str, n1: int, n2: int, detail: str) -> ValueError:
     )
 
 
+#: The most spectra a block of K1's FIR pass takes: a run of one stream's
+#: spectra, or the same run of several streams where S is smaller.
+FIR_RUN = 256
+#: The register-ring depths of the FIR pass's ring bodies; more taps than
+#: the deepest take the long body (depth 0).
+FIR_DEPTHS = (4, 8, 16)
+#: The most spectra a run of the short-run body.
+FIR_SHORT = 4
+
+
+class FirPlan(NamedTuple):
+    """How K1's FIR pass runs a shape: ``depth``, the register ring's rows
+    (the smallest of :data:`FIR_DEPTHS` that holds the taps, or 0 for the
+    long body, which reads every tap's row from global memory); a block takes
+    ``run`` spectra of each of ``streams`` streams; ``short`` (1) takes the
+    short-run body for runs of at most :data:`FIR_SHORT` spectra (each row
+    added to every output it feeds, no register ring), 0 the ring body."""
+
+    depth: int
+    run: int
+    streams: int
+    short: int
+
+
+def _fir_plan(batch: int, n_spectra: int, n_taps: int, fft: int) -> FirPlan:
+    """Plan K1's FIR pass for ``batch`` streams of ``n_spectra`` spectra of
+    ``n_taps`` taps at ``fft``: the body by taps (and by S: the short-run
+    body where S <= :data:`FIR_SHORT` and the taps take a ring depth), a run
+    of at most :data:`FIR_RUN` spectra, and where S is smaller than that as
+    many streams a block as make up about :data:`FIR_RUN` spectra (each
+    block reads its lanes of the window once for all of them: at fft 2^22
+    and S = 4 the window is 268 MB). The kernel launches exactly this plan
+    and refuses one that does not fit; raises ``ValueError`` where no plan
+    exists."""
+    if not (batch >= 1 and n_spectra >= 1 and n_taps >= 1 and fft >= 4 and fft % 4 == 0):
+        raise ValueError(f"K1's FIR pass has no plan for {batch} streams x S={n_spectra} x "
+                         f"{n_taps} taps at fft {fft} (fft % 4 == 0 and every count >= 1)")
+    depth = next((d for d in FIR_DEPTHS if n_taps <= d), 0)
+    return FirPlan(depth, min(n_spectra, FIR_RUN), min(batch, max(1, FIR_RUN // n_spectra)),
+                   int(depth > 0 and n_spectra <= FIR_SHORT))
+
+
+def fir_copy_words(x: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """How many 4-byte words the FIR pass copies a frame row and thread for
+    each of ``x``'s streams (``x`` ``[B, n_in]`` int8, ``starts`` ``[B]``):
+    1 where the stream's first sample (``x[b, starts[b]]``) lies on a 4-byte
+    boundary, 2 where it does not (the word under the thread's 4 samples and
+    the word after it, joined on read). A CPU int64 tensor ``[B]``; reads
+    ``starts`` to the host."""
+    first = (x.data_ptr() + torch.arange(x.shape[0], dtype=torch.int64) * x.stride(0)
+             + starts.to("cpu", torch.int64))
+    return 1 + (first % 4 != 0).to(torch.int64)
+
+
 def _fir_pass(x, starts, window, plane) -> None:
     """K1's FIR pass into ``plane`` ``[B, S, fft]``, bf16 or f32 (CUDA
-    tensors, checked by the caller); counted on :func:`k1_fir` or
-    :func:`k1_fir_f32`."""
+    tensors, checked by the caller), by :func:`_fir_plan`; counted on
+    :func:`k1_fir` or :func:`k1_fir_f32`."""
     batch, n_spectra, fft = plane.shape
     f32 = plane.dtype == torch.float32
+    plan = _fir_plan(batch, n_spectra, window.shape[0], fft)
     lib = _build.library()
     err = (lib.k1_fir_f32_launch if f32 else lib.k1_fir_launch)(
         x.data_ptr(), x.stride(0), starts.data_ptr(), window.data_ptr(), plane.data_ptr(),
-        batch, n_spectra, window.shape[0], fft, torch.cuda.current_stream(x.device).cuda_stream,
+        batch, n_spectra, window.shape[0], fft, *plan,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, "k1_fir_f32" if f32 else "k1_fir")
     if f32:
@@ -607,6 +672,44 @@ def k1_fir_f32(
     n_spectra, fft]`` (the kernel on CUDA, :func:`k1_fir_reference` with
     ``dft_dtype="float32"`` on CPU); arguments as :func:`k1_fir`."""
     return _fir_plane("k1_fir_f32", x, starts, window, n_spectra, "float32")
+
+
+#: The FIR pass's stops as ``k1_fir_stop_launch`` numbers them, by the
+#: names :func:`k1_fir_attributes` gives their bodies; the copies-only ones
+#: (dma, dit_dma, dit_conv) have one body whatever the depth.
+FIR_STOP_BODIES = {"dma": 1, "fir": 2, "dit_dma": 5, "dit_conv": 6, "dit_fir": 7,
+                   "dit_deint": 8}
+_FIR_COPIES_ONLY = ("dma", "dit_dma", "dit_conv")
+
+
+def k1_fir_attributes() -> dict:
+    """``cudaFuncGetAttributes`` of every body of K1's FIR pass: registers,
+    local (spill) bytes, shared bytes a block (the ring's 64 KB, 24 KB on
+    the short-run bodies, and the streams' starts; the long body only the
+    starts), the most threads a
+    block and blocks an SM, keyed ``"bf16/<body>"`` and ``"f32/<body>"``
+    (body 4, 8, 16: the ring bodies; ``4s``, ``8s``, ``16s``: the short-run
+    bodies; ``long``) and, for the stops, ``"<stop>/<body>"`` or ``"<stop>"``
+    (the copies-only ones). Needs the card."""
+    lib = _build.library()
+    keys = ("regs", "local_bytes", "smem_bytes", "max_threads", "blocks_per_sm")
+    out = {}
+
+    def get(name, fn, *args):
+        buf = (ctypes.c_int * 5)()
+        _build.check(lib, fn(*args, buf), f"k1_fir_attributes {name}")
+        out[name] = dict(zip(keys, buf))
+
+    bodies = [(d, 0, str(d)) for d in FIR_DEPTHS] + [(d, 1, f"{d}s") for d in FIR_DEPTHS]
+    for depth, short, name in bodies + [(0, 0, "long")]:
+        for plane in ("bf16", "f32"):
+            get(f"{plane}/{name}", lib.k1_fir_attributes, depth, short, int(plane == "f32"))
+        for stop, num in FIR_STOP_BODIES.items():
+            if stop not in _FIR_COPIES_ONLY:
+                get(f"{stop}/{name}", lib.k1_fir_stop_attributes, depth, short, num)
+    for stop in _FIR_COPIES_ONLY:
+        get(stop, lib.k1_fir_stop_attributes, 0, 0, FIR_STOP_BODIES[stop])
+    return out
 
 
 def k1_dft(
@@ -907,7 +1010,8 @@ def _stop_pass(x, starts, window, plane, outr, outi, *, n1, n2, stop) -> None:
         err = lib.k1_fir_stop_launch(
             x.data_ptr(), x.stride(0), starts.data_ptr(), window.data_ptr(),
             plane.data_ptr() if plane is not None else None, outr.data_ptr(), outi.data_ptr(),
-            batch, n_spectra, window.shape[0], 2 * c, ABLATE_STOPS[stop], stream,
+            batch, n_spectra, window.shape[0], 2 * c,
+            *_fir_plan(batch, n_spectra, window.shape[0], 2 * c), ABLATE_STOPS[stop], stream,
         )
         _build.check(lib, err, f"k1_fir stop {stop}")
     else:
@@ -972,7 +1076,7 @@ def _launch(
     dtype = torch.float32 if f32 else torch.bfloat16
     # The route's passes over groups of batches through one scratch: the FIR
     # plane, and on the three-pass route T re and im beside it.
-    group = _plane_group(batch, n_spectra, fft, (3 if three else 1) * dtype.itemsize)
+    group = _route_group(body, batch, n_spectra, fft)
     plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
     if three:
         tr, ti = (torch.empty((group, n_spectra, *_t_layout(n1, n2, dtype)), dtype=dtype,
@@ -1600,7 +1704,7 @@ def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
     f32 = body.endswith("_f32")
     three = body.startswith("three_pass")
     dtype = torch.float32 if f32 else torch.bfloat16
-    group = _plane_group(batch, n_spectra, fft, (3 if three else 1) * dtype.itemsize)
+    group = _route_group(body, batch, n_spectra, fft)
     plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
     if three:
         tr, ti = (torch.empty((group, n_spectra, *_t_layout(n1, 2 * n2, dtype)), dtype=dtype,
@@ -1782,8 +1886,8 @@ def _launch_dit_ablate(frames, window, *, n1, n2, stop, rot):
     if stop in _DIT_FIR_STOPS:
         err = lib.k1_fir_stop_launch(
             flat.data_ptr(), flat.stride(0), starts.data_ptr(), window.data_ptr(), None,
-            outr.data_ptr(), outi.data_ptr(), batch, n_spectra, n_taps, fft, DIT_STOPS[stop],
-            stream,
+            outr.data_ptr(), outi.data_ptr(), batch, n_spectra, n_taps, fft,
+            *_fir_plan(batch, n_spectra, n_taps, fft), DIT_STOPS[stop], stream,
         )
         _build.check(lib, err, f"k1_fir stop {stop} (P2)")
     else:

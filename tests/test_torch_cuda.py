@@ -868,6 +868,130 @@ def test_k1_fir_pass_is_bit_exact_against_plain(dev, fft, taps, s, batch):
     assert ff.k1_fir.launches == before + 2
 
 
+_FIR_TAPS = [1, 3, 4, 5, 8, 16, 17, 40]
+_FIR_PLANES = {"bf16": (ff.k1_fir, "bfloat16"), "f32": (ff.k1_fir_f32, "float32")}
+
+
+def _fir_streams(rng, fft, taps, s, pad=0):
+    """18 int8 streams whose coarse delays give every start % 16 from 0 to 15
+    (streams 1..16) and clamp at both ends (streams 0 and 17): ``x`` ``[18,
+    n_in]`` (a view of rows ``pad`` bytes longer, so the stream stride is
+    ``n_in + pad``) and the clamped starts."""
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+
+    out_len = (s + taps - 1) * fft
+    n_in = out_len + 64 + 7  # room for every start; an end off 4 bytes
+    raw = torch.from_numpy(rng.integers(-128, 128, (18, n_in + pad), dtype=np.int8))
+    cd = torch.arange(-1, 17, dtype=torch.int64) + 32 * torch.from_numpy(
+        rng.integers(0, 2, 18))
+    cd[0], cd[-1] = -9, n_in  # both clamp, as dynamic_slice would
+    return raw[:, :n_in], clamp_starts(cd, n_in, out_len)
+
+
+def _fir_check(dev, plane, x, starts, win, s):
+    """The FIR pass of ``plane`` on ``x`` against its plain version on the
+    card (the same rounded f32 products and sums), bit for bit; one launch."""
+    fir, dt = _FIR_PLANES[plane]
+    before = fir.launches
+    got = fir(x.to(dev), starts.to(dev), win.to(dev), n_spectra=s)
+    assert fir.launches == before + 1
+    want = ff.k1_fir_reference(x.to(dev), starts.to(dev), win.to(dev), n_spectra=s,
+                               dft_dtype=dt)
+    assert got.dtype == want.dtype and got.shape == (x.shape[0], s, win.shape[1])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("plane", list(_FIR_PLANES))
+@pytest.mark.parametrize("fft", [1024, 65536])
+@pytest.mark.parametrize("taps", _FIR_TAPS)
+@pytest.mark.parametrize("s", [1, 5, 257])
+def test_k1_fir_pass_at_every_start_phase_is_bit_exact(dev, plane, fft, taps, s):
+    """K1's FIR pass in both plane types at every start % 16 in one batch
+    (the two-word copies joined by the funnel shift), starts that clamp at
+    both ends, S off the register ring's chunks (1, 5) and past a block's run
+    (257: two runs), several streams a block (S = 1, 5), every body (the
+    register rings of 4, 8 and 16 rows; the long body past 16 taps), on
+    contiguous streams and on a view whose stream stride is odd (every
+    stream another alignment): bit for bit."""
+    rng = np.random.default_rng(fft + 31 * taps + s)
+    win = torch.from_numpy(rng.standard_normal((taps, fft)).astype(np.float32))
+    for pad in (0, 3):
+        x, starts = _fir_streams(rng, fft, taps, s, pad)
+        _fir_check(dev, plane, x, starts, win, s)
+
+
+@pytest.mark.parametrize("plane", list(_FIR_PLANES))
+@pytest.mark.parametrize("taps, s", [(16, 4), (17, 1), (4, 5)])
+def test_k1_fir_pass_at_fft_2_22_is_bit_exact(dev, plane, taps, s):
+    """The FIR pass at fft 2^22 (8192 lane blocks; the three-pass route's),
+    every start % 16 and both clamps, S = 4 as at full width: bit for bit."""
+    rng = np.random.default_rng(taps + s)
+    win = torch.from_numpy(rng.standard_normal((taps, 1 << 22)).astype(np.float32))
+    x, starts = _fir_streams(rng, 1 << 22, taps, s)
+    _fir_check(dev, plane, x, starts, win, s)
+
+
+@pytest.mark.parametrize("plane", list(_FIR_PLANES))
+@pytest.mark.parametrize("fft, taps, s", [(2048, 16, 300), (65536, 16, 20), (1024, 40, 7)])
+def test_k1_fir_pass_on_rowed_bytes_and_k7_frames_is_bit_exact(dev, plane, fft, taps, s):
+    """The same bytes as flat streams and as the wire-rowed view (``[B,
+    rows, 256]`` flattened), with unaligned starts; and K7's first pass, the
+    frames ``[B, n_frames, fft]`` viewed ``[B, n_frames·fft]`` with every
+    start 0: bit for bit, K7's frames also against K7's own f32 FIR."""
+    rng = np.random.default_rng(fft + taps + s)
+    win = torch.from_numpy(rng.standard_normal((taps, fft)).astype(np.float32))
+    x, starts = _fir_streams(rng, fft, taps, s)
+    n_in = -(-x.shape[1] // 256) * 256
+    rowed = torch.zeros((18, n_in), dtype=torch.int8)
+    rowed[:, :x.shape[1]] = x
+    _fir_check(dev, plane, rowed.view(18, -1, 256).reshape(18, -1), starts, win, s)
+    frames = torch.from_numpy(rng.integers(-128, 128, (5, s + taps - 1, fft), dtype=np.int8))
+    zeros = torch.zeros(5, dtype=torch.int64)
+    _fir_check(dev, plane, frames.view(5, -1), zeros, win, s)
+    if plane == "f32":
+        got = ff.k1_fir_f32(frames.view(5, -1).to(dev), zeros.to(dev), win.to(dev), n_spectra=s)
+        assert torch.equal(got, ff._dit_fir(frames.to(dev), win.to(dev)))
+
+
+def test_k1_fir_bodies_do_not_spill(dev):
+    """Every body of K1's FIR pass (both planes, every register-ring depth,
+    the short-run bodies and the long body, and each stop's): 0 local
+    (spill) bytes; the ring bodies hold the 64 KB ring at two blocks an SM
+    or more, the short-run bodies their 24 KB ring at three or more."""
+    bodies = ff.k1_fir_attributes()
+    assert len(bodies) == 2 * 7 + 3 * 7 + 3
+    for name, at in bodies.items():
+        assert at["local_bytes"] == 0, (name, at)
+        assert at["max_threads"] >= 128, (name, at)
+        if name.endswith("s"):
+            assert at["smem_bytes"] >= 24 * 1024 and at["blocks_per_sm"] >= 3, (name, at)
+        elif not name.endswith("/long"):
+            assert at["smem_bytes"] >= 64 * 1024 and at["blocks_per_sm"] >= 2, (name, at)
+
+
+def test_k1_fir_launch_refuses_a_plan_that_does_not_fit(dev):
+    """The C entry refuses a depth that does not hold the taps or is no
+    body's, more streams a block than a block holds, an empty run, and the
+    short-run body on the long body or past 4 spectra a run, before any
+    launch."""
+    from dpdk_dc_sand_tpu_torch import _build
+
+    lib = _build.library()
+    x = torch.zeros((2, 20 * 1024), dtype=torch.int8, device=dev)
+    starts = torch.zeros(2, dtype=torch.int64, device=dev)
+    win = torch.zeros((8, 1024), dtype=torch.float32, device=dev)
+    plane = torch.empty((2, 4, 1024), dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for plan in ((4, 4, 1, 0), (8, 4, 257, 0), (8, 0, 1, 0), (12, 4, 1, 0),
+                 (0, 4, 1, 1), (8, 5, 1, 1), (8, 4, 1, 2)):
+        err = lib.k1_fir_launch(x.data_ptr(), x.stride(0), starts.data_ptr(), win.data_ptr(),
+                                plane.data_ptr(), 2, 4, 8, 1024, *plan, stream)
+        assert err != 0, plan
+    assert lib.k1_fir_launch(x.data_ptr(), x.stride(0), starts.data_ptr(), win.data_ptr(),
+                             plane.data_ptr(), 2, 4, 8, 1024, *ff._fir_plan(2, 4, 8, 1024),
+                             stream) == 0
+
+
 @pytest.mark.parametrize("fft", [1 << 17, 1 << 18, 1 << 20])
 @pytest.mark.parametrize("quantise", [True, False])
 def test_k1_two_pass_kernel_above_65536_matches_plain(dev, fft, quantise):

@@ -322,6 +322,142 @@ def test_k1_pass_wrappers_take_the_plain_versions_on_cpu():
         ff.k1_fir(x.to("meta"), starts, win, n_spectra=s)
 
 
+# K1's FIR-pass planner (``fengine_fused._fir_plan``), its copy mode by
+# start alignment and the wrappers' launches: they run here, without the
+# card (the library is stubbed).
+@pytest.mark.parametrize("taps, depth", [(1, 4), (3, 4), (4, 4), (5, 8), (8, 8), (9, 16),
+                                         (16, 16), (17, 0), (40, 0)])
+def test_k1_fir_plan_picks_the_body_by_taps(taps, depth):
+    """The smallest register ring (4, 8 or 16 rows) that holds the taps, or
+    the long body (depth 0) past 16; the shape changes only the run and
+    whether the ring's depth runs as the short-run body."""
+    for batch, s, fft in ((160, 256, 65536), (10, 4, 1 << 22), (1, 1, 4), (18, 257, 1024)):
+        assert ff._fir_plan(batch, s, taps, fft).depth == depth
+
+
+@pytest.mark.parametrize("s, taps, short", [(1, 16, 1), (2, 16, 1), (4, 16, 1), (4, 3, 1),
+                                            (5, 16, 0), (256, 16, 0), (4, 17, 0), (1, 40, 0)])
+def test_k1_fir_plan_takes_the_short_run_body_up_to_4_spectra(s, taps, short):
+    """Runs of at most 4 spectra (S = 4 at fft 2^22, S = 2 at 2^23) take the
+    short-run body of the taps' ring depth; longer runs the ring body; more
+    than 16 taps the long body whatever S."""
+    plan = ff._fir_plan(10, s, taps, 1 << 22)
+    assert plan.short == short and (plan.depth > 0 or not short)
+    assert plan.run <= ff.FIR_SHORT or not short
+
+
+@pytest.mark.parametrize("batch, s, run, streams", [
+    (160, 256, 256, 1),  # the flagship: one run a stream, no halo read twice
+    (160, 16384, 256, 1),  # fft 1024 at full width: 64 runs a stream
+    (18, 257, 256, 1),  # two runs, the second of one spectrum
+    (10, 4, 4, 10),  # fft 2^22 in bf16 groups: the group's streams in one block
+    (5, 4, 4, 5),  # ... and in f32 groups
+    (160, 4, 4, 64),
+    (16, 2, 2, 16),  # K7 at fft 2^23
+    (18, 5, 5, 18),
+    (3, 100, 100, 2),
+    (1, 1, 1, 1),
+])
+def test_k1_fir_plan_takes_runs_of_up_to_256_spectra_by_s(batch, s, run, streams):
+    """A block takes a run of at most 256 spectra, and where S is smaller as
+    many streams as make about 256 spectra (at most the batch); the blocks
+    cover every (stream, spectrum) once."""
+    plan = ff._fir_plan(batch, s, 16, 65536)
+    assert (plan.run, plan.streams) == (run, streams)
+    assert plan.run * plan.streams <= max(ff.FIR_RUN, plan.run)
+    covered = [(b, sp) for b0 in range(0, batch, plan.streams) for s0 in range(0, s, plan.run)
+               for b in range(b0, min(batch, b0 + plan.streams))
+               for sp in range(s0, min(s, s0 + plan.run))]
+    assert sorted(covered) == [(b, sp) for b in range(batch) for sp in range(s)]
+
+
+@pytest.mark.parametrize("args", [(0, 4, 16, 1024), (2, 0, 16, 1024), (2, 4, 0, 1024),
+                                  (2, 4, 16, 1022), (2, 4, 16, 0)])
+def test_k1_fir_plan_refuses_a_shape_with_no_plan(args):
+    with pytest.raises(ValueError, match="no plan"):
+        ff._fir_plan(*args)
+
+
+def test_k1_fir_copy_words_follow_each_streams_start_alignment():
+    """One word a row where a stream's first sample is 4-byte aligned, two
+    where it is not: starts 0..15 on an aligned base, an odd stream stride,
+    a base one byte in; the flagship's coarse delays in [0, 8192) leave
+    about 3/4 of the streams on two words."""
+    raw = torch.zeros((16, 1027), dtype=torch.int8)
+    assert raw.data_ptr() % 4 == 0
+    flat = raw.view(-1)[: 16 * 1024].view(16, 1024)
+    starts = torch.arange(16)
+    assert ff.fir_copy_words(flat, starts).tolist() == [1, 2, 2, 2] * 4
+    assert ff.fir_copy_words(raw[:, :1024], torch.zeros(16, dtype=torch.int64)).tolist() == [
+        1 if (3 * b) % 4 == 0 else 2 for b in range(16)]
+    assert ff.fir_copy_words(flat.view(-1)[1:1 + 15 * 1024].view(15, 1024),
+                             starts[:15]).tolist() == [2 if (b + 1) % 4 else 1 for b in range(15)]
+    rng = np.random.default_rng(2021)
+    cd = torch.from_numpy(rng.integers(0, 8192, 160))
+    two = int((ff.fir_copy_words(torch.zeros((160, 8192 + 64), dtype=torch.int8), cd) == 2).sum())
+    assert 100 <= two <= 140
+
+
+class _StubLib:
+    """The kernel library's FIR entry points, recording their arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("k1_fir"):
+            raise AttributeError(name)
+
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+@pytest.fixture
+def stub_lib(monkeypatch):
+    lib = _StubLib()
+    monkeypatch.setattr(ff._build, "library", lambda: lib)
+    monkeypatch.setattr(ff.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    return lib
+
+
+@pytest.mark.parametrize("dtype, entry, counter", [
+    (torch.bfloat16, "k1_fir_launch", "k1_fir"), (torch.float32, "k1_fir_f32_launch", "k1_fir_f32")])
+@pytest.mark.parametrize("taps, batch, s", [(16, 160, 256), (17, 10, 4), (5, 3, 300)])
+def test_k1_fir_pass_launches_its_plan(stub_lib, dtype, entry, counter, taps, batch, s):
+    """``_fir_pass`` hands the plane's entry point the shape and exactly
+    :func:`_fir_plan`'s depth, run and streams, and counts one launch on the
+    plane's counter."""
+    fft = 1024
+    x = torch.zeros((batch, (s + taps - 1) * fft + 8), dtype=torch.int8)
+    starts = torch.zeros(batch, dtype=torch.int64)
+    win = torch.zeros((taps, fft), dtype=torch.float32)
+    plane = torch.empty((batch, s, fft), dtype=dtype)
+    before = getattr(ff, counter).launches
+    ff._fir_pass(x, starts, win, plane)
+    assert getattr(ff, counter).launches == before + 1
+    [(name, args)] = stub_lib.calls
+    assert name == entry and args[1] == x.stride(0)
+    assert args[5:13] == (batch, s, taps, fft, *ff._fir_plan(batch, s, taps, fft))
+
+
+@pytest.mark.parametrize("stop, num", [("dma", 1), ("fir", 2)])
+def test_k1_fir_stops_launch_the_plan(stub_lib, stop, num):
+    """P5's FIR-pass stops take the same plan as the pass, then the stop."""
+    fft, taps, s, batch = 1024, 16, 5, 3
+    x = torch.zeros((batch, (s + taps) * fft), dtype=torch.int8)
+    starts = torch.zeros(batch, dtype=torch.int64)
+    win = torch.zeros((taps, fft), dtype=torch.float32)
+    outr = torch.empty((batch, s, fft // 2), dtype=torch.int8)
+    plane = torch.empty((batch, s, fft), dtype=torch.bfloat16)
+    ff._stop_pass(x, starts, win, plane, outr, outr.clone(), n1=8, n2=128, stop=stop)
+    [(name, args)] = stub_lib.calls
+    assert name == "k1_fir_stop_launch"
+    assert args[7:] == (batch, s, taps, fft, *ff._fir_plan(batch, s, taps, fft), num, 0)
+
+
 @pytest.mark.parametrize("n1, n2", [(8, 128), (16, 2048)])
 @pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("quantise", [True, False])
@@ -361,6 +497,21 @@ def test_k1_three_pass_group_bounds_the_scratch(batch, s, fft, dft_dtype, want):
     assert group == 1 or group * s * fft * 3 * item <= ff.K1_SCRATCH_BYTES
     assert ff._plane_group(batch, s, fft, item) == min(batch, max(1, ff.K1_SCRATCH_BYTES //
                                                                   (item * s * fft)))
+
+
+@pytest.mark.parametrize("body, want", [
+    ("two_pass", 32), ("two_pass_f32", 16), ("three_pass", 10), ("three_pass_f32", 5),
+])
+def test_route_group_sizes_each_routes_scratch(body, want):
+    """The group of a K1 or K7 route (``_launch``, ``_launch_dit``): the FIR
+    plane in the route's operand type, with T re and im beside it on the
+    three-pass routes, at the flagship's streams (fft 65536, S = 256) and
+    at fft 2^22, S = 4."""
+    s, fft = (4, 1 << 22) if body.startswith("three") else (256, 65536)
+    item = 4 if body.endswith("_f32") else 2
+    group = ff._route_group(body, 160, s, fft)
+    assert group == want
+    assert group == ff._plane_group(160, s, fft, (3 if body.startswith("three") else 1) * item)
 
 
 @pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])

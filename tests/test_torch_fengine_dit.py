@@ -304,7 +304,8 @@ def test_two_pass_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, batch
 
     class Lib:
         @staticmethod
-        def k1_fir_launch(x, stride, starts, win, plane, b, n_spectra, n_taps, f, stream):
+        def k1_fir_launch(x, stride, starts, win, plane, b, n_spectra, n_taps, f, *plan_stream):
+            assert plan_stream[:-1] == ff._fir_plan(b, n_spectra, n_taps, f)
             calls.append(("fir", x, stride, starts, plane, b, n_spectra, n_taps, f))
             return 0
 
@@ -365,7 +366,8 @@ def test_n1_8_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, fft, dein
 
     class Lib:
         @staticmethod
-        def _fir(x, stride, starts, win, plane, b, n_spectra, n_taps, f, stream):
+        def _fir(x, stride, starts, win, plane, b, n_spectra, n_taps, f, *plan_stream):
+            assert plan_stream[:-1] == ff._fir_plan(b, n_spectra, n_taps, f)
             calls.append(("fir", plane, b, n_spectra, n_taps, f))
             return 0
 
@@ -423,7 +425,8 @@ def test_three_pass_launches_fir_stage_a_and_stage_b_per_group(monkeypatch, dft_
 
     class Lib:
         @staticmethod
-        def _fir(x, stride, starts, win, plane, b, n_spectra, n_taps, f, stream):
+        def _fir(x, stride, starts, win, plane, b, n_spectra, n_taps, f, *plan_stream):
+            assert plan_stream[:-1] == ff._fir_plan(b, n_spectra, n_taps, f)
             calls.append(("fir", x, plane, b, n_spectra, n_taps, f))
             return 0
 
@@ -669,7 +672,9 @@ def test_f32_two_pass_launches_one_fir_and_one_dft_pass_per_group(monkeypatch, b
 
     class Lib:
         @staticmethod
-        def k1_fir_f32_launch(x, stride, starts, win, plane, b, n_spectra, n_taps, f, stream):
+        def k1_fir_f32_launch(x, stride, starts, win, plane, b, n_spectra, n_taps, f,
+                              *plan_stream):
+            assert plan_stream[:-1] == ff._fir_plan(b, n_spectra, n_taps, f)
             calls.append(("fir", x, stride, plane, b, n_spectra, n_taps, f))
             return 0
 
@@ -851,12 +856,15 @@ def test_p2_stops_run_on_k7s_route(monkeypatch, stop):
 
     class Lib:
         @staticmethod
-        def k1_fir_stop_launch(x, stride, starts, win, plane, outr, outi, b, ns, nt, f, st, _):
+        def k1_fir_stop_launch(x, stride, starts, win, plane, outr, outi, b, ns, nt, f, *rest):
+            *plan, st, _ = rest
+            assert tuple(plan) == ff._fir_plan(b, ns, nt, f)
             calls.append(("fir_stop", x, stride, plane, outr, b, ns, nt, f, st))
             return 0
 
         @staticmethod
-        def k1_fir_launch(x, stride, starts, win, plane, b, ns, nt, f, _):
+        def k1_fir_launch(x, stride, starts, win, plane, b, ns, nt, f, *plan_stream):
+            assert plan_stream[:-1] == ff._fir_plan(b, ns, nt, f)
             calls.append(("fir", x, plane, b, ns))
             return 0
 
