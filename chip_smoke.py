@@ -7,8 +7,9 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
 
 1. device  — require CUDA; print the card's name and power limit
    (``nvidia-smi``) and the ``nvcc`` version;
-2. build   — compile ``dpdk_dc_sand_tpu_torch/csrc/*.cu`` for sm_90a, and the
-   host library ``dpdk_dc_sand_tpu_torch/native/*.cpp`` with g++ (required);
+2. build   — compile ``dpdk_dc_sand_tpu_torch/csrc/*.cu`` for sm_90a (each
+   source's nvcc seconds logged), and the host library
+   ``dpdk_dc_sand_tpu_torch/native/*.cpp`` with g++ (required);
 3. k1      — K1 (fused F kernel) through its wrapper ``fengine_fused`` vs
    its plain PyTorch version at the flagship fft, taps and S on 8 of the
    160 (antenna, pol) batches, with two coarse delays that clamp: bf16 DFT
@@ -22,7 +23,16 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    batches, 4 taps, S=2), both forms, where neither DFT pass has a plan:
    it must launch the form's FIR pass, stage A and stage B once each and
    nothing else, within 1 code on <= 1e-3 (bf16) or 1e-4 (f32) of plain,
-   timed. Then K1 at full width, 160 streams x 16 taps with coarse delays,
+   timed. Then K1's stage stops (``fengine_fused(_ablate=...)``: dma, fir,
+   stagea, stageb) at fft 2^18 and 2^20 (2 streams x S=8 x 16 taps, the
+   two-pass routes) and 2^22 (2 x 2 x 4 taps, the three-pass routes), bf16
+   and f32, with the requant and without: each call launches a stopped pass
+   and no pass its route's whole call does not, is held to the plain stop on
+   its last stream (dma, fir bit for bit; the DFT stops within K1's code
+   contract, their f32 values as ``_stop_diff`` says), and timed beside the
+   whole call; the stop bodies' registers and spills (a spill fails, but
+   for the bf16 DFT pass's stageb bodies, which spill as that pass's own
+   body does). Then K1 at full width, 160 streams x 16 taps with coarse delays,
    both forms, at fft 1024 (N1 = 8, S = 16384: the two passes' N1 = 8
    plans) and fft 2^22 (S = 4: the three-pass route): its route's passes
    launched once a group each and nothing else (the counts set to 0 just
@@ -69,7 +79,11 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    plain, its f32 FIR pass bit-exact, its DFT pass alone equal to it; K1
    f32 and each f32 pass (beside its plain version and its f32 bound)
    timed; the DFT pass's registers and spill bytes (a spill fails the
-   phase). Then the flagship at every engine default (``FBEngine(cfg,
+   phase); then the ``fused_f32`` route cut at each stop over all 160
+   streams (dma, fir into the f32 plane, stagea, stageb, whole): each
+   against its plain stop on the last 8 streams (with and without the
+   requant), then timed by the chained 2-vs-6 marginal, its launches
+   counted: the split of the f32 DFT pass. Then the flagship at every engine default (``FBEngine(cfg,
    n_spectra=256, quant_scale=QUANT_SCALE, beam_layout="natural")``:
    precision f32, K1 bf16 then K2's f32-weight form): the same steps, the
    median of steps 2-5 beside the bf16 step's and its peak memory; K1 and
@@ -479,6 +493,11 @@ def phase_build(st: dict) -> None:
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source, "
         f"into {_build.BUILD_DIR.name}/)")
+    # Each source's nvcc seconds, all started together (empty where the
+    # library came from the cache).
+    log("build: seconds a source " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(_build.BUILD_SECONDS.items(), key=lambda kv: kv[1])))
+    st["build_seconds"] = dict(_build.BUILD_SECONDS)
     t0 = time.perf_counter()
     host = load_native()
     if host is None:
@@ -507,10 +526,10 @@ def _k1_counts(ff) -> dict:
     return {k: getattr(ff, k).launches for k in K1_COUNTERS}
 
 
-def _code_diff(tag, got, ref, max_frac=1e-3):
+def _code_diff(tag, got, ref, max_frac=1e-3, check=True):
     """max |d| in int8 codes over (qr, qi); raise past 1 code or ``max_frac``
     of samples (1e-3: the bf16 contract; 1e-4: the reference's f32 contract,
-    ``tests/test_fengine_fused.py:84-99``)."""
+    ``tests/test_fengine_fused.py:84-99``); ``check=False`` only logs."""
     import torch
 
     worst = 0
@@ -521,7 +540,7 @@ def _code_diff(tag, got, ref, max_frac=1e-3):
         rms = float(r.float().pow(2).mean().sqrt())
         log(f"{tag} {name}: max|d| {dmax} code, frac(d!=0) {frac:.3e}; plain rms "
             f"{rms:.1f} codes, saturated {sat:.2e}")
-        if dmax > 1 or frac > max_frac:
+        if check and (dmax > 1 or frac > max_frac):
             raise AssertionError(f"{tag} {name} disagrees with plain: {dmax}, {frac}")
         worst = max(worst, dmax)
     return worst
@@ -633,6 +652,7 @@ def phase_k1(st: dict) -> None:
                 f32["max_abs_err"] = max(f32.get("max_abs_err", 0), err)
     st["k1_subset"]["subset_max_abs_err"] = float(worst)
     _k1_three_pass_2_22(st, gen)
+    _k1_stops(st, gen)
     for fft_w, s_w in K1_FULL_WIDTH:
         _k1_full_width(st, gen, fft_w, s_w)
     _engines_on_the_card(st, 1 << 16, ("FBEngine", "FXBEngine"))
@@ -733,6 +753,173 @@ def _k1_three_pass_2_22(st: dict, gen) -> None:
             f"launches {ran} ({st['card']})")
         st["k1_2_22_small"][dt] = dict(ms=ms, plain_ms=pms, max_abs_err=float(err),
                                        bound_ms=k1_bound["bound_ms"])
+
+
+#: K1's stage stops (``fengine_fused(_ablate=...)``), in the order they cut
+#: its route.
+K1_STOPS = ("dma", "fir", "stagea", "stageb")
+#: K1's stops off the flagship's split (phase 3): (fft, streams, S, taps):
+#: N1 = N2 = 512 and 1024 on the two-pass routes (as phase 3's K1 cases),
+#: 2048 on the three-pass routes (its 2 x 2 x 4 case).
+K1_STOP_CASES = ((1 << 18, 2, 8, 16), (1 << 20, 2, 8, 16), (1 << 22, 2, 2, 4))
+#: The rms, in codes, a stop's values are scaled to for its check (the
+#: window times a gain): inside int8, far from saturation. At gain 1 the
+#: DFT stops' int8 outputs saturate, where K1's 1-code contract does not
+#: hold (each case logs that reading, unchecked).
+STOP_RMS = 16.0
+#: The share of unquantised bf16-operand samples that may pass rtol 1e-5 /
+#: atol 1e-3 (each within one bf16 ulp of the stop's largest value), as
+#: tests/test_torch_ablate.py caps it against the JAX reference; the card
+#: has read up to 1.2e-4 (stagea) and 5.7e-2 (stageb) against plain.
+STOP_BF16_FLIPS = {"stagea": 1e-3, "stageb": 0.1}
+
+
+def _stop_diff(tag, got, ref, stop, dft_dtype, quantise):
+    """A K1 stop against its plain stop: ``dma`` and ``fir`` bit for bit;
+    ``stagea`` and ``stageb`` in int8 within 1 code on <= 1e-3 of samples
+    (K1's contract), their f32 values (``quantise=False``) with f32 operands
+    within rtol 1e-5 / atol 1e-3, with bf16 operands within one bf16 ulp of
+    the stop's largest value (2^-8 max|plain|: where the kernel's f32 sums
+    flip a bf16 rounding of T, the values it feeds move by about that) on at
+    most ``STOP_BF16_FLIPS`` of samples past that bound. Returns max |d|."""
+    if stop in ("dma", "fir"):
+        return _exact(tag, got, ref)
+    if quantise:
+        return _code_diff(tag, got, ref)
+    worst = 0.0
+    for name, g, r in zip(("outr", "outi"), got, ref):
+        d = (g - r).abs()
+        big, dmax = float(r.abs().max()), float(d.max())
+        share = float((d > 1e-3 + 1e-5 * r.abs()).float().mean())
+        log(f"{tag} {name}: max|d| {dmax:.3e}, past rtol 1e-5 / atol 1e-3 {share:.2e}, "
+            f"max|plain| {big:.1f}")
+        if ((dmax > 2.0 ** -8 * big or share > STOP_BF16_FLIPS[stop])
+                if dft_dtype == "bfloat16" else share > 0):
+            raise AssertionError(f"{tag} {name} disagrees with plain")
+        worst = max(worst, dmax)
+    return worst
+
+
+def _route_passes(body: str) -> set:
+    """The counters of the passes K1's route ``body`` runs in a whole call."""
+    sfx = "_f32" if body.endswith("_f32") else ""
+    if body.startswith("three_pass"):
+        return {f"k1_fir{sfx}", f"k1_stage_a{sfx}", f"k1_stage_b{sfx}"}
+    return {f"k1_fir{sfx}", f"k1_dft{sfx}"}
+
+
+def _stop_gain(stop, plain_at) -> float:
+    """The window gain that puts ``stop``'s values at ``STOP_RMS`` codes rms:
+    ``plain_at(stop, 1.0)`` is its unquantised plain output at gain 1 (dma
+    copies the input: gain 1)."""
+    if stop == "dma":
+        return 1.0
+    return STOP_RMS / max(float(t.float().pow(2).mean().sqrt()) for t in plain_at(stop, 1.0))
+
+
+def _k1_device_ms(fn, calls: int = 5) -> float:
+    """Device time of one call of ``fn`` in K1's kernels (``k1_*``), by
+    torch.profiler over ``calls`` calls: at 2 streams a call is shorter than
+    its host side, which CUDA events would time. A trace that caught none of
+    the kernels (it happened once in a run) is taken again, up to twice; a
+    third miss raises."""
+    import torch
+
+    for _ in range(3):
+        split, _ = _profile_split(torch, lambda: [fn() for _ in range(calls)],
+                                  [("k1", ["k1_"]), ("other", [])])
+        if split["k1"] > 0:
+            return split["k1"] / calls
+    raise AssertionError("three torch.profiler traces caught no k1_* kernel")
+
+
+def _stop_bodies(ff, n1, n2, dt, tag) -> dict:
+    """The stop bodies K1's stagea and stageb stops run at N1 x N2 in the
+    operand type ``dt`` (registers, spill bytes); a spill fails."""
+    bodies = ff.k1_stop_attributes(n1, n2, dt)
+    spills = {k: v["local_bytes"] for k, v in bodies.items() if v["local_bytes"]}
+    log(f"{tag} stop bodies: " + ", ".join(f"{k} {v['regs']} registers, {v['local_bytes']} "
+                                          f"local bytes" for k, v in bodies.items()))
+    if spills:
+        raise AssertionError(f"{tag}: a stop body spills: {spills}")
+    return bodies
+
+
+def _k1_stops(st: dict, gen) -> None:
+    """K1's stops off the flagship's split (``K1_STOP_CASES``), bf16 and f32,
+    with the requant and without: each stop's call must launch its route's
+    stopped pass (``fengine_fused.ablate_launches``) and no pass that the
+    route's whole call does not; its outputs on the last stream are held to
+    the plain stop (``_stop_diff``, the window scaled to ``STOP_RMS``; the
+    DFT stops' int8 reading at gain 1 logged beside it, unchecked), and the
+    quantised stop and the whole call are timed on the device
+    (``_k1_device_ms``). The stop bodies' registers and spills (a spill
+    fails)."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    out = {}
+    for fft, nb, s, taps in K1_STOP_CASES:
+        n1, n2 = ff._split_ct(fft)
+        x = torch.randint(-64, 64, (nb, (s + taps - 1) * fft + 999), dtype=torch.int8,
+                          device=dev, generator=gen)
+        cd = clamp_starts(torch.tensor([3, 999], device=dev), x.shape[1], (s + taps - 1) * fft)
+        fd = torch.rand(nb, device=dev, generator=gen) - 0.5
+        win = default_window(taps, fft, device=dev)
+        rc, rs = (r.reshape(nb, -1) for r in ff.fine_rotation_planes(
+            fd, -1.5 * fd, n_channels=fft // 2, quant_scale=QUANT_SCALE))
+        last = slice(nb - 1, nb)
+        for dt in ("bfloat16", "float32"):
+            body = ff._k1_body(n1, n2, dt)
+            tag = f"k1 stops {dt} fft {fft} [{nb} streams x S={s} x {taps} taps, {n1}x{n2}, {body}]"
+
+            def call(stop, gain=1.0, q=True):
+                return ff.fengine_fused(x, win * gain, fd, -1.5 * fd, n_channels=fft // 2,
+                                        quant_scale=QUANT_SCALE, dft_dtype=dt, coarse_delays=cd,
+                                        n_spectra=s, quantise=q, _ablate=stop)
+
+            def plain(stop, gain=1.0, q=False):
+                return ff.fengine_ablate_reference(stop, x[last], cd[last], win * gain, rc[last],
+                                                   rs[last], n_spectra=s, n1=n1, n2=n2,
+                                                   dft_dtype=dt, quantise=q)
+
+            rec = dict(body=body, bodies=_stop_bodies(ff, n1, n2, dt, tag))
+            for stop in K1_STOPS:
+                gain = _stop_gain(stop, plain)
+                err = 0.0
+                for q in (True, False):
+                    counts = dict(_k1_counts(ff), ablate=ff.fengine_fused.ablate_launches)
+                    got = call(stop, gain, q)
+                    torch.cuda.synchronize()
+                    ran = {k: v - counts[k] for k, v in
+                           dict(_k1_counts(ff), ablate=ff.fengine_fused.ablate_launches).items()}
+                    stray = {k for k, v in ran.items() if v and k != "ablate"} - _route_passes(body)
+                    if ran["ablate"] < 1 or stray:
+                        raise AssertionError(f"{tag} {stop}: the call ran {ran}")
+                    err = max(err, _stop_diff(f"{tag} {stop} q={q}", [g[last] for g in got],
+                                              plain(stop, gain, q), stop, dt, q))
+                if stop in ("stagea", "stageb"):  # why the check scales the window
+                    _code_diff(f"{tag} {stop} q=True at gain 1 (unscaled, unchecked)",
+                               [g[last] for g in call(stop)], plain(stop, q=True), check=False)
+                rec[stop] = dict(device_ms=_k1_device_ms(lambda: call(stop)), max_abs_err=err,
+                                 launches=ran)
+
+            def whole():
+                return ff.fengine_fused(x, win, fd, -1.5 * fd, n_channels=fft // 2,
+                                        quant_scale=QUANT_SCALE, dft_dtype=dt, coarse_delays=cd,
+                                        n_spectra=s)
+
+            rec["full"] = dict(device_ms=_k1_device_ms(whole))
+            order = (*K1_STOPS, "full")
+            log(f"{tag}: device ms (K1's kernels, torch.profiler) " + ", ".join(
+                f"{k} {rec[k]['device_ms']:.4f}" for k in order)
+                + f"; each stop against plain on the last stream ({st['card']})")
+            out[f"{fft}/{dt}"] = rec
+    st["k1_stops"] = out
 
 
 def _chunked(fn, nb, step=8):
@@ -1579,9 +1766,81 @@ def _flagship_f32(st: dict) -> None:
                             regs=at["regs"], local_bytes=at["local_bytes"],
                             subset_ms=st["k1_f32_subset"]["ms"],
                             subset_max_abs_err=float(st["k1_f32_subset"]["max_abs_err"]))
+    _flagship_f32_stops(st, flat, cdt, fb.window, rot, x, starts, k1_ms, fir_bound, dft_bound)
     del fb, adc, x, flat
     torch.cuda.empty_cache()
     _flagship_default(st)
+
+
+def _flagship_f32_stops(st, flat, cdt, window, rot, x, starts, k1_ms, fir_bound,
+                        dft_bound) -> None:
+    """The ``fused_f32`` flagship route cut at each stop over all 160 streams
+    (``fengine_fused(..., dft_dtype="float32", _ablate=stop)`` on the step's
+    last ADC): the f32 FIR pass's ring copies (dma), the f32 FIR pass (fir),
+    then its FFMA DFT pass up to the twiddle (stagea) and up to stage B
+    (stageb), and K1 f32 whole: the split of its 168.6 ms DFT pass. Each stop
+    first against its plain stop on the last 8 streams, with and without the
+    requant (the window scaled to ``STOP_RMS``), then timed by the chained
+    2-vs-6 marginal (``benchmarks/_chain.py``) with its launches counted."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.benchmarks._chain import marginal_ms
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+
+    a, p, _ = flat.shape
+    nb, c = a * p, rot[0].numel() // (a * p)
+    s = FLAG_S
+    n1, n2 = ff._split_ct(2 * c)
+    tail = slice(a - 4, a)  # the last 8 streams
+    rc, rs = (r.reshape(nb, -1) for r in rot)
+    last = slice(nb - 8, nb)
+
+    def call(stop, gain=1.0, q=True, ants=slice(None)):
+        return ff.fengine_fused(flat[ants], window * gain, None, None, n_channels=c,
+                                quant_scale=QUANT_SCALE, dft_dtype="float32",
+                                coarse_delays=cdt[ants], n_spectra=s, quantise=q,
+                                rot_planes=tuple(r[ants] for r in rot), _ablate=stop)
+
+    def plain(stop, gain=1.0, q=False):
+        return ff.fengine_ablate_reference(stop, x[last], starts[last], window * gain, rc[last],
+                                           rs[last], n_spectra=s, n1=n1, n2=n2,
+                                           dft_dtype="float32", quantise=q)
+
+    tag = f"flagship k1 f32 stops [{nb} x S={s} x fft {2 * c}]"
+    bodies = _stop_bodies(ff, n1, n2, "float32", tag)
+    err = 0.0
+    for stop in K1_STOPS:
+        gain = _stop_gain(stop, plain)
+        for q in (True, False):
+            got = call(stop, gain, q, tail)
+            err = max(err, _stop_diff(f"{tag} {stop} q={q} (last 8 streams)",
+                                      [g.reshape(8, s, c) for g in got], plain(stop, gain, q),
+                                      stop, "float32", q))
+            del got
+    torch.cuda.empty_cache()
+    ms, launches = {}, {}
+    for stop in (*K1_STOPS, "full"):
+        before = dict(_k1_counts(ff), ablate=ff.fengine_fused.ablate_launches)
+        ms[stop], _ = marginal_ms(lambda: call(None if stop == "full" else stop), flat)
+        launches[stop] = {k: v - before[k] for k, v in dict(
+            _k1_counts(ff), ablate=ff.fengine_fused.ablate_launches).items() if v - before[k]}
+        torch.cuda.empty_cache()
+    steps = list(ms.items())
+    split = ", ".join(f"{b} +{t - ta:.3f}" for (_, ta), (b, t) in zip(steps, steps[1:]))
+    plain_ms = cuda_ms(lambda: plain(None, q=True), iters=1)  # K1 f32's plain, 8 streams
+    taps, fft = window.shape
+    k1_bound = bound(nb * (s + taps - 1) * fft + taps * fft * 4 + 2 * nb * c * 4 + 2 * nb * s * c,
+                     f32=fir_ops(nb * s * fft, taps)
+                     + nb * s * 2 * (2 * n1 * n1 * n2 + 2 * n2 * n2 * n1))
+    log(f"{tag} chained ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; steps: {split}; K1 f32 (events, 2 calls) {k1_ms:.3f}; the passes' bounds: FIR "
+        f"{fir_bound['bound_ms']:.3f}, DFT {dft_bound['bound_ms']:.3f}; plain (K1 f32, 8 "
+        f"streams) {plain_ms:.3f}; launches {launches} ({st['card']})")
+    st["k1_f32_stops"] = dict(
+        ms=ms["full"], ms_by_stop=ms, plain_ms=plain_ms, plain_streams=8, max_abs_err=err,
+        launches=sum(v.get("ablate", 0) for v in launches.values()), launches_by_stop=launches,
+        **k1_bound, fir_bound_ms=fir_bound["bound_ms"], dft_bound_ms=dft_bound["bound_ms"],
+        library_ms=None, bodies=bodies)
 
 
 def _flagship_default(st: dict) -> None:
@@ -4902,6 +5161,16 @@ def main() -> int:
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship_fused_f32",
              launches=st["f32_launches"]["k1_dft_f32"], fft_1024=full[(1024, "float32")],
              **st["k1_dft_f32"]),
+        dict(name="k1_ablate", route="cuda",
+             source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct_stops.cu",
+             also_source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct_stops_dft.cu",
+             kernel="K1's route cut at each stage stop (fengine_fused(_ablate=...)): "
+                    "k1_fir_kernel at STOP_DMA / STOP_FIR_RND, k1_dft[_f32]_kernel at "
+                    "STOP_STAGEA_RND / STOP_STAGEB, k1_stage_b[_f32]_kernel at STOP_STAGEB, "
+                    "k1_t_slice_kernel; timed on the fused_f32 flagship route (ms: whole)",
+             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504",
+             path="fb_flagship_fused_f32_stops", off_flagship=st["k1_stops"],
+             **st["k1_f32_stops"]),
         dict(name="bstage_fused", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused.cu",
              also_source="dpdk_dc_sand_tpu_torch/csrc/bstage_fused_stops.cu",

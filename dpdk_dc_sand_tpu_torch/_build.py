@@ -45,6 +45,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -57,6 +58,9 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+#: Wall seconds each source's ``nvcc`` took in this process's build (empty
+#: where the library came from the cache), and ``"link"``'s.
+BUILD_SECONDS: dict[str, float] = {}
 
 NATIVE = _PKG / "native"
 HOST_SOURCES = ["ringbuffer.cpp", "spead_codec.cpp", "membw.cpp", "udp_burst.cpp", "xdp_burst.cpp"]
@@ -149,22 +153,55 @@ _SIGNATURES = {
     ],
     "k1_fir_stop_launch": [
         _P, _L, _P, _P,  # x, batch stride (samples), starts [B] int64, window
-        _P, _P, _P,  # plane [B, S, fft] bf16 (fir), outr, outi [B, S, fft/2] int8
+        _P, _P, _P,  # plane [B, S, fft] (fir stops), outr, outi [B, S, fft/2]
         _I, _I, _I, _I,  # batch, n_spectra, n_taps, fft
         _I, _I, _I, _I,  # the plan: register-ring depth, run, streams a block, short-run
-        _I,  # stop (P5: 1 dma, 2 fir; P2: 5 dma, 6 conv, 7 fir, 8 deint)
+        _I,  # stop (K1: 1 dma, 9 fir; P5: 1 dma, 2 fir; P2: 5 dma, 6 conv, 7 fir, 8 deint)
+        _I, _I, _I,  # N2 (the dma probe's frame view), plane f32 (stop 9), quantise
         _P,  # stream
     ],
     "k1_fir_stop_attributes": [
-        _I, _I, _I,  # register-ring depth, short-run body, stop
+        _I, _I, _I, _I,  # register-ring depth, short-run body, stop, plane f32 (stop 9) or
+        # f32 outputs (stop 1)
         _P,  # out (int[5]), as k1_fir_attributes
     ],
     "k1_dft_stop_launch": [
         _P,  # plane [B, S, N1, N2] bf16
         _P, _P, _P, _P, _P,  # bf16 d1c, d1s, d2 stack; twc, tws
-        _P, _P,  # outr, outi [B, S, C] int8
-        _I, _I, _I, _I, _I,  # batch, n_spectra, n1, n2, stop (3 stagea, 4 stageb)
+        _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
+        _I, _I, _I, _I,  # batch, n_spectra, n1, n2
+        _I, _I,  # stop (10 stagea, 4 stageb; P5's 3 stagea), quantise
         _P,  # stream
+    ],
+    "k1_dft_f32_stop_launch": [
+        _P,  # plane [B, S, N1, N2] f32
+        _P, _P, _P, _P, _P,  # f32 d1c, d1s, d2 stack transposed; twc, tws
+        _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
+        _I, _I, _I, _I,  # batch, n_spectra, n1, n2
+        _I, _I,  # stop (10 stagea, 4 stageb), quantise
+        _P,  # stream
+    ],
+    **{name: [
+        _I, _I, _I, _I,  # n1, n2, stop, quantise
+        _P,  # out (int[3]): registers, local bytes, KC
+    ] for name in ("k1_dft_stop_attributes", "k1_dft_f32_stop_attributes")},
+    "k1_stage_b_stop_launch": [
+        _P, _P, _P,  # T re, im (as stage A wrote them), d2 (bf16 stack, or f32 transposed)
+        _P, _P,  # outr, outi [B, S, C] (int8, or f32 without quantise)
+        _I, _I, _I, _I,  # batch, n_spectra, n1, n2
+        _I, _I,  # f32 operands, quantise
+        _P,  # stream
+    ],
+    "k1_t_slice_launch": [
+        _P, _P,  # T re, im (as stage A wrote them)
+        _P, _P,  # outr, outi [M, C] (int8, or f32 without quantise)
+        _I, _I, _I,  # M (batch * n_spectra), n1, n2
+        _I, _I,  # f32 operands, quantise
+        _P,  # stream
+    ],
+    "k1_stage_stop_attributes": [
+        _I, _I,  # f32 operands, quantise
+        _P,  # out (int[4]): stage B stop's registers, local bytes; the gather's
     ],
     "bstage_fused_launch": [
         _P, _P, _P, _I,  # qr, qi, w, w_is_bf16
@@ -332,6 +369,13 @@ def _digest(nvcc: str) -> str:
     return h.hexdigest()
 
 
+def _reap(proc: subprocess.Popen, name: str, t0: float, done: dict) -> None:
+    """Read ``proc``'s output as it ends into ``done["out"]`` and note its
+    wall seconds since ``t0`` in :data:`BUILD_SECONDS`."""
+    done["out"] = proc.communicate()
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` (if not cached) and return the library path."""
     nvcc = find_nvcc()
@@ -341,31 +385,38 @@ def build() -> Path:
     objdir = BUILD_DIR / f"{lib.stem}.{os.getpid()}.objs"
     objdir.mkdir(parents=True, exist_ok=True)
     jobs = []
+    t0 = time.perf_counter()
     for src in _sources():
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(objdir / f"{src.stem}.o"), str(src)]
-        jobs.append((cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        done: dict = {}
+        reader = threading.Thread(target=_reap, args=(proc, src.name, t0, done))
+        reader.start()
+        jobs.append((cmd, proc, reader, done))
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp)]
     link += [str(objdir / f"{src.stem}.o") for src in _sources()]
     try:
-        for cmd, proc in jobs:  # the first failure raises; `finally` stops the rest
-            out, err = proc.communicate()
+        for cmd, proc, reader, done in jobs:  # the first failure raises; `finally` stops the rest
+            reader.join()
+            out, err = done["out"]
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}{out}"
                 )
+        t1 = time.perf_counter()
         res = subprocess.run(link, capture_output=True, text=True)
+        BUILD_SECONDS["link"] = time.perf_counter() - t1
         if res.returncode != 0:
             raise RuntimeError(
                 f"nvcc link failed (exit {res.returncode}): {' '.join(link)}\n"
                 f"{res.stderr}{res.stdout}"
             )
     finally:
-        for _, proc in jobs:
+        for _, proc, reader, _ in jobs:
             if proc.poll() is None:
                 proc.kill()
-                proc.communicate()
+            reader.join()
         shutil.rmtree(objdir, ignore_errors=True)
     os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
     return lib

@@ -3,12 +3,13 @@ of the JAX package, whose trimmed copy of ``_fengine_kernel_ct`` reaches
 ``pl.pallas_call`` at its line 147).
 
 Each stop is K1 itself cut after a stage at compile time
-(``fengine_fused(_ablate=...)``, ``csrc/fengine_ct.cu``), timed by the
+(``p5_ablate``, ``csrc/fengine_ct.cu``), timed by the
 chained marginal (:mod:`._chain`):
 
 - ``dma``    : the FIR pass's loads, a probe written: the input-stream floor;
-- ``fir``    : + the 16-tap FIR, its bf16 plane written;
-- ``stagea`` : + the DFT pass's stage A and twiddle;
+- ``fir``    : + the 16-tap FIR, its bf16 plane written (the f32 sums'
+  halves to the outputs, as the probe writes them);
+- ``stagea`` : + the DFT pass's stage A and twiddle (T before its rounding);
 - ``stageb`` : + stage B;
 - ``full``   : + the fine delay and requant: K1, with the rotation planes
   divided by 16 (the probe's ``/ 16.0``, an exact power of two).
@@ -49,29 +50,37 @@ def make_inputs(S: int, device=None, seed: int = 7, batch: int | None = None) ->
     return dict(fr=fr, wina=wina, rot=(rotc, rots), rot16=(rotc / 16, rots / 16))
 
 
+def _operands(stop: str, inp: dict, streams: slice = slice(None)):
+    """The streams ``[b, n_in]``, their zero starts, the rotation planes ``[b,
+    C]`` of the stop and the spectra a stream."""
+    fr = inp["fr"][streams]
+    b = fr.shape[0]
+    x = fr.reshape(b, -1)
+    rot = inp["rot16"] if stop == "full" else inp["rot"]
+    rc, rs = (r[streams].reshape(b, -1) for r in rot)
+    starts = torch.zeros(b, dtype=torch.int64, device=x.device)
+    return x, starts, rc, rs, fr.shape[1] // N1 - TAPS + 1
+
+
 def call(stop: str, inp: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """One call of the stop: int8 ``(outr, outi)`` ``[batch, S, 32768]``."""
+    """One call of the stop: int8 ``(outr, outi)`` ``[batch, S, 32768]``. The
+    stops are P5's (``ff.P5_STOPS``: its fir writes the f32 FIR's two
+    halves, its stagea T before the rounding), ``"full"`` K1 itself."""
     if stop not in STOPS:
         raise ValueError(f"unknown stage {stop!r}")
-    full = stop == "full"
-    zero = torch.zeros(inp["fr"].shape[0], device=inp["fr"].device)
-    return ff.fengine_fused(
-        inp["fr"], inp["wina"], zero, zero, n_channels=FFT // 2, quant_scale=1.0, rowed=True,
-        rot_planes=inp["rot16"] if full else inp["rot"], _ablate=None if full else stop,
-    )
+    if stop == "full":
+        zero = torch.zeros(inp["fr"].shape[0], device=inp["fr"].device)
+        return ff.fengine_fused(inp["fr"], inp["wina"], zero, zero, n_channels=FFT // 2,
+                                quant_scale=1.0, rowed=True, rot_planes=inp["rot16"])
+    x, starts, rc, rs, s = _operands(stop, inp)
+    return ff.p5_ablate(stop, x, starts, inp["wina"], rc, rs, n_spectra=s, n1=N1, n2=N2)
 
 
 def reference(stop: str, inp: dict, streams: slice = slice(None)):
     """The plain version of the stop on the streams ``streams``."""
-    fr = inp["fr"][streams]
-    b = fr.shape[0]
-    x = fr.reshape(b, -1)
-    s = fr.shape[1] // N1 - TAPS + 1
-    rot = inp["rot16"] if stop == "full" else inp["rot"]
-    rc, rs = (r[streams].reshape(b, -1) for r in rot)
-    return ff.fengine_ablate_reference(
-        None if stop == "full" else stop, x, torch.zeros(b, dtype=torch.int64, device=x.device),
-        inp["wina"], rc, rs, n_spectra=s, n1=N1, n2=N2)
+    x, starts, rc, rs, s = _operands(stop, inp, streams)
+    return ff.fengine_ablate_reference(None if stop == "full" else stop, x, starts, inp["wina"],
+                                       rc, rs, n_spectra=s, n1=N1, n2=N2, p5=True)
 
 
 def run_variant(stop_after: str, S: int, s_blk: int, device=None, inp: dict | None = None):

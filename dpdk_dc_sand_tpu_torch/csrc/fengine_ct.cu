@@ -154,22 +154,43 @@
 //    T's bytes (16.8 MB a spectrum in bf16, 33.6 in f32, each written once
 //    and read once: 10 and 20 us at the HBM rate).
 //
-// Stage stops (the probes P5 and P4: benchmarks/ct_ablate.py and
-// benchmarks/dma_bisect.py of the JAX package, the trimmed copies of
-// _fengine_kernel_ct reached through pl.pallas_call at ct_ablate.py:147 and
-// dma_bisect.py:113). A compile-time STOP cuts the two passes after a stage,
-// so the production instantiations (STOP_NONE) are the code above unchanged:
-//   STOP_DMA    — the FIR pass's ring copies only, each input byte once
-//                 into the ring and read from it once; the probe (frame
-//                 s - s % 16's first fft/2 samples) to both outputs;
-//   STOP_FIR    — the FIR pass, its bf16 plane written as always, and the
-//                 f32 sums' first and second fft/2 samples to outr, outi;
-//   STOP_STAGEA — the DFT pass up to the twiddle, no stage B: T re / im of
-//                 rows k1 < N1/2 to outr / outi at k1*N2 + n2;
-//   STOP_STAGEB — the DFT pass up to stage B, no rotation: re / im.
-// Every stop writes int8 by truncation with saturation (trunc_s8), as
-// XLA's f32 -> int8 conversion does in the probe. Their entry points are in
-// csrc/fengine_ct_stops.cu, which compiles in its own nvcc process.
+// Stage stops: K1 cut after a stage at compile time, so the production
+// instantiations (STOP_NONE) are the code above unchanged. They serve the
+// reference's fengine_fused(_ablate=...) (fengine_pallas.py:645-652,
+// 794-798, 905-914, 936-945) and the probes P5 and P4 (benchmarks/
+// ct_ablate.py and benchmarks/dma_bisect.py of the JAX package, the trimmed
+// copies of _fengine_kernel_ct reached through pl.pallas_call at
+// ct_ablate.py:147 and dma_bisect.py:113). A stopped call runs the passes
+// its route's whole call runs, up to the stop:
+//   STOP_DMA        — the FIR pass's ring copies only, each input byte once
+//                     into the ring and read from it once; the probe to both
+//                     outputs: for spectrum s of the block from frame f0 =
+//                     s - s % 16, output r*N1 + l is row r < N2/2, lane l <
+//                     N1 of the [rows, N2] view of the stream from frame f0
+//                     (the first fft/2 samples of frame f0 where N1 == N2;
+//                     N2 / (2 N1) frames where N1 < N2), the stream read
+//                     from the reference's DMA base, which the wrapper
+//                     passes as the start (the coarse delay's row rounded
+//                     down to a multiple of 8 rows);
+//   STOP_FIR_RND    — the FIR pass, its plane (bf16 or f32) written as
+//                     always, and the FIR rounded to the plane's type, its
+//                     first fft/2 samples, to both outputs (N1 == N2);
+//   STOP_STAGEA_RND — the DFT pass (bf16 or f32) up to the twiddle, no stage
+//                     B: T re / im rounded to the operand type, rows k1 <
+//                     N1/2, to outr / outi at k1*N2 + n2; on the three-pass
+//                     route stage A into T, then k1_t_slice_kernel gathers
+//                     those rows;
+//   STOP_STAGEB     — the DFT pass (or the three-pass route's stage B) up to
+//                     stage B, no rotation: re / im.
+// Each writes int8 by truncation with saturation (trunc_s8), as XLA's f32
+// -> int8 conversion does, or, where the call asks for no requant, the f32
+// values as they are. P5's own kernel writes two stops differently, and it keeps them:
+//   STOP_FIR        — the bf16 plane, and the f32 sums' first and second
+//                     fft/2 samples to outr, outi;
+//   STOP_STAGEA     — T re / im before the rounding (bf16 operands, int8).
+// Their entry points are in csrc/fengine_ct_stops.cu (the FIR pass's) and
+// csrc/fengine_ct_stops_dft.cu (the DFT passes' and the three-pass route's),
+// which compile in nvcc processes of their own.
 // The FIR pass also carries the probe P2's first four stops, for K7's route
 // (csrc/fengine_dit.cu: K7's first pass is this FIR pass on its frames with
 // every start at 0), each into outputs [B, S, fft/2] and no plane:
@@ -202,6 +223,7 @@ __device__ __forceinline__ int8_t requant(float v) {
 // as these numbers.
 constexpr int STOP_NONE = 0, STOP_DMA = 1, STOP_FIR = 2, STOP_STAGEA = 3, STOP_STAGEB = 4;
 constexpr int STOP_DIT_DMA = 5, STOP_DIT_CONV = 6, STOP_DIT_FIR = 7, STOP_DIT_DEINT = 8;
+constexpr int STOP_FIR_RND = 9, STOP_STAGEA_RND = 10;
 // Spectra a DMA-stop probe serves: P5's s_blk.
 constexpr int ABLATE_S_BLK = 16;
 
@@ -209,6 +231,41 @@ constexpr int ABLATE_S_BLK = 16;
 // gives.
 __device__ __forceinline__ int8_t trunc_s8(float v) {
   return static_cast<int8_t>(max(-128, min(127, __float2int_rz(v))));
+}
+
+// A stop's outputs: two or four values at element i of out, int8 by
+// truncation (QUANT) or f32.
+template <bool QUANT>
+__device__ __forceinline__ void stop_store2(void* out, long long i, float a, float b) {
+  if constexpr (QUANT) {
+    *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + i) = make_char2(trunc_s8(a), trunc_s8(b));
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) = make_float2(a, b);
+  }
+}
+
+template <bool QUANT>
+__device__ __forceinline__ void stop_store4(void* out, long long i, float4 v) {
+  if constexpr (QUANT) {
+    *reinterpret_cast<char4*>(static_cast<int8_t*>(out) + i) =
+        make_char4(trunc_s8(v.x), trunc_s8(v.y), trunc_s8(v.z), trunc_s8(v.w));
+  } else {
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + i) = v;
+  }
+}
+
+// The same with the output type chosen at run time (the FIR pass's stops).
+__device__ __forceinline__ void stop_store4(void* out, long long i, float4 v, bool f32) {
+  if (f32) {
+    stop_store4<false>(out, i, v);
+  } else {
+    stop_store4<true>(out, i, v);
+  }
+}
+
+// v rounded to bf16 (round-to-nearest-even), as f32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // ---------------------------------------------------------------------------
@@ -235,6 +292,8 @@ struct FirShape {
   int batch, n_spectra, fft, n_taps;
   int run, streams;
   int lane_blocks, runs;
+  int probe_n2;  // the stops': N2, the row length of the frame view (STOP_DMA's probe)
+  bool f32_out;  // STOP_FIR_RND's outputs f32, else int8 (STOP_DMA's: its PT)
 };
 
 // The stops that run the body's copies and nothing of its arithmetic.
@@ -322,14 +381,18 @@ __device__ __forceinline__ void store_deint4(int8_t* e, int8_t* o, float4 v) {
 // for a stop its place in outr and outi.
 template <int STOP, typename PT>
 struct FirOut {
-  PT* ob;      // spectrum s at ob + s * fft
-  int8_t* oq;  // the stops': spectrum s at oq + s * (fft / 2)
+  PT* ob;       // spectrum s at ob + s * fft
+  int8_t* oq;   // the stops': spectrum s at oq + s * (fft / 2) (bytes: int8 outputs)
   int8_t* oq2;
+  void* vr;     // STOP_FIR_RND's: spectrum s at element vo + s * (fft / 2) of vr, vi
+  void* vi;
+  long long vo;
+  bool f32;
 
   __device__ __forceinline__ FirOut(PT* plane, int8_t* outr, int8_t* outi, const FirShape& sh,
                                     long long b, int lane)
       : ob(plane + b * sh.n_spectra * static_cast<long long>(sh.fft) + lane),
-        oq(nullptr), oq2(nullptr) {
+        oq(nullptr), oq2(nullptr), vr(nullptr), vi(nullptr), vo(0), f32(sh.f32_out) {
     const int half = sh.fft / 2;
     const long long o = b * sh.n_spectra * static_cast<long long>(half);
     if constexpr (STOP == STOP_FIR || STOP == STOP_DIT_FIR) {
@@ -339,13 +402,34 @@ struct FirOut {
       oq = outr + o + lane / 2;
       oq2 = outi + o + lane / 2;
     }
+    if constexpr (STOP == STOP_FIR_RND) {
+      if (lane < half) {
+        vr = outr;
+        vi = outi;
+        vo = o + lane;
+      }
+    }
   }
 
-  // What the pass stores for spectrum s at its STOP: the plane (K1, P5's
-  // fir), the f32 sums' halves (P5's and P2's fir), P2's even / odd split.
+  // What the pass stores for spectrum s at its STOP: the plane (K1, the
+  // fir stops), the f32 sums' halves (P5's and P2's fir), the sums rounded
+  // to the plane's type (the reference's fir), P2's even / odd split.
   __device__ __forceinline__ void store(long long s, long long fft, float4 acc) const {
-    if constexpr (STOP == STOP_NONE || STOP == STOP_FIR) store_plane4(ob + s * fft, acc);
+    if constexpr (STOP == STOP_NONE || STOP == STOP_FIR || STOP == STOP_FIR_RND) {
+      store_plane4(ob + s * fft, acc);
+    }
     if constexpr (STOP == STOP_FIR || STOP == STOP_DIT_FIR) store_trunc4(oq + s * (fft / 2), acc);
+    if constexpr (STOP == STOP_FIR_RND) {
+      if (vr) {
+        float4 v = acc;
+        if constexpr (std::is_same<PT, __nv_bfloat16>::value) {
+          v = make_float4(round_bf16(acc.x), round_bf16(acc.y), round_bf16(acc.z),
+                          round_bf16(acc.w));
+        }
+        stop_store4(vr, vo + s * (fft / 2), v, f32);
+        stop_store4(vi, vo + s * (fft / 2), v, f32);
+      }
+    }
     if constexpr (STOP == STOP_DIT_DEINT) {
       store_deint4(oq + s * (fft / 2), oq2 + s * (fft / 2), acc);
     }
@@ -583,21 +667,39 @@ __device__ __forceinline__ void fir_long_body(const int8_t* __restrict__ x,
   }
 }
 
+// The frames a STOP_DMA probe spans from its block's first: its [N2/2, N1]
+// corner of the [rows, N2] view reads rows < N2/2 (N2 / (2 N1) frames where
+// N1 < N2, else one).
+__host__ __device__ constexpr int dma_frames(int fft, int n2) {
+  return static_cast<int>((static_cast<long long>(n2 / 2) * n2 + fft - 1) / fft);
+}
+
 // The copies-only stops over the block's streams: each row the ring body
-// reads, copied into the ring and read from it once. STOP_DMA (P5, P4) at
-// every 16th frame stores that frame's samples in the first fft/2 lanes to
-// both outputs of its 16 spectra; STOP_DIT_DMA (P2) XORs the words,
+// reads, copied into the ring and read from it once. STOP_DMA (the
+// reference's dma, P5, P4) stores each word that lies in a block's probe
+// (the head of the file) to both outputs of the block's 16 spectra, int8 as
+// it is or as f32; STOP_DIT_DMA (P2) XORs the words,
 // STOP_DIT_CONV converts them to f32 and sums, then both store for each
 // spectrum s outr 0 and outi the first sample of frame f0 = s - s % 16
 // (CONV: plus frame f0 + 1's, truncated). The words' XOR or sum is stored
 // under a condition that never holds but that the compiler cannot see
-// through (n_spectra < 0), so no copy is dropped.
-template <int STOP, typename Ring>
+// through (n_spectra < 0), so no copy is dropped. F32_STORES: STOP_DMA's
+// outputs f32 (its instantiation with PT = float), else int8; a body of its
+// own each, so that the int8 body carries no f32 stores.
+template <int STOP, bool F32_STORES, typename Ring>
 __device__ __forceinline__ void fir_copies(Ring& ring, int8_t* __restrict__ outr,
                                            int8_t* __restrict__ outi, const FirShape& sh,
                                            int b0, int s1, int nb) {
   const long long fft = sh.fft, half = sh.fft / 2;
   const int lane = ring.lane, s0 = ring.s0;
+  // STOP_DMA's probe: rows of N2 = 2^pl samples, of which the first N1 lanes
+  // (pn1), over the first `probe` samples from the block's first frame. A
+  // lane's word of 4 samples lies wholly inside the probe's lanes or wholly
+  // outside them; at frame d of the block it is output d * N1 * N1 + lo.
+  const int pl = STOP == STOP_DMA ? __ffs(sh.probe_n2) - 1 : 0, pmask = (1 << pl) - 1;
+  const int pn1 = sh.fft >> pl, probe = (sh.probe_n2 / 2) << pl;
+  const bool in_lane = (lane & pmask) < pn1;
+  const int lo = (lane >> pl) * pn1 + (lane & pmask);
   uint32_t seen = 0;
   float sum = 0.f;
   ring.prologue();
@@ -605,7 +707,7 @@ __device__ __forceinline__ void fir_copies(Ring& ring, int8_t* __restrict__ outr
     const long long b = b0 + j;
     const int vb = j * ring.rv;
     ring.begin(j);
-    const long long o = b * sh.n_spectra * half + lane;
+    const long long o = b * sh.n_spectra * half;
     for (int q = 0; q < ring.r; ++q) {
       const uint32_t v = ring.word(vb + q, q % FIR_ROWS == 0);
       if constexpr (STOP == STOP_DIT_CONV) {
@@ -615,11 +717,24 @@ __device__ __forceinline__ void fir_copies(Ring& ring, int8_t* __restrict__ outr
         seen ^= v;
       }
       if constexpr (STOP == STOP_DMA) {
-        const int row = s0 + q;
-        if (lane < half && row < s1 && row % ABLATE_S_BLK == 0) {
-          for (long long s = row; s < min(s1, row + ABLATE_S_BLK); ++s) {
-            *reinterpret_cast<uint32_t*>(outr + o + s * half) = v;
-            *reinterpret_cast<uint32_t*>(outi + o + s * half) = v;
+        // Frame row = s0 + q is frame d of block f0's probe.
+        const int row = s0 + q, d = row & (ABLATE_S_BLK - 1), f0 = row - d;
+        if (in_lane && f0 < s1 && d * sh.fft + lane < probe) {
+          const long long oi = o + d * pn1 * pn1 + lo;
+          // The block's 16 spectra, unrolled: a loop to min(s1, f0 + 16)
+          // stayed rolled, one store pair in flight at a time.
+#pragma unroll
+          for (int k = 0; k < ABLATE_S_BLK; ++k) {
+            const long long s = f0 + k;
+            if (s < s1) {
+              if constexpr (F32_STORES) {
+                stop_store4<false>(outr, oi + s * half, bytes4(v));
+                stop_store4<false>(outi, oi + s * half, bytes4(v));
+              } else {
+                *reinterpret_cast<uint32_t*>(outr + oi + s * half) = v;
+                *reinterpret_cast<uint32_t*>(outi + oi + s * half) = v;
+              }
+            }
           }
         }
       }
@@ -629,14 +744,14 @@ __device__ __forceinline__ void fir_copies(Ring& ring, int8_t* __restrict__ outr
         const int8_t* xs = ring.x + ring.first[j];
         for (long long s = s0; s < s1; ++s) {
           const long long f0 = s - s % ABLATE_S_BLK;
-          int8_t probe = __ldg(xs + f0 * fft);
+          int8_t probe_v = __ldg(xs + f0 * fft);
           if constexpr (STOP == STOP_DIT_CONV) {
-            probe = trunc_s8(static_cast<float>(probe) +
-                             static_cast<float>(__ldg(xs + (f0 + 1) * fft)));
+            probe_v = trunc_s8(static_cast<float>(probe_v) +
+                               static_cast<float>(__ldg(xs + (f0 + 1) * fft)));
           }
-          *reinterpret_cast<uint32_t*>(outr + o + s * half) = 0u;
-          *reinterpret_cast<uint32_t*>(outi + o + s * half) =
-              static_cast<uint8_t>(probe) * 0x01010101u;
+          *reinterpret_cast<uint32_t*>(outr + o + lane + s * half) = 0u;
+          *reinterpret_cast<uint32_t*>(outi + o + lane + s * half) =
+              static_cast<uint8_t>(probe_v) * 0x01010101u;
         }
       }
     }
@@ -674,12 +789,15 @@ __global__ void __launch_bounds__(FIR_THREADS, FIR_BLOCKS)
   if constexpr (MAXT == 0 && !fir_copies_only(STOP)) {
     fir_long_body<STOP>(x, first, win, plane, outr, outi, sh, lane, b0, s0, s1, nb);
   } else {
-    const int r = s1 - s0 + sh.n_taps - 1;  // rows a stream's run reads
+    int r = s1 - s0 + sh.n_taps - 1;  // rows a stream's run reads
+    if constexpr (STOP == STOP_DMA) {  // and the last block's probe (the wrapper checks it exists)
+      r = max(r, (s1 - 1) / ABLATE_S_BLK * ABLATE_S_BLK - s0 + dma_frames(sh.fft, sh.probe_n2));
+    }
     const int rv = (r + FIR_ROWS - 1) / FIR_ROWS * FIR_ROWS;
     FirRing<fir_stages(SHORT)> ring{x, first, sh.fft, lane, s0, r, rv, nb * rv / FIR_ROWS,
                  fir_smem + 8 * threadIdx.x, 0, 0, nullptr, false, 0};
     if constexpr (fir_copies_only(STOP)) {
-      fir_copies<STOP>(ring, outr, outi, sh, b0, s1, nb);
+      fir_copies<STOP, std::is_same<PT, float>::value>(ring, outr, outi, sh, b0, s1, nb);
     } else if constexpr (SHORT) {
       fir_short_body<MAXT, STOP>(ring, win, plane, outr, outi, sh, b0, s1, nb);
     } else {
@@ -908,7 +1026,11 @@ template <int KC, bool QUANT, int STOP = STOP_NONE>
 __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
   using S = Shape<KC>;
   constexpr bool N8 = KC == KC_N8;  // N1 = 8: T rows are (spectrum, k1)
-  static_assert(!N8 || STOP == STOP_NONE, "the stops take the 64-row chunk plan only");
+  static_assert(!N8 || STOP == STOP_NONE, "the stops take the N1 = N2 plans only");
+  static_assert(STOP != STOP_STAGEA || QUANT, "P5's stagea writes int8");
+  constexpr bool STAGEA_STOP = STOP == STOP_STAGEA || STOP == STOP_STAGEA_RND;
+  // The stop bodies load each twiddle pair where they use it (see below).
+  constexpr bool LATE_TW = STOP != STOP_NONE;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -1013,8 +1135,9 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
       if (w.kidx == p.n_kta - 1) {
         // f32 twiddle, bf16 rounding, into the T planes. Each 16-row group's
         // twiddles are loaded together first: the L2 round trips overlap.
-        // (The STAGEA stop writes P5's rows k1 < N1/2 instead: whole chunks,
-        // since its plan's KC = 64 divides N1/2, from one base pointer.)
+        // (The stagea stops write T's rows k1 < N1/2 instead: whole chunks,
+        // since every plan's KC (64, 32, 16) divides N1/2 at N1 = N2, from
+        // one base: element (b, s, k0 + r, n) at o + r * N2 + n.)
         if constexpr (N8) {
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
@@ -1035,14 +1158,11 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
           }
           continue;
         }
-        int8_t* stop_r = nullptr;
-        int8_t* stop_i = nullptr;
-        if constexpr (STOP == STOP_STAGEA) {
+        long long stop_o = 0;
+        if constexpr (STAGEA_STOP) {
           if (k0 >= n1 / 2) continue;
-          const long long o = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C +
-                              static_cast<long long>(k0) * n2;
-          stop_r = static_cast<int8_t*>(p.outr) + o;
-          stop_i = static_cast<int8_t*>(p.outi) + o;
+          stop_o = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C +
+                   static_cast<long long>(k0) * n2;
         }
 #pragma unroll
         for (int i = 0; i < S::MI; ++i) {
@@ -1053,8 +1173,10 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
             for (int hh = 0; hh < 2; ++hh) {
               const long long o = static_cast<long long>(k0 + a_r0 + i * 16 + g + hh * 8) * n2 +
                                   col + j * 8 + tig * 2;
-              wc[j][hh] = __ldg(reinterpret_cast<const float2*>(p.twc + o));
-              ws[j][hh] = __ldg(reinterpret_cast<const float2*>(p.tws + o));
+              if constexpr (!LATE_TW) {
+                wc[j][hh] = __ldg(reinterpret_cast<const float2*>(p.twc + o));
+                ws[j][hh] = __ldg(reinterpret_cast<const float2*>(p.tws + o));
+              }
             }
           }
 #pragma unroll
@@ -1065,17 +1187,30 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
               const int n = col + j * 8 + tig * 2;
               const float* cr = acc + ((0 * S::MI + i) * 4 + j) * 4 + hh * 2;
               const float* ci = acc + ((1 * S::MI + i) * 4 + j) * 4 + hh * 2;
-              const float2 c = wc[j][hh], sn = ws[j][hh];
+              float2 c = wc[j][hh], sn = ws[j][hh];
+              if constexpr (LATE_TW) {
+                // The stop bodies load each twiddle pair where they use it
+                // (wc, ws stay unset): loaded together, as above, the stagea
+                // bodies spilled 24 bytes, and the stageb bodies more than
+                // with these loads. The values are the same; only the loads'
+                // order differs.
+                const long long o2 = static_cast<long long>(k0 + a_r0 + i * 16 + g + hh * 8) * n2 +
+                                     col + j * 8 + tig * 2;
+                c = __ldg(reinterpret_cast<const float2*>(p.twc + o2));
+                sn = __ldg(reinterpret_cast<const float2*>(p.tws + o2));
+              }
               const float tr0 = __fsub_rn(__fmul_rn(cr[0], c.x), __fmul_rn(ci[0], sn.x));
               const float tr1 = __fsub_rn(__fmul_rn(cr[1], c.y), __fmul_rn(ci[1], sn.y));
               const float ti0 = __fadd_rn(__fmul_rn(cr[0], sn.x), __fmul_rn(ci[0], c.x));
               const float ti1 = __fadd_rn(__fmul_rn(cr[1], sn.y), __fmul_rn(ci[1], c.y));
               if constexpr (STOP == STOP_STAGEA) {
-                // P5's slice of T: rows k1 < N1/2, at k1*N2 + n2.
-                *reinterpret_cast<char2*>(stop_r + r * n2 + n) =
-                    make_char2(trunc_s8(tr0), trunc_s8(tr1));
-                *reinterpret_cast<char2*>(stop_i + r * n2 + n) =
-                    make_char2(trunc_s8(ti0), trunc_s8(ti1));
+                // P5's slice of T, before the rounding: rows k1 < N1/2.
+                stop_store2<true>(p.outr, stop_o + r * n2 + n, tr0, tr1);
+                stop_store2<true>(p.outi, stop_o + r * n2 + n, ti0, ti1);
+              } else if constexpr (STOP == STOP_STAGEA_RND) {
+                // The reference's slice: the rounded T, rows k1 < N1/2.
+                stop_store2<QUANT>(p.outr, stop_o + r * n2 + n, round_bf16(tr0), round_bf16(tr1));
+                stop_store2<QUANT>(p.outi, stop_o + r * n2 + n, round_bf16(ti0), round_bf16(ti1));
               } else {
                 *reinterpret_cast<__nv_bfloat162*>(sTr + r * tld + n) =
                     __floats2bfloat162_rn(tr0, tr1);
@@ -1086,7 +1221,7 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
           }
         }
       }
-    } else {
+    } else if constexpr (!STAGEA_STOP) {  // (a stagea stop has no stage-B tiles)
       const int row = w.outer * S::MB + b_r0;  // first k2 row of the warp
       if (row >= h) continue;
       if (w.kidx == 0) {
@@ -1096,34 +1231,70 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
       const int ktb = p.ktb, ktp = ktb + PAD;
       const bf16* sC = slot;
       const bf16* sS = slot + S::MB * ktp;
-      for (int kk = 0; kk < ktb; kk += 16) {
-        uint32_t fc[2][4], fs[2][4], ftr[4], fti[4];
+      if constexpr (STOP == STOP_STAGEB) {
+        // The stageb stop bodies run stage B's steps through this lambda,
+        // two an iteration: written as the pass's loop below, rolled or
+        // not, they spilled. This form spills nothing, and runs stage B a
+        // little slower than that loop (PERF.md §6).
+        auto step = [&](int kk) {
+          uint32_t fc[2][4], fs[2][4], ftr[4], fti[4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = b_r0 + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
-          ldsm_x4(fc[i], sC + r * ktp + c);
-          ldsm_x4(fs[i], sS + r * ktp + c);
-        }
-        {
-          const int r = b_c0 + lane % 8 + (lane / 16) * 8;
-          const int c = w.kidx * ktb + kk + ((lane / 8) % 2) * 8;
-          ldsm_x4(ftr, sTr + r * tld + c);
-          ldsm_x4(fti, sTi + r * tld + c);
-        }
+          for (int i = 0; i < 2; ++i) {
+            const int r = b_r0 + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
+            ldsm_x4(fc[i], sC + r * ktp + c);
+            ldsm_x4(fs[i], sS + r * ktp + c);
+          }
+          {
+            const int r = b_c0 + lane % 8 + (lane / 16) * 8;
+            const int c = w.kidx * ktb + kk + ((lane / 8) % 2) * 8;
+            ldsm_x4(ftr, sTr + r * tld + c);
+            ldsm_x4(fti, sTi + r * tld + c);
+          }
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
+          for (int i = 0; i < 2; ++i) {
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float* a0 = acc + (i * 2 + j) * 4;
-            mma16816(a0 + 0 * 16, fc[i], ftr[2 * j], ftr[2 * j + 1]);
-            mma16816(a0 + 1 * 16, fs[i], fti[2 * j], fti[2 * j + 1]);
-            mma16816(a0 + 2 * 16, fc[i], fti[2 * j], fti[2 * j + 1]);
-            mma16816(a0 + 3 * 16, fs[i], ftr[2 * j], ftr[2 * j + 1]);
+            for (int j = 0; j < 2; ++j) {
+              float* a0 = acc + (i * 2 + j) * 4;
+              mma16816(a0 + 0 * 16, fc[i], ftr[2 * j], ftr[2 * j + 1]);
+              mma16816(a0 + 1 * 16, fs[i], fti[2 * j], fti[2 * j + 1]);
+              mma16816(a0 + 2 * 16, fc[i], fti[2 * j], fti[2 * j + 1]);
+              mma16816(a0 + 3 * 16, fs[i], ftr[2 * j], ftr[2 * j + 1]);
+            }
+          }
+        };
+#pragma unroll 2
+        for (int kk = 0; kk < ktb; kk += 16) step(kk);
+      } else {
+        for (int kk = 0; kk < ktb; kk += 16) {
+          uint32_t fc[2][4], fs[2][4], ftr[4], fti[4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = b_r0 + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
+            ldsm_x4(fc[i], sC + r * ktp + c);
+            ldsm_x4(fs[i], sS + r * ktp + c);
+          }
+          {
+            const int r = b_c0 + lane % 8 + (lane / 16) * 8;
+            const int c = w.kidx * ktb + kk + ((lane / 8) % 2) * 8;
+            ldsm_x4(ftr, sTr + r * tld + c);
+            ldsm_x4(fti, sTi + r * tld + c);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              float* a0 = acc + (i * 2 + j) * 4;
+              mma16816(a0 + 0 * 16, fc[i], ftr[2 * j], ftr[2 * j + 1]);
+              mma16816(a0 + 1 * 16, fs[i], fti[2 * j], fti[2 * j + 1]);
+              mma16816(a0 + 2 * 16, fc[i], fti[2 * j], fti[2 * j + 1]);
+              mma16816(a0 + 3 * 16, fs[i], ftr[2 * j], ftr[2 * j + 1]);
+            }
           }
         }
       }
-      if (STOP == STOP_STAGEB && w.kidx == p.n_ktb - 1) {
-        // re, im without the rotation, truncated.
+      if constexpr (STOP == STOP_STAGEB) {
+        if (w.kidx != p.n_ktb - 1) continue;
+        // re, im without the rotation, truncated or f32.
         const long long obase = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -1133,12 +1304,10 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
             for (int hh = 0; hh < 2; ++hh) {
               const float* a0 = acc + (i * 2 + j) * 4 + hh * 2;
               const int ch = (row + i * 16 + g + hh * 8) * n1 + k0 + b_c0 + j * 8 + tig * 2;
-              *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + obase + ch) =
-                  make_char2(trunc_s8(__fsub_rn(a0[0], a0[16])),
-                             trunc_s8(__fsub_rn(a0[1], a0[17])));
-              *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + obase + ch) =
-                  make_char2(trunc_s8(__fadd_rn(a0[32], a0[48])),
-                             trunc_s8(__fadd_rn(a0[33], a0[49])));
+              stop_store2<QUANT>(p.outr, obase + ch, __fsub_rn(a0[0], a0[16]),
+                                 __fsub_rn(a0[1], a0[17]));
+              stop_store2<QUANT>(p.outi, obase + ch, __fadd_rn(a0[32], a0[48]),
+                                 __fadd_rn(a0[33], a0[49]));
             }
           }
         }
@@ -1246,7 +1415,7 @@ size_t dft_plan(DftParams& p) {
 template <int KC, bool QUANT, int STOP = STOP_NONE>
 cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream) {
   auto kern = k1_dft_kernel<KC, QUANT, STOP>;
-  if (STOP == STOP_STAGEA) p.n_rb = 0;  // no stage-B tiles
+  if (STOP == STOP_STAGEA || STOP == STOP_STAGEA_RND) p.n_rb = 0;  // no stage-B tiles
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -1443,8 +1612,10 @@ __device__ __forceinline__ void f32_load_tile(const F32Params& p, const F32Curso
   }
 }
 
-template <int KC, bool QUANT>
+template <int KC, bool QUANT, int STOP = STOP_NONE>
 __global__ void __launch_bounds__(F32_THREADS, 1) k1_dft_f32_kernel(F32Params p) {
+  static_assert(STOP == STOP_NONE || STOP == STOP_STAGEA_RND || STOP == STOP_STAGEB,
+                "the f32 pass's stops: stagea (f32 T needs no rounding), stageb");
   constexpr int KTA = KC, NCOL = F32_OUT / KC;
   constexpr int GA = F32_THREADS * 4 / KC;  // stage-A column groups
   constexpr int SLOT = f32_slot<KC>();
@@ -1546,9 +1717,22 @@ __global__ void __launch_bounds__(F32_THREADS, 1) k1_dft_f32_kernel(F32Params p)
               tr[e] = __fsub_rn(__fmul_rn(ar[e], c[e]), __fmul_rn(ai[e], sn[e]));
               ti[e] = __fadd_rn(__fmul_rn(ar[e], sn[e]), __fmul_rn(ai[e], c[e]));
             }
-            const int o = t_at(s * KC + 4 * rg + i, n, n2);
-            *reinterpret_cast<float4*>(sTr + o) = make_float4(tr[0], tr[1], tr[2], tr[3]);
-            *reinterpret_cast<float4*>(sTi + o) = make_float4(ti[0], ti[1], ti[2], ti[3]);
+            if constexpr (STOP == STOP_STAGEA_RND) {
+              // T's rows k1 < N1/2 of the unit's spectra, at k1*N2 + n2 (KC
+              // divides N1/2 at N1 = N2, so a chunk is wholly in or out).
+              const int k1 = k0 + 4 * rg + i;
+              if (k0 < n1 / 2 && cc.s0 + s < p.n_spectra) {
+                const long long so =
+                    (static_cast<long long>(cc.b) * p.n_spectra + cc.s0 + s) * C +
+                    static_cast<long long>(k1) * n2 + n;
+                stop_store4<QUANT>(p.outr, so, make_float4(tr[0], tr[1], tr[2], tr[3]));
+                stop_store4<QUANT>(p.outi, so, make_float4(ti[0], ti[1], ti[2], ti[3]));
+              }
+            } else {
+              const int o = t_at(s * KC + 4 * rg + i, n, n2);
+              *reinterpret_cast<float4*>(sTr + o) = make_float4(tr[0], tr[1], tr[2], tr[3]);
+              *reinterpret_cast<float4*>(sTi + o) = make_float4(ti[0], ti[1], ti[2], ti[3]);
+            }
           }
         }
       }
@@ -1605,6 +1789,20 @@ __global__ void __launch_bounds__(F32_THREADS, 1) k1_dft_f32_kernel(F32Params p)
 #pragma unroll
           for (int a = 0; a < 4; ++a) {
             const int ch = (4 * rb + a) * n1 + k1;
+            if constexpr (STOP == STOP_STAGEB) {  // re, im without the rotation
+              float4 re, im;
+              re.x = __fsub_rn(acc[a * 4 + 0], acc[16 + a * 4 + 0]);
+              re.y = __fsub_rn(acc[a * 4 + 1], acc[16 + a * 4 + 1]);
+              re.z = __fsub_rn(acc[a * 4 + 2], acc[16 + a * 4 + 2]);
+              re.w = __fsub_rn(acc[a * 4 + 3], acc[16 + a * 4 + 3]);
+              im.x = __fadd_rn(acc[32 + a * 4 + 0], acc[48 + a * 4 + 0]);
+              im.y = __fadd_rn(acc[32 + a * 4 + 1], acc[48 + a * 4 + 1]);
+              im.z = __fadd_rn(acc[32 + a * 4 + 2], acc[48 + a * 4 + 2]);
+              im.w = __fadd_rn(acc[32 + a * 4 + 3], acc[48 + a * 4 + 3]);
+              stop_store4<QUANT>(p.outr, obase + ch, re);
+              stop_store4<QUANT>(p.outi, obase + ch, im);
+              continue;
+            }
             const float4 rc4 = __ldg(reinterpret_cast<const float4*>(rc_b + ch));
             const float4 rs4 = __ldg(reinterpret_cast<const float4*>(rs_b + ch));
             const float rc[4] = {rc4.x, rc4.y, rc4.z, rc4.w};
@@ -1654,9 +1852,10 @@ size_t f32_plan(F32Params& p) {
   return f32_smem_bytes<KC>();
 }
 
-template <int KC, bool QUANT>
+template <int KC, bool QUANT, int STOP = STOP_NONE>
 cudaError_t launch_dft_f32(F32Params p, int batch, size_t bytes, cudaStream_t stream) {
-  auto kern = k1_dft_f32_kernel<KC, QUANT>;
+  auto kern = k1_dft_f32_kernel<KC, QUANT, STOP>;
+  if (STOP == STOP_STAGEA_RND) p.n_ktb = 0;  // no stage-B tiles
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -1700,8 +1899,6 @@ int with_f32_plan(F32Params p, F&& f) {
 // in rolled loops (unrolled, their hoisted addresses spilled); f32 stage A
 // takes 150 registers, one block an SM (at two it spilled 8 bytes).
 // ---------------------------------------------------------------------------
-// (Not in the stops' build: csrc/fengine_ct_stops.cu takes the two passes only.)
-#ifndef K1_STAGE_STOPS
 constexpr int TP_THREADS = 256;  // 8 warps
 // bf16 stage A: 64 k1 rows (their cos and -sin rows) x 128 n2 columns of one
 // spectrum a tile, K tiles of 64 n1; warps 2 x 4, each 32 k1 rows x 32
@@ -1784,10 +1981,11 @@ __device__ __forceinline__ void ring_loop(T* ring, int slot, int n_k, Load load,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The epilogue of stage B for two adjacent k1 of one k2: re = cos.tr -
-// (-sin.ti), im = cos.ti + (-sin.tr) from the four sums s[0..3][e], then
-// the rotation and the requant (or the f32 values) at out + o.
-template <bool QUANT, int E>
+// The epilogue of stage B for two (or four) adjacent k1 of one k2: re =
+// cos.tr - (-sin.ti), im = cos.ti + (-sin.tr) from the four sums s[0..3][e],
+// then the rotation and the requant (or the f32 values) at out + o; at
+// STOP_STAGEB re and im themselves, truncated (or f32).
+template <bool QUANT, int E, int STOP = STOP_NONE>
 __device__ __forceinline__ void stage_b_store(const StageParams& p, long long o,
                                               const float (&s)[4][E], const float* rc,
                                               const float* rs) {
@@ -1796,10 +1994,21 @@ __device__ __forceinline__ void stage_b_store(const StageParams& p, long long o,
   for (int e = 0; e < E; ++e) {
     const float re = __fsub_rn(s[0][e], s[1][e]);
     const float im = __fadd_rn(s[2][e], s[3][e]);
-    v[0][e] = __fsub_rn(__fmul_rn(re, rc[e]), __fmul_rn(im, rs[e]));
-    v[1][e] = __fadd_rn(__fmul_rn(re, rs[e]), __fmul_rn(im, rc[e]));
+    if constexpr (STOP == STOP_STAGEB) {
+      v[0][e] = re;
+      v[1][e] = im;
+    } else {
+      v[0][e] = __fsub_rn(__fmul_rn(re, rc[e]), __fmul_rn(im, rs[e]));
+      v[1][e] = __fadd_rn(__fmul_rn(re, rs[e]), __fmul_rn(im, rc[e]));
+    }
   }
-  if constexpr (E == 2) {
+  if constexpr (STOP == STOP_STAGEB && E == 2) {
+    stop_store2<QUANT>(p.outr, o, v[0][0], v[0][1]);
+    stop_store2<QUANT>(p.outi, o, v[1][0], v[1][1]);
+  } else if constexpr (STOP == STOP_STAGEB) {
+    stop_store4<QUANT>(p.outr, o, make_float4(v[0][0], v[0][1], v[0][2], v[0][3]));
+    stop_store4<QUANT>(p.outi, o, make_float4(v[1][0], v[1][1], v[1][2], v[1][3]));
+  } else if constexpr (E == 2) {
     if constexpr (QUANT) {
       *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + o) =
           make_char2(requant(v[0][0]), requant(v[0][1]));
@@ -1825,6 +2034,9 @@ __device__ __forceinline__ void stage_b_store(const StageParams& p, long long o,
   }
 }
 
+// (The two stage-A kernels are not templates, so the stops' builds, which
+// run them through the library's own entry points, leave them out.)
+#ifndef K1_STAGE_STOPS
 // Stage A, bf16: T = twiddle(D1 @ plane) of a [64 x 128] tile, rounded to bf16.
 __global__ void __launch_bounds__(TP_THREADS, 2) k1_stage_a_kernel(StageParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -1917,12 +2129,14 @@ __global__ void __launch_bounds__(TP_THREADS, 2) k1_stage_a_kernel(StageParams p
   }
 }
 
+#endif  // K1_STAGE_STOPS
+
 // Stage B, bf16: the four products of a [64 k2 x 64 k1] tile over n2, then
-// the epilogue. The MMAs chain through their accumulators: at fft 2^22 on
-// the card that flipped 6.5e-5 of the int8 codes against the plain version
-// on the same T (1.4e-5 with each MMA's sum added in f32), far inside the
-// gate of 1e-3.
-template <bool QUANT>
+// the epilogue (STOP_STAGEB: re and im, no rotation). The MMAs chain through
+// their accumulators: at fft 2^22 on the card that flipped 6.5e-5 of the
+// int8 codes against the plain version on the same T (1.4e-5 with each
+// MMA's sum added in f32), far inside the gate of 1e-3.
+template <bool QUANT, int STOP = STOP_NONE>
 __global__ void __launch_bounds__(TP_THREADS, 2) k1_stage_b_kernel(StageParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
@@ -1994,17 +2208,24 @@ __global__ void __launch_bounds__(TP_THREADS, 2) k1_stage_b_kernel(StageParams p
       for (int hh = 0; hh < 2; ++hh) {
         const float* a0 = acc + (i * 2 + j) * 4 + hh * 2;
         const int ch = (w.r0 + wr + i * 16 + g + hh * 8) * n1 + w.c0 + wc + j * 8 + tig * 2;
-        const float2 rc = __ldg(reinterpret_cast<const float2*>(rc_b + ch));
-        const float2 rs = __ldg(reinterpret_cast<const float2*>(rs_b + ch));
         const float s[4][2] = {{a0[0], a0[1]}, {a0[16], a0[17]}, {a0[32], a0[33]},
                                {a0[48], a0[49]}};
-        const float c2[2] = {rc.x, rc.y}, s2[2] = {rs.x, rs.y};
-        stage_b_store<QUANT, 2>(p, w.m * C + ch, s, c2, s2);
+        float c2[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+        if constexpr (STOP == STOP_NONE) {
+          const float2 rc = __ldg(reinterpret_cast<const float2*>(rc_b + ch));
+          const float2 rs = __ldg(reinterpret_cast<const float2*>(rs_b + ch));
+          c2[0] = rc.x;
+          c2[1] = rc.y;
+          s2[0] = rs.x;
+          s2[1] = rs.y;
+        }
+        stage_b_store<QUANT, 2, STOP>(p, w.m * C + ch, s, c2, s2);
       }
     }
   }
 }
 
+#ifndef K1_STAGE_STOPS
 // Stage A, f32 (exact f32 products and sums, FFMA): T = twiddle(D1 @ plane)
 // of a [64 x 128] tile. D1 is symmetric, so its tile is read as [n1][k1].
 __global__ void __launch_bounds__(TP_THREADS, 1) k1_stage_a_f32_kernel(StageParams p) {
@@ -2083,11 +2304,13 @@ __global__ void __launch_bounds__(TP_THREADS, 1) k1_stage_a_f32_kernel(StagePara
   }
 }
 
+#endif  // K1_STAGE_STOPS
+
 // Stage B, f32 (FFMA): the four products of a [64 k2 x 64 k1] tile over
 // n2, the transposed N2-point matrix against T transposed ([n2][k1], as
-// stage A f32 writes it), then the epilogue. A quarter warp shares its 4 k1
-// (a broadcast) and reads 8 runs of 4 k2.
-template <bool QUANT>
+// stage A f32 writes it), then the epilogue (STOP_STAGEB: re and im). A
+// quarter warp shares its 4 k1 (a broadcast) and reads 8 runs of 4 k2.
+template <bool QUANT, int STOP = STOP_NONE>
 __global__ void __launch_bounds__(TP_THREADS, 1) k1_stage_b_f32_kernel(StageParams p) {
   extern __shared__ __align__(128) float f3_smem[];
   const int tid = threadIdx.x;
@@ -2151,16 +2374,20 @@ __global__ void __launch_bounds__(TP_THREADS, 1) k1_stage_b_f32_kernel(StagePara
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int ch = (w.r0 + rb + a) * n1 + w.c0 + qb;
-    const float4 rc4 = __ldg(reinterpret_cast<const float4*>(rc_b + ch));
-    const float4 rs4 = __ldg(reinterpret_cast<const float4*>(rs_b + ch));
-    const float rc[4] = {rc4.x, rc4.y, rc4.z, rc4.w}, rs[4] = {rs4.x, rs4.y, rs4.z, rs4.w};
+    float rc[4] = {0.f, 0.f, 0.f, 0.f}, rs[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (STOP == STOP_NONE) {
+      const float4 rc4 = __ldg(reinterpret_cast<const float4*>(rc_b + ch));
+      const float4 rs4 = __ldg(reinterpret_cast<const float4*>(rs_b + ch));
+      rc[0] = rc4.x, rc[1] = rc4.y, rc[2] = rc4.z, rc[3] = rc4.w;
+      rs[0] = rs4.x, rs[1] = rs4.y, rs[2] = rs4.z, rs[3] = rs4.w;
+    }
     float s[4][4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[k][c] = acc[k * 16 + a * 4 + c];
     }
-    stage_b_store<QUANT, 4>(p, w.m * C + ch, s, rc, rs);
+    stage_b_store<QUANT, 4, STOP>(p, w.m * C + ch, s, rc, rs);
   }
 }
 
@@ -2211,7 +2438,34 @@ int stage_attributes(K kern, size_t smem, int rows, int cols, int depth, int sta
   return 0;
 }
 
-#endif  // K1_STAGE_STOPS
+// T's rows k1 < N1/2 of each of m spectra, gathered to outr / outi at
+// k1*N2 + n2 (the three-pass route's stagea stop): T as stage A wrote it,
+// bf16 [m][N1][N2] (those rows are a spectrum's first C values) or f32
+// transposed [m][N2][N1]; int8 by truncation (QUANT) or f32. A thread takes
+// 4 consecutive n2 of one k1.
+template <typename T, bool QUANT>
+__global__ void __launch_bounds__(256) k1_t_slice_kernel(const T* __restrict__ tr,
+                                                          const T* __restrict__ ti,
+                                                          void* outr, void* outi, long long m,
+                                                          int n1, int n2) {
+  const long long c = static_cast<long long>(n1 / 2) * n2;
+  const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= m * c) return;
+  const long long sp = i / c;
+  const int k1 = static_cast<int>((i % c) / n2), n = static_cast<int>(i % n2);
+  const long long mat = sp * n1 * static_cast<long long>(n2);
+  float vr[4], vi[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const long long t = std::is_same<T, float>::value
+                            ? mat + static_cast<long long>(n + e) * n1 + k1
+                            : mat + static_cast<long long>(k1) * n2 + n + e;
+    vr[e] = static_cast<float>(tr[t]);
+    vi[e] = static_cast<float>(ti[t]);
+  }
+  stop_store4<QUANT>(outr, i, make_float4(vr[0], vr[1], vr[2], vr[3]));
+  stop_store4<QUANT>(outi, i, make_float4(vi[0], vi[1], vi[2], vi[3]));
+}
 
 // The shape of a FIR launch with the plan (depth, run, streams, short_run)
 // that ops/fengine_fused.py:_fir_plan picks; false where a body could not

@@ -48,15 +48,18 @@ def apply_fine_delay(
     phase_rad,
     *,
     n_channels: int,
+    channel_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Rotate ``[..., S, C]`` (re, im) planes by the fine-delay phase ramp.
 
-    ``rot(k) = -pi * d_frac * (k - n_channels/2) / n_channels + phase``;
-    ``frac_delay_samples`` / ``phase_rad`` broadcast against the leading axes.
+    ``rot(k) = -pi * d_frac * (k_abs - n_channels/2) / n_channels + phase``
+    with ``k_abs = k + channel_offset`` (a channel-sharded engine's absolute
+    channel); ``frac_delay_samples`` / ``phase_rad`` broadcast against the
+    leading axes.
     """
     dev = spectra_re.device
-    k = torch.arange(spectra_re.shape[-1], dtype=torch.float32, device=dev)
-    d =torch.as_tensor(frac_delay_samples, dtype=torch.float32, device=dev)
+    k = torch.arange(spectra_re.shape[-1], dtype=torch.float32, device=dev) + channel_offset
+    d = torch.as_tensor(frac_delay_samples, dtype=torch.float32, device=dev)
     p = torch.as_tensor(phase_rad, dtype=torch.float32, device=dev)
     d, p = d[..., None, None], p[..., None, None]
     rot = -math.pi * d * (k - n_channels / 2.0) / n_channels + p

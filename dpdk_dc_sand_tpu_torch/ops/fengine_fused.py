@@ -253,11 +253,15 @@ def fine_rotation_planes(
     *,
     n_channels: int,
     quant_scale: float,
+    channel_offset: int = 0,
+    n_channels_total: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fine-delay rotation planes ``(cos, sin) * quant_scale``.
 
     Shape ``[*lead, N2/2, N1]`` (channel ``k = row·N1 + lane``), f32, on the
-    device of ``frac_delay``; ``rot(k) = -pi*fd*(k - C/2)/C + phase``.
+    device of ``frac_delay``; ``rot(k) = -pi*fd*(k + channel_offset -
+    Ct/2)/Ct + phase`` with ``Ct = n_channels_total`` (default
+    ``n_channels``): a channel-sharded engine's absolute channels.
     Computed on the delay-update path and cached by the engine.
     """
     ct = _split_ct(2 * n_channels)
@@ -267,19 +271,26 @@ def fine_rotation_planes(
             "direct-CT kernel form only"
         )
     n1, n2 = ct
-    return _rotation_planes(frac_delay, phase, n_channels, quant_scale, (n2 // 2, n1))
+    return _rotation_planes(frac_delay, phase, n_channels, quant_scale, (n2 // 2, n1),
+                            channel_offset=channel_offset, n_channels_total=n_channels_total)
 
 
-def _rotation_planes(frac_delay, phase, n_channels, quant_scale, plane):
+def _rotation_planes(frac_delay, phase, n_channels, quant_scale, plane, *, channel_offset=0,
+                     n_channels_total=None):
     """``(cos, sin)·quant_scale`` of the fine-delay ramp, ``[*lead, *plane]``
-    (channel ``k`` row-major over ``plane``; ``fengine_pallas._rotation_planes``)."""
+    (channel ``k`` row-major over ``plane``, at absolute channel ``k +
+    channel_offset`` of ``n_channels_total``, default ``n_channels``;
+    ``fengine_pallas._rotation_planes``)."""
+    if n_channels_total is None:
+        n_channels_total = n_channels
     fd = torch.as_tensor(frac_delay, dtype=torch.float32)
     ph = torch.as_tensor(phase, dtype=torch.float32, device=fd.device)
     lead = tuple(fd.shape)
     fd = fd.reshape(*lead, 1, 1)
     ph = ph.expand(lead).reshape(*lead, 1, 1)
-    k = torch.arange(n_channels, dtype=torch.float32, device=fd.device).reshape(plane)
-    rot = -math.pi * fd * (k - n_channels / 2.0) / n_channels + ph
+    k = (torch.arange(n_channels, dtype=torch.float32, device=fd.device).reshape(plane)
+         + channel_offset)
+    rot = -math.pi * fd * (k - n_channels_total / 2.0) / n_channels_total + ph
     return torch.cos(rot) * quant_scale, torch.sin(rot) * quant_scale
 
 
@@ -441,8 +452,14 @@ def fengine_fused_reference(
                             quantise=quantise)
 
 
-#: K1's stage stops (``fengine_fused(_ablate=...)``) as the kernel numbers them.
-ABLATE_STOPS = {"dma": 1, "fir": 2, "stagea": 3, "stageb": 4}
+#: K1's stage stops, ``fengine_fused(_ablate=...)``, by the reference's names
+#: (``fengine_pallas.py:1397-1410``), and the numbers the kernels give them.
+ABLATE_STOPS = {"dma": 1, "fir": 9, "stagea": 10, "stageb": 4}
+#: The probe P5's stops (``benchmarks/ct_ablate.py``'s own trimmed kernel):
+#: its ``"fir"`` and ``"stagea"`` write other values than the reference's
+#: (the f32 FIR's two halves; T before its rounding). Bf16 operands,
+#: quantised, on the two-pass route only, as the probe runs.
+P5_STOPS = {"dma": 1, "fir": 2, "stagea": 3, "stageb": 4}
 #: Spectra one probe of a ``"dma"`` stop serves (the probes' ``s_blk``).
 ABLATE_S_BLK = 16
 
@@ -451,6 +468,74 @@ def _trunc_s8(v: torch.Tensor) -> torch.Tensor:
     """int8 by truncation toward zero, saturated: XLA's f32 -> int8
     conversion in the probes, ``cvt.rzi.sat.s8.f32`` on the card."""
     return v.trunc().clamp(-128, 127).to(torch.int8)
+
+
+def _dma_frames(n1: int, n2: int) -> int:
+    """Frames a ``"dma"`` probe spans from its block's first: the ``[N2/2,
+    N1]`` probe of the ``[rows, N2]`` frame view reads rows ``< N2/2``,
+    ``N2/(2·N1)`` frames where N1 < N2 (8 at fft 1024), else one."""
+    return max(1, n2 // (2 * n1))
+
+
+def _check_ablate(stop: str, n1: int, n2: int) -> None:
+    """The reference's gate on its stops at the direct-CT split N1 x N2:
+    ``"dma"`` where its ``[N2/2, N1]`` probe fits the ``[rows, N2]`` frame
+    view (N1 <= N2), the others at N1 == N2; ``ValueError`` elsewhere."""
+    if stop == "dma" and n1 > n2:
+        raise ValueError(
+            f"_ablate='dma' at N1 x N2 = {n1} x {n2}: the reference's probe [N2/2, N1] does "
+            "not fit its [rows, N2] frame view where N1 > N2 (it raises there too)")
+    if stop != "dma" and n1 != n2:
+        raise ValueError(
+            f"_ablate stage stops other than 'dma' need n1 == n2 (got {n1} x {n2})")
+
+
+def _check_dma_frames(n_spectra: int, n_taps: int, n1: int, n2: int) -> None:
+    """Refuse a ``"dma"`` stop whose last block's probe reads past the
+    ``n_spectra + n_taps - 1`` frames of input (N1 < N2 with S % 16 != 0
+    and few taps)."""
+    last = (n_spectra - 1) // ABLATE_S_BLK * ABLATE_S_BLK
+    need = last + _dma_frames(n1, n2)
+    if need > n_spectra + n_taps - 1:
+        raise ValueError(
+            f"_ablate='dma' at N1 x N2 = {n1} x {n2}: the probe of the block at spectrum {last} "
+            f"reads frames up to {need - 1}, past the {n_spectra + n_taps - 1} frames of input")
+
+
+def _coarse_pad_rows(rows: int) -> int:
+    """The reference's extra DMA rows for an in-kernel coarse delay
+    (``fengine_pallas.py:457-461``)."""
+    return ((rows + 9 + 31) // 32) * 32 - rows
+
+
+def _dma_starts(starts: torch.Tensor, n_in: int, n_spectra: int, n_taps: int, n1: int,
+                n2: int) -> torch.Tensor:
+    """Where a ``"dma"`` probe reads each stream from: the reference's DMA
+    base (``fengine_pallas.py:1497-1541``), the coarse delay's row rounded
+    down to a multiple of 8 rows of N2 and clipped below the input's margin
+    for blocks of :data:`ABLATE_S_BLK`; 0 without coarse delays. ``starts``
+    are the clamped delays; where a delay runs past the input's end, both
+    clips give the same row."""
+    pad = max(_coarse_pad_rows((ABLATE_S_BLK + n_taps - 1) * n1),
+              _coarse_pad_rows(ABLATE_S_BLK * n1))
+    top = max(0, n_in // n2 - (n_spectra + n_taps - 1) * n1 - pad)
+    return (starts // (8 * n2) * 8).clamp(max=top) * n2
+
+
+def _dma_probe(x, starts, *, n_spectra, n1, n2, fft):
+    """The ``"dma"`` probe ``[B, S, C]``: for spectrum ``s`` of block ``f0 =
+    s - s % 16``, output ``r·N1 + l`` is row ``r < N2/2``, lane ``l < N1``
+    of the ``[rows, N2]`` view of the stream from frame ``f0`` on, the
+    stream read from ``starts`` (:func:`_dma_starts`)."""
+    c = fft // 2
+    f0 = torch.arange(n_spectra, device=x.device) // ABLATE_S_BLK * ABLATE_S_BLK
+    span = _dma_frames(n1, n2) * fft
+    out = torch.empty((x.shape[0], n_spectra, c), dtype=x.dtype, device=x.device)
+    for b, s in enumerate(starts.tolist()):
+        blocks = [x[b, s + f * fft : s + f * fft + span].reshape(-1, n2)[: n2 // 2, :n1]
+                  for f in range(0, n_spectra, ABLATE_S_BLK)]
+        out[b] = torch.stack(blocks).reshape(-1, c)[f0 // ABLATE_S_BLK]
+    return out
 
 
 def fengine_ablate_reference(
@@ -466,17 +551,23 @@ def fengine_ablate_reference(
     n2: int,
     dft_dtype: str = "bfloat16",
     quantise: bool = True,
+    p5: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1 cut after a stage (the probe P5,
-    ``benchmarks/ct_ablate.py:69-108``); arguments as
-    :func:`fengine_fused_reference`, which ``stop=None`` is.
+    """Plain version of K1 cut after a stage, as the reference's
+    ``fengine_fused(_ablate=stop)`` cuts it (``fengine_pallas.py:645-652,
+    794-798, 905-914, 936-945``); arguments as :func:`fengine_fused_reference`,
+    which ``stop=None`` is.
 
-    Each stop writes int8 ``(outr, outi)`` ``[B, S, C]``, truncated
-    (:func:`_trunc_s8`): ``"dma"`` the first C input samples of frame
-    ``s - s % 16`` to both; ``"fir"`` the f32 FIR's first and second C
-    samples; ``"stagea"`` T re and im (f32, before rounding) of rows
-    ``k1 < N1/2`` at ``k1·N2 + n2``; ``"stageb"`` re and im before the
-    rotation. With N1 == N2 these are P5's slices.
+    Each stop writes ``(outr, outi)`` ``[B, S, C]``, int8 by truncation
+    (:func:`_trunc_s8`), or with ``quantise=False`` the f32 values as they
+    are: ``"dma"`` the probe of :func:`_dma_probe` (the input samples,
+    from the reference's DMA base :func:`_dma_starts`) to both; ``"fir"`` the FIR rounded to the operand type, its first C samples
+    (the ``[N2/2, N1]`` corner of the frame view at N1 == N2) to both;
+    ``"stagea"`` T re and im rounded to the operand type, rows ``k1 <
+    N1/2`` at ``k1·N2 + n2``; ``"stageb"`` re and im before the rotation.
+    ``p5=True`` gives P5's stops (``benchmarks/ct_ablate.py:69-108``; bf16,
+    quantised): its ``"fir"`` the f32 FIR's first and second C samples, its
+    ``"stagea"`` T before the rounding.
     """
     if stop is None:
         return fengine_fused_reference(x, starts, window, rotc, rots, n_spectra=n_spectra,
@@ -485,21 +576,25 @@ def fengine_ablate_reference(
         raise ValueError(f"unknown _ablate stage {stop!r}")
     fft = window.shape[1]
     c = fft // 2
+    conv = _trunc_s8 if quantise else (lambda t: t.to(torch.float32))
     if stop == "dma":
-        f0 = torch.arange(n_spectra, device=x.device) // ABLATE_S_BLK * ABLATE_S_BLK
-        probe = torch.stack([x[b, s : s + n_spectra * fft].reshape(n_spectra, fft)[f0, :c]
-                             for b, s in enumerate(starts.tolist())])
+        base = _dma_starts(starts, x.shape[1], n_spectra, window.shape[0], n1, n2)
+        probe = conv(_dma_probe(x, base, n_spectra=n_spectra, n1=n1, n2=n2, fft=fft))
         return probe, probe.clone()
     plane = k1_fir_reference(x, starts, window, n_spectra=n_spectra, dft_dtype="float32")
+    rnd = _round_bf16 if dft_dtype == "bfloat16" else (lambda t: t)
     if stop == "fir":
-        return _trunc_s8(plane[..., :c]), _trunc_s8(plane[..., c:])
-    rnd = _round_bf16
+        if p5:
+            return _trunc_s8(plane[..., :c]), _trunc_s8(plane[..., c:])
+        probe = conv(rnd(plane[..., :c]))
+        return probe, probe.clone()
     k = dft_constants(n1, n2, str(x.device))
-    tr, ti = _ct_stage_a(plane.to(torch.bfloat16), k, n1, n2, rnd)
+    tr, ti = _ct_stage_a(rnd(plane), k, n1, n2, rnd)
     if stop == "stagea":
-        return tuple(_trunc_s8(t[..., : n1 // 2, :].reshape(-1, n_spectra, c)) for t in (tr, ti))
+        return tuple(conv((t if p5 else rnd(t))[..., : n1 // 2, :].reshape(-1, n_spectra, c))
+                     for t in (tr, ti))
     re, im = _ct_stage_b(rnd(tr), rnd(ti), k, n2, rnd)
-    return _trunc_s8(re), _trunc_s8(im)
+    return conv(re), conv(im)
 
 
 def _plane_group(batch: int, n_spectra: int, fft: int, elem_bytes: int = 2) -> int:
@@ -674,12 +769,16 @@ def k1_fir_f32(
     return _fir_plane("k1_fir_f32", x, starts, window, n_spectra, "float32")
 
 
-#: The FIR pass's stops as ``k1_fir_stop_launch`` numbers them, by the
-#: names :func:`k1_fir_attributes` gives their bodies; the copies-only ones
-#: (dma, dit_dma, dit_conv) have one body whatever the depth.
-FIR_STOP_BODIES = {"dma": 1, "fir": 2, "dit_dma": 5, "dit_conv": 6, "dit_fir": 7,
-                   "dit_deint": 8}
-_FIR_COPIES_ONLY = ("dma", "dit_dma", "dit_conv")
+#: The FIR pass's stops as ``k1_fir_stop_launch`` numbers them (and whether
+#: their plane is f32), by the names :func:`k1_fir_attributes` gives their
+#: bodies: the reference's ``dma`` and ``fir`` (``fir_f32`` into the f32
+#: plane), P5's ``p5_fir``, P2's ``dit_*``; the copies-only ones (dma,
+#: dit_dma, dit_conv) have one body whatever the depth.
+FIR_STOP_BODIES = {"dma": (1, 0), "dma_f32": (1, 1), "fir": (9, 0), "fir_f32": (9, 1),
+                   "p5_fir": (2, 0),
+                   "dit_dma": (5, 0), "dit_conv": (6, 0), "dit_fir": (7, 0),
+                   "dit_deint": (8, 0)}
+_FIR_COPIES_ONLY = ("dma", "dma_f32", "dit_dma", "dit_conv")
 
 
 def k1_fir_attributes() -> dict:
@@ -704,11 +803,11 @@ def k1_fir_attributes() -> dict:
     for depth, short, name in bodies + [(0, 0, "long")]:
         for plane in ("bf16", "f32"):
             get(f"{plane}/{name}", lib.k1_fir_attributes, depth, short, int(plane == "f32"))
-        for stop, num in FIR_STOP_BODIES.items():
+        for stop, (num, f32) in FIR_STOP_BODIES.items():
             if stop not in _FIR_COPIES_ONLY:
-                get(f"{stop}/{name}", lib.k1_fir_stop_attributes, depth, short, num)
+                get(f"{stop}/{name}", lib.k1_fir_stop_attributes, depth, short, num, f32)
     for stop in _FIR_COPIES_ONLY:
-        get(stop, lib.k1_fir_stop_attributes, 0, 0, FIR_STOP_BODIES[stop])
+        get(stop, lib.k1_fir_stop_attributes, 0, 0, *FIR_STOP_BODIES[stop])
     return out
 
 
@@ -826,6 +925,37 @@ def k1_dft_f32_attributes(n1: int, n2: int) -> dict:
     _build.check(lib, err, "k1_dft_f32_attributes")
     return dict(zip(("regs", "local_bytes", "kc", "sb", "ktb", "stages", "smem_bytes",
                      "threads"), out))
+
+
+def k1_stop_attributes(n1: int, n2: int, dft_dtype: str = "bfloat16") -> dict:
+    """The card's view of the stop bodies that K1's stagea and stageb stops
+    run at N1 x N2 (N1 == N2) on the route :func:`_k1_body` gives the
+    operand type, with the requant (``q``) and without (``f32``): registers
+    and local (spill) bytes a thread, keyed ``"<stop>/<q|f32>"`` (the
+    two-pass routes' DFT-pass stop bodies, with their KC) or
+    ``"stageb/<q|f32>"`` and ``"gather/<q|f32>"`` (the three-pass route's
+    stage B stop and T gather). The FIR pass's stop bodies are in
+    :func:`k1_fir_attributes`. Needs the card."""
+    lib = _build.library()
+    body = _k1_body(n1, n2, dft_dtype)
+    f32 = int(body.endswith("_f32"))
+    out = {}
+    for quant, tag in ((1, "q"), (0, "f32")):
+        if body.startswith("three_pass"):
+            buf = (ctypes.c_int * 4)()
+            _build.check(lib, lib.k1_stage_stop_attributes(f32, quant, buf), "k1_stop_attributes")
+            out[f"stageb/{tag}"] = dict(regs=buf[0], local_bytes=buf[1])
+            out[f"gather/{tag}"] = dict(regs=buf[2], local_bytes=buf[3])
+            continue
+        query = lib.k1_dft_f32_stop_attributes if f32 else lib.k1_dft_stop_attributes
+        for stop in ("stagea", "stageb"):
+            buf = (ctypes.c_int * 3)()
+            err = query(n1, n2, ABLATE_STOPS[stop], quant, buf)
+            if err == _NO_PLAN:
+                raise ValueError(f"no {stop} stop body takes N1 x N2 = {n1} x {n2}")
+            _build.check(lib, err, "k1_stop_attributes")
+            out[f"{stop}/{tag}"] = dict(regs=buf[0], local_bytes=buf[1], kc=buf[2])
+    return out
 
 
 def _stage_call(what, n1, n2, *args) -> None:
@@ -998,35 +1128,104 @@ k1_stage_a_f32.launches = 0
 k1_stage_b_f32.launches = 0
 
 
-def _stop_pass(x, starts, window, plane, outr, outi, *, n1, n2, stop) -> None:
-    """One group of K1's passes cut at ``stop`` (CUDA tensors, checked by the
-    caller): ``"dma"`` and ``"fir"`` are the FIR pass's stops (``"fir"``
-    writes ``plane`` too); ``"stagea"`` and ``"stageb"`` run the FIR pass,
-    then the DFT pass's stop."""
+#: The kernels' numbers of the stops of K1's FIR pass (the others cut a
+#: later pass).
+_FIR_PASS_STOPS = (ABLATE_STOPS["dma"], P5_STOPS["fir"], ABLATE_STOPS["fir"])
+
+
+def _stop_pass(x, starts, window, plane, outr, outi, *, n1, n2, stop, body, t=None) -> None:
+    """One group of K1's passes on the route ``body`` (:func:`_k1_body`) cut
+    at the kernels' stop number ``stop`` (:data:`ABLATE_STOPS`,
+    :data:`P5_STOPS`; CUDA tensors, checked by the caller). The ``"dma"``
+    and ``"fir"`` stops are the FIR pass's (``"fir"`` writes ``plane`` of
+    the route's operand type too; ``"dma"`` none). ``"stagea"`` and
+    ``"stageb"`` run the route's passes as its full call runs them up to the
+    stop: on the two-pass routes the FIR pass, then the DFT pass's stop
+    (``k1_dft_stop_launch``, ``k1_dft_f32_stop_launch``); on the three-pass
+    routes the FIR pass and stage A into ``t`` = (T re, T im), then T's rows
+    ``k1 < N1/2`` gathered (``k1_t_slice_launch``) or stage B without the
+    rotation (``k1_stage_b_stop_launch``). ``outr``/``outi`` int8, or f32
+    without the requant. Counted on ``fengine_fused.ablate_launches``, the
+    passes it runs whole on their own counters."""
     lib = _build.library()
     batch, n_spectra, c = outr.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if stop in ("dma", "fir"):
+    fft, quant = 2 * c, int(outr.dtype == torch.int8)
+    dev = x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if stop in _FIR_PASS_STOPS:
         err = lib.k1_fir_stop_launch(
             x.data_ptr(), x.stride(0), starts.data_ptr(), window.data_ptr(),
             plane.data_ptr() if plane is not None else None, outr.data_ptr(), outi.data_ptr(),
-            batch, n_spectra, window.shape[0], 2 * c,
-            *_fir_plan(batch, n_spectra, window.shape[0], 2 * c), ABLATE_STOPS[stop], stream,
+            batch, n_spectra, window.shape[0], fft, *_fir_plan(batch, n_spectra, window.shape[0],
+                                                                 fft),
+            stop, n2, int(plane is not None and plane.dtype == torch.float32), quant, stream,
         )
         _build.check(lib, err, f"k1_fir stop {stop}")
     else:
         _fir_pass(x, starts, window, plane)
-        k = dft_constants(n1, n2, str(x.device))
-        kbf = _dft_bf16(n1, n2, str(x.device))
-        err = lib.k1_dft_stop_launch(
-            plane.data_ptr(), *(t.data_ptr() for t in kbf), k.twc.data_ptr(),
-            k.tws.data_ptr(), outr.data_ptr(), outi.data_ptr(), batch, n_spectra, n1, n2,
-            ABLATE_STOPS[stop], stream,
-        )
+        f32 = plane.dtype == torch.float32
+        k = dft_constants(n1, n2, str(dev))
+        if body.startswith("three_pass"):
+            tr, ti = t
+            _stage_a_pass(plane, tr, ti, n1=n1, n2=n2)
+            if stop == ABLATE_STOPS["stagea"]:
+                what = "k1_t_slice"
+                err = lib.k1_t_slice_launch(tr.data_ptr(), ti.data_ptr(), outr.data_ptr(),
+                                            outi.data_ptr(), batch * n_spectra, n1, n2, int(f32),
+                                            quant, stream)
+            else:
+                what = "k1_stage_b_stop"
+                d2 = _dft_f32t(n1, n2, str(dev)) if f32 else _dft_bf16(n1, n2, str(dev))[2]
+                err = lib.k1_stage_b_stop_launch(tr.data_ptr(), ti.data_ptr(), d2.data_ptr(),
+                                                 outr.data_ptr(), outi.data_ptr(), batch,
+                                                 n_spectra, n1, n2, int(f32), quant, stream)
+        elif f32:
+            what = "k1_dft_f32_stop"
+            err = lib.k1_dft_f32_stop_launch(
+                plane.data_ptr(), k.d1c.data_ptr(), k.d1s.data_ptr(),
+                _dft_f32t(n1, n2, str(dev)).data_ptr(), k.twc.data_ptr(), k.tws.data_ptr(),
+                outr.data_ptr(), outi.data_ptr(), batch, n_spectra, n1, n2, stop, quant, stream)
+        else:
+            what = "k1_dft_stop"
+            err = lib.k1_dft_stop_launch(
+                plane.data_ptr(), *(m.data_ptr() for m in _dft_bf16(n1, n2, str(dev))),
+                k.twc.data_ptr(), k.tws.data_ptr(), outr.data_ptr(), outi.data_ptr(), batch,
+                n_spectra, n1, n2, stop, quant, stream)
         if err == _NO_PLAN:
-            raise _no_plan("k1_dft stop", n1, n2, "the stops take the 64-row chunk plan only")
-        _build.check(lib, err, f"k1_dft stop {stop}")
+            raise ValueError(f"{what}: no stop body takes N1 x N2 = {n1} x {n2} at stop {stop}")
+        _build.check(lib, err, f"{what} {stop}")
     fengine_fused.ablate_launches += 1
+
+
+def _launch_ablate(x, starts, window, outr, outi, *, n_spectra, n1, n2, dft_dtype, ablate,
+                   p5=False):
+    """K1's route for the split and operand type (:func:`_k1_body`, as the
+    whole call takes it) cut at ``ablate``, over the groups of that route
+    (:func:`_route_group`) through one scratch of its operand type; ``p5``:
+    P5's stops (:data:`P5_STOPS`), on the bf16 two-pass route only."""
+    body = _k1_body(n1, n2, dft_dtype)
+    if p5 and body != "two_pass":
+        raise ValueError(f"P5's stops run on K1's bf16 two-pass route only, not {body}")
+    stop = (P5_STOPS if p5 else ABLATE_STOPS)[ablate]
+    batch, fft = x.shape[0], window.shape[1]
+    dtype = torch.float32 if body.endswith("_f32") else torch.bfloat16
+    dev = x.device
+    group = _route_group(body, batch, n_spectra, fft)
+    plane = t = None
+    if ablate == "dma":
+        starts = _dma_starts(starts, x.shape[1], n_spectra, window.shape[0], n1, n2)
+    else:
+        plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
+    if ablate in ("stagea", "stageb") and body.startswith("three_pass"):
+        t = tuple(torch.empty((group, n_spectra, *_t_layout(n1, n2, dtype)), dtype=dtype,
+                              device=dev) for _ in range(2))
+    for b0 in range(0, batch, group):
+        b = slice(b0, min(batch, b0 + group))
+        g = b.stop - b0
+        _stop_pass(x[b], starts[b], window, None if plane is None else plane[:g], outr[b],
+                   outi[b], n1=n1, n2=n2, stop=stop, body=body,
+                   t=None if t is None else tuple(u[:g] for u in t))
+    return outr, outi
 
 
 def _launch(
@@ -1042,6 +1241,7 @@ def _launch(
     dft_dtype: str,
     quantise: bool,
     ablate: str | None = None,
+    p5: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     n_taps, fft = window.shape
     batch = x.shape[0]
@@ -1059,17 +1259,8 @@ def _launch(
     outr = torch.empty((batch, n_spectra, fft // 2), dtype=out_dtype, device=dev)
     outi = torch.empty_like(outr)
     if ablate is not None:
-        # K1's two passes cut at a stage, over the same groups (the DMA stop
-        # writes no plane).
-        group = _plane_group(batch, n_spectra, fft)
-        plane = None
-        if ablate != "dma":
-            plane = torch.empty((group, n_spectra, fft), dtype=torch.bfloat16, device=dev)
-        for b0 in range(0, batch, group):
-            b = slice(b0, min(batch, b0 + group))
-            p = plane[: b.stop - b0] if plane is not None else None
-            _stop_pass(x[b], starts[b], window, p, outr[b], outi[b], n1=n1, n2=n2, stop=ablate)
-        return outr, outi
+        return _launch_ablate(x, starts, window, outr, outi, n_spectra=n_spectra, n1=n1, n2=n2,
+                              dft_dtype=dft_dtype, ablate=ablate, p5=p5)
     body = _k1_body(n1, n2, dft_dtype)
     f32 = body.endswith("_f32")
     three = body.startswith("three_pass")
@@ -1887,7 +2078,7 @@ def _launch_dit_ablate(frames, window, *, n1, n2, stop, rot):
         err = lib.k1_fir_stop_launch(
             flat.data_ptr(), flat.stride(0), starts.data_ptr(), window.data_ptr(), None,
             outr.data_ptr(), outi.data_ptr(), batch, n_spectra, n_taps, fft,
-            *_fir_plan(batch, n_spectra, n_taps, fft), DIT_STOPS[stop], stream,
+            *_fir_plan(batch, n_spectra, n_taps, fft), DIT_STOPS[stop], 0, 0, 1, stream,
         )
         _build.check(lib, err, f"k1_fir stop {stop} (P2)")
     else:
@@ -1932,6 +2123,8 @@ def fengine_fused(
     rot_planes: tuple[torch.Tensor, torch.Tensor] | None = None,
     deint: str = "auto",
     quantise: bool = True,
+    channel_offset: int = 0,
+    n_channels_total: int | None = None,
     _ablate: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """FIR + rDFT + fine delay + int8 requant: K1 (direct CT) or K7 (DIT) on
@@ -1953,13 +2146,19 @@ def fengine_fused(
     ``(qr, qi)`` ``[*lead, n_spectra, n_channels]``; ``quantise=False``
     (direct-CT form only, as in the reference) returns the rotated f32
     values instead, the output the channelisation qualification measures.
+    ``channel_offset`` / ``n_channels_total`` place the engine's channels in
+    a channel-sharded band (the reference's absolute-channel bookkeeping):
+    the fine-delay ramp of channel ``k`` is taken at ``k + channel_offset``
+    over ``n_channels_total`` (default ``n_channels``); cached
+    ``rot_planes`` carry it already.
 
-    ``_ablate`` (the probes' diagnostic stops, ``"dma"``, ``"fir"``,
-    ``"stagea"`` or ``"stageb"``) cuts K1 after that stage and returns what
+    ``_ablate`` (the diagnostic stops, ``"dma"``, ``"fir"``, ``"stagea"`` or
+    ``"stageb"``) cuts K1 after that stage, on the route its whole call takes,
+    in either operand type and with or without the requant, and returns what
     :func:`fengine_ablate_reference` describes; a ``"dma"`` probe serves
-    :data:`ABLATE_S_BLK` spectra. The stops exist on K1's two-pass bf16
-    body (N1 >= 16); all but ``"dma"`` need N1 == N2, as the reference's,
-    and the DFT pass's stops its 64-row chunk plan (N1 = N2 <= 256).
+    :data:`ABLATE_S_BLK` spectra. As the reference's, ``"dma"`` needs N1 <=
+    N2 and the others N1 == N2 (:func:`_check_ablate`). The DIT form refuses
+    the stops: the reference ignores them there and runs K7 whole.
     """
     if dft_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"unknown dft_dtype {dft_dtype!r}")
@@ -1972,25 +2171,19 @@ def fengine_fused(
         raise ValueError(f"unknown _ablate stage {_ablate!r}")
     mode, n1, n2 = _deint_mode(fft_size // 2, deint)
     if mode == "ct" and _ablate is not None:
-        if dft_dtype != "bfloat16" or n1 < 16 or not quantise:
-            raise ValueError(
-                "_ablate stage stops exist on K1's two-pass bf16 body only "
-                f"(dft_dtype='bfloat16', N1 >= 16, quantise=True; got {dft_dtype!r}, "
-                f"N1 = {n1}, quantise={quantise})"
-            )
-        if _ablate != "dma" and n1 != n2:
-            raise ValueError(
-                f"_ablate stage stops other than 'dma' need n1 == n2 (got {n1} x {n2})"
-            )
+        _check_ablate(_ablate, n1, n2)
     if mode != "ct":
         # The reference's gates for the DIT form (fengine_pallas.py:1265-1376).
         for flag, what in ((rowed, "rowed input"), (coarse_delays is not None,
                            "in-kernel coarse delay"), (rot_planes is not None,
                            "rot_planes (cached fine-rotation planes)"),
-                           (not quantise, "quantise=False"),
-                           (_ablate is not None, "_ablate stage stops")):
+                           (not quantise, "quantise=False")):
             if flag:
                 raise ValueError(f"{what} needs the direct-CT form (deint={mode!r})")
+        if _ablate is not None:
+            raise ValueError(
+                f"_ablate stage stops need the direct-CT form (deint={mode!r}): the reference "
+                "ignores the stop on the DIT form and runs K7 whole; the port refuses it")
         *lead, n_frames, f = frames.shape
         if f != fft_size:
             raise ValueError(f"frame length {f} != fft_size {fft_size}")
@@ -1999,7 +2192,8 @@ def fengine_fused(
         dev = frames.device
         rotc, rots = _rotation_planes(
             torch.as_tensor(frac_delay, dtype=torch.float32, device=dev).expand(lead),
-            phase, n_channels, quant_scale, (n_channels,),
+            phase, n_channels, quant_scale, (n_channels,), channel_offset=channel_offset,
+            n_channels_total=n_channels_total,
         )
         batch = math.prod(lead)
         qr, qi = fengine_dit(
@@ -2031,6 +2225,8 @@ def fengine_fused(
         raise ValueError("coarse_delays requires n_spectra")
     if n_spectra < 1:
         raise ValueError("need at least n_taps frames of input")
+    if _ablate == "dma":
+        _check_dma_frames(n_spectra, n_taps, n1, n2)
     batch = math.prod(lead)
     dev = frames.device
     x = frames.reshape(batch, n_in)
@@ -2046,6 +2242,8 @@ def fengine_fused(
             phase,
             n_channels=n_channels,
             quant_scale=quant_scale,
+            channel_offset=channel_offset,
+            n_channels_total=n_channels_total,
         )
     rotc, rots = (
         torch.as_tensor(r, dtype=torch.float32, device=dev).reshape(batch, n_channels)
@@ -2061,6 +2259,36 @@ def fengine_fused(
         raise ValueError(f"fengine_fused: unsupported device {dev}")
     shape = (*lead, n_spectra, n_channels)
     return qr.reshape(shape), qi.reshape(shape)
+
+
+def p5_ablate(
+    stop: str,
+    x: torch.Tensor,
+    starts: torch.Tensor,
+    window: torch.Tensor,
+    rotc: torch.Tensor,
+    rots: torch.Tensor,
+    *,
+    n_spectra: int,
+    n1: int,
+    n2: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The probe P5's stops (:data:`P5_STOPS`, ``benchmarks/ct_ablate.py``):
+    K1 cut at ``stop`` on streams ``x`` ``[B, n_in]`` int8 with clamped
+    ``starts`` ``[B]`` and ``rotc``/``rots`` ``[B, C]``, bf16 operands,
+    quantised, on the two-pass route; the stop kernels on CUDA,
+    :func:`fengine_ablate_reference` on CPU."""
+    if stop not in P5_STOPS:
+        raise ValueError(f"unknown P5 stage {stop!r}")
+    _check_ablate(stop, n1, n2)
+    if window.shape[1] != n1 * n2:
+        raise ValueError(f"p5_ablate: fft {window.shape[1]} != N1*N2 = {n1}*{n2}")
+    kw = dict(n_spectra=n_spectra, n1=n1, n2=n2, dft_dtype="bfloat16", quantise=True)
+    if x.device.type == "cpu":
+        return fengine_ablate_reference(stop, x, starts, window, rotc, rots, p5=True, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"p5_ablate: unsupported device {x.device}")
+    return _launch(x, starts, window.contiguous(), rotc, rots, ablate=stop, p5=True, **kw)
 
 
 #: Kernel launches since the last reset (the plain CPU version never counts).

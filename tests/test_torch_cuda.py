@@ -28,8 +28,10 @@ alone at every chunk plan, both passes at fft 2048 to 2^17 and over several
 plane groups, every N1 = 8 split from fft 64 to 2048 in both forms, the
 three passes at 2048 x 2048 bf16 and 1024 x 1024 and 2048 x 1024 f32 and
 each stage alone, its launch counters, its registers and spill bytes), and
-the probes' kernels (K1's and K7's stage stops, P2 on K7's route, P1's
-modes, P3's loop orders) at small
+K1's stage stops (``fengine_fused(_ablate=)``) on every route, both forms,
+with the requant and without, and every stop body's spill bytes, K1 at a
+channel offset, the probes' kernels (K1's and K7's stage stops, P2 on K7's
+route, P1's modes, P3's loop orders) at small
 and ragged shapes, a one-rank NCCL step of the sharded engine against
 ``FBEngine``, the tensor-core dynamic-range probe, the port's servlet
 fronting two engine nodes on the card, the page-locked native ring (its
@@ -41,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import K1_COUNTERS, _route_passes, _stop_diff
 from dpdk_dc_sand_tpu_torch import ArrayConfig
 from dpdk_dc_sand_tpu_torch.models import FBEngine, FEngine, FXBEngine
 from dpdk_dc_sand_tpu_torch.ops import bstage, corner_turn, fengine_fused as ff, pfb_fir, xcorr
@@ -955,11 +958,14 @@ def test_k1_fir_pass_on_rowed_bytes_and_k7_frames_is_bit_exact(dev, plane, fft, 
 
 def test_k1_fir_bodies_do_not_spill(dev):
     """Every body of K1's FIR pass (both planes, every register-ring depth,
-    the short-run bodies and the long body, and each stop's): 0 local
-    (spill) bytes; the ring bodies hold the 64 KB ring at two blocks an SM
-    or more, the short-run bodies their 24 KB ring at three or more."""
+    the short-run bodies and the long body, and each stop's: the
+    reference's fir into either plane, P5's fir, P2's fir and deint, and the
+    copies-only stops, the dma stop's in both output types): 0 local (spill)
+    bytes; the ring bodies hold the
+    64 KB ring at two blocks an SM or more, the short-run bodies their 24 KB
+    ring at three or more."""
     bodies = ff.k1_fir_attributes()
-    assert len(bodies) == 2 * 7 + 3 * 7 + 3
+    assert len(bodies) == 2 * 7 + 5 * 7 + 4
     for name, at in bodies.items():
         assert at["local_bytes"] == 0, (name, at)
         assert at["max_threads"] >= 128, (name, at)
@@ -1839,6 +1845,100 @@ def test_k1_stops_match_plain(dev, stop, fft, s):
             assert torch.equal(g.cpu(), r)
         else:
             _codes_close(g.cpu(), r)
+
+
+def _k1_stop_case(dev, fft, stop, dft_dtype, quantise, s, taps, seed):
+    """K1 cut at ``stop`` on the card and its plain stop on the CPU, 2
+    streams with coarse delays (3 samples; 9 rows of N2 and 77 samples, so
+    that the dma probe reads from the reference's DMA base, 8 rows in), the
+    window scaled so the stop's values are about 16 codes rms; the call must
+    count one stopped pass a group and run no pass its route's whole call
+    does not."""
+    n1, n2 = ff._split_ct(fft)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-64, 64, (2, (s + taps - 1) * fft + 64 * n2 + 77),
+                                      dtype=np.int8))
+    cd = torch.tensor([3, 9 * n2 + 77])
+    fd = torch.from_numpy(rng.uniform(-0.5, 0.5, 2).astype(np.float32))
+    win = default_window(taps, fft)
+    rc, rs = (r.reshape(2, -1) for r in ff.fine_rotation_planes(
+        fd, -fd, n_channels=fft // 2, quant_scale=1 / 64))
+    kw = dict(n_spectra=s, n1=n1, n2=n2, dft_dtype=dft_dtype)
+    if stop != "dma":  # the gain that puts the stop's values at about 16 codes rms
+        r0 = ff.fengine_ablate_reference(stop, x, cd, win, rc, rs, quantise=False, **kw)
+        win = win * (16 / max(float(t.pow(2).mean().sqrt()) for t in r0))
+    counts = {k: getattr(ff, k).launches for k in K1_COUNTERS}
+    before = ff.fengine_fused.ablate_launches
+    got = ff.fengine_fused(x.to(dev), win.to(dev), fd.to(dev), -fd.to(dev),
+                           n_channels=fft // 2, quant_scale=1 / 64, dft_dtype=dft_dtype,
+                           coarse_delays=cd.to(dev), n_spectra=s, quantise=quantise,
+                           _ablate=stop)
+    torch.cuda.synchronize()
+    assert ff.fengine_fused.ablate_launches == before + 1  # one group
+    ran = {k for k in K1_COUNTERS if getattr(ff, k).launches != counts[k]}
+    assert ran <= _route_passes(ff._k1_body(n1, n2, dft_dtype))
+    ref = ff.fengine_ablate_reference(stop, x, cd, win, rc, rs, quantise=quantise, **kw)
+    _stop_diff(f"fft {fft} {stop} {dft_dtype} q={quantise}", [g.cpu() for g in got], ref, stop,
+               dft_dtype, quantise)  # chip_smoke.py's tolerance for each stop
+
+
+@pytest.mark.parametrize("quantise", [True, False])
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("stop", ["fir", "stagea", "stageb"])
+@pytest.mark.parametrize("fft, s, taps", [(16384, 20, 8), (1 << 18, 8, 16), (1 << 20, 4, 16),
+                                          (1 << 22, 2, 4)])
+def test_k1_stops_on_every_route_match_plain(dev, fft, s, taps, stop, dft_dtype, quantise):
+    """K1's stage stops wherever the reference takes them at N1 = N2: the
+    bf16 DFT pass's stop bodies at KC 64 (fft 16384, 2^18) and 32 (2^20),
+    the f32 DFT pass's at KC 16 and 8, the three-pass route (2^22) in both
+    forms; with the requant and without."""
+    _k1_stop_case(dev, fft, stop, dft_dtype, quantise, s, taps,
+                  seed=fft + len(stop) + len(dft_dtype) + quantise)
+
+
+@pytest.mark.parametrize("quantise", [True, False])
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("fft", [1024, 2048, 4096, 8192])
+def test_k1_dma_stop_at_n1_below_n2_matches_plain(dev, fft, dft_dtype, quantise):
+    """The dma probe of the [rows, N2] frame view at N1 < N2 (8, 16, 32, 64 x
+    128; 8 to 1 frames a probe), S = 32 (two probe blocks)."""
+    _k1_stop_case(dev, fft, "dma", dft_dtype, quantise, 32, 4, seed=fft + quantise)
+
+
+def test_k1_stop_bodies_do_not_spill(dev):
+    """Every body K1's stops run: the FIR pass's (the reference's dma and
+    fir into either plane, P5's fir, P2's), the DFT passes' and the
+    three-pass route's at every N1 = N2 split, both forms, with the requant
+    and without: 0 local (spill) bytes."""
+    fir = {k: v for k, v in ff.k1_fir_attributes().items()
+           if k.split("/")[0] not in ("bf16", "f32")}
+    assert fir and not {k: v for k, v in fir.items() if v["local_bytes"]}
+    for n in (128, 256, 512, 1024, 2048):
+        for dt in ("bfloat16", "float32"):
+            bodies = ff.k1_stop_attributes(n, n, dt)
+            assert bodies and not {k: v for k, v in bodies.items() if v["local_bytes"]}, \
+                (n, dt, bodies)
+
+
+def test_k1_at_a_channel_offset_matches_plain(dev):
+    """K1 with a channel-sharded engine's planes (channel_offset = 3 C of
+    n_channels_total = 4 C) against its plain version: the kernel reads the
+    planes as they are."""
+    fft, s, taps = 16384, 16, 8
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.integers(-64, 64, (2, 2, (s + taps - 1) * fft), dtype=np.int8))
+    fd = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 2)).astype(np.float32))
+    kw = dict(n_channels=fft // 2, quant_scale=1 / 64, channel_offset=3 * fft // 2,
+              n_channels_total=2 * fft)
+    win = default_window(taps, fft)
+    got = ff.fengine_fused(x.to(dev).reshape(2, 2, -1, fft), win.to(dev), fd.to(dev), -fd.to(dev),
+                           **kw)
+    ref = ff.fengine_fused(x.reshape(2, 2, -1, fft), win, fd, -fd, **kw)
+    plain = ff.fengine_fused(x.reshape(2, 2, -1, fft), win, fd, -fd, n_channels=fft // 2,
+                             quant_scale=1 / 64)
+    for g, r, p in zip(got, ref, plain):
+        _codes_close(g.cpu(), r)
+        assert not torch.equal(r, p)
 
 
 @pytest.mark.parametrize("stop", ["dma", "conv", "fir", "deint", "stagea", "stageb"])

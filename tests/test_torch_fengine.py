@@ -443,19 +443,23 @@ def test_k1_fir_pass_launches_its_plan(stub_lib, dtype, entry, counter, taps, ba
     assert args[5:13] == (batch, s, taps, fft, *ff._fir_plan(batch, s, taps, fft))
 
 
-@pytest.mark.parametrize("stop, num", [("dma", 1), ("fir", 2)])
+@pytest.mark.parametrize("stop, num", [("dma", 1), ("fir", 2), ("fir", 9)])
 def test_k1_fir_stops_launch_the_plan(stub_lib, stop, num):
-    """P5's FIR-pass stops take the same plan as the pass, then the stop."""
+    """K1's FIR-pass stops (the reference's dma 1 and fir 9, P5's fir 2)
+    take the same plan as the pass, then the stop, the frame view's N2 (the
+    dma probe's rows), the plane's type and the output's (int8 here)."""
     fft, taps, s, batch = 1024, 16, 5, 3
     x = torch.zeros((batch, (s + taps) * fft), dtype=torch.int8)
     starts = torch.zeros(batch, dtype=torch.int64)
     win = torch.zeros((taps, fft), dtype=torch.float32)
     outr = torch.empty((batch, s, fft // 2), dtype=torch.int8)
-    plane = torch.empty((batch, s, fft), dtype=torch.bfloat16)
-    ff._stop_pass(x, starts, win, plane, outr, outr.clone(), n1=8, n2=128, stop=stop)
+    plane = None if stop == "dma" else torch.empty((batch, s, fft), dtype=torch.bfloat16)
+    ff._stop_pass(x, starts, win, plane, outr, outr.clone(), n1=8, n2=128, stop=num,
+                  body="two_pass")
     [(name, args)] = stub_lib.calls
     assert name == "k1_fir_stop_launch"
-    assert args[7:] == (batch, s, taps, fft, *ff._fir_plan(batch, s, taps, fft), num, 0)
+    assert args[7:] == (batch, s, taps, fft, *ff._fir_plan(batch, s, taps, fft), num, 128, 0, 1,
+                        0)
 
 
 @pytest.mark.parametrize("n1, n2", [(8, 128), (16, 2048)])

@@ -857,8 +857,9 @@ def test_p2_stops_run_on_k7s_route(monkeypatch, stop):
     class Lib:
         @staticmethod
         def k1_fir_stop_launch(x, stride, starts, win, plane, outr, outi, b, ns, nt, f, *rest):
-            *plan, st, _ = rest
+            *plan, st, n2_view, plane_f32, quantise, _ = rest
             assert tuple(plan) == ff._fir_plan(b, ns, nt, f)
+            assert (n2_view, plane_f32, quantise) == (0, 0, 1)  # P2's: no probe view, int8
             calls.append(("fir_stop", x, stride, plane, outr, b, ns, nt, f, st))
             return 0
 

@@ -272,12 +272,19 @@ def test_fengine_fused_ablate_on_cpu_runs_the_plain_stop(stop):
     for g, w in zip(got, want):
         assert g.shape == (2, s, fft // 2) and torch.equal(g, w)
     if stop == "dma":  # spectra 16..19 of stream 1 carry frame 16's first C samples
-        start = 33 + 16 * fft
+        # from the reference's DMA base: row 0, as a delay of 33 samples is
+        # under 8 rows of N2.
+        start = 16 * fft
         for sp in (16, 19):
             assert torch.equal(got[0][1, sp], torch.from_numpy(x[1, start : start + fft // 2]))
 
 
 def test_fengine_fused_ablate_raises_where_the_reference_does():
+    """The port refuses the stops the reference refuses (an unknown stop; a
+    DFT-stage stop at N1 != N2; ``"dma"`` at N1 > N2, whose ``[N2/2, N1]``
+    probe does not fit the ``[rows, N2]`` frame view) and the DIT form's,
+    which the reference ignores (it runs K7 whole); it takes the calls the
+    reference takes: f32 operands, N1 = 8 and ``quantise=False``."""
     fft, taps = 16384, 4
     frames = torch.zeros((1, 1, 10, fft), dtype=torch.int8)
     win = default_window(taps, fft)
@@ -285,20 +292,27 @@ def test_fengine_fused_ablate_raises_where_the_reference_does():
     kw = dict(n_channels=fft // 2, quant_scale=1.0)
     with pytest.raises(ValueError, match="unknown _ablate stage 'fft'"):
         ff.fengine_fused(frames, win, z, z, _ablate="fft", **kw)
-    with pytest.raises(ValueError, match="direct-CT"):
+    with pytest.raises(ValueError, match="direct-CT form.*runs K7 whole"):
         ff.fengine_fused(frames, win, z, z, deint="matmul", _ablate="dma", **kw)
-    with pytest.raises(ValueError, match="two-pass bf16 body"):
-        ff.fengine_fused(frames, win, z, z, dft_dtype="float32", _ablate="dma", **kw)
-    small = torch.zeros((1, 1, 10, 1024), dtype=torch.int8)  # N1 = 8: the SIMT body
-    with pytest.raises(ValueError, match="N1 >= 16"):
-        ff.fengine_fused(small, default_window(taps, 1024), z, z, n_channels=512,
-                         quant_scale=1.0, _ablate="dma")
     wide = torch.zeros((1, 1, 10, 2048), dtype=torch.int8)  # 16 x 128
     with pytest.raises(ValueError, match="n1 == n2"):
         ff.fengine_fused(wide, default_window(taps, 2048), z, z, n_channels=1024,
                          quant_scale=1.0, _ablate="fir")
-    with pytest.raises(ValueError, match="quantise"):
-        ff.fengine_fused(frames, win, z, z, quantise=False, _ablate="dma", **kw)
+    tall = torch.zeros((1, 1, 10, 32768), dtype=torch.int8)  # 256 x 128
+    with pytest.raises(ValueError, match="does not fit"):
+        ff.fengine_fused(tall, default_window(taps, 32768), z, z, n_channels=16384,
+                         quant_scale=1.0, _ablate="dma")
+    # Taken, as the reference takes them: f32 operands, N1 = 8, no requant.
+    small = torch.zeros((1, 1, 10, 1024), dtype=torch.int8)  # N1 = 8
+    for got, dtype in (
+        (ff.fengine_fused(frames, win, z, z, dft_dtype="float32", _ablate="dma", **kw),
+         torch.int8),
+        (ff.fengine_fused(small, default_window(taps, 1024), z, z, n_channels=512,
+                          quant_scale=1.0, _ablate="dma"), torch.int8),
+        (ff.fengine_fused(frames, win, z, z, quantise=False, _ablate="stageb", **kw),
+         torch.float32),
+    ):
+        assert all(g.dtype == dtype and g.shape[-2] == 7 for g in got)
 
 
 def test_chain_marginal_times_a_chained_call_on_the_cpu(monkeypatch):
