@@ -30,10 +30,16 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    and no pass its route's whole call does not, is held to the plain stop on
    its last stream (dma, fir bit for bit; the DFT stops within K1's code
    contract, their f32 values as ``_stop_diff`` says), and timed beside the
-   whole call; the stop bodies' registers and spills (a spill fails, but
-   for the bf16 DFT pass's stageb bodies, which spill as that pass's own
-   body does). Then K1 at full width, 160 streams x 16 taps with coarse delays,
-   both forms, at fft 1024 (N1 = 8, S = 16384: the two passes' N1 = 8
+   whole call; the stop bodies' registers and spills (a spill fails).
+   Before the stops, the bf16 DFT pass's wgmma body (N1 >= 16,
+   ``_k1_dft_wgmma``): the SASS of every one of its bodies (HGMMA, no
+   HMMA.16816, or the phase fails), and at each split from fft 2^11 to
+   2^21 its registers, spills (a spill fails), shared memory and cluster
+   size and ``k1_dft`` against plain on 2 streams, quantised and not; its
+   flipped share at the flagship, 2^20 and 2^21 (under 1e-3); K1 and its
+   DFT pass at full width at fft 2^17, 2^18, 2^20 and 2^21 (160 streams,
+   S = 2^24 / fft), timed beside the pass's bound. Then K1 at full width,
+   160 streams x 16 taps with coarse delays, both forms, at fft 1024 (N1 = 8, S = 16384: the two passes' N1 = 8
    plans) and fft 2^22 (S = 4: the three-pass route): its route's passes
    launched once a group each and nothing else (the counts set to 0 just
    before and read just after), the last 8 streams against plain with the
@@ -194,8 +200,10 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    flagship, bf16: set_beam_delays, 3 steps, a delay update, 2 steps; K1
    must launch 5 times and K8 10 (twice a step), K4 and K2 never; the last
    step's beams within rtol 1e-4 / atol 1e-3 of the flat turned path on the
-   same device inputs; prints the step split by torch.profiler, ms/step and
-   Msamples/s, and each B form's stage time on the step's F planes. Then
+   same device inputs; prints the step split by torch.profiler (its K1
+   within 0.9 to 1.02 of the F stage by CUDA events, or the phase fails),
+   ms/step and Msamples/s, and each B form's stage time on the step's F
+   planes. Then
    ``bstage="planar"`` and ``"folded"`` at 8 antennas x 32768 ch x 16 beams
    x 16 taps, S=256, f32, each within rtol 1e-5 / atol 1e-4 of ``"turned"``;
    and ``FXBEngine`` at S=96 (outside K2's and K4's gates: planar B, plain
@@ -343,12 +351,19 @@ bytes it must move over 3.35 TB/s and each type of operation over the
 card's peak for it (bf16 989, f32 67 TFLOP/s, int8 1979 TOP/s), from this
 run's shapes.
 
+A step split by torch.profiler traces two calls in one session and reads
+the second, and fails where it has no record of a kernel that call
+launched (taken again, up to five sessions in all); the node's session
+starts with ``PROFILE_WARMUP`` short kernels and logs how many kernel
+records it lost.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -557,6 +572,153 @@ def _beam_diff(tag, got, ref, rtol=1e-5, atol=1e-3):
     return dmax
 
 
+#: K1's two-pass bf16 splits with N1 >= 16, fft 2^11 to 2^21: the DFT
+#: pass's wgmma body, each held to plain on a few streams; and the ffts of
+#: it timed at full width (160 streams x 16 taps, S = 2^24 / fft samples a
+#: stream, as the flagship's step).
+K1_WG_FFTS = tuple(1 << e for e in range(11, 22))
+K1_WG_WIDE = (1 << 17, 1 << 18, 1 << 20, 1 << 21)
+
+
+def _k1_dft_sass() -> dict:
+    """The built library's DFT-pass bodies in SASS (``cuobjdump -sass``):
+    for each function named ``k1_dft_wg_kernel`` (N1 >= 16) or
+    ``k1_dft_kernel`` (N1 = 8), its count of HGMMA (wgmma) and HMMA.16816
+    (mma.sync m16n8k16) instructions."""
+    import re
+    import shutil
+
+    from dpdk_dc_sand_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_build.find_nvcc()),
+                                                      "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "k1_dft_wg_kernel" in name or "k1_dft_kernel" in name:
+            out[name] = (len(re.findall(r"\bHGMMA\.", fn)), len(re.findall(r"\bHMMA\.16816", fn)))
+    return out
+
+
+def _k1_dft_wgmma(st: dict, gen) -> None:
+    """The bf16 DFT pass's wgmma body (N1 >= 16). Its SASS: every
+    ``k1_dft_wg_kernel`` body (production and stops) issues HGMMA and
+    no HMMA.16816, or the phase fails. At each split of ``K1_WG_FFTS``: the
+    body's registers, spill bytes (a spill fails), shared memory, ring
+    stages, blocks a cluster and stage-A group depth; ``k1_dft`` on a FIR
+    plane of 2 streams (16 taps, the codes at the flagship's level) against
+    ``k1_dft_reference`` on the card, quantised (1 code on <= 1e-3) and not
+    (below 1 code, off by more than 1e-2 + 1e-4 relative on <= 1e-2). At the
+    flagship and fft 2^20 and 2^21 (the longest stage-A sums) the flipped
+    share of ``benchmarks/dft_pass_ab.py:flipped_share``, logged and held
+    under 1e-3. Then at ``K1_WG_WIDE``, full width: K1 through ``fengine_fused`` (its FIR and DFT passes once a group
+    each, the counts set to 0 just before and read just after; the last 2
+    streams against plain), K1 and its DFT pass alone over the 160 streams
+    timed beside the pass's bound."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.benchmarks.dft_pass_ab import FLIP_FFTS, flipped_share
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+    from dpdk_dc_sand_tpu_torch.ops.delay import clamp_starts
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    taps = FLAG["n_taps"]
+    sass = _k1_dft_sass()
+    wg = {k: v for k, v in sass.items() if "k1_dft_wg_kernel" in k}
+    bad = {k: v for k, v in wg.items() if not v[0] or v[1]}
+    log(f"k1 DFT pass SASS (cuobjdump -sass of the built library): {len(wg)} wgmma bodies, "
+        f"HGMMA {sorted({v[0] for v in wg.values()})} a body, HMMA.16816 "
+        f"{sorted({v[1] for v in wg.values()})}; the N1 = 8 body (k1_dft_kernel): " + ", ".join(
+            f"HGMMA {v[0]}, HMMA.16816 {v[1]}" for k, v in sass.items() if "k1_dft_kernel" in k))
+    if len(wg) < 10 or bad:
+        raise AssertionError(f"k1 DFT pass: a wgmma body lacks HGMMA or issues HMMA.16816: "
+                             f"{bad or wg}")
+    splits = {}
+    for fft in K1_WG_FFTS:
+        n1, n2 = ff._split_ct(fft)
+        at = ff.k1_dft_attributes(n1, n2)
+        if at["local_bytes"] or at["cluster"] != 1:
+            raise AssertionError(f"k1 DFT pass at {n1}x{n2}: {at}")
+        nb, s = 2, max(2, min(8, (1 << 19) // fft))
+        x = torch.randint(-64, 64, (nb, (s + taps - 1) * fft), dtype=torch.int8, device=dev,
+                          generator=gen)
+        plane = ff.k1_fir(x, torch.zeros(nb, dtype=torch.int64, device=dev),
+                          default_window(taps, fft, device=dev), n_spectra=s)
+        fd = torch.rand(nb, device=dev, generator=gen) - 0.5
+        rc, rs = (r.reshape(nb, -1) for r in ff.fine_rotation_planes(
+            fd, -1.5 * fd, n_channels=fft // 2, quant_scale=QUANT_SCALE * (65536 / fft) ** 0.5))
+        tag = f"k1 DFT pass fft {fft} [{nb} streams x S={s}, {n1}x{n2}]"
+        err = _code_diff(tag, ff.k1_dft(plane, rc, rs, n1=n1, n2=n2),
+                         ff.k1_dft_reference(plane, rc, rs, n1=n1, n2=n2))
+        over, dmax = 0.0, 0.0
+        for g, r in zip(ff.k1_dft(plane, rc, rs, n1=n1, n2=n2, quantise=False),
+                        ff.k1_dft_reference(plane, rc, rs, n1=n1, n2=n2, quantise=False)):
+            d = (g - r).abs()
+            dmax = max(dmax, float(d.max()))
+            over = max(over, float((d > 1e-2 + 1e-4 * r.abs()).float().mean()))
+        if dmax >= 1.0 or over > 1e-2:
+            raise AssertionError(f"{tag} f32 out: max|d| {dmax}, share over {over}")
+        flipped = None
+        if fft in FLIP_FFTS:
+            flipped = flipped_share(ff, fft)
+            if flipped > 1e-3:
+                raise AssertionError(f"{tag}: flips {flipped:.3e} of codes, over 1e-3")
+        splits[fft] = dict(attributes=at, max_abs_err=float(err), f32_max_abs_err=dmax,
+                           f32_share_over=over, flipped_share=flipped)
+        log(f"{tag}: body {at}; f32 out max|d| {dmax:.3e}, share over tol {over:.2e}"
+            + ("" if flipped is None else f"; flipped share (flipped_share, "
+               f"{at['group_products']} products a stage-A group) {flipped:.3e}"))
+        del x, plane
+    wide = {}
+    for fft in K1_WG_WIDE:
+        n1, n2 = ff._split_ct(fft)
+        nb, s, c = 2 * FLAG["n_ants"], (1 << 24) // fft, fft // 2
+        n_in = (s + taps - 1) * fft + 4096
+        x = torch.randint(-64, 64, (nb, n_in), dtype=torch.int8, device=dev, generator=gen)
+        cd = torch.randint(0, 4096, (nb,), device=dev, generator=gen)
+        fd = torch.rand(nb, device=dev, generator=gen) - 0.5
+        win = default_window(taps, fft, device=dev)
+        scale = QUANT_SCALE * (65536 / fft) ** 0.5
+        starts = clamp_starts(cd, n_in, (s + taps - 1) * fft)
+        rc, rs = (r.reshape(nb, c) for r in ff.fine_rotation_planes(
+            fd, -1.5 * fd, n_channels=c, quant_scale=scale))
+        tag = f"k1 bf16 fft {fft} [{nb} streams x S={s} x {taps} taps, {n1}x{n2}]"
+
+        def k1():
+            return ff.fengine_fused(x, win, fd, -1.5 * fd, n_channels=c, quant_scale=scale,
+                                    coarse_delays=cd, n_spectra=s)
+
+        for k in K1_COUNTERS:
+            getattr(ff, k).launches = 0
+        got = k1()
+        torch.cuda.synchronize()
+        launches = _k1_counts(ff)
+        groups = -(-nb // ff._plane_group(nb, s, fft))
+        if launches != {k: groups * (k in ("k1_fir", "k1_dft")) for k in K1_COUNTERS}:
+            raise AssertionError(f"{tag} ran {launches}")
+        tail = slice(nb - 2, nb)
+        err = _code_diff(f"{tag} streams {nb - 2}..{nb - 1}", [g[tail] for g in got],
+                         ff.fengine_fused_reference(x[tail], starts[tail], win, rc[tail],
+                                                    rs[tail], n_spectra=s, n1=n1, n2=n2))
+        del got
+        k1_ms = cuda_ms(k1, iters=1)
+        plane = ff.k1_fir(x, starts, win, n_spectra=s)
+        dft_ms = cuda_ms(lambda: ff.k1_dft(plane, rc, rs, n1=n1, n2=n2), iters=2)
+        dft_bound = bound(nb * s * fft * 2 + 2 * nb * c * 4 + 2 * nb * s * c,
+                          bf16=nb * s * 4 * (n1 * n1 * n2 + n2 * n2 * n1))
+        wide[fft] = dict(k1_ms=k1_ms, dft_ms=dft_ms, max_abs_err=float(err), launches=launches,
+                         **dft_bound)
+        log(f"{tag}: K1 {k1_ms:.3f} ms, its DFT pass alone {dft_ms:.3f} ms (bound "
+            f"{dft_bound['bound_ms']:.3f}, {dft_bound['bound_by']}; "
+            f"{dft_bound['bound_ms'] / dft_ms:.1%} of it); launches {launches} ({st['card']})")
+        del x, plane, rc, rs
+        torch.cuda.empty_cache()
+    st["k1_wg"] = dict(splits=splits, wide=wide, sass_bodies=len(wg))
+
+
 def phase_k1(st: dict) -> None:
     import torch
 
@@ -651,6 +813,7 @@ def phase_k1(st: dict) -> None:
             else:
                 f32["max_abs_err"] = max(f32.get("max_abs_err", 0), err)
     st["k1_subset"]["subset_max_abs_err"] = float(worst)
+    _k1_dft_wgmma(st, gen)
     _k1_three_pass_2_22(st, gen)
     _k1_stops(st, gen)
     for fft_w, s_w in K1_FULL_WIDTH:
@@ -819,18 +982,16 @@ def _stop_gain(stop, plain_at) -> float:
 
 def _k1_device_ms(fn, calls: int = 5) -> float:
     """Device time of one call of ``fn`` in K1's kernels (``k1_*``), by
-    torch.profiler over ``calls`` calls: at 2 streams a call is shorter than
-    its host side, which CUDA events would time. A trace that caught none of
-    the kernels (it happened once in a run) is taken again, up to twice; a
-    third miss raises."""
+    torch.profiler over ``calls`` calls (:func:`_profile_split`): at 2
+    streams a call is shorter than its host side, which CUDA events would
+    time."""
     import torch
 
-    for _ in range(3):
-        split, _ = _profile_split(torch, lambda: [fn() for _ in range(calls)],
-                                  [("k1", ["k1_"]), ("other", [])])
-        if split["k1"] > 0:
-            return split["k1"] / calls
-    raise AssertionError("three torch.profiler traces caught no k1_* kernel")
+    split, _ = _profile_split(torch, lambda: [fn() for _ in range(calls)],
+                              [("k1", ["k1_"]), ("other", [])])
+    if not split["k1"]:
+        raise AssertionError("the profiler saw no k1_* kernel")
+    return split["k1"] / calls
 
 
 def _stop_bodies(ff, n1, n2, dt, tag) -> dict:
@@ -968,7 +1129,8 @@ def _k1_full_width(st: dict, gen, fft: int, s: int) -> None:
     within the form's code contract; K1 whole, each pass alone over all 160
     streams beside its plain version (8 streams at a time) and its bound,
     the scratch, and the DFT bodies' registers and spill bytes (a spill
-    fails the phase, but for the bf16 DFT pass's, which is logged)."""
+    fails the phase, but for the bf16 DFT pass's N1 = 8 body, which is
+    logged)."""
     import torch
 
     from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
@@ -1069,7 +1231,8 @@ def _k1_full_width(st: dict, gen, fft: int, s: int) -> None:
         else:
             bodies = {"dft": (ff.k1_dft_f32_attributes if f32 else ff.k1_dft_attributes)(n1, n2)}
         # The stage bodies and the f32 DFT pass spill nothing; the bf16 DFT
-        # pass's body spills a few bytes at every plan (PERF.md §7), logged.
+        # pass's N1 = 8 body (k1_dft_kernel, fft 1024) spills a few bytes
+        # (PERF.md §7), logged.
         if any(at["local_bytes"] for name, at in bodies.items() if f32 or name != "dft"):
             raise AssertionError(f"{tag}: a body spills: {bodies}")
         for name, r in res.items():
@@ -1417,6 +1580,8 @@ def phase_flagship(st: dict) -> None:
     log(f"flagship k1 FIR pass [{nb} x S={s} x fft {fft}]: bit-exact against plain")
     fir_ms = cuda_ms(lambda: ff.k1_fir(x, starts, fb.window, n_spectra=s), iters=2)
     dft_ms = cuda_ms(lambda: ff.k1_dft(plane, rc, rs, n1=n1, n2=n2), iters=2)
+    dft_plain_ms = cuda_ms(_chunked(lambda b: ff.k1_dft_reference(
+        plane[b], rc[b], rs[b], n1=n1, n2=n2), nb), iters=1)
     del plane
     fir_plain_ms = cuda_ms(_chunked(lambda b: ff.k1_fir_reference(
         x[b], starts[b], fb.window, n_spectra=s), nb), iters=1)
@@ -1450,12 +1615,14 @@ def phase_flagship(st: dict) -> None:
     log(f"flagship k1 passes: FIR {fir_ms:.3f} ms (bound {fir_bound['bound_ms']:.3f}, "
         f"{fir_bound['bound_by']}; plain {fir_plain_ms:.3f}; library conv1d "
         f"{'' if lib_ms is None else f'{lib_ms:.3f} ms '}({lib_note})), DFT {dft_ms:.3f} ms (bound {dft_bound['bound_ms']:.3f}, "
-        f"{dft_bound['bound_by']}); sum {fir_ms + dft_ms:.3f} vs K1 {k1_ms:.3f} ms; the split's "
+        f"{dft_bound['bound_by']}; plain {dft_plain_ms:.3f}); sum {fir_ms + dft_ms:.3f} vs K1 {k1_ms:.3f} ms; the split's "
         f"floor {floor_ms:.3f} ms (the two bounds' sum); K1's scratch {scratch / 1e9:.3f} GB a "
         f"call (peak over its outputs) ({st['card']})")
     st["k1"] = dict(max_abs_err=float(k1_err), ms=k1_ms, plain_ms=k1_plain_ms, **k1_bound,
                     library_ms=None, fir_ms=fir_ms, dft_ms=dft_ms, scratch_bytes=scratch,
                     **st["k1_subset"])
+    st["k1_dft"] = dict(max_abs_err=float(k1_err), ms=dft_ms, plain_ms=dft_plain_ms, **dft_bound,
+                        library_ms=None, launches=passes["k1 DFT pass"])
     st["k1_fir"] = dict(max_abs_err=0.0, ms=fir_ms, plain_ms=fir_plain_ms, **fir_bound,
                         **st["k1_fir_library"], launches=passes["k1 FIR pass"],
                         bytes_ms=(nb * (s + taps - 1) * fft + taps * fft * 4
@@ -3035,28 +3202,81 @@ def _plain_fir(samples, window):
     return pfb_fir_reference(samples.reshape(*samples.shape[:-1], -1, window.shape[1]), window)
 
 
-def _profile_split(torch, fn, buckets):
-    """Device time of one call of ``fn`` by kernel, in ms: ``buckets`` is a
-    list of (label, name fragments); a kernel goes to the first label one of
-    whose fragments its name holds, and the last label takes the rest."""
+#: Short kernels the node's torch.profiler session launches, and waits
+#: for, before the chunks it measures. Late in this script's process a
+#: session often lost about ten kernel records of the first call it traced,
+#: with no warning (the native step's K1 read 6.761 ms of its 20.152; PERF.md
+#: §7); a later call of the same session seldom lost any.
+PROFILE_WARMUP = 64
+
+
+@contextlib.contextmanager
+def _profiled(torch):
+    """A torch.profiler session (CPU and CUDA) that starts with
+    :data:`PROFILE_WARMUP` short kernels and waits for them."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(PROFILE_WARMUP):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        yield prof
+
+
+def _device_events(torch, prof, skip=None) -> tuple[list, int]:
+    """(events, lost) of a torch.profiler session: the device's events
+    (kernels, copies, fills; kineto events) of its device calls (runtime or
+    driver calls that launch a kernel, copy or fill, in correlation-id
+    order) after the first ``skip``, or after the first half where ``skip``
+    is None (a session that made the same call twice); and how many kernel
+    launches among them have no record."""
+    events = list(prof.profiler.kineto_results.events())
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    calls = sorted((e.correlation_id(), e.name()) for e in events if e.device_type() == cpu
+                   and any(k in e.name() for k in ("LaunchKernel", "Memcpy", "Memset")))
+    if skip is None:
+        skip = len(calls) // 2
+        if [n for _, n in calls[:skip]] != [n for _, n in calls[skip:]]:
+            raise AssertionError("two calls of one function made different device calls")
+    after = calls[skip:]
+    ids = {c for c, _ in after}
+    dev = [e for e in events if e.device_type() == cuda and e.correlation_id() in ids]
+    have = {e.correlation_id() for e in dev}
+    return dev, sum("LaunchKernel" in n and c not in have for c, n in after)
+
+
+def _profile_split(torch, fn, buckets):
+    """Device time of one call of ``fn`` by kernel, in ms: ``buckets`` is a
+    list of (label, name fragments); a kernel goes to the first label one of
+    whose fragments its name holds, and the last label takes the rest. Also
+    the six longest kernels. A torch.profiler session calls ``fn`` twice
+    and reads the second call (:func:`_device_events`); a session that lost
+    the record of a kernel that call launched is taken again, up to five in
+    all, and a fifth loss raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tries = 5
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+        events, lost = _device_events(torch, prof)
+        if not lost:
+            break
+        log(f"torch.profiler session {attempt + 1} of {tries}: no record of {lost} kernels "
+            f"the traced call launched")
+    else:
+        raise AssertionError(f"{tries} torch.profiler sessions each lost a kernel's record")
     split = {label: 0.0 for label, _ in buckets}
-    names = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
+    by_name: dict = {}
+    for e in events:
+        ms = e.duration_ns() / 1e6
         key = next((label for label, frags in buckets[:-1]
-                    if any(f in e.key.lower() for f in frags)), buckets[-1][0])
-        split[key] += us / 1e3
-        names.append((us / 1e3, e.key[:60]))
-    return split, sorted(names, reverse=True)[:6]
+                    if any(f in e.name().lower() for f in frags)), buckets[-1][0])
+        split[key] += ms
+        by_name[e.name()[:60]] = by_name.get(e.name()[:60], 0.0) + ms
+    return split, sorted(((v, k) for k, v in by_name.items()), reverse=True)[:6]
 
 
 def phase_f_flagship(st: dict) -> None:
@@ -3314,10 +3534,17 @@ def phase_bforms(st: dict) -> None:
         ("K1 (F)", ("fengine_ct", "k1_")), ("K8 (native turn)", ("corner_turn",)),
         ("bmm (cuBLAS)", ("gemm", "cutlass")), ("casts and copies (plain)", ())])
     busy = sum(split.values())
+    # The profiler's K1 against the step's F stage (K1 and its few small
+    # operands) by CUDA events: a K1 that the trace reads short fails.
+    f_ms = cuda_ms(lambda: fb._f(adc, cd, fd, ph), iters=2)
     log("native flagship split (ms, torch.profiler, one step): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
         + f"; device busy {busy:.3f} vs step {ms:.3f}, idle share "
-        f"{max(0.0, 1 - busy / ms):.2%}; top kernels {top} ({st['card']})")
+        f"{max(0.0, 1 - busy / ms):.2%}; the F stage by CUDA events {f_ms:.3f}; top kernels "
+        f"{top} ({st['card']})")
+    if not 0.9 * f_ms <= split["K1 (F)"] <= 1.02 * f_ms:
+        raise AssertionError(f"the trace's K1 {split['K1 (F)']:.3f} ms is not the F stage's "
+                             f"{f_ms:.3f} by CUDA events")
     log(f"native flagship [{a} ant x {c} ch x {cfg.n_beams} beams x {cfg.n_taps} taps, S={s}]: "
         f"step ms "
         f"{['%.3f' % t for t in times]}, median(after first) {ms:.3f} ms, "
@@ -3328,7 +3555,8 @@ def phase_bforms(st: dict) -> None:
     _beam_diff("native flagship vs the flat turned path", out, flat.step(adc, cd, fd, ph),
                rtol=1e-4, atol=1e-3)
     st["k8_launches"] = launches["k8"]
-    st["native"] = dict(ms=ms, msamples_s=samples / ms / 1e3, peak_gb=peak_gb, split=split)
+    st["native"] = dict(ms=ms, msamples_s=samples / ms / 1e3, peak_gb=peak_gb, split=split,
+                        f_ms=f_ms)
 
     # Each B form's stage timed once on the native step's F planes.
     q5r, q5i = fb._f(adc, cd, fd, ph)
@@ -3741,16 +3969,19 @@ def _union_ms(spans) -> float:
 
 
 def _busy_share(torch, prof):
-    """(device busy ms, kernel busy ms, window ms): the union of the device's
-    kernel, copy and fill intervals, that of its kernels alone, and the span
-    from the first to the last of them."""
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    """(device busy ms, kernel busy ms, window ms, records lost) of a
+    :func:`_profiled` session: the union of the device's kernel, copy and
+    fill intervals after the warm-up (:func:`_device_events`), that of its
+    kernels alone, the span from the first to the last of them, and how many
+    kernels launched after the warm-up have no record."""
+    events, lost = _device_events(torch, prof, PROFILE_WARMUP)
+    spans = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+                   for e in events)
     kernels = [(s, e) for s, e, name in spans if not name.startswith(("Memcpy", "Memset"))]
     if not kernels:
         raise AssertionError("the profiler saw no kernel on the device")
     window = (max(e for _, e, _ in spans) - spans[0][0]) / 1e3
-    return _union_ms([(s, e) for s, e, _ in spans]), _union_ms(kernels), window
+    return _union_ms([(s, e) for s, e, _ in spans]), _union_ms(kernels), window, lost
 
 
 def phase_node(st: dict) -> None:
@@ -3758,7 +3989,6 @@ def phase_node(st: dict) -> None:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dpdk_dc_sand_tpu_torch import ArrayConfig
     from dpdk_dc_sand_tpu_torch.control import Client
@@ -3833,7 +4063,7 @@ def phase_node(st: dict) -> None:
             ff.fengine_fused.launches = ct.corner_turn_planes.launches = 0
             await asyncio.to_thread(commit_in_place, range(n_a))
             await _until(lambda: len(arrivals) >= n_a, "the in-place chunks' beams")
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with _profiled(torch) as prof:
                 await asyncio.to_thread(commit_in_place, range(n_a, n_p))
                 await _until(lambda: len(arrivals) >= n_p, "the profiled chunks' beams")
             await asyncio.to_thread(submit_copies, range(n_p, n_all))
@@ -3881,12 +4111,13 @@ def phase_node(st: dict) -> None:
             copy()
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t0) * 1e3)
-    busy, kernel_busy, window = _busy_share(torch, prof)
+    busy, kernel_busy, window, lost = _busy_share(torch, prof)
     st["node"] = dict(
         step_ms=step_ms, compute_msps=samples / step_ms / 1e3, in_place_msps=in_place,
         copied_msps=copied, h2d_gbps=float(np.median(h2d)), d2h_ms=float(np.median(d2h)),
         d2h_pinned_ms=float(np.median(d2h_pinned)), idle=1 - busy / window,
         kernel_idle=1 - kernel_busy / window, chunk_gb=nbytes / 1e9, beams_mb=beams.numel() / 1e6,
+        records_lost=lost,
     )
     n = st["node"]
     log(f"node decomposition ({st['card']}): compute-only step {step_ms:.3f} ms "
@@ -3899,7 +4130,8 @@ def phase_node(st: dict) -> None:
         f"{n['d2h_pinned_ms']:.3f} ms); device idle share over the "
         f"{NODE_PROFILED} profiled chunks {100 * n['idle']:.2f}% with neither a kernel "
         f"nor a copy ({busy:.1f} of {window:.1f} ms busy), {100 * n['kernel_idle']:.2f}% "
-        f"without a kernel ({kernel_busy:.1f} ms of kernels)")
+        f"without a kernel ({kernel_busy:.1f} ms of kernels); kernel launches the trace has "
+        f"no record of: {lost}")
 
 
 def phase_node_udp(st: dict) -> None:
@@ -5141,6 +5373,12 @@ def main() -> int:
                k1_fft_2_22_2x2x4=st["k1_2_22_small"][dt],
                **full[(K1_THREE_PASS_FFT, dt)]["passes"][f"stage_{stage}"])
           for dt, sfx in (("bfloat16", ""), ("float32", "_f32")) for stage in "ab"),
+        dict(name="k1_dft", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
+             kernel="k1_dft_wg_kernel: K1's bf16 DFT pass at N1 >= 16 (wgmma from a TMA / "
+                    "mbarrier ring, a producer warp and two consumer warpgroups; N1 = 8: "
+                    "k1_dft_kernel)",
+             replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504", path="fb_flagship",
+             wgmma=st["k1_wg"], **st["k1_dft"]),
         dict(name="k1_fir", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
              kernel="k1_fir_kernel: the FIR pass of K1 and K7 into the bf16 plane (cp.async "
                     "ring, two-word copies where a start is off 4 bytes)",
@@ -5165,9 +5403,10 @@ def main() -> int:
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct_stops.cu",
              also_source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct_stops_dft.cu",
              kernel="K1's route cut at each stage stop (fengine_fused(_ablate=...)): "
-                    "k1_fir_kernel at STOP_DMA / STOP_FIR_RND, k1_dft[_f32]_kernel at "
-                    "STOP_STAGEA_RND / STOP_STAGEB, k1_stage_b[_f32]_kernel at STOP_STAGEB, "
-                    "k1_t_slice_kernel; timed on the fused_f32 flagship route (ms: whole)",
+                    "k1_fir_kernel at STOP_DMA / STOP_FIR_RND, k1_dft_wg_kernel / "
+                    "k1_dft_f32_kernel at STOP_STAGEA_RND / STOP_STAGEB, "
+                    "k1_stage_b[_f32]_kernel at STOP_STAGEB, k1_t_slice_kernel; timed on the "
+                    "fused_f32 flagship route (ms: whole)",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504",
              path="fb_flagship_fused_f32_stops", off_flagship=st["k1_stops"],
              **st["k1_f32_stops"]),
@@ -5224,7 +5463,7 @@ def main() -> int:
              launches=st["e1_launches"], **st["e1"]),
         dict(name="ct_ablate", route="cuda",
              source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct_stops.cu",
-             kernel="K1's k1_fir_kernel / k1_dft_kernel at each STOP (csrc/fengine_ct.cu)",
+             kernel="K1's k1_fir_kernel / k1_dft_wg_kernel at each STOP (csrc/fengine_ct.cu)",
              replaces="benchmarks/ct_ablate.py:36", path="benchmarks/ct_ablate",
              **st["probes"]["p5"]),
         dict(name="dma_bisect", route="cuda",

@@ -98,7 +98,8 @@ _SIGNATURES = {
     ],
     "k1_dft_attributes": [
         _I, _I,  # n1, n2
-        _P,  # out (int[6]): registers, local bytes, KC, K-tile depth, stages, shared-memory bytes
+        _P,  # out (int[8]): registers, local bytes, KC, K-tile depth, stages, shared-memory bytes,
+        # blocks a cluster, products a stage-A group
     ],
     "k1_dft_f32_launch": [
         _P,  # plane [B, S, N1, N2] f32

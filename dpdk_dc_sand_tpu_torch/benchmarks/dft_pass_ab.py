@@ -1,0 +1,120 @@
+"""K1's bf16 DFT pass on several trees in turn on one card, each tree in a
+process of its own with its own ``ops/fengine_fused.py`` and kernels (built
+in that tree at first use): the pass's ms at the flagship
+(:func:`dft_pass_ms`) and its flipped share against the plain version at
+the splits of :data:`FLIP_FFTS` (:func:`flipped_share`). Give the trees in
+the order to time them, for example a checkout of the parent commit and of
+the change as parent, change, change, parent:
+
+    python -m dpdk_dc_sand_tpu_torch.benchmarks.dft_pass_ab PARENT . . PARENT
+
+Prints one line a tree: its path, the pass's ms and the flipped shares.
+``chip_smoke.py`` takes :func:`flipped_share` from here for its K1 phase.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import subprocess
+import sys
+
+#: The seed of every input made here.
+SEED = 2047
+
+#: The flagship's split and the longest stage-A sums on the two-pass route
+#: (N1 = 1024 and 2048).
+FLIP_FFTS = (1 << 16, 1 << 20, 1 << 21)
+
+
+def dft_pass_ms(ff, fft: int = 65536, nb: int = 160, s: int = 256, iters: int = 2) -> float:
+    """ms of ``ff.k1_dft`` (``ff`` a tree's ``ops/fengine_fused.py``) over
+    ``nb`` streams x ``s`` spectra in one launch, by CUDA events, the mean of
+    ``iters`` calls after one: a bf16 plane and rotation planes made on the
+    card from :data:`SEED` (the codes near the flagship's level). The
+    flagship's shape by default."""
+    import torch
+
+    dev = torch.device("cuda")
+    n1, n2 = ff._split_ct(fft)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    plane = (torch.randn((nb, s, fft), device=dev, generator=gen) * 40).to(torch.bfloat16)
+    ph = torch.rand((nb, fft // 2), device=dev, generator=gen) * (2 * math.pi)
+    scale = 50 / (40 * fft ** 0.5)
+    rc, rs = (torch.cos(ph) * scale).contiguous(), (torch.sin(ph) * scale).contiguous()
+    ff.k1_dft(plane, rc, rs, n1=n1, n2=n2)
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        ff.k1_dft(plane, rc, rs, n1=n1, n2=n2)
+    t1.record()
+    t1.synchronize()
+    del plane, rc, rs
+    torch.cuda.empty_cache()
+    return t0.elapsed_time(t1) / iters
+
+
+def flipped_share(ff, fft: int, nb: int = 2, taps: int = 16) -> float:
+    """The share of int8 codes where ``ff.k1_dft`` differs from
+    ``ff.k1_dft_reference`` run on the card, the larger of the two planes':
+    ``nb`` streams of ``max(2, min(8, 2^19 / fft))`` spectra through
+    ``ff.k1_fir`` (int8 samples from :data:`SEED`, ``taps`` taps), rotated
+    and requantised at the flagship's code level (near 50 rms). Raises where
+    a code differs by more than 1."""
+    import torch
+
+    from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
+
+    dev = torch.device("cuda")
+    n1, n2 = ff._split_ct(fft)
+    s = max(2, min(8, (1 << 19) // fft))
+    gen = torch.Generator(device=dev).manual_seed(SEED + fft)
+    x = torch.randint(-64, 64, (nb, (s + taps - 1) * fft), dtype=torch.int8, device=dev,
+                      generator=gen)
+    plane = ff.k1_fir(x, torch.zeros(nb, dtype=torch.int64, device=dev),
+                      default_window(taps, fft, device=dev), n_spectra=s)
+    fd = torch.rand(nb, device=dev, generator=gen) - 0.5
+    rc, rs = (r.reshape(nb, -1) for r in ff.fine_rotation_planes(
+        fd, -1.5 * fd, n_channels=fft // 2, quant_scale=(65536 / fft) ** 0.5 / 128))
+    share = 0.0
+    for g, r in zip(ff.k1_dft(plane, rc, rs, n1=n1, n2=n2),
+                    ff.k1_dft_reference(plane, rc, rs, n1=n1, n2=n2)):
+        d = (g.int() - r.int()).abs()
+        if int(d.max()) > 1:
+            raise AssertionError(f"k1_dft at fft {fft}: a code off by {int(d.max())}")
+        share = max(share, float((d != 0).float().mean()))
+    return share
+
+
+def _one_tree() -> None:
+    """This process's tree (first on ``sys.path``): its pass's ms and flipped
+    shares, on one line."""
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+
+    shares = ", ".join(f"fft {f} {flipped_share(ff, f):.3e}" for f in FLIP_FFTS)
+    print(f"flagship DFT pass {dft_pass_ms(ff):.3f} ms; flipped share {shares}")
+
+
+def main(trees: list[str]) -> int:
+    if not trees:
+        print(__doc__)
+        return 2
+    for tree in trees:
+        tree = os.path.abspath(tree)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [tree] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one-tree"], cwd=tree,
+                             env=env, capture_output=True, text=True)
+        if res.returncode:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return res.returncode
+        print(f"{tree}: {res.stdout.strip().splitlines()[-1]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["--one-tree"]:
+        _one_tree()
+        sys.exit(0)
+    sys.exit(main(sys.argv[1:]))

@@ -67,56 +67,98 @@
 //    body issues about 151 instructions an output and thread, 124 of them
 //    the FMULs and FADDs, so its arithmetic alone runs near the issue rate;
 //    its time is in PERF.md.
-// 2. k1_dft_kernel — both DFT stages on the tensor cores (mma.sync
-//    m16n8k16 bf16, f32 accumulate) fed from shared memory by a cp.async
-//    ring of 4 stages (3 where 4 do not fit). A unit of work is (batch,
-//    spectrum, chunk of KC k1 rows); persistent blocks (one per SM: 16
-//    warps) walk units in order, and the ring streams one tile sequence
-//    through every unit:
-//      stage A tiles: [KT x NA] of the plane with the [KC x KT] cos and -sin
-//        rows of the N1-point matrix; the accumulators [KC x NA] x {cos, sin}
-//        get the f32 twiddle and land in shared memory as bf16 T planes
-//        [KC x N2] (re, im);
-//      stage B tiles: [MB x KT] of the N2-point matrix's cos and -sin rows;
-//        four products (cos.tr, -sin.ti, cos.ti, -sin.tr) over n2, then
-//        re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr), the rotation and
-//        the requant straight to the outputs.
-//    The T planes are the only per-unit state, so KC follows N2 (64 rows up
-//    to N2 = 256, 32 at 512 and 1024): no plan needs a whole plane in
-//    shared memory. Both stages keep 64 f32 accumulators a thread (one
-//    register array, reused), so the block's tile is KC x 256..512 in stage
-//    A and 128..512 x KC in stage B. KT is the deepest of 64, 32, 16 that
-//    fits: fewer barriers a unit.
-//    N1 = 8 (fft 1024), where a chunk of one spectrum is 8 rows, makes a
-//    unit of 16 spectra instead (KC_N8 = 128 T rows, (spectrum, k1)): stage
-//    A is one 8-deep K tile, the unit's 16 planes whole ([128 x N2], 8 rows
-//    of each spectrum), each warp's 4 spectra against the [cos; -sin]
-//    [16 x 8] matrix held in registers, one mma.sync m16n8k8 per spectrum
-//    and 8 columns (one MMA a sum, so nothing chains); stage B is the
-//    16-row design's, 16 spectra's k1 columns side by side.
-//    Stage A adds each MMA's 16-product sum to its accumulator in f32
-//    round-to-nearest (mma16816_rn) rather than chaining the MMAs: chained,
-//    the tensor core's rounding of the running sum drifts with N1 and flips
-//    enough bf16 roundings of T at fft 2^20 (N1 = 1024) to miss the gate of
-//    1 code on 1e-3 of the samples; added, the kernel flips about as many
-//    codes as two plain f32 orders do against each other. It costs a few
-//    percent of the pass. Stage B stays chained: its sums end in int8
-//    codes, and adding them the same way moved no share.
+// 2. The DFT pass, bf16 operands: both DFT stages on the tensor cores, the
+//    T planes of a chunk of KC k1 rows in shared memory between them. Two
+//    bodies, one a split:
+//    k1_dft_wg_kernel (N1 >= 16: fft 2^11 to 2^21) — wgmma (bf16 in, f32
+//    sums) from shared memory that TMA fills through an mbarrier ring, warp-
+//    specialised, one persistent block of 384 threads an SM. A unit of work
+//    is (spectrum, chunk): KC = 64 (N1 where smaller; 32 at N2 = 1024, where
+//    64 rows' T planes and a ring of three slots would not fit); blocks walk
+//    units chunk fastest, so a spectrum's chunks run side by side and its
+//    plane rows stay in L2.
+//      Producer (warpgroup 0, setmaxnreg down to 40 registers): one thread
+//      walks the units' slots in the consumers' order and issues each
+//      slot's TMA boxes (2-D tensor maps, 128-byte swizzle; boxes past an
+//      edge read zeros) once both consumers have released it: a slot's
+//      full mbarrier counts the producer's arrival and the box bytes, its
+//      empty mbarrier one arrival a consumer warpgroup, given once the
+//      wgmmas that read the slot have completed (or, for a slot the other
+//      consumer's epilogue reads, once it has landed). 3 or 4 slots of 32
+//      KB; no __syncthreads after the start. A pass's K slots are followed
+//      by a slot of each consumer's f32 twiddles ([KC x 64] of twc and
+//      tws), an item pair's by a slot of each consumer's rotation values
+//      ([64 k2 x NB k1] of rotc and rots, the planes viewed [G·N2/2, N1]):
+//      the epilogues' f32 operands land while the MMAs before them run.
+//      Consumers (warpgroups 1 and 2, setmaxnreg up to 232):
+//      stage A, transposed so that one wgmma gives both sums of a (k1, n2):
+//        [n2 x (cos k1 | -sin k1)] = plane^T [n2 x n1] x [D1c; D1s]^T. A
+//        slot holds two 64-column tiles of the plane, [KD n1 rows x 64 n2]
+//        (KD = 64, N1 where smaller), N-contiguous: wgmma's M-major A
+//        operand (imm-trans-a), and the chunk's [cos; -sin] rows [2 KC x 64
+//        n1] of the N1-point matrix, the K-major B operand. Each consumer
+//        takes one tile, m64n(2 KC)k16 over n1; a pass is 128 columns, N2
+//        / 128 passes a unit.
+//        The sums in two levels: the wgmmas of a group of WG_GROUP k-steps
+//        (64 products) sum into a fragment from zero (scale-d 0 on the
+//        group's first), which joins the master sums by __fadd_rn: one
+//        FADD a sum every 64 products where the old mma.sync body spent
+//        one every 16 (mma16816_rn, kept for the three-pass route), and an
+//        f32 sum of the tensor core's 64-product sums in place of one
+//        chained sum over N1, whose drift flipped more than 1e-3 of codes
+//        at fft 2^20. The card's flipped share at depths of 16, 32 and 64
+//        products at the flagship, 2^20 and 2^21 is in PERF.md; 64 was
+//        the deepest, and flipped no more than 16.
+//        The epilogue: a quad shuffle gives each thread two neighbouring n2
+//        of one k1; the f32 twiddle (its pairs from the staged slot), then T
+//        rounded to bf16 once and stored as bf16 pairs straight into the
+//        K-major, 128-byte-swizzled layout stage B's descriptors read ([T
+//        re NB rows; T im NB rows] a column group of NB k1, 64-column
+//        blocks): no re-layout pass.
+//      stage B, a plain product: [the cos rows; the -sin rows of a 64-row
+//        k2 tile] (TMA boxes of the row-stacked N2-point matrix, K-major A)
+//        x [T re | T im] of a column group (K-major B from the T planes):
+//        m64n(2 NB)k16 chained over n2, cos.tr and cos.ti in one fragment,
+//        -sin.tr and -sin.ti in the other, one group left in flight while
+//        the next slot's run; then re = cos.tr - (-sin.ti), im = cos.ti +
+//        (-sin.tr), the f32 rotation (from the staged slot), the requant
+//        (or the f32 store), bin k2·N1 + k1. NB = KC (half a
+//        chunk at N2 = 128, which has one k2 tile), an item a consumer.
+//      The consumers meet at a named barrier twice a unit: T whole before
+//      stage B, the last unit's stage B done before T is written again.
+//      Registers: 168 a thread at launch, 232 a consumer thread after
+//      setmaxnreg (a 64-float fragment and 64 master sums at the most); 0
+//      spill bytes in every body, the stops' too. (The twiddles and
+//      rotation values prefetched into registers instead spilled 300 bytes
+//      and ran slower.)
+//    k1_dft_kernel (N1 = 8, fft 1024) — mma.sync: a unit is 16 spectra
+//    (KC_N8 = 128 T rows, (spectrum, k1)), persistent blocks (one an SM, 16
+//    warps) fed by a cp.async ring of 3 or 4 stages; stage A is one 8-deep
+//    K tile, the unit's 16 planes whole ([128 x N2], 8 rows of each
+//    spectrum), each warp's 4 spectra against the [cos; -sin] [16 x 8]
+//    matrix held in registers, one mma.sync m16n8k8 per spectrum and 8
+//    columns (one MMA a sum, so nothing chains); stage B 32 k2 rows x 16 T
+//    columns (two spectra) a warp, m16n8k16 chained.
 //
 // What bounds it on the card. The split's floor is 8.0 ms at the flagship:
 // the FIR pass's operations (2.48 ms) and the DFT's 5.5 TFLOP of bf16
-// (5.56 ms). The FIR pass's time is in PERF.md. The DFT pass runs at
-// about a sixth of its floor, far from the HBM rate and the bf16 peak
-// alike. By its design's count each unit pulls ~0.5 MB through L2 (the
-// plane's rows once per chunk, so 4 times a spectrum at the flagship; the
-// chunk's DFT rows; the whole N2-point matrix; the chunk's f32 twiddles and
-// rotation values, which the epilogues read with every warp waiting), 84 GB
-// a flagship step, and its 16 warps each load their own mma.sync
-// fragments, so shared-memory reads compete with the MMAs. wgmma, which
-// reads its operands from shared memory once a warpgroup, TMA tiles, and a
-// cluster that multicasts the plane and the N2-point matrix to the chunks
-// of one spectrum are the next steps. At N1 = 8 the work is 0.5 MFLOP a
-// spectrum against 3 KB in and out, so the FIR pass's bytes bound it.
+// (5.56 ms). The pass's time, its stops' and its bound are in PERF.md. A
+// flagship unit of the wgmma body reads through L2 the plane once (128 KB),
+// the chunk's N1-point rows once a pass (2 x 64 KB), the N2-point matrix
+// once (128 KB), the chunk's f32 twiddles (128 KB) and rotation values (64
+// KB), and writes 16 KB: 592 KB a unit, 97 GB a flagship step (163,840
+// units), by the count that gave the mma.sync body 84 GB (512 KB a unit:
+// the N1-point rows once). The second read of the N1-point rows is the
+// price of a consumer's 64-column tile: its fragment and master sums take
+// 128 of its registers, so a pass covers 128 columns. The two consumers
+// share each slot, so their epilogues fall together rather than one
+// running beside the other's MMAs (a one-time skew of one consumer by two
+// slots, tried, did not hold); the staged twiddles and rotation values
+// shorten them instead. A cluster that multicasts the plane and the
+// N2-point matrix to the chunks of a spectrum, and consumers that ping-pong
+// on slots of their own, are left open (PERF.md §7). At N1 = 8 the work is
+// 0.5 MFLOP a spectrum against 3 KB in and out, so the FIR pass's bytes
+// bound it.
 //
 // f32 DFT operands (the engines' fengine="fused_f32", "exact f32 MACs")
 // with N2 <= 1024 run as two passes as well: k1_fir_kernel writes the exact
@@ -134,9 +176,8 @@
 //    a spectrum. So T goes to device memory between two GEMM-shaped passes,
 //    one block a tile, each tile's K loop through a cp.async ring:
 //      k1_stage_a_kernel (bf16: mma.sync m16n8k16 from the ring, each MMA's
-//        sum added in f32 round-to-nearest, as the DFT pass's stage A: at K
-//        = N1 = 2048 chained sums would flip more bf16 roundings of T than
-//        at 1024) and k1_stage_a_f32_kernel (FFMA, 4 k1 x (cos, -sin) x 8
+//        sum added in f32 round-to-nearest: at K = N1 = 2048 chained sums
+//        would flip more bf16 roundings of T than at 1024) and k1_stage_a_f32_kernel (FFMA, 4 k1 x (cos, -sin) x 8
 //        columns a thread): [2·N1 x N1] (the cos and -sin rows paired, so one
 //        thread holds both sums of a (k1, n2)) x the plane [N1 x N2] of each
 //        spectrum, the f32 twiddle in the epilogue, T re and im stored
@@ -202,6 +243,8 @@
 //   STOP_DIT_DEINT — the FIR rounded to bf16, split: sample 2m to outr[m],
 //                    2m + 1 to outi[m].
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -807,51 +850,41 @@ __global__ void __launch_bounds__(FIR_THREADS, FIR_BLOCKS)
 }
 
 // ---------------------------------------------------------------------------
-// Pass 2: the DFT on the tensor cores
+// Pass 2, N1 = 8: the DFT on mma.sync
 // ---------------------------------------------------------------------------
 constexpr int DFT_THREADS = 512;  // 16 warps: one block an SM
-constexpr int DFT_WARPS = DFT_THREADS / 32;
 constexpr int PAD = 8;            // row padding (elements): conflict-free smem reads
 
 using bf16 = __nv_bfloat16;
 
+// A unit at N1 = 8: 16 spectra of 8 k1 rows, side by side as KC_N8 T rows
+// (spectrum, k1).
+constexpr int KC_N8 = 128;
+constexpr int SB_N8 = KC_N8 / 8;
+// Stage A: warps 4 x 4, each 4 spectra's 8 k1 rows (32 T rows) x 32 n2
+// columns, N8_NA columns a tile. Stage B: warps 2 x 8, each 32 k2 rows x 16
+// T columns (two spectra), N8_MB rows a tile.
+constexpr int N8_NA = 128;
+constexpr int N8_MB = 64;
+
 struct DftParams {
-  const bf16* plane;  // [G, S, N1, N2]
-  const bf16* d1c;    // [N1, N1] cos
-  const bf16* d1s;    // [N1, N1] -sin
+  const bf16* plane;  // [G, S, 8, N2]
+  const bf16* d1c;    // [8, 8] cos
+  const bf16* d1s;    // [8, 8] -sin
   const bf16* d2;     // [N2, N2]: cos rows k2 < N2/2, then -sin rows
-  const float* twc;   // [N1, N2]
+  const float* twc;   // [8, N2]
   const float* tws;
   const float* rotc;  // [G, C]
   const float* rots;
   void* outr;         // [G, S, C] int8, or f32 without the requant
   void* outi;
-  int n_spectra, n1, n2;
-  int kt, ktb;                  // stage-A / stage-B K-tile depths
-  int n_ca, n_kta, n_rb, n_ktb;  // column tiles x K tiles, row tiles x K tiles
-  int n_chunks;
-  int sb, n_sblk;               // spectra a unit (1, or 16 at N1 = 8); blocks of them a batch
-  int n_units;                  // G * n_sblk * n_chunks
-  int slot;                     // bf16 elements per ring slot
-  int stages;                   // ring depth: 3 or 4
-};
-
-// T rows of a unit at N1 = 8: 16 spectra of 8 k1 rows, side by side.
-constexpr int KC_N8 = 128;
-
-// The tile shapes of a KC-row chunk. Stage A: warps MW x NW, each WM k1 rows
-// (cos and -sin) x 32 n2 columns: NA columns a tile (at N1 = 8: WM rows are
-// 4 spectra's 8 k1 rows). Stage B: warps (16 / NWB) x NWB, each 32 k2 rows
-// x 16 k1 columns: MB rows a tile.
-template <int KC>
-struct Shape {
-  static constexpr int WM = KC < 32 ? KC : 32;
-  static constexpr int MI = WM / 16;
-  static constexpr int MW = KC / WM;
-  static constexpr int NW = DFT_WARPS / MW;
-  static constexpr int NA = 32 * NW;
-  static constexpr int NWB = KC / 16;
-  static constexpr int MB = 32 * (DFT_WARPS / NWB);
+  int n_spectra, n2;
+  int ktb;                // stage-B K-tile depth
+  int n_ca, n_rb, n_ktb;  // stage-A column tiles; stage-B row tiles x K tiles
+  int n_sblk;             // blocks of 16 spectra a batch
+  int n_units;            // G * n_sblk
+  int slot;               // bf16 elements per ring slot
+  int stages;             // ring depth: 3 or 4
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -891,11 +924,11 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t a[4], uint32_t
 }
 
 // d += a * b, the MMA summing its 16 products alone and the sum added to d
-// in f32 round-to-nearest. Chained through the MMA's own accumulator, the
-// running sum is rounded by the tensor core's alignment at every step; over
-// the N1 products of a stage-A sum that drifts far enough from an f32 sum to
-// flip bf16 roundings of T (stage B's sums end in int8 codes, which they do
-// not move).
+// in f32 round-to-nearest (the three-pass route's stage A). Chained through
+// the MMA's own accumulator, the running sum is rounded by the tensor core's
+// alignment at every step; over the N1 products of a stage-A sum that drifts
+// far enough from an f32 sum to flip bf16 roundings of T (stage B's sums end
+// in int8 codes, which they do not move).
 __device__ __forceinline__ void mma16816_rn(float* d, const uint32_t a[4], uint32_t b0,
                                             uint32_t b1) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
@@ -918,456 +951,232 @@ __device__ __forceinline__ void mma1688(float* d, uint32_t a0, uint32_t a1, uint
 __device__ __forceinline__ int lg(int v) { return __ffs(v) - 1; }
 
 // A walk through this block's tile sequence: unit i of the block (unit
-// blockIdx.x + i * gridDim.x), tile `local` of the unit; the unit's
-// (batch, spectra, chunk) only changes every tpu tiles.
+// blockIdx.x + i * gridDim.x), tile `local` of the unit: stage A's column
+// tiles, then stage B's (row tile, K tile); the unit's (batch, spectra) only
+// changes every tpu tiles.
 struct Cursor {
   int i, local;
-  int b, s, k0;  // s: the unit's first spectrum; k0: the chunk's first k1 row
+  int b, s;  // s: the unit's first spectrum
 };
 
-template <int KC>
 __device__ __forceinline__ void set_unit(const DftParams& p, Cursor& c) {
   const int u = blockIdx.x + c.i * gridDim.x;
-  c.k0 = (u & (p.n_chunks - 1)) * KC;
-  const int rest = u >> lg(p.n_chunks);
-  c.s = (rest % p.n_sblk) * p.sb;
-  c.b = rest / p.n_sblk;
+  c.s = (u % p.n_sblk) * SB_N8;
+  c.b = u / p.n_sblk;
 }
 
-template <int KC>
 __device__ __forceinline__ void advance(const DftParams& p, Cursor& c, int tpu) {
   if (++c.local == tpu) {
     c.local = 0;
     ++c.i;
-    set_unit<KC>(p, c);
+    set_unit(p, c);
   }
-}
-
-// Tile `local` of a unit: stage A (column tile, K tile) for local < nA,
-// then stage B (row tile, K tile).
-struct Tile {
-  bool stage_a;
-  int outer, kidx;
-};
-
-__device__ __forceinline__ Tile place(const DftParams& p, int local, int nA) {
-  Tile w;
-  w.stage_a = local < nA;
-  if (w.stage_a) {
-    w.outer = local >> lg(p.n_kta);
-    w.kidx = local & (p.n_kta - 1);
-  } else {
-    const int l = local - nA;
-    w.outer = l >> lg(p.n_ktb);
-    w.kidx = l & (p.n_ktb - 1);
-  }
-  return w;
 }
 
 // Issue the cp.async copies of one tile into a ring slot (every thread,
 // 16 bytes a copy; rows land padded: conflict-free ldmatrix).
-template <int KC>
-__device__ __forceinline__ void load_tile(const DftParams& p, const Cursor& c, int nA,
-                                          bf16* slot) {
-  using S = Shape<KC>;
-  const int tid = threadIdx.x;
-  const int n1 = p.n1, n2 = p.n2;
-  const Tile w = place(p, c.local, nA);
-  if (KC == KC_N8 && w.stage_a) {
-    // [KC x cols] of the plane: the unit's spectra, 8 rows each (their
+__device__ __forceinline__ void load_tile(const DftParams& p, const Cursor& c, bf16* slot) {
+  const int tid = threadIdx.x, n2 = p.n2;
+  if (c.local < p.n_ca) {
+    // [KC_N8 x cols] of the plane: the unit's spectra, 8 rows each (their
     // N1-point matrix is in registers). Spectra past the stream's last are
     // not loaded (their T columns are never stored).
-    const int lx = lg(min(S::NA, n2) / 8), nx = KC << lx;
-    const int rows = min(KC, (p.n_spectra - c.s) * 8);
+    const int lx = lg(min(N8_NA, n2) / 8), nx = KC_N8 << lx;
+    const int rows = min(KC_N8, (p.n_spectra - c.s) * 8);
     const bf16* xsrc = p.plane + (static_cast<long long>(c.b) * p.n_spectra + c.s) * 8 * n2 +
-                       w.outer * S::NA;
+                       c.local * N8_NA;
     for (int i = tid; i < nx; i += DFT_THREADS) {
       const int r = i >> lx, q = i & ((1 << lx) - 1);
       if (r < rows) {
-        cp_async16(slot + r * (S::NA + PAD) + q * 8, xsrc + static_cast<long long>(r) * n2 + q * 8);
-      }
-    }
-  } else if (w.stage_a) {
-    // [kt x cols] of the plane (cols/8 pieces a row), then the chunk's
-    // [KC x kt] cos and -sin rows of the N1-point matrix.
-    const int kt = p.kt, ktp = kt + PAD;
-    const int lx = lg(min(S::NA, n2) / 8), ld = lg(kt / 8);
-    const int nx = kt << lx, nd = KC << ld;
-    const bf16* xsrc = p.plane +
-                       ((static_cast<long long>(c.b) * p.n_spectra + c.s) * n1 + w.kidx * kt) * n2 +
-                       w.outer * S::NA;
-    bf16* sd = slot + kt * (S::NA + PAD);
-    for (int i = tid; i < nx + 2 * nd; i += DFT_THREADS) {
-      if (i < nx) {
-        const int r = i >> lx, q = i & ((1 << lx) - 1);
-        cp_async16(slot + r * (S::NA + PAD) + q * 8, xsrc + static_cast<long long>(r) * n2 + q * 8);
-      } else {
-        const int j = i - nx, m = j >= nd, jj = j - m * nd;
-        const int r = jj >> ld, q = jj & ((1 << ld) - 1);
-        const bf16* src = (m ? p.d1s : p.d1c) + (c.k0 + r) * n1 + w.kidx * kt + q * 8;
-        cp_async16(sd + (m * KC + r) * ktp + q * 8, src);
+        cp_async16(slot + r * (N8_NA + PAD) + q * 8, xsrc + static_cast<long long>(r) * n2 + q * 8);
       }
     }
   } else {
     // [rows x ktb] of the N2-point matrix's cos rows, then its -sin rows.
+    const int l = c.local - p.n_ca, outer = l >> lg(p.n_ktb), kidx = l & (p.n_ktb - 1);
     const int ktb = p.ktb, ktp = ktb + PAD, h = n2 / 2;
-    const int ld = lg(ktb / 8), nd = min(S::MB, h) << ld;
-    const int r0 = w.outer * S::MB;
+    const int ld = lg(ktb / 8), nd = min(N8_MB, h) << ld;
+    const int r0 = outer * N8_MB;
     for (int i = tid; i < 2 * nd; i += DFT_THREADS) {
       const int m = i >= nd, j = i - m * nd;
       const int r = j >> ld, q = j & ((1 << ld) - 1);
-      const bf16* src = p.d2 + static_cast<long long>(m * h + r0 + r) * n2 + w.kidx * ktb + q * 8;
-      cp_async16(slot + (m * S::MB + r) * ktp + q * 8, src);
+      const bf16* src = p.d2 + static_cast<long long>(m * h + r0 + r) * n2 + kidx * ktb + q * 8;
+      cp_async16(slot + (m * N8_MB + r) * ktp + q * 8, src);
     }
   }
 }
 
-template <int KC, bool QUANT, int STOP = STOP_NONE>
+template <bool QUANT>
 __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
-  using S = Shape<KC>;
-  constexpr bool N8 = KC == KC_N8;  // N1 = 8: T rows are (spectrum, k1)
-  static_assert(!N8 || STOP == STOP_NONE, "the stops take the N1 = N2 plans only");
-  static_assert(STOP != STOP_STAGEA || QUANT, "P5's stagea writes int8");
-  constexpr bool STAGEA_STOP = STOP == STOP_STAGEA || STOP == STOP_STAGEA_RND;
-  // The stop bodies load each twiddle pair where they use it (see below).
-  constexpr bool LATE_TW = STOP != STOP_NONE;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
-  const int n1 = p.n1, n2 = p.n2, h = n2 / 2, C = n1 * n2 / 2;
+  const int n2 = p.n2, h = n2 / 2, C = 4 * n2;
   const int tld = n2 + PAD;
   const int stages = p.stages;
-  bf16* sTr = smem;  // [KC][N2 + PAD]
-  bf16* sTi = sTr + KC * tld;
-  bf16* ring = sTi + KC * tld;
+  bf16* sTr = smem;  // [KC_N8][N2 + PAD]
+  bf16* sTi = sTr + KC_N8 * tld;
+  bf16* ring = sTi + KC_N8 * tld;
 
-  const int nA = p.n_ca * p.n_kta, tpu = nA + p.n_rb * p.n_ktb;
+  const int tpu = p.n_ca + p.n_rb * p.n_ktb;
   const int my_units = (p.n_units - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
   const int n_tiles = my_units * tpu;
 
-  // Warp placement. Stage A: k1 rows a_r0.., n2 columns a_c0.. of the tile.
-  const int a_r0 = (warp / S::NW) * S::WM, a_c0 = (warp % S::NW) * 32;
-  // Stage B: k2 rows b_r0.. of the row tile, k1 columns b_c0.. of the chunk.
-  const int b_r0 = (warp / S::NWB) * 32, b_c0 = (warp % S::NWB) * 16;
+  // Warp placement. Stage A: T rows a_r0.. (4 spectra), n2 columns a_c0.. of
+  // the tile. Stage B: k2 rows b_r0.. of the row tile, T columns b_c0.. (two
+  // spectra).
+  const int a_r0 = (warp / 4) * 32, a_c0 = (warp % 4) * 32;
+  const int b_r0 = (warp / 8) * 32, b_c0 = (warp % 8) * 16;
 
   // One register array for both stages' accumulators (64 f32 a thread).
-  // Stage A: [cos/sin][MI][4 n8][4] (N1 = 8: [4 spectra][4 n8][4], the
-  // m16n8k8 tile's rows g the cos sums and g + 8 the -sin sums of k1 = g);
-  // stage B: [4 sums][2 m16][2 n8][4], sums cos.tr, -sin.ti, cos.ti, -sin.tr.
+  // Stage A: [4 spectra][4 n8][4], the m16n8k8 tile's rows g the cos sums and
+  // g + 8 the -sin sums of k1 = g; stage B: [4 sums][2 m16][2 n8][4], sums
+  // cos.tr, -sin.ti, cos.ti, -sin.tr.
   float acc[64];
 
-  Cursor ld{0, 0, 0, 0, 0};  // the next tile to load
-  set_unit<KC>(p, ld);
+  Cursor ld{0, 0, 0, 0};  // the next tile to load
+  set_unit(p, ld);
   Cursor cc = ld;  // the tile to compute
   for (int t = 0; t < stages - 1; ++t) {
     if (t < n_tiles) {
-      load_tile<KC>(p, ld, nA, ring + t * p.slot);
-      advance<KC>(p, ld, tpu);
+      load_tile(p, ld, ring + t * p.slot);
+      advance(p, ld, tpu);
     }
     cp_async_commit();
   }
 
   int slot_i = 0;  // tile t's slot, t % stages
-  for (int t = 0; t < n_tiles; ++t, advance<KC>(p, cc, tpu)) {
+  for (int t = 0; t < n_tiles; ++t, advance(p, cc, tpu)) {
     cp_async_wait_ring(stages);
     __syncthreads();  // tile t landed for every thread; tile t-1's slot is free
     if (t + stages - 1 < n_tiles) {
       const int s_load = slot_i == 0 ? stages - 1 : slot_i - 1;  // (t + stages - 1) % stages
-      load_tile<KC>(p, ld, nA, ring + s_load * p.slot);
-      advance<KC>(p, ld, tpu);
+      load_tile(p, ld, ring + s_load * p.slot);
+      advance(p, ld, tpu);
     }
     cp_async_commit();
-    const Tile w = place(p, cc.local, nA);
     const bf16* slot = ring + slot_i * p.slot;
     slot_i = slot_i + 1 == stages ? 0 : slot_i + 1;
-    const int k0 = cc.k0;
-    if (w.stage_a) {
-      const int col = w.outer * S::NA + a_c0;  // first n2 column of the warp
+    if (cc.local < p.n_ca) {
+      const int col = cc.local * N8_NA + a_c0;  // first n2 column of the warp
       if (col >= n2) continue;
-      if (w.kidx == 0) {
+      const int xld = N8_NA + PAD;
+      // The [cos; -sin] [16 x 8] A fragment of m16n8k8 (row g of each, from
+      // L1), against the warp's 4 spectra, 8 rows each, x 4 column tiles of 8.
+      const uint32_t a0 = __ldg(reinterpret_cast<const unsigned int*>(p.d1c + g * 8 + tig * 2));
+      const uint32_t a1 = __ldg(reinterpret_cast<const unsigned int*>(p.d1s + g * 8 + tig * 2));
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int j = 0; j < 4; ++j) {
+        uint32_t fb[4];
+        ldsm_x4_t(fb, slot + (a_r0 + j * 8 + lane % 8) * xld + a_c0 + (lane / 8) * 8);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) mma1688(acc + (j * 4 + m) * 4, a0, a1, fb[m]);
       }
-      const int kt = p.kt, ktp = kt + PAD, xld = S::NA + PAD;
-      const bf16* sX = slot;
-      const bf16* sAc = slot + kt * xld;
-      const bf16* sAs = sAc + KC * ktp;
-      if constexpr (N8) {
-        // The [cos; -sin] [16 x 8] A fragment of m16n8k8 (row g of each,
-        // from L1), against the warp's 4 spectra, 8 rows each, x 4 column
-        // tiles of 8.
-        const uint32_t a0 = __ldg(reinterpret_cast<const unsigned int*>(p.d1c + g * 8 + tig * 2));
-        const uint32_t a1 = __ldg(reinterpret_cast<const unsigned int*>(p.d1s + g * 8 + tig * 2));
+      // f32 twiddle, bf16 rounding, into the T planes.
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int n = col + m * 8 + tig * 2;
+        const float2 c = __ldg(reinterpret_cast<const float2*>(p.twc + g * n2 + n));
+        const float2 sn = __ldg(reinterpret_cast<const float2*>(p.tws + g * n2 + n));
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          uint32_t fb[4];
-          ldsm_x4_t(fb, sX + (a_r0 + j * 8 + lane % 8) * xld + a_c0 + (lane / 8) * 8);
-#pragma unroll
-          for (int m = 0; m < 4; ++m) mma1688(acc + (j * 4 + m) * 4, a0, a1, fb[m]);
+          const float* a = acc + (j * 4 + m) * 4;  // ar, ar, ai, ai of k1 = g
+          const int r = a_r0 + j * 8 + g;
+          *reinterpret_cast<__nv_bfloat162*>(sTr + r * tld + n) = __floats2bfloat162_rn(
+              __fsub_rn(__fmul_rn(a[0], c.x), __fmul_rn(a[2], sn.x)),
+              __fsub_rn(__fmul_rn(a[1], c.y), __fmul_rn(a[3], sn.y)));
+          *reinterpret_cast<__nv_bfloat162*>(sTi + r * tld + n) = __floats2bfloat162_rn(
+              __fadd_rn(__fmul_rn(a[0], sn.x), __fmul_rn(a[2], c.x)),
+              __fadd_rn(__fmul_rn(a[1], sn.y), __fmul_rn(a[3], c.y)));
         }
       }
-      for (int kk = 0; !N8 && kk < kt; kk += 16) {
-        uint32_t fa[2][S::MI][4], fb[2][4];
+      continue;
+    }
+    const int l = cc.local - p.n_ca, outer = l >> lg(p.n_ktb), kidx = l & (p.n_ktb - 1);
+    const int row = outer * N8_MB + b_r0;  // first k2 row of the warp
+    if (row >= h) continue;
+    if (kidx == 0) {
 #pragma unroll
-        for (int i = 0; i < S::MI; ++i) {
-          const int r = a_r0 + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
-          ldsm_x4(fa[0][i], sAc + r * ktp + c);
-          ldsm_x4(fa[1][i], sAs + r * ktp + c);
-        }
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    }
+    const int ktb = p.ktb, ktp = ktb + PAD;
+    const bf16* sC = slot;
+    const bf16* sS = slot + N8_MB * ktp;
+    for (int kk = 0; kk < ktb; kk += 16) {
+      uint32_t fc[2][4], fs[2][4], ftr[4], fti[4];
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int r = kk + lane % 8 + ((lane / 8) % 2) * 8;
-          ldsm_x4_t(fb[jj], sX + r * xld + a_c0 + jj * 16 + (lane / 16) * 8);
-        }
+      for (int i = 0; i < 2; ++i) {
+        const int r = b_r0 + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
+        ldsm_x4(fc[i], sC + r * ktp + c);
+        ldsm_x4(fs[i], sS + r * ktp + c);
+      }
+      {
+        const int r = b_c0 + lane % 8 + (lane / 16) * 8;
+        const int c = kidx * ktb + kk + ((lane / 8) % 2) * 8;
+        ldsm_x4(ftr, sTr + r * tld + c);
+        ldsm_x4(fti, sTi + r * tld + c);
+      }
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
+      for (int i = 0; i < 2; ++i) {
 #pragma unroll
-          for (int i = 0; i < S::MI; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              mma16816_rn(acc + ((m * S::MI + i) * 4 + j) * 4, fa[m][i],
-                          fb[j / 2][(j % 2) * 2], fb[j / 2][(j % 2) * 2 + 1]);
-            }
-          }
+        for (int j = 0; j < 2; ++j) {
+          float* a0 = acc + (i * 2 + j) * 4;
+          mma16816(a0 + 0 * 16, fc[i], ftr[2 * j], ftr[2 * j + 1]);
+          mma16816(a0 + 1 * 16, fs[i], fti[2 * j], fti[2 * j + 1]);
+          mma16816(a0 + 2 * 16, fc[i], fti[2 * j], fti[2 * j + 1]);
+          mma16816(a0 + 3 * 16, fs[i], ftr[2 * j], ftr[2 * j + 1]);
         }
       }
-      if (w.kidx == p.n_kta - 1) {
-        // f32 twiddle, bf16 rounding, into the T planes. Each 16-row group's
-        // twiddles are loaded together first: the L2 round trips overlap.
-        // (The stagea stops write T's rows k1 < N1/2 instead: whole chunks,
-        // since every plan's KC (64, 32, 16) divides N1/2 at N1 = N2, from
-        // one base: element (b, s, k0 + r, n) at o + r * N2 + n.)
-        if constexpr (N8) {
+    }
+    if (kidx != p.n_ktb - 1) continue;
+    // re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr); rotate; store. The
+    // rotation planes' values are loaded together first. T column b_c0 + j *
+    // 8 + e is k1 = tig * 2 + e of spectrum cc.s + b_c0 / 8 + j.
+    const long long obase = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C;
+    const float* rc_b = p.rotc + static_cast<long long>(cc.b) * C;
+    const float* rs_b = p.rots + static_cast<long long>(cc.b) * C;
+    float2 rc[2][2], rs[2][2];
 #pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const int n = col + m * 8 + tig * 2;
-            const float2 c = __ldg(reinterpret_cast<const float2*>(p.twc + g * n2 + n));
-            const float2 sn = __ldg(reinterpret_cast<const float2*>(p.tws + g * n2 + n));
+    for (int i = 0; i < 2; ++i) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float* a = acc + (j * 4 + m) * 4;  // ar, ar, ai, ai of k1 = g
-              const int r = a_r0 + j * 8 + g;
-              *reinterpret_cast<__nv_bfloat162*>(sTr + r * tld + n) = __floats2bfloat162_rn(
-                  __fsub_rn(__fmul_rn(a[0], c.x), __fmul_rn(a[2], sn.x)),
-                  __fsub_rn(__fmul_rn(a[1], c.y), __fmul_rn(a[3], sn.y)));
-              *reinterpret_cast<__nv_bfloat162*>(sTi + r * tld + n) = __floats2bfloat162_rn(
-                  __fadd_rn(__fmul_rn(a[0], sn.x), __fmul_rn(a[2], c.x)),
-                  __fadd_rn(__fmul_rn(a[1], sn.y), __fmul_rn(a[3], c.y)));
-            }
-          }
-          continue;
-        }
-        long long stop_o = 0;
-        if constexpr (STAGEA_STOP) {
-          if (k0 >= n1 / 2) continue;
-          stop_o = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C +
-                   static_cast<long long>(k0) * n2;
-        }
-#pragma unroll
-        for (int i = 0; i < S::MI; ++i) {
-          float2 wc[4][2], ws[4][2];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const long long o = static_cast<long long>(k0 + a_r0 + i * 16 + g + hh * 8) * n2 +
-                                  col + j * 8 + tig * 2;
-              if constexpr (!LATE_TW) {
-                wc[j][hh] = __ldg(reinterpret_cast<const float2*>(p.twc + o));
-                ws[j][hh] = __ldg(reinterpret_cast<const float2*>(p.tws + o));
-              }
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int r = a_r0 + i * 16 + g + hh * 8;
-              const int n = col + j * 8 + tig * 2;
-              const float* cr = acc + ((0 * S::MI + i) * 4 + j) * 4 + hh * 2;
-              const float* ci = acc + ((1 * S::MI + i) * 4 + j) * 4 + hh * 2;
-              float2 c = wc[j][hh], sn = ws[j][hh];
-              if constexpr (LATE_TW) {
-                // The stop bodies load each twiddle pair where they use it
-                // (wc, ws stay unset): loaded together, as above, the stagea
-                // bodies spilled 24 bytes, and the stageb bodies more than
-                // with these loads. The values are the same; only the loads'
-                // order differs.
-                const long long o2 = static_cast<long long>(k0 + a_r0 + i * 16 + g + hh * 8) * n2 +
-                                     col + j * 8 + tig * 2;
-                c = __ldg(reinterpret_cast<const float2*>(p.twc + o2));
-                sn = __ldg(reinterpret_cast<const float2*>(p.tws + o2));
-              }
-              const float tr0 = __fsub_rn(__fmul_rn(cr[0], c.x), __fmul_rn(ci[0], sn.x));
-              const float tr1 = __fsub_rn(__fmul_rn(cr[1], c.y), __fmul_rn(ci[1], sn.y));
-              const float ti0 = __fadd_rn(__fmul_rn(cr[0], sn.x), __fmul_rn(ci[0], c.x));
-              const float ti1 = __fadd_rn(__fmul_rn(cr[1], sn.y), __fmul_rn(ci[1], c.y));
-              if constexpr (STOP == STOP_STAGEA) {
-                // P5's slice of T, before the rounding: rows k1 < N1/2.
-                stop_store2<true>(p.outr, stop_o + r * n2 + n, tr0, tr1);
-                stop_store2<true>(p.outi, stop_o + r * n2 + n, ti0, ti1);
-              } else if constexpr (STOP == STOP_STAGEA_RND) {
-                // The reference's slice: the rounded T, rows k1 < N1/2.
-                stop_store2<QUANT>(p.outr, stop_o + r * n2 + n, round_bf16(tr0), round_bf16(tr1));
-                stop_store2<QUANT>(p.outi, stop_o + r * n2 + n, round_bf16(ti0), round_bf16(ti1));
-              } else {
-                *reinterpret_cast<__nv_bfloat162*>(sTr + r * tld + n) =
-                    __floats2bfloat162_rn(tr0, tr1);
-                *reinterpret_cast<__nv_bfloat162*>(sTi + r * tld + n) =
-                    __floats2bfloat162_rn(ti0, ti1);
-              }
-            }
-          }
-        }
+      for (int hh = 0; hh < 2; ++hh) {
+        const int ch = (row + i * 16 + g + hh * 8) * 8 + tig * 2;
+        rc[i][hh] = __ldg(reinterpret_cast<const float2*>(rc_b + ch));
+        rs[i][hh] = __ldg(reinterpret_cast<const float2*>(rs_b + ch));
       }
-    } else if constexpr (!STAGEA_STOP) {  // (a stagea stop has no stage-B tiles)
-      const int row = w.outer * S::MB + b_r0;  // first k2 row of the warp
-      if (row >= h) continue;
-      if (w.kidx == 0) {
+    }
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-      }
-      const int ktb = p.ktb, ktp = ktb + PAD;
-      const bf16* sC = slot;
-      const bf16* sS = slot + S::MB * ktp;
-      if constexpr (STOP == STOP_STAGEB) {
-        // The stageb stop bodies run stage B's steps through this lambda,
-        // two an iteration: written as the pass's loop below, rolled or
-        // not, they spilled. This form spills nothing, and runs stage B a
-        // little slower than that loop (PERF.md §6).
-        auto step = [&](int kk) {
-          uint32_t fc[2][4], fs[2][4], ftr[4], fti[4];
+    for (int i = 0; i < 2; ++i) {
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int r = b_r0 + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
-            ldsm_x4(fc[i], sC + r * ktp + c);
-            ldsm_x4(fs[i], sS + r * ktp + c);
+      for (int j = 0; j < 2; ++j) {
+        const int sp = b_c0 / 8 + j;  // the column's spectrum in the unit
+        if (cc.s + sp >= p.n_spectra) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float* a0 = acc + (i * 2 + j) * 4 + hh * 2;
+          const long long o =
+              obase + static_cast<long long>(sp) * C + (row + i * 16 + g + hh * 8) * 8 + tig * 2;
+          float v[2][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float re = __fsub_rn(a0[e], a0[16 + e]);
+            const float im = __fadd_rn(a0[32 + e], a0[48 + e]);
+            const float c = e ? rc[i][hh].y : rc[i][hh].x;
+            const float sn = e ? rs[i][hh].y : rs[i][hh].x;
+            v[0][e] = __fsub_rn(__fmul_rn(re, c), __fmul_rn(im, sn));
+            v[1][e] = __fadd_rn(__fmul_rn(re, sn), __fmul_rn(im, c));
           }
-          {
-            const int r = b_c0 + lane % 8 + (lane / 16) * 8;
-            const int c = w.kidx * ktb + kk + ((lane / 8) % 2) * 8;
-            ldsm_x4(ftr, sTr + r * tld + c);
-            ldsm_x4(fti, sTi + r * tld + c);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              float* a0 = acc + (i * 2 + j) * 4;
-              mma16816(a0 + 0 * 16, fc[i], ftr[2 * j], ftr[2 * j + 1]);
-              mma16816(a0 + 1 * 16, fs[i], fti[2 * j], fti[2 * j + 1]);
-              mma16816(a0 + 2 * 16, fc[i], fti[2 * j], fti[2 * j + 1]);
-              mma16816(a0 + 3 * 16, fs[i], ftr[2 * j], ftr[2 * j + 1]);
-            }
-          }
-        };
-#pragma unroll 2
-        for (int kk = 0; kk < ktb; kk += 16) step(kk);
-      } else {
-        for (int kk = 0; kk < ktb; kk += 16) {
-          uint32_t fc[2][4], fs[2][4], ftr[4], fti[4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int r = b_r0 + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
-            ldsm_x4(fc[i], sC + r * ktp + c);
-            ldsm_x4(fs[i], sS + r * ktp + c);
-          }
-          {
-            const int r = b_c0 + lane % 8 + (lane / 16) * 8;
-            const int c = w.kidx * ktb + kk + ((lane / 8) % 2) * 8;
-            ldsm_x4(ftr, sTr + r * tld + c);
-            ldsm_x4(fti, sTi + r * tld + c);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              float* a0 = acc + (i * 2 + j) * 4;
-              mma16816(a0 + 0 * 16, fc[i], ftr[2 * j], ftr[2 * j + 1]);
-              mma16816(a0 + 1 * 16, fs[i], fti[2 * j], fti[2 * j + 1]);
-              mma16816(a0 + 2 * 16, fc[i], fti[2 * j], fti[2 * j + 1]);
-              mma16816(a0 + 3 * 16, fs[i], ftr[2 * j], ftr[2 * j + 1]);
-            }
-          }
-        }
-      }
-      if constexpr (STOP == STOP_STAGEB) {
-        if (w.kidx != p.n_ktb - 1) continue;
-        // re, im without the rotation, truncated or f32.
-        const long long obase = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const float* a0 = acc + (i * 2 + j) * 4 + hh * 2;
-              const int ch = (row + i * 16 + g + hh * 8) * n1 + k0 + b_c0 + j * 8 + tig * 2;
-              stop_store2<QUANT>(p.outr, obase + ch, __fsub_rn(a0[0], a0[16]),
-                                 __fsub_rn(a0[1], a0[17]));
-              stop_store2<QUANT>(p.outi, obase + ch, __fadd_rn(a0[32], a0[48]),
-                                 __fadd_rn(a0[33], a0[49]));
-            }
-          }
-        }
-      } else if (w.kidx == p.n_ktb - 1) {
-        // re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr); rotate; store.
-        // The rotation planes' values are loaded together first. T column
-        // b_c0 + j * 8 + e is k1 row k0 + that of spectrum cc.s, or (N1 = 8)
-        // k1 = tig * 2 + e of spectrum cc.s + b_c0 / 8 + j.
-        const long long obase = (static_cast<long long>(cc.b) * p.n_spectra + cc.s) * C;
-        int kcol[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) kcol[j] = N8 ? tig * 2 : k0 + b_c0 + j * 8 + tig * 2;
-        const float* rc_b = p.rotc + static_cast<long long>(cc.b) * C;
-        const float* rs_b = p.rots + static_cast<long long>(cc.b) * C;
-        float2 rc[2][2][2], rs[2][2][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int ch = (row + i * 16 + g + hh * 8) * n1 + kcol[j];
-              rc[i][j][hh] = __ldg(reinterpret_cast<const float2*>(rc_b + ch));
-              rs[i][j][hh] = __ldg(reinterpret_cast<const float2*>(rs_b + ch));
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int sp = N8 ? b_c0 / 8 + j : 0;  // the column's spectrum in the unit
-            if (N8 && cc.s + sp >= p.n_spectra) continue;
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const float* a0 = acc + (i * 2 + j) * 4 + hh * 2;
-              const long long o = obase + static_cast<long long>(sp) * C +
-                                  (row + i * 16 + g + hh * 8) * n1 + kcol[j];
-              float v[2][2];
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float re = __fsub_rn(a0[e], a0[16 + e]);
-                const float im = __fadd_rn(a0[32 + e], a0[48 + e]);
-                const float c = e ? rc[i][j][hh].y : rc[i][j][hh].x;
-                const float sn = e ? rs[i][j][hh].y : rs[i][j][hh].x;
-                v[0][e] = __fsub_rn(__fmul_rn(re, c), __fmul_rn(im, sn));
-                v[1][e] = __fadd_rn(__fmul_rn(re, sn), __fmul_rn(im, c));
-              }
-              if constexpr (QUANT) {
-                *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + o) =
-                    make_char2(requant(v[0][0]), requant(v[0][1]));
-                *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + o) =
-                    make_char2(requant(v[1][0]), requant(v[1][1]));
-              } else {
-                *reinterpret_cast<float2*>(static_cast<float*>(p.outr) + o) =
-                    make_float2(v[0][0], v[0][1]);
-                *reinterpret_cast<float2*>(static_cast<float*>(p.outi) + o) =
-                    make_float2(v[1][0], v[1][1]);
-              }
-            }
+          if constexpr (QUANT) {
+            *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + o) =
+                make_char2(requant(v[0][0]), requant(v[0][1]));
+            *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + o) =
+                make_char2(requant(v[1][0]), requant(v[1][1]));
+          } else {
+            *reinterpret_cast<float2*>(static_cast<float*>(p.outr) + o) =
+                make_float2(v[0][0], v[0][1]);
+            *reinterpret_cast<float2*>(static_cast<float*>(p.outi) + o) =
+                make_float2(v[1][0], v[1][1]);
           }
         }
       }
@@ -1376,46 +1185,34 @@ __global__ void __launch_bounds__(DFT_THREADS, 1) k1_dft_kernel(DftParams p) {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The tile depth, ring depth and bytes of a chunk of KC rows, 0 if it cannot
-// fit: the deepest K tiles (64, 32, 16) with 4 stages, else 3, that fit.
-// Deeper tiles mean fewer barriers a unit. KC_N8 is N1 = 8's plan: 16
-// spectra a unit, stage A one 8-deep tile of their whole planes.
-template <int KC>
+// N1 = 8's plan: the deepest stage-B K tiles (64, 32, 16) with 4 ring
+// stages, else 3, that fit beside the unit's T planes (fewer barriers a
+// unit); 0 where none does.
 size_t dft_plan(DftParams& p) {
-  using S = Shape<KC>;
-  constexpr bool N8 = KC == KC_N8;
-  if (N8 ? p.n1 != 8 : KC > p.n1) return 0;
-  const size_t t_bytes = sizeof(bf16) * 2 * static_cast<size_t>(KC) * (p.n2 + PAD);
+  const size_t t_bytes = sizeof(bf16) * 2 * static_cast<size_t>(KC_N8) * (p.n2 + PAD);
   for (int kt = 64; kt >= 16; kt /= 2) {
-    if (kt > (N8 ? p.n2 : p.n1)) continue;
-    const int kta = N8 ? 8 : kt;
-    const int a_slot = N8 ? KC * (S::NA + PAD) : kt * (S::NA + PAD) + 2 * KC * (kt + PAD);
-    const int b_slot = 2 * S::MB * (kt + PAD);
+    if (kt > p.n2) continue;
+    const int a_slot = KC_N8 * (N8_NA + PAD), b_slot = 2 * N8_MB * (kt + PAD);
     for (int stages = 4; stages >= 3; --stages) {
       const size_t bytes = t_bytes + sizeof(bf16) * static_cast<size_t>(stages) *
                                          static_cast<size_t>(max(a_slot, b_slot));
       if (bytes > MAX_SMEM) continue;
-      p.kt = kta;
       p.ktb = kt;
       p.slot = max(a_slot, b_slot);
       p.stages = stages;
-      p.n_ca = (p.n2 + S::NA - 1) / S::NA;
-      p.n_kta = p.n1 / kta;
-      p.n_rb = (p.n2 / 2 + S::MB - 1) / S::MB;
+      p.n_ca = (p.n2 + N8_NA - 1) / N8_NA;
+      p.n_rb = (p.n2 / 2 + N8_MB - 1) / N8_MB;
       p.n_ktb = p.n2 / kt;
-      p.n_chunks = N8 ? 1 : p.n1 / KC;
-      p.sb = N8 ? KC / 8 : 1;
-      p.n_sblk = (p.n_spectra + p.sb - 1) / p.sb;
+      p.n_sblk = (p.n_spectra + SB_N8 - 1) / SB_N8;
       return bytes;
     }
   }
   return 0;
 }
 
-template <int KC, bool QUANT, int STOP = STOP_NONE>
+template <bool QUANT>
 cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream) {
-  auto kern = k1_dft_kernel<KC, QUANT, STOP>;
-  if (STOP == STOP_STAGEA || STOP == STOP_STAGEA_RND) p.n_rb = 0;  // no stage-B tiles
+  auto kern = k1_dft_kernel<QUANT>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -1427,11 +1224,11 @@ cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, DFT_THREADS, bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long units = static_cast<long long>(batch) * p.n_sblk * p.n_chunks;
+  const long long units = static_cast<long long>(batch) * p.n_sblk;
   const long long resident = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(units < resident ? units : resident);
   // Unit indices and a block's tile count must fit an int.
-  const long long tpu = p.n_ca * p.n_kta + p.n_rb * p.n_ktb;
+  const long long tpu = p.n_ca + p.n_rb * p.n_ktb;
   if (units > 0x7fffffffLL - grid || ((units + grid - 1) / grid) * tpu > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
@@ -1440,30 +1237,742 @@ cudaError_t launch_dft(DftParams p, int batch, size_t bytes, cudaStream_t stream
   return cudaGetLastError();
 }
 
-// Calls fn(std::integral_constant<int, KC>, plan, bytes) with the largest
-// chunk whose T planes and ring fit (64 rows up to N2 = 256; KC_N8 at N1 =
-// 8), or returns NO_PLAN (N2 >= 2048: the three-pass route's splits).
-template <typename Fn>
-int with_dft_plan(const DftParams& p, Fn fn) {
-  DftParams q = p;
-  size_t bytes;
-  if (p.n1 == 8) {
-    if ((bytes = dft_plan<KC_N8>(q))) return fn(std::integral_constant<int, KC_N8>{}, q, bytes);
-    return NO_PLAN;
-  }
-  if ((bytes = dft_plan<64>(q))) return fn(std::integral_constant<int, 64>{}, q, bytes);
-  q = p;
-  if ((bytes = dft_plan<32>(q))) return fn(std::integral_constant<int, 32>{}, q, bytes);
-  q = p;
-  if ((bytes = dft_plan<16>(q))) return fn(std::integral_constant<int, 16>{}, q, bytes);
-  return NO_PLAN;
+template <bool QUANT>
+int n8_dispatch(DftParams p, int batch, cudaStream_t st) {
+  const size_t bytes = dft_plan(p);
+  if (!bytes) return NO_PLAN;
+  return static_cast<int>(launch_dft<QUANT>(p, batch, bytes, st));
 }
 
-template <bool QUANT>
-int dft_dispatch(const DftParams& p, int batch, cudaStream_t st) {
-  return with_dft_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
-    return static_cast<int>(launch_dft<decltype(kc)::value, QUANT>(q, batch, bytes, st));
-  });
+// ---------------------------------------------------------------------------
+// Pass 2, N1 >= 16: the DFT on wgmma, fed by TMA through an mbarrier ring
+// ---------------------------------------------------------------------------
+// (The design is at the head of the file, item 2.)
+constexpr int WG_THREADS = 384;      // the producer warpgroup, then two consumer warpgroups
+constexpr int WG_SLOT = 32768;       // bytes a ring slot
+constexpr int WG_MAX_STAGES = 4;     // ring slots, at most
+constexpr int WG_ALIGN = 1024;       // a 128-byte-swizzle atom: 8 rows x 128 bytes
+constexpr int WG_ROW = 128;          // bytes a staged row: 64 bf16
+constexpr int WG_PRODUCER_REGS = 40, WG_CONSUMER_REGS = 232;
+// Stage A's group depth in k-steps of 16 products: each group of wgmmas sums
+// into a fragment from zero, which is then added to the master sums in f32
+// round-to-nearest (PERF.md gives the flipped share at each depth).
+constexpr int WG_GROUP = 4;
+
+struct WgParams {
+  const float* twc;  // [N1, N2]
+  const float* tws;
+  const float* rotc;  // [G, C]
+  const float* rots;
+  void* outr;  // [G, S, C] int8, or f32 without the requant
+  void* outi;
+  int n_spectra, n1, n2;
+  int n_pass;    // stage-A passes a unit: N2 / 128 (a 64-column tile each consumer)
+  int n_ka;      // stage-A K slots a pass: N1 / KD
+  int n_pairs;   // stage-B steps a unit: pairs of (k2 tile, T column group) items
+  int n_kb;      // stage-B K slots a step: N2 / 64
+  int n_chunks;  // N1 / KC
+  int n_units;   // G * S * n_chunks
+  int stages;    // ring slots
+};
+
+// The unit's operands as 2-D tensor maps, 128-byte swizzle: bf16, the plane
+// viewed [G * S * N1, N2] (boxes KD rows x 64 columns), the N1-point matrices
+// [N1, N1] (boxes KC rows x 64 columns, columns past N1 read as zeros) and the
+// row-stacked N2-point matrix [N2, N2] (boxes 64 x 64); f32, the twiddles
+// [N1, N2] (boxes KC rows x 32 columns) and the rotation planes viewed [G *
+// N2/2, N1] (row b N2/2 + k2, column k1; boxes 64 rows x 32 columns).
+struct WgMaps {
+  CUtensorMap plane, d1c, d1s, d2, twc, tws, rotc, rots;
+};
+
+// Boxes of 32 f32 columns a rotation slot takes for each plane: an item's NB
+// columns, or one box where NB < 32 (its other columns unread).
+__host__ __device__ constexpr int wg_rot_boxes(int nb) { return nb < 32 ? 1 : nb / 32; }
+
+// The address of f32 element (row, col) of a staged box of 32 columns (128-
+// byte rows, 16-byte chunks swizzled by row % 8).
+__device__ __forceinline__ uint32_t wg_f32_at(uint32_t box, int row, int col) {
+  return box + row * WG_ROW + ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
+}
+
+__device__ __forceinline__ float2 wg_ld_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// Shared-memory bytes of the T planes of a KC-row chunk.
+__host__ __device__ constexpr int wg_t_bytes(int kc, int n2) { return 2 * kc * n2 * 2; }
+
+__device__ __forceinline__ void wg_mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wg_mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void wg_mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void wg_mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWG_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra WG_DONE;\nbra WG_WAIT;\nWG_DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// A box of a 2-D tensor map (column x, row y) into shared dst, its bytes
+// counted on bar.
+__device__ __forceinline__ void wg_tma(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                       uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// wgmma operand descriptors, 128-byte swizzle. K-major (rows of 64 K values,
+// 8-row atoms 1024 bytes apart); MN-major (rows of 64 M values, one a K step
+// of 1, 8-row atoms 1024 bytes apart along K; a 64-row M tile is one atom
+// wide, so the other stride field is never used and is given the same 1024).
+__device__ __forceinline__ uint64_t wg_desc_k(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t wg_desc_mn(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of d across a wgmma.
+template <int R>
+__device__ __forceinline__ void wg_hold(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The two consumer warpgroups' named barrier (id 1; 0 is __syncthreads).
+__device__ __forceinline__ void wg_consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// One consumer warpgroup's named barrier (ids 2 and 3).
+__device__ __forceinline__ void wg_warpgroup_sync(int cw) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+}
+
+// Generic-proxy shared-memory writes of this thread, seen by wgmma.
+__device__ __forceinline__ void wg_proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x N f32, the warpgroup's fragment) = A * B (+ d where acc), bf16 from
+// shared memory: A 64 x 16, K-major (TA = 0) or M-major (TA = 1); B N x 16,
+// K-major.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  template <int TA>
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %11, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  template <int TA>
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %19, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  template <int TA>
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  template <int TA>
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA));
+  }
+};
+
+
+// The unit u's spectrum (flat over the group's streams) and first k1 row.
+struct WgUnit {
+  int spec, k0;
+};
+
+__device__ __forceinline__ WgUnit wg_unit(const WgParams& p, int u, int kc) {
+  return WgUnit{u / p.n_chunks, (u % p.n_chunks) * kc};
+}
+
+// Stage B's item i of a unit: k2 tile m (64 cos rows and the matching -sin
+// rows) x T column group c (NB k1 of T re, NB of T im). Where N2 = 128 has
+// one k2 tile, a chunk has two column groups; else one, and a tile an item.
+template <int KC, int NB>
+struct WgItem {
+  int m, c;
+  __device__ __forceinline__ WgItem(int i) : m(i / (KC / NB)), c(i % (KC / NB)) {}
+};
+
+// The ring's slot and phase, shared by the producer's and each consumer's walk.
+struct WgRing {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int stages) {
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+template <int KC, int NB, int KD, bool QUANT, int STOP = STOP_NONE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    k1_dft_wg_kernel(const WgParams p, const __grid_constant__ WgMaps maps) {
+  static_assert(STOP == STOP_NONE || STOP == STOP_STAGEA || STOP == STOP_STAGEA_RND ||
+                    STOP == STOP_STAGEB,
+                "the DFT pass's stops");
+  static_assert(STOP != STOP_STAGEA || QUANT, "P5's stagea writes int8");
+  constexpr bool STAGEA_STOP = STOP == STOP_STAGEA || STOP == STOP_STAGEA_RND;
+  constexpr int NKS = KD / 16;                // k-steps a stage-A slot
+  constexpr int GS = WG_GROUP < NKS ? WG_GROUP : NKS;  // k-steps a stage-A group
+  constexpr int A_BYTES = 2 * KD * WG_ROW + 2 * KC * WG_ROW;  // a stage-A slot's TMA bytes
+  static_assert(NKS % GS == 0 && A_BYTES <= WG_SLOT, "stage-A slot");
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_u32(wg_smem) + WG_ALIGN - 1) & ~static_cast<uint32_t>(WG_ALIGN - 1);
+  const int n1 = p.n1, n2 = p.n2, h = n2 / 2, C = n1 * h;
+  const uint32_t t_base = base;                                 // T planes
+  const uint32_t ring = base + wg_t_bytes(KC, n2);              // p.stages slots
+  const uint32_t full = ring + p.stages * WG_SLOT;              // an mbarrier a slot
+  const uint32_t empty = full + 8 * WG_MAX_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      wg_mbar_init(full + 8 * s, 1);   // the producer's arrival and the slot's bytes
+      wg_mbar_init(empty + 8 * s, 2);  // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  const int my_units = (p.n_units - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+
+  if (wg == 0) {
+    // The producer: one thread walks the units' slots in the consumers'
+    // order, each slot's boxes issued once both consumers released it.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    WgRing r;
+    for (int i = 0; i < my_units; ++i) {
+      const WgUnit u = wg_unit(p, blockIdx.x + i * gridDim.x, KC);
+      const int prow = u.spec * n1;  // the spectrum's first row of the plane view
+      for (int pa = 0; pa < p.n_pass; ++pa) {
+        for (int ka = 0; ka < p.n_ka; ++ka, r.next(p.stages)) {
+          wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+          const uint32_t s = ring + r.slot * WG_SLOT, bar = full + 8 * r.slot;
+          wg_mbar_expect(bar, A_BYTES);
+          wg_tma(s, &maps.plane, 128 * pa, prow + ka * KD, bar);
+          wg_tma(s + KD * WG_ROW, &maps.plane, 128 * pa + 64, prow + ka * KD, bar);
+          wg_tma(s + 2 * KD * WG_ROW, &maps.d1c, ka * 64, u.k0, bar);
+          wg_tma(s + 2 * KD * WG_ROW + KC * WG_ROW, &maps.d1s, ka * 64, u.k0, bar);
+        }
+        // Each consumer's twiddles for the pass, a slot each: [KC x 64] of
+        // twc, then of tws, as two boxes of 32 columns.
+        for (int w = 0; w < 2; ++w, r.next(p.stages)) {
+          wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+          const uint32_t s = ring + r.slot * WG_SLOT, bar = full + 8 * r.slot;
+          wg_mbar_expect(bar, 4 * KC * WG_ROW);
+          const int c0 = 64 * (2 * pa + w);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            wg_tma(s + x * KC * WG_ROW, x < 2 ? &maps.twc : &maps.tws, c0 + 32 * (x & 1), u.k0,
+                   bar);
+          }
+        }
+      }
+      if constexpr (!STAGEA_STOP) {
+        for (int q = 0; q < p.n_pairs; ++q) {
+          for (int kb = 0; kb < p.n_kb; ++kb, r.next(p.stages)) {
+            wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+            const uint32_t s = ring + r.slot * WG_SLOT, bar = full + 8 * r.slot;
+            wg_mbar_expect(bar, WG_SLOT);
+#pragma unroll
+            for (int w = 0; w < 2; ++w) {
+              const WgItem<KC, NB> it(2 * q + w);
+              wg_tma(s + w * 16384, &maps.d2, kb * 64, 64 * it.m, bar);
+              wg_tma(s + w * 16384 + 8192, &maps.d2, kb * 64, h + 64 * it.m, bar);
+            }
+          }
+          if constexpr (STOP == STOP_NONE) {
+            // Each consumer's rotation values for its item, a slot each:
+            // [64 k2 x NB k1] of rotc, then of rots.
+            constexpr int RB = wg_rot_boxes(NB);
+            for (int w = 0; w < 2; ++w, r.next(p.stages)) {
+              wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+              const uint32_t s = ring + r.slot * WG_SLOT, bar = full + 8 * r.slot;
+              wg_mbar_expect(bar, 2 * RB * 64 * WG_ROW);
+              const WgItem<KC, NB> it(2 * q + w);
+              const int row = (u.spec / p.n_spectra) * h + 64 * it.m, col = u.k0 + it.c * NB;
+#pragma unroll
+              for (int x = 0; x < 2 * RB; ++x) {
+                wg_tma(s + x * 64 * WG_ROW, x < RB ? &maps.rotc : &maps.rots, col + 32 * (x % RB),
+                       row, bar);
+              }
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup (cw 0 or 1): stage A's 64-column tiles 2 pa + cw,
+  // stage B's items 2 q + cw.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  const int cw = wg - 1, wt = threadIdx.x - 128 * wg;
+  const int wq = wt / 32, lane = wt % 32, g = lane / 4, t = lane % 4;
+  const bool odd = g & 1;
+  WgRing r;
+  for (int i = 0; i < my_units; ++i) {
+    const WgUnit u = wg_unit(p, blockIdx.x + i * gridDim.x, KC);
+    for (int pa = 0; pa < p.n_pass; ++pa) {
+      const int nt = 2 * pa + cw;  // this warpgroup's 64-column tile of n2
+      // The tile's sums, [n2 rows 64] x [cos KC | -sin KC] (the fragment of
+      // m64n(2 KC)): a group's, and the master sums.
+      float part[KC], sums[KC];
+#pragma unroll
+      for (int k = 0; k < KC; ++k) part[k] = sums[k] = 0.f;
+      for (int ka = 0; ka < p.n_ka; ++ka, r.next(p.stages)) {
+        wg_mbar_wait(full + 8 * r.slot, r.phase);
+        const uint32_t s = ring + r.slot * WG_SLOT;
+        const uint32_t xa = s + cw * KD * WG_ROW, db = s + 2 * KD * WG_ROW;
+#pragma unroll
+        for (int k = 0; k < NKS; k += GS) {
+          wg_hold(part);
+          wg_fence();
+#pragma unroll
+          for (int j = 0; j < GS; ++j) {
+            Wgmma<2 * KC>::template run<1>(part, wg_desc_mn(xa + (k + j) * 16 * WG_ROW),
+                                           wg_desc_k(db + (k + j) * 32), j);
+          }
+          wg_commit();
+          wg_wait<0>();
+          wg_hold(part);
+#pragma unroll
+          for (int e = 0; e < KC; ++e) sums[e] = __fadd_rn(sums[e], part[e]);
+        }
+        if (wt == 0) wg_mbar_arrive(empty + 8 * r.slot);
+      }
+      // The f32 twiddle, then T rounded to bf16 into the swizzled K-major
+      // layout stage B reads ([T re NB; T im NB] rows a column group, 64-
+      // column blocks), or a stagea stop's rows k1 < N1/2. Fragment element
+      // (row 16 wq + g + 8 hh, column 8 j + 2 t + e): a quad shuffle gives
+      // this thread k1 = 8 j + 2 t + odd at two neighbouring n2.
+      // The twiddle slots: this warpgroup's kept for the epilogue, the
+      // other's released once it has landed (so that the arrival counts
+      // toward this use of the slot).
+      uint32_t tw = 0, tw_slot = 0;
+      for (int w = 0; w < 2; ++w, r.next(p.stages)) {
+        wg_mbar_wait(full + 8 * r.slot, r.phase);
+        if (w == cw) {
+          tw = ring + r.slot * WG_SLOT;
+          tw_slot = r.slot;
+        } else if (wt == 0) {
+          wg_mbar_arrive(empty + 8 * r.slot);
+        }
+      }
+      if constexpr (!STAGEA_STOP) {
+        if (pa == 0) wg_consumers_sync();  // both warpgroups are done with the last unit's T
+      }
+      const int col = 64 * nt + 16 * wq + (g & ~1);
+      long long stop_o = -1;
+      if constexpr (STAGEA_STOP) {
+        if (u.k0 < n1 / 2) stop_o = static_cast<long long>(u.spec) * C + static_cast<long long>(u.k0) * n2;
+      }
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float* c = sums + 4 * j + 2 * hh;
+          const float* sn = c + KC / 2;
+          const float rr = __shfl_xor_sync(~0u, odd ? c[0] : c[1], 4);
+          const float ri = __shfl_xor_sync(~0u, odd ? sn[0] : sn[1], 4);
+          const float ar0 = odd ? rr : c[0], ar1 = odd ? c[1] : rr;
+          const float ai0 = odd ? ri : sn[0], ai1 = odd ? sn[1] : ri;
+          const int k1 = 8 * j + 2 * t + odd, n = col + 8 * hh, nb = n % 64;
+          const uint32_t tb = tw + (nb / 32) * KC * WG_ROW;
+          const float2 c2 = wg_ld_f2(wg_f32_at(tb, k1, nb % 32));
+          const float2 s2 = wg_ld_f2(wg_f32_at(tb + 2 * KC * WG_ROW, k1, nb % 32));
+          const float tr0 = __fsub_rn(__fmul_rn(ar0, c2.x), __fmul_rn(ai0, s2.x));
+          const float tr1 = __fsub_rn(__fmul_rn(ar1, c2.y), __fmul_rn(ai1, s2.y));
+          const float ti0 = __fadd_rn(__fmul_rn(ar0, s2.x), __fmul_rn(ai0, c2.x));
+          const float ti1 = __fadd_rn(__fmul_rn(ar1, s2.y), __fmul_rn(ai1, c2.y));
+          if constexpr (STOP == STOP_STAGEA) {
+            // P5's slice of T, before the rounding: rows k1 < N1/2.
+            if (stop_o >= 0) {
+              stop_store2<true>(p.outr, stop_o + static_cast<long long>(k1) * n2 + n, tr0, tr1);
+              stop_store2<true>(p.outi, stop_o + static_cast<long long>(k1) * n2 + n, ti0, ti1);
+            }
+          } else if constexpr (STOP == STOP_STAGEA_RND) {
+            // The reference's slice: the rounded T, rows k1 < N1/2.
+            if (stop_o >= 0) {
+              const long long so = stop_o + static_cast<long long>(k1) * n2 + n;
+              stop_store2<QUANT>(p.outr, so, round_bf16(tr0), round_bf16(tr1));
+              stop_store2<QUANT>(p.outi, so, round_bf16(ti0), round_bf16(ti1));
+            }
+          } else {
+            const int row = (k1 / NB) * 2 * NB + k1 % NB;  // T re's row; T im's NB on
+            const uint32_t blk = t_base + nt * (2 * KC * WG_ROW);
+            const uint32_t a_re = blk + (row / 8) * 1024 + (row % 8) * WG_ROW +
+                                  (((nb / 8) ^ (row % 8)) << 4) + (nb % 8) * 2;
+            const uint32_t a_im = a_re + (NB / 8) * 1024;
+            const __nv_bfloat162 vr = __floats2bfloat162_rn(tr0, tr1);
+            const __nv_bfloat162 vi = __floats2bfloat162_rn(ti0, ti1);
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a_re),
+                         "r"(*reinterpret_cast<const uint32_t*>(&vr))
+                         : "memory");
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a_im),
+                         "r"(*reinterpret_cast<const uint32_t*>(&vi))
+                         : "memory");
+          }
+        }
+      }
+      wg_warpgroup_sync(cw);  // every thread's twiddles are read
+      if (wt == 0) wg_mbar_arrive(empty + 8 * tw_slot);
+    }
+    if constexpr (STAGEA_STOP) continue;
+    wg_proxy_fence();
+    wg_consumers_sync();  // T is whole
+
+    // Stage B: [cos rows; -sin rows of the item's k2 tile] x [T re | T im] of
+    // its column group: cos.tr, cos.ti in one fragment, -sin.tr, -sin.ti in
+    // the other, the wgmmas chained over n2.
+    for (int q = 0; q < p.n_pairs; ++q) {
+      const WgItem<KC, NB> it(2 * q + cw);
+      float fc[NB], fs[NB];
+#pragma unroll
+      for (int k = 0; k < NB; ++k) fc[k] = fs[k] = 0.f;
+      const uint32_t tb = t_base + (it.c * 2 * NB / 8) * 1024;
+      // A slot is released once the next slot's wgmmas are issued and its
+      // own have completed: one group stays in flight.
+      int held = 0;
+      wg_hold(fc);
+      wg_hold(fs);
+      const long long obase = static_cast<long long>(u.spec) * C;
+      const int ch0 = (64 * it.m + 16 * wq + g) * n1 + u.k0 + it.c * NB + 2 * t;
+      for (int kb = 0; kb < p.n_kb; ++kb, r.next(p.stages)) {
+        wg_mbar_wait(full + 8 * r.slot, r.phase);
+        const uint32_t dc = ring + r.slot * WG_SLOT + cw * 16384, ds = dc + 8192;
+        const uint32_t tk = tb + kb * (2 * KC * WG_ROW);
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const int acc = kb > 0 || ks > 0;
+          Wgmma<2 * NB>::template run<0>(fc, wg_desc_k(dc + ks * 32), wg_desc_k(tk + ks * 32), acc);
+          Wgmma<2 * NB>::template run<0>(fs, wg_desc_k(ds + ks * 32), wg_desc_k(tk + ks * 32), acc);
+        }
+        wg_commit();
+        wg_wait<1>();
+        if (kb > 0 && wt == 0) wg_mbar_arrive(empty + 8 * held);
+        held = r.slot;
+      }
+      wg_wait<0>();
+      wg_hold(fc);
+      wg_hold(fs);
+      if (wt == 0) wg_mbar_arrive(empty + 8 * held);
+      // The rotation slots, as stage A's twiddle slots.
+      uint32_t rot = 0, rot_slot = 0;
+      if constexpr (STOP == STOP_NONE) {
+        for (int w = 0; w < 2; ++w, r.next(p.stages)) {
+          wg_mbar_wait(full + 8 * r.slot, r.phase);
+          if (w == cw) {
+            rot = ring + r.slot * WG_SLOT;
+            rot_slot = r.slot;
+          } else if (wt == 0) {
+            wg_mbar_arrive(empty + 8 * r.slot);
+          }
+        }
+      }
+      // re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr); rotate; store.
+      // Fragment element (row 16 wq + g + 8 hh, column 8 j + 2 t + e): T re's
+      // columns j < NB / 8, T im's NB / 8 on.
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int ch = ch0 + 8 * hh * n1 + 8 * j;
+          const float* cr = fc + 4 * j + 2 * hh;
+          const float* sr = fs + 4 * j + 2 * hh;
+          float re[2], im[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            re[e] = __fsub_rn(cr[e], sr[NB / 2 + e]);
+            im[e] = __fadd_rn(cr[NB / 2 + e], sr[e]);
+          }
+          if constexpr (STOP == STOP_STAGEB) {
+            // re, im without the rotation, truncated or f32.
+            stop_store2<QUANT>(p.outr, obase + ch, re[0], re[1]);
+            stop_store2<QUANT>(p.outi, obase + ch, im[0], im[1]);
+          } else {
+            // Rotation element (k2 row 16 wq + g + 8 hh, k1 column 8 j + 2 t)
+            // of the item's staged [64 x NB] planes.
+            constexpr int RB = wg_rot_boxes(NB);
+            const int x = 8 * j + 2 * t, rr = 16 * wq + g + 8 * hh;
+            const uint32_t rb = rot + (x / 32) * 64 * WG_ROW;
+            const float2 rc = wg_ld_f2(wg_f32_at(rb, rr, x % 32));
+            const float2 rs = wg_ld_f2(wg_f32_at(rb + RB * 64 * WG_ROW, rr, x % 32));
+            float v[2][2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float c = e ? rc.y : rc.x, sn = e ? rs.y : rs.x;
+              v[0][e] = __fsub_rn(__fmul_rn(re[e], c), __fmul_rn(im[e], sn));
+              v[1][e] = __fadd_rn(__fmul_rn(re[e], sn), __fmul_rn(im[e], c));
+            }
+            if constexpr (QUANT) {
+              *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + obase + ch) =
+                  make_char2(requant(v[0][0]), requant(v[0][1]));
+              *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + obase + ch) =
+                  make_char2(requant(v[1][0]), requant(v[1][1]));
+            } else {
+              *reinterpret_cast<float2*>(static_cast<float*>(p.outr) + obase + ch) =
+                  make_float2(v[0][0], v[0][1]);
+              *reinterpret_cast<float2*>(static_cast<float*>(p.outi) + obase + ch) =
+                  make_float2(v[1][0], v[1][1]);
+            }
+          }
+        }
+      }
+      if constexpr (STOP == STOP_NONE) {
+        wg_warpgroup_sync(cw);  // every thread's rotation values are read
+        if (wt == 0) wg_mbar_arrive(empty + 8 * rot_slot);
+      }
+    }
+  }
+}
+
+// The wgmma body's plan at N1 x N2: the chunk (KC k1 rows; 32 at N2 = 1024,
+// where 64 rows' T planes would not fit), stage B's column group (NB k1
+// columns: half a chunk at N2 = 128, which has one k2 tile, so that both
+// consumers have an item), the plane's K rows a slot (KD) and the ring
+// slots that fit beside the T planes. False where the body has none: N1 <
+// 16, N2 outside 128..1024, or N1 < 64 beside N2 > 128 (no split of
+// _split_ct's).
+struct WgPlan {
+  int kc, nb, kd, stages;
+  size_t smem;
+};
+
+bool wg_plan(int n1, int n2, WgPlan& w) {
+  if (n1 < 16 || n2 < 128 || n2 > 1024 || (n1 & (n1 - 1)) || (n2 & (n2 - 1))) return false;
+  if (n1 < 64 && n2 != 128) return false;
+  w.kc = n2 == 1024 ? 32 : min(n1, 64);
+  w.nb = n2 == 128 ? w.kc / 2 : w.kc;
+  w.kd = min(n1, 64);
+  const size_t fixed = wg_t_bytes(w.kc, n2) + 2 * 8 * WG_MAX_STAGES + WG_ALIGN;
+  if (fixed + 2 * static_cast<size_t>(WG_SLOT) > MAX_SMEM) return false;
+  w.stages = static_cast<int>(std::min<size_t>(WG_MAX_STAGES, (MAX_SMEM - fixed) / WG_SLOT));
+  w.smem = fixed + static_cast<size_t>(w.stages) * WG_SLOT;
+  return true;
+}
+
+template <int KC, int NB, int KD>
+struct WgShape {
+  static constexpr int kc = KC, nb = NB, kd = KD;
+};
+
+// Calls fn(WgShape<KC, NB, KD>, plan) at the plan for N1 x N2, or returns
+// NO_PLAN.
+template <typename Fn>
+int with_wg_plan(int n1, int n2, Fn fn) {
+  WgPlan w;
+  if (!wg_plan(n1, n2, w)) return NO_PLAN;
+  if (w.kc == 64) return w.nb == 64 ? fn(WgShape<64, 64, 64>{}, w) : fn(WgShape<64, 32, 64>{}, w);
+  if (w.kc == 32) return w.kd == 64 ? fn(WgShape<32, 32, 64>{}, w) : fn(WgShape<32, 16, 32>{}, w);
+  return fn(WgShape<16, 8, 16>{}, w);
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda).
+PFN_cuTensorMapEncodeTiled k1_tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(f);
+    }
+  }
+  return fn;
+}
+
+// A row-major [rows, cols] tensor of bf16 (or f32) as a 2-D map of boxes
+// box_rows x 128 bytes (64 bf16, 32 f32), 128-byte swizzle; boxes past the
+// edges read as zeros.
+bool wg_map(CUtensorMap& m, const void* ptr, unsigned long long cols, unsigned long long rows,
+            int box_rows, bool f32 = false) {
+  const PFN_cuTensorMapEncodeTiled encode = k1_tensor_map_encoder();
+  if (!encode) return false;
+  const size_t item = f32 ? sizeof(float) : sizeof(bf16);
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * item};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(WG_ROW / item),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(&m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned_to(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
+
+// A DFT-pass call on the wgmma body: the operands, the shape, the plan.
+struct WgCall {
+  const void *plane, *d1c, *d1s, *d2;
+  WgParams p;
+  int batch;
+  WgPlan w;
+};
+
+template <int KC, int NB, int KD, bool QUANT, int STOP = STOP_NONE>
+cudaError_t launch_wg(const WgCall& call, cudaStream_t stream) {
+  auto kern = k1_dft_wg_kernel<KC, NB, KD, QUANT, STOP>;
+  WgParams p = call.p;
+  const int n1 = p.n1, n2 = p.n2;
+  if (!aligned_to(call.plane, 16) || !aligned_to(call.d1c, 16) || !aligned_to(call.d1s, 16) ||
+      !aligned_to(call.d2, 16) || !aligned_to(p.twc, 16) || !aligned_to(p.tws, 16) ||
+      !aligned_to(p.rotc, 16) || !aligned_to(p.rots, 16)) {
+    return cudaErrorInvalidValue;
+  }
+  WgMaps maps{};
+  const unsigned long long rows = static_cast<unsigned long long>(call.batch) * p.n_spectra * n1;
+  if (!wg_map(maps.plane, call.plane, n2, rows, KD) || !wg_map(maps.d1c, call.d1c, n1, n1, KC) ||
+      !wg_map(maps.d1s, call.d1s, n1, n1, KC) || !wg_map(maps.d2, call.d2, n2, n2, 64) ||
+      !wg_map(maps.twc, p.twc, n2, n1, KC, true) || !wg_map(maps.tws, p.tws, n2, n1, KC, true)) {
+    return cudaErrorNotSupported;
+  }
+  const unsigned long long rot_rows = static_cast<unsigned long long>(call.batch) * (n2 / 2);
+  if (STOP == STOP_NONE && (!wg_map(maps.rotc, p.rotc, n1, rot_rows, 64, true) ||
+                            !wg_map(maps.rots, p.rots, n1, rot_rows, 64, true))) {
+    return cudaErrorNotSupported;
+  }
+  p.n_pass = n2 / 128;
+  p.n_ka = n1 / KD;
+  p.n_pairs = (n2 / 128) * (KC / NB) / 2;
+  p.n_kb = n2 / 64;
+  p.n_chunks = n1 / KC;
+  p.stages = call.w.stages;
+  const long long units = static_cast<long long>(call.batch) * p.n_spectra * p.n_chunks;
+  if (units < 1 || units > 0x7fffffffLL || rows > 0x7fffffffULL) return cudaErrorInvalidValue;
+  p.n_units = static_cast<int>(units);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(call.w.smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return err;
+  }
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  kern<<<grid, WG_THREADS, call.w.smem, stream>>>(p, maps);
+  return cudaGetLastError();
+}
+
+// The production body's registers and local (spill) bytes.
+template <int KC, int NB, int KD, bool QUANT, int STOP = STOP_NONE>
+cudaError_t wg_attributes(cudaFuncAttributes& a) {
+  return cudaFuncGetAttributes(&a, k1_dft_wg_kernel<KC, NB, KD, QUANT, STOP>);
+}
+
+WgCall wg_call(const void* plane, const void* d1c, const void* d1s, const void* d2,
+               const void* twc, const void* tws, const void* rotc, const void* rots, void* outr,
+               void* outi, int batch, int n_spectra, int n1, int n2) {
+  WgCall c{};
+  c.plane = plane;
+  c.d1c = d1c;
+  c.d1s = d1s;
+  c.d2 = d2;
+  c.p.twc = static_cast<const float*>(twc);
+  c.p.tws = static_cast<const float*>(tws);
+  c.p.rotc = static_cast<const float*>(rotc);
+  c.p.rots = static_cast<const float*>(rots);
+  c.p.outr = outr;
+  c.p.outi = outi;
+  c.p.n_spectra = n_spectra;
+  c.p.n1 = n1;
+  c.p.n2 = n2;
+  c.batch = batch;
+  return c;
 }
 
 // ---------------------------------------------------------------------------
@@ -2489,8 +2998,6 @@ bool fir_shape(FirShape& sh, long long batch_stride, int batch, int n_spectra, i
          0x7fffffffLL;
 }
 
-bool aligned_to(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
-
 template <int MAXT, int STOP, typename PT, bool SHORT = false>
 int fir_launch(const void* x, const void* starts, const void* win, void* plane, void* outr,
                void* outi, const FirShape& sh, cudaStream_t st) {
@@ -2634,9 +3141,10 @@ extern "C" int k1_fir_attributes(int depth, int short_run, int plane_f32, void* 
 
 // Pass 2: plane [batch, n_spectra, N1, N2] bf16 -> outputs [batch,
 // n_spectra, C] (int8, or f32 without quantise); d1c/d1s/d2 are the bf16
-// DFT matrices, twc/tws the f32 twiddles, rotc/rots [batch, C]. Returns -1
-// where no chunk's plan fits shared memory (N2 >= 2048: the three-pass
-// route's splits).
+// DFT matrices, twc/tws the f32 twiddles, rotc/rots [batch, C]. N1 = 8 runs
+// the mma.sync body, N1 >= 16 the wgmma body (the plane and the matrices
+// 16-byte aligned, the f32 operands 8-byte). Returns -1 where neither has a
+// plan (N2 >= 2048: the three-pass route's splits).
 extern "C" int k1_dft_launch(const void* plane, const void* d1c, const void* d1s,
                              const void* d2, const void* twc, const void* tws,
                              const void* rotc, const void* rots, void* outr, void* outi,
@@ -2645,47 +3153,67 @@ extern "C" int k1_dft_launch(const void* plane, const void* d1c, const void* d1s
   if (n1 < 8 || !pow2(n1) || n2 < 128 || !pow2(n2) || batch < 1 || n_spectra < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  DftParams p{};
-  p.plane = static_cast<const bf16*>(plane);
-  p.d1c = static_cast<const bf16*>(d1c);
-  p.d1s = static_cast<const bf16*>(d1s);
-  p.d2 = static_cast<const bf16*>(d2);
-  p.twc = static_cast<const float*>(twc);
-  p.tws = static_cast<const float*>(tws);
-  p.rotc = static_cast<const float*>(rotc);
-  p.rots = static_cast<const float*>(rots);
-  p.outr = outr;
-  p.outi = outi;
-  p.n_spectra = n_spectra;
-  p.n1 = n1;
-  p.n2 = n2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return quantise ? dft_dispatch<true>(p, batch, st) : dft_dispatch<false>(p, batch, st);
+  if (n1 == 8) {
+    DftParams p{};
+    p.plane = static_cast<const bf16*>(plane);
+    p.d1c = static_cast<const bf16*>(d1c);
+    p.d1s = static_cast<const bf16*>(d1s);
+    p.d2 = static_cast<const bf16*>(d2);
+    p.twc = static_cast<const float*>(twc);
+    p.tws = static_cast<const float*>(tws);
+    p.rotc = static_cast<const float*>(rotc);
+    p.rots = static_cast<const float*>(rots);
+    p.outr = outr;
+    p.outi = outi;
+    p.n_spectra = n_spectra;
+    p.n2 = n2;
+    return quantise ? n8_dispatch<true>(p, batch, st) : n8_dispatch<false>(p, batch, st);
+  }
+  WgCall c = wg_call(plane, d1c, d1s, d2, twc, tws, rotc, rots, outr, outi, batch, n_spectra, n1,
+                     n2);
+  return with_wg_plan(n1, n2, [&](auto sh, const WgPlan& w) {
+    using S = decltype(sh);
+    c.w = w;
+    return static_cast<int>(
+        quantise ? launch_wg<S::kc, S::nb, S::kd, true>(c, st)
+                 : launch_wg<S::kc, S::nb, S::kd, false>(c, st));
+  });
 }
 
 // The bf16 DFT pass's plan and body at N1 x N2, -1 where it has none (the
-// split then takes the three-pass route): out int[6] = registers a thread,
-// local (spill) bytes a thread, KC (KC_N8 at N1 = 8), stage-B K-tile depth,
-// ring stages, shared-memory bytes.
+// split then takes the three-pass route): out int[8] = registers a thread,
+// local (spill) bytes a thread, KC (KC_N8 at N1 = 8), K-tile depth (stage
+// B's at N1 = 8; a ring slot's, KD, on the wgmma body), ring stages,
+// shared-memory bytes, blocks a cluster, products a stage-A sum adds up
+// before it joins the f32 master sum (8 at N1 = 8: one m16n8k8 a sum).
 extern "C" int k1_dft_attributes(int n1, int n2, void* out) {
   if (n1 < 8 || !pow2(n1) || n2 < 128 || !pow2(n2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  DftParams p{};
-  p.n1 = n1;
-  p.n2 = n2;
   int* o = static_cast<int*>(out);
-  return with_dft_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
-    constexpr int K = decltype(kc)::value;
-    cudaFuncAttributes a{};
-    const cudaError_t err = cudaFuncGetAttributes(&a, k1_dft_kernel<K, true>);
+  cudaFuncAttributes a{};
+  if (n1 == 8) {
+    DftParams p{};
+    p.n_spectra = 1;
+    p.n2 = n2;
+    const size_t bytes = dft_plan(p);
+    if (!bytes) return NO_PLAN;
+    const cudaError_t err = cudaFuncGetAttributes(&a, k1_dft_kernel<true>);
     if (err != cudaSuccess) return static_cast<int>(err);
-    o[0] = a.numRegs;
-    o[1] = static_cast<int>(a.localSizeBytes);
-    o[2] = K;
-    o[3] = q.ktb;
-    o[4] = q.stages;
-    o[5] = static_cast<int>(bytes);
+    const int v[8] = {a.numRegs, static_cast<int>(a.localSizeBytes), KC_N8, p.ktb, p.stages,
+                      static_cast<int>(bytes), 1, 8};
+    std::copy(v, v + 8, o);
+    return 0;
+  }
+  return with_wg_plan(n1, n2, [&](auto sh, const WgPlan& w) {
+    using S = decltype(sh);
+    const cudaError_t err = wg_attributes<S::kc, S::nb, S::kd, true>(a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int group = 16 * (WG_GROUP < S::kd / 16 ? WG_GROUP : S::kd / 16);
+    const int v[8] = {a.numRegs, static_cast<int>(a.localSizeBytes), S::kc, S::kd, w.stages,
+                      static_cast<int>(w.smem), 1, group};
+    std::copy(v, v + 8, o);
     return 0;
   });
 }

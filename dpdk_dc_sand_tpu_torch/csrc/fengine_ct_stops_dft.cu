@@ -1,6 +1,6 @@
 // The stops of K1's DFT passes and of its three-pass route (csrc/
 // fengine_ct.cu's head describes them), built in an nvcc process of their
-// own, with and without the requant: the bf16 DFT pass (k1_dft_kernel at
+// own, with and without the requant: the bf16 DFT pass (k1_dft_wg_kernel at
 // STOP_STAGEA_RND, STOP_STAGEB and P5's STOP_STAGEA) at every plan it takes
 // at N1 = N2 (KC 64 to N1 = 512, 32 at 1024); the f32 DFT pass
 // (k1_dft_f32_kernel at STOP_STAGEA_RND, STOP_STAGEB) at both of its plans
@@ -15,46 +15,48 @@
 
 namespace {
 
-// fn(std::integral_constant<int, KC>, plan, bytes) at the plan the DFT pass
-// takes for this split, where a stop body exists for it: the plans of the
-// N1 = N2 splits, KC 64 and 32 (N1 = 8's KC_N8 plan and KC 16 serve none),
-// and P5's stagea only on KC = 64 (fft 16384 and 65536, where the probe
-// runs). NO_PLAN elsewhere.
+// fn(WgShape, plan) at the plan the bf16 DFT pass's wgmma body takes for
+// this split, where a stop body exists for it: the N1 = N2 splits' plans
+// (KC 64 with NB 32 at 128, 64 at 256 and 512; KC 32 at 1024), and P5's
+// stagea only at KC 64 (fft 16384 and 65536, where the probe runs). NO_PLAN
+// elsewhere.
 template <int STOP, typename Fn>
-int with_stop_plan(const DftParams& p, Fn fn) {
-  return with_dft_plan(p, [&](auto kc, const DftParams& q, size_t bytes) {
-    constexpr int K = decltype(kc)::value;
-    if constexpr (K == KC_N8 || K == 16 || (STOP == STOP_STAGEA && K != 64)) {
+int with_stop_plan(int n1, int n2, Fn fn) {
+  return with_wg_plan(n1, n2, [&](auto sh, const WgPlan& w) {
+    using S = decltype(sh);
+    if constexpr (S::kd != 64 || (STOP == STOP_STAGEA && S::kc != 64)) {
       return NO_PLAN;
     } else {
-      return fn(std::integral_constant<int, K>{}, q, bytes);
+      return fn(sh, w);
     }
   });
 }
 
 template <int STOP, bool QUANT>
-int dft_stop(const DftParams& p, int batch, cudaStream_t st) {
-  return with_stop_plan<STOP>(p, [&](auto kc, const DftParams& q, size_t bytes) {
-    return static_cast<int>(launch_dft<decltype(kc)::value, QUANT, STOP>(q, batch, bytes, st));
+int dft_stop(WgCall& c, cudaStream_t st) {
+  return with_stop_plan<STOP>(c.p.n1, c.p.n2, [&](auto sh, const WgPlan& w) {
+    using S = decltype(sh);
+    c.w = w;
+    return static_cast<int>(launch_wg<S::kc, S::nb, S::kd, QUANT, STOP>(c, st));
   });
 }
 
 template <int STOP, bool QUANT>
-int dft_stop_attributes(const DftParams& p, int* o) {
-  return with_stop_plan<STOP>(p, [&](auto kc, const DftParams&, size_t) {
-    constexpr int K = decltype(kc)::value;
+int dft_stop_attributes(int n1, int n2, int* o) {
+  return with_stop_plan<STOP>(n1, n2, [&](auto sh, const WgPlan&) {
+    using S = decltype(sh);
     cudaFuncAttributes a{};
-    const cudaError_t err = cudaFuncGetAttributes(&a, k1_dft_kernel<K, QUANT, STOP>);
+    const cudaError_t err = wg_attributes<S::kc, S::nb, S::kd, QUANT, STOP>(a);
     if (err != cudaSuccess) return static_cast<int>(err);
     o[0] = a.numRegs;
     o[1] = static_cast<int>(a.localSizeBytes);
-    o[2] = K;
+    o[2] = S::kc;
     return 0;
   });
 }
 
 bool dft_stop_args(int n1, int n2, int stop, int quantise) {
-  return n1 == n2 && n1 >= 16 && pow2(n1) && n2 >= 128 &&
+  return n1 == n2 && pow2(n1) && n2 >= 128 &&
          (stop == STOP_STAGEA_RND || stop == STOP_STAGEB || (stop == STOP_STAGEA && quantise));
 }
 
@@ -62,10 +64,10 @@ bool dft_stop_args(int n1, int n2, int stop, int quantise) {
 
 // Stop 10 (stagea: T rounded to bf16, rows k1 < N1/2), 4 (stageb: re, im
 // before the rotation) or P5's 3 (stagea: T before the rounding, int8; KC =
-// 64 only) of the DFT pass: plane [batch, n_spectra, N1, N2] bf16 (N1 ==
-// N2) -> outr, outi [batch, n_spectra, C], int8 by truncation (quantise =
-// 1) or f32 (no rotation planes: no stop reaches the rotation). -1 where no
-// stop body takes the split.
+// 64 only) of the DFT pass's wgmma body: plane [batch, n_spectra, N1, N2]
+// bf16 (N1 == N2) -> outr, outi [batch, n_spectra, C], int8 by truncation
+// (quantise = 1) or f32 (no rotation planes: no stop reaches the rotation).
+// -1 where no stop body takes the split.
 extern "C" int k1_dft_stop_launch(const void* plane, const void* d1c, const void* d1s,
                                   const void* d2, const void* twc, const void* tws, void* outr,
                                   void* outi, int batch, int n_spectra, int n1, int n2,
@@ -73,27 +75,16 @@ extern "C" int k1_dft_stop_launch(const void* plane, const void* d1c, const void
   if (!dft_stop_args(n1, n2, stop, quantise) || batch < 1 || n_spectra < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  DftParams p{};
-  p.plane = static_cast<const bf16*>(plane);
-  p.d1c = static_cast<const bf16*>(d1c);
-  p.d1s = static_cast<const bf16*>(d1s);
-  p.d2 = static_cast<const bf16*>(d2);
-  p.twc = static_cast<const float*>(twc);
-  p.tws = static_cast<const float*>(tws);
-  p.outr = outr;
-  p.outi = outi;
-  p.n_spectra = n_spectra;
-  p.n1 = n1;
-  p.n2 = n2;
+  WgCall c = wg_call(plane, d1c, d1s, d2, twc, tws, nullptr, nullptr, outr, outi, batch,
+                     n_spectra, n1, n2);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (stop) {
-    case STOP_STAGEA: return dft_stop<STOP_STAGEA, true>(p, batch, st);
+    case STOP_STAGEA: return dft_stop<STOP_STAGEA, true>(c, st);
     case STOP_STAGEA_RND:
-      return quantise ? dft_stop<STOP_STAGEA_RND, true>(p, batch, st)
-                      : dft_stop<STOP_STAGEA_RND, false>(p, batch, st);
+      return quantise ? dft_stop<STOP_STAGEA_RND, true>(c, st)
+                      : dft_stop<STOP_STAGEA_RND, false>(c, st);
     default:
-      return quantise ? dft_stop<STOP_STAGEB, true>(p, batch, st)
-                      : dft_stop<STOP_STAGEB, false>(p, batch, st);
+      return quantise ? dft_stop<STOP_STAGEB, true>(c, st) : dft_stop<STOP_STAGEB, false>(c, st);
   }
 }
 
@@ -101,19 +92,15 @@ extern "C" int k1_dft_stop_launch(const void* plane, const void* d1c, const void
 // a thread, local (spill) bytes a thread, KC; -1 where none takes it.
 extern "C" int k1_dft_stop_attributes(int n1, int n2, int stop, int quantise, void* out) {
   if (!dft_stop_args(n1, n2, stop, quantise)) return static_cast<int>(cudaErrorInvalidValue);
-  DftParams p{};
-  p.n_spectra = 1;
-  p.n1 = n1;
-  p.n2 = n2;
   int* o = static_cast<int*>(out);
   switch (stop) {
-    case STOP_STAGEA: return dft_stop_attributes<STOP_STAGEA, true>(p, o);
+    case STOP_STAGEA: return dft_stop_attributes<STOP_STAGEA, true>(n1, n2, o);
     case STOP_STAGEA_RND:
-      return quantise ? dft_stop_attributes<STOP_STAGEA_RND, true>(p, o)
-                      : dft_stop_attributes<STOP_STAGEA_RND, false>(p, o);
+      return quantise ? dft_stop_attributes<STOP_STAGEA_RND, true>(n1, n2, o)
+                      : dft_stop_attributes<STOP_STAGEA_RND, false>(n1, n2, o);
     default:
-      return quantise ? dft_stop_attributes<STOP_STAGEB, true>(p, o)
-                      : dft_stop_attributes<STOP_STAGEB, false>(p, o);
+      return quantise ? dft_stop_attributes<STOP_STAGEB, true>(n1, n2, o)
+                      : dft_stop_attributes<STOP_STAGEB, false>(n1, n2, o);
   }
 }
 

@@ -46,7 +46,9 @@
 //    the bf16 [N2, N2] cos and -sin matrices, eight sums a (k2, k1) (four a
 //    stream), followed by the DIT combine, the rotation and the requant at
 //    the reference's rounding points.
-//    The design is K1's k1_dft_kernel: persistent blocks of 16 warps walk
+//    The design is K1's mma.sync DFT body (K1 keeps it for N1 = 8 only,
+//    k1_dft_kernel; its N1 >= 16 splits run a wgmma body, k1_dft_wg_kernel):
+//    persistent blocks of 16 warps walk
 //    (stream, spectrum, chunk of KC k1 rows) units, chunks of one spectrum
 //    neighbours so the plane leaves HBM once; one cp.async ring streams
 //    every unit's tile sequence (stage-A plane and D1 tiles, then stage-B

@@ -717,7 +717,7 @@ def _dft_pass(plane, rotc, rots, outr, outi, *, n1, n2, quantise) -> None:
         batch, n_spectra, n1, n2, int(quantise), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err == _NO_PLAN:
-        raise _no_plan("k1_dft", n1, n2, "the T planes of a 16-row chunk and the tile ring")
+        raise _no_plan("k1_dft", n1, n2, "the T planes of a chunk and the tile ring")
     _build.check(lib, err, "k1_dft")
     k1_dft.launches += 1
 
@@ -845,15 +845,19 @@ def k1_dft(
 def k1_dft_attributes(n1: int, n2: int) -> dict:
     """The card's view of K1's bf16 DFT-pass body at N1 x N2
     (``cudaFuncGetAttributes`` and the plan): registers and local (spill)
-    bytes a thread, KC (128 at N1 = 8: 16 spectra of 8 rows), the stage-B
-    K-tile depth, ring stages and shared-memory bytes."""
-    out = (ctypes.c_int * 6)()
+    bytes a thread (the wgmma body's are its launch's: its warpgroups
+    rebalance them with ``setmaxnreg``), KC (128 at N1 = 8: 16 spectra of 8
+    rows), the K-tile depth (stage B's at N1 = 8, a ring slot's on the wgmma
+    body), ring stages, shared-memory bytes, blocks a cluster and the
+    products a stage-A sum adds before it joins the f32 master sum."""
+    out = (ctypes.c_int * 8)()
     lib = _build.library()
     err = lib.k1_dft_attributes(n1, n2, out)
     if err == _NO_PLAN:
-        raise _no_plan("k1_dft", n1, n2, "the T planes of a 16-row chunk and the tile ring")
+        raise _no_plan("k1_dft", n1, n2, "the T planes of a chunk and the tile ring")
     _build.check(lib, err, "k1_dft_attributes")
-    return dict(zip(("regs", "local_bytes", "kc", "ktb", "stages", "smem_bytes"), out))
+    return dict(zip(("regs", "local_bytes", "kc", "ktb", "stages", "smem_bytes", "cluster",
+                     "group_products"), out))
 
 
 def _dft_f32_pass(plane, rotc, rots, outr, outi, *, n1, n2, quantise) -> None:
@@ -2157,8 +2161,9 @@ def fengine_fused(
     in either operand type and with or without the requant, and returns what
     :func:`fengine_ablate_reference` describes; a ``"dma"`` probe serves
     :data:`ABLATE_S_BLK` spectra. As the reference's, ``"dma"`` needs N1 <=
-    N2 and the others N1 == N2 (:func:`_check_ablate`). The DIT form refuses
-    the stops: the reference ignores them there and runs K7 whole.
+    N2 and the others N1 == N2 (:func:`_check_ablate`). On the DIT form
+    ``"dma"`` runs K7 whole, as the reference's does (its DIT kernel takes no
+    stop), and the other stops raise, as the reference's gate raises.
     """
     if dft_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"unknown dft_dtype {dft_dtype!r}")
@@ -2180,10 +2185,10 @@ def fengine_fused(
                            (not quantise, "quantise=False")):
             if flag:
                 raise ValueError(f"{what} needs the direct-CT form (deint={mode!r})")
-        if _ablate is not None:
+        if _ablate not in (None, "dma"):
             raise ValueError(
-                f"_ablate stage stops need the direct-CT form (deint={mode!r}): the reference "
-                "ignores the stop on the DIT form and runs K7 whole; the port refuses it")
+                f"_ablate stage {_ablate!r} needs the direct-CT form with n1 == n2 "
+                f"(deint={mode!r}), as the reference's gate does")
         *lead, n_frames, f = frames.shape
         if f != fft_size:
             raise ValueError(f"frame length {f} != fft_size {fft_size}")

@@ -67,7 +67,7 @@ def _codes_close(got, ref, max_frac=1e-3):
     assert float((d != 0).float().mean()) <= max_frac
 
 
-@pytest.mark.parametrize("fft", [1024, 2048, 4096, 16384, 65536])
+@pytest.mark.parametrize("fft", [1024, 2048, 4096, 8192, 16384, 32768, 65536])
 @pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("rowed", [False, True], ids=["flat", "rowed"])
 def test_k1_kernel_matches_plain(dev, fft, dft_dtype, rowed):
@@ -675,6 +675,27 @@ def test_k7_kernel_matches_plain(dev, fft, deint, dft_dtype):
         _codes_close(g.cpu(), r)
 
 
+@pytest.mark.parametrize("deint", ["matmul", "bitcast"])
+def test_k7_dma_stop_runs_k7_whole(dev, deint):
+    """On the DIT form ``_ablate="dma"`` runs K7 whole, as the reference's
+    DIT kernel does (it takes no stop): the stopped call equals the whole
+    call bit for bit and counts as a K7 call, not a stopped pass."""
+    fft, taps, s = 2048, 4, 7
+    rng = np.random.default_rng(fft + len(deint))
+    frames = torch.from_numpy(rng.integers(-64, 64, (2, 2, s + taps - 1, fft), dtype=np.int8))
+    fd = rng.uniform(-0.5, 0.5, (2, 2)).astype(np.float32)
+    ph = rng.uniform(-1, 1, (2, 2)).astype(np.float32)
+    kw = dict(n_channels=fft // 2, quant_scale=1 / 16, deint=deint)
+    args = (frames.to(dev), default_window(taps, fft, dev), fd, ph)
+    before = (ff.fengine_dit.launches, ff.fengine_fused.ablate_launches)
+    got = ff.fengine_fused(*args, _ablate="dma", **kw)
+    assert (ff.fengine_dit.launches, ff.fengine_fused.ablate_launches) == (before[0] + 1,
+                                                                         before[1])
+    whole = ff.fengine_fused(*args, **kw)
+    for g, w in zip(got, whole):
+        assert g.is_cuda and g.shape == (2, 2, s, fft // 2) and torch.equal(g, w)
+
+
 @pytest.mark.parametrize("quantise_output", [True, False])
 def test_fengine_on_the_card_matches_the_cpu_engine(dev, quantise_output):
     """cuFFT and the CPU's FFT round differently: int8 within 1 code on
@@ -715,7 +736,8 @@ def test_xla_engines_on_the_card_match_the_cpu_engines(dev, engine):
     assert float((d > 1e-3).float().mean()) <= 5e-3
 
 
-@pytest.mark.parametrize("fft, rowed", [(1024, False), (4096, True), (65536, False)])
+@pytest.mark.parametrize("fft, rowed", [(1024, False), (2048, False), (4096, True), (16384, False),
+                                         (65536, False)])
 @pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
 def test_k1_unquantised_kernel_matches_plain(dev, fft, rowed, dft_dtype):
     """quantise=False: the rotated f32 values. The f32 DFT within rtol 1e-4 /
@@ -998,12 +1020,15 @@ def test_k1_fir_launch_refuses_a_plan_that_does_not_fit(dev):
                              stream) == 0
 
 
-@pytest.mark.parametrize("fft", [1 << 17, 1 << 18, 1 << 20])
+@pytest.mark.parametrize("fft", [1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 21])
 @pytest.mark.parametrize("quantise", [True, False])
-def test_k1_two_pass_kernel_above_65536_matches_plain(dev, fft, quantise):
-    """bf16 K1 beyond the old cap (N1 x N2 = 512 x 256, 512 x 512, 1024 x
-    1024): int8 within 1 code on <= 1e-3 of samples; f32 output below 1 code
-    unit everywhere and within rtol 1e-4 / atol 1e-2 on all but 1e-2.
+@pytest.mark.parametrize("rowed", [False, True], ids=["flat", "rowed"])
+def test_k1_two_pass_kernel_above_65536_matches_plain(dev, fft, quantise, rowed):
+    """bf16 K1 beyond the old cap (N1 x N2 = 512 x 256 to 2048 x 1024, the
+    DFT pass's wgmma body at KC 64 and 32), on flat and wire-rowed streams
+    with coarse delays: int8 within 1 code on <= 1e-3 of samples; f32 output
+    below 1 code unit everywhere and within rtol 1e-4 / atol 1e-2 on all but
+    1e-2.
 
     A code flips where the kernel's and the plain version's f32 sums of
     stage A round a T value to different bf16 neighbours; the flipped share
@@ -1018,14 +1043,15 @@ def test_k1_two_pass_kernel_above_65536_matches_plain(dev, fft, quantise):
     cd = rng.integers(0, 500, lead).astype(np.int32)
     fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
     ph = rng.uniform(-1, 1, lead).astype(np.float32)
+    x = raw.reshape(*lead, -1, n2) if rowed else raw
     kw = dict(n_channels=fft // 2, quant_scale=0.068 * (1024 / fft) ** 0.5,
-              coarse_delays=cd, n_spectra=s, quantise=quantise)
+              coarse_delays=cd, n_spectra=s, quantise=quantise, rowed=rowed)
     before = (ff.fengine_fused.launches, ff.k1_fir.launches, ff.k1_dft.launches)
-    got = ff.fengine_fused(torch.from_numpy(raw).to(dev), default_window(taps, fft, dev),
+    got = ff.fengine_fused(torch.from_numpy(x).to(dev), default_window(taps, fft, dev),
                            fd, ph, **kw)
     assert (ff.fengine_fused.launches, ff.k1_fir.launches, ff.k1_dft.launches) == tuple(
         b + 1 for b in before)
-    ref = ff.fengine_fused(torch.from_numpy(raw), default_window(taps, fft), fd, ph, **kw)
+    ref = ff.fengine_fused(torch.from_numpy(x), default_window(taps, fft), fd, ph, **kw)
     for g, r in zip(got, ref):
         assert g.is_cuda and g.shape == r.shape and g.dtype == r.dtype
         if quantise:
@@ -1264,6 +1290,38 @@ def test_k1_n1_8_two_passes_match_plain(dev, dft_dtype, quantise):
                 assert not bool(over.any()), float(d.max())
             else:
                 assert float(d.max()) < 1.0 and float(over.float().mean()) <= 1e-2
+
+
+@pytest.mark.parametrize("fft", [1 << e for e in range(11, 22)])
+def test_k1_dft_wgmma_body_attributes_show_no_spills(dev, fft):
+    """The bf16 DFT pass's wgmma body at every two-pass split with N1 >= 16
+    (fft 2^11 to 2^21): 0 local (spill) bytes, one block a cluster, the
+    shared memory within the 232,448 bytes a block may use, and stage A's
+    sums joining the f32 master sum every 64 products (16 or 32 where N1 is
+    16 or 32: the whole sum)."""
+    n1, n2 = ff._split_ct(fft)
+    at = ff.k1_dft_attributes(n1, n2)
+    assert at["local_bytes"] == 0 and at["cluster"] == 1, at
+    assert at["smem_bytes"] <= 232448 and at["stages"] >= 3, at
+    assert at["kc"] == (32 if n2 == 1024 else min(n1, 64)), at
+    assert at["group_products"] == min(n1, 64), at
+
+
+@pytest.mark.parametrize("fft", [1 << 20, 1 << 21])
+def test_k1_dft_flipped_share_at_the_longest_stage_a_sums(dev, fft):
+    """Stage A's sums are longest at fft 2^20 and 2^21 (N1 = 1024, 2048):
+    the DFT pass, its sums joining the f32 master sum every 64 products,
+    flips under 1e-3 of the int8 codes against its plain version on the card
+    (f32 products, no TF32), at the flagship's code level (near 50 rms)."""
+    n1, n2 = ff._split_ct(fft)
+    assert ff.k1_dft_attributes(n1, n2)["group_products"] == 64
+    plane, rc, rs = _stage_operands(fft, 1, 4, 4, fft + 1, "bfloat16")
+    plane, rc, rs = plane.to(dev), rc.to(dev), rs.to(dev)
+    ref = ff.k1_dft_reference(plane, rc, rs, n1=n1, n2=n2)
+    before = ff.k1_dft.launches
+    for g, r in zip(ff.k1_dft(plane, rc, rs, n1=n1, n2=n2), ref):
+        _codes_close(g, r)
+    assert ff.k1_dft.launches == before + 1
 
 
 def test_k1_stage_bodies_show_no_spills_and_n1_8_has_a_plan(dev):
@@ -1827,7 +1885,9 @@ def test_auto_engines_at_fft_2_17_step_on_the_card_and_match_the_cpu_engine(dev,
 def test_k1_stops_match_plain(dev, stop, fft, s):
     """P5's and P4's kernels: K1's passes cut at a stage, with coarse delays
     (one start unaligned) and S off the 16-spectrum probe blocks: dma and fir
-    bit for bit, the DFT stops within 1 code on <= 1e-3 of samples."""
+    bit for bit, the DFT stops (instantiations of the DFT pass's wgmma body,
+    its 64-row chunks with NB 32 at fft 16384 and 64 at 65536) within 1 code
+    on <= 1e-3 of samples."""
     taps, b = 16, 3
     rng = np.random.default_rng(fft + s)
     x = rng.integers(-16, 16, (b, (s + taps) * fft + 40), dtype=np.int8)

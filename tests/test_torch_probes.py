@@ -283,7 +283,7 @@ def test_fengine_fused_ablate_raises_where_the_reference_does():
     """The port refuses the stops the reference refuses (an unknown stop; a
     DFT-stage stop at N1 != N2; ``"dma"`` at N1 > N2, whose ``[N2/2, N1]``
     probe does not fit the ``[rows, N2]`` frame view) and the DIT form's,
-    which the reference ignores (it runs K7 whole); it takes the calls the
+    and the DIT form's stops other than ``"dma"``; it takes the calls the
     reference takes: f32 operands, N1 = 8 and ``quantise=False``."""
     fft, taps = 16384, 4
     frames = torch.zeros((1, 1, 10, fft), dtype=torch.int8)
@@ -292,8 +292,9 @@ def test_fengine_fused_ablate_raises_where_the_reference_does():
     kw = dict(n_channels=fft // 2, quant_scale=1.0)
     with pytest.raises(ValueError, match="unknown _ablate stage 'fft'"):
         ff.fengine_fused(frames, win, z, z, _ablate="fft", **kw)
-    with pytest.raises(ValueError, match="direct-CT form.*runs K7 whole"):
-        ff.fengine_fused(frames, win, z, z, deint="matmul", _ablate="dma", **kw)
+    for stop in ("fir", "stagea", "stageb"):
+        with pytest.raises(ValueError, match="needs the direct-CT form"):
+            ff.fengine_fused(frames, win, z, z, deint="matmul", _ablate=stop, **kw)
     wide = torch.zeros((1, 1, 10, 2048), dtype=torch.int8)  # 16 x 128
     with pytest.raises(ValueError, match="n1 == n2"):
         ff.fengine_fused(wide, default_window(taps, 2048), z, z, n_channels=1024,
@@ -313,6 +314,38 @@ def test_fengine_fused_ablate_raises_where_the_reference_does():
          torch.float32),
     ):
         assert all(g.dtype == dtype and g.shape[-2] == 7 for g in got)
+
+
+@pytest.mark.parametrize("deint", ["matmul", "bitcast"])
+def test_fengine_fused_dit_dma_stop_is_the_reference_stopped_call(deint):
+    """On the DIT form the reference's ``_ablate="dma"`` gate lets the call
+    through and its DIT kernel, which takes no stop, runs whole. At fft 2048,
+    on the same seed-made inputs: the JAX stopped call (``interpret=True``)
+    is the JAX whole call and the port's stopped call the port's whole call,
+    bit for bit on the int8 outputs; port and JAX agree as K7's plain version
+    and the JAX DIT kernel do, within 1 code on <= 1e-3 of samples (their f32
+    sums run in another order)."""
+    from dpdk_dc_sand_tpu.ops import fengine_pallas as jfp
+    from dpdk_dc_sand_tpu.ops.pfb import default_window as j_default_window
+
+    fft, taps = 2048, 4
+    rng = np.random.default_rng(2048)
+    frames = rng.integers(-64, 64, (1, 1, 10, fft), dtype=np.int8)
+    fd = rng.uniform(-0.5, 0.5, (1, 1)).astype(np.float32)
+    ph = rng.uniform(-1, 1, (1, 1)).astype(np.float32)
+    kw = dict(n_channels=fft // 2, quant_scale=1 / 16, deint=deint)
+    jargs = (jnp.asarray(frames), j_default_window(taps, fft), jnp.asarray(fd), jnp.asarray(ph))
+    want = jfp.fengine_fused(*jargs, interpret=True, _ablate="dma", **kw)
+    j_whole = jfp.fengine_fused(*jargs, interpret=True, **kw)
+    targs = (torch.from_numpy(frames), default_window(taps, fft), fd, ph)
+    got = ff.fengine_fused(*targs, _ablate="dma", **kw)
+    whole = ff.fengine_fused(*targs, **kw)
+    for g, w, jw, h in zip(got, want, j_whole, whole):
+        assert g.shape == (1, 1, 7, fft // 2) and g.dtype == torch.int8
+        assert np.array_equal(np.asarray(w), np.asarray(jw))
+        assert torch.equal(g, h)
+        d = np.abs(g.numpy().astype(np.int32) - np.asarray(w, np.int32))
+        assert d.max() <= 1 and (d != 0).mean() <= 1e-3
 
 
 def test_chain_marginal_times_a_chained_call_on_the_cpu(monkeypatch):
