@@ -19,12 +19,13 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    K1's FIR passes alone (``k1_fir``, ``k1_fir_f32``) bit-exact against
    ``k1_fir_reference`` on the same streams. Then above the old 65536 cap:
    K1 at fft 2^17, 2^18 and 2^20 (2 batches, 16 taps, S=8), bf16 and f32,
-   against plain with the same bound; K1 at fft 2^22 (2048 x 2048, 2
-   batches, 4 taps, S=2), both forms, where neither DFT pass has a plan:
-   it must launch the form's FIR pass, stage A and stage B once each and
-   nothing else, within 1 code on <= 1e-3 (bf16) or 1e-4 (f32) of plain,
-   timed. Then K1's stage stops (``fengine_fused(_ablate=...)``: dma, fir,
-   stagea, stageb) at fft 2^18 and 2^20 (2 streams x S=8 x 16 taps, the
+   against plain with the same bound; K1 at fft 2^22 (2048 x 2048) and
+   2^23 (4096 x 2048) (2 batches, 4 taps, S=2), both forms, where neither
+   DFT pass has a plan: it must launch the form's FIR pass, stage A and
+   stage B once each and nothing else, within 1 code on <= 1e-3 (bf16) or
+   1e-4 (f32) of plain, timed; the bf16 route's flipped share at both
+   (under 1e-3). Then K1's stage stops (``fengine_fused(_ablate=...)``:
+   dma, fir, stagea, stageb) at fft 2^18 and 2^20 (2 streams x S=8 x 16 taps, the
    two-pass routes) and 2^22 (2 x 2 x 4 taps, the three-pass routes), bf16
    and f32, with the requant and without: each call launches a stopped pass
    and no pass its route's whole call does not, is held to the plain stop on
@@ -32,8 +33,9 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    contract, their f32 values as ``_stop_diff`` says), and timed beside the
    whole call; the stop bodies' registers and spills (a spill fails).
    Before the stops, the bf16 DFT pass's wgmma body (N1 >= 16,
-   ``_k1_dft_wgmma``): the SASS of every one of its bodies (HGMMA, no
-   HMMA.16816, or the phase fails), and at each split from fft 2^11 to
+   ``_k1_dft_wgmma``): the SASS of every one of its bodies and of the
+   three-pass route's bf16 stage bodies (HGMMA, no HMMA.16816, or the
+   phase fails), and at each split from fft 2^11 to
    2^21 its registers, spills (a spill fails), shared memory and cluster
    size and ``k1_dft`` against plain on 2 streams, quantised and not; its
    flipped share at the flagship, 2^20 and 2^21 (under 1e-3); K1 and its
@@ -45,7 +47,8 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    before and read just after), the last 8 streams against plain with the
    form's bound, stage A's T and stage B on it against plain, K1 whole and
    each pass alone over the 160 streams beside its plain version (8
-   streams at a time) and its bound, and the scratch. Then ``FBEngine`` /
+   streams at a time) and its bound and share of it, and the scratch. Then
+   ``FBEngine`` /
    ``FXBEngine(fengine="auto")`` at 65536 channels and ``FBEngine`` at 512
    (2 ant x 4 beams x 4 taps, S=128) on the card against the same engine on
    the CPU: beams within 2 + 1e-3 and off by more than 1e-3 on <= 5e-3 of
@@ -177,8 +180,9 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    once a group and nothing else; its last streams against plain at its
    form's contract; the call, each pass over all the streams, the plain
    version, the bounds and the scratch; each three-pass stage alone against
-   its plain version; K7 at the geometries its parent's SIMT body was
-   timed at (``K7_TIMED_CASES``); every route body's registers and spill
+   its plain version, bf16 K7's flipped share at fft 2^23
+   (``dit_flipped_share``, under 1e-3); K7 at the geometries its parent's
+   SIMT body was timed at (``K7_TIMED_CASES``); every route body's registers and spill
    bytes (a spill fails the phase);
 13. f_flagship — FEngine at 80 ant x 32768 ch x 16 taps, S=256 on flat int8
    ADC made on the card: 3 steps, a fine-delay change, 2 steps; K6 must
@@ -580,11 +584,17 @@ K1_WG_FFTS = tuple(1 << e for e in range(11, 22))
 K1_WG_WIDE = (1 << 17, 1 << 18, 1 << 20, 1 << 21)
 
 
+#: The built library's functions whose SASS ``_k1_dft_sass`` counts: K1's
+#: bf16 DFT-pass bodies (``k1_dft_wg_kernel``, N1 >= 16; ``k1_dft_kernel``,
+#: N1 = 8) and the three-pass route's bf16 stage bodies.
+K1_SASS_BODIES = ("k1_dft_wg_kernel", "k1_dft_kernel", "k1_stage_a_wg_kernel",
+                  "k1_stage_b_wg_kernel")
+
+
 def _k1_dft_sass() -> dict:
-    """The built library's DFT-pass bodies in SASS (``cuobjdump -sass``):
-    for each function named ``k1_dft_wg_kernel`` (N1 >= 16) or
-    ``k1_dft_kernel`` (N1 = 8), its count of HGMMA (wgmma) and HMMA.16816
-    (mma.sync m16n8k16) instructions."""
+    """The built library's bf16 DFT bodies in SASS (``cuobjdump -sass``):
+    for each function named in ``K1_SASS_BODIES``, its count of HGMMA
+    (wgmma) and HMMA.16816 (mma.sync m16n8k16) instructions."""
     import re
     import shutil
 
@@ -597,15 +607,17 @@ def _k1_dft_sass() -> dict:
     out = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if "k1_dft_wg_kernel" in name or "k1_dft_kernel" in name:
+        if any(body in name for body in K1_SASS_BODIES):
             out[name] = (len(re.findall(r"\bHGMMA\.", fn)), len(re.findall(r"\bHMMA\.16816", fn)))
     return out
 
 
 def _k1_dft_wgmma(st: dict, gen) -> None:
     """The bf16 DFT pass's wgmma body (N1 >= 16). Its SASS: every
-    ``k1_dft_wg_kernel`` body (production and stops) issues HGMMA and
-    no HMMA.16816, or the phase fails. At each split of ``K1_WG_FFTS``: the
+    ``k1_dft_wg_kernel`` body (production and stops) and every bf16
+    three-pass stage body (``k1_stage_a_wg_kernel``,
+    ``k1_stage_b_wg_kernel``, the stageb stop's too) issues HGMMA and no
+    HMMA.16816, or the phase fails. At each split of ``K1_WG_FFTS``: the
     body's registers, spill bytes (a spill fails), shared memory, ring
     stages, blocks a cluster and stage-A group depth; ``k1_dft`` on a FIR
     plane of 2 streams (16 taps, the codes at the flagship's level) against
@@ -628,14 +640,18 @@ def _k1_dft_wgmma(st: dict, gen) -> None:
     taps = FLAG["n_taps"]
     sass = _k1_dft_sass()
     wg = {k: v for k, v in sass.items() if "k1_dft_wg_kernel" in k}
-    bad = {k: v for k, v in wg.items() if not v[0] or v[1]}
+    stages = {k: v for k, v in sass.items() if "_wg_kernel" in k and "k1_stage_" in k}
+    bad = {k: v for k, v in {**wg, **stages}.items() if not v[0] or v[1]}
     log(f"k1 DFT pass SASS (cuobjdump -sass of the built library): {len(wg)} wgmma bodies, "
         f"HGMMA {sorted({v[0] for v in wg.values()})} a body, HMMA.16816 "
-        f"{sorted({v[1] for v in wg.values()})}; the N1 = 8 body (k1_dft_kernel): " + ", ".join(
+        f"{sorted({v[1] for v in wg.values()})}; the three-pass stage bodies: " + ", ".join(
+            f"{k} HGMMA {v[0]}, HMMA.16816 {v[1]}" for k, v in stages.items())
+        + "; the N1 = 8 body (k1_dft_kernel): " + ", ".join(
             f"HGMMA {v[0]}, HMMA.16816 {v[1]}" for k, v in sass.items() if "k1_dft_kernel" in k))
-    if len(wg) < 10 or bad:
-        raise AssertionError(f"k1 DFT pass: a wgmma body lacks HGMMA or issues HMMA.16816: "
-                             f"{bad or wg}")
+    n_stage = {s: sum(f"k1_stage_{s}_wg_kernel" in k for k in stages) for s in "ab"}
+    if len(wg) < 10 or n_stage["a"] < 2 or n_stage["b"] < 4 or bad:
+        raise AssertionError(f"k1 bf16 DFT bodies: a wgmma body is missing, lacks HGMMA or "
+                             f"issues HMMA.16816: {bad or {**wg, **stages}}")
     splits = {}
     for fft in K1_WG_FFTS:
         n1, n2 = ff._split_ct(fft)
@@ -716,7 +732,9 @@ def _k1_dft_wgmma(st: dict, gen) -> None:
             f"{dft_bound['bound_ms'] / dft_ms:.1%} of it); launches {launches} ({st['card']})")
         del x, plane, rc, rs
         torch.cuda.empty_cache()
-    st["k1_wg"] = dict(splits=splits, wide=wide, sass_bodies=len(wg))
+    st["k1_wg"] = dict(splits=splits, wide=wide, sass_bodies=len(wg),
+                       stage_sass={k: dict(hgmma=v[0], hmma_16816=v[1])
+                                   for k, v in stages.items()})
 
 
 def phase_k1(st: dict) -> None:
@@ -814,7 +832,7 @@ def phase_k1(st: dict) -> None:
                 f32["max_abs_err"] = max(f32.get("max_abs_err", 0), err)
     st["k1_subset"]["subset_max_abs_err"] = float(worst)
     _k1_dft_wgmma(st, gen)
-    _k1_three_pass_2_22(st, gen)
+    _k1_three_pass(st, gen)
     _k1_stops(st, gen)
     for fft_w, s_w in K1_FULL_WIDTH:
         _k1_full_width(st, gen, fft_w, s_w)
@@ -826,6 +844,9 @@ def phase_k1(st: dict) -> None:
 #: K1's first fft whose DFT pass has no shared-memory plan in either form
 #: (2048 x 2048): the three-pass route's.
 K1_THREE_PASS_FFT = 1 << 22
+#: K1's three-pass route on a few streams (phase 3): fft 2^22 and 2^23
+#: (4096 x 2048, the longest stage-A sums K1 has).
+K1_THREE_PASS_SMALL = (1 << 22, 1 << 23)
 #: K1 at full width (160 streams, 16 taps): (fft, S) — fft 1024 (N1 = 8) at
 #: 2^24 samples a stream, and fft 2^22 at S = 4 (2^24 samples a stream, as
 #: the flagship's step).
@@ -862,19 +883,39 @@ def _k1_case(n1, n2, nb, s, taps, dft_dtype, three):
     return k1, passes
 
 
-def _k1_three_pass_2_22(st: dict, gen) -> None:
-    """K1 at fft 2^22 (2048 x 2048), 2 streams x S=2 x 4 taps, both forms,
-    where neither DFT pass has a shared-memory plan: ``fengine_fused`` must
-    take the three-pass route (the form's FIR pass, stage A and stage B,
-    once each) and nothing else; held to the plain version within the form's
-    code contract and timed."""
+def _k1_three_pass(st: dict, gen) -> None:
+    """K1's three-pass route at ``K1_THREE_PASS_SMALL`` (``_k1_three_pass_at``
+    each), then the bf16 route's flipped share at each of those ffts
+    (``benchmarks/dft_pass_ab.py:flipped_share``, the codes near 50 rms),
+    logged and held under 1e-3."""
+    from dpdk_dc_sand_tpu_torch.benchmarks.dft_pass_ab import flipped_share
+    from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
+
+    for fft in K1_THREE_PASS_SMALL:
+        _k1_three_pass_at(st, gen, fft)
+    shares = {fft: flipped_share(ff, fft) for fft in K1_THREE_PASS_SMALL}
+    at = ff.k1_stage_attributes(*ff._split_ct(K1_THREE_PASS_FFT))["a"]
+    log("k1 bf16 three-pass route, flipped share (flipped_share, 2 streams, "
+        f"{at['group_products']} products a stage-A group): "
+        + ", ".join(f"fft {f} {v:.3e}" for f, v in shares.items()) + f" ({st['card']})")
+    if max(shares.values()) > 1e-3:
+        raise AssertionError(f"k1 three-pass route flips over 1e-3 of codes: {shares}")
+    st["k1_three_pass_flips"] = dict(shares=shares, group_products=at["group_products"])
+
+
+def _k1_three_pass_at(st: dict, gen, fft: int) -> None:
+    """K1 at ``fft`` (2048 x 2048 at 2^22, 4096 x 2048 at 2^23), 2 streams x
+    S=2 x 4 taps, both forms, where neither DFT pass has a shared-memory
+    plan: ``fengine_fused`` must take the three-pass route (the form's FIR
+    pass, stage A and stage B, once each) and nothing else; held to the
+    plain version within the form's code contract and timed."""
     import torch
 
     from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
     from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
 
     dev = torch.device("cuda")
-    fft, taps, s, nb = K1_THREE_PASS_FFT, 4, 2, 2
+    taps, s, nb = 4, 2, 2
     n1, n2 = ff._split_ct(fft)
     x = torch.randint(-64, 64, (nb, (s + taps - 1) * fft), dtype=torch.int8, device=dev,
                       generator=gen)
@@ -884,7 +925,7 @@ def _k1_three_pass_2_22(st: dict, gen) -> None:
     starts = torch.zeros(nb, dtype=torch.int64, device=dev)
     rc, rs = (r.reshape(nb, -1) for r in ff.fine_rotation_planes(
         fd, -1.5 * fd, n_channels=fft // 2, quant_scale=scale))
-    st["k1_2_22_small"] = {}
+    small = st.setdefault("k1_three_pass_small", {}).setdefault(fft, {})
     for dt in ("bfloat16", "float32"):
         sfx = "" if dt == "bfloat16" else "_f32"
         want = {f"k1_fir{sfx}", f"k1_stage_a{sfx}", f"k1_stage_b{sfx}"}
@@ -905,7 +946,7 @@ def _k1_three_pass_2_22(st: dict, gen) -> None:
         torch.cuda.synchronize()
         ran = {k: v - counts[k] for k, v in _k1_counts(ff).items()}
         if ran != {k: int(k in want) for k in ran}:
-            raise AssertionError(f"k1 {dt} at fft 2^22 ran {ran}, want one each of {want}")
+            raise AssertionError(f"k1 {dt} at fft {fft} ran {ran}, want one each of {want}")
         err = _code_diff(f"k1 {dt} fft {fft} [{nb} batches x S={s}, {n1}x{n2}, three passes]",
                          got, plain(), max_frac=1e-3 if dt == "bfloat16" else 1e-4)
         del got
@@ -914,8 +955,8 @@ def _k1_three_pass_2_22(st: dict, gen) -> None:
         log(f"k1 {dt} fft {fft} [{nb} batches x S={s} x {taps} taps]: three passes {ms:.3f} ms "
             f"(bound {k1_bound['bound_ms']:.3f}, {k1_bound['bound_by']}), plain {pms:.3f} ms; "
             f"launches {ran} ({st['card']})")
-        st["k1_2_22_small"][dt] = dict(ms=ms, plain_ms=pms, max_abs_err=float(err),
-                                       bound_ms=k1_bound["bound_ms"])
+        small[dt] = dict(ms=ms, plain_ms=pms, max_abs_err=float(err),
+                         bound_ms=k1_bound["bound_ms"])
 
 
 #: K1's stage stops (``fengine_fused(_ablate=...)``), in the order they cut
@@ -1241,8 +1282,9 @@ def _k1_full_width(st: dict, gen, fft: int, s: int) -> None:
             res["dft" if stage == "dft" else f"stage_{stage}"].update(
                 regs=at["regs"], local_bytes=at["local_bytes"])
         k1_plain = sum(r["plain_ms"] for r in res.values())
-        split = ", ".join(f"{n} {r['ms']:.3f} (bound {r['bound_ms']:.3f}, {r['bound_by']}; "
-                          f"plain {r['plain_ms']:.3f})" for n, r in res.items())
+        split = ", ".join(f"{n} {r['ms']:.3f} (bound {r['bound_ms']:.3f}, {r['bound_by']}, "
+                          f"{r['bound_ms'] / r['ms']:.1%} of it; plain {r['plain_ms']:.3f})"
+                          for n, r in res.items())
         log(f"{tag}: K1 {k1_ms:.3f} ms (bound {k1_bound['bound_ms']:.3f}, "
             f"{k1_bound['bound_by']}, {k1_bound['bound_ms'] / k1_ms:.2%} of it; its passes' "
             f"plain versions {k1_plain:.3f}); alone: {split}; launches {launches}; scratch "
@@ -3036,6 +3078,7 @@ def _k7_routes(st: dict, gen) -> None:
     spill fails the phase)."""
     import torch
 
+    from dpdk_dc_sand_tpu_torch.benchmarks.dft_pass_ab import dit_flipped_share
     from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
     from dpdk_dc_sand_tpu_torch.ops.pfb import default_window
 
@@ -3163,6 +3206,12 @@ def _k7_routes(st: dict, gen) -> None:
                        stage_b_max_abs_err=float(b_err), stage_a_plain_ms_1=a_plain,
                        stage_b_plain_ms_1=b_plain)
             del p1, wr, wi, sb
+            if not f32:
+                # K7's flipped share on K1's stage A (the [N1, 2·N2] view), held
+                # under its 1e-3 gate.
+                rec["flipped_share"] = dit_flipped_share(ff, fft)
+                if rec["flipped_share"] > 1e-3:
+                    raise AssertionError(f"{tag}: flips {rec['flipped_share']:.3e} of codes")
         else:
             pk = fir_fn(flat[last], zeros[last], win, n_spectra=s)
             if not torch.equal(pk, ff.k1_fir_reference(flat[last], zeros[last], win,
@@ -3180,10 +3229,14 @@ def _k7_routes(st: dict, gen) -> None:
             + (f" (its DFT pass {rec['dft_plain_ms']:.3f})" if not three else "")
             + f"; scratch {scratch / 1e9:.3f} GB a call; "
             f"{groups} group(s) of {group}; launches {launches}"
-            + (f"; stage A alone: T differs on {rec['stage_a_t_differ']:.2e} of values (max "
-               f"{rec['stage_a_t_max_abs_err']:.3g}), plain {rec['stage_a_plain_ms_1']:.3f} ms a "
-               f"stream; stage B plain {rec['stage_b_plain_ms_1']:.3f} ms a stream" if three else
-               "") + f" ({st['card']})")
+            + (f"; stage A {pass_bounds['stage_a']['bound_ms'] / pass_ms['stage_a']:.1%} and "
+               f"stage B {pass_bounds['stage_b']['bound_ms'] / pass_ms['stage_b']:.1%} of their "
+               f"bounds; stage A alone: T differs on {rec['stage_a_t_differ']:.2e} of values "
+               f"(max {rec['stage_a_t_max_abs_err']:.3g}), plain "
+               f"{rec['stage_a_plain_ms_1']:.3f} ms a stream; stage B plain "
+               f"{rec['stage_b_plain_ms_1']:.3f} ms a stream" if three else "")
+            + (f"; flipped share (dit_flipped_share) {rec['flipped_share']:.3e}"
+               if "flipped_share" in rec else "") + f" ({st['card']})")
         del frames, flat, zeros, rc, rs, fd
         torch.cuda.empty_cache()
     timed = {case: _k7_timed(ff, *case) for case in K7_TIMED_CASES}
@@ -5287,8 +5340,8 @@ def _k7_route_kernels(st: dict) -> list:
              "fengine_dit.cu"),
             (1024, "float32", "dit_dft_f32_n1_8", "dit_dft_f32_kernel<8>: K7's f32 DFT pass at "
              "N1 = 8, after k1_fir_kernel<..., float>", "dft", "fengine_dit.cu"),
-            (1 << 23, "bfloat16", "dit_stage_a", "k1_stage_a_kernel on K7's [N1, 2·N2] view "
-             "(the column-doubled twiddles): K7's three-pass stage A", "stage_a",
+            (1 << 23, "bfloat16", "dit_stage_a", "k1_stage_a_wg_kernel on K7's [N1, 2·N2] "
+             "view (the column-doubled twiddles): K7's three-pass stage A", "stage_a",
              "fengine_ct.cu"),
             (1 << 23, "bfloat16", "dit_stage_b", "dit_stage_b_kernel: K7's three-pass stage B",
              "stage_b", "fengine_dit.cu"),
@@ -5363,14 +5416,21 @@ def main() -> int:
              fb_512ch=st["fb512"], **st["k1"]),
         *(dict(name=f"k1_stage_{stage}{sfx}", route="cuda",
                source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
-               kernel=f"k1_stage_{stage}{sfx}_kernel: K1's three-pass route ({dt}), stage "
-                      f"{stage.upper()}",
+               kernel=(f"k1_stage_{stage}_wg_kernel: K1's three-pass route (bf16), stage "
+                       f"{stage.upper()} (wgmma from a TMA/mbarrier ring, a producer thread "
+                       "and two consumer warpgroups)" if dt == "bfloat16" else
+                       f"k1_stage_{stage}_f32_kernel: K1's three-pass route (f32), stage "
+                       f"{stage.upper()}"),
                replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504",
                path="k1_fft_2_22_full_width",
                launches=full[(K1_THREE_PASS_FFT, dt)]["launches"][f"k1_stage_{stage}{sfx}"],
                k1_fft_2_22_full_width={k: v for k, v in full[(K1_THREE_PASS_FFT, dt)].items()
                                        if k != "passes"},
-               k1_fft_2_22_2x2x4=st["k1_2_22_small"][dt],
+               k1_fft_2_22_2x2x4=st["k1_three_pass_small"][1 << 22][dt],
+               k1_fft_2_23_2x2x4=st["k1_three_pass_small"][1 << 23][dt],
+               **({"wgmma": dict(sass={k: v for k, v in st["k1_wg"]["stage_sass"].items()
+                                       if f"k1_stage_{stage}_wg_kernel" in k},
+                                 flipped=st["k1_three_pass_flips"])} if dt == "bfloat16" else {}),
                **full[(K1_THREE_PASS_FFT, dt)]["passes"][f"stage_{stage}"])
           for dt, sfx in (("bfloat16", ""), ("float32", "_f32")) for stage in "ab"),
         dict(name="k1_dft", route="cuda", source="dpdk_dc_sand_tpu_torch/csrc/fengine_ct.cu",
@@ -5405,7 +5465,8 @@ def main() -> int:
              kernel="K1's route cut at each stage stop (fengine_fused(_ablate=...)): "
                     "k1_fir_kernel at STOP_DMA / STOP_FIR_RND, k1_dft_wg_kernel / "
                     "k1_dft_f32_kernel at STOP_STAGEA_RND / STOP_STAGEB, "
-                    "k1_stage_b[_f32]_kernel at STOP_STAGEB, k1_t_slice_kernel; timed on the "
+                    "k1_stage_b_wg_kernel / k1_stage_b_f32_kernel at STOP_STAGEB, "
+                    "k1_t_slice_kernel; timed on the "
                     "fused_f32 flagship route (ms: whole)",
              replaces="dpdk_dc_sand_tpu/ops/fengine_pallas.py:504",
              path="fb_flagship_fused_f32_stops", off_flagship=st["k1_stops"],

@@ -103,7 +103,7 @@
 //        (64 products) sum into a fragment from zero (scale-d 0 on the
 //        group's first), which joins the master sums by __fadd_rn: one
 //        FADD a sum every 64 products where the old mma.sync body spent
-//        one every 16 (mma16816_rn, kept for the three-pass route), and an
+//        one every 16 (each MMA's sum added in f32), and an
 //        f32 sum of the tensor core's 64-product sums in place of one
 //        chained sum over N1, whose drift flipped more than 1e-3 of codes
 //        at fft 2^20. The card's flipped share at depths of 16, 32 and 64
@@ -173,21 +173,86 @@
 // 3. The three-pass route (N2 >= 2048, both operand types). At N2 = 2048 a
 //    chunk's T planes ([KC, N2] complex) do not fit beside the tile ring,
 //    and shrinking the chunk would read each plane row from L2 N1 / KC times
-//    a spectrum. So T goes to device memory between two GEMM-shaped passes,
-//    one block a tile, each tile's K loop through a cp.async ring:
-//      k1_stage_a_kernel (bf16: mma.sync m16n8k16 from the ring, each MMA's
-//        sum added in f32 round-to-nearest: at K = N1 = 2048 chained sums
-//        would flip more bf16 roundings of T than at 1024) and k1_stage_a_f32_kernel (FFMA, 4 k1 x (cos, -sin) x 8
-//        columns a thread): [2·N1 x N1] (the cos and -sin rows paired, so one
-//        thread holds both sums of a (k1, n2)) x the plane [N1 x N2] of each
-//        spectrum, the f32 twiddle in the epilogue, T re and im stored
-//        rounded to the operand type, K1's rounding point (f32 T
-//        transposed, [n2][k1], so f32 stage B reads 4 k1 as one float4);
-//      k1_stage_b_kernel (bf16, its MMAs chained as the DFT pass's stage B)
-//        and k1_stage_b_f32_kernel (FFMA, 4 k2 x (cos, -sin) x 4 k1 x (T re,
-//        T im) a thread): the row-stacked N2-point matrix x T^T, the four
-//        products combined as the DFT pass's stage B does, then the
-//        rotation and the requant (or the f32 store), bin k2·N1 + k1.
+//    a spectrum. So T goes to device memory between two GEMM-shaped passes:
+//    stage A, [2·N1 x N1] (the cos and -sin rows paired, so one thread
+//    holds both sums of a (k1, n2)) x the plane [N1 x N2] of each spectrum,
+//    the f32 twiddle, T re and im stored rounded to the operand type (K1's
+//    rounding point); stage B, the row-stacked N2-point matrix x T^T, the
+//    four products cos.tr, -sin.ti, cos.ti, -sin.tr combined as the DFT
+//    pass's stage B does, then the rotation and the requant (or the f32
+//    store), bin k2·N1 + k1. T keeps K1's layout, bf16 [m, N1, N2] (K7's
+//    stage B and the stagea stop's gather read it so).
+//    bf16: k1_stage_a_wg_kernel and k1_stage_b_wg_kernel, the DFT pass's
+//    machinery on GEMM-shaped tiles: wgmma (bf16 in, f32 sums) from shared
+//    memory in two consumer warpgroups (setmaxnreg up to 232), fed by one
+//    producer thread (its warpgroup down to 40) that issues TMA boxes (2-D
+//    tensor maps, 128-byte swizzle) into a ring of 4 slots of 48 KB; a
+//    slot's full mbarrier counts the producer's arrival and the box bytes,
+//    its empty mbarrier one arrival a consumer warpgroup once the wgmmas
+//    that read it have completed. No block-wide barrier after the start.
+//    One persistent block an SM walks the tiles, columns fastest (stage A:
+//    a chunk's n2 tiles; stage B: a k1 tile's k2 tiles), so the tiles
+//    running side by side share one spectrum's plane (or T) and one chunk's
+//    matrix rows in L2; the producer runs on into the next tile's slots
+//    while the consumers finish a tile.
+//      Stage A, transposed as the DFT pass's: a tile is 128 n2 x 128 k1 (64
+//        k1 at N1 = 64) of one spectrum. A K slot holds the two consumers'
+//        plane tiles [64 n1 x 64 n2] (wgmma's M-major A operand, imm-trans-
+//        a) and the chunk's [cos 64; -sin 64] box pairs of the N1-point
+//        rows (the K-major B operand), two pieces of 64 k1. Each consumer
+//        takes one 64-column tile and both pieces, m64n128k16: its sums in
+//        two levels, the wgmmas of a group of SA_GROUP k-steps (64
+//        products) summed into a fragment from zero, which joins the
+//        piece's f32 master sums by __fadd_rn (one FADD a sum every 64
+//        products where the mma.sync body spent one every 16). The flipped
+//        share at depths of 16, 32 and 64 products at fft 2^22, 2^23 and on
+//        K7's view at 2^23 is in PERF.md: 64 flipped the fewest codes, 16
+//        as many as the mma.sync body (its sums, to the digit). Registers:
+//        two pieces' master sums (128) and one fragment (64). The two
+//        consumers take turns at issuing a group (two named barriers), so
+//        that one's wgmmas run on the tensor cores while the other waits
+//        for its own group and adds it to its master sums.
+//        Epilogue: each piece's f32 twiddles come as a slot of the ring
+//        each consumer ([64 k1 x 64 n2] of twc and tws), issued behind the
+//        tile's K slots, so they land while its last MMAs run; a quad
+//        shuffle gives each thread two neighbouring n2 of one k1, T re and
+//        T im rounded to bf16 once and stored as bf16 pairs.
+//      Stage B: a tile is 128 k2 x 64 k1 (64 k2 x 128 k1 at N2 = 128, and
+//        64 x 64 at N1 = 64 beside it, which both consumers sum and the
+//        first stores). A K
+//        slot holds the [cos 64; -sin 64] box pairs of the N2-point rows
+//        (the K-major A operand) and the [T re 64; T im 64] box pairs of T
+//        (the K-major B operand, straight from device memory); each
+//        consumer takes its 64 k2 x 64 k1, m64n128k16 twice a k-step,
+//        cos.tr and cos.ti in one fragment, -sin.tr and -sin.ti in the
+//        other, chained over n2 (at fft 2^22 the chained stage B flipped
+//        6.5e-5 of the codes against plain on the same T, 1.4e-5 with
+//        each MMA's sum added in f32, on the mma.sync body), one group left
+//        in flight while the next slot's run. Epilogue: the consumer's
+//        rotation values ([64 k2 x 64 k1] of rotc and rots, the planes
+//        viewed [batch·N2/2, N1]) come as a slot of the ring behind its K
+//        slots; then re, im, the rotation, the requant (or the f32 store).
+//      Bytes through L2 at fft 2^22 over 160 x S = 4 (640 spectra, 163,840
+//      tiles a stage): a stage-A tile reads 32 K slots of 48 KB (1.5 MB:
+//      2 x 128 x 256 x 2048 FLOP, 85 a byte), 128 KB of twiddles and writes
+//      64 KB of T: 257.7 GB of operands, 21.5 GB of twiddles, 10.7 GB of T
+//      a stage-A call; a stage-B tile the same 1.5 MB of operands, 64 KB of
+//      rotation values, 16 KB of codes: 257.7 GB, 10.7 GB, 2.7 GB. The
+//      mma.sync bodies read 343.6 GB of operands a stage (64 FLOP a byte:
+//      one block a 64 x 128 or 64 x 64 tile). The tile is what the two
+//      consumers' registers hold: stage A's two-level sums take a fragment
+//      beside the master sums, so 128 x 256 sums a block. Clusters of two
+//      blocks multicasting the shared operand (stage A: the chunk's
+//      N1-point rows; stage B: the k2 rows), which cut a block's operand
+//      boxes from six a slot to four, took 1.9 (stage A) and 1.7 (stage B)
+//      times as long on the card (PERF.md §6), and were not kept.
+//      Registers: 168 a thread at launch, 232 a consumer thread after
+//      setmaxnreg; 0 spill bytes in both bodies and in the stageb stop's.
+//    f32: k1_stage_a_f32_kernel (FFMA, 4 k1 x (cos, -sin) x 8 columns a
+//    thread; T stored transposed, [n2][k1], so f32 stage B reads 4 k1 as
+//    one float4) and k1_stage_b_f32_kernel (FFMA, 4 k2 x (cos, -sin) x 4 k1
+//    x (T re, T im) a thread), one block a tile, each tile's K loop through
+//    a cp.async ring.
 //    These passes replace nothing in the TPU kernel: they are K1's work
 //    split where an SM's 227 KB cannot hold what the TPU's VMEM held. The
 //    bf16 or f32 operations bound each pass (68.7 GFLOP a spectrum at fft
@@ -921,20 +986,6 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t a[4], uint32_t
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b, the MMA summing its 16 products alone and the sum added to d
-// in f32 round-to-nearest (the three-pass route's stage A). Chained through
-// the MMA's own accumulator, the running sum is rounded by the tensor core's
-// alignment at every step; over the N1 products of a stage-A sum that drifts
-// far enough from an f32 sum to flip bf16 roundings of T (stage B's sums end
-// in int8 codes, which they do not move).
-__device__ __forceinline__ void mma16816_rn(float* d, const uint32_t a[4], uint32_t b0,
-                                            uint32_t b1) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma16816(t, a, b0, b1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], t[e]);
 }
 
 // d = a (16x8, row) * b (8x8, col), bf16 in, f32 out: the MMA's 8-product
@@ -2402,24 +2453,14 @@ int with_f32_plan(F32Params p, F&& f) {
 
 // ---------------------------------------------------------------------------
 // The three-pass route (N2 >= 2048): stage A, then stage B, through T in
-// device memory (see the head of the file). One block a tile, each tile's K
-// loop through a cp.async ring. Each body spills nothing: the bf16 ones and
-// f32 stage B fit 128 registers (two blocks an SM) with their tile copies
-// in rolled loops (unrolled, their hoisted addresses spilled); f32 stage A
-// takes 150 registers, one block an SM (at two it spilled 8 bytes).
+// device memory (see the head of the file, item 3). bf16: the two wgmma
+// bodies below (k1_stage_a_wg_kernel, k1_stage_b_wg_kernel). f32: one block
+// a tile, each tile's K loop through a cp.async ring; f32 stage B fits 128
+// registers with its tile copies in rolled loops (unrolled, their hoisted
+// addresses spilled); f32 stage A takes 150 registers, one block an SM (at
+// two it spilled 8 bytes). No body spills.
 // ---------------------------------------------------------------------------
-constexpr int TP_THREADS = 256;  // 8 warps
-// bf16 stage A: 64 k1 rows (their cos and -sin rows) x 128 n2 columns of one
-// spectrum a tile, K tiles of 64 n1; warps 2 x 4, each 32 k1 rows x 32
-// columns. bf16 stage B: 64 k2 rows (their cos and -sin rows) x 64 k1
-// columns, K tiles of 64 n2; warps 2 x 4, each 32 k2 rows x 16 k1 columns.
-constexpr int SA_M = 64, SA_N = 128, SA_K = 64;
-constexpr int SB_M = 64, SB_N = 64, SB_K = 64;
-constexpr int TP_STAGES = 3;
-constexpr int SA_SLOT = SA_K * (SA_N + PAD) + 2 * SA_M * (SA_K + PAD);  // bf16 elements
-constexpr int SB_SLOT = (2 * SB_M + 2 * SB_N) * (SB_K + PAD);
-constexpr size_t SA_SMEM = sizeof(bf16) * TP_STAGES * SA_SLOT;
-constexpr size_t SB_SMEM = sizeof(bf16) * TP_STAGES * SB_SLOT;
+constexpr int TP_THREADS = 256;  // the f32 bodies: 8 warps
 // f32 stage A: 64 k1 rows x 128 n2 columns, K tiles of 16 n1, 4 k1 rows x
 // (cos, -sin) x 8 columns a thread. f32 stage B: 64 k2 rows x 64 k1
 // columns, K tiles of 16 n2, 4 k2 x (cos, -sin) x 4 k1 x (T re, T im) a
@@ -2432,8 +2473,6 @@ constexpr int FA_SLOT = FA_K * (FA_N + 2 * FA_M);  // floats
 constexpr int FB_SLOT = FB_K * 2 * FB_M + 2 * FB_K * FB_N;
 constexpr size_t FA_SMEM = sizeof(float) * F3_STAGES * FA_SLOT;
 constexpr size_t FB_SMEM = sizeof(float) * F3_STAGES * FB_SLOT;
-static_assert(2 * (SA_SMEM + 1024) <= 233472 && 2 * (SB_SMEM + 1024) <= 233472,
-              "two bf16 stage blocks must share an SM's 228 KB");
 
 struct StageParams {
   const void* plane;  // stage A: [M, N1, N2], M = batch * n_spectra (bf16 or f32)
@@ -2490,17 +2529,17 @@ __device__ __forceinline__ void ring_loop(T* ring, int slot, int n_k, Load load,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The epilogue of stage B for two (or four) adjacent k1 of one k2: re =
-// cos.tr - (-sin.ti), im = cos.ti + (-sin.tr) from the four sums s[0..3][e],
-// then the rotation and the requant (or the f32 values) at out + o; at
-// STOP_STAGEB re and im themselves, truncated (or f32).
-template <bool QUANT, int E, int STOP = STOP_NONE>
+// The f32 stage B's epilogue for four adjacent k1 of one k2: re = cos.tr -
+// (-sin.ti), im = cos.ti + (-sin.tr) from the four sums s[0..3][e], then the
+// rotation and the requant (or the f32 values) at out + o; at STOP_STAGEB re
+// and im themselves, truncated (or f32).
+template <bool QUANT, int STOP = STOP_NONE>
 __device__ __forceinline__ void stage_b_store(const StageParams& p, long long o,
-                                              const float (&s)[4][E], const float* rc,
+                                              const float (&s)[4][4], const float* rc,
                                               const float* rs) {
-  float v[2][E];
+  float v[2][4];
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
+  for (int e = 0; e < 4; ++e) {
     const float re = __fsub_rn(s[0][e], s[1][e]);
     const float im = __fadd_rn(s[2][e], s[3][e]);
     if constexpr (STOP == STOP_STAGEB) {
@@ -2511,228 +2550,552 @@ __device__ __forceinline__ void stage_b_store(const StageParams& p, long long o,
       v[1][e] = __fadd_rn(__fmul_rn(re, rs[e]), __fmul_rn(im, rc[e]));
     }
   }
-  if constexpr (STOP == STOP_STAGEB && E == 2) {
-    stop_store2<QUANT>(p.outr, o, v[0][0], v[0][1]);
-    stop_store2<QUANT>(p.outi, o, v[1][0], v[1][1]);
-  } else if constexpr (STOP == STOP_STAGEB) {
+  if constexpr (STOP == STOP_STAGEB) {
     stop_store4<QUANT>(p.outr, o, make_float4(v[0][0], v[0][1], v[0][2], v[0][3]));
     stop_store4<QUANT>(p.outi, o, make_float4(v[1][0], v[1][1], v[1][2], v[1][3]));
-  } else if constexpr (E == 2) {
-    if constexpr (QUANT) {
-      *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + o) =
-          make_char2(requant(v[0][0]), requant(v[0][1]));
-      *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + o) =
-          make_char2(requant(v[1][0]), requant(v[1][1]));
-    } else {
-      *reinterpret_cast<float2*>(static_cast<float*>(p.outr) + o) = make_float2(v[0][0], v[0][1]);
-      *reinterpret_cast<float2*>(static_cast<float*>(p.outi) + o) = make_float2(v[1][0], v[1][1]);
-    }
+  } else if constexpr (QUANT) {
+    *reinterpret_cast<char4*>(static_cast<int8_t*>(p.outr) + o) =
+        make_char4(requant(v[0][0]), requant(v[0][1]), requant(v[0][2]), requant(v[0][3]));
+    *reinterpret_cast<char4*>(static_cast<int8_t*>(p.outi) + o) =
+        make_char4(requant(v[1][0]), requant(v[1][1]), requant(v[1][2]), requant(v[1][3]));
   } else {
-    static_assert(E == 4, "two or four outputs a store");
-    if constexpr (QUANT) {
-      *reinterpret_cast<char4*>(static_cast<int8_t*>(p.outr) + o) =
-          make_char4(requant(v[0][0]), requant(v[0][1]), requant(v[0][2]), requant(v[0][3]));
-      *reinterpret_cast<char4*>(static_cast<int8_t*>(p.outi) + o) =
-          make_char4(requant(v[1][0]), requant(v[1][1]), requant(v[1][2]), requant(v[1][3]));
-    } else {
-      *reinterpret_cast<float4*>(static_cast<float*>(p.outr) + o) =
-          make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
-      *reinterpret_cast<float4*>(static_cast<float*>(p.outi) + o) =
-          make_float4(v[1][0], v[1][1], v[1][2], v[1][3]);
-    }
+    *reinterpret_cast<float4*>(static_cast<float*>(p.outr) + o) =
+        make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
+    *reinterpret_cast<float4*>(static_cast<float*>(p.outi) + o) =
+        make_float4(v[1][0], v[1][1], v[1][2], v[1][3]);
   }
 }
 
-// (The two stage-A kernels are not templates, so the stops' builds, which
-// run them through the library's own entry points, leave them out.)
-#ifndef K1_STAGE_STOPS
-// Stage A, bf16: T = twiddle(D1 @ plane) of a [64 x 128] tile, rounded to bf16.
-__global__ void __launch_bounds__(TP_THREADS, 2) k1_stage_a_kernel(StageParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  constexpr int XLD = SA_N + PAD, DLD = SA_K + PAD;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int n1 = p.n1, n2 = p.n2;
-  const StageTile w = stage_tile(p, SA_M, SA_N);
-  const long long mat = w.m * n1 * static_cast<long long>(n2);
-  const bf16* xsrc = static_cast<const bf16*>(p.plane) + mat + w.c0;
-  const bf16* d1c = static_cast<const bf16*>(p.d1c) + static_cast<long long>(w.r0) * n1;
-  const bf16* d1s = static_cast<const bf16*>(p.d1s) + static_cast<long long>(w.r0) * n1;
-  const int wr = (warp / 4) * 32, wc = (warp % 4) * 32;  // the warp's k1 rows, columns
-  float acc[64];  // [cos/-sin][2 m16][4 n8][4]
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+// ---------------------------------------------------------------------------
+// The three-pass route's bf16 stages on wgmma (the design is at the head of
+// the file, item 3). Both bodies: one persistent block of WG_THREADS an SM
+// (the producer warpgroup, then two consumer warpgroups, registers
+// rebalanced by setmaxnreg as the DFT pass's), a ring of TP_STAGES slots of
+// TP_SLOT bytes, each a K step of 64: six boxes of 64 rows x 128 bytes
+// (128-byte swizzle) of the two operands, or four of a consumer's f32
+// epilogue operand.
+// ---------------------------------------------------------------------------
+constexpr int TP_BOX = 64 * WG_ROW;  // a box: 64 rows x 128 bytes
+constexpr int TP_SLOT = 6 * TP_BOX;  // bytes a ring slot
+constexpr int TP_STAGES = 4;         // ring slots (192 KB)
+constexpr size_t TP_SMEM = static_cast<size_t>(TP_STAGES) * TP_SLOT + 2 * 8 * TP_STAGES + WG_ALIGN;
+static_assert(TP_SMEM <= MAX_SMEM, "the three-pass ring");
+// Stage A's group depth in k-steps of 16 products: each group of wgmmas sums
+// into a fragment from zero, which is then added to the master sums in f32
+// round-to-nearest (PERF.md gives the flipped share at each depth). A slot's
+// 4 k-steps hold a whole number of groups.
+constexpr int SA_GROUP = 4;
 
-  auto load = [&](int kt, bf16* slot) {
-    // [SA_K x SA_N] of the plane, then the tile's [SA_M x SA_K] cos and -sin.
-#pragma unroll 1
-    for (int i = threadIdx.x; i < SA_K * SA_N / 8; i += TP_THREADS) {
-      const int r = i / (SA_N / 8), q = i % (SA_N / 8);
-      cp_async16(slot + r * XLD + q * 8, xsrc + ((kt * SA_K + r) * n2 + q * 8));
+// The consumers' turns at issuing wgmma groups (named barriers 4 and 5,
+// both consumer warpgroups): a consumer waits for its turn, issues a group,
+// then gives the other its turn, so that one's group runs on the tensor
+// cores while the other waits for its own and joins it to its master sums.
+__device__ __forceinline__ void tp_turn_wait(int cw) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(4 + cw) : "memory");
+}
+
+__device__ __forceinline__ void tp_turn_give(int cw) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(5 - cw) : "memory");
+}
+
+// A stage's tile t of the persistent walk: spectrum, row tile r, column tile
+// c, columns fastest (stage A: n2 tiles of one k1 chunk; stage B: k2 tiles of
+// one k1 tile), so the tiles running side by side share a spectrum's plane
+// (or T) and one chunk's matrix rows in L2.
+struct TpTile {
+  int spec, r, c;
+};
+
+__device__ __forceinline__ TpTile tp_tile(int t, int n_c, int n_r) {
+  TpTile w;
+  w.c = t % n_c;
+  t /= n_c;
+  w.r = t % n_r;
+  w.spec = t / n_r;
+  return w;
+}
+
+// The ring's mbarriers, initialised by thread 0 before the block's first
+// barrier: a slot's full mbarrier counts the producer's arrival and the
+// box bytes, its empty one an arrival a consumer warpgroup.
+__device__ __forceinline__ uint32_t tp_ring_init(unsigned char* smem, uint32_t& full,
+                                                 uint32_t& empty) {
+  const uint32_t ring = (smem_u32(smem) + WG_ALIGN - 1) & ~static_cast<uint32_t>(WG_ALIGN - 1);
+  full = ring + TP_STAGES * TP_SLOT;
+  empty = full + 8 * TP_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TP_STAGES; ++s) {
+      wg_mbar_init(full + 8 * s, 1);
+      wg_mbar_init(empty + 8 * s, 2);
     }
-    bf16* sd = slot + SA_K * XLD;
-#pragma unroll 1
-    for (int i = threadIdx.x; i < 2 * SA_M * SA_K / 8; i += TP_THREADS) {
-      const int mm = i / (SA_M * SA_K / 8), j = i % (SA_M * SA_K / 8);
-      const int r = j / (SA_K / 8), q = j % (SA_K / 8);
-      cp_async16(sd + (mm * SA_M + r) * DLD + q * 8, (mm ? d1s : d1c) + (r * n1 + kt * SA_K + q * 8));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return ring;
+}
+
+// A consumer warpgroup's slots of an epilogue operand, one a warpgroup:
+// waits for both, keeps its own (returned, its index in slot) and releases
+// the other's once it has landed, so that the arrival counts toward this
+// use of the slot.
+__device__ __forceinline__ uint32_t tp_own_slot(WgRing& r, uint32_t ring, uint32_t full,
+                                                uint32_t empty, int cw, int wt, int& slot) {
+  uint32_t own = 0;
+  for (int w = 0; w < 2; ++w, r.next(TP_STAGES)) {
+    wg_mbar_wait(full + 8 * r.slot, r.phase);
+    if (w == cw) {
+      own = ring + r.slot * TP_SLOT;
+      slot = r.slot;
+    } else if (wt == 0) {
+      wg_mbar_arrive(empty + 8 * r.slot);
     }
-  };
-  auto compute = [&](const bf16* slot) {
-    const bf16* sX = slot;
-    const bf16* sAc = slot + SA_K * XLD;
-    const bf16* sAs = sAc + SA_M * DLD;
+  }
+  return own;
+}
+
+// Stage A: T = twiddle(D1 @ plane) of each spectrum, rounded to bf16.
+struct SaParams {
+  bf16* tr;  // [m, N1, N2]
+  bf16* ti;
+  int n1, n2;
+  int n_ct;     // a spectrum's column tiles: N2 / 128
+  int n_rt;     // its chunks of 64 P k1
+  int n_ka;     // K slots a tile: N1 / 64
+  int n_tiles;  // m * n_rt * n_ct
+};
+
+// 2-D tensor maps, 128-byte swizzle, boxes of 64 rows: the plane viewed [m *
+// N1, N2] (64 columns a box), the N1-point matrices [N1, N1] (64 columns),
+// the f32 twiddles [N1, N2] (32 columns).
+struct SaMaps {
+  CUtensorMap plane, d1c, d1s, twc, tws;
+};
+
+#ifndef K1_STAGE_STOPS
+// A tile is 128 n2 columns (a 64-column tile each consumer) x a chunk of 64 P
+// k1 (P pieces of 64, each a [cos 64; -sin 64] box pair of the N1-point
+// rows). A K slot: the two plane tiles [64 n1 x 64 n2] (wgmma's M-major A
+// operand, imm-trans-a), then the chunk's P box pairs (the K-major B
+// operand); then each piece's twiddles, a slot each consumer.
+template <int P>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    k1_stage_a_wg_kernel(const SaParams p, const __grid_constant__ SaMaps maps) {
+  constexpr int NKS = 4;  // k-steps of 16 a slot
+  constexpr int GS = SA_GROUP;
+  static_assert(NKS % GS == 0 && (2 + 2 * P) * TP_BOX <= TP_SLOT, "stage-A slot");
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  uint32_t full, empty;
+  const uint32_t ring = tp_ring_init(wg_smem, full, empty);
+  const int wg = threadIdx.x / 128;
+  const int my_tiles = (p.n_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+
+  if (wg == 0) {
+    // The producer: one thread walks the tiles' slots in the consumers'
+    // order, each slot's boxes issued once both consumers released it.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    WgRing r;
+    for (int i = 0; i < my_tiles; ++i) {
+      const TpTile u = tp_tile(blockIdx.x + i * gridDim.x, p.n_ct, p.n_rt);
+      const int prow = u.spec * p.n1, col = 128 * u.c, k0 = 64 * P * u.r;
+      for (int ka = 0; ka < p.n_ka; ++ka, r.next(TP_STAGES)) {
+        wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+        const uint32_t s = ring + r.slot * TP_SLOT, bar = full + 8 * r.slot;
+        wg_mbar_expect(bar, (2 + 2 * P) * TP_BOX);
+        wg_tma(s, &maps.plane, col, prow + 64 * ka, bar);
+        wg_tma(s + TP_BOX, &maps.plane, col + 64, prow + 64 * ka, bar);
 #pragma unroll
-    for (int kk = 0; kk < SA_K; kk += 16) {
-      uint32_t fa[2][2][4], fb[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wr + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
-        ldsm_x4(fa[0][i], sAc + r * DLD + c);
-        ldsm_x4(fa[1][i], sAs + r * DLD + c);
+        for (int pc = 0; pc < P; ++pc) {
+          wg_tma(s + (2 + 2 * pc) * TP_BOX, &maps.d1c, 64 * ka, k0 + 64 * pc, bar);
+          wg_tma(s + (3 + 2 * pc) * TP_BOX, &maps.d1s, 64 * ka, k0 + 64 * pc, bar);
+        }
       }
+      // Each piece's twiddles, a slot each consumer: [64 k1 x 64 n2] of twc,
+      // then of tws, as two boxes of 32 columns each.
+      for (int pc = 0; pc < P; ++pc) {
+        for (int w = 0; w < 2; ++w, r.next(TP_STAGES)) {
+          wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+          const uint32_t s = ring + r.slot * TP_SLOT, bar = full + 8 * r.slot;
+          wg_mbar_expect(bar, 4 * TP_BOX);
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int r = kk + lane % 8 + ((lane / 8) % 2) * 8;
-        ldsm_x4_t(fb[jj], sX + r * XLD + wc + jj * 16 + (lane / 16) * 8);
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            mma16816_rn(acc + ((m * 2 + i) * 4 + j) * 4, fa[m][i], fb[j / 2][(j % 2) * 2],
-                        fb[j / 2][(j % 2) * 2 + 1]);
+          for (int x = 0; x < 4; ++x) {
+            wg_tma(s + x * TP_BOX, x < 2 ? &maps.twc : &maps.tws, col + 64 * w + 32 * (x & 1),
+                   k0 + 64 * pc, bar);
           }
         }
       }
     }
-  };
-  ring_loop<TP_STAGES>(ring, SA_SLOT, n1 / SA_K, load, compute);
+    return;
+  }
 
-  // The f32 twiddle, rounded to bf16, into T.
-  bf16* tr = static_cast<bf16*>(p.tr) + mat;
-  bf16* ti = static_cast<bf16*>(p.ti) + mat;
+  // A consumer warpgroup (cw 0 or 1): the tile's n2 columns 64 cw.., every
+  // piece of its chunk.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  const int cw = wg - 1, wt = threadIdx.x - 128 * wg;
+  const int wq = wt / 32, lane = wt % 32, g = lane / 4, t = lane % 4;
+  const bool odd = g & 1;
+  float part[64];  // a group's sums: [n2 rows 64] x [cos 64 | -sin 64] (m64n128)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int k = 0; k < 64; ++k) part[k] = 0.f;
+  // Groups left to issue: the second consumer's last gives no turn.
+  int groups = my_tiles * p.n_ka * P * (NKS / GS);
+  if (cw == 1) tp_turn_give(cw);  // the first consumer's first turn
+  WgRing r;
+  for (int i = 0; i < my_tiles; ++i) {
+    const TpTile u = tp_tile(blockIdx.x + i * gridDim.x, p.n_ct, p.n_rt);
+    float sums[P][64];  // each piece's master sums
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int pc = 0; pc < P; ++pc) {
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long long o = static_cast<long long>(w.r0 + wr + i * 16 + g + hh * 8) * n2 + w.c0 +
-                            wc + j * 8 + tig * 2;
-        const float2 c = __ldg(reinterpret_cast<const float2*>(p.twc + o));
-        const float2 sn = __ldg(reinterpret_cast<const float2*>(p.tws + o));
-        const float* cr = acc + ((0 * 2 + i) * 4 + j) * 4 + hh * 2;
-        const float* ci = acc + ((1 * 2 + i) * 4 + j) * 4 + hh * 2;
-        *reinterpret_cast<__nv_bfloat162*>(tr + o) = __floats2bfloat162_rn(
-            __fsub_rn(__fmul_rn(cr[0], c.x), __fmul_rn(ci[0], sn.x)),
-            __fsub_rn(__fmul_rn(cr[1], c.y), __fmul_rn(ci[1], sn.y)));
-        *reinterpret_cast<__nv_bfloat162*>(ti + o) = __floats2bfloat162_rn(
-            __fadd_rn(__fmul_rn(cr[0], sn.x), __fmul_rn(ci[0], c.x)),
-            __fadd_rn(__fmul_rn(cr[1], sn.y), __fmul_rn(ci[1], c.y)));
+      for (int k = 0; k < 64; ++k) sums[pc][k] = 0.f;
+    }
+    for (int ka = 0; ka < p.n_ka; ++ka, r.next(TP_STAGES)) {
+      wg_mbar_wait(full + 8 * r.slot, r.phase);
+      const uint32_t s = ring + r.slot * TP_SLOT, xa = s + cw * TP_BOX;
+#pragma unroll
+      for (int pc = 0; pc < P; ++pc) {
+        const uint32_t db = s + (2 + 2 * pc) * TP_BOX;
+#pragma unroll
+        for (int k = 0; k < NKS; k += GS) {
+          // A group: in this consumer's turn, GS wgmmas summed from zero, then
+          // joined to the piece's master sums while the other's group runs.
+          tp_turn_wait(cw);
+          wg_hold(part);
+          wg_fence();
+#pragma unroll
+          for (int j = 0; j < GS; ++j) {
+            Wgmma<128>::template run<1>(part, wg_desc_mn(xa + (k + j) * 16 * WG_ROW),
+                                        wg_desc_k(db + (k + j) * 32), j);
+          }
+          wg_commit();
+          if (cw == 0 || --groups > 0) tp_turn_give(cw);
+          wg_wait<0>();
+          wg_hold(part);
+#pragma unroll
+          for (int e = 0; e < 64; ++e) sums[pc][e] = __fadd_rn(sums[pc][e], part[e]);
+        }
       }
+      if (wt == 0) wg_mbar_arrive(empty + 8 * r.slot);
+    }
+    // Each piece: the f32 twiddle (its pairs from this warpgroup's staged
+    // slot), then T rounded to bf16 and stored. Fragment element (row 16 wq +
+    // g + 8 hh, column 8 j + 2 t + e): a quad shuffle gives this thread k1 =
+    // 8 j + 2 t + odd at two neighbouring n2, one bf16 pair of T re and of T
+    // im.
+    const long long tbase = static_cast<long long>(u.spec) * p.n1 * p.n2;
+    const int n2a = 128 * u.c + 64 * cw;
+#pragma unroll
+    for (int pc = 0; pc < P; ++pc) {
+      int tw_slot = 0;
+      const uint32_t tw = tp_own_slot(r, ring, full, empty, cw, wt, tw_slot);
+      const int k1a = 64 * (P * u.r + pc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float* c = sums[pc] + 4 * j + 2 * hh;
+          const float* sn = c + 32;
+          const float rr = __shfl_xor_sync(~0u, odd ? c[0] : c[1], 4);
+          const float ri = __shfl_xor_sync(~0u, odd ? sn[0] : sn[1], 4);
+          const float ar0 = odd ? rr : c[0], ar1 = odd ? c[1] : rr;
+          const float ai0 = odd ? ri : sn[0], ai1 = odd ? sn[1] : ri;
+          const int k1 = 8 * j + 2 * t + odd, nb = 16 * wq + (g & ~1) + 8 * hh;
+          const uint32_t tb = tw + (nb / 32) * TP_BOX;
+          const float2 c2 = wg_ld_f2(wg_f32_at(tb, k1, nb % 32));
+          const float2 s2 = wg_ld_f2(wg_f32_at(tb + 2 * TP_BOX, k1, nb % 32));
+          const float tr0 = __fsub_rn(__fmul_rn(ar0, c2.x), __fmul_rn(ai0, s2.x));
+          const float tr1 = __fsub_rn(__fmul_rn(ar1, c2.y), __fmul_rn(ai1, s2.y));
+          const float ti0 = __fadd_rn(__fmul_rn(ar0, s2.x), __fmul_rn(ai0, c2.x));
+          const float ti1 = __fadd_rn(__fmul_rn(ar1, s2.y), __fmul_rn(ai1, c2.y));
+          const long long o = tbase + static_cast<long long>(k1a + k1) * p.n2 + n2a + nb;
+          *reinterpret_cast<__nv_bfloat162*>(p.tr + o) = __floats2bfloat162_rn(tr0, tr1);
+          *reinterpret_cast<__nv_bfloat162*>(p.ti + o) = __floats2bfloat162_rn(ti0, ti1);
+        }
+      }
+      wg_warpgroup_sync(cw);  // every thread's twiddles are read
+      if (wt == 0) wg_mbar_arrive(empty + 8 * tw_slot);
     }
   }
 }
-
 #endif  // K1_STAGE_STOPS
 
-// Stage B, bf16: the four products of a [64 k2 x 64 k1] tile over n2, then
-// the epilogue (STOP_STAGEB: re and im, no rotation). The MMAs chain through
-// their accumulators: at fft 2^22 on the card that flipped 6.5e-5 of the
-// int8 codes against the plain version on the same T (1.4e-5 with each
-// MMA's sum added in f32), far inside the gate of 1e-3.
+// Stage B: the four products over n2, the combine, the rotation and the
+// requant (STOP_STAGEB: re and im, no rotation).
+struct SbParams {
+  void* outr;  // [m, C] int8, or f32 without the requant
+  void* outi;
+  int n_spectra, n1, n2;
+  int ma;          // k2 blocks of 64 a tile: 2 (one a consumer, T's columns shared) or 1
+                   // (shared; each consumer its own 64 k1)
+  int na;          // k1 blocks of 64 a tile: 2 / ma, or 1 at N1 = 64 beside N2 = 128,
+                   // where both consumers sum the tile's one block and the first stores it
+  int n_k2, n_k1;  // a spectrum's k2 tiles and k1 tiles
+  int n_kb;        // K slots a tile: N2 / 64
+  int n_tiles;     // m * n_k1 * n_k2
+};
+
+// 2-D tensor maps, 128-byte swizzle, boxes of 64 rows: the row-stacked
+// N2-point matrix [N2, N2] and T re, im viewed [m * N1, N2] (64 columns a
+// box), the rotation planes viewed [batch * N2/2, N1] (row b N2/2 + k2,
+// column k1; 32 columns a box).
+struct SbMaps {
+  CUtensorMap d2, tr, ti, rotc, rots;
+};
+
+// A tile is 64 ma k2 x 64 na k1, a consumer's 64 k2 x 64 k1 of it. A K
+// slot: ma [cos 64; -sin 64] box pairs of the k2 rows (the K-major A
+// operand), then na [T re 64; T im 64] box pairs (the K-major B operand);
+// then each consumer's rotation values, a slot each.
 template <bool QUANT, int STOP = STOP_NONE>
-__global__ void __launch_bounds__(TP_THREADS, 2) k1_stage_b_kernel(StageParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  constexpr int LD = SB_K + PAD;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int n1 = p.n1, n2 = p.n2, h = n2 / 2, C = n1 * (n2 / 2);
-  const StageTile w = stage_tile(p, SB_M, SB_N);  // rows: k2; columns: k1
-  const long long mat = w.m * n1 * static_cast<long long>(n2);
-  const bf16* d2 = static_cast<const bf16*>(p.d2);
-  const bf16* tr = static_cast<const bf16*>(p.tr) + mat + static_cast<long long>(w.c0) * n2;
-  const bf16* ti = static_cast<const bf16*>(p.ti) + mat + static_cast<long long>(w.c0) * n2;
-  const int wr = (warp / 4) * 32, wc = (warp % 4) * 16;  // the warp's k2 rows, k1 columns
-  float acc[64];  // [4 sums][2 m16][2 n8][4]: cos.tr, -sin.ti, cos.ti, -sin.tr
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    k1_stage_b_wg_kernel(const SbParams p, const __grid_constant__ SbMaps maps) {
+  static_assert(STOP == STOP_NONE || STOP == STOP_STAGEB, "stage B's stop");
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  uint32_t full, empty;
+  const uint32_t ring = tp_ring_init(wg_smem, full, empty);
+  const int n1 = p.n1, h = p.n2 / 2, C = n1 * h, na = p.na;
+  const int wg = threadIdx.x / 128;
+  const int my_tiles = (p.n_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
 
-  auto load = [&](int kt, bf16* slot) {
-    // Rows of [cos k2 | -sin k2 | T re | T im], SB_K n2 each.
-#pragma unroll 1
-    for (int i = threadIdx.x; i < 4 * 64 * (SB_K / 8); i += TP_THREADS) {
-      const int mm = i / (64 * (SB_K / 8)), j = i % (64 * (SB_K / 8));
-      const int r = j / (SB_K / 8), q = j % (SB_K / 8);
-      const bf16* src = mm < 2 ? d2 + (mm * h + w.r0 + r) * n2 : (mm == 2 ? tr : ti) + r * n2;
-      cp_async16(slot + (mm * 64 + r) * LD + q * 8, src + (kt * SB_K + q * 8));
-    }
-  };
-  auto compute = [&](const bf16* slot) {
-    const bf16* sC = slot;
-    const bf16* sS = slot + SB_M * LD;
-    const bf16* sTr = sS + SB_M * LD;
-    const bf16* sTi = sTr + SB_N * LD;
-#pragma unroll
-    for (int kk = 0; kk < SB_K; kk += 16) {
-      uint32_t fc[2][4], fs[2][4], ftr[4], fti[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wr + i * 16 + lane % 16, c = kk + (lane / 16) * 8;
-        ldsm_x4(fc[i], sC + r * LD + c);
-        ldsm_x4(fs[i], sS + r * LD + c);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    WgRing r;
+    for (int i = 0; i < my_tiles; ++i) {
+      const TpTile u = tp_tile(blockIdx.x + i * gridDim.x, p.n_k2, p.n_k1);
+      const int k2b = 64 * p.ma * u.c, k1b = 64 * na * u.r, trow = u.spec * n1 + k1b;
+      for (int kb = 0; kb < p.n_kb; ++kb, r.next(TP_STAGES)) {
+        wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+        const uint32_t s = ring + r.slot * TP_SLOT, bar = full + 8 * r.slot;
+        wg_mbar_expect(bar, 2 * (p.ma + na) * TP_BOX);
+        for (int a = 0; a < p.ma; ++a) {
+          wg_tma(s + 2 * a * TP_BOX, &maps.d2, 64 * kb, k2b + 64 * a, bar);
+          wg_tma(s + (2 * a + 1) * TP_BOX, &maps.d2, 64 * kb, h + k2b + 64 * a, bar);
+        }
+        for (int b = 0; b < na; ++b) {
+          wg_tma(s + 2 * (p.ma + b) * TP_BOX, &maps.tr, 64 * kb, trow + 64 * b, bar);
+          wg_tma(s + (2 * (p.ma + b) + 1) * TP_BOX, &maps.ti, 64 * kb, trow + 64 * b, bar);
+        }
       }
-      {
-        const int r = wc + lane % 8 + (lane / 16) * 8, c = kk + ((lane / 8) % 2) * 8;
-        ldsm_x4(ftr, sTr + r * LD + c);
-        ldsm_x4(fti, sTi + r * LD + c);
-      }
+      if constexpr (STOP == STOP_NONE) {
+        // Each consumer's rotation values, a slot each: [64 k2 x 64 k1] of
+        // rotc, then of rots, as two boxes of 32 columns each.
+        for (int w = 0; w < 2; ++w, r.next(TP_STAGES)) {
+          wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+          const uint32_t s = ring + r.slot * TP_SLOT, bar = full + 8 * r.slot;
+          wg_mbar_expect(bar, 4 * TP_BOX);
+          const int row = (u.spec / p.n_spectra) * h + k2b + (p.ma == 2 ? 64 * w : 0);
+          const int col = k1b + (na == 2 ? 64 * w : 0);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float* a0 = acc + (i * 2 + j) * 4;
-          mma16816(a0 + 0 * 16, fc[i], ftr[2 * j], ftr[2 * j + 1]);
-          mma16816(a0 + 1 * 16, fs[i], fti[2 * j], fti[2 * j + 1]);
-          mma16816(a0 + 2 * 16, fc[i], fti[2 * j], fti[2 * j + 1]);
-          mma16816(a0 + 3 * 16, fs[i], ftr[2 * j], ftr[2 * j + 1]);
+          for (int x = 0; x < 4; ++x) {
+            wg_tma(s + x * TP_BOX, x < 2 ? &maps.rotc : &maps.rots, col + 32 * (x & 1), row, bar);
+          }
         }
       }
     }
-  };
-  ring_loop<TP_STAGES>(ring, SB_SLOT, n2 / SB_K, load, compute);
+    return;
+  }
 
-  const float* rc_b = p.rotc + (w.m / p.n_spectra) * C;
-  const float* rs_b = p.rots + (w.m / p.n_spectra) * C;
+  // A consumer warpgroup (cw 0 or 1): [cos rows; -sin rows of its 64 k2] x
+  // [T re | T im of its 64 k1]: cos.tr, cos.ti in one fragment, -sin.tr,
+  // -sin.ti in the other, the wgmmas chained over n2.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  const int cw = wg - 1, wt = threadIdx.x - 128 * wg;
+  const int wq = wt / 32, lane = wt % 32, g = lane / 4, t = lane % 4;
+  const int a_c = p.ma == 2 ? cw : 0, b_c = na == 2 ? cw : 0;
+  const bool stores = p.ma * na == 2 || cw == 0;  // one block: the first consumer's
+  WgRing r;
+  for (int i = 0; i < my_tiles; ++i) {
+    const TpTile u = tp_tile(blockIdx.x + i * gridDim.x, p.n_k2, p.n_k1);
+    float fc[64], fs[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int k = 0; k < 64; ++k) fc[k] = fs[k] = 0.f;
+    // A slot is released once the next slot's wgmmas are issued and its own
+    // have completed: one group stays in flight.
+    int held = 0;
+    wg_hold(fc);
+    wg_hold(fs);
+    for (int kb = 0; kb < p.n_kb; ++kb, r.next(TP_STAGES)) {
+      wg_mbar_wait(full + 8 * r.slot, r.phase);
+      const uint32_t s = ring + r.slot * TP_SLOT;
+      const uint32_t dc = s + 2 * a_c * TP_BOX, ds = dc + TP_BOX;
+      const uint32_t tk = s + 2 * (p.ma + b_c) * TP_BOX;
+      wg_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float* a0 = acc + (i * 2 + j) * 4 + hh * 2;
-        const int ch = (w.r0 + wr + i * 16 + g + hh * 8) * n1 + w.c0 + wc + j * 8 + tig * 2;
-        const float s[4][2] = {{a0[0], a0[1]}, {a0[16], a0[17]}, {a0[32], a0[33]},
-                               {a0[48], a0[49]}};
-        float c2[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-        if constexpr (STOP == STOP_NONE) {
-          const float2 rc = __ldg(reinterpret_cast<const float2*>(rc_b + ch));
-          const float2 rs = __ldg(reinterpret_cast<const float2*>(rs_b + ch));
-          c2[0] = rc.x;
-          c2[1] = rc.y;
-          s2[0] = rs.x;
-          s2[1] = rs.y;
-        }
-        stage_b_store<QUANT, 2, STOP>(p, w.m * C + ch, s, c2, s2);
+      for (int ks = 0; ks < 4; ++ks) {
+        const int acc = kb > 0 || ks > 0;
+        Wgmma<128>::template run<0>(fc, wg_desc_k(dc + ks * 32), wg_desc_k(tk + ks * 32), acc);
+        Wgmma<128>::template run<0>(fs, wg_desc_k(ds + ks * 32), wg_desc_k(tk + ks * 32), acc);
       }
+      wg_commit();
+      wg_wait<1>();
+      if (kb > 0 && wt == 0) wg_mbar_arrive(empty + 8 * held);
+      held = r.slot;
+    }
+    wg_wait<0>();
+    wg_hold(fc);
+    wg_hold(fs);
+    if (wt == 0) wg_mbar_arrive(empty + 8 * held);
+    uint32_t rot = 0;
+    int rot_slot = 0;
+    if constexpr (STOP == STOP_NONE) rot = tp_own_slot(r, ring, full, empty, cw, wt, rot_slot);
+    // re = cos.tr - (-sin.ti), im = cos.ti + (-sin.tr); rotate; store.
+    // Fragment element (row 16 wq + g + 8 hh, column 8 j + 2 t + e): T re's
+    // columns j < 8, T im's 8 on.
+    const long long obase = static_cast<long long>(u.spec) * C;
+    const int k2 = 64 * (p.ma * u.c + a_c) + 16 * wq + g;
+    const int ch0 = k2 * n1 + 64 * (na * u.r + b_c) + 2 * t;
+    if (stores) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int ch = ch0 + 8 * hh * n1 + 8 * j;
+          const float* cr = fc + 4 * j + 2 * hh;
+          const float* sr = fs + 4 * j + 2 * hh;
+          float re[2], im[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            re[e] = __fsub_rn(cr[e], sr[32 + e]);
+            im[e] = __fadd_rn(cr[32 + e], sr[e]);
+          }
+          if constexpr (STOP == STOP_STAGEB) {
+            // re, im without the rotation, truncated or f32.
+            stop_store2<QUANT>(p.outr, obase + ch, re[0], re[1]);
+            stop_store2<QUANT>(p.outi, obase + ch, im[0], im[1]);
+          } else {
+            // Rotation element (k2 row 16 wq + g + 8 hh, k1 column 8 j + 2 t)
+            // of the consumer's staged [64 x 64] planes.
+            const int x = 8 * j + 2 * t, rr = 16 * wq + g + 8 * hh;
+            const uint32_t rb = rot + (x / 32) * TP_BOX;
+            const float2 rc = wg_ld_f2(wg_f32_at(rb, rr, x % 32));
+            const float2 rs = wg_ld_f2(wg_f32_at(rb + 2 * TP_BOX, rr, x % 32));
+            float v[2][2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float c = e ? rc.y : rc.x, sn = e ? rs.y : rs.x;
+              v[0][e] = __fsub_rn(__fmul_rn(re[e], c), __fmul_rn(im[e], sn));
+              v[1][e] = __fadd_rn(__fmul_rn(re[e], sn), __fmul_rn(im[e], c));
+            }
+            if constexpr (QUANT) {
+              *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outr) + obase + ch) =
+                  make_char2(requant(v[0][0]), requant(v[0][1]));
+              *reinterpret_cast<char2*>(static_cast<int8_t*>(p.outi) + obase + ch) =
+                  make_char2(requant(v[1][0]), requant(v[1][1]));
+            } else {
+              *reinterpret_cast<float2*>(static_cast<float*>(p.outr) + obase + ch) =
+                  make_float2(v[0][0], v[0][1]);
+              *reinterpret_cast<float2*>(static_cast<float*>(p.outi) + obase + ch) =
+                  make_float2(v[1][0], v[1][1]);
+            }
+          }
+        }
+      }
+    }
+    if constexpr (STOP == STOP_NONE) {
+      wg_warpgroup_sync(cw);  // every thread's rotation values are read
+      if (wt == 0) wg_mbar_arrive(empty + 8 * rot_slot);
     }
   }
 }
+
+// Whether the three-pass route's tiles cover N1 x N2: powers of two, N1 and
+// N2 / 2 multiples of 64, N2 of 128, and a spectrum's planes and the DFT
+// matrices indexed in 32 bits (N1, N2 <= 2^15).
+bool three_pass_split(int n1, int n2) {
+  return n1 >= 64 && n1 <= (1 << 15) && (n1 & (n1 - 1)) == 0 && n2 >= 128 && n2 <= (1 << 15) &&
+         (n2 & (n2 - 1)) == 0;
+}
+
+// Launches a wgmma stage body, one persistent block an SM (at most one a
+// tile).
+template <typename K, typename Params, typename Maps>
+cudaError_t launch_tp_wg(K kern, const Params& p, const Maps& maps, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(TP_SMEM));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return err;
+  }
+  kern<<<std::min(p.n_tiles, sms), WG_THREADS, TP_SMEM, stream>>>(p, maps);
+  return cudaGetLastError();
+}
+
+// A wgmma stage body's view: out int[11] = registers a thread, local (spill)
+// bytes a thread, threads a block, shared-memory bytes, tile rows, tile
+// columns, K depth a slot, ring slots, blocks an SM, products a sum adds up
+// before it joins its f32 master sum (the whole sum where the wgmmas chain),
+// bytes a ring slot.
+template <typename K>
+int wg_stage_attributes(K kern, int rows, int cols, int group, void* out) {
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(TP_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, WG_THREADS, TP_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[11] = {a.numRegs, static_cast<int>(a.localSizeBytes), WG_THREADS,
+                     static_cast<int>(TP_SMEM), rows, cols, 64, TP_STAGES, per_sm, group,
+                     TP_SLOT};
+  std::copy(v, v + 11, static_cast<int*>(out));
+  return 0;
+}
+
+// A bf16 stage-B call on the wgmma body: T re, im [batch, n_spectra, N1, N2]
+// (16-byte aligned), the row-stacked N2-point matrix, the rotation planes
+// [batch, C] (16-byte aligned; null at STOP_STAGEB), the outputs. Returns
+// cudaSuccess with the call's parameters and maps, or the error to return.
+struct SbCall {
+  SbParams p;
+  SbMaps maps;
+};
+
+// The bf16 stage-B body's tile at N1 x N2: blocks of 64 k2 (ma) and of 64 k1
+// (na).
+int stage_b_wg_ma(int n2) { return n2 >= 256 ? 2 : 1; }
+int stage_b_wg_na(int n1, int n2) { return stage_b_wg_ma(n2) == 2 || n1 == 64 ? 1 : 2; }
+
+int stage_b_wg_call(SbCall& c, const void* tr, const void* ti, const void* d2,
+                    const void* rotc, const void* rots, void* outr, void* outi, int batch,
+                    int n_spectra, int n1, int n2) {
+  if (batch < 1 || n_spectra < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  const bool rot = rotc != nullptr;
+  if (!aligned_to(tr, 16) || !aligned_to(ti, 16) || !aligned_to(d2, 16) ||
+      (rot && (!aligned_to(rotc, 16) || !aligned_to(rots, 16)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned long long rows = static_cast<unsigned long long>(batch) * n_spectra * n1;
+  const unsigned long long rot_rows = static_cast<unsigned long long>(batch) * (n2 / 2);
+  c = SbCall{};
+  if (!wg_map(c.maps.d2, d2, n2, n2, 64) || !wg_map(c.maps.tr, tr, n2, rows, 64) ||
+      !wg_map(c.maps.ti, ti, n2, rows, 64) ||
+      (rot && (!wg_map(c.maps.rotc, rotc, n1, rot_rows, 64, true) ||
+               !wg_map(c.maps.rots, rots, n1, rot_rows, 64, true)))) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  SbParams& p = c.p;
+  p.outr = outr;
+  p.outi = outi;
+  p.n_spectra = n_spectra;
+  p.n1 = n1;
+  p.n2 = n2;
+  p.ma = stage_b_wg_ma(n2);
+  p.na = stage_b_wg_na(n1, n2);
+  p.n_k2 = n2 / 2 / (64 * p.ma);
+  p.n_k1 = n1 / (64 * p.na);
+  p.n_kb = n2 / 64;
+  const long long tiles = static_cast<long long>(batch) * n_spectra * p.n_k1 * p.n_k2;
+  if (rows > 0x7fffffffULL || tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_tiles = static_cast<int>(tiles);
+  return 0;
+}
+
 
 #ifndef K1_STAGE_STOPS
 // Stage A, f32 (exact f32 products and sums, FFMA): T = twiddle(D1 @ plane)
@@ -2896,16 +3259,8 @@ __global__ void __launch_bounds__(TP_THREADS, 1) k1_stage_b_f32_kernel(StagePara
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[k][c] = acc[k * 16 + a * 4 + c];
     }
-    stage_b_store<QUANT, 4, STOP>(p, w.m * C + ch, s, rc, rs);
+    stage_b_store<QUANT, STOP>(p, w.m * C + ch, s, rc, rs);
   }
-}
-
-// Whether the three-pass route's tiles cover N1 x N2: powers of two, N1 and
-// N2 / 2 multiples of 64, N2 of 128, and a spectrum's planes and the DFT
-// matrices indexed in 32 bits (N1, N2 <= 2^15).
-bool three_pass_split(int n1, int n2) {
-  return n1 >= 64 && n1 <= (1 << 15) && (n1 & (n1 - 1)) == 0 && n2 >= 128 && n2 <= (1 << 15) &&
-         (n2 & (n2 - 1)) == 0;
 }
 
 // Launches a stage kernel, one block a tile.
@@ -3286,19 +3641,32 @@ extern "C" int k1_dft_f32_attributes(int n1, int n2, void* out) {
 
 // The three-pass route's stage A: plane [m, N1, N2] (m = batch * n_spectra
 // spectra; bf16, 16-byte aligned) -> T re, im [m, N1, N2] bf16; d1c/d1s the
-// bf16 N1-point matrices, twc/tws the f32 twiddles. Returns -1 where the
-// route's tiles do not cover the split.
+// bf16 N1-point matrices, twc/tws the f32 twiddles (16-byte aligned). Returns
+// -1 where the route's tiles do not cover the split.
 extern "C" int k1_stage_a_launch(const void* plane, const void* d1c, const void* d1s,
                                  const void* twc, const void* tws, void* tr, void* ti, int m,
                                  int n1, int n2, void* stream) {
   if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (!three_pass_split(n1, n2)) return NO_PLAN;
-  StageParams p{plane, d1c, d1s, nullptr, static_cast<const float*>(twc),
-                static_cast<const float*>(tws), tr, ti, nullptr, nullptr, nullptr, nullptr,
-                1, n1, n2, n2 / SA_N, n1 / SA_M};
-  return static_cast<int>(launch_stage(k1_stage_a_kernel, p,
-                                       static_cast<long long>(m) * p.n_ct * p.n_rt, SA_SMEM,
-                                       static_cast<cudaStream_t>(stream)));
+  if (!aligned_to(plane, 16) || !aligned_to(d1c, 16) || !aligned_to(d1s, 16) ||
+      !aligned_to(twc, 16) || !aligned_to(tws, 16) || !aligned_to(tr, 4) || !aligned_to(ti, 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned long long rows = static_cast<unsigned long long>(m) * n1;
+  const int pieces = n1 >= 128 ? 2 : 1;
+  const long long tiles = static_cast<long long>(m) * (n2 / 128) * (n1 / (64 * pieces));
+  if (rows > 0x7fffffffULL || tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  SaMaps maps{};
+  if (!wg_map(maps.plane, plane, n2, rows, 64) || !wg_map(maps.d1c, d1c, n1, n1, 64) ||
+      !wg_map(maps.d1s, d1s, n1, n1, 64) || !wg_map(maps.twc, twc, n2, n1, 64, true) ||
+      !wg_map(maps.tws, tws, n2, n1, 64, true)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const SaParams p{static_cast<bf16*>(tr), static_cast<bf16*>(ti), n1, n2, n2 / 128,
+                   n1 / (64 * pieces), n1 / 64, static_cast<int>(tiles)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pieces == 2) return static_cast<int>(launch_tp_wg(k1_stage_a_wg_kernel<2>, p, maps, st));
+  return static_cast<int>(launch_tp_wg(k1_stage_a_wg_kernel<1>, p, maps, st));
 }
 
 // Stage A with f32 operands: the same, all f32 (the plane 16-byte aligned),
@@ -3318,22 +3686,21 @@ extern "C" int k1_stage_a_f32_launch(const void* plane, const void* d1c, const v
 
 // The three-pass route's stage B: T re, im [batch, n_spectra, N1, N2] bf16
 // -> outputs [batch, n_spectra, C] (int8, or f32 without quantise); d2 the
-// bf16 row-stacked N2-point matrix, rotc/rots [batch, C]. Returns -1 where
-// the route's tiles do not cover the split.
+// bf16 row-stacked N2-point matrix, rotc/rots [batch, C] (T, d2 and the
+// rotation planes 16-byte aligned). Returns -1 where the route's tiles do not
+// cover the split.
 extern "C" int k1_stage_b_launch(const void* tr, const void* ti, const void* d2,
                                  const void* rotc, const void* rots, void* outr, void* outi,
                                  int batch, int n_spectra, int n1, int n2, int quantise,
                                  void* stream) {
-  if (batch < 1 || n_spectra < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!three_pass_split(n1, n2)) return NO_PLAN;
-  StageParams p{nullptr, nullptr, nullptr, d2, nullptr, nullptr,
-                const_cast<void*>(tr), const_cast<void*>(ti),
-                static_cast<const float*>(rotc), static_cast<const float*>(rots), outr, outi,
-                n_spectra, n1, n2, n1 / SB_N, n2 / 2 / SB_M};
-  const long long tiles = static_cast<long long>(batch) * n_spectra * p.n_ct * p.n_rt;
+  if (!rotc || !rots) return static_cast<int>(cudaErrorInvalidValue);
+  SbCall c;
+  const int err =
+      stage_b_wg_call(c, tr, ti, d2, rotc, rots, outr, outi, batch, n_spectra, n1, n2);
+  if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(quantise ? launch_stage(k1_stage_b_kernel<true>, p, tiles, SB_SMEM, st)
-                                   : launch_stage(k1_stage_b_kernel<false>, p, tiles, SB_SMEM, st));
+  return static_cast<int>(quantise ? launch_tp_wg(k1_stage_b_wg_kernel<true>, c.p, c.maps, st)
+                                   : launch_tp_wg(k1_stage_b_wg_kernel<false>, c.p, c.maps, st));
 }
 
 // Stage B with f32 operands: T re, im f32 transposed [batch, n_spectra, N2,
@@ -3357,15 +3724,18 @@ extern "C" int k1_stage_b_f32_launch(const void* tr, const void* ti, const void*
 }
 
 // Each three-pass stage's body at N1 x N2, -1 where the route's tiles do not
-// cover the split: out int[9] as stage_attributes gives it.
+// cover the split: bf16, out int[11] as wg_stage_attributes gives it; f32,
+// out int[9] as stage_attributes gives it.
 extern "C" int k1_stage_a_attributes(int n1, int n2, void* out) {
   if (!three_pass_split(n1, n2)) return NO_PLAN;
-  return stage_attributes(k1_stage_a_kernel, SA_SMEM, SA_M, SA_N, SA_K, TP_STAGES, out);
+  if (n1 >= 128) return wg_stage_attributes(k1_stage_a_wg_kernel<2>, 128, 128, 16 * SA_GROUP, out);
+  return wg_stage_attributes(k1_stage_a_wg_kernel<1>, 64, 128, 16 * SA_GROUP, out);
 }
 
 extern "C" int k1_stage_b_attributes(int n1, int n2, void* out) {
   if (!three_pass_split(n1, n2)) return NO_PLAN;
-  return stage_attributes(k1_stage_b_kernel<true>, SB_SMEM, SB_M, SB_N, SB_K, TP_STAGES, out);
+  return wg_stage_attributes(k1_stage_b_wg_kernel<true>, 64 * stage_b_wg_ma(n2),
+                             64 * stage_b_wg_na(n1, n2), n2, out);
 }
 
 extern "C" int k1_stage_a_f32_attributes(int n1, int n2, void* out) {

@@ -5,7 +5,7 @@
 // at N1 = N2 (KC 64 to N1 = 512, 32 at 1024); the f32 DFT pass
 // (k1_dft_f32_kernel at STOP_STAGEA_RND, STOP_STAGEB) at both of its plans
 // there (KC 16 to N1 = 512, 8 at 1024); the three-pass route (N2 >= 2048)'s
-// stage B cut before the rotation (k1_stage_b_kernel, k1_stage_b_f32_kernel
+// stage B cut before the rotation (k1_stage_b_wg_kernel, k1_stage_b_f32_kernel
 // at STOP_STAGEB) and k1_t_slice_kernel, which gathers stage A's T rows k1 <
 // N1/2 for the stagea stop (stage A itself runs through the library's
 // k1_stage_a[_f32]_launch).
@@ -195,10 +195,9 @@ extern "C" int k1_dft_f32_stop_attributes(int n1, int n2, int stop, int quantise
 namespace {
 
 template <bool QUANT>
-int stage_b_stop(const StageParams& p, long long tiles, bool f32, cudaStream_t st) {
+int stage_b_f32_stop(const StageParams& p, long long tiles, cudaStream_t st) {
   return static_cast<int>(
-      f32 ? launch_stage(k1_stage_b_f32_kernel<QUANT, STOP_STAGEB>, p, tiles, FB_SMEM, st)
-          : launch_stage(k1_stage_b_kernel<QUANT, STOP_STAGEB>, p, tiles, SB_SMEM, st));
+      launch_stage(k1_stage_b_f32_kernel<QUANT, STOP_STAGEB>, p, tiles, FB_SMEM, st));
 }
 
 template <typename T, bool QUANT>
@@ -232,15 +231,23 @@ int regs_of(K kern, int* o) {
 extern "C" int k1_stage_b_stop_launch(const void* tr, const void* ti, const void* d2,
                                       void* outr, void* outi, int batch, int n_spectra, int n1,
                                       int n2, int f32, int quantise, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!f32) {
+    SbCall c;
+    const int err = stage_b_wg_call(c, tr, ti, d2, nullptr, nullptr, outr, outi, batch,
+                                    n_spectra, n1, n2);
+    if (err) return err;
+    return static_cast<int>(
+        quantise ? launch_tp_wg(k1_stage_b_wg_kernel<true, STOP_STAGEB>, c.p, c.maps, st)
+                 : launch_tp_wg(k1_stage_b_wg_kernel<false, STOP_STAGEB>, c.p, c.maps, st));
+  }
   if (batch < 1 || n_spectra < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (!three_pass_split(n1, n2)) return NO_PLAN;
-  const int cols = f32 ? FB_N : SB_N, rows = f32 ? FB_M : SB_M;
   StageParams p{nullptr, nullptr, nullptr, d2, nullptr, nullptr,
                 const_cast<void*>(tr), const_cast<void*>(ti), nullptr, nullptr, outr, outi,
-                n_spectra, n1, n2, n1 / cols, n2 / 2 / rows};
+                n_spectra, n1, n2, n1 / FB_N, n2 / 2 / FB_M};
   const long long tiles = static_cast<long long>(batch) * n_spectra * p.n_ct * p.n_rt;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return quantise ? stage_b_stop<true>(p, tiles, f32, st) : stage_b_stop<false>(p, tiles, f32, st);
+  return quantise ? stage_b_f32_stop<true>(p, tiles, st) : stage_b_f32_stop<false>(p, tiles, st);
 }
 
 // The stagea stop's gather: T re, im of m spectra as stage A wrote them ->
@@ -272,8 +279,8 @@ extern "C" int k1_stage_stop_attributes(int f32, int quantise, void* out) {
     return quantise ? regs_of(k1_t_slice_kernel<float, true>, o + 2)
                     : regs_of(k1_t_slice_kernel<float, false>, o + 2);
   }
-  err = quantise ? regs_of(k1_stage_b_kernel<true, STOP_STAGEB>, o)
-                 : regs_of(k1_stage_b_kernel<false, STOP_STAGEB>, o);
+  err = quantise ? regs_of(k1_stage_b_wg_kernel<true, STOP_STAGEB>, o)
+                 : regs_of(k1_stage_b_wg_kernel<false, STOP_STAGEB>, o);
   if (err) return err;
   return quantise ? regs_of(k1_t_slice_kernel<bf16, true>, o + 2)
                   : regs_of(k1_t_slice_kernel<bf16, false>, o + 2);

@@ -100,9 +100,10 @@
 // B. Where T does not fit (bf16 N2 >= 2048: fft >= 2^23; f32 N2 >= 1024:
 //    fft >= 2^21): three passes through T in device memory, as K1's route
 //    for N2 >= 2048 (csrc/fengine_ct.cu): the FIR pass; K1's stage-A kernel
-//    (k1_stage_a_kernel, k1_stage_a_f32_kernel, unchanged) on the [N1, 2·N2]
-//    view with a twiddle table whose columns 2·n2 and 2·n2 + 1 both hold
-//    exp(-2πi k1 n2 / N): the product, the twiddle and the rounding are
+//    (k1_stage_a_wg_kernel, k1_stage_a_f32_kernel, unchanged) on the
+//    [N1, 2·N2] view with a twiddle table whose columns 2·n2 and 2·n2 + 1
+//    both hold exp(-2πi k1 n2 / N): the product, the twiddle and the
+//    rounding are
 //    _dit_stage_a's for both streams, T re and im stored [N1][2·N2] in bf16
 //    (an n2's two streams side by side) and transposed, [2·N2][N1], in f32;
 //    then dit_stage_b_kernel / dit_stage_b_f32_kernel below: per stream,

@@ -1103,20 +1103,34 @@ def k1_stage_b_f32(
     return _stage_b("k1_stage_b_f32", tr, ti, rotc, rots, n1, n2, quantise, "float32")
 
 
+#: The fields of a three-pass stage body's attributes, as the library's
+#: ``k1_stage_*_attributes`` give them; the bf16 (wgmma) bodies add the
+#: products a sum adds up before it joins its f32 master sum (the whole sum
+#: where the wgmmas chain) and the bytes of a ring slot.
+_STAGE_FIELDS = ("regs", "local_bytes", "threads", "smem_bytes", "tile_rows", "tile_cols",
+                 "k_depth", "stages", "blocks_per_sm")
+_WG_STAGE_FIELDS = _STAGE_FIELDS + ("group_products", "slot_bytes")
+
+
+def _stage_attributes(query: str, n1: int, n2: int, bf16: bool) -> dict:
+    """One stage body's attributes from the library's ``query`` at N1 x N2."""
+    fields = _WG_STAGE_FIELDS if bf16 else _STAGE_FIELDS
+    buf = (ctypes.c_int * len(fields))()
+    _stage_call(query, n1, n2, n1, n2, buf)
+    return dict(zip(fields, buf))
+
+
 def k1_stage_attributes(n1: int, n2: int, dft_dtype: str = "bfloat16") -> dict:
     """The card's view of the three-pass route's two stage bodies at N1 x N2
     (``cudaFuncGetAttributes`` and the tiling): ``{"a": ..., "b": ...}``,
     each with registers and local (spill) bytes a thread, threads a block,
-    shared-memory bytes, tile rows and columns, K-tile depth, ring stages
-    and blocks an SM."""
-    sfx = "" if dft_dtype == "bfloat16" else "_f32"
-    out = {}
-    for stage in "ab":
-        buf = (ctypes.c_int * 9)()
-        _stage_call(f"k1_stage_{stage}{sfx}_attributes", n1, n2, n1, n2, buf)
-        out[stage] = dict(zip(("regs", "local_bytes", "threads", "smem_bytes", "tile_rows",
-                               "tile_cols", "k_depth", "stages", "blocks_per_sm"), buf))
-    return out
+    shared-memory bytes, tile rows and columns, K depth a ring slot, ring
+    slots and blocks an SM; the bf16 bodies (wgmma) also each sum's group
+    depth in products and the bytes of a ring slot."""
+    bf16 = dft_dtype == "bfloat16"
+    sfx = "" if bf16 else "_f32"
+    return {stage: _stage_attributes(f"k1_stage_{stage}{sfx}_attributes", n1, n2, bf16)
+            for stage in "ab"}
 
 
 #: Launches of K1's passes since the last reset (the plain versions never
@@ -1815,7 +1829,7 @@ def _dit_stage_b_call(what, tr, ti, rotc, rots, n1, n2, dft_dtype):
 def dit_stage_a(plane: torch.Tensor, *, n1: int, n2: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K7's three-pass stage A alone, bf16 operands: the bf16 FIR plane
     ``[B, S, fft]`` to bf16 T re and im ``[B, S, N1, 2·N2]`` (K1's
-    ``k1_stage_a_kernel`` on the ``[N1, 2·N2]`` view on CUDA,
+    ``k1_stage_a_wg_kernel`` on the ``[N1, 2·N2]`` view on CUDA,
     :func:`dit_stage_a_reference` on CPU)."""
     return _dit_stage_a_call("dit_stage_a", plane, n1, n2, "bfloat16")
 
@@ -1852,18 +1866,14 @@ def dit_stage_b_f32(
 def dit_stage_attributes(n1: int, n2: int, dft_dtype: str = "bfloat16") -> dict:
     """The card's view of K7's three-pass stage bodies at N1 x N2
     (``cudaFuncGetAttributes`` and the tiling): ``{"a": ..., "b": ...}``,
-    stage A K1's body at N1 x 2·N2, each with registers and local (spill)
-    bytes a thread, threads a block, shared-memory bytes, tile rows and
-    columns, K-tile depth, ring stages and blocks an SM."""
-    sfx = "" if dft_dtype == "bfloat16" else "_f32"
-    out = {}
-    for stage, query, split in (("a", f"k1_stage_a{sfx}_attributes", (n1, 2 * n2)),
-                                ("b", f"dit_stage_b{sfx}_attributes", (n1, n2))):
-        buf = (ctypes.c_int * 9)()
-        _stage_call(query, *split, *split, buf)
-        out[stage] = dict(zip(("regs", "local_bytes", "threads", "smem_bytes", "tile_rows",
-                               "tile_cols", "k_depth", "stages", "blocks_per_sm"), buf))
-    return out
+    stage A K1's body at N1 x 2·N2 (with :func:`k1_stage_attributes`'
+    fields), stage B with registers and local (spill) bytes a thread,
+    threads a block, shared-memory bytes, tile rows and columns, K-tile
+    depth, ring stages and blocks an SM."""
+    bf16 = dft_dtype == "bfloat16"
+    sfx = "" if bf16 else "_f32"
+    return {"a": _stage_attributes(f"k1_stage_a{sfx}_attributes", n1, 2 * n2, bf16),
+            "b": _stage_attributes(f"dit_stage_b{sfx}_attributes", n1, n2, False)}
 
 
 #: Launches of K7's three-pass stages since the last reset (the plain

@@ -1110,11 +1110,13 @@ def test_k1_f32_kernel_above_65536_matches_plain(dev, fft):
     _stages_match_plain(dev, fft, "float32")
 
 
-@pytest.mark.parametrize("fft", [1 << 17, 1 << 18])
+@pytest.mark.parametrize("fft", [1 << 13, 1 << 15, 1 << 17, 1 << 18])
 def test_k1_bf16_stages_above_65536_match_plain(dev, fft):
-    """The three-pass route's bf16 stages (tensor cores) through their own
-    wrappers at 512 x 256 and 512 x 512: within 1 code on <= 1e-3 of
-    samples, whole and stage B alone."""
+    """The three-pass route's bf16 stages (wgmma) through their own
+    wrappers at 64 x 128 (stage B's one 64 x 64 tile, summed by both
+    consumers), 256 x 128 (stage B's tiles of 64 k2 x 128 k1, where N2 / 2
+    holds one k2 block), 512 x 256 and 512 x 512: within 1 code on <= 1e-3
+    of samples, whole and stage B alone."""
     _stages_match_plain(dev, fft, "bfloat16")
 
 
@@ -1307,36 +1309,54 @@ def test_k1_dft_wgmma_body_attributes_show_no_spills(dev, fft):
     assert at["group_products"] == min(n1, 64), at
 
 
-@pytest.mark.parametrize("fft", [1 << 20, 1 << 21])
+@pytest.mark.parametrize("fft", [1 << 20, 1 << 21, 1 << 22, 1 << 23])
 def test_k1_dft_flipped_share_at_the_longest_stage_a_sums(dev, fft):
-    """Stage A's sums are longest at fft 2^20 and 2^21 (N1 = 1024, 2048):
-    the DFT pass, its sums joining the f32 master sum every 64 products,
-    flips under 1e-3 of the int8 codes against its plain version on the card
-    (f32 products, no TF32), at the flagship's code level (near 50 rms)."""
+    """Stage A's sums are longest at fft 2^20 and 2^21 (N1 = 1024, 2048) on
+    the two-pass route and at 2^22 and 2^23 (N1 = 2048, 4096) on the
+    three-pass route: the DFT pass, or stage A then stage B, their stage-A
+    sums joining the f32 master sum every 64 products, flip under 1e-3 of
+    the int8 codes against the plain DFT on the card (f32 products, no
+    TF32), at the flagship's code level (near 50 rms)."""
     n1, n2 = ff._split_ct(fft)
-    assert ff.k1_dft_attributes(n1, n2)["group_products"] == 64
+    three = ff._k1_body(n1, n2, "bfloat16") == "three_pass"
+    assert three == (fft >= 1 << 22)
+    at = ff.k1_stage_attributes(n1, n2)["a"] if three else ff.k1_dft_attributes(n1, n2)
+    assert at["group_products"] == 64, at
     plane, rc, rs = _stage_operands(fft, 1, 4, 4, fft + 1, "bfloat16")
     plane, rc, rs = plane.to(dev), rc.to(dev), rs.to(dev)
     ref = ff.k1_dft_reference(plane, rc, rs, n1=n1, n2=n2)
-    before = ff.k1_dft.launches
-    for g, r in zip(ff.k1_dft(plane, rc, rs, n1=n1, n2=n2), ref):
+    passes = (ff.k1_stage_a, ff.k1_stage_b) if three else (ff.k1_dft,)
+    before = [f.launches for f in passes]
+    if three:
+        got = ff.k1_stage_b(*ff.k1_stage_a(plane, n1=n1, n2=n2), rc, rs, n1=n1, n2=n2)
+    else:
+        got = ff.k1_dft(plane, rc, rs, n1=n1, n2=n2)
+    for g, r in zip(got, ref):
         _codes_close(g, r)
-    assert ff.k1_dft.launches == before + 1
+    assert [f.launches - b for f, b in zip(passes, before)] == [1] * len(passes)
 
 
 def test_k1_stage_bodies_show_no_spills_and_n1_8_has_a_plan(dev):
     """The three-pass stages in both forms at 2048 x 2048 spill nothing,
-    each within the 232,448 bytes a block may use and resident on an SM.
-    The bf16 DFT pass has its N1 = 8 plan (16 spectra of 8 rows, KC 128)
-    within the same bytes and its 128-register cap; that body spills a few
-    bytes at every plan, as it did before N1 = 8 had one (PERF.md)."""
+    each within the 232,448 bytes a block may use and resident on an SM:
+    the bf16 bodies one persistent block of 384 threads an SM (the
+    producer warpgroup and two wgmma consumers), stage A's sums joining the
+    f32 master sums every 64 products and stage B's chained over all N2;
+    the f32 bodies 256 threads. The bf16 DFT pass has its N1 = 8 plan (16
+    spectra of 8 rows, KC 128) within the same bytes and its 128-register
+    cap; that body spills a few bytes at every plan, as it did before N1 = 8
+    had one (PERF.md)."""
     at = ff.k1_dft_attributes(8, 128)
     assert at["kc"] == 128 and at["regs"] <= 128 and at["smem_bytes"] <= 232448, at
     for dt in ("bfloat16", "float32"):
+        bf16 = dt == "bfloat16"
         for stage, at in ff.k1_stage_attributes(2048, 2048, dt).items():
             assert at["local_bytes"] == 0, (dt, stage, at)
-            assert at["threads"] == 256 and at["smem_bytes"] <= 232448, (dt, stage, at)
+            assert at["threads"] == (384 if bf16 else 256), (dt, stage, at)
+            assert at["smem_bytes"] <= 232448, (dt, stage, at)
             assert at["blocks_per_sm"] >= 1, (dt, stage, at)
+            if bf16:
+                assert at["group_products"] == (64 if stage == "a" else 2048), (dt, stage, at)
 
 
 def test_k1_f32_two_passes_span_plane_groups(dev, monkeypatch):
@@ -1771,19 +1791,21 @@ def test_k7_f32_two_pass_takes_unaligned_rotation_planes(dev):
         _codes_close_f32(g, r)
 
 
+@pytest.mark.parametrize("fft, split", [(1 << 22, (2048, 2048)), (1 << 23, (4096, 2048))])
 @pytest.mark.parametrize("quantise", [True, False])
-def test_k1_bf16_at_fft_2_22_runs_the_three_pass_route(dev, quantise):
-    """bf16 K1 at 2048 x 2048 (fft 2^22), where the DFT pass has no plan,
-    runs the three-pass route instead of raising: one FIR pass, one stage A
-    and one stage B, no DFT pass; int8 within 1 code on <= 1e-3 of samples
-    of the plain version on the CPU (the codes near 50 rms), the f32 output
-    below 1 code unit everywhere and within rtol 1e-4 / atol 1e-2 on all but
+def test_k1_bf16_at_fft_2_22_runs_the_three_pass_route(dev, quantise, fft, split):
+    """bf16 K1 at 2048 x 2048 (fft 2^22) and 4096 x 2048 (fft 2^23, the
+    longest stage-A sums K1 has), where the DFT pass has no plan, runs the
+    three-pass route instead of raising: one FIR pass, one stage A and one
+    stage B, no DFT pass; int8 within 1 code on <= 1e-3 of samples of the
+    plain version on the CPU (the codes near 50 rms), the f32 output below
+    1 code unit everywhere and within rtol 1e-4 / atol 1e-2 on all but
     1e-2; the DFT pass alone refuses the split."""
-    fft, taps, s, lead = 1 << 22, 2, 2, (1, 2)
+    taps, s, lead = 2, 2, (1, 2)
     n1, n2 = ff._split_ct(fft)
-    assert (n1, n2) == (2048, 2048)
+    assert (n1, n2) == split
     assert ff._k1_body(n1, n2, "bfloat16") == "three_pass"
-    rng = np.random.default_rng(22 + quantise)
+    rng = np.random.default_rng(22 + quantise + (fft > 1 << 22))
     frames = rng.integers(-64, 64, (*lead, s + taps - 1, fft), dtype=np.int8)
     fd = rng.uniform(-0.5, 0.5, lead).astype(np.float32)
     ph = rng.uniform(-1, 1, lead).astype(np.float32)
