@@ -183,7 +183,9 @@ Phases (each prints one ``PHASE`` line; any failure exits non-zero):
    its plain version, bf16 K7's flipped share at fft 2^23
    (``dit_flipped_share``, under 1e-3); K7 at the geometries its parent's
    SIMT body was timed at (``K7_TIMED_CASES``); every route body's registers and spill
-   bytes (a spill fails the phase);
+   bytes (a spill fails the phase); the SASS of bf16 stage B's body
+   (``dit_stage_b_kernel``: HGMMA, no HMMA.16816, or the phase fails), its
+   tile, blocks an SM and ring, and its share of its bound at fft 2^23;
 13. f_flagship — FEngine at 80 ant x 32768 ch x 16 taps, S=256 on flat int8
    ADC made on the card: 3 steps, a fine-delay change, 2 steps; K6 must
    launch and K1 and K7 must not; the output [80, 2, 256, 32768, 2] int8
@@ -586,9 +588,9 @@ K1_WG_WIDE = (1 << 17, 1 << 18, 1 << 20, 1 << 21)
 
 #: The built library's functions whose SASS ``_k1_dft_sass`` counts: K1's
 #: bf16 DFT-pass bodies (``k1_dft_wg_kernel``, N1 >= 16; ``k1_dft_kernel``,
-#: N1 = 8) and the three-pass route's bf16 stage bodies.
+#: N1 = 8), the three-pass route's bf16 stage bodies and K7's bf16 stage B.
 K1_SASS_BODIES = ("k1_dft_wg_kernel", "k1_dft_kernel", "k1_stage_a_wg_kernel",
-                  "k1_stage_b_wg_kernel")
+                  "k1_stage_b_wg_kernel", "dit_stage_b_kernel")
 
 
 def _k1_dft_sass() -> dict:
@@ -3092,6 +3094,18 @@ def _k7_routes(st: dict, gen) -> None:
             bodies[f"stage {stage} {dt} {n1}x{n2}"] = at
     log("k7 route bodies: " + "; ".join(f"{k} {v['regs']} registers, {v['local_bytes']} local "
                                         f"bytes" for k, v in bodies.items()) + f" ({st['card']})")
+    sb = bodies["stage b bfloat16 2048x2048"]
+    sass = {k: v for k, v in _k1_dft_sass().items() if "dit_stage_b_kernel" in k}
+    log(f"k7 bf16 stage B body (dit_stage_b_kernel): tile {sb['tile_rows']} k2 x "
+        f"{sb['tile_cols']} k1, {sb['threads']} threads, {sb['blocks_per_sm']} block(s) an SM, "
+        f"{sb['stages']} ring slots of {sb['slot_bytes']} bytes, {sb['smem_bytes']} bytes of "
+        f"shared memory, sums chained over {sb['group_products']} products; SASS "
+        "(cuobjdump -sass of the built library): " + ", ".join(
+            f"HGMMA {v[0]}, HMMA.16816 {v[1]}" for v in sass.values()))
+    if len(sass) != 1 or any(not v[0] or v[1] for v in sass.values()):
+        raise AssertionError(f"k7 stage B: the wgmma body is missing, lacks HGMMA or issues "
+                             f"HMMA.16816: {sass}")
+    st["k7_stage_b_body"] = dict(attributes=sb, sass=sass)
     st["k7_routes"] = {}
     for fft, dt, nb, s in K7_ROUTE_CASES:
         _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
@@ -3157,7 +3171,7 @@ def _k7_routes(st: dict, gen) -> None:
                                                         plane[:b.stop - b.start])
                                            for b in spans], iters=1)}
         if three:
-            tr, ti = (torch.empty((group, s, *ff._t_layout(n1, 2 * n2, dtype)), dtype=dtype,
+            tr, ti = (torch.empty((group, s, *ff._dit_t_layout(n1, n2, dtype)), dtype=dtype,
                                   device=dev) for _ in range(2))
             pass_ms["stage_a"] = cuda_ms(lambda: [ff._dit_stage_a_pass(
                 plane[:b.stop - b.start], tr[:b.stop - b.start], ti[:b.stop - b.start], n1=n1,
@@ -5340,10 +5354,11 @@ def _k7_route_kernels(st: dict) -> list:
              "fengine_dit.cu"),
             (1024, "float32", "dit_dft_f32_n1_8", "dit_dft_f32_kernel<8>: K7's f32 DFT pass at "
              "N1 = 8, after k1_fir_kernel<..., float>", "dft", "fengine_dit.cu"),
-            (1 << 23, "bfloat16", "dit_stage_a", "k1_stage_a_wg_kernel on K7's [N1, 2·N2] "
-             "view (the column-doubled twiddles): K7's three-pass stage A", "stage_a",
-             "fengine_ct.cu"),
-            (1 << 23, "bfloat16", "dit_stage_b", "dit_stage_b_kernel: K7's three-pass stage B",
+            (1 << 23, "bfloat16", "dit_stage_a", "k1_stage_a_wg_kernel<P, true> on K7's "
+             "[N1, 2·N2] view (the column-doubled twiddles, T stored as each stream's "
+             "plane): K7's three-pass stage A", "stage_a", "fengine_ct.cu"),
+            (1 << 23, "bfloat16", "dit_stage_b", "dit_stage_b_kernel: K7's three-pass stage B "
+             "(wgmma from a TMA/mbarrier ring, T each stream's plane)",
              "stage_b", "fengine_dit.cu"),
             (1 << 21, "float32", "dit_stage_a_f32", "k1_stage_a_f32_kernel on K7's [N1, 2·N2] "
              "view: K7's f32 three-pass stage A", "stage_a", "fengine_ct.cu"),

@@ -15,8 +15,9 @@ interface::
          -o <build>/libdcsand_kernels_<hash>.so <build>/<hash>/*.o
 
 The library lands in ``_kernel_build/`` next to this file (ignored by git),
-keyed by a hash of the sources and flags, so an edited kernel rebuilds and
-an unchanged one loads in milliseconds. Every pointer and the stream are
+keyed by a hash of the sources, the headers they include (``csrc/*.cuh``)
+and the flags, so an edited kernel rebuilds and an unchanged one loads in
+milliseconds. Every pointer and the stream are
 passed as ``ctypes.c_void_p``; each launch function returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception (K1's
 and K7's, their passes' and stage stops' too, return -1 where no
@@ -121,6 +122,13 @@ _SIGNATURES = {
         _I, _I, _I,  # M (batch * n_spectra), n1, n2
         _P,  # stream
     ],
+    "dit_stage_a_launch": [
+        _P, _P, _P,  # plane [M, N1, 2*N2] bf16 (K7's view), bf16 d1c, d1s [N1, N1]
+        _P, _P,  # column-doubled twc, tws [N1, 2*N2]
+        _P, _P,  # T re, im [M, 2, N1, N2] bf16, each stream's plane
+        _I, _I, _I,  # M (batch * n_spectra), n1, 2*n2
+        _P,  # stream
+    ],
     "k1_stage_a_f32_launch": [
         _P, _P, _P,  # plane [M, N1, N2] f32, f32 d1c, d1s [N1, N1]
         _P, _P,  # twc, tws [N1, N2]
@@ -147,7 +155,8 @@ _SIGNATURES = {
         _P,  # out (int[9]): registers, local bytes, threads, shared-memory bytes, tile rows,
         # tile columns, K-tile depth, stages, blocks an SM
     ] for name in ("k1_stage_a_attributes", "k1_stage_b_attributes",
-                   "k1_stage_a_f32_attributes", "k1_stage_b_f32_attributes")},
+                   "k1_stage_a_f32_attributes", "k1_stage_b_f32_attributes",
+                   "dit_stage_a_attributes")},
     "k1_fir_attributes": [
         _I, _I, _I,  # register-ring depth (0: the long body), short-run body, plane_f32
         _P,  # out (int[5]): registers, local bytes, shared bytes, threads, blocks an SM
@@ -302,7 +311,7 @@ _SIGNATURES = {
         # shared-memory bytes, threads
     ],
     "dit_stage_b_launch": [
-        _P, _P,  # T re, im [B, S, N1, 2*N2] bf16 (K1's stage A on the [N1, 2*N2] view)
+        _P, _P,  # T re, im [B, S, 2, N1, N2] bf16, each stream's plane (K7's stage A)
         _P, _P,  # bf16 d2c, d2s [N2, N2]
         _P, _P, _P, _P,  # untc, unts [N2, N1], rotc, rots [B, N]
         _P, _P,  # outr, outi [B, S, N] int8
@@ -319,8 +328,9 @@ _SIGNATURES = {
     ],
     **{name: [
         _I, _I,  # n1, n2
-        _P,  # out (int[9]): registers, local bytes, threads, shared-memory bytes, tile rows,
-        # tile columns, K-tile depth, stages, blocks an SM
+        _P,  # out (int[9], bf16 int[11]): registers, local bytes, threads, shared-memory
+        # bytes, tile rows, tile columns, K-tile depth, stages, blocks an SM (bf16: products
+        # a sum chains, bytes a ring slot)
     ] for name in ("dit_stage_b_attributes", "dit_stage_b_f32_attributes")},
     "ct_probe_launch": [
         _P, _P, _P,  # qr, qi [A, P, S, C] int8, out
@@ -362,8 +372,10 @@ def _sources() -> list[Path]:
 
 
 def _digest(nvcc: str) -> str:
+    """The library's key: every source and header of ``csrc/`` (a header's
+    edit rebuilds the sources that include it), the flags and nvcc's path."""
     h = hashlib.blake2b(digest_size=8)
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + [nvcc]).encode())

@@ -2,7 +2,9 @@
 a process of its own with its own ``ops/fengine_fused.py`` and kernels
 (built in that tree at first use): the two-pass route's DFT pass's ms at
 the flagship (:func:`dft_pass_ms`), the three-pass route's stage A and
-stage B alone at fft 2^22 over 160 x S = 4 (:func:`stage_ms`), and the
+stage B alone at fft 2^22 over 160 x S = 4 (:func:`stage_ms`), K7's
+three-pass stage A and stage B alone at fft 2^23 over 160 x S = 2
+(:func:`dit_stage_ms`), and the
 flipped share against the plain version at the splits of
 :data:`FLIP_FFTS` (:func:`flipped_share`: the two-pass route's longest
 stage-A sums and the three-pass route's) and of K7 at :data:`DIT_FLIP_FFT`
@@ -35,6 +37,8 @@ FLIP_FFTS = (1 << 16, 1 << 20, 1 << 21, 1 << 22, 1 << 23)
 DIT_FLIP_FFT = 1 << 23
 #: The three-pass route's stages alone at full width: fft, streams, S.
 STAGE_CASE = (1 << 22, 160, 4)
+#: K7's three-pass stages alone at full width: fft, streams, S.
+DIT_STAGE_CASE = (1 << 23, 160, 2)
 
 
 def dft_pass_ms(ff, fft: int = 65536, nb: int = 160, s: int = 256, iters: int = 2) -> float:
@@ -96,6 +100,51 @@ def stage_ms(ff, fft: int = STAGE_CASE[0], nb: int = STAGE_CASE[1],
         t1.synchronize()
         out.append(t0.elapsed_time(t1) / iters)
     del plane, rc, rs, t
+    torch.cuda.empty_cache()
+    return out[0], out[1]
+
+
+def dit_stage_ms(ff, fft: int = DIT_STAGE_CASE[0], nb: int = DIT_STAGE_CASE[1],
+                 s: int = DIT_STAGE_CASE[2], iters: int = 2) -> tuple[float, float]:
+    """ms of K7's bf16 three-pass stage A and stage B (``ff`` a tree's
+    ``ops/fengine_fused.py``: its ``_dit_stage_a_pass`` and
+    ``_dit_stage_b_pass``, on T in the tree's own layout) over ``nb``
+    streams x ``s`` spectra in one launch each, by CUDA events, the mean of
+    ``iters`` calls after one: a bf16 FIR plane and rotation planes made on
+    the card from :data:`SEED` (the codes near the flagship's level), stage
+    B on stage A's T."""
+    import torch
+
+    dev = torch.device("cuda")
+    _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
+    c = fft // 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    plane = torch.empty((nb, s, fft), dtype=torch.bfloat16, device=dev)
+    for b in range(nb):  # a stream at a time: no f32 copy of the whole plane
+        plane[b] = (torch.randn((s, fft), device=dev, generator=gen) * 40).to(torch.bfloat16)
+    ph = torch.rand((nb, c), device=dev, generator=gen) * (2 * math.pi)
+    scale = 50 / (40 * c ** 0.5)
+    rc, rs = (torch.cos(ph) * scale).contiguous(), (torch.sin(ph) * scale).contiguous()
+    del ph
+    if hasattr(ff, "_dit_t_layout"):
+        layout = ff._dit_t_layout(n1, n2, torch.bfloat16)
+    else:  # a tree whose T keeps the [N1, 2·N2] view
+        layout = ff._t_layout(n1, 2 * n2, torch.bfloat16)
+    tr, ti = (torch.empty((nb, s, *layout), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    outr, outi = (torch.empty((nb, s, c), dtype=torch.int8, device=dev) for _ in range(2))
+    out = []
+    for fn in (lambda: ff._dit_stage_a_pass(plane, tr, ti, n1=n1, n2=n2),
+               lambda: ff._dit_stage_b_pass(tr, ti, rc, rs, outr, outi, n1=n1, n2=n2)):
+        fn()
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        t1.synchronize()
+        out.append(t0.elapsed_time(t1) / iters)
+    del plane, rc, rs, tr, ti, outr, outi
     torch.cuda.empty_cache()
     return out[0], out[1]
 
@@ -173,9 +222,12 @@ def _one_tree() -> None:
     from dpdk_dc_sand_tpu_torch.ops import fengine_fused as ff
 
     a_ms, b_ms = stage_ms(ff)
+    da_ms, db_ms = dit_stage_ms(ff)
     shares = ", ".join(f"fft {f} {flipped_share(ff, f):.3e}" for f in FLIP_FFTS)
     print(f"flagship DFT pass {dft_pass_ms(ff):.3f} ms; fft {STAGE_CASE[0]} x "
           f"{STAGE_CASE[1]} x S={STAGE_CASE[2]}: stage A {a_ms:.3f} ms, stage B {b_ms:.3f} ms; "
+          f"K7 fft {DIT_STAGE_CASE[0]} x {DIT_STAGE_CASE[1]} x S={DIT_STAGE_CASE[2]}: stage A "
+          f"{da_ms:.3f} ms, stage B {db_ms:.3f} ms; "
           f"flipped share {shares}; K7 fft {DIT_FLIP_FFT} {dit_flipped_share(ff):.3e}")
 
 

@@ -180,8 +180,10 @@
 //    rounding point); stage B, the row-stacked N2-point matrix x T^T, the
 //    four products cos.tr, -sin.ti, cos.ti, -sin.tr combined as the DFT
 //    pass's stage B does, then the rotation and the requant (or the f32
-//    store), bin k2·N1 + k1. T keeps K1's layout, bf16 [m, N1, N2] (K7's
-//    stage B and the stagea stop's gather read it so).
+//    store), bin k2·N1 + k1. T keeps K1's layout, bf16 [m, N1, N2] (the
+//    stagea stop's gather reads it so; K7's stage A, on the [N1, 2·N2]
+//    view, stores each stream's [N1, N2] plane, which K7's stage B reads,
+//    csrc/fengine_dit.cu).
 //    bf16: k1_stage_a_wg_kernel and k1_stage_b_wg_kernel, the DFT pass's
 //    machinery on GEMM-shaped tiles: wgmma (bf16 in, f32 sums) from shared
 //    memory in two consumer warpgroups (setmaxnreg up to 232), fed by one
@@ -190,6 +192,10 @@
 //    slot's full mbarrier counts the producer's arrival and the box bytes,
 //    its empty mbarrier one arrival a consumer warpgroup once the wgmmas
 //    that read it have completed. No block-wide barrier after the start.
+//    This machinery (the ring, its mbarriers, the TMA and wgmma wrappers,
+//    the tile walk) is csrc/wg_ring.cuh, which K7's bf16 stage B
+//    (dit_stage_b_kernel, csrc/fengine_dit.cu) runs on too; K7's stage A is
+//    k1_stage_a_wg_kernel<P, true>, which stores T as each stream's plane.
 //    One persistent block an SM walks the tiles, columns fastest (stage A:
 //    a chunk's n2 tiles; stage B: a k1 tile's k2 tiles), so the tiles
 //    running side by side share one spectrum's plane (or T) and one chunk's
@@ -317,6 +323,8 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "wg_ring.cuh"
+
 namespace {
 
 constexpr size_t MAX_SMEM = 232448;  // what one block may use on sm_90
@@ -420,10 +428,6 @@ __host__ __device__ constexpr int fir_stages(bool short_run) {
 // Dynamic shared memory of a body: the ring, or none for the long body.
 __host__ __device__ constexpr int fir_smem_bytes(int maxt, int stop, bool short_run) {
   return maxt > 0 || fir_copies_only(stop) ? fir_stages(short_run) * FIR_ROWS * FIR_SLOT : 0;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
@@ -1299,12 +1303,8 @@ int n8_dispatch(DftParams p, int batch, cudaStream_t st) {
 // Pass 2, N1 >= 16: the DFT on wgmma, fed by TMA through an mbarrier ring
 // ---------------------------------------------------------------------------
 // (The design is at the head of the file, item 2.)
-constexpr int WG_THREADS = 384;      // the producer warpgroup, then two consumer warpgroups
 constexpr int WG_SLOT = 32768;       // bytes a ring slot
 constexpr int WG_MAX_STAGES = 4;     // ring slots, at most
-constexpr int WG_ALIGN = 1024;       // a 128-byte-swizzle atom: 8 rows x 128 bytes
-constexpr int WG_ROW = 128;          // bytes a staged row: 64 bf16
-constexpr int WG_PRODUCER_REGS = 40, WG_CONSUMER_REGS = 232;
 // Stage A's group depth in k-steps of 16 products: each group of wgmmas sums
 // into a fragment from zero, which is then added to the master sums in f32
 // round-to-nearest (PERF.md gives the flipped share at each depth).
@@ -1341,181 +1341,8 @@ struct WgMaps {
 // columns, or one box where NB < 32 (its other columns unread).
 __host__ __device__ constexpr int wg_rot_boxes(int nb) { return nb < 32 ? 1 : nb / 32; }
 
-// The address of f32 element (row, col) of a staged box of 32 columns (128-
-// byte rows, 16-byte chunks swizzled by row % 8).
-__device__ __forceinline__ uint32_t wg_f32_at(uint32_t box, int row, int col) {
-  return box + row * WG_ROW + ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
-}
-
-__device__ __forceinline__ float2 wg_ld_f2(uint32_t addr) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
-  return v;
-}
-
 // Shared-memory bytes of the T planes of a KC-row chunk.
 __host__ __device__ constexpr int wg_t_bytes(int kc, int n2) { return 2 * kc * n2 * 2; }
-
-__device__ __forceinline__ void wg_mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void wg_mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void wg_mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void wg_mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nWG_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra WG_DONE;\nbra WG_WAIT;\nWG_DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// A box of a 2-D tensor map (column x, row y) into shared dst, its bytes
-// counted on bar.
-__device__ __forceinline__ void wg_tma(uint32_t dst, const CUtensorMap* map, int x, int y,
-                                       uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
-// wgmma operand descriptors, 128-byte swizzle. K-major (rows of 64 K values,
-// 8-row atoms 1024 bytes apart); MN-major (rows of 64 M values, one a K step
-// of 1, 8-row atoms 1024 bytes apart along K; a 64-row M tile is one atom
-// wide, so the other stride field is never used and is given the same 1024).
-__device__ __forceinline__ uint64_t wg_desc_k(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ uint64_t wg_desc_mn(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Waits until at most N of this warpgroup's wgmma groups are in flight.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of d across a wgmma.
-template <int R>
-__device__ __forceinline__ void wg_hold(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// The two consumer warpgroups' named barrier (id 1; 0 is __syncthreads).
-__device__ __forceinline__ void wg_consumers_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-// One consumer warpgroup's named barrier (ids 2 and 3).
-__device__ __forceinline__ void wg_warpgroup_sync(int cw) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
-}
-
-// Generic-proxy shared-memory writes of this thread, seen by wgmma.
-__device__ __forceinline__ void wg_proxy_fence() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d (64 x N f32, the warpgroup's fragment) = A * B (+ d where acc), bf16 from
-// shared memory: A 64 x 16, K-major (TA = 0) or M-major (TA = 1); B N x 16,
-// K-major.
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  template <int TA>
-  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "%8, %9, p, 1, 1, %11, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(acc), "n"(TA));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  template <int TA>
-  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, %19, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(acc), "n"(TA));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  template <int TA>
-  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, %35, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(acc), "n"(TA));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  template <int TA>
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, %67, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(acc), "n"(TA));
-  }
-};
-
 
 // The unit u's spectrum (flat over the group's streams) and first k1 row.
 struct WgUnit {
@@ -1533,18 +1360,6 @@ template <int KC, int NB>
 struct WgItem {
   int m, c;
   __device__ __forceinline__ WgItem(int i) : m(i / (KC / NB)), c(i % (KC / NB)) {}
-};
-
-// The ring's slot and phase, shared by the producer's and each consumer's walk.
-struct WgRing {
-  int slot = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next(int stages) {
-    if (++slot == stages) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
 };
 
 template <int KC, int NB, int KD, bool QUANT, int STOP = STOP_NONE>
@@ -1910,42 +1725,6 @@ int with_wg_plan(int n1, int n2, Fn fn) {
   if (w.kc == 32) return w.kd == 64 ? fn(WgShape<32, 32, 64>{}, w) : fn(WgShape<32, 16, 32>{}, w);
   return fn(WgShape<16, 8, 16>{}, w);
 }
-
-// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda).
-PFN_cuTensorMapEncodeTiled k1_tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(f);
-    }
-  }
-  return fn;
-}
-
-// A row-major [rows, cols] tensor of bf16 (or f32) as a 2-D map of boxes
-// box_rows x 128 bytes (64 bf16, 32 f32), 128-byte swizzle; boxes past the
-// edges read as zeros.
-bool wg_map(CUtensorMap& m, const void* ptr, unsigned long long cols, unsigned long long rows,
-            int box_rows, bool f32 = false) {
-  const PFN_cuTensorMapEncodeTiled encode = k1_tensor_map_encoder();
-  if (!encode) return false;
-  const size_t item = f32 ? sizeof(float) : sizeof(bf16);
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * item};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(WG_ROW / item),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(&m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned_to(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
 
 // A DFT-pass call on the wgmma body: the operands, the shape, the plan.
 struct WgCall {
@@ -2575,10 +2354,6 @@ __device__ __forceinline__ void stage_b_store(const StageParams& p, long long o,
 // (128-byte swizzle) of the two operands, or four of a consumer's f32
 // epilogue operand.
 // ---------------------------------------------------------------------------
-constexpr int TP_BOX = 64 * WG_ROW;  // a box: 64 rows x 128 bytes
-constexpr int TP_SLOT = 6 * TP_BOX;  // bytes a ring slot
-constexpr int TP_STAGES = 4;         // ring slots (192 KB)
-constexpr size_t TP_SMEM = static_cast<size_t>(TP_STAGES) * TP_SLOT + 2 * 8 * TP_STAGES + WG_ALIGN;
 static_assert(TP_SMEM <= MAX_SMEM, "the three-pass ring");
 // Stage A's group depth in k-steps of 16 products: each group of wgmmas sums
 // into a fragment from zero, which is then added to the master sums in f32
@@ -2596,61 +2371,6 @@ __device__ __forceinline__ void tp_turn_wait(int cw) {
 
 __device__ __forceinline__ void tp_turn_give(int cw) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(5 - cw) : "memory");
-}
-
-// A stage's tile t of the persistent walk: spectrum, row tile r, column tile
-// c, columns fastest (stage A: n2 tiles of one k1 chunk; stage B: k2 tiles of
-// one k1 tile), so the tiles running side by side share a spectrum's plane
-// (or T) and one chunk's matrix rows in L2.
-struct TpTile {
-  int spec, r, c;
-};
-
-__device__ __forceinline__ TpTile tp_tile(int t, int n_c, int n_r) {
-  TpTile w;
-  w.c = t % n_c;
-  t /= n_c;
-  w.r = t % n_r;
-  w.spec = t / n_r;
-  return w;
-}
-
-// The ring's mbarriers, initialised by thread 0 before the block's first
-// barrier: a slot's full mbarrier counts the producer's arrival and the
-// box bytes, its empty one an arrival a consumer warpgroup.
-__device__ __forceinline__ uint32_t tp_ring_init(unsigned char* smem, uint32_t& full,
-                                                 uint32_t& empty) {
-  const uint32_t ring = (smem_u32(smem) + WG_ALIGN - 1) & ~static_cast<uint32_t>(WG_ALIGN - 1);
-  full = ring + TP_STAGES * TP_SLOT;
-  empty = full + 8 * TP_STAGES;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < TP_STAGES; ++s) {
-      wg_mbar_init(full + 8 * s, 1);
-      wg_mbar_init(empty + 8 * s, 2);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  return ring;
-}
-
-// A consumer warpgroup's slots of an epilogue operand, one a warpgroup:
-// waits for both, keeps its own (returned, its index in slot) and releases
-// the other's once it has landed, so that the arrival counts toward this
-// use of the slot.
-__device__ __forceinline__ uint32_t tp_own_slot(WgRing& r, uint32_t ring, uint32_t full,
-                                                uint32_t empty, int cw, int wt, int& slot) {
-  uint32_t own = 0;
-  for (int w = 0; w < 2; ++w, r.next(TP_STAGES)) {
-    wg_mbar_wait(full + 8 * r.slot, r.phase);
-    if (w == cw) {
-      own = ring + r.slot * TP_SLOT;
-      slot = r.slot;
-    } else if (wt == 0) {
-      wg_mbar_arrive(empty + 8 * r.slot);
-    }
-  }
-  return own;
 }
 
 // Stage A: T = twiddle(D1 @ plane) of each spectrum, rounded to bf16.
@@ -2672,12 +2392,25 @@ struct SaMaps {
 };
 
 #ifndef K1_STAGE_STOPS
+// lo and hi rounded to bf16 as one 32-bit word, lo in the low half.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // A tile is 128 n2 columns (a 64-column tile each consumer) x a chunk of 64 P
 // k1 (P pieces of 64, each a [cos 64; -sin 64] box pair of the N1-point
 // rows). A K slot: the two plane tiles [64 n1 x 64 n2] (wgmma's M-major A
 // operand, imm-trans-a), then the chunk's P box pairs (the K-major B
 // operand); then each piece's twiddles, a slot each consumer.
-template <int P>
+//
+// STREAMS: K7's stage A on the plane's [N1, 2·N2] view (p.n2 = 2·N2; view
+// column 2·n2 + q is stream q's n2, csrc/fengine_dit.cu), T re and im stored
+// as each stream's [N1, N2] plane, [m, 2, N1, N2], the K-major operand of
+// K7's stage B: the four lanes of a k1 swap their values so that each stores
+// one 16-byte run (8 n2 of one stream's T re or T im). The values are those
+// of K1's layout, bit for bit.
+template <int P, bool STREAMS = false>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     k1_stage_a_wg_kernel(const SaParams p, const __grid_constant__ SaMaps maps) {
   constexpr int NKS = 4;  // k-steps of 16 a slot
@@ -2791,6 +2524,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       const int k1a = 64 * (P * u.r + pc);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        float kept[4];  // STREAMS: hh 0's T re and T im of both streams
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const float* c = sums[pc] + 4 * j + 2 * hh;
@@ -2807,9 +2541,48 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           const float tr1 = __fsub_rn(__fmul_rn(ar1, c2.y), __fmul_rn(ai1, s2.y));
           const float ti0 = __fadd_rn(__fmul_rn(ar0, s2.x), __fmul_rn(ai0, c2.x));
           const float ti1 = __fadd_rn(__fmul_rn(ar1, s2.y), __fmul_rn(ai1, c2.y));
-          const long long o = tbase + static_cast<long long>(k1a + k1) * p.n2 + n2a + nb;
-          *reinterpret_cast<__nv_bfloat162*>(p.tr + o) = __floats2bfloat162_rn(tr0, tr1);
-          *reinterpret_cast<__nv_bfloat162*>(p.ti + o) = __floats2bfloat162_rn(ti0, ti1);
+          if constexpr (STREAMS) {
+            // Columns nb, nb + 1 are n2 m = (n2a + nb) / 2 of both streams. The
+            // four lanes of a k1 (G = g / 2, lanes 8 apart) hold m = base + G +
+            // 4 hh of the warp's 8 n2; they swap so that lane G stores run G
+            // (stream G / 2, T re or im by G % 2): the 8 n2 as 16 bytes.
+            if (hh == 0) {
+              kept[0] = tr0, kept[1] = tr1, kept[2] = ti0, kept[3] = ti1;
+            } else {
+              const int G = g >> 1, h = p.n2 / 2;
+              uint32_t w[4];  // run c = 2 q + P: this lane's (hh 0, hh 1) pair
+              w[0] = bf16_pair(kept[0], tr0);
+              w[1] = bf16_pair(kept[2], ti0);
+              w[2] = bf16_pair(kept[1], tr1);
+              w[3] = bf16_pair(kept[3], ti1);
+              // A butterfly over G's two bits: after the first swap (lanes 8
+              // apart) a lane holds its own and its neighbour's pairs of the
+              // runs whose bit 0 is G's; after the second (16 apart), all four
+              // lanes' pairs of run G.
+              const bool b0 = G & 1, b1 = G & 2;
+              const uint32_t a0 = b0 ? w[1] : w[0], a1 = b0 ? w[3] : w[2];  // kept
+              const uint32_t r0 = __shfl_xor_sync(~0u, b0 ? w[0] : w[1], 8);
+              const uint32_t r1 = __shfl_xor_sync(~0u, b0 ? w[2] : w[3], 8);
+              // Run G's pairs from G and G ^ 1 (kept), run G ^ 2's given away.
+              const uint32_t own = b1 ? a1 : a0, nbr = b1 ? r1 : r0;
+              const uint32_t far0 = __shfl_xor_sync(~0u, b1 ? a0 : a1, 16);  // from G ^ 2
+              const uint32_t far1 = __shfl_xor_sync(~0u, b1 ? r0 : r1, 16);  // from G ^ 3
+              // Sources 0, 1 and 2, 3: (own, nbr) and (far0, far1) by bit 1,
+              // each pair reversed where bit 0 is set.
+              const uint32_t p0 = b1 ? far0 : own, p1 = b1 ? far1 : nbr;
+              const uint32_t q0 = b1 ? own : far0, q1 = b1 ? nbr : far1;
+              const uint32_t lo = b0 ? 0x1054u : 0x5410u, hi = b0 ? 0x3276u : 0x7632u;
+              const uint4 v = make_uint4(__byte_perm(p0, p1, lo), __byte_perm(q0, q1, lo),
+                                         __byte_perm(p0, p1, hi), __byte_perm(q0, q1, hi));
+              const long long o = tbase + static_cast<long long>((G >> 1) * p.n1 + k1a + k1) * h +
+                                  n2a / 2 + 8 * wq;
+              *reinterpret_cast<uint4*>((G & 1 ? p.ti : p.tr) + o) = v;
+            }
+          } else {
+            const long long o = tbase + static_cast<long long>(k1a + k1) * p.n2 + n2a + nb;
+            *reinterpret_cast<__nv_bfloat162*>(p.tr + o) = __floats2bfloat162_rn(tr0, tr1);
+            *reinterpret_cast<__nv_bfloat162*>(p.ti + o) = __floats2bfloat162_rn(ti0, ti1);
+          }
         }
       }
       wg_warpgroup_sync(cw);  // every thread's twiddles are read
@@ -3005,45 +2778,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 bool three_pass_split(int n1, int n2) {
   return n1 >= 64 && n1 <= (1 << 15) && (n1 & (n1 - 1)) == 0 && n2 >= 128 && n2 <= (1 << 15) &&
          (n2 & (n2 - 1)) == 0;
-}
-
-// Launches a wgmma stage body, one persistent block an SM (at most one a
-// tile).
-template <typename K, typename Params, typename Maps>
-cudaError_t launch_tp_wg(K kern, const Params& p, const Maps& maps, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(TP_SMEM));
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
-    return err;
-  }
-  kern<<<std::min(p.n_tiles, sms), WG_THREADS, TP_SMEM, stream>>>(p, maps);
-  return cudaGetLastError();
-}
-
-// A wgmma stage body's view: out int[11] = registers a thread, local (spill)
-// bytes a thread, threads a block, shared-memory bytes, tile rows, tile
-// columns, K depth a slot, ring slots, blocks an SM, products a sum adds up
-// before it joins its f32 master sum (the whole sum where the wgmmas chain),
-// bytes a ring slot.
-template <typename K>
-int wg_stage_attributes(K kern, int rows, int cols, int group, void* out) {
-  cudaFuncAttributes a{};
-  cudaError_t err = cudaFuncGetAttributes(&a, kern);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(TP_SMEM));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, WG_THREADS, TP_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int v[11] = {a.numRegs, static_cast<int>(a.localSizeBytes), WG_THREADS,
-                     static_cast<int>(TP_SMEM), rows, cols, 64, TP_STAGES, per_sm, group,
-                     TP_SLOT};
-  std::copy(v, v + 11, static_cast<int*>(out));
-  return 0;
 }
 
 // A bf16 stage-B call on the wgmma body: T re, im [batch, n_spectra, N1, N2]
@@ -3453,6 +3187,39 @@ int fir_pass(const void* x, long long batch_stride, const void* starts, const vo
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
+#ifndef K1_STAGE_STOPS
+// A bf16 stage-A launch on the wgmma body (k1_stage_a_launch's arguments),
+// T in K1's layout or, STREAMS, in K7's stream planes.
+template <bool STREAMS>
+int stage_a_wg_launch(const void* plane, const void* d1c, const void* d1s, const void* twc,
+                      const void* tws, void* tr, void* ti, int m, int n1, int n2, void* stream) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  if (!aligned_to(plane, 16) || !aligned_to(d1c, 16) || !aligned_to(d1s, 16) ||
+      !aligned_to(twc, 16) || !aligned_to(tws, 16) || !aligned_to(tr, 4) || !aligned_to(ti, 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned long long rows = static_cast<unsigned long long>(m) * n1;
+  const int pieces = n1 >= 128 ? 2 : 1;
+  const long long tiles = static_cast<long long>(m) * (n2 / 128) * (n1 / (64 * pieces));
+  if (rows > 0x7fffffffULL || tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  SaMaps maps{};
+  if (!wg_map(maps.plane, plane, n2, rows, 64) || !wg_map(maps.d1c, d1c, n1, n1, 64) ||
+      !wg_map(maps.d1s, d1s, n1, n1, 64) || !wg_map(maps.twc, twc, n2, n1, 64, true) ||
+      !wg_map(maps.tws, tws, n2, n1, 64, true)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const SaParams p{static_cast<bf16*>(tr), static_cast<bf16*>(ti), n1, n2, n2 / 128,
+                   n1 / (64 * pieces), n1 / 64, static_cast<int>(tiles)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pieces == 2) {
+    return static_cast<int>(launch_tp_wg(k1_stage_a_wg_kernel<2, STREAMS>, p, maps, st));
+  }
+  return static_cast<int>(launch_tp_wg(k1_stage_a_wg_kernel<1, STREAMS>, p, maps, st));
+}
+
+#endif  // K1_STAGE_STOPS
+
 }  // namespace
 
 // K1's own entry points; csrc/fengine_ct_stops.cu includes this file for the
@@ -3646,27 +3413,16 @@ extern "C" int k1_dft_f32_attributes(int n1, int n2, void* out) {
 extern "C" int k1_stage_a_launch(const void* plane, const void* d1c, const void* d1s,
                                  const void* twc, const void* tws, void* tr, void* ti, int m,
                                  int n1, int n2, void* stream) {
-  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!three_pass_split(n1, n2)) return NO_PLAN;
-  if (!aligned_to(plane, 16) || !aligned_to(d1c, 16) || !aligned_to(d1s, 16) ||
-      !aligned_to(twc, 16) || !aligned_to(tws, 16) || !aligned_to(tr, 4) || !aligned_to(ti, 4)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const unsigned long long rows = static_cast<unsigned long long>(m) * n1;
-  const int pieces = n1 >= 128 ? 2 : 1;
-  const long long tiles = static_cast<long long>(m) * (n2 / 128) * (n1 / (64 * pieces));
-  if (rows > 0x7fffffffULL || tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  SaMaps maps{};
-  if (!wg_map(maps.plane, plane, n2, rows, 64) || !wg_map(maps.d1c, d1c, n1, n1, 64) ||
-      !wg_map(maps.d1s, d1s, n1, n1, 64) || !wg_map(maps.twc, twc, n2, n1, 64, true) ||
-      !wg_map(maps.tws, tws, n2, n1, 64, true)) {
-    return static_cast<int>(cudaErrorNotSupported);
-  }
-  const SaParams p{static_cast<bf16*>(tr), static_cast<bf16*>(ti), n1, n2, n2 / 128,
-                   n1 / (64 * pieces), n1 / 64, static_cast<int>(tiles)};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pieces == 2) return static_cast<int>(launch_tp_wg(k1_stage_a_wg_kernel<2>, p, maps, st));
-  return static_cast<int>(launch_tp_wg(k1_stage_a_wg_kernel<1>, p, maps, st));
+  return stage_a_wg_launch<false>(plane, d1c, d1s, twc, tws, tr, ti, m, n1, n2, stream);
+}
+
+// K7's three-pass stage A (bf16): the arguments of k1_stage_a_launch on the
+// plane's [N1, 2·N2] view (n2 = 2·N2, the column-doubled twiddles [N1,
+// 2·N2]), T re and im [m, 2, N1, N2], each stream's plane.
+extern "C" int dit_stage_a_launch(const void* plane, const void* d1c, const void* d1s,
+                                  const void* twc, const void* tws, void* tr, void* ti, int m,
+                                  int n1, int n2, void* stream) {
+  return stage_a_wg_launch<true>(plane, d1c, d1s, twc, tws, tr, ti, m, n1, n2, stream);
 }
 
 // Stage A with f32 operands: the same, all f32 (the plane 16-byte aligned),
@@ -3730,6 +3486,16 @@ extern "C" int k1_stage_a_attributes(int n1, int n2, void* out) {
   if (!three_pass_split(n1, n2)) return NO_PLAN;
   if (n1 >= 128) return wg_stage_attributes(k1_stage_a_wg_kernel<2>, 128, 128, 16 * SA_GROUP, out);
   return wg_stage_attributes(k1_stage_a_wg_kernel<1>, 64, 128, 16 * SA_GROUP, out);
+}
+
+// K7's stage-A body (the stream planes' store) at N1 x n2 (n2 = 2·N2), as
+// k1_stage_a_attributes gives K1's.
+extern "C" int dit_stage_a_attributes(int n1, int n2, void* out) {
+  if (!three_pass_split(n1, n2)) return NO_PLAN;
+  if (n1 >= 128) {
+    return wg_stage_attributes(k1_stage_a_wg_kernel<2, true>, 128, 128, 16 * SA_GROUP, out);
+  }
+  return wg_stage_attributes(k1_stage_a_wg_kernel<1, true>, 64, 128, 16 * SA_GROUP, out);
 }
 
 extern "C" int k1_stage_b_attributes(int n1, int n2, void* out) {

@@ -99,27 +99,53 @@
 //    design is at the kernel), N1 = 8 on its KC = 8 plan.
 // B. Where T does not fit (bf16 N2 >= 2048: fft >= 2^23; f32 N2 >= 1024:
 //    fft >= 2^21): three passes through T in device memory, as K1's route
-//    for N2 >= 2048 (csrc/fengine_ct.cu): the FIR pass; K1's stage-A kernel
-//    (k1_stage_a_wg_kernel, k1_stage_a_f32_kernel, unchanged) on the
-//    [N1, 2·N2] view with a twiddle table whose columns 2·n2 and 2·n2 + 1
-//    both hold exp(-2πi k1 n2 / N): the product, the twiddle and the
-//    rounding are
-//    _dit_stage_a's for both streams, T re and im stored [N1][2·N2] in bf16
-//    (an n2's two streams side by side) and transposed, [2·N2][N1], in f32;
-//    then dit_stage_b_kernel / dit_stage_b_f32_kernel below: per stream,
-//    all N2 values of k2 against the full [N2, N2] cos and -sin matrices,
-//    the four sums a stream, the combine, the rotation and the requant. One
-//    block a tile of 64 k2 x 32 k1, each tile's K loop (n2) through a
-//    cp.async ring. bf16: mma.sync m16n8k16 chained, as the DFT pass's
-//    stage B; a T row's 32-bit word holds one n2 of both streams, so a
-//    thread reads the two n2 of its B fragment as one 8-byte word pair and
-//    byte-permutes them into each stream's fragment (T rows padded to 288
-//    bytes: the half-warps' reads are free of bank conflicts). f32: FFMA, 4
-//    k2 x 2 k1 x both streams x 4 sums a thread against the N2-point
-//    matrix in halves of k2 (_dit_d2h). These passes replace nothing in the
-//    TPU kernel: they are its work split where an SM's 227 KB cannot hold
-//    what the TPU's VMEM held. The bf16 or f32 operations bound them (at
-//    2048 x 2048 about 206 GFLOP a spectrum, stage B two thirds of it).
+//    for N2 >= 2048 (csrc/fengine_ct.cu): the FIR pass; K1's stage-A body
+//    (k1_stage_a_wg_kernel, k1_stage_a_f32_kernel) on the [N1, 2·N2] view
+//    with a twiddle table whose columns 2·n2 and 2·n2 + 1 both hold
+//    exp(-2πi k1 n2 / N): the product, the twiddle and the rounding are
+//    _dit_stage_a's for both streams; then stage B: per stream, all N2
+//    values of k2 against the full [N2, N2] cos and -sin matrices, the four
+//    sums a stream, the combine, the rotation and the requant.
+//    bf16: stage A is k1_stage_a_wg_kernel<P, true>, K1's body unchanged but
+//    for its store: T re and im go out as each stream's [N1, N2] plane,
+//    [m, 2, N1, N2] (the four lanes of a k1 swap their values so that each
+//    stores 8 n2 of one stream as 16 bytes), so that stage B can take T as
+//    wgmma's K-major shared-memory operand, which cannot take every other
+//    element of an interleaved row. Stage B, dit_stage_b_kernel, is K1's
+//    stage-B body (csrc/wg_ring.cuh: one persistent 384-thread block an SM,
+//    one producer thread issuing TMA boxes (2-D tensor maps, 128-byte
+//    swizzle) into a ring of 4 slots of 48 KB, a full and an empty mbarrier
+//    a slot, two consumer warpgroups under setmaxnreg (40 / 232); the tiles
+//    walked k2 fastest, so the blocks running side by side share one k1
+//    tile of T in L2) with K7's operands and combine. A tile is 128 k2 x 32 k1 of one
+//    spectrum, a consumer's 64 k2 of it. A K slot holds [cos 64; -sin 64]
+//    of each consumer's k2 rows (its K-major A operand) and the [32 k1 x
+//    64 n2] boxes tr_e, ti_e, tr_o, ti_o (both consumers' K-major B
+//    operand, 128 rows): m64n128k16 twice a k-step, cos.T in one fragment
+//    and -sin.T in the other, chained over n2 (as the mma.sync body did),
+//    one group left in flight while the next slot's run, so each thread
+//    holds all eight sums of its (k2, k1) points (128 f32). Epilogue: the
+//    consumer's combine factors and rotation values ([64 k2 x 32 k1] of
+//    untc, unts, rotc, rots) come as a slot of the ring behind the tile's K
+//    slots; the combine, the rotation and the requant, the codes stored as
+//    pairs along k1. Registers: 168 a thread at launch, 232 a consumer after
+//    setmaxnreg; 0 spill bytes. Bytes through L2 at fft 2^23 over 160 x S =
+//    2 (320 spectra, 327,680 tiles): a tile reads 32 K slots of 48 KB (1.5
+//    MB for 128 x 32 x 2048 x 8 products: 85 FLOP a byte, as K1's stage B)
+//    and 64 KB of epilogue operands, and writes 8 KB of codes: 515.4 GB,
+//    21.5 GB and 2.7 GB a call, where the mma.sync body it replaced (64 k2
+//    x 32 k1 a block, cp.async) read 687.2 GB of operands (64 FLOP a byte).
+//    T kept interleaved, as wgmma's register A operand split by __byte_perm,
+//    ran slower (PERF.md §6).
+//    f32: stage A k1_stage_a_f32_kernel unchanged, T re and im stored
+//    transposed, [2·N2][N1] (row 2·n2 + q); dit_stage_b_f32_kernel, FFMA, 4
+//    k2 x 2 k1 x both streams x 4 sums a thread against the N2-point matrix
+//    in halves of k2 (_dit_d2h), one block a tile of 64 k2 x 32 k1, each
+//    tile's K loop (n2) through a cp.async ring. These passes replace
+//    nothing in the TPU kernel: they are its work split where an SM's 227
+//    KB cannot hold what the TPU's VMEM held. The bf16 or f32 operations
+//    bound them (at 2048 x 2048 about 206 GFLOP a spectrum, stage B two
+//    thirds of it).
 //
 // Stage stops. The probe P2 (benchmarks/fused_ablate.py of the JAX package,
 // the trimmed copy of _fengine_kernel reached through pl.pallas_call at
@@ -142,7 +168,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
+
+#include "wg_ring.cuh"
 
 namespace {
 
@@ -228,10 +257,6 @@ struct DitShape {
   static constexpr int NWB = KC / WNB;
   static constexpr int MB = 16 * (DFT_WARPS / NWB);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
@@ -1235,32 +1260,32 @@ int with_f32_plan(const F32Params& p, F&& f) {
 
 // ---------------------------------------------------------------------------
 // The three-pass route's stage B (see the head of the file): T re, im in
-// device memory, as K1's stage-A kernels write them on the [N1, 2·N2] view,
-// to the outputs. One block a tile of SB_M k2 x SB_N k1 of one spectrum,
-// its K loop over n2 through a cp.async ring.
+// device memory, as K7's stage A writes them, to the outputs. f32: one block
+// a tile of FB_M k2 x FB_N k1 of one spectrum, its K loop over n2 through a
+// cp.async ring. bf16: the wgmma body below, on K1's three-pass ring
+// (csrc/wg_ring.cuh).
 // ---------------------------------------------------------------------------
-constexpr int TP_THREADS = 256;  // 8 warps
-// bf16: 64 k2 rows (their cos and -sin rows) x 32 k1 a tile, K tiles of 64
-// n2; warps 4 x 2, each 16 k2 x 16 k1 x both streams x the four sums (64
-// accumulators). A T row of the tile holds 2·SB_K interleaved columns,
-// padded to 288 bytes (32 mod 128): a half-warp's 8-byte reads of rows g
-// .. g + 3 fall in distinct banks.
-constexpr int SB_M = 64, SB_N = 32, SB_K = 64, SB_STAGES = 3;
-constexpr int SB_DLD = SB_K + PAD, SB_TLD = 2 * SB_K + 2 * PAD;
-constexpr int SB_SLOT = 2 * SB_M * SB_DLD + 2 * SB_N * SB_TLD;  // bf16 elements
-constexpr size_t SB_SMEM = sizeof(bf16) * SB_STAGES * SB_SLOT;
+constexpr int TP_THREADS = 256;  // the f32 body: 8 warps
 // f32: 64 k2 x 32 k1 a tile, K tiles of 16 n2; a thread 4 k2 x 2 k1 x both
 // streams x the four sums (64 accumulators; 6 shared loads per 64 FFMA).
 constexpr int FB_M = 64, FB_N = 32, FB_K = 16, FB_STAGES = 4;
 constexpr int FB_SLOT = FB_K * 2 * FB_M + 2 * (2 * FB_K) * FB_N;  // floats
 constexpr size_t FB_SMEM = sizeof(float) * FB_STAGES * FB_SLOT;
-static_assert(2 * (SB_SMEM + 1024) <= 233472, "two bf16 stage-B blocks must share an SM");
+// bf16: a tile is 128 k2 x 32 k1 of one spectrum, both streams, a
+// consumer's 64 k2 of it. A K slot (64 n2, TP_SLOT bytes): [cos 64; -sin 64]
+// of each consumer's k2 rows (its K-major A operand), then the [32 k1 x 64
+// n2] boxes of T re and T im of each stream, in the order tr_e, ti_e, tr_o,
+// ti_o (both consumers' K-major B operand, 128 rows). An epilogue slot a
+// consumer: [64 k2 x 32 k1] of untc, unts, rotc, rots.
+constexpr int DB_T = 4 * TP_BOX;      // a K slot's T boxes, after the k2 rows
+constexpr int DB_TBOX = 32 * WG_ROW;  // a T box: 32 rows x 128 bytes
+static_assert(DB_T + 4 * DB_TBOX == TP_SLOT, "stage B's K slot");
 
+// The f32 body's parameters.
 struct StageBParams {
-  const void* tr;     // T re, im: bf16 [M, N1, 2·N2]; f32 transposed [M, 2·N2, N1]
-  const void* ti;     //   (column / row 2·n2 + q: stream q's n2), M = batch * n_spectra
-  const void* d2c;    // bf16: [N2, N2] cos; f32: _dit_d2h [2][N2][N2] (each half of k2
-  const void* d2s;    //   transposed: cos, then -sin); bf16: [N2, N2] -sin
+  const void* tr;     // T re, im: f32 transposed [M, 2·N2, N1] (row 2·n2 + q: stream
+  const void* ti;     //   q's n2), M = batch * n_spectra
+  const void* d2c;    // _dit_d2h [2][N2][N2] (each half of k2 transposed: cos, then -sin)
   const float* untc;  // [N2, N1] cos(π k / N), k = k2·N1 + k1
   const float* unts;  // -sin
   const float* rotc;  // [batch, N]
@@ -1309,129 +1334,177 @@ __device__ __forceinline__ void ring_loop(T* ring, int slot, int n_k, Load load,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The epilogue of two adjacent k1 of one k2 (ch, ch + 1): each stream's re =
-// cos.tr - (-sin.ti), im = cos.ti + (-sin.tr) from its four sums s[q][0..3];
-// X = E + exp(-iπk/N)·O; the rotation; the requant; the int8 pair at o.
+// One (k2, k1)'s epilogue: each stream's re = cos.tr - (-sin.ti), im =
+// cos.ti + (-sin.tr) from its four sums s[q][0..3]; X = E + exp(-iπk/N)·O
+// (u_c, u_s); the rotation (r_c, r_s); the requant: the (re, im) codes.
+__device__ __forceinline__ char2 dit_point(const float (&s)[2][4], float u_c, float u_s,
+                                           float r_c, float r_s) {
+  const float er = __fsub_rn(s[0][0], s[0][1]);
+  const float ei = __fadd_rn(s[0][2], s[0][3]);
+  const float orr = __fsub_rn(s[1][0], s[1][1]);
+  const float oi = __fadd_rn(s[1][2], s[1][3]);
+  const float xr = __fsub_rn(__fadd_rn(er, __fmul_rn(u_c, orr)), __fmul_rn(u_s, oi));
+  const float xi = __fadd_rn(__fadd_rn(ei, __fmul_rn(u_c, oi)), __fmul_rn(u_s, orr));
+  return make_char2(requant(__fsub_rn(__fmul_rn(xr, r_c), __fmul_rn(xi, r_s))),
+                    requant(__fadd_rn(__fmul_rn(xr, r_s), __fmul_rn(xi, r_c))));
+}
+
+// The epilogue of two adjacent k1 of one k2 (ch, ch + 1), the sums s[e] of
+// k1 ch + e: the int8 pair at o.
 __device__ __forceinline__ void stage_b_store(const StageBParams& p, long long o, int ch,
                                               long long rbase, const float (&s)[2][2][4]) {
   const float2 uc = __ldg(reinterpret_cast<const float2*>(p.untc + ch));
   const float2 us = __ldg(reinterpret_cast<const float2*>(p.unts + ch));
   const float2 rc = __ldg(reinterpret_cast<const float2*>(p.rotc + rbase + ch));
   const float2 rs = __ldg(reinterpret_cast<const float2*>(p.rots + rbase + ch));
-  int8_t v[2][2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const float er = __fsub_rn(s[e][0][0], s[e][0][1]);
-    const float ei = __fadd_rn(s[e][0][2], s[e][0][3]);
-    const float orr = __fsub_rn(s[e][1][0], s[e][1][1]);
-    const float oi = __fadd_rn(s[e][1][2], s[e][1][3]);
-    const float u_c = e ? uc.y : uc.x, u_s = e ? us.y : us.x;
-    const float r_c = e ? rc.y : rc.x, r_s = e ? rs.y : rs.x;
-    const float xr = __fsub_rn(__fadd_rn(er, __fmul_rn(u_c, orr)), __fmul_rn(u_s, oi));
-    const float xi = __fadd_rn(__fadd_rn(ei, __fmul_rn(u_c, oi)), __fmul_rn(u_s, orr));
-    v[0][e] = requant(__fsub_rn(__fmul_rn(xr, r_c), __fmul_rn(xi, r_s)));
-    v[1][e] = requant(__fadd_rn(__fmul_rn(xr, r_s), __fmul_rn(xi, r_c)));
-  }
-  *reinterpret_cast<char2*>(p.outr + o) = make_char2(v[0][0], v[0][1]);
-  *reinterpret_cast<char2*>(p.outi + o) = make_char2(v[1][0], v[1][1]);
+  const char2 v0 = dit_point(s[0], uc.x, us.x, rc.x, rs.x);
+  const char2 v1 = dit_point(s[1], uc.y, us.y, rc.y, rs.y);
+  *reinterpret_cast<char2*>(p.outr + o) = make_char2(v0.x, v1.x);
+  *reinterpret_cast<char2*>(p.outi + o) = make_char2(v0.y, v1.y);
 }
 
-// Stage B, bf16: per stream the four products of a [64 k2 x 32 k1] tile over
-// n2, chained through the MMAs' accumulators (as the DFT pass's stage B),
-// then the epilogue.
-__global__ void __launch_bounds__(TP_THREADS, 2) dit_stage_b_kernel(StageBParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int n1 = p.n1, n2 = p.n2, w2 = 2 * n2, n = n1 * n2;
-  const StageTile w = stage_tile(p, SB_M, SB_N);  // rows: k2; columns: k1
-  const long long mat = w.m * n1 * static_cast<long long>(w2);
-  const bf16* d2c = static_cast<const bf16*>(p.d2c) + static_cast<long long>(w.r0) * n2;
-  const bf16* d2s = static_cast<const bf16*>(p.d2s) + static_cast<long long>(w.r0) * n2;
-  const bf16* tr = static_cast<const bf16*>(p.tr) + mat + static_cast<long long>(w.c0) * w2;
-  const bf16* ti = static_cast<const bf16*>(p.ti) + mat + static_cast<long long>(w.c0) * w2;
-  const int wr = (warp / 2) * 16, wc = (warp % 2) * 16;  // the warp's k2 rows, k1 columns
-  float acc[64];  // [stream q][sum s][n8 j][4] at q * 32 + s * 8 + j * 4
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+// Stage B, bf16, on wgmma: the output tiles' walk and each call's maps.
+struct DbParams {
+  int8_t* outr;  // [m, N]
+  int8_t* outi;
+  int n_spectra, n1, n2;
+  int n_k2, n_k1;  // a spectrum's 128-row k2 tiles and 32-column k1 tiles
+  int n_kb;        // K slots a tile: N2 / 64
+  int n_tiles;     // m * n_k1 * n_k2
+};
 
-  auto load = [&](int kt, bf16* slot) {
-    // [SB_M x SB_K] of the cos rows, then of the -sin rows; then [SB_N x
-    // 2·SB_K] of T re, then of T im (both streams' SB_K n2, interleaved).
-#pragma unroll 1
-    for (int i = threadIdx.x; i < 2 * SB_M * (SB_K / 8); i += TP_THREADS) {
-      const int mm = i / (SB_M * (SB_K / 8)), j = i % (SB_M * (SB_K / 8));
-      const int r = j / (SB_K / 8), q = j % (SB_K / 8);
-      cp_async16(slot + (mm * SB_M + r) * SB_DLD + q * 8,
-                 (mm ? d2s : d2c) + (static_cast<long long>(r) * n2 + kt * SB_K + q * 8));
-    }
-    bf16* st = slot + 2 * SB_M * SB_DLD;
-#pragma unroll 1
-    for (int i = threadIdx.x; i < 2 * SB_N * (2 * SB_K / 8); i += TP_THREADS) {
-      const int mm = i / (SB_N * (2 * SB_K / 8)), j = i % (SB_N * (2 * SB_K / 8));
-      const int r = j / (2 * SB_K / 8), q = j % (2 * SB_K / 8);
-      cp_async16(st + (mm * SB_N + r) * SB_TLD + q * 8,
-                 (mm ? ti : tr) + (static_cast<long long>(r) * w2 + 2 * kt * SB_K + q * 8));
-    }
-  };
-  auto compute = [&](const bf16* slot) {
-    const bf16* sC = slot;
-    const bf16* sS = slot + SB_M * SB_DLD;
-    const bf16* sTr = slot + 2 * SB_M * SB_DLD;
-    const bf16* sTi = sTr + SB_N * SB_TLD;
-#pragma unroll
-    for (int kk = 0; kk < SB_K; kk += 16) {
-      uint32_t fc[4], fs[4];
-      {
-        const int r = wr + lane % 16, c = kk + (lane / 16) * 8;
-        ldsm_x4(fc, sC + r * SB_DLD + c);
-        ldsm_x4(fs, sS + r * SB_DLD + c);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // T row k1 = wc + j * 8 + g: n2 = kk + 2·tig and + 1 (b0), + 8 and
-        // + 9 (b1). A 32-bit word holds one n2 of both streams; the even
-        // stream's halves of two words make its fragment register, the odd
-        // stream's the other.
-        const int o = (wc + j * 8 + g) * SB_TLD + 2 * kk + 4 * tig;
-        const uint2 rl = *reinterpret_cast<const uint2*>(sTr + o);
-        const uint2 rh = *reinterpret_cast<const uint2*>(sTr + o + 16);
-        const uint2 il = *reinterpret_cast<const uint2*>(sTi + o);
-        const uint2 ih = *reinterpret_cast<const uint2*>(sTi + o + 16);
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const unsigned sel = q ? 0x7632u : 0x5410u;
-          const uint32_t r0 = __byte_perm(rl.x, rl.y, sel), r1 = __byte_perm(rh.x, rh.y, sel);
-          const uint32_t i0 = __byte_perm(il.x, il.y, sel), i1 = __byte_perm(ih.x, ih.y, sel);
-          float* a = acc + q * 32 + j * 4;  // sum s at a + s * 8
-          mma16816(a + 0 * 8, fc, r0, r1);
-          mma16816(a + 1 * 8, fs, i0, i1);
-          mma16816(a + 2 * 8, fc, i0, i1);
-          mma16816(a + 3 * 8, fs, r0, r1);
+// 2-D tensor maps, 128-byte swizzle: T re, im viewed [m * 2 * N1, N2] (row
+// (spectrum, stream, k1); boxes 32 rows x 64 columns), the N2-point cos and
+// -sin [N2, N2] (64 x 64), the f32 combine factors [N2, N1] and the rotation
+// planes viewed [batch * N2, N1] (row b N2 + k2, column k1; 64 rows x 32
+// columns).
+struct DbMaps {
+  CUtensorMap tr, ti, d2c, d2s, untc, unts, rotc, rots;
+};
+
+// A tile is 128 k2 x 32 k1 of one spectrum. The producer walks each tile's
+// K slots, then the two consumers' epilogue slots. A consumer warpgroup (cw
+// 0 or 1) takes its 64 k2: [cos rows] x [tr_e | ti_e | tr_o | ti_o] in one
+// fragment and [-sin rows] x the same in the other (m64n128k16 from shared
+// memory, twice a k-step), chained over n2, one group left in flight while
+// the next slot's run. A thread then holds all eight sums of its (k2, k1)
+// points: fragment element (row k2 16 wq + g + 8 hh, column 8 j + 2 t + e),
+// T block j / 4 (tr_e, ti_e, tr_o, ti_o), k1 8 (j % 4) + 2 t + e.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    dit_stage_b_kernel(const DbParams p, const __grid_constant__ DbMaps maps) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  uint32_t full, empty;
+  const uint32_t ring = tp_ring_init(wg_smem, full, empty);
+  const int n1 = p.n1, n2 = p.n2;
+  const int wg = threadIdx.x / 128;
+  const int my_tiles = (p.n_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    WgRing r;
+    for (int i = 0; i < my_tiles; ++i) {
+      const TpTile u = tp_tile(blockIdx.x + i * gridDim.x, p.n_k2, p.n_k1);
+      const int k2b = 128 * u.c, k1b = 32 * u.r;
+      for (int kb = 0; kb < p.n_kb; ++kb, r.next(TP_STAGES)) {
+        wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+        const uint32_t s = ring + r.slot * TP_SLOT, bar = full + 8 * r.slot;
+        wg_mbar_expect(bar, TP_SLOT);
+        for (int a = 0; a < 2; ++a) {
+          wg_tma(s + 2 * a * TP_BOX, &maps.d2c, 64 * kb, k2b + 64 * a, bar);
+          wg_tma(s + (2 * a + 1) * TP_BOX, &maps.d2s, 64 * kb, k2b + 64 * a, bar);
+        }
+        for (int x = 0; x < 4; ++x) {
+          wg_tma(s + DB_T + x * DB_TBOX, x % 2 ? &maps.ti : &maps.tr, 64 * kb,
+                 (2 * u.spec + x / 2) * n1 + k1b, bar);
         }
       }
-    }
-  };
-  ring_loop<SB_STAGES>(ring, SB_SLOT, n2 / SB_K, load, compute);
-
-  const long long rbase = (w.m / p.n_spectra) * n;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int ch = (w.r0 + wr + g + hh * 8) * n1 + w.c0 + wc + j * 8 + tig * 2;
-      float s[2][2][4];  // [k1 e][stream q][sum]
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) s[e][q][k] = acc[q * 32 + k * 8 + j * 4 + hh * 2 + e];
-        }
+      // Each consumer's epilogue operands, a slot each.
+      for (int w = 0; w < 2; ++w, r.next(TP_STAGES)) {
+        wg_mbar_wait(empty + 8 * r.slot, r.phase ^ 1);
+        const uint32_t s = ring + r.slot * TP_SLOT, bar = full + 8 * r.slot;
+        wg_mbar_expect(bar, 4 * TP_BOX);
+        const int k2 = k2b + 64 * w, rrow = (u.spec / p.n_spectra) * n2 + k2;
+        wg_tma(s, &maps.untc, k1b, k2, bar);
+        wg_tma(s + TP_BOX, &maps.unts, k1b, k2, bar);
+        wg_tma(s + 2 * TP_BOX, &maps.rotc, k1b, rrow, bar);
+        wg_tma(s + 3 * TP_BOX, &maps.rots, k1b, rrow, bar);
       }
-      stage_b_store(p, w.m * n + ch, ch, rbase, s);
     }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  const int cw = wg - 1, wt = threadIdx.x - 128 * wg;
+  const int wq = wt / 32, lane = wt % 32, g = lane / 4, t = lane % 4;
+  WgRing r;
+  for (int i = 0; i < my_tiles; ++i) {
+    const TpTile u = tp_tile(blockIdx.x + i * gridDim.x, p.n_k2, p.n_k1);
+    float fc[64], fs[64];
+#pragma unroll
+    for (int k = 0; k < 64; ++k) fc[k] = fs[k] = 0.f;
+    // A slot is released once the next slot's wgmmas are issued and its own
+    // have completed: one group stays in flight.
+    int held = 0;
+    wg_hold(fc);
+    wg_hold(fs);
+    for (int kb = 0; kb < p.n_kb; ++kb, r.next(TP_STAGES)) {
+      wg_mbar_wait(full + 8 * r.slot, r.phase);
+      const uint32_t s = ring + r.slot * TP_SLOT;
+      const uint32_t dc = s + 2 * cw * TP_BOX, ds = dc + TP_BOX, tk = s + DB_T;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int acc = kb > 0 || ks > 0;
+        Wgmma<128>::template run<0>(fc, wg_desc_k(dc + ks * 32), wg_desc_k(tk + ks * 32), acc);
+        Wgmma<128>::template run<0>(fs, wg_desc_k(ds + ks * 32), wg_desc_k(tk + ks * 32), acc);
+      }
+      wg_commit();
+      wg_wait<1>();
+      if (kb > 0 && wt == 0) wg_mbar_arrive(empty + 8 * held);
+      held = r.slot;
+    }
+    wg_wait<0>();
+    wg_hold(fc);
+    wg_hold(fs);
+    if (wt == 0) wg_mbar_arrive(empty + 8 * held);
+    int ep_slot = 0;
+    const uint32_t ep = tp_own_slot(r, ring, full, empty, cw, wt, ep_slot);
+    // Each stream's sums [cos.tr, -sin.ti, cos.ti, -sin.tr] of k1 8 jj + 2 t
+    // + e, its combine factors and rotation values from the staged slot (the
+    // pair e = 0, 1 at once), then the codes, as a pair along k1.
+    const long long obase = static_cast<long long>(u.spec) * n1 * n2 + 32 * u.r;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k2 = 16 * wq + g + 8 * hh, k1 = 8 * jj + 2 * t;
+        const float2 uc = wg_ld_f2(wg_f32_at(ep, k2, k1));
+        const float2 us = wg_ld_f2(wg_f32_at(ep + TP_BOX, k2, k1));
+        const float2 rc = wg_ld_f2(wg_f32_at(ep + 2 * TP_BOX, k2, k1));
+        const float2 rs = wg_ld_f2(wg_f32_at(ep + 3 * TP_BOX, k2, k1));
+        char2 v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float sm[2][4];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int fr = 4 * (jj + 8 * q) + 2 * hh + e, fi = fr + 16;  // T re, T im
+            sm[q][0] = fc[fr];
+            sm[q][1] = fs[fi];
+            sm[q][2] = fc[fi];
+            sm[q][3] = fs[fr];
+          }
+          v[e] = dit_point(sm, e ? uc.y : uc.x, e ? us.y : us.x, e ? rc.y : rc.x,
+                           e ? rs.y : rs.x);
+        }
+        const long long o = obase + static_cast<long long>(128 * u.c + 64 * cw + k2) * n1 + k1;
+        *reinterpret_cast<char2*>(p.outr + o) = make_char2(v[0].x, v[1].x);
+        *reinterpret_cast<char2*>(p.outi + o) = make_char2(v[0].y, v[1].y);
+      }
+    }
+    wg_warpgroup_sync(cw);  // every thread's epilogue operands are read
+    if (wt == 0) wg_mbar_arrive(empty + 8 * ep_slot);
   }
 }
 
@@ -1522,15 +1595,17 @@ __global__ void __launch_bounds__(TP_THREADS, 1) dit_stage_b_f32_kernel(StageBPa
 }
 
 // Whether the three-pass tiles cover N1 x N2 (both stage Bs; K1's stage A
-// checks its own at N1 x 2·N2): powers of two, N1 a multiple of the 32-k1
-// tiles and at least K1's 64-row stage-A tile, N2 / 2 a multiple of the
-// 64-k2 tiles, and the indices in 32 bits (N1 <= 2^15, 2·N2 <= 2^15).
+// checks its own at N1 x 2·N2): powers of two, N1 a multiple of the bf16
+// body's 64-k1 tiles (and of the f32 body's 32) and at least K1's 64-row
+// stage-A tile, N2 / 2 a multiple of the 64-k2 tiles (the bf16 body's, and
+// the f32 body's within a half of k2), and the indices in 32 bits (N1 <=
+// 2^15, 2·N2 <= 2^15).
 bool three_pass_split(int n1, int n2) {
   return n1 >= 64 && n1 <= (1 << 15) && (n1 & (n1 - 1)) == 0 && n2 >= 128 && n2 <= (1 << 14) &&
          (n2 & (n2 - 1)) == 0;
 }
 
-// Launches a stage-B kernel, one block a tile.
+// Launches the f32 stage-B kernel, one block a tile.
 template <typename K>
 cudaError_t launch_stage_b(K kern, const StageBParams& p, long long tiles, size_t smem,
                            cudaStream_t stream) {
@@ -1761,26 +1836,40 @@ extern "C" int dit_dft_f32_attributes(int n1, int n2, void* out) {
   });
 }
 
-// The three-pass route's stage B: T re, im as K1's stage A writes them on
-// the [N1, 2·N2] view (bf16 [batch, n_spectra, N1, 2·N2], 16-byte aligned)
-// -> outputs [batch, n_spectra, N] int8; d2c/d2s the bf16 [N2, N2] cos and
-// -sin, untc/unts the f32 combine factors [N2, N1], rotc/rots [batch, N]
-// (8-byte aligned). Returns -1 where the route's tiles do not cover the
-// split.
+// The three-pass route's stage B: T re, im as K7's stage A writes them (bf16
+// [batch, n_spectra, 2, N1, N2], each stream's plane) -> outputs [batch,
+// n_spectra, N] int8; d2c/d2s the bf16 [N2, N2] cos and -sin, untc/unts the
+// f32 combine factors [N2, N1], rotc/rots [batch, N] (T, the matrices, the
+// factors and the rotation planes 16-byte aligned). Returns -1 where the
+// route's tiles do not cover the split.
 extern "C" int dit_stage_b_launch(const void* tr, const void* ti, const void* d2c,
                                   const void* d2s, const void* untc, const void* unts,
                                   const void* rotc, const void* rots, void* outr, void* outi,
                                   int batch, int n_spectra, int n1, int n2, void* stream) {
   if (batch < 1 || n_spectra < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (!three_pass_split(n1, n2)) return NO_PLAN;
-  const StageBParams p{tr, ti, d2c, d2s,
-                       static_cast<const float*>(untc), static_cast<const float*>(unts),
-                       static_cast<const float*>(rotc), static_cast<const float*>(rots),
-                       static_cast<int8_t*>(outr), static_cast<int8_t*>(outi),
-                       n_spectra, n1, n2, n1 / SB_N, n2 / SB_M};
-  const long long tiles = static_cast<long long>(batch) * n_spectra * p.n_ct * p.n_rt;
+  for (const void* ptr : {tr, ti, d2c, d2s, untc, unts, rotc, rots}) {
+    if (!aligned_to(ptr, 16)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!aligned_to(outr, 2) || !aligned_to(outi, 2)) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned long long rows = 2ULL * batch * n_spectra * n1;
+  const unsigned long long rot_rows = static_cast<unsigned long long>(batch) * n2;
+  const long long tiles = static_cast<long long>(batch) * n_spectra * (n1 / 32) * (n2 / 128);
+  if (rows > 0x7fffffffULL || rot_rows > 0x7fffffffULL || tiles > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DbMaps maps{};
+  if (!wg_map(maps.tr, tr, n2, rows, 32) || !wg_map(maps.ti, ti, n2, rows, 32) ||
+      !wg_map(maps.d2c, d2c, n2, n2, 64) || !wg_map(maps.d2s, d2s, n2, n2, 64) ||
+      !wg_map(maps.untc, untc, n1, n2, 64, true) || !wg_map(maps.unts, unts, n1, n2, 64, true) ||
+      !wg_map(maps.rotc, rotc, n1, rot_rows, 64, true) ||
+      !wg_map(maps.rots, rots, n1, rot_rows, 64, true)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const DbParams p{static_cast<int8_t*>(outr), static_cast<int8_t*>(outi), n_spectra, n1, n2,
+                   n2 / 128, n1 / 32, n2 / 64, static_cast<int>(tiles)};
   return static_cast<int>(
-      launch_stage_b(dit_stage_b_kernel, p, tiles, SB_SMEM, static_cast<cudaStream_t>(stream)));
+      launch_tp_wg(dit_stage_b_kernel, p, maps, static_cast<cudaStream_t>(stream)));
 }
 
 // Stage B with f32 operands: T re, im transposed as K1's f32 stage A writes
@@ -1793,7 +1882,7 @@ extern "C" int dit_stage_b_f32_launch(const void* tr, const void* ti, const void
                                       int n_spectra, int n1, int n2, void* stream) {
   if (batch < 1 || n_spectra < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (!three_pass_split(n1, n2)) return NO_PLAN;
-  const StageBParams p{tr, ti, d2h, nullptr,
+  const StageBParams p{tr, ti, d2h,
                        static_cast<const float*>(untc), static_cast<const float*>(unts),
                        static_cast<const float*>(rotc), static_cast<const float*>(rots),
                        static_cast<int8_t*>(outr), static_cast<int8_t*>(outi),
@@ -1804,10 +1893,12 @@ extern "C" int dit_stage_b_f32_launch(const void* tr, const void* ti, const void
 }
 
 // Each stage-B body at N1 x N2, -1 where the route's tiles do not cover the
-// split: out int[9] as K1's k1_stage_*_attributes give theirs.
+// split: bf16, out int[11] as K1's k1_stage_b_attributes gives it (tile rows
+// k2, columns k1; the sums chained over all N2 products); f32, out int[9] as
+// k1_stage_b_f32_attributes.
 extern "C" int dit_stage_b_attributes(int n1, int n2, void* out) {
   if (!three_pass_split(n1, n2)) return NO_PLAN;
-  return stage_b_attributes(dit_stage_b_kernel, SB_SMEM, SB_M, SB_N, SB_K, SB_STAGES, out);
+  return wg_stage_attributes(dit_stage_b_kernel, 128, 32, n2, out);
 }
 
 extern "C" int dit_stage_b_f32_attributes(int n1, int n2, void* out) {

@@ -55,9 +55,9 @@ it is two passes: the FIR pass, then :func:`dit_dft` (tensor cores) or
 :func:`dit_dft_f32` (register-blocked FFMA, exact f32). Where it has none
 (bf16 N2 >= 2048, f32 N2 >= 1024) it is three: the FIR pass, stage A
 (:func:`dit_stage_a`, :func:`dit_stage_a_f32`: K1's stage-A kernels on the
-plane's ``[N1, 2·N2]`` view, T into device memory) and stage B
-(:func:`dit_stage_b`, :func:`dit_stage_b_f32`). The plain versions
-(:func:`k1_fir_reference`, :func:`dit_dft_reference`,
+plane's ``[N1, 2·N2]`` view, T into device memory, in bf16 as each stream's
+plane) and stage B (:func:`dit_stage_b`, :func:`dit_stage_b_f32`). The plain
+versions (:func:`k1_fir_reference`, :func:`dit_dft_reference`,
 :func:`dit_dft_f32_reference`; :func:`dit_stage_a_reference` and
 :func:`dit_stage_b_reference`, which compose to those two) compose to
 :func:`fengine_dit_reference`. A split no route takes raises.
@@ -1739,11 +1739,32 @@ def dit_stage_b_reference(
     return _dit_streams_b(even, odd, rotc, rots, n1, n2, rnd)
 
 
+def _dit_t_layout(n1: int, n2: int, dtype: torch.dtype) -> tuple[int, ...]:
+    """A spectrum's T planes as K7's three-pass kernels keep them: ``(2, N1,
+    N2)`` in bf16, each stream's plane (stage B reads T rows of k1 as wgmma's
+    K-major operand); ``(2·N2, N1)`` in f32, row ``2·n2 + q`` (the FFMA stage
+    B reads 4 k1 of an n2 at once)."""
+    return (2, n1, n2) if dtype == torch.bfloat16 else (2 * n2, n1)
+
+
+def _dit_planes(t: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """bf16 T ``[B, S, N1, 2·N2]`` (column ``2·n2 + q`` stream q's n2) as
+    each stream's plane, ``[B, S, 2, N1, N2]`` (a copy)."""
+    return t.reshape(*t.shape[:2], n1, n2, 2).permute(0, 1, 4, 2, 3).contiguous()
+
+
+def _dit_interleaved(t: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """The stream planes ``[B, S, 2, N1, N2]`` back as ``[B, S, N1, 2·N2]``
+    (a copy): :func:`_dit_planes` undone."""
+    return t.permute(0, 1, 3, 4, 2).reshape(*t.shape[:2], n1, 2 * n2)
+
+
 def _dit_stage_a_pass(plane, tr, ti, *, n1, n2) -> None:
     """K7's stage A from ``plane`` ``[G, S, fft]`` into ``tr``/``ti`` (CUDA
-    tensors of the operand type, 16-byte aligned, checked by the caller):
-    K1's stage-A kernel on the ``[N1, 2·N2]`` view with the column-doubled
-    twiddles (:func:`_dit_tw2`); counted on :func:`dit_stage_a` or
+    tensors of the operand type laid out as :func:`_dit_t_layout` says,
+    16-byte aligned, checked by the caller): K1's stage-A body on the ``[N1,
+    2·N2]`` view with the column-doubled twiddles (:func:`_dit_tw2`), its
+    bf16 form storing each stream's plane; counted on :func:`dit_stage_a` or
     :func:`dit_stage_a_f32`."""
     f32 = plane.dtype == torch.float32
     dev = str(plane.device)
@@ -1753,7 +1774,7 @@ def _dit_stage_a_pass(plane, tr, ti, *, n1, n2) -> None:
     else:
         d1c, d1s = _dit_bf16(n1, n2, dev)[:2]
     twc, tws = _dit_tw2(n1, n2, dev)
-    what = "k1_stage_a_f32_launch" if f32 else "k1_stage_a_launch"
+    what = "k1_stage_a_f32_launch" if f32 else "dit_stage_a_launch"
     _stage_call(what, n1, 2 * n2, plane.data_ptr(), d1c.data_ptr(), d1s.data_ptr(),
                 twc.data_ptr(), tws.data_ptr(), tr.data_ptr(), ti.data_ptr(),
                 plane.shape[0] * plane.shape[1], n1, 2 * n2,
@@ -1763,11 +1784,11 @@ def _dit_stage_a_pass(plane, tr, ti, *, n1, n2) -> None:
 
 def _dit_stage_b_pass(tr, ti, rotc, rots, outr, outi, *, n1, n2) -> None:
     """K7's stage B from ``tr``/``ti`` (as :func:`_dit_stage_a_pass` writes
-    them) into ``outr``/``outi`` ``[G, S, N]`` (CUDA tensors, 16-byte
-    aligned T, checked by the caller); counted on :func:`dit_stage_b` or
-    :func:`dit_stage_b_f32`."""
+    them) into ``outr``/``outi`` ``[G, S, N]`` (CUDA tensors, T and the
+    outputs 16-byte aligned, checked by the caller); counted on
+    :func:`dit_stage_b` or :func:`dit_stage_b_f32`."""
     f32 = tr.dtype == torch.float32
-    rotc, rots = (r.clone() if r.data_ptr() % 8 else r for r in (rotc, rots))  # read as float2
+    rotc, rots = (_aligned(r) for r in (rotc, rots))  # TMA boxes (bf16), float2 reads (f32)
     dev = str(tr.device)
     k = dit_constants(n1, n2, dev)
     d2 = (_dit_d2h(n1, n2, dev),) if f32 else _dit_bf16(n1, n2, dev)[2:]
@@ -1791,12 +1812,12 @@ def _dit_stage_a_call(what, plane, n1, n2, dft_dtype):
                          f"{n1}, {n2}, {fft}")
     dtype = torch.bfloat16 if dft_dtype == "bfloat16" else torch.float32
     _check(what, plane, (("plane", plane, dtype, None),))
-    tr, ti = (torch.empty((batch, n_spectra, *_t_layout(n1, 2 * n2, dtype)), dtype=dtype,
+    tr, ti = (torch.empty((batch, n_spectra, *_dit_t_layout(n1, n2, dtype)), dtype=dtype,
                           device=plane.device) for _ in range(2))
     _dit_stage_a_pass(_aligned(plane), tr, ti, n1=n1, n2=n2)
     if dtype == torch.float32:
         return tr.transpose(-1, -2), ti.transpose(-1, -2)  # views [B, S, N1, 2·N2]
-    return tr, ti
+    return _dit_interleaved(tr, n1, n2), _dit_interleaved(ti, n1, n2)
 
 
 def _dit_stage_b_call(what, tr, ti, rotc, rots, n1, n2, dft_dtype):
@@ -1813,7 +1834,9 @@ def _dit_stage_b_call(what, tr, ti, rotc, rots, n1, n2, dft_dtype):
                              f"{(batch, n_spectra, n1, 2 * n2)}")
     if dtype == torch.float32:  # the kernel reads T transposed
         tr, ti = (t.transpose(-1, -2).contiguous() for t in (tr, ti))
-    layout = (batch, n_spectra, *_t_layout(n1, 2 * n2, dtype))
+    else:  # and in bf16 as each stream's plane
+        tr, ti = _dit_planes(tr, n1, n2), _dit_planes(ti, n1, n2)
+    layout = (batch, n_spectra, *_dit_t_layout(n1, n2, dtype))
     _check(what, tr, (
         ("tr", tr, dtype, layout),
         ("ti", ti, dtype, layout),
@@ -1829,8 +1852,9 @@ def _dit_stage_b_call(what, tr, ti, rotc, rots, n1, n2, dft_dtype):
 def dit_stage_a(plane: torch.Tensor, *, n1: int, n2: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K7's three-pass stage A alone, bf16 operands: the bf16 FIR plane
     ``[B, S, fft]`` to bf16 T re and im ``[B, S, N1, 2·N2]`` (K1's
-    ``k1_stage_a_wg_kernel`` on the ``[N1, 2·N2]`` view on CUDA,
-    :func:`dit_stage_a_reference` on CPU)."""
+    ``k1_stage_a_wg_kernel`` on the ``[N1, 2·N2]`` view on CUDA, its
+    stream planes gathered to this layout; :func:`dit_stage_a_reference` on
+    CPU)."""
     return _dit_stage_a_call("dit_stage_a", plane, n1, n2, "bfloat16")
 
 
@@ -1848,8 +1872,8 @@ def dit_stage_b(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K7's three-pass stage B alone, bf16 operands: bf16 T re and im ``[B,
     S, N1, 2·N2]`` and ``rotc``/``rots`` ``[B, N]`` to int8 ``(qr, qi)``
-    ``[B, S, N]`` (the kernel on CUDA, :func:`dit_stage_b_reference` on
-    CPU)."""
+    ``[B, S, N]`` (the kernel on CUDA, on T gathered into each stream's
+    plane; :func:`dit_stage_b_reference` on CPU)."""
     return _dit_stage_b_call("dit_stage_b", tr, ti, rotc, rots, n1, n2, "bfloat16")
 
 
@@ -1866,14 +1890,17 @@ def dit_stage_b_f32(
 def dit_stage_attributes(n1: int, n2: int, dft_dtype: str = "bfloat16") -> dict:
     """The card's view of K7's three-pass stage bodies at N1 x N2
     (``cudaFuncGetAttributes`` and the tiling): ``{"a": ..., "b": ...}``,
-    stage A K1's body at N1 x 2·N2 (with :func:`k1_stage_attributes`'
-    fields), stage B with registers and local (spill) bytes a thread,
-    threads a block, shared-memory bytes, tile rows and columns, K-tile
-    depth, ring stages and blocks an SM."""
+    stage A K1's body at N1 x 2·N2 (in bf16 its stream-plane store), stage B
+    K7's (tile rows k2, columns k1), each with :func:`k1_stage_attributes`'
+    fields: registers and local (spill) bytes a thread, threads a block,
+    shared-memory bytes, tile rows and columns, K depth a ring slot, ring
+    slots and blocks an SM; the bf16 (wgmma) bodies also each sum's group
+    depth in products and the bytes of a ring slot."""
     bf16 = dft_dtype == "bfloat16"
     sfx = "" if bf16 else "_f32"
-    return {"a": _stage_attributes(f"k1_stage_a{sfx}_attributes", n1, 2 * n2, bf16),
-            "b": _stage_attributes(f"dit_stage_b{sfx}_attributes", n1, n2, False)}
+    a = "dit_stage_a_attributes" if bf16 else "k1_stage_a_f32_attributes"
+    return {"a": _stage_attributes(a, n1, 2 * n2, bf16),
+            "b": _stage_attributes(f"dit_stage_b{sfx}_attributes", n1, n2, bf16)}
 
 
 #: Launches of K7's three-pass stages since the last reset (the plain
@@ -1912,7 +1939,7 @@ def _launch_dit(x, window, rotc, rots, *, n1, n2, dft_dtype):
     group = _route_group(body, batch, n_spectra, fft)
     plane = torch.empty((group, n_spectra, fft), dtype=dtype, device=dev)
     if three:
-        tr, ti = (torch.empty((group, n_spectra, *_t_layout(n1, 2 * n2, dtype)), dtype=dtype,
+        tr, ti = (torch.empty((group, n_spectra, *_dit_t_layout(n1, n2, dtype)), dtype=dtype,
                               device=dev) for _ in range(2))
     flat = x.view(batch, n_frames * fft)
     starts = torch.zeros(batch, dtype=torch.int64, device=dev)

@@ -1640,14 +1640,52 @@ def test_k7_three_passes_span_plane_groups(dev, monkeypatch, dft_dtype):
                                               (1024, 1024, "float32"), (2048, 1024, "float32"),
                                               (2048, 2048, "float32")])
 def test_k7_three_pass_bodies_show_no_spills(dev, n1, n2, dft_dtype):
-    """The three-pass stage bodies (K1's stage A at N1 x 2·N2, K7's stage B)
-    spill nothing; bf16 stage B runs two blocks an SM within 128 registers."""
+    """The three-pass stage bodies (K1's stage A at N1 x 2·N2, in bf16 its
+    stream-plane store; K7's stage B) spill nothing; bf16 stage B is the
+    wgmma body: 128 k2 x 32 k1 a tile, one persistent 384-thread block an SM
+    (168 registers at launch, setmaxnreg then gives its consumers 232), its
+    sums chained over all N2 products; f32 stage B 64 k2 x 32 k1 a tile."""
     at = ff.dit_stage_attributes(n1, n2, dft_dtype)
     for stage in "ab":
         assert at[stage]["local_bytes"] == 0, at
-    assert (at["b"]["tile_rows"], at["b"]["tile_cols"]) == (64, 32), at
     if dft_dtype == "bfloat16":
-        assert at["b"]["regs"] <= 128 and at["b"]["blocks_per_sm"] == 2, at
+        b = at["b"]
+        assert (b["tile_rows"], b["tile_cols"]) == (128, 32), at
+        assert b["threads"] == 384 and b["regs"] <= 168 and b["blocks_per_sm"] == 1, at
+        assert b["group_products"] == n2 and b["smem_bytes"] <= 232448, at
+    else:
+        assert (at["b"]["tile_rows"], at["b"]["tile_cols"]) == (64, 32), at
+
+
+def test_k7_stage_b_body_is_wgmma_in_sass(dev):
+    """The built library's ``dit_stage_b_kernel`` (``cuobjdump -sass``)
+    issues HGMMA (wgmma) and no HMMA.16816 (mma.sync m16n8k16)."""
+    from chip_smoke import _k1_dft_sass
+
+    sass = {k: v for k, v in _k1_dft_sass().items() if "dit_stage_b_kernel" in k}
+    assert len(sass) == 1, sass
+    (hgmma, hmma), = sass.values()
+    assert hgmma > 0 and hmma == 0, sass
+
+
+def test_k7_stage_b_upper_k2_bins_at_4096_x_2048(dev):
+    """Stage B at 4096 x 2048 (fft 2^24) on plain T: every bin of k2 >= N2/2
+    (the half K1's stage B never writes) against ``dit_stage_b_reference``,
+    within 1 code on <= 1e-3, and the whole output likewise."""
+    fft, n1, n2 = 1 << 24, 4096, 2048
+    assert ff._deint_mode(fft // 2, "matmul")[1:] == (n1, n2)
+    frames, win, rc, rs = (t.to(dev) for t in _k7_streams(fft, 1, 1, 2, seed=24))
+    plane = ff.k1_fir(frames.view(1, -1), torch.zeros(1, dtype=torch.int64, device=dev), win,
+                      n_spectra=1)
+    wr, wi = ff.dit_stage_a_reference(plane, n1=n1, n2=n2)
+    before = ff.dit_stage_b.launches
+    got = ff.dit_stage_b(wr.contiguous(), wi.contiguous(), rc, rs, n1=n1, n2=n2)
+    assert ff.dit_stage_b.launches == before + 1
+    upper = slice((n2 // 2) * n1, n2 * n1)
+    for g, r in zip(got, ff.dit_stage_b_reference(wr, wi, rc, rs, n1=n1, n2=n2)):
+        assert g.shape == r.shape == (1, 1, n1 * n2)
+        _codes_close(g[..., upper], r[..., upper])
+        _codes_close(g, r)
 
 
 def test_k7_two_pass_takes_unaligned_rotation_planes(dev):

@@ -414,9 +414,10 @@ def test_three_pass_launches_fir_stage_a_and_stage_b_per_group(monkeypatch, dft_
     """Where the DFT pass has no plan and the stages' tiles cover the split
     (stubbed), a K7 call runs, per group of streams whose plane and T re and
     im fit the scratch, K1's FIR pass, K1's stage-A kernel on the [N1, 2·N2]
-    view (M = group x S spectra, the column-doubled twiddles) and K7's stage
-    B on the T that stage A wrote; it counts one K7 call and one of each of
-    its stages a group (K1's own stage counters stay)."""
+    view (M = group x S spectra, the column-doubled twiddles; in bf16 its
+    entry that stores each stream's plane) and K7's stage B on the T that
+    stage A wrote; it counts one K7 call and one of each of its stages a
+    group (K1's own stage counters stay)."""
     fft, taps, s = 2048, 4, 3
     _, n1, n2 = ff._deint_mode(fft // 2, "matmul")
     f32 = dft_dtype == "float32"
@@ -449,7 +450,8 @@ def test_three_pass_launches_fir_stage_a_and_stage_b_per_group(monkeypatch, dft_
         def _no_plan(n1, n2, out):
             return ff._NO_PLAN
 
-    for name, fn in ((f"k1_fir{sfx}_launch", Lib._fir), (f"k1_stage_a{sfx}_launch", Lib._stage_a),
+    stage_a = "k1_stage_a_f32_launch" if f32 else "dit_stage_a_launch"
+    for name, fn in ((f"k1_fir{sfx}_launch", Lib._fir), (stage_a, Lib._stage_a),
                      (f"dit_stage_b{sfx}_launch", Lib._stage_b),
                      (f"dit_dft{sfx}_attributes", Lib._no_plan),
                      (f"k1_stage_a{sfx}_attributes", Lib._plan),
@@ -549,6 +551,94 @@ def test_dft_pass_gets_aligned_rotation_planes(monkeypatch):
     for i, (rem, vals) in enumerate(seen):
         assert rem == 0
         np.testing.assert_array_equal(vals, want[i % 2].numpy().ravel())
+
+
+@pytest.mark.parametrize("fft, n1, n2", [(1 << 23, 2048, 2048), (1 << 24, 4096, 2048)])
+def test_bf16_fft_2_23_and_2_24_route_to_three_passes(monkeypatch, fft, n1, n2):
+    """bf16 at fft 2^23 and 2^24 takes the three passes: the plan queries
+    stubbed to answer by the C side's rules (the DFT pass has no plan from
+    N2 = 2048; K1's stage A covers N1 x 2·N2 and K7's wgmma stage B N1 x N2
+    where both are powers of two, N1 >= 64, N2 >= 128), each asked once."""
+    asked = []
+
+    def pow2(v):
+        return v > 0 and v & (v - 1) == 0
+
+    def answer(name, covers):
+        def ask(a1, a2, out):
+            asked.append((name, a1, a2))
+            return 0 if covers(a1, a2) else ff._NO_PLAN
+        return staticmethod(ask)
+
+    class Lib:
+        dit_dft_attributes = answer("dit_dft", lambda a1, a2: a2 <= 1024)
+        k1_stage_a_attributes = answer(
+            "k1_stage_a", lambda a1, a2: pow2(a1) and pow2(a2) and a1 >= 64 and a2 >= 128
+            and a2 <= 1 << 15)
+        dit_stage_b_attributes = answer(
+            "dit_stage_b", lambda a1, a2: pow2(a1) and pow2(a2) and 64 <= a1 <= 1 << 15
+            and 128 <= a2 <= 1 << 14)
+
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    assert ff._deint_mode(fft // 2, "matmul")[1:] == (n1, n2)
+    assert ff._dit_body(n1, n2, "bfloat16") == "three_pass"
+    assert ff._dit_body(n1, n2, "bfloat16") == "three_pass"
+    assert asked == [("dit_dft", n1, n2), ("k1_stage_a", n1, 2 * n2), ("dit_stage_b", n1, n2)]
+
+
+@pytest.mark.parametrize("dft_dtype", ["bfloat16", "float32"])
+def test_stage_b_gets_16_byte_aligned_rotation_planes(monkeypatch, dft_dtype):
+    """Rotation planes 4 bytes past a 16-byte boundary reach K7's stage B
+    (the bf16 body stages them by TMA, which takes 16-byte-aligned bases) as
+    aligned copies of the same values (stubbed card)."""
+    n1, n2, b, s = 64, 128, 2, 1
+    n = n1 * n2
+    f32 = dft_dtype == "float32"
+    seen = []
+
+    class Lib:
+        @staticmethod
+        def _launch(*args):
+            for ptr in args[-9:-7]:
+                vals = (ctypes.c_float * (b * n)).from_address(ptr)
+                seen.append((ptr % 16, np.ctypeslib.as_array(vals).copy()))
+            return 0
+
+    setattr(Lib, f"dit_stage_b{'_f32' if f32 else ''}_launch", Lib._launch)
+    monkeypatch.setattr(ff._build, "library", lambda: Lib)
+    _stream0(monkeypatch)
+    rng = np.random.default_rng(28)
+    want = [torch.from_numpy(rng.standard_normal((b, n), dtype=np.float32)) for _ in range(2)]
+    odd = []
+    for w in want:
+        view = torch.empty(b * n + 4)[1:1 + b * n].view(b, n)
+        view.copy_(w)
+        assert view.data_ptr() % 16 == 4
+        odd.append(view)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    tr, ti = (torch.zeros((b, s, *ff._dit_t_layout(n1, n2, dtype)), dtype=dtype)
+              for _ in range(2))
+    outr, outi = (torch.empty((b, s, n), dtype=torch.int8) for _ in range(2))
+    ff._dit_stage_b_pass(tr, ti, *odd, outr, outi, n1=n1, n2=n2)
+    assert [rem for rem, _ in seen] == [0, 0]
+    for (_, vals), w in zip(seen, want):
+        np.testing.assert_array_equal(vals, w.numpy().ravel())
+
+
+@pytest.mark.parametrize("n1, n2", [(64, 128), (128, 256)])
+def test_dit_stream_planes_hold_each_streams_t(n1, n2):
+    """bf16 stage B takes T as each stream's [N1, N2] plane: the planes of
+    ``dit_stage_a_reference``'s T are its columns 2·n2 + q, bit for bit, and
+    gathering them back gives that T."""
+    frames, win, rc, rs = _frames(2 * n1 * n2, 1, seed=n1)
+    plane = ff.k1_fir(frames.reshape(1, -1), torch.zeros(1, dtype=torch.int64), win, n_spectra=S)
+    for t in ff.dit_stage_a_reference(plane, n1=n1, n2=n2):
+        planes = ff._dit_planes(t, n1, n2)
+        assert planes.shape == (1, S, 2, n1, n2) and planes.dtype == torch.bfloat16
+        assert planes.is_contiguous()
+        for q in (0, 1):
+            assert torch.equal(planes[:, :, q], t[..., q::2])
+        assert torch.equal(ff._dit_interleaved(planes, n1, n2), t)
 
 
 def test_dit_dft_on_cpu_is_its_plain_version():
